@@ -1,0 +1,376 @@
+"""DSTAGNN model, dense branch — PyTorch counterpart of
+``dstagnn_drought_tpu/models/dstagnn.py``.
+
+A stack of ST blocks, each = temporal embedding → temporal multi-head
+attention with score residuals → 1×F "pre conv" down to d_model → spatial
+embedding → spatial attention scores → attention-modulated K-order Chebyshev
+graph conv → 3/5/7-kernel gated temporal convs → linear time fusion →
+residual + LayerNorm; block outputs are concatenated along time and go
+through a final conv + linear head to the prediction horizon.
+
+The modules are parameter holders named after the reference's
+``state_dict`` keys, so ``import_torch_state_dict`` of the JAX package reads
+a port ``state_dict`` unchanged and :func:`params_from_jax` maps the other
+way. The forward is written with the JAX package's layouts and does what
+its ``_block_apply``/``apply`` do on the dense branch, including the fixed
+multichannel residual, the ``res_att`` mean when the feature width changes,
+and the ``pinned_out`` tail switch (kernel output and T >= 48 → the
+(B, N, C, T) GTU tail). bfloat16 compute casts parameters and inputs at the
+top of the forward, as the JAX ``apply`` does; no autocast.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from dstagnn_drought_tpu_torch.device import resolve_device
+from dstagnn_drought_tpu_torch.models.layers import init_like_reference_
+from dstagnn_drought_tpu_torch.ops.attention import (
+    spatial_attention_scores,
+    temporal_attention,
+)
+from dstagnn_drought_tpu_torch.ops.cheb import cheb_conv_with_sat
+from dstagnn_drought_tpu_torch.ops.cuda.cheb_sat import cheb_conv_with_sat_pallas
+from dstagnn_drought_tpu_torch.ops.graph import cheb_polynomials, scaled_laplacian
+from dstagnn_drought_tpu_torch.ops.gtu import (
+    _IM2COL_MIN_T,
+    conv2d_nchw,
+    gtu,
+    gtu_bnct,
+)
+from dstagnn_drought_tpu_torch.ops.nn import dropout, layer_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Static model hyperparameters."""
+
+    num_of_vertices: int
+    len_input: int
+    num_for_predict: int
+    num_of_d: int  # input feature count (reference: in_channels doubles as num_of_d)
+    nb_block: int = 4
+    in_channels: int = 1
+    K: int = 3
+    nb_chev_filter: int = 32
+    nb_time_filter: int = 32
+    time_strides: int = 1
+    d_model: int = 512
+    d_k: int = 32
+    d_v: int = -1
+    n_heads: int = 3
+    dropout_rate: float = 0.05
+
+    def __post_init__(self):
+        if self.d_v < 0:
+            object.__setattr__(self, "d_v", self.d_k)
+
+    @property
+    def block_specs(self):
+        """(num_of_d, in_channels) per block: block 1 consumes the raw input,
+        later blocks consume (B, N, nb_time_filter, T)."""
+        first = (self.num_of_d, self.in_channels)
+        rest = (self.nb_time_filter, self.nb_chev_filter)
+        return [first] + [rest] * (self.nb_block - 1)
+
+    @classmethod
+    def from_config(cls, cfg) -> "ModelSpec":
+        t, d = cfg.training, cfg.data
+        return cls(
+            num_of_vertices=d.num_of_vertices,
+            len_input=d.len_input,
+            num_for_predict=d.num_for_predict,
+            num_of_d=t.in_channels,
+            nb_block=t.nb_block,
+            in_channels=t.in_channels,
+            K=t.K,
+            nb_chev_filter=t.nb_chev_filter,
+            nb_time_filter=t.nb_time_filter,
+            time_strides=t.time_strides,
+            d_model=t.d_model,
+            d_k=t.d_k,
+            d_v=t.d_v,
+            n_heads=t.n_heads,
+            dropout_rate=t.dropout,
+        )
+
+
+class _Embed(nn.Module):
+    def __init__(self, n_pos: int, dim: int):
+        super().__init__()
+        self.pos_embed = nn.Embedding(n_pos, dim)
+        self.norm = nn.LayerNorm(dim)
+
+
+class _TAt(nn.Module):
+    def __init__(self, n: int, d_k: int, d_v: int, heads: int):
+        super().__init__()
+        self.W_Q = nn.Linear(n, d_k * heads, bias=False)
+        self.W_K = nn.Linear(n, d_k * heads, bias=False)
+        self.W_V = nn.Linear(n, d_v * heads, bias=False)
+        self.fc = nn.Linear(heads * d_v, n, bias=False)
+        self.layer_norm = nn.LayerNorm(n)
+
+
+class _SAt(nn.Module):
+    def __init__(self, d_model: int, d_k: int, K: int):
+        super().__init__()
+        self.W_Q = nn.Linear(d_model, d_k * K, bias=False)
+        self.W_K = nn.Linear(d_model, d_k * K, bias=False)
+
+
+class _ChebConvSAt(nn.Module):
+    def __init__(self, K: int, c_in: int, c_out: int, n: int):
+        super().__init__()
+        self.Theta = nn.ParameterList(
+            [nn.Parameter(torch.empty(c_in, c_out)) for _ in range(K)])
+        self.mask = nn.ParameterList(
+            [nn.Parameter(torch.empty(n, n)) for _ in range(K)])
+
+
+class _GTU(nn.Module):
+    def __init__(self, c: int, kernel: int, stride: int):
+        super().__init__()
+        self.con2out = nn.Conv2d(c, 2 * c, kernel_size=(1, kernel), stride=(1, stride))
+
+
+class STBlock(nn.Module):
+    """One spatial-temporal block (dense branch)."""
+
+    def __init__(self, spec: ModelSpec, num_of_d: int, in_channels: int):
+        super().__init__()
+        self.spec = spec
+        N, T, C = spec.num_of_vertices, spec.len_input, spec.nb_time_filter
+        self.EmbedT = _Embed(T, N)
+        self.TAt = _TAt(N, spec.d_k, spec.d_v, spec.n_heads)
+        # torch Conv2d(T → d_model, kernel (1, F)) on (B, T, N, F)
+        self.pre_conv = nn.Conv2d(T, spec.d_model, kernel_size=(1, num_of_d))
+        self.EmbedS = _Embed(N, spec.d_model)
+        self.SAt = _SAt(spec.d_model, spec.d_k, spec.K)
+        self.cheb_conv_SAt = _ChebConvSAt(spec.K, in_channels, spec.nb_chev_filter, N)
+        self.gtu3 = _GTU(C, 3, spec.time_strides)
+        self.gtu5 = _GTU(C, 5, spec.time_strides)
+        self.gtu7 = _GTU(C, 7, spec.time_strides)
+        self.fcmy = nn.Sequential(nn.Linear(3 * T - 12, T))
+        self.residual_conv = nn.Conv2d(in_channels, C, kernel_size=(1, 1),
+                                       stride=(1, spec.time_strides))
+        self.ln = nn.LayerNorm(C)
+
+    def forward(self, x, res_att, *, adj_pa, cheb_polys, deterministic,
+                generator, use_pallas):
+        spec = self.spec
+        dt = x.dtype
+        c = lambda t: t.to(dt)  # parameters in the compute dtype
+        B, N, F, T = x.shape
+        if F == 1:
+            # EmbedT: (B,F,T,N) + the positional table, LayerNorm over N
+            te = x.permute(0, 2, 3, 1) + c(self.EmbedT.pos_embed.weight)[None, None]
+            TEmx = layer_norm(te, c(self.EmbedT.norm.weight), c(self.EmbedT.norm.bias))
+        else:
+            TEmx = x.permute(0, 2, 3, 1)  # (B, F, T, N), no embedding
+
+        # score residual: when the feature width changes between blocks
+        # (multichannel input), reduce the incoming scores over that axis
+        if res_att.ndim == 5 and res_att.shape[1] not in (1, F):
+            res_att = res_att.mean(dim=1, keepdim=True)
+
+        TATout, re_at = temporal_attention(
+            TEmx, res_att,
+            wq=c(self.TAt.W_Q.weight).t(), wk=c(self.TAt.W_K.weight).t(),
+            wv=c(self.TAt.W_V.weight).t(), wo=c(self.TAt.fc.weight).t(),
+            ln_scale=c(self.TAt.layer_norm.weight),
+            ln_bias=c(self.TAt.layer_norm.bias),
+            n_heads=spec.n_heads, d_k=spec.d_k, d_v=spec.d_v,
+        )
+
+        # pre_conv: a per-node linear map over (T, F)
+        x_tat = (torch.einsum("bftn,dtf->bnd", TATout,
+                              c(self.pre_conv.weight)[:, :, 0, :])
+                 + c(self.pre_conv.bias))
+        se = x_tat + c(self.EmbedS.pos_embed.weight)[None]
+        SEmx = layer_norm(se, c(self.EmbedS.norm.weight), c(self.EmbedS.norm.bias))
+        SEmx = dropout(SEmx, spec.dropout_rate, generator, deterministic)
+
+        STAt = spatial_attention_scores(
+            SEmx, wq=c(self.SAt.W_Q.weight).t(), wk=c(self.SAt.W_K.weight).t(),
+            n_heads=spec.K, d_k=spec.d_k,
+        )
+        conv = cheb_conv_with_sat_pallas if use_pallas else cheb_conv_with_sat
+        spatial_gcn = conv(
+            x, STAt, adj_pa, cheb_polys=cheb_polys,
+            masks=torch.stack([c(m) for m in self.cheb_conv_SAt.mask]),
+            thetas=torch.stack([c(t) for t in self.cheb_conv_SAt.Theta]),
+        )  # (B, N, C, T)
+
+        gtus = (self.gtu3, self.gtu5, self.gtu7)
+        fcmy = self.fcmy[0]
+        # the kernel's output feeds the (B, N, C, T) tail at long T, as the
+        # JAX package's pinned_out switch does
+        if (use_pallas and spec.time_strides == 1
+                and spatial_gcn.shape[-1] >= _IM2COL_MIN_T):
+            cat = torch.cat(
+                [gtu_bnct(spatial_gcn, c(g.con2out.weight), c(g.con2out.bias),
+                          in_channels=spec.nb_time_filter) for g in gtus],
+                dim=2,
+            )  # (B, N, 3T-12, C)
+            time_conv = (torch.einsum("bnmc,tm->bnct", cat, c(fcmy.weight))
+                         + c(fcmy.bias))  # (B, N, C, T)
+            time_conv = dropout(time_conv, spec.dropout_rate, generator, deterministic)
+            if F == 1:
+                time_conv_output = torch.relu(time_conv)
+            else:
+                time_conv_output = torch.relu(spatial_gcn + time_conv)
+            if F == spec.nb_time_filter:
+                x_residual = x
+            else:
+                x_residual = (
+                    torch.einsum("bnft,cf->bnct", x,
+                                 c(self.residual_conv.weight)[:, :, 0, 0])
+                    + c(self.residual_conv.bias)[None, None, :, None]
+                )
+            y = torch.relu(x_residual + time_conv_output)  # (B, N, C, T)
+            y = layer_norm(y.permute(0, 3, 1, 2), c(self.ln.weight), c(self.ln.bias))
+            return y.permute(0, 2, 3, 1), re_at  # (B, N, C, T)
+
+        X = spatial_gcn.permute(0, 2, 1, 3)  # (B, C, N, T)
+        time_conv = torch.cat(
+            [gtu(X, c(g.con2out.weight), c(g.con2out.bias),
+                 in_channels=spec.nb_time_filter, time_strides=spec.time_strides)
+             for g in gtus],
+            dim=-1,
+        )  # (B, C, N, 3T-12)
+        time_conv = time_conv @ c(fcmy.weight).t() + c(fcmy.bias)
+        time_conv = dropout(time_conv, spec.dropout_rate, generator, deterministic)
+        if F == 1:
+            time_conv_output = torch.relu(time_conv)
+        else:
+            time_conv_output = torch.relu(X + time_conv)
+        if F == spec.nb_time_filter:
+            x_residual = x.permute(0, 2, 1, 3)  # identity residual
+        else:
+            # F == 1 reference path; also the fix for the reference's
+            # multichannel residual-shape defect
+            x_residual = conv2d_nchw(
+                x.permute(0, 2, 1, 3), c(self.residual_conv.weight),
+                c(self.residual_conv.bias), stride=(1, spec.time_strides),
+            )
+        y = torch.relu(x_residual + time_conv_output)  # (B, C, N, T)
+        y = layer_norm(y.permute(0, 3, 2, 1), c(self.ln.weight), c(self.ln.bias))
+        return y.permute(0, 2, 3, 1), re_at  # (B, N, C, T)
+
+
+class DSTAGNN(nn.Module):
+    """x: (B, N, F, T) → (B, N, num_for_predict) float32."""
+
+    def __init__(self, spec: ModelSpec):
+        super().__init__()
+        self.spec = spec
+        self.BlockList = nn.ModuleList(
+            [STBlock(spec, nd, ic) for nd, ic in spec.block_specs])
+        T_cat = (spec.len_input // spec.time_strides) * spec.nb_block
+        self.final_conv = nn.Conv2d(T_cat, 128, kernel_size=(1, spec.nb_time_filter))
+        self.final_fc = nn.Linear(128, spec.num_for_predict)
+
+    def forward(self, x, *, adj_pa, cheb_polys, deterministic: bool = True,
+                generator: torch.Generator | None = None,
+                compute_dtype: torch.dtype = torch.float32,
+                use_pallas: bool = False):
+        x = x.to(compute_dtype)
+        adj_pa = adj_pa.to(compute_dtype)
+        cheb_polys = cheb_polys.to(compute_dtype)
+        c = lambda t: t.to(compute_dtype)
+        res_att = torch.zeros((), dtype=x.dtype, device=x.device)
+        outs = []
+        for block in self.BlockList:
+            x, res_att = block(
+                x, res_att, adj_pa=adj_pa, cheb_polys=cheb_polys,
+                deterministic=deterministic, generator=generator,
+                use_pallas=use_pallas,
+            )
+            outs.append(x)
+        final_x = torch.cat(outs, dim=-1)  # (B, N, C, T·nb_block)
+        # final_conv: Conv2d(T·nb → 128, kernel (1, C))
+        out1 = (torch.einsum("bnct,dtc->bnd", final_x,
+                             c(self.final_conv.weight)[:, :, 0, :])
+                + c(self.final_conv.bias))
+        out = out1 @ c(self.final_fc.weight).t() + c(self.final_fc.bias)
+        return out.float()
+
+
+def make_model(spec: ModelSpec, adj_merge, adj_pa, *, seed: int = 0,
+               device: torch.device | str = "cuda"):
+    """Build (model, constants): scaled Laplacian of the merged graph → K
+    Chebyshev polynomials as constants, and a model initialized like the
+    reference from ``torch.Generator`` seed ``seed`` (drawn on the CPU, so
+    the weights do not depend on the device). ``device`` defaults to
+    ``cuda`` and raises without a card."""
+    device = resolve_device(device)
+    L_tilde = scaled_laplacian(torch.as_tensor(np.asarray(adj_merge), dtype=torch.float32))
+    constants = {
+        "cheb_polys": cheb_polynomials(L_tilde, spec.K).to(device),
+        "adj_pa": torch.as_tensor(np.asarray(adj_pa), dtype=torch.float32).to(device),
+    }
+    model = DSTAGNN(spec)
+    init_like_reference_(model, torch.Generator().manual_seed(seed))
+    return model.to(device), constants
+
+
+# ---------------------------------------------------------------------------
+# weights carried across from the JAX package
+# ---------------------------------------------------------------------------
+
+def params_from_jax(params, spec: ModelSpec) -> dict[str, torch.Tensor]:
+    """The inverse of the JAX package's ``import_torch_state_dict``: a JAX
+    parameter pytree (numpy-convertible leaves) → this model's state_dict."""
+
+    def t(a, transpose=False):
+        a = np.asarray(a, dtype=np.float32)
+        return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+
+    sd = {}
+    for i, b in enumerate(params["blocks"]):
+        pre = f"BlockList.{i}."
+        sd[pre + "EmbedT.pos_embed.weight"] = t(b["embed_t"]["pos"])
+        sd[pre + "EmbedT.norm.weight"] = t(b["embed_t"]["ln_scale"])
+        sd[pre + "EmbedT.norm.bias"] = t(b["embed_t"]["ln_bias"])
+        sd[pre + "TAt.W_Q.weight"] = t(b["tat"]["wq"], True)
+        sd[pre + "TAt.W_K.weight"] = t(b["tat"]["wk"], True)
+        sd[pre + "TAt.W_V.weight"] = t(b["tat"]["wv"], True)
+        sd[pre + "TAt.fc.weight"] = t(b["tat"]["wo"], True)
+        sd[pre + "TAt.layer_norm.weight"] = t(b["tat"]["ln_scale"])
+        sd[pre + "TAt.layer_norm.bias"] = t(b["tat"]["ln_bias"])
+        sd[pre + "pre_conv.weight"] = t(b["pre_conv"]["w"])
+        sd[pre + "pre_conv.bias"] = t(b["pre_conv"]["b"])
+        sd[pre + "EmbedS.pos_embed.weight"] = t(b["embed_s"]["pos"])
+        sd[pre + "EmbedS.norm.weight"] = t(b["embed_s"]["ln_scale"])
+        sd[pre + "EmbedS.norm.bias"] = t(b["embed_s"]["ln_bias"])
+        sd[pre + "SAt.W_Q.weight"] = t(b["sat"]["wq"], True)
+        sd[pre + "SAt.W_K.weight"] = t(b["sat"]["wk"], True)
+        for k in range(spec.K):
+            sd[pre + f"cheb_conv_SAt.Theta.{k}"] = t(np.asarray(b["cheb"]["thetas"])[k])
+            sd[pre + f"cheb_conv_SAt.mask.{k}"] = t(np.asarray(b["cheb"]["masks"])[k])
+        for ksz in (3, 5, 7):
+            sd[pre + f"gtu{ksz}.con2out.weight"] = t(b[f"gtu{ksz}"]["w"])
+            sd[pre + f"gtu{ksz}.con2out.bias"] = t(b[f"gtu{ksz}"]["b"])
+        sd[pre + "fcmy.0.weight"] = t(b["fcmy"]["w"], True)
+        sd[pre + "fcmy.0.bias"] = t(b["fcmy"]["b"])
+        sd[pre + "residual_conv.weight"] = t(b["residual_conv"]["w"])
+        sd[pre + "residual_conv.bias"] = t(b["residual_conv"]["b"])
+        sd[pre + "ln.weight"] = t(b["ln"]["scale"])
+        sd[pre + "ln.bias"] = t(b["ln"]["bias"])
+    sd["final_conv.weight"] = t(params["final_conv"]["w"])
+    sd["final_conv.bias"] = t(params["final_conv"]["b"])
+    sd["final_fc.weight"] = t(params["final_fc"]["w"], True)
+    sd["final_fc.bias"] = t(params["final_fc"]["b"])
+    return sd
+
+
+def constants_from_jax(constants) -> dict[str, torch.Tensor]:
+    """The JAX package's ``cheb_polys``/``adj_pa`` constants as CPU tensors."""
+    return {
+        name: torch.from_numpy(np.array(constants[name], dtype=np.float32))
+        for name in ("cheb_polys", "adj_pa")
+    }

@@ -1,0 +1,52 @@
+"""Small neural-net primitives (counterpart of ``dstagnn_drought_tpu/ops/nn.py``)."""
+from __future__ import annotations
+
+import torch
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis (``nn.LayerNorm`` semantics, eps=1e-5).
+
+    Statistics are computed in float32 whatever the input dtype, and the
+    result is cast back to it, as in the JAX package.
+    """
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout (scale by 1/(1-p) at train), drawn from ``generator``."""
+    if deterministic or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def per_sample_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+                         beta: float = 1.0) -> torch.Tensor:
+    """Per-sample Huber (SmoothL1) loss: (B,) means over each sample."""
+    diff = torch.abs(pred - target)
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+    return loss.reshape(loss.shape[0], -1).mean(dim=1)
+
+
+def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0,
+                   sample_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """``nn.SmoothL1Loss`` (mean reduction, beta=1), the training criterion.
+
+    ``sample_weights`` (B,) masks the padded tail rows of the batch plan out
+    of the reduction; with all-ones weights this is the plain mean.
+    """
+    if sample_weights is None:
+        diff = torch.abs(pred - target)
+        return torch.where(diff < beta, 0.5 * diff * diff / beta,
+                           diff - 0.5 * beta).mean()
+    per_sample = per_sample_smooth_l1(pred, target, beta)
+    w = sample_weights.to(per_sample.dtype)
+    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)

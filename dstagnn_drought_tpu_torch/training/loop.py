@@ -1,0 +1,251 @@
+"""The trainer, dense path: epoch loop with validation, best-val checkpoints,
+true resume, NaN abort and the final per-horizon test report.
+
+Counterpart of ``dstagnn_drought_tpu/training/loop.py``. The batch plan and
+the per-epoch shuffle seed ``seed*100003 + epoch`` are the JAX package's, so
+both trainers see the same batches; padded tail rows get zero loss weight.
+Each split is moved to the device once and a batch is gathered there by an
+index vector. Options of paths not ported yet raise ``NotImplementedError``
+naming the ROADMAP item that will port them (:func:`check_slice`).
+"""
+from __future__ import annotations
+
+import math
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dstagnn_drought_tpu_torch.config import Config
+from dstagnn_drought_tpu_torch.data.adjacency import (
+    edge_list_adjacency,
+    load_dense_adjacency,
+    load_stag_adjacency,
+    load_strg_adjacency,
+)
+from dstagnn_drought_tpu_torch.data.dataset import ArrayDataset, load_windowed_dataset
+from dstagnn_drought_tpu_torch.device import compute_dtype, resolve_device
+from dstagnn_drought_tpu_torch.models.dstagnn import ModelSpec, make_model
+from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
+from dstagnn_drought_tpu_torch.training.logger import MetricLogger
+from dstagnn_drought_tpu_torch.training.metrics import horizon_report
+from dstagnn_drought_tpu_torch.training.step import (
+    eval_step,
+    make_optimizer,
+    train_step,
+)
+
+PEMS_DATASETS = ("PEMS04", "PEMS08", "PEMS07", "PEMS03")
+
+
+def check_slice(cfg: Config) -> None:
+    """Refuse options whose paths the port does not run yet."""
+    t = cfg.training
+    refused = [
+        (t.model_name not in ("", "dstagnn"),
+         f"model_name={t.model_name!r}", "§1 item 11 (model zoo)"),
+        (t.sparse, "sparse=true", "§1 item 9 (ELL/BELL) and §2 kernels 2-4"),
+        (t.rcm, "rcm=true", "§1 item 9 (ELL/BELL)"),
+        (t.fuse_gtu is True, "fuse_gtu=true", "§2 kernel 5 (gtu_fused)"),
+        (t.fuse_tat, "fuse_tat=true", "§2 kernel 6 (tat_fused)"),
+        (t.fuse_spatial, "fuse_spatial=true", "§2 kernel 7 (block_spatial_fused)"),
+        (t.data_axis > 1 or t.graph_axis > 1,
+         f"data_axis={t.data_axis}, graph_axis={t.graph_axis}",
+         "§1 item 12 (multi-device)"),
+        (t.tp, "tp=true", "§1 item 12 (multi-device)"),
+        (t.debug, "debug=true", "§1 item 13 (debug mode)"),
+        (t.nan_policy == "rollback", "nan_policy='rollback'", "§1 item 14 (NaN rollback)"),
+        (t.tensorboard, "tensorboard=true", "§1 item 15 (TensorBoard and profiling)"),
+        (t.remat, "remat=true", "§1 item 16 (remaining knobs and CLIs)"),
+    ]
+    for hit, what, item in refused:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported to dstagnn_drought_tpu_torch yet "
+                f"(ROADMAP.md {item})"
+            )
+
+
+def load_graphs(cfg: Config):
+    """Adjacency loading policy of the reference: (adj_merge, adj_pa)."""
+    d = cfg.data
+    if d.dataset_name in PEMS_DATASETS:
+        adj_mx = edge_list_adjacency(d.adj_filename, d.num_of_vertices, d.id_filename)
+    else:
+        adj_mx = load_dense_adjacency(d.adj_filename, d.num_of_vertices)
+    adj_tmd = load_stag_adjacency(d.stag_filename, d.num_of_vertices)
+    adj_pa = load_strg_adjacency(d.strg_filename)
+    adj_merge = adj_mx if cfg.training.graph == "G" else adj_tmd
+    return np.asarray(adj_merge, np.float32), np.asarray(adj_pa, np.float32)
+
+
+class Trainer:
+    def __init__(
+        self,
+        cfg: Config,
+        dataset: Optional[ArrayDataset] = None,
+        adj_merge: Optional[np.ndarray] = None,
+        adj_pa: Optional[np.ndarray] = None,
+        experiments_root: str = "myexperiments",
+        device: str | torch.device | None = None,
+    ):
+        check_slice(cfg)
+        self.cfg = cfg
+        t = cfg.training
+        self.device = resolve_device(device)
+        self.spec = ModelSpec.from_config(cfg)
+        self.compute_dtype = compute_dtype(t.compute_dtype)
+
+        if dataset is None:
+            dataset = load_windowed_dataset(
+                cfg.data.graph_signal_matrix_filename,
+                t.num_of_hours, t.num_of_days, t.num_of_weeks,
+            )
+        self.dataset = dataset
+        if adj_merge is None or adj_pa is None:
+            adj_merge, adj_pa = load_graphs(cfg)
+
+        self.model, self.constants = make_model(
+            self.spec, adj_merge, adj_pa, seed=t.seed, device=self.device)
+        self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate)
+        self.generator = torch.Generator(device=self.device).manual_seed(t.seed)
+
+        self.run_dir = ckpt.run_dir(
+            experiments_root, cfg.data.dataset_name, t.model_name,
+            t.num_of_hours, t.num_of_days, t.num_of_weeks,
+            t.in_channels, t.learning_rate,
+        )
+        self.logger = MetricLogger(os.path.join(self.run_dir, "metrics.jsonl"))
+        self.best_val = math.inf
+        self.best_epoch = -1
+        self.epoch = t.start_epoch
+        self.last_epoch_steps = 0
+
+        # device-resident splits; a batch is a gather by an index vector
+        self._splits = {
+            name: (torch.from_numpy(getattr(dataset, name).x).to(self.device),
+                   torch.from_numpy(getattr(dataset, name).target).to(self.device))
+            for name in ("train", "val", "test")
+        }
+
+    # ------------------------------------------------------------------
+    def _save(self, epoch: int, metadata: dict) -> None:
+        ckpt.save_checkpoint(
+            self.run_dir, epoch,
+            model_state=self.model.state_dict(),
+            optimizer_state=self.optimizer.state_dict(),
+            generator_state=self.generator.get_state(),
+            metadata=metadata,
+        )
+
+    def resume(self) -> bool:
+        """True resume from the latest checkpoint in the run dir."""
+        latest = ckpt.latest_checkpoint(self.run_dir)
+        if latest is None:
+            return False
+        state = ckpt.restore_checkpoint(latest, map_location=self.device)
+        self.model.load_state_dict(state["model"])
+        if state["optimizer"] is not None:
+            self.optimizer.load_state_dict(state["optimizer"])
+        if state["generator"] is not None:
+            self.generator.set_state(state["generator"].cpu())
+        meta = state["meta"]
+        self.epoch = int(meta.get("epoch", -1)) + 1
+        self.best_val = float(meta.get("best_val", math.inf))
+        self.best_epoch = int(meta.get("best_epoch", -1))
+        self.logger.log("resume", epoch=self.epoch, checkpoint=latest)
+        return True
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, epoch: int) -> float:
+        t = self.cfg.training
+        x_full, y_full = self._splits["train"]
+        idx, n_valid = self.dataset.batch_indices(
+            "train", t.batch_size, shuffle=True, seed=t.seed * 100003 + epoch
+        )
+        weights = (np.arange(idx.size) < n_valid).astype(np.float32).reshape(idx.shape)
+        idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        weights = torch.from_numpy(weights).to(self.device)
+        losses = []
+        for b in range(idx.shape[0]):
+            losses.append(train_step(
+                self.model, self.optimizer, x_full[idx[b]], y_full[idx[b]],
+                self.constants, weights=weights[b], generator=self.generator,
+                compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
+            ))
+        self.last_epoch_steps = len(losses)
+        mean_loss = float(torch.stack(losses).mean())
+        if math.isnan(mean_loss):
+            raise FloatingPointError(
+                f"NaN training loss at epoch {epoch} — aborting (last good "
+                f"checkpoint: epoch_{self.best_epoch})"
+            )
+        return mean_loss
+
+    def evaluate(self, split: str) -> tuple[np.ndarray, float]:
+        """Predictions (true length, float32 numpy) and mean loss of a split."""
+        t = self.cfg.training
+        x_full, y_full = self._splits[split]
+        idx, n_valid = self.dataset.batch_indices(split, t.batch_size, shuffle=False)
+        idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        preds, losses = [], []
+        for b in range(idx.shape[0]):
+            pred, per_sample = eval_step(
+                self.model, x_full[idx[b]], y_full[idx[b]], self.constants,
+                compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
+            )
+            preds.append(pred)
+            losses.append(per_sample)
+        pred = torch.cat(preds).cpu().numpy()[:n_valid]
+        per_sample = torch.cat(losses).cpu().numpy()[:n_valid]
+        return pred, float(per_sample.mean())
+
+    # ------------------------------------------------------------------
+    def run(self, epochs: Optional[int] = None) -> dict:
+        t = self.cfg.training
+        end_epoch = epochs if epochs is not None else t.epochs
+        while self.epoch < end_epoch:
+            e = self.epoch
+            t0 = time.perf_counter()
+            train_loss = self.train_epoch(e)  # reading the loss synchronizes
+            train_seconds = time.perf_counter() - t0
+            _, val_loss = self.evaluate("val")
+            self.logger.log(
+                "epoch", epoch=e, train_loss=train_loss, val_loss=val_loss,
+                seconds=round(time.perf_counter() - t0, 2),
+                train_seconds=train_seconds, steps=self.last_epoch_steps,
+            )
+            if val_loss < self.best_val:
+                self.best_val = val_loss
+                self.best_epoch = e
+                self._save(e, {"best_val": self.best_val, "best_epoch": e,
+                               "val_loss": val_loss})
+            elif t.checkpoint_every and (e + 1) % t.checkpoint_every == 0:
+                self._save(e, {"best_val": self.best_val,
+                               "best_epoch": self.best_epoch})
+            self.epoch += 1
+        return self.final_test()
+
+    def final_test(self) -> dict:
+        # reload the best-val weights
+        if self.best_epoch >= 0:
+            best = ckpt.checkpoint_path(self.run_dir, self.best_epoch)
+            if os.path.exists(best):
+                state = ckpt.restore_checkpoint(best, map_location=self.device)
+                self.model.load_state_dict(state["model"])
+        pred, test_loss = self.evaluate("test")
+        report = horizon_report(self.dataset.test.target, pred, null_val=0)
+        self.logger.log(
+            "test", loss=test_loss, best_epoch=self.best_epoch,
+            mae=report["overall"]["mae"], rmse=report["overall"]["rmse"],
+            mape=report["overall"]["mape"],
+        )
+        np.savez(
+            os.path.join(self.run_dir, f"output_epoch_{self.best_epoch}_test.npz"),
+            input=self.dataset.test.x,
+            prediction=pred, data_target_tensor=self.dataset.test.target,
+        )
+        return {"test_loss": test_loss, "report": report,
+                "best_epoch": self.best_epoch, "best_val": self.best_val}

@@ -1,0 +1,61 @@
+"""Eager train / eval steps.
+
+Counterpart of ``dstagnn_drought_tpu/training/step.py``: SmoothL1 (Huber,
+beta=1) and Adam with the torch-default betas/eps (the JAX package's
+``optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8)``). PyTorch runs eagerly, so a
+step is a plain function; the losses stay on the device and the trainer
+reads them once per epoch.
+"""
+from __future__ import annotations
+
+import torch
+
+from dstagnn_drought_tpu_torch.ops.nn import per_sample_smooth_l1, smooth_l1_loss
+
+
+def make_optimizer(params, learning_rate: float) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+
+def train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    constants: dict,
+    *,
+    weights: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+    use_pallas: bool = False,
+) -> torch.Tensor:
+    """Forward (dropout on) → weighted SmoothL1 → backward → Adam. Returns
+    the loss, detached, on the device."""
+    optimizer.zero_grad(set_to_none=True)
+    pred = model(
+        x, adj_pa=constants["adj_pa"], cheb_polys=constants["cheb_polys"],
+        deterministic=False, generator=generator,
+        compute_dtype=compute_dtype, use_pallas=use_pallas,
+    )
+    loss = smooth_l1_loss(pred, y, sample_weights=weights)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+@torch.no_grad()
+def eval_step(
+    model: torch.nn.Module,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    constants: dict,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    use_pallas: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Deterministic forward → (pred float32, per-sample SmoothL1 (B,))."""
+    pred = model(
+        x, adj_pa=constants["adj_pa"], cheb_polys=constants["cheb_polys"],
+        deterministic=True, compute_dtype=compute_dtype, use_pallas=use_pallas,
+    )
+    return pred, per_sample_smooth_l1(pred, y)

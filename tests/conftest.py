@@ -101,3 +101,8 @@ learning_rate = 0.005
 """
     (root / "TOY.conf").write_text(conf)
     return root
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips on a machine without one")

@@ -1,0 +1,139 @@
+"""The port's INI loader against the JAX package's: ``dataclasses.asdict`` of
+both ``load_config``s agrees on inline INI strings, and both refuse the same
+invalid files."""
+import dataclasses
+
+import pytest
+
+from dstagnn_drought_tpu import config as jax_config
+from dstagnn_drought_tpu_torch import config as port_config
+from dstagnn_drought_tpu_torch.training.loop import check_slice
+
+PEMS08 = """[Data]
+adj_filename = ./data/PEMS08/PEMS08.csv
+graph_signal_matrix_filename = ./data/PEMS08/PEMS08.npz
+stag_filename = ./data/PEMS08/stag_001_PEMS08.csv
+strg_filename = ./data/PEMS08/strg_001_PEMS08.csv
+num_of_vertices = 170
+points_per_hour = 12
+num_for_predict = 12
+len_input = 12
+dataset_name = PEMS08
+
+[Training]
+use_tpu = True
+ctx = 0
+in_channels = 1
+nb_block = 4
+n_heads = 3
+K = 3
+d_k = 32
+d_model = 512
+nb_chev_filter = 32
+nb_time_filter = 32
+batch_size = 32
+model_name = dstagnn
+num_of_weeks = 0
+num_of_days = 0
+num_of_hours = 1
+start_epoch = 0
+epochs = 100
+learning_rate = 0.0001
+"""
+
+GAMBIA = """[Data]
+adj_filename = a.csv
+graph_signal_matrix_filename = g.npz
+num_of_vertices = 2139
+points_per_hour = 12
+len_input = 144
+dataset_name = GAMBIA
+
+[Training]
+in_channels = 4
+nb_block = 2
+n_heads = 2
+K = 2
+d_model = 64
+graph = AG
+compute_dtype = bfloat16
+use_pallas = true
+fuse_gtu = auto
+dropout = 0.1
+d_v = 16
+"""
+
+KNOBS = """[Data]
+num_of_vertices = 20
+[Training]
+sparse = yes
+sparse_format = bell
+mask_format = tiles
+fuse_gtu = false
+nan_policy = rollback
+halo = targeted
+"""
+
+
+@pytest.mark.parametrize("text", [PEMS08, GAMBIA, KNOBS], ids=["pems08", "gambia", "knobs"])
+def test_load_config_matches_jax(tmp_path, text):
+    path = tmp_path / "c.conf"
+    path.write_text(text)
+    ours = port_config.load_config(path)
+    theirs = jax_config.load_config(path)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    # the reference PEMS confs lack ``graph``: it defaults to 'G'
+    assert ours.training.graph == theirs.training.graph
+    assert ours.num_of_d == theirs.num_of_d
+
+    out = tmp_path / "saved.conf"
+    port_config.save_config(ours, out)
+    assert dataclasses.asdict(port_config.load_config(out)) == dataclasses.asdict(ours)
+
+
+def test_case_insensitive_keys(tmp_path):
+    path = tmp_path / "c.conf"
+    path.write_text("[Data]\nnum_of_vertices = 5\n[Training]\nk = 2\nD_MODEL = 8\n")
+    cfg = port_config.load_config(path)
+    assert (cfg.training.K, cfg.training.d_model) == (2, 8)
+
+
+@pytest.mark.parametrize("bad", [
+    "[Data]\nnum_of_vertices = 0\n",
+    "[Data]\nnum_of_vertices = 5\n[Training]\nK = 0\n",
+    "[Data]\nnum_of_vertices = 5\n[Training]\ngraph = X\n",
+    "[Data]\nnum_of_vertices = 5\nlen_input = 6\n",
+    "[Data]\nnum_of_vertices = 5\n[Training]\ncompute_dtype = float16\n",
+    "[Data]\nnum_of_vertices = 5\n[Training]\nsparse_format = coo\n",
+    "[Data]\nnum_of_vertices = 5\n[Training]\nmask_format = tiles\n",
+    "[Data]\nnum_of_vertices = 5\n[Training]\nnan_policy = retry\n",
+    "[Data]\nnum_of_vertices = 5\n[Training]\nfuse_gtu = sometimes\n",
+])
+def test_validation_errors_match_jax(tmp_path, bad):
+    path = tmp_path / "bad.conf"
+    path.write_text(bad)
+    with pytest.raises(ValueError) as ours:
+        port_config.load_config(path)
+    with pytest.raises(ValueError) as theirs:
+        jax_config.load_config(path)
+    assert str(ours.value) == str(theirs.value)
+
+
+def test_missing_file():
+    with pytest.raises(FileNotFoundError):
+        port_config.load_config("/nonexistent/x.conf")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("sparse", True), ("rcm", True), ("fuse_tat", True), ("fuse_spatial", True),
+    ("fuse_gtu", True), ("tp", True), ("debug", True), ("data_axis", 2),
+    ("graph_axis", 2), ("nan_policy", "rollback"), ("model_name", "astgcn"),
+    ("tensorboard", True), ("remat", True),
+])
+def test_options_outside_the_slice_are_refused(knob, value):
+    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
+                             port_config.TrainingConfig())
+    check_slice(cfg)  # the dense default is in the slice
+    setattr(cfg.training, knob, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        check_slice(cfg)

@@ -1,0 +1,144 @@
+"""The port's DSTAGNN model against the JAX package's, on the CPU.
+
+The same numpy-seeded inputs and the JAX model's weights (carried across with
+``params_from_jax``) go through JAX ``apply(deterministic=True)`` and the
+port's forward. Forward atol 2e-4 (precedent tests/test_parity_torch.py);
+SmoothL1 gradients of every parameter atol 5e-3 (precedent
+tests/test_pallas_cheb.py). ``use_pallas`` runs the Pallas kernel in
+interpret mode on the JAX side and the kernel module's plain version on the
+port's side.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dstagnn_drought_tpu.models.dstagnn import (
+    ModelSpec as JaxSpec,
+    apply as jax_apply,
+    import_torch_state_dict,
+    make_model as jax_make_model,
+)
+from dstagnn_drought_tpu.ops.nn import smooth_l1_loss as jax_smooth_l1
+from dstagnn_drought_tpu_torch.models.dstagnn import (
+    DSTAGNN,
+    ModelSpec,
+    constants_from_jax,
+    make_model,
+    params_from_jax,
+)
+from dstagnn_drought_tpu_torch.ops.nn import smooth_l1_loss
+
+torch.set_num_threads(1)
+
+SHAPES = {
+    # the test_parity_torch.py shape
+    "n16_t12_f1": dict(F=1, T=12),
+    # multichannel long-T: res_att mean over the feature axis, gtu_bnct tail
+    "n16_t48_f4": dict(F=4, T=48),
+}
+
+
+def _case(F, T, seed=3):
+    rng = np.random.default_rng(seed)
+    N = 16
+    kw = dict(num_of_vertices=N, len_input=T, num_for_predict=5, num_of_d=F,
+              nb_block=2, in_channels=F, K=3, nb_chev_filter=8,
+              nb_time_filter=8, d_model=24, d_k=8, n_heads=2)
+    A = (rng.random((N, N)) < 0.3).astype(np.float32)
+    A = np.maximum(A, A.T)
+    np.fill_diagonal(A, 0)
+    pa = (rng.random((N, N)) < 0.25).astype(np.float32)
+    x = rng.normal(size=(3, N, F, T)).astype(np.float32)
+    y = rng.normal(size=(3, N, 5)).astype(np.float32)
+    jspec = JaxSpec(**kw)
+    params, consts = jax_make_model(jax.random.PRNGKey(seed), jspec, A, pa)
+    return ModelSpec(**kw), jspec, params, consts, x, y
+
+
+def _port(spec, params, consts):
+    model = DSTAGNN(spec)
+    model.load_state_dict(params_from_jax(params, spec))
+    return model, constants_from_jax(consts)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_forward_and_grads_match_jax(shape, use_pallas):
+    spec, jspec, params, consts, x, y = _case(**SHAPES[shape])
+
+    def jax_loss(p):
+        pred = jax_apply(p, jnp.asarray(x), spec=jspec, adj_pa=consts["adj_pa"],
+                         cheb_polys=consts["cheb_polys"], deterministic=True,
+                         use_pallas=use_pallas)
+        return jax_smooth_l1(pred, jnp.asarray(y)), pred
+
+    (j_loss, j_pred), j_grads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+
+    model, c = _port(spec, params, consts)
+    pred = model(torch.from_numpy(x), adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"],
+                 deterministic=True, use_pallas=use_pallas)
+    np.testing.assert_allclose(pred.detach().numpy(), np.asarray(j_pred),
+                               atol=2e-4, rtol=2e-4)
+    loss = smooth_l1_loss(pred, torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), atol=2e-4, rtol=2e-4)
+
+    expected = params_from_jax(j_grads, spec)
+    named = dict(model.named_parameters())
+    assert set(named) == set(expected)
+    for name, p in named.items():
+        # parameters off the path (EmbedT past block 1) have no torch grad
+        grad = p.grad if p.grad is not None else torch.zeros_like(p)
+        np.testing.assert_allclose(grad.numpy(), expected[name].numpy(),
+                                   atol=5e-3, rtol=5e-3, err_msg=name)
+
+
+def test_state_dict_round_trip():
+    """params_from_jax ↔ import_torch_state_dict: JAX weights into the port
+    and the port's own weights into JAX, both exact."""
+    spec, jspec, params, consts, x, _ = _case(F=1, T=12)
+    sd = params_from_jax(params, spec)
+    back = import_torch_state_dict(sd, jspec)
+    for a, b in zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    model, c = make_model(spec, np.eye(16, k=1) + np.eye(16, k=-1),
+                          np.eye(16), seed=5, device="cpu")
+    jparams = import_torch_state_dict(model.state_dict(), jspec)
+    again = params_from_jax(jparams, spec)
+    for name, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), again[name].numpy(), err_msg=name)
+    # and the carried weights compute the same function on both sides
+    out_jax = jax_apply(jparams, jnp.asarray(x), spec=jspec,
+                        adj_pa=jnp.asarray(c["adj_pa"].numpy()),
+                        cheb_polys=jnp.asarray(c["cheb_polys"].numpy()))
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"])
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_jax), atol=2e-4, rtol=2e-4)
+
+
+def test_init_matches_reference_scheme():
+    """Every parameter is re-initialized like the reference: ndim > 1 →
+    xavier-uniform bounds, ndim <= 1 → U(0, 1); the same seed gives the
+    same weights."""
+    spec, *_ = _case(F=1, T=12)
+    a, _ = make_model(spec, np.eye(16), np.eye(16), seed=1, device="cpu")
+    b, _ = make_model(spec, np.eye(16), np.eye(16), seed=1, device="cpu")
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), name
+        if p.ndim > 1:
+            rec = int(np.prod(p.shape[2:])) if p.ndim > 2 else 1
+            bound = (6.0 / ((p.shape[0] + p.shape[1]) * rec)) ** 0.5
+            assert float(p.detach().abs().max()) <= bound, name
+        else:
+            assert 0.0 <= float(p.detach().min()) and float(p.detach().max()) <= 1.0, name
+
+
+def test_entry_points_refuse_cuda_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    spec, *_ = _case(F=1, T=12)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_model(spec, np.eye(16), np.eye(16), seed=0, device="cuda")

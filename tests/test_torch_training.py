@@ -1,0 +1,164 @@
+"""The port's training path against the JAX package's, on the CPU: the
+windowed npz, a 5-step loss trajectory from the same weights and batches,
+and the CLI end to end with ``--device cpu``."""
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dstagnn_drought_tpu.data.dataset import ArrayDataset as JaxDataset
+from dstagnn_drought_tpu.data.dataset import Split as JaxSplit
+from dstagnn_drought_tpu.data.windowing import (
+    read_and_generate_dataset as jax_read_and_generate,
+)
+from dstagnn_drought_tpu.models.dstagnn import ModelSpec as JaxSpec
+from dstagnn_drought_tpu.models.dstagnn import make_model as jax_make_model
+from dstagnn_drought_tpu.training.step import make_optimizer as jax_optimizer
+from dstagnn_drought_tpu.training.step import make_train_step
+from dstagnn_drought_tpu_torch.cli import train as train_cli
+from dstagnn_drought_tpu_torch.config import load_config
+from dstagnn_drought_tpu_torch.data.dataset import ArrayDataset, Split
+from dstagnn_drought_tpu_torch.data.windowing import read_and_generate_dataset
+from dstagnn_drought_tpu_torch.models.dstagnn import (
+    DSTAGNN,
+    ModelSpec,
+    constants_from_jax,
+    params_from_jax,
+)
+from dstagnn_drought_tpu_torch.training import loop
+from dstagnn_drought_tpu_torch.training.step import make_optimizer, train_step
+
+torch.set_num_threads(1)
+
+
+def test_windowed_npz_bit_identical(tmp_path):
+    rng = np.random.default_rng(5)
+    sig = rng.normal(size=(120, 6, 2)) * 10 + 50
+    paths = []
+    for side, fn in (("port", read_and_generate_dataset), ("jax", jax_read_and_generate)):
+        d = tmp_path / side
+        d.mkdir()
+        np.savez(d / "SIG.npz", data=sig)
+        fn(str(d / "SIG.npz"), 0, 1, 2, 12, points_per_hour=2, save=True)
+        paths.append(d / "SIG_r2_d1_w0_dstagnn.npz")
+    with np.load(paths[0]) as a, np.load(paths[1]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+            assert a[k].tobytes() == b[k].tobytes(), k
+
+
+def test_five_step_trajectory_matches_jax():
+    """Same weights, same batch plan, dropout 0: per-step SmoothL1 + Adam
+    losses agree to rtol 2e-3 / atol 2e-4 (precedent
+    tests/test_parity_torch.py::test_training_trajectory_parity)."""
+    rng = np.random.default_rng(8)
+    N, T, P, lr, bs = 10, 12, 4, 1e-3, 4
+    kw = dict(num_of_vertices=N, len_input=T, num_for_predict=P, num_of_d=1,
+              nb_block=2, in_channels=1, K=3, nb_chev_filter=8, nb_time_filter=8,
+              d_model=16, d_k=8, n_heads=2, dropout_rate=0.0)
+    A = (rng.random((N, N)) < 0.3).astype(np.float32)
+    A = np.maximum(A, A.T)
+    np.fill_diagonal(A, 0)
+    pa = (rng.random((N, N)) < 0.3).astype(np.float32)
+    x = rng.normal(size=(18, N, 1, T)).astype(np.float32)
+    y = rng.normal(size=(18, N, P)).astype(np.float32)
+    jspec = JaxSpec(**kw)
+    params, consts = jax_make_model(jax.random.PRNGKey(2), jspec, A, pa)
+    spec = ModelSpec(**kw)
+    model = DSTAGNN(spec)
+    model.load_state_dict(params_from_jax(params, spec))  # before JAX donates them
+
+    # the batch plan of the first 5 steps of epoch 0, padded tail masked
+    split = Split(x, y)
+    ds = ArrayDataset(split, split, split, np.zeros(1), np.ones(1))
+    idx, n_valid = ds.batch_indices("train", bs, shuffle=True, seed=1 * 100003 + 0)
+    j_idx, _ = JaxDataset(JaxSplit(x, y), JaxSplit(x, y), JaxSplit(x, y),
+                          np.zeros(1), np.ones(1)).batch_indices(
+        "train", bs, shuffle=True, seed=1 * 100003 + 0)
+    np.testing.assert_array_equal(idx, j_idx)
+    weights = (np.arange(idx.size) < n_valid).astype(np.float32).reshape(idx.shape)
+    assert weights[-1].sum() < bs  # the padded tail is among the steps
+
+    opt = jax_optimizer(lr)
+    step = make_train_step(jspec, opt)
+    p, s, key = params, opt.init(params), jax.random.PRNGKey(0)
+    jax_losses = []
+    for b in range(idx.shape[0]):
+        p, s, key, loss = step(p, s, key, x, y, idx[b], consts, weights[b])
+        jax_losses.append(float(loss))
+
+    c = constants_from_jax(consts)
+    optimizer = make_optimizer(model.parameters(), lr)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    losses = []
+    for b in range(idx.shape[0]):
+        i = torch.from_numpy(idx[b].astype(np.int64))
+        losses.append(float(train_step(model, optimizer, xt[i], yt[i], c,
+                                       weights=torch.from_numpy(weights[b]))))
+    assert len(losses) == 5
+    np.testing.assert_allclose(losses, jax_losses, rtol=2e-3, atol=2e-4)
+    assert abs(losses[0] - losses[-1]) > 1e-4  # the trajectory moves
+
+
+@pytest.fixture()
+def toy_windowed(toy_project):
+    """The toy project's windowed npz, written by the port's pipeline."""
+    cfg = load_config(toy_project / "TOY.conf")
+    read_and_generate_dataset(cfg.data.graph_signal_matrix_filename, 0, 0, 1,
+                              cfg.data.num_for_predict, 1, save=True)
+    return toy_project
+
+
+def test_cli_trains_checkpoints_and_resumes(toy_windowed, tmp_path, capsys):
+    conf = str(toy_windowed / "TOY.conf")
+    exp = tmp_path / "exp"
+    result = train_cli.main(["--config", conf, "--experiments-root", str(exp),
+                             "--device", "cpu", "--epochs", "2"])
+    assert "horizon" in capsys.readouterr().out
+    run_dir = next((exp / "TOY").iterdir())
+    events = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_losses = [e["train_loss"] for e in events if e["event"] == "epoch"]
+    assert len(train_losses) == 2 and train_losses[1] < train_losses[0]
+    assert (run_dir / f"epoch_{result['best_epoch']}.pt").exists()
+    with np.load(run_dir / f"output_epoch_{result['best_epoch']}_test.npz") as d:
+        assert d["prediction"].shape == d["data_target_tensor"].shape
+        assert np.isfinite(d["prediction"]).all()
+    assert len(result["report"]["per_horizon"]) == 12
+
+    cfg = load_config(conf)
+    trainer = loop.Trainer(cfg, experiments_root=str(exp), device="cpu")
+    assert trainer.resume()
+    assert trainer.epoch == 2
+    assert trainer.best_val == pytest.approx(result["best_val"])
+    assert trainer.best_epoch == result["best_epoch"]
+    # --resume continues from there: one more epoch only
+    train_cli.main(["--config", conf, "--experiments-root", str(exp),
+                    "--device", "cpu", "--epochs", "3", "--resume"])
+    events = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [e["epoch"] for e in events if e["event"] == "epoch"] == [0, 1, 2]
+
+
+def test_cli_refuses_flags_outside_the_slice(toy_windowed, tmp_path):
+    conf = str(toy_windowed / "TOY.conf")
+    for flag in (["--data-axis", "2"], ["--graph-axis", "2"], ["--distributed"],
+                 ["--profile", str(tmp_path)], ["--tensorboard"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            train_cli.main(["--config", conf, "--device", "cpu", *flag])
+
+
+def test_trainer_needs_a_card_unless_told_cpu(toy_windowed):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.Trainer(load_config(toy_windowed / "TOY.conf"))
+
+
+def test_nan_loss_aborts(toy_windowed, tmp_path, monkeypatch):
+    trainer = loop.Trainer(load_config(toy_windowed / "TOY.conf"),
+                           experiments_root=str(tmp_path), device="cpu")
+    monkeypatch.setattr(loop, "train_step", lambda *a, **k: torch.tensor(float("nan")))
+    with pytest.raises(FloatingPointError, match="NaN training loss"):
+        trainer.train_epoch(0)
