@@ -10,20 +10,29 @@ Phases; any failure exits non-zero:
      and print the build time, the ptxas report and the card's name and
      power limit;
   2. hold each kernel against its plain PyTorch version on the card (TF32
-     off) at the main path's shapes and at ragged shapes, forward and
-     gradients, with CUDA-event times of both;
-  3. the main path at full PEMS08 width: the training CLI, two epochs on
-     benchmarks/parity_runs/parity_dataset.npz through the kernel, with the
-     kernel's launch count read around the run;
+     off) at the main paths' shapes and at ragged shapes, with CUDA-event
+     times of both: cheb_sat forward and gradients; the BELL forward (F),
+     K1 and K2 at the GAMBIA blocks, the 1%-random N=2139 graph (17 slots a
+     tile) and a ragged n=29 graph (BS 8 and 16), in float32 and bfloat16,
+     with K1's dΘ equal bit for bit over two launches;
+  3. the dense main path at full PEMS08 width: the training CLI, two epochs
+     on benchmarks/parity_runs/parity_dataset.npz through the kernel, with
+     the kernel's launch count read around the run;
   4. GAMBIA dense (N=2139, F=4, T=144, bfloat16): training steps through
      the Trainer, the kernel at N > 1024 and the multichannel/long-T tail;
-  5. a JSON line with every kernel's numbers, then the device line.
+  5. the block-sparse main path: bench.py's GAMBIA bell_tiles
+     configuration (sparse, bell, use_pallas, mask_format=tiles, BS=128,
+     bfloat16), Trainer.run for 2 epochs of 3 steps, F once per block of
+     every forward pass and K1/K2 once per block of every train step;
+  6. GAMBIA BELL with dense masks and rcm=true, one epoch, its test
+     predictions held against an unpermuted model in the original order;
+  7. a JSON line with every kernel's numbers, then the device line.
 
-``--measure`` adds timings of whole training epochs (PEMS08 width and
-GAMBIA dense) with the kernel and with the plain aggregation, alternated in
-one process, a torch.profiler breakdown of each, and a 25-epoch PEMS08
-accuracy run of both paths checked against the reference model's recorded
-test MAE.
+``--measure`` adds timings of whole training epochs (PEMS08 width, GAMBIA
+dense, and GAMBIA BELL tiles against both dense paths) alternated in one
+process, a torch.profiler breakdown of each, and a 25-epoch PEMS08 accuracy
+run of both dense paths checked against the reference model's recorded test
+MAE.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -44,13 +53,16 @@ import torch
 
 from dstagnn_drought_tpu_torch.config import Config, DataConfig, TrainingConfig
 from dstagnn_drought_tpu_torch.data.dataset import ArrayDataset, Split
-from dstagnn_drought_tpu_torch.ops.cuda import build, cheb_sat
+from dstagnn_drought_tpu_torch.models.dstagnn import permute_nodes
+from dstagnn_drought_tpu_torch.ops.block_sparse import block_ell_from_adjacency
+from dstagnn_drought_tpu_torch.ops.cuda import bell_bwd, bell_fused, build, cheb_sat
 from dstagnn_drought_tpu_torch.training.loop import Trainer
 
 REPO = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet): float32 on the CUDA cores
 # and HBM3 bandwidth; at the full 700 W power limit.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 TOL = 2e-4       # forward, kernel vs plain (precedent tests/test_pallas_cheb.py)
 GRAD_TOL = 5e-3  # gradients (precedent tests/test_pallas_cheb.py)
@@ -164,6 +176,165 @@ def grad_error(s, bias, cheb, x) -> float:
         scale = max(float(b.abs().max()), 1.0)
         worst = max(worst, float((a - b).abs().max()) / scale)
     return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the BELL kernels (fused forward, K1, K2) vs their plain versions
+# ---------------------------------------------------------------------------
+
+BELL_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}  # bf16: ~2.5 ulps (2^-8 each)
+
+
+def grid_adjacency(nx: int = 93, ny: int = 23) -> np.ndarray:
+    """The 4-neighbour grid graph of gambia_data (N = nx·ny)."""
+    N = nx * ny
+    A = np.zeros((N, N), np.float32)
+    idx = np.arange(N).reshape(nx, ny)
+    A[idx[:-1].ravel(), idx[1:].ravel()] = 1
+    A[idx[:, :-1].ravel(), idx[:, 1:].ravel()] = 1
+    return np.maximum(A, A.T)
+
+
+def random_adjacency(n: int, density: float, seed: int) -> np.ndarray:
+    return (np.random.default_rng(seed).random((n, n)) < density).astype(np.float32)
+
+
+BELL_SHAPES = [
+    # (label, graph, B, H, C, T, Co, BS, d_k): the GAMBIA blocks on the grid
+    # graph (A=49, at most 3 slots a tile), the 1%-random graph at N=2139
+    # (A=289, 17 slots a tile: the long slot loop) and a ragged small graph
+    ("gambia_block1", "grid", 4, 2, 4, 144, 32, 128, 32),
+    ("gambia_block2", "grid", 4, 2, 32, 144, 32, 128, 32),
+    ("random1pct_n2139", "random", 4, 2, 4, 144, 32, 128, 32),
+    ("ragged_n29_bs8", "ragged", 2, 2, 4, 12, 8, 8, 8),
+    ("ragged_n29_bs16", "ragged", 2, 2, 4, 12, 8, 16, 8),
+    # one input channel (the PEMS-style first block) at long T, K=3 heads
+    ("ragged_n29_c1_t144", "ragged", 2, 3, 1, 144, 32, 16, 8),
+]
+
+
+def bell_graph(kind: str, BS: int):
+    adj = {"grid": grid_adjacency, "random": lambda: random_adjacency(2139, 0.01, 1),
+           "ragged": lambda: random_adjacency(29, 0.25, 2)}[kind]()
+    return block_ell_from_adjacency(adj, block_size=BS).to("cuda")
+
+
+def bell_bounds(B, H, A, BS, dk, C, T, Co, Np, dtype):
+    """(bound_ms, bound_by, flops) of F, K1 and K2: operations over the peak
+    of the compute dtype (bf16 tensor cores 989 TFLOP/s, float32 CUDA cores
+    67) against the bytes each function must move over 3.35 TB/s, every
+    operand read or written once: F reads q, k (f32), the bias and cheb
+    tiles (f32), x and Θ and writes out; K1 reads gm, x, w and Θ and writes
+    dA (f32) and dΘ; K2 reads gm, w and Θ and writes dx."""
+    M, xb = C * T, (2 if dtype == torch.bfloat16 else 4)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    ops = {"bell_fused": 2 * B * H * A * BS * BS * (dk + M) + 2 * B * Np * H * M * Co,
+           "bell_k1": 4 * B * H * A * BS * BS * M + 4 * B * Np * H * M * Co,
+           "bell_k2": 2 * B * H * A * BS * BS * M + 2 * B * H * A * BS * M * Co}
+    x_b, g_b, w_b = xb * B * Np * M, xb * B * Np * Co * T, xb * B * A * H * BS * BS
+    theta_b = 4 * H * C * Co
+    nbytes = {"bell_fused": 4 * 2 * B * Np * H * dk + 4 * 2 * A * H * BS * BS + x_b + g_b
+              + theta_b,
+              "bell_k1": g_b + x_b + w_b + theta_b + 4 * B * A * H * BS * BS + theta_b,
+              "bell_k2": g_b + w_b + theta_b + x_b}
+    out = {}
+    for name in ops:
+        t_ops, t_bytes = ops[name] / peak, nbytes[name] / PEAK_HBM_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+                     ops[name])
+    return out
+
+
+def bell_inputs(bell, B, H, C, T, Co, dk, dtype, seed):
+    """Random kernel operands in the kernels' layouts, with w and gm made
+    the way the backward makes them (softmax weights rounded to dtype)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    t = bell.tensors
+    A, BS, Np = bell.num_active, bell.block_size, bell.padded_nodes
+    n = bell.n_nodes
+    pattern = t["active_pattern"][:, None]                      # (A, 1, BS, BS)
+    rows = (torch.arange(Np, device=dev) < n).float()[None, :, None]
+    q = torch.randn(B, Np, H, dk, generator=g, device=dev)
+    k = torch.randn(B, Np, H, dk, generator=g, device=dev)
+    bias = torch.where(pattern, torch.randn(A, H, BS, BS, generator=g, device=dev),
+                       torch.tensor(-1e30, device=dev)).contiguous()
+    cheb = (torch.randn(A, H, BS, BS, generator=g, device=dev) * pattern).contiguous()
+    x = (torch.randn(B, Np, C * T, generator=g, device=dev) * rows).to(dtype).contiguous()
+    thetas = (torch.randn(H, C, Co, generator=g, device=dev) * 0.1).contiguous()
+    gm = torch.randn(B, Np, Co * T, generator=g, device=dev)
+    gm = (gm * (gm > -0.5) * rows).to(dtype).contiguous()
+    _, _, att = bell_fused.active_softmax(q, k, bias, t["active_src"], t["active_tgt"],
+                                          bell.num_tiles)
+    w = (cheb[None] * att * pattern[None]).to(dtype).contiguous()
+    return dict(q=q, k=k, bias=bias, cheb=cheb, x=x, thetas=thetas, gm=gm, w=w)
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    """(max |Δ|, max |Δ| over max(1, max |plain|)) in float32."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / max(1.0, float(want.float().abs().max()))
+
+
+def phase_bell_kernels():
+    """F, K1 and K2 against their plain versions at every BELL shape, in f32
+    and bf16, with CUDA-event times; dΘ of two K1 launches must be equal
+    bit for bit."""
+    rows = []
+    for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
+        bell = bell_graph(kind, BS)
+        t = bell.tensors
+        A, Np = bell.num_active, bell.padded_nodes
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = BELL_TOL[dtype]
+            z = bell_inputs(bell, B, H, C, T, Co, dk, dtype, seed)
+            f_args = (t["tile_start"], t["tile_count"], t["active_src"],
+                      z["q"], z["k"], z["bias"], z["cheb"], z["x"], z["thetas"])
+            k1_args = (t["active_src"], t["active_tgt"], t["tile_start"],
+                       t["tile_count"], z["thetas"], z["gm"], z["x"], z["w"])
+            k2_args = (t["src_start"], t["src_count"], t["src_order"],
+                       t["active_tgt"], z["thetas"], z["gm"], z["w"])
+            out_k = bell_fused.bell_forward_cuda(*f_args)
+            dA_k, dth_k = bell_bwd.bell_k1_cuda(*k1_args)
+            _, dth_again = bell_bwd.bell_k1_cuda(*k1_args)
+            dx_k = bell_bwd.bell_k2_cuda(*k2_args)
+            torch.cuda.synchronize()
+            out_p = bell_fused.bell_forward_plain(*f_args)
+            dA_p, dth_p = bell_bwd.bell_k1_plain(*k1_args[:2], *k1_args[4:])
+            dx_p = bell_bwd.bell_k2_plain(*k2_args)
+            errs = {"bell_fused": [rel_err(out_k, out_p)],
+                    "bell_k1": [rel_err(dA_k, dA_p), rel_err(dth_k, dth_p)],
+                    "bell_k2": [rel_err(dx_k, dx_p)]}
+            del out_p, dA_p, dth_p, dx_p
+            bounds = bell_bounds(B, H, A, BS, dk, C, T, Co, Np, dtype)
+            iters = 5 if Np > 1024 else 20
+            fns = {"bell_fused": (lambda: bell_fused.bell_forward_cuda(*f_args),
+                                  lambda: bell_fused.bell_forward_plain(*f_args)),
+                   "bell_k1": (lambda: bell_bwd.bell_k1_cuda(*k1_args),
+                               lambda: bell_bwd.bell_k1_plain(*k1_args[:2], *k1_args[4:])),
+                   "bell_k2": (lambda: bell_bwd.bell_k2_cuda(*k2_args),
+                               lambda: bell_bwd.bell_k2_plain(*k2_args))}
+            for name, (kern, plain) in fns.items():
+                row = {"kernel": name, "shape": label, "dtype": str(dtype).split(".")[-1],
+                       "B": B, "H": H, "N": bell.n_nodes, "BS": BS, "A": A,
+                       "S": bell.max_blocks, "C": C, "T": T, "Co": Co, "d_k": dk,
+                       "max_abs_err": max(e[0] for e in errs[name]),
+                       "rel_err": max(e[1] for e in errs[name]), "tol": tol}
+                row["ok"] = row["rel_err"] <= tol
+                if name == "bell_k1":
+                    row["dtheta_bit_identical"] = bool(torch.equal(dth_k, dth_again))
+                row["ms"] = cuda_ms(kern, iters)
+                row["plain_ms"] = cuda_ms(plain, max(2, iters // 4))
+                row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
+                print("bell", json.dumps(row), flush=True)
+                check(row["ok"], f"{name} vs plain at {label} {dtype}: "
+                                 f"{row['rel_err']:.3g} > {tol}")
+                check(row.get("dtheta_bit_identical", True),
+                      f"K1 dΘ differs between two launches at {label} {dtype}")
+                rows.append(row)
+            del z, out_k, dA_k, dth_k, dth_again, dx_k
+            torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -365,11 +536,7 @@ def gambia_data(seed: int = 0, n_train: int = 12, n_eval: int = 4):
     for f in range(F):
         noise = rng.normal(size=(t_total, N)).astype(np.float32) * 0.3
         sig[..., f] = 10 + 3 * season * (0.5 + 0.5 * f / F) + noise
-    A = np.zeros((N, N), np.float32)
-    idx = np.arange(N).reshape(nx, ny)
-    A[idx[:-1].ravel(), idx[1:].ravel()] = 1
-    A[idx[:, :-1].ravel(), idx[:, 1:].ravel()] = 1
-    A = np.maximum(A, A.T)
+    A = grid_adjacency(nx, ny)
     pa = (rng.random((N, N)) < 0.01).astype(np.float32)
     np.fill_diagonal(pa, 1)
     xs = np.stack([sig[s:s + GAMBIA_T_IN] for s in range(n_win)]).transpose(0, 2, 3, 1)
@@ -388,7 +555,9 @@ def gambia_data(seed: int = 0, n_train: int = 12, n_eval: int = 4):
     return ds, A, pa
 
 
-def gambia_config(N: int, use_pallas: bool = True) -> Config:
+def gambia_config(N: int, use_pallas: bool = True, **sparse) -> Config:
+    """The GAMBIA configuration of bench.py:222-236; ``sparse`` adds the
+    BELL keys (sparse, sparse_format, mask_format, rcm, block_size)."""
     return Config(
         data=DataConfig(num_of_vertices=N, len_input=GAMBIA_T_IN,
                         num_for_predict=GAMBIA_T_PRED, dataset_name="GAMBIA_SYN",
@@ -397,6 +566,7 @@ def gambia_config(N: int, use_pallas: bool = True) -> Config:
             in_channels=GAMBIA_F, nb_block=2, n_heads=2, K=2, d_k=32, d_model=64,
             nb_chev_filter=32, nb_time_filter=32, batch_size=4, learning_rate=1e-4,
             num_of_hours=12, compute_dtype="bfloat16", use_pallas=use_pallas,
+            **sparse,
         ),
     ).validate()
 
@@ -450,6 +620,180 @@ def measure_gambia_steps(root: Path, rounds: int = 2):
 
 
 # ---------------------------------------------------------------------------
+# phases 5-6: GAMBIA block-sparse (BELL)
+# ---------------------------------------------------------------------------
+
+BELL_TILES = dict(sparse=True, sparse_format="bell", mask_format="tiles", block_size=128)
+BELL_DENSE_RCM = dict(sparse=True, sparse_format="bell", rcm=True, block_size=128)
+
+
+def reset_launches():
+    cheb_sat.launches = bell_fused.launches = 0
+    bell_bwd.k1_launches = bell_bwd.k2_launches = 0
+
+
+def read_launches() -> dict:
+    return {"cheb_sat": cheb_sat.launches, "bell_fused": bell_fused.launches,
+            "bell_k1": bell_bwd.k1_launches, "bell_k2": bell_bwd.k2_launches}
+
+
+def run_gambia_bell(root: Path, name: str, sparse: dict, epochs: int):
+    """Trainer.run at the GAMBIA config on the BELL path, with every launch
+    count set to 0 just before and read just after. Checks finite losses,
+    a checkpoint, the test dump, and that F ran once per block of every
+    forward pass, K1 and K2 once per block of every train step, and the
+    dense kernel not at all."""
+    ds, A, pa = gambia_data()
+    N, nb = A.shape[0], 2
+    trainer = Trainer(gambia_config(N, **sparse), dataset=ds, adj_merge=A, adj_pa=pa,
+                      experiments_root=str(root / name), device="cuda")
+    bs = trainer.cfg.training.batch_size
+    batches = {s: -(-len(getattr(ds, s)) // bs) for s in ("train", "val", "test")}
+    reset_launches()
+    result = trainer.run(epochs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    forwards = epochs * (batches["train"] + batches["val"]) + batches["test"]
+    steps = epochs * batches["train"]
+    events = [json.loads(line) for line in
+              (Path(trainer.run_dir) / "metrics.jsonl").read_text().splitlines()]
+    ep = [e for e in events if e["event"] == "epoch"]
+    losses = [e["train_loss"] for e in ep] + [e["val_loss"] for e in ep]
+    check(len(ep) == epochs and all(math.isfinite(v) for v in losses),
+          f"{name}: losses {losses}")
+    check(math.isfinite(result["test_loss"]), f"{name}: test loss {result['test_loss']}")
+    check(any(Path(trainer.run_dir).glob("epoch_*.pt")), f"{name}: no checkpoint")
+    check(launches["bell_fused"] == forwards * nb,
+          f"{name}: bell_fused launches {launches['bell_fused']} != {forwards} forward "
+          f"passes x {nb} blocks")
+    for k in ("bell_k1", "bell_k2"):
+        check(launches[k] == steps * nb,
+              f"{name}: {k} launches {launches[k]} != {steps} steps x {nb} blocks")
+    check(launches["cheb_sat"] == 0, f"{name}: the dense kernel ran {launches['cheb_sat']} times")
+    out = {"path": name, "device": torch.cuda.get_device_name(0), "N": N,
+           "active_tiles": trainer.constants["bell"].num_active,
+           "slots": trainer.constants["bell"].max_blocks,
+           "train_losses": [e["train_loss"] for e in ep],
+           "val_losses": [e["val_loss"] for e in ep], "test_loss": result["test_loss"],
+           "test_overall": result["report"]["overall"], "launches": launches,
+           "forward_passes": forwards, "train_steps": steps,
+           "ms_per_step_last_epoch": ep[-1]["train_seconds"] / ep[-1]["steps"] * 1e3}
+    return trainer, ds, out
+
+
+def phase_gambia_bell_tiles(root: Path):
+    """The main path of the BELL slice: bench.py's GAMBIA bell_tiles
+    configuration, 2 epochs of 3 steps through the Trainer."""
+    _, _, out = run_gambia_bell(root, "gambia_bell_tiles", BELL_TILES, epochs=2)
+    print("main_path", json.dumps(out), flush=True)
+    return out
+
+
+def phase_gambia_bell_rcm(root: Path):
+    """GAMBIA BELL with dense masks (the fused kernel with the plane
+    wrapper) and rcm=true, one epoch; then the test predictions against
+    those of an unpermuted BELL trainer carrying the same weights in the
+    original node order: they must agree node for node."""
+    trainer, ds, out = run_gambia_bell(root, "gambia_bell_rcm", BELL_DENSE_RCM, epochs=1)
+    perm, inv = trainer._perm, trainer._inv_perm
+    check(not np.array_equal(perm, np.arange(len(perm))), "rcm permutation is the identity")
+    dump = next(Path(trainer.run_dir).glob("output_epoch_*_test.npz"))
+    with np.load(dump) as d:
+        pred, target = d["prediction"], d["data_target_tensor"]
+    check(pred.shape == ds.test.target.shape and bool(np.isfinite(pred).all()),
+          f"rcm test predictions {pred.shape}")
+    check(np.array_equal(target, ds.test.target), "rcm dump targets not in the original order")
+    _, A, pa = gambia_data()
+    sparse = {**BELL_DENSE_RCM, "rcm": False}
+    ref = Trainer(gambia_config(A.shape[0], **sparse), dataset=ds, adj_merge=A, adj_pa=pa,
+                  experiments_root=str(root / "gambia_bell_ref"), device="cuda")
+    ref.model.load_state_dict(permute_nodes(trainer.model.state_dict(), inv))
+    ref.constants["cheb_polys"] = trainer.constants["cheb_polys"][:, inv][:, :, inv]
+    # compared in float32, where the two tilings differ only in summation order
+    ref.compute_dtype = trainer.compute_dtype = torch.float32
+    pred_ref, _ = ref.evaluate("test")
+    pred_rcm, _ = trainer.evaluate("test")
+    scale = max(1.0, float(np.abs(pred_ref).max()))
+    err = float(np.abs(pred_rcm - pred_ref).max()) / scale
+    err_unmapped = float(np.abs(pred_rcm[:, perm] - pred_ref).max()) / scale
+    mae = float(np.abs(pred_rcm - ds.test.target).mean())
+    out.update(order_rel_err_f32=err, order_rel_err_if_unmapped=err_unmapped, test_mae_f32=mae)
+    print("main_path", json.dumps(out), flush=True)
+    check(err <= TOL, f"rcm predictions vs the unpermuted model: {err:.3g} > {TOL}")
+    return out
+
+
+def measure_gambia_bell(root: Path, rounds: int = 2):
+    """GAMBIA train-step time of the BELL tiles path against the dense path
+    with the cheb_sat kernel and with the plain aggregation (bench.py's
+    comparison), alternated in one process; then a profile of the BELL
+    step."""
+    ds, A, pa = gambia_data()
+    configs = {"dense_plain": dict(use_pallas=False), "dense_kernel": dict(use_pallas=True),
+               "bell_tiles": BELL_TILES}
+    trainers = {}
+    for name, kw in configs.items():
+        trainers[name] = Trainer(gambia_config(A.shape[0], **kw), dataset=ds, adj_merge=A,
+                                 adj_pa=pa, experiments_root=str(root / f"m_{name}"),
+                                 device="cuda")
+        trainers[name].train_epoch(0)  # warm-up
+    times = {name: [] for name in configs}
+    order = ["dense_plain", "dense_kernel", "bell_tiles", "bell_tiles", "dense_kernel",
+             "dense_plain"] * rounds
+    for i, name in enumerate(order):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainers[name].train_epoch(i + 1)
+        times[name].append((time.perf_counter() - t0) / trainers[name].last_epoch_steps * 1e3)
+    out = {"path": "gambia_bell_step_ms", **times,
+           "profile": {"bell_tiles": profile_epoch(trainers["bell_tiles"])}}
+    print("measure", json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+KERNEL_SITES = {
+    "cheb_sat": ("dstagnn_drought_tpu_torch/csrc/cheb_sat.cu",
+                 "dstagnn_drought_tpu/ops/pallas/cheb_sat.py:83"),
+    "bell_fused": ("dstagnn_drought_tpu_torch/csrc/bell_fused.cu",
+                   "dstagnn_drought_tpu/ops/pallas/bell_fused.py:553"),
+    "bell_k1": ("dstagnn_drought_tpu_torch/csrc/bell_bwd.cu",
+                "dstagnn_drought_tpu/ops/pallas/bell_bwd.py:363"),
+    "bell_k2": ("dstagnn_drought_tpu_torch/csrc/bell_bwd.cu",
+                "dstagnn_drought_tpu/ops/pallas/bell_bwd.py:597"),
+}
+
+
+def kernel_lines(rows, bell_rows, pems, gambia, tiles):
+    """One record per kernel for the JSON line: launches from its main path,
+    times and bound at the main path's shape."""
+    main_row = next(r for r in rows if r["shape"] == "pems08_blocks2-4")
+    src, site = KERNEL_SITES["cheb_sat"]
+    out = [{
+        "name": "cheb_sat", "route": "cuda", "source": src, "replaces": site,
+        "launches": pems["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None,
+        "shape": "B=64 K=3 N=170 M=384 (PEMS08 blocks 2-4)",
+        "launches_gambia": gambia["launches"],
+    }]
+    for name in ("bell_fused", "bell_k1", "bell_k2"):
+        mine = [r for r in bell_rows if r["kernel"] == name]
+        main = next(r for r in mine if r["shape"] == "gambia_block2" and r["dtype"] == "bfloat16")
+        src, site = KERNEL_SITES[name]
+        out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": site,
+            "launches": tiles["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shape": "GAMBIA block 2, bf16: B=4 H=2 N=2139 BS=128 A=49 C=32 T=144 Co=32",
+        })
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -468,41 +812,37 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     report = build.build(build.SOURCES)
+    builds = {}
     for name, r in report.items():
         print(f"build {name}: {r['seconds']:.2f} s", flush=True)
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  ptxas: {line.strip()}")
+        lines = [line.strip() for line in r["log"].splitlines()
+                 if "registers" in line or "spill" in line or "error" in line]
+        for line in lines:
+            print(f"  ptxas: {line}")
+        builds[name] = {"seconds": r["seconds"], "ptxas": lines}
     print(f"card: {card}", flush=True)
 
     rows = phase_kernels()
+    bell_rows = phase_bell_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
         pems = phase_pems08(root)
         measured = measure_pems08_epochs(root) if args.measure else None
         gambia = phase_gambia(root)
+        tiles = phase_gambia_bell_tiles(root)
+        rcm = phase_gambia_bell_rcm(root)
         if args.measure:
             measured = {"pems08": measured, "gambia": measure_gambia_steps(root),
+                        "gambia_bell": measure_gambia_bell(root),
                         "accuracy": measure_accuracy(root)}
 
-    main_row = next(r for r in rows if r["shape"] == "pems08_blocks2-4")
-    kernels = [{
-        "name": "cheb_sat", "route": "cuda",
-        "source": "dstagnn_drought_tpu_torch/csrc/cheb_sat.cu",
-        "replaces": "dstagnn_drought_tpu/ops/pallas/cheb_sat.py:83",
-        "launches": pems["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None,
-        "shape": "B=64 K=3 N=170 M=384 (PEMS08 blocks 2-4)",
-        "launches_gambia": gambia["launches"],
-    }]
+    kernels = kernel_lines(rows, bell_rows, pems, gambia, tiles)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
-            "card": card, "cheb_sat": rows, "pems08": pems, "measure": measured,
-            "gambia": gambia, "kernels": kernels,
+            "card": card, "builds": builds, "cheb_sat": rows, "bell": bell_rows, "pems08": pems,
+            "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
+            "gambia_bell_rcm": rcm, "kernels": kernels,
             "seconds": time.perf_counter() - t_start,
         }, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,5 +1,5 @@
-"""DSTAGNN model, dense branch — PyTorch counterpart of
-``dstagnn_drought_tpu/models/dstagnn.py``.
+"""DSTAGNN model, dense and block-sparse (BELL) branches — PyTorch
+counterpart of ``dstagnn_drought_tpu/models/dstagnn.py``.
 
 A stack of ST blocks, each = temporal embedding → temporal multi-head
 attention with score residuals → 1×F "pre conv" down to d_model → spatial
@@ -12,11 +12,16 @@ The modules are parameter holders named after the reference's
 ``state_dict`` keys, so ``import_torch_state_dict`` of the JAX package reads
 a port ``state_dict`` unchanged and :func:`params_from_jax` maps the other
 way. The forward is written with the JAX package's layouts and does what
-its ``_block_apply``/``apply`` do on the dense branch, including the fixed
-multichannel residual, the ``res_att`` mean when the feature width changes,
-and the ``pinned_out`` tail switch (kernel output and T >= 48 → the
-(B, N, C, T) GTU tail). bfloat16 compute casts parameters and inputs at the
-top of the forward, as the JAX ``apply`` does; no autocast.
+its ``_block_apply``/``apply`` do on the dense branch and on the BELL
+branch (``bell``: a :class:`~dstagnn_drought_tpu_torch.ops.block_sparse.
+BlockEllGraph`), including the fixed multichannel residual, the ``res_att``
+mean when the feature width changes, and the ``pinned_out`` tail switch
+(kernel output and T >= 48 → the (B, N, C, T) GTU tail). The BELL branch has
+three spatial paths: tile-resident masks (``mask_tiles``, built with
+``make_model(bell=...)``) through the tiles kernel; dense masks with
+``use_pallas`` through the fused kernel; otherwise the plain block-sparse
+path. bfloat16 compute casts parameters and inputs at the top of the
+forward, as the JAX ``apply`` does; no autocast.
 """
 from __future__ import annotations
 
@@ -32,7 +37,17 @@ from dstagnn_drought_tpu_torch.ops.attention import (
     spatial_attention_scores,
     temporal_attention,
 )
+from dstagnn_drought_tpu_torch.ops.block_sparse import (
+    block_sparse_cheb_conv_with_sat,
+    block_sparse_spatial_attention_scores,
+    build_bell_tile_constants,
+    gather_block_values,
+)
 from dstagnn_drought_tpu_torch.ops.cheb import cheb_conv_with_sat
+from dstagnn_drought_tpu_torch.ops.cuda.bell_fused import (
+    bell_cheb_conv_tiles,
+    bell_cheb_conv_with_sat_pallas,
+)
 from dstagnn_drought_tpu_torch.ops.cuda.cheb_sat import cheb_conv_with_sat_pallas
 from dstagnn_drought_tpu_torch.ops.graph import cheb_polynomials, scaled_laplacian
 from dstagnn_drought_tpu_torch.ops.gtu import (
@@ -123,12 +138,20 @@ class _SAt(nn.Module):
 
 
 class _ChebConvSAt(nn.Module):
-    def __init__(self, K: int, c_in: int, c_out: int, n: int):
+    """Θ per order, and the learnable graph masks: dense ``mask.{k}`` (N, N)
+    or, with ``tiles`` = (A, BS), ``mask_tiles`` (A, K, BS, BS) on the BELL
+    active-tile support (a port-only state_dict key)."""
+
+    def __init__(self, K: int, c_in: int, c_out: int, n: int, tiles=None):
         super().__init__()
         self.Theta = nn.ParameterList(
             [nn.Parameter(torch.empty(c_in, c_out)) for _ in range(K)])
-        self.mask = nn.ParameterList(
-            [nn.Parameter(torch.empty(n, n)) for _ in range(K)])
+        if tiles is None:
+            self.mask = nn.ParameterList(
+                [nn.Parameter(torch.empty(n, n)) for _ in range(K)])
+        else:
+            A, BS = tiles
+            self.mask_tiles = nn.Parameter(torch.empty(A, K, BS, BS))
 
 
 class _GTU(nn.Module):
@@ -138,9 +161,10 @@ class _GTU(nn.Module):
 
 
 class STBlock(nn.Module):
-    """One spatial-temporal block (dense branch)."""
+    """One spatial-temporal block (dense or BELL spatial branch)."""
 
-    def __init__(self, spec: ModelSpec, num_of_d: int, in_channels: int):
+    def __init__(self, spec: ModelSpec, num_of_d: int, in_channels: int,
+                 tiles=None):
         super().__init__()
         self.spec = spec
         N, T, C = spec.num_of_vertices, spec.len_input, spec.nb_time_filter
@@ -150,7 +174,8 @@ class STBlock(nn.Module):
         self.pre_conv = nn.Conv2d(T, spec.d_model, kernel_size=(1, num_of_d))
         self.EmbedS = _Embed(N, spec.d_model)
         self.SAt = _SAt(spec.d_model, spec.d_k, spec.K)
-        self.cheb_conv_SAt = _ChebConvSAt(spec.K, in_channels, spec.nb_chev_filter, N)
+        self.cheb_conv_SAt = _ChebConvSAt(spec.K, in_channels, spec.nb_chev_filter, N,
+                                          tiles)
         self.gtu3 = _GTU(C, 3, spec.time_strides)
         self.gtu5 = _GTU(C, 5, spec.time_strides)
         self.gtu7 = _GTU(C, 7, spec.time_strides)
@@ -160,7 +185,7 @@ class STBlock(nn.Module):
         self.ln = nn.LayerNorm(C)
 
     def forward(self, x, res_att, *, adj_pa, cheb_polys, deterministic,
-                generator, use_pallas):
+                generator, use_pallas, bell=None, bell_tiles=None):
         spec = self.spec
         dt = x.dtype
         c = lambda t: t.to(dt)  # parameters in the compute dtype
@@ -194,22 +219,53 @@ class STBlock(nn.Module):
         SEmx = layer_norm(se, c(self.EmbedS.norm.weight), c(self.EmbedS.norm.bias))
         SEmx = dropout(SEmx, spec.dropout_rate, generator, deterministic)
 
-        STAt = spatial_attention_scores(
-            SEmx, wq=c(self.SAt.W_Q.weight).t(), wk=c(self.SAt.W_K.weight).t(),
-            n_heads=spec.K, d_k=spec.d_k,
-        )
-        conv = cheb_conv_with_sat_pallas if use_pallas else cheb_conv_with_sat
-        spatial_gcn = conv(
-            x, STAt, adj_pa, cheb_polys=cheb_polys,
-            masks=torch.stack([c(m) for m in self.cheb_conv_SAt.mask]),
-            thetas=torch.stack([c(t) for t in self.cheb_conv_SAt.Theta]),
-        )  # (B, N, C, T)
+        wq, wk = c(self.SAt.W_Q.weight).t(), c(self.SAt.W_K.weight).t()
+        thetas = torch.stack([c(t) for t in self.cheb_conv_SAt.Theta])
+        cheb = self.cheb_conv_SAt
+        masks = (torch.stack([c(m) for m in cheb.mask])
+                 if hasattr(cheb, "mask") else None)
+        # pinned_out: the spatial output comes out of a kernel (JAX:
+        # a pallas_call), which switches the tail below
+        if bell is None:
+            pinned_out = use_pallas
+            STAt = spatial_attention_scores(SEmx, wq=wq, wk=wk, n_heads=spec.K,
+                                            d_k=spec.d_k)
+            conv = cheb_conv_with_sat_pallas if use_pallas else cheb_conv_with_sat
+            spatial_gcn = conv(x, STAt, adj_pa, cheb_polys=cheb_polys, masks=masks,
+                               thetas=thetas)  # (B, N, C, T)
+        elif masks is None:
+            # tile-resident masks: always the tiles kernel
+            if bell_tiles is None:
+                raise ValueError(
+                    "the model has tile-resident masks (mask_tiles) but no "
+                    "bell_tiles constants were given; build them with "
+                    "ops.block_sparse.build_bell_tile_constants()")
+            pinned_out = True
+            spatial_gcn = bell_cheb_conv_tiles(
+                x, SEmx, bell, wq=wq, wk=wk, mask_tiles=c(cheb.mask_tiles),
+                pattern_tiles=bell_tiles["pattern_tiles"],
+                pa_tiles=bell_tiles["pa_tiles"], cheb_tiles=bell_tiles["cheb_tiles"],
+                thetas=thetas, n_heads=spec.K, d_k=spec.d_k)
+        elif use_pallas:
+            pinned_out = True
+            spatial_gcn = bell_cheb_conv_with_sat_pallas(
+                x, SEmx, bell, wq=wq, wk=wk, adj_pa=adj_pa, masks=masks,
+                cheb_polys=cheb_polys, thetas=thetas, n_heads=spec.K, d_k=spec.d_k)
+        else:
+            pinned_out = False
+            block_scores = block_sparse_spatial_attention_scores(
+                SEmx, bell, wq=wq, wk=wk, n_heads=spec.K, d_k=spec.d_k)
+            spatial_gcn = block_sparse_cheb_conv_with_sat(
+                x, block_scores, bell,
+                cheb_blocks=gather_block_values(cheb_polys, bell),
+                bias_blocks=gather_block_values(adj_pa[None] * masks, bell),
+                thetas=thetas)
 
         gtus = (self.gtu3, self.gtu5, self.gtu7)
         fcmy = self.fcmy[0]
-        # the kernel's output feeds the (B, N, C, T) tail at long T, as the
-        # JAX package's pinned_out switch does
-        if (use_pallas and spec.time_strides == 1
+        # a kernel's output feeds the (B, N, C, T) tail at long T, as the
+        # JAX package's pinned_out/tail_bnct switch does
+        if (pinned_out and spec.time_strides == 1
                 and spatial_gcn.shape[-1] >= _IM2COL_MIN_T):
             cat = torch.cat(
                 [gtu_bnct(spatial_gcn, c(g.con2out.weight), c(g.con2out.bias),
@@ -263,13 +319,16 @@ class STBlock(nn.Module):
 
 
 class DSTAGNN(nn.Module):
-    """x: (B, N, F, T) → (B, N, num_for_predict) float32."""
+    """x: (B, N, F, T) → (B, N, num_for_predict) float32. With ``bell`` (a
+    BlockEllGraph) every block holds tile-resident masks on its active-tile
+    support instead of dense (N, N) masks."""
 
-    def __init__(self, spec: ModelSpec):
+    def __init__(self, spec: ModelSpec, bell=None):
         super().__init__()
         self.spec = spec
+        tiles = None if bell is None else (bell.num_active, bell.block_size)
         self.BlockList = nn.ModuleList(
-            [STBlock(spec, nd, ic) for nd, ic in spec.block_specs])
+            [STBlock(spec, nd, ic, tiles) for nd, ic in spec.block_specs])
         T_cat = (spec.len_input // spec.time_strides) * spec.nb_block
         self.final_conv = nn.Conv2d(T_cat, 128, kernel_size=(1, spec.nb_time_filter))
         self.final_fc = nn.Linear(128, spec.num_for_predict)
@@ -277,7 +336,7 @@ class DSTAGNN(nn.Module):
     def forward(self, x, *, adj_pa, cheb_polys, deterministic: bool = True,
                 generator: torch.Generator | None = None,
                 compute_dtype: torch.dtype = torch.float32,
-                use_pallas: bool = False):
+                use_pallas: bool = False, bell=None, bell_tiles=None):
         x = x.to(compute_dtype)
         adj_pa = adj_pa.to(compute_dtype)
         cheb_polys = cheb_polys.to(compute_dtype)
@@ -288,7 +347,7 @@ class DSTAGNN(nn.Module):
             x, res_att = block(
                 x, res_att, adj_pa=adj_pa, cheb_polys=cheb_polys,
                 deterministic=deterministic, generator=generator,
-                use_pallas=use_pallas,
+                use_pallas=use_pallas, bell=bell, bell_tiles=bell_tiles,
             )
             outs.append(x)
         final_x = torch.cat(outs, dim=-1)  # (B, N, C, T·nb_block)
@@ -301,20 +360,41 @@ class DSTAGNN(nn.Module):
 
 
 def make_model(spec: ModelSpec, adj_merge, adj_pa, *, seed: int = 0,
-               device: torch.device | str = "cuda"):
+               device: torch.device | str = "cuda", bell=None):
     """Build (model, constants): scaled Laplacian of the merged graph → K
     Chebyshev polynomials as constants, and a model initialized like the
     reference from ``torch.Generator`` seed ``seed`` (drawn on the CPU, so
     the weights do not depend on the device). ``device`` defaults to
-    ``cuda`` and raises without a card."""
+    ``cuda`` and raises without a card.
+
+    With ``bell`` (a BlockEllGraph) the masks are tile-resident: each block's
+    ``mask_tiles`` (A, K, BS, BS) is drawn uniform with the dense xavier
+    bound √(6 / 2N), and the constants carry the per-tile adj_pa and
+    Chebyshev values (``bell_tiles``) with (K, 1, 1) and (1, 1) zero
+    placeholders for the dense planes, so nothing O(N²) is on the device."""
     device = resolve_device(device)
     L_tilde = scaled_laplacian(torch.as_tensor(np.asarray(adj_merge), dtype=torch.float32))
-    constants = {
-        "cheb_polys": cheb_polynomials(L_tilde, spec.K).to(device),
-        "adj_pa": torch.as_tensor(np.asarray(adj_pa), dtype=torch.float32).to(device),
-    }
-    model = DSTAGNN(spec)
-    init_like_reference_(model, torch.Generator().manual_seed(seed))
+    polys = cheb_polynomials(L_tilde, spec.K)
+    if bell is None:
+        constants = {
+            "cheb_polys": polys.to(device),
+            "adj_pa": torch.as_tensor(np.asarray(adj_pa), dtype=torch.float32).to(device),
+        }
+    else:
+        constants = {
+            "cheb_polys": torch.zeros((spec.K, 1, 1), device=device),
+            "adj_pa": torch.zeros((1, 1), device=device),
+            "bell_tiles": build_bell_tile_constants(bell, adj_pa, polys.numpy(),
+                                                    device=device),
+        }
+    model = DSTAGNN(spec, bell=bell)
+    gen = torch.Generator().manual_seed(seed)
+    init_like_reference_(model, gen)
+    if bell is not None:
+        bound = (6.0 / (2 * spec.num_of_vertices)) ** 0.5
+        with torch.no_grad():
+            for block in model.BlockList:
+                block.cheb_conv_SAt.mask_tiles.uniform_(-bound, bound, generator=gen)
     return model.to(device), constants
 
 
@@ -351,7 +431,11 @@ def params_from_jax(params, spec: ModelSpec) -> dict[str, torch.Tensor]:
         sd[pre + "SAt.W_K.weight"] = t(b["sat"]["wk"], True)
         for k in range(spec.K):
             sd[pre + f"cheb_conv_SAt.Theta.{k}"] = t(np.asarray(b["cheb"]["thetas"])[k])
-            sd[pre + f"cheb_conv_SAt.mask.{k}"] = t(np.asarray(b["cheb"]["masks"])[k])
+        if "mask_tiles" in b["cheb"]:
+            sd[pre + "cheb_conv_SAt.mask_tiles"] = t(b["cheb"]["mask_tiles"])
+        else:
+            for k in range(spec.K):
+                sd[pre + f"cheb_conv_SAt.mask.{k}"] = t(np.asarray(b["cheb"]["masks"])[k])
         for ksz in (3, 5, 7):
             sd[pre + f"gtu{ksz}.con2out.weight"] = t(b[f"gtu{ksz}"]["w"])
             sd[pre + f"gtu{ksz}.con2out.bias"] = t(b[f"gtu{ksz}"]["b"])
@@ -368,9 +452,39 @@ def params_from_jax(params, spec: ModelSpec) -> dict[str, torch.Tensor]:
     return sd
 
 
-def constants_from_jax(constants) -> dict[str, torch.Tensor]:
-    """The JAX package's ``cheb_polys``/``adj_pa`` constants as CPU tensors."""
-    return {
+def permute_nodes(state_dict: dict, perm) -> dict:
+    """A dense-mask state_dict with every node-indexed axis reordered by
+    ``perm`` (new node i is old node perm[i]): the positional tables, the
+    temporal-attention weights whose token width is N, their LayerNorms and
+    the (N, N) masks. The model with these weights on inputs and graphs
+    permuted by ``perm`` computes the permuted function."""
+    perm = torch.as_tensor(np.asarray(perm), dtype=torch.long)
+    out = {}
+    for k, v in state_dict.items():
+        if k.endswith(("EmbedT.pos_embed.weight", "TAt.W_Q.weight", "TAt.W_K.weight",
+                       "TAt.W_V.weight")):
+            v = v[:, perm]
+        elif k.endswith(("EmbedT.norm.weight", "EmbedT.norm.bias", "TAt.fc.weight",
+                         "TAt.layer_norm.weight", "TAt.layer_norm.bias",
+                         "EmbedS.pos_embed.weight")):
+            v = v[perm]
+        elif ".cheb_conv_SAt.mask." in k:
+            v = v[perm][:, perm]
+        elif k.endswith("cheb_conv_SAt.mask_tiles"):
+            raise ValueError("tile-resident masks follow their graph's tiling; "
+                             "permute a dense-mask model")
+        out[k] = v.clone()
+    return out
+
+
+def constants_from_jax(constants) -> dict:
+    """The JAX package's ``cheb_polys``/``adj_pa`` constants (and its
+    ``bell_tiles``, when present) as CPU tensors."""
+    out = {
         name: torch.from_numpy(np.array(constants[name], dtype=np.float32))
         for name in ("cheb_polys", "adj_pa")
     }
+    if "bell_tiles" in constants:
+        out["bell_tiles"] = {k: torch.from_numpy(np.array(v))
+                             for k, v in constants["bell_tiles"].items()}
+    return out

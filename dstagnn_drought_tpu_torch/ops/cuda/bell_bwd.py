@@ -1,0 +1,223 @@
+"""Backward kernels of the fused BELL conv — K1 (dA, dΘ) and K2 (dx) — and
+their plain PyTorch versions.
+
+Counterpart of ``dstagnn_drought_tpu/ops/pallas/bell_bwd.py``
+(``bell_bwd_dA_dtheta`` and ``bell_bwd_dx``, both TPU layouts) in the one
+c-major layout of the port: x is (B, Np, C·T), the cotangent ``gm`` (the
+output gradient times the ReLU mask, in x's dtype) is (B, Np, Co·T), the
+modulated weights ``w = T_k ⊙ softmax`` are (B, A, H, BS_src, BS_tgt) in
+x's dtype, one tile per entry of the target-sorted active list. With
+g_agg_h = gm · Θ_hᵀ (per target row, (Co → C) at every time step):
+
+    K1:  dA[b,a,h] = x[src(a)] · round(g_agg_h[tgt(a)])ᵀ       (f32)
+         dΘ_h      = Σ_{b,a} (w[b,a,h]ᵀ · x[src(a)])ᵀ · gm[tgt(a)]
+    K2:  dx[i]     = Σ_{a: src(a)=i} Σ_h w[b,a,h] · g_agg_h[tgt(a)]
+
+``round`` is the cast to x's dtype that the TPU kernel applies before its
+dA product; K2 keeps g_agg in float32 as the TPU kernel does. The kernels
+(``csrc/bell_bwd.cu``; its header says what bounds them) recompute g_agg
+from gm and Θ in shared memory, so the (B, H, Np, C·T) tensor never
+reaches device memory; dΘ is summed from per-block partials by a second
+pass in a fixed order (no atomics: two runs give the same bits); K2 walks
+the source-sorted list so every block owns its dx tile (no scatter). On a
+CUDA tensor the wrappers launch the kernels or raise; the plain versions
+serve CPU tensors only. ``k1_launches``/``k2_launches`` count launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dstagnn_drought_tpu_torch.ops.cuda import build
+
+k1_launches = 0
+k2_launches = 0
+
+# a kernel block covers a chunk of time steps with every channel of each
+# step: at most 64 input columns (C·TT) in a tile of sums, and at most 512
+# staged cotangent columns (Co·TT; 128 in K1's dA pass, which stages 64 rows)
+_W_MAX, _WO_MAX, _BS_MAX = 64, 512, 128
+
+
+def time_chunk(C: int, Co: int, T: int, staged: int = _WO_MAX) -> int:
+    """Time steps per kernel block: C·TT ≤ 64, Co·TT ≤ ``staged``, TT ≤ T."""
+    if C > _W_MAX or Co > staged:
+        raise ValueError(f"the BELL kernels take C <= {_W_MAX} and Co <= {staged}, "
+                         f"got C={C}, Co={Co}")
+    return max(1, min(_W_MAX // C, staged // Co, T))
+
+
+def _g_agg(gm, thetas, T):
+    """g_agg (B, Np, H, C·T) float32 from gm (B, Np, Co·T) and Θ (H, C, Co)."""
+    B, Np, _ = gm.shape
+    H, C, Co = thetas.shape
+    g = torch.einsum("bnot,hco->bnhct", gm.float().reshape(B, Np, Co, T), thetas.float())
+    return g.reshape(B, Np, H, C * T)
+
+
+def bell_k1_plain(active_src, active_tgt, thetas, gm, x, w):
+    """K1 in tensor ops: (dA (B, A, H, BS, BS) f32, dΘ (H, C, Co) f32)."""
+    B, A, H, BS, _ = w.shape
+    M = x.shape[-1]
+    _, C, Co = thetas.shape
+    T = M // C
+    active_src, active_tgt = active_src.long(), active_tgt.long()
+    g = _g_agg(gm, thetas, T).to(x.dtype).float()            # rounded like x
+    g = g.reshape(B, -1, BS, H, M)[:, active_tgt]            # (B, A, BS_t, H, M)
+    x_src = x.reshape(B, -1, BS, M)[:, active_src].float()   # (B, A, BS_s, M)
+    dA = torch.einsum("basm,bathm->bahst", x_src, g)
+    agg = torch.einsum("bahst,basm->bahtm", w.float(), x_src)
+    gm_t = gm.float().reshape(B, -1, BS, Co, T)[:, active_tgt]
+    dth = torch.einsum("bahvct,bavot->hco", agg.reshape(B, A, H, BS, C, T), gm_t)
+    return dA, dth
+
+
+def bell_k2_plain(src_start, src_count, src_order, active_tgt, thetas, gm, w):
+    """K2 in tensor ops: dx (B, NI·BS, C·T) in gm's dtype."""
+    B, A, H, BS, _ = w.shape
+    _, C, Co = thetas.shape
+    T = gm.shape[-1] // Co
+    NI = src_count.shape[0]
+    active_tgt = active_tgt.long()
+    a_src = torch.empty(A, dtype=torch.long, device=w.device)
+    a_src[src_order.long()] = torch.repeat_interleave(
+        torch.arange(NI, device=w.device), src_count.long())
+    g = _g_agg(gm, thetas, T).reshape(B, -1, BS, H, C * T)[:, active_tgt]
+    dx_t = torch.einsum("bahst,bathm->basm", w.float(), g)
+    dx = torch.zeros((B, NI, BS, C * T), dtype=torch.float32, device=gm.device)
+    dx.index_add_(1, a_src, dx_t)
+    return dx.reshape(B, NI * BS, C * T).to(gm.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(thetas, gm, w, indices, others=()):
+    if w.ndim != 5 or w.shape[3] != w.shape[4]:
+        raise ValueError(f"w must be (B, A, H, BS, BS), got {tuple(w.shape)}")
+    B, A, H, BS, _ = w.shape
+    if BS > _BS_MAX:
+        raise ValueError(f"the BELL kernels take block_size <= {_BS_MAX}, got {BS}")
+    if thetas.ndim != 3 or thetas.shape[0] != H or thetas.dtype != torch.float32:
+        raise ValueError(f"thetas must be float32 (H={H}, C, Co), got "
+                         f"{thetas.dtype} {tuple(thetas.shape)}")
+    Co = thetas.shape[2]
+    if gm.ndim != 3 or gm.shape[0] != B or gm.shape[1] % BS or gm.shape[2] % Co:
+        raise ValueError(f"gm must be (B={B}, NJ·BS, Co·T), got {tuple(gm.shape)}")
+    if gm.dtype not in _DTYPES or w.dtype != gm.dtype:
+        raise TypeError(f"gm and w must share float32 or bfloat16, got {gm.dtype}, {w.dtype}")
+    for name, t in (("thetas", thetas), ("gm", gm), ("w", w), *others, *indices):
+        if t.device.type != "cuda" or t.device != w.device:
+            raise ValueError(f"the BELL kernels run on CUDA tensors; {name} is on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in indices:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if B * H > 65535:
+        raise ValueError(f"grid too large for B·H={B * H}")
+
+
+def _load():
+    lib = build.load("bell_bwd")
+    if lib.bell_bwd_k1.argtypes is None:
+        lib.bell_bwd_k1.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        lib.bell_bwd_k1.restype = ctypes.c_int
+        lib.bell_bwd_k2.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.bell_bwd_k2.restype = ctypes.c_int
+        lib.bell_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.bell_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.bell_bwd_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def k1_groups(T: int, TT: int) -> int:
+    """dΘ partials per (batch, head, target tile): time chunks are split into
+    groups of at most 4, one block each."""
+    chunks = -(-T // TT)
+    return -(-chunks // 4)
+
+
+def bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, w):
+    """Launch K1 on the current stream: (dA f32, dΘ f32)."""
+    global k1_launches
+    _check(thetas, gm, w, (("active_src", active_src), ("active_tgt", active_tgt),
+                           ("tile_start", tile_start), ("tile_count", tile_count)),
+           (("x", x),))
+    B, A, H, BS, _ = w.shape
+    _, C, Co = thetas.shape
+    M = x.shape[-1]
+    if x.dtype != w.dtype or x.shape[0] != B or x.shape[1] % BS or M % C:
+        raise ValueError(f"x must be (B, NI·BS, C·T) in {w.dtype}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    T = M // C
+    if gm.shape[2] != Co * T:
+        raise ValueError(f"gm has {gm.shape[2]} features, expected Co·T={Co * T}")
+    NJ = tile_start.shape[0]
+    TTa, TTc = time_chunk(C, Co, T, staged=128), time_chunk(C, Co, T)
+    G = k1_groups(T, TTc)
+    dev = w.device
+    dA = torch.empty((B, A, H, BS, BS), dtype=torch.float32, device=dev)
+    partial = torch.empty((B * H * NJ * G, C * Co), dtype=torch.float32, device=dev)
+    dth = torch.empty((H, C, Co), dtype=torch.float32, device=dev)
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bell_bwd_k1(
+            active_src.data_ptr(), active_tgt.data_ptr(), tile_start.data_ptr(),
+            tile_count.data_ptr(), thetas.data_ptr(), gm.data_ptr(), x.data_ptr(),
+            w.data_ptr(), dA.data_ptr(), partial.data_ptr(), dth.data_ptr(),
+            B, A, H, NJ, BS, C, T, Co, TTa, TTc, G, int(x.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(lib, err, "bell_bwd K1")
+    k1_launches += 1
+    return dA, dth
+
+
+def bell_k2_cuda(src_start, src_count, src_order, active_tgt, thetas, gm, w):
+    """Launch K2 on the current stream: dx (B, NI·BS, C·T) in gm's dtype."""
+    global k2_launches
+    _check(thetas, gm, w, (("src_start", src_start), ("src_count", src_count),
+                           ("src_order", src_order), ("active_tgt", active_tgt)))
+    B, A, H, BS, _ = w.shape
+    _, C, Co = thetas.shape
+    T = gm.shape[-1] // Co
+    NI = src_start.shape[0]
+    TT = time_chunk(C, Co, T)
+    dx = torch.empty((B, NI * BS, C * T), dtype=gm.dtype, device=w.device)
+    lib = _load()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = lib.bell_bwd_k2(
+            src_start.data_ptr(), src_count.data_ptr(), src_order.data_ptr(),
+            active_tgt.data_ptr(), thetas.data_ptr(), gm.data_ptr(), w.data_ptr(),
+            dx.data_ptr(), B, A, H, NI, gm.shape[1] // BS, BS, C, T, Co, TT,
+            int(gm.dtype == torch.bfloat16), stream,
+        )
+    _raise_on(lib, err, "bell_bwd K2")
+    k2_launches += 1
+    return dx
+
+
+def bell_k1(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, w):
+    """K1: the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if w.device.type == "cpu":
+        return bell_k1_plain(active_src, active_tgt, thetas, gm, x, w)
+    return bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, w)
+
+
+def bell_k2(src_start, src_count, src_order, active_tgt, thetas, gm, w):
+    """K2: the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if w.device.type == "cpu":
+        return bell_k2_plain(src_start, src_count, src_order, active_tgt, thetas, gm, w)
+    return bell_k2_cuda(src_start, src_count, src_order, active_tgt, thetas, gm, w)

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). Libraries go to ``<repo>/build/kernels/``, named by
-a digest of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing is built at import time: ``load`` builds on
+a digest of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source rebuilds and an unchanged one is reused. Nothing is built at import time: ``load`` builds on
 first use, and ``build`` compiles several sources at once, one ``nvcc``
 process each, all started together.
 """
@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("cheb_sat",)
+SOURCES = ("cheb_sat", "bell_fused", "bell_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -44,9 +44,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    """The library's path, named by a digest of its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,12 +1,18 @@
-"""The trainer, dense path: epoch loop with validation, best-val checkpoints,
-true resume, NaN abort and the final per-horizon test report.
+"""The trainer: epoch loop with validation, best-val checkpoints, true
+resume, NaN abort and the final per-horizon test report, on the dense path
+and on the block-sparse (BELL) path.
 
 Counterpart of ``dstagnn_drought_tpu/training/loop.py``. The batch plan and
 the per-epoch shuffle seed ``seed*100003 + epoch`` are the JAX package's, so
 both trainers see the same batches; padded tail rows get zero loss weight.
 Each split is moved to the device once and a batch is gathered there by an
-index vector. Options of paths not ported yet raise ``NotImplementedError``
-naming the ROADMAP item that will port them (:func:`check_slice`).
+index vector. With ``sparse`` and ``sparse_format=bell`` the BlockEllGraph
+of ``adj_merge`` is built before the model (``mask_format=tiles`` puts the
+masks on its active-tile support) and, with ``rcm``, graphs and data splits
+are permuted by reverse Cuthill–McKee; ``evaluate`` returns predictions in
+the original node order. Options of paths not ported yet raise
+``NotImplementedError`` naming the ROADMAP item that will port them
+(:func:`check_slice`).
 """
 from __future__ import annotations
 
@@ -28,6 +34,10 @@ from dstagnn_drought_tpu_torch.data.adjacency import (
 from dstagnn_drought_tpu_torch.data.dataset import ArrayDataset, load_windowed_dataset
 from dstagnn_drought_tpu_torch.device import compute_dtype, resolve_device
 from dstagnn_drought_tpu_torch.models.dstagnn import ModelSpec, make_model
+from dstagnn_drought_tpu_torch.ops.block_sparse import (
+    block_ell_from_adjacency,
+    rcm_permutation,
+)
 from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
 from dstagnn_drought_tpu_torch.training.logger import MetricLogger
 from dstagnn_drought_tpu_torch.training.metrics import horizon_report
@@ -46,8 +56,8 @@ def check_slice(cfg: Config) -> None:
     refused = [
         (t.model_name not in ("", "dstagnn"),
          f"model_name={t.model_name!r}", "§1 item 11 (model zoo)"),
-        (t.sparse, "sparse=true", "§1 item 9 (ELL/BELL) and §2 kernels 2-4"),
-        (t.rcm, "rcm=true", "§1 item 9 (ELL/BELL)"),
+        (t.sparse and t.sparse_format == "ell", "sparse_format='ell'",
+         "§1 item 9 (ELL)"),
         (t.fuse_gtu is True, "fuse_gtu=true", "§2 kernel 5 (gtu_fused)"),
         (t.fuse_tat, "fuse_tat=true", "§2 kernel 6 (tat_fused)"),
         (t.fuse_spatial, "fuse_spatial=true", "§2 kernel 7 (block_spatial_fused)"),
@@ -107,8 +117,25 @@ class Trainer:
         if adj_merge is None or adj_pa is None:
             adj_merge, adj_pa = load_graphs(cfg)
 
+        # RCM reordering for the block-sparse path: node-indexed state lives
+        # in the permuted order; evaluate() maps predictions back
+        self._perm = self._inv_perm = None
+        bell = None
+        if t.sparse:
+            if t.rcm:
+                adj_merge = np.asarray(adj_merge)
+                perm = rcm_permutation(np.maximum(adj_merge, adj_merge.T))
+                self._perm, self._inv_perm = perm, np.argsort(perm)
+                adj_merge = adj_merge[np.ix_(perm, perm)]
+                adj_pa = np.asarray(adj_pa)[np.ix_(perm, perm)]
+            # built before the model: tile-resident masks live on its support
+            bell = block_ell_from_adjacency(adj_merge, block_size=t.block_size)
+
         self.model, self.constants = make_model(
-            self.spec, adj_merge, adj_pa, seed=t.seed, device=self.device)
+            self.spec, adj_merge, adj_pa, seed=t.seed, device=self.device,
+            bell=bell if t.mask_format == "tiles" else None)
+        if bell is not None:
+            self.constants["bell"] = bell.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate)
         self.generator = torch.Generator(device=self.device).manual_seed(t.seed)
 
@@ -124,11 +151,13 @@ class Trainer:
         self.last_epoch_steps = 0
 
         # device-resident splits; a batch is a gather by an index vector
-        self._splits = {
-            name: (torch.from_numpy(getattr(dataset, name).x).to(self.device),
-                   torch.from_numpy(getattr(dataset, name).target).to(self.device))
-            for name in ("train", "val", "test")
-        }
+        self._splits = {}
+        for name in ("train", "val", "test"):
+            x, y = getattr(dataset, name).x, getattr(dataset, name).target
+            if self._perm is not None:
+                x, y = x[:, self._perm], y[:, self._perm]
+            self._splits[name] = (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
+                                  torch.from_numpy(np.ascontiguousarray(y)).to(self.device))
 
     # ------------------------------------------------------------------
     def _save(self, epoch: int, metadata: dict) -> None:
@@ -200,6 +229,8 @@ class Trainer:
             losses.append(per_sample)
         pred = torch.cat(preds).cpu().numpy()[:n_valid]
         per_sample = torch.cat(losses).cpu().numpy()[:n_valid]
+        if self._inv_perm is not None:
+            pred = pred[:, self._inv_perm]  # back to the original node order
         return pred, float(per_sample.mean())
 
     # ------------------------------------------------------------------

@@ -4,7 +4,9 @@ Counterpart of ``dstagnn_drought_tpu/training/step.py``: SmoothL1 (Huber,
 beta=1) and Adam with the torch-default betas/eps (the JAX package's
 ``optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8)``). PyTorch runs eagerly, so a
 step is a plain function; the losses stay on the device and the trainer
-reads them once per epoch.
+reads them once per epoch. ``constants`` carries the dense planes and, on
+the sparse path, the BlockEllGraph (``bell``) and its per-tile constants
+(``bell_tiles``).
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ def train_step(
         x, adj_pa=constants["adj_pa"], cheb_polys=constants["cheb_polys"],
         deterministic=False, generator=generator,
         compute_dtype=compute_dtype, use_pallas=use_pallas,
+        bell=constants.get("bell"), bell_tiles=constants.get("bell_tiles"),
     )
     loss = smooth_l1_loss(pred, y, sample_weights=weights)
     loss.backward()
@@ -57,5 +60,6 @@ def eval_step(
     pred = model(
         x, adj_pa=constants["adj_pa"], cheb_polys=constants["cheb_polys"],
         deterministic=True, compute_dtype=compute_dtype, use_pallas=use_pallas,
+        bell=constants.get("bell"), bell_tiles=constants.get("bell_tiles"),
     )
     return pred, per_sample_smooth_l1(pred, y)

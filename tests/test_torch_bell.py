@@ -1,0 +1,263 @@
+"""The port's fused BELL conv (ops/cuda/bell_fused.py) and its backward
+kernels' plain versions (ops/cuda/bell_bwd.py) against the JAX package's
+Pallas kernels, run in interpret mode on the CPU.
+
+On CPU tensors the wrappers take the plain PyTorch versions; the CUDA
+kernels are held against those on the card (the ``cuda`` case below,
+skipped here, and chip_smoke.py). Forward atol 2e-4, gradients atol 5e-3
+(precedents tests/test_parity_torch.py and tests/test_pallas_cheb.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dstagnn_drought_tpu.ops import block_sparse as jbs
+from dstagnn_drought_tpu.ops.pallas import bell_bwd as jbwd
+from dstagnn_drought_tpu.ops.pallas import bell_fused as jfused
+from dstagnn_drought_tpu_torch.ops import block_sparse as tbs
+from dstagnn_drought_tpu_torch.ops.cuda import bell_bwd, bell_fused
+
+torch.set_num_threads(1)
+
+CASES = {
+    # ragged n=29 with BS=8, T·C = 32 < 1024
+    "ragged_n29": dict(n=29, BS=8, p=0.25, C=4, T=8, Co=3, K=2, dk=4),
+    # dense-ish graph: > 4 slots a target tile (the TPU's chunked kernel)
+    "chunked_n48": dict(n=48, BS=8, p=0.25, C=4, T=6, Co=5, K=3, dk=8),
+    # T·C = 1152 > 1024 (the TPU's fused-backward gate, not carried over)
+    "tc1152_n20": dict(n=20, BS=8, p=0.3, C=8, T=144, Co=4, K=2, dk=4),
+}
+
+
+def _case(name, seed=0, B=2, dm=12):
+    c = dict(CASES[name])
+    n, K, dk, C, T = c["n"], c["K"], c["dk"], c["C"], c["T"]
+    rng = np.random.default_rng(seed)
+    A = (rng.random((n, n)) < c["p"]).astype(np.float32)
+    np.fill_diagonal(A, 0)
+    pa = ((rng.random((n, n)) < 0.5) & (A > 0)).astype(np.float32)
+    np.fill_diagonal(pa, 1)
+    c.update(
+        A=A, pa=pa,
+        cheb=rng.normal(size=(K, n, n)).astype(np.float32),
+        masks=rng.normal(size=(K, n, n)).astype(np.float32),
+        thetas=(rng.normal(size=(K, C, c["Co"])) * 0.3).astype(np.float32),
+        wq=(rng.normal(size=(dm, K * dk)) * 0.3).astype(np.float32),
+        wk=(rng.normal(size=(dm, K * dk)) * 0.3).astype(np.float32),
+        x=rng.normal(size=(B, n, C, T)).astype(np.float32),
+        emb=rng.normal(size=(B, n, dm)).astype(np.float32),
+    )
+    c["jbell"] = jbs.block_ell_from_adjacency(A, block_size=c["BS"])
+    c["bell"] = tbs.block_ell_from_adjacency(A, block_size=c["BS"])
+    return c
+
+
+def _jax_conv(c, path):
+    """(out, grads) of sum(out·cos(out)) through the JAX Pallas wrapper."""
+    bell = c["jbell"]
+    if path == "tiles":
+        tiles = jbs.build_bell_tile_constants(bell, c["pa"], c["cheb"])
+        masks = jnp.asarray(jbs.active_tile_values(c["masks"], bell))
+
+        def conv(x, emb, th, wq, wk, m):
+            return jfused.bell_cheb_conv_tiles(
+                x, emb, bell, wq=wq, wk=wk, mask_tiles=m,
+                pattern_tiles=tiles["pattern_tiles"], pa_tiles=tiles["pa_tiles"],
+                cheb_tiles=tiles["cheb_tiles"], thetas=th, n_heads=c["K"], d_k=c["dk"])
+    else:
+        masks = jnp.asarray(c["masks"])
+
+        def conv(x, emb, th, wq, wk, m):
+            return jfused.bell_cheb_conv_with_sat_pallas(
+                x, emb, bell, wq=wq, wk=wk, adj_pa=jnp.asarray(c["pa"]), masks=m,
+                cheb_polys=jnp.asarray(c["cheb"]), thetas=th, n_heads=c["K"], d_k=c["dk"])
+
+    def loss(*args):
+        out = conv(*args)
+        return (out * jnp.cos(out)).sum(), out
+
+    args = [jnp.asarray(c[k]) for k in ("x", "emb", "thetas", "wq", "wk")] + [masks]
+    (_, out), grads = jax.value_and_grad(loss, argnums=tuple(range(6)), has_aux=True)(*args)
+    return np.asarray(out), [np.asarray(g) for g in grads], np.asarray(masks)
+
+
+def _port_conv(c, path, masks):
+    bell = c["bell"]
+    leaves = [torch.from_numpy(np.array(c[k])).requires_grad_(True)
+              for k in ("x", "emb", "thetas", "wq", "wk")]
+    leaves.append(torch.from_numpy(np.array(masks)).requires_grad_(True))
+    x, emb, th, wq, wk, m = leaves
+    if path == "tiles":
+        tiles = tbs.build_bell_tile_constants(bell, c["pa"], c["cheb"])
+        out = bell_fused.bell_cheb_conv_tiles(
+            x, emb, bell, wq=wq, wk=wk, mask_tiles=m, pattern_tiles=tiles["pattern_tiles"],
+            pa_tiles=tiles["pa_tiles"], cheb_tiles=tiles["cheb_tiles"], thetas=th,
+            n_heads=c["K"], d_k=c["dk"])
+    else:
+        out = bell_fused.bell_cheb_conv_with_sat_pallas(
+            x, emb, bell, wq=wq, wk=wk, adj_pa=torch.from_numpy(c["pa"]), masks=m,
+            cheb_polys=torch.from_numpy(c["cheb"]), thetas=th, n_heads=c["K"], d_k=c["dk"])
+    (out * torch.cos(out)).sum().backward()
+    return out.detach().numpy(), [leaf.grad.numpy() for leaf in leaves]
+
+
+@pytest.mark.parametrize("path", ["tiles", "dense"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_conv_matches_pallas_interpret(name, path):
+    c = _case(name)
+    if name == "chunked_n48":
+        assert c["bell"].max_blocks > 4
+    j_out, j_grads, masks = _jax_conv(c, path)
+    out, grads = _port_conv(c, path, masks)
+    assert out.shape == (2, c["n"], c["Co"], c["T"])
+    np.testing.assert_allclose(out, j_out, atol=2e-4, rtol=2e-4)
+    for g, jg, nm in zip(grads, j_grads, ("x", "emb", "thetas", "wq", "wk", "masks")):
+        np.testing.assert_allclose(g, jg, atol=5e-3, rtol=5e-3, err_msg=nm)
+
+
+def _bwd_operands(seed=1, B=2, n=29, BS=8, H=2, C=8, T=16, Co=8):
+    """K1/K2 operands in the c-major layout both packages share (the TPU
+    c-major kernels need 128 | C·T and 128 | Co·T)."""
+    rng = np.random.default_rng(seed)
+    A = (rng.random((n, n)) < 0.25).astype(np.float32)
+    bell = tbs.block_ell_from_adjacency(A, block_size=BS)
+    Np, An = bell.padded_nodes, bell.num_active
+    rows = (np.arange(Np) < n)[None, :, None]
+    x = (rng.normal(size=(B, Np, C * T)) * rows).astype(np.float32)
+    gm = (rng.normal(size=(B, Np, Co * T)) * rows).astype(np.float32)
+    w = (rng.random((B, An, H, BS, BS)) * 0.2).astype(np.float32)
+    th = (rng.normal(size=(H, C, Co)) * 0.3).astype(np.float32)
+    return A, bell, x, gm, w, th, C
+
+
+def test_plain_k1_k2_match_pallas_interpret():
+    A, bell, x, gm, w, th, C = _bwd_operands()
+    S = bell.max_blocks
+    jb = jbs.block_ell_from_adjacency(A, block_size=bell.block_size)
+    w_pad = np.pad(w, ((0, 0), (0, S), (0, 0), (0, 0), (0, 0)))
+    j_dA, j_dth = jbwd.bell_bwd_dA_dtheta(
+        jb.tile_start, jb.tile_count, jnp.pad(jb.active_src, (0, S)), jnp.asarray(th),
+        jnp.asarray(gm), jnp.asarray(x), jnp.asarray(w_pad), S_max=S, n_ch=C,
+        interpret=True, layout="c")
+    j_dx = jbwd.bell_bwd_dx(
+        jb.src_start, jb.src_count, jnp.pad(jb.active_tgt[jb.src_order], (0, S)),
+        jnp.pad(jb.src_order, (0, S)), jnp.asarray(th), jnp.asarray(gm), jnp.asarray(w_pad),
+        max_out=bell.max_src_blocks, n_ch=C, np_src=bell.padded_nodes, interpret=True,
+        layout="c")
+    t = bell.tensors
+    T_ = torch.from_numpy
+    dA, dth = bell_bwd.bell_k1(t["active_src"], t["active_tgt"], t["tile_start"],
+                               t["tile_count"], T_(th), T_(gm), T_(x), T_(w))
+    dx = bell_bwd.bell_k2(t["src_start"], t["src_count"], t["src_order"],
+                          t["active_tgt"], T_(th), T_(gm), T_(w))
+    np.testing.assert_allclose(dA.numpy(), np.asarray(j_dA)[:, :bell.num_active],
+                               atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(dth.numpy(), np.asarray(j_dth), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(j_dx), atol=2e-4, rtol=2e-4)
+
+
+def test_plain_k1_rounds_g_agg_to_x_dtype():
+    """In bf16 the dA product takes g_agg rounded to bf16 (as the TPU
+    kernel's cast before its dA matmul), and K2 keeps g_agg in float32."""
+    _, bell, x, gm, w, th, _ = _bwd_operands()
+    t = bell.tensors
+    b = lambda a: torch.from_numpy(a).bfloat16()
+    dA, _ = bell_bwd.bell_k1_plain(t["active_src"], t["active_tgt"], torch.from_numpy(th),
+                                   b(gm), b(x), b(w))
+    dA32, _ = bell_bwd.bell_k1_plain(t["active_src"], t["active_tgt"], torch.from_numpy(th),
+                                     b(gm).float(), b(x).float(), b(w).float())
+    assert dA.dtype == torch.float32 and not torch.equal(dA, dA32)
+    np.testing.assert_allclose(dA.numpy(), dA32.numpy(), atol=0.1, rtol=2e-2)
+    dx = bell_bwd.bell_k2_plain(t["src_start"], t["src_count"], t["src_order"],
+                                t["active_tgt"], torch.from_numpy(th), b(gm), b(w))
+    assert dx.dtype == torch.bfloat16
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    c = _case("ragged_n29")
+    bell = c["bell"]
+    t = bell.tensors
+    z = torch.zeros
+    B, H, dk, Np, A, BS = 1, 2, 4, bell.padded_nodes, bell.num_active, 8
+    args = [t["tile_start"], t["tile_count"], t["active_src"],
+            z(B, Np, H, dk), z(B, Np, H, dk), z(A, H, BS, BS), z(A, H, BS, BS),
+            z(B, Np, 6), z(H, 2, 3)]
+    with pytest.raises(ValueError, match="CUDA"):
+        bell_fused.bell_forward_cuda(*args)
+    with pytest.raises(TypeError, match="int32"):
+        bell_fused.bell_forward_cuda(t["tile_start"].long(), *args[1:])
+    with pytest.raises(ValueError, match="x must be"):
+        bell_fused.bell_forward_cuda(*args[:7], z(B, Np + 1, 6), args[8])
+    k_args = [t["active_src"], t["active_tgt"], t["tile_start"],
+              t["tile_count"], z(H, 2, 3), z(B, Np, 9), z(B, Np, 6), z(B, A, H, BS, BS)]
+    with pytest.raises(ValueError, match="CUDA"):
+        bell_bwd.bell_k1_cuda(*k_args)
+    with pytest.raises(ValueError, match="CUDA"):
+        bell_bwd.bell_k2_cuda(t["src_start"], t["src_count"], t["src_order"],
+                              t["active_tgt"], *k_args[4:6], k_args[7])
+    with pytest.raises(ValueError, match="C <= 64"):
+        bell_bwd.time_chunk(65, 32, 12)
+    # chunks never outgrow the staged shared-memory tiles or the sequence
+    assert bell_bwd.time_chunk(1, 32, 144) == 16 and bell_bwd.time_chunk(1, 32, 12) == 12
+    assert bell_bwd.time_chunk(4, 32, 144, staged=128) == 4
+
+
+def test_cpu_path_counts_no_launch():
+    c = _case("ragged_n29")
+    before = (bell_fused.launches, bell_bwd.k1_launches, bell_bwd.k2_launches)
+    _port_conv(c, "tiles", jbs.active_tile_values(c["masks"], c["jbell"]))
+    assert (bell_fused.launches, bell_bwd.k1_launches, bell_bwd.k2_launches) == before
+
+
+def test_refuses_a_graph_without_in_edges():
+    c = _case("ragged_n29")
+    A = c["A"].copy()
+    A[:, 3] = 0
+    bell = tbs.block_ell_from_adjacency(A, block_size=8, include_self=False)
+    assert not bell.covered
+    tiles = tbs.build_bell_tile_constants(bell, c["pa"], c["cheb"])
+    with pytest.raises(ValueError, match="in-edge"):
+        bell_fused.bell_cheb_conv_tiles(
+            torch.from_numpy(c["x"]), torch.from_numpy(c["emb"]), bell,
+            wq=torch.from_numpy(c["wq"]), wk=torch.from_numpy(c["wk"]),
+            mask_tiles=torch.zeros(bell.num_active, 2, 8, 8),
+            pattern_tiles=tiles["pattern_tiles"], pa_tiles=tiles["pa_tiles"],
+            cheb_tiles=tiles["cheb_tiles"], thetas=torch.from_numpy(c["thetas"]),
+            n_heads=2, d_k=4)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, bell, x, gm, w, th, _ = _bwd_operands()
+    bell = bell.to("cuda")
+    t = bell.tensors
+    cu = lambda a: torch.from_numpy(a).cuda().contiguous()
+    k1 = (t["active_src"], t["active_tgt"], t["tile_start"], t["tile_count"],
+          cu(th), cu(gm), cu(x), cu(w))
+    dA, dth = bell_bwd.bell_k1(*k1)
+    dA_p, dth_p = bell_bwd.bell_k1_plain(*k1[:2], *k1[4:])
+    torch.testing.assert_close(dA, dA_p, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(dth, dth_p, atol=2e-4, rtol=2e-4)
+    k2 = (t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
+          cu(th), cu(gm), cu(w))
+    torch.testing.assert_close(bell_bwd.bell_k2(*k2), bell_bwd.bell_k2_plain(*k2),
+                               atol=2e-4, rtol=2e-4)
+    # the forward on the same graph, with bias and Chebyshev tiles on its pattern
+    B, Np, H, C = x.shape[0], bell.padded_nodes, th.shape[0], th.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    pattern = t["active_pattern"][:, None]
+    shape = (bell.num_active, H, bell.block_size, bell.block_size)
+    f = (t["tile_start"], t["tile_count"], t["active_src"],
+         rnd(B, Np, H, 4), rnd(B, Np, H, 4),
+         torch.where(pattern, rnd(*shape), torch.tensor(-1e30, device="cuda")).contiguous(),
+         (rnd(*shape) * pattern).contiguous(), cu(x), cu(th))
+    before = bell_fused.launches
+    out = bell_fused.bell_forward(*f)
+    assert bell_fused.launches == before + 1
+    torch.testing.assert_close(out, bell_fused.bell_forward_plain(*f), atol=2e-4, rtol=2e-4)

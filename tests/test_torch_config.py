@@ -125,7 +125,7 @@ def test_missing_file():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("sparse", True), ("rcm", True), ("fuse_tat", True), ("fuse_spatial", True),
+    ("sparse", True), ("fuse_tat", True), ("fuse_spatial", True),
     ("fuse_gtu", True), ("tp", True), ("debug", True), ("data_axis", 2),
     ("graph_axis", 2), ("nan_policy", "rollback"), ("model_name", "astgcn"),
     ("tensorboard", True), ("remat", True),
@@ -136,4 +136,19 @@ def test_options_outside_the_slice_are_refused(knob, value):
     check_slice(cfg)  # the dense default is in the slice
     setattr(cfg.training, knob, value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        check_slice(cfg)
+
+
+def test_bell_options_are_in_the_slice():
+    """The block-sparse path is ported: sparse BELL with either mask format
+    and rcm pass check_slice; sparse ELL still names its ROADMAP item."""
+    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
+                             port_config.TrainingConfig())
+    for fmt in ("dense", "tiles"):
+        for rcm in (False, True):
+            t = cfg.training
+            t.sparse, t.sparse_format, t.mask_format, t.rcm = True, "bell", fmt, rcm
+            check_slice(cfg)
+    cfg.training.sparse_format = "ell"
+    with pytest.raises(NotImplementedError, match=r"item 9 \(ELL\)"):
         check_slice(cfg)

@@ -35,7 +35,9 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
-    assert "dstagnn_drought_tpu_torch.ops.cuda.cheb_sat" in loaded
+    for module in ("ops.cuda.cheb_sat", "ops.cuda.bell_fused", "ops.cuda.bell_bwd",
+                   "ops.block_sparse"):
+        assert f"dstagnn_drought_tpu_torch.{module}" in loaded, module
 
 
 def test_no_import_statement_names_jax():
@@ -52,3 +54,12 @@ def test_no_import_statement_names_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_every_kernel_source_is_built():
+    """chip_smoke.py builds build.SOURCES: every csrc/*.cu is among them."""
+    from dstagnn_drought_tpu_torch.ops.cuda import build
+
+    sources = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert sources == sorted(build.SOURCES)
+    assert {"bell_fused", "bell_bwd", "cheb_sat"} <= set(sources)

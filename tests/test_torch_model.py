@@ -142,3 +142,93 @@ def test_entry_points_refuse_cuda_without_card():
     spec, *_ = _case(F=1, T=12)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_model(spec, np.eye(16), np.eye(16), seed=0, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the block-sparse (BELL) branch
+# ---------------------------------------------------------------------------
+
+BELL_PATHS = {
+    # path: (use_pallas, tile-resident masks)
+    "plain": (False, False),
+    "fused": (True, False),
+    "tiles": (True, True),
+}
+
+
+@pytest.mark.parametrize("path", list(BELL_PATHS))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_bell_forward_and_grads_match_jax(shape, path):
+    """The three BELL spatial paths at BS=8 against JAX ``apply(ell=bell,
+    bell_tiles=...)``; the JAX kernels run in interpret mode. T=48 takes the
+    (B, N, C, T) tail on the two kernel paths (pinned_out)."""
+    from dstagnn_drought_tpu.ops.block_sparse import block_ell_from_adjacency as jax_bell
+    from dstagnn_drought_tpu_torch.ops.block_sparse import block_ell_from_adjacency
+
+    use_pallas, tiles = BELL_PATHS[path]
+    F, T = SHAPES[shape]["F"], SHAPES[shape]["T"]
+    rng = np.random.default_rng(4)
+    N = 16
+    kw = dict(num_of_vertices=N, len_input=T, num_for_predict=5, num_of_d=F,
+              nb_block=2, in_channels=F, K=2, nb_chev_filter=8,
+              nb_time_filter=8, d_model=24, d_k=8, n_heads=2)
+    A = (rng.random((N, N)) < 0.2).astype(np.float32)
+    A = np.maximum(A, A.T)
+    np.fill_diagonal(A, 0)
+    pa = ((rng.random((N, N)) < 0.5) & (A > 0)).astype(np.float32)
+    np.fill_diagonal(pa, 1)
+    x = rng.normal(size=(2, N, F, T)).astype(np.float32)
+    y = rng.normal(size=(2, N, 5)).astype(np.float32)
+    jspec, spec = JaxSpec(**kw), ModelSpec(**kw)
+    jbell, bell = jax_bell(A, block_size=8), block_ell_from_adjacency(A, block_size=8)
+    params, consts = jax_make_model(jax.random.PRNGKey(1), jspec, A, pa,
+                                    **({"bell": jbell} if tiles else {}))
+
+    def jax_loss(p):
+        pred = jax_apply(p, jnp.asarray(x), spec=jspec, adj_pa=consts["adj_pa"],
+                         cheb_polys=consts["cheb_polys"], deterministic=True,
+                         use_pallas=use_pallas, ell=jbell,
+                         bell_tiles=consts.get("bell_tiles"))
+        return jax_smooth_l1(pred, jnp.asarray(y)), pred
+
+    (j_loss, j_pred), j_grads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+
+    model = DSTAGNN(spec, bell=bell if tiles else None)
+    model.load_state_dict(params_from_jax(params, spec))
+    c = constants_from_jax(consts)
+    pred = model(torch.from_numpy(x), adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"],
+                 deterministic=True, use_pallas=use_pallas, bell=bell,
+                 bell_tiles=c.get("bell_tiles"))
+    np.testing.assert_allclose(pred.detach().numpy(), np.asarray(j_pred),
+                               atol=2e-4, rtol=2e-4)
+    loss = smooth_l1_loss(pred, torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), atol=2e-4, rtol=2e-4)
+    expected = params_from_jax(j_grads, spec)
+    named = dict(model.named_parameters())
+    assert set(named) == set(expected)
+    assert any(k.endswith("mask_tiles") for k in named) == tiles
+    for name, p in named.items():
+        grad = p.grad if p.grad is not None else torch.zeros_like(p)
+        np.testing.assert_allclose(grad.numpy(), expected[name].numpy(),
+                                   atol=5e-3, rtol=5e-3, err_msg=name)
+
+
+def test_tile_resident_init_and_constants():
+    """make_model(bell=...): mask_tiles (A, K, BS, BS) drawn uniform with the
+    dense xavier bound, per-tile constants instead of dense planes."""
+    from dstagnn_drought_tpu_torch.ops.block_sparse import block_ell_from_adjacency
+
+    spec, *_ = _case(F=1, T=12)
+    A = np.eye(16, k=1) + np.eye(16, k=-1)
+    bell = block_ell_from_adjacency(A, block_size=8)
+    model, consts = make_model(spec, A, np.eye(16), seed=3, device="cpu", bell=bell)
+    bound = (6.0 / 32) ** 0.5
+    for block in model.BlockList:
+        m = block.cheb_conv_SAt.mask_tiles.detach()
+        assert m.shape == (bell.num_active, spec.K, 8, 8)
+        assert float(m.abs().max()) <= bound and float(m.std()) > 0.3 * bound
+        assert not hasattr(block.cheb_conv_SAt, "mask")
+    assert consts["cheb_polys"].shape == (spec.K, 1, 1) and consts["adj_pa"].shape == (1, 1)
+    assert consts["bell_tiles"]["cheb_tiles"].shape == (bell.num_active, spec.K, 8, 8)
+    assert "BlockList.0.cheb_conv_SAt.mask_tiles" in model.state_dict()

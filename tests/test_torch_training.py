@@ -26,6 +26,7 @@ from dstagnn_drought_tpu_torch.models.dstagnn import (
     ModelSpec,
     constants_from_jax,
     params_from_jax,
+    permute_nodes,
 )
 from dstagnn_drought_tpu_torch.training import loop
 from dstagnn_drought_tpu_torch.training.step import make_optimizer, train_step
@@ -162,3 +163,109 @@ def test_nan_loss_aborts(toy_windowed, tmp_path, monkeypatch):
     monkeypatch.setattr(loop, "train_step", lambda *a, **k: torch.tensor(float("nan")))
     with pytest.raises(FloatingPointError, match="NaN training loss"):
         trainer.train_epoch(0)
+
+
+# ---------------------------------------------------------------------------
+# the block-sparse (BELL) trainer
+# ---------------------------------------------------------------------------
+
+BELL_KEYS = {"sparse": "true", "sparse_format": "bell", "block_size": "8"}
+
+
+def _bell_conf(toy_windowed, tmp_path, name, **keys):
+    """The toy config with extra [Training] keys (the section is last)."""
+    text = (toy_windowed / "TOY.conf").read_text()
+    extra = "".join(f"{k} = {v}\n" for k, v in {**BELL_KEYS, **keys}.items())
+    path = tmp_path / f"{name}.conf"
+    path.write_text(text + extra)
+    return path
+
+
+def test_cli_trains_bell_tiles_with_rcm(toy_windowed, tmp_path):
+    conf = _bell_conf(toy_windowed, tmp_path, "TILES", mask_format="tiles", rcm="true",
+                      use_pallas="true")
+    exp = tmp_path / "exp"
+    result = train_cli.main(["--config", str(conf), "--experiments-root", str(exp),
+                             "--device", "cpu", "--epochs", "2"])
+    run_dir = next((exp / "TOY").iterdir())
+    events = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_losses = [e["train_loss"] for e in events if e["event"] == "epoch"]
+    assert len(train_losses) == 2 and train_losses[1] < train_losses[0]
+    state = torch.load(run_dir / f"epoch_{result['best_epoch']}.pt", weights_only=False)
+    assert any(k.endswith("cheb_conv_SAt.mask_tiles") for k in state["model"])
+    with np.load(run_dir / f"output_epoch_{result['best_epoch']}_test.npz") as d:
+        trainer = loop.Trainer(load_config(conf), experiments_root=str(tmp_path / "x"),
+                               device="cpu")
+        np.testing.assert_array_equal(d["data_target_tensor"], trainer.dataset.test.target)
+        assert d["prediction"].shape == d["data_target_tensor"].shape
+        assert np.isfinite(d["prediction"]).all()
+    assert not np.array_equal(trainer._perm, np.arange(len(trainer._perm)))
+
+
+def test_rcm_predictions_come_back_in_original_order(toy_windowed, tmp_path):
+    """The RCM-permuted BELL trainer (dense masks, fused kernel path) with
+    permuted weights predicts what the unpermuted one does, node for node."""
+    plain = loop.Trainer(load_config(_bell_conf(toy_windowed, tmp_path, "P", use_pallas="true")),
+                         experiments_root=str(tmp_path / "p"), device="cpu")
+    rcm = loop.Trainer(load_config(_bell_conf(toy_windowed, tmp_path, "R", use_pallas="true",
+                                              rcm="true")),
+                       experiments_root=str(tmp_path / "r"), device="cpu")
+    perm = rcm._perm
+    assert plain._perm is None and not np.array_equal(perm, np.arange(len(perm)))
+    rcm.model.load_state_dict(permute_nodes(plain.model.state_dict(), perm))
+    rcm.constants["cheb_polys"] = plain.constants["cheb_polys"][:, perm][:, :, perm]
+    pred_plain, loss_plain = plain.evaluate("test")
+    pred_rcm, loss_rcm = rcm.evaluate("test")
+    np.testing.assert_allclose(pred_rcm, pred_plain, atol=2e-4, rtol=2e-4)
+    assert loss_rcm == pytest.approx(loss_plain, rel=1e-4)
+
+
+def test_three_step_bell_tiles_trajectory_matches_jax():
+    """Tile-resident BELL, same weights and batches, dropout 0: per-step
+    SmoothL1 + Adam losses agree with the JAX trainer step (its kernels in
+    interpret mode) to rtol 2e-3 / atol 2e-4."""
+    from dstagnn_drought_tpu.ops.block_sparse import block_ell_from_adjacency as jax_bell
+    from dstagnn_drought_tpu_torch.ops.block_sparse import block_ell_from_adjacency
+
+    rng = np.random.default_rng(11)
+    N, T, P, lr, bs = 12, 12, 4, 1e-3, 4
+    kw = dict(num_of_vertices=N, len_input=T, num_for_predict=P, num_of_d=1,
+              nb_block=2, in_channels=1, K=2, nb_chev_filter=8, nb_time_filter=8,
+              d_model=16, d_k=8, n_heads=2, dropout_rate=0.0)
+    A = (rng.random((N, N)) < 0.25).astype(np.float32)
+    A = np.maximum(A, A.T)
+    np.fill_diagonal(A, 0)
+    pa = ((rng.random((N, N)) < 0.6) & (A > 0)).astype(np.float32)
+    x = rng.normal(size=(12, N, 1, T)).astype(np.float32)
+    y = rng.normal(size=(12, N, P)).astype(np.float32)
+    jspec, spec = JaxSpec(**kw), ModelSpec(**kw)
+    jbell, bell = jax_bell(A, block_size=8), block_ell_from_adjacency(A, block_size=8)
+    params, consts = jax_make_model(jax.random.PRNGKey(3), jspec, A, pa, bell=jbell)
+    model = DSTAGNN(spec, bell=bell)
+    model.load_state_dict(params_from_jax(params, spec))
+    c = {**constants_from_jax(consts), "bell": bell}
+    consts = {**consts, "ell": jbell}
+
+    idx = np.random.default_rng(0).permutation(12)[:3 * bs].reshape(3, bs)
+    step = make_train_step(jspec, jax_optimizer(lr))
+    p, s, key = params, jax_optimizer(lr).init(params), jax.random.PRNGKey(0)
+    jax_losses = []
+    for b in range(3):
+        p, s, key, loss = step(p, s, key, x, y, idx[b], consts)
+        jax_losses.append(float(loss))
+
+    optimizer = make_optimizer(model.parameters(), lr)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    losses = [float(train_step(model, optimizer, xt[i], yt[i], c))
+              for i in torch.from_numpy(idx.astype(np.int64))]
+    np.testing.assert_allclose(losses, jax_losses, rtol=2e-3, atol=2e-4)
+    assert abs(losses[0] - losses[-1]) > 1e-4
+
+
+def test_check_slice_still_refuses_ell_and_graph_axis(toy_windowed, tmp_path):
+    cfg = load_config(_bell_conf(toy_windowed, tmp_path, "E", sparse_format="ell"))
+    with pytest.raises(NotImplementedError, match=r"§1 item 9 \(ELL\)"):
+        loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
+    cfg = load_config(_bell_conf(toy_windowed, tmp_path, "G", graph_axis="2"))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
