@@ -15,9 +15,19 @@ Phases; any failure exits non-zero:
      K1 and K2 at the GAMBIA blocks, the 1%-random N=2139 graph (17 slots a
      tile) and a ragged n=29 graph (BS 8 and 16), in float32 and bfloat16,
      with K1's dΘ equal bit for bit over two launches;
+  2c. the fused dense kernels against their plain versions, forward and
+     every gradient, in float32 and bfloat16, at PEMS08 block 1 and blocks
+     2-4, the TAt embedding mode and a ragged shape: the temporal-attention
+     forward and backward (csrc/tat_fused.cu) and the spatial-middle forward
+     and backward (csrc/block_spatial_fused.cu), every weight gradient equal
+     bit for bit over two backward launches;
   3. the dense main path at full PEMS08 width: the training CLI, two epochs
      on benchmarks/parity_runs/parity_dataset.npz through the kernel, with
      the kernel's launch count read around the run;
+  3b. the fused main path: the same CLI run with fuse_tat, fuse_spatial and
+     bfloat16, each TAt/spatial kernel once per block of every forward pass
+     (forward) or train step (backward), cheb_sat never; then the fused and
+     unfused models on one test batch in float32 from the run's checkpoint;
   4. GAMBIA dense (N=2139, F=4, T=144, bfloat16): training steps through
      the Trainer, the kernel at N > 1024 and the multichannel/long-T tail;
   5. the block-sparse main path: bench.py's GAMBIA bell_tiles
@@ -28,9 +38,10 @@ Phases; any failure exits non-zero:
      predictions held against an unpermuted model in the original order;
   7. a JSON line with every kernel's numbers, then the device line.
 
-``--measure`` adds timings of whole training epochs (PEMS08 width, GAMBIA
-dense, and GAMBIA BELL tiles against both dense paths) alternated in one
-process, a torch.profiler breakdown of each, and a 25-epoch PEMS08 accuracy
+``--measure`` adds timings of whole training epochs (PEMS08 width, the
+fused PEMS08-width bf16 trainer against both unfused paths, GAMBIA dense,
+and GAMBIA BELL tiles against both dense paths) alternated in one process,
+a torch.profiler breakdown of each, and a 25-epoch PEMS08 accuracy
 run of both dense paths checked against the reference model's recorded test
 MAE.
 
@@ -41,7 +52,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import os
 import subprocess
 import sys
 import tempfile
@@ -55,7 +65,14 @@ from dstagnn_drought_tpu_torch.config import Config, DataConfig, TrainingConfig
 from dstagnn_drought_tpu_torch.data.dataset import ArrayDataset, Split
 from dstagnn_drought_tpu_torch.models.dstagnn import permute_nodes
 from dstagnn_drought_tpu_torch.ops.block_sparse import block_ell_from_adjacency
-from dstagnn_drought_tpu_torch.ops.cuda import bell_bwd, bell_fused, build, cheb_sat
+from dstagnn_drought_tpu_torch.ops.cuda import (
+    bell_bwd,
+    bell_fused,
+    block_spatial_fused,
+    build,
+    cheb_sat,
+    tat_fused,
+)
 from dstagnn_drought_tpu_torch.training.loop import Trainer
 
 REPO = Path(__file__).resolve().parent
@@ -66,6 +83,21 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 TOL = 2e-4       # forward, kernel vs plain (precedent tests/test_pallas_cheb.py)
 GRAD_TOL = 5e-3  # gradients (precedent tests/test_pallas_cheb.py)
+
+
+def reset_launches():
+    cheb_sat.launches = bell_fused.launches = 0
+    bell_bwd.k1_launches = bell_bwd.k2_launches = 0
+    tat_fused.fwd_launches = tat_fused.bwd_launches = 0
+    block_spatial_fused.fwd_launches = block_spatial_fused.bwd_launches = 0
+
+
+def read_launches() -> dict:
+    return {"cheb_sat": cheb_sat.launches, "bell_fused": bell_fused.launches,
+            "bell_k1": bell_bwd.k1_launches, "bell_k2": bell_bwd.k2_launches,
+            "tat_fwd": tat_fused.fwd_launches, "tat_bwd": tat_fused.bwd_launches,
+            "spatial_fwd": block_spatial_fused.fwd_launches,
+            "spatial_bwd": block_spatial_fused.bwd_launches}
 
 
 def check(cond: bool, message: str) -> None:
@@ -338,6 +370,228 @@ def phase_bell_kernels():
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the fused dense kernels (TAt, spatial middle) vs their plain versions
+# ---------------------------------------------------------------------------
+
+TAT_SHAPES = [
+    # (label, B·F, T, N, H, d_k, d_v, embed): PEMS08 block 1 (F=1) and blocks
+    # 2-4 (F=32) at B=64, the embedding mode at block 1, and a ragged shape
+    ("pems08_block1", 64, 12, 170, 3, 32, 32, False),
+    ("pems08_blocks2-4", 2048, 12, 170, 3, 32, 32, False),
+    ("pems08_block1_embed", 64, 12, 170, 3, 32, 32, True),
+    ("ragged_n29", 5, 7, 29, 2, 8, 8, False),
+]
+SPATIAL_SHAPES = [
+    # (label, B, N, F, T, C, Co, d, K, d_k): PEMS08 block 1 and blocks 2-4,
+    # and a ragged shape (N, F·T, C·T and d multiples of no tile)
+    ("pems08_block1", 64, 170, 1, 12, 1, 32, 512, 3, 32),
+    ("pems08_blocks2-4", 64, 170, 32, 12, 32, 32, 512, 3, 32),
+    ("ragged_n29", 3, 29, 2, 7, 3, 5, 24, 2, 8),
+]
+SPATIAL_KEEP = 0.95  # the model's dropout rate 0.05: the main path's mask
+FUSED_TOL = {torch.float32: (TOL, GRAD_TOL),
+             # bf16: ~2.5 ulps of 2^-8 of the output's scale (BELL_TOL)
+             torch.bfloat16: (1e-2, 1e-2)}
+
+
+def _bound(ops, nbytes, dtype):
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), ops
+
+
+def tat_bounds(BF, T, N, H, dk, dv, dtype):
+    """(bound_ms, bound_by, flops) of the TAt forward and backward. The TPU
+    kernel and the port compute in float32 whatever the dtype, so 67 TFLOP/s;
+    bytes: x, res (and the cotangents) read once, out, scores (dx, dres and
+    the float32 weight gradients) written once, weights read once."""
+    W, hv, xb = H * (2 * dk + dv), H * dv, (2 if dtype == torch.bfloat16 else 4)
+    fwd = BF * (2 * T * N * W + 2 * H * T * T * (dk + dv) + 2 * T * hv * N)
+    bwd = fwd + BF * (4 * T * N * hv + 2 * H * T * T * (2 * dv + 2 * dk) + 4 * T * W * N)
+    act = BF * (T * N + H * T * T) * xb
+    weights = (N * W + hv * N + 4 * N + T * N) * xb
+    return {"tat_fwd": _bound(fwd, 2 * act + weights, torch.float32),
+            "tat_bwd": _bound(bwd, 3 * act + weights + 4 * (N * W + hv * N + 4 * N + T * N),
+                              torch.float32)}
+
+
+def spatial_bounds(B, N, F, T, C, Co, d, K, dk, dtype):
+    """(bound_ms, bound_by, flops) of the spatial forward and backward: the
+    matmul operands are in the compute dtype (bf16: 989 TFLOP/s); bytes:
+    tat, xm, the mask, the weights and the (K, N, N) bias and Chebyshev
+    planes read once, out (dtat, dxm and the float32 weight gradients)
+    written once."""
+    FT, CT, xb, hk2 = F * T, C * T, (2 if dtype == torch.bfloat16 else 4), 2 * K * dk
+    fwd = B * (2 * N * FT * d + 2 * N * d * hk2
+               + K * (2 * N * N * dk + 2 * N * N * CT + 2 * N * CT * Co))
+    bwd = fwd + B * (K * (4 * N * CT * Co + 4 * N * N * CT + 4 * N * N * dk)
+                     + 4 * N * d * hk2 + 4 * N * FT * d)
+    acts = B * N * (FT + CT + d) * xb
+    weights = (FT * d + hk2 * d + 3 * d + N * d + 2 * K * N * N + K * C * Co) * xb
+    grads = 4 * (FT * d + 3 * d + N * d + d * hk2 + K * N * N + K * C * Co)
+    out = B * N * Co * T * xb
+    return {"spatial_fwd": _bound(fwd, acts + weights + out, dtype),
+            "spatial_bwd": _bound(bwd, acts + weights + out + acts + grads, dtype)}
+
+
+def _randn(g, *shape, scale=1.0):
+    return torch.randn(*shape, generator=g, device="cuda") * scale
+
+
+def tat_inputs(BF, T, N, H, dk, dv, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    W = H * (2 * dk + dv)
+    ins = [_randn(g, BF, T, N), _randn(g, T, N, scale=0.3), 1 + _randn(g, N, scale=0.1),
+           _randn(g, N, scale=0.1), _randn(g, N, W, scale=N ** -0.5),
+           _randn(g, H * dv, N, scale=(H * dv) ** -0.5), 1 + _randn(g, N, scale=0.1),
+           _randn(g, N, scale=0.1), _randn(g, BF, H, T, T, scale=0.5)]
+    cots = [_randn(g, BF, T, N), _randn(g, BF, H, T, T, scale=0.1)]
+    return [t.to(dtype).contiguous() for t in ins], [t.to(dtype) for t in cots]
+
+
+def spatial_inputs(B, N, F, T, C, Co, d, K, dk, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    FT, CT = F * T, C * T
+    mask = (torch.rand(B, N, d, generator=g, device="cuda") < SPATIAL_KEEP).to(dtype)
+    cheb = _randn(g, K, N, N, scale=N ** -0.5)
+    ins = [_randn(g, B, N, FT), _randn(g, B, N, CT), mask, _randn(g, FT, d, scale=FT ** -0.5),
+           _randn(g, d, scale=0.1), _randn(g, N, d, scale=0.3), 1 + _randn(g, d, scale=0.1),
+           _randn(g, d, scale=0.1), _randn(g, d, 2 * K * dk, scale=d ** -0.5),
+           _randn(g, K, N, N), cheb, _randn(g, K, C, Co, scale=C ** -0.5)]
+    ins = [t.to(dtype).contiguous() for t in ins]
+    return ins, [_randn(g, B, N, Co * T).to(dtype)]
+
+
+def _grad_run(fn, ins, cots, diff):
+    """Outputs and the gradients of the inputs at ``diff`` under the
+    cotangents ``cots``."""
+    leaves = [t.detach().clone().requires_grad_(i in diff) for i, t in enumerate(ins)]
+    outs = fn(leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    inputs = [leaves[i] for i in diff]
+    # without the embedding the plain TAt does not read pos or LN0: zeros
+    grads = torch.autograd.grad(outs, inputs, cots, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
+    return [o.detach() for o in outs], grads
+
+
+def away_from_kink(kern, plain, ins, cots, tol):
+    """The cotangent with zeros where either side's ReLU output lies in
+    (0, tol·scale]: there the pre-activation is within rounding of the kink,
+    and the two sides' masks may differ (one element flipped changes a whole
+    batch row's gradients)."""
+    with torch.no_grad():
+        outs = [kern(ins).float(), plain(ins).float()]
+    scale = max(1.0, float(outs[1].abs().max()))
+    near = torch.zeros_like(outs[0], dtype=torch.bool)
+    for o in outs:
+        near |= (o > 0) & (o <= tol * scale)
+    return [cots[0].masked_fill(near, 0)]
+
+
+def _compare(kernel, plain):
+    """max |Δ| and max |Δ| over max(1, max |plain|), worst over the pairs."""
+    errs = [rel_err(k, p) for k, p in zip(kernel, plain)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def _time_backward(fn, ins, cots, diff, iters):
+    leaves = [t.detach().clone().requires_grad_(i in diff) for i, t in enumerate(ins)]
+    outs = fn(leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    inputs = [leaves[i] for i in diff]
+    return cuda_ms(lambda: torch.autograd.grad(outs, inputs, cots, retain_graph=True,
+                                               allow_unused=True), iters)
+
+
+def phase_fused_kernels():
+    """The TAt and spatial-middle kernels against their plain versions at
+    every shape, float32 and bfloat16: forward outputs and every gradient
+    through the autograd Functions, every weight gradient equal bit for bit
+    over two backward launches, CUDA-event times of each kernel (on its
+    float32 operands) and of the plain version."""
+    rows = []
+    tat_diff = tuple(range(9))
+    sp_diff = (0, 1, 3, 4, 5, 6, 7, 8, 9, 11)  # not the mask, not the Chebyshev planes
+    for seed, shape in enumerate(TAT_SHAPES + SPATIAL_SHAPES):
+        is_tat = seed < len(TAT_SHAPES)
+        label = shape[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            tol, gtol = FUSED_TOL[dtype]
+            if is_tat:
+                _, BF, T, N, H, dk, dv, embed = shape
+                dims = dict(n_heads=H, d_k=dk, d_v=dv, embed=embed)
+                ins, cots = tat_inputs(BF, T, N, H, dk, dv, dtype, seed)
+                kern = lambda a, dims=dims: tat_fused.TatFused.apply(*a, *dims.values())
+                plain = lambda a, dims=dims: tat_fused.tat_fused_plain(*a, **dims)
+                diff, names = tat_diff, ("tat_fwd", "tat_bwd")
+                ops = tat_fused._f32(*ins)
+                fwd = lambda ops=ops, dims=dims: tat_fused.tat_forward_cuda(*ops, **dims)
+                g32 = [c.float().contiguous() for c in cots]
+                bwd = lambda ops=ops, g32=g32, dims=dims: tat_fused.tat_backward_cuda(
+                    *ops, *g32, **dims)
+                weight_slice = slice(2, 9)  # dpos, dg0, db0, dwqkv, dwo, dg1, db1
+                bounds = tat_bounds(BF, T, N, H, dk, dv, dtype)
+                desc = {"BF": BF, "T": T, "N": N, "H": H, "d_k": dk, "embed": embed}
+            else:
+                _, B, N, F, T, C, Co, d, K, dk = shape
+                dims = dict(K=K, d_k=dk, keep=SPATIAL_KEEP)
+                ins, cots = spatial_inputs(B, N, F, T, C, Co, d, K, dk, dtype, seed)
+                kern = lambda a, dims=dims: block_spatial_fused.SpatialMiddle.apply(
+                    *a, *dims.values())
+                plain = lambda a, dims=dims: block_spatial_fused.spatial_middle_plain(
+                    *a, **dims)
+                diff, names = sp_diff, ("spatial_fwd", "spatial_bwd")
+                ops = block_spatial_fused._kernel_operands(*ins)
+                kd = dict(dims, bf16=dtype == torch.bfloat16)
+                fwd = lambda ops=ops, kd=kd: block_spatial_fused.spatial_forward_cuda(*ops, **kd)
+                g32 = cots[0].float().contiguous()
+                bwd = lambda ops=ops, g32=g32, kd=kd: block_spatial_fused.spatial_backward_cuda(
+                    *ops, g32, **kd)
+                weight_slice = slice(2, 10)  # dpw, dpb, dpos, dgs, dbs, dwqk, dbias, dΘ
+                bounds = spatial_bounds(B, N, F, T, C, Co, d, K, dk, dtype)
+                desc = {"B": B, "N": N, "F": F, "T": T, "C": C, "Co": Co, "d": d, "K": K,
+                        "d_k": dk}
+            if not is_tat:
+                cots = away_from_kink(kern, plain, ins, cots, tol)
+            outs_k, grads_k = _grad_run(kern, ins, cots, diff)
+            outs_p, grads_p = _grad_run(plain, ins, cots, diff)
+            torch.cuda.synchronize()
+            fwd_err = _compare(outs_k, outs_p)
+            bwd_err = _compare(grads_k, grads_p)
+            per_grad = [rel_err(k, p)[1] for k, p in zip(grads_k, grads_p)]
+            first, again = bwd(), bwd()
+            torch.cuda.synchronize()
+            identical = all(torch.equal(a, b) for a, b in zip(first[weight_slice],
+                                                              again[weight_slice]))
+            del outs_k, grads_k, outs_p, grads_p, first, again
+            big = ins[0].numel() > 1e6
+            iters = 10 if big else 20
+            times = {names[0]: (cuda_ms(fwd, iters),
+                                cuda_ms(lambda: plain(ins), max(2, iters // 2))),
+                     names[1]: (cuda_ms(bwd, iters),
+                                _time_backward(plain, ins, cots, diff, max(2, iters // 2)))}
+            for name, (err, limit) in ((names[0], (fwd_err, tol)), (names[1], (bwd_err, gtol))):
+                row = {"kernel": name, "shape": label, "dtype": str(dtype).split(".")[-1],
+                       **desc, "max_abs_err": err[0], "rel_err": err[1], "tol": limit,
+                       "ok": err[1] <= limit}
+                if name == names[1]:
+                    row["weight_grads_bit_identical"] = identical
+                    row["rel_err_each"] = per_grad
+                row["ms"], row["plain_ms"] = times[name]
+                row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
+                print("fused", json.dumps(row), flush=True)
+                check(row["ok"], f"{name} vs plain at {label} {dtype}: "
+                                 f"{row['rel_err']:.3g} > {limit}")
+                check(row.get("weight_grads_bit_identical", True),
+                      f"{name} weight gradients differ between two launches at {label} {dtype}")
+                rows.append(row)
+            del ins, cots, ops
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: PEMS08 full width through the CLI
 # ---------------------------------------------------------------------------
 
@@ -346,10 +600,11 @@ PEMS08_TRAINING = dict(nb_block=4, n_heads=3, K=3, d_k=32, d_model=512,
                        learning_rate=0.0001, seed=2024)
 
 
-def write_pems08_project(root: Path) -> Path:
+def write_pems08_project(root: Path, name: str = "SYNTH08", **training) -> Path:
     """The in-repo parity dataset as a reference-format project: windowed
     npz plus headerless CSVs, with graph = AG so the loaders return ``adj``
-    as adj_merge (binarized STAG) and ``stag`` as adj_pa (binarized STRG)."""
+    as adj_merge (binarized STAG) and ``stag`` as adj_pa (binarized STRG).
+    ``training`` overrides [Training] keys; the config is ``<name>.conf``."""
     with np.load(REPO / "benchmarks" / "parity_runs" / "parity_dataset.npz") as f:
         np.savez(root / "SYNTH08_r1_d0_w0_dstagnn.npz",
                  train_x=f["train_x"], train_target=f["train_y"],
@@ -360,8 +615,10 @@ def write_pems08_project(root: Path) -> Path:
         np.savetxt(root / "stag.csv", f["adj"], delimiter=",")
         np.savetxt(root / "strg.csv", f["stag"], delimiter=",")
         n = f["adj"].shape[0]
-    training = "\n".join(f"{k} = {v}" for k, v in PEMS08_TRAINING.items())
-    conf = root / "SYNTH08.conf"
+    keys = {"epochs": 2, "use_pallas": "true", "compute_dtype": "float32",
+            **PEMS08_TRAINING, **training}
+    training = "\n".join(f"{k} = {v}" for k, v in keys.items())
+    conf = root / f"{name}.conf"
     conf.write_text(f"""[Data]
 adj_filename = {root}/adj.csv
 graph_signal_matrix_filename = {root}/SYNTH08.npz
@@ -380,30 +637,30 @@ graph = AG
 num_of_hours = 1
 num_of_days = 0
 num_of_weeks = 0
-epochs = 2
-use_pallas = true
-compute_dtype = float32
 {training}
 """)
     return conf
 
 
-def phase_pems08(root: Path):
+def run_pems08_cli(root: Path, conf: Path, exp: Path, args=()):
+    """The training CLI for 2 epochs on a PEMS08 project, with every launch
+    count set to 0 just before and read just after. Checks finite and
+    falling losses, a checkpoint, the test dump and the report. Returns
+    (summary, launches, forward passes, train steps, run dir)."""
     from dstagnn_drought_tpu_torch.cli import train as train_cli
 
-    conf = write_pems08_project(root)
-    exp = root / "exp"
     with np.load(root / "SYNTH08_r1_d0_w0_dstagnn.npz") as f:
         sizes = {s: len(f[f"{s}_x"]) for s in ("train", "val", "test")}
-    bs, nb, epochs = PEMS08_TRAINING["batch_size"], PEMS08_TRAINING["nb_block"], 2
+    bs, epochs = PEMS08_TRAINING["batch_size"], 2
     batches = {s: -(-n // bs) for s, n in sizes.items()}
     forwards = epochs * (batches["train"] + batches["val"]) + batches["test"]
+    steps = epochs * batches["train"]
 
-    cheb_sat.launches = 0
+    reset_launches()
     result = train_cli.main(["--config", str(conf), "--epochs", str(epochs),
-                             "--use-pallas", "--experiments-root", str(exp)])
+                             "--experiments-root", str(exp), *args])
     torch.cuda.synchronize()
-    launches = cheb_sat.launches
+    launches = read_launches()
 
     run_dir = next(exp.glob("SYNTH08/*"))
     events = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
@@ -422,16 +679,75 @@ def phase_pems08(root: Path):
           f"bad test predictions {pred.shape}")
     overall = result["report"]["overall"]
     check(all(math.isfinite(overall[k]) for k in ("mae", "rmse", "mape")), "bad report")
-    check(launches == forwards * nb,
-          f"cheb_sat launches {launches} != {forwards} forward passes x {nb} blocks")
-    ms_step = ep[1]["train_seconds"] / ep[1]["steps"] * 1e3
-    out = {"path": "pems08_cli", "device": torch.cuda.get_device_name(0),
-           "epochs": epochs, "train_losses": losses,
+    out = {"device": torch.cuda.get_device_name(0), "epochs": epochs, "train_losses": losses,
            "val_losses": [e["val_loss"] for e in ep], "test_overall": overall,
-           "launches": launches, "forward_passes": forwards,
-           "ms_per_step_epoch2": ms_step, "steps_per_epoch": ep[1]["steps"]}
+           "forward_passes": forwards, "train_steps": steps,
+           "ms_per_step_epoch2": ep[1]["train_seconds"] / ep[1]["steps"] * 1e3,
+           "steps_per_epoch": ep[1]["steps"]}
+    return out, launches, forwards, steps, run_dir
+
+
+def phase_pems08(root: Path):
+    conf = write_pems08_project(root)
+    nb = PEMS08_TRAINING["nb_block"]
+    out, launches, forwards, _, _ = run_pems08_cli(root, conf, root / "exp", ["--use-pallas"])
+    check(launches["cheb_sat"] == forwards * nb,
+          f"cheb_sat launches {launches['cheb_sat']} != {forwards} forward passes x {nb} blocks")
+    out = {"path": "pems08_cli", **out, "launches": launches["cheb_sat"]}
     print("main_path", json.dumps(out), flush=True)
     return out
+
+
+FUSED_KEYS = dict(fuse_tat="true", fuse_spatial="true", compute_dtype="bfloat16")
+
+
+def phase_pems08_fused(root: Path):
+    """The main path of the fused slice: the training CLI with fuse_tat and
+    fuse_spatial (bfloat16, use_pallas still set: fuse_spatial takes
+    precedence) at full PEMS08 width. Each TAt and spatial kernel runs once
+    per block of every forward pass (forward) or train step (backward); the
+    cheb_sat kernel not at all. Then the whole-model check: the run's last
+    checkpoint, one test batch in float32, fused against unfused predictions."""
+    conf = write_pems08_project(root, "SYNTH08F", **FUSED_KEYS)
+    nb = PEMS08_TRAINING["nb_block"]
+    out, launches, forwards, steps, run_dir = run_pems08_cli(root, conf, root / "exp_fused")
+    for name, want in (("tat_fwd", forwards), ("spatial_fwd", forwards),
+                       ("tat_bwd", steps), ("spatial_bwd", steps)):
+        check(launches[name] == want * nb,
+              f"{name} launches {launches[name]} != {want} x {nb} blocks")
+    check(launches["cheb_sat"] == 0, f"the cheb_sat kernel ran {launches['cheb_sat']} times")
+    out = {"path": "pems08_cli_fused_bf16", **out, "launches": launches,
+           "model_check": fused_model_check(conf, run_dir)}
+    print("main_path", json.dumps(out), flush=True)
+    return out
+
+
+def fused_model_check(conf: Path, run_dir: Path) -> dict:
+    """Float32, full width, the fused run's last checkpoint, one test batch:
+    the fused model's predictions against the unfused (plain) model's,
+    within TOL of the output's scale (the two differ only in summation
+    order)."""
+    from dstagnn_drought_tpu_torch.config import load_config
+    from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
+    from dstagnn_drought_tpu_torch.training.step import eval_step
+
+    trainer = Trainer(load_config(conf), experiments_root=str(run_dir / "check"),
+                      device="cuda")
+    best = sorted(run_dir.glob("epoch_*.pt"))[-1]
+    trainer.model.load_state_dict(ckpt.restore_checkpoint(str(best), trainer.device)["model"])
+    x_full, y_full = trainer._splits["test"]
+    bs = trainer.cfg.training.batch_size
+    preds = {}
+    for fused in (True, False):
+        preds[fused], _ = eval_step(trainer.model, x_full[:bs], y_full[:bs],
+                                    trainer.constants, compute_dtype=torch.float32,
+                                    fuse_tat=fused, fuse_spatial=fused)
+    torch.cuda.synchronize()
+    err, rel = rel_err(preds[True], preds[False])
+    check(rel <= TOL and bool(torch.isfinite(preds[True]).all()),
+          f"fused vs unfused model at full width: {rel:.3g} of scale > {TOL}")
+    return {"batch": bs, "max_abs_err": err, "rel_err": rel, "tol": TOL,
+            "checkpoint": best.name}
 
 
 def measure_pems08_epochs(root: Path, rounds: int = 2):
@@ -485,6 +801,36 @@ def profile_epoch(trainer, top: int = 12):
             "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
             "kernel_launches": sum(e.count for e in kernels),
             "top_ops": rank(ops), "top_kernels": rank(kernels)}
+
+
+def measure_pems08_fused(root: Path, rounds: int = 2):
+    """Train-epoch time of the fused PEMS08-width bf16 trainer against the
+    unfused one (plain aggregation, and the cheb_sat kernel), alternated in
+    one process; then a profile of a fused epoch."""
+    from dstagnn_drought_tpu_torch.config import load_config
+
+    variants = {"unfused_plain": dict(use_pallas=False, fuse_tat=False, fuse_spatial=False),
+                "unfused_kernel": dict(use_pallas=True, fuse_tat=False, fuse_spatial=False),
+                "fused": dict(use_pallas=True, fuse_tat=True, fuse_spatial=True)}
+    trainers = {}
+    for name, keys in variants.items():
+        cfg = load_config(root / "SYNTH08F.conf")
+        for k, v in keys.items():
+            setattr(cfg.training, k, v)
+        trainers[name] = Trainer(cfg, experiments_root=str(root / f"mf_{name}"), device="cuda")
+        trainers[name].train_epoch(0)  # warm-up
+    times = {name: [] for name in variants}
+    order = ["unfused_plain", "unfused_kernel", "fused", "fused", "unfused_kernel",
+             "unfused_plain"] * rounds
+    for i, name in enumerate(order):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainers[name].train_epoch(i + 1)
+        times[name].append((time.perf_counter() - t0) / trainers[name].last_epoch_steps * 1e3)
+    out = {"path": "pems08_bf16_fused_step_ms", **times,
+           "profile": {name: profile_epoch(trainers[name]) for name in ("fused", "unfused_plain")}}
+    print("measure", json.dumps(out), flush=True)
+    return out
 
 
 def measure_accuracy(root: Path, epochs: int = 25):
@@ -627,14 +973,6 @@ BELL_TILES = dict(sparse=True, sparse_format="bell", mask_format="tiles", block_
 BELL_DENSE_RCM = dict(sparse=True, sparse_format="bell", rcm=True, block_size=128)
 
 
-def reset_launches():
-    cheb_sat.launches = bell_fused.launches = 0
-    bell_bwd.k1_launches = bell_bwd.k2_launches = 0
-
-
-def read_launches() -> dict:
-    return {"cheb_sat": cheb_sat.launches, "bell_fused": bell_fused.launches,
-            "bell_k1": bell_bwd.k1_launches, "bell_k2": bell_bwd.k2_launches}
 
 
 def run_gambia_bell(root: Path, name: str, sparse: dict, epochs: int):
@@ -762,10 +1100,18 @@ KERNEL_SITES = {
                 "dstagnn_drought_tpu/ops/pallas/bell_bwd.py:363"),
     "bell_k2": ("dstagnn_drought_tpu_torch/csrc/bell_bwd.cu",
                 "dstagnn_drought_tpu/ops/pallas/bell_bwd.py:597"),
+    "tat_fwd": ("dstagnn_drought_tpu_torch/csrc/tat_fused.cu",
+                "dstagnn_drought_tpu/ops/pallas/tat_fused.py:251"),
+    "tat_bwd": ("dstagnn_drought_tpu_torch/csrc/tat_fused.cu",
+                "dstagnn_drought_tpu/ops/pallas/tat_fused.py:283"),
+    "spatial_fwd": ("dstagnn_drought_tpu_torch/csrc/block_spatial_fused.cu",
+                    "dstagnn_drought_tpu/ops/pallas/block_spatial_fused.py:227"),
+    "spatial_bwd": ("dstagnn_drought_tpu_torch/csrc/block_spatial_fused.cu",
+                    "dstagnn_drought_tpu/ops/pallas/block_spatial_fused.py:255"),
 }
 
 
-def kernel_lines(rows, bell_rows, pems, gambia, tiles):
+def kernel_lines(rows, bell_rows, fused_rows, pems, gambia, tiles, fused):
     """One record per kernel for the JSON line: launches from its main path,
     times and bound at the main path's shape."""
     main_row = next(r for r in rows if r["shape"] == "pems08_blocks2-4")
@@ -792,6 +1138,20 @@ def kernel_lines(rows, bell_rows, pems, gambia, tiles):
             "bound_by": main["bound_by"], "library_ms": None,
             "shape": "GAMBIA block 2, bf16: B=4 H=2 N=2139 BS=128 A=49 C=32 T=144 Co=32",
         })
+    for name in ("tat_fwd", "tat_bwd", "spatial_fwd", "spatial_bwd"):
+        mine = [r for r in fused_rows if r["kernel"] == name]
+        main = next(r for r in mine
+                    if r["shape"] == "pems08_blocks2-4" and r["dtype"] == "bfloat16")
+        src, site = KERNEL_SITES[name]
+        out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": site,
+            "launches": fused["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shape": "PEMS08 blocks 2-4, bf16: B=64 F=32 T=12 N=170 (TAt H=3 d_k=32; "
+                     "spatial d=512 K=3 C=Co=32)",
+        })
     return out
 
 
@@ -816,7 +1176,7 @@ def main(argv=None) -> int:
     for name, r in report.items():
         print(f"build {name}: {r['seconds']:.2f} s", flush=True)
         lines = [line.strip() for line in r["log"].splitlines()
-                 if "registers" in line or "spill" in line or "error" in line]
+                 if any(w in line for w in ("entry function", "registers", "spill", "error"))]
         for line in lines:
             print(f"  ptxas: {line}")
         builds[name] = {"seconds": r["seconds"], "ptxas": lines}
@@ -824,23 +1184,27 @@ def main(argv=None) -> int:
 
     rows = phase_kernels()
     bell_rows = phase_bell_kernels()
+    fused_rows = phase_fused_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
         pems = phase_pems08(root)
+        fused = phase_pems08_fused(root)
         measured = measure_pems08_epochs(root) if args.measure else None
         gambia = phase_gambia(root)
         tiles = phase_gambia_bell_tiles(root)
         rcm = phase_gambia_bell_rcm(root)
         if args.measure:
-            measured = {"pems08": measured, "gambia": measure_gambia_steps(root),
+            measured = {"pems08": measured, "pems08_fused": measure_pems08_fused(root),
+                        "gambia": measure_gambia_steps(root),
                         "gambia_bell": measure_gambia_bell(root),
                         "accuracy": measure_accuracy(root)}
 
-    kernels = kernel_lines(rows, bell_rows, pems, gambia, tiles)
+    kernels = kernel_lines(rows, bell_rows, fused_rows, pems, gambia, tiles, fused)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
-            "card": card, "builds": builds, "cheb_sat": rows, "bell": bell_rows, "pems08": pems,
+            "card": card, "builds": builds, "cheb_sat": rows, "bell": bell_rows,
+            "fused": fused_rows, "pems08": pems, "pems08_fused": fused,
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
             "gambia_bell_rcm": rcm, "kernels": kernels,
             "seconds": time.perf_counter() - t_start,

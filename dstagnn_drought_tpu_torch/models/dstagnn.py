@@ -20,7 +20,10 @@ mean when the feature width changes, and the ``pinned_out`` tail switch
 three spatial paths: tile-resident masks (``mask_tiles``, built with
 ``make_model(bell=...)``) through the tiles kernel; dense masks with
 ``use_pallas`` through the fused kernel; otherwise the plain block-sparse
-path. bfloat16 compute casts parameters and inputs at the top of the
+path. ``fuse_tat`` takes the temporal attention through the fused TAt
+kernels on every path; ``fuse_spatial`` takes the dense spatial middle
+through the fused spatial kernels (ignored on the BELL branch, as in JAX).
+bfloat16 compute casts parameters and inputs at the top of the
 forward, as the JAX ``apply`` does; no autocast.
 """
 from __future__ import annotations
@@ -48,7 +51,9 @@ from dstagnn_drought_tpu_torch.ops.cuda.bell_fused import (
     bell_cheb_conv_tiles,
     bell_cheb_conv_with_sat_pallas,
 )
+from dstagnn_drought_tpu_torch.ops.cuda.block_spatial_fused import fused_spatial_middle
 from dstagnn_drought_tpu_torch.ops.cuda.cheb_sat import cheb_conv_with_sat_pallas
+from dstagnn_drought_tpu_torch.ops.cuda.tat_fused import fused_temporal_attention
 from dstagnn_drought_tpu_torch.ops.graph import cheb_polynomials, scaled_laplacian
 from dstagnn_drought_tpu_torch.ops.gtu import (
     _IM2COL_MIN_T,
@@ -185,7 +190,8 @@ class STBlock(nn.Module):
         self.ln = nn.LayerNorm(C)
 
     def forward(self, x, res_att, *, adj_pa, cheb_polys, deterministic,
-                generator, use_pallas, bell=None, bell_tiles=None):
+                generator, use_pallas, bell=None, bell_tiles=None,
+                fuse_tat=False, fuse_spatial=False):
         spec = self.spec
         dt = x.dtype
         c = lambda t: t.to(dt)  # parameters in the compute dtype
@@ -202,31 +208,48 @@ class STBlock(nn.Module):
         if res_att.ndim == 5 and res_att.shape[1] not in (1, F):
             res_att = res_att.mean(dim=1, keepdim=True)
 
-        TATout, re_at = temporal_attention(
+        # with fuse_tat the embedding stays outside the kernel (pos=None)
+        tat = fused_temporal_attention if fuse_tat else temporal_attention
+        extra = dict(pos=None, ln0_scale=None, ln0_bias=None) if fuse_tat else {}
+        TATout, re_at = tat(
             TEmx, res_att,
             wq=c(self.TAt.W_Q.weight).t(), wk=c(self.TAt.W_K.weight).t(),
             wv=c(self.TAt.W_V.weight).t(), wo=c(self.TAt.fc.weight).t(),
             ln_scale=c(self.TAt.layer_norm.weight),
             ln_bias=c(self.TAt.layer_norm.bias),
-            n_heads=spec.n_heads, d_k=spec.d_k, d_v=spec.d_v,
+            n_heads=spec.n_heads, d_k=spec.d_k, d_v=spec.d_v, **extra,
         )
-
-        # pre_conv: a per-node linear map over (T, F)
-        x_tat = (torch.einsum("bftn,dtf->bnd", TATout,
-                              c(self.pre_conv.weight)[:, :, 0, :])
-                 + c(self.pre_conv.bias))
-        se = x_tat + c(self.EmbedS.pos_embed.weight)[None]
-        SEmx = layer_norm(se, c(self.EmbedS.norm.weight), c(self.EmbedS.norm.bias))
-        SEmx = dropout(SEmx, spec.dropout_rate, generator, deterministic)
 
         wq, wk = c(self.SAt.W_Q.weight).t(), c(self.SAt.W_K.weight).t()
         thetas = torch.stack([c(t) for t in self.cheb_conv_SAt.Theta])
         cheb = self.cheb_conv_SAt
         masks = (torch.stack([c(m) for m in cheb.mask])
                  if hasattr(cheb, "mask") else None)
+        fused_spatial = fuse_spatial and bell is None  # dense only, as in JAX
+        if fused_spatial:
+            # pre_conv → EmbedS → dropout → SAt → Chebyshev conv in one
+            # kernel pair; ahead of use_pallas, as in JAX
+            spatial_gcn = fused_spatial_middle(
+                TATout, x, pre_w=c(self.pre_conv.weight), pre_b=c(self.pre_conv.bias),
+                pos=c(self.EmbedS.pos_embed.weight), ln_scale=c(self.EmbedS.norm.weight),
+                ln_bias=c(self.EmbedS.norm.bias), wq=wq, wk=wk, adj_pa=adj_pa,
+                masks=masks, cheb_polys=cheb_polys, thetas=thetas, K=spec.K,
+                d_k=spec.d_k, dropout_rate=0.0 if deterministic else spec.dropout_rate,
+                generator=generator)
+        else:
+            # pre_conv: a per-node linear map over (T, F)
+            x_tat = (torch.einsum("bftn,dtf->bnd", TATout,
+                                  c(self.pre_conv.weight)[:, :, 0, :])
+                     + c(self.pre_conv.bias))
+            se = x_tat + c(self.EmbedS.pos_embed.weight)[None]
+            SEmx = layer_norm(se, c(self.EmbedS.norm.weight), c(self.EmbedS.norm.bias))
+            SEmx = dropout(SEmx, spec.dropout_rate, generator, deterministic)
+
         # pinned_out: the spatial output comes out of a kernel (JAX:
         # a pallas_call), which switches the tail below
-        if bell is None:
+        if fused_spatial:
+            pinned_out = True
+        elif bell is None:
             pinned_out = use_pallas
             STAt = spatial_attention_scores(SEmx, wq=wq, wk=wk, n_heads=spec.K,
                                             d_k=spec.d_k)
@@ -336,7 +359,8 @@ class DSTAGNN(nn.Module):
     def forward(self, x, *, adj_pa, cheb_polys, deterministic: bool = True,
                 generator: torch.Generator | None = None,
                 compute_dtype: torch.dtype = torch.float32,
-                use_pallas: bool = False, bell=None, bell_tiles=None):
+                use_pallas: bool = False, bell=None, bell_tiles=None,
+                fuse_tat: bool = False, fuse_spatial: bool = False):
         x = x.to(compute_dtype)
         adj_pa = adj_pa.to(compute_dtype)
         cheb_polys = cheb_polys.to(compute_dtype)
@@ -348,6 +372,7 @@ class DSTAGNN(nn.Module):
                 x, res_att, adj_pa=adj_pa, cheb_polys=cheb_polys,
                 deterministic=deterministic, generator=generator,
                 use_pallas=use_pallas, bell=bell, bell_tiles=bell_tiles,
+                fuse_tat=fuse_tat, fuse_spatial=fuse_spatial,
             )
             outs.append(x)
         final_x = torch.cat(outs, dim=-1)  # (B, N, C, T·nb_block)

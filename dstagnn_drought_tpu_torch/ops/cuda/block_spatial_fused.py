@@ -1,0 +1,319 @@
+"""Fused spatial middle of a dense DSTAGNN block: the CUDA kernels and their
+plain PyTorch version.
+
+Counterpart of ``dstagnn_drought_tpu/ops/pallas/block_spatial_fused.py``.
+Per batch row b, with md the matmul dtype (the dtype of ``tat``):
+
+    x_tat = tat · pw + pb
+    semx  = md((LN(x_tat + pos)·gs + bs) ⊙ dmask / keep)
+    qk    = semx · wqk
+    att_k = softmax over the SOURCE axis of md(q_k)·md(k_k)ᵀ/√d_k + bias_k
+    out   = relu(Σ_k md(md(T_k ⊙ att_k)ᵀ · xm) · Θ_k)        (Θ per time step)
+
+Matmul operands are rounded to md where the TPU kernel casts them, sums
+stay float32. The TPU kernel's Kronecker factor kron(Θ_k, I_T) is a device
+of its matrix unit; here Θ mixes per time step and dΘ (K, C, Co) comes back
+directly. The kernels (``csrc/block_spatial_fused.cu``; its header says what
+bounds them and how the work is split) never write the (B, K, N, N) planes
+in the forward; the backward's weight gradients are summed over the batch
+in a fixed order, so two launches give the same bits. :class:`SpatialMiddle`
+puts them together. The wrappers take the kernels for CUDA tensors and the
+plain version (:func:`spatial_middle_plain`, gradients from autograd) only
+for tensors on the CPU; ``fwd_launches``/``bwd_launches`` count launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dstagnn_drought_tpu_torch.ops.cuda import build
+
+fwd_launches = 0
+bwd_launches = 0
+
+_EPS = 1e-5
+_SMEM_MAX = 227 * 1024
+_TILE = 16  # rows or target columns a kernel block takes
+
+
+class _Round(torch.autograd.Function):
+    """``a`` rounded to ``md`` (as float32) in the forward when ``value``,
+    and its cotangent rounded to ``md`` when ``grad``: the casts of the TPU
+    kernel's forward and of its hand-written backward, which do not always
+    sit at the same place."""
+
+    @staticmethod
+    def forward(ctx, a, md, value, grad):
+        ctx.md, ctx.grad = md, grad
+        return a.to(md).float() if value else a
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.to(ctx.md).float() if ctx.grad else g), None, None, None
+
+
+def spatial_middle_plain(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, *,
+                         K, d_k, keep):
+    """The kernels' function in tensor ops: tat (B, N, F·T), xm (B, N, C·T),
+    dmask (B or 1, N, d) of 0/1, thetas (K, C, Co) → (B, N, Co·T) in tat's
+    dtype. The casts to the matmul dtype sit where the TPU kernel puts them,
+    in the forward and (through :class:`_Round`) in the backward."""
+    md = tat.dtype
+    r = lambda a: a.to(md).float()  # the cast to the matmul dtype, both ways
+    value_only = lambda a: _Round.apply(a, md, True, False)
+    grad_only = lambda a: _Round.apply(a, md, False, True)
+    B, N, _ = tat.shape
+    _, C, Co = thetas.shape
+    T = xm.shape[-1] // C
+    z = grad_only(r(tat) @ r(pw)) + pb.float() + pos.float()
+    mu = z.mean(dim=-1, keepdim=True)
+    var = ((z - mu) ** 2).mean(dim=-1, keepdim=True)
+    xs_hat = (z - mu) * torch.rsqrt(var + _EPS)
+    semx = value_only((xs_hat * gs.float() + bs.float()) * dmask.float() * (1.0 / keep))
+    qk = semx @ r(wqk)
+    hk = K * d_k
+    xmm = r(xm)
+    out = None
+    for k in range(K):
+        q = r(qk[..., k * d_k:(k + 1) * d_k])
+        kk = r(qk[..., hk + k * d_k:hk + (k + 1) * d_k])
+        s = grad_only(q @ kk.transpose(1, 2) * (1.0 / d_k ** 0.5)) + bias[k].float()
+        att = torch.softmax(s, dim=1)  # the source axis i, per target column j
+        A = value_only(cheb[k].float() * att)
+        agg = r(A.transpose(1, 2) @ xmm).reshape(B, N, C, T)
+        o = torch.einsum("bjct,co->bjot", agg, r(thetas[k])).reshape(B, N, Co * T)
+        out = o if out is None else out + o
+    return torch.relu(out).to(md)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+def smem_bytes(N, FT, CT, CoT, d, K, d_k):
+    """Shared memory a block of each kernel needs (float32 tiles; the
+    formulas of csrc/block_spatial_fused.cu)."""
+    t, hk2 = _TILE, 2 * K * d_k
+    pad4 = lambda n: (n + 3) // 4 * 4
+    return {"embed": 4 * t * (FT + d),
+            "cols_fwd": 4 * (t * d_k + 2 * N * t + t * CT + t * CoT),
+            "cols_bwd": 4 * (t * d_k + 3 * N * t + 2 * t * CT + t * CoT),
+            "rows_bwd": 4 * (pad4(N * d_k) + N * t + t * CT),
+            "embed_bwd": 4 * t * (hk2 + d)}
+
+
+def _load():
+    lib = build.load("block_spatial_fused")
+    if lib.spatial_fused_forward.argtypes is None:
+        lib.spatial_fused_workspace_floats.argtypes = [ctypes.c_int] * 10
+        lib.spatial_fused_workspace_floats.restype = ctypes.c_size_t
+        tail = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.spatial_fused_forward.argtypes = [ctypes.c_void_p] * 14 + tail
+        lib.spatial_fused_forward.restype = ctypes.c_int
+        lib.spatial_fused_backward.argtypes = [ctypes.c_void_p] * 24 + tail
+        lib.spatial_fused_backward.restype = ctypes.c_int
+        lib.spatial_fused_error_string.argtypes = [ctypes.c_int]
+        lib.spatial_fused_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        msg = lib.spatial_fused_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, K, d_k, others=()):
+    if tat.ndim != 3 or xm.ndim != 3 or xm.shape[:2] != tat.shape[:2]:
+        raise ValueError(f"tat must be (B, N, F·T) and xm (B, N, C·T), got "
+                         f"{tuple(tat.shape)}, {tuple(xm.shape)}")
+    B, N, FT = tat.shape
+    if thetas.ndim != 3 or thetas.shape[0] != K or xm.shape[2] % thetas.shape[1]:
+        raise ValueError(f"thetas must be (K={K}, C, Co) with C | C·T, got {tuple(thetas.shape)}")
+    C, Co = thetas.shape[1:]
+    T = xm.shape[2] // C
+    d = pos.shape[-1]
+    shapes = {"pw": (FT, d), "pb": (d,), "pos": (N, d), "gs": (d,), "bs": (d,),
+              "wqk": (d, 2 * K * d_k), "bias": (K, N, N), "cheb": (K, N, N)}
+    named = dict(pw=pw, pb=pb, pos=pos, gs=gs, bs=bs, wqk=wqk, bias=bias, cheb=cheb)
+    if dmask is not None:
+        shapes["dmask"] = (B, N, d)
+        named["dmask"] = dmask
+    for name, t in named.items():
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} must be {shapes[name]}, got {tuple(t.shape)}")
+    for name, t in (("tat", tat), ("xm", xm), ("thetas", thetas), *named.items(), *others):
+        if t.dtype != torch.float32:
+            raise TypeError(f"the block_spatial_fused kernels take float32; {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device.type != "cuda" or t.device != tat.device:
+            raise ValueError(f"the block_spatial_fused kernels run on CUDA tensors; "
+                             f"{name} is on {t.device}")
+    for kernel, need in smem_bytes(N, FT, C * T, Co * T, d, K, d_k).items():
+        if need > _SMEM_MAX:
+            raise ValueError(
+                f"the {kernel} kernel needs {need} bytes of shared memory, more than the "
+                f"{_SMEM_MAX} a block may have (N={N}, F·T={FT}, C·T={C * T}, d={d}); "
+                f"N is limited by the three (N, 16) planes of its target tile")
+    if B > 65535:
+        raise ValueError(f"grid too large for B={B}")
+    return B, N, FT, C, T, Co, d
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def spatial_forward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, *,
+                         K, d_k, keep, bf16):
+    """Launch the forward on the current stream: float32 contiguous CUDA
+    tensors (``dmask`` None for no dropout) → (B, N, Co·T) float32."""
+    global fwd_launches
+    B, N, FT, C, T, Co, d = _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
+                                   thetas, K, d_k)
+    y = torch.empty((B, N, Co * T), dtype=torch.float32, device=tat.device)
+    lib = _load()
+    ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 0),
+                     dtype=torch.float32, device=tat.device)
+    with torch.cuda.device(tat.device):
+        stream = torch.cuda.current_stream(tat.device).cuda_stream
+        err = lib.spatial_fused_forward(
+            tat.data_ptr(), xm.data_ptr(), _ptr(dmask), pw.data_ptr(), pb.data_ptr(),
+            pos.data_ptr(), gs.data_ptr(), bs.data_ptr(), wqk.data_ptr(), bias.data_ptr(),
+            cheb.data_ptr(), thetas.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            B, N, FT, C, T, Co, d, K, d_k, float(keep), int(bf16), stream)
+    _raise_on(lib, err, "block_spatial_fused forward")
+    fwd_launches += 1
+    return y
+
+
+def spatial_backward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas,
+                          g_out, *, K, d_k, keep, bf16):
+    """Launch the backward on the current stream: (dtat, dxm, dpw, dpb, dpos,
+    dgs, dbs, dwqk, dbias, dthetas), all float32; the weight gradients are
+    summed over the batch in a fixed order."""
+    global bwd_launches
+    B, N, FT, C, T, Co, d = _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
+                                   thetas, K, d_k, others=(("g_out", g_out),))
+    if tuple(g_out.shape) != (B, N, Co * T):
+        raise ValueError(f"g_out must be {(B, N, Co * T)}, got {tuple(g_out.shape)}")
+    dev = tat.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dtat, dxm = torch.empty_like(tat), torch.empty_like(xm)
+    dpw, dvec = torch.empty_like(pw), torch.empty((3, d), **f32)
+    dpos, dwqk = torch.empty_like(pos), torch.empty_like(wqk)
+    dbias, dth = torch.empty_like(bias), torch.empty_like(thetas)
+    # transposed weights, so the backward's products read them coalesced
+    pw_t, wqk_t = pw.t().contiguous(), wqk.t().contiguous()
+    lib = _load()
+    ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 1), **f32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.spatial_fused_backward(
+            tat.data_ptr(), xm.data_ptr(), _ptr(dmask), pw.data_ptr(), pw_t.data_ptr(),
+            pb.data_ptr(), pos.data_ptr(), gs.data_ptr(), bs.data_ptr(), wqk.data_ptr(),
+            wqk_t.data_ptr(), bias.data_ptr(), cheb.data_ptr(), thetas.data_ptr(),
+            g_out.data_ptr(), dtat.data_ptr(), dxm.data_ptr(), dpw.data_ptr(),
+            dvec.data_ptr(), dpos.data_ptr(), dwqk.data_ptr(), dbias.data_ptr(),
+            dth.data_ptr(), ws.data_ptr(), B, N, FT, C, T, Co, d, K, d_k, float(keep),
+            int(bf16), stream)
+    _raise_on(lib, err, "block_spatial_fused backward")
+    bwd_launches += 1
+    dpb, dgs, dbs = dvec
+    return dtat, dxm, dpw, dpb, dpos, dgs, dbs, dwqk, dbias, dth
+
+
+def _kernel_operands(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas):
+    """float32 contiguous operands; the weights rounded to the matmul dtype
+    first, as the TPU kernel casts them (a no-op for weights already in it)."""
+    md = tat.dtype
+    f = lambda a: a.float().contiguous()
+    r = lambda a: a.to(md).float().contiguous()
+    return (f(tat), f(xm), None if dmask is None else f(dmask), r(pw), f(pb), f(pos),
+            f(gs), f(bs), r(wqk), f(bias), f(cheb), r(thetas))
+
+
+class SpatialMiddle(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient (no
+    gradient for the dropout mask or the Chebyshev planes)."""
+
+    @staticmethod
+    def forward(ctx, tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, K, d_k,
+                keep):
+        ctx.save_for_backward(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas)
+        ctx.dims = dict(K=K, d_k=d_k, keep=keep, bf16=tat.dtype == torch.bfloat16)
+        ops = _kernel_operands(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas)
+        return spatial_forward_cuda(*ops, **ctx.dims).to(tat.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        ops = _kernel_operands(*saved)
+        grads = spatial_backward_cuda(*ops, g.float().contiguous(), **ctx.dims)
+        dtat, dxm, dpw, dpb, dpos, dgs, dbs, dwqk, dbias, dth = grads
+        tat, xm, _, pw, pb, pos, gs, bs, wqk, bias, _, thetas = saved
+        cast = lambda a, like: a.to(like.dtype)
+        return (cast(dtat, tat), cast(dxm, xm), None, cast(dpw, pw), cast(dpb, pb),
+                cast(dpos, pos), cast(dgs, gs), cast(dbs, bs), cast(dwqk, wqk),
+                cast(dbias, bias), None, cast(dth, thetas), None, None, None)
+
+
+def spatial_middle(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, *,
+                   K, d_k, keep):
+    """The kernels for CUDA tensors, the plain version for CPU tensors (the
+    counterpart of the JAX ``_core``, with Θ (K, C, Co) for its Kronecker
+    factor). ``dmask`` None means no dropout."""
+    if tat.device.type == "cpu":
+        if dmask is None:
+            dmask = torch.ones((1,) + tuple(pos.shape), dtype=tat.dtype)
+        return spatial_middle_plain(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
+                                    thetas, K=K, d_k=d_k, keep=keep)
+    return SpatialMiddle.apply(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas,
+                               K, d_k, keep)
+
+
+def fused_spatial_middle(
+    tat_out: torch.Tensor,
+    x: torch.Tensor,
+    *,
+    pre_w: torch.Tensor,
+    pre_b: torch.Tensor,
+    pos: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    wq: torch.Tensor,
+    wk: torch.Tensor,
+    adj_pa: torch.Tensor,
+    masks: torch.Tensor,
+    cheb_polys: torch.Tensor,
+    thetas: torch.Tensor,
+    K: int,
+    d_k: int,
+    dropout_rate: float = 0.0,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Fused spatial middle of a DSTAGNN block, with the arguments of the
+    JAX ``fused_spatial_middle``: tat_out (B, F, T, N), x (B, N, C, T),
+    pre_w (d, T, 1, F) → (B, N, Co, T) in tat_out's dtype. The dropout mask
+    is drawn from ``generator`` as ``ops.nn.dropout`` draws it (one
+    ``torch.rand((B, N, d))``), so the fused and unfused paths take the same
+    bits from one generator."""
+    B, F, T, N = tat_out.shape
+    C = x.shape[2]
+    d = pos.shape[-1]
+    # pre_conv weight → (F·T, d) in the (f, t) order of tat_flat
+    pw = pre_w[:, :, 0, :].permute(2, 1, 0).reshape(F * T, d)
+    tat_flat = tat_out.reshape(B, F * T, N).transpose(1, 2)  # (B, N, F·T)
+    xm = x.reshape(B, N, C * T)
+    wqk = torch.cat([wq, wk], dim=1)
+    bias = adj_pa[None] * masks  # (K, N, N); dmasks comes from autograd
+    dmask, keep = None, 1.0
+    if dropout_rate > 0.0 and generator is not None:
+        keep = 1.0 - dropout_rate
+        dmask = (torch.rand((B, N, d), generator=generator, device=tat_out.device)
+                 < keep).to(tat_out.dtype)
+    out = spatial_middle(tat_flat.contiguous(), xm, dmask, pw, pre_b, pos, ln_scale,
+                         ln_bias, wqk, bias, cheb_polys, thetas, K=K, d_k=d_k, keep=keep)
+    return out.reshape(B, N, thetas.shape[-1], T)

@@ -10,7 +10,8 @@ index vector. With ``sparse`` and ``sparse_format=bell`` the BlockEllGraph
 of ``adj_merge`` is built before the model (``mask_format=tiles`` puts the
 masks on its active-tile support) and, with ``rcm``, graphs and data splits
 are permuted by reverse Cuthill–McKee; ``evaluate`` returns predictions in
-the original node order. Options of paths not ported yet raise
+the original node order. ``fuse_tat``/``fuse_spatial`` take the steps
+through the fused kernels. Options of paths not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item that will port them
 (:func:`check_slice`).
 """
@@ -59,8 +60,6 @@ def check_slice(cfg: Config) -> None:
         (t.sparse and t.sparse_format == "ell", "sparse_format='ell'",
          "§1 item 9 (ELL)"),
         (t.fuse_gtu is True, "fuse_gtu=true", "§2 kernel 5 (gtu_fused)"),
-        (t.fuse_tat, "fuse_tat=true", "§2 kernel 6 (tat_fused)"),
-        (t.fuse_spatial, "fuse_spatial=true", "§2 kernel 7 (block_spatial_fused)"),
         (t.data_axis > 1 or t.graph_axis > 1,
          f"data_axis={t.data_axis}, graph_axis={t.graph_axis}",
          "§1 item 12 (multi-device)"),
@@ -203,6 +202,7 @@ class Trainer:
                 self.model, self.optimizer, x_full[idx[b]], y_full[idx[b]],
                 self.constants, weights=weights[b], generator=self.generator,
                 compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
+                fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
             ))
         self.last_epoch_steps = len(losses)
         mean_loss = float(torch.stack(losses).mean())
@@ -224,6 +224,7 @@ class Trainer:
             pred, per_sample = eval_step(
                 self.model, x_full[idx[b]], y_full[idx[b]], self.constants,
                 compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
+                fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
             )
             preds.append(pred)
             losses.append(per_sample)

@@ -1,0 +1,226 @@
+"""The port's fused spatial middle (ops/cuda/block_spatial_fused.py) against
+the JAX package's Pallas kernel, run in interpret mode on the CPU.
+
+On CPU tensors the wrapper takes the plain PyTorch version; the CUDA kernels
+are held against that version on the card (the ``cuda`` case below, skipped
+here, and chip_smoke.py). Tolerances are the JAX fused-kernel tests'
+(tests/test_block_spatial_fused.py): forward 1e-4, gradients 3e-3; in
+bfloat16 2e-2 of the output's scale (the matmul operands are rounded to
+bf16 at every cast of the TPU kernel, and a value one side rounds up may
+round down on the other: a few bf16 ulps of 2^-8).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dstagnn_drought_tpu.ops.pallas import block_spatial_fused as jbsf
+from dstagnn_drought_tpu_torch.models.dstagnn import DSTAGNN, ModelSpec
+from dstagnn_drought_tpu_torch.ops.attention import spatial_attention_scores
+from dstagnn_drought_tpu_torch.ops.cheb import cheb_conv_with_sat
+from dstagnn_drought_tpu_torch.ops.cuda import block_spatial_fused as bsf
+from dstagnn_drought_tpu_torch.ops.nn import dropout, layer_norm
+
+torch.set_num_threads(1)
+
+B, T, N, K, DK, D, CO = 3, 6, 18, 3, 8, 24, 5
+PARAMS = ("pre_w", "pre_b", "pos", "gs", "bs", "wq", "wk", "masks", "thetas")
+
+
+def _tensors(F, C, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: (rng.normal(size=s) * 0.3).astype(np.float32)
+    a = dict(tat=mk(B, F, T, N), x=mk(B, N, C, T), pre_w=mk(D, T, 1, F), pre_b=mk(D),
+             pos=mk(N, D), gs=np.full(D, 1.05, np.float32), bs=np.full(D, 0.02, np.float32),
+             wq=mk(D, K * DK), wk=mk(D, K * DK), masks=mk(K, N, N), thetas=mk(K, C, CO))
+    adj = (rng.random((N, N)) < 0.3).astype(np.float32)
+    return a, adj, mk(K, N, N)
+
+
+def _kw(a, adj, cheb):
+    return dict(pre_w=a["pre_w"], pre_b=a["pre_b"], pos=a["pos"], ln_scale=a["gs"],
+                ln_bias=a["bs"], wq=a["wq"], wk=a["wk"], adj_pa=adj, masks=a["masks"],
+                cheb_polys=cheb, thetas=a["thetas"], K=K, d_k=DK)
+
+
+def _loss(out, lib):
+    return (lib.sin(out) ** 2).sum()
+
+
+@pytest.mark.parametrize("F,C", [(1, 1), (4, 4)], ids=["F1", "F4"])
+def test_forward_and_grads_match_jax(F, C):
+    """F = 1 is a first block (F·T = T, one input channel); F > 1 a later one."""
+    a, adj, cheb = _tensors(F, C)
+
+    def jloss(t):
+        out = jbsf.fused_spatial_middle(t["tat"], t["x"], **_kw(t, adj, cheb))
+        return _loss(out, jnp), out
+
+    (_, j_out), j_g = jax.value_and_grad(jloss, has_aux=True)(
+        {k: jnp.asarray(v) for k, v in a.items()})
+    t = {k: torch.from_numpy(v).requires_grad_(True) for k, v in a.items()}
+    out = bsf.fused_spatial_middle(t["tat"], t["x"], **_kw(t, torch.from_numpy(adj),
+                                                          torch.from_numpy(cheb)))
+    assert out.shape == (B, N, CO, T)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), atol=1e-4, rtol=1e-4)
+    _loss(out, torch).backward()
+    for name in ("tat", "x", *PARAMS):
+        np.testing.assert_allclose(t[name].grad.numpy(), np.asarray(j_g[name]), atol=3e-3,
+                                   rtol=3e-3, err_msg=name)
+
+
+def test_bfloat16_forward_matches_jax():
+    a, adj, cheb = _tensors(4, 4, seed=1)
+    bf = {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in a.items()}
+    j_out = jbsf.fused_spatial_middle(
+        bf["tat"], bf["x"], **_kw(bf, jnp.asarray(adj, jnp.bfloat16),
+                                  jnp.asarray(cheb, jnp.bfloat16)))
+    t = {k: torch.from_numpy(v).bfloat16() for k, v in a.items()}
+    out = bsf.fused_spatial_middle(t["tat"], t["x"], **_kw(
+        t, torch.from_numpy(adj).bfloat16(), torch.from_numpy(cheb).bfloat16()))
+    assert out.dtype == torch.bfloat16
+    want = np.asarray(j_out.astype(jnp.float32))
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(out.float().numpy(), want, atol=2e-2 * scale, rtol=2e-2)
+
+
+def _core_operands(a, adj, cheb, F, C):
+    """The kernel-level operands both packages' cores take."""
+    pw = a["pre_w"][:, :, 0, :].transpose(2, 1, 0).reshape(F * T, D)
+    tat = a["tat"].reshape(B, F * T, N).transpose(0, 2, 1).copy()
+    return dict(tat=tat, xm=a["x"].reshape(B, N, C * T), pw=pw, pb=a["pre_b"], pos=a["pos"],
+                gs=a["gs"], bs=a["bs"], wqk=np.concatenate([a["wq"], a["wk"]], axis=1),
+                bias=adj[None] * a["masks"], cheb=cheb)
+
+
+def test_dropout_mask_matches_jax_core():
+    """One numpy 0/1 mask into the JAX ``_core`` and the port's core."""
+    F = C = 4
+    a, adj, cheb = _tensors(F, C, seed=2)
+    ops = _core_operands(a, adj, cheb, F, C)
+    keep = 0.75
+    dmask = (np.random.default_rng(9).random((B, N, D)) < keep).astype(np.float32)
+    wth = np.einsum("kco,ts->kctos", a["thetas"], np.eye(T, dtype=np.float32)).reshape(
+        K, C * T, CO * T)
+    order = ("tat", "xm", "pw", "pb", "pos", "gs", "bs", "wqk", "bias", "cheb")
+    j = [jnp.asarray(ops[k]) for k in order]
+    want = jbsf._core(j[0], j[1], jnp.asarray(dmask), *j[2:], jnp.asarray(wth), K, DK, keep,
+                      True)
+    tt = {k: torch.from_numpy(np.ascontiguousarray(ops[k])) for k in order}
+    got = bsf.spatial_middle(tt["tat"], tt["xm"], torch.from_numpy(dmask),
+                             *[tt[k] for k in order[2:]], torch.from_numpy(a["thetas"]),
+                             K=K, d_k=DK, keep=keep)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+    # the mask changes the result
+    ones = bsf.spatial_middle(tt["tat"], tt["xm"], None, *[tt[k] for k in order[2:]],
+                              torch.from_numpy(a["thetas"]), K=K, d_k=DK, keep=1.0)
+    assert float((got - ones).abs().max()) > 1e-3
+
+
+def test_fused_and_unfused_draw_the_same_dropout_bits():
+    """Training mode, one generator seed: the fused middle and the port's
+    unfused composition (pre_conv, LayerNorm, ops.nn.dropout, spatial
+    scores, Chebyshev conv) give the same result and leave the generator
+    in the same state."""
+    F = C = 4
+    a, adj, cheb = _tensors(F, C, seed=4)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    adj_t, cheb_t = torch.from_numpy(adj), torch.from_numpy(cheb)
+    rate = 0.3
+    g_fused, g_plain = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    fused = bsf.fused_spatial_middle(t["tat"], t["x"], **_kw(t, adj_t, cheb_t),
+                                     dropout_rate=rate, generator=g_fused)
+    x_tat = torch.einsum("bftn,dtf->bnd", t["tat"], t["pre_w"][:, :, 0, :]) + t["pre_b"]
+    sem = layer_norm(x_tat + t["pos"][None], t["gs"], t["bs"])
+    sem = dropout(sem, rate, g_plain, deterministic=False)
+    scores = spatial_attention_scores(sem, wq=t["wq"], wk=t["wk"], n_heads=K, d_k=DK)
+    plain = cheb_conv_with_sat(t["x"], scores, adj_t, cheb_polys=cheb_t, masks=t["masks"],
+                               thetas=t["thetas"])
+    np.testing.assert_allclose(fused.numpy(), plain.numpy(), atol=1e-4, rtol=1e-4)
+    assert torch.equal(g_fused.get_state(), g_plain.get_state())
+
+
+def test_model_fused_and_unfused_agree_in_training_mode():
+    """The whole model with fuse_tat + fuse_spatial and without, dropout on,
+    one generator seed each: the same predictions (the masks are the same
+    bits, drawn in the same order)."""
+    spec = ModelSpec(num_of_vertices=12, len_input=12, num_for_predict=4, num_of_d=1,
+                     nb_block=2, K=3, nb_chev_filter=8, nb_time_filter=8, d_model=16,
+                     d_k=8, n_heads=2, dropout_rate=0.2)
+    rng = np.random.default_rng(6)
+    model = DSTAGNN(spec)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.from_numpy(rng.normal(size=p.shape).astype(np.float32) * 0.3))
+    adj = torch.from_numpy((rng.random((12, 12)) < 0.3).astype(np.float32))
+    cheb = torch.from_numpy(rng.normal(size=(3, 12, 12)).astype(np.float32) * 0.3)
+    x = torch.from_numpy(rng.normal(size=(2, 12, 1, 12)).astype(np.float32))
+    preds = []
+    for fuse in (False, True):
+        preds.append(model(x, adj_pa=adj, cheb_polys=cheb, deterministic=False,
+                           generator=torch.Generator().manual_seed(11),
+                           fuse_tat=fuse, fuse_spatial=fuse).detach())
+    np.testing.assert_allclose(preds[1].numpy(), preds[0].numpy(), atol=2e-4, rtol=2e-4)
+
+
+def _kernel_args(F=4, C=4):
+    a, adj, cheb = _tensors(F, C)
+    ops = _core_operands(a, adj, cheb, F, C)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in ops.items()}
+    return [t["tat"], t["xm"], None, t["pw"], t["pb"], t["pos"], t["gs"], t["bs"], t["wqk"],
+            t["bias"], t["cheb"], torch.from_numpy(a["thetas"])]
+
+
+def test_kernels_refuse_what_they_do_not_take():
+    args = _kernel_args()
+    dims = dict(K=K, d_k=DK, keep=1.0, bf16=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        bsf.spatial_forward_cuda(*args, **dims)
+    with pytest.raises(TypeError, match="float32"):
+        bsf.spatial_forward_cuda(args[0].bfloat16(), *args[1:], **dims)
+    with pytest.raises(ValueError, match="contiguous"):
+        bsf.spatial_forward_cuda(args[0].transpose(0, 1).contiguous().transpose(0, 1),
+                                 *args[1:], **dims)
+    with pytest.raises(ValueError, match="bias must be"):
+        bsf.spatial_forward_cuda(*args[:9], args[9][:, :5], *args[10:], **dims)
+    with pytest.raises(ValueError, match="CUDA"):
+        g = torch.zeros(B, N, CO * T)
+        bsf.spatial_backward_cuda(*args, g, **dims)
+    # PEMS08 width fits a block's shared memory; N = 2139 does not
+    assert max(bsf.smem_bytes(170, 384, 384, 384, 512, 3, 32).values()) < 227 * 1024
+    assert bsf.smem_bytes(2139, 576, 576, 4608, 64, 2, 32)["cols_bwd"] > 227 * 1024
+
+
+def test_cpu_path_counts_no_launch():
+    before = (bsf.fwd_launches, bsf.bwd_launches)
+    args = [t.requires_grad_(True) if t is not None and t.is_floating_point() else t
+            for t in _kernel_args()]
+    bsf.spatial_middle(*args, K=K, d_k=DK, keep=1.0).sum().backward()
+    assert (bsf.fwd_launches, bsf.bwd_launches) == before
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for F, C in ((1, 1), (4, 4)):
+        cpu = _kernel_args(F, C)
+        mask = (torch.rand(B, N, D, generator=torch.Generator().manual_seed(1)) < 0.8).float()
+        leaves = []
+        for _ in range(2):
+            leaves.append([None if t is None else t.cuda().requires_grad_(True) for t in cpu])
+            leaves[-1][2] = mask.cuda()
+        before = (bsf.fwd_launches, bsf.bwd_launches)
+        out = bsf.spatial_middle(*leaves[0], K=K, d_k=DK, keep=0.8)
+        want = bsf.spatial_middle_plain(*leaves[1], K=K, d_k=DK, keep=0.8)
+        _loss(out, torch).backward()
+        _loss(want, torch).backward()
+        torch.cuda.synchronize()
+        assert (bsf.fwd_launches, bsf.bwd_launches) == (before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+        for i, (k, p) in enumerate(zip(leaves[0], leaves[1])):
+            if i in (2, 10):  # the mask and the Chebyshev planes get no gradient
+                continue
+            torch.testing.assert_close(k.grad, p.grad, atol=3e-3, rtol=3e-3)

@@ -125,8 +125,7 @@ def test_missing_file():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("sparse", True), ("fuse_tat", True), ("fuse_spatial", True),
-    ("fuse_gtu", True), ("tp", True), ("debug", True), ("data_axis", 2),
+    ("sparse", True), ("fuse_gtu", True), ("tp", True), ("debug", True), ("data_axis", 2),
     ("graph_axis", 2), ("nan_policy", "rollback"), ("model_name", "astgcn"),
     ("tensorboard", True), ("remat", True),
 ])
@@ -151,4 +150,19 @@ def test_bell_options_are_in_the_slice():
             check_slice(cfg)
     cfg.training.sparse_format = "ell"
     with pytest.raises(NotImplementedError, match=r"item 9 \(ELL\)"):
+        check_slice(cfg)
+
+
+@pytest.mark.parametrize("knobs", [("fuse_tat",), ("fuse_spatial",),
+                                   ("fuse_tat", "fuse_spatial")])
+def test_fused_options_are_in_the_slice(knobs):
+    """The fused temporal-attention and spatial-middle kernels are ported;
+    fuse_gtu = true still names its ROADMAP item."""
+    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
+                             port_config.TrainingConfig())
+    for knob in knobs:
+        setattr(cfg.training, knob, True)
+    check_slice(cfg)
+    cfg.training.fuse_gtu = True
+    with pytest.raises(NotImplementedError, match=r"§2 kernel 5 \(gtu_fused\)"):
         check_slice(cfg)

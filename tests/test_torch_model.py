@@ -4,9 +4,9 @@ The same numpy-seeded inputs and the JAX model's weights (carried across with
 ``params_from_jax``) go through JAX ``apply(deterministic=True)`` and the
 port's forward. Forward atol 2e-4 (precedent tests/test_parity_torch.py);
 SmoothL1 gradients of every parameter atol 5e-3 (precedent
-tests/test_pallas_cheb.py). ``use_pallas`` runs the Pallas kernel in
-interpret mode on the JAX side and the kernel module's plain version on the
-port's side.
+tests/test_pallas_cheb.py). ``use_pallas``, ``fuse_tat`` and ``fuse_spatial`` run the Pallas kernels
+in interpret mode on the JAX side and the kernel modules' plain versions on
+the port's side.
 """
 import jax
 import jax.numpy as jnp
@@ -63,22 +63,21 @@ def _port(spec, params, consts):
     return model, constants_from_jax(consts)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "kernel"])
-@pytest.mark.parametrize("shape", list(SHAPES))
-def test_forward_and_grads_match_jax(shape, use_pallas):
+def _check_against_jax(shape, **flags):
+    """Forward, loss and every parameter's gradient of the port against JAX
+    ``apply`` with the same flags, on weights carried across."""
     spec, jspec, params, consts, x, y = _case(**SHAPES[shape])
 
     def jax_loss(p):
         pred = jax_apply(p, jnp.asarray(x), spec=jspec, adj_pa=consts["adj_pa"],
-                         cheb_polys=consts["cheb_polys"], deterministic=True,
-                         use_pallas=use_pallas)
+                         cheb_polys=consts["cheb_polys"], deterministic=True, **flags)
         return jax_smooth_l1(pred, jnp.asarray(y)), pred
 
     (j_loss, j_pred), j_grads = jax.value_and_grad(jax_loss, has_aux=True)(params)
 
     model, c = _port(spec, params, consts)
     pred = model(torch.from_numpy(x), adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"],
-                 deterministic=True, use_pallas=use_pallas)
+                 deterministic=True, **flags)
     np.testing.assert_allclose(pred.detach().numpy(), np.asarray(j_pred),
                                atol=2e-4, rtol=2e-4)
     loss = smooth_l1_loss(pred, torch.from_numpy(y))
@@ -93,6 +92,28 @@ def test_forward_and_grads_match_jax(shape, use_pallas):
         grad = p.grad if p.grad is not None else torch.zeros_like(p)
         np.testing.assert_allclose(grad.numpy(), expected[name].numpy(),
                                    atol=5e-3, rtol=5e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_forward_and_grads_match_jax(shape, use_pallas):
+    _check_against_jax(shape, use_pallas=use_pallas)
+
+
+FUSED = {"tat": dict(fuse_tat=True), "spatial": dict(fuse_spatial=True),
+         "both": dict(fuse_tat=True, fuse_spatial=True)}
+
+
+@pytest.mark.parametrize("fuse,shape", [
+    ("tat", "n16_t12_f1"), ("spatial", "n16_t12_f1"), ("both", "n16_t12_f1"),
+    # multichannel long T: the spatial kernel's output takes the (B, N, C, T) tail
+    ("both", "n16_t48_f4"),
+])
+def test_fused_paths_match_jax(fuse, shape):
+    """fuse_tat / fuse_spatial on weights from params_from_jax (no new
+    mapping: the fused paths use the same parameters); the JAX kernels run
+    in interpret mode, the port's wrappers their plain versions."""
+    _check_against_jax(shape, **FUSED[fuse])
 
 
 def test_state_dict_round_trip():
@@ -162,6 +183,16 @@ def test_bell_forward_and_grads_match_jax(shape, path):
     """The three BELL spatial paths at BS=8 against JAX ``apply(ell=bell,
     bell_tiles=...)``; the JAX kernels run in interpret mode. T=48 takes the
     (B, N, C, T) tail on the two kernel paths (pinned_out)."""
+    _check_bell_against_jax(shape, path)
+
+
+def test_bell_with_fused_knobs_matches_jax():
+    """fuse_tat takes the temporal attention through the fused kernel on
+    the BELL path too; fuse_spatial is ignored there, on both sides."""
+    _check_bell_against_jax("n16_t12_f1", "tiles", fuse_tat=True, fuse_spatial=True)
+
+
+def _check_bell_against_jax(shape, path, **flags):
     from dstagnn_drought_tpu.ops.block_sparse import block_ell_from_adjacency as jax_bell
     from dstagnn_drought_tpu_torch.ops.block_sparse import block_ell_from_adjacency
 
@@ -188,7 +219,7 @@ def test_bell_forward_and_grads_match_jax(shape, path):
         pred = jax_apply(p, jnp.asarray(x), spec=jspec, adj_pa=consts["adj_pa"],
                          cheb_polys=consts["cheb_polys"], deterministic=True,
                          use_pallas=use_pallas, ell=jbell,
-                         bell_tiles=consts.get("bell_tiles"))
+                         bell_tiles=consts.get("bell_tiles"), **flags)
         return jax_smooth_l1(pred, jnp.asarray(y)), pred
 
     (j_loss, j_pred), j_grads = jax.value_and_grad(jax_loss, has_aux=True)(params)
@@ -198,7 +229,7 @@ def test_bell_forward_and_grads_match_jax(shape, path):
     c = constants_from_jax(consts)
     pred = model(torch.from_numpy(x), adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"],
                  deterministic=True, use_pallas=use_pallas, bell=bell,
-                 bell_tiles=c.get("bell_tiles"))
+                 bell_tiles=c.get("bell_tiles"), **flags)
     np.testing.assert_allclose(pred.detach().numpy(), np.asarray(j_pred),
                                atol=2e-4, rtol=2e-4)
     loss = smooth_l1_loss(pred, torch.from_numpy(y))

@@ -1,6 +1,7 @@
 """The port's training path against the JAX package's, on the CPU: the
 windowed npz, a 5-step loss trajectory from the same weights and batches,
 and the CLI end to end with ``--device cpu``."""
+import functools
 import json
 
 import jax
@@ -14,6 +15,7 @@ from dstagnn_drought_tpu.data.windowing import (
     read_and_generate_dataset as jax_read_and_generate,
 )
 from dstagnn_drought_tpu.models.dstagnn import ModelSpec as JaxSpec
+from dstagnn_drought_tpu.models.dstagnn import apply as jax_apply
 from dstagnn_drought_tpu.models.dstagnn import make_model as jax_make_model
 from dstagnn_drought_tpu.training.step import make_optimizer as jax_optimizer
 from dstagnn_drought_tpu.training.step import make_train_step
@@ -55,6 +57,16 @@ def test_five_step_trajectory_matches_jax():
     """Same weights, same batch plan, dropout 0: per-step SmoothL1 + Adam
     losses agree to rtol 2e-3 / atol 2e-4 (precedent
     tests/test_parity_torch.py::test_training_trajectory_parity)."""
+    _five_step_trajectory()
+
+
+def test_five_step_fused_trajectory_matches_jax():
+    """The same trajectory with fuse_tat and fuse_spatial on both sides (the
+    JAX kernels in interpret mode, the port's plain versions)."""
+    _five_step_trajectory(fuse_tat=True, fuse_spatial=True)
+
+
+def _five_step_trajectory(**flags):
     rng = np.random.default_rng(8)
     N, T, P, lr, bs = 10, 12, 4, 1e-3, 4
     kw = dict(num_of_vertices=N, len_input=T, num_for_predict=P, num_of_d=1,
@@ -84,7 +96,7 @@ def test_five_step_trajectory_matches_jax():
     assert weights[-1].sum() < bs  # the padded tail is among the steps
 
     opt = jax_optimizer(lr)
-    step = make_train_step(jspec, opt)
+    step = make_train_step(jspec, opt, apply_fn=functools.partial(jax_apply, **flags))
     p, s, key = params, opt.init(params), jax.random.PRNGKey(0)
     jax_losses = []
     for b in range(idx.shape[0]):
@@ -98,7 +110,7 @@ def test_five_step_trajectory_matches_jax():
     for b in range(idx.shape[0]):
         i = torch.from_numpy(idx[b].astype(np.int64))
         losses.append(float(train_step(model, optimizer, xt[i], yt[i], c,
-                                       weights=torch.from_numpy(weights[b]))))
+                                       weights=torch.from_numpy(weights[b]), **flags)))
     assert len(losses) == 5
     np.testing.assert_allclose(losses, jax_losses, rtol=2e-3, atol=2e-4)
     assert abs(losses[0] - losses[-1]) > 1e-4  # the trajectory moves
@@ -140,6 +152,42 @@ def test_cli_trains_checkpoints_and_resumes(toy_windowed, tmp_path, capsys):
                     "--device", "cpu", "--epochs", "3", "--resume"])
     events = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
     assert [e["epoch"] for e in events if e["event"] == "epoch"] == [0, 1, 2]
+
+
+def test_cli_trains_the_fused_path(toy_windowed, tmp_path):
+    """The CLI with the two INI keys fuse_tat and fuse_spatial on: both
+    kernel modules' plain versions run on the CPU, no launch is counted."""
+    from dstagnn_drought_tpu_torch.ops.cuda import block_spatial_fused, tat_fused
+
+    text = (toy_windowed / "TOY.conf").read_text()
+    conf = tmp_path / "FUSED.conf"
+    conf.write_text(text + "fuse_tat = true\nfuse_spatial = true\n")
+    calls = {"tat": 0, "spatial": 0}
+    real = (tat_fused.tat_fused_plain, block_spatial_fused.spatial_middle_plain)
+
+    def tat(*a, **k):
+        calls["tat"] += 1
+        return real[0](*a, **k)
+
+    def spatial(*a, **k):
+        calls["spatial"] += 1
+        return real[1](*a, **k)
+
+    exp = tmp_path / "exp"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tat_fused, "tat_fused_plain", tat)
+        mp.setattr(block_spatial_fused, "spatial_middle_plain", spatial)
+        result = train_cli.main(["--config", str(conf), "--experiments-root", str(exp),
+                                 "--device", "cpu", "--epochs", "2"])
+    cfg = load_config(conf)
+    assert cfg.training.fuse_tat and cfg.training.fuse_spatial
+    assert calls["tat"] == calls["spatial"] > 0
+    assert calls["tat"] % cfg.training.nb_block == 0
+    run_dir = next((exp / "TOY").iterdir())
+    events = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_losses = [e["train_loss"] for e in events if e["event"] == "epoch"]
+    assert len(train_losses) == 2 and train_losses[1] < train_losses[0]
+    assert np.isfinite(result["test_loss"])
 
 
 def test_cli_refuses_flags_outside_the_slice(toy_windowed, tmp_path):
