@@ -21,6 +21,10 @@ Phases; any failure exits non-zero:
      forward and backward (csrc/tat_fused.cu) and the spatial-middle forward
      and backward (csrc/block_spatial_fused.cu), every weight gradient equal
      bit for bit over two backward launches;
+  2d. the fused GTU forward and backward (csrc/gtu_fused.cu) against their
+     plain version at the GAMBIA block, the JAX test's two shapes and a
+     ragged one, float32 and bfloat16, dW and db equal bit for bit over two
+     launches, with the conv-only cuDNN call timed beside them;
   3. the dense main path at full PEMS08 width: the training CLI, two epochs
      on benchmarks/parity_runs/parity_dataset.npz through the kernel, with
      the kernel's launch count read around the run;
@@ -30,20 +34,27 @@ Phases; any failure exits non-zero:
      unfused models on one test batch in float32 from the run's checkpoint;
   4. GAMBIA dense (N=2139, F=4, T=144, bfloat16): training steps through
      the Trainer, the kernel at N > 1024 and the multichannel/long-T tail;
+  4b. the GTU slice's main path: GAMBIA dense with fuse_gtu = true,
+     Trainer.run for 2 epochs, the GTU forward and cheb_sat once per block
+     of every forward pass, the GTU backward once per block of every train
+     step; then the fused and im2col tails on one test batch in float32;
   5. the block-sparse main path: bench.py's GAMBIA bell_tiles
      configuration (sparse, bell, use_pallas, mask_format=tiles, BS=128,
      bfloat16), Trainer.run for 2 epochs of 3 steps, F once per block of
      every forward pass and K1/K2 once per block of every train step;
+  5b. the same BELL tiles configuration with fuse_gtu = true, one epoch,
+     the GTU and BELL launch counts checked;
   6. GAMBIA BELL with dense masks and rcm=true, one epoch, its test
      predictions held against an unpermuted model in the original order;
   7. a JSON line with every kernel's numbers, then the device line.
 
 ``--measure`` adds timings of whole training epochs (PEMS08 width, the
 fused PEMS08-width bf16 trainer against both unfused paths, GAMBIA dense,
-and GAMBIA BELL tiles against both dense paths) alternated in one process,
-a torch.profiler breakdown of each, and a 25-epoch PEMS08 accuracy
-run of both dense paths checked against the reference model's recorded test
-MAE.
+GAMBIA BELL tiles against both dense paths, and GAMBIA dense and BELL tiles
+with the fused GTU tail against the im2col tail, with each epoch's peak
+device memory) alternated in one process, a torch.profiler breakdown of
+each, and a 25-epoch PEMS08 accuracy run of both dense paths checked
+against the reference model's recorded test MAE.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -71,6 +82,7 @@ from dstagnn_drought_tpu_torch.ops.cuda import (
     block_spatial_fused,
     build,
     cheb_sat,
+    gtu_fused,
     tat_fused,
 )
 from dstagnn_drought_tpu_torch.training.loop import Trainer
@@ -90,6 +102,7 @@ def reset_launches():
     bell_bwd.k1_launches = bell_bwd.k2_launches = 0
     tat_fused.fwd_launches = tat_fused.bwd_launches = 0
     block_spatial_fused.fwd_launches = block_spatial_fused.bwd_launches = 0
+    gtu_fused.fwd_launches = gtu_fused.bwd_launches = 0
 
 
 def read_launches() -> dict:
@@ -97,7 +110,8 @@ def read_launches() -> dict:
             "bell_k1": bell_bwd.k1_launches, "bell_k2": bell_bwd.k2_launches,
             "tat_fwd": tat_fused.fwd_launches, "tat_bwd": tat_fused.bwd_launches,
             "spatial_fwd": block_spatial_fused.fwd_launches,
-            "spatial_bwd": block_spatial_fused.bwd_launches}
+            "spatial_bwd": block_spatial_fused.bwd_launches,
+            "gtu_fwd": gtu_fused.fwd_launches, "gtu_bwd": gtu_fused.bwd_launches}
 
 
 def check(cond: bool, message: str) -> None:
@@ -592,6 +606,120 @@ def phase_fused_kernels():
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the fused GTU kernels vs their plain version
+# ---------------------------------------------------------------------------
+
+GTU_SHAPES = [
+    # (label, B, N, C, T): the GAMBIA block (both blocks alike), the JAX
+    # test's two shapes, and a ragged one (B·N odd, no T_out a multiple of
+    # the kernel's 8 time steps a thread)
+    ("gambia_block", 4, 2139, 32, 144),
+    ("jax_test_n10", 2, 10, 16, 48),
+    ("jax_test_n3", 1, 3, 32, 64),
+    ("ragged_bn21", 3, 7, 16, 80),
+]
+
+
+def gtu_bounds(B, N, C, T, dtype):
+    """(bound_ms, bound_by, flops) of the GTU forward and backward: the
+    useful products (no zero taps) with operands in the compute dtype (bf16:
+    989 TFLOP/s), the backward three times them (recompute, dx, dW); bytes:
+    x and the output (backward: x, g and dx) once, the float32 taps and
+    biases read once (and their gradients written once)."""
+    BN, xb = B * N, (2 if dtype == torch.bfloat16 else 4)
+    M3 = gtu_fused.out_len(T)
+    fwd = 2 * BN * sum((T - k + 1) * k for k in gtu_fused.KS) * C * 2 * C
+    weights = 4 * (gtu_fused.TAPS * 2 * C * C + 3 * 2 * C)
+    return {"gtu_fwd": _bound(fwd, xb * BN * (C * T + M3 * C) + weights, dtype),
+            "gtu_bwd": _bound(3 * fwd, xb * BN * (2 * C * T + M3 * C) + 2 * weights, dtype)}
+
+
+def gtu_inputs(B, N, C, T, dtype, seed):
+    """x, the three convs' OIHW weights and biases (PyTorch's default init
+    scale), and a cotangent of the output."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ins = [_randn(g, B, N, C, T)]
+    for k in gtu_fused.KS:
+        ins += [_randn(g, 2 * C, C, 1, k, scale=(C * k) ** -0.5), _randn(g, 2 * C, scale=0.1)]
+    cot = _randn(g, B, N, gtu_fused.out_len(T), C)
+    return [t.to(dtype).contiguous() for t in ins], [cot.to(dtype)]
+
+
+def gtu_library(ins):
+    """The closest single PyTorch call, conv only, no gate: one cuDNN conv2d
+    with the packed (6C, C, 1, 7) weights (the k = 3 and 5 taps zero-padded)
+    on x as (B·N, C, 1, T); its forward and its autograd backward."""
+    x, ws = ins[0], ins[1::2]
+    B, N, C, T = x.shape
+    w = torch.cat([torch.nn.functional.pad(w, (0, 7 - w.shape[-1])) for w in ws])
+    b = torch.cat(ins[2::2])
+    xv = x.reshape(B * N, C, 1, T)
+    fwd = lambda: torch.nn.functional.conv2d(xv, w, b)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (xv, w, b)]
+    out = torch.nn.functional.conv2d(*leaves)
+    g = torch.ones_like(out)
+    bwd = lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+    iters = 10 if x.numel() > 1e6 else 20
+    return cuda_ms(fwd, iters), cuda_ms(bwd, iters)
+
+
+def phase_gtu_kernels():
+    """The GTU forward and backward against their plain version at every
+    GTU shape, float32 and bfloat16: the output and every gradient through
+    GtuCat, dW and db equal bit for bit over two backward launches, and
+    CUDA-event times of the kernels, the plain version and the conv-only
+    library call."""
+    rows = []
+    diff = tuple(range(7))
+    for seed, (label, B, N, C, T) in enumerate(GTU_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol, gtol = FUSED_TOL[dtype]
+            ins, cots = gtu_inputs(B, N, C, T, dtype, seed)
+            kern = lambda a: gtu_fused.GtuCat.apply(*a)
+            plain = lambda a: gtu_fused.gtu_cat_plain(*a)
+            outs_k, grads_k = _grad_run(kern, ins, cots, diff)
+            outs_p, grads_p = _grad_run(plain, ins, cots, diff)
+            torch.cuda.synchronize()
+            fwd_err, bwd_err = _compare(outs_k, outs_p), _compare(grads_k, grads_p)
+            per_grad = [rel_err(k, p)[1] for k, p in zip(grads_k, grads_p)]
+            del outs_k, grads_k, outs_p, grads_p
+            wp, bp = gtu_fused.pack(*ins[1:], dtype)
+            x, g = ins[0], cots[0].contiguous()
+            first, again = (gtu_fused.gtu_backward_cuda(x, g, wp, bp) for _ in range(2))
+            torch.cuda.synchronize()
+            identical = all(torch.equal(a, b) for a, b in zip(first[1:], again[1:]))
+            del first, again
+            iters = 10 if x.numel() > 1e6 else 20
+            lib_fwd, lib_bwd = gtu_library(ins)
+            times = {"gtu_fwd": (cuda_ms(lambda: gtu_fused.gtu_forward_cuda(x, wp, bp), iters),
+                                 cuda_ms(lambda: plain(ins), max(2, iters // 2)), lib_fwd),
+                     "gtu_bwd": (cuda_ms(lambda: gtu_fused.gtu_backward_cuda(x, g, wp, bp),
+                                         iters),
+                                 _time_backward(plain, ins, cots, diff, max(2, iters // 2)),
+                                 lib_bwd)}
+            bounds = gtu_bounds(B, N, C, T, dtype)
+            for name, err, limit in (("gtu_fwd", fwd_err, tol), ("gtu_bwd", bwd_err, gtol)):
+                row = {"kernel": name, "shape": label, "dtype": str(dtype).split(".")[-1],
+                       "B": B, "N": N, "C": C, "T": T, "max_abs_err": err[0],
+                       "rel_err": err[1], "tol": limit, "ok": err[1] <= limit}
+                if name == "gtu_bwd":
+                    row["dw_db_bit_identical"] = identical
+                    row["rel_err_each"] = per_grad
+                row["ms"], row["plain_ms"], row["library_ms"] = times[name]
+                row["library"] = "conv2d (6C, C, 1, 7), conv only, no gate"
+                row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
+                print("gtu", json.dumps(row), flush=True)
+                check(row["ok"], f"{name} vs plain at {label} {dtype}: "
+                                 f"{row['rel_err']:.3g} > {limit}")
+                check(row.get("dw_db_bit_identical", True),
+                      f"GTU dW/db differ between two launches at {label} {dtype}")
+                rows.append(row)
+            del ins, cots, wp, bp, x, g
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3: PEMS08 full width through the CLI
 # ---------------------------------------------------------------------------
 
@@ -901,9 +1029,10 @@ def gambia_data(seed: int = 0, n_train: int = 12, n_eval: int = 4):
     return ds, A, pa
 
 
-def gambia_config(N: int, use_pallas: bool = True, **sparse) -> Config:
-    """The GAMBIA configuration of bench.py:222-236; ``sparse`` adds the
-    BELL keys (sparse, sparse_format, mask_format, rcm, block_size)."""
+def gambia_config(N: int, use_pallas: bool = True, **keys) -> Config:
+    """The GAMBIA configuration of bench.py:222-236; ``keys`` adds training
+    keys: the BELL keys (sparse, sparse_format, mask_format, rcm,
+    block_size), fuse_gtu."""
     return Config(
         data=DataConfig(num_of_vertices=N, len_input=GAMBIA_T_IN,
                         num_for_predict=GAMBIA_T_PRED, dataset_name="GAMBIA_SYN",
@@ -912,7 +1041,7 @@ def gambia_config(N: int, use_pallas: bool = True, **sparse) -> Config:
             in_channels=GAMBIA_F, nb_block=2, n_heads=2, K=2, d_k=32, d_model=64,
             nb_chev_filter=32, nb_time_filter=32, batch_size=4, learning_rate=1e-4,
             num_of_hours=12, compute_dtype="bfloat16", use_pallas=use_pallas,
-            **sparse,
+            **keys,
         ),
     ).validate()
 
@@ -975,15 +1104,15 @@ BELL_DENSE_RCM = dict(sparse=True, sparse_format="bell", rcm=True, block_size=12
 
 
 
-def run_gambia_bell(root: Path, name: str, sparse: dict, epochs: int):
-    """Trainer.run at the GAMBIA config on the BELL path, with every launch
-    count set to 0 just before and read just after. Checks finite losses,
-    a checkpoint, the test dump, and that F ran once per block of every
-    forward pass, K1 and K2 once per block of every train step, and the
-    dense kernel not at all."""
+def run_gambia(root: Path, name: str, epochs: int, **keys):
+    """Trainer.run at the GAMBIA config (``keys`` add training keys: the
+    BELL keys, fuse_gtu), with every launch count set to 0 just before and
+    read just after. Checks finite losses, a checkpoint and the test dump.
+    Returns (trainer, dataset, summary with the launches, forward passes and
+    train steps)."""
     ds, A, pa = gambia_data()
-    N, nb = A.shape[0], 2
-    trainer = Trainer(gambia_config(N, **sparse), dataset=ds, adj_merge=A, adj_pa=pa,
+    N = A.shape[0]
+    trainer = Trainer(gambia_config(N, **keys), dataset=ds, adj_merge=A, adj_pa=pa,
                       experiments_root=str(root / name), device="cuda")
     bs = trainer.cfg.training.batch_size
     batches = {s: -(-len(getattr(ds, s)) // bs) for s in ("train", "val", "test")}
@@ -1001,28 +1130,41 @@ def run_gambia_bell(root: Path, name: str, sparse: dict, epochs: int):
           f"{name}: losses {losses}")
     check(math.isfinite(result["test_loss"]), f"{name}: test loss {result['test_loss']}")
     check(any(Path(trainer.run_dir).glob("epoch_*.pt")), f"{name}: no checkpoint")
-    check(launches["bell_fused"] == forwards * nb,
-          f"{name}: bell_fused launches {launches['bell_fused']} != {forwards} forward "
-          f"passes x {nb} blocks")
-    for k in ("bell_k1", "bell_k2"):
-        check(launches[k] == steps * nb,
-              f"{name}: {k} launches {launches[k]} != {steps} steps x {nb} blocks")
-    check(launches["cheb_sat"] == 0, f"{name}: the dense kernel ran {launches['cheb_sat']} times")
+    check(len(list(Path(trainer.run_dir).glob("output_epoch_*_test.npz"))) == 1,
+          f"{name}: no test prediction dump")
     out = {"path": name, "device": torch.cuda.get_device_name(0), "N": N,
-           "active_tiles": trainer.constants["bell"].num_active,
-           "slots": trainer.constants["bell"].max_blocks,
            "train_losses": [e["train_loss"] for e in ep],
            "val_losses": [e["val_loss"] for e in ep], "test_loss": result["test_loss"],
            "test_overall": result["report"]["overall"], "launches": launches,
            "forward_passes": forwards, "train_steps": steps,
            "ms_per_step_last_epoch": ep[-1]["train_seconds"] / ep[-1]["steps"] * 1e3}
+    if "bell" in trainer.constants:
+        out["active_tiles"] = trainer.constants["bell"].num_active
+        out["slots"] = trainer.constants["bell"].max_blocks
     return trainer, ds, out
+
+
+def check_launches(out: dict, per_forward=(), per_step=(), never=(), nb: int = 2) -> None:
+    """Each kernel in ``per_forward`` launched once per block of every
+    forward pass, each in ``per_step`` once per block of every train step,
+    each in ``never`` not at all."""
+    got, name = out["launches"], out["path"]
+    for k, unit in [(k, "forward_passes") for k in per_forward] + \
+                   [(k, "train_steps") for k in per_step]:
+        check(got[k] == out[unit] * nb,
+              f"{name}: {k} launches {got[k]} != {out[unit]} {unit} x {nb} blocks")
+    for k in never:
+        check(got[k] == 0, f"{name}: {k} ran {got[k]} times")
+
+
+BELL_LAUNCHES = dict(per_forward=("bell_fused",), per_step=("bell_k1", "bell_k2"))
 
 
 def phase_gambia_bell_tiles(root: Path):
     """The main path of the BELL slice: bench.py's GAMBIA bell_tiles
     configuration, 2 epochs of 3 steps through the Trainer."""
-    _, _, out = run_gambia_bell(root, "gambia_bell_tiles", BELL_TILES, epochs=2)
+    _, _, out = run_gambia(root, "gambia_bell_tiles", 2, **BELL_TILES)
+    check_launches(out, **BELL_LAUNCHES, never=("cheb_sat", "gtu_fwd", "gtu_bwd"))
     print("main_path", json.dumps(out), flush=True)
     return out
 
@@ -1032,7 +1174,8 @@ def phase_gambia_bell_rcm(root: Path):
     wrapper) and rcm=true, one epoch; then the test predictions against
     those of an unpermuted BELL trainer carrying the same weights in the
     original node order: they must agree node for node."""
-    trainer, ds, out = run_gambia_bell(root, "gambia_bell_rcm", BELL_DENSE_RCM, epochs=1)
+    trainer, ds, out = run_gambia(root, "gambia_bell_rcm", 1, **BELL_DENSE_RCM)
+    check_launches(out, **BELL_LAUNCHES, never=("cheb_sat", "gtu_fwd", "gtu_bwd"))
     perm, inv = trainer._perm, trainer._inv_perm
     check(not np.array_equal(perm, np.arange(len(perm))), "rcm permutation is the identity")
     dump = next(Path(trainer.run_dir).glob("output_epoch_*_test.npz"))
@@ -1090,6 +1233,87 @@ def measure_gambia_bell(root: Path, rounds: int = 2):
 
 
 # ---------------------------------------------------------------------------
+# phases 4b and 5b: the fused GTU tail at the GAMBIA config
+# ---------------------------------------------------------------------------
+
+def phase_gambia_fuse_gtu(root: Path):
+    """The main path of the GTU slice: GAMBIA dense (bf16, use_pallas) with
+    fuse_gtu = true, Trainer.run for 2 epochs of 3 steps. The GTU forward and
+    cheb_sat run once per block of every forward pass, the GTU backward once
+    per block of every train step. Then the whole-model check: one test
+    batch in float32, the fused tail against the im2col tail on the run's
+    best weights."""
+    from dstagnn_drought_tpu_torch.training.step import eval_step
+
+    trainer, _, out = run_gambia(root, "gambia_dense_fuse_gtu", 2, fuse_gtu=True)
+    check(trainer.fuse_gtu, "the Trainer resolved fuse_gtu off")
+    check_launches(out, per_forward=("cheb_sat", "gtu_fwd"), per_step=("gtu_bwd",))
+    x_full, y_full = trainer._splits["test"]
+    bs = trainer.cfg.training.batch_size
+    preds = {}
+    for fused in (True, False):
+        preds[fused], _ = eval_step(trainer.model, x_full[:bs], y_full[:bs],
+                                    trainer.constants, compute_dtype=torch.float32,
+                                    use_pallas=True, fuse_gtu=fused)
+    torch.cuda.synchronize()
+    err, rel = rel_err(preds[True], preds[False])
+    check(rel <= TOL and bool(torch.isfinite(preds[True]).all()),
+          f"fuse_gtu vs im2col tail at GAMBIA width: {rel:.3g} of scale > {TOL}")
+    out["model_check"] = {"batch": bs, "max_abs_err": err, "rel_err": rel, "tol": TOL}
+    print("main_path", json.dumps(out), flush=True)
+    return out
+
+
+def phase_gambia_bell_fuse_gtu(root: Path):
+    """GAMBIA BELL tiles with fuse_gtu = true, one epoch: F and the GTU
+    forward once per block of every forward pass, K1, K2 and the GTU
+    backward once per block of every train step, cheb_sat never."""
+    _, _, out = run_gambia(root, "gambia_bell_tiles_fuse_gtu", 1, fuse_gtu=True, **BELL_TILES)
+    check_launches(out, per_forward=("bell_fused", "gtu_fwd"),
+                   per_step=("bell_k1", "bell_k2", "gtu_bwd"), never=("cheb_sat",))
+    print("main_path", json.dumps(out), flush=True)
+    return out
+
+
+def measure_gambia_fuse_gtu(root: Path, rounds: int = 2):
+    """GAMBIA train-step time and peak device memory with the fused GTU
+    tail against the im2col tail, dense (use_pallas) and BELL tiles, each
+    pair alternated in one process (im2col, fused, fused, im2col); then a
+    profile of each fused epoch. Peak memory: max_memory_allocated over an
+    epoch, after reset_peak_memory_stats, less what was allocated before it
+    (the other trainers' weights and data)."""
+    ds, A, pa = gambia_data()
+    configs = {"dense_im2col": {}, "dense_fused": dict(fuse_gtu=True),
+               "bell_tiles_im2col": BELL_TILES,
+               "bell_tiles_fused": dict(fuse_gtu=True, **BELL_TILES)}
+    trainers = {}
+    for name, kw in configs.items():
+        trainers[name] = Trainer(gambia_config(A.shape[0], **kw), dataset=ds, adj_merge=A,
+                                 adj_pa=pa, experiments_root=str(root / f"mg_{name}"),
+                                 device="cuda")
+        trainers[name].train_epoch(0)  # warm-up
+    times = {name: [] for name in configs}
+    peak = {name: [] for name in configs}
+    order = (["dense_im2col", "dense_fused", "dense_fused", "dense_im2col"] * rounds
+             + ["bell_tiles_im2col", "bell_tiles_fused", "bell_tiles_fused",
+                "bell_tiles_im2col"] * rounds)
+    for i, name in enumerate(order):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainers[name].train_epoch(i + 1)
+        times[name].append((time.perf_counter() - t0) / trainers[name].last_epoch_steps * 1e3)
+        peak[name].append((torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+    out = {"path": "gambia_fuse_gtu_step_ms", **times,
+           "epoch_peak_mib": peak,
+           "profile": {name: profile_epoch(trainers[name])
+                       for name in ("dense_fused", "bell_tiles_fused")}}
+    print("measure", json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_SITES = {
     "cheb_sat": ("dstagnn_drought_tpu_torch/csrc/cheb_sat.cu",
@@ -1108,10 +1332,15 @@ KERNEL_SITES = {
                     "dstagnn_drought_tpu/ops/pallas/block_spatial_fused.py:227"),
     "spatial_bwd": ("dstagnn_drought_tpu_torch/csrc/block_spatial_fused.cu",
                     "dstagnn_drought_tpu/ops/pallas/block_spatial_fused.py:255"),
+    "gtu_fwd": ("dstagnn_drought_tpu_torch/csrc/gtu_fused.cu",
+                "dstagnn_drought_tpu/ops/pallas/gtu_fused.py:177"),
+    "gtu_bwd": ("dstagnn_drought_tpu_torch/csrc/gtu_fused.cu",
+                "dstagnn_drought_tpu/ops/pallas/gtu_fused.py:204"),
 }
 
 
-def kernel_lines(rows, bell_rows, fused_rows, pems, gambia, tiles, fused):
+def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused, gtu,
+                 gtu_bell):
     """One record per kernel for the JSON line: launches from its main path,
     times and bound at the main path's shape."""
     main_row = next(r for r in rows if r["shape"] == "pems08_blocks2-4")
@@ -1152,6 +1381,20 @@ def kernel_lines(rows, bell_rows, fused_rows, pems, gambia, tiles, fused):
             "shape": "PEMS08 blocks 2-4, bf16: B=64 F=32 T=12 N=170 (TAt H=3 d_k=32; "
                      "spatial d=512 K=3 C=Co=32)",
         })
+    for name in ("gtu_fwd", "gtu_bwd"):
+        mine = [r for r in gtu_rows if r["kernel"] == name]
+        main = next(r for r in mine if r["shape"] == "gambia_block" and r["dtype"] == "bfloat16")
+        src, site = KERNEL_SITES[name]
+        out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": site,
+            "launches": gtu["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": main["library"],
+            "shape": "GAMBIA block, bf16: B=4 N=2139 C=32 T=144",
+            "launches_bell_tiles": gtu_bell["launches"][name],
+        })
     return out
 
 
@@ -1185,28 +1428,34 @@ def main(argv=None) -> int:
     rows = phase_kernels()
     bell_rows = phase_bell_kernels()
     fused_rows = phase_fused_kernels()
+    gtu_rows = phase_gtu_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
         pems = phase_pems08(root)
         fused = phase_pems08_fused(root)
         measured = measure_pems08_epochs(root) if args.measure else None
         gambia = phase_gambia(root)
+        gtu = phase_gambia_fuse_gtu(root)
         tiles = phase_gambia_bell_tiles(root)
+        gtu_bell = phase_gambia_bell_fuse_gtu(root)
         rcm = phase_gambia_bell_rcm(root)
         if args.measure:
             measured = {"pems08": measured, "pems08_fused": measure_pems08_fused(root),
                         "gambia": measure_gambia_steps(root),
                         "gambia_bell": measure_gambia_bell(root),
+                        "gambia_fuse_gtu": measure_gambia_fuse_gtu(root),
                         "accuracy": measure_accuracy(root)}
 
-    kernels = kernel_lines(rows, bell_rows, fused_rows, pems, gambia, tiles, fused)
+    kernels = kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused,
+                           gtu, gtu_bell)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": card, "builds": builds, "cheb_sat": rows, "bell": bell_rows,
-            "fused": fused_rows, "pems08": pems, "pems08_fused": fused,
+            "fused": fused_rows, "gtu": gtu_rows, "pems08": pems, "pems08_fused": fused,
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
-            "gambia_bell_rcm": rcm, "kernels": kernels,
+            "gambia_bell_rcm": rcm, "gambia_fuse_gtu": gtu,
+            "gambia_bell_tiles_fuse_gtu": gtu_bell, "kernels": kernels,
             "seconds": time.perf_counter() - t_start,
         }, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

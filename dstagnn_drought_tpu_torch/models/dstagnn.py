@@ -22,7 +22,9 @@ three spatial paths: tile-resident masks (``mask_tiles``, built with
 ``use_pallas`` through the fused kernel; otherwise the plain block-sparse
 path. ``fuse_tat`` takes the temporal attention through the fused TAt
 kernels on every path; ``fuse_spatial`` takes the dense spatial middle
-through the fused spatial kernels (ignored on the BELL branch, as in JAX).
+through the fused spatial kernels (ignored on the BELL branch, as in JAX);
+``fuse_gtu`` takes the GTU tail through the fused GTU kernels on every path
+where their shape gate holds, whatever ``pinned_out`` is.
 bfloat16 compute casts parameters and inputs at the top of the
 forward, as the JAX ``apply`` does; no autocast.
 """
@@ -53,6 +55,10 @@ from dstagnn_drought_tpu_torch.ops.cuda.bell_fused import (
 )
 from dstagnn_drought_tpu_torch.ops.cuda.block_spatial_fused import fused_spatial_middle
 from dstagnn_drought_tpu_torch.ops.cuda.cheb_sat import cheb_conv_with_sat_pallas
+from dstagnn_drought_tpu_torch.ops.cuda.gtu_fused import (
+    gtu_fcmy,
+    supported as gtu_fused_supported,
+)
 from dstagnn_drought_tpu_torch.ops.cuda.tat_fused import fused_temporal_attention
 from dstagnn_drought_tpu_torch.ops.graph import cheb_polynomials, scaled_laplacian
 from dstagnn_drought_tpu_torch.ops.gtu import (
@@ -191,7 +197,7 @@ class STBlock(nn.Module):
 
     def forward(self, x, res_att, *, adj_pa, cheb_polys, deterministic,
                 generator, use_pallas, bell=None, bell_tiles=None,
-                fuse_tat=False, fuse_spatial=False):
+                fuse_tat=False, fuse_spatial=False, fuse_gtu=False):
         spec = self.spec
         dt = x.dtype
         c = lambda t: t.to(dt)  # parameters in the compute dtype
@@ -286,17 +292,27 @@ class STBlock(nn.Module):
 
         gtus = (self.gtu3, self.gtu5, self.gtu7)
         fcmy = self.fcmy[0]
+        # fuse_gtu: the fused GTU kernels where their static shape gate
+        # holds (stride 1, T >= 48, 16 | T, 16 | C), as in JAX; elsewhere
+        # the unfused tail below, with the same numbers
+        fuse_gtu = fuse_gtu and gtu_fused_supported(
+            spec.nb_time_filter, spatial_gcn.shape[-1], spec.time_strides)
         # a kernel's output feeds the (B, N, C, T) tail at long T, as the
         # JAX package's pinned_out/tail_bnct switch does
-        if (pinned_out and spec.time_strides == 1
-                and spatial_gcn.shape[-1] >= _IM2COL_MIN_T):
-            cat = torch.cat(
-                [gtu_bnct(spatial_gcn, c(g.con2out.weight), c(g.con2out.bias),
-                          in_channels=spec.nb_time_filter) for g in gtus],
-                dim=2,
-            )  # (B, N, 3T-12, C)
-            time_conv = (torch.einsum("bnmc,tm->bnct", cat, c(fcmy.weight))
-                         + c(fcmy.bias))  # (B, N, C, T)
+        if fuse_gtu or (pinned_out and spec.time_strides == 1
+                        and spatial_gcn.shape[-1] >= _IM2COL_MIN_T):
+            if fuse_gtu:
+                wb = [c(t) for g in gtus for t in (g.con2out.weight, g.con2out.bias)]
+                time_conv = gtu_fcmy(spatial_gcn, *wb, c(fcmy.weight).t(),
+                                     c(fcmy.bias))  # (B, N, C, T)
+            else:
+                cat = torch.cat(
+                    [gtu_bnct(spatial_gcn, c(g.con2out.weight), c(g.con2out.bias),
+                              in_channels=spec.nb_time_filter) for g in gtus],
+                    dim=2,
+                )  # (B, N, 3T-12, C)
+                time_conv = (torch.einsum("bnmc,tm->bnct", cat, c(fcmy.weight))
+                             + c(fcmy.bias))  # (B, N, C, T)
             time_conv = dropout(time_conv, spec.dropout_rate, generator, deterministic)
             if F == 1:
                 time_conv_output = torch.relu(time_conv)
@@ -360,7 +376,8 @@ class DSTAGNN(nn.Module):
                 generator: torch.Generator | None = None,
                 compute_dtype: torch.dtype = torch.float32,
                 use_pallas: bool = False, bell=None, bell_tiles=None,
-                fuse_tat: bool = False, fuse_spatial: bool = False):
+                fuse_tat: bool = False, fuse_spatial: bool = False,
+                fuse_gtu: bool = False):
         x = x.to(compute_dtype)
         adj_pa = adj_pa.to(compute_dtype)
         cheb_polys = cheb_polys.to(compute_dtype)
@@ -372,7 +389,7 @@ class DSTAGNN(nn.Module):
                 x, res_att, adj_pa=adj_pa, cheb_polys=cheb_polys,
                 deterministic=deterministic, generator=generator,
                 use_pallas=use_pallas, bell=bell, bell_tiles=bell_tiles,
-                fuse_tat=fuse_tat, fuse_spatial=fuse_spatial,
+                fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
             )
             outs.append(x)
         final_x = torch.cat(outs, dim=-1)  # (B, N, C, T·nb_block)

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("cheb_sat", "bell_fused", "bell_bwd", "tat_fused", "block_spatial_fused")
+SOURCES = ("cheb_sat", "bell_fused", "bell_bwd", "tat_fused", "block_spatial_fused",
+           "gtu_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -11,9 +11,11 @@ of ``adj_merge`` is built before the model (``mask_format=tiles`` puts the
 masks on its active-tile support) and, with ``rcm``, graphs and data splits
 are permuted by reverse Cuthill–McKee; ``evaluate`` returns predictions in
 the original node order. ``fuse_tat``/``fuse_spatial`` take the steps
-through the fused kernels. Options of paths not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that will port them
-(:func:`check_slice`).
+through the fused kernels; ``fuse_gtu`` (``"auto"`` resolves off, as in JAX)
+takes the GTU tail through the fused GTU kernels and raises ``ValueError``
+on shapes their gate rejects (:func:`resolve_fuse_gtu`). Options of paths
+not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
+will port them (:func:`check_slice`).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from dstagnn_drought_tpu_torch.ops.block_sparse import (
     block_ell_from_adjacency,
     rcm_permutation,
 )
+from dstagnn_drought_tpu_torch.ops.cuda import gtu_fused
 from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
 from dstagnn_drought_tpu_torch.training.logger import MetricLogger
 from dstagnn_drought_tpu_torch.training.metrics import horizon_report
@@ -59,7 +62,6 @@ def check_slice(cfg: Config) -> None:
          f"model_name={t.model_name!r}", "§1 item 11 (model zoo)"),
         (t.sparse and t.sparse_format == "ell", "sparse_format='ell'",
          "§1 item 9 (ELL)"),
-        (t.fuse_gtu is True, "fuse_gtu=true", "§2 kernel 5 (gtu_fused)"),
         (t.data_axis > 1 or t.graph_axis > 1,
          f"data_axis={t.data_axis}, graph_axis={t.graph_axis}",
          "§1 item 12 (multi-device)"),
@@ -75,6 +77,25 @@ def check_slice(cfg: Config) -> None:
                 f"{what} is not ported to dstagnn_drought_tpu_torch yet "
                 f"(ROADMAP.md {item})"
             )
+
+
+def resolve_fuse_gtu(cfg: Config) -> bool:
+    """The ``fuse_gtu`` knob as the JAX trainer resolves it: ``"auto"`` is
+    off; ``True`` needs the dstagnn family and a shape the fused GTU kernels
+    take (:func:`~dstagnn_drought_tpu_torch.ops.cuda.gtu_fused.supported`),
+    else ``ValueError``."""
+    t = cfg.training
+    if t.fuse_gtu == "auto" or not t.fuse_gtu:
+        return False
+    if t.model_name not in (None, "", "dstagnn"):
+        raise ValueError(f"fuse_gtu is a dstagnn-family kernel; got model_name={t.model_name!r}")
+    if not gtu_fused.supported(t.nb_time_filter, cfg.data.len_input, t.time_strides):
+        raise ValueError(
+            "fuse_gtu=true but the fused GTU kernel does not support "
+            f"nb_time_filter={t.nb_time_filter}, len_input={cfg.data.len_input}, "
+            f"time_strides={t.time_strides} (needs stride 1, T >= 48 and 16 | T, "
+            "16 | C) — unset fuse_gtu or use the default im2col path")
+    return True
 
 
 def load_graphs(cfg: Config):
@@ -100,6 +121,7 @@ class Trainer:
         experiments_root: str = "myexperiments",
         device: str | torch.device | None = None,
     ):
+        self.fuse_gtu = resolve_fuse_gtu(cfg)
         check_slice(cfg)
         self.cfg = cfg
         t = cfg.training
@@ -203,6 +225,7 @@ class Trainer:
                 self.constants, weights=weights[b], generator=self.generator,
                 compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
                 fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
+                fuse_gtu=self.fuse_gtu,
             ))
         self.last_epoch_steps = len(losses)
         mean_loss = float(torch.stack(losses).mean())
@@ -225,6 +248,7 @@ class Trainer:
                 self.model, x_full[idx[b]], y_full[idx[b]], self.constants,
                 compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
                 fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
+                fuse_gtu=self.fuse_gtu,
             )
             preds.append(pred)
             losses.append(per_sample)

@@ -125,7 +125,7 @@ def test_missing_file():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("sparse", True), ("fuse_gtu", True), ("tp", True), ("debug", True), ("data_axis", 2),
+    ("sparse", True), ("tp", True), ("debug", True), ("data_axis", 2),
     ("graph_axis", 2), ("nan_policy", "rollback"), ("model_name", "astgcn"),
     ("tensorboard", True), ("remat", True),
 ])
@@ -154,15 +154,18 @@ def test_bell_options_are_in_the_slice():
 
 
 @pytest.mark.parametrize("knobs", [("fuse_tat",), ("fuse_spatial",),
-                                   ("fuse_tat", "fuse_spatial")])
+                                   ("fuse_tat", "fuse_spatial"), ("fuse_gtu",),
+                                   ("fuse_tat", "fuse_gtu"),
+                                   ("fuse_tat", "fuse_spatial", "fuse_gtu")])
 def test_fused_options_are_in_the_slice(knobs):
-    """The fused temporal-attention and spatial-middle kernels are ported;
-    fuse_gtu = true still names its ROADMAP item."""
+    """Every fused kernel pair is ported (temporal attention, spatial
+    middle, GTU tail), alone and together; an option still outside the
+    slice (remat) is still refused with them."""
     cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
                              port_config.TrainingConfig())
     for knob in knobs:
         setattr(cfg.training, knob, True)
     check_slice(cfg)
-    cfg.training.fuse_gtu = True
-    with pytest.raises(NotImplementedError, match=r"§2 kernel 5 \(gtu_fused\)"):
+    cfg.training.remat = True
+    with pytest.raises(NotImplementedError, match=r"item 16"):
         check_slice(cfg)

@@ -36,7 +36,8 @@ def test_importing_the_port_loads_no_jax():
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     for module in ("ops.cuda.cheb_sat", "ops.cuda.bell_fused", "ops.cuda.bell_bwd",
-                   "ops.block_sparse"):
+                   "ops.cuda.tat_fused", "ops.cuda.block_spatial_fused",
+                   "ops.cuda.gtu_fused", "ops.block_sparse"):
         assert f"dstagnn_drought_tpu_torch.{module}" in loaded, module
 
 
@@ -62,4 +63,5 @@ def test_every_kernel_source_is_built():
 
     sources = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
     assert sources == sorted(build.SOURCES)
-    assert {"bell_fused", "bell_bwd", "cheb_sat"} <= set(sources)
+    assert {"bell_fused", "bell_bwd", "cheb_sat", "tat_fused", "block_spatial_fused",
+            "gtu_fused"} <= set(sources)

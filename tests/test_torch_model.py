@@ -4,9 +4,9 @@ The same numpy-seeded inputs and the JAX model's weights (carried across with
 ``params_from_jax``) go through JAX ``apply(deterministic=True)`` and the
 port's forward. Forward atol 2e-4 (precedent tests/test_parity_torch.py);
 SmoothL1 gradients of every parameter atol 5e-3 (precedent
-tests/test_pallas_cheb.py). ``use_pallas``, ``fuse_tat`` and ``fuse_spatial`` run the Pallas kernels
-in interpret mode on the JAX side and the kernel modules' plain versions on
-the port's side.
+tests/test_pallas_cheb.py). ``use_pallas``, ``fuse_tat``, ``fuse_spatial``
+and ``fuse_gtu`` run the Pallas kernels in interpret mode on the JAX side
+and the kernel modules' plain versions on the port's side.
 """
 import jax
 import jax.numpy as jnp
@@ -63,10 +63,11 @@ def _port(spec, params, consts):
     return model, constants_from_jax(consts)
 
 
-def _check_against_jax(shape, **flags):
+def _check_against_jax(shape, case=None, **flags):
     """Forward, loss and every parameter's gradient of the port against JAX
-    ``apply`` with the same flags, on weights carried across."""
-    spec, jspec, params, consts, x, y = _case(**SHAPES[shape])
+    ``apply`` with the same flags, on weights carried across (``case``: a
+    ``_case``-like tuple instead of ``shape``)."""
+    spec, jspec, params, consts, x, y = case or _case(**SHAPES[shape])
 
     def jax_loss(p):
         pred = jax_apply(p, jnp.asarray(x), spec=jspec, adj_pa=consts["adj_pa"],
@@ -114,6 +115,57 @@ def test_fused_paths_match_jax(fuse, shape):
     mapping: the fused paths use the same parameters); the JAX kernels run
     in interpret mode, the port's wrappers their plain versions."""
     _check_against_jax(shape, **FUSED[fuse])
+
+
+def _gtu_case(T, seed=7):
+    """The spec of the JAX tests/test_gtu_fused.py model tests: N=12, F=2,
+    C=16, K=2, 2 blocks (C and T=48 pass the fused GTU gate)."""
+    rng = np.random.default_rng(seed)
+    N = 12
+    kw = dict(num_of_vertices=N, len_input=T, num_for_predict=4, num_of_d=2,
+              nb_block=2, in_channels=2, K=2, nb_chev_filter=16,
+              nb_time_filter=16, d_model=16, d_k=8, n_heads=2)
+    A = (rng.random((N, N)) < 0.4).astype(np.float32)
+    A = np.maximum(A, A.T)
+    np.fill_diagonal(A, 0)
+    A[0, 1] = A[1, 0] = 1
+    pa = (rng.random((N, N)) < 0.3).astype(np.float32)
+    np.fill_diagonal(pa, 1)
+    x = rng.normal(size=(3, N, 2, T)).astype(np.float32)
+    y = rng.normal(size=(3, N, 4)).astype(np.float32)
+    jspec = JaxSpec(**kw)
+    params, consts = jax_make_model(jax.random.PRNGKey(0), jspec, A, pa)
+    return ModelSpec(**kw), jspec, params, consts, x, y
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["plain", "kernel"])
+def test_fuse_gtu_matches_jax(use_pallas):
+    """fuse_gtu on both sides at T=48 (the JAX kernel in interpret mode, the
+    port's plain version), on the im2col tail's parameters: forward, loss
+    and every gradient; with use_pallas the tail also follows pinned_out."""
+    _check_against_jax(None, case=_gtu_case(48), use_pallas=use_pallas, fuse_gtu=True)
+
+
+def test_fuse_gtu_off_its_gate_gives_the_unfused_numbers(monkeypatch):
+    """At T=24 the gate rejects the shape: fuse_gtu computes exactly the
+    unfused numbers and never enters gtu_cat; at T=48 it does enter it."""
+    from dstagnn_drought_tpu_torch.ops.cuda import gtu_fused
+
+    def boom(*a, **k):
+        raise AssertionError("gtu_cat entered")
+
+    monkeypatch.setattr(gtu_fused, "gtu_cat", boom)
+    for T in (24, 48):
+        spec, _, params, consts, x, _ = _gtu_case(T, seed=11)
+        model, c = _port(spec, params, consts)
+        kw = dict(adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"], deterministic=True)
+        with torch.no_grad():
+            ref = model(torch.from_numpy(x), **kw)
+            if T == 48:
+                with pytest.raises(AssertionError, match="gtu_cat entered"):
+                    model(torch.from_numpy(x), fuse_gtu=True, **kw)
+            else:
+                assert torch.equal(model(torch.from_numpy(x), fuse_gtu=True, **kw), ref)
 
 
 def test_state_dict_round_trip():

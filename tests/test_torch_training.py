@@ -66,11 +66,17 @@ def test_five_step_fused_trajectory_matches_jax():
     _five_step_trajectory(fuse_tat=True, fuse_spatial=True)
 
 
-def _five_step_trajectory(**flags):
+def test_five_step_fuse_gtu_trajectory_matches_jax():
+    """The same trajectory with fuse_gtu at T=48, C=16 (inside the fused
+    GTU gate) on both sides."""
+    _five_step_trajectory(T=48, C=16, fuse_gtu=True)
+
+
+def _five_step_trajectory(T=12, C=8, **flags):
     rng = np.random.default_rng(8)
-    N, T, P, lr, bs = 10, 12, 4, 1e-3, 4
+    N, P, lr, bs = 10, 4, 1e-3, 4
     kw = dict(num_of_vertices=N, len_input=T, num_for_predict=P, num_of_d=1,
-              nb_block=2, in_channels=1, K=3, nb_chev_filter=8, nb_time_filter=8,
+              nb_block=2, in_channels=1, K=3, nb_chev_filter=C, nb_time_filter=C,
               d_model=16, d_k=8, n_heads=2, dropout_rate=0.0)
     A = (rng.random((N, N)) < 0.3).astype(np.float32)
     A = np.maximum(A, A.T)
@@ -188,6 +194,71 @@ def test_cli_trains_the_fused_path(toy_windowed, tmp_path):
     train_losses = [e["train_loss"] for e in events if e["event"] == "epoch"]
     assert len(train_losses) == 2 and train_losses[1] < train_losses[0]
     assert np.isfinite(result["test_loss"])
+
+
+def _long_conf(toy_project, tmp_path, extra=""):
+    """The toy project at T=48, C=16 (num_of_hours=4 at one point an hour),
+    its signal and windowed npz in ``tmp_path``."""
+    import shutil
+
+    shutil.copy(toy_project / "TOY.npz", tmp_path / "TOY.npz")
+    text = (toy_project / "TOY.conf").read_text()
+    for a, b in ((f"{toy_project}/TOY.npz", f"{tmp_path}/TOY.npz"),
+                 ("len_input = 12", "len_input = 48"), ("num_of_hours = 1", "num_of_hours = 4"),
+                 ("nb_chev_filter = 8", "nb_chev_filter = 16"),
+                 ("nb_time_filter = 8", "nb_time_filter = 16")):
+        assert a in text, a
+        text = text.replace(a, b)
+    conf = tmp_path / "LONG.conf"
+    conf.write_text(text + extra)
+    cfg = load_config(conf)
+    read_and_generate_dataset(cfg.data.graph_signal_matrix_filename, 0, 0, 4,
+                              cfg.data.num_for_predict, 1, save=True)
+    return conf
+
+
+def test_cli_trains_the_fuse_gtu_path(toy_project, tmp_path):
+    """The CLI with the INI key fuse_gtu = true at T=48: every block's GTU
+    tail goes through gtu_cat (its plain version on the CPU, counted by
+    wrapping it), no launch is counted."""
+    from dstagnn_drought_tpu_torch.ops.cuda import gtu_fused
+
+    conf = _long_conf(toy_project, tmp_path, "fuse_gtu = true\n")
+    calls = []
+    real = gtu_fused.gtu_cat_plain
+    before = (gtu_fused.fwd_launches, gtu_fused.bwd_launches)
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+
+    exp = tmp_path / "exp"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gtu_fused, "gtu_cat_plain", counted)
+        result = train_cli.main(["--config", str(conf), "--experiments-root", str(exp),
+                                 "--device", "cpu", "--epochs", "2"])
+    cfg = load_config(conf)
+    assert cfg.training.fuse_gtu is True
+    assert calls and len(calls) % cfg.training.nb_block == 0
+    assert all(s[2:] == (16, 48) for s in calls)
+    assert (gtu_fused.fwd_launches, gtu_fused.bwd_launches) == before
+    run_dir = next((exp / "TOY").iterdir())
+    events = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_losses = [e["train_loss"] for e in events if e["event"] == "epoch"]
+    assert len(train_losses) == 2 and all(np.isfinite(train_losses))
+    assert np.isfinite(result["test_loss"])
+
+
+def test_trainer_resolves_and_validates_fuse_gtu(toy_windowed, tmp_path):
+    """"auto" resolves off; true at T=12 (outside the gate) raises a
+    ValueError naming fuse_gtu, as the JAX trainer does."""
+    cfg = load_config(toy_windowed / "TOY.conf")
+    assert cfg.training.fuse_gtu == "auto"
+    trainer = loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
+    assert trainer.fuse_gtu is False
+    cfg.training.fuse_gtu = True
+    with pytest.raises(ValueError, match="fuse_gtu"):
+        loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
 
 
 def test_cli_refuses_flags_outside_the_slice(toy_windowed, tmp_path):
