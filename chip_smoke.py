@@ -22,9 +22,12 @@ Phases; any failure exits non-zero:
      and backward (csrc/block_spatial_fused.cu), every weight gradient equal
      bit for bit over two backward launches;
   2d. the fused GTU forward and backward (csrc/gtu_fused.cu) against their
-     plain version at the GAMBIA block, the JAX test's two shapes and a
-     ragged one, float32 and bfloat16, dW and db equal bit for bit over two
-     launches, with the conv-only cuDNN call timed beside them;
+     plain version at the GAMBIA block, the JAX test's two shapes, a ragged
+     one and C = 48 (bf16 only), float32 (CUDA cores) and bfloat16 (the
+     backward on the tensor cores), dW and db equal bit for bit over two
+     launches, with the conv-only cuDNN call timed beside them; each row
+     names its design, and the gate's shared-memory bytes must equal the
+     kernels' own;
   3. the dense main path at full PEMS08 width: the training CLI, two epochs
      on benchmarks/parity_runs/parity_dataset.npz through the kernel, with
      the kernel's launch count read around the run;
@@ -37,7 +40,9 @@ Phases; any failure exits non-zero:
   4b. the GTU slice's main path: GAMBIA dense with fuse_gtu = true,
      Trainer.run for 2 epochs, the GTU forward and cheb_sat once per block
      of every forward pass, the GTU backward once per block of every train
-     step; then the fused and im2col tails on one test batch in float32;
+     step; then the fused and im2col tails on one test batch in float32
+     and in bfloat16 (predictions checked, the GTU weight gradients
+     reported);
   5. the block-sparse main path: bench.py's GAMBIA bell_tiles
      configuration (sparse, bell, use_pallas, mask_format=tiles, BS=128,
      bfloat16), Trainer.run for 2 epochs of 3 steps, F once per block of
@@ -609,15 +614,40 @@ def phase_fused_kernels():
 # phase 2d: the fused GTU kernels vs their plain version
 # ---------------------------------------------------------------------------
 
+F32_BF16 = (torch.float32, torch.bfloat16)
 GTU_SHAPES = [
-    # (label, B, N, C, T): the GAMBIA block (both blocks alike), the JAX
-    # test's two shapes, and a ragged one (B·N odd, no T_out a multiple of
-    # the kernel's 8 time steps a thread)
-    ("gambia_block", 4, 2139, 32, 144),
-    ("jax_test_n10", 2, 10, 16, 48),
-    ("jax_test_n3", 1, 3, 32, 64),
-    ("ragged_bn21", 3, 7, 16, 80),
+    # (label, B, N, C, T, dtypes): the GAMBIA block (both blocks alike), the
+    # JAX test's two shapes, a ragged one (B·N odd, no T_out a multiple of
+    # 16 or of the CUDA-core kernels' 8 time steps a thread), and the largest
+    # C the bf16 tensor-core backward admits at T = 144 (its float32
+    # backward would need 372,288 bytes of shared memory)
+    ("gambia_block", 4, 2139, 32, 144, F32_BF16),
+    ("jax_test_n10", 2, 10, 16, 48, F32_BF16),
+    ("jax_test_n3", 1, 3, 32, 64, F32_BF16),
+    ("ragged_bn21", 3, 7, 16, 80, F32_BF16),
+    ("c48_t144", 4, 512, 48, 144, (torch.bfloat16,)),
 ]
+
+
+def gtu_design(name, dtype) -> str:
+    """The arithmetic of a GTU kernel: the bf16 backward on the tensor
+    cores (WMMA), everything else float32 FMAs on the CUDA cores."""
+    return "wmma_bf16" if name == "gtu_bwd" and dtype == torch.bfloat16 else "cuda_core_f32"
+
+
+def check_gtu_smem():
+    """gtu_fused.smem_bytes (the Python gate) against the bytes each kernel
+    instantiation of csrc/gtu_fused.cu requests, at every GTU shape and at
+    the gate's edges."""
+    lib = gtu_fused._load()
+    shapes = {(s[3], s[4]) for s in GTU_SHAPES} | {(32, 224), (32, 240), (48, 208), (64, 48)}
+    kinds = ((0, False, torch.float32), (1, True, torch.float32), (2, True, torch.bfloat16))
+    for C, T in sorted(shapes):
+        for kind, backward, dtype in kinds:
+            want = lib.gtu_fused_smem_bytes(C, T, kind)
+            got = gtu_fused.smem_bytes(C, T, backward, dtype)
+            check(got == want, f"gtu smem_bytes({C}, {T}, {backward}, {dtype}) = {got}, "
+                               f"the kernel requests {want}")
 
 
 def gtu_bounds(B, N, C, T, dtype):
@@ -669,10 +699,11 @@ def phase_gtu_kernels():
     GtuCat, dW and db equal bit for bit over two backward launches, and
     CUDA-event times of the kernels, the plain version and the conv-only
     library call."""
+    check_gtu_smem()
     rows = []
     diff = tuple(range(7))
-    for seed, (label, B, N, C, T) in enumerate(GTU_SHAPES):
-        for dtype in (torch.float32, torch.bfloat16):
+    for seed, (label, B, N, C, T, dtypes) in enumerate(GTU_SHAPES):
+        for dtype in dtypes:
             tol, gtol = FUSED_TOL[dtype]
             ins, cots = gtu_inputs(B, N, C, T, dtype, seed)
             kern = lambda a: gtu_fused.GtuCat.apply(*a)
@@ -700,6 +731,7 @@ def phase_gtu_kernels():
             bounds = gtu_bounds(B, N, C, T, dtype)
             for name, err, limit in (("gtu_fwd", fwd_err, tol), ("gtu_bwd", bwd_err, gtol)):
                 row = {"kernel": name, "shape": label, "dtype": str(dtype).split(".")[-1],
+                       "design": gtu_design(name, dtype),
                        "B": B, "N": N, "C": C, "T": T, "max_abs_err": err[0],
                        "rel_err": err[1], "tol": limit, "ok": err[1] <= limit}
                 if name == "gtu_bwd":
@@ -1243,25 +1275,46 @@ def phase_gambia_fuse_gtu(root: Path):
     per block of every train step. Then the whole-model check: one test
     batch in float32, the fused tail against the im2col tail on the run's
     best weights."""
-    from dstagnn_drought_tpu_torch.training.step import eval_step
-
     trainer, _, out = run_gambia(root, "gambia_dense_fuse_gtu", 2, fuse_gtu=True)
     check(trainer.fuse_gtu, "the Trainer resolved fuse_gtu off")
     check_launches(out, per_forward=("cheb_sat", "gtu_fwd"), per_step=("gtu_bwd",))
-    x_full, y_full = trainer._splits["test"]
-    bs = trainer.cfg.training.batch_size
-    preds = {}
-    for fused in (True, False):
-        preds[fused], _ = eval_step(trainer.model, x_full[:bs], y_full[:bs],
-                                    trainer.constants, compute_dtype=torch.float32,
-                                    use_pallas=True, fuse_gtu=fused)
-    torch.cuda.synchronize()
-    err, rel = rel_err(preds[True], preds[False])
-    check(rel <= TOL and bool(torch.isfinite(preds[True]).all()),
-          f"fuse_gtu vs im2col tail at GAMBIA width: {rel:.3g} of scale > {TOL}")
-    out["model_check"] = {"batch": bs, "max_abs_err": err, "rel_err": rel, "tol": TOL}
+    out["model_check"] = tail_check(trainer, torch.float32, TOL)
+    # the bf16 backward runs only in bf16: the same batch in the compute dtype
+    out["model_check_bf16"] = tail_check(trainer, torch.bfloat16, FUSED_TOL[torch.bfloat16][0])
     print("main_path", json.dumps(out), flush=True)
     return out
+
+
+def tail_check(trainer, dtype, tol):
+    """One test batch through the fused and the im2col GTU tail in
+    ``dtype`` on the run's weights, deterministic: the predictions must
+    agree within ``tol`` of scale. Also the gradients of the GTU convs'
+    weights and biases under the SmoothL1 loss (through the fused backward
+    kernel on one side), reported as the worst relative |Δ|, checked
+    finite."""
+    from dstagnn_drought_tpu_torch.ops.nn import smooth_l1_loss
+
+    x_full, y_full = trainer._splits["test"]
+    bs = trainer.cfg.training.batch_size
+    x, y, c = x_full[:bs], y_full[:bs], trainer.constants
+    params = [p for n, p in trainer.model.named_parameters() if ".gtu" in f".{n}"]
+    check(len(params) == 6 * trainer.cfg.training.nb_block, "GTU parameters not found")
+    preds, grads = {}, {}
+    for fused in (True, False):
+        pred = trainer.model(x, adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"],
+                             deterministic=True, compute_dtype=dtype, use_pallas=True,
+                             fuse_gtu=fused)
+        grads[fused] = torch.autograd.grad(smooth_l1_loss(pred, y), params)
+        preds[fused] = pred.detach().float()
+    torch.cuda.synchronize()
+    err, rel = rel_err(preds[True], preds[False])
+    grad_rel = max(rel_err(a, b)[1] for a, b in zip(grads[True], grads[False]))
+    finite = all(bool(torch.isfinite(t).all()) for t in (preds[True], *grads[True]))
+    name = str(dtype).split(".")[-1]
+    check(rel <= tol and finite,
+          f"fuse_gtu vs im2col tail at GAMBIA width, {name}: {rel:.3g} of scale > {tol}")
+    return {"dtype": name, "batch": bs, "max_abs_err": err, "rel_err": rel, "tol": tol,
+            "gtu_grad_rel_err": grad_rel}
 
 
 def phase_gambia_bell_fuse_gtu(root: Path):
@@ -1383,7 +1436,8 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
         })
     for name in ("gtu_fwd", "gtu_bwd"):
         mine = [r for r in gtu_rows if r["kernel"] == name]
-        main = next(r for r in mine if r["shape"] == "gambia_block" and r["dtype"] == "bfloat16")
+        main, f32 = (next(r for r in mine if r["shape"] == "gambia_block" and r["dtype"] == dt)
+                     for dt in ("bfloat16", "float32"))
         src, site = KERNEL_SITES[name]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": site,
@@ -1391,9 +1445,10 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "library": main["library"],
+            "library": main["library"], "design": main["design"],
             "shape": "GAMBIA block, bf16: B=4 N=2139 C=32 T=144",
             "launches_bell_tiles": gtu_bell["launches"][name],
+            "f32_ms": f32["ms"], "f32_design": f32["design"],
         })
     return out
 

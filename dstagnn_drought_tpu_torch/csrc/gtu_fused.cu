@@ -35,16 +35,61 @@
 //     block loops over its groups: recompute y and form dY in shared memory,
 //     add its dx share into a float32 accumulator (the three passes own each
 //     (b, n) slice in turn; the last rounds), and add dY x^T into the
-//     block's dW/db accumulator in shared memory. The TPU kernel sums dW and
-//     db in a resident output block across its sequential grid; here each
-//     block writes its partial and sum_rows (dense_common.cuh) adds the
-//     partials in a fixed order: no atomics, two launches give the same bits.
-// All products are float32 FMAs on the CUDA cores; tensor cores (mma.sync
-// or wgmma on the bf16 operands) and TMA are left for a later change.
+//     block's dW/db accumulator. The TPU kernel sums dW and db in a resident
+//     output block across its sequential grid; here each block writes its
+//     partial and sum_rows (dense_common.cuh) adds the partials in a fixed
+//     order: no atomics, two launches give the same bits.
+// The forward and the float32 backward (gtu_bwd_kernel) run float32 FMAs on
+// the CUDA cores (float32 stays exact: no TF32). The bfloat16 backward
+// (gtu_bwd_wmma_kernel) runs its three products -- recompute y, dx, dW -- on
+// the tensor cores: nvcuda::wmma bf16 16x16x16 fragments with float32
+// accumulators, every operand staged in shared memory. Its operands are
+// already bf16-exact (x, the taps rounded by the wrapper, dY rounded where
+// the TPU kernel rounds it), so it forms the same products as the CUDA-core
+// kernel; only the order of the sums differs. Per group, with T_out = T-K+1:
+//   Ws  [kk][o][c] bf16, the conv's taps, rows of C+8
+//   Xs  (T+8, C+16) bf16, x time-major, rows >= T zero
+//   Yb  (8 + T, 2C+16) bf16, dY at row 8 + t, every other row zero
+//   y  = sum_kk Xs[kk : kk+T] . W_kk^T       (W_kk read as a col-major B)
+//   dx = sum_kk Yb[8-kk : 8-kk+T] . W_kk
+//   dW_kk += Yb[8 : 8+T]^T . Xs[kk : kk+T]   (dY^T read as a col-major A)
+// A warp owns (t, c) 16x16 tiles, two at a time where they share a c tile
+// (C = 16, 32), so one tap fragment serves both. It forms y's p and q
+// tiles from one x fragment and gates them through its own 2 KB of float32
+// staging into dY; later it forms the dx tile and adds it to dx_acc through
+// the same staging. No block-wide y or dx tile exists. cp.async copies the
+// next group's x and g rows into shared memory behind the current group's
+// products (x is transposed from that copy). dW stays in registers across
+// the block's whole group loop (a warp owns a fixed set of (kk, o, c)
+// tiles; at C = 16 and 32 they share one dY^T fragment a time step) and is
+// stored once into the block's partial row. db sums dY over t on the CUDA
+// cores, each thread a chunk of t of one column, the chunks added in order
+// at the end. Fragment traffic through shared memory (2-way bank conflicts
+// on the 32-byte-aligned Xs and Yb rows) and latency at two blocks an SM
+// (the dW fragments take half the registers) bound it, not the tensor cores.
+// Traps:
+//   - load/store_matrix_sync need a 256-bit aligned pointer and an ld that
+//     is a multiple of 8 (16-bit types) or 4 (float). The shifted loads at
+//     row offset kk are aligned only because every row of Xs and Yb is a
+//     multiple of 32 bytes: 16 | C, and their padding is 16 elements. A pad
+//     of 8 (80-byte rows) would break every odd kk. Ws is read only at
+//     16-row offsets, so its pad of 8 keeps alignment and makes its loads
+//     conflict-free; Xs and Yb keep 2-way conflicts.
+//   - T_out is never a multiple of 16. The zero rows around dY and below x
+//     mask the ragged edge (as the zero tail does in the JAX kernel); no
+//     load reads past a tile.
+//   - C is a template parameter (16, 32, 48): the dW fragments are indexed
+//     at compile time so they stay in registers. C = 48 needs 16 fragments
+//     a thread at K = 7 and runs one block an SM.
+
+#include <mma.h>
 
 #include "dense_common.cuh"
 
 namespace {
+
+namespace wmma = nvcuda::wmma;
+using bf16 = __nv_bfloat16;
 
 using dense::kThreads;
 using dense::rnd;
@@ -281,6 +326,286 @@ gtu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout, const float*
 }
 
 // ---------------------------------------------------------------------------
+// backward, bfloat16, tensor cores (WMMA), one conv a launch
+// ---------------------------------------------------------------------------
+
+constexpr int kZ = 8;     // zero rows above dY in Yb (>= K - 1); also rows past T
+constexpr int kPad = 16;  // row padding of Xs and Yb (elements)
+constexpr int kPadW = 8;  // row padding of Ws: read only at 16-row offsets
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+template <int K, int C>
+struct Wm {
+  static constexpr int C2 = 2 * C;
+  static constexpr int LW = C + kPadW, LX = C + kPad, LY = C2 + kPad;  // row lengths
+  static constexpr int CT = C / 16, OT = C2 / 16;  // 16-wide tiles of c and of o
+  static constexpr int P = OT * CT;                // (o, c) tile pairs of one tap
+  static constexpr int kTiles = K * P;             // dW tiles of the conv
+  static constexpr int NF = (kTiles + dense::kWarps - 1) / dense::kWarps;  // dW tiles a warp
+  static constexpr bool kFixedPair = dense::kWarps % P == 0;  // a warp's share one pair
+  static constexpr int NT = dense::kWarps % CT == 0 ? 2 : 1;  // (t, c) tiles a pass
+  static constexpr int kMinBlocks = NF <= 8 ? 2 : 1;  // 8 fragments: 64 registers
+  // db runs on the threads from kDbFirst on: warps 0 and 1 hold the extra (t, c) tiles
+  static constexpr int kDbFirst = 64;
+  static constexpr int kDbParts = (kThreads - kDbFirst) / C2;  // threads summing a column
+};
+
+// 8 floats rounded to bf16, packed into 16 bytes
+__device__ __forceinline__ uint4 pack8(const float* v) {
+  uint4 u;
+  unsigned* w = reinterpret_cast<unsigned*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    w[j] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return u;
+}
+
+// n bf16 (a multiple of 8) from device to shared memory in 16-byte cp.async
+// copies by the block's threads, committed as one group; wait_async waits
+// for every group the thread committed
+__device__ __forceinline__ void copy_async(bf16* sdst, const bf16* gsrc, int n) {
+  for (int e = threadIdx.x * 8; e < n; e += blockDim.x * 8) {
+    const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(sdst + e));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gsrc + e));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void wait_async() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+__device__ __forceinline__ void unpack8(const float* s, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(s)[0], b = reinterpret_cast<const float4*>(s)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// mode: 0 = first conv (dx starts at 0), 1 = middle, 2 = last (round dx)
+template <int K, int C>
+__global__ void __launch_bounds__(kThreads, Wm<K, C>::kMinBlocks)
+gtu_bwd_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
+                    const float* __restrict__ wp, const float* __restrict__ bias,
+                    float* __restrict__ dx_acc, bf16* __restrict__ dx,
+                    float* __restrict__ part, int ki, int mode, Dims d) {
+  using S = Wm<K, C>;
+  constexpr int C2 = S::C2, LW = S::LW, LX = S::LX, LY = S::LY, CT = S::CT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int Tt = d.T, R = Tt + kZ, TT = Tt / 16;
+  bf16* Ws = reinterpret_cast<bf16*>(smem);  // taps [kk][o][c]
+  bf16* Xs = Ws + K * C2 * LW;               // x (T + 8, C), time-major
+  bf16* Yb = Xs + (size_t)R * LX;            // dY[t] at row kZ + t
+  bf16* Xr = Yb + (size_t)R * LY;            // a group's x (C, T), as copied
+  bf16* Gs = Xr + (size_t)C * Tt;            // a group's g rows of this conv (T_out, C)
+  float* St = reinterpret_cast<float*>(Gs + (size_t)C * Tt);  // two 16x16 tiles a warp
+  float* Bs = St + dense::kWarps * 512;      // the conv's bias
+  float* Dp = Bs + C2;                       // db partial sums, one a thread
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* st = St + warp * 512;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  const float* src = wp + (size_t)tap_base(ki) * C2 * C;
+  for (int e = threadIdx.x; e < K * C2 * C; e += blockDim.x)
+    Ws[(e / C) * LW + e % C] = __float2bfloat16_rn(src[e]);
+  for (int e = threadIdx.x; e < R * LX; e += blockDim.x) Xs[e] = zero;
+  for (int e = threadIdx.x; e < R * LY; e += blockDim.x) Yb[e] = zero;
+  for (int o = threadIdx.x; o < C2; o += blockDim.x) Bs[o] = bias[ki * C2 + o];
+  FragC dw[S::NF];
+#pragma unroll
+  for (int f = 0; f < S::NF; ++f) wmma::fill_fragment(dw[f], 0.f);
+
+  const int Tout = Tt - K + 1, off = out_offset(ki, Tt);
+  // db: thread (part, o) sums its chunk of t of column o over every group
+  const int db_o = (threadIdx.x - S::kDbFirst) % C2;
+  const int db_part = threadIdx.x < S::kDbFirst ? S::kDbParts : (threadIdx.x - S::kDbFirst) / C2;
+  const int db_chunk = (Tout + S::kDbParts - 1) / S::kDbParts;
+  const int db_t0 = db_part * db_chunk, db_t1 = min(Tout, db_t0 + db_chunk);
+  float db = 0.f;
+  // a lane's 8 elements of a 16x16 tile: row lane / 2, columns 8 * (lane % 2) ..
+  const int lr = lane / 2, lc = 8 * (lane % 2);
+
+  // the first group's x and g; each later group's are copied while the
+  // group before it computes
+  copy_async(Xr, x + (size_t)blockIdx.x * C * Tt, C * Tt);
+  copy_async(Gs, gout + ((size_t)blockIdx.x * d.M3 + off) * C, Tout * C);
+  for (int g = blockIdx.x; g < d.BN; g += gridDim.x) {
+    wait_async();
+    __syncthreads();  // x and g copied / the previous group's tiles consumed
+    const size_t xo = (size_t)g * C * Tt;
+    const int gn = g + gridDim.x;
+    // x time-major: a thread takes 8 time steps of one channel (16 bytes);
+    // neighbouring threads take neighbouring channels (conflict-free stores)
+    for (int e = threadIdx.x; e < C * Tt / 8; e += blockDim.x) {
+      const int c = e % C, t0 = (e / C) * 8;
+      const uint4 v = *reinterpret_cast<const uint4*>(Xr + c * Tt + t0);
+      const bf16* h = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Xs[(t0 + j) * LX + c] = h[j];
+    }
+    __syncthreads();
+    if (gn < d.BN) copy_async(Xr, x + (size_t)gn * C * Tt, C * Tt);
+    // 1-2. per (t, c) tile: y's p and q halves (x . W_kk^T over kk), then
+    // dY through the warp's staging, rounded where the TPU kernel rounds.
+    // NT tiles a time (tile0 + i * 8): one c tile, so they share the taps'
+    // fragments
+    for (int tile0 = warp; tile0 < TT * CT; tile0 += S::NT * dense::kWarps) {
+      const int ct = tile0 % CT, c0 = 16 * ct + lc;
+      int tt[S::NT];
+      bool on[S::NT];
+      FragC p[S::NT], q[S::NT];
+#pragma unroll
+      for (int i = 0; i < S::NT; ++i) {
+        const int tile = tile0 + i * dense::kWarps;
+        on[i] = tile < TT * CT;
+        tt[i] = tile / CT;
+        wmma::fill_fragment(p[i], 0.f);
+        wmma::fill_fragment(q[i], 0.f);
+      }
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk) {
+#pragma unroll
+        for (int cs = 0; cs < CT; ++cs) {
+          FragA a[S::NT];
+          FragBt w;
+#pragma unroll
+          for (int i = 0; i < S::NT; ++i)
+            if (on[i]) wmma::load_matrix_sync(a[i], Xs + (16 * tt[i] + kk) * LX + 16 * cs, LX);
+          wmma::load_matrix_sync(w, Ws + (kk * C2 + 16 * ct) * LW + 16 * cs, LW);
+#pragma unroll
+          for (int i = 0; i < S::NT; ++i)
+            if (on[i]) wmma::mma_sync(p[i], a[i], w, p[i]);
+          wmma::load_matrix_sync(w, Ws + (kk * C2 + C + 16 * ct) * LW + 16 * cs, LW);
+#pragma unroll
+          for (int i = 0; i < S::NT; ++i)
+            if (on[i]) wmma::mma_sync(q[i], a[i], w, q[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < S::NT; ++i) {
+        if (!on[i]) continue;
+        wmma::store_matrix_sync(st, p[i], 16, wmma::mem_row_major);
+        wmma::store_matrix_sync(st + 256, q[i], 16, wmma::mem_row_major);
+        __syncwarp();
+        const int t = 16 * tt[i] + lr;
+        if (t < Tout) {
+          const uint4 gv = *reinterpret_cast<const uint4*>(Gs + t * C + c0);
+          float pv[8], qv[8], dp[8], dq[8];
+          unpack8(st + lr * 16 + lc, pv);
+          unpack8(st + 256 + lr * 16 + lc, qv);
+          const bf16* gh = reinterpret_cast<const bf16*>(&gv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float gf = __bfloat162float(gh[j]);
+            const float th = rnd(tanhf(pv[j] + Bs[c0 + j]), 1);
+            const float sg = rnd(sigmoid(qv[j] + Bs[C + c0 + j]), 1);
+            dp[j] = rnd(rnd(gf * sg, 1) * rnd(1.f - rnd(th * th, 1), 1), 1);
+            dq[j] = rnd(rnd(rnd(gf * th, 1) * sg, 1) * rnd(1.f - sg, 1), 1);
+          }
+          *reinterpret_cast<uint4*>(Yb + (kZ + t) * LY + c0) = pack8(dp);
+          *reinterpret_cast<uint4*>(Yb + (kZ + t) * LY + C + c0) = pack8(dq);
+        }
+        __syncwarp();  // the staging is read before it is overwritten
+      }
+    }
+    __syncthreads();  // dY complete, g consumed
+    if (gn < d.BN) copy_async(Gs, gout + ((size_t)gn * d.M3 + off) * C, Tout * C);
+    if (db_part < S::kDbParts)
+      for (int t = db_t0; t < db_t1; ++t) db += __bfloat162float(Yb[(kZ + t) * LY + db_o]);
+    // 3. dx (T, C) = sum_kk dY[t - kk] . W_kk per (t, c) tile, NT tiles a
+    // time as above, added to the earlier convs' share through the warp's
+    // staging (the last conv rounds)
+    for (int tile0 = warp; tile0 < TT * CT; tile0 += S::NT * dense::kWarps) {
+      const int ct = tile0 % CT, c = 16 * ct + lr;
+      int tt[S::NT];
+      bool on[S::NT];
+      FragC acc[S::NT];
+#pragma unroll
+      for (int i = 0; i < S::NT; ++i) {
+        const int tile = tile0 + i * dense::kWarps;
+        on[i] = tile < TT * CT;
+        tt[i] = tile / CT;
+        wmma::fill_fragment(acc[i], 0.f);
+      }
+#pragma unroll
+      for (int kk = 0; kk < K; ++kk) {
+#pragma unroll
+        for (int os = 0; os < S::OT; ++os) {
+          FragB w;
+          wmma::load_matrix_sync(w, Ws + (kk * C2 + 16 * os) * LW + 16 * ct, LW);
+#pragma unroll
+          for (int i = 0; i < S::NT; ++i) {
+            if (!on[i]) continue;
+            FragA a;
+            wmma::load_matrix_sync(a, Yb + (16 * tt[i] + kZ - kk) * LY + 16 * os, LY);
+            wmma::mma_sync(acc[i], a, w, acc[i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < S::NT; ++i) {
+        if (!on[i]) continue;
+        wmma::store_matrix_sync(st, acc[i], 16, wmma::mem_col_major);  // st[c][t]
+        __syncwarp();
+        float v[8];
+        unpack8(st + lr * 16 + lc, v);
+        const size_t at = xo + (size_t)c * Tt + 16 * tt[i] + lc;
+        if (mode) {
+          float prev[8];
+          unpack8(dx_acc + at, prev);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] += prev[j];
+        }
+        if (mode == 2) {
+          *reinterpret_cast<uint4*>(dx + at) = pack8(v);
+        } else {
+          reinterpret_cast<float4*>(dx_acc + at)[0] = make_float4(v[0], v[1], v[2], v[3]);
+          reinterpret_cast<float4*>(dx_acc + at)[1] = make_float4(v[4], v[5], v[6], v[7]);
+        }
+        __syncwarp();
+      }
+    }
+    // 4. dW_kk += dY^T . Xs[kk : kk+T], a warp's tiles in its registers
+    for (int s = 0; s < TT; ++s) {
+      FragAt a;
+      if constexpr (S::kFixedPair)  // every tile of this warp has o-tile (warp % P) / CT
+        wmma::load_matrix_sync(a, Yb + (kZ + 16 * s) * LY + 16 * ((warp % S::P) / CT), LY);
+#pragma unroll
+      for (int f = 0; f < S::NF; ++f) {
+        const int tile = warp + dense::kWarps * f;
+        if (tile >= S::kTiles) continue;
+        const int kk = tile / S::P, ot = (tile % S::P) / CT, ct = tile % CT;
+        if constexpr (!S::kFixedPair)
+          wmma::load_matrix_sync(a, Yb + (kZ + 16 * s) * LY + 16 * ot, LY);
+        FragB xb;
+        wmma::load_matrix_sync(xb, Xs + (16 * s + kk) * LX + 16 * ct, LX);
+        wmma::mma_sync(dw[f], a, xb, dw[f]);
+      }
+    }
+  }
+  if (db_part < S::kDbParts) Dp[db_part * C2 + db_o] = db;
+  __syncthreads();
+  // this block's partial: row blockIdx.x of part, [dW (15, 2C, C) | db (3, 2C)]
+  float* row = part + (size_t)blockIdx.x * d.L;
+#pragma unroll
+  for (int f = 0; f < S::NF; ++f) {
+    const int tile = warp + dense::kWarps * f;
+    if (tile >= S::kTiles) continue;
+    const int kk = tile / S::P, ot = (tile % S::P) / CT, ct = tile % CT;
+    wmma::store_matrix_sync(row + ((size_t)(tap_base(ki) + kk) * C2 + 16 * ot) * C + 16 * ct,
+                            dw[f], C, wmma::mem_row_major);
+  }
+  for (int o = threadIdx.x; o < C2; o += blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < S::kDbParts; ++p) s += Dp[p * C2 + o];
+    row[kTaps * C2 * C + ki * C2 + o] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 Dims make_dims(int BN, int C, int T, int bf16) {
   Dims d;
@@ -305,6 +630,16 @@ size_t fwd_smem(int K, const Dims& d) {
 size_t bwd_smem(int K, const Dims& d) {
   return sizeof(float) * ((size_t)K * d.C2 * d.ldw + (size_t)K * d.C * d.C2 + d.C2 +
                           2 * (size_t)d.C * d.T + (size_t)d.T * d.ldy);
+}
+
+// the bf16 backward: in bf16 the taps, Xs and Yb (T + 8 rows), rows padded,
+// and the copied x and g; in f32 the warps' staging, the bias and the db
+// partials
+size_t bwd_wmma_smem(int K, const Dims& d) {
+  const size_t R = d.T + kZ;
+  return sizeof(bf16) * ((size_t)K * d.C2 * (d.C + kPadW) + R * (d.C + kPad) +
+                         R * (d.C2 + kPad) + 2 * (size_t)d.C * d.T) +
+         sizeof(float) * ((size_t)dense::kWarps * 512 + d.C2 + kThreads);
 }
 
 // workspace of the backward (floats): the partials, sum_rows' scratch, dx_acc
@@ -347,13 +682,38 @@ cudaError_t launch_bwd(const void* x, const void* g, const float* wp, const floa
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int K, int C>
+cudaError_t launch_bwd_wmma(const void* x, const void* g, const float* wp, const float* bp,
+                            void* dx, float* ws, const BwdSpace& s, int ki, const Dims& d,
+                            cudaStream_t st) {
+  const size_t smem = bwd_wmma_smem(K, d);
+  cudaError_t err = dense::allow_smem(gtu_bwd_wmma_kernel<K, C>, smem);
+  if (err != cudaSuccess) return err;
+  gtu_bwd_wmma_kernel<K, C><<<grid_blocks(d.BN), kThreads, smem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), wp, bp, ws + s.dx_acc,
+      static_cast<bf16*>(dx), ws + s.part, ki, ki, d);
+  return cudaGetLastError();
+}
+
+// conv ki of the backward: float32 on the CUDA cores, bfloat16 (C > 0, the
+// instantiated channel count) on the tensor cores
+template <int K, int C>
+cudaError_t launch_conv(const void* x, const void* g, const float* wp, const float* bp,
+                        void* dx, float* ws, const BwdSpace& s, int ki, const Dims& d,
+                        cudaStream_t st) {
+  if constexpr (C > 0) return launch_bwd_wmma<K, C>(x, g, wp, bp, dx, ws, s, ki, d, st);
+  else return launch_bwd<K, float>(x, g, wp, bp, dx, ws, s, ki, d, st);
+}
+
+// the three convs in order (conv ki's dx mode is ki), then the partials'
+// fixed-order sum
+template <int C>
 int backward_impl(const void* x, const void* g, const float* wp, const float* bp, void* dx,
                   float* dwb, float* ws, const Dims& d, cudaStream_t st) {
   const BwdSpace s = bwd_space(d);
-  cudaError_t err = launch_bwd<3, T>(x, g, wp, bp, dx, ws, s, 0, d, st);
-  if (err == cudaSuccess) err = launch_bwd<5, T>(x, g, wp, bp, dx, ws, s, 1, d, st);
-  if (err == cudaSuccess) err = launch_bwd<7, T>(x, g, wp, bp, dx, ws, s, 2, d, st);
+  cudaError_t err = launch_conv<3, C>(x, g, wp, bp, dx, ws, s, 0, d, st);
+  if (err == cudaSuccess) err = launch_conv<5, C>(x, g, wp, bp, dx, ws, s, 1, d, st);
+  if (err == cudaSuccess) err = launch_conv<7, C>(x, g, wp, bp, dx, ws, s, 2, d, st);
   if (err == cudaSuccess)
     err = dense::sum_rows(ws + s.part, dwb, ws + s.scratch, grid_blocks(d.BN), d.L, st);
   return static_cast<int>(err);
@@ -381,14 +741,28 @@ int gtu_fused_forward(const void* x, const float* wp, const float* bp, void* out
 
 // Backward: g (BN, 3T-12, C) → dx (BN, C, T) in the dtype of x, and dwb =
 // [dW (15, 2C, C) | db (3, 2C)] float32, summed over every group in a fixed
-// order. `ws` holds gtu_fused_workspace_floats floats.
+// order. `ws` holds gtu_fused_workspace_floats floats. bfloat16 takes C in
+// {16, 32, 48} and 16-byte aligned x; another C returns
+// cudaErrorInvalidValue.
 int gtu_fused_backward(const void* x, const void* g, const float* wp, const float* bp,
                        void* dx, float* dwb, float* ws, int BN, int C, int T, int bf16,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d = make_dims(BN, C, T, bf16);
-  return bf16 ? backward_impl<__nv_bfloat16>(x, g, wp, bp, dx, dwb, ws, d, st)
-              : backward_impl<float>(x, g, wp, bp, dx, dwb, ws, d, st);
+  if (!bf16) return backward_impl<0>(x, g, wp, bp, dx, dwb, ws, d, st);
+  switch (C) {
+    case 16: return backward_impl<16>(x, g, wp, bp, dx, dwb, ws, d, st);
+    case 32: return backward_impl<32>(x, g, wp, bp, dx, dwb, ws, d, st);
+    case 48: return backward_impl<48>(x, g, wp, bp, dx, dwb, ws, d, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory (bytes) of the conv-k block of each kernel: the
+// forward (either dtype), the float32 backward, the bfloat16 backward.
+size_t gtu_fused_smem_bytes(int C, int T, int kernel) {
+  const Dims d = make_dims(1, C, T, kernel == 2);
+  return kernel == 0 ? fwd_smem(7, d) : (kernel == 1 ? bwd_smem(7, d) : bwd_wmma_smem(7, d));
 }
 
 const char* gtu_fused_error_string(int err) {

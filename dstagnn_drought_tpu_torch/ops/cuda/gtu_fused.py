@@ -9,9 +9,11 @@ k ∈ (3, 5, 7), stride 1):
 
 x and W in the compute dtype (x's), products and the gate in float32, the
 output rounded once. The kernels (``csrc/gtu_fused.cu``; its header says what
-bounds them) are a forward and a backward that recomputes y; the backward's
-dW and db are summed over every (b, n) group in a fixed order, so two
-launches give the same bits. :class:`GtuCat` puts them together. The
+bounds them) are a forward and a backward that recomputes y: in float32 on
+the CUDA cores, and for bfloat16 a backward on the tensor cores (WMMA); the
+backward's dW and db are summed over every (b, n) group in a fixed order,
+so two launches give the same bits. :func:`limit_error` is the kernels'
+shape gate on the card. :class:`GtuCat` puts them together. The
 wrappers take the kernels for CUDA tensors and the plain version
 (:func:`gtu_cat_plain`, gradients from autograd, with the kernel's rounding
 points) only for tensors on the CPU; ``fwd_launches``/``bwd_launches`` count
@@ -33,6 +35,7 @@ fwd_launches = 0
 bwd_launches = 0
 
 _SMEM_MAX = 227 * 1024
+WMMA_CS = (16, 32, 48)  # the bfloat16 backward's instantiations of C
 
 
 def supported(C: int, T: int, time_strides: int) -> bool:
@@ -126,6 +129,8 @@ def _load():
         lib.gtu_fused_backward.restype = ctypes.c_int
         lib.gtu_fused_error_string.argtypes = [ctypes.c_int]
         lib.gtu_fused_error_string.restype = ctypes.c_char_p
+        lib.gtu_fused_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.gtu_fused_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -135,14 +140,38 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
-def smem_bytes(C, T, backward):
-    """Shared memory a block of the k = 7 conv needs (float32; the formulas
-    of csrc/gtu_fused.cu): its taps (2C rows of C + 1), the group's (C, T)
-    slice and, backward, the dW accumulator, dY (T rows of 2C + 1) and dx."""
+def smem_bytes(C, T, backward, dtype):
+    """Shared memory a block of the k = 7 conv requests (the formulas of
+    csrc/gtu_fused.cu). The forward, either dtype, in float32: its taps (2C
+    rows of C + 1) and the group's (C, T) slice. The float32 backward adds
+    the dW accumulator, dY (T rows of 2C + 1) and dx. The bfloat16 backward
+    holds in bf16 the taps (7·2C rows of C + 8), x (T + 8 rows of C + 16)
+    and dY (T + 8 rows of 2C + 16), a copy of a group's x and g ((C, T)
+    each), and in float32 its 8 warps' staging (2 KB each), the bias and 256
+    db partials."""
     w = 7 * 2 * C * (C + 1)
-    if backward:
-        return 4 * (w + 7 * C * 2 * C + 2 * C + 2 * C * T + T * (2 * C + 1))
-    return 4 * (w + C * T)
+    if not backward:
+        return 4 * (w + C * T)
+    if dtype == torch.bfloat16:
+        R = T + 8
+        return (2 * (7 * 2 * C * (C + 8) + R * (C + 16) + R * (2 * C + 16) + 2 * C * T)
+                + 4 * (8 * 512 + 2 * C + 256))
+    return 4 * (w + 7 * C * 2 * C + 2 * C + 2 * C * T + T * (2 * C + 1))
+
+
+def limit_error(C, T, dtype, backward):
+    """Why a block of the forward or backward kernel cannot take (C, T) in
+    ``dtype``, or None: more shared memory than a block may have, or, for
+    the bfloat16 backward, a C it has no instantiation for."""
+    need = smem_bytes(C, T, backward, dtype)
+    which = "backward" if backward else "forward"
+    if need > _SMEM_MAX:
+        return (f"a {which} block needs {need} bytes of shared memory, more than the "
+                f"{_SMEM_MAX} a block may have (C={C}, T={T}, {dtype})")
+    if backward and dtype == torch.bfloat16 and C not in WMMA_CS:
+        return (f"the bfloat16 backward holds dW in registers for C in {WMMA_CS} only "
+                f"(C={C})")
+    return None
 
 
 def _check(x, wp, bp, others=()):
@@ -168,10 +197,9 @@ def _check(x, wp, bp, others=()):
             raise ValueError(f"{name} must be contiguous")
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"the gtu_fused kernels run on CUDA tensors; {name} is on {t.device}")
-    need = smem_bytes(C, T, backward=bool(others))
-    if need > _SMEM_MAX:
-        raise ValueError(f"a block needs {need} bytes of shared memory, more than the "
-                         f"{_SMEM_MAX} a block may have (C={C}, T={T})")
+    why = limit_error(C, T, x.dtype, backward=bool(others))
+    if why is not None:
+        raise ValueError(why)
     return B * N, C, T
 
 
@@ -201,6 +229,8 @@ def gtu_backward_cuda(x, g, wp, bp):
     BN, C, T = _check(x, wp, bp, others=(("g", g),))
     if tuple(g.shape) != (*x.shape[:2], out_len(T), C):
         raise ValueError(f"g must be {(*x.shape[:2], out_len(T), C)}, got {tuple(g.shape)}")
+    # the bfloat16 kernel loads x and g 16 bytes at a time
+    x, g = (t.clone() if t.data_ptr() % 16 else t for t in (x, g))
     dx = torch.empty_like(x)
     dwb = torch.zeros(TAPS * 2 * C * C + len(KS) * 2 * C, dtype=torch.float32, device=x.device)
     if BN > 0:

@@ -79,22 +79,31 @@ def check_slice(cfg: Config) -> None:
             )
 
 
-def resolve_fuse_gtu(cfg: Config) -> bool:
+def resolve_fuse_gtu(cfg: Config, device: torch.device, dtype: torch.dtype) -> bool:
     """The ``fuse_gtu`` knob as the JAX trainer resolves it: ``"auto"`` is
     off; ``True`` needs the dstagnn family and a shape the fused GTU kernels
-    take (:func:`~dstagnn_drought_tpu_torch.ops.cuda.gtu_fused.supported`),
+    take (:func:`~dstagnn_drought_tpu_torch.ops.cuda.gtu_fused.supported`)
+    and, on a CUDA ``device``, one whose blocks fit the card in the compute
+    ``dtype`` (:func:`~dstagnn_drought_tpu_torch.ops.cuda.gtu_fused.limit_error`),
     else ``ValueError``."""
     t = cfg.training
     if t.fuse_gtu == "auto" or not t.fuse_gtu:
         return False
     if t.model_name not in (None, "", "dstagnn"):
         raise ValueError(f"fuse_gtu is a dstagnn-family kernel; got model_name={t.model_name!r}")
-    if not gtu_fused.supported(t.nb_time_filter, cfg.data.len_input, t.time_strides):
+    C, T = t.nb_time_filter, cfg.data.len_input
+    if not gtu_fused.supported(C, T, t.time_strides):
         raise ValueError(
             "fuse_gtu=true but the fused GTU kernel does not support "
-            f"nb_time_filter={t.nb_time_filter}, len_input={cfg.data.len_input}, "
+            f"nb_time_filter={C}, len_input={T}, "
             f"time_strides={t.time_strides} (needs stride 1, T >= 48 and 16 | T, "
             "16 | C) — unset fuse_gtu or use the default im2col path")
+    if torch.device(device).type == "cuda":
+        for backward in (False, True):
+            why = gtu_fused.limit_error(C, T, dtype, backward)
+            if why is not None:
+                raise ValueError(f"fuse_gtu=true but on the card {why} — unset fuse_gtu "
+                                 "or use the default im2col path")
     return True
 
 
@@ -121,13 +130,13 @@ class Trainer:
         experiments_root: str = "myexperiments",
         device: str | torch.device | None = None,
     ):
-        self.fuse_gtu = resolve_fuse_gtu(cfg)
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype(cfg.training.compute_dtype)
+        self.fuse_gtu = resolve_fuse_gtu(cfg, self.device, self.compute_dtype)
         check_slice(cfg)
         self.cfg = cfg
         t = cfg.training
-        self.device = resolve_device(device)
         self.spec = ModelSpec.from_config(cfg)
-        self.compute_dtype = compute_dtype(t.compute_dtype)
 
         if dataset is None:
             dataset = load_windowed_dataset(

@@ -155,8 +155,36 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="T must be"):
         gtu_fused.gtu_forward_cuda(x[..., :6].contiguous(), wp, bp)
     # the k = 7 block's shared memory: the GAMBIA shape fits, C = 64 does not
-    assert gtu_fused.smem_bytes(32, 144, backward=True) < 227 * 1024
-    assert gtu_fused.smem_bytes(64, 144, backward=False) > 227 * 1024
+    for dtype in (torch.float32, torch.bfloat16):
+        assert gtu_fused.smem_bytes(32, 144, True, dtype) < 227 * 1024
+        assert gtu_fused.smem_bytes(64, 144, False, dtype) > 227 * 1024
+
+
+@pytest.mark.parametrize("C, T, dtype, backward, fits", [
+    (32, 144, torch.float32, True, True), (32, 144, torch.bfloat16, True, True),
+    (48, 144, torch.float32, True, False), (48, 144, torch.bfloat16, True, True),
+    (48, 144, torch.float32, False, True), (32, 240, torch.float32, True, False),
+    (32, 240, torch.bfloat16, True, True), (64, 48, torch.bfloat16, True, False),
+])
+def test_limit_error_is_the_card_gate(C, T, dtype, backward, fits):
+    """limit_error refuses a block over 227 KiB (naming the bytes) or a bf16
+    backward C without an instantiation; the bf16 tensor-core backward's
+    smaller tiles admit C = 48 at T = 144 and T = 240 at C = 32."""
+    why = gtu_fused.limit_error(C, T, dtype, backward)
+    assert (why is None) == fits, why
+    if why is not None and gtu_fused.smem_bytes(C, T, backward, dtype) > 227 * 1024:
+        assert str(gtu_fused.smem_bytes(C, T, backward, dtype)) in why
+
+
+def test_smem_bytes_at_gambia():
+    """The byte counts of csrc/gtu_fused.cu's fwd_smem, bwd_smem and
+    bwd_wmma_smem at C = 32, T = 144 (k = 7)."""
+    assert gtu_fused.smem_bytes(32, 144, False, torch.bfloat16) == 77568
+    assert gtu_fused.smem_bytes(32, 144, True, torch.float32) == 191040
+    # bf16: taps 448 rows of 40, x 152 rows of 48, dY 152 rows of 80, the
+    # copies of x and g 2 x 32 x 144; f32: staging 8 x 512, bias 64, db
+    # partials 256
+    assert gtu_fused.smem_bytes(32, 144, True, torch.bfloat16) == 110848
 
 
 def test_cpu_path_counts_no_launch():
@@ -187,3 +215,37 @@ def test_kernels_match_plain_on_card():
         for k, p in zip(leaves[0], leaves[1]):
             scale = max(1.0, float(p.grad.float().abs().max()))
             torch.testing.assert_close(k.grad.float(), p.grad.float(), atol=tol * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 16, 80), (2, 9, 32, 144), (1, 5, 48, 144)])
+def test_bf16_tensor_core_backward_on_card(shape):
+    """The bfloat16 backward (WMMA) against autograd through the plain
+    version, at a shape where every T_out (78, 76, 74) is ragged against 16,
+    at GAMBIA's C = 32, T = 144 with a small B·N, and at C = 48: dx and every
+    weight gradient within 1e-2 of scale, dW and db equal bit for bit over
+    two launches, one launch counted for each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = _arrays(9, *shape)
+    dtype = torch.bfloat16
+    ins = [torch.from_numpy(a[n]).to(dtype).cuda() for n in NAMES[:7]]
+    B, N, C, T = shape
+    g = torch.randn((B, N, gtu_fused.out_len(T), C),
+                    generator=torch.Generator().manual_seed(1)).to(dtype).cuda()
+    wp, bp = gtu_fused.pack(*ins[1:], dtype)
+    before = gtu_fused.bwd_launches
+    first = gtu_fused.gtu_backward_cuda(ins[0], g, wp, bp)
+    again = gtu_fused.gtu_backward_cuda(ins[0], g, wp, bp)
+    torch.cuda.synchronize()
+    assert gtu_fused.bwd_launches == before + 2
+    assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    out = gtu_fused.gtu_cat_plain(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    dws, dbs = gtu_fused.unpack_grads(first[1], first[2])
+    got = [first[0], dws[0], dbs[0], dws[1], dbs[1], dws[2], dbs[2]]
+    for name, k, p in zip(NAMES, got, grads):
+        scale = max(1.0, float(p.float().abs().max()))
+        torch.testing.assert_close(k.float(), p.float(), atol=1e-2 * scale, rtol=0, msg=name)

@@ -261,6 +261,49 @@ def test_trainer_resolves_and_validates_fuse_gtu(toy_windowed, tmp_path):
         loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
 
 
+def _fuse_gtu_config(toy_windowed, C, T):
+    cfg = load_config(toy_windowed / "TOY.conf")
+    cfg.training.fuse_gtu = True
+    cfg.training.nb_time_filter, cfg.data.len_input = C, T
+    return cfg
+
+
+# (C, T, compute dtype, fits a block on the card): GAMBIA's C = 32, T = 144
+# in both dtypes; C = 48 at T = 144 only on the bf16 tensor-core backward;
+# C = 64 at T = 144 in neither; C = 64 at T = 48 fits the shared memory but
+# has no bf16 backward instantiation
+FUSE_GTU_CARD_CASES = [
+    (32, 144, torch.bfloat16, True), (32, 144, torch.float32, True),
+    (48, 144, torch.bfloat16, True), (48, 144, torch.float32, False),
+    (64, 144, torch.bfloat16, False), (64, 48, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("C, T, dtype, fits", FUSE_GTU_CARD_CASES)
+def test_resolve_fuse_gtu_checks_the_card_budget(toy_windowed, C, T, dtype, fits):
+    """On a CUDA device resolve_fuse_gtu refuses, naming fuse_gtu and the
+    bytes (or the missing instantiation), a shape whose kernel block would
+    not fit; on the CPU (the plain version) it accepts every shape the
+    static gate admits."""
+    cfg = _fuse_gtu_config(toy_windowed, C, T)
+    assert loop.resolve_fuse_gtu(cfg, torch.device("cpu"), dtype) is True
+    if fits:
+        assert loop.resolve_fuse_gtu(cfg, torch.device("cuda"), dtype) is True
+    else:
+        with pytest.raises(ValueError, match=r"fuse_gtu.*(bytes|instantiation|registers)"):
+            loop.resolve_fuse_gtu(cfg, torch.device("cuda"), dtype)
+
+
+def test_trainer_refuses_fuse_gtu_over_the_card_budget(toy_windowed, tmp_path, monkeypatch):
+    """The Trainer resolves its device before fuse_gtu, so on a CUDA device
+    a block over 227 KiB raises at construction, before any data is read."""
+    monkeypatch.setattr(loop, "resolve_device", lambda device: torch.device("cuda"))
+    cfg = _fuse_gtu_config(toy_windowed, 48, 144)
+    cfg.training.compute_dtype = "float32"
+    with pytest.raises(ValueError, match=r"fuse_gtu.* \d+ bytes"):
+        loop.Trainer(cfg, experiments_root=str(tmp_path))
+
+
 def test_cli_refuses_flags_outside_the_slice(toy_windowed, tmp_path):
     conf = str(toy_windowed / "TOY.conf")
     for flag in (["--data-axis", "2"], ["--graph-axis", "2"], ["--distributed"],
