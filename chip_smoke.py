@@ -23,11 +23,10 @@ Phases; any failure exits non-zero:
      bit for bit over two backward launches;
   2d. the fused GTU forward and backward (csrc/gtu_fused.cu) against their
      plain version at the GAMBIA block, the JAX test's two shapes, a ragged
-     one and C = 48 (bf16 only), float32 (CUDA cores) and bfloat16 (the
-     backward on the tensor cores), dW and db equal bit for bit over two
-     launches, with the conv-only cuDNN call timed beside them; each row
-     names its design, and the gate's shared-memory bytes must equal the
-     kernels' own;
+     one and C = 48 (bf16 only), float32 (CUDA cores) and bfloat16 (tensor
+     cores), dW and db equal bit for bit over two launches, with the
+     conv-only cuDNN call timed beside them; each row names its design, and
+     the gate's shared-memory bytes must equal the kernels' own;
   3. the dense main path at full PEMS08 width: the training CLI, two epochs
      on benchmarks/parity_runs/parity_dataset.npz through the kernel, with
      the kernel's launch count read around the run;
@@ -629,10 +628,10 @@ GTU_SHAPES = [
 ]
 
 
-def gtu_design(name, dtype) -> str:
-    """The arithmetic of a GTU kernel: the bf16 backward on the tensor
-    cores (WMMA), everything else float32 FMAs on the CUDA cores."""
-    return "wmma_bf16" if name == "gtu_bwd" and dtype == torch.bfloat16 else "cuda_core_f32"
+def gtu_design(dtype) -> str:
+    """The arithmetic of a GTU kernel: bf16 forward and backward on the
+    tensor cores (WMMA), float32 FMAs on the CUDA cores."""
+    return "wmma_bf16" if dtype == torch.bfloat16 else "cuda_core_f32"
 
 
 def check_gtu_smem():
@@ -641,7 +640,8 @@ def check_gtu_smem():
     the gate's edges."""
     lib = gtu_fused._load()
     shapes = {(s[3], s[4]) for s in GTU_SHAPES} | {(32, 224), (32, 240), (48, 208), (64, 48)}
-    kinds = ((0, False, torch.float32), (1, True, torch.float32), (2, True, torch.bfloat16))
+    kinds = ((0, False, torch.float32), (1, True, torch.float32), (2, True, torch.bfloat16),
+             (3, False, torch.bfloat16))
     for C, T in sorted(shapes):
         for kind, backward, dtype in kinds:
             want = lib.gtu_fused_smem_bytes(C, T, kind)
@@ -731,7 +731,7 @@ def phase_gtu_kernels():
             bounds = gtu_bounds(B, N, C, T, dtype)
             for name, err, limit in (("gtu_fwd", fwd_err, tol), ("gtu_bwd", bwd_err, gtol)):
                 row = {"kernel": name, "shape": label, "dtype": str(dtype).split(".")[-1],
-                       "design": gtu_design(name, dtype),
+                       "design": gtu_design(dtype),
                        "B": B, "N": N, "C": C, "T": T, "max_abs_err": err[0],
                        "rel_err": err[1], "tol": limit, "ok": err[1] <= limit}
                 if name == "gtu_bwd":

@@ -26,11 +26,9 @@
 // the backward does three times the operations (recompute, dx, dW) and is
 // bound by them (0.22 ms at 989 TFLOP/s). The design, simple first:
 //   forward: one launch, blockIdx.y = the conv; a block stages its conv's
-//     taps in shared memory (transposed, padded rows: conflict-free reads
-//     both ways) and loops over (b, n) groups, each group's (C, T) slice
-//     staged once; a thread owns one channel c and 8 time steps, keeps p and
-//     q of both gate halves in registers, so the gate closes in registers.
-//     No im2col window tensor is ever written.
+//     taps in shared memory and loops over (b, n) groups, each group's
+//     (C, T) slice staged once, and closes the gate before anything leaves
+//     the block. No im2col window tensor is ever written.
 //   backward: one launch per conv (the three are ordered on the stream). A
 //     block loops over its groups: recompute y and form dY in shared memory,
 //     add its dx share into a float32 accumulator (the three passes own each
@@ -39,34 +37,43 @@
 //     output block across its sequential grid; here each block writes its
 //     partial and sum_rows (dense_common.cuh) adds the partials in a fixed
 //     order: no atomics, two launches give the same bits.
-// The forward and the float32 backward (gtu_bwd_kernel) run float32 FMAs on
-// the CUDA cores (float32 stays exact: no TF32). The bfloat16 backward
-// (gtu_bwd_wmma_kernel) runs its three products -- recompute y, dx, dW -- on
-// the tensor cores: nvcuda::wmma bf16 16x16x16 fragments with float32
-// accumulators, every operand staged in shared memory. Its operands are
+// Float32 runs on the CUDA cores (gtu_fwd_kernel, gtu_bwd_kernel: float32
+// FMAs, no TF32, so float32 stays exact). There the forward's thread owns
+// one channel c and 8 time steps and keeps p and q in registers; the taps
+// are transposed with padded rows (conflict-free reads both ways).
+// Bfloat16 runs on the tensor cores (gtu_fwd_wmma_kernel,
+// gtu_bwd_wmma_kernel): nvcuda::wmma bf16 16x16x16 fragments with float32
+// accumulators, every operand staged in shared memory. The operands are
 // already bf16-exact (x, the taps rounded by the wrapper, dY rounded where
-// the TPU kernel rounds it), so it forms the same products as the CUDA-core
-// kernel; only the order of the sums differs. Per group, with T_out = T-K+1:
+// the TPU kernel rounds it), so they form the same products as the CUDA
+// cores would; only the order of the sums differs. Per group, with
+// T_out = T-K+1:
 //   Ws  [kk][o][c] bf16, the conv's taps, rows of C+8
 //   Xs  (T+8, C+16) bf16, x time-major, rows >= T zero
-//   Yb  (8 + T, 2C+16) bf16, dY at row 8 + t, every other row zero
+//   Yb  (8 + T, 2C+16) bf16, dY at row 8 + t, every other row zero (backward)
 //   y  = sum_kk Xs[kk : kk+T] . W_kk^T       (W_kk read as a col-major B)
 //   dx = sum_kk Yb[8-kk : 8-kk+T] . W_kk
 //   dW_kk += Yb[8 : 8+T]^T . Xs[kk : kk+T]   (dY^T read as a col-major A)
-// A warp owns (t, c) 16x16 tiles, two at a time where they share a c tile
-// (C = 16, 32), so one tap fragment serves both. It forms y's p and q
-// tiles from one x fragment and gates them through its own 2 KB of float32
-// staging into dY; later it forms the dx tile and adds it to dx_acc through
-// the same staging. No block-wide y or dx tile exists. cp.async copies the
-// next group's x and g rows into shared memory behind the current group's
-// products (x is transposed from that copy). dW stays in registers across
-// the block's whole group loop (a warp owns a fixed set of (kk, o, c)
-// tiles; at C = 16 and 32 they share one dY^T fragment a time step) and is
-// stored once into the block's partial row. db sums dY over t on the CUDA
-// cores, each thread a chunk of t of one column, the chunks added in order
-// at the end. Fragment traffic through shared memory (2-way bank conflicts
-// on the 32-byte-aligned Xs and Yb rows) and latency at two blocks an SM
-// (the dW fragments take half the registers) bound it, not the tensor cores.
+// Both kernels form y the same way (gate_halves): a warp owns (t, c) 16x16
+// tiles, two at a time where they share a c tile (C = 16, 32), so one tap
+// fragment serves both, and forms p and q from one x fragment. cp.async
+// copies the next group's x (and, backward, g rows) into shared memory
+// behind the current group's products; x is transposed from that copy.
+// The forward gates p and q through the warp's own 2 KB of float32 staging
+// (bias added there) and stores 8 channels of one time step a lane, 16
+// bytes, straight to out; rows t >= T_out are never stored. The backward
+// gates them into dY, later forms the dx tile and adds it to dx_acc through
+// the same staging; no block-wide y or dx tile exists. dW stays in
+// registers across the block's whole group loop (a warp owns a fixed set of
+// (kk, o, c) tiles; at C = 16 and 32 they share one dY^T fragment a time
+// step) and is stored once into the block's partial row. db sums dY over t
+// on the CUDA cores, each thread a chunk of t of one column, the chunks
+// added in order at the end. Fragment traffic through shared memory (2-way
+// bank conflicts on the 32-byte-aligned Xs and Yb rows) and latency bound
+// them, not the tensor cores: the backward runs two blocks an SM (its dW
+// fragments take half the registers), the forward three (no dW: 80
+// registers), where its float32 gate (tanhf, expf) also counts. The
+// forward's own bound is bytes (x read once per conv, out written once).
 // Traps:
 //   - load/store_matrix_sync need a 256-bit aligned pointer and an ld that
 //     is a multiple of 8 (16-bit types) or 4 (float). The shifted loads at
@@ -78,9 +85,9 @@
 //   - T_out is never a multiple of 16. The zero rows around dY and below x
 //     mask the ragged edge (as the zero tail does in the JAX kernel); no
 //     load reads past a tile.
-//   - C is a template parameter (16, 32, 48): the dW fragments are indexed
-//     at compile time so they stay in registers. C = 48 needs 16 fragments
-//     a thread at K = 7 and runs one block an SM.
+//   - C is a template parameter (16, 32, 48) of both bf16 kernels: the dW
+//     fragments are indexed at compile time so they stay in registers. C =
+//     48 needs 16 fragments a thread at K = 7 and runs one block an SM.
 
 #include <mma.h>
 
@@ -102,16 +109,8 @@ __host__ __device__ constexpr int conv_k(int ki) { return 3 + 2 * ki; }
 __host__ __device__ constexpr int tap_base(int ki) { return ki == 0 ? 0 : (ki == 1 ? 3 : 8); }
 
 struct Dims {
-  int BN, C, T, C2, ldw, ldy, M3, L, bf16;
+  int BN, C, T, C2, ldw, ldy, M3, L;
 };
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-template <typename T> __device__ __forceinline__ T cast_to(float v);
-template <> __device__ __forceinline__ float cast_to<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 cast_to<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float sigmoid(float q) { return 1.f / (1.f + expf(-q)); }
 
@@ -162,18 +161,17 @@ __device__ __forceinline__ void conv_rows(const float* xs, const float* Ws,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void stage_x(const T* __restrict__ xg, float* xs, const Dims& d) {
-  for (int e = threadIdx.x; e < d.C * d.T; e += blockDim.x) xs[e] = ld(xg + e);
+__device__ __forceinline__ void stage_x(const float* __restrict__ xg, float* xs, const Dims& d) {
+  for (int e = threadIdx.x; e < d.C * d.T; e += blockDim.x) xs[e] = xg[e];
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// forward, float32, CUDA cores
 // ---------------------------------------------------------------------------
 
-template <int K, typename T>
-__device__ void fwd_conv(const T* __restrict__ x, const float* __restrict__ wp,
-                         const float* __restrict__ bias, T* __restrict__ out, int ki,
+template <int K>
+__device__ void fwd_conv(const float* __restrict__ x, const float* __restrict__ wp,
+                         const float* __restrict__ bias, float* __restrict__ out, int ki,
                          float* sm, const Dims& d) {
   float* Ws = sm;
   float* xs = Ws + K * d.C2 * d.ldw;
@@ -189,34 +187,34 @@ __device__ void fwd_conv(const T* __restrict__ x, const float* __restrict__ wp,
       const int c = item % d.C, t0 = (item / d.C) * kRT;
       float ap[kRT], aq[kRT];
       conv_rows<K>(xs, Ws, b, c, t0, ap, aq, d);
-      T* og = out + ((size_t)g * d.M3 + off) * d.C + c;
+      float* og = out + ((size_t)g * d.M3 + off) * d.C + c;
 #pragma unroll
       for (int r = 0; r < kRT; ++r)
-        if (t0 + r < Tout) og[(size_t)(t0 + r) * d.C] = cast_to<T>(tanhf(ap[r]) * sigmoid(aq[r]));
+        if (t0 + r < Tout) og[(size_t)(t0 + r) * d.C] = tanhf(ap[r]) * sigmoid(aq[r]);
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gtu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ wp,
-               const float* __restrict__ bias, T* __restrict__ out, Dims d) {
+gtu_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wp,
+               const float* __restrict__ bias, float* __restrict__ out, Dims d) {
   extern __shared__ __align__(16) float sm[];
-  if (blockIdx.y == 0) fwd_conv<3, T>(x, wp, bias, out, 0, sm, d);
-  else if (blockIdx.y == 1) fwd_conv<5, T>(x, wp, bias, out, 1, sm, d);
-  else fwd_conv<7, T>(x, wp, bias, out, 2, sm, d);
+  if (blockIdx.y == 0) fwd_conv<3>(x, wp, bias, out, 0, sm, d);
+  else if (blockIdx.y == 1) fwd_conv<5>(x, wp, bias, out, 1, sm, d);
+  else fwd_conv<7>(x, wp, bias, out, 2, sm, d);
 }
 
 // ---------------------------------------------------------------------------
-// backward, one conv a launch
+// backward, float32, CUDA cores, one conv a launch
 // ---------------------------------------------------------------------------
 
-// mode: 0 = first conv (dx starts at 0), 1 = middle, 2 = last (round dx)
-template <int K, typename T>
+// mode: 0 = first conv (dx starts at 0), 1 = middle, 2 = last (write dx)
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-gtu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout, const float* __restrict__ wp,
-               const float* __restrict__ bias, float* __restrict__ dx_acc, T* __restrict__ dx,
-               float* __restrict__ part, int ki, int mode, Dims d) {
+gtu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gout,
+               const float* __restrict__ wp, const float* __restrict__ bias,
+               float* __restrict__ dx_acc, float* __restrict__ dx, float* __restrict__ part,
+               int ki, int mode, Dims d) {
   extern __shared__ __align__(16) float sm[];
   const int C = d.C, C2 = d.C2, Tt = d.T;
   float* Ws = sm;                       // K*2C*(C+1)
@@ -231,27 +229,26 @@ gtu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout, const float*
   const float* b = bias + ki * C2;
   const int rec_items = C * ((Tout + kRT - 1) / kRT);
   const int dx_items = C * ((Tt + kRT - 1) / kRT);
-  const int bf = d.bf16;
   for (int g = blockIdx.x; g < d.BN; g += gridDim.x) {
     __syncthreads();
     const size_t xo = (size_t)g * C * Tt;
     stage_x(x + xo, xs, d);
     for (int e = threadIdx.x; e < C * Tt; e += blockDim.x) Dx[e] = mode ? dx_acc[xo + e] : 0.f;
     __syncthreads();
-    // recompute y, then dY (rounded where the TPU kernel rounds)
+    // recompute y, then dY
     for (int item = threadIdx.x; item < rec_items; item += blockDim.x) {
       const int c = item % C, t0 = (item / C) * kRT;
       float ap[kRT], aq[kRT];
       conv_rows<K>(xs, Ws, b, c, t0, ap, aq, d);
-      const T* gg = gout + ((size_t)g * d.M3 + off) * C + c;
+      const float* gg = gout + ((size_t)g * d.M3 + off) * C + c;
 #pragma unroll
       for (int r = 0; r < kRT; ++r) {
         const int t = t0 + r;
         if (t >= Tout) continue;
-        const float gv = ld(gg + (size_t)t * C);
-        const float th = rnd(tanhf(ap[r]), bf), sg = rnd(sigmoid(aq[r]), bf);
-        const float dp = rnd(rnd(gv * sg, bf) * rnd(1.f - rnd(th * th, bf), bf), bf);
-        const float dq = rnd(rnd(rnd(gv * th, bf) * sg, bf) * rnd(1.f - sg, bf), bf);
+        const float gv = gg[(size_t)t * C];
+        const float th = tanhf(ap[r]), sg = sigmoid(aq[r]);
+        const float dp = gv * sg * (1.f - th * th);
+        const float dq = gv * th * sg * (1.f - sg);
         Ys[t * d.ldy + c] = dp;
         Ys[t * d.ldy + C + c] = dq;
       }
@@ -309,7 +306,7 @@ gtu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout, const float*
     }
     __syncthreads();
     if (mode == 2) {
-      for (int e = threadIdx.x; e < C * Tt; e += blockDim.x) dx[xo + e] = cast_to<T>(Dx[e]);
+      for (int e = threadIdx.x; e < C * Tt; e += blockDim.x) dx[xo + e] = Dx[e];
     } else {
       for (int e = threadIdx.x; e < C * Tt; e += blockDim.x) dx_acc[xo + e] = Dx[e];
     }
@@ -326,7 +323,7 @@ gtu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout, const float*
 }
 
 // ---------------------------------------------------------------------------
-// backward, bfloat16, tensor cores (WMMA), one conv a launch
+// bfloat16 on the tensor cores (WMMA): tiles and pieces both kernels share
 // ---------------------------------------------------------------------------
 
 constexpr int kZ = 8;     // zero rows above dY in Yb (>= K - 1); also rows past T
@@ -385,6 +382,164 @@ __device__ __forceinline__ void unpack8(const float* s, float* v) {
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
+// the conv's taps to shared memory in bf16: Ws[kk][o][c], rows of C + 8
+template <int K, int C>
+__device__ __forceinline__ void stage_taps(const float* __restrict__ wp, bf16* Ws, int ki) {
+  const float* src = wp + (size_t)tap_base(ki) * 2 * C * C;
+  for (int e = threadIdx.x; e < K * 2 * C * C; e += blockDim.x)
+    Ws[(e / C) * Wm<K, C>::LW + e % C] = __float2bfloat16_rn(src[e]);
+}
+
+// a group's x as copied, (C, T), to Xs time-major: a thread takes 8 time
+// steps of one channel (16 bytes); neighbouring threads take neighbouring
+// channels (conflict-free stores)
+template <int C>
+__device__ __forceinline__ void transpose_x(const bf16* Xr, bf16* Xs, int Tt) {
+  constexpr int LX = C + kPad;
+  for (int e = threadIdx.x; e < C * Tt / 8; e += blockDim.x) {
+    const int c = e % C, t0 = (e / C) * 8;
+    const uint4 v = *reinterpret_cast<const uint4*>(Xr + c * Tt + t0);
+    const bf16* h = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) Xs[(t0 + j) * LX + c] = h[j];
+  }
+}
+
+// y's gate halves p and q, bias left out, of the NT (t, c) tiles tile0 +
+// i * kWarps: sum_kk Xs[16 tt + kk : +16] . W_kk^T (W_kk read as a
+// col-major B). The tiles share one c tile, so one tap fragment serves them
+// all, and one x fragment serves p and q. on[i]: tile i exists; tt[i]: its
+// 16-row time tile.
+template <int K, int C>
+__device__ __forceinline__ void gate_halves(const bf16* Xs, const bf16* Ws, int tile0, int TT,
+                                            int* tt, bool* on, FragC* p, FragC* q) {
+  using S = Wm<K, C>;
+  constexpr int C2 = S::C2, LW = S::LW, LX = S::LX, CT = S::CT;
+  const int ct = tile0 % CT;
+#pragma unroll
+  for (int i = 0; i < S::NT; ++i) {
+    const int tile = tile0 + i * dense::kWarps;
+    on[i] = tile < TT * CT;
+    tt[i] = tile / CT;
+    wmma::fill_fragment(p[i], 0.f);
+    wmma::fill_fragment(q[i], 0.f);
+  }
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) {
+#pragma unroll
+    for (int cs = 0; cs < CT; ++cs) {
+      FragA a[S::NT];
+      FragBt w;
+#pragma unroll
+      for (int i = 0; i < S::NT; ++i)
+        if (on[i]) wmma::load_matrix_sync(a[i], Xs + (16 * tt[i] + kk) * LX + 16 * cs, LX);
+      wmma::load_matrix_sync(w, Ws + (kk * C2 + 16 * ct) * LW + 16 * cs, LW);
+#pragma unroll
+      for (int i = 0; i < S::NT; ++i)
+        if (on[i]) wmma::mma_sync(p[i], a[i], w, p[i]);
+      wmma::load_matrix_sync(w, Ws + (kk * C2 + C + 16 * ct) * LW + 16 * cs, LW);
+#pragma unroll
+      for (int i = 0; i < S::NT; ++i)
+        if (on[i]) wmma::mma_sync(q[i], a[i], w, q[i]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, bfloat16, tensor cores (WMMA), blockIdx.y = the conv
+// ---------------------------------------------------------------------------
+
+// one group's output of conv K: per (t, c) tile, p and q, then the gate
+// through the warp's staging st (bias Bs added there), 8 channels of one
+// time step a lane, stored 16 bytes at a time to og[t][c]; rows t >= T_out
+// are never stored
+template <int K, int C>
+__device__ __forceinline__ void fwd_tiles(const bf16* Xs, const bf16* Ws, const float* Bs,
+                                          bf16* __restrict__ og, int Tout, int TT, float* st) {
+  using S = Wm<K, C>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // a lane's 8 elements of a 16x16 tile: row lane / 2, columns 8 * (lane % 2) ..
+  const int lr = lane / 2, lc = 8 * (lane % 2);
+  for (int tile0 = warp; tile0 < TT * S::CT; tile0 += S::NT * dense::kWarps) {
+    const int c0 = 16 * (tile0 % S::CT) + lc;
+    int tt[S::NT];
+    bool on[S::NT];
+    FragC p[S::NT], q[S::NT];
+    gate_halves<K, C>(Xs, Ws, tile0, TT, tt, on, p, q);
+#pragma unroll
+    for (int i = 0; i < S::NT; ++i) {
+      if (!on[i]) continue;
+      wmma::store_matrix_sync(st, p[i], 16, wmma::mem_row_major);
+      wmma::store_matrix_sync(st + 256, q[i], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int t = 16 * tt[i] + lr;
+      if (t < Tout) {
+        float pv[8], qv[8], v[8];
+        unpack8(st + lr * 16 + lc, pv);
+        unpack8(st + 256 + lr * 16 + lc, qv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = tanhf(pv[j] + Bs[c0 + j]) * sigmoid(qv[j] + Bs[C + c0 + j]);
+        *reinterpret_cast<uint4*>(og + (size_t)t * C + c0) = pack8(v);
+      }
+      __syncwarp();  // the staging is read before it is overwritten
+    }
+  }
+}
+
+template <int K, int C>
+__device__ __forceinline__ void fwd_wmma_conv(const bf16* __restrict__ x,
+                                              const float* __restrict__ wp,
+                                              const float* __restrict__ bias,
+                                              bf16* __restrict__ out, int ki,
+                                              unsigned char* smem, const Dims& d) {
+  using S = Wm<K, C>;
+  constexpr int C2 = S::C2, LW = S::LW, LX = S::LX;
+  const int Tt = d.T, R = Tt + kZ, TT = Tt / 16;
+  bf16* Ws = reinterpret_cast<bf16*>(smem);  // taps [kk][o][c]
+  bf16* Xs = Ws + K * C2 * LW;               // x (T + 8, C), time-major
+  bf16* Xr = Xs + (size_t)R * LX;            // a group's x (C, T), as copied
+  float* St = reinterpret_cast<float*>(Xr + (size_t)C * Tt);  // two 16x16 tiles a warp
+  float* Bs = St + dense::kWarps * 512;      // the conv's bias
+  float* st = St + (threadIdx.x / 32) * 512;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+
+  stage_taps<K, C>(wp, Ws, ki);
+  for (int e = threadIdx.x; e < R * LX; e += blockDim.x) Xs[e] = zero;
+  for (int o = threadIdx.x; o < C2; o += blockDim.x) Bs[o] = bias[ki * C2 + o];
+  const int off = out_offset(ki, Tt);
+
+  // each later group's x is copied while the group before it computes
+  copy_async(Xr, x + (size_t)blockIdx.x * C * Tt, C * Tt);
+  for (int g = blockIdx.x; g < d.BN; g += gridDim.x) {
+    wait_async();
+    __syncthreads();  // x copied / the previous group's tiles consumed
+    transpose_x<C>(Xr, Xs, Tt);
+    __syncthreads();
+    const int gn = g + gridDim.x;
+    if (gn < d.BN) copy_async(Xr, x + (size_t)gn * C * Tt, C * Tt);
+    fwd_tiles<K, C>(Xs, Ws, Bs, out + ((size_t)g * d.M3 + off) * C, Tt - K + 1, TT, st);
+  }
+}
+
+// the longest conv on blockIdx.y = 0: its blocks are dispatched first.
+// Three blocks an SM at C <= 32 (76,288 bytes of shared memory at C = 32,
+// T = 144, and at most 80 registers a thread); C = 48 runs one, for its
+// shared memory
+template <int C>
+__global__ void __launch_bounds__(kThreads, 3)
+gtu_fwd_wmma_kernel(const bf16* __restrict__ x, const float* __restrict__ wp,
+                    const float* __restrict__ bias, bf16* __restrict__ out, Dims d) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if (blockIdx.y == 0) fwd_wmma_conv<7, C>(x, wp, bias, out, 2, smem, d);
+  else if (blockIdx.y == 1) fwd_wmma_conv<5, C>(x, wp, bias, out, 1, smem, d);
+  else fwd_wmma_conv<3, C>(x, wp, bias, out, 0, smem, d);
+}
+
+// ---------------------------------------------------------------------------
+// backward, bfloat16, tensor cores (WMMA), one conv a launch
+// ---------------------------------------------------------------------------
+
 // mode: 0 = first conv (dx starts at 0), 1 = middle, 2 = last (round dx)
 template <int K, int C>
 __global__ void __launch_bounds__(kThreads, Wm<K, C>::kMinBlocks)
@@ -408,9 +563,7 @@ gtu_bwd_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
   float* st = St + warp * 512;
   const bf16 zero = __float2bfloat16_rn(0.f);
 
-  const float* src = wp + (size_t)tap_base(ki) * C2 * C;
-  for (int e = threadIdx.x; e < K * C2 * C; e += blockDim.x)
-    Ws[(e / C) * LW + e % C] = __float2bfloat16_rn(src[e]);
+  stage_taps<K, C>(wp, Ws, ki);
   for (int e = threadIdx.x; e < R * LX; e += blockDim.x) Xs[e] = zero;
   for (int e = threadIdx.x; e < R * LY; e += blockDim.x) Yb[e] = zero;
   for (int o = threadIdx.x; o < C2; o += blockDim.x) Bs[o] = bias[ki * C2 + o];
@@ -437,53 +590,17 @@ gtu_bwd_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
     __syncthreads();  // x and g copied / the previous group's tiles consumed
     const size_t xo = (size_t)g * C * Tt;
     const int gn = g + gridDim.x;
-    // x time-major: a thread takes 8 time steps of one channel (16 bytes);
-    // neighbouring threads take neighbouring channels (conflict-free stores)
-    for (int e = threadIdx.x; e < C * Tt / 8; e += blockDim.x) {
-      const int c = e % C, t0 = (e / C) * 8;
-      const uint4 v = *reinterpret_cast<const uint4*>(Xr + c * Tt + t0);
-      const bf16* h = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Xs[(t0 + j) * LX + c] = h[j];
-    }
+    transpose_x<C>(Xr, Xs, Tt);
     __syncthreads();
     if (gn < d.BN) copy_async(Xr, x + (size_t)gn * C * Tt, C * Tt);
-    // 1-2. per (t, c) tile: y's p and q halves (x . W_kk^T over kk), then
-    // dY through the warp's staging, rounded where the TPU kernel rounds.
-    // NT tiles a time (tile0 + i * 8): one c tile, so they share the taps'
-    // fragments
+    // 1-2. per (t, c) tile: y's p and q halves, then dY through the warp's
+    // staging, rounded where the TPU kernel rounds; NT tiles a time
     for (int tile0 = warp; tile0 < TT * CT; tile0 += S::NT * dense::kWarps) {
-      const int ct = tile0 % CT, c0 = 16 * ct + lc;
+      const int c0 = 16 * (tile0 % CT) + lc;
       int tt[S::NT];
       bool on[S::NT];
       FragC p[S::NT], q[S::NT];
-#pragma unroll
-      for (int i = 0; i < S::NT; ++i) {
-        const int tile = tile0 + i * dense::kWarps;
-        on[i] = tile < TT * CT;
-        tt[i] = tile / CT;
-        wmma::fill_fragment(p[i], 0.f);
-        wmma::fill_fragment(q[i], 0.f);
-      }
-#pragma unroll
-      for (int kk = 0; kk < K; ++kk) {
-#pragma unroll
-        for (int cs = 0; cs < CT; ++cs) {
-          FragA a[S::NT];
-          FragBt w;
-#pragma unroll
-          for (int i = 0; i < S::NT; ++i)
-            if (on[i]) wmma::load_matrix_sync(a[i], Xs + (16 * tt[i] + kk) * LX + 16 * cs, LX);
-          wmma::load_matrix_sync(w, Ws + (kk * C2 + 16 * ct) * LW + 16 * cs, LW);
-#pragma unroll
-          for (int i = 0; i < S::NT; ++i)
-            if (on[i]) wmma::mma_sync(p[i], a[i], w, p[i]);
-          wmma::load_matrix_sync(w, Ws + (kk * C2 + C + 16 * ct) * LW + 16 * cs, LW);
-#pragma unroll
-          for (int i = 0; i < S::NT; ++i)
-            if (on[i]) wmma::mma_sync(q[i], a[i], w, q[i]);
-        }
-      }
+      gate_halves<K, C>(Xs, Ws, tile0, TT, tt, on, p, q);
 #pragma unroll
       for (int i = 0; i < S::NT; ++i) {
         if (!on[i]) continue;
@@ -607,7 +724,7 @@ gtu_bwd_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
 
 // ---------------------------------------------------------------------------
 
-Dims make_dims(int BN, int C, int T, int bf16) {
+Dims make_dims(int BN, int C, int T) {
   Dims d;
   d.BN = BN;
   d.C = C;
@@ -617,7 +734,6 @@ Dims make_dims(int BN, int C, int T, int bf16) {
   d.ldy = 2 * C + 1;
   d.M3 = 3 * T - 12;
   d.L = kTaps * 2 * C * C + 3 * 2 * C;
-  d.bf16 = bf16;
   return d;
 }
 
@@ -642,6 +758,16 @@ size_t bwd_wmma_smem(int K, const Dims& d) {
          sizeof(float) * ((size_t)dense::kWarps * 512 + d.C2 + kThreads);
 }
 
+// the bf16 forward, sized for its k = 7 blocks: in bf16 the taps, Xs (T + 8
+// rows), rows padded, and the copied x; in f32 the warps' staging and the
+// bias
+size_t fwd_wmma_smem(const Dims& d) {
+  const size_t R = d.T + kZ;
+  return sizeof(bf16) * ((size_t)7 * d.C2 * (d.C + kPadW) + R * (d.C + kPad) +
+                         (size_t)d.C * d.T) +
+         sizeof(float) * ((size_t)dense::kWarps * 512 + d.C2);
+}
+
 // workspace of the backward (floats): the partials, sum_rows' scratch, dx_acc
 struct BwdSpace {
   size_t part, scratch, dx_acc, total;
@@ -657,28 +783,38 @@ BwdSpace bwd_space(const Dims& d) {
   return s;
 }
 
-template <typename T>
-int forward_impl(const void* x, const float* wp, const float* bp, void* out, const Dims& d,
-                 cudaStream_t st) {
+int forward_f32(const void* x, const float* wp, const float* bp, void* out, const Dims& d,
+                cudaStream_t st) {
   const size_t smem = fwd_smem(7, d);
-  cudaError_t err = dense::allow_smem(gtu_fwd_kernel<T>, smem);
+  cudaError_t err = dense::allow_smem(gtu_fwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gtu_fwd_kernel<T><<<dim3(grid_blocks(d.BN), 3), kThreads, smem, st>>>(
-      static_cast<const T*>(x), wp, bp, static_cast<T*>(out), d);
+  gtu_fwd_kernel<<<dim3(grid_blocks(d.BN), 3), kThreads, smem, st>>>(
+      static_cast<const float*>(x), wp, bp, static_cast<float*>(out), d);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int K, typename T>
+template <int C>
+int forward_wmma(const void* x, const float* wp, const float* bp, void* out, const Dims& d,
+                 cudaStream_t st) {
+  const size_t smem = fwd_wmma_smem(d);
+  cudaError_t err = dense::allow_smem(gtu_fwd_wmma_kernel<C>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gtu_fwd_wmma_kernel<C><<<dim3(grid_blocks(d.BN), 3), kThreads, smem, st>>>(
+      static_cast<const bf16*>(x), wp, bp, static_cast<bf16*>(out), d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
 cudaError_t launch_bwd(const void* x, const void* g, const float* wp, const float* bp,
                        void* dx, float* ws, const BwdSpace& s, int ki, const Dims& d,
                        cudaStream_t st) {
   const size_t smem = bwd_smem(K, d);
-  cudaError_t err = dense::allow_smem(gtu_bwd_kernel<K, T>, smem);
+  cudaError_t err = dense::allow_smem(gtu_bwd_kernel<K>, smem);
   if (err != cudaSuccess) return err;
   // the convs run in order 0, 1, 2, so conv ki's dx mode is ki
-  gtu_bwd_kernel<K, T><<<grid_blocks(d.BN), kThreads, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), wp, bp, ws + s.dx_acc,
-      static_cast<T*>(dx), ws + s.part, ki, ki, d);
+  gtu_bwd_kernel<K><<<grid_blocks(d.BN), kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g), wp, bp, ws + s.dx_acc,
+      static_cast<float*>(dx), ws + s.part, ki, ki, d);
   return cudaGetLastError();
 }
 
@@ -702,7 +838,7 @@ cudaError_t launch_conv(const void* x, const void* g, const float* wp, const flo
                         void* dx, float* ws, const BwdSpace& s, int ki, const Dims& d,
                         cudaStream_t st) {
   if constexpr (C > 0) return launch_bwd_wmma<K, C>(x, g, wp, bp, dx, ws, s, ki, d, st);
-  else return launch_bwd<K, float>(x, g, wp, bp, dx, ws, s, ki, d, st);
+  else return launch_bwd<K>(x, g, wp, bp, dx, ws, s, ki, d, st);
 }
 
 // the three convs in order (conv ki's dx mode is ki), then the partials'
@@ -725,18 +861,24 @@ extern "C" {
 
 // Floats of the backward's workspace.
 size_t gtu_fused_workspace_floats(int BN, int C, int T) {
-  return bwd_space(make_dims(BN, C, T, 0)).total;
+  return bwd_space(make_dims(BN, C, T)).total;
 }
 
-// Forward: x (BN, C, T) and out (BN, 3T-12, C) in float32 (bf16 = 0) or
-// bfloat16 (bf16 = 1); wp (15, 2C, C), bp (3, 2C) float32. Returns
-// cudaGetLastError().
+// Forward: x (BN, C, T) and out (BN, 3T-12, C) in float32 (bf16 = 0, the
+// CUDA cores) or bfloat16 (bf16 = 1, the tensor cores); wp (15, 2C, C), bp
+// (3, 2C) float32. bfloat16 takes C in {16, 32, 48} and 16-byte aligned x;
+// another C returns cudaErrorInvalidValue. Returns cudaGetLastError().
 int gtu_fused_forward(const void* x, const float* wp, const float* bp, void* out, int BN,
                       int C, int T, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims d = make_dims(BN, C, T, bf16);
-  return bf16 ? forward_impl<__nv_bfloat16>(x, wp, bp, out, d, st)
-              : forward_impl<float>(x, wp, bp, out, d, st);
+  const Dims d = make_dims(BN, C, T);
+  if (!bf16) return forward_f32(x, wp, bp, out, d, st);
+  switch (C) {
+    case 16: return forward_wmma<16>(x, wp, bp, out, d, st);
+    case 32: return forward_wmma<32>(x, wp, bp, out, d, st);
+    case 48: return forward_wmma<48>(x, wp, bp, out, d, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Backward: g (BN, 3T-12, C) → dx (BN, C, T) in the dtype of x, and dwb =
@@ -748,7 +890,7 @@ int gtu_fused_backward(const void* x, const void* g, const float* wp, const floa
                        void* dx, float* dwb, float* ws, int BN, int C, int T, int bf16,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims d = make_dims(BN, C, T, bf16);
+  const Dims d = make_dims(BN, C, T);
   if (!bf16) return backward_impl<0>(x, g, wp, bp, dx, dwb, ws, d, st);
   switch (C) {
     case 16: return backward_impl<16>(x, g, wp, bp, dx, dwb, ws, d, st);
@@ -758,11 +900,17 @@ int gtu_fused_backward(const void* x, const void* g, const float* wp, const floa
   }
 }
 
-// Dynamic shared memory (bytes) of the conv-k block of each kernel: the
-// forward (either dtype), the float32 backward, the bfloat16 backward.
+// Dynamic shared memory (bytes) of the conv-7 block of each kernel: 0 the
+// float32 forward, 1 the float32 backward, 2 the bfloat16 backward, 3 the
+// bfloat16 forward.
 size_t gtu_fused_smem_bytes(int C, int T, int kernel) {
-  const Dims d = make_dims(1, C, T, kernel == 2);
-  return kernel == 0 ? fwd_smem(7, d) : (kernel == 1 ? bwd_smem(7, d) : bwd_wmma_smem(7, d));
+  const Dims d = make_dims(1, C, T);
+  switch (kernel) {
+    case 0: return fwd_smem(7, d);
+    case 1: return bwd_smem(7, d);
+    case 2: return bwd_wmma_smem(7, d);
+    default: return fwd_wmma_smem(d);
+  }
 }
 
 const char* gtu_fused_error_string(int err) {

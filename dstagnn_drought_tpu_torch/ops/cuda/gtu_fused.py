@@ -10,14 +10,15 @@ k ∈ (3, 5, 7), stride 1):
 x and W in the compute dtype (x's), products and the gate in float32, the
 output rounded once. The kernels (``csrc/gtu_fused.cu``; its header says what
 bounds them) are a forward and a backward that recomputes y: in float32 on
-the CUDA cores, and for bfloat16 a backward on the tensor cores (WMMA); the
-backward's dW and db are summed over every (b, n) group in a fixed order,
-so two launches give the same bits. :func:`limit_error` is the kernels'
-shape gate on the card. :class:`GtuCat` puts them together. The
-wrappers take the kernels for CUDA tensors and the plain version
-(:func:`gtu_cat_plain`, gradients from autograd, with the kernel's rounding
-points) only for tensors on the CPU; ``fwd_launches``/``bwd_launches`` count
-kernel launches. The fcmy product after the concat stays a plain matmul
+the CUDA cores, in bfloat16 both on the tensor cores (WMMA bf16 fragments,
+float32 accumulators). The backward's dW and db are summed over every
+(b, n) group in a fixed order, so two launches give the same bits.
+:func:`limit_error` is the kernels' shape gate on the card (shared memory,
+and the C the bfloat16 kernels are instantiated for). :class:`GtuCat` puts
+them together. The wrappers take the kernels for CUDA tensors and the plain
+version (:func:`gtu_cat_plain`, gradients from autograd, with the kernel's
+rounding points) only for tensors on the CPU; ``fwd_launches`` and
+``bwd_launches`` count kernel launches. The fcmy product after the concat stays a plain matmul
 (:func:`gtu_fcmy`), as it stays in XLA in the JAX package.
 """
 from __future__ import annotations
@@ -35,7 +36,7 @@ fwd_launches = 0
 bwd_launches = 0
 
 _SMEM_MAX = 227 * 1024
-WMMA_CS = (16, 32, 48)  # the bfloat16 backward's instantiations of C
+WMMA_CS = (16, 32, 48)  # the bfloat16 (tensor-core) kernels' instantiations of C
 
 
 def supported(C: int, T: int, time_strides: int) -> bool:
@@ -142,35 +143,35 @@ def _raise_on(lib, err, what):
 
 def smem_bytes(C, T, backward, dtype):
     """Shared memory a block of the k = 7 conv requests (the formulas of
-    csrc/gtu_fused.cu). The forward, either dtype, in float32: its taps (2C
-    rows of C + 1) and the group's (C, T) slice. The float32 backward adds
-    the dW accumulator, dY (T rows of 2C + 1) and dx. The bfloat16 backward
-    holds in bf16 the taps (7·2C rows of C + 8), x (T + 8 rows of C + 16)
-    and dY (T + 8 rows of 2C + 16), a copy of a group's x and g ((C, T)
-    each), and in float32 its 8 warps' staging (2 KB each), the bias and 256
-    db partials."""
+    csrc/gtu_fused.cu). The float32 forward, in float32: its taps (7·2C rows
+    of C + 1) and the group's (C, T) slice. The float32 backward adds the dW
+    accumulator, dY (T rows of 2C + 1) and dx. The bfloat16 kernels hold in
+    bf16 the taps (7·2C rows of C + 8), x time-major (T + 8 rows of C + 16)
+    and a copy of a group's x (C, T), and in float32 their 8 warps' staging
+    (2 KB each) and the bias; the bfloat16 backward adds dY (T + 8 rows of
+    2C + 16), a copy of the group's g (C, T) and 256 db partials."""
+    if dtype == torch.bfloat16:
+        R = T + 8
+        fwd = 2 * (7 * 2 * C * (C + 8) + R * (C + 16) + C * T) + 4 * (8 * 512 + 2 * C)
+        return fwd + 2 * (R * (2 * C + 16) + C * T) + 4 * 256 if backward else fwd
     w = 7 * 2 * C * (C + 1)
     if not backward:
         return 4 * (w + C * T)
-    if dtype == torch.bfloat16:
-        R = T + 8
-        return (2 * (7 * 2 * C * (C + 8) + R * (C + 16) + R * (2 * C + 16) + 2 * C * T)
-                + 4 * (8 * 512 + 2 * C + 256))
     return 4 * (w + 7 * C * 2 * C + 2 * C + 2 * C * T + T * (2 * C + 1))
 
 
 def limit_error(C, T, dtype, backward):
     """Why a block of the forward or backward kernel cannot take (C, T) in
     ``dtype``, or None: more shared memory than a block may have, or, for
-    the bfloat16 backward, a C it has no instantiation for."""
+    the bfloat16 kernels, a C they have no instantiation for."""
     need = smem_bytes(C, T, backward, dtype)
     which = "backward" if backward else "forward"
     if need > _SMEM_MAX:
         return (f"a {which} block needs {need} bytes of shared memory, more than the "
                 f"{_SMEM_MAX} a block may have (C={C}, T={T}, {dtype})")
-    if backward and dtype == torch.bfloat16 and C not in WMMA_CS:
-        return (f"the bfloat16 backward holds dW in registers for C in {WMMA_CS} only "
-                f"(C={C})")
+    if dtype == torch.bfloat16 and C not in WMMA_CS:
+        return (f"the bfloat16 {which} has a tensor-core instantiation for C in {WMMA_CS} "
+                f"only (C={C})")
     return None
 
 
@@ -208,6 +209,8 @@ def gtu_forward_cuda(x, wp, bp):
     bfloat16, ``pack``'s operands → (B, N, 3T−12, C) in x's dtype."""
     global fwd_launches
     BN, C, T = _check(x, wp, bp)
+    # the bfloat16 kernel loads x 16 bytes at a time
+    x = x.clone() if x.data_ptr() % 16 else x
     out = torch.empty((*x.shape[:2], out_len(T), C), dtype=x.dtype, device=x.device)
     if BN == 0:
         return out

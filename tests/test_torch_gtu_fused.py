@@ -71,8 +71,11 @@ def test_gtu_fcmy_matches_jax(shape):
                                    err_msg=name)
 
 
-def test_bfloat16_forward_matches_jax():
-    a = _arrays(3, 2, 5, 16, 48)
+@pytest.mark.parametrize("shape", [(2, 5, 16, 48), (1, 2, 48, 48)])
+def test_bfloat16_forward_matches_jax(shape):
+    """At C = 16 and at C = 48, the widest instantiation of the bf16
+    tensor-core kernels."""
+    a = _arrays(3, *shape)
     j_out, _ = _jax(a, jnp.bfloat16)
     t = [torch.from_numpy(a[n]).bfloat16() for n in NAMES]
     out = gtu_fused.gtu_fcmy(*t)
@@ -154,10 +157,12 @@ def test_kernels_refuse_what_they_do_not_take():
         gtu_fused.gtu_forward_cuda(x[0], wp, bp)
     with pytest.raises(ValueError, match="T must be"):
         gtu_fused.gtu_forward_cuda(x[..., :6].contiguous(), wp, bp)
-    # the k = 7 block's shared memory: the GAMBIA shape fits, C = 64 does not
+    # the k = 7 block's shared memory: the GAMBIA shape fits; at C = 64 the
+    # float32 forward needs too much, and the bf16 forward has no instantiation
     for dtype in (torch.float32, torch.bfloat16):
         assert gtu_fused.smem_bytes(32, 144, True, dtype) < 227 * 1024
-        assert gtu_fused.smem_bytes(64, 144, False, dtype) > 227 * 1024
+    assert gtu_fused.smem_bytes(64, 144, False, torch.float32) > 227 * 1024
+    assert "C=64" in gtu_fused.limit_error(64, 144, torch.bfloat16, False)
 
 
 @pytest.mark.parametrize("C, T, dtype, backward, fits", [
@@ -165,22 +170,32 @@ def test_kernels_refuse_what_they_do_not_take():
     (48, 144, torch.float32, True, False), (48, 144, torch.bfloat16, True, True),
     (48, 144, torch.float32, False, True), (32, 240, torch.float32, True, False),
     (32, 240, torch.bfloat16, True, True), (64, 48, torch.bfloat16, True, False),
+    (48, 608, torch.bfloat16, False, True), (48, 624, torch.bfloat16, False, False),
+    (32, 1120, torch.bfloat16, False, True), (32, 1136, torch.bfloat16, False, False),
+    (16, 2128, torch.bfloat16, False, True), (16, 2144, torch.bfloat16, False, False),
+    (64, 48, torch.bfloat16, False, False), (80, 48, torch.bfloat16, False, False),
 ])
 def test_limit_error_is_the_card_gate(C, T, dtype, backward, fits):
     """limit_error refuses a block over 227 KiB (naming the bytes) or a bf16
-    backward C without an instantiation; the bf16 tensor-core backward's
-    smaller tiles admit C = 48 at T = 144 and T = 240 at C = 32."""
+    C without a tensor-core instantiation (naming C); the bf16 tensor-core
+    backward's smaller tiles admit C = 48 at T = 144 and T = 240 at C = 32;
+    the bf16 forward's last T that fits, and the next, at each C it takes."""
     why = gtu_fused.limit_error(C, T, dtype, backward)
     assert (why is None) == fits, why
-    if why is not None and gtu_fused.smem_bytes(C, T, backward, dtype) > 227 * 1024:
-        assert str(gtu_fused.smem_bytes(C, T, backward, dtype)) in why
+    if why is not None:
+        assert f"C={C}" in why
+        if gtu_fused.smem_bytes(C, T, backward, dtype) > 227 * 1024:
+            assert str(gtu_fused.smem_bytes(C, T, backward, dtype)) in why
 
 
 def test_smem_bytes_at_gambia():
-    """The byte counts of csrc/gtu_fused.cu's fwd_smem, bwd_smem and
-    bwd_wmma_smem at C = 32, T = 144 (k = 7)."""
-    assert gtu_fused.smem_bytes(32, 144, False, torch.bfloat16) == 77568
+    """The byte counts of csrc/gtu_fused.cu's fwd_smem, bwd_smem,
+    bwd_wmma_smem and fwd_wmma_smem at C = 32, T = 144 (k = 7)."""
+    assert gtu_fused.smem_bytes(32, 144, False, torch.float32) == 77568
     assert gtu_fused.smem_bytes(32, 144, True, torch.float32) == 191040
+    # bf16 forward: taps 448 rows of 40, x 152 rows of 48, the copy of x
+    # 32 x 144; f32: staging 8 x 512, bias 64
+    assert gtu_fused.smem_bytes(32, 144, False, torch.bfloat16) == 76288
     # bf16: taps 448 rows of 40, x 152 rows of 48, dY 152 rows of 80, the
     # copies of x and g 2 x 32 x 144; f32: staging 8 x 512, bias 64, db
     # partials 256
@@ -249,3 +264,32 @@ def test_bf16_tensor_core_backward_on_card(shape):
     for name, k, p in zip(NAMES, got, grads):
         scale = max(1.0, float(p.float().abs().max()))
         torch.testing.assert_close(k.float(), p.float(), atol=1e-2 * scale, rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 16, 80), (2, 9, 32, 144), (1, 5, 48, 144)])
+def test_bf16_tensor_core_forward_on_card(shape):
+    """The bfloat16 forward (WMMA) against the plain version at the shapes
+    of the backward's test: the output within 1e-2 of scale, from x as given
+    and from x as a view at an odd element offset (the wrapper copies it to
+    16-byte alignment), one launch counted for each call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = _arrays(10, *shape)
+    dtype = torch.bfloat16
+    ins = [torch.from_numpy(a[n]).to(dtype).cuda() for n in NAMES[:7]]
+    x = ins[0]
+    odd = torch.empty(x.numel() + 1, dtype=dtype, device=x.device)[1:].view(x.shape)
+    odd.copy_(x)
+    assert odd.data_ptr() % 16 != 0 and odd.is_contiguous()
+    wp, bp = gtu_fused.pack(*ins[1:], dtype)
+    want = gtu_fused.gtu_cat_plain(*ins).float()
+    scale = max(1.0, float(want.abs().max()))
+    before = gtu_fused.fwd_launches
+    for xin in (x, odd):
+        out = gtu_fused.gtu_forward_cuda(xin, wp, bp)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == want.shape
+        torch.testing.assert_close(out.float(), want, atol=1e-2 * scale, rtol=0)
+    assert gtu_fused.fwd_launches == before + 2
