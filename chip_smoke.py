@@ -17,10 +17,14 @@ Phases; any failure exits non-zero:
      with K1's dΘ equal bit for bit over two launches;
   2c. the fused dense kernels against their plain versions, forward and
      every gradient, in float32 and bfloat16, at PEMS08 block 1 and blocks
-     2-4, the TAt embedding mode and a ragged shape: the temporal-attention
-     forward and backward (csrc/tat_fused.cu) and the spatial-middle forward
-     and backward (csrc/block_spatial_fused.cu), every weight gradient equal
-     bit for bit over two backward launches;
+     2-4, the TAt embedding mode and a ragged shape (and the spatial middle
+     at PEMS07's N = 883 in bfloat16): the temporal-attention forward and
+     backward (csrc/tat_fused.cu) and the spatial-middle forward and
+     backward (csrc/block_spatial_fused.cu; the backward on the forward's
+     ReLU mask, its column and row passes on the tensor cores in bfloat16
+     and on the CUDA cores in float32, each row naming its design), every
+     weight gradient equal bit for bit over two backward launches, and the
+     spatial gate's shared-memory bytes equal to the kernels' own;
   2d. the fused GTU forward and backward (csrc/gtu_fused.cu) against their
      plain version at the GAMBIA block, the JAX test's two shapes, a ragged
      one and C = 48 (bf16 only), float32 (CUDA cores) and bfloat16 (tensor
@@ -52,11 +56,12 @@ Phases; any failure exits non-zero:
      predictions held against an unpermuted model in the original order;
   7. a JSON line with every kernel's numbers, then the device line.
 
-``--measure`` adds timings of whole training epochs (PEMS08 width, the
+``--measure`` adds the spatial backward by pass (a profile at PEMS08
+blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
 fused PEMS08-width bf16 trainer against both unfused paths, GAMBIA dense,
 GAMBIA BELL tiles against both dense paths, and GAMBIA dense and BELL tiles
-with the fused GTU tail against the im2col tail, with each epoch's peak
-device memory) alternated in one process, a torch.profiler breakdown of
+with the fused GTU tail against the im2col tail; the fused PEMS08 and the
+GTU comparisons with each epoch's peak device memory) alternated in one process, a torch.profiler breakdown of
 each, and a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE.
 
@@ -399,14 +404,20 @@ TAT_SHAPES = [
     ("pems08_block1_embed", 64, 12, 170, 3, 32, 32, True),
     ("ragged_n29", 5, 7, 29, 2, 8, 8, False),
 ]
+F32_BF16 = (torch.float32, torch.bfloat16)
 SPATIAL_SHAPES = [
-    # (label, B, N, F, T, C, Co, d, K, d_k): PEMS08 block 1 and blocks 2-4,
-    # and a ragged shape (N, F·T, C·T and d multiples of no tile)
-    ("pems08_block1", 64, 170, 1, 12, 1, 32, 512, 3, 32),
-    ("pems08_blocks2-4", 64, 170, 32, 12, 32, 32, 512, 3, 32),
-    ("ragged_n29", 3, 29, 2, 7, 3, 5, 24, 2, 8),
+    # (label, B, N, F, T, C, Co, d, K, d_k, dtypes): PEMS08 block 1 and
+    # blocks 2-4, a ragged shape (N, F·T, C·T and d multiples of no tile),
+    # and PEMS07's N = 883 at the same widths with the reference's PEMS07
+    # batch of 12 (BASELINE.md), which only the bf16 backward's shared
+    # memory admits (float32: N <= 816)
+    ("pems08_block1", 64, 170, 1, 12, 1, 32, 512, 3, 32, F32_BF16),
+    ("pems08_blocks2-4", 64, 170, 32, 12, 32, 32, 512, 3, 32, F32_BF16),
+    ("ragged_n29", 3, 29, 2, 7, 3, 5, 24, 2, 8, F32_BF16),
+    ("pems07_blocks2-4", 12, 883, 32, 12, 32, 32, 512, 3, 32, (torch.bfloat16,)),
 ]
 SPATIAL_KEEP = 0.95  # the model's dropout rate 0.05: the main path's mask
+SPATIAL_DIFF = (0, 1, 3, 4, 5, 6, 7, 8, 9, 11)  # not the mask, not the Chebyshev planes
 FUSED_TOL = {torch.float32: (TOL, GRAD_TOL),
              # bf16: ~2.5 ulps of 2^-8 of the output's scale (BELL_TOL)
              torch.bfloat16: (1e-2, 1e-2)}
@@ -522,19 +533,47 @@ def _time_backward(fn, ins, cots, diff, iters):
                                                allow_unused=True), iters)
 
 
+def spatial_design(name, dtype) -> str:
+    """The arithmetic of a spatial kernel: the backward's column and row
+    passes in bf16 on the tensor cores (WMMA: sp_cols_bwd_wmma_kernel,
+    sp_rows_bwd_wmma_kernel); everything else, the forward in both dtypes
+    included, float32 FMAs on the CUDA cores."""
+    return "wmma_bf16" if name == "spatial_bwd" and dtype == torch.bfloat16 else "cuda_core_f32"
+
+
+def check_spatial_smem():
+    """block_spatial_fused.smem_bytes (the Python gate) against the bytes
+    each kernel of csrc/block_spatial_fused.cu requests, in both dtypes, at
+    every spatial shape and at the edges of the N caps at PEMS08 widths
+    (float32 816, bf16 944)."""
+    lib = block_spatial_fused._load()
+    shapes = {s[2:10] for s in SPATIAL_SHAPES} | {
+        (N, 32, 12, 32, 32, 512, 3, 32) for N in (816, 817, 944, 945)}
+    for N, F, T, C, Co, d, K, dk in sorted(shapes):
+        for dtype in F32_BF16:
+            got = block_spatial_fused.smem_bytes(N, F * T, C, T, Co, d, K, dk, dtype)
+            for i, kernel in enumerate(block_spatial_fused.KERNELS):
+                want = lib.spatial_fused_smem_bytes(N, F * T, C, T, Co, d, K, dk, i,
+                                                    int(dtype == torch.bfloat16))
+                check(got[kernel] == want,
+                      f"spatial smem_bytes[{kernel}] at N={N} F·T={F * T} C·T={C * T} {dtype} "
+                      f"= {got[kernel]}, the kernel requests {want}")
+
+
 def phase_fused_kernels():
     """The TAt and spatial-middle kernels against their plain versions at
-    every shape, float32 and bfloat16: forward outputs and every gradient
-    through the autograd Functions, every weight gradient equal bit for bit
-    over two backward launches, CUDA-event times of each kernel (on its
-    float32 operands) and of the plain version."""
+    every shape and dtype: forward outputs and every gradient through the
+    autograd Functions, every weight gradient equal bit for bit over two
+    backward launches, CUDA-event times of each kernel (on its float32
+    operands; the spatial backward on the forward's ReLU mask) and of the
+    plain version. Each spatial backward row names its design."""
+    check_spatial_smem()
     rows = []
     tat_diff = tuple(range(9))
-    sp_diff = (0, 1, 3, 4, 5, 6, 7, 8, 9, 11)  # not the mask, not the Chebyshev planes
     for seed, shape in enumerate(TAT_SHAPES + SPATIAL_SHAPES):
         is_tat = seed < len(TAT_SHAPES)
         label = shape[0]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (F32_BF16 if is_tat else shape[-1]):
             tol, gtol = FUSED_TOL[dtype]
             if is_tat:
                 _, BF, T, N, H, dk, dv, embed = shape
@@ -552,20 +591,21 @@ def phase_fused_kernels():
                 bounds = tat_bounds(BF, T, N, H, dk, dv, dtype)
                 desc = {"BF": BF, "T": T, "N": N, "H": H, "d_k": dk, "embed": embed}
             else:
-                _, B, N, F, T, C, Co, d, K, dk = shape
+                _, B, N, F, T, C, Co, d, K, dk, _ = shape
                 dims = dict(K=K, d_k=dk, keep=SPATIAL_KEEP)
                 ins, cots = spatial_inputs(B, N, F, T, C, Co, d, K, dk, dtype, seed)
                 kern = lambda a, dims=dims: block_spatial_fused.SpatialMiddle.apply(
                     *a, *dims.values())
                 plain = lambda a, dims=dims: block_spatial_fused.spatial_middle_plain(
                     *a, **dims)
-                diff, names = sp_diff, ("spatial_fwd", "spatial_bwd")
+                diff, names = SPATIAL_DIFF, ("spatial_fwd", "spatial_bwd")
                 ops = block_spatial_fused._kernel_operands(*ins)
                 kd = dict(dims, bf16=dtype == torch.bfloat16)
                 fwd = lambda ops=ops, kd=kd: block_spatial_fused.spatial_forward_cuda(*ops, **kd)
                 g32 = cots[0].float().contiguous()
-                bwd = lambda ops=ops, g32=g32, kd=kd: block_spatial_fused.spatial_backward_cuda(
-                    *ops, g32, **kd)
+                relu_mask = fwd() > 0  # the record SpatialMiddle keeps
+                bwd = lambda ops=ops, g32=g32, m=relu_mask, kd=kd: (
+                    block_spatial_fused.spatial_backward_cuda(*ops, g32, m, **kd))
                 weight_slice = slice(2, 10)  # dpw, dpb, dpos, dgs, dbs, dwqk, dbias, dΘ
                 bounds = spatial_bounds(B, N, F, T, C, Co, d, K, dk, dtype)
                 desc = {"B": B, "N": N, "F": F, "T": T, "C": C, "Co": Co, "d": d, "K": K,
@@ -596,6 +636,8 @@ def phase_fused_kernels():
                 if name == names[1]:
                     row["weight_grads_bit_identical"] = identical
                     row["rel_err_each"] = per_grad
+                if not is_tat:
+                    row["design"] = spatial_design(name, dtype)
                 row["ms"], row["plain_ms"] = times[name]
                 row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
                 print("fused", json.dumps(row), flush=True)
@@ -604,16 +646,60 @@ def phase_fused_kernels():
                 check(row.get("weight_grads_bit_identical", True),
                       f"{name} weight gradients differ between two launches at {label} {dtype}")
                 rows.append(row)
-            del ins, cots, ops
+            del ins, cots, ops, fwd, bwd
             torch.cuda.empty_cache()
     return rows
+
+
+SPATIAL_PASSES = (("sa", "sp_embed_kernel"), ("cols", "sp_cols_bwd"), ("rows", "sp_rows_bwd"),
+                  ("embed_bwd", "sp_embed_bwd_kernel"), ("atb", "atb_partial_kernel"),
+                  ("colsum", "colsum_kernel"))
+
+
+def measure_spatial_passes(iters: int = 10):
+    """The spatial backward (row 13) by pass at PEMS08 blocks 2-4 in each
+    dtype: torch.profiler over ``iters`` backwards through SpatialMiddle's
+    autograd (an interface every version of the package has, so a checkout
+    of another commit can be measured with the same function), device ms
+    per backward of each kernel, summed by pass; "colsum" is the fixed-order
+    row sums (dbias, dΘ, dpos, dpb, dgs, dbs and atb's partials), "other"
+    the tensor ops around the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, B, N, F, T, C, Co, d, K, dk, dtypes = next(
+        s for s in SPATIAL_SHAPES if s[0] == "pems08_blocks2-4")
+    out = {"shape": "pems08_blocks2-4", "iters": iters}
+    for dtype in dtypes:
+        ins, cots = spatial_inputs(B, N, F, T, C, Co, d, K, dk, dtype, 0)
+        leaves = [t.detach().clone().requires_grad_(i in SPATIAL_DIFF)
+                  for i, t in enumerate(ins)]
+        y = block_spatial_fused.SpatialMiddle.apply(*leaves, K, dk, SPATIAL_KEEP)
+        inputs = [leaves[i] for i in SPATIAL_DIFF]
+        run = lambda: torch.autograd.grad(y, inputs, cots, retain_graph=True)
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                run()
+            torch.cuda.synchronize()
+        kernels = {e.key[:90]: e.self_device_time_total / 1e3 / iters
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+        passes = {name: sum(v for k, v in kernels.items() if frag in k)
+                  for name, frag in SPATIAL_PASSES}
+        passes["other"] = sum(kernels.values()) - sum(passes.values())
+        out[str(dtype).split(".")[-1]] = {"device_ms": sum(kernels.values()), "passes": passes,
+                                          "kernels": kernels}
+        del ins, cots, leaves, y, inputs
+        torch.cuda.empty_cache()
+    print("measure", json.dumps({"path": "spatial_bwd_passes", **out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 2d: the fused GTU kernels vs their plain version
 # ---------------------------------------------------------------------------
 
-F32_BF16 = (torch.float32, torch.bfloat16)
 GTU_SHAPES = [
     # (label, B, N, C, T, dtypes): the GAMBIA block (both blocks alike), the
     # JAX test's two shapes, a ragged one (B·N odd, no T_out a multiple of
@@ -966,7 +1052,8 @@ def profile_epoch(trainer, top: int = 12):
 def measure_pems08_fused(root: Path, rounds: int = 2):
     """Train-epoch time of the fused PEMS08-width bf16 trainer against the
     unfused one (plain aggregation, and the cheb_sat kernel), alternated in
-    one process; then a profile of a fused epoch."""
+    one process, with each epoch's peak device memory (as in
+    measure_gambia_fuse_gtu); then a profile of a fused epoch."""
     from dstagnn_drought_tpu_torch.config import load_config
 
     variants = {"unfused_plain": dict(use_pallas=False, fuse_tat=False, fuse_spatial=False),
@@ -980,14 +1067,18 @@ def measure_pems08_fused(root: Path, rounds: int = 2):
         trainers[name] = Trainer(cfg, experiments_root=str(root / f"mf_{name}"), device="cuda")
         trainers[name].train_epoch(0)  # warm-up
     times = {name: [] for name in variants}
+    peak = {name: [] for name in variants}
     order = ["unfused_plain", "unfused_kernel", "fused", "fused", "unfused_kernel",
              "unfused_plain"] * rounds
     for i, name in enumerate(order):
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         trainers[name].train_epoch(i + 1)
         times[name].append((time.perf_counter() - t0) / trainers[name].last_epoch_steps * 1e3)
-    out = {"path": "pems08_bf16_fused_step_ms", **times,
+        peak[name].append((torch.cuda.max_memory_allocated() - base) / 2 ** 20)
+    out = {"path": "pems08_bf16_fused_step_ms", **times, "epoch_peak_mib": peak,
            "profile": {name: profile_epoch(trainers[name]) for name in ("fused", "unfused_plain")}}
     print("measure", json.dumps(out), flush=True)
     return out
@@ -1422,8 +1513,8 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
         })
     for name in ("tat_fwd", "tat_bwd", "spatial_fwd", "spatial_bwd"):
         mine = [r for r in fused_rows if r["kernel"] == name]
-        main = next(r for r in mine
-                    if r["shape"] == "pems08_blocks2-4" and r["dtype"] == "bfloat16")
+        main, f32 = (next(r for r in mine if r["shape"] == "pems08_blocks2-4"
+                          and r["dtype"] == dt) for dt in ("bfloat16", "float32"))
         src, site = KERNEL_SITES[name]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": site,
@@ -1434,6 +1525,8 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "shape": "PEMS08 blocks 2-4, bf16: B=64 F=32 T=12 N=170 (TAt H=3 d_k=32; "
                      "spatial d=512 K=3 C=Co=32)",
         })
+        if name.startswith("spatial"):
+            out[-1].update(design=main["design"], f32_ms=f32["ms"], f32_design=f32["design"])
     for name in ("gtu_fwd", "gtu_bwd"):
         mine = [r for r in gtu_rows if r["kernel"] == name]
         main, f32 = (next(r for r in mine if r["shape"] == "gambia_block" and r["dtype"] == dt)
@@ -1483,6 +1576,7 @@ def main(argv=None) -> int:
     rows = phase_kernels()
     bell_rows = phase_bell_kernels()
     fused_rows = phase_fused_kernels()
+    passes = measure_spatial_passes() if args.measure else None
     gtu_rows = phase_gtu_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
@@ -1495,7 +1589,8 @@ def main(argv=None) -> int:
         gtu_bell = phase_gambia_bell_fuse_gtu(root)
         rcm = phase_gambia_bell_rcm(root)
         if args.measure:
-            measured = {"pems08": measured, "pems08_fused": measure_pems08_fused(root),
+            measured = {"pems08": measured, "spatial_bwd_passes": passes,
+                        "pems08_fused": measure_pems08_fused(root),
                         "gambia": measure_gambia_steps(root),
                         "gambia_bell": measure_gambia_bell(root),
                         "gambia_fuse_gtu": measure_gambia_fuse_gtu(root),

@@ -33,34 +33,71 @@
 //               all N sources, the source-axis softmax, A_k, agg_k (16 x C*T
 //               sums in registers) and the theta mix into a shared 16 x Co*T
 //               tile; ReLU on the way out. (B, K, N, N) never reaches memory.
-//   backward SA again (saving semx, x_hat, 1/std); SB recomputes the
-//               pre-ReLU tile for the mask, then per k: dtheta partial, dagg,
-//               dA (a warp per source row), the softmax backward -> ds, dk;
+//   backward SA again (saving semx, x_hat, 1/std); SB, one loop over k:
+//               the column's softmax and A_k, agg_k, the dtheta partial,
+//               dagg, dA, the softmax backward -> ds, dk;
 //            SC (b, 16 source rows): dxm += A_k . dagg_k and dq_k from ds;
 //            SD (b, 16 rows): dsemx, dropout and LN backward, dtat;
 //            then the weight gradients, summed over b in a fixed order:
 //               dpw = tat^T dse, dwqk = semx^T dqk (split-row products),
 //               dbias, dtheta, dpos, dpb, dgs, dbs (row sums). No float
 //               atomics: two launches give the same bits.
-// Tensor cores (wgmma on the bf16 operands) and TMA are left for a later
-// change.
+// The ReLU mask comes from the forward: the wrapper keeps where the forward
+// kernel's float32 output was > 0 (one byte an element) and SB reads it, so
+// the backward never recomputes the pre-ReLU output. JAX recomputes it
+// inside its backward kernel with the forward's own arithmetic; here the
+// bf16 backward sums its products in another order than the forward, and a
+// recomputed value within rounding of 0 could flip the mask (one flipped
+// element changes a whole batch row's gradients). The forward's record
+// keeps the backward consistent with the output autograd saw, as
+// torch.relu's backward reads its output.
+// Float32 runs every pass on the CUDA cores (exact FMAs, no TF32). In
+// bfloat16 the two N-sized passes run their products on the tensor cores
+// (nvcuda::wmma bf16 16x16x16 fragments, float32 sums; the operands are
+// bf16-exact already, so only the order of the sums differs):
+//   SB (sp_cols_bwd_wmma_kernel): agg_k = A_k^T . xm, dA = xm . dagg_k^T,
+//      and the theta products dtheta_k = md(agg)^T . gm, dagg = gm . theta^T
+//      over the rows r = (j, t), through bf16 tiles transposed to
+//      (r, c) and (r, o) in shared memory (theta mixes per time step, so
+//      in agg's (j, c*T + t) layout they contract with a stride);
+//   SC (sp_rows_bwd_wmma_kernel): dxm += A_k . dagg_k.
+// A_k (N, 16) and dagg (16, C*T) are bf16 tiles in shared memory; xm (the
+// wrapper's bf16 copy padded to (Np, C*Tp), multiples of 16, zero outside)
+// and dagg_k (bf16, (Np, C*Tp)) are read as fragments straight from device
+// memory (L2): the block never holds xm, so shared memory holds the (N, 16)
+// planes and 16-row tiles, and the bf16 cap on N is 944 at PEMS08 widths
+// (float32: 816). A's rows past N are zero, so the padded sources add
+// nothing. The scores, the softmax and its backward, dk and dq stay float32
+// FMAs on the CUDA cores: the backward's scores read the tile's keys
+// transposed (conflict-free), SC rebuilds A_k a warp per source row with
+// its lanes across the targets (coalesced bias and Chebyshev reads), both
+// in the forward's FMA order. The embedding passes SA and SD share
+// dense::rows_x_mat with the forward and stay on the CUDA cores too.
 
 #include "dense_common.cuh"
+#include "wmma_common.cuh"
 
 namespace {
 
+using namespace wm;
 using dense::kThreads;
 using dense::kWarps;
 using dense::rnd;
 
 constexpr int kRows = 16;  // source rows a block (SA, SC, SD)
 constexpr int kCols = 16;  // target columns a block (SB)
+constexpr int kAcc = 3;    // 16-column accumulator tiles a warp holds (WMMA)
 
 // n rounded up to a multiple of 4 floats (16-byte aligned shared buffers)
 __host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
+__host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
 
+// The bf16 tiles: Np, CTp, Cp, Cop are N, C*T, C, Co rounded up to 16; R =
+// 16*T rows (j, t) of the theta products; LD, LC, LO the rows of the dagg,
+// (r, c) and (r, o) tiles (multiples of 8 for load_matrix_sync)
 struct Dims {
   int B, N, FT, CT, T, C, Co, CoT, d, K, dk, hk, HK2, bf16;
+  int Np, CTp, Cp, Cop, R, LD, LC, LO;
   float keep_inv, inv_sqrt;
 };
 
@@ -114,35 +151,46 @@ sp_embed_kernel(const float* __restrict__ tat, const float* __restrict__ pw,
 // SB helpers: one block owns target columns j0 .. j0+nj-1 of batch b
 // ---------------------------------------------------------------------------
 
-// s = md(q_i) . md(k_j) / sqrt(dk) + bias, the same FMA order in SB and SC
-__device__ __forceinline__ float score(const float* __restrict__ qrow, const float* krow,
+// s = md(q_i) . md(k_j) / sqrt(dk) + bias, the same FMA order in SB and SC;
+// k_j's element c at krow[c * ks]
+__device__ __forceinline__ float score(const float* __restrict__ qrow, const float* krow, int ks,
                                        float bias, const Dims& D) {
   float dot = 0.f;
-  for (int c = 0; c < D.dk; ++c) dot = fmaf(rnd(qrow[c], D.bf16), krow[c], dot);
+  for (int c = 0; c < D.dk; ++c) dot = fmaf(rnd(qrow[c], D.bf16), krow[c * ks], dot);
   return dot * D.inv_sqrt + bias;
 }
 
+__device__ __forceinline__ void put(float* p, int e, float v) { p[e] = v; }
+__device__ __forceinline__ void put(bf16* p, int e, float v) { p[e] = __float2bfloat16_rn(v); }
+
 // att (N, 16) = source-axis softmax of the tile's scores for order k, and
-// A = md(cheb * att); zero past the ragged edge. stats (B,K,N,2) gets each
-// column's max and sum of exp when given.
+// A = md(cheb * att) (float32, or bf16 for the tensor cores); zero past the
+// ragged edge. stats (B,K,N,2) gets each column's max and sum of exp when
+// given. kt holds the tile's md(k) rows (16, dk), or with kKT set their
+// transpose (dk, 16), which the 16 columns a half-warp scores read without
+// bank conflicts (the backward); the sums are the same either way.
+template <typename TA, bool kKT = false>
 __device__ void col_softmax(int b, int k, int j0, int nj, const float* __restrict__ qk,
                             const float* __restrict__ bias, const float* __restrict__ cheb,
-                            float* kt, float* att, float* A, float* __restrict__ stats,
+                            float* kt, float* att, TA* A, float* __restrict__ stats,
                             const Dims& D) {
   const int N = D.N;
   for (int e = threadIdx.x; e < kCols * D.dk; e += kThreads) {
     const int jj = e / D.dk, c = e % D.dk;
-    kt[e] = jj < nj ? rnd(qk[((size_t)b * N + j0 + jj) * D.HK2 + D.hk + k * D.dk + c], D.bf16)
-                    : 0.f;
+    kt[kKT ? c * kCols + jj : e] =
+        jj < nj ? rnd(qk[((size_t)b * N + j0 + jj) * D.HK2 + D.hk + k * D.dk + c], D.bf16)
+                : 0.f;
   }
   __syncthreads();
   const float* bias_k = bias + (size_t)k * N * N;
   for (int e = threadIdx.x; e < N * kCols; e += kThreads) {
     const int i = e / kCols, jj = e % kCols;
     float s = 0.f;
-    if (jj < nj)
-      s = score(qk + ((size_t)b * N + i) * D.HK2 + k * D.dk, kt + jj * D.dk,
-                bias_k[(size_t)i * N + j0 + jj], D);
+    if (jj < nj) {
+      const float* qrow = qk + ((size_t)b * N + i) * D.HK2 + k * D.dk;
+      const float bij = bias_k[(size_t)i * N + j0 + jj];
+      s = kKT ? score(qrow, kt + jj, kCols, bij, D) : score(qrow, kt + jj * D.dk, 1, bij, D);
+    }
     att[e] = s;
   }
   __syncthreads();
@@ -150,7 +198,10 @@ __device__ void col_softmax(int b, int k, int j0, int nj, const float* __restric
   const float* cheb_k = cheb + (size_t)k * N * N;
   for (int jj = warp; jj < kCols; jj += kWarps) {
     if (jj >= nj) {
-      for (int i = lane; i < N; i += 32) att[i * kCols + jj] = A[i * kCols + jj] = 0.f;
+      for (int i = lane; i < N; i += 32) {
+        att[i * kCols + jj] = 0.f;
+        put(A, i * kCols + jj, 0.f);
+      }
       continue;
     }
     float m = -INFINITY;
@@ -162,7 +213,7 @@ __device__ void col_softmax(int b, int k, int j0, int nj, const float* __restric
     for (int i = lane; i < N; i += 32) {
       const float a = expf(att[i * kCols + jj] - m) / sum;
       att[i * kCols + jj] = a;
-      A[i * kCols + jj] = rnd(cheb_k[(size_t)i * N + j0 + jj] * a, D.bf16);
+      put(A, i * kCols + jj, rnd(cheb_k[(size_t)i * N + j0 + jj] * a, D.bf16));
     }
     if (stats && lane == 0) {
       float* st = stats + (((size_t)b * D.K + k) * N + j0 + jj) * 2;
@@ -245,13 +296,53 @@ sp_cols_fwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------------------
-// SB backward, per (b, 16 target columns)
+// SB backward pieces both dtypes share, per (b, 16 target columns)
+// ---------------------------------------------------------------------------
+
+// source-axis softmax backward, a warp a column jj < nj: datt (N, 16) in ds
+// becomes ds = att * (datt - sum_i att*datt); dS_col (dS_k from column j0)
+// gets it
+__device__ __forceinline__ void softmax_bwd(int nj, const float* att, float* ds,
+                                            float* __restrict__ dS_col, const Dims& D) {
+  const int N = D.N, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int jj = warp; jj < nj; jj += kWarps) {
+    float dot = 0.f;
+    for (int i = lane; i < N; i += 32) dot = fmaf(att[i * kCols + jj], ds[i * kCols + jj], dot);
+    dot = dense::warp_sum(dot);
+    for (int i = lane; i < N; i += 32) {
+      const float v = att[i * kCols + jj] * (ds[i * kCols + jj] - dot);
+      ds[i * kCols + jj] = v;
+      dS_col[(size_t)i * N + jj] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// dk_k[j] = sum_i md(ds)[i][j] md(q_k)[i] / sqrt(dk)
+__device__ __forceinline__ void dk_cols(int b, int k, int j0, int nj, const float* ds,
+                                        const float* __restrict__ qk, float* __restrict__ dqk,
+                                        const Dims& D) {
+  const int N = D.N;
+  for (int e = threadIdx.x; e < nj * D.dk; e += kThreads) {
+    const int jj = e / D.dk, c = e % D.dk;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < N; ++i)
+      acc = fmaf(rnd(ds[i * kCols + jj], D.bf16),
+                 rnd(__ldg(qk + ((size_t)b * N + i) * D.HK2 + k * D.dk + c), D.bf16), acc);
+    dqk[((size_t)b * N + j0 + jj) * D.HK2 + D.hk + k * D.dk + c] = acc * D.inv_sqrt;
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// SB backward in float32 on the CUDA cores, per (b, 16 target columns)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 sp_cols_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
                    const float* __restrict__ cheb, const float* __restrict__ xm,
                    const float* __restrict__ theta, const float* __restrict__ g_out,
-                   float* __restrict__ aggbuf, float* __restrict__ daggbuf,
+                   const unsigned char* __restrict__ relu_pos, float* __restrict__ daggbuf,
                    float* __restrict__ dS, float* __restrict__ dqk,
                    float* __restrict__ dth_part, float* __restrict__ stats, Dims D) {
   extern __shared__ __align__(16) float sm[];
@@ -265,28 +356,19 @@ sp_cols_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
   float* dagg = agg + kCols * D.CT;
   float* gm = dagg + kCols * D.CT;
 
-  // recompute the pre-ReLU output for the mask, keeping agg_k
+  // gm = md(g * [y > 0]) with the forward's own mask
   zero(gm, kCols * D.CoT);
-  for (int k = 0; k < D.K; ++k) {
-    col_softmax(b, k, j0, nj, qk, bias, cheb, kt, att, A, nullptr, D);
-    aggregate(b, A, xm, agg, D);
-    float* ab = aggbuf + (((size_t)b * D.K + k) * N + j0) * D.CT;
-    for (int e = threadIdx.x; e < nj * D.CT; e += kThreads) ab[e] = agg[e];
-    theta_mix(k, nj, agg, theta, gm, D);
-  }
   const float* gb = g_out + ((size_t)b * N + j0) * D.CoT;
+  const unsigned char* pb = relu_pos + ((size_t)b * N + j0) * D.CoT;
   for (int e = threadIdx.x; e < nj * D.CoT; e += kThreads)
-    gm[e] = rnd(gb[e] * (gm[e] > 0.f ? 1.f : 0.f), D.bf16);
+    gm[e] = rnd(gb[e] * (pb[e] ? 1.f : 0.f), D.bf16);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int NJt = gridDim.x;
   for (int k = 0; k < D.K; ++k) {
-    col_softmax(b, k, j0, nj, qk, bias, cheb, kt, att, A, stats, D);
-    const float* ab = aggbuf + (((size_t)b * D.K + k) * N + j0) * D.CT;
-    for (int e = threadIdx.x; e < kCols * D.CT; e += kThreads)
-      agg[e] = e < nj * D.CT ? ab[e] : 0.f;
-    __syncthreads();
+    col_softmax<float, true>(b, k, j0, nj, qk, bias, cheb, kt, att, A, stats, D);
+    aggregate(b, A, xm, agg, D);
     // dtheta_k partial of this tile: sum_{j,t} md(agg)[j][c,t] * gm[j][o,t]
     const float* th = theta + (size_t)k * D.C * D.Co;
     float* part = dth_part + (((size_t)b * NJt + jt) * D.K + k) * D.C * D.Co;
@@ -337,36 +419,255 @@ sp_cols_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
       }
     }
     __syncthreads();
-    // source-axis softmax backward, per column: ds = att * (datt - sum_i att*datt)
-    float* dSk = dS + ((size_t)b * D.K + k) * N * N;
-    for (int jj = warp; jj < nj; jj += kWarps) {
-      float dot = 0.f;
-      for (int i = lane; i < N; i += 32) dot = fmaf(att[i * kCols + jj], ds[i * kCols + jj], dot);
-      dot = dense::warp_sum(dot);
-      for (int i = lane; i < N; i += 32) {
-        const float v = att[i * kCols + jj] * (ds[i * kCols + jj] - dot);
-        ds[i * kCols + jj] = v;
-        dSk[(size_t)i * N + j0 + jj] = v;
+    softmax_bwd(nj, att, ds, dS + ((size_t)b * D.K + k) * N * N + j0, D);
+    dk_cols(b, k, j0, nj, ds, qk, dqk, D);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 products on the tensor cores. xb is batch row b of the padded
+// bf16 xm, (Np, CTp), zero past N and past C*T.
+// ---------------------------------------------------------------------------
+
+// agg (16, CTp) = A^T . xm over the Np sources. A (Np, 16) bf16 is read
+// col-major as A^T; a warp owns the 16-column tiles w, w + 8, w + 16 of
+// each group of 8 * kAcc and keeps their sums in fragments over all sources.
+__device__ void aggregate_wmma(const bf16* A, const bf16* __restrict__ xb, float* agg,
+                               const Dims& D) {
+  const int warp = threadIdx.x / 32, MT = D.CTp / 16;
+  for (int g0 = warp; g0 < MT; g0 += kWarps * kAcc) {
+    FragC acc[kAcc];
+#pragma unroll
+    for (int q = 0; q < kAcc; ++q) wmma::fill_fragment(acc[q], 0.f);
+#pragma unroll 2
+    for (int i0 = 0; i0 < D.Np; i0 += 16) {
+      FragAt a;
+      wmma::load_matrix_sync(a, A + i0 * kCols, kCols);
+#pragma unroll
+      for (int q = 0; q < kAcc; ++q) {
+        const int mt = g0 + q * kWarps;
+        if (mt < MT) {
+          FragB x;
+          wmma::load_matrix_sync(x, xb + (size_t)i0 * D.CTp + mt * 16, D.CTp);
+          wmma::mma_sync(acc[q], a, x, acc[q]);
+        }
       }
     }
-    __syncthreads();
-    // dk_k[j] = sum_i md(ds)[i][j] md(q_k)[i] / sqrt(dk)
-    for (int e = threadIdx.x; e < nj * D.dk; e += kThreads) {
-      const int jj = e / D.dk, c = e % D.dk;
-      float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < kAcc; ++q) {
+      const int mt = g0 + q * kWarps;
+      if (mt < MT) wmma::store_matrix_sync(agg + mt * 16, acc[q], D.CTp, wmma::mem_row_major);
+    }
+  }
+  __syncthreads();
+}
+
+// dA (Np, 16) = xm . dagg^T, dagg (16, LD) bf16 read col-major as dagg^T; a
+// warp owns the 16-source tiles w, w + 8, ...
+__device__ void dA_wmma(const bf16* __restrict__ xb, const bf16* dagg, float* dA, const Dims& D) {
+  const int warp = threadIdx.x / 32, MT = D.CTp / 16;
+  for (int i0 = warp * 16; i0 < D.Np; i0 += kWarps * 16) {
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
 #pragma unroll 4
-      for (int i = 0; i < N; ++i)
-        acc = fmaf(rnd(ds[i * kCols + jj], D.bf16),
-                   rnd(__ldg(qk + ((size_t)b * N + i) * D.HK2 + k * D.dk + c), D.bf16), acc);
-      dqk[((size_t)b * N + j0 + jj) * D.HK2 + D.hk + k * D.dk + c] = acc * D.inv_sqrt;
+    for (int mt = 0; mt < MT; ++mt) {
+      FragA x;
+      FragBt g;
+      wmma::load_matrix_sync(x, xb + (size_t)i0 * D.CTp + mt * 16, D.CTp);
+      wmma::load_matrix_sync(g, dagg + mt * 16, D.LD);
+      wmma::mma_sync(acc, x, g, acc);
+    }
+    wmma::store_matrix_sync(dA + i0 * kCols, acc, kCols, wmma::mem_row_major);
+  }
+  __syncthreads();
+}
+
+// The theta products as bf16 GEMMs over the R = 16*T rows r = (j, t) of
+// the tile: gT (R, Cop) = gm with gT[r][o] = gm[j][o, t], aT (R, Cp) =
+// md(agg) with aT[r][c] = md(agg)[j][c, t], thS (Cp, Cop) = theta_k, all
+// bf16 and zero-padded. Per warp, a 16x16 tile of
+//   dtheta_k = aT^T . gT   (Cp, Cop; aT read col-major)
+//   dagg^T   = gT . thS^T  (R, Cp; thS read col-major)
+// goes through the warp's 16x16 float32 staging to its place: dtheta to the
+// block's partial row, md(dagg) to the (16, LD) tile in dagg's (j, c*T + t)
+// layout.
+__device__ void theta_wmma(const bf16* gT, const bf16* aT, const bf16* thS, float* stage,
+                           bf16* dagg, float* __restrict__ part, const Dims& D) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int CTt = D.Cp / 16, OTt = D.Cop / 16, RT = D.R / 16;
+  const int n_dth = CTt * OTt;
+  float* sw = stage + warp * 256;
+  for (int w = warp; w < n_dth + RT * CTt; w += kWarps) {
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+    if (w < n_dth) {
+      const int ct = w / OTt, ot = w % OTt;
+      for (int rt = 0; rt < RT; ++rt) {
+        FragAt x;
+        FragB g;
+        wmma::load_matrix_sync(x, aT + rt * 16 * D.LC + ct * 16, D.LC);
+        wmma::load_matrix_sync(g, gT + rt * 16 * D.LO + ot * 16, D.LO);
+        wmma::mma_sync(acc, x, g, acc);
+      }
+      wmma::store_matrix_sync(sw, acc, 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int c = ct * 16 + e / 16, o = ot * 16 + e % 16;
+        if (c < D.C && o < D.Co) part[c * D.Co + o] = sw[e];
+      }
+    } else {
+      const int rt = (w - n_dth) / CTt, ct = (w - n_dth) % CTt;
+      for (int ot = 0; ot < OTt; ++ot) {
+        FragA g;
+        FragBt th;
+        wmma::load_matrix_sync(g, gT + rt * 16 * D.LO + ot * 16, D.LO);
+        wmma::load_matrix_sync(th, thS + ct * 16 * D.LO + ot * 16, D.LO);
+        wmma::mma_sync(acc, g, th, acc);
+      }
+      wmma::store_matrix_sync(sw, acc, 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int r = rt * 16 + e / 16, c = ct * 16 + e % 16;
+        if (c < D.C) dagg[(r / D.T) * D.LD + c * D.T + r % D.T] = __float2bfloat16_rn(sw[e]);
+      }
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// SB backward in bfloat16, per (b, 16 target columns): agg_k, dA and the
+// theta products on the tensor cores; dagg_k (bf16, (Np, CTp) a k, zero past
+// N and C*T) for SC
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+sp_cols_bwd_wmma_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
+                        const float* __restrict__ cheb, const bf16* __restrict__ xp,
+                        const float* __restrict__ theta, const float* __restrict__ g_out,
+                        const unsigned char* __restrict__ relu_pos, bf16* __restrict__ daggbuf,
+                        float* __restrict__ dS, float* __restrict__ dqk,
+                        float* __restrict__ dth_part, float* __restrict__ stats, Dims D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = D.N, Np = D.Np, b = blockIdx.y, jt = blockIdx.x, j0 = jt * kCols;
+  const int nj = min(kCols, N - j0);
+  // every region a multiple of 32 bytes, so each WMMA tile starts aligned
+  float* kt = reinterpret_cast<float*>(smem);             // (dk, 16)
+  float* att = kt + kCols * D.dk;                          // (Np, 16)
+  float* ds = att + Np * kCols;                            // (Np, 16): dA, datt, ds
+  float* agg = ds + Np * kCols;                            // (16, CTp)
+  float* stage = agg + kCols * D.CTp;                      // 8 x (16, 16)
+  bf16* A = reinterpret_cast<bf16*>(stage + kWarps * 256);  // (Np, 16)
+  bf16* dagg = A + Np * kCols;                             // (16, LD)
+  bf16* gT = dagg + kCols * D.LD;                          // (R, LO)
+  bf16* aT = gT + D.R * D.LO;                              // (R, LC)
+  bf16* thS = aT + D.R * D.LC;                             // (Cp, LO)
+  const bf16 zero16 = __float2bfloat16_rn(0.f);
+  // zero what no k writes: A past N (the padded sources add nothing), dagg
+  // past C*T, aT past C
+  for (int e = N * kCols + threadIdx.x; e < Np * kCols; e += kThreads) A[e] = zero16;
+  for (int e = threadIdx.x; e < kCols * (D.CTp - D.CT); e += kThreads)
+    dagg[(e / (D.CTp - D.CT)) * D.LD + D.CT + e % (D.CTp - D.CT)] = zero16;
+  for (int e = threadIdx.x; e < D.R * (D.Cp - D.C); e += kThreads)
+    aT[(e / (D.Cp - D.C)) * D.LC + D.C + e % (D.Cp - D.C)] = zero16;
+  // gT = md(g * [y > 0]) with the forward's own mask, zero past nj and Co
+  const size_t o0 = ((size_t)b * N + j0) * D.CoT;
+  for (int e = threadIdx.x; e < D.R * D.Cop; e += kThreads) {
+    const int r = e / D.Cop, o = e % D.Cop, jj = r / D.T, t = r % D.T;
+    float v = 0.f;
+    if (jj < nj && o < D.Co) {
+      const size_t g = o0 + (size_t)jj * D.CoT + o * D.T + t;
+      v = g_out[g] * (relu_pos[g] ? 1.f : 0.f);
+    }
+    gT[r * D.LO + o] = __float2bfloat16_rn(v);
+  }
+  __syncthreads();
+
+  const bf16* xb = xp + (size_t)b * Np * D.CTp;
+  for (int k = 0; k < D.K; ++k) {
+    col_softmax<bf16, true>(b, k, j0, nj, qk, bias, cheb, kt, att, A, stats, D);
+    aggregate_wmma(A, xb, agg, D);
+    const float* th = theta + (size_t)k * D.C * D.Co;
+    for (int e = threadIdx.x; e < D.R * D.C; e += kThreads) {
+      const int r = e / D.C, c = e % D.C;
+      aT[r * D.LC + c] = __float2bfloat16_rn(agg[(r / D.T) * D.CTp + c * D.T + r % D.T]);
+    }
+    for (int e = threadIdx.x; e < D.Cp * D.Cop; e += kThreads) {
+      const int c = e / D.Cop, o = e % D.Cop;
+      thS[c * D.LO + o] = __float2bfloat16_rn(c < D.C && o < D.Co ? th[c * D.Co + o] : 0.f);
     }
     __syncthreads();
+    theta_wmma(gT, aT, thS, stage, dagg,
+               dth_part + (((size_t)b * gridDim.x + jt) * D.K + k) * D.C * D.Co, D);
+    bf16* db = daggbuf + (((size_t)b * D.K + k) * Np + j0) * D.CTp;
+    for (int e = threadIdx.x; e < kCols * D.CTp; e += kThreads)
+      db[e] = dagg[(e / D.CTp) * D.LD + e % D.CTp];
+    dA_wmma(xb, dagg, ds, D);
+    const float* cheb_k = cheb + (size_t)k * N * N;
+    for (int e = threadIdx.x; e < N * kCols; e += kThreads) {
+      const int jj = e % kCols;
+      if (jj < nj) ds[e] *= cheb_k[(size_t)(e / kCols) * N + j0 + jj];
+    }
+    __syncthreads();
+    softmax_bwd(nj, att, ds, dS + ((size_t)b * D.K + k) * N * N + j0, D);
+    dk_cols(b, k, j0, nj, ds, qk, dqk, D);
   }
 }
 
 // ---------------------------------------------------------------------------
 // SC: dxm and dq for 16 source rows of batch b
 // ---------------------------------------------------------------------------
+
+// krT (dk, N) = md(k_k) of every target, transposed, then At (N, 16) with
+// At[j][ii] = md(A_k)[i0+ii][j], rebuilt from the column stats SB saved
+// (the scores in SB's FMA order); zero past ni. A warp takes a source row
+// and its lanes the targets: the bias, Chebyshev and krT reads coalesce.
+template <typename TA>
+__device__ void rows_of_A(int b, int k, int i0, int ni, const float* __restrict__ qk,
+                          const float* __restrict__ bias, const float* __restrict__ cheb,
+                          const float* __restrict__ stats, float* krT, TA* At, const Dims& D) {
+  const int N = D.N;
+  for (int e = threadIdx.x; e < N * D.dk; e += kThreads) {
+    const int j = e / D.dk, c = e % D.dk;
+    krT[c * N + j] = rnd(qk[((size_t)b * N + j) * D.HK2 + D.hk + k * D.dk + c], D.bf16);
+  }
+  __syncthreads();
+  const float* st = stats + ((size_t)b * D.K + k) * N * 2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int ii = warp; ii < kRows; ii += kWarps) {
+    const int i = i0 + ii;
+    if (ii >= ni) {
+      for (int j = lane; j < N; j += 32) put(At, j * kRows + ii, 0.f);
+      continue;
+    }
+    const float* qrow = qk + ((size_t)b * N + i) * D.HK2 + k * D.dk;
+    const float* bias_i = bias + ((size_t)k * N + i) * N;
+    const float* cheb_i = cheb + ((size_t)k * N + i) * N;
+    for (int j = lane; j < N; j += 32) {
+      const float s = score(qrow, krT + j, N, bias_i[j], D);
+      put(At, j * kRows + ii, rnd(cheb_i[j] * (expf(s - st[2 * j]) / st[2 * j + 1]), D.bf16));
+    }
+  }
+  __syncthreads();
+}
+
+// dq_k[i] = sum_j md(ds)[i][j] md(k_k)[j] / sqrt(dk) for the block's rows
+__device__ __forceinline__ void dq_rows(int b, int k, int i0, int ni, const float* __restrict__ dS,
+                                        const float* krT, float* __restrict__ dqk,
+                                        const Dims& D) {
+  const int N = D.N;
+  const float* dSk = dS + ((size_t)b * D.K + k) * N * N;
+  for (int e = threadIdx.x; e < ni * D.dk; e += kThreads) {
+    const int ii = e / D.dk, c = e % D.dk;
+    const float* dsr = dSk + (size_t)(i0 + ii) * N;
+    const float* kc = krT + c * N;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < N; ++j) acc = fmaf(rnd(__ldg(dsr + j), D.bf16), kc[j], acc);
+    dqk[((size_t)b * N + i0 + ii) * D.HK2 + k * D.dk + c] = acc * D.inv_sqrt;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 sp_rows_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
                    const float* __restrict__ cheb, const float* __restrict__ stats,
@@ -375,30 +676,12 @@ sp_rows_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
   extern __shared__ __align__(16) float sm[];
   const int N = D.N, b = blockIdx.y, i0 = blockIdx.x * kRows;
   const int ni = min(kRows, N - i0);
-  float* kr = sm;                    // (N, dk) md(k_k) of every target
-  float* At = kr + pad4(N * D.dk);   // (N, 16): At[j][ii] = A_k[i0+ii][j]
+  float* krT = sm;                   // (dk, N) md(k_k) of every target
+  float* At = krT + pad4(N * D.dk);  // (N, 16): At[j][ii] = A_k[i0+ii][j]
   float* acc_s = At + N * kRows;     // (16, CT)
   zero(acc_s, kRows * D.CT);
   for (int k = 0; k < D.K; ++k) {
-    for (int e = threadIdx.x; e < N * D.dk; e += kThreads) {
-      const int j = e / D.dk, c = e % D.dk;
-      kr[e] = rnd(qk[((size_t)b * N + j) * D.HK2 + D.hk + k * D.dk + c], D.bf16);
-    }
-    __syncthreads();
-    const float* bias_k = bias + (size_t)k * N * N;
-    const float* cheb_k = cheb + (size_t)k * N * N;
-    const float* st = stats + ((size_t)b * D.K + k) * N * 2;
-    for (int e = threadIdx.x; e < N * kRows; e += kThreads) {
-      const int j = e / kRows, ii = e % kRows, i = i0 + ii;
-      float a = 0.f;
-      if (ii < ni) {
-        const float s = score(qk + ((size_t)b * N + i) * D.HK2 + k * D.dk, kr + j * D.dk,
-                              bias_k[(size_t)i * N + j], D);
-        a = rnd(cheb_k[(size_t)i * N + j] * (expf(s - st[2 * j]) / st[2 * j + 1]), D.bf16);
-      }
-      At[e] = a;
-    }
-    __syncthreads();
+    rows_of_A(b, k, i0, ni, qk, bias, cheb, stats, krT, At, D);
     // dxm += A_k . dagg_k
     const float* dg = daggbuf + ((size_t)b * D.K + k) * N * D.CT;
     for (int m = threadIdx.x; m < D.CT; m += kThreads) {
@@ -421,20 +704,67 @@ sp_rows_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
 #pragma unroll
       for (int ii = 0; ii < kRows; ++ii) acc_s[ii * D.CT + m] += acc[ii];
     }
-    // dq_k[i] = sum_j md(ds)[i][j] md(k_k)[j] / sqrt(dk)
-    const float* dSk = dS + ((size_t)b * D.K + k) * N * N;
-    for (int e = threadIdx.x; e < ni * D.dk; e += kThreads) {
-      const int ii = e / D.dk, c = e % D.dk;
-      const float* dsr = dSk + (size_t)(i0 + ii) * N;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < N; ++j) acc = fmaf(rnd(__ldg(dsr + j), D.bf16), kr[j * D.dk + c], acc);
-      dqk[((size_t)b * N + i0 + ii) * D.HK2 + k * D.dk + c] = acc * D.inv_sqrt;
-    }
+    dq_rows(b, k, i0, ni, dS, krT, dqk, D);
     __syncthreads();
   }
   float* out = dxm + ((size_t)b * N + i0) * D.CT;
   for (int e = threadIdx.x; e < ni * D.CT; e += kThreads) out[e] = acc_s[e];
+}
+
+// SC in bfloat16: dxm += md(A_k) . dagg_k on the tensor cores, the block's
+// (16, CTp) sums kept in shared memory across k; A_k's rows read col-major
+// from At, dagg_k as fragments from device memory. dq on the CUDA cores.
+__global__ void __launch_bounds__(kThreads)
+sp_rows_bwd_wmma_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
+                        const float* __restrict__ cheb, const float* __restrict__ stats,
+                        const bf16* __restrict__ daggbuf, const float* __restrict__ dS,
+                        float* __restrict__ dxm, float* __restrict__ dqk, Dims D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = D.N, Np = D.Np, CTp = D.CTp, b = blockIdx.y, i0 = blockIdx.x * kRows;
+  const int ni = min(kRows, N - i0);
+  float* acc_s = reinterpret_cast<float*>(smem);             // (16, CTp)
+  bf16* At = reinterpret_cast<bf16*>(acc_s + kRows * CTp);    // (Np, 16)
+  float* krT = reinterpret_cast<float*>(At + Np * kRows);     // (dk, N)
+  for (int e = N * kRows + threadIdx.x; e < Np * kRows; e += kThreads)
+    At[e] = __float2bfloat16_rn(0.f);  // the padded targets add nothing
+  zero(acc_s, kRows * CTp);
+  const int warp = threadIdx.x / 32, MT = CTp / 16;
+  for (int k = 0; k < D.K; ++k) {
+    rows_of_A(b, k, i0, ni, qk, bias, cheb, stats, krT, At, D);
+    const bf16* dg = daggbuf + ((size_t)b * D.K + k) * Np * CTp;
+    for (int g0 = warp; g0 < MT; g0 += kWarps * kAcc) {
+      FragC acc[kAcc];
+#pragma unroll
+      for (int q = 0; q < kAcc; ++q) {
+        const int mt = g0 + q * kWarps;
+        if (mt < MT) wmma::load_matrix_sync(acc[q], acc_s + mt * 16, CTp, wmma::mem_row_major);
+      }
+#pragma unroll 2
+      for (int j0 = 0; j0 < Np; j0 += 16) {
+        FragAt a;
+        wmma::load_matrix_sync(a, At + j0 * kRows, kRows);
+#pragma unroll
+        for (int q = 0; q < kAcc; ++q) {
+          const int mt = g0 + q * kWarps;
+          if (mt < MT) {
+            FragB y;
+            wmma::load_matrix_sync(y, dg + (size_t)j0 * CTp + mt * 16, CTp);
+            wmma::mma_sync(acc[q], a, y, acc[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kAcc; ++q) {
+        const int mt = g0 + q * kWarps;
+        if (mt < MT) wmma::store_matrix_sync(acc_s + mt * 16, acc[q], CTp, wmma::mem_row_major);
+      }
+    }
+    dq_rows(b, k, i0, ni, dS, krT, dqk, D);
+    __syncthreads();
+  }
+  float* out = dxm + ((size_t)b * N + i0) * D.CT;
+  for (int e = threadIdx.x; e < ni * D.CT; e += kThreads)
+    out[e] = acc_s[(e / D.CT) * CTp + e % D.CT];
 }
 
 // ---------------------------------------------------------------------------
@@ -500,6 +830,14 @@ Dims make_dims(int B, int N, int FT, int C, int T, int Co, int d, int K, int dk,
   D.hk = K * dk;
   D.HK2 = 2 * K * dk;
   D.bf16 = bf16;
+  D.Np = pad16(N);
+  D.CTp = pad16(D.CT);
+  D.Cp = pad16(C);
+  D.Cop = pad16(Co);
+  D.R = kCols * T;
+  D.LD = D.CTp + 8;
+  D.LC = D.Cp + 8;
+  D.LO = D.Cop + 8;
   D.keep_inv = static_cast<float>(1.0 / static_cast<double>(keep));
   D.inv_sqrt = static_cast<float>(1.0 / sqrt(static_cast<double>(dk)));
   return D;
@@ -510,37 +848,53 @@ size_t sb_fwd_smem(const Dims& D) {
   return sizeof(float) * ((size_t)kCols * D.dk + 2 * (size_t)D.N * kCols + kCols * D.CT +
                           kCols * D.CoT);
 }
+// float32: kt, att, A, ds (N, 16), agg, dagg (16, CT), gm (16, CoT); bf16:
+// kt, att, ds (Np, 16), agg (16, CTp) and the warps' staging in float32,
+// A (Np, 16), dagg (16, LD), gT (R, LO), aT (R, LC) and thS (Cp, LO) in bf16
 size_t sb_bwd_smem(const Dims& D) {
+  if (D.bf16)
+    return sizeof(float) * ((size_t)kCols * D.dk + 2 * (size_t)D.Np * kCols + kCols * D.CTp +
+                            kWarps * 256) +
+           sizeof(bf16) * ((size_t)D.Np * kCols + kCols * D.LD + (size_t)D.R * (D.LO + D.LC) +
+                           D.Cp * D.LO);
   return sizeof(float) * ((size_t)kCols * D.dk + 3 * (size_t)D.N * kCols + 2 * kCols * D.CT +
                           kCols * D.CoT);
 }
+// float32: krT (dk, N), At (N, 16), the (16, CT) sums; bf16: the (16, CTp)
+// sums and krT in float32, At (Np, 16) in bf16
 size_t sc_smem(const Dims& D) {
+  if (D.bf16)
+    return sizeof(float) * ((size_t)kRows * D.CTp + (size_t)D.N * D.dk) +
+           sizeof(bf16) * (size_t)D.Np * kRows;
   return sizeof(float) * ((size_t)pad4(D.N * D.dk) + (size_t)D.N * kRows + kRows * D.CT);
 }
 size_t sd_smem(const Dims& D) { return sizeof(float) * kRows * (D.HK2 + D.d); }
 
-// the backward's workspace layout (floats)
+// the backward's workspace layout (floats), every region on 256 bytes (the
+// bf16 dagg_k planes are read as WMMA fragments). dagg_k is (B, K, N, CT)
+// float32, or (B, K, Np, CTp) bf16.
 struct BwdSpace {
-  size_t qk, semx, xhat, inv, agg, dagg, dS, dqk, dse, vec, part, stats, scratch, total;
+  size_t qk, semx, xhat, inv, dagg, dS, dqk, dse, vec, part, stats, scratch, total;
 };
 
 BwdSpace bwd_space(const Dims& D) {
   const size_t BN = (size_t)D.B * D.N;
   const int NJt = (D.N + kCols - 1) / kCols;
+  const auto up = [](size_t n) { return (n + 63) & ~(size_t)63; };
+  const size_t dagg = D.bf16 ? (size_t)D.B * D.K * D.Np * D.CTp / 2 : BN * D.K * D.CT;
   BwdSpace s;
   s.qk = 0;
-  s.semx = s.qk + BN * D.HK2;
-  s.xhat = s.semx + BN * D.d;
-  s.inv = s.xhat + BN * D.d;
-  s.agg = s.inv + BN;
-  s.dagg = s.agg + BN * D.K * D.CT;
-  s.dS = s.dagg + BN * D.K * D.CT;
-  s.dqk = s.dS + BN * D.K * D.N;
-  s.dse = s.dqk + BN * D.HK2;
-  s.vec = s.dse + BN * D.d;
-  s.part = s.vec + BN * 2 * D.d;
-  s.stats = s.part + (size_t)D.B * NJt * D.K * D.C * D.Co;
-  s.scratch = s.stats + BN * D.K * 2;
+  s.semx = up(s.qk + BN * D.HK2);
+  s.xhat = up(s.semx + BN * D.d);
+  s.inv = up(s.xhat + BN * D.d);
+  s.dagg = up(s.inv + BN);
+  s.dS = up(s.dagg + dagg);
+  s.dqk = up(s.dS + BN * D.K * D.N);
+  s.dse = up(s.dqk + BN * D.HK2);
+  s.vec = up(s.dse + BN * D.d);
+  s.part = up(s.vec + BN * 2 * D.d);
+  s.stats = up(s.part + (size_t)D.B * NJt * D.K * D.C * D.Co);
+  s.scratch = up(s.stats + BN * D.K * 2);
   size_t sc = dense::atb_scratch((int)BN, D.FT, D.d);
   const size_t more[] = {
       dense::atb_scratch((int)BN, D.d, D.HK2),
@@ -575,9 +929,24 @@ extern "C" {
 
 // Floats of the forward's (qk) and the backward's workspace.
 size_t spatial_fused_workspace_floats(int B, int N, int FT, int C, int T, int Co, int d,
-                                      int K, int dk, int backward) {
-  const Dims D = make_dims(B, N, FT, C, T, Co, d, K, dk, 1.f, 0);
+                                      int K, int dk, int backward, int bf16) {
+  const Dims D = make_dims(B, N, FT, C, T, Co, d, K, dk, 1.f, bf16);
   return backward ? bwd_space(D).total : (size_t)B * N * D.HK2;
+}
+
+// Bytes of shared memory a block of each kernel requests: 0 SA
+// (sp_embed_kernel), 1 SB forward, 2 SB backward, 3 SC, 4 SD; the
+// backward's SB and SC in the bf16 (tensor-core) layout when bf16 is set.
+size_t spatial_fused_smem_bytes(int N, int FT, int C, int T, int Co, int d, int K, int dk,
+                                int kernel, int bf16) {
+  const Dims D = make_dims(1, N, FT, C, T, Co, d, K, dk, 1.f, bf16);
+  switch (kernel) {
+    case 0: return sa_smem(D);
+    case 1: return sb_fwd_smem(D);
+    case 2: return sb_bwd_smem(D);
+    case 3: return sc_smem(D);
+    default: return sd_smem(D);
+  }
 }
 
 // Forward: y (B, N, Co*T) float32. dmask (B, N, d) of 0/1 or null (no
@@ -604,14 +973,19 @@ int spatial_fused_forward(const float* tat, const float* xm, const float* dmask,
 // Backward: dtat (B,N,FT), dxm (B,N,C*T); dpw (FT,d), dvec (3,d) = [dpb,
 // dgs, dbs], dpos (N,d), dwqk (d,2Kdk), dbias (K,N,N), dtheta (K,C,Co), all
 // summed over b in a fixed order. pw_t (d,FT) and wqk_t (2Kdk,d) are the
-// transposed weights. `ws` holds spatial_fused_workspace_floats(..., 1).
+// transposed weights. relu_pos (B,N,Co*T) holds 1 where the forward's
+// float32 output was > 0, else 0. With bf16 set the SB and SC passes run
+// on the tensor cores and read xm_pad, xm in bf16 padded to (B, Np, CTp)
+// with zeros (N and C*T rounded up to 16); otherwise xm_pad is unused.
+// `ws` holds spatial_fused_workspace_floats(..., 1, bf16).
 int spatial_fused_backward(const float* tat, const float* xm, const float* dmask,
                            const float* pw, const float* pw_t, const float* pb,
                            const float* pos, const float* gs, const float* bs,
                            const float* wqk, const float* wqk_t, const float* bias,
                            const float* cheb, const float* theta, const float* g_out,
-                           float* dtat, float* dxm, float* dpw, float* dvec, float* dpos,
-                           float* dwqk, float* dbias, float* dtheta, float* ws, int B, int N,
+                           const unsigned char* relu_pos, const void* xm_pad, float* dtat,
+                           float* dxm, float* dpw, float* dvec, float* dpos, float* dwqk,
+                           float* dbias, float* dtheta, float* ws, int B, int N,
                            int FT, int C, int T, int Co, int d, int K, int dk, float keep,
                            int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -622,19 +996,36 @@ int spatial_fused_backward(const float* tat, const float* xm, const float* dmask
                               ws + s.xhat, ws + s.inv, D, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  // SB and SC: bf16 on the tensor cores, float32 on the CUDA cores
   size_t smem = sb_bwd_smem(D);
-  err = dense::allow_smem(sp_cols_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sp_cols_bwd_kernel<<<dim3(NJt, B), kThreads, smem, st>>>(
-      ws + s.qk, bias, cheb, xm, theta, g_out, ws + s.agg, ws + s.dagg, ws + s.dS,
-      ws + s.dqk, ws + s.part, ws + s.stats, D);
+  wm::bf16* dagg16 = reinterpret_cast<wm::bf16*>(ws + s.dagg);
+  if (bf16) {
+    err = dense::allow_smem(sp_cols_bwd_wmma_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sp_cols_bwd_wmma_kernel<<<dim3(NJt, B), kThreads, smem, st>>>(
+        ws + s.qk, bias, cheb, static_cast<const wm::bf16*>(xm_pad), theta, g_out, relu_pos,
+        dagg16, ws + s.dS, ws + s.dqk, ws + s.part, ws + s.stats, D);
+  } else {
+    err = dense::allow_smem(sp_cols_bwd_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sp_cols_bwd_kernel<<<dim3(NJt, B), kThreads, smem, st>>>(
+        ws + s.qk, bias, cheb, xm, theta, g_out, relu_pos, ws + s.dagg, ws + s.dS, ws + s.dqk,
+        ws + s.part, ws + s.stats, D);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   smem = sc_smem(D);
-  err = dense::allow_smem(sp_rows_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sp_rows_bwd_kernel<<<dim3(NIt, B), kThreads, smem, st>>>(
-      ws + s.qk, bias, cheb, ws + s.stats, ws + s.dagg, ws + s.dS, dxm, ws + s.dqk, D);
+  if (bf16) {
+    err = dense::allow_smem(sp_rows_bwd_wmma_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sp_rows_bwd_wmma_kernel<<<dim3(NIt, B), kThreads, smem, st>>>(
+        ws + s.qk, bias, cheb, ws + s.stats, dagg16, ws + s.dS, dxm, ws + s.dqk, D);
+  } else {
+    err = dense::allow_smem(sp_rows_bwd_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sp_rows_bwd_kernel<<<dim3(NIt, B), kThreads, smem, st>>>(
+        ws + s.qk, bias, cheb, ws + s.stats, ws + s.dagg, ws + s.dS, dxm, ws + s.dqk, D);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   smem = sd_smem(D);

@@ -89,14 +89,12 @@
 //     fragments are indexed at compile time so they stay in registers. C =
 //     48 needs 16 fragments a thread at K = 7 and runs one block an SM.
 
-#include <mma.h>
-
 #include "dense_common.cuh"
+#include "wmma_common.cuh"
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
+using namespace wm;
 
 using dense::kThreads;
 using dense::rnd;
@@ -330,12 +328,6 @@ constexpr int kZ = 8;     // zero rows above dY in Yb (>= K - 1); also rows past
 constexpr int kPad = 16;  // row padding of Xs and Yb (elements)
 constexpr int kPadW = 8;  // row padding of Ws: read only at 16-row offsets
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
 template <int K, int C>
 struct Wm {
   static constexpr int C2 = 2 * C;
@@ -351,31 +343,6 @@ struct Wm {
   static constexpr int kDbFirst = 64;
   static constexpr int kDbParts = (kThreads - kDbFirst) / C2;  // threads summing a column
 };
-
-// 8 floats rounded to bf16, packed into 16 bytes
-__device__ __forceinline__ uint4 pack8(const float* v) {
-  uint4 u;
-  unsigned* w = reinterpret_cast<unsigned*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-    w[j] = *reinterpret_cast<const unsigned*>(&h);
-  }
-  return u;
-}
-
-// n bf16 (a multiple of 8) from device to shared memory in 16-byte cp.async
-// copies by the block's threads, committed as one group; wait_async waits
-// for every group the thread committed
-__device__ __forceinline__ void copy_async(bf16* sdst, const bf16* gsrc, int n) {
-  for (int e = threadIdx.x * 8; e < n; e += blockDim.x * 8) {
-    const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(sdst + e));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gsrc + e));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void wait_async() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 __device__ __forceinline__ void unpack8(const float* s, float* v) {
   const float4 a = reinterpret_cast<const float4*>(s)[0], b = reinterpret_cast<const float4*>(s)[1];

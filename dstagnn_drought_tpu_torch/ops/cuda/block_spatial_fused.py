@@ -16,10 +16,15 @@ of its matrix unit; here Θ mixes per time step and dΘ (K, C, Co) comes back
 directly. The kernels (``csrc/block_spatial_fused.cu``; its header says what
 bounds them and how the work is split) never write the (B, K, N, N) planes
 in the forward; the backward's weight gradients are summed over the batch
-in a fixed order, so two launches give the same bits. :class:`SpatialMiddle`
-puts them together. The wrappers take the kernels for CUDA tensors and the
-plain version (:func:`spatial_middle_plain`, gradients from autograd) only
-for tensors on the CPU; ``fwd_launches``/``bwd_launches`` count launches.
+in a fixed order, so two launches give the same bits. The backward reads
+the ReLU mask the forward kernel produced (``y > 0``, kept by
+:class:`SpatialMiddle`), as ``torch.relu``'s backward reads its output. In
+bfloat16 its two N-sized passes run on the tensor cores
+(``sp_cols_bwd_wmma_kernel``, ``sp_rows_bwd_wmma_kernel``), in float32 on
+the CUDA cores. :class:`SpatialMiddle` puts them together. The wrappers
+take the kernels for CUDA tensors and the plain version
+(:func:`spatial_middle_plain`, gradients from autograd) only for tensors on
+the CPU; ``fwd_launches``/``bwd_launches`` count launches.
 """
 from __future__ import annotations
 
@@ -91,27 +96,47 @@ def spatial_middle_plain(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, t
 # CUDA launches
 # ---------------------------------------------------------------------------
 
-def smem_bytes(N, FT, CT, CoT, d, K, d_k):
-    """Shared memory a block of each kernel needs (float32 tiles; the
-    formulas of csrc/block_spatial_fused.cu)."""
-    t, hk2 = _TILE, 2 * K * d_k
+KERNELS = ("embed", "cols_fwd", "cols_bwd", "rows_bwd", "embed_bwd")
+
+
+def _pad16(n):
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype=torch.float32):
+    """Shared memory a block of each kernel requests, for the compute dtype
+    (the formulas of csrc/block_spatial_fused.cu, keyed as ``KERNELS``).
+    In bfloat16 the backward's column pass keeps A_k, dagg and the theta
+    products' operands in bf16 tiles padded to multiples of 16 (Np, C·Tp,
+    Cp, Cop; rows of 8 more) beside 8 warps' 16x16 float32 staging, and its
+    row pass A_k's rows in bf16; the rest is float32."""
+    t, hk2, CT, CoT = _TILE, 2 * K * d_k, C * T, Co * T
     pad4 = lambda n: (n + 3) // 4 * 4
-    return {"embed": 4 * t * (FT + d),
-            "cols_fwd": 4 * (t * d_k + 2 * N * t + t * CT + t * CoT),
-            "cols_bwd": 4 * (t * d_k + 3 * N * t + 2 * t * CT + t * CoT),
-            "rows_bwd": 4 * (pad4(N * d_k) + N * t + t * CT),
-            "embed_bwd": 4 * t * (hk2 + d)}
+    out = {"embed": 4 * t * (FT + d),
+           "cols_fwd": 4 * (t * d_k + 2 * N * t + t * CT + t * CoT),
+           "cols_bwd": 4 * (t * d_k + 3 * N * t + 2 * t * CT + t * CoT),
+           "rows_bwd": 4 * (pad4(N * d_k) + N * t + t * CT),
+           "embed_bwd": 4 * t * (hk2 + d)}
+    if dtype == torch.bfloat16:
+        Np, CTp, Cp, Cop, R = _pad16(N), _pad16(CT), _pad16(C), _pad16(Co), t * T
+        out["cols_bwd"] = (4 * (t * d_k + 2 * Np * t + t * CTp + 8 * 256)
+                           + 2 * (Np * t + t * (CTp + 8) + R * (Cop + 8 + Cp + 8)
+                                  + Cp * (Cop + 8)))
+        out["rows_bwd"] = 4 * (t * CTp + N * d_k) + 2 * Np * t
+    return out
 
 
 def _load():
     lib = build.load("block_spatial_fused")
     if lib.spatial_fused_forward.argtypes is None:
-        lib.spatial_fused_workspace_floats.argtypes = [ctypes.c_int] * 10
+        lib.spatial_fused_workspace_floats.argtypes = [ctypes.c_int] * 11
         lib.spatial_fused_workspace_floats.restype = ctypes.c_size_t
+        lib.spatial_fused_smem_bytes.argtypes = [ctypes.c_int] * 10
+        lib.spatial_fused_smem_bytes.restype = ctypes.c_size_t
         tail = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.spatial_fused_forward.argtypes = [ctypes.c_void_p] * 14 + tail
         lib.spatial_fused_forward.restype = ctypes.c_int
-        lib.spatial_fused_backward.argtypes = [ctypes.c_void_p] * 24 + tail
+        lib.spatial_fused_backward.argtypes = [ctypes.c_void_p] * 26 + tail
         lib.spatial_fused_backward.restype = ctypes.c_int
         lib.spatial_fused_error_string.argtypes = [ctypes.c_int]
         lib.spatial_fused_error_string.restype = ctypes.c_char_p
@@ -124,7 +149,8 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
-def _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, K, d_k, others=()):
+def _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, K, d_k, bf16,
+           others=(), relu_mask=None):
     if tat.ndim != 3 or xm.ndim != 3 or xm.shape[:2] != tat.shape[:2]:
         raise ValueError(f"tat must be (B, N, F·T) and xm (B, N, C·T), got "
                          f"{tuple(tat.shape)}, {tuple(xm.shape)}")
@@ -143,20 +169,30 @@ def _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, K, d_k,
     for name, t in named.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} must be {shapes[name]}, got {tuple(t.shape)}")
-    for name, t in (("tat", tat), ("xm", xm), ("thetas", thetas), *named.items(), *others):
+    tensors = (("tat", tat), ("xm", xm), ("thetas", thetas), *named.items(), *others)
+    for name, t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the block_spatial_fused kernels take float32; {name} is {t.dtype}")
+    if relu_mask is not None:
+        if tuple(relu_mask.shape) != (B, N, Co * T):
+            raise ValueError(f"relu_mask must be {(B, N, Co * T)}, got {tuple(relu_mask.shape)}")
+        if relu_mask.dtype != torch.bool:
+            raise TypeError(f"relu_mask must be torch.bool (the forward's y > 0), got "
+                            f"{relu_mask.dtype}")
+        tensors += (("relu_mask", relu_mask),)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    for kernel, need in smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype).items():
+        if need > _SMEM_MAX:
+            raise ValueError(
+                f"the {kernel} kernel needs {need} bytes of shared memory, more than the "
+                f"{_SMEM_MAX} a block may have (N={N}, F·T={FT}, C·T={C * T}, d={d}, "
+                f"{dtype}); N is limited by the (N, 16) planes of its target tile")
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device.type != "cuda" or t.device != tat.device:
             raise ValueError(f"the block_spatial_fused kernels run on CUDA tensors; "
                              f"{name} is on {t.device}")
-    for kernel, need in smem_bytes(N, FT, C * T, Co * T, d, K, d_k).items():
-        if need > _SMEM_MAX:
-            raise ValueError(
-                f"the {kernel} kernel needs {need} bytes of shared memory, more than the "
-                f"{_SMEM_MAX} a block may have (N={N}, F·T={FT}, C·T={C * T}, d={d}); "
-                f"N is limited by the three (N, 16) planes of its target tile")
     if B > 65535:
         raise ValueError(f"grid too large for B={B}")
     return B, N, FT, C, T, Co, d
@@ -172,10 +208,10 @@ def spatial_forward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, t
     tensors (``dmask`` None for no dropout) → (B, N, Co·T) float32."""
     global fwd_launches
     B, N, FT, C, T, Co, d = _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
-                                   thetas, K, d_k)
+                                   thetas, K, d_k, bf16)
     y = torch.empty((B, N, Co * T), dtype=torch.float32, device=tat.device)
     lib = _load()
-    ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 0),
+    ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 0, 0),
                      dtype=torch.float32, device=tat.device)
     with torch.cuda.device(tat.device):
         stream = torch.cuda.current_stream(tat.device).cuda_stream
@@ -190,13 +226,17 @@ def spatial_forward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, t
 
 
 def spatial_backward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas,
-                          g_out, *, K, d_k, keep, bf16):
+                          g_out, relu_mask, *, K, d_k, keep, bf16):
     """Launch the backward on the current stream: (dtat, dxm, dpw, dpb, dpos,
     dgs, dbs, dwqk, dbias, dthetas), all float32; the weight gradients are
-    summed over the batch in a fixed order."""
+    summed over the batch in a fixed order. ``relu_mask`` (B, N, Co·T)
+    torch.bool is where the forward kernel's float32 output was > 0. With
+    ``bf16`` the column and row passes run on the tensor cores, on a bf16
+    copy of xm padded with zeros to multiples of 16."""
     global bwd_launches
     B, N, FT, C, T, Co, d = _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
-                                   thetas, K, d_k, others=(("g_out", g_out),))
+                                   thetas, K, d_k, bf16, others=(("g_out", g_out),),
+                                   relu_mask=relu_mask)
     if tuple(g_out.shape) != (B, N, Co * T):
         raise ValueError(f"g_out must be {(B, N, Co * T)}, got {tuple(g_out.shape)}")
     dev = tat.device
@@ -208,14 +248,20 @@ def spatial_backward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, 
     # transposed weights, so the backward's products read them coalesced
     pw_t, wqk_t = pw.t().contiguous(), wqk.t().contiguous()
     lib = _load()
-    ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 1), **f32)
+    ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 1,
+                                                        int(bf16)), **f32)
+    xm_pad = None
+    if bf16:
+        xm_pad = torch.zeros((B, _pad16(N), _pad16(C * T)), dtype=torch.bfloat16, device=dev)
+        xm_pad[:, :N, :C * T] = xm
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spatial_fused_backward(
             tat.data_ptr(), xm.data_ptr(), _ptr(dmask), pw.data_ptr(), pw_t.data_ptr(),
             pb.data_ptr(), pos.data_ptr(), gs.data_ptr(), bs.data_ptr(), wqk.data_ptr(),
             wqk_t.data_ptr(), bias.data_ptr(), cheb.data_ptr(), thetas.data_ptr(),
-            g_out.data_ptr(), dtat.data_ptr(), dxm.data_ptr(), dpw.data_ptr(),
+            g_out.data_ptr(), relu_mask.data_ptr(), _ptr(xm_pad), dtat.data_ptr(),
+            dxm.data_ptr(), dpw.data_ptr(),
             dvec.data_ptr(), dpos.data_ptr(), dwqk.data_ptr(), dbias.data_ptr(),
             dth.data_ptr(), ws.data_ptr(), B, N, FT, C, T, Co, d, K, d_k, float(keep),
             int(bf16), stream)
@@ -237,21 +283,26 @@ def _kernel_operands(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, theta
 
 class SpatialMiddle(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its gradient (no
-    gradient for the dropout mask or the Chebyshev planes)."""
+    gradient for the dropout mask or the Chebyshev planes). The forward
+    keeps where its float32 output is > 0 (one byte an element; not the
+    bf16 output, in which a positive float32 below 2^-133 rounds to 0), and
+    the backward masks the cotangent with it."""
 
     @staticmethod
     def forward(ctx, tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, K, d_k,
                 keep):
-        ctx.save_for_backward(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas)
         ctx.dims = dict(K=K, d_k=d_k, keep=keep, bf16=tat.dtype == torch.bfloat16)
         ops = _kernel_operands(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas)
-        return spatial_forward_cuda(*ops, **ctx.dims).to(tat.dtype)
+        y = spatial_forward_cuda(*ops, **ctx.dims)
+        ctx.save_for_backward(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas,
+                              y > 0)
+        return y.to(tat.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
+        *saved, relu_mask = ctx.saved_tensors
         ops = _kernel_operands(*saved)
-        grads = spatial_backward_cuda(*ops, g.float().contiguous(), **ctx.dims)
+        grads = spatial_backward_cuda(*ops, g.float().contiguous(), relu_mask, **ctx.dims)
         dtat, dxm, dpw, dpb, dpos, dgs, dbs, dwqk, dbias, dth = grads
         tat, xm, _, pw, pb, pos, gs, bs, wqk, bias, _, thetas = saved
         cast = lambda a, like: a.to(like.dtype)
@@ -270,8 +321,13 @@ def spatial_middle(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas,
             dmask = torch.ones((1,) + tuple(pos.shape), dtype=tat.dtype)
         return spatial_middle_plain(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
                                     thetas, K=K, d_k=d_k, keep=keep)
-    return SpatialMiddle.apply(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas,
-                               K, d_k, keep)
+    args = (tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+        return SpatialMiddle.apply(*args, K, d_k, keep)
+    # no gradient is recorded (evaluation): the forward kernel alone, no ReLU mask kept
+    y = spatial_forward_cuda(*_kernel_operands(*args), K=K, d_k=d_k, keep=keep,
+                             bf16=tat.dtype == torch.bfloat16)
+    return y.to(tat.dtype)
 
 
 def fused_spatial_middle(

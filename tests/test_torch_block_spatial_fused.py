@@ -9,13 +9,17 @@ bfloat16 2e-2 of the output's scale (the matmul operands are rounded to
 bf16 at every cast of the TPU kernel, and a value one side rounds up may
 round down on the other: a few bf16 ulps of 2^-8).
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dstagnn_drought_tpu.ops.pallas import block_spatial_fused as jbsf
+try:  # the reference; a machine with the card but no JAX runs only the cuda case
+    import jax
+    import jax.numpy as jnp
+
+    from dstagnn_drought_tpu.ops.pallas import block_spatial_fused as jbsf
+except ImportError:
+    jax = jnp = jbsf = None
 from dstagnn_drought_tpu_torch.models.dstagnn import DSTAGNN, ModelSpec
 from dstagnn_drought_tpu_torch.ops.attention import spatial_attention_scores
 from dstagnn_drought_tpu_torch.ops.cheb import cheb_conv_with_sat
@@ -28,20 +32,20 @@ B, T, N, K, DK, D, CO = 3, 6, 18, 3, 8, 24, 5
 PARAMS = ("pre_w", "pre_b", "pos", "gs", "bs", "wq", "wk", "masks", "thetas")
 
 
-def _tensors(F, C, seed=0):
+def _tensors(F, C, seed=0, k=K):
     rng = np.random.default_rng(seed)
     mk = lambda *s: (rng.normal(size=s) * 0.3).astype(np.float32)
     a = dict(tat=mk(B, F, T, N), x=mk(B, N, C, T), pre_w=mk(D, T, 1, F), pre_b=mk(D),
              pos=mk(N, D), gs=np.full(D, 1.05, np.float32), bs=np.full(D, 0.02, np.float32),
-             wq=mk(D, K * DK), wk=mk(D, K * DK), masks=mk(K, N, N), thetas=mk(K, C, CO))
+             wq=mk(D, k * DK), wk=mk(D, k * DK), masks=mk(k, N, N), thetas=mk(k, C, CO))
     adj = (rng.random((N, N)) < 0.3).astype(np.float32)
-    return a, adj, mk(K, N, N)
+    return a, adj, mk(k, N, N)
 
 
-def _kw(a, adj, cheb):
+def _kw(a, adj, cheb, k=K):
     return dict(pre_w=a["pre_w"], pre_b=a["pre_b"], pos=a["pos"], ln_scale=a["gs"],
                 ln_bias=a["bs"], wq=a["wq"], wk=a["wk"], adj_pa=adj, masks=a["masks"],
-                cheb_polys=cheb, thetas=a["thetas"], K=K, d_k=DK)
+                cheb_polys=cheb, thetas=a["thetas"], K=k, d_k=DK)
 
 
 def _loss(out, lib):
@@ -83,6 +87,38 @@ def test_bfloat16_forward_matches_jax():
     want = np.asarray(j_out.astype(jnp.float32))
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(out.float().numpy(), want, atol=2e-2 * scale, rtol=2e-2)
+
+
+def test_bfloat16_grads_match_jax():
+    """The bf16 backward: the JAX ``_vjp_bwd`` (Pallas, interpret mode) and
+    the port's plain version (the yardstick of the bf16 backward kernel on
+    the card) on the same bf16 inputs and cotangent, K = 2. Within 1e-2 of
+    each gradient's scale, with the cotangent zeroed where either side's
+    output lies within the forward tolerance of the ReLU kink (one flipped
+    mask element changes a whole batch row's gradients)."""
+    k2, F, C, tol = 2, 4, 4, 1e-2
+    a, adj, cheb = _tensors(F, C, seed=3, k=k2)
+    cot = np.random.default_rng(7).normal(size=(B, N, CO, T)).astype(np.float32)
+    bf = {name: jnp.asarray(v).astype(jnp.bfloat16) for name, v in a.items()}
+    adj_j, cheb_j = jnp.asarray(adj, jnp.bfloat16), jnp.asarray(cheb, jnp.bfloat16)
+    j_out, j_vjp = jax.vjp(
+        lambda t: jbsf.fused_spatial_middle(t["tat"], t["x"], **_kw(t, adj_j, cheb_j, k2)), bf)
+    t = {name: torch.from_numpy(v).bfloat16().requires_grad_(True) for name, v in a.items()}
+    out = bsf.fused_spatial_middle(t["tat"], t["x"], **_kw(
+        t, torch.from_numpy(adj).bfloat16(), torch.from_numpy(cheb).bfloat16(), k2))
+    outs = [np.asarray(j_out.astype(jnp.float32)), out.detach().float().numpy()]
+    scale = max(1.0, float(np.abs(outs[0]).max()))
+    near = np.zeros(cot.shape, dtype=bool)
+    for o in outs:
+        near |= (o > 0) & (o <= tol * scale)
+    assert near.mean() < 0.2  # the comparison still covers most elements
+    cot[near] = 0.0
+    (j_g,) = j_vjp(jnp.asarray(cot).astype(jnp.bfloat16))
+    out.backward(torch.from_numpy(cot).bfloat16())
+    for name in ("tat", "x", *PARAMS):
+        got, want = t[name].grad.float().numpy(), np.asarray(j_g[name].astype(jnp.float32))
+        g_scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, atol=1e-2 * g_scale, rtol=0, err_msg=name)
 
 
 def _core_operands(a, adj, cheb, F, C):
@@ -184,12 +220,36 @@ def test_kernels_refuse_what_they_do_not_take():
                                  *args[1:], **dims)
     with pytest.raises(ValueError, match="bias must be"):
         bsf.spatial_forward_cuda(*args[:9], args[9][:, :5], *args[10:], **dims)
+    g = torch.zeros(B, N, CO * T)
+    relu_mask = torch.ones(B, N, CO * T, dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA"):
-        g = torch.zeros(B, N, CO * T)
-        bsf.spatial_backward_cuda(*args, g, **dims)
+        bsf.spatial_backward_cuda(*args, g, relu_mask, **dims)
+    # the forward's ReLU mask: (B, N, Co·T) torch.bool
+    with pytest.raises(ValueError, match="relu_mask must be"):
+        bsf.spatial_backward_cuda(*args, g, relu_mask[:, :5], **dims)
+    with pytest.raises(TypeError, match="relu_mask must be torch.bool"):
+        bsf.spatial_backward_cuda(*args, g, relu_mask.float(), **dims)
     # PEMS08 width fits a block's shared memory; N = 2139 does not
-    assert max(bsf.smem_bytes(170, 384, 384, 384, 512, 3, 32).values()) < 227 * 1024
-    assert bsf.smem_bytes(2139, 576, 576, 4608, 64, 2, 32)["cols_bwd"] > 227 * 1024
+    assert max(bsf.smem_bytes(170, 384, 32, 12, 32, 512, 3, 32).values()) < 227 * 1024
+    assert bsf.smem_bytes(2139, 576, 4, 144, 32, 64, 2, 32)["cols_bwd"] > 227 * 1024
+    # at PEMS08 widths the float32 backward takes N <= 816 and the bf16 one
+    # (A_k, dagg and the theta operands in bf16 tiles) N <= 944, PEMS07's
+    # N = 883 included
+    widths = (384, 32, 12, 32, 512, 3, 32)
+    for dtype, cap in ((torch.float32, 816), (torch.bfloat16, 944)):
+        assert max(bsf.smem_bytes(cap, *widths, dtype).values()) <= 227 * 1024
+        assert bsf.smem_bytes(cap + 1, *widths, dtype)["cols_bwd"] > 227 * 1024
+    assert max(bsf.smem_bytes(883, *widths, torch.bfloat16).values()) <= 227 * 1024
+    # the gate names the bytes, for the dtype the kernels run in
+    big = [torch.zeros(1, 883, 384), torch.zeros(1, 883, 384), None,
+           torch.zeros(384, 512), torch.zeros(512), torch.zeros(883, 512), torch.zeros(512),
+           torch.zeros(512), torch.zeros(512, 192), torch.zeros(3, 883, 883),
+           torch.zeros(3, 883, 883), torch.zeros(3, 32, 32)]
+    need = bsf.smem_bytes(883, *widths)["cols_bwd"]
+    with pytest.raises(ValueError, match=f"cols_bwd kernel needs {need} bytes"):
+        bsf._check(*big, 3, 32, False)
+    with pytest.raises(ValueError, match="CUDA"):  # admitted in bf16: refused only for the CPU
+        bsf._check(*big, 3, 32, True)
 
 
 def test_cpu_path_counts_no_launch():
@@ -202,25 +262,51 @@ def test_cpu_path_counts_no_launch():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
+    """The kernels against the plain version on the card, float32 (CUDA
+    cores) and bfloat16 (the backward's column and row passes on the tensor
+    cores): in float32 the forward within 1e-4 and every gradient within
+    3e-3, absolute and relative; in bf16 both within 1e-2 of their scale.
+    The cotangent is randn, zeroed within the forward tolerance of the ReLU
+    kink (there one flipped mask element changes a whole batch row's
+    gradients); one launch of each kernel a call, and the weight gradients
+    equal bit for bit over two backward launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for F, C in ((1, 1), (4, 4)):
-        cpu = _kernel_args(F, C)
-        mask = (torch.rand(B, N, D, generator=torch.Generator().manual_seed(1)) < 0.8).float()
-        leaves = []
-        for _ in range(2):
-            leaves.append([None if t is None else t.cuda().requires_grad_(True) for t in cpu])
-            leaves[-1][2] = mask.cuda()
-        before = (bsf.fwd_launches, bsf.bwd_launches)
-        out = bsf.spatial_middle(*leaves[0], K=K, d_k=DK, keep=0.8)
-        want = bsf.spatial_middle_plain(*leaves[1], K=K, d_k=DK, keep=0.8)
-        _loss(out, torch).backward()
-        _loss(want, torch).backward()
-        torch.cuda.synchronize()
-        assert (bsf.fwd_launches, bsf.bwd_launches) == (before[0] + 1, before[1] + 1)
-        torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
-        for i, (k, p) in enumerate(zip(leaves[0], leaves[1])):
-            if i in (2, 10):  # the mask and the Chebyshev planes get no gradient
-                continue
-            torch.testing.assert_close(k.grad, p.grad, atol=3e-3, rtol=3e-3)
+    gen = torch.Generator().manual_seed(1)
+    # (dtype, forward tolerance, gradient tolerance, tolerances scaled by the
+    # largest |value|): float32 absolute, bf16 relative to the scale
+    cases = ((torch.float32, 1e-4, 3e-3, False), (torch.bfloat16, 1e-2, 1e-2, True))
+    for dtype, ftol, gtol, scaled in cases:
+        for F, C in ((1, 1), (4, 4)):
+            cpu = [None if t is None else t.to(dtype) for t in _kernel_args(F, C)]
+            cpu[2] = (torch.rand(B, N, D, generator=gen) < 0.8).to(dtype)
+            leaves = [[None if t is None else t.cuda().requires_grad_(i not in (2, 10))
+                       for i, t in enumerate(cpu)] for _ in range(2)]
+            before = (bsf.fwd_launches, bsf.bwd_launches)
+            out = bsf.spatial_middle(*leaves[0], K=K, d_k=DK, keep=0.8)
+            want = bsf.spatial_middle_plain(*leaves[1], K=K, d_k=DK, keep=0.8)
+            scale = max(1.0, float(want.detach().abs().max())) if scaled else 1.0
+            near = torch.zeros_like(out, dtype=torch.bool)
+            for o in (out.float(), want.float()):
+                near |= (o > 0) & (o <= ftol * scale)
+            cot = torch.randn(out.shape, generator=gen).to(dtype).cuda().masked_fill(near, 0)
+            out.backward(cot)
+            want.backward(cot)
+            torch.cuda.synchronize()
+            assert (bsf.fwd_launches, bsf.bwd_launches) == (before[0] + 1, before[1] + 1)
+            torch.testing.assert_close(out.float(), want.float(), atol=ftol * scale, rtol=ftol)
+            for i, (k, p) in enumerate(zip(leaves[0], leaves[1])):
+                if i in (2, 10):  # the mask and the Chebyshev planes get no gradient
+                    continue
+                g_scale = max(1.0, float(p.grad.abs().max())) if scaled else 1.0
+                torch.testing.assert_close(k.grad.float(), p.grad.float(),
+                                           atol=gtol * g_scale, rtol=gtol)
+            ops = bsf._kernel_operands(*[None if t is None else t.detach() for t in leaves[0]])
+            bf16 = dtype == torch.bfloat16
+            relu_mask = bsf.spatial_forward_cuda(*ops, K=K, d_k=DK, keep=0.8, bf16=bf16) > 0
+            g = cot.float().reshape(B, N, -1).contiguous()
+            first, again = (bsf.spatial_backward_cuda(*ops, g, relu_mask, K=K, d_k=DK,
+                                                      keep=0.8, bf16=bf16) for _ in range(2))
+            for a, b in zip(first[2:], again[2:]):  # dpw, dpb, dpos, dgs, dbs, dwqk, dbias, dΘ
+                assert torch.equal(a, b)
