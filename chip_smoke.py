@@ -21,8 +21,9 @@ Phases; any failure exits non-zero:
      at PEMS07's N = 883 in bfloat16): the temporal-attention forward and
      backward (csrc/tat_fused.cu) and the spatial-middle forward and
      backward (csrc/block_spatial_fused.cu; the backward on the forward's
-     ReLU mask, its column and row passes on the tensor cores in bfloat16
-     and on the CUDA cores in float32, each row naming its design), every
+     ReLU mask; in bfloat16 the embedding pass, both column passes and the
+     row pass on the tensor cores, in float32 every pass on the CUDA cores,
+     each row naming its design and the float32 time of its shape), every
      weight gradient equal bit for bit over two backward launches, and the
      spatial gate's shared-memory bytes equal to the kernels' own;
   2d. the fused GTU forward and backward (csrc/gtu_fused.cu) against their
@@ -56,14 +57,17 @@ Phases; any failure exits non-zero:
      predictions held against an unpermuted model in the original order;
   7. a JSON line with every kernel's numbers, then the device line.
 
-``--measure`` adds the spatial backward by pass (a profile at PEMS08
-blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
+``--measure`` adds the spatial forward and backward by pass (profiles at
+PEMS08 blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
 fused PEMS08-width bf16 trainer against both unfused paths, GAMBIA dense,
 GAMBIA BELL tiles against both dense paths, and GAMBIA dense and BELL tiles
 with the fused GTU tail against the im2col tail; the fused PEMS08 and the
 GTU comparisons with each epoch's peak device memory) alternated in one process, a torch.profiler breakdown of
 each, and a 25-epoch PEMS08 accuracy run of both dense paths checked
-against the reference model's recorded test MAE.
+against the reference model's recorded test MAE. ``--compare OUT`` builds
+and runs only ``compare_run``: one side of a comparison with another
+commit's checkout (the float32 spatial forward's bits, the spatial passes,
+the fused PEMS08 bf16 epoch).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -408,13 +412,15 @@ F32_BF16 = (torch.float32, torch.bfloat16)
 SPATIAL_SHAPES = [
     # (label, B, N, F, T, C, Co, d, K, d_k, dtypes): PEMS08 block 1 and
     # blocks 2-4, a ragged shape (N, F·T, C·T and d multiples of no tile),
-    # and PEMS07's N = 883 at the same widths with the reference's PEMS07
+    # PEMS07's N = 883 at the same widths with the reference's PEMS07
     # batch of 12 (BASELINE.md), which only the bf16 backward's shared
-    # memory admits (float32: N <= 816)
+    # memory admits (float32: N <= 816), and a d wide enough that the bf16
+    # embedding pass takes 16 rows a block, not 32
     ("pems08_block1", 64, 170, 1, 12, 1, 32, 512, 3, 32, F32_BF16),
     ("pems08_blocks2-4", 64, 170, 32, 12, 32, 32, 512, 3, 32, F32_BF16),
     ("ragged_n29", 3, 29, 2, 7, 3, 5, 24, 2, 8, F32_BF16),
     ("pems07_blocks2-4", 12, 883, 32, 12, 32, 32, 512, 3, 32, (torch.bfloat16,)),
+    ("wide_d2048", 2, 20, 1, 12, 1, 8, 2048, 2, 8, F32_BF16),
 ]
 SPATIAL_KEEP = 0.95  # the model's dropout rate 0.05: the main path's mask
 SPATIAL_DIFF = (0, 1, 3, 4, 5, 6, 7, 8, 9, 11)  # not the mask, not the Chebyshev planes
@@ -533,12 +539,13 @@ def _time_backward(fn, ins, cots, diff, iters):
                                                allow_unused=True), iters)
 
 
-def spatial_design(name, dtype) -> str:
-    """The arithmetic of a spatial kernel: the backward's column and row
-    passes in bf16 on the tensor cores (WMMA: sp_cols_bwd_wmma_kernel,
-    sp_rows_bwd_wmma_kernel); everything else, the forward in both dtypes
-    included, float32 FMAs on the CUDA cores."""
-    return "wmma_bf16" if name == "spatial_bwd" and dtype == torch.bfloat16 else "cuda_core_f32"
+def spatial_design(dtype) -> str:
+    """The arithmetic of the spatial kernels: in bf16 the embedding pass
+    (sp_embed_wmma_kernel, forward and backward), both column passes
+    (sp_cols_fwd_wmma_kernel, sp_cols_bwd_wmma_kernel) and the row pass
+    (sp_rows_bwd_wmma_kernel) on the tensor cores (WMMA); in float32 every
+    pass on the CUDA cores."""
+    return "wmma_bf16" if dtype == torch.bfloat16 else "cuda_core_f32"
 
 
 def check_spatial_smem():
@@ -566,7 +573,9 @@ def phase_fused_kernels():
     autograd Functions, every weight gradient equal bit for bit over two
     backward launches, CUDA-event times of each kernel (on its float32
     operands; the spatial backward on the forward's ReLU mask) and of the
-    plain version. Each spatial backward row names its design."""
+    plain version. Each spatial row names its design and carries the
+    float32 kernel's time at its shape (none at PEMS07's N = 883, which
+    float32 refuses)."""
     check_spatial_smem()
     rows = []
     tat_diff = tuple(range(9))
@@ -636,9 +645,14 @@ def phase_fused_kernels():
                 if name == names[1]:
                     row["weight_grads_bit_identical"] = identical
                     row["rel_err_each"] = per_grad
-                if not is_tat:
-                    row["design"] = spatial_design(name, dtype)
                 row["ms"], row["plain_ms"] = times[name]
+                if not is_tat:
+                    # the float32 kernel's time at this shape, from this call
+                    f32 = [r for r in rows if r["kernel"] == name and r["shape"] == label
+                           and r["dtype"] == "float32"]
+                    row["design"] = spatial_design(dtype)
+                    row["f32_ms"] = (row["ms"] if dtype == torch.float32
+                                     else f32[0]["ms"] if f32 else None)
                 row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
                 print("fused", json.dumps(row), flush=True)
                 check(row["ok"], f"{name} vs plain at {label} {dtype}: "
@@ -651,21 +665,45 @@ def phase_fused_kernels():
     return rows
 
 
-SPATIAL_PASSES = (("sa", "sp_embed_kernel"), ("cols", "sp_cols_bwd"), ("rows", "sp_rows_bwd"),
-                  ("embed_bwd", "sp_embed_bwd_kernel"), ("atb", "atb_partial_kernel"),
-                  ("colsum", "colsum_kernel"))
+# kernel-name fragments of each pass: the float32 and the bf16 kernel of a
+# pass share one
+SPATIAL_PASSES = {
+    "forward": (("sa", ("sp_embed_kernel", "sp_embed_wmma")), ("cols", ("sp_cols_fwd",))),
+    "backward": (("sa", ("sp_embed_kernel", "sp_embed_wmma")), ("cols", ("sp_cols_bwd",)),
+                 ("rows", ("sp_rows_bwd",)), ("embed_bwd", ("sp_embed_bwd_kernel",)),
+                 ("atb", ("atb_partial_kernel",)), ("colsum", ("colsum_kernel",))),
+}
+
+
+def _profile_passes(run, iters, passes):
+    """torch.profiler over ``iters`` calls of ``run``: device ms per call of
+    each kernel, summed by pass; "other" is the tensor ops around the
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    kernels = {e.key[:90]: e.self_device_time_total / 1e3 / iters
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    out = {name: sum(v for k, v in kernels.items() if any(f in k for f in frags))
+           for name, frags in passes}
+    out["other"] = sum(kernels.values()) - sum(out.values())
+    return {"device_ms": sum(kernels.values()), "passes": out, "kernels": kernels}
 
 
 def measure_spatial_passes(iters: int = 10):
-    """The spatial backward (row 13) by pass at PEMS08 blocks 2-4 in each
-    dtype: torch.profiler over ``iters`` backwards through SpatialMiddle's
-    autograd (an interface every version of the package has, so a checkout
-    of another commit can be measured with the same function), device ms
-    per backward of each kernel, summed by pass; "colsum" is the fixed-order
-    row sums (dbias, dΘ, dpos, dpb, dgs, dbs and atb's partials), "other"
-    the tensor ops around the launches."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The spatial forward (row 12) and backward (row 13) by pass at PEMS08
+    blocks 2-4 in each dtype, through SpatialMiddle's autograd (an
+    interface every version of the package has, so a checkout of another
+    commit can be measured with the same function): the forward as a
+    training step calls it, the backward through torch.autograd.grad;
+    "colsum" is the fixed-order row sums (dbias, dΘ, dpos, dpb, dgs, dbs
+    and atb's partials)."""
     _, B, N, F, T, C, Co, d, K, dk, dtypes = next(
         s for s in SPATIAL_SHAPES if s[0] == "pems08_blocks2-4")
     out = {"shape": "pems08_blocks2-4", "iters": iters}
@@ -673,27 +711,60 @@ def measure_spatial_passes(iters: int = 10):
         ins, cots = spatial_inputs(B, N, F, T, C, Co, d, K, dk, dtype, 0)
         leaves = [t.detach().clone().requires_grad_(i in SPATIAL_DIFF)
                   for i, t in enumerate(ins)]
-        y = block_spatial_fused.SpatialMiddle.apply(*leaves, K, dk, SPATIAL_KEEP)
+        fwd = lambda: block_spatial_fused.SpatialMiddle.apply(*leaves, K, dk, SPATIAL_KEEP)
+        y = fwd()
         inputs = [leaves[i] for i in SPATIAL_DIFF]
-        run = lambda: torch.autograd.grad(y, inputs, cots, retain_graph=True)
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                run()
-            torch.cuda.synchronize()
-        kernels = {e.key[:90]: e.self_device_time_total / 1e3 / iters
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA}
-        passes = {name: sum(v for k, v in kernels.items() if frag in k)
-                  for name, frag in SPATIAL_PASSES}
-        passes["other"] = sum(kernels.values()) - sum(passes.values())
-        out[str(dtype).split(".")[-1]] = {"device_ms": sum(kernels.values()), "passes": passes,
-                                          "kernels": kernels}
+        bwd = lambda: torch.autograd.grad(y, inputs, cots, retain_graph=True)
+        out[str(dtype).split(".")[-1]] = {
+            "forward": _profile_passes(fwd, iters, SPATIAL_PASSES["forward"]),
+            "backward": _profile_passes(bwd, iters, SPATIAL_PASSES["backward"])}
         del ins, cots, leaves, y, inputs
         torch.cuda.empty_cache()
-    print("measure", json.dumps({"path": "spatial_bwd_passes", **out}), flush=True)
+    print("measure", json.dumps({"path": "spatial_passes", **out}), flush=True)
     return out
+
+
+def forward_bits(path: Path) -> dict:
+    """The float32 spatial forward kernel's output at every float32 spatial
+    shape on seeded operands: saved to ``path`` where it does not exist
+    yet, else held against the saved outputs bit for bit (torch.equal).
+    Run from checkouts of two commits in turns (``--compare``), it shows
+    whether a change keeps the float32 forward's bits."""
+    outs = {}
+    for seed, (label, B, N, F, T, C, Co, d, K, dk, dtypes) in enumerate(SPATIAL_SHAPES):
+        if torch.float32 not in dtypes:
+            continue
+        ins, _ = spatial_inputs(B, N, F, T, C, Co, d, K, dk, torch.float32, 100 + seed)
+        ops = block_spatial_fused._kernel_operands(*ins)
+        outs[label] = block_spatial_fused.spatial_forward_cuda(
+            *ops, K=K, d_k=dk, keep=SPATIAL_KEEP, bf16=False).cpu()
+    if not path.exists():
+        torch.save(outs, path)
+        result = {"saved": str(path)}
+    else:
+        want = torch.load(path)
+        result = {label: torch.equal(y, want[label]) for label, y in outs.items()}
+        check(all(result.values()), f"float32 spatial forward bits differ from {path}: {result}")
+    print("forward_bits", json.dumps(result), flush=True)
+    return result
+
+
+def compare_run(out: Path) -> dict:
+    """One side of a comparison of two commits in one chip call: the float32
+    forward's bits (against the first side's, saved beside ``out``), the
+    spatial passes and the fused PEMS08 bf16 epoch (ms/step, device time,
+    epoch peak memory), written to ``out``. Run it from a checkout of each
+    commit in turns (parent, change, change, parent), loading this file
+    with importlib so that each checkout's own package is imported."""
+    result = {"card": card_line(), "forward_bits": forward_bits(out.parent / "forward_bits.pt"),
+              "spatial_passes": measure_spatial_passes()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        write_pems08_project(root, "SYNTH08F", **FUSED_KEYS)
+        result["pems08_fused"] = measure_pems08_fused(root, variants=("fused",))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1045,20 +1116,24 @@ def profile_epoch(trainer, top: int = 12):
                          for e in sorted(rows, key=dev, reverse=True)[:top]]
     return {"steps": trainer.last_epoch_steps, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "device_ms_per_step": busy_ms / trainer.last_epoch_steps,
             "kernel_launches": sum(e.count for e in kernels),
             "top_ops": rank(ops), "top_kernels": rank(kernels)}
 
 
-def measure_pems08_fused(root: Path, rounds: int = 2):
+def measure_pems08_fused(root: Path, rounds: int = 2,
+                         variants=("unfused_plain", "unfused_kernel", "fused")):
     """Train-epoch time of the fused PEMS08-width bf16 trainer against the
     unfused one (plain aggregation, and the cheb_sat kernel), alternated in
     one process, with each epoch's peak device memory (as in
-    measure_gambia_fuse_gtu); then a profile of a fused epoch."""
+    measure_gambia_fuse_gtu); then a profile of a fused epoch (its device
+    time a step) and of a plain one. ``variants`` picks the trainers."""
     from dstagnn_drought_tpu_torch.config import load_config
 
-    variants = {"unfused_plain": dict(use_pallas=False, fuse_tat=False, fuse_spatial=False),
-                "unfused_kernel": dict(use_pallas=True, fuse_tat=False, fuse_spatial=False),
-                "fused": dict(use_pallas=True, fuse_tat=True, fuse_spatial=True)}
+    keyed = {"unfused_plain": dict(use_pallas=False, fuse_tat=False, fuse_spatial=False),
+             "unfused_kernel": dict(use_pallas=True, fuse_tat=False, fuse_spatial=False),
+             "fused": dict(use_pallas=True, fuse_tat=True, fuse_spatial=True)}
+    variants = {name: keyed[name] for name in variants}
     trainers = {}
     for name, keys in variants.items():
         cfg = load_config(root / "SYNTH08F.conf")
@@ -1068,8 +1143,8 @@ def measure_pems08_fused(root: Path, rounds: int = 2):
         trainers[name].train_epoch(0)  # warm-up
     times = {name: [] for name in variants}
     peak = {name: [] for name in variants}
-    order = ["unfused_plain", "unfused_kernel", "fused", "fused", "unfused_kernel",
-             "unfused_plain"] * rounds
+    order = [name for name in ["unfused_plain", "unfused_kernel", "fused", "fused",
+                               "unfused_kernel", "unfused_plain"] * rounds if name in variants]
     for i, name in enumerate(order):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1079,7 +1154,8 @@ def measure_pems08_fused(root: Path, rounds: int = 2):
         times[name].append((time.perf_counter() - t0) / trainers[name].last_epoch_steps * 1e3)
         peak[name].append((torch.cuda.max_memory_allocated() - base) / 2 ** 20)
     out = {"path": "pems08_bf16_fused_step_ms", **times, "epoch_peak_mib": peak,
-           "profile": {name: profile_epoch(trainers[name]) for name in ("fused", "unfused_plain")}}
+           "profile": {name: profile_epoch(trainers[name]) for name in ("fused", "unfused_plain")
+                       if name in variants}}
     print("measure", json.dumps(out), flush=True)
     return out
 
@@ -1552,6 +1628,9 @@ def main(argv=None) -> int:
                     help="also time epochs with the kernel and the plain path")
     ap.add_argument("--json", type=Path, default=None,
                     help="also write every phase's numbers to this file")
+    ap.add_argument("--compare", type=Path, default=None, metavar="OUT",
+                    help="build, then run only compare_run (one side of a comparison of "
+                         "two commits) into OUT")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1572,6 +1651,9 @@ def main(argv=None) -> int:
             print(f"  ptxas: {line}")
         builds[name] = {"seconds": r["seconds"], "ptxas": lines}
     print(f"card: {card}", flush=True)
+    if args.compare is not None:
+        compare_run(args.compare)
+        return 0
 
     rows = phase_kernels()
     bell_rows = phase_bell_kernels()
@@ -1589,7 +1671,7 @@ def main(argv=None) -> int:
         gtu_bell = phase_gambia_bell_fuse_gtu(root)
         rcm = phase_gambia_bell_rcm(root)
         if args.measure:
-            measured = {"pems08": measured, "spatial_bwd_passes": passes,
+            measured = {"pems08": measured, "spatial_passes": passes,
                         "pems08_fused": measure_pems08_fused(root),
                         "gambia": measure_gambia_steps(root),
                         "gambia_bell": measure_gambia_bell(root),

@@ -28,11 +28,11 @@
 // it. The TPU kernel held a row's whole pipeline in VMEM; here one row's
 // three (N, N) planes (347 KB) or its N x d embedding (348 KB) alone exceed
 // the 227 KB a block may have, so the work is split across passes:
-//   forward  SA (b, 16 source rows): pre_conv, LN, dropout, QK -> qk (B,N,2Kdk)
+//   forward  SA (rows of (b, i)): pre_conv, LN, dropout, QK -> qk (B,N,2Kdk)
 //            SB (b, 16 target columns): for each k, the column's scores over
-//               all N sources, the source-axis softmax, A_k, agg_k (16 x C*T
-//               sums in registers) and the theta mix into a shared 16 x Co*T
-//               tile; ReLU on the way out. (B, K, N, N) never reaches memory.
+//               all N sources, the source-axis softmax, A_k, agg_k and the
+//               theta mix; ReLU on the way out. (B, K, N, N) never reaches
+//               memory.
 //   backward SA again (saving semx, x_hat, 1/std); SB, one loop over k:
 //               the column's softmax and A_k, agg_k, the dtheta partial,
 //               dagg, dA, the softmax backward -> ds, dk;
@@ -51,28 +51,48 @@
 // element changes a whole batch row's gradients). The forward's record
 // keeps the backward consistent with the output autograd saw, as
 // torch.relu's backward reads its output.
-// Float32 runs every pass on the CUDA cores (exact FMAs, no TF32). In
-// bfloat16 the two N-sized passes run their products on the tensor cores
-// (nvcuda::wmma bf16 16x16x16 fragments, float32 sums; the operands are
-// bf16-exact already, so only the order of the sums differs):
-//   SB (sp_cols_bwd_wmma_kernel): agg_k = A_k^T . xm, dA = xm . dagg_k^T,
-//      and the theta products dtheta_k = md(agg)^T . gm, dagg = gm . theta^T
-//      over the rows r = (j, t), through bf16 tiles transposed to
-//      (r, c) and (r, o) in shared memory (theta mixes per time step, so
-//      in agg's (j, c*T + t) layout they contract with a stride);
+//
+// Float32 runs every pass on the CUDA cores (exact FMAs, no TF32): SA and
+// SD a block of 16 rows of one b on dense::rows_x_mat, SB with agg_k's 16 x
+// C*T sums in registers and the theta mix into a shared 16 x Co*T tile. In
+// bfloat16 SA and the two N-sized passes of each direction run their
+// products on the tensor cores (nvcuda::wmma bf16 16x16x16 fragments,
+// float32 sums; the operands are bf16-exact already, so only the order of
+// the sums differs):
+//   SA (sp_embed_wmma_kernel, forward and backward): x_tat = md(tat) . pw
+//      and qk = semx . wqk for 32 rows flat over (b, i) (16 where 32 do not
+//      fit), so a block reads each weight once: a warp owns a pair of column
+//      tiles and both row tiles and reads the weights (the wrapper's bf16
+//      copies) as fragments straight from L2. Staging them with cp.async
+//      would save no traffic (each fragment is read once a block) and cost
+//      the shared memory that lets two blocks share an SM: 78,848 bytes at
+//      PEMS08 widths (x_tat float32 for the LayerNorm, a 64-column chunk of
+//      md(tat), each row's bf16 semx written over the front of its own x_tat
+//      row once read). LN, dropout and the md() of semx stay float32 a warp
+//      a row. Both directions launch the same kernel, so they get the same
+//      qk bits, and the backward's att is the forward's;
+//   SB forward (sp_cols_fwd_wmma_kernel): agg_k = A_k^T . xm and the theta
+//      mix out^T (r, o) += md(agg)^T (r, c) . theta_k over the rows r =
+//      (j, t), sums float32 in shared memory across k (89,088 bytes at
+//      PEMS08's N = 170: two blocks an SM);
+//   SB backward (sp_cols_bwd_wmma_kernel): agg_k, dA = xm . dagg_k^T, and
+//      the theta products dtheta_k = md(agg)^T . gm, dagg = gm . theta^T;
 //   SC (sp_rows_bwd_wmma_kernel): dxm += A_k . dagg_k.
-// A_k (N, 16) and dagg (16, C*T) are bf16 tiles in shared memory; xm (the
-// wrapper's bf16 copy padded to (Np, C*Tp), multiples of 16, zero outside)
-// and dagg_k (bf16, (Np, C*Tp)) are read as fragments straight from device
-// memory (L2): the block never holds xm, so shared memory holds the (N, 16)
-// planes and 16-row tiles, and the bf16 cap on N is 944 at PEMS08 widths
-// (float32: 816). A's rows past N are zero, so the padded sources add
-// nothing. The scores, the softmax and its backward, dk and dq stay float32
-// FMAs on the CUDA cores: the backward's scores read the tile's keys
-// transposed (conflict-free), SC rebuilds A_k a warp per source row with
-// its lanes across the targets (coalesced bias and Chebyshev reads), both
-// in the forward's FMA order. The embedding passes SA and SD share
-// dense::rows_x_mat with the forward and stay on the CUDA cores too.
+// Both SB kernels stage the theta operands alike (stage_theta: md(agg) and
+// gm transposed to bf16 (r, c) and (r, o) tiles, theta mixing per time step
+// so in agg's (j, c*T + t) layout it contracts with a stride). A_k (N, 16)
+// and dagg (16, C*T) are bf16 tiles in shared memory; xm (the wrapper's
+// bf16 copy padded to (Np, C*Tp), multiples of 16, zero outside) and dagg_k
+// (bf16, (Np, C*Tp)) are read as fragments straight from device memory
+// (L2): no block holds xm, so shared memory holds the (N, 16) planes and
+// 16-row tiles, and the backward's SB sets the bf16 cap on N, 944 at PEMS08
+// widths (float32: 816). A's rows past N are zero, so the padded sources
+// add nothing. The scores, the softmax and its backward, dk and dq stay
+// float32 FMAs on the CUDA cores in one FMA order: both SB kernels read the
+// tile's keys transposed (conflict-free), SC rebuilds A_k a warp per source
+// row with its lanes across the targets (coalesced bias and Chebyshev
+// reads). They, and the unstaged L2 fragment reads, are what bound the bf16
+// passes now; SD stays on the CUDA cores.
 
 #include "dense_common.cuh"
 #include "wmma_common.cuh"
@@ -84,25 +104,30 @@ using dense::kThreads;
 using dense::kWarps;
 using dense::rnd;
 
-constexpr int kRows = 16;  // source rows a block (SA, SC, SD)
+constexpr int kRows = 16;  // source rows a block (SA in float32, SC, SD)
 constexpr int kCols = 16;  // target columns a block (SB)
 constexpr int kAcc = 3;    // 16-column accumulator tiles a warp holds (WMMA)
+constexpr size_t kSmemMax = 232448;  // shared memory a block may have (227 KB)
 
 // n rounded up to a multiple of 4 floats (16-byte aligned shared buffers)
 __host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 __host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
 
-// The bf16 tiles: Np, CTp, Cp, Cop are N, C*T, C, Co rounded up to 16; R =
-// 16*T rows (j, t) of the theta products; LD, LC, LO the rows of the dagg,
-// (r, c) and (r, o) tiles (multiples of 8 for load_matrix_sync)
+// The bf16 tiles: Np, CTp, Cp, Cop, FTp, dp, HKp are N, C*T, C, Co, F*T, d,
+// 2*K*dk rounded up to 16; R = 16*T rows (j, t) of the theta products; LD,
+// LC, LO the rows of the dagg, (r, c) and (r, o) tiles (multiples of 8 for
+// load_matrix_sync), LF, LX those of the float32 (r, o) sums and x_tat
+// (multiples of 4); RW the rows of a bf16 SA block
 struct Dims {
   int B, N, FT, CT, T, C, Co, CoT, d, K, dk, hk, HK2, bf16;
-  int Np, CTp, Cp, Cop, R, LD, LC, LO;
+  int Np, CTp, Cp, Cop, R, LD, LC, LO, LF;
+  int FTp, dp, HKp, LX, RW;
   float keep_inv, inv_sqrt;
 };
 
 // ---------------------------------------------------------------------------
 // SA: pre_conv -> +pos, LN -> dropout -> QK for 16 source rows of batch b
+// (float32 on the CUDA cores)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 sp_embed_kernel(const float* __restrict__ tat, const float* __restrict__ pw,
@@ -148,15 +173,160 @@ sp_embed_kernel(const float* __restrict__ tat, const float* __restrict__ pw,
 }
 
 // ---------------------------------------------------------------------------
+// SA in bfloat16 on the tensor cores, RW rows a block flat over (b, i)
+// ---------------------------------------------------------------------------
+
+// acc[r][q] += a (16*RT rows, kn columns) . w (kn rows, column tiles ct0 +
+// q): a bf16 in shared memory (row length la), w bf16 row-major in device
+// memory (row length ldw), read as fragments from L2. A warp owns a pair of
+// column tiles and every row tile, so a block reads each w fragment once
+// and each a fragment serves two column tiles; the sums stay in the
+// fragments.
+__device__ __forceinline__ void mma_pair(FragC (&acc)[2][2], const bf16* a, int la, int RT,
+                                         int kn, const bf16* __restrict__ w, int ldw, int ct0,
+                                         int NT) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < kn; k0 += 16) {
+    FragB wf[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      if (ct0 + q < NT) wmma::load_matrix_sync(wf[q], w + (size_t)k0 * ldw + (ct0 + q) * 16, ldw);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (r >= RT) continue;
+      FragA af;
+      wmma::load_matrix_sync(af, a + r * 16 * la + k0, la);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (ct0 + q < NT) wmma::mma_sync(acc[r][q], af, wf[q], acc[r][q]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_pair(FragC (&acc)[2][2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) wmma::fill_fragment(acc[r][q], 0.f);
+}
+
+// The embedding pass of both directions in bf16 for RW rows flat over (b,
+// i): x_tat = md(tat) . pw and qk = semx . wqk on WMMA (pw (FTp, dp) and
+// wqk (dp, HKp) the wrapper's bf16 copies, fragments read from L2), pb,
+// pos, LN, dropout and the md() of semx in float32 a warp a row as
+// sp_embed_kernel does; semx, x_hat and 1/std for the backward when given.
+// md(tat) comes through shared memory kKC columns at a time, each round of
+// column pairs walking all of them; each row's bf16 semx overwrites the
+// front of its own float32 x_tat row once read (rows of 2*LX bf16).
+constexpr int kKC = 64;  // md(tat) columns a chunk
+
+__global__ void __launch_bounds__(kThreads)
+sp_embed_wmma_kernel(const float* __restrict__ tat, const bf16* __restrict__ pw,
+                     const float* __restrict__ pb, const float* __restrict__ pos,
+                     const float* __restrict__ gs, const float* __restrict__ bs,
+                     const bf16* __restrict__ wqk, const float* __restrict__ dmask,
+                     float* __restrict__ qk, float* __restrict__ semx_out,
+                     float* __restrict__ xhat_out, float* __restrict__ inv_out, Dims D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int RW = D.RW, RT = RW / 16, LK = kKC + 8;
+  const int row0 = blockIdx.x * RW, nr = min(RW, D.B * D.N - row0);
+  // every region a multiple of 32 bytes, so each WMMA tile starts aligned
+  float* xs = reinterpret_cast<float*>(smem);                   // (RW, LX): x_tat, semx
+  float* stage = xs + RW * D.LX;                                 // 8 x (16, 16)
+  bf16* chunk = reinterpret_cast<bf16*>(stage + kWarps * 256);  // (RW, LK) md(tat)
+  const bf16 zero16 = __float2bfloat16_rn(0.f);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, NT = D.dp / 16;
+  FragC acc[2][2];
+  for (int g0 = 0; g0 < NT; g0 += 2 * kWarps) {
+    const int ct0 = g0 + 2 * warp;
+    zero_pair(acc);
+    for (int c0 = 0; c0 < D.FTp; c0 += kKC) {
+      const int kn = min(kKC, D.FTp - c0);
+      __syncthreads();  // the last chunk is consumed
+      for (int e = threadIdx.x; e < RW * kn; e += kThreads) {
+        const int r = e / kn, c = c0 + e % kn;
+        chunk[r * LK + c - c0] = r < nr && c < D.FT
+                                     ? __float2bfloat16_rn(tat[(size_t)(row0 + r) * D.FT + c])
+                                     : zero16;
+      }
+      __syncthreads();
+      if (ct0 < NT) mma_pair(acc, chunk, LK, RT, kn, pw + (size_t)c0 * D.dp, D.dp, ct0, NT);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (r < RT && ct0 + q < NT)
+          wmma::store_matrix_sync(xs + r * 16 * D.LX + (ct0 + q) * 16, acc[r][q], D.LX,
+                                  wmma::mem_row_major);
+  }
+  __syncthreads();
+  const int LS = 2 * D.LX;
+  bf16* semx = reinterpret_cast<bf16*>(xs);  // (RW, LS)
+  for (int rr = warp; rr < RW; rr += kWarps) {
+    bf16* s16 = semx + rr * LS;
+    float* z = xs + rr * D.LX;
+    const size_t row = (size_t)row0 + rr;
+    float mu = 0.f, inv = 0.f;
+    if (rr < nr) {
+      const float* p = pos + (row % D.N) * D.d;
+      for (int e = lane; e < D.d; e += 32) z[e] = z[e] + pb[e] + p[e];
+      __syncwarp();
+      dense::ln_stats(z, D.d, mu, inv);
+      if (inv_out && lane == 0) inv_out[row] = inv;
+    }
+    // 32 elements at a time, read before written: element e's bf16 lands on
+    // float e/2 of the row, read already
+    for (int e0 = 0; e0 < D.dp; e0 += 32) {
+      const int e = e0 + lane;
+      float s = 0.f;
+      if (rr < nr && e < D.d) {
+        const float h = (z[e] - mu) * inv;
+        const float m = dmask ? dmask[row * D.d + e] : 1.f;
+        s = rnd((h * gs[e] + bs[e]) * m * D.keep_inv, 1);
+        if (xhat_out) {
+          xhat_out[row * D.d + e] = h;
+          semx_out[row * D.d + e] = s;
+        }
+      }
+      __syncwarp();
+      if (e < D.dp) s16[e] = __float2bfloat16_rn(s);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  float* sw = stage + warp * 256;
+  const int NQ = D.HKp / 16;
+  for (int ct0 = 2 * warp; ct0 < NQ; ct0 += 2 * kWarps) {
+    zero_pair(acc);
+    mma_pair(acc, semx, LS, RT, D.dp, wqk, D.HKp, ct0, NQ);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (r >= RT || ct0 + q >= NQ) continue;
+        wmma::store_matrix_sync(sw, acc[r][q], 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int rw = r * 16 + e / 16, c = (ct0 + q) * 16 + e % 16;
+          if (rw < nr && c < D.HK2) qk[(size_t)(row0 + rw) * D.HK2 + c] = sw[e];
+        }
+        __syncwarp();
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // SB helpers: one block owns target columns j0 .. j0+nj-1 of batch b
 // ---------------------------------------------------------------------------
 
-// s = md(q_i) . md(k_j) / sqrt(dk) + bias, the same FMA order in SB and SC;
-// k_j's element c at krow[c * ks]
-__device__ __forceinline__ float score(const float* __restrict__ qrow, const float* krow, int ks,
+// s = md(q_i) . md(k_j) / sqrt(dk) + bias for target jj of the tile, whose
+// md(k) rows kt holds transposed, (dk, 16): the 16 columns a half-warp
+// scores read without bank conflicts. SC's rows_of_A runs the same FMA chain.
+__device__ __forceinline__ float score(const float* __restrict__ qrow, const float* kcol,
                                        float bias, const Dims& D) {
   float dot = 0.f;
-  for (int c = 0; c < D.dk; ++c) dot = fmaf(rnd(qrow[c], D.bf16), krow[c * ks], dot);
+  for (int c = 0; c < D.dk; ++c) dot = fmaf(rnd(qrow[c], D.bf16), kcol[c * kCols], dot);
   return dot * D.inv_sqrt + bias;
 }
 
@@ -166,10 +336,8 @@ __device__ __forceinline__ void put(bf16* p, int e, float v) { p[e] = __float2bf
 // att (N, 16) = source-axis softmax of the tile's scores for order k, and
 // A = md(cheb * att) (float32, or bf16 for the tensor cores); zero past the
 // ragged edge. stats (B,K,N,2) gets each column's max and sum of exp when
-// given. kt holds the tile's md(k) rows (16, dk), or with kKT set their
-// transpose (dk, 16), which the 16 columns a half-warp scores read without
-// bank conflicts (the backward); the sums are the same either way.
-template <typename TA, bool kKT = false>
+// given. kt (dk, 16) gets the tile's md(k) rows transposed.
+template <typename TA>
 __device__ void col_softmax(int b, int k, int j0, int nj, const float* __restrict__ qk,
                             const float* __restrict__ bias, const float* __restrict__ cheb,
                             float* kt, float* att, TA* A, float* __restrict__ stats,
@@ -177,7 +345,7 @@ __device__ void col_softmax(int b, int k, int j0, int nj, const float* __restric
   const int N = D.N;
   for (int e = threadIdx.x; e < kCols * D.dk; e += kThreads) {
     const int jj = e / D.dk, c = e % D.dk;
-    kt[kKT ? c * kCols + jj : e] =
+    kt[c * kCols + jj] =
         jj < nj ? rnd(qk[((size_t)b * N + j0 + jj) * D.HK2 + D.hk + k * D.dk + c], D.bf16)
                 : 0.f;
   }
@@ -188,8 +356,7 @@ __device__ void col_softmax(int b, int k, int j0, int nj, const float* __restric
     float s = 0.f;
     if (jj < nj) {
       const float* qrow = qk + ((size_t)b * N + i) * D.HK2 + k * D.dk;
-      const float bij = bias_k[(size_t)i * N + j0 + jj];
-      s = kKT ? score(qrow, kt + jj, kCols, bij, D) : score(qrow, kt + jj * D.dk, 1, bij, D);
+      s = score(qrow, kt + jj, bias_k[(size_t)i * N + j0 + jj], D);
     }
     att[e] = s;
   }
@@ -367,7 +534,7 @@ sp_cols_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int NJt = gridDim.x;
   for (int k = 0; k < D.K; ++k) {
-    col_softmax<float, true>(b, k, j0, nj, qk, bias, cheb, kt, att, A, stats, D);
+    col_softmax(b, k, j0, nj, qk, bias, cheb, kt, att, A, stats, D);
     aggregate(b, A, xm, agg, D);
     // dtheta_k partial of this tile: sum_{j,t} md(agg)[j][c,t] * gm[j][o,t]
     const float* th = theta + (size_t)k * D.C * D.Co;
@@ -482,10 +649,51 @@ __device__ void dA_wmma(const bf16* __restrict__ xb, const bf16* dagg, float* dA
   __syncthreads();
 }
 
-// The theta products as bf16 GEMMs over the R = 16*T rows r = (j, t) of
-// the tile: gT (R, Cop) = gm with gT[r][o] = gm[j][o, t], aT (R, Cp) =
-// md(agg) with aT[r][c] = md(agg)[j][c, t], thS (Cp, Cop) = theta_k, all
-// bf16 and zero-padded. Per warp, a 16x16 tile of
+// The theta products run as bf16 GEMMs over the R = 16*T rows r = (j, t)
+// of the tile (theta mixes per time step, so in agg's (j, c*T + t) layout
+// they contract with a stride). stage_theta writes their operands aT (R,
+// Cp) = md(agg) with aT[r][c] = md(agg)[j][c, t] and thS (Cp, Cop) =
+// theta_k, bf16 and zero past C and Co.
+__device__ void stage_theta(int k, const float* agg, const float* __restrict__ theta, bf16* aT,
+                            bf16* thS, const Dims& D) {
+  for (int e = threadIdx.x; e < D.R * D.Cp; e += kThreads) {
+    const int r = e / D.Cp, c = e % D.Cp;
+    aT[r * D.LC + c] =
+        __float2bfloat16_rn(c < D.C ? agg[(r / D.T) * D.CTp + c * D.T + r % D.T] : 0.f);
+  }
+  const float* th = theta + (size_t)k * D.C * D.Co;
+  for (int e = threadIdx.x; e < D.Cp * D.Cop; e += kThreads) {
+    const int c = e / D.Cop, o = e % D.Cop;
+    thS[c * D.LO + o] = __float2bfloat16_rn(c < D.C && o < D.Co ? th[c * D.Co + o] : 0.f);
+  }
+  __syncthreads();
+}
+
+// The forward's mix: out (R, LF) += aT . thS, the tile's output transposed
+// to rows r = (j, t), float32 in shared memory across k (a warp a 16x16
+// tile, its sums loaded and stored again each k: any T fits, where sums held
+// in registers across k would cap the tiles at kWarps * kAcc).
+__device__ void theta_mix_wmma(const bf16* aT, const bf16* thS, float* out, const Dims& D) {
+  const int warp = threadIdx.x / 32, CTt = D.Cp / 16, OTt = D.Cop / 16;
+  for (int w = warp; w < (D.R / 16) * OTt; w += kWarps) {
+    const int rt = w / OTt, ot = w % OTt;
+    float* o = out + rt * 16 * D.LF + ot * 16;
+    FragC acc;
+    wmma::load_matrix_sync(acc, o, D.LF, wmma::mem_row_major);
+    for (int ct = 0; ct < CTt; ++ct) {
+      FragA a;
+      FragB th;
+      wmma::load_matrix_sync(a, aT + rt * 16 * D.LC + ct * 16, D.LC);
+      wmma::load_matrix_sync(th, thS + ct * 16 * D.LO + ot * 16, D.LO);
+      wmma::mma_sync(acc, a, th, acc);
+    }
+    wmma::store_matrix_sync(o, acc, D.LF, wmma::mem_row_major);
+  }
+  __syncthreads();
+}
+
+// The backward's two theta products, on gT (R, Cop) = gm with gT[r][o] =
+// gm[j][o, t] besides the staged aT and thS. Per warp, a 16x16 tile of
 //   dtheta_k = aT^T . gT   (Cp, Cop; aT read col-major)
 //   dagg^T   = gT . thS^T  (R, Cp; thS read col-major)
 // goes through the warp's 16x16 float32 staging to its place: dtheta to the
@@ -537,6 +745,42 @@ __device__ void theta_wmma(const bf16* gT, const bf16* aT, const bf16* thS, floa
 }
 
 // ---------------------------------------------------------------------------
+// SB forward in bfloat16, per (b, 16 target columns): agg_k and the theta mix
+// on the tensor cores, the scores and softmax on the CUDA cores
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+sp_cols_fwd_wmma_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
+                        const float* __restrict__ cheb, const bf16* __restrict__ xp,
+                        const float* __restrict__ theta, float* __restrict__ y, Dims D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = D.N, Np = D.Np, b = blockIdx.y, j0 = blockIdx.x * kCols;
+  const int nj = min(kCols, N - j0);
+  // every region a multiple of 32 bytes, so each WMMA tile starts aligned
+  float* kt = reinterpret_cast<float*>(smem);              // (dk, 16)
+  float* att = kt + kCols * D.dk;                           // (Np, 16)
+  float* agg = att + Np * kCols;                            // (16, CTp)
+  float* out = agg + kCols * D.CTp;                         // (R, LF)
+  bf16* A = reinterpret_cast<bf16*>(out + D.R * D.LF);      // (Np, 16)
+  bf16* aT = A + Np * kCols;                                // (R, LC)
+  bf16* thS = aT + D.R * D.LC;                              // (Cp, LO)
+  for (int e = N * kCols + threadIdx.x; e < Np * kCols; e += kThreads)
+    A[e] = __float2bfloat16_rn(0.f);  // the padded sources add nothing
+  zero(out, D.R * D.LF);
+  const bf16* xb = xp + (size_t)b * Np * D.CTp;
+  for (int k = 0; k < D.K; ++k) {
+    col_softmax(b, k, j0, nj, qk, bias, cheb, kt, att, A, nullptr, D);
+    aggregate_wmma(A, xb, agg, D);
+    stage_theta(k, agg, theta, aT, thS, D);
+    theta_mix_wmma(aT, thS, out, D);
+  }
+  float* yb = y + ((size_t)b * N + j0) * D.CoT;
+  for (int e = threadIdx.x; e < nj * D.CoT; e += kThreads) {
+    const int jj = e / D.CoT, om = e % D.CoT, o = om / D.T, t = om % D.T;
+    yb[e] = fmaxf(out[(jj * D.T + t) * D.LF + o], 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // SB backward in bfloat16, per (b, 16 target columns): agg_k, dA and the
 // theta products on the tensor cores; dagg_k (bf16, (Np, CTp) a k, zero past
 // N and C*T) for SC
@@ -564,12 +808,10 @@ sp_cols_bwd_wmma_kernel(const float* __restrict__ qk, const float* __restrict__ 
   bf16* thS = aT + D.R * D.LC;                             // (Cp, LO)
   const bf16 zero16 = __float2bfloat16_rn(0.f);
   // zero what no k writes: A past N (the padded sources add nothing), dagg
-  // past C*T, aT past C
+  // past C*T
   for (int e = N * kCols + threadIdx.x; e < Np * kCols; e += kThreads) A[e] = zero16;
   for (int e = threadIdx.x; e < kCols * (D.CTp - D.CT); e += kThreads)
     dagg[(e / (D.CTp - D.CT)) * D.LD + D.CT + e % (D.CTp - D.CT)] = zero16;
-  for (int e = threadIdx.x; e < D.R * (D.Cp - D.C); e += kThreads)
-    aT[(e / (D.Cp - D.C)) * D.LC + D.C + e % (D.Cp - D.C)] = zero16;
   // gT = md(g * [y > 0]) with the forward's own mask, zero past nj and Co
   const size_t o0 = ((size_t)b * N + j0) * D.CoT;
   for (int e = threadIdx.x; e < D.R * D.Cop; e += kThreads) {
@@ -585,18 +827,9 @@ sp_cols_bwd_wmma_kernel(const float* __restrict__ qk, const float* __restrict__ 
 
   const bf16* xb = xp + (size_t)b * Np * D.CTp;
   for (int k = 0; k < D.K; ++k) {
-    col_softmax<bf16, true>(b, k, j0, nj, qk, bias, cheb, kt, att, A, stats, D);
+    col_softmax(b, k, j0, nj, qk, bias, cheb, kt, att, A, stats, D);
     aggregate_wmma(A, xb, agg, D);
-    const float* th = theta + (size_t)k * D.C * D.Co;
-    for (int e = threadIdx.x; e < D.R * D.C; e += kThreads) {
-      const int r = e / D.C, c = e % D.C;
-      aT[r * D.LC + c] = __float2bfloat16_rn(agg[(r / D.T) * D.CTp + c * D.T + r % D.T]);
-    }
-    for (int e = threadIdx.x; e < D.Cp * D.Cop; e += kThreads) {
-      const int c = e / D.Cop, o = e % D.Cop;
-      thS[c * D.LO + o] = __float2bfloat16_rn(c < D.C && o < D.Co ? th[c * D.Co + o] : 0.f);
-    }
-    __syncthreads();
+    stage_theta(k, agg, theta, aT, thS, D);
     theta_wmma(gT, aT, thS, stage, dagg,
                dth_part + (((size_t)b * gridDim.x + jt) * D.K + k) * D.C * D.Co, D);
     bf16* db = daggbuf + (((size_t)b * D.K + k) * Np + j0) * D.CTp;
@@ -644,7 +877,9 @@ __device__ void rows_of_A(int b, int k, int i0, int ni, const float* __restrict_
     const float* bias_i = bias + ((size_t)k * N + i) * N;
     const float* cheb_i = cheb + ((size_t)k * N + i) * N;
     for (int j = lane; j < N; j += 32) {
-      const float s = score(qrow, krT + j, N, bias_i[j], D);
+      float dot = 0.f;  // score's FMA chain, on krT's column j
+      for (int c = 0; c < D.dk; ++c) dot = fmaf(rnd(qrow[c], D.bf16), krT[c * N + j], dot);
+      const float s = dot * D.inv_sqrt + bias_i[j];
       put(At, j * kRows + ii, rnd(cheb_i[j] * (expf(s - st[2 * j]) / st[2 * j + 1]), D.bf16));
     }
   }
@@ -813,6 +1048,11 @@ sp_embed_bwd_kernel(const float* __restrict__ dqk, const float* __restrict__ wqk
 
 // ---------------------------------------------------------------------------
 
+size_t sa_wmma_smem(const Dims& D, int rows) {
+  return sizeof(float) * ((size_t)rows * D.LX + kWarps * 256) +
+         sizeof(bf16) * (size_t)rows * (kKC + 8);
+}
+
 Dims make_dims(int B, int N, int FT, int C, int T, int Co, int d, int K, int dk, float keep,
                int bf16) {
   Dims D;
@@ -838,13 +1078,30 @@ Dims make_dims(int B, int N, int FT, int C, int T, int Co, int d, int K, int dk,
   D.LD = D.CTp + 8;
   D.LC = D.Cp + 8;
   D.LO = D.Cop + 8;
+  D.LF = D.Cop + 4;
+  D.FTp = pad16(FT);
+  D.dp = pad16(d);
+  D.HKp = pad16(D.HK2);
+  D.LX = D.dp + 4;
+  D.RW = sa_wmma_smem(D, 32) <= kSmemMax ? 32 : 16;
   D.keep_inv = static_cast<float>(1.0 / static_cast<double>(keep));
   D.inv_sqrt = static_cast<float>(1.0 / sqrt(static_cast<double>(dk)));
   return D;
 }
 
-size_t sa_smem(const Dims& D) { return sizeof(float) * kRows * (D.FT + D.d); }
+// float32: the (16, FT) tat rows and (16, d) x_tat; bf16: x_tat (RW, LX)
+// and the warps' staging in float32, the md(tat) chunk (RW, kKC + 8) in bf16
+size_t sa_smem(const Dims& D) {
+  return D.bf16 ? sa_wmma_smem(D, D.RW) : sizeof(float) * kRows * (D.FT + D.d);
+}
+// float32: kt, att, A (N, 16), agg (16, CT), out (16, CoT); bf16: kt, att
+// (Np, 16), agg (16, CTp) and out (R, LF) in float32, A (Np, 16), aT (R,
+// LC) and thS (Cp, LO) in bf16
 size_t sb_fwd_smem(const Dims& D) {
+  if (D.bf16)
+    return sizeof(float) * ((size_t)kCols * D.dk + (size_t)D.Np * kCols + kCols * D.CTp +
+                            (size_t)D.R * D.LF) +
+           sizeof(bf16) * ((size_t)D.Np * kCols + (size_t)D.R * D.LC + D.Cp * D.LO);
   return sizeof(float) * ((size_t)kCols * D.dk + 2 * (size_t)D.N * kCols + kCols * D.CT +
                           kCols * D.CoT);
 }
@@ -910,16 +1167,25 @@ BwdSpace bwd_space(const Dims& D) {
   return s;
 }
 
-cudaError_t launch_sa(const float* tat, const float* pw, const float* pb, const float* pos,
-                      const float* gs, const float* bs, const float* wqk, const float* dmask,
-                      float* qk, float* semx, float* xhat, float* inv, const Dims& D,
-                      cudaStream_t st) {
+// SA for the forward (qk) and the backward (qk, semx, x_hat, 1/std): in
+// bf16 on the tensor cores from pw16, wqk16, else on the CUDA cores
+cudaError_t launch_sa(const float* tat, const float* pw, const bf16* pw16, const float* pb,
+                      const float* pos, const float* gs, const float* bs, const float* wqk,
+                      const bf16* wqk16, const float* dmask, float* qk, float* semx,
+                      float* xhat, float* inv, const Dims& D, cudaStream_t st) {
   const size_t smem = sa_smem(D);
-  cudaError_t err = dense::allow_smem(sp_embed_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((D.N + kRows - 1) / kRows, D.B);
-  sp_embed_kernel<<<grid, kThreads, smem, st>>>(tat, pw, pb, pos, gs, bs, wqk, dmask, qk, semx,
-                                                xhat, inv, D);
+  cudaError_t err;
+  if (D.bf16) {
+    if ((err = dense::allow_smem(sp_embed_wmma_kernel, smem)) != cudaSuccess) return err;
+    const int blocks = (D.B * D.N + D.RW - 1) / D.RW;
+    sp_embed_wmma_kernel<<<blocks, kThreads, smem, st>>>(tat, pw16, pb, pos, gs, bs, wqk16,
+                                                         dmask, qk, semx, xhat, inv, D);
+  } else {
+    if ((err = dense::allow_smem(sp_embed_kernel, smem)) != cudaSuccess) return err;
+    const dim3 grid((D.N + kRows - 1) / kRows, D.B);
+    sp_embed_kernel<<<grid, kThreads, smem, st>>>(tat, pw, pb, pos, gs, bs, wqk, dmask, qk,
+                                                  semx, xhat, inv, D);
+  }
   return cudaGetLastError();
 }
 
@@ -934,9 +1200,9 @@ size_t spatial_fused_workspace_floats(int B, int N, int FT, int C, int T, int Co
   return backward ? bwd_space(D).total : (size_t)B * N * D.HK2;
 }
 
-// Bytes of shared memory a block of each kernel requests: 0 SA
-// (sp_embed_kernel), 1 SB forward, 2 SB backward, 3 SC, 4 SD; the
-// backward's SB and SC in the bf16 (tensor-core) layout when bf16 is set.
+// Bytes of shared memory a block of each kernel requests: 0 SA, 1 SB
+// forward, 2 SB backward, 3 SC, 4 SD; SA and both SB and SC in the bf16
+// (tensor-core) layout when bf16 is set.
 size_t spatial_fused_smem_bytes(int N, int FT, int C, int T, int Co, int d, int K, int dk,
                                 int kernel, int bf16) {
   const Dims D = make_dims(1, N, FT, C, T, Co, d, K, dk, 1.f, bf16);
@@ -950,23 +1216,36 @@ size_t spatial_fused_smem_bytes(int N, int FT, int C, int T, int Co, int d, int 
 }
 
 // Forward: y (B, N, Co*T) float32. dmask (B, N, d) of 0/1 or null (no
-// dropout). Returns cudaGetLastError().
+// dropout). With bf16 set both passes run on the tensor cores and read the
+// wrapper's bf16 copies, zero-padded to multiples of 16: xm_pad (B, Np,
+// CTp), pw_pad (FTp, dp), wqk_pad (dp, HKp); otherwise those are unused.
+// Returns cudaGetLastError().
 int spatial_fused_forward(const float* tat, const float* xm, const float* dmask,
                           const float* pw, const float* pb, const float* pos, const float* gs,
                           const float* bs, const float* wqk, const float* bias,
-                          const float* cheb, const float* theta, float* y, float* ws, int B,
+                          const float* cheb, const float* theta, const void* xm_pad,
+                          const void* pw_pad, const void* wqk_pad, float* y, float* ws, int B,
                           int N, int FT, int C, int T, int Co, int d, int K, int dk,
                           float keep, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims D = make_dims(B, N, FT, C, T, Co, d, K, dk, keep, bf16);
-  cudaError_t err = launch_sa(tat, pw, pb, pos, gs, bs, wqk, dmask, ws, nullptr, nullptr,
-                              nullptr, D, st);
+  const auto* pw16 = static_cast<const wm::bf16*>(pw_pad);
+  const auto* wqk16 = static_cast<const wm::bf16*>(wqk_pad);
+  cudaError_t err = launch_sa(tat, pw, pw16, pb, pos, gs, bs, wqk, wqk16, dmask, ws, nullptr,
+                              nullptr, nullptr, D, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = sb_fwd_smem(D);
-  err = dense::allow_smem(sp_cols_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kCols - 1) / kCols, B);
-  sp_cols_fwd_kernel<<<grid, kThreads, smem, st>>>(ws, bias, cheb, xm, theta, y, D);
+  if (bf16) {
+    if ((err = dense::allow_smem(sp_cols_fwd_wmma_kernel, smem)) != cudaSuccess)
+      return static_cast<int>(err);
+    sp_cols_fwd_wmma_kernel<<<grid, kThreads, smem, st>>>(
+        ws, bias, cheb, static_cast<const wm::bf16*>(xm_pad), theta, y, D);
+  } else {
+    if ((err = dense::allow_smem(sp_cols_fwd_kernel, smem)) != cudaSuccess)
+      return static_cast<int>(err);
+    sp_cols_fwd_kernel<<<grid, kThreads, smem, st>>>(ws, bias, cheb, xm, theta, y, D);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -974,16 +1253,17 @@ int spatial_fused_forward(const float* tat, const float* xm, const float* dmask,
 // dgs, dbs], dpos (N,d), dwqk (d,2Kdk), dbias (K,N,N), dtheta (K,C,Co), all
 // summed over b in a fixed order. pw_t (d,FT) and wqk_t (2Kdk,d) are the
 // transposed weights. relu_pos (B,N,Co*T) holds 1 where the forward's
-// float32 output was > 0, else 0. With bf16 set the SB and SC passes run
-// on the tensor cores and read xm_pad, xm in bf16 padded to (B, Np, CTp)
-// with zeros (N and C*T rounded up to 16); otherwise xm_pad is unused.
-// `ws` holds spatial_fused_workspace_floats(..., 1, bf16).
+// float32 output was > 0, else 0. With bf16 set the SA, SB and SC passes
+// run on the tensor cores and read the forward's bf16 copies xm_pad,
+// pw_pad and wqk_pad; otherwise those are unused. `ws` holds
+// spatial_fused_workspace_floats(..., 1, bf16).
 int spatial_fused_backward(const float* tat, const float* xm, const float* dmask,
                            const float* pw, const float* pw_t, const float* pb,
                            const float* pos, const float* gs, const float* bs,
                            const float* wqk, const float* wqk_t, const float* bias,
                            const float* cheb, const float* theta, const float* g_out,
-                           const unsigned char* relu_pos, const void* xm_pad, float* dtat,
+                           const unsigned char* relu_pos, const void* xm_pad,
+                           const void* pw_pad, const void* wqk_pad, float* dtat,
                            float* dxm, float* dpw, float* dvec, float* dpos, float* dwqk,
                            float* dbias, float* dtheta, float* ws, int B, int N,
                            int FT, int C, int T, int Co, int d, int K, int dk, float keep,
@@ -992,8 +1272,10 @@ int spatial_fused_backward(const float* tat, const float* xm, const float* dmask
   const Dims D = make_dims(B, N, FT, C, T, Co, d, K, dk, keep, bf16);
   const BwdSpace s = bwd_space(D);
   const int BN = B * N, NJt = (N + kCols - 1) / kCols, NIt = (N + kRows - 1) / kRows;
-  cudaError_t err = launch_sa(tat, pw, pb, pos, gs, bs, wqk, dmask, ws + s.qk, ws + s.semx,
-                              ws + s.xhat, ws + s.inv, D, st);
+  const auto* pw16 = static_cast<const wm::bf16*>(pw_pad);
+  const auto* wqk16 = static_cast<const wm::bf16*>(wqk_pad);
+  cudaError_t err = launch_sa(tat, pw, pw16, pb, pos, gs, bs, wqk, wqk16, dmask, ws + s.qk,
+                              ws + s.semx, ws + s.xhat, ws + s.inv, D, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   // SB and SC: bf16 on the tensor cores, float32 on the CUDA cores

@@ -19,9 +19,13 @@ in the forward; the backward's weight gradients are summed over the batch
 in a fixed order, so two launches give the same bits. The backward reads
 the ReLU mask the forward kernel produced (``y > 0``, kept by
 :class:`SpatialMiddle`), as ``torch.relu``'s backward reads its output. In
-bfloat16 its two N-sized passes run on the tensor cores
-(``sp_cols_bwd_wmma_kernel``, ``sp_rows_bwd_wmma_kernel``), in float32 on
-the CUDA cores. :class:`SpatialMiddle` puts them together. The wrappers
+bfloat16 the embedding pass (``sp_embed_wmma_kernel``, both directions),
+the forward's column pass (``sp_cols_fwd_wmma_kernel``) and the backward's
+column and row passes (``sp_cols_bwd_wmma_kernel``,
+``sp_rows_bwd_wmma_kernel``) run their products on the tensor cores, on
+bf16 copies of xm, pw and wqk padded with zeros to multiples of 16; in
+float32 every pass runs on the CUDA cores. :class:`SpatialMiddle` puts
+them together. The wrappers
 take the kernels for CUDA tensors and the plain version
 (:func:`spatial_middle_plain`, gradients from autograd) only for tensors on
 the CPU; ``fwd_launches``/``bwd_launches`` count launches.
@@ -103,13 +107,27 @@ def _pad16(n):
     return (n + 15) // 16 * 16
 
 
+def _embed_rows(FT, d):
+    """Rows a bf16 embedding block takes (flat over (b, i)): 32, or 16 where
+    32 rows do not fit a block's shared memory."""
+    return 32 if _embed_wmma_bytes(32, FT, d) <= _SMEM_MAX else 16
+
+
+def _embed_wmma_bytes(rows, FT, d):
+    return 4 * (rows * (_pad16(d) + 4) + 8 * 256) + 2 * rows * (64 + 8)
+
+
 def smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype=torch.float32):
     """Shared memory a block of each kernel requests, for the compute dtype
     (the formulas of csrc/block_spatial_fused.cu, keyed as ``KERNELS``).
-    In bfloat16 the backward's column pass keeps A_k, dagg and the theta
-    products' operands in bf16 tiles padded to multiples of 16 (Np, C·Tp,
-    Cp, Cop; rows of 8 more) beside 8 warps' 16x16 float32 staging, and its
-    row pass A_k's rows in bf16; the rest is float32."""
+    In bfloat16 the tensor-core passes keep their bf16 tiles padded to
+    multiples of 16 (Np, C·Tp, Cp, Cop, dp; rows of 8 more): the embedding
+    pass a 64-column chunk of md(tat) beside x_tat (its rows hold semx
+    after the LayerNorm) and 8 warps' 16x16 staging in float32; the
+    forward's column pass A_k and the theta mix's operands beside its
+    float32 (16·T, Cop + 4) sums; the backward's column pass A_k, dagg and
+    the theta products' operands beside the staging, and its row pass A_k's
+    rows; the rest is float32."""
     t, hk2, CT, CoT = _TILE, 2 * K * d_k, C * T, Co * T
     pad4 = lambda n: (n + 3) // 4 * 4
     out = {"embed": 4 * t * (FT + d),
@@ -119,6 +137,9 @@ def smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype=torch.float32):
            "embed_bwd": 4 * t * (hk2 + d)}
     if dtype == torch.bfloat16:
         Np, CTp, Cp, Cop, R = _pad16(N), _pad16(CT), _pad16(C), _pad16(Co), t * T
+        out["embed"] = _embed_wmma_bytes(_embed_rows(FT, d), FT, d)
+        out["cols_fwd"] = (4 * (t * d_k + Np * t + t * CTp + R * (Cop + 4))
+                           + 2 * (Np * t + R * (Cp + 8) + Cp * (Cop + 8)))
         out["cols_bwd"] = (4 * (t * d_k + 2 * Np * t + t * CTp + 8 * 256)
                            + 2 * (Np * t + t * (CTp + 8) + R * (Cop + 8 + Cp + 8)
                                   + Cp * (Cop + 8)))
@@ -134,9 +155,9 @@ def _load():
         lib.spatial_fused_smem_bytes.argtypes = [ctypes.c_int] * 10
         lib.spatial_fused_smem_bytes.restype = ctypes.c_size_t
         tail = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        lib.spatial_fused_forward.argtypes = [ctypes.c_void_p] * 14 + tail
+        lib.spatial_fused_forward.argtypes = [ctypes.c_void_p] * 17 + tail
         lib.spatial_fused_forward.restype = ctypes.c_int
-        lib.spatial_fused_backward.argtypes = [ctypes.c_void_p] * 26 + tail
+        lib.spatial_fused_backward.argtypes = [ctypes.c_void_p] * 28 + tail
         lib.spatial_fused_backward.restype = ctypes.c_int
         lib.spatial_fused_error_string.argtypes = [ctypes.c_int]
         lib.spatial_fused_error_string.restype = ctypes.c_char_p
@@ -202,10 +223,27 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def _bf16_operands(xm, pw, wqk, bf16):
+    """The tensor-core passes' bf16 copies of xm (B, N, C·T), pw (F·T, d)
+    and wqk (d, 2·K·d_k), each zero-padded to multiples of 16 in its last
+    two dimensions (the operands are bf16-exact already: nothing is lost);
+    Nones in float32."""
+    if not bf16:
+        return None, None, None
+    out = []
+    for a in (xm, pw, wqk):
+        p = torch.zeros(a.shape[:-2] + (_pad16(a.shape[-2]), _pad16(a.shape[-1])),
+                        dtype=torch.bfloat16, device=a.device)
+        p[..., :a.shape[-2], :a.shape[-1]] = a
+        out.append(p)
+    return tuple(out)
+
+
 def spatial_forward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, *,
                          K, d_k, keep, bf16):
     """Launch the forward on the current stream: float32 contiguous CUDA
-    tensors (``dmask`` None for no dropout) → (B, N, Co·T) float32."""
+    tensors (``dmask`` None for no dropout) → (B, N, Co·T) float32. With
+    ``bf16`` the embedding and column passes run on the tensor cores."""
     global fwd_launches
     B, N, FT, C, T, Co, d = _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
                                    thetas, K, d_k, bf16)
@@ -213,13 +251,14 @@ def spatial_forward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, t
     lib = _load()
     ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 0, 0),
                      dtype=torch.float32, device=tat.device)
+    padded = _bf16_operands(xm, pw, wqk, bf16)
     with torch.cuda.device(tat.device):
         stream = torch.cuda.current_stream(tat.device).cuda_stream
         err = lib.spatial_fused_forward(
             tat.data_ptr(), xm.data_ptr(), _ptr(dmask), pw.data_ptr(), pb.data_ptr(),
             pos.data_ptr(), gs.data_ptr(), bs.data_ptr(), wqk.data_ptr(), bias.data_ptr(),
-            cheb.data_ptr(), thetas.data_ptr(), y.data_ptr(), ws.data_ptr(),
-            B, N, FT, C, T, Co, d, K, d_k, float(keep), int(bf16), stream)
+            cheb.data_ptr(), thetas.data_ptr(), *map(_ptr, padded), y.data_ptr(),
+            ws.data_ptr(), B, N, FT, C, T, Co, d, K, d_k, float(keep), int(bf16), stream)
     _raise_on(lib, err, "block_spatial_fused forward")
     fwd_launches += 1
     return y
@@ -231,8 +270,8 @@ def spatial_backward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, 
     dgs, dbs, dwqk, dbias, dthetas), all float32; the weight gradients are
     summed over the batch in a fixed order. ``relu_mask`` (B, N, Co·T)
     torch.bool is where the forward kernel's float32 output was > 0. With
-    ``bf16`` the column and row passes run on the tensor cores, on a bf16
-    copy of xm padded with zeros to multiples of 16."""
+    ``bf16`` the embedding, column and row passes run on the tensor cores,
+    on the forward's padded bf16 copies."""
     global bwd_launches
     B, N, FT, C, T, Co, d = _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
                                    thetas, K, d_k, bf16, others=(("g_out", g_out),),
@@ -250,17 +289,14 @@ def spatial_backward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, 
     lib = _load()
     ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 1,
                                                         int(bf16)), **f32)
-    xm_pad = None
-    if bf16:
-        xm_pad = torch.zeros((B, _pad16(N), _pad16(C * T)), dtype=torch.bfloat16, device=dev)
-        xm_pad[:, :N, :C * T] = xm
+    padded = _bf16_operands(xm, pw, wqk, bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spatial_fused_backward(
             tat.data_ptr(), xm.data_ptr(), _ptr(dmask), pw.data_ptr(), pw_t.data_ptr(),
             pb.data_ptr(), pos.data_ptr(), gs.data_ptr(), bs.data_ptr(), wqk.data_ptr(),
             wqk_t.data_ptr(), bias.data_ptr(), cheb.data_ptr(), thetas.data_ptr(),
-            g_out.data_ptr(), relu_mask.data_ptr(), _ptr(xm_pad), dtat.data_ptr(),
+            g_out.data_ptr(), relu_mask.data_ptr(), *map(_ptr, padded), dtat.data_ptr(),
             dxm.data_ptr(), dpw.data_ptr(),
             dvec.data_ptr(), dpos.data_ptr(), dwqk.data_ptr(), dbias.data_ptr(),
             dth.data_ptr(), ws.data_ptr(), B, N, FT, C, T, Co, d, K, d_k, float(keep),

@@ -252,6 +252,55 @@ def test_kernels_refuse_what_they_do_not_take():
         bsf._check(*big, 3, 32, True)
 
 
+def test_bf16_forward_gate_keeps_the_backward_cap():
+    """The bf16 embedding and forward column passes (tensor-core layouts)
+    need less shared memory than the backward's column pass at every N up
+    to its cap at PEMS08 widths, so the caps stay float32 N <= 816 and bf16
+    N <= 944 (PEMS07's 883 included), and N = 945 is refused naming
+    cols_bwd. At PEMS08's N = 170 two bf16 column blocks fit an SM (228 KB,
+    1 KB reserved a block)."""
+    widths = (384, 32, 12, 32, 512, 3, 32)
+    for n in range(1, 945):
+        need = bsf.smem_bytes(n, *widths, torch.bfloat16)
+        assert max(need["embed"], need["cols_fwd"]) < need["cols_bwd"], n
+    for n, dtype in ((816, torch.float32), (883, torch.bfloat16), (944, torch.bfloat16)):
+        assert max(bsf.smem_bytes(n, *widths, dtype).values()) <= 227 * 1024, (n, dtype)
+    pems08 = bsf.smem_bytes(170, *widths, torch.bfloat16)
+    assert pems08["embed"] == 78_848 and pems08["cols_fwd"] == 89_088
+    assert 2 * (pems08["cols_fwd"] + 1024) <= 228 * 1024
+    # a d at which 32 bf16 embedding rows would not fit takes 16 a block and
+    # stays admitted, as float32 admits it
+    assert bsf._embed_wmma_bytes(32, 12, 2048) > 227 * 1024
+    wide = (20, 12, 1, 12, 8, 2048, 2, 8)
+    assert bsf.smem_bytes(*wide, torch.bfloat16)["embed"] == bsf._embed_wmma_bytes(16, 12, 2048)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert max(bsf.smem_bytes(*wide, dtype).values()) <= 227 * 1024
+    n = 945
+    big = [torch.zeros(1, n, 384), torch.zeros(1, n, 384), None, torch.zeros(384, 512),
+           torch.zeros(512), torch.zeros(n, 512), torch.zeros(512), torch.zeros(512),
+           torch.zeros(512, 192), torch.zeros(3, n, n), torch.zeros(3, n, n),
+           torch.zeros(3, 32, 32)]
+    need = bsf.smem_bytes(n, *widths, torch.bfloat16)["cols_bwd"]
+    with pytest.raises(ValueError, match=f"cols_bwd kernel needs {need} bytes"):
+        bsf._check(*big, 3, 32, True)
+
+
+def test_bf16_operands_are_zero_padded_copies():
+    """The tensor-core passes' bf16 copies of xm, pw and wqk: multiples of
+    16 in their last two dimensions, the operand in the corner and zeros
+    elsewhere; none in float32."""
+    args = _kernel_args()
+    xm, pw, wqk = (args[i].bfloat16().float() for i in (1, 3, 8))
+    assert bsf._bf16_operands(xm, pw, wqk, False) == (None, None, None)
+    for a, p in zip((xm, pw, wqk), bsf._bf16_operands(xm, pw, wqk, True)):
+        assert p.dtype == torch.bfloat16
+        assert p.shape[:-2] == a.shape[:-2]
+        assert all(s % 16 == 0 and s - 16 < t <= s for s, t in zip(p.shape[-2:], a.shape[-2:]))
+        r, c = a.shape[-2:]
+        assert torch.equal(p[..., :r, :c].float(), a)
+        assert not p[..., r:, :].any() and not p[..., :, c:].any()
+
+
 def test_cpu_path_counts_no_launch():
     before = (bsf.fwd_launches, bsf.bwd_launches)
     args = [t.requires_grad_(True) if t is not None and t.is_floating_point() else t
@@ -263,13 +312,15 @@ def test_cpu_path_counts_no_launch():
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """The kernels against the plain version on the card, float32 (CUDA
-    cores) and bfloat16 (the backward's column and row passes on the tensor
-    cores): in float32 the forward within 1e-4 and every gradient within
-    3e-3, absolute and relative; in bf16 both within 1e-2 of their scale.
-    The cotangent is randn, zeroed within the forward tolerance of the ReLU
-    kink (there one flipped mask element changes a whole batch row's
-    gradients); one launch of each kernel a call, and the weight gradients
-    equal bit for bit over two backward launches."""
+    cores) and bfloat16 (the embedding pass, both column passes and the row
+    pass on the tensor cores): in float32 the forward within 1e-4 and every
+    gradient within 3e-3, absolute and relative; in bf16 both within 1e-2
+    of their scale. The cotangent is randn, zeroed within the forward
+    tolerance of the ReLU kink (there one flipped mask element changes a
+    whole batch row's gradients); one launch of each kernel a call, and the
+    weight gradients equal bit for bit over two backward launches. The
+    forward-only path under no_grad (evaluation) launches the forward
+    kernel alone and agrees within the same forward tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -310,3 +361,10 @@ def test_kernels_match_plain_on_card():
                                                       keep=0.8, bf16=bf16) for _ in range(2))
             for a, b in zip(first[2:], again[2:]):  # dpw, dpb, dpos, dgs, dbs, dwqk, dbias, dΘ
                 assert torch.equal(a, b)
+            with torch.no_grad():
+                before = (bsf.fwd_launches, bsf.bwd_launches)
+                out = bsf.spatial_middle(*leaves[0], K=K, d_k=DK, keep=0.8)
+                torch.cuda.synchronize()
+                assert (bsf.fwd_launches, bsf.bwd_launches) == (before[0] + 1, before[1])
+                torch.testing.assert_close(out.float(), want.detach().float(),
+                                           atol=ftol * scale, rtol=ftol)
