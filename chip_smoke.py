@@ -17,9 +17,15 @@ Phases; any failure exits non-zero:
      with K1's dΘ equal bit for bit over two launches;
   2c. the fused dense kernels against their plain versions, forward and
      every gradient, in float32 and bfloat16, at PEMS08 block 1 and blocks
-     2-4, the TAt embedding mode and a ragged shape (and the spatial middle
-     at PEMS07's N = 883 in bfloat16): the temporal-attention forward and
-     backward (csrc/tat_fused.cu) and the spatial-middle forward and
+     2-4, the TAt embedding mode and a ragged shape (and, in bfloat16 only,
+     the spatial middle and the TAt at PEMS07's N = 883 and the TAt at
+     GAMBIA's T = 144): the temporal-attention forward and backward
+     (csrc/tat_fused.cu; in bfloat16 the passes over all B·F·T rows on the
+     tensor cores with the hi/lo split, whose float32 outputs are also held
+     against the float32 kernels' on the same operands within a limit that
+     a no-split control exceeds; in float32 one
+     block a row on the CUDA cores; the gate's shared-memory bytes equal to
+     the kernels' own) and the spatial-middle forward and
      backward (csrc/block_spatial_fused.cu; the backward on the forward's
      ReLU mask; in bfloat16 the embedding pass, both column passes and the
      row pass on the tensor cores, in float32 every pass on the CUDA cores,
@@ -57,8 +63,8 @@ Phases; any failure exits non-zero:
      predictions held against an unpermuted model in the original order;
   7. a JSON line with every kernel's numbers, then the device line.
 
-``--measure`` adds the spatial forward and backward by pass (profiles at
-PEMS08 blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
+``--measure`` adds the spatial and TAt forward and backward by pass
+(profiles at PEMS08 blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
 fused PEMS08-width bf16 trainer against both unfused paths, GAMBIA dense,
 GAMBIA BELL tiles against both dense paths, and GAMBIA dense and BELL tiles
 with the fused GTU tail against the im2col tail; the fused PEMS08 and the
@@ -66,8 +72,9 @@ GTU comparisons with each epoch's peak device memory) alternated in one process,
 each, and a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE. ``--compare OUT`` builds
 and runs only ``compare_run``: one side of a comparison with another
-commit's checkout (the float32 spatial forward's bits, the spatial passes,
-the fused PEMS08 bf16 epoch).
+commit's checkout (the float32 spatial forward's and TAt kernels' bits,
+the spatial and TAt passes, the latter also at PEMS08 block 1, the fused
+PEMS08 bf16 epoch).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -400,15 +407,20 @@ def phase_bell_kernels():
 # phase 2c: the fused dense kernels (TAt, spatial middle) vs their plain versions
 # ---------------------------------------------------------------------------
 
-TAT_SHAPES = [
-    # (label, B·F, T, N, H, d_k, d_v, embed): PEMS08 block 1 (F=1) and blocks
-    # 2-4 (F=32) at B=64, the embedding mode at block 1, and a ragged shape
-    ("pems08_block1", 64, 12, 170, 3, 32, 32, False),
-    ("pems08_blocks2-4", 2048, 12, 170, 3, 32, 32, False),
-    ("pems08_block1_embed", 64, 12, 170, 3, 32, 32, True),
-    ("ragged_n29", 5, 7, 29, 2, 8, 8, False),
-]
 F32_BF16 = (torch.float32, torch.bfloat16)
+TAT_SHAPES = [
+    # (label, B·F, T, N, H, d_k, d_v, embed, dtypes): PEMS08 block 1 (F=1)
+    # and blocks 2-4 (F=32) at B=64, the embedding mode at block 1, a ragged
+    # shape, and two that only the bf16 passes admit: PEMS07's N = 883 at
+    # blocks 2-4 with its batch of 12, and GAMBIA's block 2 (T = 144, N =
+    # 2139, H = 2, d_k = d_v = 32, B = 4, F = 32; bench.py:222-236)
+    ("pems08_block1", 64, 12, 170, 3, 32, 32, False, F32_BF16),
+    ("pems08_blocks2-4", 2048, 12, 170, 3, 32, 32, False, F32_BF16),
+    ("pems08_block1_embed", 64, 12, 170, 3, 32, 32, True, F32_BF16),
+    ("ragged_n29", 5, 7, 29, 2, 8, 8, False, F32_BF16),
+    ("pems07_n883", 384, 12, 883, 3, 32, 32, False, (torch.bfloat16,)),
+    ("gambia_t144", 128, 144, 2139, 2, 32, 32, False, (torch.bfloat16,)),
+]
 SPATIAL_SHAPES = [
     # (label, B, N, F, T, C, Co, d, K, d_k, dtypes): PEMS08 block 1 and
     # blocks 2-4, a ragged shape (N, F·T, C·T and d multiples of no tile),
@@ -436,18 +448,53 @@ def _bound(ops, nbytes, dtype):
 
 
 def tat_bounds(BF, T, N, H, dk, dv, dtype):
-    """(bound_ms, bound_by, flops) of the TAt forward and backward. The TPU
-    kernel and the port compute in float32 whatever the dtype, so 67 TFLOP/s;
-    bytes: x, res (and the cotangents) read once, out, scores (dx, dres and
-    the float32 weight gradients) written once, weights read once."""
-    W, hv, xb = H * (2 * dk + dv), H * dv, (2 if dtype == torch.bfloat16 else 4)
-    fwd = BF * (2 * T * N * W + 2 * H * T * T * (dk + dv) + 2 * T * hv * N)
-    bwd = fwd + BF * (4 * T * N * hv + 2 * H * T * T * (2 * dv + 2 * dk) + 4 * T * W * N)
-    act = BF * (T * N + H * T * T) * xb
-    weights = (N * W + hv * N + 4 * N + T * N) * xb
-    return {"tat_fwd": _bound(fwd, 2 * act + weights, torch.float32),
-            "tat_bwd": _bound(bwd, 3 * act + weights + 4 * (N * W + hv * N + 4 * N + T * N),
-                              torch.float32)}
+    """(bound_ms, bound_by, flops) of the TAt forward and backward, for the
+    design of the dtype, from the function's own traffic: x, res (and the
+    cotangents) read once, out, scores (dx, dres and the float32 weight
+    gradients) written once, weights and LN vectors read once. float32:
+    the TPU kernel's arithmetic, every operation at 67 TFLOP/s. bfloat16
+    (the split passes): each product counts its bf16 terms at 989 TFLOP/s
+    (qkv = x·wqkv one, both operands bf16; the out-projection, g_ctx, g_te
+    and dwqkv two, one float32 operand split; dwo three), the attention and
+    LayerNorm arithmetic at 67 TFLOP/s, the larger of the two times. The
+    bf16 rows also carry ``design_ms``: the same bound with the bytes of
+    the passes' own float32 intermediates added (qkv, ctx; backward also
+    g_ypre, g_ctx, g_qkv, each written once and read once by every pass
+    that consumes it), which the function does not need."""
+    W, hv, M = H * (2 * dk + dv), H * dv, BF * T
+    att_f = 2 * BF * H * T * T * (dk + dv)
+    att_b = 2 * BF * H * T * T * (2 * dv + 2 * dk)
+    qkv_f, out_f = 2 * M * N * W, 2 * M * hv * N
+    if dtype != torch.bfloat16:
+        fwd = qkv_f + att_f + out_f
+        bwd = fwd + BF * (4 * T * N * hv + 2 * H * T * T * (2 * dv + 2 * dk) + 4 * T * W * N)
+        act = BF * (T * N + H * T * T) * 4
+        weights = (N * W + hv * N + 4 * N + T * N) * 4
+        return {"tat_fwd": _bound(fwd, 2 * act + weights, torch.float32),
+                "tat_bwd": _bound(bwd, 3 * act + weights + 4 * (N * W + hv * N + 4 * N + T * N),
+                                  torch.float32)}
+    ln_f, ln_b = 8 * M * N, 22 * M * N  # LN1 forward; its backward with the recompute
+    fwd_mma = qkv_f + 2 * out_f
+    bwd_mma = qkv_f + 2 * out_f + 2 * (2 * M * N * hv) + 2 * (2 * M * W * N) \
+        + 2 * (2 * M * N * W) + 3 * (2 * M * hv * N)
+    act = BF * (T * N + H * T * T) * 2
+    weights = (N * W + hv * N) * 2 + 4 * N * 2
+    grads = 4 * (N * W + hv * N + 4 * N)
+    inter_f = 4 * M * (2 * W + 2 * hv)  # qkv and ctx, written and read
+    # qkv (written, read twice), ctx (written, read by LN1 backward and dwo),
+    # g_ypre (written, read by g_te and dwo), g_ctx (written, read), g_qkv
+    # (written, read by g_te and dwqkv)
+    inter_b = 4 * M * (3 * W + 3 * hv + 3 * N + 2 * hv + 3 * W)
+
+    def bound(mma, other, nbytes, design_bytes):
+        # the tensor cores and the CUDA cores may overlap
+        t_ops = max(mma / PEAK_BF16_FLOPS, other / PEAK_F32_FLOPS)
+        t_bytes = nbytes / PEAK_HBM_BYTES
+        return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+                mma + other, max(t_ops, (nbytes + design_bytes) / PEAK_HBM_BYTES) * 1e3)
+
+    return {"tat_fwd": bound(fwd_mma, att_f + ln_f, 2 * act + weights, inter_f),
+            "tat_bwd": bound(bwd_mma, att_f + att_b + ln_b, 3 * act + weights + grads, inter_b)}
 
 
 def spatial_bounds(B, N, F, T, C, Co, d, K, dk, dtype):
@@ -567,35 +614,164 @@ def check_spatial_smem():
                       f"= {got[kernel]}, the kernel requests {want}")
 
 
+def tat_design(dtype) -> str:
+    """The arithmetic of the TAt kernels: in bf16 the passes over all B·F·T
+    rows, their products on the tensor cores with every float32 operand
+    split into two bf16 terms (WMMA) and the attention on the CUDA cores;
+    in float32 one block a row on the CUDA cores."""
+    return "wmma_bf16_split" if dtype == torch.bfloat16 else "cuda_core_f32"
+
+
+def check_tat_smem():
+    """tat_fused's gate (``bf16_passes``, ``smem_bytes``) against the bytes
+    each kernel of csrc/tat_fused.cu requests, at every TAt shape (with and
+    without the embedding) and at the edges of the caps at PEMS08 widths:
+    float32 N = 800/801 at T = 12 (the backward), bf16 N = 3328/3329 (the
+    LN1-backward pass) and T = 341/342 (the attention backward)."""
+    lib = tat_fused._load()
+    shapes = {s[2:7] for s in TAT_SHAPES} | {(12, 800, 3, 32, 32), (12, 801, 3, 32, 32),
+                                             (12, 3328, 3, 32, 32), (12, 3329, 3, 32, 32),
+                                             (341, 170, 3, 32, 32), (342, 170, 3, 32, 32)}
+    for T, N, H, dk, dv in sorted(shapes):
+        for embed in (False, True):
+            got = tat_fused.bf16_passes(T, N, H, dk, dv, embed)
+            for i, name in enumerate(tat_fused.PASSES):
+                want = lib.tat_fused_smem_bytes(T, N, H, dk, dv, int(embed), i, 1)
+                check(got[name][1] == want,
+                      f"tat bf16_passes[{name}] at T={T} N={N} embed={embed} = {got[name][1]}, "
+                      f"the kernel requests {want}")
+            for backward in (0, 1):
+                want = lib.tat_fused_smem_bytes(T, N, H, dk, dv, int(embed), backward, 0)
+                got32 = tat_fused.smem_bytes(T, N, H, dk, dv, backward=bool(backward))
+                check(got32 == want, f"tat float32 smem_bytes at T={T} N={N} backward="
+                                     f"{backward} = {got32}, the kernel requests {want}")
+
+
+# the bf16 design's float32 outputs against the float32 kernels', forward
+# and every gradient, as max |Δ| over max(1, max |float32 kernel|): the
+# split design reads 6.2e-6 or less at the TAt shapes, a design without
+# the lo terms (tat_nosplit_plain) 9.3e-4 or more (H100, phase 2c)
+TAT_SPLIT_TOL = 1e-4
+
+
+class _RoundCotangent(torch.autograd.Function):
+    """The identity, whose cotangent is rounded to bf16: the product that
+    made its input then takes the cotangent's hi term only."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.bfloat16().float()
+
+
+class _RoundValue(torch.autograd.Function):
+    """bf16 rounding of a float32 operand (its hi term only), its cotangent
+    passed through."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.bfloat16().float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def tat_nosplit_plain(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v, embed):
+    """The control of the split check: the TAt function in float32 as a
+    design without the lo terms computes it, every float32 operand of a
+    product (te where embedded, ctx; backward g_qkv, g_ypre) rounded to
+    bf16 and the attention and LayerNorms kept float32. Gradients from
+    autograd."""
+    BF, T, N = x.shape
+    te = tat_fused._ln_hat(x + pos) * g0 + b0 if embed else x
+    qkv = _RoundCotangent.apply(_RoundValue.apply(te) @ wqkv)
+    hk = n_heads * d_k
+    q = qkv[..., :hk].reshape(BF, T, n_heads, d_k)
+    k = qkv[..., hk:2 * hk].reshape(BF, T, n_heads, d_k)
+    v = qkv[..., 2 * hk:].reshape(BF, T, n_heads, d_v)
+    s = torch.einsum("rqhd,rkhd->rhqk", q, k) * (1.0 / d_k ** 0.5) + res
+    ctx = torch.einsum("rhqk,rkhd->rqhd", torch.softmax(s, dim=2), v).reshape(BF, T, -1)
+    z = _RoundCotangent.apply(_RoundValue.apply(ctx) @ wo)
+    return tat_fused._ln_hat(z + te) * g1 + b1, s
+
+
+def tat_f32_outputs(ins, cots, dims):
+    """The bf16 design's float32 outputs (out, scores; dx, dres and every
+    weight gradient) against the float32 kernels' on the same bf16-exact
+    operands and cotangents, and the same for the no-split control
+    (:func:`tat_nosplit_plain`): rel. |Δ| of the forward and of the
+    backward, each over max(1, max |float32 kernel|), the worst pair. The
+    design must stay within ``TAT_SPLIT_TOL`` and the control must not, or
+    the check could not tell the two apart. None where the float32 kernel
+    refuses the shape."""
+    BF, T, N = ins[0].shape
+    H, dk, dv = dims["n_heads"], dims["d_k"], dims["d_v"]
+    if tat_fused.smem_bytes(T, N, H, dk, dv, backward=True) > tat_fused._SMEM_MAX:
+        return None
+    f32 = tat_fused._f32(*ins)
+    g32 = [c.float().contiguous() for c in cots]
+    want_f = tat_fused.tat_forward_cuda(*f32, **dims)
+    want_b = tat_fused.tat_backward_cuda(*f32, *g32, **dims)
+    fwd = _compare(tat_fused.tat_forward_bf16_cuda(*ins, **dims, out_dtype=torch.float32),
+                   want_f)
+    bwd = _compare(tat_fused.tat_backward_bf16_cuda(*ins, *cots, **dims,
+                                                    out_dtype=torch.float32), want_b)
+    # the control's gradients in the kernels' order: dx, dres, dpos, dg0,
+    # db0, dwqkv, dwo, dg1, db1
+    outs_c, grads_c = _grad_run(lambda a: tat_nosplit_plain(*a, **dims), f32, g32,
+                                tuple(range(9)))
+    ctl_f = _compare(outs_c, want_f)
+    ctl_b = _compare([grads_c[i] for i in (0, 8, 1, 2, 3, 4, 5, 6, 7)], want_b)
+    torch.cuda.synchronize()
+    return {"fwd_rel_err": fwd[1], "bwd_rel_err": bwd[1], "tol": TAT_SPLIT_TOL,
+            "nosplit_fwd_rel_err": ctl_f[1], "nosplit_bwd_rel_err": ctl_b[1],
+            "ok": max(fwd[1], bwd[1]) <= TAT_SPLIT_TOL < min(ctl_f[1], ctl_b[1])}
+
+
 def phase_fused_kernels():
     """The TAt and spatial-middle kernels against their plain versions at
     every shape and dtype: forward outputs and every gradient through the
     autograd Functions, every weight gradient equal bit for bit over two
-    backward launches, CUDA-event times of each kernel (on its float32
-    operands; the spatial backward on the forward's ReLU mask) and of the
-    plain version. Each spatial row names its design and carries the
-    float32 kernel's time at its shape (none at PEMS07's N = 883, which
-    float32 refuses)."""
+    backward launches, CUDA-event times of each kernel (the TAt kernels of
+    each design on their own operands, the spatial ones on float32 operands
+    and the backward on the forward's ReLU mask) and of the plain version.
+    Each row names its design and carries the float32 kernel's time at its
+    shape (none where float32 refuses it); each bf16 TAt row also holds the
+    bf16 design's float32 outputs against the float32 kernels'."""
     check_spatial_smem()
+    check_tat_smem()
     rows = []
     tat_diff = tuple(range(9))
-    for seed, shape in enumerate(TAT_SHAPES + SPATIAL_SHAPES):
-        is_tat = seed < len(TAT_SHAPES)
+    shapes = [(seed, s, True) for seed, s in enumerate(TAT_SHAPES)] + [
+        (4 + seed, s, False) for seed, s in enumerate(SPATIAL_SHAPES)]
+    for seed, shape, is_tat in shapes:
         label = shape[0]
-        for dtype in (F32_BF16 if is_tat else shape[-1]):
+        for dtype in shape[-1]:
             tol, gtol = FUSED_TOL[dtype]
+            f32_check = None
             if is_tat:
-                _, BF, T, N, H, dk, dv, embed = shape
+                _, BF, T, N, H, dk, dv, embed, _ = shape
                 dims = dict(n_heads=H, d_k=dk, d_v=dv, embed=embed)
                 ins, cots = tat_inputs(BF, T, N, H, dk, dv, dtype, seed)
                 kern = lambda a, dims=dims: tat_fused.TatFused.apply(*a, *dims.values())
                 plain = lambda a, dims=dims: tat_fused.tat_fused_plain(*a, **dims)
                 diff, names = tat_diff, ("tat_fwd", "tat_bwd")
-                ops = tat_fused._f32(*ins)
-                fwd = lambda ops=ops, dims=dims: tat_fused.tat_forward_cuda(*ops, **dims)
-                g32 = [c.float().contiguous() for c in cots]
-                bwd = lambda ops=ops, g32=g32, dims=dims: tat_fused.tat_backward_cuda(
-                    *ops, *g32, **dims)
+                if dtype == torch.bfloat16:
+                    ops, gs = ins, cots
+                    fwd = lambda ops=ops, dims=dims: tat_fused.tat_forward_bf16_cuda(*ops, **dims)
+                    bwd = lambda ops=ops, gs=gs, dims=dims: tat_fused.tat_backward_bf16_cuda(
+                        *ops, *gs, **dims)
+                    f32_check = tat_f32_outputs(ins, cots, dims)
+                else:
+                    ops = tat_fused._f32(*ins)
+                    gs = [c.float().contiguous() for c in cots]
+                    fwd = lambda ops=ops, dims=dims: tat_fused.tat_forward_cuda(*ops, **dims)
+                    bwd = lambda ops=ops, gs=gs, dims=dims: tat_fused.tat_backward_cuda(
+                        *ops, *gs, **dims)
                 weight_slice = slice(2, 9)  # dpos, dg0, db0, dwqkv, dwo, dg1, db1
                 bounds = tat_bounds(BF, T, N, H, dk, dv, dtype)
                 desc = {"BF": BF, "T": T, "N": N, "H": H, "d_k": dk, "embed": embed}
@@ -646,21 +822,27 @@ def phase_fused_kernels():
                     row["weight_grads_bit_identical"] = identical
                     row["rel_err_each"] = per_grad
                 row["ms"], row["plain_ms"] = times[name]
-                if not is_tat:
-                    # the float32 kernel's time at this shape, from this call
-                    f32 = [r for r in rows if r["kernel"] == name and r["shape"] == label
-                           and r["dtype"] == "float32"]
-                    row["design"] = spatial_design(dtype)
-                    row["f32_ms"] = (row["ms"] if dtype == torch.float32
-                                     else f32[0]["ms"] if f32 else None)
-                row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
+                # the float32 kernel's time at this shape, from this call
+                f32 = [r for r in rows if r["kernel"] == name and r["shape"] == label
+                       and r["dtype"] == "float32"]
+                row["design"] = (tat_design if is_tat else spatial_design)(dtype)
+                row["f32_ms"] = (row["ms"] if dtype == torch.float32
+                                 else f32[0]["ms"] if f32 else None)
+                if is_tat and dtype == torch.bfloat16:
+                    row["vs_f32_kernel"] = f32_check
+                row["bound_ms"], row["bound_by"], row["flops"], *design = bounds[name]
+                if design:  # the bound with the bf16 passes' own intermediates
+                    row["design_ms"] = design[0]
                 print("fused", json.dumps(row), flush=True)
                 check(row["ok"], f"{name} vs plain at {label} {dtype}: "
                                  f"{row['rel_err']:.3g} > {limit}")
+                check(f32_check is None or f32_check["ok"],
+                      f"the bf16 design's float32 outputs vs the float32 kernels at {label}: "
+                      f"{f32_check}")
                 check(row.get("weight_grads_bit_identical", True),
                       f"{name} weight gradients differ between two launches at {label} {dtype}")
                 rows.append(row)
-            del ins, cots, ops, fwd, bwd
+            del ins, cots, ops, fwd, bwd, kern, plain
             torch.cuda.empty_cache()
     return rows
 
@@ -724,12 +906,55 @@ def measure_spatial_passes(iters: int = 10):
     return out
 
 
+# kernel-name fragments of each TAt pass: the float32 kernels (one a
+# direction), the bf16 design's operand prep and passes, and the
+# weight-gradient products and row sums of both
+TAT_PASSES = {
+    "forward": (("fused_f32", ("tat_fwd_kernel",)), ("prep", ("tat_prep_kernel",)),
+                ("qkv", ("tat_qkv_kernel",)),
+                ("attn", ("tat_attn_fwd_kernel",)), ("out_ln1", ("tat_out_kernel",))),
+    "backward": (("fused_f32", ("tat_bwd_kernel",)), ("prep", ("tat_prep_kernel",)),
+                 ("qkv", ("tat_qkv_kernel",)),
+                 ("attn", ("tat_attn_fwd_kernel",)), ("ln1_bwd", ("tat_ln1_bwd_kernel",)),
+                 ("attn_bwd", ("tat_attn_bwd_kernel",)), ("g_te", ("tat_gte_kernel",)),
+                 ("atb", ("atb_partial_kernel", "atb_wmma_partial_kernel")),
+                 ("colsum", ("colsum_kernel",))),
+}
+
+
+def measure_tat_passes(iters: int = 10, shape: str = "pems08_blocks2-4"):
+    """The TAt forward (row 10) and backward (row 11) by pass at a TAt
+    shape (PEMS08 blocks 2-4 unless given) in each dtype, through
+    TatFused's autograd (an interface every version of the package has, so
+    a checkout of another commit can be measured with the same function):
+    the forward as a training step calls it, the backward through
+    torch.autograd.grad; "atb" is the weight-gradient products, "colsum"
+    the fixed-order row sums."""
+    _, BF, T, N, H, dk, dv, embed, _ = next(s for s in TAT_SHAPES if s[0] == shape)
+    out = {"shape": shape, "iters": iters}
+    for dtype in F32_BF16:
+        ins, cots = tat_inputs(BF, T, N, H, dk, dv, dtype, 0)
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        fwd = lambda: tat_fused.TatFused.apply(*leaves, H, dk, dv, embed)
+        outs = fwd()
+        bwd = lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True,
+                                          allow_unused=True)
+        out[str(dtype).split(".")[-1]] = {
+            "forward": _profile_passes(fwd, iters, TAT_PASSES["forward"]),
+            "backward": _profile_passes(bwd, iters, TAT_PASSES["backward"])}
+        del ins, cots, leaves, outs
+        torch.cuda.empty_cache()
+    print("measure", json.dumps({"path": "tat_passes", **out}), flush=True)
+    return out
+
+
 def forward_bits(path: Path) -> dict:
-    """The float32 spatial forward kernel's output at every float32 spatial
-    shape on seeded operands: saved to ``path`` where it does not exist
-    yet, else held against the saved outputs bit for bit (torch.equal).
-    Run from checkouts of two commits in turns (``--compare``), it shows
-    whether a change keeps the float32 forward's bits."""
+    """The float32 kernels' outputs on seeded operands: the spatial forward
+    at every float32 spatial shape, and the TAt forward and backward at
+    every float32 TAt shape. Saved to ``path`` where it does not exist yet,
+    else held against the saved outputs bit for bit (torch.equal). Run from
+    checkouts of two commits in turns (``--compare``), it shows whether a
+    change keeps the float32 kernels' bits."""
     outs = {}
     for seed, (label, B, N, F, T, C, Co, d, K, dk, dtypes) in enumerate(SPATIAL_SHAPES):
         if torch.float32 not in dtypes:
@@ -738,31 +963,43 @@ def forward_bits(path: Path) -> dict:
         ops = block_spatial_fused._kernel_operands(*ins)
         outs[label] = block_spatial_fused.spatial_forward_cuda(
             *ops, K=K, d_k=dk, keep=SPATIAL_KEEP, bf16=False).cpu()
+    for seed, (label, BF, T, N, H, dk, dv, embed, dtypes) in enumerate(TAT_SHAPES):
+        if torch.float32 not in dtypes:
+            continue
+        ins, cots = tat_inputs(BF, T, N, H, dk, dv, torch.float32, 200 + seed)
+        dims = dict(n_heads=H, d_k=dk, d_v=dv, embed=embed)
+        fwd = tat_fused.tat_forward_cuda(*ins, **dims)
+        bwd = tat_fused.tat_backward_cuda(*ins, *cots, **dims)
+        outs[f"tat_{label}"] = [t.cpu() for t in (*fwd, *bwd)]
     if not path.exists():
         torch.save(outs, path)
         result = {"saved": str(path)}
     else:
         want = torch.load(path)
-        result = {label: torch.equal(y, want[label]) for label, y in outs.items()}
-        check(all(result.values()), f"float32 spatial forward bits differ from {path}: {result}")
+        result = {label: (all(map(torch.equal, y, want[label])) if isinstance(y, list)
+                          else torch.equal(y, want[label])) for label, y in outs.items()}
+        check(all(result.values()), f"float32 kernel bits differ from {path}: {result}")
     print("forward_bits", json.dumps(result), flush=True)
     return result
 
 
 def compare_run(out: Path) -> dict:
     """One side of a comparison of two commits in one chip call: the float32
-    forward's bits (against the first side's, saved beside ``out``), the
-    spatial passes and the fused PEMS08 bf16 epoch (ms/step, device time,
+    kernels' bits (against the first side's, saved beside ``out``), the
+    spatial and TAt passes (the TAt also at PEMS08 block 1) and the fused
+    PEMS08 bf16 epoch (ms/step, device time,
     epoch peak memory), written to ``out``. Run it from a checkout of each
     commit in turns (parent, change, change, parent), loading this file
     with importlib so that each checkout's own package is imported."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     result = {"card": card_line(), "forward_bits": forward_bits(out.parent / "forward_bits.pt"),
-              "spatial_passes": measure_spatial_passes()}
+              "spatial_passes": measure_spatial_passes(),
+              "tat_passes": measure_tat_passes(),
+              "tat_passes_block1": measure_tat_passes(shape="pems08_block1")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
         write_pems08_project(root, "SYNTH08F", **FUSED_KEYS)
         result["pems08_fused"] = measure_pems08_fused(root, variants=("fused",))
-    out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
     return result
 
@@ -1601,8 +1838,7 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "shape": "PEMS08 blocks 2-4, bf16: B=64 F=32 T=12 N=170 (TAt H=3 d_k=32; "
                      "spatial d=512 K=3 C=Co=32)",
         })
-        if name.startswith("spatial"):
-            out[-1].update(design=main["design"], f32_ms=f32["ms"], f32_design=f32["design"])
+        out[-1].update(design=main["design"], f32_ms=f32["ms"], f32_design=f32["design"])
     for name in ("gtu_fwd", "gtu_bwd"):
         mine = [r for r in gtu_rows if r["kernel"] == name]
         main, f32 = (next(r for r in mine if r["shape"] == "gambia_block" and r["dtype"] == dt)
@@ -1658,7 +1894,8 @@ def main(argv=None) -> int:
     rows = phase_kernels()
     bell_rows = phase_bell_kernels()
     fused_rows = phase_fused_kernels()
-    passes = measure_spatial_passes() if args.measure else None
+    passes = ({"spatial": measure_spatial_passes(), "tat": measure_tat_passes()}
+              if args.measure else None)
     gtu_rows = phase_gtu_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
@@ -1671,7 +1908,7 @@ def main(argv=None) -> int:
         gtu_bell = phase_gambia_bell_fuse_gtu(root)
         rcm = phase_gambia_bell_rcm(root)
         if args.measure:
-            measured = {"pems08": measured, "spatial_passes": passes,
+            measured = {"pems08": measured, "passes": passes,
                         "pems08_fused": measure_pems08_fused(root),
                         "gambia": measure_gambia_steps(root),
                         "gambia_bell": measure_gambia_bell(root),

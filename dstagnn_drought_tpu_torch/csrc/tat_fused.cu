@@ -33,9 +33,50 @@
 //     B*F*T rows by a split-row product whose partials are summed in a fixed
 //     order (dense_common.cuh). No float atomics: two launches give the same
 //     bits.
-// Tensor cores, TMA and several rows a block are left for a later change.
+// That float32 design keeps a row in one block, which caps N and T (shared
+// memory), and runs its products on the CUDA cores.
+//
+// bfloat16 (the model's compute dtype) has a design of its own, still
+// float32 in value. The caller casts x, res, the weights and the LN vectors
+// to bf16 first, so qkv = x . wqkv is one bf16 product; every other product
+// has a float32 operand a, split into hi = bf16(a) and lo = bf16(a - hi)
+// (residual <= 2^-18 |a|): two bf16 products where the other operand is
+// bf16 (ctx . wo, g_ypre . wo^T, g_qkv . wqkv^T, te^T . g_qkv), three where
+// neither is (ctx^T . g_ypre). Each runs on the tensor cores (WMMA 16x16x16
+// bf16 fragments, float32 sums). The row is taken apart into passes over
+// the flat M = B*F*T rows, tiles of 64, 32 or 16 rows (the most whose
+// shared memory fits, fewer while M would give fewer tiles than the card
+// has SMs), so any N and T up to the passes' caps fit:
+//   1 tat_qkv_kernel: qkv = te . wqkv over 64-column chunks of te and wqkv
+//     (wqkv's chunk staged by cp.async while te's is converted); embed adds
+//     the LN0 prologue and writes te and its row statistics;
+//   2 tat_attn_fwd_kernel, a block a (row of B*F, head): the raw scores
+//     (an output), the query-axis softmax and ctx, float32 on the CUDA
+//     cores, in chunks of 32 key columns (each key column's softmax is
+//     complete in its chunk), so its shared memory grows with T, not T^2;
+//   3 tat_out_kernel: z = ctx . wo + te, LN1 over the tile's N-wide rows,
+//     out (rounded once);
+//   4 tat_ln1_bwd_kernel: z again, LN1 backward with g_out -> g_ypre and
+//     per-tile dg1/db1 partials, then g_ctx = g_ypre . wo^T;
+//   5 tat_attn_bwd_kernel: s and a again, ds = g_ctx . v^T, the query-axis
+//     softmax backward (+ g_sc -> dres), g_q, g_k, g_v into g_qkv;
+//   6 tat_gte_kernel: g_te = g_qkv . wqkv^T + g_ypre -> dx (embed: LN0
+//     backward first, with per-tile dg0/db0 partials);
+//   7 dwqkv = te^T g_qkv and dwo = ctx^T g_ypre by wm::atb_wmma (split-M
+//     partials, summed by dense::sum_rows in a fixed order: no atomics, the
+//     same bits every launch), and the LN vectors' partials likewise.
+// The forward is passes 1-3; the backward recomputes qkv and ctx (1-2), as
+// the TPU kernel's custom_vjp saves only the inputs. Between passes qkv,
+// ctx, g_ypre, g_ctx and g_qkv live in device memory as float32 (rows
+// padded to 64, widths to 16). Products whose K is long (1 and 4) stage
+// their weight chunks in shared memory; products whose output is N wide (3
+// and 6) hold their split operand whole in shared memory and read each
+// weight fragment once a block from L2.
+
+#include <type_traits>
 
 #include "dense_common.cuh"
+#include "wmma_common.cuh"
 
 namespace {
 
@@ -335,6 +376,825 @@ BwdSpace bwd_space(int BF, const Dims& d) {
   return s;
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: passes over the flat M = B*F*T rows on the tensor cores
+// ---------------------------------------------------------------------------
+
+using namespace wm;
+
+constexpr int kKC = 64;                // contraction columns a staged chunk
+constexpr int kLC = kKC + 8;           // row stride of a chunk (bf16)
+constexpr int kItems = 9;              // accumulator tiles a warp holds (chunked products)
+constexpr int kAttnThreads = 128;      // threads of an attention block
+constexpr int kKeyChunk = 32;          // key columns an attention block takes at a time
+constexpr size_t kSmemMax = 232448;    // shared memory a block may have (227 KB)
+
+enum Pass16 { kQkv = 0, kAttnFwd, kOut, kLn1Bwd, kAttnBwd, kGte, kPasses };
+
+struct D16 {
+  int BF, M, T, N, H, dk, dv, W, hk, hv, Np, Wp, hvp, KC, embed;
+  float inv_sqrt;
+};
+
+D16 make_d16(int BF, int T, int N, int H, int dk, int dv, int embed) {
+  D16 d;
+  d.BF = BF;
+  d.M = BF * T;
+  d.T = T;
+  d.N = N;
+  d.H = H;
+  d.dk = dk;
+  d.dv = dv;
+  d.hk = H * dk;
+  d.hv = H * dv;
+  d.W = 2 * d.hk + d.hv;
+  d.Np = (N + 15) / 16 * 16;
+  d.Wp = (d.W + 15) / 16 * 16;
+  d.hvp = (d.hv + 15) / 16 * 16;
+  d.KC = T < kKeyChunk ? T : kKeyChunk;
+  d.embed = embed;
+  d.inv_sqrt = static_cast<float>(1.0 / sqrt(static_cast<double>(dk)));
+  return d;
+}
+
+// output columns of a qkv group: kItems tiles a warp over the row tiles
+__host__ __device__ __forceinline__ int qkv_group(const D16& d, int rows) {
+  const int gw = 16 * (kWarps * kItems / (rows / 16));
+  return d.Wp < gw ? d.Wp : gw;
+}
+
+// Shared memory of a pass's block with `rows` rows (the attention passes
+// do not tile rows). Every region is a multiple of 32 bytes, so each WMMA
+// tile starts aligned.
+size_t smem16(int pass, int rows, const D16& d) {
+  const size_t R = rows, LZ = d.Np + 4, T = d.T, KC = d.KC, lq = d.dk + 1, lv = d.dv + 1,
+               ls = KC + 1;
+  switch (pass) {
+    case kQkv:  // B chunk, A chunk hi (and lo), LN0 statistics
+      return 2 * (size_t)kKC * (qkv_group(d, rows) + 8) + 2 * R * kLC * (1 + d.embed) + 8 * R;
+    case kAttnFwd:  // q, key and value chunks, score chunk, context sums
+      return 4 * (T * lq + KC * lq + KC * lv + T * ls + T * d.dv);
+    case kOut:  // z (float32), ctx hi and lo
+      return 4 * R * LZ + 4 * R * (d.hvp + 8);
+    case kLn1Bwd: {  // z, then ctx hi/lo or a g_ypre chunk (hi, lo) and a wo chunk; 1/std
+      const size_t a = 4 * R * (d.hvp + 8), c = 4 * R * kLC + 2 * (size_t)d.hvp * kLC;
+      return 4 * R * LZ + (a > c ? a : c) + 4 * R;
+    }
+    case kAttnBwd:  // q, g_ctx, g_q sums, key and value chunks, a and ds chunks
+      return 4 * (T * lq + T * lv + T * d.dk + KC * lq + KC * lv + 2 * T * ls);
+    case kGte:  // g_qkv hi and lo, then per-warp staging or (embed) the g_te rows
+      return 4 * R * (d.Wp + 8) + (d.embed ? 4 * R * LZ : 4 * (size_t)kWarps * 256);
+  }
+  return 0;
+}
+
+// Rows a block of a row-tiled pass takes: 64, 32 or 16, the most whose
+// shared memory fits (the chunked g_ctx product also needs its tiles to fit
+// kItems a warp); 0 where none does. The attention passes return 1.
+int rows16(int pass, const D16& d) {
+  if (pass == kAttnFwd || pass == kAttnBwd) return smem16(pass, 1, d) <= kSmemMax ? 1 : 0;
+  for (int rows = 64; rows >= 16; rows /= 2) {
+    if (pass == kLn1Bwd && (rows / 16) * (d.hvp / 16) > kWarps * kItems) continue;
+    if (smem16(pass, rows, d) <= kSmemMax) return rows;
+  }
+  return 0;
+}
+
+// Rows a block of a row-tiled pass is launched with: its most (rows16),
+// halved down to 16 while the M rows would give fewer blocks than an
+// H100's SMs, so a small B*F*T still spreads over the card. 16 rows fit
+// wherever more do: every pass's bytes shrink with the rows but qkv's,
+// whose wider column group stays below 2*kKC*(1152 + 8) + 4*16*kLC + 128.
+constexpr int kSms = 132;
+int launch_rows16(int pass, const D16& d) {
+  int rows = rows16(pass, d);
+  if (pass == kAttnFwd || pass == kAttnBwd) return rows;
+  while (rows > 16 && (d.M + rows - 1) / rows < kSms) rows /= 2;
+  return rows;
+}
+
+// the bytes a pass requests at its most rows, or at 16 rows where none fit
+size_t smem16_request(int pass, const D16& d) {
+  const int rows = rows16(pass, d);
+  if (pass == kAttnFwd || pass == kAttnBwd) return smem16(pass, 1, d);
+  return smem16(pass, rows ? rows : 16, d);
+}
+
+__device__ __forceinline__ void store_out(void* p, size_t i, float v, int f32) {
+  if (f32)
+    static_cast<float*>(p)[i] = v;
+  else
+    static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
+}
+
+// te[row][n]: the bf16 input itself, or (embed) the float32 LN0 output pass
+// 1 wrote; 0 outside the M rows
+__device__ __forceinline__ float te_at(const bf16* x, const float* te32, int row, int n,
+                                       const D16& d) {
+  if (row >= d.M) return 0.f;
+  return d.embed ? te32[(size_t)row * d.Np + n] : __bfloat162float(x[(size_t)row * d.N + n]);
+}
+
+// Chunked product into acc: item i of warp w is tile (r, c) = divmod(w +
+// kWarps*i, nct) of a (rows x 16*nct) output; a hi (lo) chunks are (rows,
+// kLC) bf16, b is a staged (kn x 16*nct) chunk, row-major with stride ldb,
+// or (BT) its transpose (16*nct x kn, stride ldb).
+template <bool BT>
+__device__ __forceinline__ void chunk_mma(FragC (&acc)[kItems], int items, int nct,
+                                          const bf16* ahi, const bf16* alo, const bf16* b,
+                                          int ldb, int kn) {
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int item = warp + kWarps * i;
+    if (item >= items) break;
+    const int r = item / nct, c = item % nct;
+    for (int k0 = 0; k0 < kn; k0 += 16) {
+      FragA fa;
+      if constexpr (BT) {
+        FragBt fb;
+        wmma::load_matrix_sync(fb, b + c * 16 * ldb + k0, ldb);
+        wmma::load_matrix_sync(fa, ahi + r * 16 * kLC + k0, kLC);
+        wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        if (alo) {
+          wmma::load_matrix_sync(fa, alo + r * 16 * kLC + k0, kLC);
+          wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        }
+      } else {
+        FragB fb;
+        wmma::load_matrix_sync(fb, b + k0 * ldb + c * 16, ldb);
+        wmma::load_matrix_sync(fa, ahi + r * 16 * kLC + k0, kLC);
+        wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        if (alo) {
+          wmma::load_matrix_sync(fa, alo + r * 16 * kLC + k0, kLC);
+          wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        }
+      }
+    }
+  }
+}
+
+// Wide product for one warp: the column tiles ct0 and ct0 + 1 (< nct) of
+// every row tile, acc[r][q] += (ahi + alo)[rows r] . w over K (a multiple
+// of 16), with a hi/lo (rows, lda) bf16 in shared memory and w's fragments
+// read from device memory (L2): row-major (K x cols, stride ldw) or (BT)
+// its transpose (cols x K, stride ldw). Each fragment is read once a block.
+template <int RT, bool BT>
+__device__ __forceinline__ void wide_mma(FragC (&acc)[RT][2], const bf16* ahi, const bf16* alo,
+                                         int lda, int K, const bf16* __restrict__ w, int ldw,
+                                         int ct0, int nct) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) wmma::fill_fragment(acc[r][q], 0.f);
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    using FB = typename std::conditional<BT, FragBt, FragB>::type;
+    FB fb[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (ct0 + q >= nct) continue;
+      const bf16* p = BT ? w + (size_t)(ct0 + q) * 16 * ldw + k0
+                         : w + (size_t)k0 * ldw + (ct0 + q) * 16;
+      wmma::load_matrix_sync(fb[q], p, ldw);
+    }
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      FragA fh, fl;
+      wmma::load_matrix_sync(fh, ahi + r * 16 * lda + k0, lda);
+      wmma::load_matrix_sync(fl, alo + r * 16 * lda + k0, lda);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (ct0 + q >= nct) continue;
+        wmma::mma_sync(acc[r][q], fh, fb[q], acc[r][q]);
+        wmma::mma_sync(acc[r][q], fl, fb[q], acc[r][q]);
+      }
+    }
+  }
+}
+
+// rows x K of a float32 matrix (row stride ld, `cols` valid columns, M
+// valid rows from row0) split into hi and lo (rows, lda) bf16 tiles
+__device__ __forceinline__ void split_rows(const float* __restrict__ src, size_t ld, int row0,
+                                           int M, int rows, int K, int cols, bf16* hi, bf16* lo,
+                                           int lda) {
+  for (int e = threadIdx.x; e < rows * K; e += kThreads) {
+    const int r = e / K, c = e % K;
+    const float v = row0 + r < M && c < cols ? src[(size_t)(row0 + r) * ld + c] : 0.f;
+    split(v, hi[r * lda + c], lo[r * lda + c]);
+  }
+}
+
+// Pass 1: qkv (Mp, Wp) = te . wqkv, float32. te is the bf16 x (one bf16
+// product), or (embed) LN0(x + pos)*g0 + b0 in float32, split (two), which
+// this pass also writes to te32 with its row statistics.
+template <int RT>
+__global__ void __launch_bounds__(kThreads)
+tat_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ pos,
+               const float* __restrict__ g0, const float* __restrict__ b0,
+               const bf16* __restrict__ wqkv, float* __restrict__ qkv, float* __restrict__ te32,
+               float* __restrict__ stats0, D16 d) {
+  constexpr int R = RT * 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int GW = qkv_group(d, R), LB = GW + 8;
+  bf16* sb = reinterpret_cast<bf16*>(smem);  // (kKC, LB)
+  bf16* ahi = sb + kKC * LB;                 // (R, kLC)
+  bf16* alo = d.embed ? ahi + R * kLC : nullptr;
+  float* st = reinterpret_cast<float*>(ahi + R * kLC * (1 + d.embed));  // (R, 2)
+  const int row0 = blockIdx.x * R, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (d.embed) {
+    for (int r = warp; r < R; r += kWarps) {
+      const int row = row0 + r;
+      float mu = 0.f, inv = 0.f;
+      if (row < d.M) {
+        const bf16* xr = x + (size_t)row * d.N;
+        const float* pr = pos + (size_t)(row % d.T) * d.N;
+        float s1 = 0.f;
+        for (int n = lane; n < d.N; n += 32) s1 += __bfloat162float(xr[n]) + pr[n];
+        mu = dense::warp_sum(s1) / d.N;
+        float v = 0.f;
+        for (int n = lane; n < d.N; n += 32) {
+          const float z = __bfloat162float(xr[n]) + pr[n] - mu;
+          v = fmaf(z, z, v);
+        }
+        inv = rsqrtf(dense::warp_sum(v) / d.N + dense::kEps);
+        if (lane == 0) {
+          stats0[2 * row] = mu;
+          stats0[2 * row + 1] = inv;
+        }
+      }
+      if (lane == 0) {
+        st[2 * r] = mu;
+        st[2 * r + 1] = inv;
+      }
+    }
+  }
+  for (int g0c = 0; g0c < d.Wp; g0c += GW) {
+    const int gw = min(GW, d.Wp - g0c), nct = gw / 16;
+    FragC acc[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) wmma::fill_fragment(acc[i], 0.f);
+    for (int k0 = 0; k0 < d.Np; k0 += kKC) {
+      const int kn = min(kKC, d.Np - k0);
+      __syncthreads();  // the last chunk is consumed (and the statistics are in)
+      copy_rows_async(sb, LB, wqkv + (size_t)k0 * d.Wp + g0c, d.Wp, kn, gw);
+      for (int e = threadIdx.x; e < R * kn; e += kThreads) {
+        const int r = e / kn, c = e % kn, n = k0 + c, row = row0 + r;
+        const bool in = row < d.M && n < d.N;
+        if (!d.embed) {
+          ahi[r * kLC + c] = in ? x[(size_t)row * d.N + n] : __float2bfloat16_rn(0.f);
+          continue;
+        }
+        float te = 0.f;
+        if (in) {
+          const float h = (__bfloat162float(x[(size_t)row * d.N + n]) +
+                           pos[(size_t)(row % d.T) * d.N + n] - st[2 * r]) * st[2 * r + 1];
+          te = h * g0[n] + b0[n];
+          if (g0c == 0) te32[(size_t)row * d.Np + n] = te;
+        }
+        split(te, ahi[r * kLC + c], alo[r * kLC + c]);
+      }
+      wait_async();
+      __syncthreads();
+      chunk_mma<false>(acc, RT * nct, nct, ahi, alo, sb, LB, kn);
+    }
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int item = warp + kWarps * i;
+      if (item >= RT * nct) break;
+      const int r = item / nct, c = item % nct;
+      wmma::store_matrix_sync(qkv + (size_t)(row0 + r * 16) * d.Wp + g0c + c * 16, acc[i],
+                              d.Wp, wmma::mem_row_major);
+    }
+  }
+}
+
+// attention blocks: one (row r of B*F, head h); key columns in chunks of KC
+struct AttnTiles {
+  float *q, *kc, *vc, *s;
+  int lq, lv, ls;
+};
+
+// key columns [k0, k0 + kn): their keys and values staged, s = the raw
+// scores (to `scores` when given), then a = the softmax over the query axis
+// of each column, in place (every query of the column is in the chunk)
+__device__ __forceinline__ void attn_chunk(const float* __restrict__ qkv_r,
+                                           const bf16* __restrict__ res_rh, void* scores,
+                                           int out_f32, size_t sc_off, int h, int k0, int kn,
+                                           const AttnTiles& a, const D16& d) {
+  const int T = d.T, nw = kAttnThreads / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();  // the last chunk is consumed
+  for (int e = threadIdx.x; e < kn * d.dk; e += kAttnThreads) {
+    const int kk = e / d.dk, c = e % d.dk;
+    a.kc[kk * a.lq + c] = qkv_r[(size_t)(k0 + kk) * d.Wp + d.hk + h * d.dk + c];
+  }
+  for (int e = threadIdx.x; e < kn * d.dv; e += kAttnThreads) {
+    const int kk = e / d.dv, c = e % d.dv;
+    a.vc[kk * a.lv + c] = qkv_r[(size_t)(k0 + kk) * d.Wp + 2 * d.hk + h * d.dv + c];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < T * kn; e += kAttnThreads) {
+    const int q = e / kn, kk = e % kn;
+    const float* qr = a.q + q * a.lq;
+    const float* kr = a.kc + kk * a.lq;
+    float dot = 0.f;
+    for (int c = 0; c < d.dk; ++c) dot = fmaf(qr[c], kr[c], dot);
+    const float s = dot * d.inv_sqrt + __bfloat162float(res_rh[q * T + k0 + kk]);
+    a.s[q * a.ls + kk] = s;
+    if (scores) store_out(scores, sc_off + (size_t)q * T + k0 + kk, s, out_f32);
+  }
+  __syncthreads();
+  for (int kk = warp; kk < kn; kk += nw) {
+    float m = -INFINITY;
+    for (int q = lane; q < T; q += 32) m = fmaxf(m, a.s[q * a.ls + kk]);
+    m = dense::warp_max(m);
+    float sum = 0.f;
+    for (int q = lane; q < T; q += 32) {
+      const float v = expf(a.s[q * a.ls + kk] - m);
+      a.s[q * a.ls + kk] = v;
+      sum += v;
+    }
+    sum = dense::warp_sum(sum);
+    for (int q = lane; q < T; q += 32) a.s[q * a.ls + kk] = a.s[q * a.ls + kk] / sum;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void load_head(float* dst, int ld, const float* __restrict__ src,
+                                          size_t lds, int T, int w) {
+  for (int e = threadIdx.x; e < T * w; e += kAttnThreads)
+    dst[(e / w) * ld + e % w] = src[(size_t)(e / w) * lds + e % w];
+}
+
+// Pass 2: raw scores (when `scores` is given), the query-axis softmax and
+// ctx (Mp, hvp) float32, on the CUDA cores
+__global__ void __launch_bounds__(kAttnThreads)
+tat_attn_fwd_kernel(const float* __restrict__ qkv, const bf16* __restrict__ res, void* scores,
+                    int out_f32, float* __restrict__ ctx, D16 d) {
+  extern __shared__ __align__(16) float sm[];
+  const int r = blockIdx.x, h = blockIdx.y, T = d.T;
+  AttnTiles a;
+  a.lq = d.dk + 1;
+  a.lv = d.dv + 1;
+  a.ls = d.KC + 1;
+  a.q = sm;
+  a.kc = a.q + T * a.lq;
+  a.vc = a.kc + d.KC * a.lq;
+  a.s = a.vc + d.KC * a.lv;
+  float* cs = a.s + T * a.ls;  // (T, dv)
+  const float* qkv_r = qkv + (size_t)r * T * d.Wp;
+  const size_t off = ((size_t)r * d.H + h) * T * T;
+  load_head(a.q, a.lq, qkv_r + h * d.dk, d.Wp, T, d.dk);
+  for (int e = threadIdx.x; e < T * d.dv; e += kAttnThreads) cs[e] = 0.f;
+  for (int k0 = 0; k0 < T; k0 += d.KC) {
+    const int kn = min(d.KC, T - k0);
+    attn_chunk(qkv_r, res + off, scores, out_f32, off, h, k0, kn, a, d);
+    for (int e = threadIdx.x; e < T * d.dv; e += kAttnThreads) {
+      const int q = e / d.dv, c = e % d.dv;
+      float acc = cs[e];
+      for (int kk = 0; kk < kn; ++kk) acc = fmaf(a.s[q * a.ls + kk], a.vc[kk * a.lv + c], acc);
+      cs[e] = acc;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < T * d.dv; e += kAttnThreads)
+    ctx[((size_t)r * T + e / d.dv) * d.hvp + h * d.dv + e % d.dv] = cs[e];
+}
+
+// z (rows, Np + 4) = ctx . wo + te for the block's rows, float32; ctx
+// split into the hi/lo tiles at a16 (2 x rows x (hvp + 8) bf16)
+template <int RT>
+__device__ __forceinline__ void out_rows(const float* __restrict__ ctx,
+                                         const bf16* __restrict__ wo, const bf16* __restrict__ x,
+                                         const float* __restrict__ te32, float* zs, bf16* a16,
+                                         int row0, const D16& d) {
+  constexpr int R = RT * 16;
+  const int LA = d.hvp + 8, LZ = d.Np + 4, NT = d.Np / 16, warp = threadIdx.x / 32;
+  bf16* ahi = a16;
+  bf16* alo = a16 + R * LA;
+  split_rows(ctx, d.hvp, row0, d.M, R, d.hvp, d.hv, ahi, alo, LA);
+  __syncthreads();
+  for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
+    FragC acc[RT][2];
+    wide_mma<RT, false>(acc, ahi, alo, LA, d.hvp, wo, d.Np, ct0, NT);
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (ct0 + q < NT)
+          wmma::store_matrix_sync(zs + r * 16 * LZ + (ct0 + q) * 16, acc[r][q], LZ,
+                                  wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < R * d.N; e += kThreads) {
+    const int r = e / d.N, n = e % d.N;
+    zs[r * LZ + n] += te_at(x, te32, row0 + r, n, d);
+  }
+  __syncthreads();
+}
+
+// Pass 3: out = LN(ctx . wo + te)*g1 + b1, rounded once to bf16 (or float32)
+template <int RT>
+__global__ void __launch_bounds__(kThreads)
+tat_out_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
+               const bf16* __restrict__ x, const float* __restrict__ te32,
+               const float* __restrict__ g1, const float* __restrict__ b1, void* out,
+               int out_f32, D16 d) {
+  constexpr int R = RT * 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LZ = d.Np + 4, row0 = blockIdx.x * R, warp = threadIdx.x / 32,
+            lane = threadIdx.x % 32;
+  float* zs = reinterpret_cast<float*>(smem);
+  out_rows<RT>(ctx, wo, x, te32, zs, reinterpret_cast<bf16*>(zs + R * LZ), row0, d);
+  for (int r = warp; r < R; r += kWarps) {
+    const int row = row0 + r;
+    if (row >= d.M) break;
+    float* zr = zs + r * LZ;
+    float mu, inv;
+    dense::ln_stats(zr, d.N, mu, inv);
+    for (int n = lane; n < d.N; n += 32)
+      store_out(out, (size_t)row * d.N + n, (zr[n] - mu) * inv * g1[n] + b1[n], out_f32);
+  }
+}
+
+// Pass 4: z again, LN1 backward with g_out -> g_ypre (Mp, Np) float32 and
+// per-block partials of dg1, db1 (2N a block); then g_ctx (Mp, hvp) = g_ypre
+// . wo^T, g_ypre split chunk by chunk, wo's chunks staged by cp.async
+template <int RT>
+__global__ void __launch_bounds__(kThreads)
+tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
+                   const bf16* __restrict__ x, const float* __restrict__ te32,
+                   const float* __restrict__ g1, const bf16* __restrict__ g_out,
+                   float* __restrict__ part, float* __restrict__ gy, float* __restrict__ gctx,
+                   D16 d) {
+  constexpr int R = RT * 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LZ = d.Np + 4, N = d.N, row0 = blockIdx.x * R, warp = threadIdx.x / 32,
+            lane = threadIdx.x % 32;
+  float* zs = reinterpret_cast<float*>(smem);
+  bf16* u = reinterpret_cast<bf16*>(zs + R * LZ);
+  const size_t ua = 4 * (size_t)R * (d.hvp + 8), uc = 4 * (size_t)R * kLC + 2 * (size_t)d.hvp * kLC;
+  float* inv1 = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(u) + (ua > uc ? ua : uc));
+  out_rows<RT>(ctx, wo, x, te32, zs, u, row0, d);
+  for (int r = warp; r < R; r += kWarps) {  // x1_hat in place
+    float* zr = zs + r * LZ;
+    float mu, inv;
+    dense::ln_stats(zr, N, mu, inv);
+    for (int n = lane; n < N; n += 32) zr[n] = (zr[n] - mu) * inv;
+    if (lane == 0) inv1[r] = inv;
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += kThreads) {
+    float sg = 0.f, sb = 0.f;
+    for (int r = 0; r < R && row0 + r < d.M; ++r) {
+      const float g = __bfloat162float(g_out[(size_t)(row0 + r) * N + n]);
+      sg = fmaf(g, zs[r * LZ + n], sg);
+      sb += g;
+    }
+    part[(size_t)blockIdx.x * 2 * N + n] = sg;
+    part[(size_t)blockIdx.x * 2 * N + N + n] = sb;
+  }
+  __syncthreads();
+  for (int r = warp; r < R; r += kWarps) {  // g_ypre in place of x1_hat
+    const int row = row0 + r;
+    float* zr = zs + r * LZ;
+    if (row >= d.M) {
+      for (int n = lane; n < N; n += 32) zr[n] = 0.f;
+      continue;
+    }
+    const bf16* go = g_out + (size_t)row * N;
+    float m1 = 0.f, m2 = 0.f;
+    for (int n = lane; n < N; n += 32) {
+      const float gg = __bfloat162float(go[n]) * g1[n];
+      m1 += gg;
+      m2 = fmaf(gg, zr[n], m2);
+    }
+    m1 = dense::warp_sum(m1) / N;
+    m2 = dense::warp_sum(m2) / N;
+    for (int n = lane; n < N; n += 32) {
+      const float gg = __bfloat162float(go[n]) * g1[n];
+      const float v = inv1[r] * (gg - m1 - zr[n] * m2);
+      zr[n] = v;
+      gy[(size_t)row * d.Np + n] = v;
+    }
+  }
+  const int nct = d.hvp / 16, items = RT * nct;
+  bf16* chi = u;
+  bf16* clo = chi + R * kLC;
+  bf16* sb = clo + R * kLC;  // (hvp, kLC): wo[:, k0:k0 + kn]
+  FragC acc[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) wmma::fill_fragment(acc[i], 0.f);
+  for (int k0 = 0; k0 < d.Np; k0 += kKC) {
+    const int kn = min(kKC, d.Np - k0);
+    __syncthreads();  // g_ypre is complete, or the last chunk is consumed
+    copy_rows_async(sb, kLC, wo + k0, d.Np, d.hvp, kn);
+    for (int e = threadIdx.x; e < R * kn; e += kThreads) {
+      const int r = e / kn, c = e % kn;
+      split(zs[r * LZ + k0 + c], chi[r * kLC + c], clo[r * kLC + c]);
+    }
+    wait_async();
+    __syncthreads();
+    chunk_mma<true>(acc, items, nct, chi, clo, sb, kLC, kn);
+  }
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int item = warp + kWarps * i;
+    if (item >= items) break;
+    const int r = item / nct, c = item % nct;
+    wmma::store_matrix_sync(gctx + (size_t)(row0 + r * 16) * d.hvp + c * 16, acc[i], d.hvp,
+                            wmma::mem_row_major);
+  }
+}
+
+// Pass 5: the attention backward of one (r, h) on the CUDA cores: s and a
+// recomputed, ds = g_ctx . v^T, the query-axis softmax backward (+ g_sc ->
+// dres), g_q, g_k and g_v into g_qkv (Mp, Wp) float32
+__global__ void __launch_bounds__(kAttnThreads)
+tat_attn_bwd_kernel(const float* __restrict__ qkv, const bf16* __restrict__ res,
+                    const float* __restrict__ gctx, const bf16* __restrict__ g_sc, void* dres,
+                    int out_f32, float* __restrict__ gqkv, D16 d) {
+  extern __shared__ __align__(16) float sm[];
+  const int r = blockIdx.x, h = blockIdx.y, T = d.T, nw = kAttnThreads / 32,
+            warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  AttnTiles a;
+  a.lq = d.dk + 1;
+  a.lv = d.dv + 1;
+  a.ls = d.KC + 1;
+  a.q = sm;
+  float* gc = a.q + T * a.lq;  // (T, lv)
+  float* gq = gc + T * a.lv;   // (T, dk)
+  a.kc = gq + T * d.dk;
+  a.vc = a.kc + d.KC * a.lq;
+  a.s = a.vc + d.KC * a.lv;
+  float* ds = a.s + T * a.ls;
+  const float* qkv_r = qkv + (size_t)r * T * d.Wp;
+  float* gqkv_r = gqkv + (size_t)r * T * d.Wp;
+  const size_t off = ((size_t)r * d.H + h) * T * T;
+  load_head(a.q, a.lq, qkv_r + h * d.dk, d.Wp, T, d.dk);
+  load_head(gc, a.lv, gctx + (size_t)r * T * d.hvp + h * d.dv, d.hvp, T, d.dv);
+  for (int e = threadIdx.x; e < T * d.dk; e += kAttnThreads) gq[e] = 0.f;
+  for (int k0 = 0; k0 < T; k0 += d.KC) {
+    const int kn = min(d.KC, T - k0);
+    attn_chunk(qkv_r, res + off, nullptr, out_f32, off, h, k0, kn, a, d);
+    for (int e = threadIdx.x; e < T * kn; e += kAttnThreads) {
+      const int q = e / kn, kk = e % kn;
+      const float* gr = gc + q * a.lv;
+      const float* vr = a.vc + kk * a.lv;
+      float acc = 0.f;
+      for (int c = 0; c < d.dv; ++c) acc = fmaf(gr[c], vr[c], acc);
+      ds[q * a.ls + kk] = acc;
+    }
+    __syncthreads();
+    for (int kk = warp; kk < kn; kk += nw) {
+      float dot = 0.f;
+      for (int q = lane; q < T; q += 32) dot = fmaf(a.s[q * a.ls + kk], ds[q * a.ls + kk], dot);
+      dot = dense::warp_sum(dot);
+      for (int q = lane; q < T; q += 32) {
+        const size_t o = off + (size_t)q * T + k0 + kk;
+        const float v = a.s[q * a.ls + kk] * (ds[q * a.ls + kk] - dot) +
+                        __bfloat162float(g_sc[o]);
+        ds[q * a.ls + kk] = v;
+        store_out(dres, o, v, out_f32);
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < T * d.dk; e += kAttnThreads) {  // g_q sums
+      const int q = e / d.dk, c = e % d.dk;
+      float acc = gq[e];
+      for (int kk = 0; kk < kn; ++kk) acc = fmaf(ds[q * a.ls + kk], a.kc[kk * a.lq + c], acc);
+      gq[e] = acc;
+    }
+    for (int e = threadIdx.x; e < kn * d.dk; e += kAttnThreads) {  // g_k of the chunk
+      const int kk = e / d.dk, c = e % d.dk;
+      float acc = 0.f;
+      for (int q = 0; q < T; ++q) acc = fmaf(ds[q * a.ls + kk], a.q[q * a.lq + c], acc);
+      gqkv_r[(size_t)(k0 + kk) * d.Wp + d.hk + h * d.dk + c] = acc * d.inv_sqrt;
+    }
+    for (int e = threadIdx.x; e < kn * d.dv; e += kAttnThreads) {  // g_v of the chunk
+      const int kk = e / d.dv, c = e % d.dv;
+      float acc = 0.f;
+      for (int q = 0; q < T; ++q) acc = fmaf(a.s[q * a.ls + kk], gc[q * a.lv + c], acc);
+      gqkv_r[(size_t)(k0 + kk) * d.Wp + 2 * d.hk + h * d.dv + c] = acc;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < T * d.dk; e += kAttnThreads)
+    gqkv_r[(size_t)(e / d.dk) * d.Wp + h * d.dk + e % d.dk] = gq[e] * d.inv_sqrt;
+}
+
+// Pass 6: g_te = g_qkv . wqkv^T + g_ypre -> dx (rounded once); with the
+// embedding, LN0 backward first, per-block partials of dg0, db0 (2N a
+// block) and a float32 copy of dx (dxf) for dpos
+template <int RT>
+__global__ void __launch_bounds__(kThreads)
+tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
+               const float* __restrict__ gy, const bf16* __restrict__ x,
+               const float* __restrict__ pos, const float* __restrict__ stats0,
+               const float* __restrict__ g0, void* dx, int out_f32, float* __restrict__ dxf,
+               float* __restrict__ part, D16 d) {
+  constexpr int R = RT * 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LA = d.Wp + 8, LZ = d.Np + 4, NT = d.Np / 16, N = d.N, row0 = blockIdx.x * R,
+            warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bf16* ahi = reinterpret_cast<bf16*>(smem);
+  bf16* alo = ahi + R * LA;
+  float* rest = reinterpret_cast<float*>(alo + R * LA);  // staging, or (embed) g_te rows
+  split_rows(gqkv, d.Wp, row0, d.M, R, d.Wp, d.W, ahi, alo, LA);
+  __syncthreads();
+  float* sw = rest + warp * 256;
+  for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
+    FragC acc[RT][2];
+    wide_mma<RT, true>(acc, ahi, alo, LA, d.Wp, wqkv, d.Wp, ct0, NT);
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (ct0 + q >= NT) continue;
+        if (d.embed) {
+          wmma::store_matrix_sync(rest + r * 16 * LZ + (ct0 + q) * 16, acc[r][q], LZ,
+                                  wmma::mem_row_major);
+          continue;
+        }
+        wmma::store_matrix_sync(sw, acc[r][q], 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int row = row0 + r * 16 + e / 16, n = (ct0 + q) * 16 + e % 16;
+          if (row < d.M && n < N)
+            store_out(dx, (size_t)row * N + n, sw[e] + gy[(size_t)row * d.Np + n], out_f32);
+        }
+        __syncwarp();
+      }
+  }
+  if (!d.embed) return;
+  __syncthreads();
+  float* zs = rest;
+  for (int e = threadIdx.x; e < R * N; e += kThreads) {
+    const int r = e / N, n = e % N;
+    zs[r * LZ + n] = row0 + r < d.M ? zs[r * LZ + n] + gy[(size_t)(row0 + r) * d.Np + n] : 0.f;
+  }
+  __syncthreads();
+  // x0_hat from the row statistics of pass 1
+  auto x0_hat = [&](int row, int n) {
+    const float z = __bfloat162float(x[(size_t)row * N + n]) + pos[(size_t)(row % d.T) * N + n];
+    return (z - stats0[2 * row]) * stats0[2 * row + 1];
+  };
+  for (int n = threadIdx.x; n < N; n += kThreads) {
+    float sg = 0.f, sb = 0.f;
+    for (int r = 0; r < R && row0 + r < d.M; ++r) {
+      const float g = zs[r * LZ + n];
+      sg = fmaf(g, x0_hat(row0 + r, n), sg);
+      sb += g;
+    }
+    part[(size_t)blockIdx.x * 2 * N + n] = sg;
+    part[(size_t)blockIdx.x * 2 * N + N + n] = sb;
+  }
+  for (int r = warp; r < R; r += kWarps) {
+    const int row = row0 + r;
+    if (row >= d.M) break;
+    const float* zr = zs + r * LZ;
+    float m1 = 0.f, m2 = 0.f;
+    for (int n = lane; n < N; n += 32) {
+      const float gg = zr[n] * g0[n];
+      m1 += gg;
+      m2 = fmaf(gg, x0_hat(row, n), m2);
+    }
+    m1 = dense::warp_sum(m1) / N;
+    m2 = dense::warp_sum(m2) / N;
+    const float inv = stats0[2 * row + 1];
+    for (int n = lane; n < N; n += 32) {
+      const float v = inv * (zr[n] * g0[n] - m1 - x0_hat(row, n) * m2);
+      store_out(dx, (size_t)row * N + n, v, out_f32);
+      dxf[(size_t)row * N + n] = v;
+    }
+  }
+}
+
+// The passes' operands from the caller's bf16 tensors: wqkv (N, W) and wo
+// (hv, N) zero-padded to (Np, Wp) and (hvp, Np) (the WMMA tiles and the
+// 16-byte cp.async copies need it; nothing is lost), and pos (T, N), g0,
+// b0, g1, b1 widened to float32 into vec = [pos | g0 | b0 | g1 | b1]
+__global__ void __launch_bounds__(kThreads)
+tat_prep_kernel(const bf16* __restrict__ wqkv, const bf16* __restrict__ wo,
+                const bf16* __restrict__ pos, const bf16* __restrict__ g0,
+                const bf16* __restrict__ b0, const bf16* __restrict__ g1,
+                const bf16* __restrict__ b1, bf16* __restrict__ w16, bf16* __restrict__ wo16,
+                float* __restrict__ vec, D16 d) {
+  const size_t nw = (size_t)d.Np * d.Wp, no = (size_t)d.hvp * d.Np,
+               TN = (size_t)d.T * d.N, nv = TN + 4 * (size_t)d.N;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  for (size_t e = blockIdx.x * (size_t)kThreads + threadIdx.x; e < nw + no + nv;
+       e += (size_t)gridDim.x * kThreads) {
+    if (e < nw) {
+      const int r = e / d.Wp, c = e % d.Wp;
+      w16[e] = r < d.N && c < d.W ? wqkv[(size_t)r * d.W + c] : zero;
+    } else if (e < nw + no) {
+      const size_t i = e - nw;
+      const int r = i / d.Np, c = i % d.Np;
+      wo16[i] = r < d.hv && c < d.N ? wo[(size_t)r * d.N + c] : zero;
+    } else {
+      const size_t i = e - nw - no;
+      const bf16* src = i < TN ? pos + i : i < TN + d.N ? g0 + (i - TN)
+                      : i < TN + 2 * d.N ? b0 + (i - TN - d.N)
+                      : i < TN + 3 * d.N ? g1 + (i - TN - 2 * d.N) : b1 + (i - TN - 3 * d.N);
+      vec[i] = __bfloat162float(*src);
+    }
+  }
+}
+
+// workspace layout of the bf16 design (floats; every region 32-byte aligned)
+struct Space16 {
+  size_t w16, wo16, vec, qkv, ctx, gy, gctx, gqkv, te, stats, part1, part0, dxf, scratch, total;
+};
+
+Space16 space16(const D16& d, int backward) {
+  const size_t Mp = (size_t)(d.M + 63) / 64 * 64;
+  const int r4 = launch_rows16(kLn1Bwd, d), r6 = launch_rows16(kGte, d);
+  const size_t t4 = Mp / (r4 ? r4 : 16), t6 = Mp / (r6 ? r6 : 16);
+  auto a8 = [](size_t n) { return (n + 7) / 8 * 8; };
+  Space16 s;
+  size_t o = 0;
+  auto take = [&](size_t n) {
+    const size_t at = o;
+    o += a8(n);
+    return at;
+  };
+  s.w16 = take(((size_t)d.Np * d.Wp + 1) / 2);  // bf16
+  s.wo16 = take(((size_t)d.hvp * d.Np + 1) / 2);  // bf16
+  s.vec = take((size_t)d.T * d.N + 4 * (size_t)d.N);
+  s.qkv = take(Mp * d.Wp);
+  s.ctx = take(Mp * d.hvp);
+  s.te = take(d.embed ? Mp * d.Np : 0);
+  s.stats = take(d.embed ? 2 * Mp : 0);
+  s.gy = take(backward ? Mp * d.Np : 0);
+  s.gctx = take(backward ? Mp * d.hvp : 0);
+  s.gqkv = take(backward ? Mp * d.Wp : 0);
+  s.part1 = take(backward ? t4 * 2 * d.N : 0);
+  s.part0 = take(backward && d.embed ? t6 * 2 * d.N : 0);
+  s.dxf = take(backward && d.embed ? (size_t)d.M * d.N : 0);
+  size_t scratch = 0;
+  if (backward) {
+    const size_t c[] = {atb_wmma_scratch(d.M, d.N, d.W), atb_wmma_scratch(d.M, d.hv, d.N),
+                        dense::sum_rows_scratch((int)t4, 2 * d.N),
+                        dense::sum_rows_scratch((int)t6, 2 * d.N),
+                        dense::sum_rows_scratch(d.BF, d.T * d.N)};
+    for (size_t v : c) scratch = v > scratch ? v : scratch;
+  }
+  s.scratch = take(scratch);
+  s.total = o;
+  return s;
+}
+
+// launch a row-tiled pass at its launch rows: k4, k2, k1 are its
+// instantiations for 64, 32 and 16 rows
+template <typename Kern, typename... Args>
+cudaError_t launch_rows(Kern k4, Kern k2, Kern k1, int pass, const D16& d, cudaStream_t st,
+                        Args... args) {
+  const int rows = launch_rows16(pass, d);
+  if (rows == 0) return cudaErrorInvalidValue;
+  const Kern kernel = rows == 64 ? k4 : rows == 32 ? k2 : k1;
+  const size_t smem = smem16(pass, rows, d);
+  cudaError_t err = dense::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(d.M + 63) / 64 * 64 / rows, kThreads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+#define TAT_ROWS(kernel) kernel<4>, kernel<2>, kernel<1>
+
+template <typename Kern, typename... Args>
+cudaError_t launch_attn(Kern kernel, int pass, const D16& d, cudaStream_t st, Args... args) {
+  if (rows16(pass, d) == 0) return cudaErrorInvalidValue;
+  const size_t smem = smem16(pass, 1, d);
+  cudaError_t err = dense::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(d.BF, d.H), kAttnThreads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// the prep kernel, then passes 1 and 2 (scores when given): qkv and ctx
+// into the workspace
+cudaError_t prep_qkv_attn16(const bf16* x, const bf16* pos, const bf16* g0, const bf16* b0,
+                            const bf16* wqkv, const bf16* wo, const bf16* g1, const bf16* b1,
+                            const bf16* res, void* scores, int out_f32, float* ws,
+                            const Space16& s, const D16& d, cudaStream_t st) {
+  bf16* w16 = reinterpret_cast<bf16*>(ws + s.w16);
+  const size_t n = (size_t)d.Np * d.Wp + (size_t)d.hvp * d.Np + (size_t)d.T * d.N + 4 * d.N;
+  const size_t need = (n + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(need < 1024 ? need : 1024);
+  tat_prep_kernel<<<blocks, kThreads, 0, st>>>(wqkv, wo, pos, g0, b0, g1, b1, w16,
+                                               reinterpret_cast<bf16*>(ws + s.wo16),
+                                               ws + s.vec, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* v = ws + s.vec;
+  const size_t TN = (size_t)d.T * d.N;
+  err = launch_rows(TAT_ROWS(tat_qkv_kernel), kQkv, d, st, x, v, v + TN, v + TN + d.N,
+                    (const bf16*)w16, ws + s.qkv, ws + s.te, ws + s.stats, d);
+  if (err != cudaSuccess) return err;
+  return launch_attn(tat_attn_fwd_kernel, kAttnFwd, d, st, (const float*)(ws + s.qkv), res,
+                     scores, out_f32, ws + s.ctx, d);
+}
+
 }  // namespace
 
 extern "C" {
@@ -391,6 +1251,102 @@ int tat_fused_backward(const float* x, const float* pos, const float* g0, const 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (embed) err = dense::sum_rows(dx, dpos, scratch, BF, T * N, st);
   return static_cast<int>(err);
+}
+
+// bf16 design: floats of the workspace (backward or forward only).
+size_t tat_bf16_workspace_floats(int BF, int T, int N, int H, int dk, int dv, int embed,
+                                 int backward) {
+  return space16(make_d16(BF, T, N, H, dk, dv, embed), backward).total;
+}
+
+// Shared memory a kernel's block requests. float32 (bf16_design = 0): kernel 0 the
+// forward, 1 the backward. bf16: kernel is the pass (0 qkv, 1 attention
+// forward, 2 out-projection + LN1, 3 LN1 backward + g_ctx, 4 attention
+// backward, 5 g_te), at its most rows (16 where none fit).
+size_t tat_fused_smem_bytes(int T, int N, int H, int dk, int dv, int embed, int kernel,
+                            int bf16_design) {
+  if (!bf16_design) {
+    const Dims d = make_dims(T, N, H, dk, dv, embed);
+    return kernel ? bwd_smem_bytes(d) : fwd_smem_bytes(d);
+  }
+  if (kernel < 0 || kernel >= kPasses) return 0;
+  return smem16_request(kernel, make_d16(1, T, N, H, dk, dv, embed));
+}
+
+// bf16 forward (passes 1-3): every input bf16, x (BF,T,N), pos (T,N), the
+// LN vectors (N), wqkv (N,W), wo (H*dv,N), res (BF,H,T,T). out and scores
+// are float32 with out_f32, else bf16 (rounded once). `ws` holds
+// tat_bf16_workspace_floats(..., 0).
+int tat_bf16_forward(const bf16* x, const bf16* pos, const bf16* g0, const bf16* b0,
+                     const bf16* wqkv, const bf16* wo, const bf16* g1, const bf16* b1,
+                     const bf16* res, void* out, void* scores, float* ws, int BF, int T, int N,
+                     int H, int dk, int dv, int embed, int out_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const D16 d = make_d16(BF, T, N, H, dk, dv, embed);
+  const Space16 s = space16(d, 0);
+  cudaError_t err =
+      prep_qkv_attn16(x, pos, g0, b0, wqkv, wo, g1, b1, res, scores, out_f32, ws, s, d, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* v = ws + s.vec;
+  const size_t TN = (size_t)T * N;
+  err = launch_rows(TAT_ROWS(tat_out_kernel), kOut, d, st, (const float*)(ws + s.ctx),
+                    (const bf16*)(ws + s.wo16), x, (const float*)(ws + s.te), v + TN + 2 * N,
+                    v + TN + 3 * N, out, out_f32, d);
+  return static_cast<int>(err);
+}
+
+// bf16 backward (passes 1, 2, 4-7): the forward's inputs, g_out and g_sc,
+// all bf16; dx, dres float32 with out_f32, else bf16; dpos (T,N) (zero
+// without the embedding), vec4 (4,N) = [dg1, db1, dg0, db0], dwqkv (N,W),
+// dwo (H*dv,N) float32, every weight gradient summed over all rows in a
+// fixed order. `ws` holds tat_bf16_workspace_floats(..., 1).
+int tat_bf16_backward(const bf16* x, const bf16* pos, const bf16* g0, const bf16* b0,
+                      const bf16* wqkv, const bf16* wo, const bf16* g1, const bf16* b1,
+                      const bf16* res, const bf16* g_out, const bf16* g_sc, void* dx, void* dres,
+                      float* dpos, float* vec4, float* dwqkv, float* dwo, float* ws, int BF,
+                      int T, int N, int H, int dk, int dv, int embed, int out_f32,
+                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const D16 d = make_d16(BF, T, N, H, dk, dv, embed);
+  const Space16 s = space16(d, 1);
+  float* scratch = ws + s.scratch;
+  const float* v = ws + s.vec;
+  const size_t TN = (size_t)T * N;
+  const bf16* w16 = reinterpret_cast<const bf16*>(ws + s.w16);
+  const bf16* wo16 = reinterpret_cast<const bf16*>(ws + s.wo16);
+  cudaError_t err =
+      prep_qkv_attn16(x, pos, g0, b0, wqkv, wo, g1, b1, res, nullptr, out_f32, ws, s, d, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_rows(TAT_ROWS(tat_ln1_bwd_kernel), kLn1Bwd, d, st, (const float*)(ws + s.ctx),
+                    wo16, x, (const float*)(ws + s.te), v + TN + 2 * N, g_out, ws + s.part1,
+                    ws + s.gy, ws + s.gctx, d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_attn(tat_attn_bwd_kernel, kAttnBwd, d, st, (const float*)(ws + s.qkv), res,
+                    (const float*)(ws + s.gctx), g_sc, dres, out_f32, ws + s.gqkv, d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch_rows(TAT_ROWS(tat_gte_kernel), kGte, d, st, (const float*)(ws + s.gqkv), w16,
+                    (const float*)(ws + s.gy), x, v, (const float*)(ws + s.stats), v + TN, dx,
+                    out_f32, ws + s.dxf, ws + s.part0, d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* gqkv = ws + s.gqkv;
+  err = d.embed ? atb_wmma(ws + s.te, d.Np, gqkv, d.Wp, dwqkv, scratch, d.M, N, d.W, st)
+                : atb_wmma(x, N, gqkv, d.Wp, dwqkv, scratch, d.M, N, d.W, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = atb_wmma(ws + s.ctx, d.hvp, ws + s.gy, d.Np, dwo, scratch, d.M, d.hv, N, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int Mp = (d.M + 63) / 64 * 64;
+  err = dense::sum_rows(ws + s.part1, vec4, scratch, Mp / launch_rows16(kLn1Bwd, d), 2 * N,
+                        st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!embed) {
+    err = cudaMemsetAsync(vec4 + 2 * N, 0, sizeof(float) * 2 * N, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaMemsetAsync(dpos, 0, sizeof(float) * TN, st));
+  }
+  err = dense::sum_rows(ws + s.part0, vec4 + 2 * N, scratch, Mp / launch_rows16(kGte, d),
+                        2 * N, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(dense::sum_rows(ws + s.dxf, dpos, scratch, BF, T * N, st));
 }
 
 const char* tat_fused_error_string(int err) {

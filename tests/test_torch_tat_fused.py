@@ -3,20 +3,26 @@ JAX package's Pallas kernel, run in interpret mode on the CPU.
 
 On CPU tensors the wrapper takes the plain PyTorch version; the CUDA kernels
 are held against that version on the card (the ``cuda`` case below, skipped
-here, and chip_smoke.py). Tolerances are the JAX fused-kernel tests'
-(tests/test_tat_fused.py): forward 1e-4, gradients 2e-3; in bfloat16 one
+here, and chip_smoke.py), and the bf16 design's float32 outputs against the
+float32 kernels' on the same operands. The gate tests check which shapes
+each design admits, and that the bytes follow csrc/tat_fused.cu's formulas.
+Tolerances are the JAX fused-kernel tests' (tests/test_tat_fused.py): forward 1e-4, gradients 2e-3; in bfloat16 one
 bf16 ulp of the output's scale (2^-7 ≈ 8e-3 at |x| < 2, both sides compute
 in float32 and round once).
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dstagnn_drought_tpu.ops.pallas.tat_fused import (
-    fused_temporal_attention as jax_fused,
-)
+try:  # the reference; a machine with the card but no JAX runs only the cuda case
+    import jax
+    import jax.numpy as jnp
+
+    from dstagnn_drought_tpu.ops.pallas.tat_fused import (
+        fused_temporal_attention as jax_fused,
+    )
+except ImportError:
+    jax = jnp = jax_fused = None
 from dstagnn_drought_tpu_torch.ops.cuda import tat_fused
 
 torch.set_num_threads(1)
@@ -147,6 +153,128 @@ def test_bfloat16_rounds_only_the_outputs():
     assert torch.equal(o, o32.bfloat16()) and torch.equal(s, s32.bfloat16())
 
 
+# (T, N, H, d_k, d_v) that only the bf16 passes admit: PEMS07 at T = 12,
+# GAMBIA's block 2 (bench.py:222-236)
+PEMS07 = (12, 883, 3, 32, 32)
+GAMBIA = (144, 2139, 2, 32, 32)
+SMEM_MAX = 227 * 1024
+
+
+@pytest.mark.parametrize("embed", [False, True], ids=["no_embed", "embed"])
+def test_bf16_gate_admits_what_float32_admitted_and_more(embed):
+    """Every shape (T >= 4, the model's T is 12 and up) whose float32 row
+    fits a block fits the bf16 passes, and so do PEMS07's N = 883 and
+    GAMBIA's T = 144, which float32 refuses."""
+    admitted = 0
+    for T in (4, 6, 7, 12, 24, 48, 96, 144):
+        for N in (20, 29, 170, 307, 358, 800, 883, 1200, 2139, 2905):
+            for H, dk, dv in ((3, 32, 32), (2, 8, 8), (2, 32, 32), (8, 64, 64)):
+                if tat_fused.smem_bytes(T, N, H, dk, dv, backward=True) > SMEM_MAX:
+                    continue
+                admitted += 1
+                passes = tat_fused.bf16_passes(T, N, H, dk, dv, embed)
+                assert all(rows > 0 for rows, _ in passes.values()), (T, N, H, dk, dv, passes)
+    assert admitted > 50
+    for shape in (PEMS07, GAMBIA):
+        passes = tat_fused.bf16_passes(*shape, embed)
+        assert all(rows > 0 and need <= SMEM_MAX for rows, need in passes.values()), passes
+        for backward in (False, True):
+            assert tat_fused.smem_bytes(*shape, backward=backward,
+                                        dtype=torch.bfloat16, embed=embed) <= SMEM_MAX
+
+
+def test_float32_gate_still_refuses():
+    """float32 keeps its one-block-a-row kernels and their caps: PEMS07's
+    backward and GAMBIA's T = 144 do not fit, and a CUDA call would raise
+    naming the bytes before any launch."""
+    assert tat_fused.smem_bytes(*PEMS07, backward=True) > SMEM_MAX
+    assert tat_fused.smem_bytes(*PEMS07, backward=False) <= SMEM_MAX
+    assert tat_fused.smem_bytes(*GAMBIA, backward=False) > SMEM_MAX
+    x = torch.zeros((1, 12, 883))
+    args = [x, torch.zeros(12, 883), torch.ones(883), torch.zeros(883),
+            torch.zeros(883, 288), torch.zeros(96, 883), torch.ones(883), torch.zeros(883),
+            torch.zeros(1, 3, 12, 12)]
+    dims = dict(n_heads=3, d_k=32, d_v=32, embed=False)
+    with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
+        tat_fused.tat_backward_cuda(*args, x, args[-1], **dims)
+
+
+def test_bf16_gate_refuses_past_its_caps_naming_the_bytes():
+    """At PEMS08 widths the LN1-backward pass caps N at 3328 (its float32
+    z rows and the g_ctx chunk at 16 rows) and the attention backward caps
+    T at 341; beyond them a CUDA call raises naming the bytes, and nothing
+    falls back to another design."""
+    def args(T, N, dtype=torch.bfloat16):
+        mk = lambda *s: torch.zeros(s, dtype=dtype)
+        return [mk(1, T, N), mk(T, N), mk(N), mk(N), mk(N, 288), mk(96, N), mk(N), mk(N),
+                mk(1, 3, T, T)]
+
+    dims = dict(n_heads=3, d_k=32, d_v=32, embed=False)
+    assert tat_fused.bf16_passes(12, 3328, 3, 32, 32)["ln1_bwd"][0] == 16
+    assert tat_fused.bf16_passes(12, 3329, 3, 32, 32)["ln1_bwd"][0] == 0
+    assert tat_fused.bf16_passes(341, 170, 3, 32, 32)["attn_bwd"][0] == 1
+    assert tat_fused.bf16_passes(342, 170, 3, 32, 32)["attn_bwd"][0] == 0
+    for T, N, which in ((12, 3329, "ln1_bwd"), (342, 170, "attn_bwd")):
+        a = args(T, N)
+        need = tat_fused.bf16_passes(T, N, 3, 32, 32)[which][1]
+        with pytest.raises(ValueError, match=f"{which} pass needs {need} bytes"):
+            tat_fused.tat_backward_bf16_cuda(*a, a[0], a[-1], **dims)
+    # the forward's passes admit N = 3329 (the out pass caps N at 3520)
+    with pytest.raises(ValueError, match="CUDA"):
+        tat_fused.tat_forward_bf16_cuda(*args(12, 3329), **dims)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tat_fused.tat_forward_bf16_cuda(*args(12, 170, torch.float32), **dims)
+
+
+def test_smem_bytes_follow_the_pass_formulas():
+    """The bf16 gate's bytes are csrc/tat_fused.cu's smem16 formulas at the
+    rows each pass takes (PEMS08 blocks 2-4: N = 170 → Np = 176, W = 288,
+    H·d_v = 96, T = 12 one key chunk), and smem_bytes is the largest pass
+    of a direction."""
+    T, N, H, dk, dv = 12, 170, 3, 32, 32
+    Np, Wp, hvp, LZ, KC = 176, 288, 96, 180, 12
+    R = 64
+    want = {
+        "qkv": 2 * 64 * (Wp + 8) + 2 * R * 72 + 8 * R,
+        "attn_fwd": 4 * (T * 33 + KC * 33 + KC * 33 + T * (KC + 1) + T * dv),
+        "out": 4 * R * LZ + 4 * R * (hvp + 8),
+        "ln1_bwd": 4 * R * LZ + max(4 * R * (hvp + 8), 4 * R * 72 + 2 * hvp * 72) + 4 * R,
+        "attn_bwd": 4 * (2 * T * 33 + T * dk + 2 * KC * 33 + 2 * T * (KC + 1)),
+        "gte": 4 * R * (Wp + 8) + 4 * 8 * 256,
+    }
+    passes = tat_fused.bf16_passes(T, N, H, dk, dv)
+    assert {k: v[1] for k, v in passes.items()} == want
+    assert {k: v[0] for k, v in passes.items()} == dict(
+        qkv=64, attn_fwd=1, out=64, ln1_bwd=64, attn_bwd=1, gte=64)
+    for backward, names in ((False, tat_fused.FWD_PASSES), (True, tat_fused.BWD_PASSES)):
+        assert tat_fused.smem_bytes(T, N, H, dk, dv, backward, torch.bfloat16) == max(
+            want[n] for n in names)
+    # the embedding adds the qkv pass's lo chunk; the rows fall as N grows
+    assert tat_fused.bf16_passes(T, N, H, dk, dv, True)["qkv"][1] == want["qkv"] + 2 * R * 72
+    assert tat_fused.bf16_passes(*PEMS07)["out"][0] == 32
+    assert tat_fused.bf16_passes(*GAMBIA)["ln1_bwd"][0] == 16
+
+
+def test_bf16_cpu_call_takes_the_plain_version():
+    """bf16 tensors on the CPU go to the plain version, gradients from
+    autograd, and no kernel launch is counted."""
+    args = _kernel_args(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    dims = dict(n_heads=H, d_k=DK, d_v=DV, embed=False)
+    before = (tat_fused.fwd_launches, tat_fused.bwd_launches)
+    o, s = tat_fused.tat_fused(*leaves, **dims)
+    want_o, want_s = tat_fused.tat_fused_plain(*args, **dims)
+    assert torch.equal(o, want_o) and torch.equal(s, want_s)
+    _loss(o.float(), s.float(), torch).backward()
+    assert leaves[0].grad is not None and leaves[0].grad.dtype == torch.bfloat16
+    assert (tat_fused.fwd_launches, tat_fused.bwd_launches) == before
+
+
+def _scaled_err(got, want):
+    """max |Δ| over max(1, max |want|)."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -170,3 +298,26 @@ def test_kernels_match_plain_on_card():
             # without the embedding, pos and LN0 are off the plain path
             want = p.grad if p.grad is not None else torch.zeros_like(p)
             torch.testing.assert_close(k.grad, want, atol=2e-3, rtol=2e-3)
+        # the bf16 design: its float32 outputs against the float32 kernels on
+        # the same bf16-exact operands within 1e-4 of scale (chip_smoke.py's
+        # TAT_SPLIT_TOL, which a design without its lo terms exceeds); the
+        # weight gradients bit for bit over two launches
+        ins = [t.cuda().bfloat16() for t in cpu]
+        g_out = torch.randn(ins[0].shape, device="cuda").bfloat16()
+        g_sc = torch.randn(ins[8].shape, device="cuda").bfloat16()
+        f32 = [t.float() for t in ins]
+        before = (tat_fused.fwd_launches, tat_fused.bwd_launches)
+        got = tat_fused.tat_forward_bf16_cuda(*ins, **dims, out_dtype=torch.float32)
+        want = tat_fused.tat_forward_cuda(*f32, **dims)
+        for a, b in zip(got, want):
+            assert _scaled_err(a, b) <= 1e-4
+        first, again = (tat_fused.tat_backward_bf16_cuda(*ins, g_out, g_sc, **dims,
+                                                          out_dtype=torch.float32)
+                        for _ in range(2))
+        want = tat_fused.tat_backward_cuda(*f32, g_out.float(), g_sc.float(), **dims)
+        torch.cuda.synchronize()
+        assert (tat_fused.fwd_launches, tat_fused.bwd_launches) == (before[0] + 2,
+                                                                     before[1] + 3)
+        for a, c in zip(first, want):
+            assert _scaled_err(a, c) <= 1e-4
+        assert all(torch.equal(a, b) for a, b in zip(first[2:], again[2:]))
