@@ -14,7 +14,12 @@ Phases; any failure exits non-zero:
      times of both: cheb_sat forward and gradients; the BELL forward (F),
      K1 and K2 at the GAMBIA blocks, the 1%-random N=2139 graph (17 slots a
      tile) and a ragged n=29 graph (BS 8 and 16), in float32 and bfloat16,
-     with K1's dΘ equal bit for bit over two launches;
+     with K1's dΘ equal bit for bit over two launches; each row names its
+     design (the bf16 K1 on the tensor cores, the rest on the CUDA cores)
+     and carries the float32 kernel's time at its shape, the bf16 K1's dΘ
+     is held against the plain float32 dΘ within a limit that a no-split
+     control exceeds, and its plan's shared-memory bytes must equal the
+     kernels' own;
   2c. the fused dense kernels against their plain versions, forward and
      every gradient, in float32 and bfloat16, at PEMS08 block 1 and blocks
      2-4, the TAt embedding mode and a ragged shape (and, in bfloat16 only,
@@ -72,15 +77,16 @@ GTU comparisons with each epoch's peak device memory) alternated in one process,
 each, and a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE. ``--compare OUT`` builds
 and runs only ``compare_run``: one side of a comparison with another
-commit's checkout (the float32 spatial forward's and TAt kernels' bits,
-the spatial and TAt passes, the latter also at PEMS08 block 1, the fused
-PEMS08 bf16 epoch).
+commit's checkout (the float32 spatial, TAt and K1 kernels' bits, K1 by
+pass at GAMBIA blocks 1-2, the GAMBIA BELL-tiles bf16 epoch with and
+without fuse_gtu).
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import subprocess
@@ -342,10 +348,61 @@ def rel_err(got, want) -> tuple[float, float]:
     return err, err / max(1.0, float(want.float().abs().max()))
 
 
+def bell_design(name, dtype) -> str:
+    """The arithmetic of a BELL kernel: the bf16 K1 on the tensor cores
+    (k1_dA_wmma_kernel, k1_dtheta_wmma_kernel; WMMA, Θ and agg split into
+    bf16 hi + lo), everything else float32 FMAs on the CUDA cores."""
+    return "wmma_bf16" if name == "bell_k1" and dtype == torch.bfloat16 else "cuda_core_f32"
+
+
+def check_k1_smem():
+    """bell_bwd.k1_wmma_smem_bytes and k1_bf16_plan (the Python gate)
+    against the bytes the kernels of csrc/bell_bwd.cu request, at every
+    BELL shape and at the caps' edges (C 1/64, Co 1/128, BS 8/120/128),
+    for every tile either pass could take; every plan fits a block."""
+    lib = bell_bwd._load()
+    shapes = {(s[7], s[4], s[6], s[5]) for s in BELL_SHAPES} | {
+        (BS, C, Co, 144) for BS in (8, 48, 120, 128) for C in (1, 4, 5, 32, 64)
+        for Co in (1, 32, 128)}
+    for BS, C, Co, T in sorted(shapes):
+        plan = bell_bwd.k1_bf16_plan(BS, C, Co, T)
+        check(max(plan["smem"]) <= 232448, f"K1 plan at BS={BS} C={C} Co={Co}: {plan}")
+        for tile in (16, 32, 48, 64, 128):
+            for pass_ in (0, 1):
+                got = bell_bwd.k1_wmma_smem_bytes(BS, C, Co, tile, pass_)
+                want = lib.bell_bwd_k1_wmma_smem_bytes(BS, C, Co, tile, pass_)
+                check(got == want, f"k1_wmma_smem_bytes(BS={BS}, C={C}, Co={Co}, {tile}, "
+                                   f"pass {pass_}) = {got}, the kernel requests {want}")
+
+
+# the bf16 K1's dΘ against the plain version's float32 dΘ on the same
+# operands, as max |Δ| over max |plain|: the design splits agg into bf16 hi
+# + lo (float32 in value), a design without the lo term
+# (k1_nosplit_dtheta) rounds agg to bf16 before the contraction
+K1_SPLIT_TOL = 1e-4
+
+
+def k1_nosplit_dtheta(active_src, active_tgt, thetas, gm, x, w):
+    """The control of the split check: dΘ as bell_k1_plain computes it,
+    with agg rounded to bf16 before its product with gm."""
+    B, A, H, BS, _ = w.shape
+    M = x.shape[-1]
+    _, C, Co = thetas.shape
+    T = M // C
+    active_src, active_tgt = active_src.long(), active_tgt.long()
+    x_src = x.reshape(B, -1, BS, M)[:, active_src].float()
+    agg = torch.einsum("bahst,basm->bahtm", w.float(), x_src).bfloat16().float()
+    gm_t = gm.float().reshape(B, -1, BS, Co, T)[:, active_tgt]
+    return torch.einsum("bahvct,bavot->hco", agg.reshape(B, A, H, BS, C, T), gm_t)
+
+
 def phase_bell_kernels():
     """F, K1 and K2 against their plain versions at every BELL shape, in f32
     and bf16, with CUDA-event times; dΘ of two K1 launches must be equal
-    bit for bit."""
+    bit for bit; the bf16 K1's dΘ within K1_SPLIT_TOL of the plain
+    float32 dΘ, which a no-split control misses. Each row names its design
+    and carries the float32 kernel's time at its shape."""
+    check_k1_smem()
     rows = []
     for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
         bell = bell_graph(kind, BS)
@@ -371,6 +428,15 @@ def phase_bell_kernels():
             errs = {"bell_fused": [rel_err(out_k, out_p)],
                     "bell_k1": [rel_err(dA_k, dA_p), rel_err(dth_k, dth_p)],
                     "bell_k2": [rel_err(dx_k, dx_p)]}
+            split = None
+            if dtype == torch.bfloat16:
+                scale = float(dth_p.abs().max())
+                ctl = k1_nosplit_dtheta(*k1_args[:2], *k1_args[4:])
+                split = {"dtheta_rel_err": float((dth_k - dth_p).abs().max()) / scale,
+                         "nosplit_rel_err": float((ctl - dth_p).abs().max()) / scale,
+                         "tol": K1_SPLIT_TOL}
+                split["ok"] = split["dtheta_rel_err"] <= K1_SPLIT_TOL < split["nosplit_rel_err"]
+                del ctl
             del out_p, dA_p, dth_p, dx_p
             bounds = bell_bounds(B, H, A, BS, dk, C, T, Co, Np, dtype)
             iters = 5 if Np > 1024 else 20
@@ -389,12 +455,20 @@ def phase_bell_kernels():
                 row["ok"] = row["rel_err"] <= tol
                 if name == "bell_k1":
                     row["dtheta_bit_identical"] = bool(torch.equal(dth_k, dth_again))
+                    if split is not None:
+                        row["split_check"] = split
                 row["ms"] = cuda_ms(kern, iters)
                 row["plain_ms"] = cuda_ms(plain, max(2, iters // 4))
                 row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
+                row["design"] = bell_design(name, dtype)
+                f32 = [r for r in rows if r["kernel"] == name and r["shape"] == label
+                       and r["dtype"] == "float32"]
+                row["f32_ms"] = row["ms"] if dtype == torch.float32 else f32[0]["ms"]
                 print("bell", json.dumps(row), flush=True)
                 check(row["ok"], f"{name} vs plain at {label} {dtype}: "
                                  f"{row['rel_err']:.3g} > {tol}")
+                check(name != "bell_k1" or split is None or split["ok"],
+                      f"the bf16 K1's dΘ split check at {label}: {split}")
                 check(row.get("dtheta_bit_identical", True),
                       f"K1 dΘ differs between two launches at {label} {dtype}")
                 rows.append(row)
@@ -948,11 +1022,43 @@ def measure_tat_passes(iters: int = 10, shape: str = "pems08_blocks2-4"):
     return out
 
 
+# kernel-name fragments of each K1 pass: the float32 CUDA-core kernels and
+# the bf16 tensor-core kernels of a pass share one
+K1_PASSES = (("dA", ("k1_dA",)), ("dtheta", ("k1_dtheta",)),
+             ("reduce", ("k1_reduce", "colsum_kernel")))
+K1_PASS_SHAPES = ("gambia_block1", "gambia_block2")
+
+
+def measure_k1_passes(iters: int = 10):
+    """K1 (rows 4-5) by pass at GAMBIA blocks 1 and 2 in each dtype,
+    through ``bell_bwd.bell_k1_cuda`` (an interface every version of the
+    package has, so a checkout of another commit can be measured with the
+    same function): the dA pass, the dΘ pass, the fixed-order reduce of the
+    dΘ partials, and "other" (the wrapper's allocations and casts)."""
+    out = {"iters": iters}
+    for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
+        if label not in K1_PASS_SHAPES:
+            continue
+        bell = bell_graph(kind, BS)
+        t = bell.tensors
+        for dtype in F32_BF16:
+            z = bell_inputs(bell, B, H, C, T, Co, dk, dtype, seed)
+            args = (t["active_src"], t["active_tgt"], t["tile_start"], t["tile_count"],
+                    z["thetas"], z["gm"], z["x"], z["w"])
+            out[f"{label}_{str(dtype).split('.')[-1]}"] = _profile_passes(
+                lambda: bell_bwd.bell_k1_cuda(*args), iters, K1_PASSES)
+            del z, args
+            torch.cuda.empty_cache()
+    print("measure", json.dumps({"path": "k1_passes", **out}), flush=True)
+    return out
+
+
 def forward_bits(path: Path) -> dict:
     """The float32 kernels' outputs on seeded operands: the spatial forward
-    at every float32 spatial shape, and the TAt forward and backward at
-    every float32 TAt shape. Saved to ``path`` where it does not exist yet,
-    else held against the saved outputs bit for bit (torch.equal). Run from
+    at every float32 spatial shape, the TAt forward and backward at every
+    float32 TAt shape, and K1's dA and dΘ at every BELL shape. Saved to
+    ``path`` (as sha256 digests of the bytes) where it does not exist yet,
+    else held against the saved digests: equal bits or not. Run from
     checkouts of two commits in turns (``--compare``), it shows whether a
     change keeps the float32 kernels' bits."""
     outs = {}
@@ -971,35 +1077,50 @@ def forward_bits(path: Path) -> dict:
         fwd = tat_fused.tat_forward_cuda(*ins, **dims)
         bwd = tat_fused.tat_backward_cuda(*ins, *cots, **dims)
         outs[f"tat_{label}"] = [t.cpu() for t in (*fwd, *bwd)]
+    for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
+        bell = bell_graph(kind, BS)
+        t = bell.tensors
+        z = bell_inputs(bell, B, H, C, T, Co, dk, torch.float32, 300 + seed)
+        # w from the generator alone: active_softmax sums with index_add_,
+        # whose float atomics may change the last bits from run to run
+        g = torch.Generator(device="cuda").manual_seed(400 + seed)
+        pattern = t["active_pattern"][None, :, None]
+        w = (torch.rand(z["w"].shape, generator=g, device="cuda") * pattern).contiguous()
+        k1 = bell_bwd.bell_k1_cuda(t["active_src"], t["active_tgt"], t["tile_start"],
+                                   t["tile_count"], z["thetas"], z["gm"], z["x"], w)
+        outs[f"k1_{label}"] = list(k1)
+        del z, w, k1
+    # sha256 of every output's bytes, a list per label
+    digest = lambda y: hashlib.sha256(y.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    outs = {label: [digest(y) for y in (ys if isinstance(ys, list) else [ys])]
+            for label, ys in outs.items()}
     if not path.exists():
-        torch.save(outs, path)
+        path.write_text(json.dumps(outs))
         result = {"saved": str(path)}
     else:
-        want = torch.load(path)
-        result = {label: (all(map(torch.equal, y, want[label])) if isinstance(y, list)
-                          else torch.equal(y, want[label])) for label, y in outs.items()}
-        check(all(result.values()), f"float32 kernel bits differ from {path}: {result}")
+        want = json.loads(path.read_text())
+        result = {label: ys == want[label] for label, ys in outs.items()}
+        differ = [label for label, same in result.items() if not same]
+        check(not differ, f"float32 kernel bits differ from {path} at {differ}")
     print("forward_bits", json.dumps(result), flush=True)
     return result
 
 
 def compare_run(out: Path) -> dict:
     """One side of a comparison of two commits in one chip call: the float32
-    kernels' bits (against the first side's, saved beside ``out``), the
-    spatial and TAt passes (the TAt also at PEMS08 block 1) and the fused
-    PEMS08 bf16 epoch (ms/step, device time,
-    epoch peak memory), written to ``out``. Run it from a checkout of each
-    commit in turns (parent, change, change, parent), loading this file
-    with importlib so that each checkout's own package is imported."""
+    kernels' bits (against the first side's, saved beside ``out``), K1 by
+    pass at GAMBIA blocks 1-2, and the GAMBIA BELL-tiles bf16 epoch with and
+    without fuse_gtu (ms/step, device time, epoch peak memory), written to
+    ``out``. Run it from a checkout of each commit in turns (parent, change,
+    change, parent), loading this file with importlib so that each
+    checkout's own package is imported. The spatial and TAt passes are
+    measured by ``--measure``."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    result = {"card": card_line(), "forward_bits": forward_bits(out.parent / "forward_bits.pt"),
-              "spatial_passes": measure_spatial_passes(),
-              "tat_passes": measure_tat_passes(),
-              "tat_passes_block1": measure_tat_passes(shape="pems08_block1")}
+    result = {"card": card_line(), "forward_bits": forward_bits(out.parent / "forward_bits.json"),
+              "k1_passes": measure_k1_passes()}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        root = Path(tmp)
-        write_pems08_project(root, "SYNTH08F", **FUSED_KEYS)
-        result["pems08_fused"] = measure_pems08_fused(root, variants=("fused",))
+        result["gambia_bell_tiles"] = measure_gambia_fuse_gtu(Path(tmp), rounds=3,
+                                                              paths=("bell_tiles",))
     out.write_text(json.dumps(result, indent=1))
     return result
 
@@ -1732,17 +1853,19 @@ def phase_gambia_bell_fuse_gtu(root: Path):
     return out
 
 
-def measure_gambia_fuse_gtu(root: Path, rounds: int = 2):
+def measure_gambia_fuse_gtu(root: Path, rounds: int = 2, paths=("dense", "bell_tiles")):
     """GAMBIA train-step time and peak device memory with the fused GTU
-    tail against the im2col tail, dense (use_pallas) and BELL tiles, each
-    pair alternated in one process (im2col, fused, fused, im2col); then a
-    profile of each fused epoch. Peak memory: max_memory_allocated over an
-    epoch, after reset_peak_memory_stats, less what was allocated before it
-    (the other trainers' weights and data)."""
+    tail against the im2col tail, on each of ``paths`` (dense with
+    use_pallas, BELL tiles), each pair alternated in one process (im2col,
+    fused, fused, im2col); then a profile of an epoch of each. Peak memory:
+    max_memory_allocated over an epoch, after reset_peak_memory_stats, less
+    what was allocated before it (the other trainers' weights and data)."""
     ds, A, pa = gambia_data()
-    configs = {"dense_im2col": {}, "dense_fused": dict(fuse_gtu=True),
-               "bell_tiles_im2col": BELL_TILES,
-               "bell_tiles_fused": dict(fuse_gtu=True, **BELL_TILES)}
+    keys = {"dense": {}, "bell_tiles": BELL_TILES}
+    configs = {}
+    for path in paths:
+        configs[f"{path}_im2col"] = keys[path]
+        configs[f"{path}_fused"] = dict(fuse_gtu=True, **keys[path])
     trainers = {}
     for name, kw in configs.items():
         trainers[name] = Trainer(gambia_config(A.shape[0], **kw), dataset=ds, adj_merge=A,
@@ -1751,9 +1874,8 @@ def measure_gambia_fuse_gtu(root: Path, rounds: int = 2):
         trainers[name].train_epoch(0)  # warm-up
     times = {name: [] for name in configs}
     peak = {name: [] for name in configs}
-    order = (["dense_im2col", "dense_fused", "dense_fused", "dense_im2col"] * rounds
-             + ["bell_tiles_im2col", "bell_tiles_fused", "bell_tiles_fused",
-                "bell_tiles_im2col"] * rounds)
+    order = [f"{path}_{tail}" for path in paths
+             for tail in ("im2col", "fused", "fused", "im2col") * rounds]
     for i, name in enumerate(order):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1764,8 +1886,7 @@ def measure_gambia_fuse_gtu(root: Path, rounds: int = 2):
         peak[name].append((torch.cuda.max_memory_allocated() - base) / 2 ** 20)
     out = {"path": "gambia_fuse_gtu_step_ms", **times,
            "epoch_peak_mib": peak,
-           "profile": {name: profile_epoch(trainers[name])
-                       for name in ("dense_fused", "bell_tiles_fused")}}
+           "profile": {name: profile_epoch(trainers[name]) for name in configs}}
     print("measure", json.dumps(out), flush=True)
     return out
 
@@ -1794,12 +1915,18 @@ KERNEL_SITES = {
     "gtu_bwd": ("dstagnn_drought_tpu_torch/csrc/gtu_fused.cu",
                 "dstagnn_drought_tpu/ops/pallas/gtu_fused.py:204"),
 }
+# the TPU package's c-major variants of F, K1 and K2: the port's one c-major
+# kernel of each replaces both layouts, so each gets a line of its own
+C_MAJOR_SITES = {"bell_fused": "dstagnn_drought_tpu/ops/pallas/bell_fused.py:812",
+                 "bell_k1": "dstagnn_drought_tpu/ops/pallas/bell_bwd.py:452",
+                 "bell_k2": "dstagnn_drought_tpu/ops/pallas/bell_bwd.py:677"}
 
 
 def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused, gtu,
                  gtu_bell):
-    """One record per kernel for the JSON line: launches from its main path,
-    times and bound at the main path's shape."""
+    """One record per TPU kernel for the JSON line (13; a c-major variant's
+    record repeats its port kernel's, ``kernel_of``): launches from its main
+    path, times and bound at the main path's shape."""
     main_row = next(r for r in rows if r["shape"] == "pems08_blocks2-4")
     src, site = KERNEL_SITES["cheb_sat"]
     out = [{
@@ -1823,7 +1950,10 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "shape": "GAMBIA block 2, bf16: B=4 H=2 N=2139 BS=128 A=49 C=32 T=144 Co=32",
+            "design": main["design"], "f32_ms": main["f32_ms"],
         })
+    out += [dict(line, name=f"{line['name']}_c", replaces=C_MAJOR_SITES[line["name"]],
+                 kernel_of=line["name"]) for line in out if line["name"] in C_MAJOR_SITES]
     for name in ("tat_fwd", "tat_bwd", "spatial_fwd", "spatial_bwd"):
         mine = [r for r in fused_rows if r["kernel"] == name]
         main, f32 = (next(r for r in mine if r["shape"] == "pems08_blocks2-4"

@@ -19,8 +19,31 @@
 // Bound on an H100 at GAMBIA block 2 (B=4, H=2, A=49, BS=128, M=C*T=4608,
 // Co=32): K1 4*B*H*A*BS^2*M + 4*B*Np*H*M*Co ~ 129 GFLOP, K2
 // 2*B*H*A*BS^2*M + 2*B*H*A*BS*M*Co ~ 74 GFLOP, against ~0.1-0.2 GB of x,
-// gm, w, dA and dx: bound by operations. As in the forward, every product
-// is a float32 FMA on the CUDA cores (tensor cores are a later change), with
+// gm, w, dA and dx: bound by operations (in bf16 ~0.13 ms at 989 TFLOP/s
+// against ~0.05 ms of bytes at 3.35 TB/s).
+//
+// bf16 K1 (the GAMBIA BELL-tiles main path) runs on the tensor cores
+// (WMMA, bf16 products summed in float32), with chunks of 8 time steps (one
+// 16-byte row segment, cp.async where T % 8 == 0) and tiles padded to 16:
+//   k1_dA_wmma_kernel: one block per (active entry, TN target columns, head,
+//     batch) holds its dA tile in float32 fragments across 8 warps; each
+//     chunk forms g_agg = gm . Θ_h^T on the tensor cores (Θ split into bf16
+//     hi + lo, two products: float32 in value), rounds it to bf16 once, as
+//     the TPU kernel does, and adds x_src . g_agg^T.
+//   k1_dtheta_wmma_kernel: one block per (CC channels x 8 steps, target
+//     tile, batch and head) sums agg = sum_u w_u^T x_u over the tile's slots
+//     (bf16 products, float32 sums), splits agg into bf16 hi + lo and
+//     contracts it with gm over (target row, step): dTheta float32 in value.
+//     Each block writes its rows of a (C, Co) partial; dense::sum_rows sums
+//     them in a fixed order (no atomics: two runs give the same bits).
+//   Neither pass writes g_agg or agg to device memory. What bounds them is
+//   staging and latency, not the tensor cores: the dA pass fits one block an
+//   SM (~215 KB at GAMBIA block 2), overlaps only the next chunk's gm rows
+//   with its products, and recomputes g_agg for every slot (through a warp's
+//   float32 staging, to round it); the dΘ pass restages w and x for every
+//   (slot, m-tile), two blocks an SM.
+//
+// float32 K1 and K2 (both dtypes) run float32 FMAs on the CUDA cores, with
 // 128 x 64 sum tiles (8 x 4 per thread) fed from shared memory:
 //   K1a (k1_dA_kernel): one block per (active entry, 64 target columns,
 //     head, batch) sums over all C*T features in chunks of TT time steps;
@@ -41,6 +64,7 @@
 //     time; every block owns its dx tile, so there is no scatter.
 
 #include "bell_common.cuh"
+#include "wmma_common.cuh"
 
 namespace {
 
@@ -287,6 +311,393 @@ k2_kernel(const int* __restrict__ src_start, const int* __restrict__ src_count,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K1 on the tensor cores (WMMA, 16x16x16 bf16 products, float32 sums)
+// ---------------------------------------------------------------------------
+
+constexpr int kTT = 8;       // time steps a chunk: one 16-byte row segment of bf16
+constexpr int kWarps = kThreads / 32;
+constexpr int kLdS = 20;     // float stride of a warp's 16x16 staging: conflict-free
+constexpr int kStage = 16 * kLdS;
+
+__host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) / 16 * 16; }
+
+__host__ __device__ __forceinline__ size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
+
+// Shared memory of the dA pass at TN target columns a block, and of the dΘ
+// pass at TC target rows a contraction chunk (bytes; the layouts below).
+__host__ __device__ inline size_t k1_wmma_dA_bytes(int BS, int C, int Co, int TN) {
+  const int ldx = pad16(C * kTT) + 8, ldg = TN * kTT + 8, ldt = pad16(Co) + 8;
+  return 4 * (size_t)kWarps * kStage +
+         2 * ((size_t)(pad16(BS) + TN) * ldx + (size_t)pad16(Co) * ldg +
+              2 * (size_t)pad16(C) * ldt);
+}
+
+__host__ __device__ __forceinline__ int k1_wmma_cc(int C) {  // channels a dΘ m-tile
+  int cc = 16;
+  while (cc > C) cc /= 2;
+  return cc;
+}
+
+// the dΘ block's first region: w and x stages (slot loop), then the warps'
+// staging (agg conversion), then their partials (the end)
+__host__ __device__ inline size_t k1_wmma_dtheta_region(int BS, int C, int Co) {
+  const int BSp = pad16(BS), ldw = BSp + 8, ldm = pad16(k1_wmma_cc(C) * kTT) + 8;
+  return max_sz(max_sz(2 * (size_t)BSp * (ldw + ldm), 4 * (size_t)kWarps * 16 * pad16(Co)),
+                4 * (size_t)kWarps * kStage);
+}
+
+__host__ __device__ inline size_t k1_wmma_dtheta_bytes(int BS, int C, int Co, int TC) {
+  const int ld = TC * kTT + 8;
+  return k1_wmma_dtheta_region(BS, C, Co) + 2 * (2 * (size_t)16 * ld + (size_t)pad16(Co) * ld);
+}
+
+__device__ __forceinline__ void cp_async16(wm::bf16* sdst, const wm::bf16* gsrc) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(sdst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gsrc));
+}
+
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// one 16-byte segment of kTT steps from t0 (zero past T_len): cp.async with
+// vec (16-byte aligned and whole: T_len % 8 == 0 and an aligned base), else
+// plain loads
+__device__ __forceinline__ void stage_segment(wm::bf16* d, const wm::bf16* g, int t0,
+                                              int T_len, bool vec) {
+  if (vec) {
+    cp_async16(d, g);
+  } else {
+#pragma unroll
+    for (int tt = 0; tt < kTT; ++tt) d[tt] = t0 + tt < T_len ? g[tt] : __float2bfloat16_rn(0.f);
+  }
+}
+
+__device__ __forceinline__ void zero16(wm::bf16* d) {
+  *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+}
+
+// 8 consecutive floats of a warp's staging (16-byte aligned) as 8 bf16
+__device__ __forceinline__ uint4 pack8_at(const float* s) {
+  float v[8];
+  *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(s);
+  *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(s + 4);
+  return wm::pack8(v);
+}
+
+// dA[b, a, h][:, tc:tc+TN]: one block per (active entry, TN target columns,
+// head, batch), 8 warps. For each chunk of kTT steps (every channel):
+//   gm_s[o][t*8 + tt]  the target rows' cotangent (Cop x TN*8; column-major
+//                      A of the g_agg product, rows (t, tt), depth o)
+//   g_agg = gm_s . Θ_h^T on the tensor cores, Θ_h split into bf16 hi + lo
+//     (two products summed in float32), rounded to bf16 once into
+//   g_s[t][c*8 + tt]   (the B operand of the dA product, depth (c, tt))
+//   x_s[s][c*8 + tt]   the source rows (the A operand)
+//   dA += x_s . g_s^T  in float32 accumulators held across the chunks.
+// The next chunk's gm rows load (cp.async) while the dA products run.
+// Warp w holds the dA fragments w + 8i (column w % (TN/16) for every i).
+__global__ void __launch_bounds__(kThreads, 1)
+k1_dA_wmma_kernel(const int* __restrict__ active_src, const int* __restrict__ active_tgt,
+                  const float* __restrict__ thetas, const wm::bf16* __restrict__ gm,
+                  const wm::bf16* __restrict__ x, float* __restrict__ dA, int A, int H,
+                  int NJ, int BS, int C, int T_len, int Co, int TN, int vec) {
+  namespace wmma = nvcuda::wmma;
+  using wm::bf16;
+  const int BSp = pad16(BS), Cp = pad16(C), Cop = pad16(Co);
+  const int Kp = pad16(C * kTT), ldx = Kp + 8, ldg = TN * kTT + 8, ldt = Cop + 8;
+  const int n_sub = (BS + TN - 1) / TN;
+  const int a = blockIdx.x / n_sub, tc = (blockIdx.x % n_sub) * TN;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t Np = (size_t)NJ * BS, M = (size_t)C * T_len, MO = (size_t)Co * T_len;
+  const size_t src_row0 = b * Np + (size_t)active_src[a] * BS;
+  const size_t tgt_row0 = b * Np + (size_t)active_tgt[a] * BS + tc;
+  const int n_tgt = min(TN, BS - tc);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* scratch = reinterpret_cast<float*>(smem_raw);            // [warp][16][kLdS]
+  bf16* x_s = reinterpret_cast<bf16*>(scratch + kWarps * kStage);  // [BSp][ldx]
+  bf16* g_s = x_s + (size_t)BSp * ldx;                            // [TN][ldx]
+  bf16* gm_s = g_s + (size_t)TN * ldx;                            // [Cop][ldg]
+  bf16* th_h = gm_s + (size_t)Cop * ldg;                          // [Cp][ldt]
+  bf16* th_l = th_h + (size_t)Cp * ldt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sw = scratch + warp * kStage;
+  // zero padding (rows and columns never staged stay zero), Θ_h split
+  const int n_zero = ((BSp + TN) * ldx + Cop * ldg) / 8;
+  for (int e = threadIdx.x; e < n_zero; e += kThreads) zero16(x_s + 8 * (size_t)e);
+  for (int e = threadIdx.x; e < Cp * ldt; e += kThreads) {
+    const int c = e / ldt, o = e % ldt;
+    wm::split(c < C && o < Co ? thetas[((size_t)h * C + c) * Co + o] : 0.f, th_h[e], th_l[e]);
+  }
+  auto stage_gm = [&](int t0) {  // gm_s[o][t*8 + tt] for o < Co, t < n_tgt
+    for (int e = threadIdx.x; e < Co * n_tgt; e += kThreads) {
+      const int o = e / n_tgt, t = e % n_tgt;
+      stage_segment(gm_s + (size_t)o * ldg + t * kTT,
+                    gm + (tgt_row0 + t) * MO + (size_t)o * T_len + t0, t0, T_len, vec);
+    }
+    if (vec) commit_async();
+  };
+  const int RF = BSp / 16, CF = TN / 16, n_frag = RF * CF;
+  const int GR = TN * kTT / 16, GC = Cp / 16, n_gfrag = GR * GC;
+  const int c_out = Kp / kTT;  // g_s channels written (C, even)
+  const int cf = warp % CF;    // CF is a power of two <= 8
+  int rows[8];                 // first x_s row of each fragment slot
+#pragma unroll
+  for (int i = 0; i < 8; ++i) rows[i] = min(warp + kWarps * i, n_frag - 1) / CF * 16;
+  wm::FragC acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) wmma::fill_fragment(acc[i], 0.f);
+  __syncthreads();  // zeroed before the first stage
+  stage_gm(0);
+  for (int t0 = 0; t0 < T_len; t0 += kTT) {
+    // x_s[s][c*8 + tt] (rows past BS are written as zeros)
+    for (int e = threadIdx.x; e < BSp * C; e += kThreads) {
+      const int r = e / C, c = e % C;
+      bf16* d = x_s + (size_t)r * ldx + c * kTT;
+      if (r < BS)
+        stage_segment(d, x + (src_row0 + r) * M + (size_t)c * T_len + t0, t0, T_len, vec);
+      else
+        zero16(d);
+    }
+    if (vec) {
+      commit_async();
+      wm::wait_async();
+    }
+    __syncthreads();
+    // g_agg (rows (t, tt), columns c) = gm_s . Θ_h^T, rounded into g_s; a
+    // warp's fragments f = warp + 8i, four at a time (past the last, the
+    // last again, not stored) so that their loads and products interleave
+    for (int f0 = warp; f0 < n_gfrag; f0 += 4 * kWarps) {
+      wm::FragC g[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wmma::fill_fragment(g[q], 0.f);
+      for (int k = 0; k < Cop; k += 16) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int f = min(f0 + kWarps * q, n_gfrag - 1), gr = f / GC, gc = f % GC;
+          wm::FragAt fa;
+          wm::FragBt fh, fl;
+          wmma::load_matrix_sync(fa, gm_s + (size_t)k * ldg + gr * 16, ldg);
+          wmma::load_matrix_sync(fh, th_h + gc * 16 * ldt + k, ldt);
+          wmma::load_matrix_sync(fl, th_l + gc * 16 * ldt + k, ldt);
+          wmma::mma_sync(g[q], fa, fh, g[q]);
+          wmma::mma_sync(g[q], fa, fl, g[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int f = f0 + kWarps * q, gr = f / GC, gc = f % GC;
+        if (f >= n_gfrag) break;
+        wmma::store_matrix_sync(sw, g[q], kLdS, wmma::mem_col_major);  // sw[c][t'*8 + tt]
+        __syncwarp();
+        const int cl = lane % 16, tp = lane / 16, c = gc * 16 + cl;
+        if (c < c_out)
+          *reinterpret_cast<uint4*>(g_s + (size_t)(gr * 2 + tp) * ldx + c * kTT) =
+              pack8_at(sw + cl * kLdS + tp * kTT);
+        __syncwarp();
+      }
+    }
+    __syncthreads();  // g_s written, gm_s consumed
+    if (t0 + kTT < T_len) stage_gm(t0 + kTT);
+    // dA += x_s . g_s^T over this chunk's Kp columns; every fragment slot
+    // is loaded and multiplied (past the last, the last row again, not
+    // stored), so the loads of a step go out together ahead of its products
+#pragma unroll 2
+    for (int k = 0; k < Kp; k += 16) {
+      wm::FragBt fb;
+      wm::FragA fa[8];
+      wmma::load_matrix_sync(fb, g_s + (size_t)cf * 16 * ldx + k, ldx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        wmma::load_matrix_sync(fa[i], x_s + (size_t)rows[i] * ldx + k, ldx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) wmma::mma_sync(acc[i], fa[i], fb, acc[i]);
+    }
+    __syncthreads();  // x_s and g_s consumed
+  }
+  float* dA_t = dA + (((size_t)b * A + a) * H + h) * BS * BS;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int f = warp + kWarps * i;
+    if (f >= n_frag) continue;
+    wmma::store_matrix_sync(sw, acc[i], kLdS, wmma::mem_row_major);
+    __syncwarp();
+    const int r0 = (f / CF) * 16, c0 = cf * 16;
+    for (int e = lane; e < 256; e += 32) {
+      const int r = r0 + e / 16, c = c0 + e % 16;
+      if (r < BS && c < n_tgt) dA_t[(size_t)r * BS + tc + c] = sw[(e / 16) * kLdS + e % 16];
+    }
+    __syncwarp();
+  }
+}
+
+// dΘ partials: one block per (m-tile, target tile j, batch and head); an
+// m-tile is CC channels (a power of two <= 16) of a chunk of kTT steps.
+//   agg (BSp targets x CC*8) = sum over j's slots of w^T . x_src on the
+//     tensor cores (bf16 products, float32 sums), 8 warps, warp w holding
+//     fragments w + 8i; w staged [s][t] (column-major A), x [s][c*8 + tt]
+//   then TC target rows at a time: agg split into bf16 hi + lo,
+//     [cc][t*8 + tt] (row-major A, depth (t, tt)), gm staged [o][t*8 + tt]
+//     (column-major B), partial[cc][o] += agg . gm, warp w taking the depth
+//     steps w + 8i; the warps' sums are added in a fixed order.
+// Each block writes its CC rows of partial[b, j, g][h] (C, Co); the
+// fixed-order dense::sum_rows sums the rows (b, j, g). About 100 KB of
+// shared memory at the GAMBIA blocks, so two blocks share an SM where the
+// warps' partial fragments (kOF: Co <= 16 * kOF) leave the registers for it.
+template <int kOF>
+__global__ void __launch_bounds__(kThreads, kOF <= 2 ? 2 : 1)
+k1_dtheta_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_count,
+                      const int* __restrict__ active_src, const wm::bf16* __restrict__ gm,
+                      const wm::bf16* __restrict__ x, const wm::bf16* __restrict__ w,
+                      float* __restrict__ partial, int A, int H, int NJ, int BS, int C,
+                      int T_len, int Co, int TC, int G, int vec, int vec_w) {
+  namespace wmma = nvcuda::wmma;
+  using wm::bf16;
+  const int CC = k1_wmma_cc(C);
+  const int g_idx = blockIdx.x % G, cg = blockIdx.x / G, j = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / H, h = bh % H;
+  const int t0 = g_idx * kTT, c0 = cg * CC, cn = min(CC, C - c0);
+  const int BSp = pad16(BS), Cop = pad16(Co), MTp = pad16(CC * kTT);
+  const int ldw = BSp + 8, ldm = MTp + 8, ld = TC * kTT + 8;
+  const size_t Np = (size_t)NJ * BS, M = (size_t)C * T_len, MO = (size_t)Co * T_len;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const size_t region = k1_wmma_dtheta_region(BS, C, Co);
+  bf16* w_s = reinterpret_cast<bf16*>(smem_raw);         // [BSp][ldw]  (slot loop)
+  bf16* x_s = w_s + (size_t)BSp * ldw;                  // [BSp][ldm]
+  float* scratch = reinterpret_cast<float*>(smem_raw);   // [warp][16][kLdS] (agg chunks)
+  float* part_s = reinterpret_cast<float*>(smem_raw);    // [warp][16][Cop] (the end)
+  bf16* agg_h = reinterpret_cast<bf16*>(smem_raw + region);  // [16][ld]
+  bf16* agg_l = agg_h + 16 * ld;
+  bf16* gm_s = agg_l + 16 * ld;                          // [Cop][ld]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sw = scratch + warp * kStage;
+  // zero everything staged (padding stays zero)
+  const size_t n_zero = (region + 2 * (2 * (size_t)16 * ld + (size_t)Cop * ld)) / 16;
+  for (size_t e = threadIdx.x; e < n_zero; e += kThreads) zero16(w_s + 8 * e);
+  const int start = tile_start[j], count = tile_count[j];
+  const int AR = BSp / 16, AC = MTp / 16, n_frag = AR * AC;
+  const int ac = warp % AC;  // AC is a power of two <= 8
+  int cols[8];               // first w_s column (target) of each fragment slot
+#pragma unroll
+  for (int i = 0; i < 8; ++i) cols[i] = min(warp + kWarps * i, n_frag - 1) / AC * 16;
+  wm::FragC acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) wmma::fill_fragment(acc[i], 0.f);
+  for (int u = 0; u < count; ++u) {
+    const int a = start + u;
+    const size_t src_row0 = b * Np + (size_t)active_src[a] * BS;
+    const bf16* w_t = w + (((size_t)b * A + a) * H + h) * BS * BS;
+    __syncthreads();  // zeroed, or the last slot's w_s and x_s consumed
+    if (vec_w) {
+      const int per = BS / 8;
+      for (int e = threadIdx.x; e < BS * per; e += kThreads)
+        cp_async16(w_s + (size_t)(e / per) * ldw + (e % per) * 8,
+                   w_t + (size_t)(e / per) * BS + (e % per) * 8);
+    } else {
+      for (int e = threadIdx.x; e < BS * BS; e += kThreads)
+        w_s[(size_t)(e / BS) * ldw + e % BS] = w_t[e];
+    }
+    for (int e = threadIdx.x; e < BS * cn; e += kThreads) {
+      const int r = e / cn, c = e % cn;
+      stage_segment(x_s + (size_t)r * ldm + c * kTT,
+                    x + (src_row0 + r) * M + (size_t)(c0 + c) * T_len + t0, t0, T_len, vec);
+    }
+    if (vec || vec_w) {
+      commit_async();
+      wm::wait_async();
+    }
+    __syncthreads();
+    // every fragment slot, four at a time (past the last, the last again)
+    for (int k = 0; k < BSp; k += 16) {
+      wm::FragB fb;
+      wmma::load_matrix_sync(fb, x_s + (size_t)k * ldm + ac * 16, ldm);
+#pragma unroll
+      for (int i0 = 0; i0 < 8; i0 += 4) {
+        wm::FragAt fa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          wmma::load_matrix_sync(fa[i], w_s + (size_t)k * ldw + cols[i0 + i], ldw);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i0 + i], fa[i], fb, acc[i0 + i]);
+      }
+    }
+  }
+  // partial[cc][o] = sum over (t, tt) of agg[cc][t*8 + tt] gm[t][o*T + t0 + tt]
+  const int OF = Cop / 16;
+  wm::FragC pacc[kOF];
+#pragma unroll
+  for (int q = 0; q < kOF; ++q) wmma::fill_fragment(pacc[q], 0.f);
+  const size_t tgt_row0 = b * Np + (size_t)j * BS;
+  for (int t1 = 0; t1 < BSp; t1 += TC) {
+    __syncthreads();  // the slot loop's stages, or the last chunk's agg and gm_s, consumed
+    const int n_t = max(0, min(TC, BS - t1));
+    for (int e = threadIdx.x; e < Co * TC; e += kThreads) {
+      const int o = e / TC, t = e % TC;
+      bf16* d = gm_s + (size_t)o * ld + t * kTT;
+      if (t < n_t)
+        stage_segment(d, gm + (tgt_row0 + t1 + t) * MO + (size_t)o * T_len + t0, t0, T_len,
+                      vec);
+      else
+        zero16(d);
+    }
+    if (vec) commit_async();
+    // this chunk's agg rows -> bf16 hi + lo, [cc][(t - t1)*8 + tt]
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int f = warp + kWarps * i;
+      const int r0 = (f / AC) * 16;
+      if (f >= n_frag || r0 < t1 || r0 >= t1 + TC) continue;
+      wmma::store_matrix_sync(sw, acc[i], kLdS, wmma::mem_row_major);  // sw[t][cc'*8 + tt]
+      __syncwarp();
+      const int tl = lane % 16, ccl = lane / 16, cc = ac * 2 + ccl;
+      if (cc < cn) {
+        float v[kTT], lo[kTT];
+        *reinterpret_cast<float4*>(v) =
+            *reinterpret_cast<const float4*>(sw + tl * kLdS + ccl * kTT);
+        *reinterpret_cast<float4*>(v + 4) =
+            *reinterpret_cast<const float4*>(sw + tl * kLdS + ccl * kTT + 4);
+#pragma unroll
+        for (int tt = 0; tt < kTT; ++tt)
+          lo[tt] = v[tt] - __bfloat162float(__float2bfloat16_rn(v[tt]));
+        const size_t o = (size_t)cc * ld + (r0 - t1 + tl) * kTT;
+        *reinterpret_cast<uint4*>(agg_h + o) = wm::pack8(v);
+        *reinterpret_cast<uint4*>(agg_l + o) = wm::pack8(lo);
+      }
+      __syncwarp();
+    }
+    if (vec) wm::wait_async();
+    __syncthreads();
+    for (int ks = warp; ks < TC * kTT / 16; ks += kWarps) {
+      wm::FragA fh, fl;
+      wmma::load_matrix_sync(fh, agg_h + ks * 16, ld);
+      wmma::load_matrix_sync(fl, agg_l + ks * 16, ld);
+#pragma unroll
+      for (int q = 0; q < kOF; ++q) {
+        if (q < OF) {
+          wm::FragBt fb;
+          wmma::load_matrix_sync(fb, gm_s + (size_t)q * 16 * ld + ks * 16, ld);
+          wmma::mma_sync(pacc[q], fh, fb, pacc[q]);
+          wmma::mma_sync(pacc[q], fl, fb, pacc[q]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // part_s overlays the stages and the warps' staging
+#pragma unroll
+  for (int q = 0; q < kOF; ++q)
+    if (q < OF)
+      wmma::store_matrix_sync(part_s + (size_t)warp * 16 * Cop + q * 16, pacc[q], Cop,
+                              wmma::mem_row_major);
+  __syncthreads();
+  float* out = partial + (((size_t)b * NJ + j) * G + g_idx) * H * C * Co + (size_t)h * C * Co;
+  for (int e = threadIdx.x; e < cn * Co; e += kThreads) {
+    const int cc = e / Co, o = e % Co;
+    float s = 0.f;
+    for (int v = 0; v < kWarps; ++v) s += part_s[((size_t)v * 16 + cc) * Cop + o];
+    out[(size_t)(c0 + cc) * Co + o] = s;
+  }
+}
+
 template <typename T>
 int launch_k1(const int* active_src, const int* active_tgt, const int* tile_start,
               const int* tile_count, const float* thetas, const void* gm, const void* x,
@@ -319,6 +730,38 @@ int launch_k1(const int* active_src, const int* active_tgt, const int* tile_star
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_k1_wmma(const int* active_src, const int* active_tgt, const int* tile_start,
+                   const int* tile_count, const float* thetas, const wm::bf16* gm,
+                   const wm::bf16* x, const wm::bf16* w, float* dA, float* partial,
+                   float* dth, int B, int A, int H, int NJ, int BS, int C, int T_len, int Co,
+                   int TN, int TC, int vec, int vec_w, cudaStream_t st) {
+  const size_t smem_a = k1_wmma_dA_bytes(BS, C, Co, TN);
+  cudaError_t err = allow_smem(k1_dA_wmma_kernel, smem_a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k1_dA_wmma_kernel<<<dim3(A * ((BS + TN - 1) / TN), H, B), kThreads, smem_a, st>>>(
+      active_src, active_tgt, thetas, gm, x, dA, A, H, NJ, BS, C, T_len, Co, TN, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = (T_len + kTT - 1) / kTT, CC = k1_wmma_cc(C);
+  const size_t smem_b = k1_wmma_dtheta_bytes(BS, C, Co, TC);
+  const dim3 grid(((C + CC - 1) / CC) * G, NJ, B * H);
+  auto dtheta = [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem_b);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, kThreads, smem_b, st>>>(tile_start, tile_count, active_src, gm, x, w,
+                                           partial, A, H, NJ, BS, C, T_len, Co, TC, G, vec,
+                                           vec_w);
+    return cudaGetLastError();
+  };
+  const int OF = pad16(Co) / 16;
+  err = OF <= 2 ? dtheta(k1_dtheta_wmma_kernel<2>)
+                : OF <= 4 ? dtheta(k1_dtheta_wmma_kernel<4>) : dtheta(k1_dtheta_wmma_kernel<8>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int S = B * NJ * G;
+  return static_cast<int>(
+      dense::sum_rows(partial, dth, partial + (size_t)S * H * C * Co, S, H * C * Co, st));
+}
+
 template <typename T>
 int launch_k2(const int* src_start, const int* src_count, const int* src_order,
               const int* active_tgt, const float* thetas, const void* gm, const void* w,
@@ -338,26 +781,45 @@ int launch_k2(const int* src_start, const int* src_count, const int* src_order,
 
 extern "C" {
 
-// K1 on `stream`: dA (B, A, H, BS, BS), dTheta (H, C, Co); partial is
-// (B*H*NJ*G, C*Co) float scratch. The dA pass covers TTa time steps a chunk
-// (its staged gm rows hold Co*TTa columns), the dTheta pass TTc (C*TTc <=
-// 64 columns of sums). Returns cudaGetLastError() (0 = success).
+// float32 K1 on `stream`: dA (B, A, H, BS, BS), dTheta (H, C, Co); partial
+// is (B*H*NJ*G, C*Co) float scratch. The dA pass covers TTa time steps a
+// chunk (its staged gm rows hold Co*TTa columns), the dTheta pass TTc
+// (C*TTc <= 64 columns of sums). Returns cudaGetLastError() (0 = success).
 int bell_bwd_k1(const int* active_src, const int* active_tgt, const int* tile_start,
                 const int* tile_count, const float* thetas, const void* gm, const void* x,
                 const void* w, float* dA, float* partial, float* dth, int B, int A, int H,
                 int NJ, int BS, int C, int T_len, int Co, int TTa, int TTc, int G,
-                int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_k1<__nv_bfloat16>(active_src, active_tgt, tile_start, tile_count, thetas,
-                                    gm, x, w, dA, partial, dth, B, A, H, NJ, BS, C, T_len,
-                                    Co, TTa, TTc, G, st);
+                void* stream) {
   return launch_k1<float>(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, w,
                           dA, partial, dth, B, A, H, NJ, BS, C, T_len, Co, TTa, TTc, G,
-                          st);
+                          static_cast<cudaStream_t>(stream));
 }
 
-// K2 on `stream`: dx (B, NI*BS, C*T) in the compute dtype.
+// bf16 K1 on `stream`, on the tensor cores: dA (B, A, H, BS, BS), dTheta
+// (H, C, Co); partial is float scratch of (S + ceil(S/64)) * H*C*Co floats,
+// S = B*NJ*ceil(T/8) (the partials, then sum_rows' groups). The dA
+// pass takes TN target columns a block (a power of two, 16..128), the dTheta
+// pass contracts TC target rows at a time (a multiple of 16 dividing
+// pad16(BS)); vec: T % 8 == 0 and gm, x 16-byte aligned (cp.async row
+// segments), vec_w: BS % 8 == 0 and w 16-byte aligned.
+int bell_bwd_k1_wmma(const int* active_src, const int* active_tgt, const int* tile_start,
+                     const int* tile_count, const float* thetas, const void* gm,
+                     const void* x, const void* w, float* dA, float* partial, float* dth,
+                     int B, int A, int H, int NJ, int BS, int C, int T_len, int Co, int TN,
+                     int TC, int vec, int vec_w, void* stream) {
+  return launch_k1_wmma(active_src, active_tgt, tile_start, tile_count, thetas,
+                        static_cast<const wm::bf16*>(gm), static_cast<const wm::bf16*>(x),
+                        static_cast<const wm::bf16*>(w), dA, partial, dth, B, A, H, NJ, BS,
+                        C, T_len, Co, TN, TC, vec, vec_w, static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory a block of the bf16 K1's dA pass (pass 0, at `tile` = TN)
+// or dTheta pass (pass 1, at `tile` = TC) requests, in bytes.
+size_t bell_bwd_k1_wmma_smem_bytes(int BS, int C, int Co, int tile, int pass) {
+  return pass == 0 ? k1_wmma_dA_bytes(BS, C, Co, tile) : k1_wmma_dtheta_bytes(BS, C, Co, tile);
+}
+
+// K2 on `stream`: dx (B, NI*BS, C*T) in the compute dtype.// K2 on `stream`: dx (B, NI*BS, C*T) in the compute dtype.
 int bell_bwd_k2(const int* src_start, const int* src_count, const int* src_order,
                 const int* active_tgt, const float* thetas, const void* gm, const void* w,
                 void* dx, int B, int A, int H, int NI, int NJ, int BS, int C, int T_len,

@@ -12,9 +12,11 @@
 //
 // Every kernel block covers TT time steps with all channels of each step
 // (W = C*TT <= 64 input columns, WO = Co*TT <= 512 output columns, TT <= T),
-// so the Θ mix (or its transpose) closes inside the block. The products run on
-// CUDA cores as float32 FMAs: operands are widened on load into shared
-// memory, 256 threads hold a 128 x 64 tile of sums, 8 x 4 per thread.
+// so the Θ mix (or its transpose) closes inside the block. The products of
+// these kernels run on CUDA cores as float32 FMAs: operands are widened on
+// load into shared memory, 256 threads hold a 128 x 64 tile of sums, 8 x 4
+// per thread. The bf16 K1 (bell_bwd.cu, k1_*_wmma_kernel) runs on the
+// tensor cores instead, with its own chunks of 8 steps (wmma_common.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -19,9 +19,15 @@ dA product; K2 keeps g_agg in float32 as the TPU kernel does. The kernels
 from gm and Θ in shared memory, so the (B, H, Np, C·T) tensor never
 reaches device memory; dΘ is summed from per-block partials by a second
 pass in a fixed order (no atomics: two runs give the same bits); K2 walks
-the source-sorted list so every block owns its dx tile (no scatter). On a
-CUDA tensor the wrappers launch the kernels or raise; the plain versions
-serve CPU tensors only. ``k1_launches``/``k2_launches`` count launches.
+the source-sorted list so every block owns its dx tile (no scatter).
+
+K1 has two designs, one a dtype: bf16 (the BELL-tiles main path) runs on
+the tensor cores (WMMA) in chunks of 8 time steps, Θ and agg split into
+bf16 hi + lo where they meet a float32 sum, so dΘ and g_agg stay float32
+in value (:func:`k1_bf16_plan` sizes its tiles); float32 keeps the
+CUDA-core kernels and their :func:`time_chunk` plan. On a CUDA tensor the
+wrappers launch the design of the dtype or raise; the plain versions serve
+CPU tensors only. ``k1_launches``/``k2_launches`` count launches.
 """
 from __future__ import annotations
 
@@ -46,6 +52,65 @@ def time_chunk(C: int, Co: int, T: int, staged: int = _WO_MAX) -> int:
         raise ValueError(f"the BELL kernels take C <= {_W_MAX} and Co <= {staged}, "
                          f"got C={C}, Co={Co}")
     return max(1, min(_W_MAX // C, staged // Co, T))
+
+
+# the bf16 K1 on the tensor cores (csrc/bell_bwd.cu k1_dA_wmma_kernel,
+# k1_dtheta_wmma_kernel): chunks of 8 time steps (one 16-byte bf16 row
+# segment), tiles padded to 16, each warp's 16x16 float32 staging at a row
+# stride of 20; a block may have 232,448 bytes, two blocks an SM 115,712
+# each (228 KiB an SM, 1 KiB of it reserved a block)
+_TT16, _WARPS, _STAGE = 8, 8, 16 * 20
+_SMEM_MAX, _SMEM_TWO = 232448, 115712
+
+
+def _pad16(n):
+    return (n + 15) // 16 * 16
+
+
+def _k1_wmma_cc(C):
+    """Channels an m-tile of the bf16 dΘ pass takes: a power of two ≤ 16."""
+    cc = 16
+    while cc > C:
+        cc //= 2
+    return cc
+
+
+def k1_wmma_smem_bytes(BS, C, Co, tile, pass_):
+    """Shared memory a block of the bf16 K1's dA pass (``pass_`` 0, ``tile``
+    target columns) or dΘ pass (1, ``tile`` target rows a contraction
+    chunk) requests (the formulas of csrc/bell_bwd.cu)."""
+    BSp, Cop = _pad16(BS), _pad16(Co)
+    scratch = 4 * _WARPS * _STAGE
+    if pass_ == 0:
+        ldx, ldg, ldt = _pad16(C * _TT16) + 8, tile * _TT16 + 8, Cop + 8
+        return scratch + 2 * ((BSp + tile) * ldx + Cop * ldg + 2 * _pad16(C) * ldt)
+    ldw, ldm, ld = BSp + 8, _pad16(_k1_wmma_cc(C) * _TT16) + 8, tile * _TT16 + 8
+    region = max(2 * BSp * (ldw + ldm), 4 * _WARPS * 16 * Cop, scratch)
+    return region + 2 * (2 * 16 * ld + Cop * ld)
+
+
+def k1_bf16_plan(BS, C, Co, T):
+    """The bf16 K1's launch plan: {"tn": target columns a dA block (the most
+    of 128, 64, 32, 16, at most pad16(BS), whose shared memory fits), "tc":
+    target rows a dΘ contraction chunk (the most multiple of 16 dividing
+    pad16(BS) with which two blocks share an SM, else the most that fits),
+    "cc": channels a dΘ m-tile, "groups": dΘ partials per (batch, head,
+    target tile) (one per chunk of 8 steps, every channel), "smem": (dA
+    bytes, dΘ bytes)}. Raises ValueError outside the kernels' caps (C ≤ 64,
+    Co ≤ 128, BS ≤ 128, those of the float32 kernels), where every shape
+    fits."""
+    if C > _W_MAX or Co > 128 or BS > _BS_MAX:
+        raise ValueError(f"the BELL K1 kernels take C <= {_W_MAX}, Co <= 128 and "
+                         f"block_size <= {_BS_MAX}, got C={C}, Co={Co}, BS={BS}")
+    BSp = _pad16(BS)
+    tn = next(t for t in (128, 64, 32, 16)
+              if t <= BSp and k1_wmma_smem_bytes(BS, C, Co, t, 0) <= _SMEM_MAX)
+    tcs = [t for t in range(BSp, 15, -16) if BSp % t == 0]
+    tc = next((t for t in tcs if k1_wmma_smem_bytes(BS, C, Co, t, 1) <= _SMEM_TWO),
+              next(t for t in tcs if k1_wmma_smem_bytes(BS, C, Co, t, 1) <= _SMEM_MAX))
+    return {"tn": tn, "tc": tc, "cc": _k1_wmma_cc(C), "groups": -(-T // _TT16),
+            "smem": (k1_wmma_smem_bytes(BS, C, Co, tn, 0),
+                     k1_wmma_smem_bytes(BS, C, Co, tc, 1))}
 
 
 def _g_agg(gm, thetas, T):
@@ -126,8 +191,13 @@ def _check(thetas, gm, w, indices, others=()):
 def _load():
     lib = build.load("bell_bwd")
     if lib.bell_bwd_k1.argtypes is None:
-        lib.bell_bwd_k1.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        lib.bell_bwd_k1.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.bell_bwd_k1.restype = ctypes.c_int
+        lib.bell_bwd_k1_wmma.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
+                                         + [ctypes.c_void_p])
+        lib.bell_bwd_k1_wmma.restype = ctypes.c_int
+        lib.bell_bwd_k1_wmma_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.bell_bwd_k1_wmma_smem_bytes.restype = ctypes.c_size_t
         lib.bell_bwd_k2.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.bell_bwd_k2.restype = ctypes.c_int
         lib.bell_bwd_error_string.argtypes = [ctypes.c_int]
@@ -149,7 +219,8 @@ def k1_groups(T: int, TT: int) -> int:
 
 
 def bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, w):
-    """Launch K1 on the current stream: (dA f32, dΘ f32)."""
+    """Launch K1 on the current stream: (dA f32, dΘ f32); bf16 operands take
+    the tensor-core kernels, float32 the CUDA-core kernels."""
     global k1_launches
     _check(thetas, gm, w, (("active_src", active_src), ("active_tgt", active_tgt),
                            ("tile_start", tile_start), ("tile_count", tile_count)),
@@ -164,21 +235,33 @@ def bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, 
     if gm.shape[2] != Co * T:
         raise ValueError(f"gm has {gm.shape[2]} features, expected Co·T={Co * T}")
     NJ = tile_start.shape[0]
-    TTa, TTc = time_chunk(C, Co, T, staged=128), time_chunk(C, Co, T)
-    G = k1_groups(T, TTc)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        plan = k1_bf16_plan(BS, C, Co, T)
+        G = plan["groups"]
+    else:
+        TTa, TTc = time_chunk(C, Co, T, staged=128), time_chunk(C, Co, T)
+        G = k1_groups(T, TTc)
     dev = w.device
     dA = torch.empty((B, A, H, BS, BS), dtype=torch.float32, device=dev)
-    partial = torch.empty((B * H * NJ * G, C * Co), dtype=torch.float32, device=dev)
+    # the dΘ partials (bf16: then the fixed-order row sums' groups of 64)
+    S = B * NJ * G
+    partial = torch.empty(((S + (-(-S // 64) if bf16 else 0)) * H, C * Co),
+                          dtype=torch.float32, device=dev)
     dth = torch.empty((H, C, Co), dtype=torch.float32, device=dev)
+    ptrs = [t.data_ptr() for t in (active_src, active_tgt, tile_start, tile_count, thetas,
+                                   gm, x, w, dA, partial, dth)]
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bell_bwd_k1(
-            active_src.data_ptr(), active_tgt.data_ptr(), tile_start.data_ptr(),
-            tile_count.data_ptr(), thetas.data_ptr(), gm.data_ptr(), x.data_ptr(),
-            w.data_ptr(), dA.data_ptr(), partial.data_ptr(), dth.data_ptr(),
-            B, A, H, NJ, BS, C, T, Co, TTa, TTc, G, int(x.dtype == torch.bfloat16), stream,
-        )
+        if bf16:
+            aligned = lambda *ts: all(t.data_ptr() % 16 == 0 for t in ts)
+            err = lib.bell_bwd_k1_wmma(
+                *ptrs, B, A, H, NJ, BS, C, T, Co, plan["tn"], plan["tc"],
+                int(T % _TT16 == 0 and aligned(gm, x)), int(BS % 8 == 0 and aligned(w)),
+                stream)
+        else:
+            err = lib.bell_bwd_k1(*ptrs, B, A, H, NJ, BS, C, T, Co, TTa, TTc, G, stream)
     _raise_on(lib, err, "bell_bwd K1")
     k1_launches += 1
     return dA, dth

@@ -147,6 +147,18 @@ def smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype=torch.float32):
     return out
 
 
+def limit_error(N, FT, C, T, Co, d, K, d_k, dtype):
+    """Why the kernels cannot take the spatial middle's shape in ``dtype``
+    on the card, or None: a kernel whose block needs more shared memory than
+    a block may have (:func:`smem_bytes`)."""
+    for kernel, need in smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype).items():
+        if need > _SMEM_MAX:
+            return (f"the {kernel} kernel needs {need} bytes of shared memory, more than the "
+                    f"{_SMEM_MAX} a block may have (N={N}, F·T={FT}, C·T={C * T}, d={d}, "
+                    f"{dtype}); N is limited by the (N, 16) planes of its target tile")
+    return None
+
+
 def _load():
     lib = build.load("block_spatial_fused")
     if lib.spatial_fused_forward.argtypes is None:
@@ -201,13 +213,9 @@ def _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, K, d_k,
             raise TypeError(f"relu_mask must be torch.bool (the forward's y > 0), got "
                             f"{relu_mask.dtype}")
         tensors += (("relu_mask", relu_mask),)
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    for kernel, need in smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype).items():
-        if need > _SMEM_MAX:
-            raise ValueError(
-                f"the {kernel} kernel needs {need} bytes of shared memory, more than the "
-                f"{_SMEM_MAX} a block may have (N={N}, F·T={FT}, C·T={C * T}, d={d}, "
-                f"{dtype}); N is limited by the (N, 16) planes of its target tile")
+    why = limit_error(N, FT, C, T, Co, d, K, d_k, torch.bfloat16 if bf16 else torch.float32)
+    if why is not None:
+        raise ValueError(why)
     for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

@@ -183,6 +183,27 @@ def bf16_passes(T, N, H, d_k, d_v, embed=False):
     return out
 
 
+def limit_error(T, N, H, d_k, d_v, dtype, backward, embed=False):
+    """Why the forward or backward kernels of ``dtype``'s design cannot take
+    (T, N) on the card, or None: float32 needs a row's activations in one
+    block (:func:`smem_bytes`), bfloat16 a block of every pass at its fewest
+    rows (:func:`bf16_passes`), within the shared memory a block may have."""
+    if dtype != torch.bfloat16:
+        need = smem_bytes(T, N, H, d_k, d_v, backward=backward)
+        if need > _SMEM_MAX:
+            return (f"a row needs {need} bytes of shared memory, more than the "
+                    f"{_SMEM_MAX} a block may have (T={T}, N={N}, float32)")
+        return None
+    passes = bf16_passes(T, N, H, d_k, d_v, embed)
+    for name in (BWD_PASSES if backward else FWD_PASSES):
+        rows, need = passes[name]
+        if rows == 0:
+            return (f"the bf16 {name} pass needs {need} bytes of shared memory at its "
+                    f"fewest rows, more than the {_SMEM_MAX} a block may have (T={T}, "
+                    f"N={N}, H={H}, d_k={d_k}, d_v={d_v}, embed={embed})")
+    return None
+
+
 def _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, others=(), bf16=False,
            embed=False):
     """Refuse what a design's kernels do not take: shapes, the dtype (float32
@@ -198,24 +219,12 @@ def _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, others=(), 
     for name, t in named.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} must be {shapes[name]}, got {tuple(t.shape)}")
-    backward = bool(others)
-    if not bf16:
-        need = smem_bytes(T, N, n_heads, d_k, d_v, backward=backward)
-        if need > _SMEM_MAX:
-            raise ValueError(f"a row needs {need} bytes of shared memory, more than the "
-                             f"{_SMEM_MAX} a block may have (T={T}, N={N})")
-    else:
-        passes = bf16_passes(T, N, n_heads, d_k, d_v, embed)
-        for name in (BWD_PASSES if backward else FWD_PASSES):
-            rows, need = passes[name]
-            if rows == 0:
-                raise ValueError(
-                    f"the bf16 {name} pass needs {need} bytes of shared memory at its fewest "
-                    f"rows, more than the {_SMEM_MAX} a block may have (T={T}, N={N}, "
-                    f"H={n_heads}, d_k={d_k}, d_v={d_v}, embed={embed})")
-        if BF * T >= 2 ** 31:
-            raise ValueError(f"too many rows for the bf16 passes: B·F·T = {BF * T}")
     dtype = torch.bfloat16 if bf16 else torch.float32
+    why = limit_error(T, N, n_heads, d_k, d_v, dtype, backward=bool(others), embed=embed)
+    if why is not None:
+        raise ValueError(why)
+    if bf16 and BF * T >= 2 ** 31:
+        raise ValueError(f"too many rows for the bf16 passes: B·F·T = {BF * T}")
     for name, t in (("x", x), *named.items(), *others):
         if t.dtype != dtype:
             kind = ("the bf16 tat_fused passes take bfloat16" if bf16

@@ -13,9 +13,11 @@ are permuted by reverse Cuthill–McKee; ``evaluate`` returns predictions in
 the original node order. ``fuse_tat``/``fuse_spatial`` take the steps
 through the fused kernels; ``fuse_gtu`` (``"auto"`` resolves off, as in JAX)
 takes the GTU tail through the fused GTU kernels and raises ``ValueError``
-on shapes their gate rejects (:func:`resolve_fuse_gtu`). Options of paths
-not ported yet raise ``NotImplementedError`` naming the ROADMAP item that
-will port them (:func:`check_slice`).
+on shapes their gate rejects (:func:`resolve_fuse_gtu`); on the card a
+``fuse_tat``/``fuse_spatial`` shape the kernels cannot take raises
+``ValueError`` when the Trainer is built (:func:`check_fused_shapes`).
+Options of paths not ported yet raise ``NotImplementedError`` naming the
+ROADMAP item that will port them (:func:`check_slice`).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from dstagnn_drought_tpu_torch.ops.block_sparse import (
     block_ell_from_adjacency,
     rcm_permutation,
 )
-from dstagnn_drought_tpu_torch.ops.cuda import gtu_fused
+from dstagnn_drought_tpu_torch.ops.cuda import block_spatial_fused, gtu_fused, tat_fused
 from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
 from dstagnn_drought_tpu_torch.training.logger import MetricLogger
 from dstagnn_drought_tpu_torch.training.metrics import horizon_report
@@ -107,6 +109,37 @@ def resolve_fuse_gtu(cfg: Config, device: torch.device, dtype: torch.dtype) -> b
     return True
 
 
+def check_fused_shapes(cfg: Config, device: torch.device, dtype: torch.dtype) -> None:
+    """On a CUDA ``device``, ``ValueError`` naming the knob and the bytes
+    where a block's shape is one the kernels of ``fuse_tat`` or
+    ``fuse_spatial`` cannot take in the compute ``dtype``
+    (:func:`~dstagnn_drought_tpu_torch.ops.cuda.tat_fused.limit_error`,
+    :func:`~dstagnn_drought_tpu_torch.ops.cuda.block_spatial_fused.limit_error`),
+    so a config fails before its data is read, not at its first step. The
+    fused spatial middle runs on the dense path only, as the model runs it;
+    the CPU (the plain versions) takes every shape."""
+    t = cfg.training
+    if torch.device(device).type != "cuda" or not (t.fuse_tat or t.fuse_spatial):
+        return
+    N, T = cfg.data.num_of_vertices, cfg.data.len_input
+    spec = ModelSpec.from_config(cfg)
+    for i, (F, C) in enumerate(spec.block_specs):
+        T_i = T if i == 0 else T // spec.time_strides
+        why = []
+        if t.fuse_tat:
+            why += [("fuse_tat", tat_fused.limit_error(T_i, N, spec.n_heads, spec.d_k,
+                                                       spec.d_v, dtype, backward))
+                    for backward in (False, True)]
+        if t.fuse_spatial and not t.sparse:
+            why.append(("fuse_spatial", block_spatial_fused.limit_error(
+                N, F * T_i, C, T_i, spec.nb_chev_filter, spec.d_model, spec.K, spec.d_k,
+                dtype)))
+        for knob, msg in why:
+            if msg is not None:
+                raise ValueError(f"{knob}=true but on the card block {i + 1}: {msg} — "
+                                 f"unset {knob}")
+
+
 def load_graphs(cfg: Config):
     """Adjacency loading policy of the reference: (adj_merge, adj_pa)."""
     d = cfg.data
@@ -133,6 +166,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype(cfg.training.compute_dtype)
         self.fuse_gtu = resolve_fuse_gtu(cfg, self.device, self.compute_dtype)
+        check_fused_shapes(cfg, self.device, self.compute_dtype)
         check_slice(cfg)
         self.cfg = cfg
         t = cfg.training

@@ -204,6 +204,39 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     assert bell_bwd.time_chunk(4, 32, 144, staged=128) == 4
 
 
+# (BS, C, Co, T): the GAMBIA blocks 1-2, chip_smoke.py's other BELL shapes
+# (ragged BS 8 and 16 at T = 12, one channel at T = 144), and the caps' edge
+K1_BF16_SHAPES = [(128, 4, 32, 144), (128, 32, 32, 144), (8, 4, 8, 12), (16, 4, 8, 12),
+                  (16, 1, 32, 144), (128, 64, 128, 144), (120, 5, 3, 7)]
+
+
+@pytest.mark.parametrize("BS, C, Co, T", K1_BF16_SHAPES)
+def test_k1_bf16_plan_fits_every_shape(BS, C, Co, T):
+    """The bf16 K1's plan fits a block's 232,448 bytes in both passes, its
+    tiles are ones the kernels take (dA: a power of two of at most
+    pad16(BS) target columns; dΘ: a multiple of 16 dividing pad16(BS)),
+    and it gives the same partials (one per chunk of 8 steps) every call."""
+    plan = bell_bwd.k1_bf16_plan(BS, C, Co, T)
+    BSp = -(-BS // 16) * 16
+    assert max(plan["smem"]) <= 232448
+    assert plan["tn"] in (16, 32, 64, 128) and plan["tn"] <= BSp
+    assert plan["tc"] % 16 == 0 and BSp % plan["tc"] == 0
+    assert plan["smem"] == (bell_bwd.k1_wmma_smem_bytes(BS, C, Co, plan["tn"], 0),
+                            bell_bwd.k1_wmma_smem_bytes(BS, C, Co, plan["tc"], 1))
+    assert plan["groups"] == -(-T // 8)
+    assert bell_bwd.k1_bf16_plan(BS, C, Co, T) == plan
+    # the GAMBIA blocks: one dA block a (slot, head, batch), two dΘ blocks an SM
+    if BS == 128 and Co == 32:
+        assert plan["tn"] == 128 and plan["smem"][1] <= 115712
+
+
+def test_k1_bf16_plan_refuses_what_the_float32_kernels_refuse():
+    with pytest.raises(ValueError, match="C <= 64"):
+        bell_bwd.k1_bf16_plan(128, 65, 32, 144)
+    with pytest.raises(ValueError, match="Co <= 128"):
+        bell_bwd.k1_bf16_plan(128, 32, 129, 144)
+
+
 def test_cpu_path_counts_no_launch():
     c = _case("ragged_n29")
     before = (bell_fused.launches, bell_bwd.k1_launches, bell_bwd.k2_launches)
@@ -243,6 +276,18 @@ def test_kernels_match_plain_on_card():
     dA_p, dth_p = bell_bwd.bell_k1_plain(*k1[:2], *k1[4:])
     torch.testing.assert_close(dA, dA_p, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(dth, dth_p, atol=2e-4, rtol=2e-4)
+    assert torch.equal(bell_bwd.bell_k1(*k1)[1], dth)
+    # the bf16 design (tensor cores): within 1e-2 of scale of the plain
+    # version on the same bf16 operands, dΘ bit for bit over two launches
+    k1_16 = (*k1[:5], *(t.bfloat16().contiguous() for t in k1[5:]))
+    before = bell_bwd.k1_launches
+    dA16, dth16 = bell_bwd.bell_k1(*k1_16)
+    assert bell_bwd.k1_launches == before + 1
+    dA16_p, dth16_p = bell_bwd.bell_k1_plain(*k1_16[:2], *k1_16[4:])
+    for got, want in ((dA16, dA16_p), (dth16, dth16_p)):
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 1e-2 * max(1.0, float(want.abs().max()))
+    assert torch.equal(bell_bwd.bell_k1(*k1_16)[1], dth16)
     k2 = (t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
           cu(th), cu(gm), cu(w))
     torch.testing.assert_close(bell_bwd.bell_k2(*k2), bell_bwd.bell_k2_plain(*k2),

@@ -304,6 +304,75 @@ def test_trainer_refuses_fuse_gtu_over_the_card_budget(toy_windowed, tmp_path, m
         loop.Trainer(cfg, experiments_root=str(tmp_path))
 
 
+# (knob, dtype, N, widths, refused on the card): PEMS08 width (T = 12, H = 3,
+# d_k = 32, d_model = 512, C = Co = 32) and GAMBIA width (T = 144, F = 4,
+# K = H = 2, d_model = 64). float32 fuse_tat holds a row in one block, past
+# N = 800 at T = 12 (PEMS07's N = 883); the bf16 passes take it. The spatial
+# column passes hold (N, 16) planes, past any dtype's cap at N = 2139.
+PEMS08_WIDTH = dict(len_input=12, in_channels=1, nb_block=4, K=3, n_heads=3, d_k=32,
+                    d_model=512, nb_chev_filter=32, nb_time_filter=32)
+GAMBIA_WIDTH = dict(len_input=144, in_channels=4, nb_block=2, K=2, n_heads=2, d_k=32,
+                    d_model=64, nb_chev_filter=32, nb_time_filter=32)
+FUSED_CARD_CASES = [
+    ("fuse_tat", "float32", 883, PEMS08_WIDTH, True),
+    ("fuse_tat", "bfloat16", 883, PEMS08_WIDTH, False),
+    ("fuse_tat", "float32", 170, PEMS08_WIDTH, False),
+    ("fuse_tat", "bfloat16", 170, PEMS08_WIDTH, False),
+    ("fuse_spatial", "float32", 170, PEMS08_WIDTH, False),
+    ("fuse_spatial", "bfloat16", 170, PEMS08_WIDTH, False),
+    ("fuse_spatial", "float32", 2139, GAMBIA_WIDTH, True),
+    ("fuse_spatial", "bfloat16", 2139, GAMBIA_WIDTH, True),
+]
+
+
+def _fused_config(toy_windowed, knob, dtype, N, widths):
+    cfg = load_config(toy_windowed / "TOY.conf")
+    setattr(cfg.training, knob, True)
+    cfg.training.compute_dtype = dtype
+    cfg.data.num_of_vertices = N
+    for key, value in widths.items():
+        setattr(cfg.data if key == "len_input" else cfg.training, key, value)
+    cfg.training.d_v = cfg.training.d_k
+    return cfg
+
+
+@pytest.mark.parametrize("knob, dtype, N, widths, refused", FUSED_CARD_CASES)
+def test_check_fused_shapes_checks_the_card_budget(toy_windowed, knob, dtype, N, widths,
+                                                   refused):
+    """On a CUDA device check_fused_shapes refuses, naming the knob and the
+    bytes, a block shape the fused TAt or spatial kernels of the compute
+    dtype cannot take; on the CPU (the plain versions) every shape passes."""
+    cfg = _fused_config(toy_windowed, knob, dtype, N, widths)
+    dt = getattr(torch, dtype)
+    loop.check_fused_shapes(cfg, torch.device("cpu"), dt)
+    if refused:
+        with pytest.raises(ValueError, match=rf"{knob}=true.* \d+ bytes"):
+            loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
+    else:
+        loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
+
+
+def test_fuse_spatial_is_not_checked_on_the_bell_path(toy_windowed):
+    """The fused spatial middle runs on the dense path only, so a BELL
+    config with fuse_spatial at N = 2139 is not refused for it."""
+    cfg = _fused_config(toy_windowed, "fuse_spatial", "bfloat16", 2139, GAMBIA_WIDTH)
+    cfg.training.sparse, cfg.training.sparse_format = True, "bell"
+    loop.check_fused_shapes(cfg, torch.device("cuda"), torch.bfloat16)
+
+
+@pytest.mark.parametrize("knob, N, widths", [("fuse_tat", 883, PEMS08_WIDTH),
+                                             ("fuse_spatial", 2139, GAMBIA_WIDTH)])
+def test_trainer_refuses_fused_shapes_over_the_card_budget(toy_windowed, tmp_path,
+                                                           monkeypatch, knob, N, widths):
+    """The Trainer checks fuse_tat/fuse_spatial after resolving its device,
+    so on a CUDA device a shape over the card's caps raises at construction,
+    before any data is read (the toy data has N = 20 and is never loaded)."""
+    monkeypatch.setattr(loop, "resolve_device", lambda device: torch.device("cuda"))
+    cfg = _fused_config(toy_windowed, knob, "float32", N, widths)
+    with pytest.raises(ValueError, match=rf"{knob}=true.* \d+ bytes"):
+        loop.Trainer(cfg, experiments_root=str(tmp_path))
+
+
 def test_cli_refuses_flags_outside_the_slice(toy_windowed, tmp_path):
     conf = str(toy_windowed / "TOY.conf")
     for flag in (["--data-axis", "2"], ["--graph-axis", "2"], ["--distributed"],
