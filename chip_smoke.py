@@ -14,12 +14,15 @@ Phases; any failure exits non-zero:
      times of both: cheb_sat forward and gradients; the BELL forward (F),
      K1 and K2 at the GAMBIA blocks, the 1%-random N=2139 graph (17 slots a
      tile) and a ragged n=29 graph (BS 8 and 16), in float32 and bfloat16,
-     with K1's dΘ equal bit for bit over two launches; each row names its
-     design (the bf16 K1 on the tensor cores, the rest on the CUDA cores)
-     and carries the float32 kernel's time at its shape, the bf16 K1's dΘ
-     is held against the plain float32 dΘ within a limit that a no-split
-     control exceeds, and its plan's shared-memory bytes must equal the
-     kernels' own;
+     with K1's dΘ and F's output equal bit for bit over two launches; each
+     row names its design (the bf16 F and K1 on the tensor cores, the rest
+     on the CUDA cores) and carries the float32 kernel's time at its shape,
+     the bf16 K1's dΘ is held against the plain float32 dΘ within a limit
+     that a no-split control exceeds, the bf16 F differs from the plain
+     bf16 output on at most 1% of its outputs where a no-split control
+     differs on more (also at five random graphs whose shapes take the
+     bf16 F's other paths), and both plans' shared-memory bytes must equal
+     the kernels' own;
   2c. the fused dense kernels against their plain versions, forward and
      every gradient, in float32 and bfloat16, at PEMS08 block 1 and blocks
      2-4, the TAt embedding mode and a ragged shape (and, in bfloat16 only,
@@ -77,9 +80,9 @@ GTU comparisons with each epoch's peak device memory) alternated in one process,
 each, and a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE. ``--compare OUT`` builds
 and runs only ``compare_run``: one side of a comparison with another
-commit's checkout (the float32 spatial, TAt and K1 kernels' bits, K1 by
-pass at GAMBIA blocks 1-2, the GAMBIA BELL-tiles bf16 epoch with and
-without fuse_gtu).
+commit's checkout (the float32 spatial, TAt, K1 and F kernels' bits, K1
+and F by pass at GAMBIA blocks 1-2, the GAMBIA BELL-tiles bf16 epoch with
+and without fuse_gtu).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -297,10 +300,15 @@ def bell_bounds(B, H, A, BS, dk, C, T, Co, Np, dtype):
     67) against the bytes each function must move over 3.35 TB/s, every
     operand read or written once: F reads q, k (f32), the bias and cheb
     tiles (f32), x and Θ and writes out; K1 reads gm, x, w and Θ and writes
-    dA (f32) and dΘ; K2 reads gm, w and Θ and writes dx."""
+    dA (f32) and dΘ; K2 reads gm, w and Θ and writes dx. The bf16 F counts
+    its float32-in-value products as tat_bounds does, each bf16 term at 989
+    TFLOP/s: the scores (float32 q, k) and the Θ mix (float32 agg and Θ)
+    three terms each, the SpMM (bf16 w and x) one."""
     M, xb = C * T, (2 if dtype == torch.bfloat16 else 4)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    ops = {"bell_fused": 2 * B * H * A * BS * BS * (dk + M) + 2 * B * Np * H * M * Co,
+    terms = 3 if dtype == torch.bfloat16 else 1
+    ops = {"bell_fused": (2 * B * H * A * BS * BS * (terms * dk + M)
+                          + terms * 2 * B * Np * H * M * Co),
            "bell_k1": 4 * B * H * A * BS * BS * M + 4 * B * Np * H * M * Co,
            "bell_k2": 2 * B * H * A * BS * BS * M + 2 * B * H * A * BS * M * Co}
     x_b, g_b, w_b = xb * B * Np * M, xb * B * Np * Co * T, xb * B * A * H * BS * BS
@@ -349,10 +357,36 @@ def rel_err(got, want) -> tuple[float, float]:
 
 
 def bell_design(name, dtype) -> str:
-    """The arithmetic of a BELL kernel: the bf16 K1 on the tensor cores
-    (k1_dA_wmma_kernel, k1_dtheta_wmma_kernel; WMMA, Θ and agg split into
-    bf16 hi + lo), everything else float32 FMAs on the CUDA cores."""
-    return "wmma_bf16" if name == "bell_k1" and dtype == torch.bfloat16 else "cuda_core_f32"
+    """The arithmetic of a BELL kernel: the bf16 K1 (k1_dA_wmma_kernel,
+    k1_dtheta_wmma_kernel; Θ and agg split into bf16 hi + lo) and the bf16
+    F (its SpMM and Θ mix, f_spmm_wmma_kernel; agg and Θ split) on the
+    tensor cores (WMMA), everything else float32 FMAs on the CUDA cores."""
+    wmma = name in ("bell_k1", "bell_fused") and dtype == torch.bfloat16
+    return "wmma_bf16" if wmma else "cuda_core_f32"
+
+
+def check_f_smem():
+    """bell_fused.f_wmma_smem_bytes and f_bf16_plan (the Python gate)
+    against the bytes the kernel of csrc/bell_fused.cu requests, at every
+    BELL shape and at the caps' edges (C 1/64, Co 1/512, BS 8/120/128, H
+    2/3), for every tile the pass could take; every plan fits a block."""
+    lib = bell_fused._load()
+    shapes = {(s[7], s[4], s[6], s[5], s[3]) for s in BELL_SHAPES} | {
+        (BS, C, Co, T, H) for BS in (8, 48, 120, 128) for C in (1, 4, 5, 32, 64)
+        for Co in (1, 32, 512) for T in (7, 144) for H in (2, 3)}
+    for BS, C, Co, T, H in sorted(shapes):
+        plan = bell_fused.f_bf16_plan(BS, C, Co, T, H)
+        check(plan["smem"] <= 232448, f"F plan at BS={BS} C={C} Co={Co} T={T} H={H}: {plan}")
+        for TN in (16, 32, 64, 128):
+            for NT in (1, 4, plan["nt"]):
+                for HG, KC in bell_fused._F_STAGES:
+                    tiles = (C, H, TN, NT, KC, HG)
+                    got = (bell_fused.f_wmma_smem_bytes(*tiles),
+                           bell_fused.f_wmma_stage_bytes(C, TN, NT, KC, HG))
+                    want = tuple(lib.bell_fused_wmma_smem_bytes(*tiles, what)
+                                 for what in (0, 1))
+                    check(got == want, f"f_wmma_smem_bytes, f_wmma_stage_bytes{tiles} = "
+                                       f"{got}, the kernel requests {want}")
 
 
 def check_k1_smem():
@@ -396,13 +430,100 @@ def k1_nosplit_dtheta(active_src, active_tgt, thetas, gm, x, w):
     return torch.einsum("bahvct,bavot->hco", agg.reshape(B, A, H, BS, C, T), gm_t)
 
 
+# the bf16 F's output against the plain version's bf16 output on the same
+# operands: the share of outputs whose bf16 value differs. The design mixes
+# agg and Θ as bf16 hi + lo (float32 in value; its last bits differ from
+# the plain float32 sums, so a rounding tie falls the other way on a few
+# outputs), a design without the lo terms (f_nosplit_plain) rounds agg to
+# bf16 before the mix and moves about a fifth of them
+F_SPLIT_SHARE = 1e-2
+
+
+def f_nosplit_plain(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
+    """The control of F's split check: the forward as bell_forward_plain
+    computes it, with agg rounded to bf16 before the Θ mix."""
+    B, Np, M = x.shape
+    H, C, Co = thetas.shape
+    T = M // C
+    NJ, BS = tile_start.shape[0], bias_t.shape[-1]
+    a_tgt, active_src = bell_fused._tgt_of(tile_start, tile_count), active_src.long()
+    _, _, att = bell_fused.active_softmax(q, k, bias_t, active_src, a_tgt, NJ)
+    w = (cheb_t[None] * att).to(x.dtype)
+    x_src = x.reshape(B, -1, BS, M)[:, active_src].float()
+    agg = torch.zeros((B, NJ, H, BS, M), dtype=torch.float32, device=x.device)
+    agg.index_add_(1, a_tgt, torch.einsum("bahst,basm->bahtm", w.float(), x_src))
+    agg = agg.bfloat16().float()
+    out = torch.einsum("bjhvct,hco->bjvot", agg.reshape(B, NJ, H, BS, C, T), thetas)
+    return torch.relu(out).reshape(B, NJ * BS, Co * T).to(x.dtype)
+
+
+def bf16_diff(got, want) -> dict:
+    """The share of bf16 outputs that differ, and the largest difference in
+    bf16 ulps of the plain output (where it is not zero)."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    nz = w != 0
+    return {"share": float((g != w).float().mean()),
+            "max_ulps": float(((g - w).abs() / ulp)[nz].max()) if bool(nz.any()) else 0.0}
+
+
+# (label, n, density, BS, B, H, C, T, Co, d_k): random graphs whose shapes
+# take the bf16 F's other paths: Θ mixed in four output-column chunks and a
+# ragged last column tile (C = 64, Co = 512, BS = 120); plain loads of x (T
+# % 8 != 0), a padded column tile (C odd) and an odd head group (H = 3);
+# one head a stage (H = 1); 16 source rows a stage and 21 depth steps of the
+# mix (H·C = 336, the plan's edge); plain loads of w (BS % 8 != 0)
+F_CORNER_SHAPES = [
+    ("c64_co512_bs120", 250, 0.05, 120, 2, 2, 64, 16, 512, 32),
+    ("c5_t7_h3_bs48", 100, 0.08, 48, 2, 3, 5, 7, 3, 8),
+    ("h1_c32_bs32", 64, 0.1, 32, 2, 1, 32, 24, 16, 16),
+    ("h6_c56_bs64", 64, 0.1, 64, 2, 6, 56, 16, 5, 32),
+    ("bs20_c4_t16", 57, 0.15, 20, 2, 2, 4, 16, 8, 8),
+]
+
+
+def f_corner_rows():
+    """The bf16 F against its plain version at F_CORNER_SHAPES: within 1e-2
+    of scale, the split check's share, the same bits over two launches."""
+    rows = []
+    for seed, (label, n, density, BS, B, H, C, T, Co, dk) in enumerate(F_CORNER_SHAPES):
+        bell = block_ell_from_adjacency(random_adjacency(n, density, 10 + seed),
+                                        block_size=BS).to("cuda")
+        t = bell.tensors
+        z = bell_inputs(bell, B, H, C, T, Co, dk, torch.bfloat16, 500 + seed)
+        f_args = (t["tile_start"], t["tile_count"], t["active_src"],
+                  z["q"], z["k"], z["bias"], z["cheb"], z["x"], z["thetas"])
+        out_k = bell_fused.bell_forward_cuda(*f_args)
+        same = bool(torch.equal(out_k, bell_fused.bell_forward_cuda(*f_args)))
+        out_p = bell_fused.bell_forward_plain(*f_args)
+        err, rel = rel_err(out_k, out_p)
+        row = {"kernel": "bell_fused_corner", "shape": label, "dtype": "bfloat16", "B": B,
+               "H": H, "N": n, "BS": BS, "A": bell.num_active, "S": bell.max_blocks, "C": C,
+               "T": T, "Co": Co, "d_k": dk, "plan": bell_fused.f_bf16_plan(BS, C, Co, T, H),
+               "max_abs_err": err, "rel_err": rel, "tol": BELL_TOL[torch.bfloat16],
+               "out_bit_identical": same,
+               "split_check": {"kernel": bf16_diff(out_k, out_p),
+                               "nosplit": bf16_diff(f_nosplit_plain(*f_args), out_p)}}
+        row["ok"] = (rel <= row["tol"] and same
+                     and row["split_check"]["kernel"]["share"] <= F_SPLIT_SHARE)
+        print("bell", json.dumps(row), flush=True)
+        check(row["ok"], f"the bf16 F at {label}: {row}")
+        rows.append(row)
+        del z, out_k, out_p
+    return rows
+
+
 def phase_bell_kernels():
     """F, K1 and K2 against their plain versions at every BELL shape, in f32
     and bf16, with CUDA-event times; dΘ of two K1 launches must be equal
     bit for bit; the bf16 K1's dΘ within K1_SPLIT_TOL of the plain
-    float32 dΘ, which a no-split control misses. Each row names its design
-    and carries the float32 kernel's time at its shape."""
+    float32 dΘ, which a no-split control misses; the bf16 F differs from
+    the plain bf16 output on at most F_SPLIT_SHARE of its outputs, where a
+    no-split control differs on more, and gives the same bits over two
+    launches, also at F_CORNER_SHAPES. Each row names its design and
+    carries the float32 kernel's time at its shape."""
     check_k1_smem()
+    check_f_smem()
     rows = []
     for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
         bell = bell_graph(kind, BS)
@@ -418,6 +539,7 @@ def phase_bell_kernels():
             k2_args = (t["src_start"], t["src_count"], t["src_order"],
                        t["active_tgt"], z["thetas"], z["gm"], z["w"])
             out_k = bell_fused.bell_forward_cuda(*f_args)
+            out_again = bell_fused.bell_forward_cuda(*f_args)
             dA_k, dth_k = bell_bwd.bell_k1_cuda(*k1_args)
             _, dth_again = bell_bwd.bell_k1_cuda(*k1_args)
             dx_k = bell_bwd.bell_k2_cuda(*k2_args)
@@ -428,8 +550,13 @@ def phase_bell_kernels():
             errs = {"bell_fused": [rel_err(out_k, out_p)],
                     "bell_k1": [rel_err(dA_k, dA_p), rel_err(dth_k, dth_p)],
                     "bell_k2": [rel_err(dx_k, dx_p)]}
-            split = None
+            split = f_split = None
             if dtype == torch.bfloat16:
+                ctl = f_nosplit_plain(*f_args)
+                f_split = {"kernel": bf16_diff(out_k, out_p), "nosplit": bf16_diff(ctl, out_p),
+                           "tol_share": F_SPLIT_SHARE}
+                f_split["ok"] = (f_split["kernel"]["share"] <= F_SPLIT_SHARE
+                                 < f_split["nosplit"]["share"])
                 scale = float(dth_p.abs().max())
                 ctl = k1_nosplit_dtheta(*k1_args[:2], *k1_args[4:])
                 split = {"dtheta_rel_err": float((dth_k - dth_p).abs().max()) / scale,
@@ -457,6 +584,10 @@ def phase_bell_kernels():
                     row["dtheta_bit_identical"] = bool(torch.equal(dth_k, dth_again))
                     if split is not None:
                         row["split_check"] = split
+                if name == "bell_fused":
+                    row["out_bit_identical"] = bool(torch.equal(out_k, out_again))
+                    if f_split is not None:
+                        row["split_check"] = f_split
                 row["ms"] = cuda_ms(kern, iters)
                 row["plain_ms"] = cuda_ms(plain, max(2, iters // 4))
                 row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
@@ -469,12 +600,16 @@ def phase_bell_kernels():
                                  f"{row['rel_err']:.3g} > {tol}")
                 check(name != "bell_k1" or split is None or split["ok"],
                       f"the bf16 K1's dΘ split check at {label}: {split}")
+                check(name != "bell_fused" or f_split is None or f_split["ok"],
+                      f"the bf16 F's split check at {label}: {f_split}")
+                check(row.get("out_bit_identical", True),
+                      f"F's output differs between two launches at {label} {dtype}")
                 check(row.get("dtheta_bit_identical", True),
                       f"K1 dΘ differs between two launches at {label} {dtype}")
                 rows.append(row)
-            del z, out_k, dA_k, dth_k, dth_again, dx_k
+            del z, out_k, out_again, dA_k, dth_k, dth_again, dx_k
             torch.cuda.empty_cache()
-    return rows
+    return rows + f_corner_rows()
 
 
 # ---------------------------------------------------------------------------
@@ -1053,10 +1188,41 @@ def measure_k1_passes(iters: int = 10):
     return out
 
 
+# kernel-name fragments of each F pass: the weights pass (both dtypes), and
+# the SpMM with its Θ mix (the float32 CUDA-core kernel, the bf16
+# tensor-core kernel)
+F_PASSES = (("weights", ("weights_kernel",)), ("spmm", ("spmm",)))
+
+
+def measure_f_passes(iters: int = 10):
+    """F (rows 2-3) by pass at GAMBIA blocks 1 and 2 in each dtype, through
+    ``bell_fused.bell_forward_cuda`` (an interface every version of the
+    package has, so a checkout of another commit can be measured with the
+    same function): the weights pass, the SpMM/mix pass, and "other" (the
+    wrapper's allocations)."""
+    out = {"iters": iters}
+    for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
+        if label not in K1_PASS_SHAPES:
+            continue
+        bell = bell_graph(kind, BS)
+        t = bell.tensors
+        for dtype in F32_BF16:
+            z = bell_inputs(bell, B, H, C, T, Co, dk, dtype, seed)
+            args = (t["tile_start"], t["tile_count"], t["active_src"], z["q"], z["k"],
+                    z["bias"], z["cheb"], z["x"], z["thetas"])
+            out[f"{label}_{str(dtype).split('.')[-1]}"] = _profile_passes(
+                lambda: bell_fused.bell_forward_cuda(*args), iters, F_PASSES)
+            del z, args
+            torch.cuda.empty_cache()
+    print("measure", json.dumps({"path": "f_passes", **out}), flush=True)
+    return out
+
+
 def forward_bits(path: Path) -> dict:
     """The float32 kernels' outputs on seeded operands: the spatial forward
     at every float32 spatial shape, the TAt forward and backward at every
-    float32 TAt shape, and K1's dA and dΘ at every BELL shape. Saved to
+    float32 TAt shape, and K1's dA and dΘ and F's output at every BELL
+    shape (F's q, k and tiles from the generator). Saved to
     ``path`` (as sha256 digests of the bytes) where it does not exist yet,
     else held against the saved digests: equal bits or not. Run from
     checkouts of two commits in turns (``--compare``), it shows whether a
@@ -1089,6 +1255,9 @@ def forward_bits(path: Path) -> dict:
         k1 = bell_bwd.bell_k1_cuda(t["active_src"], t["active_tgt"], t["tile_start"],
                                    t["tile_count"], z["thetas"], z["gm"], z["x"], w)
         outs[f"k1_{label}"] = list(k1)
+        outs[f"f_{label}"] = bell_fused.bell_forward_cuda(
+            t["tile_start"], t["tile_count"], t["active_src"], z["q"], z["k"], z["bias"],
+            z["cheb"], z["x"], z["thetas"])
         del z, w, k1
     # sha256 of every output's bytes, a list per label
     digest = lambda y: hashlib.sha256(y.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
@@ -1108,8 +1277,8 @@ def forward_bits(path: Path) -> dict:
 
 def compare_run(out: Path) -> dict:
     """One side of a comparison of two commits in one chip call: the float32
-    kernels' bits (against the first side's, saved beside ``out``), K1 by
-    pass at GAMBIA blocks 1-2, and the GAMBIA BELL-tiles bf16 epoch with and
+    kernels' bits (against the first side's, saved beside ``out``), K1 and
+    F by pass at GAMBIA blocks 1-2, and the GAMBIA BELL-tiles bf16 epoch with and
     without fuse_gtu (ms/step, device time, epoch peak memory), written to
     ``out``. Run it from a checkout of each commit in turns (parent, change,
     change, parent), loading this file with importlib so that each
@@ -1117,7 +1286,7 @@ def compare_run(out: Path) -> dict:
     measured by ``--measure``."""
     out.parent.mkdir(parents=True, exist_ok=True)
     result = {"card": card_line(), "forward_bits": forward_bits(out.parent / "forward_bits.json"),
-              "k1_passes": measure_k1_passes()}
+              "k1_passes": measure_k1_passes(), "f_passes": measure_f_passes()}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         result["gambia_bell_tiles"] = measure_gambia_fuse_gtu(Path(tmp), rounds=3,
                                                               paths=("bell_tiles",))

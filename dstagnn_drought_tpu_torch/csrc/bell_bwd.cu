@@ -64,7 +64,6 @@
 //     time; every block owns its dx tile, so there is no scatter.
 
 #include "bell_common.cuh"
-#include "wmma_common.cuh"
 
 namespace {
 
@@ -315,13 +314,6 @@ k2_kernel(const int* __restrict__ src_start, const int* __restrict__ src_count,
 // bf16 K1 on the tensor cores (WMMA, 16x16x16 bf16 products, float32 sums)
 // ---------------------------------------------------------------------------
 
-constexpr int kTT = 8;       // time steps a chunk: one 16-byte row segment of bf16
-constexpr int kWarps = kThreads / 32;
-constexpr int kLdS = 20;     // float stride of a warp's 16x16 staging: conflict-free
-constexpr int kStage = 16 * kLdS;
-
-__host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) / 16 * 16; }
-
 __host__ __device__ __forceinline__ size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
 
 // Shared memory of the dA pass at TN target columns a block, and of the dΘ
@@ -350,40 +342,6 @@ __host__ __device__ inline size_t k1_wmma_dtheta_region(int BS, int C, int Co) {
 __host__ __device__ inline size_t k1_wmma_dtheta_bytes(int BS, int C, int Co, int TC) {
   const int ld = TC * kTT + 8;
   return k1_wmma_dtheta_region(BS, C, Co) + 2 * (2 * (size_t)16 * ld + (size_t)pad16(Co) * ld);
-}
-
-__device__ __forceinline__ void cp_async16(wm::bf16* sdst, const wm::bf16* gsrc) {
-  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(sdst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gsrc));
-}
-
-__device__ __forceinline__ void commit_async() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// one 16-byte segment of kTT steps from t0 (zero past T_len): cp.async with
-// vec (16-byte aligned and whole: T_len % 8 == 0 and an aligned base), else
-// plain loads
-__device__ __forceinline__ void stage_segment(wm::bf16* d, const wm::bf16* g, int t0,
-                                              int T_len, bool vec) {
-  if (vec) {
-    cp_async16(d, g);
-  } else {
-#pragma unroll
-    for (int tt = 0; tt < kTT; ++tt) d[tt] = t0 + tt < T_len ? g[tt] : __float2bfloat16_rn(0.f);
-  }
-}
-
-__device__ __forceinline__ void zero16(wm::bf16* d) {
-  *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-}
-
-// 8 consecutive floats of a warp's staging (16-byte aligned) as 8 bf16
-__device__ __forceinline__ uint4 pack8_at(const float* s) {
-  float v[8];
-  *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(s);
-  *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(s + 4);
-  return wm::pack8(v);
 }
 
 // dA[b, a, h][:, tc:tc+TN]: one block per (active entry, TN target columns,
@@ -819,7 +777,7 @@ size_t bell_bwd_k1_wmma_smem_bytes(int BS, int C, int Co, int tile, int pass) {
   return pass == 0 ? k1_wmma_dA_bytes(BS, C, Co, tile) : k1_wmma_dtheta_bytes(BS, C, Co, tile);
 }
 
-// K2 on `stream`: dx (B, NI*BS, C*T) in the compute dtype.// K2 on `stream`: dx (B, NI*BS, C*T) in the compute dtype.
+// K2 on `stream`: dx (B, NI*BS, C*T) in the compute dtype.
 int bell_bwd_k2(const int* src_start, const int* src_count, const int* src_order,
                 const int* active_tgt, const float* thetas, const void* gm, const void* w,
                 void* dx, int B, int A, int H, int NI, int NJ, int BS, int C, int T_len,

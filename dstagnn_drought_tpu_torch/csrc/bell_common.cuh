@@ -13,15 +13,19 @@
 // Every kernel block covers TT time steps with all channels of each step
 // (W = C*TT <= 64 input columns, WO = Co*TT <= 512 output columns, TT <= T),
 // so the Θ mix (or its transpose) closes inside the block. The products of
-// these kernels run on CUDA cores as float32 FMAs: operands are widened on
-// load into shared memory, 256 threads hold a 128 x 64 tile of sums, 8 x 4
-// per thread. The bf16 K1 (bell_bwd.cu, k1_*_wmma_kernel) runs on the
-// tensor cores instead, with its own chunks of 8 steps (wmma_common.cuh).
+// the float32 kernels run on CUDA cores as float32 FMAs: operands are
+// widened on load into shared memory, 256 threads hold a 128 x 64 tile of
+// sums, 8 x 4 per thread. The bf16 F and K1 (bell_fused.cu
+// f_spmm_wmma_kernel, bell_bwd.cu k1_*_wmma_kernel) run on the tensor cores
+// instead (wmma_common.cuh), with their own chunks of 8 steps: the helpers
+// at the end of this file.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "wmma_common.cuh"
 
 namespace bell {
 
@@ -78,6 +82,58 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 tensor-core kernels' pieces: chunks of kTT steps, each one 16-byte
+// row segment of bf16, staged by cp.async where whole and aligned
+// ---------------------------------------------------------------------------
+
+constexpr int kTT = 8;       // time steps a chunk: one 16-byte row segment of bf16
+constexpr int kWarps = kThreads / 32;
+constexpr int kLdS = 20;     // float stride of a warp's 16x16 staging: conflict-free
+constexpr int kStage = 16 * kLdS;
+
+__host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) / 16 * 16; }
+
+__device__ __forceinline__ void cp_async16(wm::bf16* sdst, const wm::bf16* gsrc) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(sdst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(gsrc));
+}
+
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of the thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wait_async_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one 16-byte segment of kTT steps from t0 (zero past T_len): cp.async with
+// vec (16-byte aligned and whole: T_len % 8 == 0 and an aligned base), else
+// plain loads
+__device__ __forceinline__ void stage_segment(wm::bf16* d, const wm::bf16* g, int t0,
+                                              int T_len, bool vec) {
+  if (vec) {
+    cp_async16(d, g);
+  } else {
+#pragma unroll
+    for (int tt = 0; tt < kTT; ++tt) d[tt] = t0 + tt < T_len ? g[tt] : __float2bfloat16_rn(0.f);
+  }
+}
+
+__device__ __forceinline__ void zero16(wm::bf16* d) {
+  *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+}
+
+// 8 consecutive floats of a warp's staging (16-byte aligned) as 8 bf16
+__device__ __forceinline__ uint4 pack8_at(const float* s) {
+  float v[8];
+  *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(s);
+  *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(s + 4);
+  return wm::pack8(v);
 }
 
 }  // namespace bell

@@ -22,23 +22,42 @@
 // the bytes of x, the output and the tiles. At the main path's GAMBIA shape
 // (block 2: B=4, H=2, A=49, BS=128, dk=32, M=C*T=4608, Co=32) that is ~65 GFLOP
 // over ~0.1 GB: bound by operations (about 0.07 ms at the bf16 tensor-core
-// peak, 1 ms at the float32 CUDA-core peak). This first design runs every
-// product as float32 FMAs on the CUDA cores; tensor cores (wgmma) and a TMA
-// pipeline are left for a later change. Two passes:
-//   pass 1 (weights_kernel): one block per (j, h, b) computes each target
-//     column's max and sum of exp over every slot (online), then recomputes
-//     the scores and writes w = T_k (.) exp(s - max) / sum in the compute
-//     dtype into the scratch (the softmax needs the whole neighbourhood
-//     before any weight is final);
-//   pass 2 (spmm_kernel): one block per (time chunk, j, b) covers TT time
-//     steps with every channel (C*TT <= 64), so the Theta mix closes in the
-//     block: per head, 128 targets x C*TT features are summed over all
-//     slots' source rows (32-row chunks of w and x staged in shared memory,
-//     8 x 4 float sums per thread) and kept in shared memory; the epilogue
-//     mixes the heads by Theta into Co*TT outputs per target and writes the
-//     ReLU'd result once. The (B, H, Np, C*T) aggregation never reaches
-//     device memory.
-// Ragged edges (BS < 128, T not a multiple of TT) are masked in the kernel.
+// peak, 1 ms at the float32 CUDA-core peak). Two passes:
+//   pass 1 (weights_kernel, both dtypes): one block per (32 target columns,
+//     j, h, b) computes each target column's max and sum of exp over every
+//     slot (online, even and odd source rows apart, merged at the end),
+//     then recomputes the scores and writes w = T_k (.) exp(s - max) / sum
+//     in the compute dtype into the scratch (the softmax needs the whole
+//     neighbourhood before any weight is final); scores in float32 on the
+//     CUDA cores, as the TPU kernel takes q and k in float32;
+//   pass 2, float32 (spmm_kernel): one block per (time chunk, j, b) covers
+//     TT time steps with every channel (C*TT <= 64), so the Theta mix closes
+//     in the block: per head, 128 targets x C*TT features are summed over
+//     all slots' source rows (32-row chunks of w and x staged in shared
+//     memory, 8 x 4 float sums per thread, float32 FMAs on the CUDA cores)
+//     and kept in shared memory; the epilogue mixes the heads by Theta into
+//     Co*TT outputs per target and writes the ReLU'd result once;
+//   pass 2, bf16 (f_spmm_wmma_kernel): the same function on the tensor
+//     cores (WMMA, bf16 products, float32 sums), one block per (NT chunks
+//     of 8 steps, TN target columns, j, b), every channel of its steps, so
+//     the Theta mix closes in the block. agg = w^T . x over every slot's
+//     source rows, KC rows a stage in two cp.async stages (w read as
+//     a column-major A, no transpose; x by 16-byte row segments of 8
+//     steps), two heads sharing each stage's x rows; agg leaves the
+//     accumulators split into bf16 hi + lo ([h*C + c][t*S + step] in shared
+//     memory, every head kept), and the mix out = agg . Theta contracts over
+//     (h, c) in three bf16 products (hi.hi + hi.lo + lo.hi) against Theta,
+//     split in the same way into the freed stages: float32 in value, as the
+//     TPU kernel mixes a float32 agg by a float32 Theta, agg never rounded
+//     to bf16 first. The epilogue applies the ReLU, rounds to bf16 once and
+//     stores 8 steps a (target, output channel) as 16 bytes. What holds it
+//     at the GAMBIA blocks is the staging: x's 16-byte row segments (one per
+//     32-byte L2 sector) are read again for each TN-column tile, one block
+//     an SM (its every-head agg is ~130 KB), and the cp.async issue does not
+//     overlap the warps' own products.
+// The (B, H, Np, C*T) aggregation never reaches device memory. Ragged edges
+// (BS < 128, T not a multiple of the chunk) are masked in the kernels; no
+// block sums across another, so two launches give the same bits.
 
 #include "bell_common.cuh"
 
@@ -46,35 +65,79 @@ namespace {
 
 using namespace bell;
 
-constexpr int kQRows = 32;                // source rows of q staged per chunk
-constexpr int kGroups = kThreads / kRows;  // row groups of the weights pass
+constexpr int kQRows = 32;  // source rows of q staged per chunk
+constexpr int kWCols = 32;  // target columns a weights block (a lane a column)
 
-template <typename T>
+// One online (max, sum of exp) pair over a target column's scores in order.
+__device__ __forceinline__ void online_update(float s, float& m, float& l) {
+  if (s > m) {
+    l = l * expf(m - s) + 1.f;
+    m = s;
+  } else {
+    l += expf(s - m);
+  }
+}
+
+// The weights pass: one block per (kWCols target columns, j, h, b), 8
+// warps, lane = column. For each chunk of kQRows source rows of each slot,
+// warp w scores rows w + 8i of the lane's column (its k row in registers
+// where DK > 0, q rows read as float4; else both from shared memory). Pass
+// 0 puts the scores in shared memory and warp 0 (even rows) and warp 1 (odd
+// rows) fold them in row order into online (max, sum) pairs, merged into
+// the column's max and 1/sum at the end (even rows first); pass 1 recomputes
+// the scores and writes w. The order of each column's sums is fixed: the
+// float32 forward's bits depend on it.
+template <typename T, int DK>
 __global__ void __launch_bounds__(kThreads)
 weights_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_count,
                const int* __restrict__ active_src, const float* __restrict__ q,
                const float* __restrict__ k, const float* __restrict__ bias,
                const float* __restrict__ cheb, T* __restrict__ w, int A, int H,
                int NJ, int BS, int dk, float scale) {
-  const int j = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  constexpr int kLdS32 = kWCols + 1;
+  const int n_ct = (BS + kWCols - 1) / kWCols;
+  const int j = blockIdx.x / n_ct, c0 = (blockIdx.x % n_ct) * kWCols;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t Np = (size_t)NJ * BS;
-  const int col = threadIdx.x % kRows;  // target column owned by this thread
-  const int grp = threadIdx.x / kRows;  // which source rows it scores
-  const int ldk = dk | 1;               // odd stride: column reads hit distinct banks
-  extern __shared__ __align__(16) float smem[];
-  float* k_s = smem;                    // [kRows][ldk]
-  float* q_s = k_s + kRows * ldk;       // [kQRows][dk]
-  float* red_m = q_s + kQRows * dk;     // [kGroups][kRows]
-  float* red_l = red_m + kGroups * kRows;
-
-  for (int e = threadIdx.x; e < BS * dk; e += kThreads) {
-    const int t = e / dk, d = e % dk;
-    k_s[t * ldk + d] = k[((b * Np + (size_t)j * BS + t) * H + h) * dk + d];
-  }
-  const int start = tile_start[j], count = tile_count[j];
+  const int col = c0 + lane;  // target column of this lane
   const bool live = col < BS;
-  float m = -INFINITY, l = 0.f;  // online max and sum of exp (pass 0)
-  float mx = 0.f, inv = 0.f;     // final max and 1/sum (pass 1)
+  const int ldk = dk | 1;     // odd stride: column reads hit distinct banks
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;                      // [kQRows][dk]
+  float* s_s = q_s + kQRows * dk;         // [kQRows][kLdS32] scores (pass 0)
+  float* stat = s_s + kQRows * kLdS32;    // [4][kWCols]: m, l of both parities
+  float* k_s = stat + 4 * kWCols;         // [kWCols][ldk] (DK == 0)
+  float kr[DK > 0 ? DK : 1];
+  if (DK > 0) {
+    if (live)
+      for (int d = 0; d < DK; ++d) kr[d] = k[((b * Np + (size_t)j * BS + col) * H + h) * DK + d];
+  } else {
+    for (int e = threadIdx.x; e < kWCols * dk; e += kThreads) {
+      const int t = e / dk, d = e % dk;
+      if (c0 + t < BS) k_s[t * ldk + d] = k[((b * Np + (size_t)j * BS + c0 + t) * H + h) * dk + d];
+    }
+  }
+  auto score = [&](int r) {
+    float s = 0.f;
+    if (DK > 0) {
+      const float4* q4 = reinterpret_cast<const float4*>(q_s + r * DK);
+#pragma unroll
+      for (int d4 = 0; d4 < DK / 4; ++d4) {
+        const float4 v = q4[d4];
+        s = fmaf(v.x, kr[4 * d4], s);
+        s = fmaf(v.y, kr[4 * d4 + 1], s);
+        s = fmaf(v.z, kr[4 * d4 + 2], s);
+        s = fmaf(v.w, kr[4 * d4 + 3], s);
+      }
+    } else {
+      for (int d = 0; d < dk; ++d) s = fmaf(q_s[r * dk + d], k_s[lane * ldk + d], s);
+    }
+    return s;
+  };
+  const int start = tile_start[j], count = tile_count[j];
+  float m = -INFINITY, l = 0.f;  // warps 0 and 1: the online pair of one parity
+  float mx = 0.f, inv = 0.f;     // the column's max and 1/sum (pass 1)
   for (int pass = 0; pass < 2; ++pass) {
     for (int u = 0; u < count; ++u) {
       const int a = start + u;
@@ -83,43 +146,51 @@ weights_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_
       T* w_t = w + (((size_t)b * A + a) * H + h) * BS * BS;
       for (int r0 = 0; r0 < BS; r0 += kQRows) {
         const int nr = min(kQRows, BS - r0);
-        __syncthreads();
+        __syncthreads();  // the last chunk's q rows and scores consumed
         for (int e = threadIdx.x; e < nr * dk; e += kThreads) {
           const int r = e / dk, d = e % dk;
           q_s[e] = q[((src_row0 + r0 + r) * H + h) * dk + d];
         }
         __syncthreads();
-        if (!live) continue;
-        for (int r = grp; r < nr; r += kGroups) {
-          float s = 0.f;
-          for (int d = 0; d < dk; ++d) s = fmaf(q_s[r * dk + d], k_s[col * ldk + d], s);
-          const size_t o = (size_t)(r0 + r) * BS + col;
-          s = s * scale + bias[tile + o];
-          if (pass == 0) {
-            if (s > m) {
-              l = l * expf(m - s) + 1.f;
-              m = s;
-            } else {
-              l += expf(s - m);
-            }
-          } else {
-            w_t[o] = from_f<T>(cheb[tile + o] * (expf(s - mx) * inv));
+        if (live) {
+          float s[kQRows / kWarps];
+#pragma unroll
+          for (int i = 0; i < kQRows / kWarps; ++i) {
+            const int r = warp + kWarps * i;
+            s[i] = r < nr ? score(r) : 0.f;
           }
+#pragma unroll
+          for (int i = 0; i < kQRows / kWarps; ++i) {
+            const int r = warp + kWarps * i;
+            if (r >= nr) break;
+            const size_t o = (size_t)(r0 + r) * BS + col;
+            const float v = s[i] * scale + bias[tile + o];
+            if (pass == 0)
+              s_s[r * kLdS32 + lane] = v;
+            else
+              w_t[o] = from_f<T>(cheb[tile + o] * (expf(v - mx) * inv));
+          }
+        }
+        if (pass == 0) {
+          __syncthreads();
+          if (warp < 2 && live)
+            for (int r = warp; r < nr; r += 2) online_update(s_s[r * kLdS32 + lane], m, l);
         }
       }
     }
     if (pass == 0) {
-      red_m[grp * kRows + col] = m;
-      red_l[grp * kRows + col] = l;
+      if (warp < 2) {
+        stat[(2 * warp) * kWCols + lane] = m;
+        stat[(2 * warp + 1) * kWCols + lane] = l;
+      }
       __syncthreads();
       if (live) {
-        mx = red_m[col];
-        for (int g = 1; g < kGroups; ++g) mx = fmaxf(mx, red_m[g * kRows + col]);
+        const float m0 = stat[lane], l0 = stat[kWCols + lane];
+        const float m1 = stat[2 * kWCols + lane], l1 = stat[3 * kWCols + lane];
+        mx = fmaxf(m0, m1);
         float sum = 0.f;
-        for (int g = 0; g < kGroups; ++g) {
-          const float lg = red_l[g * kRows + col];
-          if (lg > 0.f) sum += lg * expf(red_m[g * kRows + col] - mx);
-        }
+        if (l0 > 0.f) sum += l0 * expf(m0 - mx);
+        if (l1 > 0.f) sum += l1 * expf(m1 - mx);
         inv = 1.f / fmaxf(sum, 1e-30f);
       }
     }
@@ -199,18 +270,29 @@ spmm_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_cou
 }
 
 template <typename T>
+cudaError_t launch_weights(const int* tile_start, const int* tile_count, const int* active_src,
+                           const float* q, const float* k, const float* bias,
+                           const float* cheb, void* w, int B, int A, int H, int NJ, int BS,
+                           int dk, float scale, cudaStream_t st) {
+  const size_t smem1 = sizeof(float) * (kQRows * dk + kQRows * (kWCols + 1) + 4 * kWCols +
+                                         (dk == 32 ? 0 : kWCols * (dk | 1)));
+  auto kernel = dk == 32 ? weights_kernel<T, 32> : weights_kernel<T, 0>;
+  cudaError_t err = allow_smem(kernel, smem1);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(NJ * ((BS + kWCols - 1) / kWCols), H, B), kThreads, smem1, st>>>(
+      tile_start, tile_count, active_src, q, k, bias, cheb, static_cast<T*>(w), A, H, NJ,
+      BS, dk, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
 int launch(const int* tile_start, const int* tile_count, const int* active_src,
            const float* q, const float* k, const float* bias, const float* cheb, void* w,
            const void* x, const float* thetas, void* out, int B, int A, int H, int NJ,
            int BS, int dk, int C, int T_len, int Co, int TT, float scale,
            cudaStream_t st) {
-  const size_t smem1 = sizeof(float) * (kRows * (dk | 1) + kQRows * dk + 2 * kGroups * kRows);
-  cudaError_t err = allow_smem(weights_kernel<T>, smem1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  weights_kernel<T><<<dim3(NJ, H, B), kThreads, smem1, st>>>(
-      tile_start, tile_count, active_src, q, k, bias, cheb, static_cast<T*>(w), A, H, NJ,
-      BS, dk, scale);
-  err = cudaGetLastError();
+  cudaError_t err = launch_weights<T>(tile_start, tile_count, active_src, q, k, bias, cheb, w,
+                                      B, A, H, NJ, BS, dk, scale, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem2 =
       sizeof(float) * (kK * kRows + kK * kCols + H * C * Co + H * kRows * (kCols + 1));
@@ -223,24 +305,371 @@ int launch(const int* tile_start, const int* tile_count, const int* active_src,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 pass 2 on the tensor cores (WMMA, 16x16x16 bf16 products, float32 sums)
+// ---------------------------------------------------------------------------
+
+constexpr int kFStages = 2;  // SpMM stages: one loads while the other is multiplied
+
+// Shared memory of f_spmm_wmma_kernel at TN target columns, NT chunks of kTT
+// steps, KC source rows and HG heads a stage (bytes): the warps' staging, the
+// stage region (two stages of HG w tiles [KC][TN + 8] and x [KC][pad16(C*S)
+// + 8]; after the slot loop, Θ's hi and lo in output-column chunks), and
+// agg's hi and lo for every head [pad16(H*C)][TN*S + 8] (bf16).
+
+__host__ __device__ inline size_t f_wmma_stage_bytes(int C, int TN, int NT, int KC, int HG) {
+  return 2 * (size_t)kFStages * KC * (HG * (TN + 8) + pad16(C * NT * kTT) + 8);
+}
+
+__host__ __device__ inline size_t f_wmma_smem_bytes(int C, int H, int TN, int NT, int KC,
+                                                    int HG) {
+  return 4 * (size_t)kWarps * kStage + f_wmma_stage_bytes(C, TN, NT, KC, HG) +
+         4 * (size_t)pad16(H * C) * (TN * NT * kTT + 8);
+}
+
+// out[b, j*BS + tc + t][o*T + t0 + step] for TN = 16*RF target columns, S =
+// NT*kTT steps from t0, every output channel: one block per (chunk group g,
+// column tile, j, b), blockIdx.x = column tile * G + g, 8 warps.
+//   agg (TN targets x W = C*S columns (c, step)) of each head = sum over
+//     j's slots and their source rows of w_s^T . x_s: w_s [k][t] (column-
+//     major A), x_s [k][c*S + step] (row-major B), both read as fragments
+//     by ldmatrix (wm::load_*_shared). A stage holds KC source rows of x and
+//     of the w tiles of HG heads, which share it; the next stage loads
+//     (cp.async) while the tensor cores run on this one.
+//     Warp w holds, for each of the HG heads, every row tile and the column
+//     tiles w*CW .. w*CW + CW - 1 (past the last, the last again, not kept).
+//   agg -> bf16 hi + lo into agg_h/agg_l [h*C + c][t*S + step].
+//   After every head: Θ (H*C, Co) float is split into bf16 hi + lo in the
+//     stage region, OC output columns at a time, and out tile (TN*S rows
+//     (t, step) x Co) = agg . Θ over (h, c) in three products a depth step,
+//     warp w taking row tiles w + 8i; the epilogue applies the ReLU and
+//     writes 8 steps a (target, output channel) as one 16-byte store.
+template <int RF, int CW, int HG>
+__global__ void __launch_bounds__(kThreads, 1)
+f_spmm_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_count,
+                   const int* __restrict__ active_src, const wm::bf16* __restrict__ w,
+                   const wm::bf16* __restrict__ x, const float* __restrict__ thetas,
+                   wm::bf16* __restrict__ out, int A, int H, int NJ, int BS, int C, int T_len,
+                   int Co, int NT, int KC, int vec, int vec_w) {
+  namespace wmma = nvcuda::wmma;
+  using wm::bf16;
+  constexpr int TN = RF * 16;
+  const int S = NT * kTT, W = C * S, Wp = pad16(W), CF = Wp / 16;
+  const int HC = H * C, HCp = pad16(HC), Cop = pad16(Co);
+  const int ldw = TN + 8, ldx = Wp + 8, ldT = TN * S + 8;
+  const int stage_len = KC * (HG * ldw + ldx);
+  const int G = (T_len + S - 1) / S;
+  const int t0 = (blockIdx.x % G) * S, tc = (blockIdx.x / G) * TN;
+  const int j = blockIdx.y, b = blockIdx.z;
+  const int n_tgt = min(TN, BS - tc);
+  const size_t Np = (size_t)NJ * BS, M = (size_t)C * T_len, MO = (size_t)Co * T_len;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* scratch = reinterpret_cast<float*>(smem_raw);               // [warp][16][kLdS]
+  bf16* stage = reinterpret_cast<bf16*>(scratch + kWarps * kStage);  // [2][stage_len]
+  bf16* agg_h = stage + (size_t)kFStages * stage_len;                // [HCp][ldT]
+  bf16* agg_l = agg_h + (size_t)HCp * ldT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sw = scratch + warp * kStage;
+  // zero the stages (columns past n_tgt and W stay zero) and agg's padding rows
+  for (int e = threadIdx.x; e < kFStages * stage_len / 8; e += kThreads) zero16(stage + 8 * e);
+  const int n_pad = (HCp - HC) * ldT / 8;
+  for (int e = threadIdx.x; e < n_pad; e += kThreads) {
+    zero16(agg_h + (size_t)HC * ldT + 8 * e);
+    zero16(agg_l + (size_t)HC * ldT + 8 * e);
+  }
+  const int start = tile_start[j], count = tile_count[j];
+  const int KS = (BS + KC - 1) / KC, n_steps = count * KS;
+  // each thread's copies: w segment e (row e / per, 8 columns e % per) and x
+  // segment e (row k, channel c, chunk n: e = (k * C + c) * NT + n), e =
+  // threadIdx.x + kThreads * i, walked without division
+  const int per = max(n_tgt / 8, 1), segs = C * NT;
+  const int wk0 = threadIdx.x / per, wc0 = threadIdx.x % per;
+  const int wdk = kThreads / per, wdc = kThreads % per;
+  const int xk0 = threadIdx.x / segs, xc0 = threadIdx.x % segs / NT, xn0 = threadIdx.x % NT;
+  const int xdk = kThreads / segs, xdc = kThreads % segs / NT, xdn = kThreads % segs % NT;
+  // stage i of the heads h0 .. h0 + HG - 1: slot i / KS, source rows
+  // (i % KS) * KC .. + KC (past BS written as zeros) into buffer i % 2,
+  // committed as one group (empty past the last stage)
+  auto stage_step = [&](int i, int h0) {
+    if (i < n_steps) {
+      const int u = i / KS, r0 = (i % KS) * KC, nk = min(KC, BS - r0), a = start + u;
+      bf16* w_s = stage + (size_t)(i % kFStages) * stage_len;
+      bf16* x_s = w_s + HG * KC * ldw;
+#pragma unroll
+      for (int hh = 0; hh < HG; ++hh) {
+        if (h0 + hh >= H) break;
+        bf16* w_d = w_s + hh * KC * ldw;
+        const bf16* w_t = w + ((((size_t)b * A + a) * H + h0 + hh) * BS + r0) * BS + tc;
+        if (vec_w) {
+          for (int k = wk0, c8 = wc0; k < KC; k += wdk, c8 += wdc) {
+            if (c8 >= per) {
+              c8 -= per;
+              ++k;
+              if (k >= KC) break;
+            }
+            if (k < nk)
+              cp_async16(w_d + k * ldw + 8 * c8, w_t + (size_t)k * BS + 8 * c8);
+            else
+              zero16(w_d + k * ldw + 8 * c8);
+          }
+        } else {
+          for (int e = threadIdx.x; e < KC * n_tgt; e += kThreads) {
+            const int k = e / n_tgt, t = e % n_tgt;
+            w_d[k * ldw + t] = k < nk ? w_t[(size_t)k * BS + t] : __float2bfloat16_rn(0.f);
+          }
+        }
+      }
+      const bf16* x_r = x + (b * Np + (size_t)active_src[a] * BS + r0) * M + t0;
+      for (int k = xk0, c = xc0, n = xn0; k < KC; k += xdk, c += xdc, n += xdn) {
+        if (n >= NT) {
+          n -= NT;
+          ++c;
+        }
+        if (c >= C) {
+          c -= C;
+          ++k;
+          if (k >= KC) break;
+        }
+        const int ts = t0 + n * kTT;
+        bf16* d = x_s + k * ldx + c * S + n * kTT;
+        if (k < nk && ts < T_len)
+          stage_segment(d, x_r + (size_t)k * M + (size_t)c * T_len + n * kTT, ts, T_len, vec);
+        else
+          zero16(d);
+      }
+    }
+    commit_async();
+  };
+  int cols[CW];  // first x_s column of each column tile (clamped past the last)
+#pragma unroll
+  for (int c = 0; c < CW; ++c) cols[c] = min(warp * CW + c, CF - 1) * 16;
+  __syncthreads();  // zeroed before the first stage
+  for (int h0 = 0; h0 < H; h0 += HG) {
+    wm::FragC acc[HG][RF][CW];
+#pragma unroll
+    for (int hh = 0; hh < HG; ++hh)
+#pragma unroll
+      for (int r = 0; r < RF; ++r)
+#pragma unroll
+        for (int c = 0; c < CW; ++c) wmma::fill_fragment(acc[hh][r][c], 0.f);
+    stage_step(0, h0);
+    for (int i = 0; i < n_steps; ++i) {
+      stage_step(i + 1, h0);
+      wait_async_group<1>();
+      __syncthreads();  // stage i in place
+      const bf16* w_s = stage + (size_t)(i % kFStages) * stage_len;
+      const bf16* x_s = w_s + HG * KC * ldw;
+      for (int k = 0; k < KC; k += 16) {
+        wm::FragB fb[CW];
+#pragma unroll
+        for (int c = 0; c < CW; ++c) wm::load_b_row_shared(fb[c], x_s + k * ldx + cols[c], ldx);
+#pragma unroll
+        for (int hh = 0; hh < HG; ++hh) {
+          if (h0 + hh >= H) break;
+          wm::FragAt fa[RF];
+#pragma unroll
+          for (int r = 0; r < RF; ++r)
+            wm::load_a_col_shared(fa[r], w_s + (hh * KC + k) * ldw + r * 16, ldw);
+#pragma unroll
+          for (int r = 0; r < RF; ++r)
+#pragma unroll
+            for (int c = 0; c < CW; ++c)
+              wmma::mma_sync(acc[hh][r][c], fa[r], fb[c], acc[hh][r][c]);
+        }
+      }
+      __syncthreads();  // stage i consumed
+    }
+    wait_async_group<0>();  // the empty group past the last stage
+    // each head's agg -> bf16 hi + lo, [h*C + c][t*S + step]; lane: target
+    // row lane % 16, one channel's 8 steps (columns (lane / 16) * 8 ..)
+#pragma unroll
+    for (int hh = 0; hh < HG; ++hh) {
+      const int h = h0 + hh;
+      if (h >= H) break;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const int cf = warp * CW + c;
+        if (cf >= CF) continue;
+#pragma unroll
+        for (int r = 0; r < RF; ++r) {
+          wm::store_c_shared(sw, acc[hh][r][c], kLdS, false);  // sw[t'][col']
+          __syncwarp();
+          const int tl = lane % 16, col = cf * 16 + (lane / 16) * kTT;
+          if (col < W) {
+            float v[kTT], lo[kTT];
+            *reinterpret_cast<float4*>(v) =
+                *reinterpret_cast<const float4*>(sw + tl * kLdS + (lane / 16) * kTT);
+            *reinterpret_cast<float4*>(v + 4) =
+                *reinterpret_cast<const float4*>(sw + tl * kLdS + (lane / 16) * kTT + 4);
+#pragma unroll
+            for (int tt = 0; tt < kTT; ++tt)
+              lo[tt] = v[tt] - __bfloat162float(__float2bfloat16_rn(v[tt]));
+            const size_t o = (size_t)(h * C + col / S) * ldT + (r * 16 + tl) * S + col % S;
+            *reinterpret_cast<uint4*>(agg_h + o) = wm::pack8(v);
+            *reinterpret_cast<uint4*>(agg_l + o) = wm::pack8(lo);
+          }
+          __syncwarp();
+        }
+      }
+    }
+  }
+  // out = relu(agg . Θ) over depth (h, c): Θ split into the stage region
+  // [2][HCp][OC + 8], OC output columns at a time (a multiple of 16), two
+  // output-column tiles of a row tile a warp at a time
+  const int OC = min(Cop, ((int)(kFStages * stage_len / (2 * HCp)) - 8) / 16 * 16);
+  const int ldo = OC + 8, RFo = TN * S / 16, KD = HCp / 16;
+  bf16* th_h = stage;
+  bf16* th_l = stage + (size_t)HCp * ldo;
+  for (int o0 = 0; o0 < Cop; o0 += OC) {
+    const int on = min(OC, Cop - o0), OF = on / 16;
+    __syncthreads();  // every head's agg in place; the last chunk's Θ consumed
+    for (int e0 = threadIdx.x; e0 < HCp * on; e0 += 8 * kThreads) {
+      float v[8];  // eight loads in flight at a time
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = e0 + i * kThreads, r = e / on, o = e % on;
+        v[i] = e < HCp * on && r < HC && o0 + o < Co ? thetas[(size_t)r * Co + o0 + o] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = e0 + i * kThreads, r = e / on, o = e % on;
+        if (e < HCp * on) wm::split(v[i], th_h[r * ldo + o], th_l[r * ldo + o]);
+      }
+    }
+    __syncthreads();
+    for (int rf = warp; rf < RFo; rf += kWarps) {
+      for (int of0 = 0; of0 < OF; of0 += 2) {
+        const int ocol[2] = {of0 * 16, min(of0 + 1, OF - 1) * 16};
+        wm::FragC o[2];
+        wmma::fill_fragment(o[0], 0.f);
+        wmma::fill_fragment(o[1], 0.f);
+        for (int kd = 0; kd < KD; ++kd) {
+          wm::FragAt ah, al;
+          wm::load_a_col_shared(ah, agg_h + (size_t)kd * 16 * ldT + rf * 16, ldT);
+          wm::load_a_col_shared(al, agg_l + (size_t)kd * 16 * ldT + rf * 16, ldT);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            wm::FragB bh, bl;
+            wm::load_b_row_shared(bh, th_h + kd * 16 * ldo + ocol[q], ldo);
+            wm::load_b_row_shared(bl, th_l + kd * 16 * ldo + ocol[q], ldo);
+            wmma::mma_sync(o[q], ah, bh, o[q]);
+            wmma::mma_sync(o[q], ah, bl, o[q]);
+            wmma::mma_sync(o[q], al, bh, o[q]);
+          }
+        }
+        // epilogue: lane: output channel lane % 16, 8 steps of one target
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          if (of0 + q >= OF) break;
+          wm::store_c_shared(sw, o[q], kLdS, true);  // sw[o'][row']
+          __syncwarp();
+          const int oc = o0 + ocol[q] + lane % 16, row = rf * 16 + (lane / 16) * kTT;
+          const int t = row / S, ts = t0 + row % S;
+          if (oc < Co && t < n_tgt && ts < T_len) {
+            float v[kTT];
+            *reinterpret_cast<float4*>(v) =
+                *reinterpret_cast<const float4*>(sw + (lane % 16) * kLdS + (lane / 16) * kTT);
+            *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(
+                sw + (lane % 16) * kLdS + (lane / 16) * kTT + 4);
+#pragma unroll
+            for (int tt = 0; tt < kTT; ++tt) v[tt] = fmaxf(v[tt], 0.f);
+            bf16* d = out + (b * Np + (size_t)j * BS + tc + t) * MO + (size_t)oc * T_len + ts;
+            if (vec) {
+              *reinterpret_cast<uint4*>(d) = wm::pack8(v);
+            } else {
+#pragma unroll
+              for (int tt = 0; tt < kTT; ++tt)
+                if (ts + tt < T_len) d[tt] = __float2bfloat16_rn(v[tt]);
+            }
+          }
+          __syncwarp();
+        }
+      }
+    }
+  }
+}
+
+template <int RF, int CW, int HG>
+cudaError_t launch_f_spmm(dim3 grid, size_t smem, cudaStream_t st, const int* tile_start,
+                          const int* tile_count, const int* active_src, const wm::bf16* w,
+                          const wm::bf16* x, const float* thetas, wm::bf16* out, int A, int H,
+                          int NJ, int BS, int C, int T_len, int Co, int NT, int KC, int vec,
+                          int vec_w) {
+  cudaError_t err = allow_smem(f_spmm_wmma_kernel<RF, CW, HG>, smem);
+  if (err != cudaSuccess) return err;
+  f_spmm_wmma_kernel<RF, CW, HG><<<grid, kThreads, smem, st>>>(
+      tile_start, tile_count, active_src, w, x, thetas, out, A, H, NJ, BS, C, T_len, Co, NT,
+      KC, vec, vec_w);
+  return cudaGetLastError();
+}
+
+int launch_wmma(const int* tile_start, const int* tile_count, const int* active_src,
+                const float* q, const float* k, const float* bias, const float* cheb,
+                wm::bf16* w, const wm::bf16* x, const float* thetas, wm::bf16* out, int B,
+                int A, int H, int NJ, int BS, int dk, int C, int T_len, int Co, int TN, int NT,
+                int KC, int HG, int vec, int vec_w, float scale, cudaStream_t st) {
+  cudaError_t err = launch_weights<wm::bf16>(tile_start, tile_count, active_src, q, k, bias,
+                                             cheb, w, B, A, H, NJ, BS, dk, scale, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int RF = TN / 16, CF = pad16(C * NT * kTT) / 16, CW = CF <= 8 ? 1 : CF <= 16 ? 2 : 4;
+  const dim3 grid(((BS + TN - 1) / TN) * ((T_len + NT * kTT - 1) / (NT * kTT)), NJ, B);
+  const size_t smem = f_wmma_smem_bytes(C, H, TN, NT, KC, HG);
+  if (f_wmma_stage_bytes(C, TN, NT, KC, HG) < 4 * (size_t)pad16(H * C) * (16 + 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define F_SPMM(R, W_, G_)                                                                  \
+  if (RF == R && CW == W_ && HG == G_)                                                     \
+    return static_cast<int>(launch_f_spmm<R, W_, G_>(grid, smem, st, tile_start,           \
+                                                     tile_count, active_src, w, x, thetas, \
+                                                     out, A, H, NJ, BS, C, T_len, Co, NT,  \
+                                                     KC, vec, vec_w));
+  F_SPMM(1, 1, 1) F_SPMM(1, 2, 1) F_SPMM(1, 4, 1) F_SPMM(2, 1, 1) F_SPMM(2, 2, 1)
+  F_SPMM(2, 4, 1) F_SPMM(4, 1, 1) F_SPMM(4, 2, 1) F_SPMM(8, 1, 1)
+  F_SPMM(1, 1, 2) F_SPMM(1, 2, 2) F_SPMM(1, 4, 2) F_SPMM(2, 1, 2) F_SPMM(2, 2, 2)
+  F_SPMM(2, 4, 2) F_SPMM(4, 1, 2) F_SPMM(4, 2, 2) F_SPMM(8, 1, 2)
+#undef F_SPMM
+  return static_cast<int>(cudaErrorInvalidValue);  // a tile the plan never gives
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches both passes on `stream`; w is (B, A, H, BS, BS) scratch in the
-// compute dtype. Returns cudaGetLastError() after the launches (0 = success).
+// The float32 forward on `stream`: both passes, w (B, A, H, BS, BS) float
+// scratch. Returns cudaGetLastError() after the launches (0 = success).
 int bell_fused_forward(const int* tile_start, const int* tile_count, const int* active_src,
                        const float* q, const float* k, const float* bias, const float* cheb,
                        void* w, const void* x, const float* thetas, void* out, int B, int A,
                        int H, int NJ, int BS, int dk, int C, int T_len, int Co, int TT,
-                       float scale, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(tile_start, tile_count, active_src, q, k, bias, cheb, w, x,
-                                 thetas, out, B, A, H, NJ, BS, dk, C, T_len, Co, TT, scale,
-                                 st);
+                       float scale, void* stream) {
   return launch<float>(tile_start, tile_count, active_src, q, k, bias, cheb, w, x, thetas,
-                       out, B, A, H, NJ, BS, dk, C, T_len, Co, TT, scale, st);
+                       out, B, A, H, NJ, BS, dk, C, T_len, Co, TT, scale,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 forward on `stream`: the weights pass, then the tensor-core
+// SpMM/mix pass at TN target columns (16, 32, 64 or 128), NT chunks of 8
+// steps, KC (16 or 32) source rows and HG (1 or 2) heads a stage, tiles
+// that bell_fused.f_bf16_plan gives; vec: T % 8 == 0
+// and x 16-byte aligned (cp.async row segments, 16-byte output stores),
+// vec_w: BS % 8 == 0 and w 16-byte aligned. Returns cudaGetLastError()
+// after the launches.
+int bell_fused_forward_wmma(const int* tile_start, const int* tile_count,
+                            const int* active_src, const float* q, const float* k,
+                            const float* bias, const float* cheb, void* w, const void* x,
+                            const float* thetas, void* out, int B, int A, int H, int NJ,
+                            int BS, int dk, int C, int T_len, int Co, int TN, int NT, int KC,
+                            int HG, int vec, int vec_w, float scale, void* stream) {
+  return launch_wmma(tile_start, tile_count, active_src, q, k, bias, cheb,
+                     static_cast<wm::bf16*>(w), static_cast<const wm::bf16*>(x), thetas,
+                     static_cast<wm::bf16*>(out), B, A, H, NJ, BS, dk, C, T_len, Co, TN, NT,
+                     KC, HG, vec, vec_w, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory a block of the bf16 SpMM/mix pass requests, in bytes
+// (what = 0), and the bytes of its stage region (what = 1).
+size_t bell_fused_wmma_smem_bytes(int C, int H, int TN, int NT, int KC, int HG, int what) {
+  return what == 0 ? f_wmma_smem_bytes(C, H, TN, NT, KC, HG)
+                   : f_wmma_stage_bytes(C, TN, NT, KC, HG);
 }
 
 const char* bell_fused_error_string(int err) {

@@ -1,6 +1,7 @@
 // Shared pieces of the bfloat16 tensor-core (WMMA) kernels (gtu_fused.cu,
-// block_spatial_fused.cu, tat_fused.cu): the 16x16x16 bf16 fragment types
-// with float32 accumulators, a bf16 pack of 8 floats, cp.async copies into
+// block_spatial_fused.cu, tat_fused.cu, bell_fused.cu, bell_bwd.cu): the
+// 16x16x16 bf16 fragment types with float32 accumulators, their loads and
+// stores of shared memory, a bf16 pack of 8 floats, cp.async copies into
 // shared memory, the hi/lo split of a float32 into two bf16 terms, and a
 // weight-gradient product a^T b over many rows on the tensor cores.
 //
@@ -24,6 +25,45 @@ using FragAt = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// Fragment loads and stores of shared memory through WMMA's PTX with the
+// .shared state space: the C++ load_matrix_sync/store_matrix_sync take a
+// generic pointer, which can compile to generic loads; these compile to
+// ldmatrix. Same registers, same fragments.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void load_a_col_shared(FragAt& f, const bf16* p, unsigned ld) {
+  unsigned* r = reinterpret_cast<unsigned*>(&f.x[0]);
+  asm volatile("wmma.load.a.sync.aligned.col.m16n16k16.shared.bf16 {%0,%1,%2,%3}, [%4], %5;\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(shared_addr(p)), "r"(ld));
+}
+
+__device__ __forceinline__ void load_b_row_shared(FragB& f, const bf16* p, unsigned ld) {
+  unsigned* r = reinterpret_cast<unsigned*>(&f.x[0]);
+  asm volatile("wmma.load.b.sync.aligned.row.m16n16k16.shared.bf16 {%0,%1,%2,%3}, [%4], %5;\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(shared_addr(p)), "r"(ld));
+}
+
+// an accumulator to shared memory, row-major (col_major = false) or
+// column-major, leading dimension ld (floats)
+__device__ __forceinline__ void store_c_shared(float* p, const FragC& f, unsigned ld,
+                                               bool col_major) {
+  const float* v = &f.x[0];
+  if (col_major)
+    asm volatile("wmma.store.d.sync.aligned.col.m16n16k16.shared.f32 [%0], "
+                 "{%1,%2,%3,%4,%5,%6,%7,%8}, %9;\n"
+                 ::"r"(shared_addr(p)), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]),
+                   "f"(v[4]), "f"(v[5]), "f"(v[6]), "f"(v[7]), "r"(ld) : "memory");
+  else
+    asm volatile("wmma.store.d.sync.aligned.row.m16n16k16.shared.f32 [%0], "
+                 "{%1,%2,%3,%4,%5,%6,%7,%8}, %9;\n"
+                 ::"r"(shared_addr(p)), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]),
+                   "f"(v[4]), "f"(v[5]), "f"(v[6]), "f"(v[7]), "r"(ld) : "memory");
+}
 
 // 8 floats rounded to bf16, packed into 16 bytes
 __device__ __forceinline__ uint4 pack8(const float* v) {

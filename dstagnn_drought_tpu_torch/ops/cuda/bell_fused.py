@@ -15,9 +15,14 @@ q, k (B, Np, H, d_k), bias and cheb tiles (A, H, BS, BS) and Θ (H, C, Co)
 are float32; x (B, Np, C·T) and the output (B, Np, Co·T) are in the compute
 dtype. The kernel (``csrc/bell_fused.cu``; its header says what bounds it)
 keeps the (B, H, Np, C·T) aggregation out of device memory: the Θ mix and
-the ReLU run in its epilogue. On a CUDA tensor :func:`bell_forward`
-launches it or raises; :func:`bell_forward_plain` serves CPU tensors only.
-``launches`` counts kernel launches.
+the ReLU run in its epilogue. It has two designs, one a dtype: bf16 x (the
+BELL-tiles main path) runs the SpMM and the Θ mix on the tensor cores
+(WMMA) in chunks of 8 time steps, agg and Θ split into bf16 hi + lo where
+they meet, so the mix stays float32 in value (:func:`f_bf16_plan` sizes
+its tiles); float32 x keeps the CUDA-core kernels. On a CUDA tensor
+:func:`bell_forward` launches the design of the dtype or raises;
+:func:`bell_forward_plain` serves CPU tensors only. ``launches`` counts
+kernel launches.
 
 The backward (:func:`_backward`) is the active-list organisation of the
 JAX package's ``_bwd_tiles_active``: the softmax is recomputed with tensor
@@ -90,6 +95,88 @@ def bell_forward_plain(tile_start, tile_count, active_src, q, k, bias_t, cheb_t,
 # CUDA launch
 # ---------------------------------------------------------------------------
 
+# the bf16 SpMM/mix pass on the tensor cores (csrc/bell_fused.cu
+# f_spmm_wmma_kernel) shares the bf16 K1's chunks of 8 time steps, 8 warps
+# and their 16x16 float32 staging (bell_bwd): TN = 16·RF target columns a
+# block, warp tiles of RF x CW fragments (RF·CW ≤ 8, CW ≤ 4) for each of the
+# HG heads that share a stage, two stages
+_TT16, _WARPS, _STAGE = bell_bwd._TT16, bell_bwd._WARPS, bell_bwd._STAGE
+_SMEM_MAX, _pad16 = bell_bwd._SMEM_MAX, bell_bwd._pad16
+# (heads a stage, source rows a stage), in the plan's order
+_F_STAGES = ((2, 32), (1, 32), (2, 16), (1, 16))
+
+
+def f_wmma_stage_bytes(C, TN, NT, KC, HG):
+    """The stage region of a bf16 SpMM/mix block: two stages of KC source
+    rows of x and of HG heads' w tiles (bf16, rows padded by 8), which then
+    hold Θ's hi and lo for the mix (csrc/bell_fused.cu)."""
+    return 2 * 2 * KC * (HG * (TN + 8) + _pad16(C * NT * _TT16) + 8)
+
+
+def f_wmma_smem_bytes(C, H, TN, NT, KC, HG):
+    """Shared memory a block of the bf16 SpMM/mix pass requests at TN target
+    columns, NT chunks of 8 steps, KC source rows and HG heads a stage (the
+    formula of csrc/bell_fused.cu): the warps' staging, the stage region,
+    and agg's bf16 hi and lo for every head."""
+    return (4 * _WARPS * _STAGE + f_wmma_stage_bytes(C, TN, NT, KC, HG)
+            + 4 * _pad16(H * C) * (TN * NT * _TT16 + 8))
+
+
+def _f_cw(C, NT):
+    """Column tiles a warp holds: the block's pad16(C·8·NT) columns over 8 warps."""
+    CF = _pad16(C * NT * _TT16) // 16
+    return 1 if CF <= 8 else 2 if CF <= 16 else 4
+
+
+def f_bf16_plan(BS, C, Co, T, H):
+    """The bf16 forward's launch plan: {"tn": target columns a block (the
+    most of 128, 64, 32, 16, at most pad16(BS), whose warp tiles and shared
+    memory fit), "nt": chunks of 8 steps a block (the fewest whose C·8·nt
+    columns fill the eight warps, evened out over T), "hg", "kc": the heads
+    and source rows a stage (the first of _F_STAGES that fits, whose stage
+    region holds Θ's split for 16 output columns; two heads share a stage
+    where H ≥ 2 and the warp tiles allow), "smem": bytes}. Raises ValueError outside the float32 kernels' caps (C ≤
+    64, Co ≤ 512, BS ≤ 128), and where every head's aggregation does not fit
+    a block even at 16 target columns (H·C beyond about 340: among the
+    shapes the float32 kernels take, only H = 6 with C ≥ 57)."""
+    if C > bell_bwd._W_MAX or Co > bell_bwd._WO_MAX or BS > bell_bwd._BS_MAX:
+        raise ValueError(f"the BELL kernels take C <= {bell_bwd._W_MAX}, Co <= "
+                         f"{bell_bwd._WO_MAX} and block_size <= {bell_bwd._BS_MAX}, got "
+                         f"C={C}, Co={Co}, BS={BS}")
+    BSp, T8 = _pad16(BS), -(-T // _TT16)
+    nt = min(-(-16 // C), T8)
+    nt = -(-T8 // -(-T8 // nt))
+    cw = _f_cw(C, nt)
+    for tn in (128, 64, 32, 16):
+        rf = tn // 16
+        if tn > BSp or rf * cw > 8:
+            continue
+        for hg, kc in _F_STAGES:
+            if ((hg == 2 and (H < 2 or rf * cw * hg > 16)) or kc > BSp
+                    or f_wmma_stage_bytes(C, tn, nt, kc, hg) < 4 * _pad16(H * C) * 24):
+                continue
+            smem = f_wmma_smem_bytes(C, H, tn, nt, kc, hg)
+            if smem <= _SMEM_MAX:
+                return {"tn": tn, "nt": nt, "hg": hg, "kc": kc, "smem": smem}
+    raise ValueError(
+        f"the bf16 BELL forward keeps every head's aggregation in shared memory: "
+        f"H·C = {H}·{C} needs {f_wmma_smem_bytes(C, H, 16, nt, 16, 1)} bytes a block "
+        f"at 16 target columns, over {_SMEM_MAX}")
+
+
+def limit_error(BS, C, Co, T, H, dtype):
+    """Why the card's forward cannot take this BELL block in ``dtype``, or
+    None: the bf16 plan's refusals (float32 takes its kernels' caps at
+    launch)."""
+    if dtype != torch.bfloat16:
+        return None
+    try:
+        f_bf16_plan(BS, C, Co, T, H)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def _check(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
     if q.ndim != 4 or k.shape != q.shape:
         raise ValueError(f"q and k must be (B, Np, H, d_k), got {tuple(q.shape)}, "
@@ -133,15 +220,21 @@ def _load():
     fn = lib.bell_fused_forward
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.bell_fused_forward_wmma.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 15
+                                                + [ctypes.c_float, ctypes.c_void_p])
+        lib.bell_fused_forward_wmma.restype = ctypes.c_int
+        lib.bell_fused_wmma_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.bell_fused_wmma_smem_bytes.restype = ctypes.c_size_t
         lib.bell_fused_error_string.argtypes = [ctypes.c_int]
         lib.bell_fused_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def bell_forward_cuda(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
-    """Launch the fused forward on the current stream."""
+    """Launch the fused forward on the current stream: bf16 x takes the
+    tensor-core design, float32 x the CUDA-core kernels."""
     global launches
     _check(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas)
     B, Np, H, dk = q.shape
@@ -149,19 +242,28 @@ def bell_forward_cuda(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, 
     _, C, Co = thetas.shape
     T = x.shape[2] // C
     NJ = tile_start.shape[0]
-    TT = bell_bwd.time_chunk(C, Co, T)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        plan = f_bf16_plan(BS, C, Co, T, H)
+    else:
+        TT = bell_bwd.time_chunk(C, Co, T)
     out = torch.empty((B, Np, Co * T), dtype=x.dtype, device=x.device)
     w = torch.empty((B, A, H, BS, BS), dtype=x.dtype, device=x.device)  # scratch
+    ptrs = [t.data_ptr() for t in (tile_start, tile_count, active_src, q, k, bias_t, cheb_t,
+                                   w, x, thetas)]
     lib = _load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bell_fused_forward(
-            tile_start.data_ptr(), tile_count.data_ptr(), active_src.data_ptr(),
-            q.data_ptr(), k.data_ptr(), bias_t.data_ptr(), cheb_t.data_ptr(),
-            w.data_ptr(), x.data_ptr(), thetas.data_ptr(), out.data_ptr(),
-            B, A, H, NJ, BS, dk, C, T, Co, TT, 1.0 / math.sqrt(dk),
-            int(x.dtype == torch.bfloat16), stream,
-        )
+        if bf16:
+            err = lib.bell_fused_forward_wmma(
+                *ptrs, out.data_ptr(), B, A, H, NJ, BS, dk, C, T, Co,
+                plan["tn"], plan["nt"], plan["kc"], plan["hg"],
+                int(T % _TT16 == 0 and x.data_ptr() % 16 == 0), int(BS % 8 == 0),
+                1.0 / math.sqrt(dk), stream)
+        else:
+            err = lib.bell_fused_forward(
+                *ptrs, out.data_ptr(), B, A, H, NJ, BS, dk, C, T, Co, TT,
+                1.0 / math.sqrt(dk), stream)
     if err != 0:
         msg = lib.bell_fused_error_string(err).decode()
         raise RuntimeError(f"bell_fused kernel launch failed: {msg} ({err})")

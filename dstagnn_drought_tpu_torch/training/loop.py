@@ -14,8 +14,9 @@ the original node order. ``fuse_tat``/``fuse_spatial`` take the steps
 through the fused kernels; ``fuse_gtu`` (``"auto"`` resolves off, as in JAX)
 takes the GTU tail through the fused GTU kernels and raises ``ValueError``
 on shapes their gate rejects (:func:`resolve_fuse_gtu`); on the card a
-``fuse_tat``/``fuse_spatial`` shape the kernels cannot take raises
-``ValueError`` when the Trainer is built (:func:`check_fused_shapes`).
+``fuse_tat``/``fuse_spatial`` shape the kernels cannot take, or a BELL
+block the bf16 forward kernel cannot take, raises ``ValueError`` when the
+Trainer is built (:func:`check_fused_shapes`).
 Options of paths not ported yet raise ``NotImplementedError`` naming the
 ROADMAP item that will port them (:func:`check_slice`).
 """
@@ -43,7 +44,12 @@ from dstagnn_drought_tpu_torch.ops.block_sparse import (
     block_ell_from_adjacency,
     rcm_permutation,
 )
-from dstagnn_drought_tpu_torch.ops.cuda import block_spatial_fused, gtu_fused, tat_fused
+from dstagnn_drought_tpu_torch.ops.cuda import (
+    bell_fused,
+    block_spatial_fused,
+    gtu_fused,
+    tat_fused,
+)
 from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
 from dstagnn_drought_tpu_torch.training.logger import MetricLogger
 from dstagnn_drought_tpu_torch.training.metrics import horizon_report
@@ -115,11 +121,17 @@ def check_fused_shapes(cfg: Config, device: torch.device, dtype: torch.dtype) ->
     ``fuse_spatial`` cannot take in the compute ``dtype``
     (:func:`~dstagnn_drought_tpu_torch.ops.cuda.tat_fused.limit_error`,
     :func:`~dstagnn_drought_tpu_torch.ops.cuda.block_spatial_fused.limit_error`),
+    or one the BELL forward kernel cannot take on the BELL kernel path
+    (``sparse_format = bell`` with ``use_pallas`` or ``mask_format =
+    tiles``; :func:`~dstagnn_drought_tpu_torch.ops.cuda.bell_fused.limit_error`),
     so a config fails before its data is read, not at its first step. The
     fused spatial middle runs on the dense path only, as the model runs it;
     the CPU (the plain versions) takes every shape."""
     t = cfg.training
-    if torch.device(device).type != "cuda" or not (t.fuse_tat or t.fuse_spatial):
+    bell_kernel = (t.sparse and t.sparse_format == "bell"
+                   and (t.use_pallas or t.mask_format == "tiles"))
+    if torch.device(device).type != "cuda" or not (t.fuse_tat or t.fuse_spatial
+                                                   or bell_kernel):
         return
     N, T = cfg.data.num_of_vertices, cfg.data.len_input
     spec = ModelSpec.from_config(cfg)
@@ -127,17 +139,22 @@ def check_fused_shapes(cfg: Config, device: torch.device, dtype: torch.dtype) ->
         T_i = T if i == 0 else T // spec.time_strides
         why = []
         if t.fuse_tat:
-            why += [("fuse_tat", tat_fused.limit_error(T_i, N, spec.n_heads, spec.d_k,
-                                                       spec.d_v, dtype, backward))
+            why += [("fuse_tat=true", "unset fuse_tat",
+                     tat_fused.limit_error(T_i, N, spec.n_heads, spec.d_k, spec.d_v, dtype,
+                                           backward))
                     for backward in (False, True)]
         if t.fuse_spatial and not t.sparse:
-            why.append(("fuse_spatial", block_spatial_fused.limit_error(
-                N, F * T_i, C, T_i, spec.nb_chev_filter, spec.d_model, spec.K, spec.d_k,
-                dtype)))
-        for knob, msg in why:
+            why.append(("fuse_spatial=true", "unset fuse_spatial",
+                        block_spatial_fused.limit_error(
+                            N, F * T_i, C, T_i, spec.nb_chev_filter, spec.d_model, spec.K,
+                            spec.d_k, dtype)))
+        if bell_kernel:
+            why.append(("sparse_format=bell", "use float32 or the plain BELL path",
+                        bell_fused.limit_error(t.block_size, C, spec.nb_chev_filter, T_i,
+                                               spec.K, dtype)))
+        for knob, remedy, msg in why:
             if msg is not None:
-                raise ValueError(f"{knob}=true but on the card block {i + 1}: {msg} — "
-                                 f"unset {knob}")
+                raise ValueError(f"{knob} but on the card block {i + 1}: {msg} — {remedy}")
 
 
 def load_graphs(cfg: Config):

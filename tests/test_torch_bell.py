@@ -237,6 +237,83 @@ def test_k1_bf16_plan_refuses_what_the_float32_kernels_refuse():
         bell_bwd.k1_bf16_plan(128, 32, 129, 144)
 
 
+# K1_BF16_SHAPES at H = 2 (the GAMBIA blocks) and H = 3 (the ragged K = 3
+# shape), and the caps' edges: Co = 512, C = 64, and both
+F_BF16_SHAPES = [(*shape, H) for shape in K1_BF16_SHAPES for H in (2, 3)] + [
+    (128, 32, 512, 144, 2), (128, 64, 32, 144, 2), (128, 64, 512, 144, 3), (8, 64, 512, 12, 2)]
+
+
+@pytest.mark.parametrize("BS, C, Co, T, H", F_BF16_SHAPES)
+def test_f_bf16_plan_fits_every_shape(BS, C, Co, T, H):
+    """The bf16 forward's plan fits a block's 232,448 bytes, equals
+    f_wmma_smem_bytes for its own tiles, takes tiles the kernel has (TN a
+    power of two of at most pad16(BS); warp tiles of at most 8 fragments a
+    head, 16 for the heads of a stage), covers every step, and is the same
+    on every call."""
+    plan = bell_fused.f_bf16_plan(BS, C, Co, T, H)
+    BSp = -(-BS // 16) * 16
+    assert plan["smem"] <= 232448
+    assert plan["smem"] == bell_fused.f_wmma_smem_bytes(C, H, plan["tn"], plan["nt"],
+                                                        plan["kc"], plan["hg"])
+    assert plan["tn"] in (16, 32, 64, 128) and plan["tn"] <= BSp
+    assert plan["kc"] in (16, 32) and plan["hg"] in (1, 2)
+    frags = plan["tn"] // 16 * bell_fused._f_cw(C, plan["nt"])
+    assert frags <= 8 and frags * plan["hg"] <= 16 and plan["hg"] <= H
+    assert 1 <= plan["nt"] <= -(-T // 8)
+    assert bell_fused.f_bf16_plan(BS, C, Co, T, H) == plan
+    if (BS, C, Co, T, H) == (128, 32, 32, 144, 2):  # GAMBIA block 2: one 8-step chunk
+        assert (plan["nt"], plan["tn"], plan["hg"]) == (1, 64, 2)
+
+
+def test_f_bf16_plan_refuses_what_the_float32_kernels_refuse():
+    """Exactly the float32 kernels' caps (C ≤ 64, Co ≤ 512, BS ≤ 128), and,
+    by name, the one corner that does not fit: every head's aggregation at
+    H = 6 and C = 64 (which the float32 kernels take only at Co ≤ 5)."""
+    for args in ((128, 65, 32, 144, 2), (128, 32, 513, 144, 2), (136, 32, 32, 144, 2)):
+        with pytest.raises(ValueError, match=r"C <= 64, Co <= 512 and block_size <= 128"):
+            bell_fused.f_bf16_plan(*args)
+        if args[2] > 512 or args[1] > 64:
+            with pytest.raises(ValueError, match="C <= 64"):
+                bell_bwd.time_chunk(args[1], args[2], args[3])
+    bell_fused.f_bf16_plan(128, 64, 512, 144, 2)
+    with pytest.raises(ValueError, match=r"every head's aggregation.*H·C = 6·64"):
+        bell_fused.f_bf16_plan(128, 64, 5, 144, 6)
+    assert "H·C = 6·64" in bell_fused.limit_error(128, 64, 5, 144, 6, torch.bfloat16)
+    assert bell_fused.limit_error(128, 64, 5, 144, 6, torch.float32) is None
+    assert bell_fused.limit_error(128, 32, 32, 144, 2, torch.bfloat16) is None
+
+
+@pytest.mark.parametrize("name", ["ragged_n29", "tc1152_n20"])
+def test_plain_bf16_forward_matches_pallas_interpret(name):
+    """The function the bf16 kernel must compute: the port's plain forward
+    on bf16 x (w rounded to bf16, float32 sums, the Θ mix on the float32
+    aggregation, one cast to bf16) against the JAX Pallas forward on the
+    same bf16 x in interpret mode, through the wrappers the model calls,
+    within 1e-2 of the output's scale."""
+    c = _case(name)
+    bell, jb = c["bell"], c["jbell"]
+    tiles = jbs.build_bell_tile_constants(jb, c["pa"], c["cheb"])
+    masks = np.asarray(jbs.active_tile_values(c["masks"], jb))
+    x16 = jnp.asarray(c["x"]).astype(jnp.bfloat16)
+    j_out = jfused.bell_cheb_conv_tiles(
+        x16, jnp.asarray(c["emb"]), jb, wq=jnp.asarray(c["wq"]), wk=jnp.asarray(c["wk"]),
+        mask_tiles=jnp.asarray(masks), pattern_tiles=tiles["pattern_tiles"],
+        pa_tiles=tiles["pa_tiles"], cheb_tiles=tiles["cheb_tiles"],
+        thetas=jnp.asarray(c["thetas"]), n_heads=c["K"], d_k=c["dk"])
+    assert j_out.dtype == jnp.bfloat16
+    t_tiles = tbs.build_bell_tile_constants(bell, c["pa"], c["cheb"])
+    T_ = torch.from_numpy
+    out = bell_fused.bell_cheb_conv_tiles(
+        T_(c["x"]).bfloat16(), T_(c["emb"]), bell, wq=T_(c["wq"]), wk=T_(c["wk"]),
+        mask_tiles=T_(masks), pattern_tiles=t_tiles["pattern_tiles"],
+        pa_tiles=t_tiles["pa_tiles"], cheb_tiles=t_tiles["cheb_tiles"],
+        thetas=T_(c["thetas"]), n_heads=c["K"], d_k=c["dk"])
+    assert out.dtype == torch.bfloat16 and out.shape == (2, c["n"], c["Co"], c["T"])
+    want = np.asarray(j_out.astype(jnp.float32))
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(out.float().numpy(), want, atol=1e-2 * scale, rtol=0)
+
+
 def test_cpu_path_counts_no_launch():
     c = _case("ragged_n29")
     before = (bell_fused.launches, bell_bwd.k1_launches, bell_bwd.k2_launches)
@@ -306,3 +383,11 @@ def test_kernels_match_plain_on_card():
     out = bell_fused.bell_forward(*f)
     assert bell_fused.launches == before + 1
     torch.testing.assert_close(out, bell_fused.bell_forward_plain(*f), atol=2e-4, rtol=2e-4)
+    # the bf16 design (tensor cores): within 1e-2 of scale of the plain
+    # version on the same bf16 x, the same bits over two launches
+    f16 = (*f[:7], f[7].bfloat16().contiguous(), f[8])
+    out16 = bell_fused.bell_forward(*f16)
+    assert bell_fused.launches == before + 2 and out16.dtype == torch.bfloat16
+    want = bell_fused.bell_forward_plain(*f16).float()
+    assert float((out16.float() - want).abs().max()) <= 1e-2 * max(1.0, float(want.abs().max()))
+    assert torch.equal(bell_fused.bell_forward(*f16), out16)

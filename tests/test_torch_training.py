@@ -373,6 +373,37 @@ def test_trainer_refuses_fused_shapes_over_the_card_budget(toy_windowed, tmp_pat
         loop.Trainer(cfg, experiments_root=str(tmp_path))
 
 
+# (dtype, mask_format, use_pallas, refused on the card): the BELL forward
+# kernel's one corner, K = H = 6 heads over in_channels = 64 (block 1),
+# which the bf16 design cannot hold in a block and float32 takes; the
+# plain BELL path (dense masks, no use_pallas) runs no kernel
+BELL_CORNER = dict(in_channels=64, K=6, nb_chev_filter=4, nb_time_filter=4)
+BELL_CARD_CASES = [("bfloat16", "tiles", False, True), ("bfloat16", "dense", True, True),
+                   ("bfloat16", "dense", False, False), ("float32", "tiles", False, False)]
+
+
+@pytest.mark.parametrize("dtype, mask_format, use_pallas, refused", BELL_CARD_CASES)
+def test_check_fused_shapes_checks_the_bell_kernel(toy_windowed, dtype, mask_format,
+                                                   use_pallas, refused):
+    """On a CUDA device check_fused_shapes refuses, naming the BELL path and
+    the bytes, a block the bf16 BELL forward kernel cannot take, on the
+    paths that run it; on the CPU every shape passes."""
+    cfg = load_config(toy_windowed / "TOY.conf")
+    t = cfg.training
+    t.sparse, t.sparse_format, t.mask_format, t.use_pallas = True, "bell", mask_format, use_pallas
+    t.compute_dtype = dtype
+    for key, value in BELL_CORNER.items():
+        setattr(t, key, value)
+    dt = getattr(torch, dtype)
+    loop.check_fused_shapes(cfg, torch.device("cpu"), dt)
+    if refused:
+        with pytest.raises(ValueError, match=r"sparse_format=bell.* block 1: .*H·C = 6·64 "
+                                             r"needs \d+ bytes"):
+            loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
+    else:
+        loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
+
+
 def test_cli_refuses_flags_outside_the_slice(toy_windowed, tmp_path):
     conf = str(toy_windowed / "TOY.conf")
     for flag in (["--data-axis", "2"], ["--graph-axis", "2"], ["--distributed"],
