@@ -14,15 +14,15 @@ Phases; any failure exits non-zero:
      times of both: cheb_sat forward and gradients; the BELL forward (F),
      K1 and K2 at the GAMBIA blocks, the 1%-random N=2139 graph (17 slots a
      tile) and a ragged n=29 graph (BS 8 and 16), in float32 and bfloat16,
-     with K1's dΘ and F's output equal bit for bit over two launches; each
-     row names its design (the bf16 F and K1 on the tensor cores, the rest
+     with K1's dΘ, F's output and K2's dx equal bit for bit over two
+     launches; each row names its design (bf16 on the tensor cores, float32
      on the CUDA cores) and carries the float32 kernel's time at its shape,
      the bf16 K1's dΘ is held against the plain float32 dΘ within a limit
-     that a no-split control exceeds, the bf16 F differs from the plain
-     bf16 output on at most 1% of its outputs where a no-split control
-     differs on more (also at five random graphs whose shapes take the
-     bf16 F's other paths), and both plans' shared-memory bytes must equal
-     the kernels' own;
+     that a no-split control exceeds, the bf16 F and K2 differ from the
+     plain bf16 output on at most 1% of their outputs where no-split
+     controls differ on more (also at five random graphs whose shapes take
+     the bf16 F's and K2's other paths), and the three plans'
+     shared-memory bytes must equal the kernels' own;
   2c. the fused dense kernels against their plain versions, forward and
      every gradient, in float32 and bfloat16, at PEMS08 block 1 and blocks
      2-4, the TAt embedding mode and a ragged shape (and, in bfloat16 only,
@@ -80,9 +80,9 @@ GTU comparisons with each epoch's peak device memory) alternated in one process,
 each, and a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE. ``--compare OUT`` builds
 and runs only ``compare_run``: one side of a comparison with another
-commit's checkout (the float32 spatial, TAt, K1 and F kernels' bits, K1
-and F by pass at GAMBIA blocks 1-2, the GAMBIA BELL-tiles bf16 epoch with
-and without fuse_gtu).
+commit's checkout (the float32 spatial, TAt, K1, K2 and F kernels' bits,
+K1 and F by pass and K2 at GAMBIA blocks 1-2, K2 also on the 17-slot random
+graph, the GAMBIA BELL-tiles bf16 epoch with and without fuse_gtu).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -300,17 +300,20 @@ def bell_bounds(B, H, A, BS, dk, C, T, Co, Np, dtype):
     67) against the bytes each function must move over 3.35 TB/s, every
     operand read or written once: F reads q, k (f32), the bias and cheb
     tiles (f32), x and Θ and writes out; K1 reads gm, x, w and Θ and writes
-    dA (f32) and dΘ; K2 reads gm, w and Θ and writes dx. The bf16 F counts
-    its float32-in-value products as tat_bounds does, each bf16 term at 989
-    TFLOP/s: the scores (float32 q, k) and the Θ mix (float32 agg and Θ)
-    three terms each, the SpMM (bf16 w and x) one."""
+    dA (f32) and dΘ; K2 reads gm, w and Θ and writes dx. The bf16 F and K2
+    count their float32-in-value products as tat_bounds does, each bf16
+    term at 989 TFLOP/s: F's scores (float32 q, k) and Θ mix (float32 agg
+    and Θ) three terms each, its SpMM (bf16 w and x) one; K2's g_agg (bf16
+    gm against Θ split hi + lo) and dx (bf16 w against g_agg split hi + lo)
+    two each."""
     M, xb = C * T, (2 if dtype == torch.bfloat16 else 4)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     terms = 3 if dtype == torch.bfloat16 else 1
+    k2_terms = 2 if dtype == torch.bfloat16 else 1
     ops = {"bell_fused": (2 * B * H * A * BS * BS * (terms * dk + M)
                           + terms * 2 * B * Np * H * M * Co),
            "bell_k1": 4 * B * H * A * BS * BS * M + 4 * B * Np * H * M * Co,
-           "bell_k2": 2 * B * H * A * BS * BS * M + 2 * B * H * A * BS * M * Co}
+           "bell_k2": k2_terms * (2 * B * H * A * BS * BS * M + 2 * B * H * A * BS * M * Co)}
     x_b, g_b, w_b = xb * B * Np * M, xb * B * Np * Co * T, xb * B * A * H * BS * BS
     theta_b = 4 * H * C * Co
     nbytes = {"bell_fused": 4 * 2 * B * Np * H * dk + 4 * 2 * A * H * BS * BS + x_b + g_b
@@ -357,12 +360,12 @@ def rel_err(got, want) -> tuple[float, float]:
 
 
 def bell_design(name, dtype) -> str:
-    """The arithmetic of a BELL kernel: the bf16 K1 (k1_dA_wmma_kernel,
-    k1_dtheta_wmma_kernel; Θ and agg split into bf16 hi + lo) and the bf16
-    F (its SpMM and Θ mix, f_spmm_wmma_kernel; agg and Θ split) on the
-    tensor cores (WMMA), everything else float32 FMAs on the CUDA cores."""
-    wmma = name in ("bell_k1", "bell_fused") and dtype == torch.bfloat16
-    return "wmma_bf16" if wmma else "cuda_core_f32"
+    """The arithmetic of a BELL kernel: in bf16 every one on the tensor
+    cores (WMMA): K1 (k1_dA_wmma_kernel, k1_dtheta_wmma_kernel; Θ and agg
+    split into bf16 hi + lo), F (its SpMM and Θ mix, f_spmm_wmma_kernel;
+    agg and Θ split) and K2 (k2_wmma_kernel; Θ and g_agg split); in float32
+    float32 FMAs on the CUDA cores."""
+    return "wmma_bf16" if dtype == torch.bfloat16 else "cuda_core_f32"
 
 
 def check_f_smem():
@@ -387,6 +390,29 @@ def check_f_smem():
                                  for what in (0, 1))
                     check(got == want, f"f_wmma_smem_bytes, f_wmma_stage_bytes{tiles} = "
                                        f"{got}, the kernel requests {want}")
+
+
+def check_k2_smem():
+    """bell_bwd.k2_wmma_smem_bytes and k2_bf16_plan (the Python gate)
+    against the bytes the kernel of csrc/bell_bwd.cu requests, at every
+    BELL shape and corner shape and at the caps' edges (C 1/64, Co 1/512,
+    BS 8/120/128; a block stages one head at a time, so H does not enter),
+    for every tile the kernel could take; every plan fits a block."""
+    lib = bell_bwd._load()
+    shapes = ({(s[7], s[4], s[6], s[5]) for s in BELL_SHAPES}
+              | {(s[3], s[6], s[8], s[7]) for s in BELL_CORNER_SHAPES}
+              | {(BS, C, Co, T) for BS in (8, 48, 120, 128) for C in (1, 4, 5, 32, 64)
+                 for Co in (1, 32, 512) for T in (7, 144)})
+    for BS, C, Co, T in sorted(shapes):
+        plan = bell_bwd.k2_bf16_plan(BS, C, Co, T)
+        check(plan["smem"] <= 232448, f"K2 plan at BS={BS} C={C} Co={Co} T={T}: {plan}")
+        BSp = bell_bwd._pad16(BS)
+        for nt in sorted({1, 2, plan["nt"]}):
+            for tr in (t for t in (16, 32, 64, 128) if BSp % t == 0):
+                got = bell_bwd.k2_wmma_smem_bytes(BS, C, Co, nt, tr)
+                want = lib.bell_bwd_k2_wmma_smem_bytes(BS, C, Co, nt, tr)
+                check(got == want, f"k2_wmma_smem_bytes(BS={BS}, C={C}, Co={Co}, nt={nt}, "
+                                   f"tr={tr}) = {got}, the kernel requests {want}")
 
 
 def check_k1_smem():
@@ -457,6 +483,41 @@ def f_nosplit_plain(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x,
     return torch.relu(out).reshape(B, NJ * BS, Co * T).to(x.dtype)
 
 
+def k2_control(src_start, src_count, src_order, active_tgt, thetas, gm, w, *, round_g):
+    """The controls of K2's split check: dx as bell_k2_plain computes it,
+    with g_agg rounded to bf16 before its product with w (``round_g``,
+    the design without g's lo plane), or with Θ rounded to bf16 (without
+    Θ's lo plane)."""
+    if not round_g:
+        return bell_bwd.bell_k2_plain(src_start, src_count, src_order, active_tgt,
+                                      thetas.bfloat16().float(), gm, w)
+    B, A, H, BS, _ = w.shape
+    _, C, Co = thetas.shape
+    T = gm.shape[-1] // Co
+    NI = src_count.shape[0]
+    a_src = torch.empty(A, dtype=torch.long, device=w.device)
+    a_src[src_order.long()] = torch.repeat_interleave(
+        torch.arange(NI, device=w.device), src_count.long())
+    g = bell_bwd._g_agg(gm, thetas, T).bfloat16().float()
+    g = g.reshape(B, -1, BS, H, C * T)[:, active_tgt.long()]
+    dx = torch.zeros((B, NI, BS, C * T), dtype=torch.float32, device=gm.device)
+    dx.index_add_(1, a_src, torch.einsum("bahst,bathm->basm", w.float(), g))
+    return dx.reshape(B, NI * BS, C * T).to(gm.dtype)
+
+
+def k2_split_check(k2_args, dx_k, dx_p) -> dict:
+    """The share of the bf16 K2's outputs that differ from the plain
+    version's, within F_SPLIT_SHARE, where both controls (g_agg or Θ
+    rounded to bf16) differ on more."""
+    out = {"kernel": bf16_diff(dx_k, dx_p),
+           "nosplit_g": bf16_diff(k2_control(*k2_args, round_g=True), dx_p),
+           "nosplit_theta": bf16_diff(k2_control(*k2_args, round_g=False), dx_p),
+           "tol_share": F_SPLIT_SHARE}
+    out["ok"] = (out["kernel"]["share"] <= F_SPLIT_SHARE
+                 < min(out["nosplit_g"]["share"], out["nosplit_theta"]["share"]))
+    return out
+
+
 def bf16_diff(got, want) -> dict:
     """The share of bf16 outputs that differ, and the largest difference in
     bf16 ulps of the plain output (where it is not zero)."""
@@ -468,12 +529,15 @@ def bf16_diff(got, want) -> dict:
 
 
 # (label, n, density, BS, B, H, C, T, Co, d_k): random graphs whose shapes
-# take the bf16 F's other paths: Θ mixed in four output-column chunks and a
-# ragged last column tile (C = 64, Co = 512, BS = 120); plain loads of x (T
-# % 8 != 0), a padded column tile (C odd) and an odd head group (H = 3);
-# one head a stage (H = 1); 16 source rows a stage and 21 depth steps of the
-# mix (H·C = 336, the plan's edge); plain loads of w (BS % 8 != 0)
-F_CORNER_SHAPES = [
+# take the bf16 F's and K2's other paths: Θ mixed in four output-column
+# chunks and a ragged last column tile (F), one stage of 16 target rows and
+# four channel groups (K2), ragged rows (C = 64, Co = 512, BS = 120); plain
+# loads of x and gm (T % 8 != 0), a padded column tile (C odd), an odd head
+# group (H = 3) and Co padded to 16; one head (F: a stage; K2: gm restaged
+# every step); 16 source rows a stage and 21 depth steps of F's mix (H·C =
+# 336, its plan's edge), six heads and a ragged channel group (K2); plain
+# loads of w (BS % 8 != 0)
+BELL_CORNER_SHAPES = [
     ("c64_co512_bs120", 250, 0.05, 120, 2, 2, 64, 16, 512, 32),
     ("c5_t7_h3_bs48", 100, 0.08, 48, 2, 3, 5, 7, 3, 8),
     ("h1_c32_bs32", 64, 0.1, 32, 2, 1, 32, 24, 16, 16),
@@ -482,47 +546,58 @@ F_CORNER_SHAPES = [
 ]
 
 
-def f_corner_rows():
-    """The bf16 F against its plain version at F_CORNER_SHAPES: within 1e-2
-    of scale, the split check's share, the same bits over two launches."""
+def corner_rows():
+    """The bf16 F and K2 against their plain versions at BELL_CORNER_SHAPES:
+    within 1e-2 of scale, the split check's share, the same bits over two
+    launches."""
     rows = []
-    for seed, (label, n, density, BS, B, H, C, T, Co, dk) in enumerate(F_CORNER_SHAPES):
+    for seed, (label, n, density, BS, B, H, C, T, Co, dk) in enumerate(BELL_CORNER_SHAPES):
         bell = block_ell_from_adjacency(random_adjacency(n, density, 10 + seed),
                                         block_size=BS).to("cuda")
         t = bell.tensors
         z = bell_inputs(bell, B, H, C, T, Co, dk, torch.bfloat16, 500 + seed)
         f_args = (t["tile_start"], t["tile_count"], t["active_src"],
                   z["q"], z["k"], z["bias"], z["cheb"], z["x"], z["thetas"])
-        out_k = bell_fused.bell_forward_cuda(*f_args)
-        same = bool(torch.equal(out_k, bell_fused.bell_forward_cuda(*f_args)))
-        out_p = bell_fused.bell_forward_plain(*f_args)
-        err, rel = rel_err(out_k, out_p)
-        row = {"kernel": "bell_fused_corner", "shape": label, "dtype": "bfloat16", "B": B,
-               "H": H, "N": n, "BS": BS, "A": bell.num_active, "S": bell.max_blocks, "C": C,
-               "T": T, "Co": Co, "d_k": dk, "plan": bell_fused.f_bf16_plan(BS, C, Co, T, H),
-               "max_abs_err": err, "rel_err": rel, "tol": BELL_TOL[torch.bfloat16],
-               "out_bit_identical": same,
-               "split_check": {"kernel": bf16_diff(out_k, out_p),
-                               "nosplit": bf16_diff(f_nosplit_plain(*f_args), out_p)}}
-        row["ok"] = (rel <= row["tol"] and same
-                     and row["split_check"]["kernel"]["share"] <= F_SPLIT_SHARE)
-        print("bell", json.dumps(row), flush=True)
-        check(row["ok"], f"the bf16 F at {label}: {row}")
-        rows.append(row)
-        del z, out_k, out_p
+        k2_args = (t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
+                   z["thetas"], z["gm"], z["w"])
+        runs = {"bell_fused": (bell_fused.bell_forward_cuda, bell_fused.bell_forward_plain,
+                               f_args, bell_fused.f_bf16_plan(BS, C, Co, T, H)),
+                "bell_k2": (bell_bwd.bell_k2_cuda, bell_bwd.bell_k2_plain, k2_args,
+                            bell_bwd.k2_bf16_plan(BS, C, Co, T))}
+        for name, (kern, plain, args, plan) in runs.items():
+            out_k = kern(*args)
+            same = bool(torch.equal(out_k, kern(*args)))
+            out_p = plain(*args)
+            err, rel = rel_err(out_k, out_p)
+            split = ({"kernel": bf16_diff(out_k, out_p),
+                      "nosplit": bf16_diff(f_nosplit_plain(*args), out_p)}
+                     if name == "bell_fused" else k2_split_check(args, out_k, out_p))
+            row = {"kernel": f"{name}_corner", "shape": label, "dtype": "bfloat16", "B": B,
+                   "H": H, "N": n, "BS": BS, "A": bell.num_active, "S": bell.max_blocks,
+                   "C": C, "T": T, "Co": Co, "d_k": dk, "plan": plan, "max_abs_err": err,
+                   "rel_err": rel, "tol": BELL_TOL[torch.bfloat16], "out_bit_identical": same,
+                   "split_check": split}
+            row["ok"] = (rel <= row["tol"] and same
+                         and split["kernel"]["share"] <= F_SPLIT_SHARE)
+            print("bell", json.dumps(row), flush=True)
+            check(row["ok"], f"the bf16 {name} at {label}: {row}")
+            rows.append(row)
+            del out_k, out_p
+        del z
     return rows
 
 
 def phase_bell_kernels():
     """F, K1 and K2 against their plain versions at every BELL shape, in f32
-    and bf16, with CUDA-event times; dΘ of two K1 launches must be equal
-    bit for bit; the bf16 K1's dΘ within K1_SPLIT_TOL of the plain
-    float32 dΘ, which a no-split control misses; the bf16 F differs from
-    the plain bf16 output on at most F_SPLIT_SHARE of its outputs, where a
-    no-split control differs on more, and gives the same bits over two
-    launches, also at F_CORNER_SHAPES. Each row names its design and
-    carries the float32 kernel's time at its shape."""
+    and bf16, with CUDA-event times; dΘ of two K1 launches, F's output and
+    K2's dx of two launches must be equal bit for bit; the bf16 K1's dΘ
+    within K1_SPLIT_TOL of the plain float32 dΘ, which a no-split control
+    misses; the bf16 F and K2 differ from the plain bf16 output on at most
+    F_SPLIT_SHARE of their outputs, where no-split controls differ on more,
+    also at BELL_CORNER_SHAPES. Each row names its design and carries the
+    float32 kernel's time at its shape."""
     check_k1_smem()
+    check_k2_smem()
     check_f_smem()
     rows = []
     for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
@@ -543,6 +618,7 @@ def phase_bell_kernels():
             dA_k, dth_k = bell_bwd.bell_k1_cuda(*k1_args)
             _, dth_again = bell_bwd.bell_k1_cuda(*k1_args)
             dx_k = bell_bwd.bell_k2_cuda(*k2_args)
+            dx_again = bell_bwd.bell_k2_cuda(*k2_args)
             torch.cuda.synchronize()
             out_p = bell_fused.bell_forward_plain(*f_args)
             dA_p, dth_p = bell_bwd.bell_k1_plain(*k1_args[:2], *k1_args[4:])
@@ -550,8 +626,9 @@ def phase_bell_kernels():
             errs = {"bell_fused": [rel_err(out_k, out_p)],
                     "bell_k1": [rel_err(dA_k, dA_p), rel_err(dth_k, dth_p)],
                     "bell_k2": [rel_err(dx_k, dx_p)]}
-            split = f_split = None
+            split = f_split = k2_split = None
             if dtype == torch.bfloat16:
+                k2_split = k2_split_check(k2_args, dx_k, dx_p)
                 ctl = f_nosplit_plain(*f_args)
                 f_split = {"kernel": bf16_diff(out_k, out_p), "nosplit": bf16_diff(ctl, out_p),
                            "tol_share": F_SPLIT_SHARE}
@@ -588,6 +665,10 @@ def phase_bell_kernels():
                     row["out_bit_identical"] = bool(torch.equal(out_k, out_again))
                     if f_split is not None:
                         row["split_check"] = f_split
+                if name == "bell_k2":
+                    row["dx_bit_identical"] = bool(torch.equal(dx_k, dx_again))
+                    if k2_split is not None:
+                        row["split_check"] = k2_split
                 row["ms"] = cuda_ms(kern, iters)
                 row["plain_ms"] = cuda_ms(plain, max(2, iters // 4))
                 row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
@@ -602,14 +683,18 @@ def phase_bell_kernels():
                       f"the bf16 K1's dΘ split check at {label}: {split}")
                 check(name != "bell_fused" or f_split is None or f_split["ok"],
                       f"the bf16 F's split check at {label}: {f_split}")
+                check(name != "bell_k2" or k2_split is None or k2_split["ok"],
+                      f"the bf16 K2's split check at {label}: {k2_split}")
+                check(row.get("dx_bit_identical", True),
+                      f"K2's dx differs between two launches at {label} {dtype}")
                 check(row.get("out_bit_identical", True),
                       f"F's output differs between two launches at {label} {dtype}")
                 check(row.get("dtheta_bit_identical", True),
                       f"K1 dΘ differs between two launches at {label} {dtype}")
                 rows.append(row)
-            del z, out_k, out_again, dA_k, dth_k, dth_again, dx_k
+            del z, out_k, out_again, dA_k, dth_k, dth_again, dx_k, dx_again
             torch.cuda.empty_cache()
-    return rows + f_corner_rows()
+    return rows + corner_rows()
 
 
 # ---------------------------------------------------------------------------
@@ -1188,6 +1273,37 @@ def measure_k1_passes(iters: int = 10):
     return out
 
 
+# kernel-name fragments of K2's passes: Θ's split (the bf16 design) and the
+# dx pass (the float32 CUDA-core kernel, the bf16 tensor-core kernel)
+K2_PASSES = (("theta_split", ("k2_theta_split",)), ("dx", ("k2_kernel", "k2_wmma_kernel")))
+K2_SHAPES = ("gambia_block1", "gambia_block2", "random1pct_n2139")
+
+
+def measure_k2(iters: int = 10):
+    """K2 (rows 6-7) at GAMBIA blocks 1 and 2 and on the 17-slot random
+    graph in each dtype, through ``bell_bwd.bell_k2_cuda`` (an interface
+    every version of the package has, so a checkout of another commit can
+    be measured with the same function): CUDA-event ms a call, and device
+    ms by pass (torch.profiler; "other" is the wrapper's allocations)."""
+    out = {"iters": iters}
+    for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
+        if label not in K2_SHAPES:
+            continue
+        bell = bell_graph(kind, BS)
+        t = bell.tensors
+        for dtype in F32_BF16:
+            z = bell_inputs(bell, B, H, C, T, Co, dk, dtype, seed)
+            args = (t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
+                    z["thetas"], z["gm"], z["w"])
+            run = lambda: bell_bwd.bell_k2_cuda(*args)
+            out[f"{label}_{str(dtype).split('.')[-1]}"] = {
+                "ms": cuda_ms(run, iters), **_profile_passes(run, iters, K2_PASSES)}
+            del z, args
+            torch.cuda.empty_cache()
+    print("measure", json.dumps({"path": "k2", **out}), flush=True)
+    return out
+
+
 # kernel-name fragments of each F pass: the weights pass (both dtypes), and
 # the SpMM with its Θ mix (the float32 CUDA-core kernel, the bf16
 # tensor-core kernel)
@@ -1221,8 +1337,8 @@ def measure_f_passes(iters: int = 10):
 def forward_bits(path: Path) -> dict:
     """The float32 kernels' outputs on seeded operands: the spatial forward
     at every float32 spatial shape, the TAt forward and backward at every
-    float32 TAt shape, and K1's dA and dΘ and F's output at every BELL
-    shape (F's q, k and tiles from the generator). Saved to
+    float32 TAt shape, and K1's dA and dΘ, K2's dx and F's output at every
+    BELL shape (F's q, k and tiles from the generator). Saved to
     ``path`` (as sha256 digests of the bytes) where it does not exist yet,
     else held against the saved digests: equal bits or not. Run from
     checkouts of two commits in turns (``--compare``), it shows whether a
@@ -1255,6 +1371,9 @@ def forward_bits(path: Path) -> dict:
         k1 = bell_bwd.bell_k1_cuda(t["active_src"], t["active_tgt"], t["tile_start"],
                                    t["tile_count"], z["thetas"], z["gm"], z["x"], w)
         outs[f"k1_{label}"] = list(k1)
+        outs[f"k2_{label}"] = bell_bwd.bell_k2_cuda(t["src_start"], t["src_count"],
+                                                    t["src_order"], t["active_tgt"],
+                                                    z["thetas"], z["gm"], w)
         outs[f"f_{label}"] = bell_fused.bell_forward_cuda(
             t["tile_start"], t["tile_count"], t["active_src"], z["q"], z["k"], z["bias"],
             z["cheb"], z["x"], z["thetas"])
@@ -1278,7 +1397,8 @@ def forward_bits(path: Path) -> dict:
 def compare_run(out: Path) -> dict:
     """One side of a comparison of two commits in one chip call: the float32
     kernels' bits (against the first side's, saved beside ``out``), K1 and
-    F by pass at GAMBIA blocks 1-2, and the GAMBIA BELL-tiles bf16 epoch with and
+    F by pass at GAMBIA blocks 1-2, K2 there and on the 17-slot random graph,
+    and the GAMBIA BELL-tiles bf16 epoch with and
     without fuse_gtu (ms/step, device time, epoch peak memory), written to
     ``out``. Run it from a checkout of each commit in turns (parent, change,
     change, parent), loading this file with importlib so that each
@@ -1286,7 +1406,8 @@ def compare_run(out: Path) -> dict:
     measured by ``--measure``."""
     out.parent.mkdir(parents=True, exist_ok=True)
     result = {"card": card_line(), "forward_bits": forward_bits(out.parent / "forward_bits.json"),
-              "k1_passes": measure_k1_passes(), "f_passes": measure_f_passes()}
+              "k1_passes": measure_k1_passes(), "f_passes": measure_f_passes(),
+              "k2": measure_k2()}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         result["gambia_bell_tiles"] = measure_gambia_fuse_gtu(Path(tmp), rounds=3,
                                                               paths=("bell_tiles",))

@@ -7,7 +7,8 @@
 //       dTheta[h]    = sum_{b, a} (w[b, a, h]^T x[src(a)])^T . gm[tgt(a)]
 //   K2  dx[i]        = sum_{a: src(a) = i} sum_h w[b, a, h] . g_agg_h[tgt(a)]
 // round() is the cast to the compute dtype that the TPU kernel applies
-// before its dA product; K2 keeps g_agg in float. Layouts as in
+// before its dA product; K2 keeps g_agg in float (the bf16 K2 as its bf16
+// hi + lo: float32 in value). Layouts as in
 // bell_common.cuh; dA is (B, A, H, BS, BS) float, dx (B, NI*BS, C*T) in the
 // compute dtype.
 //
@@ -18,8 +19,9 @@
 //
 // Bound on an H100 at GAMBIA block 2 (B=4, H=2, A=49, BS=128, M=C*T=4608,
 // Co=32): K1 4*B*H*A*BS^2*M + 4*B*Np*H*M*Co ~ 129 GFLOP, K2
-// 2*B*H*A*BS^2*M + 2*B*H*A*BS*M*Co ~ 74 GFLOP, against ~0.1-0.2 GB of x,
-// gm, w, dA and dx: bound by operations (in bf16 ~0.13 ms at 989 TFLOP/s
+// 2*B*H*A*BS^2*M + 2*B*H*A*BS*M*Co ~ 74 GFLOP (148 as the bf16 design's two
+// bf16 terms a product), against ~0.1-0.2 GB of x, gm, w, dA and dx: bound
+// by operations (in bf16 ~0.13 ms for K1, ~0.15 ms for K2, at 989 TFLOP/s
 // against ~0.05 ms of bytes at 3.35 TB/s).
 //
 // bf16 K1 (the GAMBIA BELL-tiles main path) runs on the tensor cores
@@ -43,7 +45,20 @@
 //   float32 staging, to round it); the dΘ pass restages w and x for every
 //   (slot, m-tile), two blocks an SM.
 //
-// float32 K1 and K2 (both dtypes) run float32 FMAs on the CUDA cores, with
+// bf16 K2 (k2_wmma_kernel) runs on the tensor cores too: one block per
+// (group of up to 16 channels x NT chunks of 8 steps, source tile, batch)
+// holds its dx tile (128 source rows x 128 columns at the GAMBIA blocks) in
+// float32 fragments across the walk over the tile's outgoing slots, so w
+// is staged as it lies (row-major A, no transpose, no widening) once per
+// column group, not per time chunk. Per slot and TR target rows it stages
+// the gm rows once for every head; per head it forms g = gm . Θ_h^T (Θ
+// split hi + lo by k2_theta_split_kernel, two products), splits g into bf16
+// hi + lo planes and adds w_h . g_hi + w_h . g_lo: four bf16 products where
+// the float32 kernel has two, float32 in value. Staging, barriers and
+// latency bound it (two blocks an SM at the GAMBIA blocks, one stage each),
+// not the tensor cores.
+//
+// float32 K1 and K2 run float32 FMAs on the CUDA cores, with
 // 128 x 64 sum tiles (8 x 4 per thread) fed from shared memory:
 //   K1a (k1_dA_kernel): one block per (active entry, 64 target columns,
 //     head, batch) sums over all C*T features in chunks of TT time steps;
@@ -656,6 +671,237 @@ k1_dtheta_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict_
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K2 on the tensor cores (WMMA, 16x16x16 bf16 products, float32 sums)
+// ---------------------------------------------------------------------------
+
+constexpr int kK2Ldt = 24;  // row stride of a staged Θ_h^T plane: 16 channels + 8
+
+__host__ __device__ __forceinline__ int k2_cg(int C) { return C < 16 ? C : 16; }
+
+// dx columns a block: NT chunks of 8 steps of k2_cg(C) channels, padded to 16
+__host__ __device__ __forceinline__ int k2_width(int C, int NT) {
+  return pad16(NT * k2_cg(C) * kTT);
+}
+
+// Shared memory of a bf16 K2 block at NT chunks of 8 steps and TR target
+// rows a step (bytes; the layout of k2_wmma_kernel): the warps' staging, the
+// step's stage (gm rows, w columns, Θ's two planes), g's two planes.
+__host__ __device__ inline size_t k2_wmma_bytes(int BS, int C, int Co, int NT, int TR) {
+  const int Cop = pad16(Co);
+  return 4 * (size_t)kWarps * kStage +
+         2 * ((size_t)Cop * (NT * TR * kTT + 8) + (size_t)pad16(BS) * (TR + 8) +
+              2 * (size_t)Cop * kK2Ldt + 2 * (size_t)TR * (k2_width(C, NT) + 8));
+}
+
+// Θ split into bf16 hi + lo, transposed and cut into the K2 blocks' groups of
+// CG channels: split[(h*n_cg + g)*2 + plane][o][c], o < pad16(Co), c < 16,
+// channel g*CG + c (zero past CG, C or Co), one 32-byte row an o
+__global__ void k2_theta_split_kernel(const float* __restrict__ thetas,
+                                      wm::bf16* __restrict__ split, int H, int C, int Co,
+                                      int CG, int n_cg) {
+  const int Cop = pad16(Co), n = H * n_cg * Cop * 16;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
+    const int c = e % 16, o = e / 16 % Cop, hg = e / (16 * Cop);
+    const int ch = hg % n_cg * CG + c;
+    const float v =
+        c < CG && ch < C && o < Co ? thetas[((size_t)(hg / n_cg) * C + ch) * Co + o] : 0.f;
+    wm::bf16* d = split + (size_t)hg * 2 * Cop * 16 + o * 16 + c;
+    wm::split(v, d[0], d[(size_t)Cop * 16]);
+  }
+}
+
+// dx[b, i][:, group]: one block per (group of CG channels x NT chunks of 8
+// steps, source tile i, batch), 8 warps holding the (BSp x W) dx tile in
+// float32 fragments across the whole walk over i's outgoing slots. A step
+// is (slot, TR target rows, head), the head fastest:
+//   gm_s[o][(n*TR + t)*8 + tt]  the target rows' cotangent for the group's
+//                      chunks (column-major A of the g product), staged at
+//                      head 0 and used by every head (gm does not depend on h)
+//   w_s[s][t]          w_h's TR target columns as w lies (row-major A)
+//   th_s[plane][o][c]  Θ_h^T's hi and lo for the group's channels
+//   g = gm_s . Θ_h^T on the tensor cores (two products: float32 in value),
+//     split into bf16 hi + lo planes g_h, g_l [t][(n*CG + c)*8 + tt]
+//   dx += w_s . g_h + w_s . g_l   (w is bf16: float32 in value)
+// NT and TR are powers of two, so the staging indexes by shifts. One stage:
+// at the GAMBIA blocks two blocks share an SM, each loading while the other
+// multiplies (a second stage would halve the blocks an SM). Warp
+// w holds the 4 x 2 fragments of row tiles 4*(w/4) + r and column tiles
+// 2*(w%4) + c. The sums run in the same order every launch; each block
+// owns its dx columns.
+__global__ void __launch_bounds__(kThreads, 2)
+k2_wmma_kernel(const int* __restrict__ src_start, const int* __restrict__ src_count,
+               const int* __restrict__ src_order, const int* __restrict__ active_tgt,
+               const wm::bf16* __restrict__ th_split, const wm::bf16* __restrict__ gm,
+               const wm::bf16* __restrict__ w, wm::bf16* __restrict__ dx, int A, int H,
+               int NI, int NJ, int BS, int C, int T_len, int Co, int NT, int TR, int vec,
+               int vec_w) {
+  namespace wmma = nvcuda::wmma;
+  using wm::bf16;
+  const int CG = k2_cg(C), n_cg = (C + CG - 1) / CG;
+  const int cg = blockIdx.x % n_cg, ch0 = blockIdx.x / n_cg * NT;  // first chunk of 8 steps
+  const int i = blockIdx.y, b = blockIdx.z;
+  const int c0 = cg * CG, cn = min(CG, C - c0);
+  const int BSp = pad16(BS), Cop = pad16(Co), W = k2_width(C, NT);
+  const int lnt = __ffs(NT) - 1, ltr = __ffs(TR) - 1, lper = lnt + ltr;
+  const int ldg = (NT * TR + 1) * kTT, ldw = TR + 8, ldp = W + 8, NR = BSp / TR;
+  const size_t M = (size_t)C * T_len, MO = (size_t)Co * T_len;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* scratch = reinterpret_cast<float*>(smem_raw);              // [warp][16][kLdS]
+  bf16* gm_s = reinterpret_cast<bf16*>(scratch + kWarps * kStage);  // [Cop][ldg]
+  bf16* w_s = gm_s + (size_t)Cop * ldg;                             // [BSp][ldw]
+  bf16* th_s = w_s + (size_t)BSp * ldw;                             // [2][Cop][kK2Ldt]
+  bf16* g_h = th_s + 2 * (size_t)Cop * kK2Ldt;                      // [TR][ldp]
+  bf16* g_l = g_h + (size_t)TR * ldp;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* sw = scratch + warp * kStage;
+  // zero everything staged: padding rows and columns never written stay zero
+  const int n_zero = (Cop * ldg + BSp * ldw + 2 * Cop * kK2Ldt + 2 * TR * ldp) / 8;
+  for (int e = threadIdx.x; e < n_zero; e += kThreads) zero16(gm_s + 8 * (size_t)e);
+  const int p0 = src_start[i], n_steps = src_count[i] * NR * H;
+  // stage step s (its gm rows at head 0), committed as one cp.async group
+  auto stage_step = [&](int s) {
+    const int h = s % H, r0 = s / H % NR * TR, a = src_order[p0 + s / (H * NR)];
+    if (h == 0) {  // segment e: chunk n = e % NT, row t = e / NT % TR, o = e / (NT*TR)
+      const bf16* g0 = gm + ((size_t)b * NJ + active_tgt[a]) * BS * MO + (size_t)ch0 * kTT;
+      for (int e = threadIdx.x; e < Co << lper; e += kThreads) {
+        const int n = e & (NT - 1), t = e >> lnt & (TR - 1), o = e >> lper;
+        const int t0 = (ch0 + n) * kTT;
+        bf16* d = gm_s + o * ldg + ((n << ltr) + t) * kTT;
+        if (r0 + t < BS && t0 < T_len)
+          stage_segment(d, g0 + (size_t)(r0 + t) * MO + (size_t)o * T_len + n * kTT, t0, T_len,
+                        vec);
+        else
+          zero16(d);
+      }
+    }
+    const bf16* w_t = w + (((size_t)b * A + a) * H + h) * BS * BS + r0;
+    if (vec_w) {  // segment e: row e / (TR/8), columns 8 * (e % (TR/8))
+      for (int e = threadIdx.x; e < BS << (ltr - 3); e += kThreads) {
+        const int row = e >> (ltr - 3), k = (e & (TR / 8 - 1)) * 8;
+        bf16* d = w_s + row * ldw + k;
+        if (r0 + k < BS)
+          cp_async16(d, w_t + (size_t)row * BS + k);
+        else
+          zero16(d);
+      }
+    } else {
+      for (int e = threadIdx.x; e < BS << ltr; e += kThreads) {
+        const int row = e >> ltr, k = e & (TR - 1);
+        w_s[row * ldw + k] = r0 + k < BS ? w_t[(size_t)row * BS + k] : __float2bfloat16_rn(0.f);
+      }
+    }
+    const bf16* ts = th_split + ((size_t)h * n_cg + cg) * 2 * Cop * 16;
+    for (int e = threadIdx.x; e < 4 * Cop; e += kThreads)  // 2 planes x Cop rows x 2 segments
+      cp_async16(th_s + (e >> 1) * kK2Ldt + (e & 1) * 8, ts + e * 8);
+    commit_async();
+  };
+  const int RF = BSp / 16, CF = W / 16, n_gt = NT * TR / 2;
+  const int wr = warp / 4 * 4, wc = warp % 4 * 2;
+  wm::FragC acc[4][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) wmma::fill_fragment(acc[r][c], 0.f);
+  __syncthreads();  // zeroed before the first stage lands
+  if (n_steps > 0) stage_step(0);
+  for (int s = 0; s < n_steps; ++s) {
+    wait_async_group<0>();
+    __syncthreads();  // step s staged
+    // g (rows (n*TR + t)*8 + tt, columns c) = gm_s . Θ_h^T, split into g_h
+    // and g_l; a warp's fragments f = warp + 8q, two at a time (past the
+    // last, the last again, not stored)
+    for (int f0 = warp; f0 < n_gt; f0 += 2 * kWarps) {
+      wm::FragC g[2];
+      wmma::fill_fragment(g[0], 0.f);
+      wmma::fill_fragment(g[1], 0.f);
+      for (int k = 0; k < Cop; k += 16) {
+        wm::FragB fh, fl;
+        wm::load_b_row_shared(fh, th_s + k * kK2Ldt, kK2Ldt);
+        wm::load_b_row_shared(fl, th_s + (Cop + k) * kK2Ldt, kK2Ldt);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          wm::FragAt fa;
+          wm::load_a_col_shared(fa, gm_s + k * ldg + min(f0 + kWarps * q, n_gt - 1) * 16, ldg);
+          wmma::mma_sync(g[q], fa, fh, g[q]);
+          wmma::mma_sync(g[q], fa, fl, g[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int f = f0 + kWarps * q;
+        if (f >= n_gt) break;
+        wm::store_c_shared(sw, g[q], kLdS, true);  // sw[c][t'*8 + tt]
+        __syncwarp();
+        const int cl = lane % 16, tp = lane / 16, row = f * 2 + tp;  // row = n*TR + t
+        if (cl < cn) {
+          float v[kTT], lo[kTT];
+          *reinterpret_cast<float4*>(v) =
+              *reinterpret_cast<const float4*>(sw + cl * kLdS + tp * kTT);
+          *reinterpret_cast<float4*>(v + 4) =
+              *reinterpret_cast<const float4*>(sw + cl * kLdS + tp * kTT + 4);
+#pragma unroll
+          for (int tt = 0; tt < kTT; ++tt)
+            lo[tt] = v[tt] - __bfloat162float(__float2bfloat16_rn(v[tt]));
+          const int o = (row & (TR - 1)) * ldp + ((row >> ltr) * CG + cl) * kTT;
+          *reinterpret_cast<uint4*>(g_h + o) = wm::pack8(v);
+          *reinterpret_cast<uint4*>(g_l + o) = wm::pack8(lo);
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();  // g_h and g_l written
+    for (int k = 0; k < TR; k += 16) {
+      wm::FragA fa[4];
+      wm::FragB fh[2], fl[2];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (wr + r < RF) wm::load_a_row_shared(fa[r], w_s + (wr + r) * 16 * ldw + k, ldw);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        if (wc + c < CF) {
+          wm::load_b_row_shared(fh[c], g_h + k * ldp + (wc + c) * 16, ldp);
+          wm::load_b_row_shared(fl[c], g_l + k * ldp + (wc + c) * 16, ldp);
+        }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (wr + r < RF && wc + c < CF) wmma::mma_sync(acc[r][c], fa[r], fh[c], acc[r][c]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if (wr + r < RF && wc + c < CF) wmma::mma_sync(acc[r][c], fa[r], fl[c], acc[r][c]);
+    }
+    if (s + 1 < n_steps) {
+      __syncthreads();  // this step's stage consumed
+      stage_step(s + 1);
+    }
+  }
+  // dx rounded to bf16 once: 8 steps of a (source row, channel) a 16-byte store
+  const size_t row0 = ((size_t)b * NI + i) * BS;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (wr + r >= RF || wc + c >= CF) continue;
+      wm::store_c_shared(sw, acc[r][c], kLdS, false);  // sw[row'][col']
+      __syncwarp();
+      const int rl = lane % 16, sg = lane / 16, seg = (wc + c) * 2 + sg;
+      const int row = (wr + r) * 16 + rl, n = seg / CG, cl = seg % CG, t0 = (ch0 + n) * kTT;
+      if (row < BS && n < NT && cl < cn && t0 < T_len) {
+        const float* v = sw + rl * kLdS + sg * kTT;
+        bf16* d = dx + (row0 + row) * M + (size_t)(c0 + cl) * T_len + t0;
+        if (vec)
+          *reinterpret_cast<uint4*>(d) = pack8_at(v);
+        else
+          for (int tt = 0; tt < kTT && t0 + tt < T_len; ++tt) d[tt] = __float2bfloat16_rn(v[tt]);
+      }
+      __syncwarp();
+    }
+}
+
 template <typename T>
 int launch_k1(const int* active_src, const int* active_tgt, const int* tile_start,
               const int* tile_count, const float* thetas, const void* gm, const void* x,
@@ -720,18 +966,37 @@ int launch_k1_wmma(const int* active_src, const int* active_tgt, const int* tile
       dense::sum_rows(partial, dth, partial + (size_t)S * H * C * Co, S, H * C * Co, st));
 }
 
-template <typename T>
 int launch_k2(const int* src_start, const int* src_count, const int* src_order,
-              const int* active_tgt, const float* thetas, const void* gm, const void* w,
-              void* dx, int B, int A, int H, int NI, int NJ, int BS, int C, int T_len,
-              int Co, int TT, cudaStream_t st) {
+              const int* active_tgt, const float* thetas, const float* gm, const float* w,
+              float* dx, int B, int A, int H, int NI, int NJ, int BS, int C, int T_len, int Co,
+              int TT, cudaStream_t st) {
   const int ldg = (Co * TT) | 1;
   const size_t smem = sizeof(float) * (kK * kLdRows + kK * kCols + kK * ldg + H * C * Co);
-  cudaError_t err = allow_smem(k2_kernel<T>, smem);
+  cudaError_t err = allow_smem(k2_kernel<float>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  k2_kernel<T><<<dim3((T_len + TT - 1) / TT, NI, B), kThreads, smem, st>>>(
-      src_start, src_count, src_order, active_tgt, thetas, static_cast<const T*>(gm),
-      static_cast<const T*>(w), static_cast<T*>(dx), A, H, NI, NJ, BS, C, T_len, Co, TT);
+  k2_kernel<float><<<dim3((T_len + TT - 1) / TT, NI, B), kThreads, smem, st>>>(
+      src_start, src_count, src_order, active_tgt, thetas, gm, w, dx, A, H, NI, NJ, BS, C,
+      T_len, Co, TT);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_k2_wmma(const int* src_start, const int* src_count, const int* src_order,
+                   const int* active_tgt, const float* thetas, wm::bf16* th_split,
+                   const wm::bf16* gm, const wm::bf16* w, wm::bf16* dx, int B, int A, int H,
+                   int NI, int NJ, int BS, int C, int T_len, int Co, int NT, int TR, int vec,
+                   int vec_w, cudaStream_t st) {
+  const int CG = k2_cg(C), n_cg = (C + CG - 1) / CG, n = H * n_cg * pad16(Co) * 16;
+  k2_theta_split_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      thetas, th_split, H, C, Co, CG, n_cg);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = k2_wmma_bytes(BS, C, Co, NT, TR);
+  err = allow_smem(k2_wmma_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tg = ((T_len + kTT - 1) / kTT + NT - 1) / NT;
+  k2_wmma_kernel<<<dim3(n_cg * n_tg, NI, B), kThreads, smem, st>>>(
+      src_start, src_count, src_order, active_tgt, th_split, gm, w, dx, A, H, NI, NJ, BS, C,
+      T_len, Co, NT, TR, vec, vec_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -777,17 +1042,38 @@ size_t bell_bwd_k1_wmma_smem_bytes(int BS, int C, int Co, int tile, int pass) {
   return pass == 0 ? k1_wmma_dA_bytes(BS, C, Co, tile) : k1_wmma_dtheta_bytes(BS, C, Co, tile);
 }
 
-// K2 on `stream`: dx (B, NI*BS, C*T) in the compute dtype.
+// float32 K2 on `stream`: dx (B, NI*BS, C*T), TT time steps a block.
 int bell_bwd_k2(const int* src_start, const int* src_count, const int* src_order,
                 const int* active_tgt, const float* thetas, const void* gm, const void* w,
                 void* dx, int B, int A, int H, int NI, int NJ, int BS, int C, int T_len,
-                int Co, int TT, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_k2<__nv_bfloat16>(src_start, src_count, src_order, active_tgt, thetas, gm,
-                                    w, dx, B, A, H, NI, NJ, BS, C, T_len, Co, TT, st);
-  return launch_k2<float>(src_start, src_count, src_order, active_tgt, thetas, gm, w, dx,
-                          B, A, H, NI, NJ, BS, C, T_len, Co, TT, st);
+                int Co, int TT, void* stream) {
+  return launch_k2(src_start, src_count, src_order, active_tgt, thetas,
+                   static_cast<const float*>(gm), static_cast<const float*>(w),
+                   static_cast<float*>(dx), B, A, H, NI, NJ, BS, C, T_len, Co, TT,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// bf16 K2 on `stream`, on the tensor cores: dx (B, NI*BS, C*T) bf16;
+// th_split is bf16 scratch of H * ceil(C/CG) * 2 * pad16(Co) * 16 values
+// (CG = min(C, 16)). NT chunks of 8 steps a block and TR target rows a step,
+// both powers of two (TR >= 16, dividing pad16(BS)); vec: T % 8 == 0 and
+// gm, dx 16-byte aligned (cp.async row segments, 16-byte stores), vec_w:
+// BS % 8 == 0 and w 16-byte aligned.
+int bell_bwd_k2_wmma(const int* src_start, const int* src_count, const int* src_order,
+                     const int* active_tgt, const float* thetas, void* th_split, const void* gm,
+                     const void* w, void* dx, int B, int A, int H, int NI, int NJ, int BS,
+                     int C, int T_len, int Co, int NT, int TR, int vec, int vec_w,
+                     void* stream) {
+  return launch_k2_wmma(src_start, src_count, src_order, active_tgt, thetas,
+                        static_cast<wm::bf16*>(th_split), static_cast<const wm::bf16*>(gm),
+                        static_cast<const wm::bf16*>(w), static_cast<wm::bf16*>(dx), B, A, H,
+                        NI, NJ, BS, C, T_len, Co, NT, TR, vec, vec_w,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory a block of the bf16 K2 requests, in bytes.
+size_t bell_bwd_k2_wmma_smem_bytes(int BS, int C, int Co, int NT, int TR) {
+  return k2_wmma_bytes(BS, C, Co, NT, TR);
 }
 
 const char* bell_bwd_error_string(int err) {

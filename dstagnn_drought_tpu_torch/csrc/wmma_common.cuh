@@ -41,6 +41,13 @@ __device__ __forceinline__ void load_a_col_shared(FragAt& f, const bf16* p, unsi
                : "r"(shared_addr(p)), "r"(ld));
 }
 
+__device__ __forceinline__ void load_a_row_shared(FragA& f, const bf16* p, unsigned ld) {
+  unsigned* r = reinterpret_cast<unsigned*>(&f.x[0]);
+  asm volatile("wmma.load.a.sync.aligned.row.m16n16k16.shared.bf16 {%0,%1,%2,%3}, [%4], %5;\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(shared_addr(p)), "r"(ld));
+}
+
 __device__ __forceinline__ void load_b_row_shared(FragB& f, const bf16* p, unsigned ld) {
   unsigned* r = reinterpret_cast<unsigned*>(&f.x[0]);
   asm volatile("wmma.load.b.sync.aligned.row.m16n16k16.shared.bf16 {%0,%1,%2,%3}, [%4], %5;\n"

@@ -21,13 +21,14 @@ reaches device memory; dΘ is summed from per-block partials by a second
 pass in a fixed order (no atomics: two runs give the same bits); K2 walks
 the source-sorted list so every block owns its dx tile (no scatter).
 
-K1 has two designs, one a dtype: bf16 (the BELL-tiles main path) runs on
-the tensor cores (WMMA) in chunks of 8 time steps, Θ and agg split into
-bf16 hi + lo where they meet a float32 sum, so dΘ and g_agg stay float32
-in value (:func:`k1_bf16_plan` sizes its tiles); float32 keeps the
-CUDA-core kernels and their :func:`time_chunk` plan. On a CUDA tensor the
-wrappers launch the design of the dtype or raise; the plain versions serve
-CPU tensors only. ``k1_launches``/``k2_launches`` count launches.
+K1 and K2 have two designs each, one a dtype: bf16 (the BELL-tiles main
+path) runs on the tensor cores (WMMA) in chunks of 8 time steps, Θ, agg
+and g_agg split into bf16 hi + lo where they meet a float32 sum, so dΘ,
+g_agg and K2's dx stay float32 in value (:func:`k1_bf16_plan` and
+:func:`k2_bf16_plan` size their tiles); float32 keeps the CUDA-core
+kernels and their :func:`time_chunk` plan. On a CUDA tensor the wrappers
+launch the design of the dtype or raise; the plain versions serve CPU
+tensors only. ``k1_launches``/``k2_launches`` count launches.
 """
 from __future__ import annotations
 
@@ -111,6 +112,56 @@ def k1_bf16_plan(BS, C, Co, T):
     return {"tn": tn, "tc": tc, "cc": _k1_wmma_cc(C), "groups": -(-T // _TT16),
             "smem": (k1_wmma_smem_bytes(BS, C, Co, tn, 0),
                      k1_wmma_smem_bytes(BS, C, Co, tc, 1))}
+
+
+# the bf16 K2 on the tensor cores (csrc/bell_bwd.cu k2_wmma_kernel): a block
+# per (group of min(C, 16) channels x nt chunks of 8 steps, source tile,
+# batch) with a dx tile of pad16(BS) rows x pad16(nt·CG·8) ≤ 128 columns;
+# a step stages tr target rows of gm (every head), w_h's tr columns and
+# Θ_h's split (rows of 16 channels at a stride of 24); nt and tr are powers
+# of two
+_K2_LDT = 24
+
+
+def _k2_cg(C):
+    """Channels a bf16 K2 block takes."""
+    return min(C, 16)
+
+
+def k2_wmma_smem_bytes(BS, C, Co, nt, tr):
+    """Shared memory a block of the bf16 K2 requests at nt chunks of 8
+    steps and tr target rows a step (the formula of csrc/bell_bwd.cu): the
+    warps' staging, the step's stage (gm rows, w columns, Θ's hi and lo),
+    and g's hi and lo."""
+    Cop = _pad16(Co)
+    return 4 * _WARPS * _STAGE + 2 * (
+        Cop * (nt * tr * _TT16 + 8) + _pad16(BS) * (tr + 8) + 2 * Cop * _K2_LDT
+        + 2 * tr * (_pad16(nt * _k2_cg(C) * _TT16) + 8))
+
+
+def k2_bf16_plan(BS, C, Co, T):
+    """The bf16 K2's launch plan: {"nt": chunks of 8 steps a block (the most
+    power of two whose columns of min(C, 16) channels fit 128, at most the
+    steps), "tr": target rows a step (the most power of two dividing
+    pad16(BS) with which two blocks share an SM, else the most that fits;
+    fewer chunks where none fits), "groups": (channel groups, time groups)
+    of the grid, "smem": bytes}. Raises ValueError exactly where the
+    float32 K2 refuses (C ≤ 64, Co ≤ 512, BS ≤ 128); every shape inside
+    fits (16 target rows of one chunk at Co = 512 take 213,504 bytes)."""
+    time_chunk(C, Co, T)
+    if BS > _BS_MAX:
+        raise ValueError(f"the BELL kernels take block_size <= {_BS_MAX}, got {BS}")
+    BSp, T8, CG = _pad16(BS), -(-T // _TT16), _k2_cg(C)
+    nts = [2 ** k for k in reversed(range(min(16 // CG, T8).bit_length()))]
+    trs = [t for t in (128, 64, 32, 16) if BSp % t == 0]
+    for nt in nts:
+        for limit in (_SMEM_TWO, _SMEM_MAX):
+            for tr in trs:
+                smem = k2_wmma_smem_bytes(BS, C, Co, nt, tr)
+                if smem <= limit:
+                    return {"nt": nt, "tr": tr, "groups": (-(-C // CG), -(-T8 // nt)),
+                            "smem": smem}
+    raise ValueError(f"the bf16 BELL K2 does not fit a block at BS={BS}, C={C}, Co={Co}")
 
 
 def _g_agg(gm, thetas, T):
@@ -198,8 +249,13 @@ def _load():
         lib.bell_bwd_k1_wmma.restype = ctypes.c_int
         lib.bell_bwd_k1_wmma_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.bell_bwd_k1_wmma_smem_bytes.restype = ctypes.c_size_t
-        lib.bell_bwd_k2.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.bell_bwd_k2.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.bell_bwd_k2.restype = ctypes.c_int
+        lib.bell_bwd_k2_wmma.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
+                                         + [ctypes.c_void_p])
+        lib.bell_bwd_k2_wmma.restype = ctypes.c_int
+        lib.bell_bwd_k2_wmma_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.bell_bwd_k2_wmma_smem_bytes.restype = ctypes.c_size_t
         lib.bell_bwd_error_string.argtypes = [ctypes.c_int]
         lib.bell_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -268,25 +324,34 @@ def bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, 
 
 
 def bell_k2_cuda(src_start, src_count, src_order, active_tgt, thetas, gm, w):
-    """Launch K2 on the current stream: dx (B, NI·BS, C·T) in gm's dtype."""
+    """Launch K2 on the current stream: dx (B, NI·BS, C·T) in gm's dtype;
+    bf16 operands take the tensor-core kernel, float32 the CUDA-core one."""
     global k2_launches
     _check(thetas, gm, w, (("src_start", src_start), ("src_count", src_count),
                            ("src_order", src_order), ("active_tgt", active_tgt)))
     B, A, H, BS, _ = w.shape
     _, C, Co = thetas.shape
     T = gm.shape[-1] // Co
-    NI = src_start.shape[0]
-    TT = time_chunk(C, Co, T)
-    dx = torch.empty((B, NI * BS, C * T), dtype=gm.dtype, device=w.device)
+    NI, NJ = src_start.shape[0], gm.shape[1] // BS
+    dev = w.device
+    dx = torch.empty((B, NI * BS, C * T), dtype=gm.dtype, device=dev)
+    idx = [t.data_ptr() for t in (src_start, src_count, src_order, active_tgt, thetas)]
     lib = _load()
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.bell_bwd_k2(
-            src_start.data_ptr(), src_count.data_ptr(), src_order.data_ptr(),
-            active_tgt.data_ptr(), thetas.data_ptr(), gm.data_ptr(), w.data_ptr(),
-            dx.data_ptr(), B, A, H, NI, gm.shape[1] // BS, BS, C, T, Co, TT,
-            int(gm.dtype == torch.bfloat16), stream,
-        )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if gm.dtype == torch.bfloat16:
+            plan = k2_bf16_plan(BS, C, Co, T)
+            split = torch.empty(H * plan["groups"][0] * 2 * _pad16(Co) * 16,
+                                dtype=torch.bfloat16, device=dev)
+            aligned = lambda *ts: all(t.data_ptr() % 16 == 0 for t in ts)
+            err = lib.bell_bwd_k2_wmma(
+                *idx, split.data_ptr(), gm.data_ptr(), w.data_ptr(), dx.data_ptr(), B, A, H,
+                NI, NJ, BS, C, T, Co, plan["nt"], plan["tr"],
+                int(T % _TT16 == 0 and aligned(gm, dx)), int(BS % 8 == 0 and aligned(w)),
+                stream)
+        else:
+            err = lib.bell_bwd_k2(*idx, gm.data_ptr(), w.data_ptr(), dx.data_ptr(), B, A, H,
+                                  NI, NJ, BS, C, T, Co, time_chunk(C, Co, T), stream)
     _raise_on(lib, err, "bell_bwd K2")
     k2_launches += 1
     return dx

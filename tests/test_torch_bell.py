@@ -237,6 +237,85 @@ def test_k1_bf16_plan_refuses_what_the_float32_kernels_refuse():
         bell_bwd.k1_bf16_plan(128, 32, 129, 144)
 
 
+# K1_BF16_SHAPES, the caps' edges of the float32 K2 (C 1/64, Co 1/512, BS
+# 8/120/128), and the bf16 K2's other paths: one stage (Co = 512), a ragged
+# channel group (C = 56), a padded segment (C = 5), plain loads of w (BS = 20)
+K2_BF16_SHAPES = K1_BF16_SHAPES + [
+    (128, 64, 512, 144), (128, 1, 512, 144), (8, 64, 512, 7), (120, 64, 1, 16),
+    (120, 64, 512, 16), (64, 56, 5, 16), (48, 5, 3, 7), (20, 4, 8, 16), (32, 32, 16, 24)]
+
+
+@pytest.mark.parametrize("BS, C, Co, T", K2_BF16_SHAPES)
+def test_k2_bf16_plan_fits_every_shape(BS, C, Co, T):
+    """The bf16 K2's plan fits a block's 232,448 bytes, equals
+    k2_wmma_smem_bytes for its own tiles, takes tiles the kernel has (nt
+    and tr powers of two, tr ≥ 16 dividing pad16(BS), at most 128 dx
+    columns a block), covers every channel and step with no empty group,
+    and is the same on every call."""
+    plan = bell_bwd.k2_bf16_plan(BS, C, Co, T)
+    BSp, T8, CG = -(-BS // 16) * 16, -(-T // 8), min(C, 16)
+    nt, tr = plan["nt"], plan["tr"]
+    assert plan["smem"] <= 232448
+    assert plan["smem"] == bell_bwd.k2_wmma_smem_bytes(BS, C, Co, nt, tr)
+    assert tr in (16, 32, 64, 128) and BSp % tr == 0
+    assert nt & (nt - 1) == 0 and -(-nt * CG * 8 // 16) * 16 <= 128
+    n_cg, n_tg = plan["groups"]
+    assert n_cg * CG >= C > (n_cg - 1) * CG
+    assert n_tg * nt >= T8 > (n_tg - 1) * nt
+    assert bell_bwd.k2_bf16_plan(BS, C, Co, T) == plan
+    # the GAMBIA blocks: two blocks an SM; block 2 in channel halves
+    if BS == 128 and Co == 32 and T == 144:
+        assert plan["smem"] <= 115712
+        if C == 32:
+            assert (nt, plan["groups"]) == (1, (2, 18))
+
+
+def test_k2_bf16_plan_refuses_exactly_what_the_float32_k2_refuses():
+    """The float32 K2's caps (C ≤ 64, Co ≤ 512 from time_chunk, BS ≤ 128),
+    with its messages, and no shape inside them: one chunk of 16 target
+    rows fits at the largest (Co = 512)."""
+    for args, msg in (((128, 65, 32, 144), "C <= 64"), ((128, 32, 513, 144), "Co <= 512"),
+                      ((136, 32, 32, 144), "block_size <= 128")):
+        with pytest.raises(ValueError, match=msg):
+            bell_bwd.k2_bf16_plan(*args)
+    with pytest.raises(ValueError, match="Co <= 512"):
+        bell_bwd.time_chunk(32, 513, 144)
+    for BS in (8, 16, 120, 128):
+        for C in (1, 64):
+            for Co in (1, 512):
+                for T in (1, 7, 144):
+                    assert bell_bwd.k2_bf16_plan(BS, C, Co, T)["smem"] <= 232448
+    assert bell_bwd.k2_bf16_plan(128, 64, 512, 144)["tr"] == 16
+
+
+@pytest.mark.parametrize("shape", [dict(), dict(BS=16, H=3, C=1, T=128, Co=2, n=40)])
+def test_plain_bf16_k2_matches_pallas_interpret(shape):
+    """The function the bf16 K2 kernel must compute: the port's K2 on bf16
+    gm and w (g_agg in float32, float32 sums, one cast to bf16 at the end),
+    through the wrapper the backward calls, against the JAX Pallas
+    ``bell_bwd_dx`` (c-major) on the same bf16 operands in interpret mode,
+    within 1e-2 of the output's scale."""
+    A, bell, x, gm, w, th, C = _bwd_operands(**shape)
+    S = bell.max_blocks
+    jb = jbs.block_ell_from_adjacency(A, block_size=bell.block_size)
+    gm16 = jnp.asarray(gm).astype(jnp.bfloat16)
+    w16 = jnp.pad(jnp.asarray(w).astype(jnp.bfloat16), ((0, 0), (0, S), (0, 0), (0, 0), (0, 0)))
+    j_dx = jbwd.bell_bwd_dx(
+        jb.src_start, jb.src_count, jnp.pad(jb.active_tgt[jb.src_order], (0, S)),
+        jnp.pad(jb.src_order, (0, S)), jnp.asarray(th), gm16, w16,
+        max_out=bell.max_src_blocks, n_ch=C, np_src=bell.padded_nodes, interpret=True,
+        layout="c")
+    assert j_dx.dtype == jnp.bfloat16
+    t = bell.tensors
+    dx = bell_bwd.bell_k2(t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
+                          torch.from_numpy(th), torch.from_numpy(gm).bfloat16(),
+                          torch.from_numpy(w).bfloat16())
+    assert dx.dtype == torch.bfloat16 and dx.shape == tuple(j_dx.shape)
+    want = np.asarray(j_dx.astype(jnp.float32))
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(dx.float().numpy(), want, atol=1e-2 * scale, rtol=0)
+
+
 # K1_BF16_SHAPES at H = 2 (the GAMBIA blocks) and H = 3 (the ragged K = 3
 # shape), and the caps' edges: Co = 512, C = 64, and both
 F_BF16_SHAPES = [(*shape, H) for shape in K1_BF16_SHAPES for H in (2, 3)] + [
@@ -391,3 +470,23 @@ def test_kernels_match_plain_on_card():
     want = bell_fused.bell_forward_plain(*f16).float()
     assert float((out16.float() - want).abs().max()) <= 1e-2 * max(1.0, float(want.abs().max()))
     assert torch.equal(bell_fused.bell_forward(*f16), out16)
+
+
+@pytest.mark.cuda
+def test_bf16_k2_matches_plain_on_card():
+    """The bf16 K2 (tensor cores) against its plain version on the same bf16
+    operands within 1e-2 of scale, one launch a call, the same bits over
+    two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    _, bell, _, gm, w, th, _ = _bwd_operands()
+    t = bell.to("cuda").tensors
+    cu16 = lambda a: torch.from_numpy(a).cuda().bfloat16().contiguous()
+    k2 = (t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
+          torch.from_numpy(th).cuda(), cu16(gm), cu16(w))
+    before = bell_bwd.k2_launches
+    dx = bell_bwd.bell_k2(*k2)
+    assert bell_bwd.k2_launches == before + 1 and dx.dtype == torch.bfloat16
+    want = bell_bwd.bell_k2_plain(*k2).float()
+    assert float((dx.float() - want).abs().max()) <= 1e-2 * max(1.0, float(want.abs().max()))
+    assert torch.equal(bell_bwd.bell_k2(*k2), dx)
