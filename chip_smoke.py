@@ -11,7 +11,14 @@ Phases; any failure exits non-zero:
      power limit;
   2. hold each kernel against its plain PyTorch version on the card (TF32
      off) at the main paths' shapes and at ragged shapes, with CUDA-event
-     times of both: cheb_sat forward and gradients; the BELL forward (F),
+     times of both: cheb_sat forward and gradients at the seven shapes of
+     its row (x as the model hands it over: float32 at PEMS08, bf16 at
+     GAMBIA) and three in the other x dtype, each row naming its design
+     (A and a float32 x split bf16 hi + lo, on the tensor cores) and its
+     plan, its output within 1e-4 of scale of the plain float32 version
+     where a no-split control (A and x rounded to bf16) is not, equal bit
+     for bit over two launches, its float32 and bf16-term bounds, and the
+     plan's shared-memory and scratch bytes equal to the kernel's own; the BELL forward (F),
      K1 and K2 at the GAMBIA blocks, the 1%-random N=2139 graph (17 slots a
      tile) and a ragged n=29 graph (BS 8 and 16), in float32 and bfloat16,
      with K1's dΘ, F's output and K2's dx equal bit for bit over two
@@ -78,11 +85,13 @@ GAMBIA BELL tiles against both dense paths, and GAMBIA dense and BELL tiles
 with the fused GTU tail against the im2col tail; the fused PEMS08 and the
 GTU comparisons with each epoch's peak device memory) alternated in one process, a torch.profiler breakdown of
 each, and a 25-epoch PEMS08 accuracy run of both dense paths checked
-against the reference model's recorded test MAE. ``--compare OUT`` builds
+against the reference model's recorded test MAE. The epoch profiles also
+rank the host ops by their inputs' shapes. ``--compare OUT`` builds
 and runs only ``compare_run``: one side of a comparison with another
 commit's checkout (the float32 spatial, TAt, K1, K2 and F kernels' bits,
-K1 and F by pass and K2 at GAMBIA blocks 1-2, K2 also on the 17-slot random
-graph, the GAMBIA BELL-tiles bf16 epoch with and without fuse_gtu).
+cheb_sat at its four main shapes, K1 and F by pass and K2 at GAMBIA blocks
+1-2, K2 also on the 17-slot random graph, the GAMBIA dense and BELL-tiles
+bf16 epochs with and without fuse_gtu, with epoch peak memory).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -124,6 +133,9 @@ PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 TOL = 2e-4       # forward, kernel vs plain (precedent tests/test_pallas_cheb.py)
 GRAD_TOL = 5e-3  # gradients (precedent tests/test_pallas_cheb.py)
+# cheb_sat's gradients are checked at the seven shapes of the PERF.md row
+GRAD_SHAPES = ("pems08_block1", "pems08_blocks2-4", "gambia_block1", "gambia_block2",
+               "ragged_n7", "ragged_n130", "ragged_n33")
 
 
 def reset_launches():
@@ -176,62 +188,174 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 CHEB_SAT_SHAPES = [
-    # (label, B, K, N, M): the main path's shapes, then the ragged shapes of
-    # tests/test_pallas_cheb.py::test_unaligned_shapes
-    ("pems08_block1", 64, 3, 170, 12),
-    ("pems08_blocks2-4", 64, 3, 170, 384),
-    ("gambia_block1", 4, 2, 2139, 576),
-    ("gambia_block2", 4, 2, 2139, 4608),
-    ("ragged_n7", 1, 2, 7, 12),
-    ("ragged_n130", 1, 2, 130, 15),
-    ("ragged_n33", 1, 2, 33, 18),
+    # (label, B, K, N, M, x dtype): the main path's shapes with x as the
+    # model hands it over (PEMS08 float32, GAMBIA bf16), then the ragged
+    # shapes of tests/test_pallas_cheb.py::test_unaligned_shapes
+    ("pems08_block1", 64, 3, 170, 12, torch.float32),
+    ("pems08_blocks2-4", 64, 3, 170, 384, torch.float32),
+    ("gambia_block1", 4, 2, 2139, 576, torch.bfloat16),
+    ("gambia_block2", 4, 2, 2139, 4608, torch.bfloat16),
+    ("ragged_n7", 1, 2, 7, 12, torch.float32),
+    ("ragged_n130", 1, 2, 130, 15, torch.float32),
+    ("ragged_n33", 1, 2, 33, 18, torch.float32),
+    # the other x dtype: three products at GAMBIA, two at PEMS08, and a
+    # bf16 x with M % 8 != 0 (rewritten as a padded plane)
+    ("gambia_block2_x_f32", 4, 2, 2139, 4608, torch.float32),
+    ("pems08_blocks2-4_x_bf16", 64, 3, 170, 384, torch.bfloat16),
+    ("ragged_n130_x_bf16", 1, 2, 130, 15, torch.bfloat16),
+    # the 16-warp product at one tile of 256 features, 64 and 128 targets a
+    # block
+    ("tm256_n300", 1, 2, 300, 256, torch.float32),
+    ("tm256_n1000", 2, 2, 1000, 240, torch.bfloat16),
 ]
-GRAD_SHAPES = ("pems08_blocks2-4", "gambia_block1", "ragged_n7", "ragged_n130", "ragged_n33")
+# the main path's shapes, in the order of the PERF.md row
+CHEB_SAT_MAIN = ("pems08_block1", "pems08_blocks2-4", "gambia_block1", "gambia_block2")
+CHEB_SAT_DESIGN = "wmma_bf16_split"  # A (and a float32 x) split bf16 hi + lo, on WMMA
+# the kernel's output against the plain float32 version on the same
+# operands, as max |Δ| over max |plain|: the design splits A and a float32 x
+# into bf16 hi + lo (float32 in value), a design without the lo planes
+# (sat_nosplit_plain) rounds A and x to bf16 before the product
+SAT_SPLIT_TOL = 1e-4
 
 
-def cheb_sat_bound(B, K, N, M):
+def cheb_sat_bound(B, K, N, M, x_bytes=4, products=1):
+    """(ms, by) of the least time at (B, K, N, M): the operations against
+    the bytes (S, x once, the out written once, bias and T once). With
+    ``products`` (the design's bf16 products a product) the operations run
+    at the bf16 tensor-core peak, else (0) as float32 on the CUDA cores."""
     flops = 2 * B * K * N * N * M
-    nbytes = 4 * (B * K * N * N + 2 * K * N * N + B * N * M + B * K * N * M)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    nbytes = 4 * (B * K * N * N + 2 * K * N * N + B * K * N * M) + x_bytes * B * N * M
+    t_ops = products * flops / PEAK_BF16_FLOPS if products else flops / PEAK_F32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def cheb_sat_inputs(B, K, N, M, seed):
+def cheb_sat_inputs(B, K, N, M, seed, x_dtype=torch.float32):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
     scores = torch.randn(B, K, N, N, generator=g, device=dev)
     adj_pa = (torch.rand(N, N, generator=g, device=dev) < 0.3).float()
     masks = torch.randn(K, N, N, generator=g, device=dev)
     cheb = torch.randn(K, N, N, generator=g, device=dev)
-    x = torch.randn(B, N, M, generator=g, device=dev)
+    x = torch.randn(B, N, M, generator=g, device=dev).to(x_dtype)
     return scores, (adj_pa[None] * masks).contiguous(), cheb, x
 
 
+def sat_nosplit_plain(s, bias, cheb, x):
+    """The control of the split check: the plain version with A and x
+    rounded to bf16 before the product (float32 sums)."""
+    p = torch.softmax(s + bias[None], dim=2)
+    a = (cheb[None] * p).bfloat16().float()
+    return torch.einsum("bkij,bim->bkjm", a, x.bfloat16().float())
+
+
+def check_sat_smem():
+    """cheb_sat.sat_plan's shared-memory and scratch bytes against the
+    kernel's own (cheb_sat_smem_bytes, cheb_sat_scratch_bytes) at every
+    cheb_sat shape in both x dtypes, and sat_smem_bytes at every tile the
+    kernel takes; every plan fits its blocks an SM (two at 8 warps, one at
+    16). Returns the number of plans checked."""
+    lib = cheb_sat._load()
+    for tj in (64, 128):
+        for tm in (16, 32, 64, 128, 256):
+            for xs in (0, 1):
+                for ns in (2, 3, 4):
+                    got = cheb_sat.sat_smem_bytes(tj, tm, xs, ns)
+                    want = lib.cheb_sat_smem_bytes(tj, tm, xs, ns)
+                    check(got == want, f"sat_smem_bytes({tj}, {tm}, {xs}, {ns}) = {got}, "
+                                       f"the kernel requests {want}")
+    n = 0
+    for _, B, K, N, M, _ in CHEB_SAT_SHAPES:
+        for bf in (False, True):
+            plan = cheb_sat.sat_plan(B, K, N, M, bf)
+            want = (lib.cheb_sat_smem_bytes(plan["tj"], plan["tm"], 0 if bf else 1,
+                                            plan["stages"]),
+                    lib.cheb_sat_scratch_bytes(B, K, N, M, int(bf)))
+            check((plan["smem"], plan["scratch"]) == want
+                  and plan["smem"] <= cheb_sat._SMEM_LIMIT[plan["warps"]],
+                  f"sat_plan({B}, {K}, {N}, {M}, {bf}) = {plan}; the kernel's bytes {want}")
+            n += 1
+    return n
+
+
 def phase_kernels():
+    n_plans = check_sat_smem()
     rows = []
-    for seed, (label, B, K, N, M) in enumerate(CHEB_SAT_SHAPES):
-        s, bias, cheb, x = cheb_sat_inputs(B, K, N, M, seed)
+    for seed, (label, B, K, N, M, xdt) in enumerate(CHEB_SAT_SHAPES):
+        s, bias, cheb, x = cheb_sat_inputs(B, K, N, M, seed, xdt)
         got = cheb_sat.sat_aggregate_cuda(s, bias, cheb, x)
         want = cheb_sat.sat_aggregate_plain(s, bias, cheb, x)
+        control = sat_nosplit_plain(s, bias, cheb, x)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ok = bool(torch.allclose(got, want, atol=TOL, rtol=TOL))
+        err, rel = rel_err(got, want)
+        ok = bool(torch.allclose(got, want, atol=TOL, rtol=TOL)) and rel <= TOL
+        plan = cheb_sat.sat_plan(B, K, N, M, xdt == torch.bfloat16)
+        split = {"kernel": rel, "nosplit": rel_err(control, want)[1], "tol": SAT_SPLIT_TOL}
+        split["ok"] = split["kernel"] <= SAT_SPLIT_TOL < split["nosplit"]
         row = {"shape": label, "B": B, "K": K, "N": N, "M": M,
-               "max_abs_err": err, "ok": ok}
+               "x_dtype": str(xdt).split(".")[-1], "design": CHEB_SAT_DESIGN,
+               "plan": plan, "smem_check": f"{n_plans} plans equal the kernel's bytes",
+               "max_abs_err": err, "rel_err": rel, "ok": ok, "split_check": split,
+               "bit_identical": bool(torch.equal(got, cheb_sat.sat_aggregate_cuda(s, bias, cheb,
+                                                                                   x)))}
+        del control
         if label in GRAD_SHAPES:
             row["grad_max_abs_err"] = grad_error(s, bias, cheb, x)
         iters = 5 if N > 1024 else 20
         row["ms"] = cuda_ms(lambda: cheb_sat.sat_aggregate_cuda(s, bias, cheb, x), iters)
         row["plain_ms"] = cuda_ms(lambda: cheb_sat.sat_aggregate_plain(s, bias, cheb, x), iters)
-        row["bound_ms"], row["bound_by"] = cheb_sat_bound(B, K, N, M)
+        row["bound_ms"], row["bound_by"] = cheb_sat_bound(B, K, N, M, x.element_size(),
+                                                          plan["products"])
+        row["f32_bound_ms"], row["f32_bound_by"] = cheb_sat_bound(B, K, N, M, x.element_size(),
+                                                                  0)
         print("cheb_sat", json.dumps(row), flush=True)
-        check(ok, f"cheb_sat kernel vs plain at {label}: max |d| {err:.3g} > {TOL}")
+        check(ok, f"cheb_sat kernel vs plain at {label}: max |d| {err:.3g} ({rel:.3g} of "
+                  f"scale) > {TOL}")
+        check(split["ok"], f"cheb_sat split check at {label}: {split}")
+        check(row["bit_identical"], f"cheb_sat output differs over two launches at {label}")
         if "grad_max_abs_err" in row:
             check(row["grad_max_abs_err"] <= GRAD_TOL,
                   f"cheb_sat gradients at {label}: {row['grad_max_abs_err']:.3g}")
         rows.append(row)
         del s, bias, cheb, x, got, want
     return rows
+
+
+# kernel-name fragments of each cheb_sat pass ("product": the tensor-core
+# kernel, or an older version's CUDA-core aggregate_kernel)
+SAT_PASSES = (("stats", ("colstats_kernel",)), ("form", ("form_kernel",)),
+              ("x_planes", ("x_planes_kernel",)),
+              ("product", ("sat_wmma_kernel", "aggregate_kernel")))
+
+
+def measure_cheb_sat(iters: int = 10) -> dict:
+    """cheb_sat at the four main shapes, x in the main path's dtype: the
+    kernel and the plain version by CUDA events, and the kernel's device
+    time by pass (torch.profiler; "other" is the wrapper's allocations and
+    casts). A version of the package whose kernel (and plain version)
+    takes float32 x only is timed with the cast the model's wrapper then
+    makes (``x_cast``). For ``--compare``."""
+    out = {}
+    for seed, (label, B, K, N, M, xdt) in enumerate(CHEB_SAT_SHAPES):
+        if label not in CHEB_SAT_MAIN:
+            continue
+        s, bias, cheb, x = cheb_sat_inputs(B, K, N, M, seed, xdt)
+        try:
+            cheb_sat.sat_aggregate_cuda(s, bias, cheb, x)
+            cast = False
+        except TypeError:
+            cast = True
+        xx = (lambda: x.float()) if cast else (lambda: x)
+        run = lambda: cheb_sat.sat_aggregate_cuda(s, bias, cheb, xx())
+        n = iters if N > 1024 else 4 * iters
+        out[label] = {"ms": cuda_ms(run, n), "x_dtype": str(xdt).split(".")[-1],
+                      "x_cast": cast,
+                      "plain_ms": cuda_ms(lambda: cheb_sat.sat_aggregate_plain(s, bias, cheb,
+                                                                               xx()), n),
+                      **_profile_passes(run, n, SAT_PASSES)}
+        del s, bias, cheb, x
+    print("measure_cheb_sat", json.dumps(out), flush=True)
+    return out
 
 
 def grad_error(s, bias, cheb, x) -> float:
@@ -1396,19 +1520,22 @@ def forward_bits(path: Path) -> dict:
 
 def compare_run(out: Path) -> dict:
     """One side of a comparison of two commits in one chip call: the float32
-    kernels' bits (against the first side's, saved beside ``out``), K1 and
-    F by pass at GAMBIA blocks 1-2, K2 there and on the 17-slot random graph,
-    and the GAMBIA BELL-tiles bf16 epoch with and
-    without fuse_gtu (ms/step, device time, epoch peak memory), written to
+    kernels' bits (against the first side's, saved beside ``out``), cheb_sat
+    at its four main shapes, K1 and F by pass at GAMBIA blocks 1-2, K2 there
+    and on the 17-slot random graph, and the GAMBIA dense (use_pallas) and
+    BELL-tiles bf16 epochs with and without fuse_gtu (ms/step, device time,
+    epoch peak memory, the profile's ops by input shape), written to
     ``out``. Run it from a checkout of each commit in turns (parent, change,
     change, parent), loading this file with importlib so that each
     checkout's own package is imported. The spatial and TAt passes are
     measured by ``--measure``."""
     out.parent.mkdir(parents=True, exist_ok=True)
     result = {"card": card_line(), "forward_bits": forward_bits(out.parent / "forward_bits.json"),
+              "cheb_sat": measure_cheb_sat(),
               "k1_passes": measure_k1_passes(), "f_passes": measure_f_passes(),
               "k2": measure_k2()}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        result["gambia_dense"] = measure_gambia_fuse_gtu(Path(tmp), rounds=3, paths=("dense",))
         result["gambia_bell_tiles"] = measure_gambia_fuse_gtu(Path(tmp), rounds=3,
                                                               paths=("bell_tiles",))
     out.write_text(json.dumps(result, indent=1))
@@ -1743,11 +1870,13 @@ def measure_pems08_epochs(root: Path, rounds: int = 2):
 
 
 def profile_epoch(trainer, top: int = 12):
-    """torch.profiler over one training epoch: device time by kernel name,
+    """torch.profiler over one training epoch (input shapes recorded):
+    device time by kernel name, by host op and by host op and input shapes,
     the device-busy share of the wall time, and the launch count."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer.train_epoch(1000)
@@ -1762,11 +1891,17 @@ def profile_epoch(trainer, top: int = 12):
     busy_ms = sum(dev(e) for e in kernels)
     rank = lambda rows: [{"name": e.key[:90], "count": e.count, "device_ms": dev(e)}
                          for e in sorted(rows, key=dev, reverse=True)[:top]]
+    # the host ops again, apart by their inputs' shapes: which product a
+    # kernel of the ranking belongs to
+    shaped = [e for e in prof.key_averages(group_by_input_shape=True)
+              if e.device_type == torch.autograd.DeviceType.CPU and dev(e) > 0]
+    by_shape = [{"name": e.key[:60], "shapes": str(e.input_shapes)[:160], "count": e.count,
+                 "device_ms": dev(e)} for e in sorted(shaped, key=dev, reverse=True)[:top]]
     return {"steps": trainer.last_epoch_steps, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
             "device_ms_per_step": busy_ms / trainer.last_epoch_steps,
             "kernel_launches": sum(e.count for e in kernels),
-            "top_ops": rank(ops), "top_kernels": rank(kernels)}
+            "top_ops": rank(ops), "top_ops_by_shape": by_shape, "top_kernels": rank(kernels)}
 
 
 def measure_pems08_fused(root: Path, rounds: int = 2,
@@ -2218,6 +2353,7 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
     record repeats its port kernel's, ``kernel_of``): launches from its main
     path, times and bound at the main path's shape."""
     main_row = next(r for r in rows if r["shape"] == "pems08_blocks2-4")
+    g2 = next(r for r in rows if r["shape"] == "gambia_block2")
     src, site = KERNEL_SITES["cheb_sat"]
     out = [{
         "name": "cheb_sat", "route": "cuda", "source": src, "replaces": site,
@@ -2226,8 +2362,11 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None,
-        "shape": "B=64 K=3 N=170 M=384 (PEMS08 blocks 2-4)",
+        "shape": "B=64 K=3 N=170 M=384 (PEMS08 blocks 2-4), x float32",
+        "design": main_row["design"], "f32_bound_ms": main_row["f32_bound_ms"],
         "launches_gambia": gambia["launches"],
+        "gambia_block2": {k: g2[k] for k in ("x_dtype", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "f32_bound_ms")},
     }]
     for name in ("bell_fused", "bell_k1", "bell_k2"):
         mine = [r for r in bell_rows if r["kernel"] == name]

@@ -3,8 +3,10 @@ package's Pallas kernel, run in interpret mode on the CPU.
 
 On CPU tensors the wrapper takes the plain PyTorch version; the CUDA kernel
 itself is held against that version on the card (the ``cuda`` case below,
-skipped here, and chip_smoke.py). Forward atol 2e-4 and gradient atol 5e-3,
-the precedents of tests/test_pallas_cheb.py.
+skipped here, and chip_smoke.py). Here the kernel's launch plan is pinned
+and its hi/lo arithmetic emulated in plain torch. Forward atol 2e-4 and
+gradient atol 5e-3, the precedents of tests/test_pallas_cheb.py; bf16
+outputs 1e-2 of their scale.
 """
 import jax
 import jax.numpy as jnp
@@ -69,6 +71,12 @@ def test_kernel_refuses_what_it_does_not_take(rng):
         cheb_sat.sat_aggregate_cuda(*args)
     with pytest.raises(TypeError, match="float32"):
         cheb_sat.sat_aggregate_cuda(args[0].double(), *args[1:])
+    with pytest.raises(TypeError, match="float32"):
+        cheb_sat.sat_aggregate_cuda(args[0].bfloat16(), *args[1:])
+    # a bf16 x passes the dtype check, and a CPU tensor still never
+    # reaches the kernel
+    with pytest.raises(ValueError, match="CUDA"):
+        cheb_sat.sat_aggregate_cuda(*args[:3], args[3].bfloat16())
     with pytest.raises(ValueError, match="x must be"):
         cheb_sat.sat_aggregate_cuda(*args[:3], args[3][:, :5])
 
@@ -108,6 +116,116 @@ def test_function_gradcheck_float64(rng):
         lambda s, b, xx: cheb_sat.SatAggregate.apply(s, b, cheb, xx), (scores, bias, x))
 
 
+# sat_plan at the main path's shapes (x as the model hands it over: float32
+# at PEMS08, bf16 at GAMBIA) and the ragged shapes of chip_smoke.py's
+# CHEB_SAT_SHAPES: (B, K, N, M, x_is_bf16) -> the plan
+SAT_PLANS = [
+    ((64, 3, 170, 12, False), dict(tj=64, tm=16, warps=8, stages=4, x_planes=True,
+                                   products=3, smem=49152, scratch=23936000,
+                                   grid=(1, 3, 192))),
+    ((64, 3, 170, 384, False), dict(tj=64, tm=128, warps=8, stages=4, x_planes=True,
+                                    products=3, smem=106496, scratch=39951360,
+                                    grid=(3, 3, 192))),
+    ((4, 2, 2139, 576, True), dict(tj=128, tm=128, warps=8, stages=4, x_planes=False,
+                                   products=2, smem=104448, scratch=146889728,
+                                   grid=(5, 17, 8))),
+    ((4, 2, 2139, 4608, True), dict(tj=128, tm=256, warps=16, stages=4,
+                                    x_planes=False, products=2, smem=137216,
+                                    scratch=146889728, grid=(18, 17, 8))),
+    ((1, 2, 7, 12, False), dict(tj=64, tm=16, warps=8, stages=4, x_planes=True,
+                                products=3, smem=49152, scratch=1536, grid=(1, 1, 2))),
+    ((1, 2, 130, 15, False), dict(tj=64, tm=16, warps=8, stages=4, x_planes=True,
+                                  products=3, smem=49152, scratch=152576, grid=(1, 3, 2))),
+    ((1, 2, 33, 18, False), dict(tj=64, tm=32, warps=8, stages=4, x_planes=True,
+                                 products=3, smem=57344, scratch=15104, grid=(1, 1, 2))),
+]
+
+
+@pytest.mark.parametrize("shape,want", SAT_PLANS, ids=[str(s) for s, _ in SAT_PLANS])
+def test_sat_plan_pins(shape, want):
+    plan = cheb_sat.sat_plan(*shape)
+    assert plan == want
+    # two blocks share an SM at 8 warps, one holds it at 16; the bytes are
+    # the formula's
+    assert plan["smem"] <= {8: 115712, 16: 232448}[plan["warps"]]
+    xs = 0 if shape[-1] else 1
+    assert plan["smem"] == cheb_sat.sat_smem_bytes(plan["tj"], plan["tm"], xs, plan["stages"])
+
+
+def test_sat_plan_float32_x_at_gambia_takes_three_products():
+    """The other x dtype at GAMBIA block 2: x's hi and lo planes (scratch
+    grows by B·N·pad8(M)·4 bytes), a third product, the same tiles."""
+    bf, f32 = (cheb_sat.sat_plan(4, 2, 2139, 4608, b) for b in (True, False))
+    assert (f32["products"], f32["x_planes"], f32["smem"]) == (3, True, 204800)
+    assert (f32["tj"], f32["tm"], f32["stages"]) == (bf["tj"], bf["tm"], bf["stages"])
+    assert f32["scratch"] - bf["scratch"] == 4 * 4 * 2139 * 4608
+
+
+def _split(v):
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float()
+
+
+@pytest.mark.parametrize("N,M,x_bf16", [(170, 64, False), (300, 48, True), (33, 18, False)])
+def test_split_emulation_meets_float32(rng, N, M, x_bf16):
+    """The kernel's arithmetic in plain torch: Aᵀ·x as the three bf16
+    products A_hiᵀx_hi + A_hiᵀx_lo + A_loᵀx_hi (bf16 products are exact in
+    float32; the sums float32) is within 1e-4 of scale of the float64
+    product, where a no-split control (A and x rounded to bf16) is not."""
+    s = torch.from_numpy(rng.normal(size=(N, N)))
+    a = (torch.from_numpy(rng.normal(size=(N, N))) * torch.softmax(s, dim=0)).float()
+    x = torch.from_numpy(rng.normal(size=(N, M))).float()
+    if x_bf16:
+        x = x.bfloat16().float()
+    want = a.double().T @ x.double()
+    a_hi, a_lo = _split(a)
+    x_hi, x_lo = _split(x)
+    split = a_hi.T @ x_hi + a_hi.T @ x_lo + a_lo.T @ x_hi
+    control = a.bfloat16().float().T @ x.bfloat16().float()
+    scale = float(want.abs().max())
+    rel = lambda got: float((got.double() - want).abs().max()) / scale
+    assert rel(split) <= 1e-4 < rel(control)
+    if x_bf16:
+        assert float(x_lo.abs().max()) == 0.0  # the product the plan drops is zero
+
+
+def test_bf16_x_through_function_keeps_its_value(rng):
+    """A bf16 x goes into SatAggregate as it is: the output equals the one
+    from its float32 copy, and dx comes back in bf16, the float32 dx
+    rounded."""
+    scores, adj_pa, masks, cheb, _, x = _inputs(rng)
+    bias = T_(adj_pa[None] * masks)
+    xb = T_(x.reshape(2, 19, 24)).bfloat16()
+    outs, grads = [], []
+    for xx in (xb.clone(), xb.float()):
+        xx.requires_grad_(True)
+        out = cheb_sat.SatAggregate.apply(T_(scores), bias, T_(cheb), xx)
+        (out * out).sum().backward()
+        outs.append(out)
+        grads.append(xx.grad)
+    assert torch.equal(outs[0], outs[1])
+    assert grads[0].dtype == torch.bfloat16
+    assert torch.equal(grads[0], grads[1].bfloat16())
+
+
+def test_bf16_conv_matches_jax_by_value(rng):
+    """bf16 inputs through the drop-in against the JAX drop-in (interpret
+    mode), by value within 1e-2 of the output's scale (both aggregate in
+    float32; the bf16 rounding of the output may differ by an ulp)."""
+    scores, adj_pa, masks, cheb, thetas, x = _inputs(rng)
+    bf = lambda a: T_(a).bfloat16()
+    got = cheb_sat.cheb_conv_with_sat_pallas(
+        bf(x), bf(scores), bf(adj_pa), cheb_polys=bf(cheb), masks=bf(masks),
+        thetas=bf(thetas))
+    jb = lambda a: jnp.asarray(a, dtype=jnp.bfloat16)
+    want = np.asarray(jax_conv_pallas(
+        jb(x), jb(scores), jb(adj_pa), cheb_polys=jb(cheb), masks=jb(masks),
+        thetas=jb(thetas)).astype(jnp.float32))
+    assert got.dtype == torch.bfloat16
+    scale = max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got.float().numpy() - want).max()) <= 1e-2 * scale
+
+
 def test_bf16_inputs_return_input_dtype(rng):
     scores, adj_pa, masks, cheb, thetas, x = _inputs(rng)
     out = cheb_sat.cheb_conv_with_sat_pallas(
@@ -122,13 +240,15 @@ def test_kernel_matches_plain_on_card(rng):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for B, K, N, C, T in ((2, 3, 19, 4, 6), (1, 2, 7, 1, 12), (1, 2, 130, 3, 5)):
+    for B, K, N, C, T in ((2, 3, 19, 4, 6), (1, 2, 7, 1, 12), (1, 2, 130, 3, 5),
+                          (1, 2, 300, 4, 64)):
         scores, adj_pa, masks, cheb, _, x = _inputs(rng, B, K, N, C, T)
         args = [T_(a).cuda().contiguous() for a in
                 (scores, adj_pa[None] * masks, cheb, x.reshape(B, N, C * T))]
-        before = cheb_sat.launches
-        got = cheb_sat.fused_sat_aggregate(*args)
-        torch.cuda.synchronize()
-        assert cheb_sat.launches == before + 1
-        want = cheb_sat.sat_aggregate_plain(*args)
-        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+        for xx in (args[3], args[3].bfloat16()):  # float32 x (three products), bf16 (two)
+            before = cheb_sat.launches
+            got = cheb_sat.fused_sat_aggregate(*args[:3], xx)
+            torch.cuda.synchronize()
+            assert cheb_sat.launches == before + 1
+            want = cheb_sat.sat_aggregate_plain(*args[:3], xx)
+            torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
