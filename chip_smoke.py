@@ -76,7 +76,17 @@ Phases; any failure exits non-zero:
      the GTU and BELL launch counts checked;
   6. GAMBIA BELL with dense masks and rcm=true, one epoch, its test
      predictions held against an unpermuted model in the original order;
-  7. a JSON line with every kernel's numbers, then the device line.
+  7. the graph pipeline's STAG construction at GAMBIA's shapes (T=287,
+     F=4): the fast PCA variant at N=2139, the Sinkhorn STAG of the first
+     128 nodes (8,128 pairs, 200 iterations) through the stag_gen CLI, its
+     CSVs read back, its first 16 nodes held against the port's own CPU run;
+     pairs/s and peak memory (torch ops, no kernel);
+  8. the ELL trainer at the GAMBIA configuration (sparse, sparse_format=ell,
+     bf16): Trainer.run for 2 epochs of 3 steps on the grid graph, falling
+     losses, no kernel launched, the aggregation branch each block took
+     (one-shot gather or slot loop) beside its gather bytes, ms/step and
+     epoch peak memory; then one epoch on the 1%-random N=2139 graph;
+  9. a JSON line with every kernel's numbers, then the device line.
 
 ``--measure`` adds the spatial and TAt forward and backward by pass
 (profiles at PEMS08 blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
@@ -84,8 +94,9 @@ fused PEMS08-width bf16 trainer against both unfused paths, GAMBIA dense,
 GAMBIA BELL tiles against both dense paths, and GAMBIA dense and BELL tiles
 with the fused GTU tail against the im2col tail; the fused PEMS08 and the
 GTU comparisons with each epoch's peak device memory) alternated in one process, a torch.profiler breakdown of
-each, and a 25-epoch PEMS08 accuracy run of both dense paths checked
-against the reference model's recorded test MAE. The epoch profiles also
+each, a 25-epoch PEMS08 accuracy run of both dense paths checked
+against the reference model's recorded test MAE, and the Sinkhorn STAG of
+all 2,286,591 GAMBIA pairs (``measure_stag_full``). The epoch profiles also
 rank the host ops by their inputs' shapes. ``--compare OUT`` builds
 and runs only ``compare_run``: one side of a comparison with another
 commit's checkout (the float32 spatial, TAt, K1, K2 and F kernels' bits,
@@ -110,9 +121,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from dstagnn_drought_tpu_torch.cli import stag_gen
 from dstagnn_drought_tpu_torch.config import Config, DataConfig, TrainingConfig
+from dstagnn_drought_tpu_torch.data.adjacency import load_stag_adjacency, load_strg_adjacency
 from dstagnn_drought_tpu_torch.data.dataset import ArrayDataset, Split
+from dstagnn_drought_tpu_torch.data.stag import fast_sta_matrix, sta_matrix
 from dstagnn_drought_tpu_torch.models.dstagnn import permute_nodes
+from dstagnn_drought_tpu_torch.ops import sparse
 from dstagnn_drought_tpu_torch.ops.block_sparse import block_ell_from_adjacency
 from dstagnn_drought_tpu_torch.ops.cuda import (
     bell_bwd,
@@ -2086,13 +2101,14 @@ BELL_DENSE_RCM = dict(sparse=True, sparse_format="bell", rcm=True, block_size=12
 
 
 
-def run_gambia(root: Path, name: str, epochs: int, **keys):
+def run_gambia(root: Path, name: str, epochs: int, adj=None, **keys):
     """Trainer.run at the GAMBIA config (``keys`` add training keys: the
-    BELL keys, fuse_gtu), with every launch count set to 0 just before and
-    read just after. Checks finite losses, a checkpoint and the test dump.
-    Returns (trainer, dataset, summary with the launches, forward passes and
-    train steps)."""
+    BELL or ELL keys, fuse_gtu; ``adj`` replaces the grid graph), with every
+    launch count set to 0 just before and read just after. Checks finite
+    losses, a checkpoint and the test dump. Returns (trainer, dataset,
+    summary with the launches, forward passes and train steps)."""
     ds, A, pa = gambia_data()
+    A = A if adj is None else adj
     N = A.shape[0]
     trainer = Trainer(gambia_config(N, **keys), dataset=ds, adj_merge=A, adj_pa=pa,
                       experiments_root=str(root / name), device="cuda")
@@ -2211,6 +2227,263 @@ def measure_gambia_bell(root: Path, rounds: int = 2):
     out = {"path": "gambia_bell_step_ms", **times,
            "profile": {"bell_tiles": profile_epoch(trainers["bell_tiles"])}}
     print("measure", json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: STAG construction on the card
+# ---------------------------------------------------------------------------
+
+STAG_T = 287          # GAMBIA's monthly steps (benchmarks/gambia_bench.py:7-9)
+STAG_NODES = 128      # the Sinkhorn run's nodes: 8,128 pairs, two blocks of 4096
+STAG_SUBSET = 16      # the nodes whose Sinkhorn result the CPU run checks
+# card against the port's own CPU run of the same float32 ops, relative to
+# the largest distance: the log-sum-exp reductions and exp run in another
+# order and implementation over 200 iterations; the float32 result itself
+# sits 6.1e-6 of scale from a float64 run of the same code (CPU, 8 nodes)
+STAG_CPU_TOL = 1e-4
+
+
+def synth_drought(seed: int = 0):
+    """The numpy recipe of benchmarks/gambia_bench.py:synth_drought: a
+    (T=287, N=2139, F=4) smooth seasonal field with spatially smoothed
+    anomalies on the 93×23 grid, and its (N, 2) grid coordinates."""
+    rng = np.random.default_rng(seed)
+    nx, ny, F = GAMBIA_NX, GAMBIA_NY, GAMBIA_F
+    gx, gy = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    coords = np.stack([gx.ravel(), gy.ravel()], 1).astype(np.float32)
+    t = np.arange(STAG_T)[:, None]
+    season = np.sin(2 * np.pi * t / 12.0 + coords[None, :, 0] / nx * 2)
+    out = np.empty((STAG_T, nx * ny, F), np.float32)
+    for f in range(F):
+        a = rng.normal(size=(STAG_T, nx * ny)).astype(np.float32) * 0.3
+        a = a.reshape(STAG_T, nx, ny)
+        a = (a + np.roll(a, 1, 1) + np.roll(a, -1, 1)
+             + np.roll(a, 1, 2) + np.roll(a, -1, 2)) / 5.0
+        out[..., f] = 10 + 3 * season * (0.5 + 0.5 * f / F) + a.reshape(STAG_T, nx * ny)
+    return out, coords
+
+
+def check_sta(name: str, sta: np.ndarray, hi: float) -> None:
+    """Finite, symmetric, zero diagonal, in [0, hi] (1e-6 of slack for the
+    float32 sums)."""
+    check(bool(np.isfinite(sta).all()), f"{name}: non-finite entries")
+    check(np.array_equal(sta, sta.T), f"{name}: not symmetric")
+    check(bool(np.all(np.diag(sta) == 0)), f"{name}: non-zero diagonal")
+    check(float(sta.min()) >= -1e-6 and float(sta.max()) <= hi + 1e-6,
+          f"{name}: entries outside [0, {hi}]: {sta.min()}, {sta.max()}")
+
+
+def phase_stag(root: Path):
+    """STAG construction on the card at GAMBIA's shapes (T=287, F=4): the
+    fast PCA variant at full N=2139; the Sinkhorn STAG (200 iterations,
+    blocks of 4096 pairs) of the first 128 nodes through the stag_gen CLI,
+    its CSVs read back by the port's loaders; its first 16 nodes held
+    against the port's own CPU run."""
+    sig, coords = synth_drought()
+    N = sig.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fast = fast_sta_matrix(sig, coords, device="cuda")
+    fast_s = time.perf_counter() - t0
+    check_sta("fast_sta_matrix", fast, 2.0)  # cosine distance: [0, 2]
+    check(int((fast > 0).sum()) > 0, "fast_sta_matrix: no pair within the cutoff")
+
+    sub = sig[:, :STAG_NODES]
+    np.savez(root / "GAMBIA128.npz", data=sub)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sta, A, R, (a_path, r_path) = stag_gen.main([
+        "--input", str(root / "GAMBIA128.npz"), "--dataset", "GAMBIA128",
+        "--out-dir", str(root / "stag"), "--iters", "200", "--block-size", "4096",
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    sink_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    pairs = STAG_NODES * (STAG_NODES - 1) // 2
+    check_sta("sta_matrix", sta, 1.0)
+    check(np.array_equal(load_stag_adjacency(a_path, STAG_NODES), A),
+          "stag CSV read back differs")
+    check(np.array_equal(load_strg_adjacency(r_path), (R > 0).astype(np.float64)),
+          "strg CSV read back differs")
+
+    sub16 = sig[:, :STAG_SUBSET]
+    kw = dict(num_iters=200, block_size=STAG_SUBSET * (STAG_SUBSET - 1) // 2)
+    card16 = sta_matrix(sub16, device="cuda", **kw)
+    t0 = time.perf_counter()
+    cpu16 = sta_matrix(sub16, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(cpu16).max())
+    err = float(np.abs(card16 - cpu16).max()) / scale
+    in_blocks = float(np.abs(card16 - sta[:STAG_SUBSET, :STAG_SUBSET]).max()) / scale
+    out = {"path": "stag", "device": torch.cuda.get_device_name(0), "T": STAG_T,
+           "F": sig.shape[2], "fast_N": N, "fast_seconds": fast_s,
+           "fast_nonzero_pairs": int((np.triu(fast, 1) > 0).sum()),
+           "sinkhorn_nodes": STAG_NODES, "sinkhorn_pairs": pairs, "iters": 200,
+           "block_size": 4096, "sinkhorn_seconds_cli": sink_s,
+           "pairs_per_s": pairs / sink_s, "peak_mib": peak,
+           "sta_range": [float(sta[np.triu_indices(STAG_NODES, 1)].min()), float(sta.max())],
+           "edges_per_row": float(A.sum(1).mean()),
+           "card_vs_cpu_rel_err": err, "card_vs_cpu_tol": STAG_CPU_TOL,
+           "cpu_subset_seconds": cpu_s, "subset_vs_128_node_blocks": in_blocks}
+    print("graph_pipeline", json.dumps(out), flush=True)
+    check(err <= STAG_CPU_TOL, f"Sinkhorn card vs CPU: {err:.3g} of scale > {STAG_CPU_TOL}")
+    return out
+
+
+def measure_stag_full():
+    """The Sinkhorn STAG of all 2,286,591 GAMBIA pairs (T=287, F=4, 200
+    iterations, blocks of 4096) on the card: seconds, pairs/s, peak memory."""
+    sig, _ = synth_drought()
+    N = sig.shape[1]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sta = sta_matrix(sig, num_iters=200, block_size=4096, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_sta("sta_matrix (full)", sta, 1.0)
+    pairs = N * (N - 1) // 2
+    out = {"path": "stag_full", "device": torch.cuda.get_device_name(0), "N": N,
+           "pairs": pairs, "seconds": seconds, "pairs_per_s": pairs / seconds,
+           "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2 ** 20}
+    print("measure", json.dumps(out), flush=True)
+    return out
+
+
+def profile_sinkhorn_block(iters: int = 200, top: int = 8):
+    """torch.profiler over one Sinkhorn block of 4096 GAMBIA pairs (T=287,
+    F=4): device time by kernel, the busy share, and the block's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dstagnn_drought_tpu_torch.data import stag
+
+    sig, _ = synth_drought()
+    marg, xn = stag._marginals_and_normed(torch.as_tensor(sig, device="cuda"))
+    iu, ju = np.triu_indices(sig.shape[1], k=1)
+    ii = torch.as_tensor(iu[:4096], device="cuda")
+    jj = torch.as_tensor(ju[:4096], device="cuda")
+    stag._pair_block_distances(marg, xn, ii, jj, 0.01, 2)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stag._pair_block_distances(marg, xn, ii, jj, 0.01, iters)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = lambda e: e.self_device_time_total / 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(dev(e) for e in kernels)
+    out = {"path": "sinkhorn_block_profile", "device": torch.cuda.get_device_name(0),
+           "pairs": 4096, "iters": iters, "wall_ms": wall_ms, "device_busy_ms": busy,
+           "busy_share": busy / wall_ms,
+           "top_kernels": [{"name": e.key[:90], "count": e.count, "device_ms": dev(e)}
+                           for e in sorted(kernels, key=dev, reverse=True)[:top]]}
+    print("measure", json.dumps(out), flush=True)
+    return out
+
+
+def measure_graph_pipeline(root: Path):
+    """The Sinkhorn block's profile, and an epoch profile of the GAMBIA ELL
+    trainer on the grid graph and on the 1%-random graph."""
+    out = {"sinkhorn_block": profile_sinkhorn_block()}
+    for name, adj in (("grid", None),
+                      ("random", random_adjacency(GAMBIA_NX * GAMBIA_NY, 0.01, 1))):
+        trainer, _, _ = run_gambia(root, f"m_ell_{name}", 1, adj=adj, **ELL_KEYS)
+        out[f"ell_{name}"] = profile_epoch(trainer)
+    print("measure", json.dumps({"path": "ell_epoch_profiles",
+                                 **{k: v for k, v in out.items() if k.startswith("ell")}}),
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the GAMBIA ELL trainer
+# ---------------------------------------------------------------------------
+
+ELL_KEYS = dict(sparse=True, sparse_format="ell")
+NO_KERNEL = tuple(read_launches())
+
+
+def record_ell_branches():
+    """Wrap the two ELL aggregation branches so that each call records its
+    (C·T, gather bytes, branch); returns the record list and an undo."""
+    calls, real = [], (sparse._gather_aggregate, sparse._slot_loop_aggregate)
+
+    def wrap(fn, branch):
+        def run(A, xm, ell):
+            calls.append((xm.shape[-1], sparse.edge_gather_bytes(xm, ell), branch))
+            return fn(A, xm, ell)
+        return run
+
+    sparse._gather_aggregate = wrap(real[0], "gather")
+    sparse._slot_loop_aggregate = wrap(real[1], "slot_loop")
+
+    def undo():
+        sparse._gather_aggregate, sparse._slot_loop_aggregate = real
+    return calls, undo
+
+
+def ell_blocks(calls: list, nb: int = 2) -> list:
+    """Per block (by C·T, in block order): its gather bytes, the limit and
+    the branches its calls took."""
+    out = []
+    for ct in sorted({c[0] for c in calls}):
+        mine = [c for c in calls if c[0] == ct]
+        out.append({"CT": ct, "gather_bytes": mine[0][1],
+                    "limit_bytes": sparse._GATHER_BYTES_LIMIT,
+                    "branches": sorted({c[2] for c in mine}), "calls": len(mine)})
+    check(len(out) == nb, f"ELL aggregation at {len(out)} widths, expected {nb} blocks")
+    return out
+
+
+def epoch_peak(trainer, epoch: int) -> tuple[float, float]:
+    """(ms/step, peak MiB above what was allocated before) of one epoch."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train_epoch(epoch)
+    ms = (time.perf_counter() - t0) / trainer.last_epoch_steps * 1e3
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def phase_gambia_ell(root: Path):
+    """The ELL trainer at the GAMBIA configuration (bf16, B=4, nb_block=2,
+    T=144→12): Trainer.run for 2 epochs of 3 steps on the grid graph (E=5),
+    falling losses and no kernel launched (ELL is torch ops; use_pallas is
+    ignored on it); block 1 takes the one-shot gather, block 2 the slot
+    loop. Then one epoch on the 1%-random N=2139 graph of phase 2b."""
+    calls, undo = record_ell_branches()
+    try:
+        trainer, _, out = run_gambia(root, "gambia_ell", 2, **ELL_KEYS)
+        blocks = ell_blocks(calls)
+        ms, peak = epoch_peak(trainer, 2)
+        calls.clear()
+        rnd, _, rnd_out = run_gambia(root, "gambia_ell_random", 1,
+                                     adj=random_adjacency(GAMBIA_NX * GAMBIA_NY, 0.01, 1),
+                                     **ELL_KEYS)
+        rnd_blocks = ell_blocks(calls)
+        rnd_ms, rnd_peak = epoch_peak(rnd, 1)
+    finally:
+        undo()
+    check_launches(out, never=NO_KERNEL)
+    check_launches(rnd_out, never=NO_KERNEL)
+    losses = out["train_losses"]
+    check(losses[1] < losses[0], f"gambia_ell: epoch-2 loss {losses[1]} not below {losses[0]}")
+    check([b["branches"] for b in blocks] == [["gather"], ["slot_loop"]],
+          f"gambia_ell branches {blocks}")
+    out.update(E=trainer.constants["ell"].max_degree, blocks=blocks,
+               ms_per_step_epoch3=ms, epoch_peak_mib=peak,
+               random_graph={"E": rnd.constants["ell"].max_degree,
+                             "edges": rnd.constants["ell"].num_edges,
+                             "train_losses": rnd_out["train_losses"],
+                             "test_loss": rnd_out["test_loss"], "blocks": rnd_blocks,
+                             "ms_per_step_epoch2": rnd_ms, "epoch_peak_mib": rnd_peak})
+    print("graph_pipeline", json.dumps(out), flush=True)
     return out
 
 
@@ -2466,13 +2739,17 @@ def main(argv=None) -> int:
         tiles = phase_gambia_bell_tiles(root)
         gtu_bell = phase_gambia_bell_fuse_gtu(root)
         rcm = phase_gambia_bell_rcm(root)
+        stag = phase_stag(root)
+        ell = phase_gambia_ell(root)
         if args.measure:
             measured = {"pems08": measured, "passes": passes,
                         "pems08_fused": measure_pems08_fused(root),
                         "gambia": measure_gambia_steps(root),
                         "gambia_bell": measure_gambia_bell(root),
                         "gambia_fuse_gtu": measure_gambia_fuse_gtu(root),
-                        "accuracy": measure_accuracy(root)}
+                        "accuracy": measure_accuracy(root),
+                        "graph_pipeline": measure_graph_pipeline(root),
+                        "stag_full": measure_stag_full()}
 
     kernels = kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused,
                            gtu, gtu_bell)
@@ -2483,7 +2760,8 @@ def main(argv=None) -> int:
             "fused": fused_rows, "gtu": gtu_rows, "pems08": pems, "pems08_fused": fused,
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
             "gambia_bell_rcm": rcm, "gambia_fuse_gtu": gtu,
-            "gambia_bell_tiles_fuse_gtu": gtu_bell, "kernels": kernels,
+            "gambia_bell_tiles_fuse_gtu": gtu_bell, "stag": stag, "gambia_ell": ell,
+            "kernels": kernels,
             "seconds": time.perf_counter() - t_start,
         }, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

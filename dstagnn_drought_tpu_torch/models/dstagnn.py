@@ -12,17 +12,21 @@ The modules are parameter holders named after the reference's
 ``state_dict`` keys, so ``import_torch_state_dict`` of the JAX package reads
 a port ``state_dict`` unchanged and :func:`params_from_jax` maps the other
 way. The forward is written with the JAX package's layouts and does what
-its ``_block_apply``/``apply`` do on the dense branch and on the BELL
+its ``_block_apply``/``apply`` do on the dense branch, on the BELL
 branch (``bell``: a :class:`~dstagnn_drought_tpu_torch.ops.block_sparse.
-BlockEllGraph`), including the fixed multichannel residual, the ``res_att``
-mean when the feature width changes, and the ``pinned_out`` tail switch
+BlockEllGraph`) and on the ELL branch (``ell``: an
+:class:`~dstagnn_drought_tpu_torch.ops.sparse.EllGraph`; edge SDDMM and
+neighbourhood softmax, the dense masks gathered at the edges), including
+the fixed multichannel residual, the ``res_att`` mean when the feature
+width changes, and the ``pinned_out`` tail switch
 (kernel output and T >= 48 → the (B, N, C, T) GTU tail). The BELL branch has
 three spatial paths: tile-resident masks (``mask_tiles``, built with
 ``make_model(bell=...)``) through the tiles kernel; dense masks with
 ``use_pallas`` through the fused kernel; otherwise the plain block-sparse
 path. ``fuse_tat`` takes the temporal attention through the fused TAt
 kernels on every path; ``fuse_spatial`` takes the dense spatial middle
-through the fused spatial kernels (ignored on the BELL branch, as in JAX);
+through the fused spatial kernels (ignored on the BELL and ELL branches,
+as in JAX; ``use_pallas`` is ignored on ELL too);
 ``fuse_gtu`` takes the GTU tail through the fused GTU kernels on every path
 where their shape gate holds, whatever ``pinned_out`` is.
 bfloat16 compute casts parameters and inputs at the top of the
@@ -68,6 +72,11 @@ from dstagnn_drought_tpu_torch.ops.gtu import (
     gtu_bnct,
 )
 from dstagnn_drought_tpu_torch.ops.nn import dropout, layer_norm
+from dstagnn_drought_tpu_torch.ops.sparse import (
+    gather_edge_values,
+    sparse_cheb_conv_with_sat,
+    sparse_spatial_attention_scores,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +205,7 @@ class STBlock(nn.Module):
         self.ln = nn.LayerNorm(C)
 
     def forward(self, x, res_att, *, adj_pa, cheb_polys, deterministic,
-                generator, use_pallas, bell=None, bell_tiles=None,
+                generator, use_pallas, bell=None, bell_tiles=None, ell=None,
                 fuse_tat=False, fuse_spatial=False, fuse_gtu=False):
         spec = self.spec
         dt = x.dtype
@@ -231,7 +240,8 @@ class STBlock(nn.Module):
         cheb = self.cheb_conv_SAt
         masks = (torch.stack([c(m) for m in cheb.mask])
                  if hasattr(cheb, "mask") else None)
-        fused_spatial = fuse_spatial and bell is None  # dense only, as in JAX
+        # dense only, as in JAX
+        fused_spatial = fuse_spatial and bell is None and ell is None
         if fused_spatial:
             # pre_conv → EmbedS → dropout → SAt → Chebyshev conv in one
             # kernel pair; ahead of use_pallas, as in JAX
@@ -255,6 +265,15 @@ class STBlock(nn.Module):
         # a pallas_call), which switches the tail below
         if fused_spatial:
             pinned_out = True
+        elif ell is not None:
+            # edge list: SDDMM edge scores (the map JAX exports as STAt) and
+            # the neighbourhood-softmax aggregation; use_pallas is ignored
+            pinned_out = False
+            STAt = sparse_spatial_attention_scores(SEmx, ell, wq=wq, wk=wk, n_heads=spec.K,
+                                                   d_k=spec.d_k)
+            spatial_gcn = sparse_cheb_conv_with_sat(
+                x, STAt, ell, cheb_edges=gather_edge_values(cheb_polys, ell),
+                bias_edges=gather_edge_values(adj_pa[None] * masks, ell), thetas=thetas)
         elif bell is None:
             pinned_out = use_pallas
             STAt = spatial_attention_scores(SEmx, wq=wq, wk=wk, n_heads=spec.K,
@@ -360,7 +379,8 @@ class STBlock(nn.Module):
 class DSTAGNN(nn.Module):
     """x: (B, N, F, T) → (B, N, num_for_predict) float32. With ``bell`` (a
     BlockEllGraph) every block holds tile-resident masks on its active-tile
-    support instead of dense (N, N) masks."""
+    support instead of dense (N, N) masks. The forward's ``ell`` (an
+    EllGraph) takes the edge-list branch on the dense masks."""
 
     def __init__(self, spec: ModelSpec, bell=None):
         super().__init__()
@@ -375,9 +395,11 @@ class DSTAGNN(nn.Module):
     def forward(self, x, *, adj_pa, cheb_polys, deterministic: bool = True,
                 generator: torch.Generator | None = None,
                 compute_dtype: torch.dtype = torch.float32,
-                use_pallas: bool = False, bell=None, bell_tiles=None,
+                use_pallas: bool = False, bell=None, bell_tiles=None, ell=None,
                 fuse_tat: bool = False, fuse_spatial: bool = False,
                 fuse_gtu: bool = False):
+        if bell is not None and ell is not None:
+            raise ValueError("give the BELL graph (bell) or the ELL graph (ell), not both")
         x = x.to(compute_dtype)
         adj_pa = adj_pa.to(compute_dtype)
         cheb_polys = cheb_polys.to(compute_dtype)
@@ -388,7 +410,7 @@ class DSTAGNN(nn.Module):
             x, res_att = block(
                 x, res_att, adj_pa=adj_pa, cheb_polys=cheb_polys,
                 deterministic=deterministic, generator=generator,
-                use_pallas=use_pallas, bell=bell, bell_tiles=bell_tiles,
+                use_pallas=use_pallas, bell=bell, bell_tiles=bell_tiles, ell=ell,
                 fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
             )
             outs.append(x)
@@ -446,7 +468,9 @@ def make_model(spec: ModelSpec, adj_merge, adj_pa, *, seed: int = 0,
 
 def params_from_jax(params, spec: ModelSpec) -> dict[str, torch.Tensor]:
     """The inverse of the JAX package's ``import_torch_state_dict``: a JAX
-    parameter pytree (numpy-convertible leaves) → this model's state_dict."""
+    parameter pytree (numpy-convertible leaves) → this model's state_dict.
+    ELL weights carry over unchanged: the ELL branch keeps the dense (K, N,
+    N) masks as parameters (``mask.{k}``) and gathers them at the edges."""
 
     def t(a, transpose=False):
         a = np.asarray(a, dtype=np.float32)

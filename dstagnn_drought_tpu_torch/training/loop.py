@@ -6,11 +6,14 @@ Counterpart of ``dstagnn_drought_tpu/training/loop.py``. The batch plan and
 the per-epoch shuffle seed ``seed*100003 + epoch`` are the JAX package's, so
 both trainers see the same batches; padded tail rows get zero loss weight.
 Each split is moved to the device once and a batch is gathered there by an
-index vector. With ``sparse`` and ``sparse_format=bell`` the BlockEllGraph
-of ``adj_merge`` is built before the model (``mask_format=tiles`` puts the
-masks on its active-tile support) and, with ``rcm``, graphs and data splits
-are permuted by reverse Cuthill–McKee; ``evaluate`` returns predictions in
-the original node order. ``fuse_tat``/``fuse_spatial`` take the steps
+index vector. With ``sparse`` the graph of ``adj_merge`` is built before
+the model: with ``sparse_format=bell`` the BlockEllGraph
+(``mask_format=tiles`` puts the masks on its active-tile support) and, with
+``rcm``, graphs and data splits are permuted by reverse Cuthill–McKee
+(``evaluate`` returns predictions in the original node order); with
+``sparse_format=ell`` (the default) the EllGraph, its slots capped at
+``max_degree`` when that is set, and ``rcm`` leaves the node order alone,
+as in JAX. ``fuse_tat``/``fuse_spatial`` take the steps
 through the fused kernels; ``fuse_gtu`` (``"auto"`` resolves off, as in JAX)
 takes the GTU tail through the fused GTU kernels and raises ``ValueError``
 on shapes their gate rejects (:func:`resolve_fuse_gtu`); on the card a
@@ -50,6 +53,7 @@ from dstagnn_drought_tpu_torch.ops.cuda import (
     gtu_fused,
     tat_fused,
 )
+from dstagnn_drought_tpu_torch.ops.sparse import ell_from_adjacency
 from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
 from dstagnn_drought_tpu_torch.training.logger import MetricLogger
 from dstagnn_drought_tpu_torch.training.metrics import horizon_report
@@ -68,8 +72,6 @@ def check_slice(cfg: Config) -> None:
     refused = [
         (t.model_name not in ("", "dstagnn"),
          f"model_name={t.model_name!r}", "§1 item 11 (model zoo)"),
-        (t.sparse and t.sparse_format == "ell", "sparse_format='ell'",
-         "§1 item 9 (ELL)"),
         (t.data_axis > 1 or t.graph_axis > 1,
          f"data_axis={t.data_axis}, graph_axis={t.graph_axis}",
          "§1 item 12 (multi-device)"),
@@ -198,11 +200,12 @@ class Trainer:
         if adj_merge is None or adj_pa is None:
             adj_merge, adj_pa = load_graphs(cfg)
 
-        # RCM reordering for the block-sparse path: node-indexed state lives
-        # in the permuted order; evaluate() maps predictions back
+        # RCM reordering for the block-sparse path only, as in JAX:
+        # node-indexed state lives in the permuted order; evaluate() maps
+        # predictions back
         self._perm = self._inv_perm = None
-        bell = None
-        if t.sparse:
+        bell = ell = None
+        if t.sparse and t.sparse_format == "bell":
             if t.rcm:
                 adj_merge = np.asarray(adj_merge)
                 perm = rcm_permutation(np.maximum(adj_merge, adj_merge.T))
@@ -211,12 +214,16 @@ class Trainer:
                 adj_pa = np.asarray(adj_pa)[np.ix_(perm, perm)]
             # built before the model: tile-resident masks live on its support
             bell = block_ell_from_adjacency(adj_merge, block_size=t.block_size)
+        elif t.sparse:
+            ell = ell_from_adjacency(adj_merge, max_degree=t.max_degree or None)
 
         self.model, self.constants = make_model(
             self.spec, adj_merge, adj_pa, seed=t.seed, device=self.device,
             bell=bell if t.mask_format == "tiles" else None)
         if bell is not None:
             self.constants["bell"] = bell.to(self.device)
+        if ell is not None:
+            self.constants["ell"] = ell.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate)
         self.generator = torch.Generator(device=self.device).manual_seed(t.seed)
 

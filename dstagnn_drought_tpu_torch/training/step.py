@@ -6,8 +6,9 @@ beta=1) and Adam with the torch-default betas/eps (the JAX package's
 step is a plain function; the losses stay on the device and the trainer
 reads them once per epoch. ``constants`` carries the dense planes and, on
 the sparse path, the BlockEllGraph (``bell``) and its per-tile constants
-(``bell_tiles``). ``fuse_tat``/``fuse_spatial``/``fuse_gtu`` select the
-fused kernels, as the JAX trainer's ``apply_extra`` does.
+(``bell_tiles``) or the EllGraph (``ell``). ``fuse_tat``/``fuse_spatial``/
+``fuse_gtu`` select the fused kernels, as the JAX trainer's ``apply_extra``
+does.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ def train_step(
         deterministic=False, generator=generator,
         compute_dtype=compute_dtype, use_pallas=use_pallas,
         bell=constants.get("bell"), bell_tiles=constants.get("bell_tiles"),
+        ell=constants.get("ell"),
         fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
     )
     loss = smooth_l1_loss(pred, y, sample_weights=weights)
@@ -69,6 +71,7 @@ def eval_step(
         x, adj_pa=constants["adj_pa"], cheb_polys=constants["cheb_polys"],
         deterministic=True, compute_dtype=compute_dtype, use_pallas=use_pallas,
         bell=constants.get("bell"), bell_tiles=constants.get("bell_tiles"),
+        ell=constants.get("ell"),
         fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
     )
     return pred, per_sample_smooth_l1(pred, y)

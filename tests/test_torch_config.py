@@ -125,7 +125,7 @@ def test_missing_file():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("sparse", True), ("tp", True), ("debug", True), ("data_axis", 2),
+    ("tp", True), ("debug", True), ("data_axis", 2),
     ("graph_axis", 2), ("nan_policy", "rollback"), ("model_name", "astgcn"),
     ("tensorboard", True), ("remat", True),
 ])
@@ -139,8 +139,9 @@ def test_options_outside_the_slice_are_refused(knob, value):
 
 
 def test_bell_options_are_in_the_slice():
-    """The block-sparse path is ported: sparse BELL with either mask format
-    and rcm pass check_slice; sparse ELL still names its ROADMAP item."""
+    """Both sparse formats are ported: sparse BELL with either mask format
+    and rcm, and sparse ELL (the default format, with rcm and max_degree),
+    pass check_slice."""
     cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
                              port_config.TrainingConfig())
     for fmt in ("dense", "tiles"):
@@ -148,9 +149,12 @@ def test_bell_options_are_in_the_slice():
             t = cfg.training
             t.sparse, t.sparse_format, t.mask_format, t.rcm = True, "bell", fmt, rcm
             check_slice(cfg)
-    cfg.training.sparse_format = "ell"
-    with pytest.raises(NotImplementedError, match=r"item 9 \(ELL\)"):
+    t = cfg.training
+    t.sparse_format, t.mask_format, t.max_degree = "ell", "dense", 3
+    for rcm in (False, True):
+        t.rcm = rcm
         check_slice(cfg)
+    assert port_config.TrainingConfig().sparse_format == "ell"
 
 
 @pytest.mark.parametrize("knobs", [("fuse_tat",), ("fuse_spatial",),

@@ -315,3 +315,104 @@ def test_tile_resident_init_and_constants():
     assert consts["cheb_polys"].shape == (spec.K, 1, 1) and consts["adj_pa"].shape == (1, 1)
     assert consts["bell_tiles"]["cheb_tiles"].shape == (bell.num_active, spec.K, 8, 8)
     assert "BlockList.0.cheb_conv_SAt.mask_tiles" in model.state_dict()
+
+
+# ---------------------------------------------------------------------------
+# the edge-list (ELL) branch
+# ---------------------------------------------------------------------------
+
+ELL_FLAGS = {
+    "plain": {},
+    # use_pallas is ignored on ELL and fuse_spatial falls back to the
+    # unfused middle, on both sides; fuse_tat keeps its kernel
+    "knobs": dict(use_pallas=True, fuse_tat=True, fuse_spatial=True),
+}
+
+
+@pytest.mark.parametrize("flags", list(ELL_FLAGS))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_ell_forward_and_grads_match_jax(shape, flags):
+    """The ELL branch against JAX ``apply(ell=...)`` on weights carried with
+    ``params_from_jax`` (the dense masks, unchanged), float32: forward 2e-4,
+    gradients 5e-3."""
+    _check_ell_against_jax(shape, **ELL_FLAGS[flags])
+
+
+def test_ell_slot_loop_matches_jax(monkeypatch):
+    """The slot-loop aggregation (forced by a zero gather limit on both
+    sides) through the whole model."""
+    import dstagnn_drought_tpu.ops.sparse as jsp
+    import dstagnn_drought_tpu_torch.ops.sparse as sp
+
+    monkeypatch.setattr(sp, "_GATHER_BYTES_LIMIT", 0)
+    monkeypatch.setattr(jsp, "_GATHER_BYTES_LIMIT", 0)
+    _check_ell_against_jax("n16_t48_f4")
+
+
+def test_ell_bfloat16_matches_jax():
+    """bfloat16 compute on both sides, both rounding at every op with sums
+    in another order: the prediction within 1e-2 of its scale (max |JAX
+    prediction|), the gradient within 1e-2 of its scale as a whole
+    (‖Δg‖₂ ≤ 1e-2·‖g‖₂ over every parameter). A parameter's gradient held to
+    its own scale is not a bf16 criterion: on these weights the dense path
+    itself differs from JAX by up to 0.42 of a small gradient's own scale
+    (a mask's), with the whole gradient at 2.8e-3 (ELL 2.9e-3)."""
+    _check_ell_against_jax("n16_t12_f1", dtype="bfloat16")
+
+
+def _check_ell_against_jax(shape, dtype="float32", **flags):
+    from dstagnn_drought_tpu.ops.sparse import ell_from_adjacency as jax_ell
+    from dstagnn_drought_tpu_torch.ops.sparse import ell_from_adjacency
+
+    spec, jspec, params, consts, x, y = _case(**SHAPES[shape], seed=5)
+    rng = np.random.default_rng(9)
+    A = (rng.random((16, 16)) < 0.2).astype(np.float32)
+    A = np.maximum(A, A.T)
+    np.fill_diagonal(A, 0)
+    jell, ell = jax_ell(A), ell_from_adjacency(A)
+    j_dtype = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+
+    def jax_loss(p):
+        pred = jax_apply(p, jnp.asarray(x), spec=jspec, adj_pa=consts["adj_pa"],
+                         cheb_polys=consts["cheb_polys"], deterministic=True,
+                         compute_dtype=j_dtype, ell=jell, **flags)
+        return jax_smooth_l1(pred, jnp.asarray(y)), pred
+
+    (j_loss, j_pred), j_grads = jax.value_and_grad(jax_loss, has_aux=True)(params)
+
+    sd = params_from_jax(params, spec)
+    assert "BlockList.0.cheb_conv_SAt.mask.0" in sd  # ELL weights: the dense masks
+    model, c = _port(spec, params, consts)
+    pred = model(torch.from_numpy(x), adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"],
+                 deterministic=True, compute_dtype=getattr(torch, dtype), ell=ell, **flags)
+    loss = smooth_l1_loss(pred, torch.from_numpy(y))
+    loss.backward()
+    expected = params_from_jax(j_grads, spec)
+    named = dict(model.named_parameters())
+    assert set(named) == set(expected)
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+             for n, p in named.items()}
+    pred, j_pred = pred.detach().numpy(), np.asarray(j_pred)
+    if dtype == "bfloat16":
+        assert np.abs(pred - j_pred).max() <= 1e-2 * np.abs(j_pred).max()
+        g = np.concatenate([grads[n].ravel() for n in named])
+        jg = np.concatenate([expected[n].numpy().ravel() for n in named])
+        assert np.linalg.norm(g - jg) <= 1e-2 * np.linalg.norm(jg)
+        return
+    np.testing.assert_allclose(pred, j_pred, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(loss.item(), float(j_loss), atol=2e-4, rtol=2e-4)
+    for name in named:
+        np.testing.assert_allclose(grads[name], expected[name].numpy(), atol=5e-3,
+                                   rtol=5e-3, err_msg=name)
+
+
+def test_model_refuses_both_sparse_graphs():
+    from dstagnn_drought_tpu_torch.ops.block_sparse import block_ell_from_adjacency
+    from dstagnn_drought_tpu_torch.ops.sparse import ell_from_adjacency
+
+    spec, _, params, consts, x, _ = _case(F=1, T=12)
+    model, c = _port(spec, params, consts)
+    A = np.eye(16, k=1)
+    with pytest.raises(ValueError, match="not both"):
+        model(torch.from_numpy(x), adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"],
+              bell=block_ell_from_adjacency(A, block_size=8), ell=ell_from_adjacency(A))

@@ -525,9 +525,99 @@ def test_three_step_bell_tiles_trajectory_matches_jax():
 
 
 def test_check_slice_still_refuses_ell_and_graph_axis(toy_windowed, tmp_path):
+    """sparse_format='ell' is ported now: the Trainer builds its EllGraph and
+    trains; graph_axis > 1 is still refused (multi-device)."""
     cfg = load_config(_bell_conf(toy_windowed, tmp_path, "E", sparse_format="ell"))
-    with pytest.raises(NotImplementedError, match=r"§1 item 9 \(ELL\)"):
-        loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
+    trainer = loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
+    assert "ell" in trainer.constants and "bell" not in trainer.constants
+    assert np.isfinite(trainer.train_epoch(0))
     cfg = load_config(_bell_conf(toy_windowed, tmp_path, "G", graph_axis="2"))
     with pytest.raises(NotImplementedError, match="item 12"):
         loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("axis", ["data_axis", "graph_axis"])
+def test_check_slice_refuses_multi_device(toy_windowed, tmp_path, axis):
+    cfg = load_config(_bell_conf(toy_windowed, tmp_path, axis, sparse_format="ell",
+                                 **{axis: "2"}))
+    with pytest.raises(NotImplementedError, match=r"§1 item 12 \(multi-device\)"):
+        loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the edge-list (ELL) trainer
+# ---------------------------------------------------------------------------
+
+def test_cli_trains_sparse_on_the_default_ell_format(toy_windowed, tmp_path):
+    text = (toy_windowed / "TOY.conf").read_text()
+    conf = tmp_path / "SPARSE.conf"
+    conf.write_text(text + "sparse = true\n")
+    assert load_config(conf).training.sparse_format == "ell"
+    exp = tmp_path / "exp"
+    result = train_cli.main(["--config", str(conf), "--experiments-root", str(exp),
+                             "--device", "cpu", "--epochs", "2"])
+    run_dir = next((exp / "TOY").iterdir())
+    events = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_losses = [e["train_loss"] for e in events if e["event"] == "epoch"]
+    assert len(train_losses) == 2 and train_losses[1] < train_losses[0]
+    assert (run_dir / f"epoch_{result['best_epoch']}.pt").exists()
+    with np.load(run_dir / f"output_epoch_{result['best_epoch']}_test.npz") as d:
+        assert d["prediction"].shape == d["data_target_tensor"].shape
+        assert np.isfinite(d["prediction"]).all()
+
+
+def test_rcm_leaves_the_ell_node_order_alone(toy_windowed, tmp_path):
+    """rcm applies to BELL only, as in JAX: on ELL the trainer keeps the
+    original order; max_degree caps the EllGraph's slots."""
+    from dstagnn_drought_tpu_torch.ops.sparse import ell_from_adjacency
+
+    cfg = load_config(_bell_conf(toy_windowed, tmp_path, "R", sparse_format="ell",
+                                 rcm="true", max_degree="2"))
+    trainer = loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
+    assert trainer._perm is None and trainer._inv_perm is None
+    adj_merge, _ = loop.load_graphs(cfg)
+    want = ell_from_adjacency(adj_merge, max_degree=2)
+    np.testing.assert_array_equal(trainer.constants["ell"].indices, want.indices)
+    np.testing.assert_array_equal(trainer.constants["ell"].mask, want.mask)
+    np.testing.assert_array_equal(trainer._splits["test"][0].numpy(),
+                                  trainer.dataset.test.x)
+
+
+def test_three_step_ell_trajectory_matches_jax():
+    """ELL, same weights and batches, dropout 0: per-step SmoothL1 + Adam
+    losses agree with the JAX trainer step to rtol 2e-3 / atol 2e-4."""
+    from dstagnn_drought_tpu.ops.sparse import ell_from_adjacency as jax_ell
+    from dstagnn_drought_tpu_torch.ops.sparse import ell_from_adjacency
+
+    rng = np.random.default_rng(12)
+    N, T, P, lr, bs = 12, 12, 4, 1e-3, 4
+    kw = dict(num_of_vertices=N, len_input=T, num_for_predict=P, num_of_d=1,
+              nb_block=2, in_channels=1, K=2, nb_chev_filter=8, nb_time_filter=8,
+              d_model=16, d_k=8, n_heads=2, dropout_rate=0.0)
+    A = (rng.random((N, N)) < 0.25).astype(np.float32)
+    A = np.maximum(A, A.T)
+    np.fill_diagonal(A, 0)
+    pa = (rng.random((N, N)) < 0.4).astype(np.float32)
+    x = rng.normal(size=(12, N, 1, T)).astype(np.float32)
+    y = rng.normal(size=(12, N, P)).astype(np.float32)
+    jspec, spec = JaxSpec(**kw), ModelSpec(**kw)
+    params, consts = jax_make_model(jax.random.PRNGKey(4), jspec, A, pa)
+    model = DSTAGNN(spec)
+    model.load_state_dict(params_from_jax(params, spec))
+    c = {**constants_from_jax(consts), "ell": ell_from_adjacency(A)}
+    consts = {**consts, "ell": jax_ell(A)}
+
+    idx = np.random.default_rng(1).permutation(12)[:3 * bs].reshape(3, bs)
+    step = make_train_step(jspec, jax_optimizer(lr))
+    p, s, key = params, jax_optimizer(lr).init(params), jax.random.PRNGKey(0)
+    jax_losses = []
+    for b in range(3):
+        p, s, key, loss = step(p, s, key, x, y, idx[b], consts)
+        jax_losses.append(float(loss))
+
+    optimizer = make_optimizer(model.parameters(), lr)
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    losses = [float(train_step(model, optimizer, xt[i], yt[i], c))
+              for i in torch.from_numpy(idx.astype(np.int64))]
+    np.testing.assert_allclose(losses, jax_losses, rtol=2e-3, atol=2e-4)
+    assert abs(losses[0] - losses[-1]) > 1e-4
