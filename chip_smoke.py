@@ -86,7 +86,14 @@ Phases; any failure exits non-zero:
      losses, no kernel launched, the aggregation branch each block took
      (one-shot gather or slot loop) beside its gather bytes, ms/step and
      epoch peak memory; then one epoch on the 1%-random N=2139 graph;
-  9. a JSON line with every kernel's numbers, then the device line.
+  9. the model zoo at PEMS08 width (phase_zoo): ASTGCN, MSTGCN, STGCN and
+     the Transformer each through the training CLI for 2 epochs in float32
+     (falling losses, no kernel launched), one test batch from the last
+     checkpoint on the card against the same weights on the CPU (2e-4 of
+     scale), ms/step, epoch peak memory and the busy share of a profiled
+     epoch; one bf16 epoch of ASTGCN and of the Transformer; a ``zoo`` line
+     per run;
+  10. a JSON line with every kernel's numbers, then the device line.
 
 ``--measure`` adds the spatial and TAt forward and backward by pass
 (profiles at PEMS08 blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
@@ -1707,11 +1714,13 @@ PEMS08_TRAINING = dict(nb_block=4, n_heads=3, K=3, d_k=32, d_model=512,
                        learning_rate=0.0001, seed=2024)
 
 
-def write_pems08_project(root: Path, name: str = "SYNTH08", **training) -> Path:
+def write_pems08_project(root: Path, name: str = "SYNTH08", model_name: str = "dstagnn",
+                         **training) -> Path:
     """The in-repo parity dataset as a reference-format project: windowed
     npz plus headerless CSVs, with graph = AG so the loaders return ``adj``
     as adj_merge (binarized STAG) and ``stag`` as adj_pa (binarized STRG).
-    ``training`` overrides [Training] keys; the config is ``<name>.conf``."""
+    ``model_name`` is the model family; ``training`` overrides other
+    [Training] keys; the config is ``<name>.conf``."""
     with np.load(REPO / "benchmarks" / "parity_runs" / "parity_dataset.npz") as f:
         np.savez(root / "SYNTH08_r1_d0_w0_dstagnn.npz",
                  train_x=f["train_x"], train_target=f["train_y"],
@@ -1738,7 +1747,7 @@ len_input = 12
 dataset_name = SYNTH08
 
 [Training]
-model_name = dstagnn
+model_name = {model_name}
 in_channels = 1
 graph = AG
 num_of_hours = 1
@@ -1749,16 +1758,17 @@ num_of_weeks = 0
     return conf
 
 
-def run_pems08_cli(root: Path, conf: Path, exp: Path, args=()):
-    """The training CLI for 2 epochs on a PEMS08 project, with every launch
-    count set to 0 just before and read just after. Checks finite and
-    falling losses, a checkpoint, the test dump and the report. Returns
-    (summary, launches, forward passes, train steps, run dir)."""
+def run_pems08_cli(root: Path, conf: Path, exp: Path, args=(), epochs: int = 2):
+    """The training CLI for ``epochs`` epochs on a PEMS08 project, with every
+    launch count set to 0 just before and read just after. Checks finite
+    (and, over 2 epochs, falling) losses, a checkpoint, the test dump and
+    the report. Returns (summary, launches, forward passes, train steps,
+    run dir)."""
     from dstagnn_drought_tpu_torch.cli import train as train_cli
 
     with np.load(root / "SYNTH08_r1_d0_w0_dstagnn.npz") as f:
         sizes = {s: len(f[f"{s}_x"]) for s in ("train", "val", "test")}
-    bs, epochs = PEMS08_TRAINING["batch_size"], 2
+    bs = PEMS08_TRAINING["batch_size"]
     batches = {s: -(-n // bs) for s, n in sizes.items()}
     forwards = epochs * (batches["train"] + batches["val"]) + batches["test"]
     steps = epochs * batches["train"]
@@ -1776,7 +1786,8 @@ def run_pems08_cli(root: Path, conf: Path, exp: Path, args=()):
     check(len(ep) == epochs, f"expected {epochs} epoch records, got {len(ep)}")
     check(all(math.isfinite(v) for v in losses + [e["val_loss"] for e in ep]),
           f"non-finite losses {losses}")
-    check(losses[1] < losses[0], f"epoch-2 loss {losses[1]} not below epoch-1 {losses[0]}")
+    if epochs > 1:
+        check(losses[1] < losses[0], f"epoch-2 loss {losses[1]} not below epoch-1 {losses[0]}")
     check(any(run_dir.glob("epoch_*.pt")), "no checkpoint written")
     dumps = list(run_dir.glob("output_epoch_*_test.npz"))
     check(len(dumps) == 1, "no test prediction dump")
@@ -1789,8 +1800,8 @@ def run_pems08_cli(root: Path, conf: Path, exp: Path, args=()):
     out = {"device": torch.cuda.get_device_name(0), "epochs": epochs, "train_losses": losses,
            "val_losses": [e["val_loss"] for e in ep], "test_overall": overall,
            "forward_passes": forwards, "train_steps": steps,
-           "ms_per_step_epoch2": ep[1]["train_seconds"] / ep[1]["steps"] * 1e3,
-           "steps_per_epoch": ep[1]["steps"]}
+           f"ms_per_step_epoch{epochs}": ep[-1]["train_seconds"] / ep[-1]["steps"] * 1e3,
+           "steps_per_epoch": ep[-1]["steps"]}
     return out, launches, forwards, steps, run_dir
 
 
@@ -1829,19 +1840,27 @@ def phase_pems08_fused(root: Path):
     return out
 
 
+def checkpoint_trainer(conf: Path, run_dir: Path):
+    """A Trainer of ``conf`` on the card with the run's last checkpoint
+    loaded, and that checkpoint's path."""
+    from dstagnn_drought_tpu_torch.config import load_config
+    from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
+
+    trainer = Trainer(load_config(conf), experiments_root=str(run_dir / "check"),
+                      device="cuda")
+    last = sorted(run_dir.glob("epoch_*.pt"))[-1]
+    trainer.model.load_state_dict(ckpt.restore_checkpoint(str(last), trainer.device)["model"])
+    return trainer, last
+
+
 def fused_model_check(conf: Path, run_dir: Path) -> dict:
     """Float32, full width, the fused run's last checkpoint, one test batch:
     the fused model's predictions against the unfused (plain) model's,
     within TOL of the output's scale (the two differ only in summation
     order)."""
-    from dstagnn_drought_tpu_torch.config import load_config
-    from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
     from dstagnn_drought_tpu_torch.training.step import eval_step
 
-    trainer = Trainer(load_config(conf), experiments_root=str(run_dir / "check"),
-                      device="cuda")
-    best = sorted(run_dir.glob("epoch_*.pt"))[-1]
-    trainer.model.load_state_dict(ckpt.restore_checkpoint(str(best), trainer.device)["model"])
+    trainer, best = checkpoint_trainer(conf, run_dir)
     x_full, y_full = trainer._splits["test"]
     bs = trainer.cfg.training.batch_size
     preds = {}
@@ -2488,6 +2507,74 @@ def phase_gambia_ell(root: Path):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the model zoo at PEMS08 width
+# ---------------------------------------------------------------------------
+
+ZOO = ("astgcn", "mstgcn", "stgcn", "transformer")
+ZOO_BF16 = ("astgcn", "transformer")  # the families whose softmaxes run in bf16
+
+
+def zoo_model_check(conf: Path, run_dir: Path):
+    """Float32, full width, the run's last checkpoint, one test batch: the
+    card's predictions against the same weights on the CPU, within TOL of
+    the output's scale (TF32 off). Returns (the check, the Trainer with
+    those weights on the card)."""
+    import copy
+
+    from dstagnn_drought_tpu_torch.training.step import eval_step
+
+    trainer, last = checkpoint_trainer(conf, run_dir)
+    bs = trainer.cfg.training.batch_size
+    x, y = (s[:bs] for s in trainer._splits["test"])
+    pred, _ = eval_step(trainer.model, x, y, trainer.constants)
+    torch.cuda.synchronize()
+    cpu = {k: v.cpu() for k, v in trainer.constants.items()}
+    t0 = time.perf_counter()
+    want, _ = eval_step(copy.deepcopy(trainer.model).cpu(), x.cpu(), y.cpu(), cpu)
+    cpu_s = time.perf_counter() - t0
+    err, rel = rel_err(pred.cpu(), want)
+    check(rel <= TOL and bool(torch.isfinite(pred).all()),
+          f"{trainer.cfg.training.model_name}: card vs CPU {rel:.3g} of scale > {TOL}")
+    return {"batch": bs, "max_abs_err": err, "rel_err": rel, "tol": TOL,
+            "checkpoint": last.name, "cpu_seconds": cpu_s}, trainer
+
+
+def phase_zoo(root: Path):
+    """The model zoo's main path: for each family, the training CLI for 2
+    epochs at PEMS08 width (float32, use_pallas left on: the families have
+    no kernel, so every launch count must read 0), then the card against the
+    CPU on one test batch, one more epoch for ms/step and epoch peak memory
+    and one profiled epoch for the device-busy share; then one bf16 epoch of
+    each family whose softmaxes run in bf16 (finite losses)."""
+    out = []
+    runs = [(name, "float32", 2) for name in ZOO] + [(name, "bfloat16", 1) for name in ZOO_BF16]
+    for name, dtype, epochs in runs:
+        t0 = time.perf_counter()
+        conf = write_pems08_project(root, f"SYNTH08_{name}_{dtype}", model_name=name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        args = ["--bfloat16"] if dtype == "bfloat16" else []
+        run, launches, _, _, run_dir = run_pems08_cli(
+            root, conf, root / f"exp_zoo_{name}_{dtype}", args, epochs=epochs)
+        run_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        check(all(v == 0 for v in launches.values()), f"{name}: kernels launched {launches}")
+        line = {"family": name, "dtype": dtype, **run, "launches": launches,
+                "run_peak_mib": run_peak, "cli_seconds": time.perf_counter() - t0}
+        if epochs == 2:
+            line["model_check"], trainer = zoo_model_check(conf, run_dir)
+            line["ms_per_step_epoch3"], line["epoch_peak_mib"] = epoch_peak(trainer, 2)
+            prof = profile_epoch(trainer, top=5)
+            line["profile"] = {k: prof[k] for k in ("busy_share", "device_ms_per_step",
+                                                    "kernel_launches", "top_ops")}
+            del trainer
+        line["seconds"] = time.perf_counter() - t0
+        print("zoo", json.dumps(line), flush=True)
+        out.append(line)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 4b and 5b: the fused GTU tail at the GAMBIA config
 # ---------------------------------------------------------------------------
 
@@ -2741,6 +2828,7 @@ def main(argv=None) -> int:
         rcm = phase_gambia_bell_rcm(root)
         stag = phase_stag(root)
         ell = phase_gambia_ell(root)
+        zoo = phase_zoo(root)
         if args.measure:
             measured = {"pems08": measured, "passes": passes,
                         "pems08_fused": measure_pems08_fused(root),
@@ -2761,7 +2849,7 @@ def main(argv=None) -> int:
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
             "gambia_bell_rcm": rcm, "gambia_fuse_gtu": gtu,
             "gambia_bell_tiles_fuse_gtu": gtu_bell, "stag": stag, "gambia_ell": ell,
-            "kernels": kernels,
+            "zoo": zoo, "kernels": kernels,
             "seconds": time.perf_counter() - t_start,
         }, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

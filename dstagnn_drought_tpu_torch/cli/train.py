@@ -5,8 +5,11 @@ Usage:
         [--epochs N] [--resume] [--experiments-root DIR] [--bfloat16] \
         [--use-pallas] [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given. ``--use-pallas`` keeps the
-JAX CLI's name and switches the Chebyshev aggregation to the CUDA kernel.
+Trains the config's ``model_name`` (``dstagnn``, ``astgcn``, ``mstgcn``,
+``stgcn`` or ``transformer``). Runs on ``cuda`` unless ``--device cpu`` is
+given. ``--use-pallas`` keeps the JAX CLI's name and switches DSTAGNN's
+Chebyshev aggregation to the CUDA kernel; on the other families, which have
+no kernel, it is accepted and changes nothing, as in JAX.
 The JAX CLI's ``--data-axis``, ``--graph-axis``, ``--distributed``,
 ``--profile`` and ``--tensorboard`` are accepted and refused with the
 ROADMAP item that will port them.
@@ -27,7 +30,7 @@ _NOT_PORTED = {
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(description="Train DSTAGNN (PyTorch/CUDA port)")
+    parser = argparse.ArgumentParser(description="Train a model family (PyTorch/CUDA port)")
     parser.add_argument("--config", default="configurations/PEMS04_dstagnn.conf",
                         help="reference-format INI config path")
     parser.add_argument("--epochs", type=int, default=None,

@@ -41,7 +41,7 @@ import torch
 from torch import nn
 
 from dstagnn_drought_tpu_torch.device import resolve_device
-from dstagnn_drought_tpu_torch.models.layers import init_like_reference_
+from dstagnn_drought_tpu_torch.models.layers import init_like_reference_, tensor_from_jax
 from dstagnn_drought_tpu_torch.ops.attention import (
     spatial_attention_scores,
     temporal_attention,
@@ -472,10 +472,7 @@ def params_from_jax(params, spec: ModelSpec) -> dict[str, torch.Tensor]:
     ELL weights carry over unchanged: the ELL branch keeps the dense (K, N,
     N) masks as parameters (``mask.{k}``) and gathers them at the edges."""
 
-    def t(a, transpose=False):
-        a = np.asarray(a, dtype=np.float32)
-        return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
-
+    t = tensor_from_jax
     sd = {}
     for i, b in enumerate(params["blocks"]):
         pre = f"BlockList.{i}."

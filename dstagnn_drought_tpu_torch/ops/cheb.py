@@ -1,7 +1,8 @@
-"""Attention-modulated K-order Chebyshev graph convolution (plain tensor ops).
+"""K-order Chebyshev graph convolutions (plain tensor ops).
 
-Counterpart of ``dstagnn_drought_tpu/ops/cheb.py``; the path the model runs
-when ``use_pallas`` is false. The hand-written kernel for the same
+Counterpart of ``dstagnn_drought_tpu/ops/cheb.py``: the attention-modulated
+conv is the path the DSTAGNN model runs when ``use_pallas`` is false;
+:func:`cheb_conv` is the plain conv of the ASTGCN/MSTGCN and STGCN families. The hand-written kernel for the same
 aggregation lives in ``ops/cuda/cheb_sat.py``. Semantics:
   * per-order bias ``STAt[:,k] + adj_pa ⊙ mask_k``;
   * softmax over the **source-node axis** i (dim 2 of (B, K, N, N));
@@ -40,4 +41,14 @@ def cheb_conv_with_sat(
     A = cheb_attention_matrix(spatial_attention, adj_pa, cheb_polys, masks)
     agg = torch.einsum("bkij,bim->bkjm", A, x.reshape(B, N, C * T))
     agg = agg.reshape(B, A.shape[1], N, C, T)
+    return torch.relu(torch.einsum("bkjct,kco->bjot", agg, thetas))
+
+
+def cheb_conv(x: torch.Tensor, *, cheb_polys: torch.Tensor,
+              thetas: torch.Tensor) -> torch.Tensor:
+    """Plain K-order Chebyshev conv: x (B, N, C_in, T), cheb_polys (K, N, N),
+    thetas (K, C_in, C_out) → ReLU(Σ_k (T_kᵀ x) Θ_k), (B, N, C_out, T)."""
+    B, N, C, T = x.shape
+    agg = torch.einsum("kij,bim->bkjm", cheb_polys, x.reshape(B, N, C * T))
+    agg = agg.reshape(B, cheb_polys.shape[0], N, C, T)
     return torch.relu(torch.einsum("bkjct,kco->bjot", agg, thetas))

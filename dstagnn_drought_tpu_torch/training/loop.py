@@ -1,6 +1,7 @@
 """The trainer: epoch loop with validation, best-val checkpoints, true
-resume, NaN abort and the final per-horizon test report, on the dense path
-and on the block-sparse (BELL) path.
+resume, NaN abort and the final per-horizon test report, for every model
+family of ``models.get_family`` (``model_name``), on the dense path and,
+for DSTAGNN, on the block-sparse (BELL) and edge-list (ELL) paths.
 
 Counterpart of ``dstagnn_drought_tpu/training/loop.py``. The batch plan and
 the per-epoch shuffle seed ``seed*100003 + epoch`` are the JAX package's, so
@@ -20,6 +21,9 @@ on shapes their gate rejects (:func:`resolve_fuse_gtu`); on the card a
 ``fuse_tat``/``fuse_spatial`` shape the kernels cannot take, or a BELL
 block the bf16 forward kernel cannot take, raises ``ValueError`` when the
 Trainer is built (:func:`check_fused_shapes`).
+``sparse``, ``fuse_tat`` and ``fuse_spatial`` on another family raise
+JAX's ``ValueError`` before any data or graph is read (:func:`check_family`);
+``use_pallas`` is accepted there and changes nothing, as in JAX.
 Options of paths not ported yet raise ``NotImplementedError`` naming the
 ROADMAP item that will port them (:func:`check_slice`).
 """
@@ -42,7 +46,8 @@ from dstagnn_drought_tpu_torch.data.adjacency import (
 )
 from dstagnn_drought_tpu_torch.data.dataset import ArrayDataset, load_windowed_dataset
 from dstagnn_drought_tpu_torch.device import compute_dtype, resolve_device
-from dstagnn_drought_tpu_torch.models.dstagnn import ModelSpec, make_model
+from dstagnn_drought_tpu_torch.models import get_family
+from dstagnn_drought_tpu_torch.models.dstagnn import ModelSpec
 from dstagnn_drought_tpu_torch.ops.block_sparse import (
     block_ell_from_adjacency,
     rcm_permutation,
@@ -70,8 +75,6 @@ def check_slice(cfg: Config) -> None:
     """Refuse options whose paths the port does not run yet."""
     t = cfg.training
     refused = [
-        (t.model_name not in ("", "dstagnn"),
-         f"model_name={t.model_name!r}", "§1 item 11 (model zoo)"),
         (t.data_axis > 1 or t.graph_axis > 1,
          f"data_axis={t.data_axis}, graph_axis={t.graph_axis}",
          "§1 item 12 (multi-device)"),
@@ -87,6 +90,23 @@ def check_slice(cfg: Config) -> None:
                 f"{what} is not ported to dstagnn_drought_tpu_torch yet "
                 f"(ROADMAP.md {item})"
             )
+
+
+def check_family(cfg: Config):
+    """The family module of ``model_name``; for a family other than DSTAGNN,
+    JAX's ``ValueError`` where ``sparse``, ``fuse_tat`` or ``fuse_spatial``
+    asks for a DSTAGNN-only path."""
+    t = cfg.training
+    family = get_family(t.model_name or "dstagnn")
+    if (t.model_name or "dstagnn").lower() != "dstagnn":
+        if t.sparse:
+            raise ValueError(
+                f"sparse mode is a dstagnn-family path; got model_name={t.model_name!r}")
+        if t.fuse_tat or t.fuse_spatial:
+            raise ValueError(
+                "fuse_tat/fuse_spatial are dstagnn-family kernels; got "
+                f"model_name={t.model_name!r}")
+    return family
 
 
 def resolve_fuse_gtu(cfg: Config, device: torch.device, dtype: torch.dtype) -> bool:
@@ -184,6 +204,7 @@ class Trainer:
     ):
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype(cfg.training.compute_dtype)
+        self.family = check_family(cfg)
         self.fuse_gtu = resolve_fuse_gtu(cfg, self.device, self.compute_dtype)
         check_fused_shapes(cfg, self.device, self.compute_dtype)
         check_slice(cfg)
@@ -217,9 +238,9 @@ class Trainer:
         elif t.sparse:
             ell = ell_from_adjacency(adj_merge, max_degree=t.max_degree or None)
 
-        self.model, self.constants = make_model(
+        self.model, self.constants = self.family.make_model(
             self.spec, adj_merge, adj_pa, seed=t.seed, device=self.device,
-            bell=bell if t.mask_format == "tiles" else None)
+            **({"bell": bell} if t.mask_format == "tiles" else {}))
         if bell is not None:
             self.constants["bell"] = bell.to(self.device)
         if ell is not None:

@@ -8,7 +8,8 @@ reads them once per epoch. ``constants`` carries the dense planes and, on
 the sparse path, the BlockEllGraph (``bell``) and its per-tile constants
 (``bell_tiles``) or the EllGraph (``ell``). ``fuse_tat``/``fuse_spatial``/
 ``fuse_gtu`` select the fused kernels, as the JAX trainer's ``apply_extra``
-does.
+does. The steps call every model family's forward with the same keywords;
+the zoo families ignore the DSTAGNN-only ones.
 """
 from __future__ import annotations
 

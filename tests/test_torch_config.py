@@ -126,7 +126,7 @@ def test_missing_file():
 
 @pytest.mark.parametrize("knob,value", [
     ("tp", True), ("debug", True), ("data_axis", 2),
-    ("graph_axis", 2), ("nan_policy", "rollback"), ("model_name", "astgcn"),
+    ("graph_axis", 2), ("nan_policy", "rollback"),
     ("tensorboard", True), ("remat", True),
 ])
 def test_options_outside_the_slice_are_refused(knob, value):
@@ -136,6 +136,14 @@ def test_options_outside_the_slice_are_refused(knob, value):
     setattr(cfg.training, knob, value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_slice(cfg)
+
+
+@pytest.mark.parametrize("name", ["astgcn", "mstgcn", "stgcn", "transformer"])
+def test_zoo_families_are_in_the_slice(name):
+    """The model zoo is ported: every family's model_name passes check_slice."""
+    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
+                             port_config.TrainingConfig(model_name=name))
+    check_slice(cfg)
 
 
 def test_bell_options_are_in_the_slice():

@@ -621,3 +621,92 @@ def test_three_step_ell_trajectory_matches_jax():
               for i in torch.from_numpy(idx.astype(np.int64))]
     np.testing.assert_allclose(losses, jax_losses, rtol=2e-3, atol=2e-4)
     assert abs(losses[0] - losses[-1]) > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the model zoo through the Trainer and the CLI
+# ---------------------------------------------------------------------------
+
+ZOO = ["astgcn", "mstgcn", "stgcn", "transformer"]
+
+
+def _zoo_conf(toy_windowed, tmp_path, name, extra=""):
+    """The toy config with ``model_name = name`` and extra [Training] keys."""
+    text = (toy_windowed / "TOY.conf").read_text()
+    assert "model_name = dstagnn\n" in text
+    path = tmp_path / f"{name}.conf"
+    path.write_text(text.replace("model_name = dstagnn\n", f"model_name = {name}\n") + extra)
+    return path
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_cli_trains_a_zoo_family_and_resumes(toy_windowed, tmp_path, name):
+    """``cli.train --device cpu`` trains the family (``--use-pallas`` is
+    accepted and changes nothing: the family has no kernel), checkpoints
+    its state_dict, writes the test dump and the report, and resumes."""
+    from dstagnn_drought_tpu_torch.training.step import eval_step
+
+    conf = str(_zoo_conf(toy_windowed, tmp_path, name))
+    exp = tmp_path / "exp"
+    args = ["--config", conf, "--experiments-root", str(exp), "--device", "cpu"]
+    result = train_cli.main(args + ["--epochs", "2", "--use-pallas"])
+    run_dir = next((exp / "TOY").iterdir())
+    assert run_dir.name.startswith(f"{name}_")
+    events = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train_losses = [e["train_loss"] for e in events if e["event"] == "epoch"]
+    assert len(train_losses) == 2 and np.isfinite(train_losses).all()
+    assert train_losses[1] < train_losses[0]
+    with np.load(run_dir / f"output_epoch_{result['best_epoch']}_test.npz") as d:
+        assert d["prediction"].shape == d["data_target_tensor"].shape
+        assert np.isfinite(d["prediction"]).all()
+    assert len(result["report"]["per_horizon"]) == 12
+
+    trainer = loop.Trainer(load_config(conf), experiments_root=str(exp), device="cpu")
+    assert trainer.family.__name__.endswith(f".{name}")
+    assert trainer.resume()
+    assert (trainer.epoch, trainer.best_epoch) == (2, result["best_epoch"])
+    assert trainer.best_val == pytest.approx(result["best_val"])
+    x, y = (s[:4] for s in trainer._splits["test"])
+    preds = [eval_step(trainer.model, x, y, trainer.constants, use_pallas=use)[0]
+             for use in (True, False)]
+    torch.testing.assert_close(preds[0], preds[1], rtol=0, atol=0)
+    train_cli.main(args + ["--epochs", "3", "--resume"])
+    events = [json.loads(l) for l in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [e["epoch"] for e in events if e["event"] == "epoch"] == [0, 1, 2]
+
+
+def _refuse_data(monkeypatch):
+    """Make reading the windowed npz or the graphs fail loudly."""
+    def boom(*a, **k):
+        raise AssertionError("data or graphs read before the config was refused")
+    monkeypatch.setattr(loop, "load_windowed_dataset", boom)
+    monkeypatch.setattr(loop, "load_graphs", boom)
+
+
+@pytest.mark.parametrize("knob", ["sparse", "fuse_tat", "fuse_spatial"])
+def test_trainer_refuses_dstagnn_paths_on_a_zoo_family(toy_windowed, tmp_path, monkeypatch,
+                                                       knob):
+    """JAX's ValueError, word for word, before any data or graph is read."""
+    from dstagnn_drought_tpu.config import load_config as jax_load_config
+    from dstagnn_drought_tpu.training.loop import Trainer as JaxTrainer
+
+    conf = _zoo_conf(toy_windowed, tmp_path, "astgcn", f"{knob} = true\n")
+    with pytest.raises(ValueError) as theirs:
+        JaxTrainer(jax_load_config(conf), experiments_root=str(tmp_path / "jax"))
+    _refuse_data(monkeypatch)
+    with pytest.raises(ValueError) as ours:
+        loop.Trainer(load_config(conf), experiments_root=str(tmp_path), device="cpu")
+    assert str(ours.value) == str(theirs.value)
+    assert "dstagnn-family" in str(ours.value)
+
+
+def test_trainer_refuses_an_unknown_model_name(toy_windowed, tmp_path, monkeypatch):
+    from dstagnn_drought_tpu.models import get_family as jax_family
+
+    conf = _zoo_conf(toy_windowed, tmp_path, "transformer9000")
+    with pytest.raises(ValueError) as theirs:
+        jax_family("transformer9000")
+    _refuse_data(monkeypatch)
+    with pytest.raises(ValueError) as ours:
+        loop.Trainer(load_config(conf), experiments_root=str(tmp_path), device="cpu")
+    assert str(ours.value) == str(theirs.value)
