@@ -93,7 +93,31 @@ Phases; any failure exits non-zero:
      scale), ms/step, epoch peak memory and the busy share of a profiled
      epoch; one bf16 epoch of ASTGCN and of the Transformer; a ``zoo`` line
      per run;
-  10. a JSON line with every kernel's numbers, then the device line.
+  10. remat (``phase_remat``): GAMBIA dense at full width (bf16,
+     use_pallas, fuse_gtu) and PEMS08 width fused (fuse_tat, fuse_spatial,
+     bf16), each eager and with remat from one seed: the epoch losses within
+     1e-6 (bit equality printed), the forward kernels launched twice per
+     block of every train step under remat (the recompute) and once eager,
+     the backward kernels once, each side's ms/step and epoch peak memory;
+  11. debug mode (``phase_debug``, PEMS08 width, float32, use_pallas): three
+     checked steps with losses equal to the eager steps' bit for bit, then
+     an inf in a Chebyshev plane that only the cheb_sat kernel reads (named
+     by the kernel, at its first launch), a NaN input sample (named by the
+     gather that emits it) and an index outside the split (refused before
+     the gather; a step after it still runs); the checked step's time
+     against the eager step's;
+  12. NaN rollback (``phase_rollback``, GAMBIA BELL tiles, bf16): a NaN
+     weight at the start of epoch 1, exactly one rollback, the model, Adam
+     state and generator equal to epoch 0's checkpoint and the lr halved in
+     every param group, a finite test loss, F/K1/K2 counted over every step
+     actually run;
+  13. the evaluate CLI (``phase_evaluate``) with ``--use-pallas
+     --export-attention`` on phase 3's best checkpoint (predictions equal to
+     the run's dump, four finite (3, 170, 170) maps, the CSV, the maps equal
+     to the CPU's, cheb_sat once per block of every forward), then the
+     train CLI with ``--profile`` and ``--tensorboard`` (the trace must name
+     a cheb_sat kernel);
+  14. a JSON line with every kernel's numbers, then the device line.
 
 ``--measure`` adds the spatial and TAt forward and backward by pass
 (profiles at PEMS08 blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
@@ -2677,6 +2701,362 @@ def measure_gambia_fuse_gtu(root: Path, rounds: int = 2, paths=("dense", "bell_t
 
 
 # ---------------------------------------------------------------------------
+# phases 10-13: the Trainer's knobs (remat, debug, rollback, evaluate)
+# ---------------------------------------------------------------------------
+
+REMAT_LOSS_RTOL = 1e-6  # remat recomputes the same bits; the losses may differ by atomics only
+
+
+class deterministic_cudnn:
+    """cuDNN restricted to deterministic algorithms inside the block, so
+    two runs of one computation give the same bits (restored after)."""
+
+    def __enter__(self):
+        self.was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.was
+
+
+def pems08_subset(n_train: int, n_eval: int) -> ArrayDataset:
+    """The first ``n_train`` training windows and ``n_eval`` validation and
+    test windows of the in-repo PEMS08-width parity dataset."""
+    with np.load(REPO / "benchmarks" / "parity_runs" / "parity_dataset.npz") as f:
+        cut = lambda s, n: Split(np.ascontiguousarray(f[f"{s}_x"][:n], np.float32),
+                                 np.ascontiguousarray(f[f"{s}_y"][:n], np.float32))
+        return ArrayDataset(train=cut("train", n_train), val=cut("val", n_eval),
+                            test=cut("test", n_eval), mean=f["mean"], std=f["std"])
+
+
+def remat_pair(make, label: str, nb: int, forward_kernels, backward_kernels) -> dict:
+    """One train epoch then one validation pass of the Trainer ``make(remat)``
+    builds, eager then remat, each from the same seed: the epoch losses
+    within REMAT_LOSS_RTOL, the forward kernels launched once per block of
+    every train step and eval forward eager and twice per train step under
+    remat (the recompute in the backward), the backward kernels once per
+    block of every train step on both sides; the weights and the dropout
+    generator's state after the epoch equal to eager's bit for bit (a
+    recompute that drew new masks would move only the gradients); then each
+    side's ms/step and peak memory over a second epoch (``epoch_peak``)."""
+    side, after = {}, {}
+    for remat in (False, True):
+        trainer = make(remat)
+        bs = trainer.cfg.training.batch_size
+        val_batches = -(-len(trainer.dataset.val) // bs)
+        reset_launches()
+        loss = trainer.train_epoch(0)
+        after[remat] = ({k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+                        trainer.generator.get_state())
+        trainer.evaluate("val")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        steps = trainer.last_epoch_steps
+        ms, peak = epoch_peak(trainer, 1)  # warm: time and peak of the next epoch
+        for k in forward_kernels:
+            want = nb * ((2 if remat else 1) * steps + val_batches)
+            check(launches[k] == want, f"{label} remat={remat}: {k} launches {launches[k]} "
+                                       f"!= {want}")
+        for k in backward_kernels:
+            check(launches[k] == nb * steps,
+                  f"{label} remat={remat}: {k} launches {launches[k]} != {nb * steps}")
+        check(math.isfinite(loss), f"{label} remat={remat}: loss {loss}")
+        side[remat] = {"train_loss": loss, "steps": steps, "val_batches": val_batches,
+                       "epoch_peak_mib": peak, "ms_per_step_epoch2": ms,
+                       "launches": {k: launches[k] for k in (*forward_kernels,
+                                                             *backward_kernels)}}
+        del trainer
+        torch.cuda.empty_cache()
+    rel = abs(side[True]["train_loss"] - side[False]["train_loss"]) / abs(side[False]["train_loss"])
+    check(rel <= REMAT_LOSS_RTOL, f"{label}: remat loss vs eager {rel:.3g} > {REMAT_LOSS_RTOL}")
+    (w_eager, g_eager), (w_remat, g_remat) = after[False], after[True]
+    w_diff = max(float((w_remat[k].float() - w_eager[k].float()).abs().max()) for k in w_eager)
+    weights_equal = all(torch.equal(w_remat[k], w_eager[k]) for k in w_eager)
+    generator_equal = torch.equal(g_remat, g_eager)
+    check(weights_equal, f"{label}: weights after the remat epoch differ from eager's "
+                         f"(max |d| {w_diff:.3g})")
+    check(generator_equal, f"{label}: the generator after the remat epoch differs from eager's")
+    return {"path": label, "eager": side[False], "remat": side[True], "loss_rel_diff": rel,
+            "loss_bit_equal": side[True]["train_loss"] == side[False]["train_loss"],
+            "weights_bit_equal": weights_equal, "weights_max_abs_diff": w_diff,
+            "generator_equal": generator_equal,
+            "peak_ratio": side[True]["epoch_peak_mib"] / side[False]["epoch_peak_mib"]}
+
+
+def phase_remat(root: Path, card: str):
+    """remat on the card: GAMBIA dense at full width (bf16, use_pallas,
+    fuse_gtu; cheb_sat and the GTU kernels) and PEMS08 width fused
+    (fuse_tat, fuse_spatial, bf16, dropout 0.05; the TAt and spatial
+    kernels), each eager and with remat from one seed (remat_pair)."""
+    ds, A, pa = gambia_data()
+    gambia = lambda remat: Trainer(
+        gambia_config(A.shape[0], fuse_gtu=True, remat=remat), dataset=ds, adj_merge=A,
+        adj_pa=pa, experiments_root=str(root / f"remat_gambia_{remat}"), device="cuda")
+    out = [remat_pair(gambia, "gambia_dense_fuse_gtu_bf16", 2, ("cheb_sat", "gtu_fwd"),
+                      ("gtu_bwd",))]
+    conf = write_pems08_project(root, "SYNTH08R", **FUSED_KEYS)
+    sub = pems08_subset(3 * PEMS08_TRAINING["batch_size"], PEMS08_TRAINING["batch_size"])
+
+    def pems(remat):
+        from dstagnn_drought_tpu_torch.config import load_config
+
+        cfg = load_config(conf)
+        cfg.training.remat = remat
+        return Trainer(cfg, dataset=sub, experiments_root=str(root / f"remat_pems_{remat}"),
+                       device="cuda")
+
+    out.append(remat_pair(pems, "pems08_fused_bf16", PEMS08_TRAINING["nb_block"],
+                          ("tat_fwd", "spatial_fwd"), ("tat_bwd", "spatial_bwd")))
+    for line in out:
+        line["card"] = card
+        print("remat", json.dumps(line), flush=True)
+    return out
+
+
+def expect_error(fn, error, needle: str, what: str) -> str:
+    """Run ``fn``; it must raise ``error`` with ``needle`` in its message.
+    Returns the message."""
+    try:
+        fn()
+    except error as exc:
+        check(needle in str(exc), f"{what}: the error does not name {needle!r}: {exc}")
+        return str(exc)
+    check(False, f"{what}: no {error.__name__} raised")
+
+
+def phase_debug(root: Path, card: str):
+    """Debug mode on the card at PEMS08 width (float32, use_pallas): three
+    clean checked steps whose losses equal the eager steps' bit for bit,
+    cheb_sat launched once per block of each; then three faults, each of
+    which must raise naming its source: an inf in a Chebyshev plane (read by
+    the cheb_sat kernel alone: a model constant that no op before the kernel
+    touches) names the cheb_sat kernel, a NaN in an input sample names the
+    gather that emitted it, an index outside the split raises before the
+    gather (the context is still usable after it)."""
+    from dstagnn_drought_tpu_torch import debug
+    from dstagnn_drought_tpu_torch.config import load_config
+    from dstagnn_drought_tpu_torch.training.step import train_step
+
+    conf = write_pems08_project(root, "SYNTH08D")
+    bs, nb = PEMS08_TRAINING["batch_size"], PEMS08_TRAINING["nb_block"]
+    sub = pems08_subset(3 * bs, bs)
+    trainers = {}
+    for checked in (False, True):
+        cfg = load_config(conf)
+        cfg.training.debug = checked
+        trainers[checked] = Trainer(cfg, dataset=sub, device="cuda",
+                                    experiments_root=str(root / f"debug_{checked}"))
+    eager, tr = trainers[False], trainers[True]
+    check(tr.checked_step is not None and eager.checked_step is None, "debug not resolved")
+    x_full, y_full = tr._splits["train"]
+    idx = np.arange(3 * bs).reshape(3, bs)
+    w = torch.ones(bs, device=tr.device)
+    losses = {False: [], True: []}
+    times = {False: [], True: []}
+    reset_launches()
+    for b in range(3):
+        for checked in (False, True):
+            t = trainers[checked]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if checked:
+                loss = t.checked_step(t.model, t.optimizer, x_full, y_full, idx[b],
+                                      t.constants, weights=w, generator=t.generator, batch=b)
+            else:
+                i = torch.from_numpy(idx[b]).to(t.device)
+                loss = train_step(t.model, t.optimizer, x_full[i], y_full[i], t.constants,
+                                  weights=w, generator=t.generator, **t._step_kw)
+            losses[checked].append(float(loss))
+            times[checked].append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches()["cheb_sat"]
+    check(launches == 2 * 3 * nb, f"debug: cheb_sat launches {launches} != {2 * 3 * nb}")
+    check(losses[True] == losses[False],
+          f"debug: checked losses {losses[True]} != eager {losses[False]}")
+    # an inf only the kernel reads: T_1 at one entry of the Chebyshev stack
+    polys = tr.constants["cheb_polys"]
+    keep = polys.clone()
+    polys[1, 3, 5] = float("inf")
+    step = lambda xs, ix, b: tr.checked_step(tr.model, tr.optimizer, xs, y_full, ix,
+                                             tr.constants, weights=w, generator=tr.generator,
+                                             batch=b)
+    reset_launches()
+    kernel_msg = expect_error(lambda: step(x_full, idx[0], 3), debug.NonFiniteError,
+                              "the cheb_sat kernel", "cheb_sat poison")
+    check(read_launches()["cheb_sat"] == 1, "the cheb_sat poison raised after another launch")
+    polys.copy_(keep)
+    poisoned = x_full.clone()
+    poisoned[5, 7, 0, 2] = float("nan")
+    input_msg = expect_error(lambda: step(poisoned, idx[0], 4), debug.NonFiniteError,
+                             "aten.index", "input poison")
+    check(input_msg.startswith("nan"), f"input poison: {input_msg}")
+    oob = idx[0].copy()
+    oob[-1] = len(sub.train)
+    index_msg = expect_error(lambda: step(x_full, oob, 5), debug.BatchIndexError,
+                             "before the gather", "out-of-range index")
+    after = float(step(x_full, idx[1], 6))  # the CUDA context survived the refusal
+    check(math.isfinite(after), f"debug: loss after the faults {after}")
+    out = {"path": "pems08_debug_f32", "card": card, "losses": losses[True],
+           "bit_equal": True, "cheb_sat_launches": launches,
+           "checked_ms": times[True], "eager_ms": times[False],
+           "checked_over_eager": sum(times[True][1:]) / sum(times[False][1:]),
+           "kernel_poison": kernel_msg, "input_poison": input_msg,
+           "index_fault": index_msg}
+    print("debug", json.dumps(out), flush=True)
+    return out
+
+
+def phase_rollback(root: Path, card: str):
+    """nan_policy = rollback at GAMBIA BELL tiles (bf16; F, K1, K2):
+    Trainer.run for 2 epochs; the first run of epoch 1 starts from a model
+    with a NaN weight (the test's injection, with the epoch's steps really
+    run), so its loss is NaN; exactly one rollback to epoch 0's checkpoint,
+    after which the model, the Adam state and the generator equal the
+    checkpoint's and every param group's lr is halved; the retried epoch and
+    the test loss are finite; F launched once per block of every forward,
+    K1 and K2 once per block of every train step actually run."""
+    from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
+
+    ds, A, pa = gambia_data()
+    trainer = Trainer(gambia_config(A.shape[0], nan_policy="rollback", **BELL_TILES),
+                      dataset=ds, adj_merge=A, adj_pa=pa,
+                      experiments_root=str(root / "rollback"), device="cuda")
+    lr0 = trainer.cfg.training.learning_rate
+    train_epoch, rollback = trainer.train_epoch, trainer._rollback_to_last_good
+    seen = {"epochs": [], "checks": None}
+
+    def flaky_epoch(epoch):
+        seen["epochs"].append(epoch)
+        if epoch == 1 and seen["epochs"].count(1) == 1:
+            with torch.no_grad():
+                trainer.model.final_fc.weight[0, 0] = float("nan")
+        return train_epoch(epoch)
+
+    def checked_rollback(epoch):
+        rollback(epoch)
+        state = ckpt.restore_checkpoint(ckpt.latest_checkpoint(trainer.run_dir),
+                                        trainer.device)
+        model = all(torch.equal(v, state["model"][k])
+                    for k, v in trainer.model.state_dict().items())
+        saved = state["optimizer"]["state"]
+        now = trainer.optimizer.state_dict()["state"]
+        adam = all(torch.equal(now[p][k].cpu(), saved[p][k].cpu())
+                   for p in saved for k in saved[p])
+        gen = torch.equal(trainer.generator.get_state(), state["generator"].cpu())
+        lrs = [g["lr"] for g in trainer.optimizer.param_groups]
+        seen["checks"] = {"model_equal": model, "adam_equal": adam, "generator_equal": gen,
+                          "lr": lrs, "checkpoint": Path(ckpt.latest_checkpoint(
+                              trainer.run_dir)).name}
+
+    trainer.train_epoch, trainer._rollback_to_last_good = flaky_epoch, checked_rollback
+    bs = trainer.cfg.training.batch_size
+    batches = {s: -(-len(getattr(ds, s)) // bs) for s in ("train", "val", "test")}
+    reset_launches()
+    result = trainer.run(2)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    c = seen["checks"]
+    check(trainer._rollbacks == 1 and c is not None, f"rollbacks {trainer._rollbacks}")
+    check(seen["epochs"] == [0, 1, 1], f"epochs run {seen['epochs']}")
+    check(c["model_equal"] and c["adam_equal"] and c["generator_equal"],
+          f"state after the rollback differs from the checkpoint: {c}")
+    check(all(lr == lr0 / 2 for lr in c["lr"]), f"lr after the rollback {c['lr']}")
+    check(math.isfinite(result["test_loss"]), f"rollback: test loss {result['test_loss']}")
+    steps = 3 * batches["train"]  # epoch 0, the poisoned epoch 1, its retry
+    forwards = steps + 2 * batches["val"] + batches["test"]
+    nb = trainer.cfg.training.nb_block
+    for k, want in (("bell_fused", forwards), ("bell_k1", steps), ("bell_k2", steps)):
+        check(launches[k] == want * nb, f"rollback: {k} launches {launches[k]} != {want} x {nb}")
+    events = [json.loads(line) for line in
+              (Path(trainer.run_dir) / "metrics.jsonl").read_text().splitlines()]
+    rb = [e for e in events if e["event"] == "rollback"]
+    check(len(rb) == 1 and rb[0]["lr"] == lr0 / 2, f"rollback events {rb}")
+    out = {"path": "gambia_bell_tiles_rollback_bf16", "card": card, **c,
+           "train_losses": [e["train_loss"] for e in events if e["event"] == "epoch"],
+           "test_loss": result["test_loss"], "launches": {k: launches[k] for k in
+                                                         ("bell_fused", "bell_k1", "bell_k2")},
+           "train_steps_run": steps, "forward_passes": forwards}
+    print("rollback", json.dumps(out), flush=True)
+    return out
+
+
+def phase_evaluate(root: Path, card: str):
+    """The evaluate CLI on phase 3's PEMS08 run: ``--use-pallas
+    --export-attention --checkpoint <best>`` on the card; predictions equal
+    to that run's test dump within TOL of scale, four finite (3, 170, 170)
+    maps, the CSV equal to block 0 head 0, the maps equal to the CPU's from
+    the same checkpoint within TOL of scale, cheb_sat once per block of
+    every test batch's forward (the attention sample's forward takes JAX's
+    export path, without ``use_pallas``, and launches none). Then the train
+    CLI with ``--use-pallas --profile DIR --tensorboard`` for its profiled
+    epoch: the trace must name a cheb_sat kernel; whether a TensorBoard
+    writer was there is printed (without tensorboardX it is disabled, as in
+    JAX)."""
+    import importlib.util
+
+    from dstagnn_drought_tpu_torch.cli import evaluate, train as train_cli
+    from dstagnn_drought_tpu_torch.config import load_config
+
+    conf, exp = root / "SYNTH08.conf", root / "exp"
+    run_dir = next(exp.glob("SYNTH08/*"))
+    dump = next(run_dir.glob("output_epoch_*_test.npz"))
+    best = int(dump.name.split("_")[2])
+    with np.load(dump) as d:
+        want = d["prediction"]
+    ckpt_path = run_dir / f"epoch_{best}.pt"
+    bs, nb = PEMS08_TRAINING["batch_size"], PEMS08_TRAINING["nb_block"]
+    reset_launches()
+    t0 = time.perf_counter()
+    evaluate.main(["--config", str(conf), "--experiments-root", str(exp), "--use-pallas",
+                   "--export-attention", "--attention-sample", "24",
+                   "--checkpoint", str(ckpt_path)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()["cheb_sat"]
+    forwards = -(-len(want) // bs)
+    check(launches == forwards * nb,
+          f"evaluate: cheb_sat launches {launches} != {forwards} forwards x {nb}")
+    with np.load(run_dir / f"output_epoch_{best}_test.npz") as d:
+        got = d["prediction"]
+    err, rel = rel_err(torch.from_numpy(got), torch.from_numpy(want))
+    check(rel <= TOL, f"evaluate predictions vs the run's dump: {rel:.3g} > {TOL}")
+    with np.load(run_dir / "attention_test.npz") as f:
+        maps = [f[f"block_{i}"] for i in range(nb)]
+        check(sorted(f.files) == [f"block_{i}" for i in range(nb)], f"maps {f.files}")
+    check(all(m.shape == (3, 170, 170) and np.isfinite(m).all() for m in maps),
+          f"maps {[m.shape for m in maps]}")
+    csv = np.loadtxt(run_dir / "attention_test.csv", delimiter=",")
+    check(np.allclose(csv, maps[0][0], rtol=1e-6, atol=0), "attention CSV != block 0 head 0")
+    cpu = Trainer(load_config(conf), experiments_root=str(root / "eval_cpu"), device="cpu")
+    cpu.model.load_state_dict(torch.load(ckpt_path, map_location="cpu",
+                                         weights_only=True)["model"])
+    cpu_maps = cpu.attention_maps("test", 24)
+    map_rel = max(rel_err(torch.from_numpy(a), torch.from_numpy(b))[1]
+                  for a, b in zip(maps, cpu_maps))
+    check(map_rel <= TOL, f"attention maps card vs CPU: {map_rel:.3g} > {TOL}")
+    del cpu
+    prof_dir = root / "profile"
+    reset_launches()
+    train_cli.main(["--config", str(conf), "--epochs", "1", "--use-pallas", "--profile",
+                    str(prof_dir), "--tensorboard",
+                    "--experiments-root", str(root / "exp_profile")])
+    trace = (prof_dir / "trace.json").read_text()
+    names = [n for _, ns in SAT_PASSES for n in ns if n in trace]
+    check(names, "the profile trace names no cheb_sat kernel")
+    tb_dir = next((root / "exp_profile").glob("SYNTH08/*")) / "tb"
+    tb = importlib.util.find_spec("tensorboardX") is not None
+    events = list(tb_dir.glob("*tfevents*")) if tb_dir.is_dir() else []
+    check(bool(events) == tb, f"tensorboard writer {tb} but event files {events}")
+    out = {"path": "pems08_evaluate_cli", "card": card, "checkpoint": ckpt_path.name,
+           "cheb_sat_launches": launches, "forwards": forwards, "max_abs_err": err,
+           "rel_err": rel, "map_card_vs_cpu_rel": map_rel, "seconds": seconds,
+           "trace_kernels": names, "trace_mib": len(trace) / 2 ** 20,
+           "profile_cheb_sat_launches": read_launches()["cheb_sat"],
+           "tensorboard": "written" if tb else "disabled (no tensorboardX)"}
+    print("evaluate", json.dumps(out), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_SITES = {
     "cheb_sat": ("dstagnn_drought_tpu_torch/csrc/cheb_sat.cu",
@@ -2829,6 +3209,9 @@ def main(argv=None) -> int:
         stag = phase_stag(root)
         ell = phase_gambia_ell(root)
         zoo = phase_zoo(root)
+        with deterministic_cudnn():
+            knobs = {"remat": phase_remat(root, card), "debug": phase_debug(root, card)}
+        knobs.update(rollback=phase_rollback(root, card), evaluate=phase_evaluate(root, card))
         if args.measure:
             measured = {"pems08": measured, "passes": passes,
                         "pems08_fused": measure_pems08_fused(root),
@@ -2849,7 +3232,7 @@ def main(argv=None) -> int:
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
             "gambia_bell_rcm": rcm, "gambia_fuse_gtu": gtu,
             "gambia_bell_tiles_fuse_gtu": gtu_bell, "stag": stag, "gambia_ell": ell,
-            "zoo": zoo, "kernels": kernels,
+            "zoo": zoo, "knobs": knobs, "kernels": kernels,
             "seconds": time.perf_counter() - t_start,
         }, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

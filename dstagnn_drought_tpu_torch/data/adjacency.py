@@ -1,7 +1,8 @@
 """Adjacency / graph file loaders (numpy).
 
 Counterpart of ``dstagnn_drought_tpu/data/adjacency.py`` with the same
-semantics; dense CSVs are read with numpy (headerless, comma-separated):
+semantics; dense CSVs (headerless, comma-separated) are read by the
+native parser where it is built, else numpy (``data/native.py``):
 
   * ``edge_list_adjacency`` — CSV edge list (from,to,cost) → dense 0/1
     adjacency; with an id file the ids are remapped and the matrix is
@@ -13,9 +14,10 @@ semantics; dense CSVs are read with numpy (headerless, comma-separated):
 from __future__ import annotations
 
 import csv
-import os
 
 import numpy as np
+
+from dstagnn_drought_tpu_torch.data.native import load_dense_csv
 
 
 def edge_list_adjacency(
@@ -45,10 +47,9 @@ def edge_list_adjacency(
 
 
 def read_dense_csv(path: str) -> np.ndarray:
-    """Headerless dense CSV → (rows, cols) float64."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
-    return np.loadtxt(path, delimiter=",", dtype=np.float64, ndmin=2)
+    """Headerless dense CSV → (rows, cols) float64, through the native
+    parser where it is built (numpy otherwise; ``data/native.py``)."""
+    return load_dense_csv(path)
 
 
 def load_stag_adjacency(path: str, num_of_vertices: int | None = None) -> np.ndarray:

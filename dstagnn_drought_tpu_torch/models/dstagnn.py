@@ -35,10 +35,12 @@ forward, as the JAX ``apply`` does; no autocast.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dstagnn_drought_tpu_torch.device import resolve_device
 from dstagnn_drought_tpu_torch.models.layers import init_like_reference_, tensor_from_jax
@@ -263,8 +265,12 @@ class STBlock(nn.Module):
 
         # pinned_out: the spatial output comes out of a kernel (JAX:
         # a pallas_call), which switches the tail below
+        # STAt: the spatial map JAX's _block_apply returns for export; a
+        # scalar zero where a kernel never materialises it
+        no_map = lambda: torch.zeros((), dtype=dt, device=x.device)
         if fused_spatial:
             pinned_out = True
+            STAt = no_map()
         elif ell is not None:
             # edge list: SDDMM edge scores (the map JAX exports as STAt) and
             # the neighbourhood-softmax aggregation; use_pallas is ignored
@@ -289,6 +295,7 @@ class STBlock(nn.Module):
                     "bell_tiles constants were given; build them with "
                     "ops.block_sparse.build_bell_tile_constants()")
             pinned_out = True
+            STAt = no_map()
             spatial_gcn = bell_cheb_conv_tiles(
                 x, SEmx, bell, wq=wq, wk=wk, mask_tiles=c(cheb.mask_tiles),
                 pattern_tiles=bell_tiles["pattern_tiles"],
@@ -296,6 +303,7 @@ class STBlock(nn.Module):
                 thetas=thetas, n_heads=spec.K, d_k=spec.d_k)
         elif use_pallas:
             pinned_out = True
+            STAt = no_map()
             spatial_gcn = bell_cheb_conv_with_sat_pallas(
                 x, SEmx, bell, wq=wq, wk=wk, adj_pa=adj_pa, masks=masks,
                 cheb_polys=cheb_polys, thetas=thetas, n_heads=spec.K, d_k=spec.d_k)
@@ -303,6 +311,7 @@ class STBlock(nn.Module):
             pinned_out = False
             block_scores = block_sparse_spatial_attention_scores(
                 SEmx, bell, wq=wq, wk=wk, n_heads=spec.K, d_k=spec.d_k)
+            STAt = block_scores  # (B, K, NJ, S, BS, BS)
             spatial_gcn = block_sparse_cheb_conv_with_sat(
                 x, block_scores, bell,
                 cheb_blocks=gather_block_values(cheb_polys, bell),
@@ -347,7 +356,7 @@ class STBlock(nn.Module):
                 )
             y = torch.relu(x_residual + time_conv_output)  # (B, N, C, T)
             y = layer_norm(y.permute(0, 3, 1, 2), c(self.ln.weight), c(self.ln.bias))
-            return y.permute(0, 2, 3, 1), re_at  # (B, N, C, T)
+            return y.permute(0, 2, 3, 1), re_at, STAt  # (B, N, C, T)
 
         X = spatial_gcn.permute(0, 2, 1, 3)  # (B, C, N, T)
         time_conv = torch.cat(
@@ -373,14 +382,49 @@ class STBlock(nn.Module):
             )
         y = torch.relu(x_residual + time_conv_output)  # (B, C, N, T)
         y = layer_norm(y.permute(0, 3, 2, 1), c(self.ln.weight), c(self.ln.bias))
-        return y.permute(0, 2, 3, 1), re_at  # (B, N, C, T)
+        return y.permute(0, 2, 3, 1), re_at, STAt  # (B, N, C, T)
+
+
+def checkpoint_block(block: STBlock, x, res_att, *, generator=None, **kw):
+    """``block(x, res_att, ...)`` under ``torch.utils.checkpoint`` (JAX:
+    ``jax.checkpoint`` of the block): its activations are recomputed in the
+    backward instead of kept. ``checkpoint`` restores only the global
+    generators, and dropout draws from ``generator``; so the recompute starts
+    from the state the forward started from, and draws the forward's masks,
+    and the state the forward left is put back after it, so the stream after
+    a step does not depend on remat."""
+    if generator is None:
+        return checkpoint(functools.partial(block, generator=generator, **kw), x, res_att,
+                          use_reentrant=False)
+    start = generator.get_state()
+    runs = []
+
+    def run(x, res_att):
+        if not runs:
+            runs.append(True)
+            return block(x, res_att, generator=generator, **kw)
+        after = generator.get_state()  # the recompute, during the backward
+        generator.set_state(start)
+        try:
+            return block(x, res_att, generator=generator, **kw)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, x, res_att, use_reentrant=False)
 
 
 class DSTAGNN(nn.Module):
     """x: (B, N, F, T) → (B, N, num_for_predict) float32. With ``bell`` (a
     BlockEllGraph) every block holds tile-resident masks on its active-tile
     support instead of dense (N, N) masks. The forward's ``ell`` (an
-    EllGraph) takes the edge-list branch on the dense masks."""
+    EllGraph) takes the edge-list branch on the dense masks. ``remat``
+    recomputes each block's activations in the backward
+    (:func:`checkpoint_block`); ``return_attention`` also returns the list
+    of per-block spatial maps: raw (B, K, N, N) scores on the dense path
+    (with or without ``use_pallas``), (B, K, N, E) edge scores on ELL,
+    (B, K, NJ, S, BS, BS) block scores on plain BELL, a scalar zero where a
+    kernel never materialises them (fused spatial, BELL tiles, BELL with
+    ``use_pallas``), as JAX's ``apply(return_attention=True)``."""
 
     def __init__(self, spec: ModelSpec, bell=None):
         super().__init__()
@@ -397,7 +441,8 @@ class DSTAGNN(nn.Module):
                 compute_dtype: torch.dtype = torch.float32,
                 use_pallas: bool = False, bell=None, bell_tiles=None, ell=None,
                 fuse_tat: bool = False, fuse_spatial: bool = False,
-                fuse_gtu: bool = False):
+                fuse_gtu: bool = False, remat: bool = False,
+                return_attention: bool = False):
         if bell is not None and ell is not None:
             raise ValueError("give the BELL graph (bell) or the ELL graph (ell), not both")
         x = x.to(compute_dtype)
@@ -405,22 +450,26 @@ class DSTAGNN(nn.Module):
         cheb_polys = cheb_polys.to(compute_dtype)
         c = lambda t: t.to(compute_dtype)
         res_att = torch.zeros((), dtype=x.dtype, device=x.device)
-        outs = []
+        kw = dict(adj_pa=adj_pa, cheb_polys=cheb_polys, deterministic=deterministic,
+                  use_pallas=use_pallas, bell=bell, bell_tiles=bell_tiles, ell=ell,
+                  fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu)
+        outs, maps = [], []
         for block in self.BlockList:
-            x, res_att = block(
-                x, res_att, adj_pa=adj_pa, cheb_polys=cheb_polys,
-                deterministic=deterministic, generator=generator,
-                use_pallas=use_pallas, bell=bell, bell_tiles=bell_tiles, ell=ell,
-                fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
-            )
+            if remat and torch.is_grad_enabled():
+                x, res_att, stat = checkpoint_block(block, x, res_att, generator=generator,
+                                                    **kw)
+            else:
+                x, res_att, stat = block(x, res_att, generator=generator, **kw)
             outs.append(x)
+            if return_attention:
+                maps.append(stat)
         final_x = torch.cat(outs, dim=-1)  # (B, N, C, T·nb_block)
         # final_conv: Conv2d(T·nb → 128, kernel (1, C))
         out1 = (torch.einsum("bnct,dtc->bnd", final_x,
                              c(self.final_conv.weight)[:, :, 0, :])
                 + c(self.final_conv.bias))
-        out = out1 @ c(self.final_fc.weight).t() + c(self.final_fc.bias)
-        return out.float()
+        out = (out1 @ c(self.final_fc.weight).t() + c(self.final_fc.bias)).float()
+        return (out, maps) if return_attention else out
 
 
 def make_model(spec: ModelSpec, adj_merge, adj_pa, *, seed: int = 0,

@@ -84,16 +84,19 @@ class ZooModel(nn.Module):
     ``use_pallas``, ``bell``, ``bell_tiles``, ``ell`` and ``fuse_*`` are
     accepted and ignored, as the JAX families ignore them. x and
     ``cheb_polys`` are cast to ``compute_dtype`` (the weights in
-    :meth:`predict`, float32 masters kept); the output is float32."""
+    :meth:`predict`, float32 masters kept); the output is float32. With
+    ``return_attention`` it is ``(out, [])``: the zoo families export no
+    spatial map, as in JAX."""
 
     def forward(self, x, *, adj_pa=None, cheb_polys, deterministic: bool = True,
                 generator: torch.Generator | None = None,
                 compute_dtype: torch.dtype = torch.float32, use_pallas: bool = False,
                 bell=None, bell_tiles=None, ell=None, fuse_tat: bool = False,
-                fuse_spatial: bool = False, fuse_gtu: bool = False):
+                fuse_spatial: bool = False, fuse_gtu: bool = False,
+                return_attention: bool = False):
         out = self.predict(x.to(compute_dtype), cheb_polys.to(compute_dtype),
-                           deterministic=deterministic, generator=generator)
-        return out.float()
+                           deterministic=deterministic, generator=generator).float()
+        return (out, []) if return_attention else out
 
     def predict(self, x, cheb_polys, *, deterministic, generator):
         """x (B, N, F, T) in the compute dtype → (B, N, num_for_predict)."""

@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from dstagnn_drought_tpu_torch import debug
 from dstagnn_drought_tpu_torch.ops.cuda import build
 
 k1_launches = 0
@@ -172,6 +173,7 @@ def _g_agg(gm, thetas, T):
     return g.reshape(B, Np, H, C * T)
 
 
+@debug.kernel("bell_k1")
 def bell_k1_plain(active_src, active_tgt, thetas, gm, x, w):
     """K1 in tensor ops: (dA (B, A, H, BS, BS) f32, dΘ (H, C, Co) f32)."""
     B, A, H, BS, _ = w.shape
@@ -189,6 +191,7 @@ def bell_k1_plain(active_src, active_tgt, thetas, gm, x, w):
     return dA, dth
 
 
+@debug.kernel("bell_k2")
 def bell_k2_plain(src_start, src_count, src_order, active_tgt, thetas, gm, w):
     """K2 in tensor ops: dx (B, NI·BS, C·T) in gm's dtype."""
     B, A, H, BS, _ = w.shape
@@ -274,6 +277,7 @@ def k1_groups(T: int, TT: int) -> int:
     return -(-chunks // 4)
 
 
+@debug.kernel("bell_k1")
 def bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, w):
     """Launch K1 on the current stream: (dA f32, dΘ f32); bf16 operands take
     the tensor-core kernels, float32 the CUDA-core kernels."""
@@ -323,6 +327,7 @@ def bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, 
     return dA, dth
 
 
+@debug.kernel("bell_k2")
 def bell_k2_cuda(src_start, src_count, src_order, active_tgt, thetas, gm, w):
     """Launch K2 on the current stream: dx (B, NI·BS, C·T) in gm's dtype;
     bf16 operands take the tensor-core kernel, float32 the CUDA-core one."""

@@ -39,6 +39,7 @@ import math
 
 import torch
 
+from dstagnn_drought_tpu_torch import debug
 from dstagnn_drought_tpu_torch.ops.block_sparse import BlockEllGraph, pad_node_axis
 from dstagnn_drought_tpu_torch.ops.cuda import bell_bwd, build
 
@@ -75,6 +76,7 @@ def active_softmax(q, k, bias_t, active_src, active_tgt, n_tiles):
     return q_act, k_act, att
 
 
+@debug.kernel("bell_fused")
 def bell_forward_plain(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
     """The fused forward in tensor ops: (B, Np, Co·T) in x's dtype."""
     B, Np, M = x.shape
@@ -232,6 +234,7 @@ def _load():
     return lib
 
 
+@debug.kernel("bell_fused")
 def bell_forward_cuda(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
     """Launch the fused forward on the current stream: bf16 x takes the
     tensor-core design, float32 x the CUDA-core kernels."""

@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from dstagnn_drought_tpu_torch import debug
 from dstagnn_drought_tpu_torch.ops.cuda import build
 
 fwd_launches = 0
@@ -62,6 +63,7 @@ class _Round(torch.autograd.Function):
         return (g.to(ctx.md).float() if ctx.grad else g), None, None, None
 
 
+@debug.kernel("spatial_fwd")
 def spatial_middle_plain(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, *,
                          K, d_k, keep):
     """The kernels' function in tensor ops: tat (B, N, F·T), xm (B, N, C·T),
@@ -247,6 +249,7 @@ def _bf16_operands(xm, pw, wqk, bf16):
     return tuple(out)
 
 
+@debug.kernel("spatial_fwd")
 def spatial_forward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, *,
                          K, d_k, keep, bf16):
     """Launch the forward on the current stream: float32 contiguous CUDA
@@ -272,6 +275,7 @@ def spatial_forward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, t
     return y
 
 
+@debug.kernel("spatial_bwd")
 def spatial_backward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas,
                           g_out, relu_mask, *, K, d_k, keep, bf16):
     """Launch the backward on the current stream: (dtat, dxm, dpw, dpb, dpos,

@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from dstagnn_drought_tpu_torch import debug
 from dstagnn_drought_tpu_torch.ops.cuda import build
 
 launches = 0
@@ -101,6 +102,7 @@ def sat_plan(B, K, N, M, x_is_bf16):
             "grid": (-(-M // tm), -(-N // tj), B * K)}
 
 
+@debug.kernel("cheb_sat")
 def sat_aggregate_plain(scores, bias, cheb, x):
     """agg[b,k,j,m] = Σ_i (T_k ⊙ softmax_i(scores+bias))[i,j] · x[b,i,m], in
     the scores' dtype (a bf16 x is widened, as the kernel reads it)."""
@@ -145,6 +147,7 @@ def _load():
     return lib
 
 
+@debug.kernel("cheb_sat")
 def sat_aggregate_cuda(scores, bias, cheb, x):
     """Launch the plan's passes on the current stream. Float32 contiguous
     CUDA tensors, x float32 or bf16; returns (B, K, N, M) float32."""

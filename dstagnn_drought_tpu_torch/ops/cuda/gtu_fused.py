@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from dstagnn_drought_tpu_torch import debug
 from dstagnn_drought_tpu_torch.ops.cuda import build
 
 KS = (3, 5, 7)
@@ -96,6 +97,7 @@ def _value_in(w, md):
     return wf + (w.to(md).float() - wf).detach()
 
 
+@debug.kernel("gtu_fwd")
 def gtu_cat_plain(x, w3, b3, w5, b5, w7, b7):
     """The kernels' function in tensor ops: x (B, N, C, T) → (B, N, 3T−12, C)
     in x's dtype."""
@@ -204,6 +206,7 @@ def _check(x, wp, bp, others=()):
     return B * N, C, T
 
 
+@debug.kernel("gtu_fwd")
 def gtu_forward_cuda(x, wp, bp):
     """Launch the forward on the current stream: x (B, N, C, T) float32 or
     bfloat16, ``pack``'s operands → (B, N, 3T−12, C) in x's dtype."""
@@ -224,6 +227,7 @@ def gtu_forward_cuda(x, wp, bp):
     return out
 
 
+@debug.kernel("gtu_bwd")
 def gtu_backward_cuda(x, g, wp, bp):
     """Launch the backward on the current stream: the cotangent g
     (B, N, 3T−12, C) → (dx in x's dtype, dwp (15, 2C, C), dbp (3, 2C)

@@ -38,6 +38,7 @@ import ctypes
 
 import torch
 
+from dstagnn_drought_tpu_torch import debug
 from dstagnn_drought_tpu_torch.ops.cuda import build
 
 fwd_launches = 0
@@ -54,6 +55,7 @@ def _ln_hat(z):
     return (z - mu) * torch.rsqrt(var + _EPS)
 
 
+@debug.kernel("tat_fwd")
 def tat_fused_plain(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v, embed):
     """The kernel's function in tensor ops: x (BF, T, N), res (BF, H, T, T)
     → (out (BF, T, N), scores (BF, H, T, T)) in x's dtype."""
@@ -236,6 +238,7 @@ def _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, others=(), 
             raise ValueError(f"the tat_fused kernels run on CUDA tensors; {name} is on {t.device}")
 
 
+@debug.kernel("tat_fwd")
 def tat_forward_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v, embed):
     """Launch the forward on the current stream: float32 contiguous CUDA
     tensors → (out (BF, T, N), scores (BF, H, T, T)) float32."""
@@ -258,6 +261,7 @@ def tat_forward_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v
     return out, scores
 
 
+@debug.kernel("tat_bwd")
 def tat_backward_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, g_out, g_sc, *,
                       n_heads, d_k, d_v, embed):
     """Launch the backward on the current stream: (dx, dres, dpos, dg0, db0,
@@ -295,6 +299,7 @@ def tat_backward_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, g_out, g_sc, *,
     return dx, dres, dpos, dg0, db0, dwqkv, dwo, dg1, db1
 
 
+@debug.kernel("tat_fwd")
 def tat_forward_bf16_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v, embed,
                           out_dtype=torch.bfloat16):
     """Launch the bf16 design's forward (passes 1-3) on the current stream:
@@ -320,6 +325,7 @@ def tat_forward_bf16_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k
     return out, scores
 
 
+@debug.kernel("tat_bwd")
 def tat_backward_bf16_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, g_out, g_sc, *, n_heads, d_k,
                            d_v, embed, out_dtype=torch.bfloat16):
     """Launch the bf16 design's backward (passes 1, 2, 4-7) on the current

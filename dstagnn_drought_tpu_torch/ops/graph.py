@@ -11,6 +11,8 @@ Counterpart of ``dstagnn_drought_tpu/ops/graph.py``:
   * ``cheb_polynomials`` — T_0..T_{K-1} with the reference's **elementwise**
     recurrence ``2 * L̃ * T_{k-1} - T_{k-2}`` (Hadamard product, an
     inherited ASTGCN quirk), or the matrix recurrence with ``matmul=True``.
+  * ``laplacian`` — the legacy Laplacian variants (8 kinds), the ``wid_*``
+    ones rescaled by this module's power-iteration λ_max.
 """
 from __future__ import annotations
 
@@ -56,3 +58,43 @@ def cheb_polynomials(L_tilde: torch.Tensor, K: int, matmul: bool = False) -> tor
             nxt = 2.0 * L_tilde * polys[-1] - polys[-2]
         polys.append(nxt)
     return torch.stack(polys[:K], dim=0)
+
+
+LAPLACIAN_KINDS = ("id_mat", "com_lap_mat", "sym_normd_lap_mat", "wid_sym_normd_lap_mat",
+                   "hat_sym_normd_lap_mat", "rw_normd_lap_mat", "wid_rw_normd_lap_mat",
+                   "hat_rw_normd_lap_mat")
+
+
+def laplacian(adj, kind: str = "sym_normd_lap_mat") -> torch.Tensor:
+    """Legacy Laplacian-variant factory (float32), the JAX package's
+    ``laplacian``: identity, combinatorial D − A, symmetric and random-walk
+    normalised I − D^-1/2 A D^-1/2 and I − D^-1 A (isolated nodes get
+    zero rows), their ``wid_`` rescaling 2L/λ_max − I and their ``hat_``
+    renormalised forms with self-loops, D̃^-1/2 (A+I) D̃^-1/2 and D̃^-1 (A+I)."""
+    A = torch.as_tensor(adj, dtype=torch.float32)
+    n = A.shape[0]
+    I = torch.eye(n, dtype=A.dtype, device=A.device)
+    deg = A.sum(dim=1)
+    if kind == "id_mat":
+        return I
+    if kind == "com_lap_mat":
+        return torch.diag(deg) - A
+    if kind in ("sym_normd_lap_mat", "wid_sym_normd_lap_mat", "hat_sym_normd_lap_mat"):
+        d_inv_sqrt = torch.where(deg > 0, torch.rsqrt(torch.clamp(deg, min=1e-30)),
+                                 torch.zeros_like(deg))
+        sym = I - (d_inv_sqrt[:, None] * A) * d_inv_sqrt[None, :]
+        if kind == "sym_normd_lap_mat":
+            return sym
+        if kind == "wid_sym_normd_lap_mat":
+            return 2.0 * sym / power_iteration_lambda_max(sym) - I
+        wd_inv_sqrt = torch.rsqrt(deg + 1.0)
+        return (wd_inv_sqrt[:, None] * (A + I)) * wd_inv_sqrt[None, :]
+    if kind in ("rw_normd_lap_mat", "wid_rw_normd_lap_mat", "hat_rw_normd_lap_mat"):
+        d_inv = torch.where(deg > 0, 1.0 / torch.clamp(deg, min=1e-30), torch.zeros_like(deg))
+        rw = I - d_inv[:, None] * A
+        if kind == "rw_normd_lap_mat":
+            return rw
+        if kind == "wid_rw_normd_lap_mat":
+            return 2.0 * rw / power_iteration_lambda_max(rw) - I
+        return (1.0 / (deg + 1.0))[:, None] * (A + I)
+    raise ValueError(f"unknown laplacian kind {kind!r}")

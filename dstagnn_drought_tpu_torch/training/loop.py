@@ -24,8 +24,16 @@ Trainer is built (:func:`check_fused_shapes`).
 ``sparse``, ``fuse_tat`` and ``fuse_spatial`` on another family raise
 JAX's ``ValueError`` before any data or graph is read (:func:`check_family`);
 ``use_pallas`` is accepted there and changes nothing, as in JAX.
-Options of paths not ported yet raise ``NotImplementedError`` naming the
-ROADMAP item that will port them (:func:`check_slice`).
+``debug`` runs each batch through the checked step (NaN/inf and batch
+indices, :func:`~dstagnn_drought_tpu_torch.training.step.make_checked_train_step`);
+``nan_policy = rollback`` restores the latest checkpoint, halves the
+learning rate and retries the epoch (:meth:`Trainer._rollback_to_last_good`);
+``tensorboard`` adds TensorBoard scalars under ``<run_dir>/tb``; ``remat``
+recomputes DSTAGNN's block activations in the backward;
+:meth:`Trainer.attention_maps` exports the per-block spatial maps.
+Options of paths not ported yet (the multi-device ones) raise
+``NotImplementedError`` naming the ROADMAP item that will port them
+(:func:`check_slice`).
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ from dstagnn_drought_tpu_torch.training.logger import MetricLogger
 from dstagnn_drought_tpu_torch.training.metrics import horizon_report
 from dstagnn_drought_tpu_torch.training.step import (
     eval_step,
+    make_checked_train_step,
     make_optimizer,
     train_step,
 )
@@ -79,10 +88,6 @@ def check_slice(cfg: Config) -> None:
          f"data_axis={t.data_axis}, graph_axis={t.graph_axis}",
          "§1 item 12 (multi-device)"),
         (t.tp, "tp=true", "§1 item 12 (multi-device)"),
-        (t.debug, "debug=true", "§1 item 13 (debug mode)"),
-        (t.nan_policy == "rollback", "nan_policy='rollback'", "§1 item 14 (NaN rollback)"),
-        (t.tensorboard, "tensorboard=true", "§1 item 15 (TensorBoard and profiling)"),
-        (t.remat, "remat=true", "§1 item 16 (remaining knobs and CLIs)"),
     ]
     for hit, what, item in refused:
         if hit:
@@ -95,7 +100,8 @@ def check_slice(cfg: Config) -> None:
 def check_family(cfg: Config):
     """The family module of ``model_name``; for a family other than DSTAGNN,
     JAX's ``ValueError`` where ``sparse``, ``fuse_tat`` or ``fuse_spatial``
-    asks for a DSTAGNN-only path."""
+    asks for a DSTAGNN-only path, and a ``ValueError`` for ``remat`` (only
+    DSTAGNN's forward takes it, as in JAX)."""
     t = cfg.training
     family = get_family(t.model_name or "dstagnn")
     if (t.model_name or "dstagnn").lower() != "dstagnn":
@@ -106,6 +112,9 @@ def check_family(cfg: Config):
             raise ValueError(
                 "fuse_tat/fuse_spatial are dstagnn-family kernels; got "
                 f"model_name={t.model_name!r}")
+        if t.remat:
+            raise ValueError(
+                f"remat is a dstagnn-family option; got model_name={t.model_name!r}")
     return family
 
 
@@ -247,13 +256,21 @@ class Trainer:
             self.constants["ell"] = ell.to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate)
         self.generator = torch.Generator(device=self.device).manual_seed(t.seed)
+        self._step_kw = dict(compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
+                             fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
+                             fuse_gtu=self.fuse_gtu, remat=t.remat)
+        self.checked_step = make_checked_train_step(**self._step_kw) if t.debug else None
+        self._lr_scale = 1.0
+        self._rollbacks = 0
 
         self.run_dir = ckpt.run_dir(
             experiments_root, cfg.data.dataset_name, t.model_name,
             t.num_of_hours, t.num_of_days, t.num_of_weeks,
             t.in_channels, t.learning_rate,
         )
-        self.logger = MetricLogger(os.path.join(self.run_dir, "metrics.jsonl"))
+        self.logger = MetricLogger(
+            os.path.join(self.run_dir, "metrics.jsonl"),
+            tensorboard_dir=os.path.join(self.run_dir, "tb") if t.tensorboard else None)
         self.best_val = math.inf
         self.best_epoch = -1
         self.epoch = t.start_epoch
@@ -304,16 +321,23 @@ class Trainer:
             "train", t.batch_size, shuffle=True, seed=t.seed * 100003 + epoch
         )
         weights = (np.arange(idx.size) < n_valid).astype(np.float32).reshape(idx.shape)
-        idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
         weights = torch.from_numpy(weights).to(self.device)
         losses = []
+        if self.checked_step is not None:
+            # debug mode: one checked step a batch; a NaN/inf or an index
+            # outside the split raises here, naming the op and the batch
+            for b in range(idx.shape[0]):
+                losses.append(self.checked_step(
+                    self.model, self.optimizer, x_full, y_full, idx[b], self.constants,
+                    weights=weights[b], generator=self.generator, batch=b))
+            self.last_epoch_steps = len(losses)
+            return float(torch.stack(losses).mean())
+        idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
         for b in range(idx.shape[0]):
             losses.append(train_step(
                 self.model, self.optimizer, x_full[idx[b]], y_full[idx[b]],
                 self.constants, weights=weights[b], generator=self.generator,
-                compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
-                fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
-                fuse_gtu=self.fuse_gtu,
+                **self._step_kw,
             ))
         self.last_epoch_steps = len(losses)
         mean_loss = float(torch.stack(losses).mean())
@@ -346,6 +370,52 @@ class Trainer:
             pred = pred[:, self._inv_perm]  # back to the original node order
         return pred, float(per_sample.mean())
 
+    @torch.no_grad()
+    def attention_maps(self, split: str = "test", sample: int = 24) -> list:
+        """Per-block spatial maps of one sample, ``min(sample, n-1)``, of a
+        split (the reference's legacy export takes batch 24): deterministic,
+        float32, through the forward JAX's export calls (the graph and the
+        BELL tiles, no ``use_pallas`` and no fused options). A list of
+        per-block arrays: (K, N, N) dense, (K, N, E) ELL, block scores on
+        BELL, scalar zeros on BELL tiles, whose kernel never materialises
+        them. With ``rcm`` the maps are in the internal (RCM) node order:
+        ``self._perm`` maps an internal index to the original node."""
+        x_full, _ = self._splits[split]
+        n = len(getattr(self.dataset, split))
+        i = min(sample, n - 1)
+        c = self.constants
+        out = self.model(x_full[i:i + 1], adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"],
+                         deterministic=True, bell=c.get("bell"), bell_tiles=c.get("bell_tiles"),
+                         ell=c.get("ell"), return_attention=True)
+        return [(m[0] if m.ndim else m).float().cpu().numpy() for m in out[1]]
+
+    def _rollback_to_last_good(self, epoch: int) -> None:
+        """NaN recovery: restore the latest checkpoint's model, Adam state
+        and generator, halve the learning rate, log ``rollback``; the caller
+        retries the epoch. ``FloatingPointError`` where there is no
+        checkpoint."""
+        t = self.cfg.training
+        latest = ckpt.latest_checkpoint(self.run_dir)
+        if latest is None:
+            raise FloatingPointError(
+                f"NaN loss at epoch {epoch} and no checkpoint to roll back to")
+        state = ckpt.restore_checkpoint(latest, map_location=self.device)
+        self.model.load_state_dict(state["model"])
+        if state["generator"] is not None:
+            self.generator.set_state(state["generator"].cpu())
+        self._rollbacks += 1
+        self._lr_scale *= 0.5
+        if state["optimizer"] is not None:
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:
+            self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate)
+        # load_state_dict brings back the saved lr: the halved one goes in after it
+        lr = t.learning_rate * self._lr_scale
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.logger.log("rollback", epoch=epoch, checkpoint=latest, lr=lr,
+                        rollbacks=self._rollbacks)
+
     # ------------------------------------------------------------------
     def run(self, epochs: Optional[int] = None) -> dict:
         t = self.cfg.training
@@ -353,7 +423,13 @@ class Trainer:
         while self.epoch < end_epoch:
             e = self.epoch
             t0 = time.perf_counter()
-            train_loss = self.train_epoch(e)  # reading the loss synchronizes
+            try:
+                train_loss = self.train_epoch(e)  # reading the loss synchronizes
+            except FloatingPointError:
+                if t.nan_policy == "rollback" and self._rollbacks < t.max_rollbacks:
+                    self._rollback_to_last_good(e)
+                    continue
+                raise
             train_seconds = time.perf_counter() - t0
             _, val_loss = self.evaluate("val")
             self.logger.log(

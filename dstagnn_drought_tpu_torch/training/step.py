@@ -9,12 +9,16 @@ the sparse path, the BlockEllGraph (``bell``) and its per-tile constants
 (``bell_tiles``) or the EllGraph (``ell``). ``fuse_tat``/``fuse_spatial``/
 ``fuse_gtu`` select the fused kernels, as the JAX trainer's ``apply_extra``
 does. The steps call every model family's forward with the same keywords;
-the zoo families ignore the DSTAGNN-only ones.
+the zoo families ignore the DSTAGNN-only ones (``remat`` is passed only
+when set: DSTAGNN alone takes it, as in JAX).
+:func:`make_checked_train_step` is the debug-mode step.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from dstagnn_drought_tpu_torch import debug
 from dstagnn_drought_tpu_torch.ops.nn import per_sample_smooth_l1, smooth_l1_loss
 
 
@@ -36,6 +40,7 @@ def train_step(
     fuse_tat: bool = False,
     fuse_spatial: bool = False,
     fuse_gtu: bool = False,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Forward (dropout on) → weighted SmoothL1 → backward → Adam. Returns
     the loss, detached, on the device."""
@@ -47,11 +52,36 @@ def train_step(
         bell=constants.get("bell"), bell_tiles=constants.get("bell_tiles"),
         ell=constants.get("ell"),
         fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
+        **({"remat": True} if remat else {}),
     )
     loss = smooth_l1_loss(pred, y, sample_weights=weights)
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def make_checked_train_step(**step_kw):
+    """The sanitizer variant of :func:`train_step` (JAX: the ``checkify``
+    step): returns ``step(model, optimizer, x_full, y_full, idx, constants,
+    *, weights, generator, batch)`` → loss. ``idx`` (host numpy or a CPU
+    tensor) is checked against the split's length before the gather
+    (:class:`~dstagnn_drought_tpu_torch.debug.BatchIndexError`); then the
+    whole step, forward, loss, backward and Adam, runs under
+    :func:`~dstagnn_drought_tpu_torch.debug.checking`, so the first op or
+    kernel that emits a NaN or inf raises
+    :class:`~dstagnn_drought_tpu_torch.debug.NonFiniteError` naming it and
+    the batch. ``step_kw`` are :func:`train_step`'s keywords. It computes
+    what :func:`train_step` computes, bit for bit."""
+
+    def step(model, optimizer, x_full, y_full, idx, constants, *, weights=None,
+             generator=None, batch=None):
+        debug.check_batch_indices(idx, x_full.shape[0], batch)
+        i = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(x_full.device)
+        with debug.checking(batch):
+            return train_step(model, optimizer, x_full[i], y_full[i], constants,
+                              weights=weights, generator=generator, **step_kw)
+
+    return step
 
 
 @torch.no_grad()

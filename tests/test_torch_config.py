@@ -125,16 +125,29 @@ def test_missing_file():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("tp", True), ("debug", True), ("data_axis", 2),
-    ("graph_axis", 2), ("nan_policy", "rollback"),
-    ("tensorboard", True), ("remat", True),
+    ("tp", True), ("data_axis", 2), ("graph_axis", 2),
 ])
 def test_options_outside_the_slice_are_refused(knob, value):
     cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
                              port_config.TrainingConfig())
     check_slice(cfg)  # the dense default is in the slice
     setattr(cfg.training, knob, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 12"):
+        check_slice(cfg)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("debug", True), ("nan_policy", "rollback"), ("tensorboard", True), ("remat", True),
+])
+def test_single_card_knobs_are_in_the_slice(knob, value):
+    """debug, NaN rollback, TensorBoard and remat are ported: check_slice
+    passes them, alone and with the multi-device options still refused."""
+    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
+                             port_config.TrainingConfig())
+    setattr(cfg.training, knob, value)
+    check_slice(cfg)
+    cfg.training.tp = True
+    with pytest.raises(NotImplementedError, match=r"item 12"):
         check_slice(cfg)
 
 
@@ -171,13 +184,15 @@ def test_bell_options_are_in_the_slice():
                                    ("fuse_tat", "fuse_spatial", "fuse_gtu")])
 def test_fused_options_are_in_the_slice(knobs):
     """Every fused kernel pair is ported (temporal attention, spatial
-    middle, GTU tail), alone and together; an option still outside the
-    slice (remat) is still refused with them."""
+    middle, GTU tail), alone and together, and with remat; an option still
+    outside the slice (tp) is still refused with them."""
     cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
                              port_config.TrainingConfig())
     for knob in knobs:
         setattr(cfg.training, knob, True)
     check_slice(cfg)
     cfg.training.remat = True
-    with pytest.raises(NotImplementedError, match=r"item 16"):
+    check_slice(cfg)
+    cfg.training.tp = True
+    with pytest.raises(NotImplementedError, match=r"item 12"):
         check_slice(cfg)

@@ -37,7 +37,8 @@ def test_importing_the_port_loads_no_jax():
     assert not bad, bad
     for module in ("ops.cuda.cheb_sat", "ops.cuda.bell_fused", "ops.cuda.bell_bwd",
                    "ops.cuda.tat_fused", "ops.cuda.block_spatial_fused",
-                   "ops.cuda.gtu_fused", "ops.block_sparse"):
+                   "ops.cuda.gtu_fused", "ops.block_sparse", "debug",
+                   "training.profiling", "cli.evaluate", "data.legacy", "data.native"):
         assert f"dstagnn_drought_tpu_torch.{module}" in loaded, module
 
 

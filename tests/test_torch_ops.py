@@ -72,6 +72,27 @@ def test_cheb_polynomials_match_jax(rng, matmul):
         np.testing.assert_allclose(got[2], 2 * Lt * Lt - np.eye(9), atol=1e-5)
 
 
+@pytest.mark.parametrize("kind", graph.LAPLACIAN_KINDS)
+def test_laplacian_kinds_match_jax(kind):
+    """Every legacy Laplacian kind on a weighted graph with an isolated node
+    (the zero-degree rows): 1e-5 of the JAX package's; the ``wid_`` kinds,
+    rescaled by power iteration from another start vector, rtol 1e-4."""
+    rng = np.random.default_rng(6)
+    A = _ring(13) * rng.uniform(0.5, 2.0, (13, 13)).astype(np.float32)
+    A = np.maximum(A, A.T)
+    A[5, :] = A[:, 5] = 0
+    got = graph.laplacian(torch.from_numpy(A), kind).numpy()
+    want = np.asarray(j_graph.laplacian(jnp.asarray(A), kind))
+    assert got.shape == want.shape == (13, 13) and got.dtype == np.float32
+    tol = dict(rtol=1e-4, atol=1e-4) if kind.startswith("wid_") else dict(atol=1e-5)
+    np.testing.assert_allclose(got, want, **tol)
+
+
+def test_laplacian_unknown_kind():
+    with pytest.raises(ValueError, match="unknown laplacian kind"):
+        graph.laplacian(np.eye(3), "magnetic")
+
+
 def test_layer_norm(rng):
     x = rng.normal(size=(3, 5, 7)).astype(np.float32) * 3 + 1
     s, b = rng.random(7).astype(np.float32), rng.random(7).astype(np.float32)
