@@ -117,7 +117,29 @@ Phases; any failure exits non-zero:
      to the CPU's, cheb_sat once per block of every forward), then the
      train CLI with ``--profile`` and ``--tensorboard`` (the trace must name
      a cheb_sat kernel);
-  14. a JSON line with every kernel's numbers, then the device line.
+  14. multi-device training (``phase_multi``, the parallel package): 4
+     ranks share the card over gloo (NCCL refuses two ranks on one card;
+     gloo takes every collective the port issues on CUDA tensors, nothing is
+     staged through host memory) and train GAMBIA BELL tiles at full width,
+     one epoch of 3 steps and one eval each: graph = 4 with the overlapped
+     halo in float32 and in bf16, (data, graph) = (2, 2) without it in
+     float32; each held against the single-rank run of the same weights in
+     this call (per-step losses, the first step's gradients gathered whole
+     at each tensor's own scale, final weights, val predictions; at (2, 2)
+     each rank's gradient before the data-group sum must fail that gate),
+     the parameters every rank holds whole bit-identical across ranks, each
+     rank's F once per block of every forward pass and K1/K2 once per block
+     of every step (twice with the overlap's two sublists); rank 0's F, K1
+     and K2 against their plain versions at its shard shapes (both dtypes),
+     a sublist's pad entries exactly 0 (F rows zero, K1's dΘ and K2's dx
+     unchanged bit for bit without them) and the plan's inert tiles finite
+     and zero; the targeted exchange's volume at graph = 2 and 4; ms/step
+     of 4 ranks sharing one H100 (no multi-GPU figure); then the training
+     CLI with --distributed at world size 1 under NCCL, its predictions
+     equal bit for bit to the run without it;
+  15. a JSON line with every kernel's numbers (with F, K1 and K2 on rank
+     0's tile list at graph = 4 as records of their own), then the device
+     line.
 
 ``--measure`` adds the spatial and TAt forward and backward by pass
 (profiles at PEMS08 blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
@@ -147,6 +169,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -3058,6 +3081,489 @@ def phase_evaluate(root: Path, card: str):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-device training, P ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+MULTI_P = 4
+# (label, compute dtype, data_axis, graph_axis, halo_overlap, dropout): the
+# GAMBIA BELL-tiles configuration with P ranks on the card; dropout stays on
+# where every rank is data rank 0 (whose draws are the single-rank run's)
+# and is off at data_axis = 2, whose data rank 1 draws its own
+MULTI_RUNS = (
+    ("graph4_overlap_f32", "float32", 1, 4, True, 0.05),
+    ("graph4_overlap_bf16", "bfloat16", 1, 4, True, 0.05),
+    ("data2_graph2_f32", "float32", 2, 2, False, 0.0),
+)
+# (per-step losses rtol; the first step's gradients as max |Δ| over max
+# |single| of each tensor, and the final weights and val predictions as
+# max |Δ| over max(1, max |single|)) against the single-rank run of the
+# same weights
+MULTI_TOL = {"float32": (2e-3, 5e-3), "bfloat16": (1e-2, 1e-2)}
+MULTI_BF16_TOL = 1e-2  # a bf16 kernel against its plain version, of scale
+# F/K1/K2 at GAMBIA block 2's widths on a rank's tile list: B, H, C, T, Co, d_k
+MULTI_SHAPE = (4, 2, 32, GAMBIA_T_IN, 32, 32)
+
+
+def multi_trainer(root: Path, label: str, dtype: str, data_axis: int, graph_axis: int,
+                  overlap: bool, dropout: float) -> Trainer:
+    ds, A, pa = gambia_data()
+    cfg = gambia_config(A.shape[0], **BELL_TILES)
+    t = cfg.training
+    t.compute_dtype, t.dropout, t.halo_overlap = dtype, dropout, overlap
+    t.data_axis, t.graph_axis = data_axis, graph_axis
+    return Trainer(cfg, dataset=ds, adj_merge=A, adj_pa=pa,
+                   experiments_root=str(root / label), device="cuda")
+
+
+def first_step_grads(tr):
+    """Hook the trainer's first step. Returns (grads, own, undo): ``grads``
+    fills with every parameter's gradient as Adam takes it (after the
+    data-group sum), ``own`` on a data mesh with this rank's gradient
+    before that sum (the control a missing sum would leave); ``undo``
+    removes the hooks. train_step looks ``comm.reduce_gradients`` up at
+    each call."""
+    from dstagnn_drought_tpu_torch.parallel import comm
+
+    names = {id(p): n for n, p in tr.model.named_parameters()}
+    grads, own = {}, {}
+    reduce, step = comm.reduce_gradients, tr.optimizer.step
+
+    def now():
+        return {names[id(p)]: p.grad.detach().clone() for p in tr.model.parameters()
+                if p.grad is not None}
+
+    def reduce_first(params, group):
+        if group is not None and not own:
+            own.update(now())
+        return reduce(params, group)
+
+    def step_first(*a, **k):
+        if not grads:
+            grads.update(now())
+        return step(*a, **k)
+
+    def undo():
+        comm.reduce_gradients = reduce
+        del tr.optimizer.step
+
+    comm.reduce_gradients, tr.optimizer.step = reduce_first, step_first
+    return grads, own, undo
+
+
+def multi_run(root: Path, run: tuple, single: bool = False) -> tuple[dict, dict]:
+    """One epoch of 3 steps and one eval of ``run`` (on one process when
+    ``single``), the launch counts set to 0 just before and read just after
+    each, then a second epoch timed. Returns (record, whole tensors): the
+    per-step losses, val predictions, a digest of every parameter this rank
+    holds whole, the launches and ms/step; the final weights, the first
+    step's gradients (gathered whole from the slices) and, on a data mesh,
+    the rank's own first-step gradients before the data-group sum, float32
+    numpy."""
+    label, dtype = run[:2]
+    tr = (multi_trainer(root, f"{label}_single", dtype, 1, 1, *run[4:]) if single
+          else multi_trainer(root, *run))
+    grads, own, undo = first_step_grads(tr)
+    reset_launches()
+    tr.train_epoch(0)
+    torch.cuda.synchronize()
+    train_launches, losses = read_launches(), list(tr.last_losses)
+    undo()
+    if tr.layout is not None:  # collective over the data row
+        grads = tr.layout.whole_state(grads)
+        own = tr.layout.whole_state(own) if own else own
+    reset_launches()
+    pred, val_loss = tr.evaluate("val")
+    torch.cuda.synchronize()
+    eval_launches = read_launches()
+    numpy = lambda d: {k: v.float().cpu().numpy() for k, v in d.items()}
+    state = {"weights": numpy(tr.model_state()), "grads": numpy(grads), "own": numpy(own)}
+    digests = {n: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
+               for n, p in tr.model.named_parameters()
+               if tr.layout is None or not tr.layout.sliced(n)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_epoch(1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / tr.last_epoch_steps * 1e3
+    record = {"losses": losses, "val_loss": val_loss, "pred": pred, "digests": digests,
+              "train_launches": train_launches, "eval_launches": eval_launches,
+              "ms_per_step": ms, "steps": tr.last_epoch_steps,
+              "backend": None if tr.mesh is None else tr.mesh.backend}
+    return record, state
+
+
+def shard_view(tiles, pattern):
+    """A RankTiles in the attributes bell_inputs reads of a BlockEllGraph."""
+    BS = pattern.shape[-1]
+    rows = tiles.num_tiles * BS
+    return types.SimpleNamespace(
+        tensors={**tiles.tensors, "active_pattern": pattern}, num_active=tiles.num_active,
+        block_size=BS, padded_nodes=rows, n_nodes=rows, num_tiles=tiles.num_tiles)
+
+
+def shard_kernels(tiles, pattern, dtype, seed: int):
+    """F, K1 and K2 against their plain versions on one rank's tile list at
+    GAMBIA block 2's widths (MULTI_SHAPE): (rows, the kernels' outputs)."""
+    B, H, C, T, Co, dk = MULTI_SHAPE
+    BS = pattern.shape[-1]
+    ins = bell_inputs(shard_view(tiles, pattern), B, H, C, T, Co, dk, dtype, seed)
+    t = tiles.tensors
+    calls = {
+        "bell_fused": ((t["tile_start"], t["tile_count"], t["active_src"], ins["q"], ins["k"],
+                        ins["bias"], ins["cheb"], ins["x"], ins["thetas"]),
+                       bell_fused.bell_forward_cuda, bell_fused.bell_forward_plain),
+        "bell_k1": ((t["active_src"], t["active_tgt"], t["tile_start"], t["tile_count"],
+                     ins["thetas"], ins["gm"], ins["x"], ins["w"]), bell_bwd.bell_k1_cuda,
+                    lambda a_s, a_t, _ts, _tc, *r: bell_bwd.bell_k1_plain(a_s, a_t, *r)),
+        "bell_k2": ((t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
+                     ins["thetas"], ins["gm"], ins["w"]), bell_bwd.bell_k2_cuda,
+                    bell_bwd.bell_k2_plain),
+    }
+    bounds = bell_bounds(B, H, tiles.num_active, BS, dk, C, T, Co, tiles.num_tiles * BS,
+                         dtype)
+    rows, outs = [], {}
+    for name, (args, kern, plain) in calls.items():
+        got, want = kern(*args), plain(*args)
+        got, want = (got if isinstance(got, tuple) else (got,)), (
+            want if isinstance(want, tuple) else (want,))
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        tol = (MULTI_BF16_TOL if dtype == torch.bfloat16
+               else TOL if name == "bell_fused" else GRAD_TOL)
+        check(all(e[1] <= tol for e in errs),
+              f"{name} at the shard shape ({dtype}): errors {errs} over {tol} of scale")
+        rows.append({"kernel": name, "dtype": str(dtype).replace("torch.", ""),
+                     "A": tiles.num_active, "R": tiles.num_tiles,
+                     "max_abs_err": max(e[0] for e in errs), "err_of_scale": max(e[1] for e in errs),
+                     "ms": cuda_ms(lambda: kern(*args), 10),
+                     "plain_ms": cuda_ms(lambda: plain(*args), 3),
+                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1]})
+        outs[name] = got
+    return rows, outs
+
+
+def sublist_tiles(plan, ov, r: int, side: str):
+    """(tile list of rank r's overlap sublist ``side``, the same without its
+    pad tiles' entries, its entries' patterns, its true tile count)."""
+    from dstagnn_drought_tpu_torch.parallel.bell_partition import RankTiles
+
+    a = side == "A"
+    pick = lambda name: getattr(ov, name + side)[r]
+    ts, tc, a_src, a_tgt, sel = (pick(n) for n in ("tile_start", "tile_count", "a_src",
+                                                     "a_tgt", "sel"))
+    n_src = plan.tiles_per_shard if a else plan.ns_max
+    n_true = ov.n_localA[r] if a else plan.tiles_per_shard - ov.n_localA[r]
+    n = int(ts[-1] + tc[-1])
+    m = int(ts[n_true]) if n_true < len(ts) else n
+    ts2, tc2 = ts.copy(), tc.copy()
+    ts2[n_true:], tc2[n_true:] = m, 0
+    zero = np.zeros((1,) + plan.pattern_act.shape[2:], bool)
+    pattern = torch.from_numpy(np.concatenate([plan.pattern_act[r], zero])[sel[:n]]).cuda()
+    return (RankTiles(ts, tc, a_src[:n], a_tgt[:n], n_src, "cuda"),
+            RankTiles(ts2, tc2, a_src[:m], a_tgt[:m], n_src, "cuda"), pattern, n_true)
+
+
+def check_pad_entries(plan, ov) -> dict:
+    """Pad entries on the card: a sublist's pad tiles (one entry of zero
+    pattern and zero Chebyshev value) give F output rows of exactly 0, and
+    K1's dΘ and K2's dx equal, bit for bit, those of the same list without
+    them; the plan's inert tiles (a self slot with an all-masked row,
+    −1e30 everywhere) give finite, zero output rows."""
+    from dstagnn_drought_tpu_torch.parallel.bell_partition import RankTiles
+
+    out = {}
+    cases = [(r, s) for r in range(plan.num_shards) for s in ("A", "B")
+             if (ov.n_localA[r] if s == "A" else plan.tiles_per_shard - ov.n_localA[r])
+             < getattr(ov, "tiles" + s).shape[1]]
+    check(bool(cases), "no overlap sublist has a pad tile to check")
+    r, side = cases[0]
+    BS = plan.block_size
+    full, bare, pattern, n_true = sublist_tiles(plan, ov, r, side)
+    for dtype in (torch.float32, torch.bfloat16):
+        _, got = shard_kernels(full, pattern, dtype, seed=11)
+        ins = bell_inputs(shard_view(full, pattern), *MULTI_SHAPE, dtype, 11)
+        m, t = bare.num_active, bare.tensors
+        w = ins["w"][:, :m].contiguous()
+        dA, dth = bell_bwd.bell_k1_cuda(t["active_src"], t["active_tgt"], t["tile_start"],
+                                        t["tile_count"], ins["thetas"], ins["gm"], ins["x"], w)
+        dx = bell_bwd.bell_k2_cuda(t["src_start"], t["src_count"], t["src_order"],
+                                   t["active_tgt"], ins["thetas"], ins["gm"], w)
+        f = got["bell_fused"][0]
+        pad_rows = f[:, n_true * BS:full.n_targets * BS]
+        check(bool((pad_rows == 0).all()), f"pad tiles' F rows are not 0 ({dtype})")
+        check(torch.equal(got["bell_k1"][1], dth), f"pad entries change K1's dΘ ({dtype})")
+        check(torch.equal(got["bell_k2"][0], dx), f"pad entries change K2's dx ({dtype})")
+        out[str(dtype).replace("torch.", "")] = {
+            "rank": r, "sublist": side, "pad_tiles": full.n_targets - n_true,
+            "pad_rows_max_abs": float(pad_rows.float().abs().max())}
+    # rank P-1's whole list holds the inert tiles past N
+    r = plan.num_shards - 1
+    n = plan.a_true[r]
+    tiles = RankTiles(plan.tile_start[r], plan.tile_count[r], plan.a_src[r][:n],
+                      plan.a_tgt[r][:n], plan.ns_max, "cuda")
+    inert = [j for j in range(plan.tiles_per_shard)
+             if (r * plan.tiles_per_shard + j) * BS >= plan.n_nodes]
+    pattern = torch.from_numpy(plan.pattern_act[r][:n]).cuda()
+    _, got = shard_kernels(tiles, pattern, torch.float32, seed=12)
+    f = got["bell_fused"][0].reshape(MULTI_SHAPE[0], -1, BS, got["bell_fused"][0].shape[-1])
+    check(bool(torch.isfinite(f).all()), "inert tiles give a non-finite F output")
+    check(bool((f[:, inert] == 0).all()), "inert tiles' F rows are not 0")
+    out["inert_tiles"] = {"rank": r, "tiles": inert}
+    return out
+
+
+def multi_plans() -> dict:
+    """{G: the Trainer's BellTileShardPlan of the GAMBIA graph at graph = G}."""
+    from dstagnn_drought_tpu_torch.ops.graph import cheb_polynomials, scaled_laplacian
+    from dstagnn_drought_tpu_torch.parallel import bell_partition as bp
+
+    _, A, pa = gambia_data()
+    bell = block_ell_from_adjacency(A, block_size=BELL_TILES["block_size"])
+    polys = cheb_polynomials(scaled_laplacian(torch.from_numpy(A)), 2).numpy()
+    return {G: bp.build_bell_tile_shard_plan(bell, G, pa, polys) for G in (2, MULTI_P)}
+
+
+def multi_rank(rank: int, root: str) -> dict:
+    """One rank of phase_multi: every run of MULTI_RUNS on its mesh; rank 0
+    then checks and times F, K1 and K2 at its shard shapes and the pad
+    entries, alone on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    for run in MULTI_RUNS:
+        record, state = multi_run(Path(root), run)
+        out[run[0]] = dict(record, state=state if rank == 0 else None)
+    if rank == 0:
+        from dstagnn_drought_tpu_torch.parallel import bell_partition as bp
+
+        plan = multi_plans()[MULTI_P]
+        n = plan.a_true[0]
+        tiles = bp.RankTiles(plan.tile_start[0], plan.tile_count[0], plan.a_src[0][:n],
+                             plan.a_tgt[0][:n], plan.ns_max, "cuda")
+        pattern = torch.from_numpy(plan.pattern_act[0][:n]).cuda()
+        out["kernels"] = [row for dtype in (torch.float32, torch.bfloat16)
+                          for row in shard_kernels(tiles, pattern, dtype, seed=10)[0]]
+        out["pad"] = check_pad_entries(plan, bp.build_overlap_lists(plan))
+    return out
+
+
+def grad_err(got: dict, want: dict, plan) -> tuple[float, str]:
+    """(the largest max |Δ| over max |single| of one parameter's first-step
+    gradient, that parameter): each tensor at its own scale, with no floor,
+    so a gradient far below 1 is held as tightly as a large one."""
+    worst = (0.0, "")
+    for k, v in want.items():
+        if plan is not None and k.endswith("cheb_conv_SAt.mask_tiles"):
+            v = plan.pack_active(v)
+        err, scale = float(np.abs(got[k] - v).max()), float(np.abs(v).max())
+        rel = err / scale if scale else (0.0 if err == 0 else math.inf)
+        worst = max(worst, (rel, k))
+    return worst
+
+
+def data_split_floor(root: Path, run: tuple) -> tuple[tuple[float, str], dict]:
+    """The single-rank model's first-step gradient as the sum of its data
+    ranks' row shares (each over the whole batch's weight sum, as a data
+    mesh computes it, with no collective) against the whole batch's, at
+    each tensor's own scale (grad_err): what reordering the batch sum alone
+    moves, the floor under a data mesh's gradient error. Returns (that
+    error, the summed shares' gradients)."""
+    from dstagnn_drought_tpu_torch.training.step import train_step
+
+    label, dtype, D = run[:3]
+    tr = multi_trainer(root, f"{label}_split", dtype, 1, 1, *run[4:])
+    t = tr.cfg.training
+    x_full, y_full = tr._splits["train"]
+    idx, n_valid = tr.dataset.batch_indices("train", t.batch_size, shuffle=True,
+                                            seed=t.seed * 100003)
+    ib = torch.from_numpy(idx[0].astype(np.int64)).cuda()
+    w = torch.from_numpy((np.arange(idx.shape[1]) < n_valid).astype(np.float32)).cuda()
+    keep = types.SimpleNamespace(zero_grad=lambda set_to_none=True: None, step=lambda: None)
+
+    def grads(parts):  # the parts' gradients summed in .grad
+        tr.model.zero_grad(set_to_none=True)
+        for rows in parts:
+            train_step(tr.model, keep, x_full[ib[rows]], y_full[ib[rows]], tr.constants,
+                       weights=w[rows], weight_total=w.sum(), generator=tr.generator,
+                       **tr._step_kw)
+        return {n: p.grad.float().cpu().numpy() for n, p in tr.model.named_parameters()
+                if p.grad is not None}
+
+    rows = t.batch_size // D
+    whole = grads([slice(None)])
+    split = grads([slice(d * rows, (d + 1) * rows) for d in range(D)])
+    return grad_err(split, whole, None), split
+
+
+def multi_compare(label: str, dtype: str, got: dict, state: dict, ref: dict,
+                  ref_state: dict, plan, split: dict | None = None) -> dict:
+    """One run against the single-rank run of the same weights: per-step
+    losses, the first step's whole gradients (which the collectives'
+    backwards make: a 3-step run at lr 1e-4 moves no weight past the
+    weights' limit), final weights and val predictions; on a data mesh the
+    control, the rank's own gradient before the data-group sum, must fail
+    the gradient gate, and the gradients are also held against the single
+    model's data-row shares summed (``split``, data_split_floor)."""
+    rtol, wtol = MULTI_TOL[dtype]
+    losses, want = np.asarray(got["losses"]), np.asarray(ref["losses"])
+    loss_err = float(np.max(np.abs(losses - want) / np.abs(want)))
+    check(loss_err <= rtol, f"{label}: losses {losses} vs single {want} (rtol {rtol})")
+    g_err, g_worst = grad_err(state["grads"], ref_state["grads"], plan)
+    check(g_err <= wtol, f"{label}: first-step gradient of {g_worst} {g_err} of its scale "
+          f"(limit {wtol})")
+    vs_split = None
+    if split is not None:
+        vs_split = grad_err(state["grads"], split, plan)
+        check(vs_split[0] <= wtol, f"{label}: first-step gradients vs the summed data-row "
+              f"shares {vs_split} (limit {wtol})")
+    control = None
+    if state["own"]:
+        control, c_worst = grad_err(state["own"], ref_state["grads"], plan)
+        check(control > wtol, f"{label}: the control (no data-group sum) passes the gradient "
+              f"gate: {control} of scale ({c_worst}) <= {wtol}")
+    weight_err = 0.0
+    for k, v in ref_state["weights"].items():
+        if k.endswith("cheb_conv_SAt.mask_tiles"):
+            v = plan.pack_active(v)
+        weight_err = max(weight_err, float(np.abs(state["weights"][k] - v).max())
+                         / max(1.0, float(np.abs(v).max())))
+    check(weight_err <= wtol, f"{label}: weights {weight_err} of scale (limit {wtol})")
+    pred_err = rel_err(torch.from_numpy(got["pred"]), torch.from_numpy(ref["pred"]))[1]
+    check(pred_err <= wtol, f"{label}: val predictions {pred_err} of scale (limit {wtol})")
+    return {"loss_rel_err": loss_err, "grad_err_of_scale": g_err, "grad_worst": g_worst,
+            "grad_err_vs_split_sum": vs_split, "control_no_data_sum_err_of_scale": control,
+            "weight_err_of_scale": weight_err, "pred_err_of_scale": pred_err}
+
+
+def multi_launches(label: str, overlap: bool, records: list) -> dict:
+    """Each rank's F once per block of every forward pass and K1/K2 once per
+    block of every train step, twice each with the overlapped sublists;
+    cheb_sat and the GTU kernels never."""
+    per = 2 if overlap else 1
+    for rank, rec in enumerate(records):
+        tr, ev = rec["train_launches"], rec["eval_launches"]
+        want = {"bell_fused": (3 * 2 * per, 1 * 2 * per), "bell_k1": (3 * 2 * per, 0),
+                "bell_k2": (3 * 2 * per, 0), "cheb_sat": (0, 0), "gtu_fwd": (0, 0),
+                "gtu_bwd": (0, 0)}
+        for k, (t_want, e_want) in want.items():
+            check(tr[k] == t_want and ev[k] == e_want,
+                  f"{label} rank {rank}: {k} launches {tr[k]} (train), {ev[k]} (eval); "
+                  f"expected {t_want}, {e_want}")
+    return {k: records[0]["train_launches"][k] + records[0]["eval_launches"][k]
+            for k in ("bell_fused", "bell_k1", "bell_k2")}
+
+
+def multi_cli_nccl(root: Path) -> dict:
+    """The training CLI with --distributed at world size 1 (RANK=0
+    WORLD_SIZE=1, NCCL: the rank has the card to itself), one PEMS08 epoch,
+    its test predictions equal bit for bit to the run without it."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    conf = write_pems08_project(root, name="SYNTH08_DIST")
+    with deterministic_cudnn():
+        _, _, _, _, plain_dir = run_pems08_cli(root, conf, root / "exp_single", epochs=1)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port)}
+        os.environ.update(env)
+        try:
+            _, _, _, _, dist_dir = run_pems08_cli(root, conf, root / "exp_dist",
+                                                  ["--distributed"], epochs=1)
+            backend = dist.get_backend()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k in env:
+                os.environ.pop(k)
+    check(backend == "nccl", f"--distributed at world size 1 chose {backend}")
+    preds = []
+    for d in (plain_dir, dist_dir):
+        with np.load(next(d.glob("output_epoch_*_test.npz"))) as f:
+            preds.append(f["prediction"])
+    check(np.array_equal(preds[0], preds[1]),
+          "--distributed at world size 1 changed the test predictions")
+    return {"backend": backend, "predictions_bit_equal": True}
+
+
+def phase_multi(root: Path, card: str) -> dict:
+    """Multi-device training (the parallel package) with P = 4 ranks sharing
+    the one H100 over gloo (the backend rule: NCCL refuses two ranks on one
+    card): GAMBIA BELL tiles at graph = 4 with the overlapped halo in
+    float32 and in bf16, and at (data, graph) = (2, 2) without it, each
+    held against the single-rank run of the same weights in this call
+    (per-step losses, the first step's whole gradients, final weights and
+    val predictions; at (2, 2) a control, each rank's gradient before the
+    data-group sum, must fail the gradient gate), with the
+    parameters every rank holds whole bit-identical across ranks and each
+    rank's launches counted; rank 0's F, K1 and K2 against their plain
+    versions at its shard shapes, the pad entries exactly 0; each plan's
+    exchange volume; then the CLI with --distributed at world size 1 under
+    NCCL. ms/step are of P ranks sharing one card: no multi-GPU figure."""
+    from dstagnn_drought_tpu_torch.parallel import bell_partition as bp
+    from dstagnn_drought_tpu_torch.parallel import comm
+    from dstagnn_drought_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    singles = {}
+    with deterministic_cudnn():
+        for run in MULTI_RUNS:
+            singles[run[0]] = multi_run(root, run, single=True)
+        floors = {run[0]: data_split_floor(root, run) for run in MULTI_RUNS if run[2] > 1}
+    ranks = spawn(multi_rank, MULTI_P, str(root), timeout=600, init_dir=str(root))
+    plans = multi_plans()
+    out = {"card": card, "ranks": MULTI_P, "label": f"{MULTI_P} ranks sharing one H100",
+           "gloo_cuda_collectives": list(comm.GLOO_CUDA), "runs": {}}
+    print("multi", json.dumps({"backend": "gloo (ranks share one card)",
+                               "gloo_on_cuda_tensors": out["gloo_cuda_collectives"],
+                               "staged_through_host": []}), flush=True)
+    kernel_launches = {}
+    for label, dtype, D, G, overlap, dropout in MULTI_RUNS:
+        records = [r[label] for r in ranks]
+        for name, digest in records[0]["digests"].items():
+            check(all(r["digests"][name] == digest for r in records),
+                  f"{label}: {name} differs across ranks")
+        ref, ref_state = singles[label]
+        floor, split = floors.get(label, (None, None))
+        cmp = multi_compare(label, dtype, records[0], records[0]["state"], ref, ref_state,
+                            plans[G], split)
+        launches = multi_launches(label, overlap, records)
+        if label == "graph4_overlap_bf16":
+            kernel_launches = launches
+        out["runs"][label] = {
+            "dtype": dtype, "data_axis": D, "graph_axis": G, "halo_overlap": overlap,
+            "dropout": dropout, "backend": records[0]["backend"], **cmp,
+            "data_split_floor": floor,
+            "losses": records[0]["losses"], "single_losses": ref["losses"],
+            "launches_rank0": launches, "replicated_bit_identical": True,
+            "ms_per_step_rank0": records[0]["ms_per_step"],
+            "ms_per_step_single": ref["ms_per_step"],
+            "ms_label": f"{MULTI_P} ranks sharing one H100 ({card})"}
+        print("multi", json.dumps({"run": label, **out["runs"][label]}), flush=True)
+    for G, plan in plans.items():
+        ov = bp.build_overlap_lists(plan)
+        out[f"exchange_graph{G}"] = {**plan.halo_stats(), "ns_true": list(plan.ns_true),
+                                     "exposed_blocks": list(ov.exposed_blocks),
+                                     "local_tiles_A": list(ov.n_localA)}
+        print("multi", json.dumps({"exchange": G, **out[f"exchange_graph{G}"]}), flush=True)
+    out["kernels"] = ranks[0]["kernels"]
+    out["kernel_launches"] = kernel_launches
+    out["pad"] = ranks[0]["pad"]
+    for row in out["kernels"]:
+        print("multi", json.dumps({"shard_kernel": row}), flush=True)
+    print("multi", json.dumps({"pad": out["pad"]}), flush=True)
+    out["cli_distributed"] = multi_cli_nccl(root)
+    out["seconds"] = time.perf_counter() - t0
+    print("multi", json.dumps({"cli_distributed": out["cli_distributed"],
+                               "seconds": out["seconds"]}), flush=True)
+    return out
+
+
 KERNEL_SITES = {
     "cheb_sat": ("dstagnn_drought_tpu_torch/csrc/cheb_sat.cu",
                  "dstagnn_drought_tpu/ops/pallas/cheb_sat.py:83"),
@@ -3088,7 +3594,7 @@ C_MAJOR_SITES = {"bell_fused": "dstagnn_drought_tpu/ops/pallas/bell_fused.py:812
 
 
 def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused, gtu,
-                 gtu_bell):
+                 gtu_bell, multi):
     """One record per TPU kernel for the JSON line (13; a c-major variant's
     record repeats its port kernel's, ``kernel_of``): launches from its main
     path, times and bound at the main path's shape."""
@@ -3123,6 +3629,21 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
         })
     out += [dict(line, name=f"{line['name']}_c", replaces=C_MAJOR_SITES[line["name"]],
                  kernel_of=line["name"]) for line in out if line["name"] in C_MAJOR_SITES]
+    # F, K1 and K2 on rank 0's own tile list at graph = 4 (phase_multi)
+    for name in ("bell_fused", "bell_k1", "bell_k2"):
+        mine = [r for r in multi["kernels"] if r["kernel"] == name]
+        main = next(r for r in mine if r["dtype"] == "bfloat16")
+        src, site = KERNEL_SITES[name]
+        out.append({
+            "name": f"{name}@rank0_graph4", "kernel_of": name, "route": "cuda", "source": src,
+            "replaces": site, "launches": multi["kernel_launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "f32_ms": next(r for r in mine if r["dtype"] == "float32")["ms"],
+            "shape": f"GAMBIA block 2 on rank 0 of graph = 4, bf16: B=4 H=2 BS=128 "
+                     f"A={main['A']} R={main['R']} C=32 T=144 Co=32",
+        })
     for name in ("tat_fwd", "tat_bwd", "spatial_fwd", "spatial_bwd"):
         mine = [r for r in fused_rows if r["kernel"] == name]
         main, f32 = (next(r for r in mine if r["shape"] == "pems08_blocks2-4"
@@ -3212,6 +3733,7 @@ def main(argv=None) -> int:
         with deterministic_cudnn():
             knobs = {"remat": phase_remat(root, card), "debug": phase_debug(root, card)}
         knobs.update(rollback=phase_rollback(root, card), evaluate=phase_evaluate(root, card))
+        multi = phase_multi(root, card)
         if args.measure:
             measured = {"pems08": measured, "passes": passes,
                         "pems08_fused": measure_pems08_fused(root),
@@ -3223,7 +3745,7 @@ def main(argv=None) -> int:
                         "stag_full": measure_stag_full()}
 
     kernels = kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused,
-                           gtu, gtu_bell)
+                           gtu, gtu_bell, multi)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
@@ -3232,7 +3754,7 @@ def main(argv=None) -> int:
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
             "gambia_bell_rcm": rcm, "gambia_fuse_gtu": gtu,
             "gambia_bell_tiles_fuse_gtu": gtu_bell, "stag": stag, "gambia_ell": ell,
-            "zoo": zoo, "knobs": knobs, "kernels": kernels,
+            "zoo": zoo, "knobs": knobs, "multi": multi, "kernels": kernels,
             "seconds": time.perf_counter() - t_start,
         }, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -3,7 +3,8 @@
 Usage:
     python -m dstagnn_drought_tpu_torch.cli.train --config PEMS08.conf \
         [--epochs N] [--resume] [--experiments-root DIR] [--bfloat16] \
-        [--use-pallas] [--tensorboard] [--profile LOGDIR] [--device cpu]
+        [--use-pallas] [--tensorboard] [--profile LOGDIR] [--device cpu] \
+        [--data-axis D] [--graph-axis G] [--distributed]
 
 Trains the config's ``model_name`` (``dstagnn``, ``astgcn``, ``mstgcn``,
 ``stgcn`` or ``transformer``). Runs on ``cuda`` unless ``--device cpu`` is
@@ -13,21 +14,27 @@ no kernel, it is accepted and changes nothing, as in JAX.
 ``--tensorboard`` writes TensorBoard scalars to ``<run_dir>/tb`` beside
 metrics.jsonl; ``--profile LOGDIR`` traces the first epoch with
 ``torch.profiler`` into ``LOGDIR/trace.json``, logs ``profile`` and goes
-on from the next epoch. The JAX CLI's ``--data-axis``, ``--graph-axis``
-and ``--distributed`` are accepted and refused with the ROADMAP item that
-will port them.
+on from the next epoch.
+
+On several ranks, one process each::
+
+    torchrun --nproc_per_node=P -m dstagnn_drought_tpu_torch.cli.train \
+        --config C --data-axis D --graph-axis G
+
+``--distributed`` (and either axis flag) initialises the process group from
+``torchrun``'s environment when it is present
+(:func:`~dstagnn_drought_tpu_torch.parallel.mesh.maybe_initialize_distributed`:
+NCCL when every rank has a card of its own, gloo on the CPU or when ranks
+share a card); ``--data-axis``/``--graph-axis`` build the mesh, whose
+product must be the world size. Only rank 0 writes files and prints.
 """
 from __future__ import annotations
 
 import argparse
 
-from dstagnn_drought_tpu_torch.config import load_config
+import torch.distributed as dist
 
-_NOT_PORTED = {
-    "data_axis": "--data-axis: ROADMAP.md §1 item 12 (multi-device)",
-    "graph_axis": "--graph-axis: ROADMAP.md §1 item 12 (multi-device)",
-    "distributed": "--distributed: ROADMAP.md §1 item 12 (multi-device)",
-}
+from dstagnn_drought_tpu_torch.config import load_config
 
 
 def main(argv=None):
@@ -51,13 +58,22 @@ def main(argv=None):
                              "(LOGDIR/trace.json)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
-    parser.add_argument("--data-axis", type=int, default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--graph-axis", type=int, default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--distributed", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--data-axis", type=int, default=None,
+                        help="mesh axis size for data parallelism")
+    parser.add_argument("--graph-axis", type=int, default=None,
+                        help="mesh axis size for node (graph) partitioning")
+    parser.add_argument("--distributed", action="store_true",
+                        help="initialise torch.distributed from torchrun's "
+                             "environment before the mesh is built")
     args = parser.parse_args(argv)
-    for name, message in _NOT_PORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(f"not ported yet: {message}")
+
+    from dstagnn_drought_tpu_torch.parallel.mesh import (
+        make_mesh,
+        maybe_initialize_distributed,
+    )
+
+    if args.distributed or args.data_axis or args.graph_axis:
+        maybe_initialize_distributed()
 
     cfg = load_config(args.config)
     if args.bfloat16:
@@ -67,12 +83,22 @@ def main(argv=None):
     if args.tensorboard:
         cfg.training.tensorboard = True
 
+    mesh = None
+    if args.data_axis or args.graph_axis:
+        mesh = make_mesh(args.data_axis, args.graph_axis)
+        cfg.training.data_axis = mesh.data
+        cfg.training.graph_axis = mesh.graph
+
     from dstagnn_drought_tpu_torch.training.loop import Trainer
 
-    trainer = Trainer(cfg, experiments_root=args.experiments_root, device=args.device)
+    trainer = Trainer(cfg, experiments_root=args.experiments_root, device=args.device,
+                      mesh=mesh)
     if args.resume:
         trainer.resume()
-    if args.profile:
+    if args.profile and not trainer.writer:
+        trainer.train_epoch(trainer.epoch)  # rank 0 alone writes the trace
+        trainer.epoch += 1
+    elif args.profile:
         from dstagnn_drought_tpu_torch.training.profiling import trace
 
         with trace(args.profile):
@@ -81,6 +107,8 @@ def main(argv=None):
                            train_loss=loss)
         trainer.epoch += 1
     result = trainer.run(args.epochs)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return result
 
     print(f"\nbest epoch: {result['best_epoch']}  val loss: {result['best_val']:.4f}")
     print(f"{'horizon':>7} {'MAE':>8} {'RMSE':>8} {'MAPE%':>8}")

@@ -40,7 +40,9 @@ class BatchIndexError(IndexError):
 _active: list["_CheckMode"] = []
 _kernel_depth = 0
 
-# ops whose output is uninitialised memory: nothing to check
+# ops whose output is uninitialised memory: nothing to check; nor the
+# collectives (namespace c10d), whose outputs are written when their work
+# completes, after the op returns: the next op that reads them checks them
 _UNINITIALISED = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
                   "resize_", "empty_permuted"}
 _PACKAGE = os.path.dirname(os.path.abspath(__file__))
@@ -102,7 +104,8 @@ class _CheckMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if _kernel_depth or func.is_view or func.__name__.split(".")[0] in _UNINITIALISED:
+        if (_kernel_depth or func.is_view or func.__name__.split(".")[0] in _UNINITIALISED
+                or func.namespace == "c10d"):
             return out
         schema = func._schema.arguments
         written = [a for a, s in zip(args, schema)

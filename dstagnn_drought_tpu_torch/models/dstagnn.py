@@ -28,7 +28,12 @@ kernels on every path; ``fuse_spatial`` takes the dense spatial middle
 through the fused spatial kernels (ignored on the BELL and ELL branches,
 as in JAX; ``use_pallas`` is ignored on ELL too);
 ``fuse_gtu`` takes the GTU tail through the fused GTU kernels on every path
-where their shape gate holds, whatever ``pinned_out`` is.
+where their shape gate holds, whatever ``pinned_out`` is. On a mesh the
+forward's ``halo`` (JAX's: ``(mesh, plan)`` or ``(mesh, plan, overlap
+lists)``) takes the spatial conv through the node-partitioned convs of
+``parallel/`` (the block's ``mask_tiles`` then this rank's (A_loc, K, BS,
+BS) slice), and ``tp`` (``parallel.sharding.TensorParallel``) the TAt
+through this rank's weight slices.
 bfloat16 compute casts parameters and inputs at the top of the
 forward, as the JAX ``apply`` does; no autocast.
 """
@@ -79,6 +84,14 @@ from dstagnn_drought_tpu_torch.ops.sparse import (
     sparse_cheb_conv_with_sat,
     sparse_spatial_attention_scores,
 )
+from dstagnn_drought_tpu_torch.parallel.bell_partition import (
+    BellShardPlan,
+    BellTileShardPlan,
+    partitioned_bell_conv,
+    partitioned_bell_tiles_conv,
+    partitioned_bell_tiles_conv_overlap,
+)
+from dstagnn_drought_tpu_torch.parallel.graph_partition import halo_partitioned_sparse_conv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,7 +221,7 @@ class STBlock(nn.Module):
 
     def forward(self, x, res_att, *, adj_pa, cheb_polys, deterministic,
                 generator, use_pallas, bell=None, bell_tiles=None, ell=None,
-                fuse_tat=False, fuse_spatial=False, fuse_gtu=False):
+                fuse_tat=False, fuse_spatial=False, fuse_gtu=False, halo=None, tp=None):
         spec = self.spec
         dt = x.dtype
         c = lambda t: t.to(dt)  # parameters in the compute dtype
@@ -228,10 +241,16 @@ class STBlock(nn.Module):
         # with fuse_tat the embedding stays outside the kernel (pos=None)
         tat = fused_temporal_attention if fuse_tat else temporal_attention
         extra = dict(pos=None, ln0_scale=None, ln0_bias=None) if fuse_tat else {}
+        # tp: this rank's TAt weight slices, head-parallel where they hold
+        # whole heads, else gathered whole first (the fused kernel's case)
+        if tp is not None and tp.head_parallel and not fuse_tat:
+            tat, extra, W = tp.attention, {}, lambda name: getattr(self.TAt, name).weight
+        else:
+            W = ((lambda name: getattr(self.TAt, name).weight) if tp is None
+                 else functools.partial(tp.whole, self.TAt))
         TATout, re_at = tat(
             TEmx, res_att,
-            wq=c(self.TAt.W_Q.weight).t(), wk=c(self.TAt.W_K.weight).t(),
-            wv=c(self.TAt.W_V.weight).t(), wo=c(self.TAt.fc.weight).t(),
+            wq=c(W("W_Q")).t(), wk=c(W("W_K")).t(), wv=c(W("W_V")).t(), wo=c(W("fc")).t(),
             ln_scale=c(self.TAt.layer_norm.weight),
             ln_bias=c(self.TAt.layer_norm.bias),
             n_heads=spec.n_heads, d_k=spec.d_k, d_v=spec.d_v, **extra,
@@ -271,6 +290,32 @@ class STBlock(nn.Module):
         if fused_spatial:
             pinned_out = True
             STAt = no_map()
+        elif halo is not None:
+            # node-partitioned over the mesh's 'graph' axis (JAX's halo
+            # branches): (mesh, plan) or, tile-resident with overlap,
+            # (mesh, plan, overlap lists)
+            STAt = no_map()
+            mesh_, plan_ = halo[0], halo[1]
+            if isinstance(plan_, BellTileShardPlan):
+                pinned_out = True
+                kw = dict(mask_tiles=c(cheb.mask_tiles), thetas=thetas, wq=wq, wk=wk,
+                          n_heads=spec.K, d_k=spec.d_k)
+                if len(halo) > 2:
+                    spatial_gcn = partitioned_bell_tiles_conv_overlap(
+                        mesh_, SEmx, x, plan_, halo[2], **kw)
+                else:
+                    spatial_gcn = partitioned_bell_tiles_conv(mesh_, SEmx, x, plan_, **kw)
+            elif isinstance(plan_, BellShardPlan):
+                pinned_out = True
+                spatial_gcn = partitioned_bell_conv(
+                    mesh_, SEmx, x, plan_, adj_pa=adj_pa, masks=masks, cheb_polys=cheb_polys,
+                    thetas=thetas, wq=wq, wk=wk, n_heads=spec.K, d_k=spec.d_k)
+            else:
+                pinned_out = False
+                spatial_gcn = halo_partitioned_sparse_conv(
+                    mesh_, SEmx, x, plan_, cheb_edges=gather_edge_values(cheb_polys, ell),
+                    bias_edges=gather_edge_values(adj_pa[None] * masks, ell), thetas=thetas,
+                    wq=wq, wk=wk, n_heads=spec.K, d_k=spec.d_k)
         elif ell is not None:
             # edge list: SDDMM edge scores (the map JAX exports as STAt) and
             # the neighbourhood-softmax aggregation; use_pallas is ignored
@@ -442,7 +487,7 @@ class DSTAGNN(nn.Module):
                 use_pallas: bool = False, bell=None, bell_tiles=None, ell=None,
                 fuse_tat: bool = False, fuse_spatial: bool = False,
                 fuse_gtu: bool = False, remat: bool = False,
-                return_attention: bool = False):
+                return_attention: bool = False, halo=None, tp=None):
         if bell is not None and ell is not None:
             raise ValueError("give the BELL graph (bell) or the ELL graph (ell), not both")
         x = x.to(compute_dtype)
@@ -452,7 +497,8 @@ class DSTAGNN(nn.Module):
         res_att = torch.zeros((), dtype=x.dtype, device=x.device)
         kw = dict(adj_pa=adj_pa, cheb_polys=cheb_polys, deterministic=deterministic,
                   use_pallas=use_pallas, bell=bell, bell_tiles=bell_tiles, ell=ell,
-                  fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu)
+                  fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
+                  halo=halo, tp=tp)
         outs, maps = [], []
         for block in self.BlockList:
             if remat and torch.is_grad_enabled():
@@ -519,7 +565,10 @@ def params_from_jax(params, spec: ModelSpec) -> dict[str, torch.Tensor]:
     """The inverse of the JAX package's ``import_torch_state_dict``: a JAX
     parameter pytree (numpy-convertible leaves) → this model's state_dict.
     ELL weights carry over unchanged: the ELL branch keeps the dense (K, N,
-    N) masks as parameters (``mask.{k}``) and gathers them at the edges."""
+    N) masks as parameters (``mask.{k}``) and gathers them at the edges. A
+    partitioned JAX trainer's ``mask_tiles`` (P, A_loc, K, BS, BS) carry
+    over whole, the layout of a mesh Trainer's checkpoint; its
+    ``load_model_state`` takes each rank's slice."""
 
     t = tensor_from_jax
     sd = {}

@@ -37,11 +37,15 @@ def per_sample_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
 
 
 def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0,
-                   sample_weights: torch.Tensor | None = None) -> torch.Tensor:
+                   sample_weights: torch.Tensor | None = None,
+                   weight_total: torch.Tensor | None = None) -> torch.Tensor:
     """``nn.SmoothL1Loss`` (mean reduction, beta=1), the training criterion.
 
     ``sample_weights`` (B,) masks the padded tail rows of the batch plan out
-    of the reduction; with all-ones weights this is the plain mean.
+    of the reduction; with all-ones weights this is the plain mean. The
+    weighted sum is divided by ``weight_total`` (default: the weights' sum):
+    a data rank's rows divided by the global batch's total give losses that
+    add up to the whole batch's.
     """
     if sample_weights is None:
         diff = torch.abs(pred - target)
@@ -49,4 +53,5 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0,
                            diff - 0.5 * beta).mean()
     per_sample = per_sample_smooth_l1(pred, target, beta)
     w = sample_weights.to(per_sample.dtype)
-    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+    total = w.sum() if weight_total is None else weight_total.to(per_sample.dtype)
+    return (per_sample * w).sum() / torch.clamp(total, min=1.0)

@@ -1,0 +1,221 @@
+"""Parameter and batch slices of a rank, and tensor-parallel temporal
+attention.
+
+Counterpart of ``dstagnn_drought_tpu/parallel/sharding.py``. JAX places
+arrays with ``NamedSharding``s and lets GSPMD derive the program; here the
+placements are the slices a rank holds:
+
+  * :func:`batch_sharding` — the rows ``[d·B/D, (d+1)·B/D)`` of each global
+    batch that data rank d takes (JAX: ``P('data', ...)``); every other
+    tensor is whole on every rank (JAX's ``replicated``), and JAX's
+    ``constrain_batch`` has no counterpart: a rank holds its batch rows and
+    the whole node axis from the start, and the partitioned convs take
+    their node rows themselves;
+  * :func:`tat_tp_shardings` — with ``tp``, the axis each TAt weight is
+    split on over 'graph' (wq/wk/wv on their output H·d axis, wo on its
+    input H·d axis), with JAX's logged fallback to the whole weight where
+    the axis does not divide; :func:`tp_report` — JAX's byte accounting,
+    which the Trainer logs under ``tp``.
+
+:class:`TensorParallel` computes the temporal attention from the slices:
+head-parallel where every weight is split and each rank's slice holds whole
+heads (the Megatron pair of :mod:`~dstagnn_drought_tpu_torch.parallel.comm`
+around it), else with the slices gathered into whole weights first, which is
+what GSPMD does for the fused TAt kernel under ``tp`` (a ``pallas_call``
+takes whole operands).
+"""
+from __future__ import annotations
+
+import logging
+import re
+
+import torch
+
+from dstagnn_drought_tpu_torch.ops.attention import _sqrt
+from dstagnn_drought_tpu_torch.ops.nn import layer_norm
+from dstagnn_drought_tpu_torch.parallel import comm
+
+logger = logging.getLogger(__name__)
+
+# torch weight names of the TAt projections and the axis their H·d runs on
+# (nn.Linear stores (out, in): JAX's wq (N, H·d) split on its last axis is
+# W_Q.weight (H·d, N) split on axis 0; JAX's wo (H·d, N) split on axis 0 is
+# fc.weight (N, H·d) split on axis 1)
+_TAT = {"W_Q": 0, "W_K": 0, "W_V": 0, "fc": 1}
+_TAT_NAME = re.compile(r"(^|\.)TAt\.(W_Q|W_K|W_V|fc)\.weight$")
+_JAX_NAME = {"W_Q": "wq", "W_K": "wk", "W_V": "wv", "fc": "wo"}
+
+
+def batch_sharding(mesh, batch_size: int) -> slice:
+    """This data rank's rows of a global batch of ``batch_size``."""
+    if batch_size % mesh.data:
+        raise ValueError(f"batch_size={batch_size} must divide over data_axis={mesh.data}")
+    rows = batch_size // mesh.data
+    return slice(mesh.d * rows, (mesh.d + 1) * rows)
+
+
+def tat_tp_shardings(named_params: dict, mesh) -> dict[str, int | None]:
+    """{torch name: split axis or None} for every TAt projection weight of
+    ``named_params`` (whole weights, e.g. ``dict(model.named_parameters())``
+    of a model that holds no slices yet). A weight whose H·d axis does not
+    divide by the 'graph' axis stays whole, and that fallback is logged
+    once a call with the shapes, as in JAX."""
+    g = mesh.shape["graph"]
+    out, fallbacks = {}, []
+    for name, p in named_params.items():
+        m = _TAT_NAME.search(name)
+        if m is None:
+            continue
+        axis = _TAT[m.group(2)]
+        if p.shape[axis] % g == 0:
+            out[name] = axis
+        else:
+            out[name] = None
+            shape = tuple(p.shape[::-1])  # the JAX (in, out) layout
+            fallbacks.append(f"{_JAX_NAME[m.group(2)]}{shape}")
+    if fallbacks:
+        logger.warning(
+            "tat_tp_shardings: %d TAt weights fell back to REPLICATED "
+            "placement (head dim not divisible by graph axis %d): %s — "
+            "tensor parallelism is a no-op for these.",
+            len(fallbacks), g, ", ".join(sorted(set(fallbacks))),
+        )
+    return out
+
+
+def tp_report(named_params: dict, mesh) -> dict:
+    """Per-device parameter bytes under :func:`tat_tp_shardings` (JAX's
+    fields): a split TAt weight divides its bytes by the 'graph' axis,
+    everything else is whole on every device."""
+    g = mesh.shape["graph"]
+    axes = tat_tp_shardings(named_params, mesh)
+    sharded = repl = 0
+    for name, p in named_params.items():
+        n = p.numel() * p.element_size()
+        if axes.get(name) is None:
+            repl += n
+        else:
+            sharded += n
+    total = sharded + repl
+    return {
+        "sharded_tat_bytes": sharded,
+        "replicated_bytes": repl,
+        "total_bytes": total,
+        "per_device_bytes_tp": repl + sharded // g,
+        "per_device_bytes_replicated": total,
+        "fallback": sharded == 0,
+    }
+
+
+class TensorParallel:
+    """The TAt of every block from this rank's weight slices (``axes``:
+    :func:`tat_tp_shardings` of the whole model; every block's TAt has the
+    same shapes, so one axis a projection)."""
+
+    def __init__(self, mesh, axes: dict, n_heads: int):
+        self.group = mesh.graph_group
+        self.size = mesh.graph
+        self.axes = {_TAT_NAME.search(name).group(2): axis for name, axis in axes.items()}
+        self.head_parallel = (len(self.axes) == len(_TAT) and n_heads % self.size == 0
+                              and all(a is not None for a in self.axes.values()))
+
+    def whole(self, tat, name: str) -> torch.Tensor:
+        """The whole torch weight ``name`` (W_Q, W_K, W_V or fc) of the TAt
+        module ``tat``, gathered from the slices where it is split
+        (backward: this rank's slice of the whole gradient, which every rank
+        computes alike)."""
+        w = getattr(tat, name).weight
+        axis = self.axes.get(name)
+        return w if axis is None else comm.leave(w, axis, self.group)
+
+    def attention(self, x, res_att, *, wq, wk, wv, wo, ln_scale, ln_bias, n_heads, d_k,
+                  d_v):
+        """Head-parallel temporal attention: this rank's H/G heads from its
+        column slices wq/wk/wv (N, H·d/G) and row slice wo (H·d/G, N); the
+        out-projection's partial sums are all-reduced before the residual
+        and the LayerNorm. Returns (out (B, F, T, N), this rank's scores
+        (B, F, H/G, T, T)); the scores go on to the next block's TAt, which
+        holds the same heads."""
+        B, F, T, N = x.shape
+        h = n_heads // self.size
+        xin = comm.copy_to(x, self.group)
+        qkv = xin @ torch.cat([wq, wk, wv], dim=1)
+        hk = h * d_k
+        q = qkv[..., :hk].reshape(B, F, T, h, d_k)
+        k = qkv[..., hk:2 * hk].reshape(B, F, T, h, d_k)
+        v = qkv[..., 2 * hk:].reshape(B, F, T, h, d_v)
+        scores = torch.einsum("bfqhd,bfkhd->bfhqk", q, k) / _sqrt(d_k, x)
+        scores = scores + res_att
+        attn = torch.softmax(scores, dim=3)  # the query axis (reference quirk)
+        context = torch.einsum("bfhqk,bfkhd->bfqhd", attn, v).reshape(B, F, T, h * d_v)
+        out = comm.reduce_from(context @ wo, self.group)
+        return layer_norm(out + x, ln_scale, ln_bias), scores
+
+
+_MASK_TILES = "cheb_conv_SAt.mask_tiles"
+
+
+class ParamLayout:
+    """Which parameters a rank holds a slice of, and how a whole tensor and
+    a rank's slice map onto each other: with a tile-resident partitioned
+    plan (``tiles``), every ``mask_tiles`` is whole (P, A_loc, K, BS, BS)
+    and the rank's slice is row g; with ``tp``, the TAt weights of
+    ``tp_axes`` split on their axis. Everything else is whole on every
+    rank. :meth:`whole` is collective over the data row."""
+
+    def __init__(self, mesh, tp_axes: dict | None = None, tiles: bool = False):
+        self.mesh, self.tiles = mesh, tiles
+        self.tp_axes = {k: a for k, a in (tp_axes or {}).items() if a is not None}
+
+    def sliced(self, name: str) -> bool:
+        return (self.tiles and name.endswith(_MASK_TILES)) or name in self.tp_axes
+
+    def local(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole tensor ``name``."""
+        if self.tiles and name.endswith(_MASK_TILES):
+            return whole[self.mesh.g]
+        if name in self.tp_axes:
+            return comm.own_rows(whole, self.tp_axes[name], self.mesh.graph_group)
+        return whole
+
+    def whole(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor ``name`` from every rank's slice."""
+        grp = self.mesh.graph_group
+        if self.tiles and name.endswith(_MASK_TILES):
+            return comm.all_gather(local.contiguous()[None], 0, grp)
+        if name in self.tp_axes:
+            return comm.all_gather(local, self.tp_axes[name], grp)
+        return local
+
+    def whole_state(self, state: dict) -> dict:
+        """A model ``state_dict`` of slices → whole tensors (collective)."""
+        return {k: self.whole(k, v) for k, v in state.items()}
+
+    def local_state(self, state: dict) -> dict:
+        return {k: self.local(k, v) for k, v in state.items()}
+
+    def _optimizer(self, state: dict, names: list, fn) -> dict:
+        out = {"param_groups": state["param_groups"], "state": {}}
+        for i, st in state["state"].items():
+            name = names[int(i)]
+            out["state"][i] = {k: fn(name, v) if torch.is_tensor(v) and v.ndim else v
+                               for k, v in st.items()}
+        return out
+
+    def whole_optimizer(self, state: dict, names: list) -> dict:
+        """An Adam ``state_dict`` whose moments follow the slices → whole
+        moments (``names``: the parameter names in the optimizer's order)."""
+        return self._optimizer(state, names, self.whole)
+
+    def local_optimizer(self, state: dict, names: list) -> dict:
+        return self._optimizer(state, names, self.local)
+
+    def shard_(self, model: torch.nn.Module, whole: dict) -> None:
+        """Replace the sliced parameters of ``model`` by this rank's slices
+        of ``whole`` (a whole state_dict)."""
+        for name in [n for n, _ in model.named_parameters() if self.sliced(n)]:
+            owner, leaf = model, name
+            if "." in name:
+                path, leaf = name.rsplit(".", 1)
+                owner = model.get_submodule(path)
+            setattr(owner, leaf, torch.nn.Parameter(self.local(name, whole[name]).clone()))

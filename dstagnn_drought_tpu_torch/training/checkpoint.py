@@ -3,7 +3,9 @@
 Counterpart of ``dstagnn_drought_tpu/training/checkpoint.py`` with the
 port's own format: a ``torch.save`` dict of the model ``state_dict``, the
 optimizer ``state_dict``, the dropout generator's state and metadata
-(epoch, best-val loss). Restoring all of it is a true resume. The
+(epoch, best-val loss). Restoring all of it is a true resume. A run on a
+mesh saves whole tensors, gathered from the ranks' slices, and adds every
+data rank's generator state (``generators``). The
 run-directory naming keeps the reference convention
 ``<root>/<dataset>/<model>_<h>h<d>d<w>w_channel<C>_<lr>``.
 """
@@ -44,7 +46,10 @@ def save_checkpoint(
     optimizer_state: dict | None = None,
     generator_state: torch.Tensor | None = None,
     metadata: dict | None = None,
+    generators: torch.Tensor | None = None,
 ) -> str:
+    """``generators`` (D, ·): every data rank's generator state, kept
+    beside rank 0's ``generator`` when the run has a data axis."""
     os.makedirs(path_dir, exist_ok=True)
     path = checkpoint_path(path_dir, epoch)
     torch.save({
@@ -52,12 +57,14 @@ def save_checkpoint(
         "optimizer": optimizer_state,
         "generator": generator_state,
         "meta": {"epoch": epoch, **(metadata or {})},
+        **({"generators": generators} if generators is not None else {}),
     }, path)
     return path
 
 
 def restore_checkpoint(path: str, map_location=None) -> dict:
-    """{"model", "optimizer", "generator", "meta"} as saved."""
+    """{"model", "optimizer", "generator", "meta"} (and "generators" where
+    saved) as saved."""
     return torch.load(path, map_location=map_location, weights_only=True)
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``dstagnn_drought_tpu/training/logger.py``. With
 ``tensorboard_dir`` every numeric field of every event also lands as a
 scalar series ``<event>/<field>``, keyed by the event's ``epoch`` or, where
-it has none, by how many times the event was logged before. The writer is
+it has none, by how many times the event was logged before. ``echo=False``
+keeps the stdout lines off (the ranks of a mesh other than rank 0, which
+log nothing). The writer is
 ``tensorboardX``, optional as in JAX: without it the logger prints
 "tensorboard logging disabled: ..." and the JSONL still works.
 """
@@ -16,7 +18,9 @@ import time
 
 
 class MetricLogger:
-    def __init__(self, path: str | None = None, tensorboard_dir: str | None = None):
+    def __init__(self, path: str | None = None, tensorboard_dir: str | None = None,
+                 echo: bool = True):
+        self._echo = echo
         self._file = None
         if path:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -45,6 +49,8 @@ class MetricLogger:
             for k, v in fields.items():
                 if k != "epoch" and isinstance(v, (int, float)):
                     self._tb.add_scalar(f"{event}/{k}", v, int(step))
+        if not self._echo:
+            return
         kv = " ".join(
             f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in fields.items()

@@ -31,9 +31,25 @@ learning rate and retries the epoch (:meth:`Trainer._rollback_to_last_good`);
 ``tensorboard`` adds TensorBoard scalars under ``<run_dir>/tb``; ``remat``
 recomputes DSTAGNN's block activations in the backward;
 :meth:`Trainer.attention_maps` exports the per-block spatial maps.
-Options of paths not ported yet (the multi-device ones) raise
-``NotImplementedError`` naming the ROADMAP item that will port them
-(:func:`check_slice`).
+
+On a mesh (``data_axis``/``graph_axis`` > 1, or a ``mesh`` from
+:func:`~dstagnn_drought_tpu_torch.parallel.mesh.make_mesh`; one process a
+rank) every rank builds the same batch plan and takes its data rank's rows
+of each batch (``batch_size`` must divide over ``data_axis``); gradients
+are summed over the data group so the update is the single-device one;
+eval predictions are gathered in the data group before the padded tail is
+cut. Over 'graph', activations stay whole and the same on every rank of a
+data row, and the spatial conv is partitioned where JAX partitions it:
+tile-resident BELL with the targeted block halo (``halo_overlap``: the
+overlapped sublists), dense-mask BELL with the all-gather plan, ELL with
+``halo = "targeted"``. Under ``tp`` the TAt weights are sliced over 'graph'
+(:mod:`~dstagnn_drought_tpu_torch.parallel.sharding`), and the per-device
+parameter bytes (``tp_report``) are logged once as the ``tp`` event. The dropout
+generator is seeded from the data coordinate only, so the ranks of a data
+row draw the same bits. Only rank 0 writes files; a checkpoint holds whole
+tensors gathered from the slices (``mask_tiles`` as (P, A_loc, K, BS, BS),
+the TAt weights whole, the Adam moments alike, every data rank's generator),
+and resume takes each rank's slices back.
 """
 from __future__ import annotations
 
@@ -44,6 +60,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dstagnn_drought_tpu_torch.config import Config
 from dstagnn_drought_tpu_torch.data.adjacency import (
@@ -66,7 +83,23 @@ from dstagnn_drought_tpu_torch.ops.cuda import (
     gtu_fused,
     tat_fused,
 )
+from dstagnn_drought_tpu_torch.ops.graph import cheb_polynomials, scaled_laplacian
 from dstagnn_drought_tpu_torch.ops.sparse import ell_from_adjacency
+from dstagnn_drought_tpu_torch.parallel import comm
+from dstagnn_drought_tpu_torch.parallel.bell_partition import (
+    build_bell_shard_plan,
+    build_bell_tile_shard_plan,
+    build_overlap_lists,
+)
+from dstagnn_drought_tpu_torch.parallel.graph_partition import build_halo_plan, shard_ell
+from dstagnn_drought_tpu_torch.parallel.mesh import make_mesh, rank_device
+from dstagnn_drought_tpu_torch.parallel.sharding import (
+    ParamLayout,
+    TensorParallel,
+    batch_sharding,
+    tat_tp_shardings,
+    tp_report,
+)
 from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
 from dstagnn_drought_tpu_torch.training.logger import MetricLogger
 from dstagnn_drought_tpu_torch.training.metrics import horizon_report
@@ -80,21 +113,19 @@ from dstagnn_drought_tpu_torch.training.step import (
 PEMS_DATASETS = ("PEMS04", "PEMS08", "PEMS07", "PEMS03")
 
 
-def check_slice(cfg: Config) -> None:
-    """Refuse options whose paths the port does not run yet."""
+def check_parallel(cfg: Config) -> None:
+    """The multi-device options' checks that need no process group, made
+    before any data is read: positive axis sizes, and a ``batch_size`` that
+    divides over ``data_axis`` (each data rank takes an equal share of every
+    batch). A mesh that does not match the world raises in
+    :func:`~dstagnn_drought_tpu_torch.parallel.mesh.make_mesh`."""
     t = cfg.training
-    refused = [
-        (t.data_axis > 1 or t.graph_axis > 1,
-         f"data_axis={t.data_axis}, graph_axis={t.graph_axis}",
-         "§1 item 12 (multi-device)"),
-        (t.tp, "tp=true", "§1 item 12 (multi-device)"),
-    ]
-    for hit, what, item in refused:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to dstagnn_drought_tpu_torch yet "
-                f"(ROADMAP.md {item})"
-            )
+    if t.data_axis < 1 or t.graph_axis < 1:
+        raise ValueError(f"data_axis and graph_axis must be >= 1, got {t.data_axis}, "
+                         f"{t.graph_axis}")
+    if t.batch_size % t.data_axis:
+        raise ValueError(f"batch_size={t.batch_size} must divide over "
+                         f"data_axis={t.data_axis}")
 
 
 def check_family(cfg: Config):
@@ -210,16 +241,21 @@ class Trainer:
         adj_pa: Optional[np.ndarray] = None,
         experiments_root: str = "myexperiments",
         device: str | torch.device | None = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.device = resolve_device(rank_device(device))
         self.compute_dtype = compute_dtype(cfg.training.compute_dtype)
         self.family = check_family(cfg)
         self.fuse_gtu = resolve_fuse_gtu(cfg, self.device, self.compute_dtype)
         check_fused_shapes(cfg, self.device, self.compute_dtype)
-        check_slice(cfg)
+        check_parallel(cfg)
         self.cfg = cfg
         t = cfg.training
         self.spec = ModelSpec.from_config(cfg)
+        if mesh is None and (t.data_axis > 1 or t.graph_axis > 1):
+            mesh = make_mesh(t.data_axis, t.graph_axis)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.writer = not dist.is_initialized() or dist.get_rank() == 0
 
         if dataset is None:
             dataset = load_windowed_dataset(
@@ -250,15 +286,22 @@ class Trainer:
         self.model, self.constants = self.family.make_model(
             self.spec, adj_merge, adj_pa, seed=t.seed, device=self.device,
             **({"bell": bell} if t.mask_format == "tiles" else {}))
+        model_kw = self._partition(adj_merge, adj_pa, bell, ell)
         if bell is not None:
             self.constants["bell"] = bell.to(self.device)
         if ell is not None:
-            self.constants["ell"] = ell.to(self.device)
+            self.constants["ell"] = self.constants.get("ell", ell).to(self.device)
         self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate)
-        self.generator = torch.Generator(device=self.device).manual_seed(t.seed)
+        # the ranks of a data row draw the same dropout bits
+        d = self.mesh.d if self.mesh is not None else 0
+        self.generator = torch.Generator(device=self.device).manual_seed(t.seed + 1000003 * d)
+        self._model_kw = model_kw
+        self._data_group = self.mesh.data_group if self.mesh is not None else None
         self._step_kw = dict(compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
                              fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
-                             fuse_gtu=self.fuse_gtu, remat=t.remat)
+                             fuse_gtu=self.fuse_gtu, remat=t.remat,
+                             data_group=self._data_group,
+                             **({"model_kw": model_kw} if model_kw else {}))
         self.checked_step = make_checked_train_step(**self._step_kw) if t.debug else None
         self._lr_scale = 1.0
         self._rollbacks = 0
@@ -268,13 +311,18 @@ class Trainer:
             t.num_of_hours, t.num_of_days, t.num_of_weeks,
             t.in_channels, t.learning_rate,
         )
+        # only rank 0 writes files (and prints the metric lines)
         self.logger = MetricLogger(
             os.path.join(self.run_dir, "metrics.jsonl"),
-            tensorboard_dir=os.path.join(self.run_dir, "tb") if t.tensorboard else None)
+            tensorboard_dir=os.path.join(self.run_dir, "tb") if t.tensorboard else None,
+        ) if self.writer else MetricLogger(None, echo=False)
+        if self.tp_report is not None:
+            self.logger.log("tp", **self.tp_report)  # per-device parameter bytes
         self.best_val = math.inf
         self.best_epoch = -1
         self.epoch = t.start_epoch
         self.last_epoch_steps = 0
+        self.last_losses: list[float] = []
 
         # device-resident splits; a batch is a gather by an index vector
         self._splits = {}
@@ -286,14 +334,110 @@ class Trainer:
                                   torch.from_numpy(np.ascontiguousarray(y)).to(self.device))
 
     # ------------------------------------------------------------------
+    def _partition(self, adj_merge, adj_pa, bell, ell) -> dict:
+        """JAX's multi-device wiring on this rank's mesh: the plans of the
+        partitioned spatial conv and the TAt placement under ``tp``; the
+        model's sliced parameters (``self.layout``) are replaced by this
+        rank's slices. Returns the forward's ``halo``/``tp`` keywords."""
+        t, mesh = self.cfg.training, self.mesh
+        self.layout = self.tp_report = None
+        if mesh is None:
+            return {}
+        kw, tp_axes, plan = {}, {}, None
+        if t.tp and mesh.graph > 1:
+            named = dict(self.model.named_parameters())
+            tp_axes = tat_tp_shardings(named, mesh)
+            self.tp_report = tp_report(named, mesh)
+            if tp_axes:
+                kw["tp"] = TensorParallel(mesh, tp_axes, self.spec.n_heads)
+        if t.sparse and mesh.graph > 1 and t.sparse_format == "bell":
+            if t.mask_format == "tiles":
+                # tile-resident: targeted block halo, masks sliced over 'graph'
+                polys = cheb_polynomials(
+                    scaled_laplacian(torch.as_tensor(np.asarray(adj_merge), dtype=torch.float32)),
+                    t.K).numpy()
+                plan = build_bell_tile_shard_plan(bell, mesh.graph, np.asarray(adj_pa), polys)
+                kw["halo"] = ((mesh, plan, build_overlap_lists(plan)) if t.halo_overlap
+                              else (mesh, plan))
+                self.constants.pop("bell_tiles", None)
+            else:
+                # dense masks: one all-gather of the source rows
+                kw["halo"] = (mesh, build_bell_shard_plan(bell, mesh.graph))
+        elif (t.sparse and t.halo == "targeted" and mesh.graph > 1
+              and t.sparse_format == "ell"):
+            # targeted boundary-row halo; N padded to a multiple of the axis
+            ell = shard_ell(ell, mesh.graph)
+            self.constants["ell"] = ell
+            kw["halo"] = (mesh, build_halo_plan(ell, mesh.graph))
+        self.layout = ParamLayout(mesh, tp_axes, tiles=plan is not None)
+        whole = {k: v.detach() for k, v in self.model.state_dict().items()}
+        for k, v in whole.items():
+            if plan is not None and k.endswith("cheb_conv_SAt.mask_tiles"):
+                # the single-device init's tiles in the (P, A_loc, ...) layout
+                whole[k] = torch.from_numpy(plan.pack_active(v.cpu().numpy())).to(v.device)
+        self.layout.shard_(self.model, whole)
+        return kw
+
+    def _param_names(self) -> list:
+        return [n for n, _ in self.model.named_parameters()]
+
+    def _barrier(self) -> None:
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            comm.all_reduce(torch.zeros(1, device=self.device), dist.group.WORLD)
+
     def _save(self, epoch: int, metadata: dict) -> None:
-        ckpt.save_checkpoint(
-            self.run_dir, epoch,
-            model_state=self.model.state_dict(),
-            optimizer_state=self.optimizer.state_dict(),
-            generator_state=self.generator.get_state(),
-            metadata=metadata,
-        )
+        """Whole tensors gathered from every rank's slices (collective);
+        rank 0 writes."""
+        model_state = self.model_state()
+        optimizer_state = self.optimizer.state_dict()
+        generators = None
+        if self.layout is not None:
+            optimizer_state = self.layout.whole_optimizer(optimizer_state, self._param_names())
+            if self._data_group is not None:
+                state = self.generator.get_state().to(self.device)
+                generators = comm.all_gather(state[None], 0, self._data_group).cpu()
+        if self.writer:
+            ckpt.save_checkpoint(
+                self.run_dir, epoch,
+                model_state=model_state,
+                optimizer_state=optimizer_state,
+                generator_state=self.generator.get_state(),
+                metadata=metadata,
+                generators=generators,
+            )
+        self._barrier()  # the file exists before any rank reads it
+
+    def _load(self, state: dict, optimizer: bool = True) -> None:
+        """A checkpoint's whole tensors into this rank's model (its
+        slices), and with ``optimizer`` the Adam state and this data rank's
+        generator."""
+        model_state = state["model"]
+        if self.layout is not None:
+            model_state = self.layout.local_state(model_state)
+        self.model.load_state_dict(model_state)
+        if not optimizer:
+            return
+        if state["optimizer"] is not None:
+            opt = state["optimizer"]
+            if self.layout is not None:
+                opt = self.layout.local_optimizer(opt, self._param_names())
+            self.optimizer.load_state_dict(opt)
+        generators = state.get("generators")
+        if generators is not None and self.mesh is not None:
+            self.generator.set_state(generators[self.mesh.d].cpu())
+        elif state["generator"] is not None:
+            self.generator.set_state(state["generator"].cpu())
+
+    def load_model_state(self, state: dict) -> None:
+        """Whole weights (a checkpoint's, or a single-device model's in the
+        mesh's layout, e.g. from ``params_from_jax``) into this rank's model."""
+        self._load({"model": state}, optimizer=False)
+
+    def model_state(self) -> dict:
+        """The whole weights, gathered from every rank's slices
+        (collective on a mesh)."""
+        state = self.model.state_dict()
+        return state if self.layout is None else self.layout.whole_state(state)
 
     def resume(self) -> bool:
         """True resume from the latest checkpoint in the run dir."""
@@ -301,11 +445,7 @@ class Trainer:
         if latest is None:
             return False
         state = ckpt.restore_checkpoint(latest, map_location=self.device)
-        self.model.load_state_dict(state["model"])
-        if state["optimizer"] is not None:
-            self.optimizer.load_state_dict(state["optimizer"])
-        if state["generator"] is not None:
-            self.generator.set_state(state["generator"].cpu())
+        self._load(state)
         meta = state["meta"]
         self.epoch = int(meta.get("epoch", -1)) + 1
         self.best_val = float(meta.get("best_val", math.inf))
@@ -322,25 +462,34 @@ class Trainer:
         )
         weights = (np.arange(idx.size) < n_valid).astype(np.float32).reshape(idx.shape)
         weights = torch.from_numpy(weights).to(self.device)
+        # this data rank's rows of every batch; the loss is divided by the
+        # global batch's weight sum
+        rows = batch_sharding(self.mesh, t.batch_size) if self.mesh is not None else slice(None)
+        totals = weights.sum(dim=1)
         losses = []
         if self.checked_step is not None:
             # debug mode: one checked step a batch; a NaN/inf or an index
             # outside the split raises here, naming the op and the batch
             for b in range(idx.shape[0]):
                 losses.append(self.checked_step(
-                    self.model, self.optimizer, x_full, y_full, idx[b], self.constants,
-                    weights=weights[b], generator=self.generator, batch=b))
-            self.last_epoch_steps = len(losses)
-            return float(torch.stack(losses).mean())
-        idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-        for b in range(idx.shape[0]):
-            losses.append(train_step(
-                self.model, self.optimizer, x_full[idx[b]], y_full[idx[b]],
-                self.constants, weights=weights[b], generator=self.generator,
-                **self._step_kw,
-            ))
+                    self.model, self.optimizer, x_full, y_full, idx[b][rows], self.constants,
+                    weights=weights[b, rows], generator=self.generator, batch=b,
+                    weight_total=totals[b]))
+        else:
+            idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+            for b in range(idx.shape[0]):
+                ib = idx[b, rows]
+                losses.append(train_step(
+                    self.model, self.optimizer, x_full[ib], y_full[ib],
+                    self.constants, weights=weights[b, rows], weight_total=totals[b],
+                    generator=self.generator, **self._step_kw,
+                ))
         self.last_epoch_steps = len(losses)
-        mean_loss = float(torch.stack(losses).mean())
+        losses = comm.all_reduce(torch.stack(losses), self._data_group)
+        self.last_losses = losses.tolist()  # the epoch's per-step losses
+        mean_loss = float(losses.mean())
+        if self.checked_step is not None:
+            return mean_loss
         if math.isnan(mean_loss):
             raise FloatingPointError(
                 f"NaN training loss at epoch {epoch} — aborting (last good "
@@ -354,18 +503,23 @@ class Trainer:
         x_full, y_full = self._splits[split]
         idx, n_valid = self.dataset.batch_indices(split, t.batch_size, shuffle=False)
         idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        rows = batch_sharding(self.mesh, t.batch_size) if self.mesh is not None else slice(None)
         preds, losses = [], []
         for b in range(idx.shape[0]):
+            ib = idx[b, rows]
             pred, per_sample = eval_step(
-                self.model, x_full[idx[b]], y_full[idx[b]], self.constants,
+                self.model, x_full[ib], y_full[ib], self.constants,
                 compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
                 fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
-                fuse_gtu=self.fuse_gtu,
+                fuse_gtu=self.fuse_gtu, model_kw=self._model_kw,
             )
             preds.append(pred)
             losses.append(per_sample)
-        pred = torch.cat(preds).cpu().numpy()[:n_valid]
-        per_sample = torch.cat(losses).cpu().numpy()[:n_valid]
+        # every data rank's rows, batch by batch, before the tail is cut
+        pred = comm.all_gather(torch.stack(preds), 1, self._data_group)
+        per_sample = comm.all_gather(torch.stack(losses), 1, self._data_group)
+        pred = pred.reshape(-1, *pred.shape[2:]).cpu().numpy()[:n_valid]
+        per_sample = per_sample.reshape(-1).cpu().numpy()[:n_valid]
         if self._inv_perm is not None:
             pred = pred[:, self._inv_perm]  # back to the original node order
         return pred, float(per_sample.mean())
@@ -386,7 +540,7 @@ class Trainer:
         c = self.constants
         out = self.model(x_full[i:i + 1], adj_pa=c["adj_pa"], cheb_polys=c["cheb_polys"],
                          deterministic=True, bell=c.get("bell"), bell_tiles=c.get("bell_tiles"),
-                         ell=c.get("ell"), return_attention=True)
+                         ell=c.get("ell"), return_attention=True, **self._model_kw)
         return [(m[0] if m.ndim else m).float().cpu().numpy() for m in out[1]]
 
     def _rollback_to_last_good(self, epoch: int) -> None:
@@ -400,14 +554,10 @@ class Trainer:
             raise FloatingPointError(
                 f"NaN loss at epoch {epoch} and no checkpoint to roll back to")
         state = ckpt.restore_checkpoint(latest, map_location=self.device)
-        self.model.load_state_dict(state["model"])
-        if state["generator"] is not None:
-            self.generator.set_state(state["generator"].cpu())
+        self._load(state)
         self._rollbacks += 1
         self._lr_scale *= 0.5
-        if state["optimizer"] is not None:
-            self.optimizer.load_state_dict(state["optimizer"])
-        else:
+        if state["optimizer"] is None:
             self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate)
         # load_state_dict brings back the saved lr: the halved one goes in after it
         lr = t.learning_rate * self._lr_scale
@@ -454,7 +604,7 @@ class Trainer:
             best = ckpt.checkpoint_path(self.run_dir, self.best_epoch)
             if os.path.exists(best):
                 state = ckpt.restore_checkpoint(best, map_location=self.device)
-                self.model.load_state_dict(state["model"])
+                self._load(state, optimizer=False)
         pred, test_loss = self.evaluate("test")
         report = horizon_report(self.dataset.test.target, pred, null_val=0)
         self.logger.log(
@@ -462,10 +612,11 @@ class Trainer:
             mae=report["overall"]["mae"], rmse=report["overall"]["rmse"],
             mape=report["overall"]["mape"],
         )
-        np.savez(
-            os.path.join(self.run_dir, f"output_epoch_{self.best_epoch}_test.npz"),
-            input=self.dataset.test.x,
-            prediction=pred, data_target_tensor=self.dataset.test.target,
-        )
+        if self.writer:
+            np.savez(
+                os.path.join(self.run_dir, f"output_epoch_{self.best_epoch}_test.npz"),
+                input=self.dataset.test.x,
+                prediction=pred, data_target_tensor=self.dataset.test.target,
+            )
         return {"test_loss": test_loss, "report": report,
                 "best_epoch": self.best_epoch, "best_val": self.best_val}

@@ -12,6 +12,15 @@ does. The steps call every model family's forward with the same keywords;
 the zoo families ignore the DSTAGNN-only ones (``remat`` is passed only
 when set: DSTAGNN alone takes it, as in JAX).
 :func:`make_checked_train_step` is the debug-mode step.
+
+On a mesh (:mod:`~dstagnn_drought_tpu_torch.parallel`) a step takes this
+rank's rows of the global batch; ``model_kw`` carries the partitioned
+paths' keywords (``halo``, ``tp``) to the forward, the rows' weighted
+loss is divided by the global batch's weight sum (``weight_total``), so the
+data ranks' losses add up to the single-device loss, and with a
+``data_group`` the gradients are summed over the group before
+Adam (:func:`~dstagnn_drought_tpu_torch.parallel.comm.reduce_gradients`):
+the update is the single-device step's, on every rank alike.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import torch
 
 from dstagnn_drought_tpu_torch import debug
 from dstagnn_drought_tpu_torch.ops.nn import per_sample_smooth_l1, smooth_l1_loss
+from dstagnn_drought_tpu_torch.parallel import comm
 
 
 def make_optimizer(params, learning_rate: float) -> torch.optim.Adam:
@@ -41,9 +51,13 @@ def train_step(
     fuse_spatial: bool = False,
     fuse_gtu: bool = False,
     remat: bool = False,
+    model_kw: dict | None = None,
+    data_group=None,
+    weight_total: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Forward (dropout on) → weighted SmoothL1 → backward → Adam. Returns
-    the loss, detached, on the device."""
+    the loss (this rank's share of it with a ``data_group``), detached, on
+    the device."""
     optimizer.zero_grad(set_to_none=True)
     pred = model(
         x, adj_pa=constants["adj_pa"], cheb_polys=constants["cheb_polys"],
@@ -52,10 +66,11 @@ def train_step(
         bell=constants.get("bell"), bell_tiles=constants.get("bell_tiles"),
         ell=constants.get("ell"),
         fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
-        **({"remat": True} if remat else {}),
+        **({"remat": True} if remat else {}), **(model_kw or {}),
     )
-    loss = smooth_l1_loss(pred, y, sample_weights=weights)
+    loss = smooth_l1_loss(pred, y, sample_weights=weights, weight_total=weight_total)
     loss.backward()
+    comm.reduce_gradients(model.parameters(), data_group)
     optimizer.step()
     return loss.detach()
 
@@ -74,12 +89,13 @@ def make_checked_train_step(**step_kw):
     what :func:`train_step` computes, bit for bit."""
 
     def step(model, optimizer, x_full, y_full, idx, constants, *, weights=None,
-             generator=None, batch=None):
+             generator=None, batch=None, weight_total=None):
         debug.check_batch_indices(idx, x_full.shape[0], batch)
         i = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(x_full.device)
         with debug.checking(batch):
             return train_step(model, optimizer, x_full[i], y_full[i], constants,
-                              weights=weights, generator=generator, **step_kw)
+                              weights=weights, generator=generator,
+                              weight_total=weight_total, **step_kw)
 
     return step
 
@@ -96,6 +112,7 @@ def eval_step(
     fuse_tat: bool = False,
     fuse_spatial: bool = False,
     fuse_gtu: bool = False,
+    model_kw: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Deterministic forward → (pred float32, per-sample SmoothL1 (B,))."""
     pred = model(
@@ -104,5 +121,6 @@ def eval_step(
         bell=constants.get("bell"), bell_tiles=constants.get("bell_tiles"),
         ell=constants.get("ell"),
         fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
+        **(model_kw or {}),
     )
     return pred, per_sample_smooth_l1(pred, y)

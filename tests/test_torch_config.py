@@ -7,7 +7,8 @@ import pytest
 
 from dstagnn_drought_tpu import config as jax_config
 from dstagnn_drought_tpu_torch import config as port_config
-from dstagnn_drought_tpu_torch.training.loop import check_slice
+from dstagnn_drought_tpu_torch.parallel.mesh import make_mesh
+from dstagnn_drought_tpu_torch.training.loop import check_family, check_parallel
 
 PEMS08 = """[Data]
 adj_filename = ./data/PEMS08/PEMS08.csv
@@ -124,57 +125,75 @@ def test_missing_file():
         port_config.load_config("/nonexistent/x.conf")
 
 
+def _cfg(**training):
+    return port_config.Config(port_config.DataConfig(num_of_vertices=5),
+                              port_config.TrainingConfig(**training))
+
+
 @pytest.mark.parametrize("knob,value", [
     ("tp", True), ("data_axis", 2), ("graph_axis", 2),
 ])
 def test_options_outside_the_slice_are_refused(knob, value):
-    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
-                             port_config.TrainingConfig())
-    check_slice(cfg)  # the dense default is in the slice
-    setattr(cfg.training, knob, value)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 12"):
-        check_slice(cfg)
+    """The multi-device options are ported (ROADMAP §1 item 12):
+    check_parallel takes each; what is refused now is JAX's: a mesh larger
+    than the world (one process here) raises make_mesh's ValueError, and a
+    batch that does not divide over the data axis raises."""
+    cfg = _cfg(**{knob: value})
+    check_parallel(cfg)  # the default batch of 32 divides over 2
+    t = cfg.training
+    if t.data_axis * t.graph_axis > 1:
+        with pytest.raises(ValueError, match=r"data_axis\*graph_axis = 2 != 1 devices"):
+            make_mesh(t.data_axis, t.graph_axis)
+    else:
+        assert make_mesh(t.data_axis, t.graph_axis).shape == {"data": 1, "graph": 1}
+    t.batch_size, t.data_axis = 3, 2
+    with pytest.raises(ValueError, match="batch_size=3 must divide over data_axis=2"):
+        check_parallel(cfg)
 
 
 @pytest.mark.parametrize("knob,value", [
     ("debug", True), ("nan_policy", "rollback"), ("tensorboard", True), ("remat", True),
 ])
 def test_single_card_knobs_are_in_the_slice(knob, value):
-    """debug, NaN rollback, TensorBoard and remat are ported: check_slice
-    passes them, alone and with the multi-device options still refused."""
-    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
-                             port_config.TrainingConfig())
-    setattr(cfg.training, knob, value)
-    check_slice(cfg)
-    cfg.training.tp = True
-    with pytest.raises(NotImplementedError, match=r"item 12"):
-        check_slice(cfg)
+    """debug, NaN rollback, TensorBoard and remat pass check_parallel alone
+    and with the multi-device options on, as JAX's trainer takes them on a
+    mesh; an axis below 1 is refused with them."""
+    cfg = _cfg(**{knob: value})
+    check_parallel(cfg)
+    cfg.training.tp, cfg.training.data_axis, cfg.training.graph_axis = True, 2, 2
+    check_parallel(cfg)
+    cfg.training.graph_axis = 0
+    with pytest.raises(ValueError, match="must be >= 1"):
+        check_parallel(cfg)
 
 
 @pytest.mark.parametrize("name", ["astgcn", "mstgcn", "stgcn", "transformer"])
 def test_zoo_families_are_in_the_slice(name):
-    """The model zoo is ported: every family's model_name passes check_slice."""
-    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
-                             port_config.TrainingConfig(model_name=name))
-    check_slice(cfg)
+    """The model zoo is ported: every family's model_name resolves to its
+    module and passes check_parallel, on one card and on a mesh."""
+    cfg = _cfg(model_name=name)
+    assert check_family(cfg).__name__.endswith(f".{name}")
+    check_parallel(cfg)
+    cfg.training.data_axis = 2
+    check_parallel(cfg)
 
 
 def test_bell_options_are_in_the_slice():
-    """Both sparse formats are ported: sparse BELL with either mask format
-    and rcm, and sparse ELL (the default format, with rcm and max_degree),
-    pass check_slice."""
-    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
-                             port_config.TrainingConfig())
-    for fmt in ("dense", "tiles"):
+    """Both sparse formats with every mask format, rcm and max_degree pass
+    check_parallel, alone and with a graph axis (the partitioned BELL and
+    ELL paths)."""
+    cfg = _cfg()
+    for graph_axis in (1, 2):
+        t = cfg.training
+        t.graph_axis = graph_axis
+        for fmt in ("dense", "tiles"):
+            for rcm in (False, True):
+                t.sparse, t.sparse_format, t.mask_format, t.rcm = True, "bell", fmt, rcm
+                check_parallel(cfg)
+        t.sparse_format, t.mask_format, t.max_degree, t.halo = "ell", "dense", 3, "targeted"
         for rcm in (False, True):
-            t = cfg.training
-            t.sparse, t.sparse_format, t.mask_format, t.rcm = True, "bell", fmt, rcm
-            check_slice(cfg)
-    t = cfg.training
-    t.sparse_format, t.mask_format, t.max_degree = "ell", "dense", 3
-    for rcm in (False, True):
-        t.rcm = rcm
-        check_slice(cfg)
+            t.rcm = rcm
+            check_parallel(cfg)
     assert port_config.TrainingConfig().sparse_format == "ell"
 
 
@@ -183,16 +202,15 @@ def test_bell_options_are_in_the_slice():
                                    ("fuse_tat", "fuse_gtu"),
                                    ("fuse_tat", "fuse_spatial", "fuse_gtu")])
 def test_fused_options_are_in_the_slice(knobs):
-    """Every fused kernel pair is ported (temporal attention, spatial
-    middle, GTU tail), alone and together, and with remat; an option still
-    outside the slice (tp) is still refused with them."""
-    cfg = port_config.Config(port_config.DataConfig(num_of_vertices=5),
-                             port_config.TrainingConfig())
+    """Every fused kernel pair (temporal attention, spatial middle, GTU
+    tail), alone and together, and with remat, passes check_parallel; so
+    does tp with them (under tp the fused TAt takes the slices gathered
+    whole, as GSPMD gives a pallas_call whole operands)."""
+    cfg = _cfg()
     for knob in knobs:
         setattr(cfg.training, knob, True)
-    check_slice(cfg)
+    check_parallel(cfg)
     cfg.training.remat = True
-    check_slice(cfg)
-    cfg.training.tp = True
-    with pytest.raises(NotImplementedError, match=r"item 12"):
-        check_slice(cfg)
+    check_parallel(cfg)
+    cfg.training.tp, cfg.training.graph_axis = True, 2
+    check_parallel(cfg)

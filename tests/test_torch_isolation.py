@@ -38,7 +38,9 @@ def test_importing_the_port_loads_no_jax():
     for module in ("ops.cuda.cheb_sat", "ops.cuda.bell_fused", "ops.cuda.bell_bwd",
                    "ops.cuda.tat_fused", "ops.cuda.block_spatial_fused",
                    "ops.cuda.gtu_fused", "ops.block_sparse", "debug",
-                   "training.profiling", "cli.evaluate", "data.legacy", "data.native"):
+                   "training.profiling", "cli.evaluate", "data.legacy", "data.native",
+                   "parallel", "parallel.mesh", "parallel.comm", "parallel.sharding",
+                   "parallel.graph_partition", "parallel.bell_partition", "parallel.launch"):
         assert f"dstagnn_drought_tpu_torch.{module}" in loaded, module
 
 

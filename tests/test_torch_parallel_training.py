@@ -1,0 +1,381 @@
+"""Multi-device training of the port on 2 and 4 gloo ranks against the JAX
+trainer on the same mesh shape (its virtual CPU devices) and against the
+port's single-rank run, from the same weights (JAX's initial parameters,
+carried by ``params_from_jax``) and the same batches, dropout 0: 5-step
+trajectories at (data, graph) = (2, 1), (1, 2) and (2, 2) on the dense, the
+ELL targeted-halo and the BELL-tiles paths, and (1, 2) with ``tp``. The
+parameters every rank holds whole stay bit-identical across ranks. Then a
+checkpoint saved by rank 0 and resumed at (1, 2), a checkpoint read by
+JAX's ``import_torch_state_dict``, and the CLI under two gloo ranks started
+through the environment ``torchrun`` sets.
+
+One module-scoped spawn a world size serves the trajectories (the ranks
+import this file, which imports JAX only inside the tests); the ranks train
+while JAX's runs compile and train, four at a time. JAX's BELL-tiles side runs one tile list a shard where
+the port runs the overlapped sublists: the same function."""
+import hashlib
+import json
+import os
+import socket
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+from dstagnn_drought_tpu_torch.cli import train as train_cli
+from dstagnn_drought_tpu_torch.config import Config, DataConfig, TrainingConfig, load_config
+from dstagnn_drought_tpu_torch.data.dataset import ArrayDataset, Split
+from dstagnn_drought_tpu_torch.models.dstagnn import ModelSpec, params_from_jax
+from dstagnn_drought_tpu_torch.parallel.launch import spawn
+from dstagnn_drought_tpu_torch.training.loop import Trainer
+
+N, F, T, PRED, BS = 30, 1, 12, 6, 8  # 4 BELL tiles: no inert tile at graph 2
+STEPS, LOSS_RTOL, WEIGHT_TOL = 5, 2e-3, 5e-3
+BASE = dict(in_channels=F, nb_block=2, n_heads=2, K=2, d_k=8, d_model=16, nb_chev_filter=8,
+            nb_time_filter=8, batch_size=4, epochs=STEPS, learning_rate=3e-3, dropout=0.0)
+TILES = dict(sparse=True, sparse_format="bell", block_size=BS, mask_format="tiles")
+RUNS = {  # name: (world size, [Training] keys)
+    "dense_d2": (2, dict(data_axis=2)),
+    "dense_g2": (2, dict(graph_axis=2)),
+    "ell_g2": (2, dict(graph_axis=2, sparse=True, halo="targeted")),
+    "tiles_g2": (2, dict(graph_axis=2, **TILES)),
+    "dense_g2_tp": (2, dict(graph_axis=2, tp=True)),
+    "dense_d2g2": (4, dict(data_axis=2, graph_axis=2)),
+    "tiles_d2g2": (4, dict(data_axis=2, graph_axis=2, halo_overlap=False, **TILES)),
+    # JAX's trainer takes these knobs on a mesh, and so does the port: tp
+    # with the fused TAt (the slices gathered whole for the kernel, as GSPMD
+    # gives a pallas_call whole operands), and the tile path with rcm, remat
+    # and the debug mode's checked steps
+    "dense_g2_tp_fused": (2, dict(graph_axis=2, tp=True, fuse_tat=True)),
+    "tiles_g2_knobs": (2, dict(graph_axis=2, rcm=True, remat=True, debug=True, **TILES)),
+}
+# JAX's BELL-tiles and fused trainers run their Pallas kernels in interpret
+# mode, a minute a run here: the tiles train at (2, 2) on JAX's side, and
+# these runs are held to the port's single-rank run (the partitioned conv
+# to JAX's in test_torch_parallel_conv.py)
+NO_JAX = ("tiles_g2", "dense_g2_tp_fused", "tiles_g2_knobs")
+
+
+def _data():
+    rng = np.random.default_rng(5)
+    A = (rng.random((N, N)) < 0.2).astype(np.float32)
+    A = np.maximum(A, A.T)
+    np.fill_diagonal(A, 0)
+    pa = ((rng.random((N, N)) < 0.5) & ((A + np.eye(N)) > 0)).astype(np.float32)
+    np.fill_diagonal(pa, 1)
+    x = rng.normal(size=(12, N, F, T)).astype(np.float32)
+    y = np.repeat(x[:, :, -1, :].mean(axis=2, keepdims=True), PRED, axis=2).astype(np.float32)
+    return A, pa, x, y
+
+
+def _dataset(split_cls, dataset_cls, x, y):
+    sp = lambda s: split_cls(x[s], y[s])
+    return dataset_cls(train=sp(slice(0, 4)), val=sp(slice(4, 8)), test=sp(slice(8, 12)),
+                       mean=np.zeros((1, 1, F, 1)), std=np.ones((1, 1, F, 1)))
+
+
+def _config(config_cls, data_cls, training_cls, **keys):
+    return config_cls(
+        data=data_cls(num_of_vertices=N, len_input=T, num_for_predict=PRED,
+                      dataset_name="PTOY"),
+        training=training_cls(**{**BASE, **keys})).validate()
+
+
+def _trainer(root, init=None, **keys) -> Trainer:
+    A, pa, x, y = _data()
+    tr = Trainer(_config(Config, DataConfig, TrainingConfig, **keys),
+                 dataset=_dataset(Split, ArrayDataset, x, y), adj_merge=A, adj_pa=pa,
+                 experiments_root=str(root), device="cpu")
+    if init is not None:
+        tr.load_model_state({k: torch.from_numpy(v) for k, v in init.items()})
+    return tr
+
+
+def _digests(tr) -> dict:
+    return {n: hashlib.sha1(p.detach().numpy().tobytes()).hexdigest()
+            for n, p in tr.model.named_parameters()
+            if tr.layout is None or not tr.layout.sliced(n)}
+
+
+def _trajectory(root, init, keys):
+    """(losses, whole final weights, digests of the parameters held whole)."""
+    tr = _trainer(root, init, **keys)
+    losses = [tr.train_epoch(e) for e in range(STEPS)]
+    return losses, {k: v.numpy() for k, v in tr.model_state().items()}, _digests(tr)
+
+
+def _resume_and_checkpoint(root):
+    """At (1, 2), BELL tiles with tp (both kinds of slices, the Adam moments
+    with them): 2 epochs, a fresh trainer resumed from rank 0's checkpoint
+    for epochs 2-3, against 4 epochs straight; then a dense tp run's
+    checkpoint for JAX to read."""
+    keys = dict(graph_axis=2, tp=True, checkpoint_every=1, **TILES)
+    _trainer(root / "resumed", **keys).run(2)
+    resumed = _trainer(root / "resumed", **keys)
+    assert resumed.resume() and resumed.epoch == 2
+    r = resumed.run(4)
+    s = _trainer(root / "straight", **keys).run(4)
+    dense = _trainer(root / "dense_tp", graph_axis=2, tp=True)
+    dense.run(1)
+    out = dict(resumed=r["test_loss"], straight=s["test_loss"], run_dirs=[
+        str(resumed.run_dir), str(root / "straight" / os.path.relpath(
+            resumed.run_dir, root / "resumed"))],
+        dense_dir=str(dense.run_dir),
+        dense_state={k: v.numpy() for k, v in dense.model_state().items()},
+        mask_shape=tuple(resumed.model.BlockList[0].cheb_conv_SAt.mask_tiles.shape))
+    return out
+
+
+def train_rank(rank, inits, root):
+    """One gloo rank: every trajectory of its world size, then (world 2) the
+    checkpoint cases."""
+    from pathlib import Path
+
+    world = torch.distributed.get_world_size()
+    out = {}
+    for name, (size, keys) in RUNS.items():
+        if size == world:
+            out[name] = _trajectory(Path(root) / name, inits[name], keys)
+    if world == 2:
+        out["checkpoint"] = _resume_and_checkpoint(Path(root) / "ckpt")
+    return out
+
+
+def _jax_trainer(name, keys, root):
+    """The JAX trainer of a run on its mesh shape (JAX's virtual CPU
+    devices), and its initial weights as a port state_dict."""
+    import jax
+
+    from dstagnn_drought_tpu.config import Config as JConfig
+    from dstagnn_drought_tpu.config import DataConfig as JData
+    from dstagnn_drought_tpu.config import TrainingConfig as JTraining
+    from dstagnn_drought_tpu.data.dataset import ArrayDataset as JDataset
+    from dstagnn_drought_tpu.data.dataset import Split as JSplit
+    from dstagnn_drought_tpu.parallel.mesh import make_mesh
+
+    from dstagnn_drought_tpu.training.loop import Trainer as JTrainer
+
+    A, pa, x, y = _data()
+    # the overlapped sublists compute the same function as one tile list;
+    # JAX's side runs the one list, whose interpret-mode kernels cost half
+    cfg = _config(JConfig, JData, JTraining, **dict(keys, halo_overlap=False))
+    d, g = cfg.training.data_axis, cfg.training.graph_axis
+    tr = JTrainer(cfg, dataset=_dataset(JSplit, JDataset, x, y), adj_merge=A, adj_pa=pa,
+                  mesh=make_mesh(d, g, devices=jax.devices()[:d * g]),
+                  experiments_root=str(root / name))
+    return tr, _as_port(tr.params, keys)
+
+
+def _as_port(params, keys):
+    spec = ModelSpec.from_config(_config(Config, DataConfig, TrainingConfig, **keys))
+    return {k: v.numpy() for k, v in params_from_jax(params, spec).items()}
+
+
+def _unpartitioned(state, keys):
+    """A state_dict with (P, A_loc, K, BS, BS) masks as the single-rank
+    model's (A, K, BS, BS): each rank's true entries in order, the pad
+    tiles' entries (the augmented list's tail) cut."""
+    if keys.get("mask_format") != "tiles":
+        return state
+    from dstagnn_drought_tpu_torch.ops.block_sparse import (
+        block_ell_from_adjacency,
+        rcm_permutation,
+    )
+    from dstagnn_drought_tpu_torch.parallel.bell_partition import build_bell_tile_shard_plan
+
+    A, pa, _, _ = _data()
+    if keys.get("rcm"):  # the Trainer's node order
+        perm = rcm_permutation(np.maximum(A, A.T))
+        A, pa = A[np.ix_(perm, perm)], pa[np.ix_(perm, perm)]
+    bell = block_ell_from_adjacency(A, block_size=BS)
+    plan = build_bell_tile_shard_plan(bell, keys["graph_axis"], pa, np.zeros((2, N, N)))
+    out = dict(state)
+    for k, v in state.items():
+        if k.endswith("cheb_conv_SAt.mask_tiles"):
+            out[k] = np.concatenate([v[r, :n] for r, n in enumerate(plan.a_true)])[
+                :bell.num_active]
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{name: (JAX (init, losses, final), port single-rank (losses, final),
+    every rank's (losses, final, digests))}, and the checkpoint record."""
+    root = tmp_path_factory.mktemp("parallel_training")
+    trainers = {name: _jax_trainer(name, keys, root / "jax") for name, (_, keys) in RUNS.items()}
+    inits = {name: init for name, (_, init) in trainers.items()}  # JAX's initial weights
+    ranks = {}
+
+    def port_ranks():  # the ranks train while JAX compiles and trains here
+        for w in (2, 4):
+            ranks[w] = spawn(train_rank, w, inits, str(root / f"ranks{w}"), timeout=300,
+                             init_dir=str(tmp_path_factory.mktemp("init")))
+
+    thread = threading.Thread(target=port_ranks)
+    thread.start()
+    try:
+        def jax_run(name):  # JAX releases the GIL while it compiles and runs
+            tr, init = trainers[name]
+            losses = [tr.train_epoch(e) for e in range(STEPS)]
+            return name, (init, losses, _as_port(tr.params, RUNS[name][1]))
+
+        with ThreadPoolExecutor(4) as pool:  # the tile runs, the slowest, first
+            jax_side = dict(pool.map(jax_run, sorted(
+                (n for n in RUNS if n not in NO_JAX), key=lambda n: "tiles" not in n)))
+        single = {name: _trajectory(root / "single" / name, _unpartitioned(inits[name], keys),
+                                    {k: v for k, v in keys.items()
+                                     if k not in ("data_axis", "graph_axis", "tp")})[:2]
+                  for name, (_, keys) in RUNS.items()}
+    finally:
+        thread.join()
+    assert set(ranks) == {2, 4}, "a spawn failed (its error is above)"
+    out = {name: (jax_side.get(name), single[name], [r[name] for r in ranks[w]])
+           for name, (w, _) in RUNS.items()}
+    return out, ranks[2][0]["checkpoint"], root / "jax"
+
+
+def _weights_close(got, want, what):
+    for k, v in want.items():
+        err = float(np.abs(got[k] - v).max())
+        assert err <= WEIGHT_TOL * max(1.0, float(np.abs(v).max())), f"{what} {k}: {err}"
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_trajectory_matches_jax_and_single_rank(runs, name):
+    jax_run, (s_losses, s_final), ranks = runs[0][name]
+    losses, final, digests = ranks[0]
+    assert abs(losses[0] - losses[-1]) > 1e-4  # the trajectory moves
+    np.testing.assert_allclose(losses, s_losses, rtol=LOSS_RTOL)
+    if name not in NO_JAX:
+        _, j_losses, j_final = jax_run
+        np.testing.assert_allclose(losses, j_losses, rtol=LOSS_RTOL)
+        _weights_close(final, j_final, "vs jax")
+    if "tiles" in name:  # the single-rank model holds the tiles unpartitioned
+        final = {k: v for k, v in final.items() if not k.endswith("mask_tiles")}
+    _weights_close(final, {k: v for k, v in s_final.items() if k in final}, "vs single rank")
+    for r, (_, _, other) in enumerate(ranks[1:], 1):  # replicated: bit-identical
+        assert other == digests, f"rank {r} holds other bits"
+
+
+def test_checkpoint_resume_equals_straight_run(runs):
+    """Rank 0's checkpoint (whole masks and TAt weights, gathered; the Adam
+    moments with them) resumed into a fresh (1, 2) trainer: epochs 2-3 and
+    the test loss equal the uninterrupted run's, bit for bit."""
+    ck = runs[1]
+    assert ck["resumed"] == ck["straight"]
+    epochs = []
+    for run_dir in ck["run_dirs"]:
+        events = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+        epochs.append({e["epoch"]: e["train_loss"] for e in events if e["event"] == "epoch"})
+    assert epochs[0][2] == epochs[1][2] and epochs[0][3] == epochs[1][3]
+    state = torch.load(os.path.join(ck["run_dirs"][0], "epoch_3.pt"), weights_only=True)
+    mt = state["model"]["BlockList.0.cheb_conv_SAt.mask_tiles"]
+    assert mt.ndim == 5 and mt.shape[0] == 2 and tuple(mt.shape[1:]) == ck["mask_shape"]
+    assert state["model"]["BlockList.0.TAt.W_Q.weight"].shape == (2 * 8, N)  # whole
+    j_mask = _jax_trainer("shape", dict(graph_axis=2, **TILES), runs[2])[1][
+        "BlockList.0.cheb_conv_SAt.mask_tiles"]
+    assert tuple(mt.shape) == j_mask.shape  # the JAX trainer's partitioned layout
+
+
+def test_checkpoint_read_by_jax(runs):
+    """A (1, 2) tp checkpoint holds whole TAt weights: JAX's
+    import_torch_state_dict reads it unchanged."""
+    from dstagnn_drought_tpu.config import Config as JConfig
+    from dstagnn_drought_tpu.config import DataConfig as JData
+    from dstagnn_drought_tpu.config import TrainingConfig as JTraining
+    from dstagnn_drought_tpu.models.dstagnn import ModelSpec as JSpec
+    from dstagnn_drought_tpu.models.dstagnn import import_torch_state_dict
+
+    ck = runs[1]
+    state = torch.load(os.path.join(ck["dense_dir"], "epoch_0.pt"), weights_only=True)
+    spec = ModelSpec.from_config(_config(Config, DataConfig, TrainingConfig))
+    params = import_torch_state_dict(
+        state["model"], JSpec.from_config(_config(JConfig, JData, JTraining)))
+    assert params_from_jax(params, spec).keys() == ck["dense_state"].keys()
+    for k, v in params_from_jax(params, spec).items():
+        np.testing.assert_array_equal(v.numpy(), ck["dense_state"][k], err_msg=k)
+
+
+def test_trainer_logs_tp_report_as_jax(runs):
+    """Under ``tp`` the Trainer logs JAX's ``tp_report`` of its whole
+    parameters once, as the ``tp`` event of rank 0's metrics.jsonl."""
+    import jax
+
+    from dstagnn_drought_tpu.parallel.mesh import make_mesh
+    from dstagnn_drought_tpu.parallel.sharding import tp_report
+
+    ck = runs[1]
+    events = [json.loads(line) for line in open(os.path.join(ck["dense_dir"], "metrics.jsonl"))]
+    logged = [e for e in events if e["event"] == "tp"]
+    assert len(logged) == 1
+    got = {k: v for k, v in logged[0].items() if k not in ("event", "t")}
+    tr = _jax_trainer("tp_report", dict(graph_axis=2, tp=True), runs[2])[0]
+    assert got == tp_report(tr.params, make_mesh(1, 2, devices=jax.devices()[:2]))
+    assert not got["fallback"] and got["per_device_bytes_tp"] < got["total_bytes"]
+
+
+def _project(root):
+    """A reference-format project: the windowed npz, headerless CSVs, the
+    config."""
+    A, pa, x, y = _data()
+    np.savez(root / "PTOY_r1_d0_w0_dstagnn.npz", train_x=x[:4], train_target=y[:4],
+             val_x=x[4:8], val_target=y[4:8], test_x=x[8:], test_target=y[8:],
+             mean=np.zeros((1, 1, F, 1)), std=np.ones((1, 1, F, 1)))
+    for name, a in (("adj", A), ("stag", A), ("strg", pa)):
+        np.savetxt(root / f"{name}.csv", a, delimiter=",")
+    training = "\n".join(f"{k} = {v}" for k, v in {**BASE, "epochs": 1}.items())
+    conf = root / "PTOY.conf"
+    conf.write_text(f"""[Data]
+adj_filename = {root}/adj.csv
+graph_signal_matrix_filename = {root}/PTOY.npz
+stag_filename = {root}/stag.csv
+strg_filename = {root}/strg.csv
+num_of_vertices = {N}
+points_per_hour = 12
+num_for_predict = {PRED}
+len_input = {T}
+dataset_name = PTOY
+
+[Training]
+model_name = dstagnn
+graph = G
+num_of_hours = 1
+num_of_days = 0
+num_of_weeks = 0
+{training}
+""")
+    return conf
+
+
+def cli_rank(rank, conf, exp, port, flags):
+    """A rank started as torchrun starts it: the environment only."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    result = train_cli.main(["--config", conf, "--experiments-root", exp, "--device", "cpu",
+                             *flags])
+    return result["test_loss"], torch.distributed.get_backend()
+
+
+def test_cli_graph_axis_under_two_gloo_ranks(tmp_path):
+    """``--graph-axis 2`` (and ``--distributed``) under two ranks started
+    through RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT: gloo on the CPU, rank 0
+    alone writes, and the dense model, whole on both ranks, predicts what
+    the single-process CLI predicts."""
+    conf = str(_project(tmp_path))
+    single = train_cli.main(["--config", conf, "--experiments-root", str(tmp_path / "one"),
+                             "--device", "cpu"])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    out = spawn(cli_rank, 2, conf, str(tmp_path / "two"), port,
+                ["--graph-axis", "2", "--distributed"], timeout=180, init=False)
+    assert [o[1] for o in out] == ["gloo", "gloo"]
+    assert out[0][0] == out[1][0]
+    np.testing.assert_allclose(out[0][0], single["test_loss"], rtol=1e-6)
+    one, two = (next((tmp_path / d / "PTOY").iterdir()) for d in ("one", "two"))
+    assert sorted(p.name for p in two.iterdir()) == sorted(p.name for p in one.iterdir())
+    with np.load(next(one.glob("output_*.npz"))) as a, np.load(next(two.glob("output_*.npz"))) as b:
+        np.testing.assert_allclose(b["prediction"], a["prediction"], rtol=1e-6, atol=1e-6)
+    assert load_config(conf).training.graph_axis == 1  # the flags, not the file, made the mesh

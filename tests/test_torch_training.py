@@ -404,12 +404,25 @@ def test_check_fused_shapes_checks_the_bell_kernel(toy_windowed, dtype, mask_for
         loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
 
 
-def test_cli_refuses_flags_outside_the_slice(toy_windowed, tmp_path):
+def test_cli_refuses_flags_outside_the_slice(toy_windowed, tmp_path, monkeypatch):
+    """The JAX CLI's multi-device flags are ported (ROADMAP §1 item 12): in
+    one process without torchrun's environment, ``--distributed`` leaves
+    the run a single process, and an axis flag asks for a mesh larger than
+    the world, which raises JAX's ValueError before any data is read. Two
+    ranks run in tests/test_torch_parallel_training.py."""
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     conf = str(toy_windowed / "TOY.conf")
-    for flag in (["--data-axis", "2"], ["--graph-axis", "2"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 12"):
+    for flag, error in ((["--data-axis", "2", "--graph-axis", "1"],
+                         r"data_axis\*graph_axis = 2 != 1 devices"),
+                        (["--graph-axis", "2"], "graph_axis=2 must divide device count 1")):
+        with pytest.raises(ValueError, match=error):
             train_cli.main(["--config", conf, "--device", "cpu", *flag])
-    assert set(train_cli._NOT_PORTED) == {"data_axis", "graph_axis", "distributed"}
+    result = train_cli.main(["--config", conf, "--device", "cpu", "--distributed",
+                             "--epochs", "1", "--experiments-root", str(tmp_path)])
+    assert np.isfinite(result["test_loss"])
+    assert not torch.distributed.is_initialized()
+    assert not hasattr(train_cli, "_NOT_PORTED")
 
 
 def test_trainer_needs_a_card_unless_told_cpu(toy_windowed):
@@ -525,23 +538,32 @@ def test_three_step_bell_tiles_trajectory_matches_jax():
 
 
 def test_check_slice_still_refuses_ell_and_graph_axis(toy_windowed, tmp_path):
-    """sparse_format='ell' is ported now: the Trainer builds its EllGraph and
-    trains; graph_axis > 1 is still refused (multi-device)."""
+    """sparse_format='ell' is ported: the Trainer builds its EllGraph and
+    trains; graph_axis > 1 is ported too (multi-device), and in one process
+    the Trainer's mesh raises JAX's ValueError: the world has one rank."""
     cfg = load_config(_bell_conf(toy_windowed, tmp_path, "E", sparse_format="ell"))
     trainer = loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
     assert "ell" in trainer.constants and "bell" not in trainer.constants
+    assert trainer.mesh is None
     assert np.isfinite(trainer.train_epoch(0))
     cfg = load_config(_bell_conf(toy_windowed, tmp_path, "G", graph_axis="2"))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match=r"data_axis\*graph_axis = 2 != 1 devices"):
         loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("axis", ["data_axis", "graph_axis"])
 def test_check_slice_refuses_multi_device(toy_windowed, tmp_path, axis):
+    """An axis of 2 on the ELL path is taken (no NotImplementedError): the
+    Trainer builds its mesh, which in one process raises JAX's ValueError;
+    a batch that does not divide over the data axis is refused before."""
     cfg = load_config(_bell_conf(toy_windowed, tmp_path, axis, sparse_format="ell",
-                                 **{axis: "2"}))
-    with pytest.raises(NotImplementedError, match=r"§1 item 12 \(multi-device\)"):
+                                 halo="targeted", **{axis: "2"}))
+    with pytest.raises(ValueError, match=r"data_axis\*graph_axis = 2 != 1 devices"):
         loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
+    cfg.training.batch_size = 3
+    if axis == "data_axis":
+        with pytest.raises(ValueError, match="batch_size=3 must divide over data_axis=2"):
+            loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
 
 
 # ---------------------------------------------------------------------------
