@@ -32,21 +32,22 @@ Phases; any failure exits non-zero:
      shared-memory bytes must equal the kernels' own;
   2c. the fused dense kernels against their plain versions, forward and
      every gradient, in float32 and bfloat16, at PEMS08 block 1 and blocks
-     2-4, the TAt embedding mode and a ragged shape (and, in bfloat16 only,
-     the spatial middle and the TAt at PEMS07's N = 883 and the TAt at
-     GAMBIA's T = 144): the temporal-attention forward and backward
-     (csrc/tat_fused.cu; in bfloat16 the passes over all B·F·T rows on the
-     tensor cores with the hi/lo split, whose float32 outputs are also held
-     against the float32 kernels' on the same operands within a limit that
-     a no-split control exceeds; in float32 one
-     block a row on the CUDA cores; the gate's shared-memory bytes equal to
-     the kernels' own) and the spatial-middle forward and
-     backward (csrc/block_spatial_fused.cu; the backward on the forward's
-     ReLU mask; in bfloat16 the embedding pass, both column passes and the
-     row pass on the tensor cores, in float32 every pass on the CUDA cores,
-     each row naming its design and the float32 time of its shape), every
-     weight gradient equal bit for bit over two backward launches, and the
-     spatial gate's shared-memory bytes equal to the kernels' own;
+     2-4, the TAt embedding mode, ragged shapes, PEMS07's N = 883, the TAt
+     at GAMBIA's T = 144 and the spatial middle at GAMBIA's blocks 1-2 and
+     a ragged N = 1001: the temporal-attention forward and backward
+     (csrc/tat_fused.cu; one design in both dtypes, passes over all B·F·T
+     rows on the tensor cores with the hi/lo split; the float32 rows are
+     held against the plain float32 version within a limit that a
+     no-split control exceeds; the passes' shared-memory bytes equal to the
+     kernels' own) and the spatial-middle forward and backward
+     (csrc/block_spatial_fused.cu, source- and target-tiled; the backward
+     on the forward's ReLU mask; the N²·C·T products on the tensor cores,
+     split hi/lo in float32, the float32 rows held against the plain
+     float32 version within a limit that a no-split control exceeds; each
+     row naming its design and the float32 time of its shape), every
+     weight gradient equal bit for bit over two
+     backward launches, and the spatial gate's shared-memory bytes and time
+     chunks equal to the kernels' own;
   2d. the fused GTU forward and backward (csrc/gtu_fused.cu) against their
      plain version at the GAMBIA block, the JAX test's two shapes, a ragged
      one and C = 48 (bf16 only), float32 (CUDA cores) and bfloat16 (tensor
@@ -60,6 +61,11 @@ Phases; any failure exits non-zero:
      bfloat16, each TAt/spatial kernel once per block of every forward pass
      (forward) or train step (backward), cheb_sat never; then the fused and
      unfused models on one test batch in float32 from the run's checkpoint;
+  3c. this slice's main path: the CLI with fuse_tat and fuse_spatial at
+     PEMS07 width (N = 883, batch 12, a seeded synthetic dataset and
+     edge-list graph), 2 epochs in float32 and 2 in bfloat16, the launch
+     counts checked as in 3b, and the float32 run's fused and unfused
+     models on one test batch;
   4. GAMBIA dense (N=2139, F=4, T=144, bfloat16): training steps through
      the Trainer, the kernel at N > 1024 and the multichannel/long-T tail;
   4b. the GTU slice's main path: GAMBIA dense with fuse_gtu = true,
@@ -142,11 +148,15 @@ Phases; any failure exits non-zero:
      line.
 
 ``--measure`` adds the spatial and TAt forward and backward by pass
-(profiles at PEMS08 blocks 2-4 in both dtypes), timings of whole training epochs (PEMS08 width, the
-fused PEMS08-width bf16 trainer against both unfused paths, GAMBIA dense,
+(profiles at PEMS08 blocks 2-4 in both dtypes; the TAt's plain version's
+device time beside its CUDA-event time), timings of whole training epochs (PEMS08 width, the
+fused PEMS08-width bf16 trainer against both unfused paths, the fused
+PEMS07-width trainer in float32 and bf16 against both unfused paths
+(``measure_fused_steps``), GAMBIA dense,
 GAMBIA BELL tiles against both dense paths, and GAMBIA dense and BELL tiles
-with the fused GTU tail against the im2col tail; the fused PEMS08 and the
-GTU comparisons with each epoch's peak device memory) alternated in one process, a torch.profiler breakdown of
+with the fused GTU tail against the im2col tail; the fused PEMS08 and
+PEMS07 and the GTU comparisons with each epoch's peak device memory)
+alternated in one process, a torch.profiler breakdown of
 each, a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE, and the Sinkhorn STAG of
 all 2,286,591 GAMBIA pairs (``measure_stag_full``). The epoch profiles also
@@ -162,6 +172,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import math
@@ -898,27 +909,31 @@ F32_BF16 = (torch.float32, torch.bfloat16)
 TAT_SHAPES = [
     # (label, B·F, T, N, H, d_k, d_v, embed, dtypes): PEMS08 block 1 (F=1)
     # and blocks 2-4 (F=32) at B=64, the embedding mode at block 1, a ragged
-    # shape, and two that only the bf16 passes admit: PEMS07's N = 883 at
-    # blocks 2-4 with its batch of 12, and GAMBIA's block 2 (T = 144, N =
-    # 2139, H = 2, d_k = d_v = 32, B = 4, F = 32; bench.py:222-236)
+    # shape, and two that a float32 row in one block could not hold: PEMS07's
+    # N = 883 at blocks 2-4 with its batch of 12, and GAMBIA's block 2 (T =
+    # 144, N = 2139, H = 2, d_k = d_v = 32, B = 4, F = 32; bench.py:222-236)
     ("pems08_block1", 64, 12, 170, 3, 32, 32, False, F32_BF16),
     ("pems08_blocks2-4", 2048, 12, 170, 3, 32, 32, False, F32_BF16),
     ("pems08_block1_embed", 64, 12, 170, 3, 32, 32, True, F32_BF16),
     ("ragged_n29", 5, 7, 29, 2, 8, 8, False, F32_BF16),
-    ("pems07_n883", 384, 12, 883, 3, 32, 32, False, (torch.bfloat16,)),
-    ("gambia_t144", 128, 144, 2139, 2, 32, 32, False, (torch.bfloat16,)),
+    ("pems07_n883", 384, 12, 883, 3, 32, 32, False, F32_BF16),
+    ("gambia_t144", 128, 144, 2139, 2, 32, 32, False, F32_BF16),
 ]
 SPATIAL_SHAPES = [
     # (label, B, N, F, T, C, Co, d, K, d_k, dtypes): PEMS08 block 1 and
     # blocks 2-4, a ragged shape (N, F·T, C·T and d multiples of no tile),
-    # PEMS07's N = 883 at the same widths with the reference's PEMS07
-    # batch of 12 (BASELINE.md), which only the bf16 backward's shared
-    # memory admits (float32: N <= 816), and a d wide enough that the bf16
+    # PEMS07's N = 883 at the same widths with the reference's PEMS07 batch
+    # of 12 (BASELINE.md), a ragged N = 1001 (no tile of 16 or 64 divides
+    # it), GAMBIA's blocks 1 and 2 (N = 2139, T = 144: time chunks of 72 and
+    # of 12 steps; d = 64, K = 2, B = 4), and a d wide enough that the bf16
     # embedding pass takes 16 rows a block, not 32
     ("pems08_block1", 64, 170, 1, 12, 1, 32, 512, 3, 32, F32_BF16),
     ("pems08_blocks2-4", 64, 170, 32, 12, 32, 32, 512, 3, 32, F32_BF16),
     ("ragged_n29", 3, 29, 2, 7, 3, 5, 24, 2, 8, F32_BF16),
-    ("pems07_blocks2-4", 12, 883, 32, 12, 32, 32, 512, 3, 32, (torch.bfloat16,)),
+    ("pems07_blocks2-4", 12, 883, 32, 12, 32, 32, 512, 3, 32, F32_BF16),
+    ("ragged_n1001", 2, 1001, 32, 12, 32, 32, 512, 3, 32, F32_BF16),
+    ("gambia_block1", 4, 2139, 4, 144, 4, 32, 64, 2, 32, F32_BF16),
+    ("gambia_block2", 4, 2139, 32, 144, 32, 32, 64, 2, 32, F32_BF16),
     ("wide_d2048", 2, 20, 1, 12, 1, 8, 2048, 2, 8, F32_BF16),
 ]
 SPATIAL_KEEP = 0.95  # the model's dropout rate 0.05: the main path's mask
@@ -935,37 +950,32 @@ def _bound(ops, nbytes, dtype):
 
 
 def tat_bounds(BF, T, N, H, dk, dv, dtype):
-    """(bound_ms, bound_by, flops) of the TAt forward and backward, for the
-    design of the dtype, from the function's own traffic: x, res (and the
-    cotangents) read once, out, scores (dx, dres and the float32 weight
-    gradients) written once, weights and LN vectors read once. float32:
-    the TPU kernel's arithmetic, every operation at 67 TFLOP/s. bfloat16
-    (the split passes): each product counts its bf16 terms at 989 TFLOP/s
-    (qkv = x·wqkv one, both operands bf16; the out-projection, g_ctx, g_te
-    and dwqkv two, one float32 operand split; dwo three), the attention and
+    """(bound_ms, bound_by, flops) of the TAt forward and backward from the
+    function's own traffic: x, res (and the cotangents) read once, out,
+    scores (dx, dres and the float32 weight gradients) written once,
+    weights and LN vectors read once. Both dtypes run the split passes:
+    each product counts its bf16 terms at 989 TFLOP/s (bfloat16: qkv =
+    x·wqkv one, both operands bf16; the out-projection, g_ctx, g_te and
+    dwqkv two, one float32 operand split; dwo three; float32: every
+    product three, x and the weights split too), the attention and
     LayerNorm arithmetic at 67 TFLOP/s, the larger of the two times. The
-    bf16 rows also carry ``design_ms``: the same bound with the bytes of
-    the passes' own float32 intermediates added (qkv, ctx; backward also
+    rows also carry ``design_ms``: the same bound with the bytes of the
+    passes' own float32 intermediates added (qkv, ctx; backward also
     g_ypre, g_ctx, g_qkv, each written once and read once by every pass
     that consumes it), which the function does not need."""
     W, hv, M = H * (2 * dk + dv), H * dv, BF * T
     att_f = 2 * BF * H * T * T * (dk + dv)
     att_b = 2 * BF * H * T * T * (2 * dv + 2 * dk)
     qkv_f, out_f = 2 * M * N * W, 2 * M * hv * N
-    if dtype != torch.bfloat16:
-        fwd = qkv_f + att_f + out_f
-        bwd = fwd + BF * (4 * T * N * hv + 2 * H * T * T * (2 * dv + 2 * dk) + 4 * T * W * N)
-        act = BF * (T * N + H * T * T) * 4
-        weights = (N * W + hv * N + 4 * N + T * N) * 4
-        return {"tat_fwd": _bound(fwd, 2 * act + weights, torch.float32),
-                "tat_bwd": _bound(bwd, 3 * act + weights + 4 * (N * W + hv * N + 4 * N + T * N),
-                                  torch.float32)}
     ln_f, ln_b = 8 * M * N, 22 * M * N  # LN1 forward; its backward with the recompute
-    fwd_mma = qkv_f + 2 * out_f
-    bwd_mma = qkv_f + 2 * out_f + 2 * (2 * M * N * hv) + 2 * (2 * M * W * N) \
-        + 2 * (2 * M * N * W) + 3 * (2 * M * hv * N)
-    act = BF * (T * N + H * T * T) * 2
-    weights = (N * W + hv * N) * 2 + 4 * N * 2
+    f32 = dtype != torch.bfloat16
+    terms = (3, 3, 3, 3, 3, 3) if f32 else (1, 2, 2, 2, 2, 3)
+    fwd_mma = terms[0] * qkv_f + terms[1] * out_f
+    bwd_mma = terms[0] * qkv_f + terms[1] * out_f + terms[2] * (2 * M * N * hv) \
+        + terms[3] * (2 * M * W * N) + terms[4] * (2 * M * N * W) + terms[5] * (2 * M * hv * N)
+    xb = 4 if f32 else 2
+    act = BF * (T * N + H * T * T) * xb
+    weights = (N * W + hv * N) * xb + 4 * N * xb
     grads = 4 * (N * W + hv * N + 4 * N)
     inter_f = 4 * M * (2 * W + 2 * hv)  # qkv and ctx, written and read
     # qkv (written, read twice), ctx (written, read by LN1 backward and dwo),
@@ -985,22 +995,36 @@ def tat_bounds(BF, T, N, H, dk, dv, dtype):
 
 
 def spatial_bounds(B, N, F, T, C, Co, d, K, dk, dtype):
-    """(bound_ms, bound_by, flops) of the spatial forward and backward: the
-    matmul operands are in the compute dtype (bf16: 989 TFLOP/s); bytes:
-    tat, xm, the mask, the weights and the (K, N, N) bias and Chebyshev
-    planes read once, out (dtat, dxm and the float32 weight gradients)
-    written once."""
+    """(bound_ms, bound_by, flops) of the spatial forward and backward:
+    the N²·C·T products (agg, dA, dxm) on the tensor cores, one bf16 term
+    each in bfloat16 and three (hi/lo split) in float32, at 989 TFLOP/s;
+    the rest (embedding, scores, softmax, Θ mix, dk, dq) at the dtype's
+    rate (bf16 989, float32 67 TFLOP/s), the larger of the two times (the
+    tensor cores and the CUDA cores may overlap); bytes: tat, xm, the mask, the weights
+    and the (K, N, N) bias and Chebyshev planes read once, out (dtat, dxm
+    and the float32 weight gradients) written once."""
     FT, CT, xb, hk2 = F * T, C * T, (2 if dtype == torch.bfloat16 else 4), 2 * K * dk
-    fwd = B * (2 * N * FT * d + 2 * N * d * hk2
-               + K * (2 * N * N * dk + 2 * N * N * CT + 2 * N * CT * Co))
-    bwd = fwd + B * (K * (4 * N * CT * Co + 4 * N * N * CT + 4 * N * N * dk)
-                     + 4 * N * d * hk2 + 4 * N * FT * d)
+    terms = 1 if dtype == torch.bfloat16 else 3
+    mma_f = B * K * 2 * N * N * CT
+    rest_f = B * (2 * N * FT * d + 2 * N * d * hk2 + K * (2 * N * N * dk + 2 * N * CT * Co))
+    mma_b = mma_f + B * K * 4 * N * N * CT
+    rest_b = rest_f + B * (K * (4 * N * CT * Co + 4 * N * N * dk) + 4 * N * d * hk2
+                           + 4 * N * FT * d)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     acts = B * N * (FT + CT + d) * xb
     weights = (FT * d + hk2 * d + 3 * d + N * d + 2 * K * N * N + K * C * Co) * xb
     grads = 4 * (FT * d + 3 * d + N * d + d * hk2 + K * N * N + K * C * Co)
     out = B * N * Co * T * xb
-    return {"spatial_fwd": _bound(fwd, acts + weights + out, dtype),
-            "spatial_bwd": _bound(bwd, acts + weights + out + acts + grads, dtype)}
+
+    def bound(mma, rest, nbytes):
+        # the tensor cores and the CUDA cores may overlap
+        t_ops = max(terms * mma / PEAK_BF16_FLOPS, rest / peak)
+        t_bytes = nbytes / PEAK_HBM_BYTES
+        return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+                terms * mma + rest)
+
+    return {"spatial_fwd": bound(mma_f, rest_f, acts + weights + out),
+            "spatial_bwd": bound(mma_b, rest_b, acts + weights + out + acts + grads)}
 
 
 def _randn(g, *shape, scale=1.0):
@@ -1074,23 +1098,29 @@ def _time_backward(fn, ins, cots, diff, iters):
 
 
 def spatial_design(dtype) -> str:
-    """The arithmetic of the spatial kernels: in bf16 the embedding pass
-    (sp_embed_wmma_kernel, forward and backward), both column passes
-    (sp_cols_fwd_wmma_kernel, sp_cols_bwd_wmma_kernel) and the row pass
-    (sp_rows_bwd_wmma_kernel) on the tensor cores (WMMA); in float32 every
-    pass on the CUDA cores."""
-    return "wmma_bf16" if dtype == torch.bfloat16 else "cuda_core_f32"
+    """The arithmetic of the spatial kernels: the N²·C·T products (agg, dA,
+    dxm) on the tensor cores (WMMA), one bf16 product each in bfloat16,
+    three in float32 (hi/lo split); the embedding pass on the tensor cores
+    in bf16 (sp_embed_wmma_kernel), on the CUDA cores in float32."""
+    return "wmma_bf16" if dtype == torch.bfloat16 else "wmma_f32_split"
 
 
 def check_spatial_smem():
     """block_spatial_fused.smem_bytes (the Python gate) against the bytes
-    each kernel of csrc/block_spatial_fused.cu requests, in both dtypes, at
-    every spatial shape and at the edges of the N caps at PEMS08 widths
-    (float32 816, bf16 944)."""
+    each kernel of csrc/block_spatial_fused.cu requests, and chunk_layout
+    against the kernels' spatial_fused_chunks, in both dtypes, at every
+    spatial shape and at PEMS08 and GAMBIA widths from N = 816 to 8192
+    (the old N caps' edges 816/817 and 944/945 among them)."""
     lib = block_spatial_fused._load()
     shapes = {s[2:10] for s in SPATIAL_SHAPES} | {
-        (N, 32, 12, 32, 32, 512, 3, 32) for N in (816, 817, 944, 945)}
+        (N, 32, 12, 32, 32, 512, 3, 32) for N in (816, 817, 944, 945, 8192)} | {
+        (N, 32, 144, 32, 32, 64, 2, 32) for N in (883, 8192)}
+    out = (ctypes.c_int * 4)()
     for N, F, T, C, Co, d, K, dk in sorted(shapes):
+        lib.spatial_fused_chunks(N, C, T, Co, out)
+        check(tuple(out) == block_spatial_fused.chunk_layout(N, C, T, Co),
+              f"spatial chunk_layout at N={N} C={C} T={T} Co={Co} = "
+              f"{block_spatial_fused.chunk_layout(N, C, T, Co)}, the kernels' {tuple(out)}")
         for dtype in F32_BF16:
             got = block_spatial_fused.smem_bytes(N, F * T, C, T, Co, d, K, dk, dtype)
             for i, kernel in enumerate(block_spatial_fused.KERNELS):
@@ -1102,43 +1132,45 @@ def check_spatial_smem():
 
 
 def tat_design(dtype) -> str:
-    """The arithmetic of the TAt kernels: in bf16 the passes over all B·F·T
-    rows, their products on the tensor cores with every float32 operand
-    split into two bf16 terms (WMMA) and the attention on the CUDA cores;
-    in float32 one block a row on the CUDA cores."""
-    return "wmma_bf16_split" if dtype == torch.bfloat16 else "cuda_core_f32"
+    """The arithmetic of the TAt kernels, one design in both dtypes: passes
+    over all B·F·T rows, their products on the tensor cores with every
+    float32 operand split into two bf16 terms (WMMA; in float32 x and the
+    weights too), the attention on the CUDA cores."""
+    return "wmma_bf16_split" if dtype == torch.bfloat16 else "wmma_f32_split"
 
 
 def check_tat_smem():
-    """tat_fused's gate (``bf16_passes``, ``smem_bytes``) against the bytes
-    each kernel of csrc/tat_fused.cu requests, at every TAt shape (with and
-    without the embedding) and at the edges of the caps at PEMS08 widths:
-    float32 N = 800/801 at T = 12 (the backward), bf16 N = 3328/3329 (the
-    LN1-backward pass) and T = 341/342 (the attention backward)."""
+    """tat_fused's gate (``passes``, ``smem_bytes``) against the bytes each
+    pass of csrc/tat_fused.cu requests, in both dtypes, at every TAt shape
+    (with and without the embedding) and at the edges of the passes' caps
+    at PEMS08 widths: N = 3328/3329 (the LN1-backward pass) and T = 341/342
+    (the attention backward)."""
     lib = tat_fused._load()
-    shapes = {s[2:7] for s in TAT_SHAPES} | {(12, 800, 3, 32, 32), (12, 801, 3, 32, 32),
-                                             (12, 3328, 3, 32, 32), (12, 3329, 3, 32, 32),
+    shapes = {s[2:7] for s in TAT_SHAPES} | {(12, 3328, 3, 32, 32), (12, 3329, 3, 32, 32),
                                              (341, 170, 3, 32, 32), (342, 170, 3, 32, 32)}
     for T, N, H, dk, dv in sorted(shapes):
         for embed in (False, True):
-            got = tat_fused.bf16_passes(T, N, H, dk, dv, embed)
-            for i, name in enumerate(tat_fused.PASSES):
-                want = lib.tat_fused_smem_bytes(T, N, H, dk, dv, int(embed), i, 1)
-                check(got[name][1] == want,
-                      f"tat bf16_passes[{name}] at T={T} N={N} embed={embed} = {got[name][1]}, "
-                      f"the kernel requests {want}")
-            for backward in (0, 1):
-                want = lib.tat_fused_smem_bytes(T, N, H, dk, dv, int(embed), backward, 0)
-                got32 = tat_fused.smem_bytes(T, N, H, dk, dv, backward=bool(backward))
-                check(got32 == want, f"tat float32 smem_bytes at T={T} N={N} backward="
-                                     f"{backward} = {got32}, the kernel requests {want}")
+            for dtype in F32_BF16:
+                got = tat_fused.passes(T, N, H, dk, dv, embed, dtype)
+                for i, name in enumerate(tat_fused.PASSES):
+                    want = lib.tat_fused_smem_bytes(T, N, H, dk, dv, int(embed), i,
+                                                    int(dtype == torch.float32))
+                    check(got[name][1] == want,
+                          f"tat passes[{name}] at T={T} N={N} embed={embed} {dtype} = "
+                          f"{got[name][1]}, the kernel requests {want}")
 
 
-# the bf16 design's float32 outputs against the float32 kernels', forward
-# and every gradient, as max |Δ| over max(1, max |float32 kernel|): the
-# split design reads 6.2e-6 or less at the TAt shapes, a design without
-# the lo terms (tat_nosplit_plain) 9.3e-4 or more (H100, phase 2c)
-TAT_SPLIT_TOL = 1e-4
+# the float32 TAt and spatial passes' outputs against the plain float32
+# version, forward and every gradient, as max |Δ| over max(1, max |plain|):
+# the split design (every tensor-core product three bf16 terms) must stay
+# within SPLIT_TOL where a design without the lo terms (tat_nosplit_plain,
+# spatial_nosplit_plain) must not, or the check could not tell the two apart
+SPLIT_TOL = 1e-4
+# the spatial forward control's error falls with N (A's rounding averages
+# over the N sources: 2.2e-4 of scale at N = 883, 1.2e-4 at 2139 on the
+# H100), so its limit sits lower, between that and the kernel's worst
+# reading in either direction (1.1e-5)
+SPATIAL_SPLIT_TOL = 3e-5
 
 
 class _RoundCotangent(torch.autograd.Function):
@@ -1170,53 +1202,88 @@ class _RoundValue(torch.autograd.Function):
 def tat_nosplit_plain(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v, embed):
     """The control of the split check: the TAt function in float32 as a
     design without the lo terms computes it, every float32 operand of a
-    product (te where embedded, ctx; backward g_qkv, g_ypre) rounded to
-    bf16 and the attention and LayerNorms kept float32. Gradients from
+    product (te, the weights, ctx; backward g_qkv, g_ypre) rounded to bf16
+    and the attention and LayerNorms kept float32. Gradients from
     autograd."""
     BF, T, N = x.shape
+    r = _RoundValue.apply
     te = tat_fused._ln_hat(x + pos) * g0 + b0 if embed else x
-    qkv = _RoundCotangent.apply(_RoundValue.apply(te) @ wqkv)
+    qkv = _RoundCotangent.apply(r(te) @ r(wqkv))
     hk = n_heads * d_k
     q = qkv[..., :hk].reshape(BF, T, n_heads, d_k)
     k = qkv[..., hk:2 * hk].reshape(BF, T, n_heads, d_k)
     v = qkv[..., 2 * hk:].reshape(BF, T, n_heads, d_v)
     s = torch.einsum("rqhd,rkhd->rhqk", q, k) * (1.0 / d_k ** 0.5) + res
     ctx = torch.einsum("rhqk,rkhd->rqhd", torch.softmax(s, dim=2), v).reshape(BF, T, -1)
-    z = _RoundCotangent.apply(_RoundValue.apply(ctx) @ wo)
+    z = _RoundCotangent.apply(r(ctx) @ r(wo))
     return tat_fused._ln_hat(z + te) * g1 + b1, s
 
 
-def tat_f32_outputs(ins, cots, dims):
-    """The bf16 design's float32 outputs (out, scores; dx, dres and every
-    weight gradient) against the float32 kernels' on the same bf16-exact
-    operands and cotangents, and the same for the no-split control
-    (:func:`tat_nosplit_plain`): rel. |Δ| of the forward and of the
-    backward, each over max(1, max |float32 kernel|), the worst pair. The
-    design must stay within ``TAT_SPLIT_TOL`` and the control must not, or
-    the check could not tell the two apart. None where the float32 kernel
-    refuses the shape."""
-    BF, T, N = ins[0].shape
-    H, dk, dv = dims["n_heads"], dims["d_k"], dims["d_v"]
-    if tat_fused.smem_bytes(T, N, H, dk, dv, backward=True) > tat_fused._SMEM_MAX:
-        return None
-    f32 = tat_fused._f32(*ins)
-    g32 = [c.float().contiguous() for c in cots]
-    want_f = tat_fused.tat_forward_cuda(*f32, **dims)
-    want_b = tat_fused.tat_backward_cuda(*f32, *g32, **dims)
-    fwd = _compare(tat_fused.tat_forward_bf16_cuda(*ins, **dims, out_dtype=torch.float32),
-                   want_f)
-    bwd = _compare(tat_fused.tat_backward_bf16_cuda(*ins, *cots, **dims,
-                                                    out_dtype=torch.float32), want_b)
-    # the control's gradients in the kernels' order: dx, dres, dpos, dg0,
-    # db0, dwqkv, dwo, dg1, db1
-    outs_c, grads_c = _grad_run(lambda a: tat_nosplit_plain(*a, **dims), f32, g32,
-                                tuple(range(9)))
-    ctl_f = _compare(outs_c, want_f)
-    ctl_b = _compare([grads_c[i] for i in (0, 8, 1, 2, 3, 4, 5, 6, 7)], want_b)
-    torch.cuda.synchronize()
-    return {"fwd_rel_err": fwd[1], "bwd_rel_err": bwd[1], "tol": TAT_SPLIT_TOL,
+class _NoSplitAgg(torch.autograd.Function):
+    """agg = Aᵀ·xm (A (B, N, N), xm (B, N, M)) as a design without the lo
+    terms computes it: with ``fwd`` the forward's operands rounded to bf16,
+    with ``bwd`` the backward's (dA = xm·gᵀ, dxm = A·g), float32 sums."""
+
+    @staticmethod
+    def forward(ctx, A, xm, fwd, bwd):
+        ctx.save_for_backward(A, xm)
+        ctx.bwd = bwd
+        r = (lambda t: t.bfloat16().float()) if fwd else (lambda t: t)
+        return r(A).transpose(1, 2) @ r(xm)
+
+    @staticmethod
+    def backward(ctx, g):
+        A, xm = ctx.saved_tensors
+        r = (lambda t: t.bfloat16().float()) if ctx.bwd else (lambda t: t)
+        return r(xm) @ r(g).transpose(1, 2), r(A) @ r(g), None, None
+
+
+def spatial_nosplit_plain(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, *,
+                          K, d_k, keep, fwd, bwd):
+    """The controls of the spatial split check: the spatial middle in
+    float32 as a design without the lo terms computes it, the operands of
+    its N²·C·T products rounded to bf16 (``fwd``: agg = Aᵀ·xm; ``bwd``:
+    dA = xm·daggᵀ and dxm = A·dagg) and the rest kept float32. The
+    backward's control keeps the forward exact, so its ReLU mask is the
+    plain version's. Gradients from autograd."""
+    B, N, _ = tat.shape
+    _, C, Co = thetas.shape
+    T = xm.shape[-1] // C
+    z = tat @ pw + pb + pos
+    mu = z.mean(dim=-1, keepdim=True)
+    var = ((z - mu) ** 2).mean(dim=-1, keepdim=True)
+    semx = ((z - mu) * torch.rsqrt(var + block_spatial_fused._EPS) * gs + bs) * dmask / keep
+    qk = semx @ wqk
+    hk = K * d_k
+    out = None
+    for k in range(K):
+        q = qk[..., k * d_k:(k + 1) * d_k]
+        kk = qk[..., hk + k * d_k:hk + (k + 1) * d_k]
+        s = q @ kk.transpose(1, 2) * (1.0 / d_k ** 0.5) + bias[k]
+        A = cheb[k] * torch.softmax(s, dim=1)
+        agg = _NoSplitAgg.apply(A, xm, fwd, bwd).reshape(B, N, C, T)
+        o = torch.einsum("bjct,co->bjot", agg, thetas[k]).reshape(B, N, Co * T)
+        out = o if out is None else out + o
+    return torch.relu(out)
+
+
+def split_check(fwd_control, bwd_control, ins, cots, diff, fwd_err, bwd_err, outs_p,
+                grads_p, tol=SPLIT_TOL):
+    """The float32 passes against the plain float32 version (``fwd_err``,
+    ``bwd_err``: the row's own comparison, rel. |Δ|) and the no-split
+    controls against the same plain outputs ``outs_p`` (``fwd_control``)
+    and gradients ``grads_p`` of the inputs at ``diff`` (``bwd_control``;
+    :func:`tat_nosplit_plain` is both, :func:`spatial_nosplit_plain` one
+    of each): the design must stay within ``tol`` and each control must
+    not."""
+    outs_c, grads_c = _grad_run(fwd_control, ins, cots, diff)
+    if bwd_control is not fwd_control:
+        _, grads_c = _grad_run(bwd_control, ins, cots, diff)
+    ctl_f = _compare(outs_c, outs_p)
+    ctl_b = _compare(grads_c, grads_p)
+    return {"fwd_rel_err": fwd_err, "bwd_rel_err": bwd_err, "tol": tol,
             "nosplit_fwd_rel_err": ctl_f[1], "nosplit_bwd_rel_err": ctl_b[1],
-            "ok": max(fwd[1], bwd[1]) <= TAT_SPLIT_TOL < min(ctl_f[1], ctl_b[1])}
+            "ok": max(fwd_err, bwd_err) <= tol < min(ctl_f[1], ctl_b[1])}
 
 
 def phase_fused_kernels():
@@ -1227,8 +1294,8 @@ def phase_fused_kernels():
     each design on their own operands, the spatial ones on float32 operands
     and the backward on the forward's ReLU mask) and of the plain version.
     Each row names its design and carries the float32 kernel's time at its
-    shape (none where float32 refuses it); each bf16 TAt row also holds the
-    bf16 design's float32 outputs against the float32 kernels'."""
+    shape; each float32 row also holds the split design against a no-split
+    control (``split_check``)."""
     check_spatial_smem()
     check_tat_smem()
     rows = []
@@ -1239,7 +1306,7 @@ def phase_fused_kernels():
         label = shape[0]
         for dtype in shape[-1]:
             tol, gtol = FUSED_TOL[dtype]
-            f32_check = None
+            split = None
             if is_tat:
                 _, BF, T, N, H, dk, dv, embed, _ = shape
                 dims = dict(n_heads=H, d_k=dk, d_v=dv, embed=embed)
@@ -1247,18 +1314,10 @@ def phase_fused_kernels():
                 kern = lambda a, dims=dims: tat_fused.TatFused.apply(*a, *dims.values())
                 plain = lambda a, dims=dims: tat_fused.tat_fused_plain(*a, **dims)
                 diff, names = tat_diff, ("tat_fwd", "tat_bwd")
-                if dtype == torch.bfloat16:
-                    ops, gs = ins, cots
-                    fwd = lambda ops=ops, dims=dims: tat_fused.tat_forward_bf16_cuda(*ops, **dims)
-                    bwd = lambda ops=ops, gs=gs, dims=dims: tat_fused.tat_backward_bf16_cuda(
-                        *ops, *gs, **dims)
-                    f32_check = tat_f32_outputs(ins, cots, dims)
-                else:
-                    ops = tat_fused._f32(*ins)
-                    gs = [c.float().contiguous() for c in cots]
-                    fwd = lambda ops=ops, dims=dims: tat_fused.tat_forward_cuda(*ops, **dims)
-                    bwd = lambda ops=ops, gs=gs, dims=dims: tat_fused.tat_backward_cuda(
-                        *ops, *gs, **dims)
+                ops, gs = tat_fused._operands(*ins), tat_fused._operands(*cots)
+                fwd = lambda ops=ops, dims=dims: tat_fused.tat_forward_cuda(*ops, **dims)
+                bwd = lambda ops=ops, gs=gs, dims=dims: tat_fused.tat_backward_cuda(
+                    *ops, *gs, **dims)
                 weight_slice = slice(2, 9)  # dpos, dg0, db0, dwqkv, dwo, dg1, db1
                 bounds = tat_bounds(BF, T, N, H, dk, dv, dtype)
                 desc = {"BF": BF, "T": T, "N": N, "H": H, "d_k": dk, "embed": embed}
@@ -1290,6 +1349,15 @@ def phase_fused_kernels():
             fwd_err = _compare(outs_k, outs_p)
             bwd_err = _compare(grads_k, grads_p)
             per_grad = [rel_err(k, p)[1] for k, p in zip(grads_k, grads_p)]
+            if dtype == torch.float32:
+                if is_tat:
+                    controls = (lambda a, dims=dims: tat_nosplit_plain(*a, **dims),) * 2
+                else:
+                    controls = [lambda a, dims=dims, f=f: spatial_nosplit_plain(
+                        *a, **dims, fwd=f, bwd=not f) for f in (True, False)]
+                split = split_check(*controls, ins, cots, diff, fwd_err[1], bwd_err[1],
+                                    outs_p, grads_p,
+                                    tol=SPLIT_TOL if is_tat else SPATIAL_SPLIT_TOL)
             first, again = bwd(), bwd()
             torch.cuda.synchronize()
             identical = all(torch.equal(a, b) for a, b in zip(first[weight_slice],
@@ -1315,17 +1383,16 @@ def phase_fused_kernels():
                 row["design"] = (tat_design if is_tat else spatial_design)(dtype)
                 row["f32_ms"] = (row["ms"] if dtype == torch.float32
                                  else f32[0]["ms"] if f32 else None)
-                if is_tat and dtype == torch.bfloat16:
-                    row["vs_f32_kernel"] = f32_check
+                if split is not None:
+                    row["split_check"] = split
                 row["bound_ms"], row["bound_by"], row["flops"], *design = bounds[name]
                 if design:  # the bound with the bf16 passes' own intermediates
                     row["design_ms"] = design[0]
                 print("fused", json.dumps(row), flush=True)
                 check(row["ok"], f"{name} vs plain at {label} {dtype}: "
                                  f"{row['rel_err']:.3g} > {limit}")
-                check(f32_check is None or f32_check["ok"],
-                      f"the bf16 design's float32 outputs vs the float32 kernels at {label}: "
-                      f"{f32_check}")
+                check(split is None or split["ok"],
+                      f"the float32 {name} split check at {label}: {split}")
                 check(row.get("weight_grads_bit_identical", True),
                       f"{name} weight gradients differ between two launches at {label} {dtype}")
                 rows.append(row)
@@ -1337,9 +1404,12 @@ def phase_fused_kernels():
 # kernel-name fragments of each pass: the float32 and the bf16 kernel of a
 # pass share one
 SPATIAL_PASSES = {
-    "forward": (("sa", ("sp_embed_kernel", "sp_embed_wmma")), ("cols", ("sp_cols_fwd",))),
-    "backward": (("sa", ("sp_embed_kernel", "sp_embed_wmma")), ("cols", ("sp_cols_bwd",)),
-                 ("rows", ("sp_rows_bwd",)), ("embed_bwd", ("sp_embed_bwd_kernel",)),
+    "forward": (("sa", ("sp_embed_kernel", "sp_embed_wmma")), ("stats", ("sp_colstats",)),
+                ("cols", ("sp_cols_fwd",))),
+    "backward": (("sa", ("sp_embed_kernel", "sp_embed_wmma")), ("stats", ("sp_colstats",)),
+                 ("cols", ("sp_cols_bwd",)), ("ds", ("sp_ds_kernel", "sp_dk_sum")),
+                 ("dq", ("sp_dq_kernel",)), ("rows", ("sp_rows_bwd",)),
+                 ("embed_bwd", ("sp_embed_bwd_kernel",)),
                  ("atb", ("atb_partial_kernel",)), ("colsum", ("colsum_kernel",))),
 }
 
@@ -1365,17 +1435,17 @@ def _profile_passes(run, iters, passes):
     return {"device_ms": sum(kernels.values()), "passes": out, "kernels": kernels}
 
 
-def measure_spatial_passes(iters: int = 10):
-    """The spatial forward (row 12) and backward (row 13) by pass at PEMS08
-    blocks 2-4 in each dtype, through SpatialMiddle's autograd (an
-    interface every version of the package has, so a checkout of another
-    commit can be measured with the same function): the forward as a
-    training step calls it, the backward through torch.autograd.grad;
-    "colsum" is the fixed-order row sums (dbias, dΘ, dpos, dpb, dgs, dbs
-    and atb's partials)."""
+def measure_spatial_passes(iters: int = 10, shape: str = "pems08_blocks2-4"):
+    """The spatial forward (row 12) and backward (row 13) by pass at a
+    spatial shape (PEMS08 blocks 2-4 unless given) in each dtype, through
+    SpatialMiddle's autograd (an interface every version of the package
+    has, so a checkout of another commit can be measured with the same
+    function): the forward as a training step calls it, the backward
+    through torch.autograd.grad; "colsum" is the fixed-order row sums
+    (dΘ, dpos, dpb, dgs, dbs and atb's partials)."""
     _, B, N, F, T, C, Co, d, K, dk, dtypes = next(
-        s for s in SPATIAL_SHAPES if s[0] == "pems08_blocks2-4")
-    out = {"shape": "pems08_blocks2-4", "iters": iters}
+        s for s in SPATIAL_SHAPES if s[0] == shape)
+    out = {"shape": shape, "iters": iters}
     for dtype in dtypes:
         ins, cots = spatial_inputs(B, N, F, T, C, Co, d, K, dk, dtype, 0)
         leaves = [t.detach().clone().requires_grad_(i in SPATIAL_DIFF)
@@ -1393,15 +1463,12 @@ def measure_spatial_passes(iters: int = 10):
     return out
 
 
-# kernel-name fragments of each TAt pass: the float32 kernels (one a
-# direction), the bf16 design's operand prep and passes, and the
-# weight-gradient products and row sums of both
+# kernel-name fragments of each TAt pass: the operand prep, the passes,
+# and the weight-gradient products and row sums
 TAT_PASSES = {
-    "forward": (("fused_f32", ("tat_fwd_kernel",)), ("prep", ("tat_prep_kernel",)),
-                ("qkv", ("tat_qkv_kernel",)),
+    "forward": (("prep", ("tat_prep_kernel",)), ("qkv", ("tat_qkv_kernel",)),
                 ("attn", ("tat_attn_fwd_kernel",)), ("out_ln1", ("tat_out_kernel",))),
-    "backward": (("fused_f32", ("tat_bwd_kernel",)), ("prep", ("tat_prep_kernel",)),
-                 ("qkv", ("tat_qkv_kernel",)),
+    "backward": (("prep", ("tat_prep_kernel",)), ("qkv", ("tat_qkv_kernel",)),
                  ("attn", ("tat_attn_fwd_kernel",)), ("ln1_bwd", ("tat_ln1_bwd_kernel",)),
                  ("attn_bwd", ("tat_attn_bwd_kernel",)), ("g_te", ("tat_gte_kernel",)),
                  ("atb", ("atb_partial_kernel", "atb_wmma_partial_kernel")),
@@ -1426,12 +1493,23 @@ def measure_tat_passes(iters: int = 10, shape: str = "pems08_blocks2-4"):
         outs = fwd()
         bwd = lambda: torch.autograd.grad(outs, leaves, cots, retain_graph=True,
                                           allow_unused=True)
+        dims = dict(n_heads=H, d_k=dk, d_v=dv, embed=embed)
+        plain = lambda: tat_fused.tat_fused_plain(*leaves, **dims)
+        outs_p = plain()
+        bwd_p = lambda: torch.autograd.grad(outs_p, leaves, cots, retain_graph=True,
+                                            allow_unused=True)
         out[str(dtype).split(".")[-1]] = {
             "forward": _profile_passes(fwd, iters, TAT_PASSES["forward"]),
-            "backward": _profile_passes(bwd, iters, TAT_PASSES["backward"])}
-        del ins, cots, leaves, outs
+            "backward": _profile_passes(bwd, iters, TAT_PASSES["backward"]),
+            # the plain version's device time beside its CUDA-event time
+            "plain": {"forward": {"ms": cuda_ms(plain, iters),
+                                  **_profile_passes(plain, iters, ())},
+                      "backward": {"ms": cuda_ms(bwd_p, iters),
+                                   **_profile_passes(bwd_p, iters, ())}}}
+        del ins, cots, leaves, outs, outs_p
         torch.cuda.empty_cache()
-    print("measure", json.dumps({"path": "tat_passes", **out}), flush=True)
+    print("measure", json.dumps({"path": "tat_passes", "torch": torch.__version__, **out}),
+          flush=True)
     return out
 
 
@@ -1761,6 +1839,41 @@ PEMS08_TRAINING = dict(nb_block=4, n_heads=3, K=3, d_k=32, d_model=512,
                        learning_rate=0.0001, seed=2024)
 
 
+def write_project_conf(root: Path, name: str, data: str, n: int, dataset: str,
+                       adj: str, stag: str, strg: str, graph: str,
+                       model_name: str = "dstagnn", **training) -> Path:
+    """A reference-format config ``<name>.conf`` for the windowed npz
+    ``<data>_r1_d0_w0_dstagnn.npz`` under ``root``: ``n`` nodes, 12 steps in
+    and out, one feature, the graph files given; the PEMS08 widths
+    (``PEMS08_TRAINING``, 2 epochs, ``use_pallas``, float32) with
+    ``training``'s keys over them."""
+    keys = {"epochs": 2, "use_pallas": "true", "compute_dtype": "float32",
+            **PEMS08_TRAINING, **training}
+    body = "\n".join(f"{k} = {v}" for k, v in keys.items())
+    conf = root / f"{name}.conf"
+    conf.write_text(f"""[Data]
+adj_filename = {adj}
+graph_signal_matrix_filename = {root}/{data}.npz
+stag_filename = {stag}
+strg_filename = {strg}
+num_of_vertices = {n}
+points_per_hour = 12
+num_for_predict = 12
+len_input = 12
+dataset_name = {dataset}
+
+[Training]
+model_name = {model_name}
+in_channels = 1
+graph = {graph}
+num_of_hours = 1
+num_of_days = 0
+num_of_weeks = 0
+{body}
+""")
+    return conf
+
+
 def write_pems08_project(root: Path, name: str = "SYNTH08", model_name: str = "dstagnn",
                          **training) -> Path:
     """The in-repo parity dataset as a reference-format project: windowed
@@ -1778,44 +1891,27 @@ def write_pems08_project(root: Path, name: str = "SYNTH08", model_name: str = "d
         np.savetxt(root / "stag.csv", f["adj"], delimiter=",")
         np.savetxt(root / "strg.csv", f["stag"], delimiter=",")
         n = f["adj"].shape[0]
-    keys = {"epochs": 2, "use_pallas": "true", "compute_dtype": "float32",
-            **PEMS08_TRAINING, **training}
-    training = "\n".join(f"{k} = {v}" for k, v in keys.items())
-    conf = root / f"{name}.conf"
-    conf.write_text(f"""[Data]
-adj_filename = {root}/adj.csv
-graph_signal_matrix_filename = {root}/SYNTH08.npz
-stag_filename = {root}/stag.csv
-strg_filename = {root}/strg.csv
-num_of_vertices = {n}
-points_per_hour = 12
-num_for_predict = 12
-len_input = 12
-dataset_name = SYNTH08
-
-[Training]
-model_name = {model_name}
-in_channels = 1
-graph = AG
-num_of_hours = 1
-num_of_days = 0
-num_of_weeks = 0
-{training}
-""")
-    return conf
+    return write_project_conf(root, name, "SYNTH08", n, "SYNTH08", f"{root}/adj.csv",
+                              f"{root}/stag.csv", f"{root}/strg.csv", "AG",
+                              model_name=model_name, **training)
 
 
 def run_pems08_cli(root: Path, conf: Path, exp: Path, args=(), epochs: int = 2):
-    """The training CLI for ``epochs`` epochs on a PEMS08 project, with every
-    launch count set to 0 just before and read just after. Checks finite
-    (and, over 2 epochs, falling) losses, a checkpoint, the test dump and
-    the report. Returns (summary, launches, forward passes, train steps,
-    run dir)."""
+    """The training CLI for ``epochs`` epochs on a project of
+    :func:`write_project_conf` (its windowed npz, nodes, dataset name and
+    batch read from ``conf``), with every launch count set to 0 just before
+    and read just after. Checks finite (and, over 2 epochs, falling)
+    losses, a checkpoint, the test dump and the report. Returns (summary,
+    launches, forward passes, train steps, run dir)."""
     from dstagnn_drought_tpu_torch.cli import train as train_cli
+    from dstagnn_drought_tpu_torch.config import load_config
 
-    with np.load(root / "SYNTH08_r1_d0_w0_dstagnn.npz") as f:
+    cfg = load_config(conf)
+    data, dataset = Path(cfg.data.graph_signal_matrix_filename).stem, cfg.data.dataset_name
+    n = cfg.data.num_of_vertices
+    with np.load(root / f"{data}_r1_d0_w0_dstagnn.npz") as f:
         sizes = {s: len(f[f"{s}_x"]) for s in ("train", "val", "test")}
-    bs = PEMS08_TRAINING["batch_size"]
+    bs = cfg.training.batch_size
     batches = {s: -(-n // bs) for s, n in sizes.items()}
     forwards = epochs * (batches["train"] + batches["val"]) + batches["test"]
     steps = epochs * batches["train"]
@@ -1826,7 +1922,7 @@ def run_pems08_cli(root: Path, conf: Path, exp: Path, args=(), epochs: int = 2):
     torch.cuda.synchronize()
     launches = read_launches()
 
-    run_dir = next(exp.glob("SYNTH08/*"))
+    run_dir = next(exp.glob(f"{dataset}/*"))
     events = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
     ep = [e for e in events if e["event"] == "epoch"]
     losses = [e["train_loss"] for e in ep]
@@ -1840,7 +1936,7 @@ def run_pems08_cli(root: Path, conf: Path, exp: Path, args=(), epochs: int = 2):
     check(len(dumps) == 1, "no test prediction dump")
     with np.load(dumps[0]) as d:
         pred = d["prediction"]
-    check(pred.shape == (sizes["test"], 170, 12) and bool(np.isfinite(pred).all()),
+    check(pred.shape == (sizes["test"], n, 12) and bool(np.isfinite(pred).all()),
           f"bad test predictions {pred.shape}")
     overall = result["report"]["overall"]
     check(all(math.isfinite(overall[k]) for k in ("mae", "rmse", "mape")), "bad report")
@@ -1864,27 +1960,96 @@ def phase_pems08(root: Path):
 
 
 FUSED_KEYS = dict(fuse_tat="true", fuse_spatial="true", compute_dtype="bfloat16")
+# each TAt and spatial kernel once per block of every forward pass (forward)
+# or train step (backward); the cheb_sat kernel not at all
+FUSED_LAUNCHES = dict(per_forward=("tat_fwd", "spatial_fwd"),
+                      per_step=("tat_bwd", "spatial_bwd"), never=("cheb_sat",))
+
+
+def run_fused_cli(root: Path, conf: Path, path: str, model_check: bool = True) -> dict:
+    """The training CLI on a fused project (2 epochs), its launch counts
+    checked (``FUSED_LAUNCHES``), the device memory peak over the run, and
+    with ``model_check`` the whole-model check: the run's last checkpoint,
+    one test batch in float32, fused against unfused predictions."""
+    nb = PEMS08_TRAINING["nb_block"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run, launches, _, _, run_dir = run_pems08_cli(root, conf, root / f"exp_{path}")
+    out = {"path": path, **run, "launches": launches,
+           "run_peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    check_launches(out, **FUSED_LAUNCHES, nb=nb)
+    if model_check:
+        out["model_check"] = fused_model_check(conf, run_dir)
+    print("main_path", json.dumps(out), flush=True)
+    return out
 
 
 def phase_pems08_fused(root: Path):
     """The main path of the fused slice: the training CLI with fuse_tat and
     fuse_spatial (bfloat16, use_pallas still set: fuse_spatial takes
-    precedence) at full PEMS08 width. Each TAt and spatial kernel runs once
-    per block of every forward pass (forward) or train step (backward); the
-    cheb_sat kernel not at all. Then the whole-model check: the run's last
-    checkpoint, one test batch in float32, fused against unfused predictions."""
+    precedence) at full PEMS08 width (:func:`run_fused_cli`)."""
     conf = write_pems08_project(root, "SYNTH08F", **FUSED_KEYS)
-    nb = PEMS08_TRAINING["nb_block"]
-    out, launches, forwards, steps, run_dir = run_pems08_cli(root, conf, root / "exp_fused")
-    for name, want in (("tat_fwd", forwards), ("spatial_fwd", forwards),
-                       ("tat_bwd", steps), ("spatial_bwd", steps)):
-        check(launches[name] == want * nb,
-              f"{name} launches {launches[name]} != {want} x {nb} blocks")
-    check(launches["cheb_sat"] == 0, f"the cheb_sat kernel ran {launches['cheb_sat']} times")
-    out = {"path": "pems08_cli_fused_bf16", **out, "launches": launches,
-           "model_check": fused_model_check(conf, run_dir)}
-    print("main_path", json.dumps(out), flush=True)
-    return out
+    return run_fused_cli(root, conf, "pems08_cli_fused_bf16")
+
+
+PEMS07_N = 883          # PEMS07's sensors (BASELINE.md; the DSTAGNN paper's dataset table)
+PEMS07_SIZES = (96, 24, 24)  # windows a split: 8 train steps of 12, 2 val, 2 test
+PEMS07_BATCH = 12       # the reference's PEMS07 batch
+
+
+def write_pems07_project(root: Path, name: str, seed: int = 7, **training) -> Path:
+    """A PEMS07-width project: numpy-seeded windows of a synthetic traffic
+    signal at N = 883 (12 steps in, 12 out, one feature; the inputs
+    normalised, the targets in flow units), a seeded sparse directed
+    edge-list graph (a ring and N/2 random chords, the PEMS loaders'
+    "from,to,cost" CSV) as ``graph = G``'s adjacency, and a seeded 2%
+    STRG. No PEMS07 data is in the repository; the shapes are PEMS07's."""
+    rng = np.random.default_rng(seed)
+    N, T = PEMS07_N, 12
+    L = sum(PEMS07_SIZES) + 2 * T
+    t = np.arange(L, dtype=np.float64)[:, None]
+    sig = (200 + 60 * np.sin(2 * np.pi * t / 48 + rng.uniform(0, 2 * np.pi, N))
+           + 10 * rng.normal(size=(L, N)))
+    x = np.stack([sig[i:i + T].T[:, None, :] for i in range(L - 2 * T)]).astype(np.float32)
+    y = np.stack([sig[i + T:i + 2 * T].T for i in range(L - 2 * T)]).astype(np.float32)
+    n_tr, n_va, _ = PEMS07_SIZES
+    mean, std = x[:n_tr].mean(), x[:n_tr].std()
+    x = (x - mean) / std
+    cut = {"train": slice(0, n_tr), "val": slice(n_tr, n_tr + n_va),
+           "test": slice(n_tr + n_va, None)}
+    np.savez(root / f"{name}_r1_d0_w0_dstagnn.npz",
+             **{f"{k}_x": x[c] for k, c in cut.items()},
+             **{f"{k}_target": y[c] for k, c in cut.items()},
+             mean=np.full((1, 1, 1, 1), mean), std=np.full((1, 1, 1, 1), std))
+    chords = rng.integers(0, N, size=(N // 2, 2))
+    edges = [(i, (i + 1) % N) for i in range(N)] + [(a, b) for a, b in chords if a != b]
+    (root / f"{name}_adj.csv").write_text(
+        "from,to,cost\n" + "".join(f"{a},{b},{rng.uniform(100, 1000):.1f}\n" for a, b in edges))
+    strg = (rng.random((N, N)) < 0.02).astype(np.int8)
+    np.fill_diagonal(strg, 1)
+    np.savetxt(root / f"{name}_strg.csv", strg, fmt="%d", delimiter=",")
+    strg_file = f"{root}/{name}_strg.csv"
+    return write_project_conf(root, name, name, N, "PEMS07", f"{root}/{name}_adj.csv",
+                              strg_file, strg_file, "G", use_pallas="false",
+                              **{"batch_size": PEMS07_BATCH, **training})
+
+
+def pems07_fused_projects(root: Path) -> dict:
+    """The fused PEMS07-width projects, float32 and bf16: ``{dtype: conf}``."""
+    return {dtype: write_pems07_project(root, f"SYNTH07{dtype[0].upper()}", fuse_tat="true",
+                                        fuse_spatial="true", compute_dtype=dtype)
+            for dtype in ("float32", "bfloat16")}
+
+
+def phase_pems07_fused(root: Path):
+    """This slice's main path: the training CLI with fuse_tat and
+    fuse_spatial at PEMS07 width (N = 883, 4 blocks, T = 12, K = H = 3,
+    d_k = 32, d_model = 512, C = 32, batch 12), 2 epochs in float32 and 2
+    in bf16 (:func:`run_fused_cli`; the whole-model check on the float32
+    run)."""
+    return {dtype: run_fused_cli(root, conf, f"pems07_cli_fused_{dtype}",
+                                 model_check=dtype == "float32")
+            for dtype, conf in pems07_fused_projects(root).items()}
 
 
 def checkpoint_trainer(conf: Path, run_dir: Path):
@@ -1985,43 +2150,49 @@ def profile_epoch(trainer, top: int = 12):
             "top_ops": rank(ops), "top_ops_by_shape": by_shape, "top_kernels": rank(kernels)}
 
 
-def measure_pems08_fused(root: Path, rounds: int = 2,
-                         variants=("unfused_plain", "unfused_kernel", "fused")):
-    """Train-epoch time of the fused PEMS08-width bf16 trainer against the
-    unfused one (plain aggregation, and the cheb_sat kernel), alternated in
-    one process, with each epoch's peak device memory (as in
-    measure_gambia_fuse_gtu); then a profile of a fused epoch (its device
-    time a step) and of a plain one. ``variants`` picks the trainers."""
+FUSED_VARIANTS = {"unfused_plain": dict(use_pallas=False, fuse_tat=False, fuse_spatial=False),
+                  "unfused_kernel": dict(use_pallas=True, fuse_tat=False, fuse_spatial=False),
+                  "fused": dict(use_pallas=True, fuse_tat=True, fuse_spatial=True)}
+
+
+def measure_fused_steps(root: Path, conf: Path, path: str, rounds: int = 2) -> dict:
+    """Train-epoch time of the fused trainer of ``conf`` against the unfused
+    one (plain aggregation, and the cheb_sat kernel), alternated in one
+    process (plain, kernel, fused, fused, kernel, plain, ...), with each
+    epoch's peak device memory (``epoch_peak``); then a profile of a fused
+    epoch and of a plain one."""
     from dstagnn_drought_tpu_torch.config import load_config
 
-    keyed = {"unfused_plain": dict(use_pallas=False, fuse_tat=False, fuse_spatial=False),
-             "unfused_kernel": dict(use_pallas=True, fuse_tat=False, fuse_spatial=False),
-             "fused": dict(use_pallas=True, fuse_tat=True, fuse_spatial=True)}
-    variants = {name: keyed[name] for name in variants}
     trainers = {}
-    for name, keys in variants.items():
-        cfg = load_config(root / "SYNTH08F.conf")
+    for name, keys in FUSED_VARIANTS.items():
+        cfg = load_config(conf)
         for k, v in keys.items():
             setattr(cfg.training, k, v)
-        trainers[name] = Trainer(cfg, experiments_root=str(root / f"mf_{name}"), device="cuda")
+        trainers[name] = Trainer(cfg, experiments_root=str(root / f"m_{path}_{name}"),
+                                 device="cuda")
         trainers[name].train_epoch(0)  # warm-up
-    times = {name: [] for name in variants}
-    peak = {name: [] for name in variants}
-    order = [name for name in ["unfused_plain", "unfused_kernel", "fused", "fused",
-                               "unfused_kernel", "unfused_plain"] * rounds if name in variants]
+    times = {name: [] for name in FUSED_VARIANTS}
+    peak = {name: [] for name in FUSED_VARIANTS}
+    order = ["unfused_plain", "unfused_kernel", "fused", "fused", "unfused_kernel",
+             "unfused_plain"] * rounds
     for i, name in enumerate(order):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        trainers[name].train_epoch(i + 1)
-        times[name].append((time.perf_counter() - t0) / trainers[name].last_epoch_steps * 1e3)
-        peak[name].append((torch.cuda.max_memory_allocated() - base) / 2 ** 20)
-    out = {"path": "pems08_bf16_fused_step_ms", **times, "epoch_peak_mib": peak,
-           "profile": {name: profile_epoch(trainers[name]) for name in ("fused", "unfused_plain")
-                       if name in variants}}
+        ms, mib = epoch_peak(trainers[name], i + 1)
+        times[name].append(ms)
+        peak[name].append(mib)
+    out = {"path": path, "batch_size": cfg.training.batch_size, **times,
+           "epoch_peak_mib": peak,
+           "profile": {name: profile_epoch(trainers[name]) for name in ("fused", "unfused_plain")}}
     print("measure", json.dumps(out), flush=True)
+    del trainers
+    torch.cuda.empty_cache()
     return out
+
+
+def measure_pems07_fused(root: Path, rounds: int = 2) -> dict:
+    """The PEMS07-width trainer, fused against both unfused ones, in float32
+    and bf16 (:func:`measure_fused_steps`)."""
+    return {dtype: measure_fused_steps(root, conf, f"pems07_{dtype}_fused_step_ms", rounds)
+            for dtype, conf in pems07_fused_projects(root).items()}
 
 
 def measure_accuracy(root: Path, epochs: int = 25):
@@ -3594,10 +3765,12 @@ C_MAJOR_SITES = {"bell_fused": "dstagnn_drought_tpu/ops/pallas/bell_fused.py:812
 
 
 def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused, gtu,
-                 gtu_bell, multi):
+                 gtu_bell, multi, pems07):
     """One record per TPU kernel for the JSON line (13; a c-major variant's
     record repeats its port kernel's, ``kernel_of``): launches from its main
-    path, times and bound at the main path's shape."""
+    path, times and bound at the main path's shape (the fused TAt and
+    spatial rows: launches from the PEMS07 bf16 run, times at PEMS08
+    blocks 2-4 as before, the PEMS07 shape's beside them)."""
     main_row = next(r for r in rows if r["shape"] == "pems08_blocks2-4")
     g2 = next(r for r in rows if r["shape"] == "gambia_block2")
     src, site = KERNEL_SITES["cheb_sat"]
@@ -3648,15 +3821,20 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
         mine = [r for r in fused_rows if r["kernel"] == name]
         main, f32 = (next(r for r in mine if r["shape"] == "pems08_blocks2-4"
                           and r["dtype"] == dt) for dt in ("bfloat16", "float32"))
+        p07 = {r["dtype"]: r for r in mine if r["shape"] in ("pems07_n883", "pems07_blocks2-4")}
         src, site = KERNEL_SITES[name]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": site,
-            "launches": fused["launches"][name],
+            "launches": pems07["bfloat16"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "shape": "PEMS08 blocks 2-4, bf16: B=64 F=32 T=12 N=170 (TAt H=3 d_k=32; "
                      "spatial d=512 K=3 C=Co=32)",
+            "launches_pems07_f32": pems07["float32"]["launches"][name],
+            "launches_pems08": fused["launches"][name],
+            "pems07": {dt: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+                       for dt, r in p07.items()},
         })
         out[-1].update(design=main["design"], f32_ms=f32["ms"], f32_design=f32["design"])
     for name in ("gtu_fwd", "gtu_bwd"):
@@ -3721,6 +3899,7 @@ def main(argv=None) -> int:
         root = Path(tmp)
         pems = phase_pems08(root)
         fused = phase_pems08_fused(root)
+        pems07 = phase_pems07_fused(root)
         measured = measure_pems08_epochs(root) if args.measure else None
         gambia = phase_gambia(root)
         gtu = phase_gambia_fuse_gtu(root)
@@ -3736,7 +3915,9 @@ def main(argv=None) -> int:
         multi = phase_multi(root, card)
         if args.measure:
             measured = {"pems08": measured, "passes": passes,
-                        "pems08_fused": measure_pems08_fused(root),
+                        "pems08_fused": measure_fused_steps(
+                            root, root / "SYNTH08F.conf", "pems08_bf16_fused_step_ms"),
+                        "pems07_fused": measure_pems07_fused(root),
                         "gambia": measure_gambia_steps(root),
                         "gambia_bell": measure_gambia_bell(root),
                         "gambia_fuse_gtu": measure_gambia_fuse_gtu(root),
@@ -3745,12 +3926,13 @@ def main(argv=None) -> int:
                         "stag_full": measure_stag_full()}
 
     kernels = kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused,
-                           gtu, gtu_bell, multi)
+                           gtu, gtu_bell, multi, pems07)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": card, "builds": builds, "cheb_sat": rows, "bell": bell_rows,
             "fused": fused_rows, "gtu": gtu_rows, "pems08": pems, "pems08_fused": fused,
+            "pems07_fused": pems07,
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
             "gambia_bell_rcm": rcm, "gambia_fuse_gtu": gtu,
             "gambia_bell_tiles_fuse_gtu": gtu_bell, "stag": stag, "gambia_ell": ell,

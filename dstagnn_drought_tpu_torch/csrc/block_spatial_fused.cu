@@ -25,74 +25,74 @@
 //
 // Bound on an H100: at PEMS08 blocks 2-4 (N=170, d=512, FT=CT=CoT=384,
 // K=3, dk=32) a row needs ~185 MFLOP against ~1.3 MB, so operations bound
-// it. The TPU kernel held a row's whole pipeline in VMEM; here one row's
-// three (N, N) planes (347 KB) or its N x d embedding (348 KB) alone exceed
-// the 227 KB a block may have, so the work is split across passes:
-//   forward  SA (rows of (b, i)): pre_conv, LN, dropout, QK -> qk (B,N,2Kdk)
-//            SB (b, 16 target columns): for each k, the column's scores over
-//               all N sources, the source-axis softmax, A_k, agg_k and the
-//               theta mix; ReLU on the way out. (B, K, N, N) never reaches
-//               memory.
-//   backward SA again (saving semx, x_hat, 1/std); SB, one loop over k:
-//               the column's softmax and A_k, agg_k, the dtheta partial,
-//               dagg, dA, the softmax backward -> ds, dk;
-//            SC (b, 16 source rows): dxm += A_k . dagg_k and dq_k from ds;
+// it; at PEMS07 (N=883) the N^2*C*T products are ~27x that. The TPU kernel
+// held a row's whole pipeline in VMEM; a block here has 227 KB, and a
+// row's (N, N) planes outgrow it past a few hundred nodes. So the work is
+// split as flash attention splits it, for a softmax over the source axis:
+// every pass streams the axis it reduces in tiles, and no block holds
+// anything whose size is set by N, F*T or C*T. Its shared memory is set by
+// the tiles, dk, d and the time chunk: Tc time steps whose C*Tc and Co*Tc
+// columns fit kChunkCols (384; the theta mix works per time step, so
+// chunking T is exact), so C and Co up to 384 fit any T.
+//   forward  SA (rows of (b, i)): pre_conv (F*T in chunks), LN, dropout, QK
+//               -> qk (B, N, 2Kdk)
+//            stats (b, k, 16 target columns): streams the sources 64 at a
+//               time, recomputes s and keeps each column's running max and
+//               sum of exp -> (B, K, N, 2)
+//            cols (b, 16 target columns, time chunk): for each k streams the
+//               sources 64 at a time, forms A_k from the stats, accumulates
+//               agg_k = A_k^T . xm over the chunk's columns, then the theta
+//               mix of the chunk's time steps; ReLU on the way out.
+//               (B, K, N, N) never reaches memory.
+//   backward SA again (saving semx, x_hat, 1/std); stats again;
+//            cols_bwd (b, target tile, chunk): agg_k again, the dtheta
+//               partial, dagg = (ReLU-masked g) . theta^T (written for the
+//               later passes) and delta_j = dagg_j . agg_j over the chunk's
+//               columns: delta_j = sum_i att_ij cheb_ij dA_ij (flash
+//               attention's D = rowsum(dO o O)), so no pass over the sources
+//               is needed for it; agg is recomputed, not saved, and delta
+//               costs (B, K, chunks, N) floats. The softmax backward sums
+//               with float32 att, so in bf16 delta takes the aggregation
+//               of the unrounded A: md(A)'s and A's lo terms' products,
+//               kept apart (the Theta gradient takes md(A)'s alone);
+//            ds (target tile, k, source range; b inside, in order):
+//               dA = xm . dagg^T over all of C*T, ds = att (cheb dA -
+//               delta_j), dbias += ds (its (K, N, N) planes summed over b in
+//               the block, in order of b), ds to memory for the row pass,
+//               and the dk partial of the source range;
+//            dq (b, k, 16 source rows): dq = md(ds) . md(k) streamed over
+//               the targets; dk: the source ranges' partials summed in order;
+//            rows (b, 16 source rows, chunk): dxm = sum_k A_k . dagg_k,
+//               streaming the targets 64 at a time with A_k rebuilt from the
+//               stats;
 //            SD (b, 16 rows): dsemx, dropout and LN backward, dtat;
 //            then the weight gradients, summed over b in a fixed order:
 //               dpw = tat^T dse, dwqk = semx^T dqk (split-row products),
-//               dbias, dtheta, dpos, dpb, dgs, dbs (row sums). No float
-//               atomics: two launches give the same bits.
+//               dtheta, dpos, dpb, dgs, dbs (row sums). No float atomics:
+//               two launches give the same bits.
 // The ReLU mask comes from the forward: the wrapper keeps where the forward
-// kernel's float32 output was > 0 (one byte an element) and SB reads it, so
-// the backward never recomputes the pre-ReLU output. JAX recomputes it
-// inside its backward kernel with the forward's own arithmetic; here the
-// bf16 backward sums its products in another order than the forward, and a
+// kernel's float32 output was > 0 (one byte an element) and cols_bwd reads
+// it, so the backward never recomputes the pre-ReLU output. JAX recomputes
+// it inside its backward kernel with the forward's own arithmetic; here a
 // recomputed value within rounding of 0 could flip the mask (one flipped
 // element changes a whole batch row's gradients). The forward's record
 // keeps the backward consistent with the output autograd saw, as
 // torch.relu's backward reads its output.
 //
-// Float32 runs every pass on the CUDA cores (exact FMAs, no TF32): SA and
-// SD a block of 16 rows of one b on dense::rows_x_mat, SB with agg_k's 16 x
-// C*T sums in registers and the theta mix into a shared 16 x Co*T tile. In
-// bfloat16 SA and the two N-sized passes of each direction run their
-// products on the tensor cores (nvcuda::wmma bf16 16x16x16 fragments,
-// float32 sums; the operands are bf16-exact already, so only the order of
-// the sums differs):
-//   SA (sp_embed_wmma_kernel, forward and backward): x_tat = md(tat) . pw
-//      and qk = semx . wqk for 32 rows flat over (b, i) (16 where 32 do not
-//      fit), so a block reads each weight once: a warp owns a pair of column
-//      tiles and both row tiles and reads the weights (the wrapper's bf16
-//      copies) as fragments straight from L2. Staging them with cp.async
-//      would save no traffic (each fragment is read once a block) and cost
-//      the shared memory that lets two blocks share an SM: 78,848 bytes at
-//      PEMS08 widths (x_tat float32 for the LayerNorm, a 64-column chunk of
-//      md(tat), each row's bf16 semx written over the front of its own x_tat
-//      row once read). LN, dropout and the md() of semx stay float32 a warp
-//      a row. Both directions launch the same kernel, so they get the same
-//      qk bits, and the backward's att is the forward's;
-//   SB forward (sp_cols_fwd_wmma_kernel): agg_k = A_k^T . xm and the theta
-//      mix out^T (r, o) += md(agg)^T (r, c) . theta_k over the rows r =
-//      (j, t), sums float32 in shared memory across k (89,088 bytes at
-//      PEMS08's N = 170: two blocks an SM);
-//   SB backward (sp_cols_bwd_wmma_kernel): agg_k, dA = xm . dagg_k^T, and
-//      the theta products dtheta_k = md(agg)^T . gm, dagg = gm . theta^T;
-//   SC (sp_rows_bwd_wmma_kernel): dxm += A_k . dagg_k.
-// Both SB kernels stage the theta operands alike (stage_theta: md(agg) and
-// gm transposed to bf16 (r, c) and (r, o) tiles, theta mixing per time step
-// so in agg's (j, c*T + t) layout it contracts with a stride). A_k (N, 16)
-// and dagg (16, C*T) are bf16 tiles in shared memory; xm (the wrapper's
-// bf16 copy padded to (Np, C*Tp), multiples of 16, zero outside) and dagg_k
-// (bf16, (Np, C*Tp)) are read as fragments straight from device memory
-// (L2): no block holds xm, so shared memory holds the (N, 16) planes and
-// 16-row tiles, and the backward's SB sets the bf16 cap on N, 944 at PEMS08
-// widths (float32: 816). A's rows past N are zero, so the padded sources
-// add nothing. The scores, the softmax and its backward, dk and dq stay
-// float32 FMAs on the CUDA cores in one FMA order: both SB kernels read the
-// tile's keys transposed (conflict-free), SC rebuilds A_k a warp per source
-// row with its lanes across the targets (coalesced bias and Chebyshev
-// reads). They, and the unstaged L2 fragment reads, are what bound the bf16
-// passes now; SD stays on the CUDA cores.
+// The three N^2*C*T products (agg, dA, dxm) run on the tensor cores in both
+// dtypes (nvcuda::wmma bf16 16x16x16 fragments, float32 sums): A_k (a tile
+// at a time, in shared memory) and the wrapper's copies of xm, laid out by
+// time chunk as (B, chunks, Np, C*Tc padded to 16) bf16, zero outside, and
+// dagg (the same layout, a k each, written by cols_bwd) read as fragments
+// straight from device memory (L2). In bfloat16 each operand is md()-exact
+// already, so one product; in float32 each operand is split into bf16 hi +
+// lo (wm::split) and each product is three (hi.hi + hi.lo + lo.hi), float32
+// in value to about 2^-17. The scores, the softmax and its backward, the
+// theta mix and its backward, dk and dq stay float32 FMAs on the CUDA cores;
+// every pass computes a score with the same FMA chain on the same md()
+// values, so the stats, att and A agree bit for bit across passes. SA runs
+// on the tensor cores in bf16 (sp_embed_wmma_kernel) and on the CUDA cores
+// in float32, as does SD.
 
 #include "dense_common.cuh"
 #include "wmma_common.cuh"
@@ -104,30 +104,47 @@ using dense::kThreads;
 using dense::kWarps;
 using dense::rnd;
 
-constexpr int kRows = 16;  // source rows a block (SA in float32, SC, SD)
-constexpr int kCols = 16;  // target columns a block (SB)
+constexpr int kRows = 16;  // source rows a block (SA in float32, dq, rows, SD)
+constexpr int kCols = 16;  // target columns a block (stats, cols, cols_bwd, ds)
+constexpr int kSrc = 64;   // sources a column pass streams a step
+constexpr int kTgt = 64;   // targets the row passes stream a step
 constexpr int kAcc = 3;    // 16-column accumulator tiles a warp holds (WMMA)
+constexpr int kChunkCols = kWarps * kAcc * 16;  // 384: the most columns of a time chunk
+constexpr int kFC = 128;   // tat columns a float32 SA block takes a step
+constexpr int kSms = 132;  // an H100's SMs
 constexpr size_t kSmemMax = 232448;  // shared memory a block may have (227 KB)
 
-// n rounded up to a multiple of 4 floats (16-byte aligned shared buffers)
-__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 __host__ __device__ __forceinline__ int pad16(int n) { return (n + 15) & ~15; }
 
-// The bf16 tiles: Np, CTp, Cp, Cop, FTp, dp, HKp are N, C*T, C, Co, F*T, d,
-// 2*K*dk rounded up to 16; R = 16*T rows (j, t) of the theta products; LD,
-// LC, LO the rows of the dagg, (r, c) and (r, o) tiles (multiples of 8 for
-// load_matrix_sync), LF, LX those of the float32 (r, o) sums and x_tat
-// (multiples of 4); RW the rows of a bf16 SA block
+// Tc time steps a chunk, nTc chunks: the most steps whose C*Tc and Co*Tc
+// columns fit kChunkCols, then balanced over the chunks
+__host__ __device__ inline void time_chunks(int T, int C, int Co, int& Tc, int& nTc) {
+  const int w = C > Co ? C : Co;
+  int most = kChunkCols / (w > 0 ? w : 1);
+  if (most < 1) most = 1;
+  if (most > T) most = T;
+  nTc = (T + most - 1) / most;
+  Tc = (T + nTc - 1) / nTc;
+}
+
+// LQ and LK the rows of the staged query and key tiles (dk rounded up to 4;
+// the keys' 4 floats more). The bf16 SA tiles: FTp, dp, HKp are F*T, d,
+// 2*K*dk rounded up to 16, LX
+// the row of its float32 x_tat (a multiple of 4), RW its rows a block. The
+// chunk layout: Tc steps a chunk, nTc chunks, CTc = C*Tc columns (CTcp
+// rounded up to 16), CoTc = Co*Tc; Npad = N rounded up to kSrc (the rows
+// of the chunked copies); NJt, NIt target and source tiles of 16, nST
+// source steps of kSrc, S the source ranges of the ds pass.
 struct Dims {
-  int B, N, FT, CT, T, C, Co, CoT, d, K, dk, hk, HK2, bf16;
-  int Np, CTp, Cp, Cop, R, LD, LC, LO, LF;
+  int B, N, FT, CT, T, C, Co, CoT, d, K, dk, hk, HK2, bf16, LQ, LK;
+  int Tc, nTc, CTc, CTcp, CoTc, Npad, NJt, NIt, nST, S;
   int FTp, dp, HKp, LX, RW;
   float keep_inv, inv_sqrt;
 };
 
 // ---------------------------------------------------------------------------
 // SA: pre_conv -> +pos, LN -> dropout -> QK for 16 source rows of batch b
-// (float32 on the CUDA cores)
+// (float32 on the CUDA cores; tat's F*T columns kFC at a time)
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
 sp_embed_kernel(const float* __restrict__ tat, const float* __restrict__ pw,
@@ -139,13 +156,20 @@ sp_embed_kernel(const float* __restrict__ tat, const float* __restrict__ pw,
   extern __shared__ __align__(16) float sm[];
   const int b = blockIdx.y, i0 = blockIdx.x * kRows;
   const int R = min(kRows, D.N - i0);
-  float* tt = sm;                  // (R, FT)
-  float* xs = tt + kRows * D.FT;   // (R, d)
+  float* tt = sm;                 // (R, kFC)
+  float* xs = tt + kRows * kFC;   // (R, d)
   const size_t row0 = (size_t)b * D.N + i0;
-  for (int e = threadIdx.x; e < R * D.FT; e += kThreads)
-    tt[e] = rnd(tat[row0 * D.FT + e], D.bf16);
-  __syncthreads();
-  dense::rows_x_mat<16>(tt, D.FT, R, D.FT, pw, D.d, D.d, xs, D.d);
+  for (int c0 = 0; c0 < D.FT; c0 += kFC) {
+    const int kn = min(kFC, D.FT - c0);
+    __syncthreads();  // the last chunk is consumed
+    for (int e = threadIdx.x; e < R * kn; e += kThreads)
+      tt[(e / kn) * kFC + e % kn] = rnd(tat[(row0 + e / kn) * D.FT + c0 + e % kn], D.bf16);
+    __syncthreads();
+    if (c0 == 0)
+      dense::rows_x_mat<16>(tt, kFC, R, kn, pw, D.d, D.d, xs, D.d);
+    else
+      dense::rows_x_mat<16, true>(tt, kFC, R, kn, pw + (size_t)c0 * D.d, D.d, D.d, xs, D.d);
+  }
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int ii = warp; ii < R; ii += kWarps) {
@@ -317,689 +341,612 @@ sp_embed_wmma_kernel(const float* __restrict__ tat, const bf16* __restrict__ pw,
 }
 
 // ---------------------------------------------------------------------------
-// SB helpers: one block owns target columns j0 .. j0+nj-1 of batch b
+// Shared pieces of the streaming passes
 // ---------------------------------------------------------------------------
 
-// s = md(q_i) . md(k_j) / sqrt(dk) + bias for target jj of the tile, whose
-// md(k) rows kt holds transposed, (dk, 16): the 16 columns a half-warp
-// scores read without bank conflicts. SC's rows_of_A runs the same FMA chain.
-__device__ __forceinline__ float score(const float* __restrict__ qrow, const float* kcol,
-                                       float bias, const Dims& D) {
+// s = md(q) . md(k) / sqrt(dk) + bias for a query row q and a key row k of
+// the staged tiles (both md() already): every pass scores with this one FMA
+// chain, over c in order, so the stats, att and A agree bit for bit across
+// passes. Rows are padded to a multiple of 4 floats (16-byte aligned), so
+// where 4 | dk both are read 16 bytes at a time; the key tiles' rows carry 4
+// floats more (LK), so a warp's 16 different key rows fall on all 32 banks.
+__device__ __forceinline__ float score(const float* q, const float* k, float bias,
+                                       const Dims& D) {
   float dot = 0.f;
-  for (int c = 0; c < D.dk; ++c) dot = fmaf(rnd(qrow[c], D.bf16), kcol[c * kCols], dot);
+  if ((D.dk & 3) == 0) {
+    for (int c = 0; c < D.dk; c += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(q + c);
+      const float4 v = *reinterpret_cast<const float4*>(k + c);
+      dot = fmaf(u.x, v.x, dot);
+      dot = fmaf(u.y, v.y, dot);
+      dot = fmaf(u.z, v.z, dot);
+      dot = fmaf(u.w, v.w, dot);
+    }
+  } else {
+    for (int c = 0; c < D.dk; ++c) dot = fmaf(q[c], k[c], dot);
+  }
   return dot * D.inv_sqrt + bias;
 }
 
-__device__ __forceinline__ void put(float* p, int e, float v) { p[e] = v; }
-__device__ __forceinline__ void put(bf16* p, int e, float v) { p[e] = __float2bfloat16_rn(v); }
-
-// att (N, 16) = source-axis softmax of the tile's scores for order k, and
-// A = md(cheb * att) (float32, or bf16 for the tensor cores); zero past the
-// ragged edge. stats (B,K,N,2) gets each column's max and sum of exp when
-// given. kt (dk, 16) gets the tile's md(k) rows transposed.
-template <typename TA>
-__device__ void col_softmax(int b, int k, int j0, int nj, const float* __restrict__ qk,
-                            const float* __restrict__ bias, const float* __restrict__ cheb,
-                            float* kt, float* att, TA* A, float* __restrict__ stats,
-                            const Dims& D) {
-  const int N = D.N;
-  for (int e = threadIdx.x; e < kCols * D.dk; e += kThreads) {
-    const int jj = e / D.dk, c = e % D.dk;
-    kt[c * kCols + jj] =
-        jj < nj ? rnd(qk[((size_t)b * N + j0 + jj) * D.HK2 + D.hk + k * D.dk + c], D.bf16)
-                : 0.f;
+// n rows from r0 of md(q_k) (part 0) or md(k_k) (part 1) of batch b into
+// dst (n, ld); zero past N. Where 4 | dk, 16 bytes a thread, its row and
+// column taken once (a division per element costs as much as the scores)
+__device__ __forceinline__ void stage_rows(const float* __restrict__ qk, int b, int k, int r0,
+                                           int n, int part, float* dst, int ld, const Dims& D) {
+  const int off = part * D.hk + k * D.dk, w = D.dk >> 2;
+  const float* src = qk + (size_t)b * D.N * D.HK2 + off;
+  if ((D.dk & 3) == 0 && w <= kThreads) {
+    const int rp = kThreads / w;  // rows a round
+    if (threadIdx.x >= rp * w) return;
+    const int c = (threadIdx.x % w) * 4;
+    for (int r = threadIdx.x / w; r < n; r += rp) {
+      const int i = r0 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < D.N) {
+        v = *reinterpret_cast<const float4*>(src + (size_t)i * D.HK2 + c);
+        v = make_float4(rnd(v.x, D.bf16), rnd(v.y, D.bf16), rnd(v.z, D.bf16), rnd(v.w, D.bf16));
+      }
+      *reinterpret_cast<float4*>(dst + r * ld + c) = v;
+    }
+    return;
   }
-  __syncthreads();
+  for (int e = threadIdx.x; e < n * D.dk; e += kThreads) {
+    const int r = e / D.dk, c = e % D.dk, i = r0 + r;
+    dst[r * ld + c] = i < D.N ? rnd(src[(size_t)i * D.HK2 + c], D.bf16) : 0.f;
+  }
+}
+
+// the column statistics (max, sum of exp) of n targets from j0 into st (n,
+// 2); (0, 1) past N
+__device__ __forceinline__ void stage_stats(const float* __restrict__ stats, int b, int k,
+                                            int j0, int n, float* st, const Dims& D) {
+  const float* sbk = stats + ((size_t)b * D.K + k) * D.N * 2;
+  for (int e = threadIdx.x; e < 2 * n; e += kThreads) {
+    const int j = j0 + e / 2;
+    st[e] = j < D.N ? sbk[(size_t)j * 2 + e % 2] : (float)(e % 2);
+  }
+}
+
+// A's element split into hi = bf16(v) (md(v), the bf16 product's operand)
+// and lo = bf16(v - hi) (float32's third product; bf16's delta)
+__device__ __forceinline__ void put_A(bf16* hi, bf16* lo, int e, float v) { split(v, hi[e], lo[e]); }
+
+// the chunked copies: xm (B, nTc, Npad, CTcp), dagg (B, K, nTc, Npad, CTcp)
+__device__ __forceinline__ size_t x_chunk(int b, int ch, const Dims& D) {
+  return ((size_t)b * D.nTc + ch) * D.Npad * D.CTcp;
+}
+__device__ __forceinline__ size_t d_chunk(int b, int k, int ch, const Dims& D) {
+  return (((size_t)b * D.K + k) * D.nTc + ch) * D.Npad * D.CTcp;
+}
+
+// ---------------------------------------------------------------------------
+// stats: each target column's max and sum of exp over all sources, per
+// (b, k, 16 targets), the sources streamed kSrc at a time
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+sp_colstats_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
+                   float* __restrict__ stats, Dims D) {
+  extern __shared__ __align__(16) float sm[];
+  const int N = D.N, j0 = blockIdx.x * kCols, k = blockIdx.y, b = blockIdx.z;
+  float* kt = sm;                  // (16, LK) keys
+  float* qs = kt + kCols * D.LK;   // (kSrc, LQ) queries
+  float* red = qs + kSrc * D.LQ;   // (kWarps, 16, 2)
+  const int jj = threadIdx.x % kCols, ig = threadIdx.x / kCols;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool live = j0 + jj < N;
+  stage_rows(qk, b, k, j0, kCols, 1, kt, D.LK, D);
   const float* bias_k = bias + (size_t)k * N * N;
-  for (int e = threadIdx.x; e < N * kCols; e += kThreads) {
-    const int i = e / kCols, jj = e % kCols;
-    float s = 0.f;
-    if (jj < nj) {
-      const float* qrow = qk + ((size_t)b * N + i) * D.HK2 + k * D.dk;
-      s = score(qrow, kt + jj, bias_k[(size_t)i * N + j0 + jj], D);
+  float m = -INFINITY, l = 0.f;
+  for (int i0 = 0; i0 < N; i0 += kSrc) {
+    __syncthreads();  // kt is in, or the last step's q is consumed
+    stage_rows(qk, b, k, i0, kSrc, 0, qs, D.LQ, D);
+    __syncthreads();
+    for (int r = 0; r < kSrc / 16; ++r) {
+      const int ii = ig + 16 * r, i = i0 + ii;
+      if (i >= N || !live) continue;
+      const float s = score(qs + ii * D.LQ, kt + jj * D.LK, bias_k[(size_t)i * N + j0 + jj], D);
+      if (s > m) {
+        l = l * expf(m - s) + 1.f;
+        m = s;
+      } else {
+        l += expf(s - m);
+      }
     }
-    att[e] = s;
+  }
+  // merge the 16 source groups of each column: lane ^ 16 in the warp, then
+  // the warps in order
+  const float m2 = __shfl_xor_sync(0xffffffffu, m, 16), l2 = __shfl_xor_sync(0xffffffffu, l, 16);
+  const float mm = fmaxf(m, m2);
+  const float ll = (l > 0.f ? l * expf(m - mm) : 0.f) + (l2 > 0.f ? l2 * expf(m2 - mm) : 0.f);
+  if (lane < 16) {
+    red[(warp * kCols + jj) * 2] = mm;
+    red[(warp * kCols + jj) * 2 + 1] = ll;
   }
   __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* cheb_k = cheb + (size_t)k * N * N;
-  for (int jj = warp; jj < kCols; jj += kWarps) {
-    if (jj >= nj) {
-      for (int i = lane; i < N; i += 32) {
-        att[i * kCols + jj] = 0.f;
-        put(A, i * kCols + jj, 0.f);
-      }
-      continue;
-    }
-    float m = -INFINITY;
-    for (int i = lane; i < N; i += 32) m = fmaxf(m, att[i * kCols + jj]);
-    m = dense::warp_max(m);
+  if (threadIdx.x < kCols && live) {
+    float mx = -INFINITY;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red[(w * kCols + jj) * 2]);
     float sum = 0.f;
-    for (int i = lane; i < N; i += 32) sum += expf(att[i * kCols + jj] - m);
-    sum = dense::warp_sum(sum);
-    for (int i = lane; i < N; i += 32) {
-      const float a = expf(att[i * kCols + jj] - m) / sum;
-      att[i * kCols + jj] = a;
-      put(A, i * kCols + jj, rnd(cheb_k[(size_t)i * N + j0 + jj] * a, D.bf16));
+    for (int w = 0; w < kWarps; ++w) {
+      const float lw = red[(w * kCols + jj) * 2 + 1];
+      if (lw > 0.f) sum += lw * expf(red[(w * kCols + jj) * 2] - mx);
     }
-    if (stats && lane == 0) {
-      float* st = stats + (((size_t)b * D.K + k) * N + j0 + jj) * 2;
-      st[0] = m;
-      st[1] = sum;
-    }
+    float* out = stats + (((size_t)b * D.K + k) * N + j0 + jj) * 2;
+    out[0] = mx;
+    out[1] = sum;
   }
-  __syncthreads();
 }
 
-// agg (16, CT) = A^T . md(xm[b]) over all N sources
-__device__ void aggregate(int b, const float* A, const float* __restrict__ xm, float* agg,
-                          const Dims& D) {
-  const float* xb = xm + (size_t)b * D.N * D.CT;
-  for (int m = threadIdx.x; m < D.CT; m += kThreads) {
-    float acc[kCols];
+// ---------------------------------------------------------------------------
+// The column passes' aggregation: agg (16, CTcp) = md(A_k)^T . md(xm) of
+// chunk ch for the target tile j0 (nj valid), the sources streamed kSrc at
+// a time, A_k rebuilt from the column stats
+// ---------------------------------------------------------------------------
+struct ColTiles {
+  float *kt, *qs, *st;  // (16, LK) keys, (kSrc, LQ) queries, (16, 2) stats
+  bf16 *ahi, *alo;      // (kSrc, 16) A, hi and lo
+  float* agg;           // (16, CTcp)
+  float* rest;          // the kernel's own (16, CoTc)
+};
+
+// every region a multiple of 32 bytes, so each WMMA tile starts aligned
+__device__ __forceinline__ ColTiles col_tiles(unsigned char* smem, const Dims& D) {
+  ColTiles t;
+  t.kt = reinterpret_cast<float*>(smem);
+  t.qs = t.kt + kCols * D.LK;
+  t.st = t.qs + kSrc * D.LQ;
+  t.ahi = reinterpret_cast<bf16*>(t.st + 32);
+  t.alo = t.ahi + kSrc * kCols;
+  t.agg = reinterpret_cast<float*>(t.alo + kSrc * kCols);
+  t.rest = t.agg + kCols * D.CTcp;
+  return t;
+}
+
+// kLo (the bf16 backward): agg_lo gets (A - md(A))^T . md(xm) beside it, so
+// agg + agg_lo is the aggregation of the unrounded A, delta's operand
+template <bool kLo>
+__device__ void col_aggregate(int b, int k, int ch, int j0, int nj, const float* __restrict__ qk,
+                              const float* __restrict__ stats, const float* __restrict__ bias,
+                              const float* __restrict__ cheb, const bf16* __restrict__ xhi,
+                              const bf16* __restrict__ xlo, const ColTiles& t, float* agg_lo,
+                              const Dims& D) {
+  const int N = D.N, warp = threadIdx.x / 32, MT = D.CTcp / 16;
+  const int jj = threadIdx.x % kCols, ig = threadIdx.x / kCols;
+  __syncthreads();  // the last user of the tiles is done
+  stage_rows(qk, b, k, j0, kCols, 1, t.kt, D.LK, D);
+  stage_stats(stats, b, k, j0, kCols, t.st, D);
+  FragC acc[kAcc], accl[kLo ? kAcc : 1];
 #pragma unroll
-    for (int jj = 0; jj < kCols; ++jj) acc[jj] = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < D.N; ++i) {
-      const float xv = rnd(__ldg(xb + (size_t)i * D.CT + m), D.bf16);
-      const float4* a4 = reinterpret_cast<const float4*>(A + i * kCols);
+  for (int q = 0; q < kAcc; ++q) wmma::fill_fragment(acc[q], 0.f);
+  if (kLo)
 #pragma unroll
-      for (int q = 0; q < kCols / 4; ++q) {
-        const float4 v = a4[q];
-        acc[4 * q] = fmaf(v.x, xv, acc[4 * q]);
-        acc[4 * q + 1] = fmaf(v.y, xv, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(v.z, xv, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(v.w, xv, acc[4 * q + 3]);
+    for (int q = 0; q < kAcc; ++q) wmma::fill_fragment(accl[kLo ? q : 0], 0.f);
+  const size_t xo = x_chunk(b, ch, D);
+  const float* bias_k = bias + (size_t)k * N * N;
+  const float* cheb_k = cheb + (size_t)k * N * N;
+  for (int i0 = 0; i0 < N; i0 += kSrc) {
+    __syncthreads();  // kt and st are in, or the last step's A is consumed
+    stage_rows(qk, b, k, i0, kSrc, 0, t.qs, D.LQ, D);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kSrc / 16; ++r) {
+      const int ii = ig + 16 * r, i = i0 + ii;
+      float v = 0.f;
+      if (i < N && jj < nj) {
+        const size_t o = (size_t)i * N + j0 + jj;
+        const float s = score(t.qs + ii * D.LQ, t.kt + jj * D.LK, bias_k[o], D);
+        v = cheb_k[o] * (expf(s - t.st[2 * jj]) / t.st[2 * jj + 1]);
+      }
+      put_A(t.ahi, t.alo, ii * kCols + jj, v);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kSrc / 16; ++kk) {
+      FragAt ah, al;  // A^T: the (source, target) tile read column-major
+      wmma::load_matrix_sync(ah, t.ahi + kk * 16 * kCols, kCols);
+      if (xlo || kLo) wmma::load_matrix_sync(al, t.alo + kk * 16 * kCols, kCols);
+      const size_t ro = xo + (size_t)(i0 + kk * 16) * D.CTcp;
+#pragma unroll
+      for (int q = 0; q < kAcc; ++q) {
+        const int mt = warp + kWarps * q;
+        if (mt >= MT) continue;
+        FragB xf;
+        wmma::load_matrix_sync(xf, xhi + ro + mt * 16, D.CTcp);
+        wmma::mma_sync(acc[q], ah, xf, acc[q]);
+        if (xlo) {
+          wmma::mma_sync(acc[q], al, xf, acc[q]);
+          wmma::load_matrix_sync(xf, xlo + ro + mt * 16, D.CTcp);
+          wmma::mma_sync(acc[q], ah, xf, acc[q]);
+        } else if (kLo) {
+          wmma::mma_sync(accl[kLo ? q : 0], al, xf, accl[kLo ? q : 0]);
+        }
       }
     }
+  }
 #pragma unroll
-    for (int jj = 0; jj < kCols; ++jj) agg[jj * D.CT + m] = acc[jj];
+  for (int q = 0; q < kAcc; ++q) {
+    const int mt = warp + kWarps * q;
+    if (mt >= MT) continue;
+    wmma::store_matrix_sync(t.agg + mt * 16, acc[q], D.CTcp, wmma::mem_row_major);
+    if (kLo)
+      wmma::store_matrix_sync(agg_lo + mt * 16, accl[kLo ? q : 0], D.CTcp, wmma::mem_row_major);
   }
-  __syncthreads();
-}
-
-// out (16, Co*T) += md(agg) . theta_k, per time step
-__device__ void theta_mix(int k, int nj, const float* agg, const float* __restrict__ theta,
-                          float* out, const Dims& D) {
-  const float* th = theta + (size_t)k * D.C * D.Co;
-  for (int e = threadIdx.x; e < nj * D.CoT; e += kThreads) {
-    const int jj = e / D.CoT, om = e % D.CoT, o = om / D.T, t = om % D.T;
-    const float* ar = agg + jj * D.CT + t;
-    float v = 0.f;
-    for (int c = 0; c < D.C; ++c) v = fmaf(rnd(ar[c * D.T], D.bf16), th[c * D.Co + o], v);
-    out[e] += v;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void zero(float* p, int n) {
-  for (int e = threadIdx.x; e < n; e += kThreads) p[e] = 0.f;
   __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
-// SB forward: y (B, N, Co*T) = relu(sum_k md(agg_k) . theta_k)
+// cols (forward): y (B, N, Co*T) = relu(sum_k md(agg_k) . theta_k) for the
+// tile's 16 targets and the chunk's time steps
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-sp_cols_fwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
-                   const float* __restrict__ cheb, const float* __restrict__ xm,
+sp_cols_fwd_kernel(const float* __restrict__ qk, const float* __restrict__ stats,
+                   const float* __restrict__ bias, const float* __restrict__ cheb,
+                   const bf16* __restrict__ xhi, const bf16* __restrict__ xlo,
                    const float* __restrict__ theta, float* __restrict__ y, Dims D) {
-  extern __shared__ __align__(16) float sm[];
-  const int b = blockIdx.y, j0 = blockIdx.x * kCols;
-  const int nj = min(kCols, D.N - j0);
-  float* kt = sm;
-  float* att = kt + kCols * D.dk;
-  float* A = att + D.N * kCols;
-  float* agg = A + D.N * kCols;
-  float* out = agg + kCols * D.CT;
-  zero(out, kCols * D.CoT);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const ColTiles t = col_tiles(smem, D);
+  const int j0 = blockIdx.x * kCols, ch = blockIdx.y, b = blockIdx.z;
+  const int nj = min(kCols, D.N - j0), t0 = ch * D.Tc, nt = min(D.Tc, D.T - t0);
+  float* out = t.rest;  // (16, CoTc): (target, o, t)
+  for (int e = threadIdx.x; e < kCols * D.CoTc; e += kThreads) out[e] = 0.f;
   for (int k = 0; k < D.K; ++k) {
-    col_softmax(b, k, j0, nj, qk, bias, cheb, kt, att, A, nullptr, D);
-    aggregate(b, A, xm, agg, D);
-    theta_mix(k, nj, agg, theta, out, D);
-  }
-  float* yb = y + ((size_t)b * D.N + j0) * D.CoT;
-  for (int e = threadIdx.x; e < nj * D.CoT; e += kThreads) yb[e] = fmaxf(out[e], 0.f);
-}
-
-// ---------------------------------------------------------------------------
-// SB backward pieces both dtypes share, per (b, 16 target columns)
-// ---------------------------------------------------------------------------
-
-// source-axis softmax backward, a warp a column jj < nj: datt (N, 16) in ds
-// becomes ds = att * (datt - sum_i att*datt); dS_col (dS_k from column j0)
-// gets it
-__device__ __forceinline__ void softmax_bwd(int nj, const float* att, float* ds,
-                                            float* __restrict__ dS_col, const Dims& D) {
-  const int N = D.N, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int jj = warp; jj < nj; jj += kWarps) {
-    float dot = 0.f;
-    for (int i = lane; i < N; i += 32) dot = fmaf(att[i * kCols + jj], ds[i * kCols + jj], dot);
-    dot = dense::warp_sum(dot);
-    for (int i = lane; i < N; i += 32) {
-      const float v = att[i * kCols + jj] * (ds[i * kCols + jj] - dot);
-      ds[i * kCols + jj] = v;
-      dS_col[(size_t)i * N + jj] = v;
+    col_aggregate<false>(b, k, ch, j0, nj, qk, stats, bias, cheb, xhi, xlo, t, nullptr, D);
+    // the mix, four output channels a thread: each md(agg) value serves four
+    const float* th = theta + (size_t)k * D.C * D.Co;
+    const int Co4 = (D.Co + 3) / 4, per = D.Tc * Co4;
+    for (int e = threadIdx.x; e < kCols * per; e += kThreads) {
+      const int jj = e / per, r = e % per, o0 = 4 * (r / D.Tc), tt = r % D.Tc;
+      const float* ar = t.agg + jj * D.CTcp + tt;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = 0; c < D.C; ++c) {
+        const float a = rnd(ar[c * D.Tc], D.bf16);
+        const float* tr = th + (size_t)c * D.Co + o0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (o0 + q < D.Co) v[q] = fmaf(a, __ldg(tr + q), v[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (o0 + q < D.Co) out[jj * D.CoTc + (o0 + q) * D.Tc + tt] += v[q];
     }
   }
   __syncthreads();
-}
-
-// dk_k[j] = sum_i md(ds)[i][j] md(q_k)[i] / sqrt(dk)
-__device__ __forceinline__ void dk_cols(int b, int k, int j0, int nj, const float* ds,
-                                        const float* __restrict__ qk, float* __restrict__ dqk,
-                                        const Dims& D) {
-  const int N = D.N;
-  for (int e = threadIdx.x; e < nj * D.dk; e += kThreads) {
-    const int jj = e / D.dk, c = e % D.dk;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < N; ++i)
-      acc = fmaf(rnd(ds[i * kCols + jj], D.bf16),
-                 rnd(__ldg(qk + ((size_t)b * N + i) * D.HK2 + k * D.dk + c), D.bf16), acc);
-    dqk[((size_t)b * N + j0 + jj) * D.HK2 + D.hk + k * D.dk + c] = acc * D.inv_sqrt;
+  for (int e = threadIdx.x; e < nj * D.CoTc; e += kThreads) {
+    const int jj = e / D.CoTc, r = e % D.CoTc, o = r / D.Tc, tt = r % D.Tc;
+    if (tt < nt)
+      y[((size_t)b * D.N + j0 + jj) * D.CoT + (size_t)o * D.T + t0 + tt] = fmaxf(out[e], 0.f);
   }
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
-// SB backward in float32 on the CUDA cores, per (b, 16 target columns)
+// cols_bwd: per (b, 16 targets, chunk) and k, agg_k again, the dtheta
+// partial, md(dagg_k) = md(gm . theta_k^T) into the chunked dagg copy (hi,
+// and lo in float32) and delta_kj = dagg_kj . agg_kj over the chunk
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
-sp_cols_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
-                   const float* __restrict__ cheb, const float* __restrict__ xm,
+sp_cols_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ stats,
+                   const float* __restrict__ bias, const float* __restrict__ cheb,
+                   const bf16* __restrict__ xhi, const bf16* __restrict__ xlo,
                    const float* __restrict__ theta, const float* __restrict__ g_out,
-                   const unsigned char* __restrict__ relu_pos, float* __restrict__ daggbuf,
-                   float* __restrict__ dS, float* __restrict__ dqk,
-                   float* __restrict__ dth_part, float* __restrict__ stats, Dims D) {
-  extern __shared__ __align__(16) float sm[];
-  const int N = D.N, b = blockIdx.y, jt = blockIdx.x, j0 = jt * kCols;
-  const int nj = min(kCols, N - j0);
-  float* kt = sm;
-  float* att = kt + kCols * D.dk;
-  float* A = att + N * kCols;
-  float* ds = A + N * kCols;
-  float* agg = ds + N * kCols;
-  float* dagg = agg + kCols * D.CT;
-  float* gm = dagg + kCols * D.CT;
-
-  // gm = md(g * [y > 0]) with the forward's own mask
-  zero(gm, kCols * D.CoT);
-  const float* gb = g_out + ((size_t)b * N + j0) * D.CoT;
-  const unsigned char* pb = relu_pos + ((size_t)b * N + j0) * D.CoT;
-  for (int e = threadIdx.x; e < nj * D.CoT; e += kThreads)
-    gm[e] = rnd(gb[e] * (pb[e] ? 1.f : 0.f), D.bf16);
-  __syncthreads();
-
+                   const unsigned char* __restrict__ relu_pos, bf16* __restrict__ dhi,
+                   bf16* __restrict__ dlo, float* __restrict__ delta,
+                   float* __restrict__ dth_part, Dims D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const ColTiles t = col_tiles(smem, D);
+  const int N = D.N, jt = blockIdx.x, j0 = jt * kCols, ch = blockIdx.y, b = blockIdx.z;
+  const int nj = min(kCols, N - j0), t0 = ch * D.Tc, nt = min(D.Tc, D.T - t0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int NJt = gridDim.x;
+  // gm = md(g * [y > 0]) with the forward's own mask, (target, o, t), zero
+  // past nj and the chunk's last step; in bf16 agg_lo (16, CTcp) after it
+  float* gm = t.rest;
+  float* agg_lo = D.bf16 ? gm + kCols * D.CoTc : nullptr;
+  for (int e = threadIdx.x; e < kCols * D.CoTc; e += kThreads) {
+    const int jj = e / D.CoTc, r = e % D.CoTc, o = r / D.Tc, tt = r % D.Tc;
+    float v = 0.f;
+    if (jj < nj && tt < nt) {
+      const size_t g = ((size_t)b * N + j0 + jj) * D.CoT + (size_t)o * D.T + t0 + tt;
+      v = rnd(g_out[g] * (relu_pos[g] ? 1.f : 0.f), D.bf16);
+    }
+    gm[e] = v;
+  }
   for (int k = 0; k < D.K; ++k) {
-    col_softmax(b, k, j0, nj, qk, bias, cheb, kt, att, A, stats, D);
-    aggregate(b, A, xm, agg, D);
-    // dtheta_k partial of this tile: sum_{j,t} md(agg)[j][c,t] * gm[j][o,t]
+    if (agg_lo)
+      col_aggregate<true>(b, k, ch, j0, nj, qk, stats, bias, cheb, xhi, xlo, t, agg_lo, D);
+    else
+      col_aggregate<false>(b, k, ch, j0, nj, qk, stats, bias, cheb, xhi, xlo, t, nullptr, D);
     const float* th = theta + (size_t)k * D.C * D.Co;
-    float* part = dth_part + (((size_t)b * NJt + jt) * D.K + k) * D.C * D.Co;
+    // dtheta_k partial: sum_{j, t} md(agg)[j][c, t] * gm[j][o, t]
+    float* part = dth_part + ((((size_t)b * D.NJt + jt) * D.nTc + ch) * D.K + k) * D.C * D.Co;
     for (int e = threadIdx.x; e < D.C * D.Co; e += kThreads) {
       const int c = e / D.Co, o = e % D.Co;
       float acc = 0.f;
-      for (int jj = 0; jj < nj; ++jj)
-        for (int t = 0; t < D.T; ++t)
-          acc = fmaf(rnd(agg[jj * D.CT + c * D.T + t], D.bf16), gm[jj * D.CoT + o * D.T + t],
-                     acc);
+      for (int jj = 0; jj < kCols; ++jj)
+        for (int tt = 0; tt < D.Tc; ++tt)
+          acc = fmaf(rnd(t.agg[jj * D.CTcp + c * D.Tc + tt], D.bf16),
+                     gm[jj * D.CoTc + o * D.Tc + tt], acc);
       part[e] = acc;
     }
-    // dagg = md(gm . theta_k^T), per time step
-    float* db = daggbuf + (((size_t)b * D.K + k) * N + j0) * D.CT;
-    for (int e = threadIdx.x; e < kCols * D.CT; e += kThreads) {
-      const int jj = e / D.CT, cm = e % D.CT, c = cm / D.T, t = cm % D.T;
+    // md(dagg) a warp a target row, and its delta against the unrounded A's
+    // aggregation (bf16: agg + agg_lo), as the softmax backward sums
+    // att * cheb * dA with float32 att
+    const size_t dk0 = d_chunk(b, k, ch, D);
+    for (int jj = warp; jj < kCols; jj += kWarps) {
+      const size_t row = dk0 + (size_t)(j0 + jj) * D.CTcp;
+      float dot = 0.f;
+      for (int col = lane; col < D.CTcp; col += 32) {
+        const int c = col / D.Tc, tt = col % D.Tc;
+        float v = 0.f;
+        if (c < D.C) {
+          for (int o = 0; o < D.Co; ++o)
+            v = fmaf(gm[jj * D.CoTc + o * D.Tc + tt], th[c * D.Co + o], v);
+          v = rnd(v, D.bf16);
+        }
+        const float a = t.agg[jj * D.CTcp + col] + (agg_lo ? agg_lo[jj * D.CTcp + col] : 0.f);
+        dot = fmaf(v, a, dot);
+        if (D.bf16)
+          dhi[row + col] = __float2bfloat16_rn(v);
+        else
+          split(v, dhi[row + col], dlo[row + col]);
+      }
+      dot = dense::warp_sum(dot);
+      if (lane == 0 && jj < nj) delta[(((size_t)b * D.K + k) * D.nTc + ch) * N + j0 + jj] = dot;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ds: per (16 targets, k, a range of source steps), b in order inside:
+// dA = xm . dagg^T over every chunk, ds = att (cheb dA - delta), dbias
+// (summed over b here), ds to memory (md(ds) as bf16 in bf16), and the dk
+// partial of the range
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+sp_ds_kernel(const float* __restrict__ qk, const float* __restrict__ stats,
+             const float* __restrict__ bias, const float* __restrict__ cheb,
+             const bf16* __restrict__ xhi, const bf16* __restrict__ xlo,
+             const bf16* __restrict__ dhi, const bf16* __restrict__ dlo,
+             const float* __restrict__ delta, float* __restrict__ dbias, void* dS,
+             float* __restrict__ dkpart, Dims D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = D.N, j0 = blockIdx.x * kCols, k = blockIdx.y, sr = blockIdx.z;
+  const int nj = min(kCols, N - j0);
+  const int per = (D.nST + D.S - 1) / D.S, s0 = sr * per, s1 = min(D.nST, s0 + per);
+  // every region a multiple of 32 bytes, so each WMMA tile starts aligned
+  float* kt = reinterpret_cast<float*>(smem);  // (16, LK)
+  float* qs = kt + kCols * D.LK;                // (kSrc, LQ)
+  float* st = qs + kSrc * D.LQ;                 // (16, 2)
+  float* dl = st + 2 * kCols;                   // (16) delta
+  float* stage = dl + kCols;                    // kWarps x (kSrc, 16): dA partials
+  float* dst = stage + kWarps * kSrc * kCols;   // (kSrc, 16) md(ds)
+  float* dka = dst + kSrc * kCols;              // (16, dk) dk sums
+  const int warp = threadIdx.x / 32, MT = D.CTcp / 16;
+  const int jj = threadIdx.x % kCols, ig = threadIdx.x / kCols;
+  const size_t NN = (size_t)N * N;
+  const float* bias_k = bias + (size_t)k * NN;
+  const float* cheb_k = cheb + (size_t)k * NN;
+  float* dbias_k = dbias + (size_t)k * NN;
+  for (int b = 0; b < D.B; ++b) {
+    __syncthreads();  // the last b's tiles are consumed
+    stage_rows(qk, b, k, j0, kCols, 1, kt, D.LK, D);
+    stage_stats(stats, b, k, j0, kCols, st, D);
+    for (int e = threadIdx.x; e < kCols; e += kThreads) {
       float v = 0.f;
-      if (jj < nj) {
-        for (int o = 0; o < D.Co; ++o)
-          v = fmaf(gm[jj * D.CoT + o * D.T + t], th[c * D.Co + o], v);
-        v = rnd(v, D.bf16);
-        db[e] = v;
-      }
-      dagg[e] = v;
+      if (e < nj)
+        for (int ch = 0; ch < D.nTc; ++ch)
+          v += delta[(((size_t)b * D.K + k) * D.nTc + ch) * N + j0 + e];
+      dl[e] = v;
     }
-    __syncthreads();
-    // datt = cheb * (md(xm) . dagg^T): a warp per source row
-    const float* xb = xm + (size_t)b * N * D.CT;
-    const float* cheb_k = cheb + (size_t)k * N * N;
-    for (int i = warp; i < N; i += kWarps) {
-      float acc[kCols];
+    for (int e = threadIdx.x; e < kCols * D.dk; e += kThreads) dka[e] = 0.f;
+    for (int sidx = s0; sidx < s1; ++sidx) {
+      const int i0 = sidx * kSrc;
+      __syncthreads();  // the last step's tiles are consumed
+      stage_rows(qk, b, k, i0, kSrc, 0, qs, D.LQ, D);
+      // dA (kSrc, 16) on the tensor cores: warp w takes the column tiles
+      // w, w + 8, ... of every chunk for all four 16-source row tiles (four
+      // independent sums a warp), its partial to stage
+      FragC acc[kSrc / 16];
 #pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) acc[jj] = 0.f;
-#pragma unroll 4
-      for (int m = lane; m < D.CT; m += 32) {
-        const float xv = rnd(__ldg(xb + (size_t)i * D.CT + m), D.bf16);
+      for (int r = 0; r < kSrc / 16; ++r) wmma::fill_fragment(acc[r], 0.f);
+      for (int ch = 0; ch < D.nTc; ++ch) {
+        const size_t xr = x_chunk(b, ch, D) + (size_t)i0 * D.CTcp;
+        const size_t gr = d_chunk(b, k, ch, D) + (size_t)j0 * D.CTcp;
+        for (int mt = warp; mt < MT; mt += kWarps) {
+          FragBt gf, gl;  // dagg^T: the (target, column) rows read column-major
+          wmma::load_matrix_sync(gf, dhi + gr + mt * 16, D.CTcp);
+          if (xlo) wmma::load_matrix_sync(gl, dlo + gr + mt * 16, D.CTcp);
 #pragma unroll
-        for (int jj = 0; jj < kCols; ++jj) acc[jj] = fmaf(xv, dagg[jj * D.CT + m], acc[jj]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) acc[jj] = dense::warp_sum(acc[jj]);
-      if (lane < nj) {
-        float mine = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < kCols; ++jj)
-          if (jj == lane) mine = acc[jj];
-        ds[i * kCols + lane] = cheb_k[(size_t)i * N + j0 + lane] * mine;
-      }
-    }
-    __syncthreads();
-    softmax_bwd(nj, att, ds, dS + ((size_t)b * D.K + k) * N * N + j0, D);
-    dk_cols(b, k, j0, nj, ds, qk, dqk, D);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The bf16 products on the tensor cores. xb is batch row b of the padded
-// bf16 xm, (Np, CTp), zero past N and past C*T.
-// ---------------------------------------------------------------------------
-
-// agg (16, CTp) = A^T . xm over the Np sources. A (Np, 16) bf16 is read
-// col-major as A^T; a warp owns the 16-column tiles w, w + 8, w + 16 of
-// each group of 8 * kAcc and keeps their sums in fragments over all sources.
-__device__ void aggregate_wmma(const bf16* A, const bf16* __restrict__ xb, float* agg,
-                               const Dims& D) {
-  const int warp = threadIdx.x / 32, MT = D.CTp / 16;
-  for (int g0 = warp; g0 < MT; g0 += kWarps * kAcc) {
-    FragC acc[kAcc];
-#pragma unroll
-    for (int q = 0; q < kAcc; ++q) wmma::fill_fragment(acc[q], 0.f);
-#pragma unroll 2
-    for (int i0 = 0; i0 < D.Np; i0 += 16) {
-      FragAt a;
-      wmma::load_matrix_sync(a, A + i0 * kCols, kCols);
-#pragma unroll
-      for (int q = 0; q < kAcc; ++q) {
-        const int mt = g0 + q * kWarps;
-        if (mt < MT) {
-          FragB x;
-          wmma::load_matrix_sync(x, xb + (size_t)i0 * D.CTp + mt * 16, D.CTp);
-          wmma::mma_sync(acc[q], a, x, acc[q]);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kAcc; ++q) {
-      const int mt = g0 + q * kWarps;
-      if (mt < MT) wmma::store_matrix_sync(agg + mt * 16, acc[q], D.CTp, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-}
-
-// dA (Np, 16) = xm . dagg^T, dagg (16, LD) bf16 read col-major as dagg^T; a
-// warp owns the 16-source tiles w, w + 8, ...
-__device__ void dA_wmma(const bf16* __restrict__ xb, const bf16* dagg, float* dA, const Dims& D) {
-  const int warp = threadIdx.x / 32, MT = D.CTp / 16;
-  for (int i0 = warp * 16; i0 < D.Np; i0 += kWarps * 16) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll 4
-    for (int mt = 0; mt < MT; ++mt) {
-      FragA x;
-      FragBt g;
-      wmma::load_matrix_sync(x, xb + (size_t)i0 * D.CTp + mt * 16, D.CTp);
-      wmma::load_matrix_sync(g, dagg + mt * 16, D.LD);
-      wmma::mma_sync(acc, x, g, acc);
-    }
-    wmma::store_matrix_sync(dA + i0 * kCols, acc, kCols, wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-// The theta products run as bf16 GEMMs over the R = 16*T rows r = (j, t)
-// of the tile (theta mixes per time step, so in agg's (j, c*T + t) layout
-// they contract with a stride). stage_theta writes their operands aT (R,
-// Cp) = md(agg) with aT[r][c] = md(agg)[j][c, t] and thS (Cp, Cop) =
-// theta_k, bf16 and zero past C and Co.
-__device__ void stage_theta(int k, const float* agg, const float* __restrict__ theta, bf16* aT,
-                            bf16* thS, const Dims& D) {
-  for (int e = threadIdx.x; e < D.R * D.Cp; e += kThreads) {
-    const int r = e / D.Cp, c = e % D.Cp;
-    aT[r * D.LC + c] =
-        __float2bfloat16_rn(c < D.C ? agg[(r / D.T) * D.CTp + c * D.T + r % D.T] : 0.f);
-  }
-  const float* th = theta + (size_t)k * D.C * D.Co;
-  for (int e = threadIdx.x; e < D.Cp * D.Cop; e += kThreads) {
-    const int c = e / D.Cop, o = e % D.Cop;
-    thS[c * D.LO + o] = __float2bfloat16_rn(c < D.C && o < D.Co ? th[c * D.Co + o] : 0.f);
-  }
-  __syncthreads();
-}
-
-// The forward's mix: out (R, LF) += aT . thS, the tile's output transposed
-// to rows r = (j, t), float32 in shared memory across k (a warp a 16x16
-// tile, its sums loaded and stored again each k: any T fits, where sums held
-// in registers across k would cap the tiles at kWarps * kAcc).
-__device__ void theta_mix_wmma(const bf16* aT, const bf16* thS, float* out, const Dims& D) {
-  const int warp = threadIdx.x / 32, CTt = D.Cp / 16, OTt = D.Cop / 16;
-  for (int w = warp; w < (D.R / 16) * OTt; w += kWarps) {
-    const int rt = w / OTt, ot = w % OTt;
-    float* o = out + rt * 16 * D.LF + ot * 16;
-    FragC acc;
-    wmma::load_matrix_sync(acc, o, D.LF, wmma::mem_row_major);
-    for (int ct = 0; ct < CTt; ++ct) {
-      FragA a;
-      FragB th;
-      wmma::load_matrix_sync(a, aT + rt * 16 * D.LC + ct * 16, D.LC);
-      wmma::load_matrix_sync(th, thS + ct * 16 * D.LO + ot * 16, D.LO);
-      wmma::mma_sync(acc, a, th, acc);
-    }
-    wmma::store_matrix_sync(o, acc, D.LF, wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-// The backward's two theta products, on gT (R, Cop) = gm with gT[r][o] =
-// gm[j][o, t] besides the staged aT and thS. Per warp, a 16x16 tile of
-//   dtheta_k = aT^T . gT   (Cp, Cop; aT read col-major)
-//   dagg^T   = gT . thS^T  (R, Cp; thS read col-major)
-// goes through the warp's 16x16 float32 staging to its place: dtheta to the
-// block's partial row, md(dagg) to the (16, LD) tile in dagg's (j, c*T + t)
-// layout.
-__device__ void theta_wmma(const bf16* gT, const bf16* aT, const bf16* thS, float* stage,
-                           bf16* dagg, float* __restrict__ part, const Dims& D) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int CTt = D.Cp / 16, OTt = D.Cop / 16, RT = D.R / 16;
-  const int n_dth = CTt * OTt;
-  float* sw = stage + warp * 256;
-  for (int w = warp; w < n_dth + RT * CTt; w += kWarps) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    if (w < n_dth) {
-      const int ct = w / OTt, ot = w % OTt;
-      for (int rt = 0; rt < RT; ++rt) {
-        FragAt x;
-        FragB g;
-        wmma::load_matrix_sync(x, aT + rt * 16 * D.LC + ct * 16, D.LC);
-        wmma::load_matrix_sync(g, gT + rt * 16 * D.LO + ot * 16, D.LO);
-        wmma::mma_sync(acc, x, g, acc);
-      }
-      wmma::store_matrix_sync(sw, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int c = ct * 16 + e / 16, o = ot * 16 + e % 16;
-        if (c < D.C && o < D.Co) part[c * D.Co + o] = sw[e];
-      }
-    } else {
-      const int rt = (w - n_dth) / CTt, ct = (w - n_dth) % CTt;
-      for (int ot = 0; ot < OTt; ++ot) {
-        FragA g;
-        FragBt th;
-        wmma::load_matrix_sync(g, gT + rt * 16 * D.LO + ot * 16, D.LO);
-        wmma::load_matrix_sync(th, thS + ct * 16 * D.LO + ot * 16, D.LO);
-        wmma::mma_sync(acc, g, th, acc);
-      }
-      wmma::store_matrix_sync(sw, acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = rt * 16 + e / 16, c = ct * 16 + e % 16;
-        if (c < D.C) dagg[(r / D.T) * D.LD + c * D.T + r % D.T] = __float2bfloat16_rn(sw[e]);
-      }
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------------------
-// SB forward in bfloat16, per (b, 16 target columns): agg_k and the theta mix
-// on the tensor cores, the scores and softmax on the CUDA cores
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-sp_cols_fwd_wmma_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
-                        const float* __restrict__ cheb, const bf16* __restrict__ xp,
-                        const float* __restrict__ theta, float* __restrict__ y, Dims D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int N = D.N, Np = D.Np, b = blockIdx.y, j0 = blockIdx.x * kCols;
-  const int nj = min(kCols, N - j0);
-  // every region a multiple of 32 bytes, so each WMMA tile starts aligned
-  float* kt = reinterpret_cast<float*>(smem);              // (dk, 16)
-  float* att = kt + kCols * D.dk;                           // (Np, 16)
-  float* agg = att + Np * kCols;                            // (16, CTp)
-  float* out = agg + kCols * D.CTp;                         // (R, LF)
-  bf16* A = reinterpret_cast<bf16*>(out + D.R * D.LF);      // (Np, 16)
-  bf16* aT = A + Np * kCols;                                // (R, LC)
-  bf16* thS = aT + D.R * D.LC;                              // (Cp, LO)
-  for (int e = N * kCols + threadIdx.x; e < Np * kCols; e += kThreads)
-    A[e] = __float2bfloat16_rn(0.f);  // the padded sources add nothing
-  zero(out, D.R * D.LF);
-  const bf16* xb = xp + (size_t)b * Np * D.CTp;
-  for (int k = 0; k < D.K; ++k) {
-    col_softmax(b, k, j0, nj, qk, bias, cheb, kt, att, A, nullptr, D);
-    aggregate_wmma(A, xb, agg, D);
-    stage_theta(k, agg, theta, aT, thS, D);
-    theta_mix_wmma(aT, thS, out, D);
-  }
-  float* yb = y + ((size_t)b * N + j0) * D.CoT;
-  for (int e = threadIdx.x; e < nj * D.CoT; e += kThreads) {
-    const int jj = e / D.CoT, om = e % D.CoT, o = om / D.T, t = om % D.T;
-    yb[e] = fmaxf(out[(jj * D.T + t) * D.LF + o], 0.f);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// SB backward in bfloat16, per (b, 16 target columns): agg_k, dA and the
-// theta products on the tensor cores; dagg_k (bf16, (Np, CTp) a k, zero past
-// N and C*T) for SC
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-sp_cols_bwd_wmma_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
-                        const float* __restrict__ cheb, const bf16* __restrict__ xp,
-                        const float* __restrict__ theta, const float* __restrict__ g_out,
-                        const unsigned char* __restrict__ relu_pos, bf16* __restrict__ daggbuf,
-                        float* __restrict__ dS, float* __restrict__ dqk,
-                        float* __restrict__ dth_part, float* __restrict__ stats, Dims D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int N = D.N, Np = D.Np, b = blockIdx.y, jt = blockIdx.x, j0 = jt * kCols;
-  const int nj = min(kCols, N - j0);
-  // every region a multiple of 32 bytes, so each WMMA tile starts aligned
-  float* kt = reinterpret_cast<float*>(smem);             // (dk, 16)
-  float* att = kt + kCols * D.dk;                          // (Np, 16)
-  float* ds = att + Np * kCols;                            // (Np, 16): dA, datt, ds
-  float* agg = ds + Np * kCols;                            // (16, CTp)
-  float* stage = agg + kCols * D.CTp;                      // 8 x (16, 16)
-  bf16* A = reinterpret_cast<bf16*>(stage + kWarps * 256);  // (Np, 16)
-  bf16* dagg = A + Np * kCols;                             // (16, LD)
-  bf16* gT = dagg + kCols * D.LD;                          // (R, LO)
-  bf16* aT = gT + D.R * D.LO;                              // (R, LC)
-  bf16* thS = aT + D.R * D.LC;                             // (Cp, LO)
-  const bf16 zero16 = __float2bfloat16_rn(0.f);
-  // zero what no k writes: A past N (the padded sources add nothing), dagg
-  // past C*T
-  for (int e = N * kCols + threadIdx.x; e < Np * kCols; e += kThreads) A[e] = zero16;
-  for (int e = threadIdx.x; e < kCols * (D.CTp - D.CT); e += kThreads)
-    dagg[(e / (D.CTp - D.CT)) * D.LD + D.CT + e % (D.CTp - D.CT)] = zero16;
-  // gT = md(g * [y > 0]) with the forward's own mask, zero past nj and Co
-  const size_t o0 = ((size_t)b * N + j0) * D.CoT;
-  for (int e = threadIdx.x; e < D.R * D.Cop; e += kThreads) {
-    const int r = e / D.Cop, o = e % D.Cop, jj = r / D.T, t = r % D.T;
-    float v = 0.f;
-    if (jj < nj && o < D.Co) {
-      const size_t g = o0 + (size_t)jj * D.CoT + o * D.T + t;
-      v = g_out[g] * (relu_pos[g] ? 1.f : 0.f);
-    }
-    gT[r * D.LO + o] = __float2bfloat16_rn(v);
-  }
-  __syncthreads();
-
-  const bf16* xb = xp + (size_t)b * Np * D.CTp;
-  for (int k = 0; k < D.K; ++k) {
-    col_softmax(b, k, j0, nj, qk, bias, cheb, kt, att, A, stats, D);
-    aggregate_wmma(A, xb, agg, D);
-    stage_theta(k, agg, theta, aT, thS, D);
-    theta_wmma(gT, aT, thS, stage, dagg,
-               dth_part + (((size_t)b * gridDim.x + jt) * D.K + k) * D.C * D.Co, D);
-    bf16* db = daggbuf + (((size_t)b * D.K + k) * Np + j0) * D.CTp;
-    for (int e = threadIdx.x; e < kCols * D.CTp; e += kThreads)
-      db[e] = dagg[(e / D.CTp) * D.LD + e % D.CTp];
-    dA_wmma(xb, dagg, ds, D);
-    const float* cheb_k = cheb + (size_t)k * N * N;
-    for (int e = threadIdx.x; e < N * kCols; e += kThreads) {
-      const int jj = e % kCols;
-      if (jj < nj) ds[e] *= cheb_k[(size_t)(e / kCols) * N + j0 + jj];
-    }
-    __syncthreads();
-    softmax_bwd(nj, att, ds, dS + ((size_t)b * D.K + k) * N * N + j0, D);
-    dk_cols(b, k, j0, nj, ds, qk, dqk, D);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// SC: dxm and dq for 16 source rows of batch b
-// ---------------------------------------------------------------------------
-
-// krT (dk, N) = md(k_k) of every target, transposed, then At (N, 16) with
-// At[j][ii] = md(A_k)[i0+ii][j], rebuilt from the column stats SB saved
-// (the scores in SB's FMA order); zero past ni. A warp takes a source row
-// and its lanes the targets: the bias, Chebyshev and krT reads coalesce.
-template <typename TA>
-__device__ void rows_of_A(int b, int k, int i0, int ni, const float* __restrict__ qk,
-                          const float* __restrict__ bias, const float* __restrict__ cheb,
-                          const float* __restrict__ stats, float* krT, TA* At, const Dims& D) {
-  const int N = D.N;
-  for (int e = threadIdx.x; e < N * D.dk; e += kThreads) {
-    const int j = e / D.dk, c = e % D.dk;
-    krT[c * N + j] = rnd(qk[((size_t)b * N + j) * D.HK2 + D.hk + k * D.dk + c], D.bf16);
-  }
-  __syncthreads();
-  const float* st = stats + ((size_t)b * D.K + k) * N * 2;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int ii = warp; ii < kRows; ii += kWarps) {
-    const int i = i0 + ii;
-    if (ii >= ni) {
-      for (int j = lane; j < N; j += 32) put(At, j * kRows + ii, 0.f);
-      continue;
-    }
-    const float* qrow = qk + ((size_t)b * N + i) * D.HK2 + k * D.dk;
-    const float* bias_i = bias + ((size_t)k * N + i) * N;
-    const float* cheb_i = cheb + ((size_t)k * N + i) * N;
-    for (int j = lane; j < N; j += 32) {
-      float dot = 0.f;  // score's FMA chain, on krT's column j
-      for (int c = 0; c < D.dk; ++c) dot = fmaf(rnd(qrow[c], D.bf16), krT[c * N + j], dot);
-      const float s = dot * D.inv_sqrt + bias_i[j];
-      put(At, j * kRows + ii, rnd(cheb_i[j] * (expf(s - st[2 * j]) / st[2 * j + 1]), D.bf16));
-    }
-  }
-  __syncthreads();
-}
-
-// dq_k[i] = sum_j md(ds)[i][j] md(k_k)[j] / sqrt(dk) for the block's rows
-__device__ __forceinline__ void dq_rows(int b, int k, int i0, int ni, const float* __restrict__ dS,
-                                        const float* krT, float* __restrict__ dqk,
-                                        const Dims& D) {
-  const int N = D.N;
-  const float* dSk = dS + ((size_t)b * D.K + k) * N * N;
-  for (int e = threadIdx.x; e < ni * D.dk; e += kThreads) {
-    const int ii = e / D.dk, c = e % D.dk;
-    const float* dsr = dSk + (size_t)(i0 + ii) * N;
-    const float* kc = krT + c * N;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < N; ++j) acc = fmaf(rnd(__ldg(dsr + j), D.bf16), kc[j], acc);
-    dqk[((size_t)b * N + i0 + ii) * D.HK2 + k * D.dk + c] = acc * D.inv_sqrt;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-sp_rows_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
-                   const float* __restrict__ cheb, const float* __restrict__ stats,
-                   const float* __restrict__ daggbuf, const float* __restrict__ dS,
-                   float* __restrict__ dxm, float* __restrict__ dqk, Dims D) {
-  extern __shared__ __align__(16) float sm[];
-  const int N = D.N, b = blockIdx.y, i0 = blockIdx.x * kRows;
-  const int ni = min(kRows, N - i0);
-  float* krT = sm;                   // (dk, N) md(k_k) of every target
-  float* At = krT + pad4(N * D.dk);  // (N, 16): At[j][ii] = A_k[i0+ii][j]
-  float* acc_s = At + N * kRows;     // (16, CT)
-  zero(acc_s, kRows * D.CT);
-  for (int k = 0; k < D.K; ++k) {
-    rows_of_A(b, k, i0, ni, qk, bias, cheb, stats, krT, At, D);
-    // dxm += A_k . dagg_k
-    const float* dg = daggbuf + ((size_t)b * D.K + k) * N * D.CT;
-    for (int m = threadIdx.x; m < D.CT; m += kThreads) {
-      float acc[kRows];
-#pragma unroll
-      for (int ii = 0; ii < kRows; ++ii) acc[ii] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < N; ++j) {
-        const float yv = __ldg(dg + (size_t)j * D.CT + m);
-        const float4* a4 = reinterpret_cast<const float4*>(At + j * kRows);
-#pragma unroll
-        for (int q = 0; q < kRows / 4; ++q) {
-          const float4 v = a4[q];
-          acc[4 * q] = fmaf(v.x, yv, acc[4 * q]);
-          acc[4 * q + 1] = fmaf(v.y, yv, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(v.z, yv, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(v.w, yv, acc[4 * q + 3]);
-        }
-      }
-#pragma unroll
-      for (int ii = 0; ii < kRows; ++ii) acc_s[ii * D.CT + m] += acc[ii];
-    }
-    dq_rows(b, k, i0, ni, dS, krT, dqk, D);
-    __syncthreads();
-  }
-  float* out = dxm + ((size_t)b * N + i0) * D.CT;
-  for (int e = threadIdx.x; e < ni * D.CT; e += kThreads) out[e] = acc_s[e];
-}
-
-// SC in bfloat16: dxm += md(A_k) . dagg_k on the tensor cores, the block's
-// (16, CTp) sums kept in shared memory across k; A_k's rows read col-major
-// from At, dagg_k as fragments from device memory. dq on the CUDA cores.
-__global__ void __launch_bounds__(kThreads)
-sp_rows_bwd_wmma_kernel(const float* __restrict__ qk, const float* __restrict__ bias,
-                        const float* __restrict__ cheb, const float* __restrict__ stats,
-                        const bf16* __restrict__ daggbuf, const float* __restrict__ dS,
-                        float* __restrict__ dxm, float* __restrict__ dqk, Dims D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int N = D.N, Np = D.Np, CTp = D.CTp, b = blockIdx.y, i0 = blockIdx.x * kRows;
-  const int ni = min(kRows, N - i0);
-  float* acc_s = reinterpret_cast<float*>(smem);             // (16, CTp)
-  bf16* At = reinterpret_cast<bf16*>(acc_s + kRows * CTp);    // (Np, 16)
-  float* krT = reinterpret_cast<float*>(At + Np * kRows);     // (dk, N)
-  for (int e = N * kRows + threadIdx.x; e < Np * kRows; e += kThreads)
-    At[e] = __float2bfloat16_rn(0.f);  // the padded targets add nothing
-  zero(acc_s, kRows * CTp);
-  const int warp = threadIdx.x / 32, MT = CTp / 16;
-  for (int k = 0; k < D.K; ++k) {
-    rows_of_A(b, k, i0, ni, qk, bias, cheb, stats, krT, At, D);
-    const bf16* dg = daggbuf + ((size_t)b * D.K + k) * Np * CTp;
-    for (int g0 = warp; g0 < MT; g0 += kWarps * kAcc) {
-      FragC acc[kAcc];
-#pragma unroll
-      for (int q = 0; q < kAcc; ++q) {
-        const int mt = g0 + q * kWarps;
-        if (mt < MT) wmma::load_matrix_sync(acc[q], acc_s + mt * 16, CTp, wmma::mem_row_major);
-      }
-#pragma unroll 2
-      for (int j0 = 0; j0 < Np; j0 += 16) {
-        FragAt a;
-        wmma::load_matrix_sync(a, At + j0 * kRows, kRows);
-#pragma unroll
-        for (int q = 0; q < kAcc; ++q) {
-          const int mt = g0 + q * kWarps;
-          if (mt < MT) {
-            FragB y;
-            wmma::load_matrix_sync(y, dg + (size_t)j0 * CTp + mt * 16, CTp);
-            wmma::mma_sync(acc[q], a, y, acc[q]);
+          for (int r = 0; r < kSrc / 16; ++r) {
+            FragA xf;
+            const size_t xo = xr + (size_t)r * 16 * D.CTcp + mt * 16;
+            wmma::load_matrix_sync(xf, xhi + xo, D.CTcp);
+            wmma::mma_sync(acc[r], xf, gf, acc[r]);
+            if (xlo) {
+              wmma::mma_sync(acc[r], xf, gl, acc[r]);
+              wmma::load_matrix_sync(xf, xlo + xo, D.CTcp);
+              wmma::mma_sync(acc[r], xf, gf, acc[r]);
+            }
           }
         }
       }
 #pragma unroll
-      for (int q = 0; q < kAcc; ++q) {
-        const int mt = g0 + q * kWarps;
-        if (mt < MT) wmma::store_matrix_sync(acc_s + mt * 16, acc[q], CTp, wmma::mem_row_major);
+      for (int r = 0; r < kSrc / 16; ++r)
+        wmma::store_matrix_sync(stage + (warp * kSrc + r * 16) * kCols, acc[r], kCols,
+                                wmma::mem_row_major);
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kSrc / 16; ++r) {
+        const int ii = ig + 16 * r, i = i0 + ii;
+        float ds = 0.f;
+        if (i < N && jj < nj) {
+          float dA = 0.f;  // the warps' partials in order
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) dA += stage[(w * kSrc + ii) * kCols + jj];
+          const size_t o = (size_t)i * N + j0 + jj;
+          const float s = score(qs + ii * D.LQ, kt + jj * D.LK, bias_k[o], D);
+          const float att = expf(s - st[2 * jj]) / st[2 * jj + 1];
+          ds = att * (cheb_k[o] * dA - dl[jj]);
+          dbias_k[o] = b == 0 ? ds : dbias_k[o] + ds;
+          const size_t g = ((size_t)b * D.K + k) * NN + o;
+          if (D.bf16)
+            static_cast<bf16*>(dS)[g] = __float2bfloat16_rn(ds);
+          else
+            static_cast<float*>(dS)[g] = ds;
+        }
+        dst[ii * kCols + jj] = rnd(ds, D.bf16);
+      }
+      __syncthreads();
+      // dk_k[j] += sum_i md(ds)[i][j] md(q_k)[i]
+      for (int e = threadIdx.x; e < kCols * D.dk; e += kThreads) {
+        const int jx = e / D.dk, c = e % D.dk;
+        float a = dka[e];
+        for (int ii = 0; ii < kSrc; ++ii) a = fmaf(dst[ii * kCols + jx], qs[ii * D.LQ + c], a);
+        dka[e] = a;
       }
     }
-    dq_rows(b, k, i0, ni, dS, krT, dqk, D);
     __syncthreads();
+    for (int e = threadIdx.x; e < nj * D.dk; e += kThreads) {
+      const int jx = e / D.dk, c = e % D.dk;
+      dkpart[(((size_t)sr * D.B + b) * N + j0 + jx) * D.hk + k * D.dk + c] = dka[e];
+    }
   }
-  float* out = dxm + ((size_t)b * N + i0) * D.CT;
-  for (int e = threadIdx.x; e < ni * D.CT; e += kThreads)
-    out[e] = acc_s[(e / D.CT) * CTp + e % D.CT];
+}
+
+// dk (the k half of dqk) = the source ranges' partials, summed in order, / sqrt(dk)
+__global__ void __launch_bounds__(kThreads)
+sp_dk_sum_kernel(const float* __restrict__ dkpart, float* __restrict__ dqk, Dims D) {
+  const size_t n = (size_t)D.B * D.N * D.hk;
+  for (size_t e = blockIdx.x * (size_t)kThreads + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * kThreads) {
+    float a = 0.f;
+    for (int s = 0; s < D.S; ++s) a += dkpart[(size_t)s * n + e];
+    dqk[(e / D.hk) * D.HK2 + D.hk + e % D.hk] = a * D.inv_sqrt;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq: per (16 sources, k, b), dq_k[i] = sum_j md(ds)[i][j] md(k_k)[j] /
+// sqrt(dk), the targets streamed kTgt at a time
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+sp_dq_kernel(const float* __restrict__ qk, const void* dS, float* __restrict__ dqk, Dims D) {
+  extern __shared__ __align__(16) float sm[];
+  const int N = D.N, i0 = blockIdx.x * kRows, k = blockIdx.y, b = blockIdx.z;
+  const int ni = min(kRows, N - i0);
+  float* ks = sm;                   // (kTgt, dk) md(k) rows
+  float* dsl = ks + kTgt * D.dk;    // (16, kTgt) md(ds)
+  float* dqa = dsl + kRows * kTgt;  // (16, dk) sums
+  for (int e = threadIdx.x; e < kRows * D.dk; e += kThreads) dqa[e] = 0.f;
+  const size_t base = ((size_t)b * D.K + k) * N * N;
+  for (int j0 = 0; j0 < N; j0 += kTgt) {
+    __syncthreads();  // the last step's tiles are consumed
+    stage_rows(qk, b, k, j0, kTgt, 1, ks, D.dk, D);
+    for (int e = threadIdx.x; e < kRows * kTgt; e += kThreads) {
+      const int ii = e / kTgt, j = j0 + e % kTgt;
+      float v = 0.f;
+      if (ii < ni && j < N) {
+        const size_t g = base + (size_t)(i0 + ii) * N + j;
+        v = D.bf16 ? __bfloat162float(static_cast<const bf16*>(dS)[g])
+                   : static_cast<const float*>(dS)[g];
+      }
+      dsl[e] = v;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kRows * D.dk; e += kThreads) {
+      const int ii = e / D.dk, c = e % D.dk;
+      float a = dqa[e];
+      for (int jx = 0; jx < kTgt; ++jx) a = fmaf(dsl[ii * kTgt + jx], ks[jx * D.dk + c], a);
+      dqa[e] = a;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < ni * D.dk; e += kThreads) {
+    const int ii = e / D.dk, c = e % D.dk;
+    dqk[((size_t)b * N + i0 + ii) * D.HK2 + k * D.dk + c] = dqa[e] * D.inv_sqrt;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rows: dxm (16 sources, the chunk's columns) = sum_k md(A_k) . dagg_k, the
+// targets streamed kTgt at a time with A_k rebuilt from the stats; the sums
+// stay in the warps' fragments over every k and target
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+sp_rows_bwd_kernel(const float* __restrict__ qk, const float* __restrict__ stats,
+                   const float* __restrict__ bias, const float* __restrict__ cheb,
+                   const bf16* __restrict__ dhi, const bf16* __restrict__ dlo,
+                   float* __restrict__ dxm, Dims D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = D.N, i0 = blockIdx.x * kRows, ch = blockIdx.y, b = blockIdx.z;
+  const int ni = min(kRows, N - i0), t0 = ch * D.Tc, nt = min(D.Tc, D.T - t0);
+  // every region a multiple of 32 bytes, so each WMMA tile starts aligned
+  float* qs = reinterpret_cast<float*>(smem);            // (16, LQ)
+  float* kt = qs + kRows * D.LQ;                          // (kTgt, LK)
+  float* st = kt + kTgt * D.LK;                           // (kTgt, 2)
+  bf16* ahi = reinterpret_cast<bf16*>(st + 2 * kTgt);     // (16, kTgt)
+  bf16* alo = ahi + kRows * kTgt;
+  float* out = reinterpret_cast<float*>(alo + kRows * kTgt);  // (16, CTcp)
+  const int warp = threadIdx.x / 32, MT = D.CTcp / 16;
+  const int jx = threadIdx.x % kTgt, ig = threadIdx.x / kTgt;
+  FragC acc[kAcc];
+#pragma unroll
+  for (int q = 0; q < kAcc; ++q) wmma::fill_fragment(acc[q], 0.f);
+  for (int k = 0; k < D.K; ++k) {
+    const float* bias_k = bias + (size_t)k * N * N;
+    const float* cheb_k = cheb + (size_t)k * N * N;
+    const size_t dk0 = d_chunk(b, k, ch, D);
+    __syncthreads();  // the last k's q is consumed
+    stage_rows(qk, b, k, i0, kRows, 0, qs, D.LQ, D);
+    for (int j0 = 0; j0 < N; j0 += kTgt) {
+      __syncthreads();  // the last step's A is consumed
+      stage_rows(qk, b, k, j0, kTgt, 1, kt, D.LK, D);
+      stage_stats(stats, b, k, j0, kTgt, st, D);
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kRows / (kThreads / kTgt); ++r) {
+        const int ii = ig + (kThreads / kTgt) * r, i = i0 + ii, j = j0 + jx;
+        float v = 0.f;
+        if (ii < ni && j < N) {
+          const size_t o = (size_t)i * N + j;
+          const float s = score(qs + ii * D.LQ, kt + jx * D.LK, bias_k[o], D);
+          v = cheb_k[o] * (expf(s - st[2 * jx]) / st[2 * jx + 1]);
+        }
+        put_A(ahi, alo, ii * kTgt + jx, v);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kTgt / 16; ++kk) {
+        FragA ah, al;
+        wmma::load_matrix_sync(ah, ahi + kk * 16, kTgt);
+        if (dlo) wmma::load_matrix_sync(al, alo + kk * 16, kTgt);
+        const size_t ro = dk0 + (size_t)(j0 + kk * 16) * D.CTcp;
+#pragma unroll
+        for (int q = 0; q < kAcc; ++q) {
+          const int mt = warp + kWarps * q;
+          if (mt >= MT) continue;
+          FragB yf;
+          wmma::load_matrix_sync(yf, dhi + ro + mt * 16, D.CTcp);
+          wmma::mma_sync(acc[q], ah, yf, acc[q]);
+          if (dlo) {
+            wmma::mma_sync(acc[q], al, yf, acc[q]);
+            wmma::load_matrix_sync(yf, dlo + ro + mt * 16, D.CTcp);
+            wmma::mma_sync(acc[q], ah, yf, acc[q]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kAcc; ++q) {
+    const int mt = warp + kWarps * q;
+    if (mt < MT) wmma::store_matrix_sync(out + mt * 16, acc[q], D.CTcp, wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < ni * D.CTc; e += kThreads) {
+    const int ii = e / D.CTc, col = e % D.CTc, c = col / D.Tc, tt = col % D.Tc;
+    if (tt < nt)
+      dxm[((size_t)b * N + i0 + ii) * D.CT + (size_t)c * D.T + t0 + tt] =
+          out[ii * D.CTcp + col];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1070,15 +1017,22 @@ Dims make_dims(int B, int N, int FT, int C, int T, int Co, int d, int K, int dk,
   D.hk = K * dk;
   D.HK2 = 2 * K * dk;
   D.bf16 = bf16;
-  D.Np = pad16(N);
-  D.CTp = pad16(D.CT);
-  D.Cp = pad16(C);
-  D.Cop = pad16(Co);
-  D.R = kCols * T;
-  D.LD = D.CTp + 8;
-  D.LC = D.Cp + 8;
-  D.LO = D.Cop + 8;
-  D.LF = D.Cop + 4;
+  D.LQ = (dk + 3) & ~3;
+  D.LK = D.LQ + 4;
+  time_chunks(T, C, Co, D.Tc, D.nTc);
+  D.CTc = C * D.Tc;
+  D.CTcp = pad16(D.CTc);
+  D.CoTc = Co * D.Tc;
+  D.Npad = (N + kSrc - 1) / kSrc * kSrc;
+  D.NJt = (N + kCols - 1) / kCols;
+  D.NIt = (N + kRows - 1) / kRows;
+  D.nST = D.Npad / kSrc;
+  // source ranges of the ds pass: blocks enough for two waves, no range empty
+  int S = (2 * kSms + D.NJt * K - 1) / (D.NJt * K);
+  if (S > D.nST) S = D.nST;
+  if (S < 1) S = 1;
+  const int per = (D.nST + S - 1) / S;
+  D.S = (D.nST + per - 1) / per;
   D.FTp = pad16(FT);
   D.dp = pad16(d);
   D.HKp = pad16(D.HK2);
@@ -1089,74 +1043,97 @@ Dims make_dims(int B, int N, int FT, int C, int T, int Co, int d, int K, int dk,
   return D;
 }
 
-// float32: the (16, FT) tat rows and (16, d) x_tat; bf16: x_tat (RW, LX)
-// and the warps' staging in float32, the md(tat) chunk (RW, kKC + 8) in bf16
+// Shared memory of each pass's block. None grows with N, F*T or C*T: the
+// tiles, dk, d and a time chunk's C*Tc and Co*Tc columns (at most
+// kChunkCols) set it.
+// SA float32: a (16, kFC) tat chunk and (16, d) x_tat; bf16: x_tat (RW,
+// LX) and the warps' staging in float32, the md(tat) chunk (RW, kKC + 8)
 size_t sa_smem(const Dims& D) {
-  return D.bf16 ? sa_wmma_smem(D, D.RW) : sizeof(float) * kRows * (D.FT + D.d);
+  return D.bf16 ? sa_wmma_smem(D, D.RW) : sizeof(float) * kRows * (kFC + D.d);
 }
-// float32: kt, att, A (N, 16), agg (16, CT), out (16, CoT); bf16: kt, att
-// (Np, 16), agg (16, CTp) and out (R, LF) in float32, A (Np, 16), aT (R,
-// LC) and thS (Cp, LO) in bf16
-size_t sb_fwd_smem(const Dims& D) {
-  if (D.bf16)
-    return sizeof(float) * ((size_t)kCols * D.dk + (size_t)D.Np * kCols + kCols * D.CTp +
-                            (size_t)D.R * D.LF) +
-           sizeof(bf16) * ((size_t)D.Np * kCols + (size_t)D.R * D.LC + D.Cp * D.LO);
-  return sizeof(float) * ((size_t)kCols * D.dk + 2 * (size_t)D.N * kCols + kCols * D.CT +
-                          kCols * D.CoT);
+// stats: keys (16, LK), queries (kSrc, LQ), the warps' (16, 2) partials
+size_t stats_smem(const Dims& D) {
+  return sizeof(float) * ((size_t)kCols * D.LK + (size_t)kSrc * D.LQ + kWarps * kCols * 2);
 }
-// float32: kt, att, A, ds (N, 16), agg, dagg (16, CT), gm (16, CoT); bf16:
-// kt, att, ds (Np, 16), agg (16, CTp) and the warps' staging in float32,
-// A (Np, 16), dagg (16, LD), gT (R, LO), aT (R, LC) and thS (Cp, LO) in bf16
-size_t sb_bwd_smem(const Dims& D) {
-  if (D.bf16)
-    return sizeof(float) * ((size_t)kCols * D.dk + 2 * (size_t)D.Np * kCols + kCols * D.CTp +
-                            kWarps * 256) +
-           sizeof(bf16) * ((size_t)D.Np * kCols + kCols * D.LD + (size_t)D.R * (D.LO + D.LC) +
-                           D.Cp * D.LO);
-  return sizeof(float) * ((size_t)kCols * D.dk + 3 * (size_t)D.N * kCols + 2 * kCols * D.CT +
-                          kCols * D.CoT);
+// cols and cols_bwd: keys, queries, stats (32 floats), A hi and lo (kSrc,
+// 16) bf16, agg (16, CTcp) and out or gm (16, CoTc); cols_bwd in bf16 also
+// agg_lo (16, CTcp)
+size_t cols_smem(const Dims& D) {
+  return sizeof(float) * ((size_t)kCols * D.LK + (size_t)kSrc * D.LQ + 32 + kCols * D.CTcp +
+                          kCols * D.CoTc) +
+         sizeof(bf16) * 2 * kSrc * kCols;
 }
-// float32: krT (dk, N), At (N, 16), the (16, CT) sums; bf16: the (16, CTp)
-// sums and krT in float32, At (Np, 16) in bf16
-size_t sc_smem(const Dims& D) {
-  if (D.bf16)
-    return sizeof(float) * ((size_t)kRows * D.CTp + (size_t)D.N * D.dk) +
-           sizeof(bf16) * (size_t)D.Np * kRows;
-  return sizeof(float) * ((size_t)pad4(D.N * D.dk) + (size_t)D.N * kRows + kRows * D.CT);
+size_t cols_bwd_smem(const Dims& D) {
+  return cols_smem(D) + (D.bf16 ? sizeof(float) * kCols * D.CTcp : 0);
+}
+// ds: keys, queries, stats, delta (16), the warps' dA partials (kSrc, 16)
+// each, md(ds) (kSrc, 16), the dk sums (16, dk)
+size_t ds_smem(const Dims& D) {
+  return sizeof(float) * ((size_t)kCols * D.LK + (size_t)kSrc * D.LQ + (size_t)kCols * D.dk +
+                          3 * kCols + (kWarps + 1) * kSrc * kCols);
+}
+// dq: keys (kTgt, dk), md(ds) (16, kTgt), the dq sums (16, dk)
+size_t dq_smem(const Dims& D) {
+  return sizeof(float) * ((size_t)(kTgt + kRows) * D.dk + kRows * kTgt);
+}
+// rows: queries (16, LQ), keys (kTgt, LK), stats (kTgt, 2), A hi and lo
+// (16, kTgt) bf16, the (16, CTcp) result
+size_t rows_smem(const Dims& D) {
+  return sizeof(float) * ((size_t)kRows * D.LQ + (size_t)kTgt * D.LK + 2 * kTgt +
+                          kRows * D.CTcp) +
+         sizeof(bf16) * 2 * kRows * kTgt;
 }
 size_t sd_smem(const Dims& D) { return sizeof(float) * kRows * (D.HK2 + D.d); }
 
-// the backward's workspace layout (floats), every region on 256 bytes (the
-// bf16 dagg_k planes are read as WMMA fragments). dagg_k is (B, K, N, CT)
-// float32, or (B, K, Np, CTp) bf16.
+// a shape the passes cannot take: a time step's C or Co columns past
+// kChunkCols, or a grid dimension past 65535
+bool refused(const Dims& D) {
+  return D.C > kChunkCols || D.Co > kChunkCols || D.B > 65535 || D.K > 65535 ||
+         D.nTc > 65535;
+}
+
+// the chunked bf16 copies' elements: xm (B, nTc, Npad, CTcp), dagg a k each
+size_t chunked_elems(const Dims& D, int per_k) {
+  return (size_t)D.B * (per_k ? D.K : 1) * D.nTc * D.Npad * D.CTcp;
+}
+
+// the forward's workspace (floats): qk (B, N, HK2), the stats (B, K, N, 2)
+size_t fwd_stats_at(const Dims& D) { return ((size_t)D.B * D.N * D.HK2 + 63) & ~(size_t)63; }
+
+// the backward's workspace layout (floats), every region on 256 bytes
+// (the bf16 dagg copies are read as WMMA fragments): dagg hi (and lo in
+// float32) bf16, delta (B, K, nTc, N), ds (B, K, N, N) float32 (bf16 in
+// bf16), the dk partials (S, B, N, K*dk), the dtheta partials (B, NJt,
+// nTc, K, C, Co)
 struct BwdSpace {
-  size_t qk, semx, xhat, inv, dagg, dS, dqk, dse, vec, part, stats, scratch, total;
+  size_t qk, semx, xhat, inv, stats, dagg, delta, dS, dkpart, dqk, dse, vec, part, scratch,
+      total;
 };
 
 BwdSpace bwd_space(const Dims& D) {
-  const size_t BN = (size_t)D.B * D.N;
-  const int NJt = (D.N + kCols - 1) / kCols;
+  const size_t BN = (size_t)D.B * D.N, NN = (size_t)D.N * D.N;
   const auto up = [](size_t n) { return (n + 63) & ~(size_t)63; };
-  const size_t dagg = D.bf16 ? (size_t)D.B * D.K * D.Np * D.CTp / 2 : BN * D.K * D.CT;
+  const size_t dagg = chunked_elems(D, 1) / 2 * (D.bf16 ? 1 : 2);
+  const size_t ds = D.bf16 ? ((size_t)D.B * D.K * NN + 1) / 2 : (size_t)D.B * D.K * NN;
   BwdSpace s;
   s.qk = 0;
   s.semx = up(s.qk + BN * D.HK2);
   s.xhat = up(s.semx + BN * D.d);
   s.inv = up(s.xhat + BN * D.d);
-  s.dagg = up(s.inv + BN);
-  s.dS = up(s.dagg + dagg);
-  s.dqk = up(s.dS + BN * D.K * D.N);
+  s.stats = up(s.inv + BN);
+  s.dagg = up(s.stats + BN * D.K * 2);
+  s.delta = up(s.dagg + dagg);
+  s.dS = up(s.delta + (size_t)D.B * D.K * D.nTc * D.N);
+  s.dkpart = up(s.dS + ds);
+  s.dqk = up(s.dkpart + (size_t)D.S * BN * D.hk);
   s.dse = up(s.dqk + BN * D.HK2);
   s.vec = up(s.dse + BN * D.d);
   s.part = up(s.vec + BN * 2 * D.d);
-  s.stats = up(s.part + (size_t)D.B * NJt * D.K * D.C * D.Co);
-  s.scratch = up(s.stats + BN * D.K * 2);
+  s.scratch = up(s.part + (size_t)D.B * D.NJt * D.nTc * D.K * D.C * D.Co);
   size_t sc = dense::atb_scratch((int)BN, D.FT, D.d);
   const size_t more[] = {
       dense::atb_scratch((int)BN, D.d, D.HK2),
-      dense::sum_rows_scratch(D.B, D.K * D.N * D.N),
-      dense::sum_rows_scratch(D.B * NJt, D.K * D.C * D.Co),
+      dense::sum_rows_scratch(D.B * D.NJt * D.nTc, D.K * D.C * D.Co),
       dense::sum_rows_scratch(D.B, D.N * D.d),
       dense::sum_rows_scratch((int)BN, D.d),
       dense::sum_rows_scratch((int)BN, 2 * D.d),
@@ -1167,156 +1144,163 @@ BwdSpace bwd_space(const Dims& D) {
   return s;
 }
 
+template <typename Kern, typename... Args>
+cudaError_t launch(Kern kernel, dim3 grid, size_t smem, cudaStream_t st, Args... args) {
+  cudaError_t err = dense::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
 // SA for the forward (qk) and the backward (qk, semx, x_hat, 1/std): in
 // bf16 on the tensor cores from pw16, wqk16, else on the CUDA cores
 cudaError_t launch_sa(const float* tat, const float* pw, const bf16* pw16, const float* pb,
                       const float* pos, const float* gs, const float* bs, const float* wqk,
                       const bf16* wqk16, const float* dmask, float* qk, float* semx,
                       float* xhat, float* inv, const Dims& D, cudaStream_t st) {
-  const size_t smem = sa_smem(D);
-  cudaError_t err;
-  if (D.bf16) {
-    if ((err = dense::allow_smem(sp_embed_wmma_kernel, smem)) != cudaSuccess) return err;
-    const int blocks = (D.B * D.N + D.RW - 1) / D.RW;
-    sp_embed_wmma_kernel<<<blocks, kThreads, smem, st>>>(tat, pw16, pb, pos, gs, bs, wqk16,
-                                                         dmask, qk, semx, xhat, inv, D);
-  } else {
-    if ((err = dense::allow_smem(sp_embed_kernel, smem)) != cudaSuccess) return err;
-    const dim3 grid((D.N + kRows - 1) / kRows, D.B);
-    sp_embed_kernel<<<grid, kThreads, smem, st>>>(tat, pw, pb, pos, gs, bs, wqk, dmask, qk,
-                                                  semx, xhat, inv, D);
-  }
-  return cudaGetLastError();
+  if (D.bf16)
+    return launch(sp_embed_wmma_kernel, dim3((D.B * D.N + D.RW - 1) / D.RW), sa_smem(D), st,
+                  tat, pw16, pb, pos, gs, bs, wqk16, dmask, qk, semx, xhat, inv, D);
+  return launch(sp_embed_kernel, dim3(D.NIt, D.B), sa_smem(D), st, tat, pw, pb, pos, gs, bs,
+                wqk, dmask, qk, semx, xhat, inv, D);
+}
+
+// the column statistics of every (b, k) into stats
+cudaError_t launch_stats(const float* qk, const float* bias, float* stats, const Dims& D,
+                         cudaStream_t st) {
+  return launch(sp_colstats_kernel, dim3(D.NJt, D.K, D.B), stats_smem(D), st, qk, bias, stats,
+                D);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of the forward's (qk) and the backward's workspace.
+// Floats of the forward's (qk, stats) and the backward's workspace.
 size_t spatial_fused_workspace_floats(int B, int N, int FT, int C, int T, int Co, int d,
                                       int K, int dk, int backward, int bf16) {
   const Dims D = make_dims(B, N, FT, C, T, Co, d, K, dk, 1.f, bf16);
-  return backward ? bwd_space(D).total : (size_t)B * N * D.HK2;
+  return backward ? bwd_space(D).total : fwd_stats_at(D) + (size_t)B * N * K * 2;
 }
 
-// Bytes of shared memory a block of each kernel requests: 0 SA, 1 SB
-// forward, 2 SB backward, 3 SC, 4 SD; SA and both SB and SC in the bf16
-// (tensor-core) layout when bf16 is set.
+// Bytes of shared memory a block of each kernel requests: 0 SA, 1 stats, 2
+// cols, 3 cols_bwd, 4 ds, 5 dq, 6 rows, 7 SD; SA in the bf16 (tensor-core)
+// layout when bf16 is set.
 size_t spatial_fused_smem_bytes(int N, int FT, int C, int T, int Co, int d, int K, int dk,
                                 int kernel, int bf16) {
   const Dims D = make_dims(1, N, FT, C, T, Co, d, K, dk, 1.f, bf16);
   switch (kernel) {
     case 0: return sa_smem(D);
-    case 1: return sb_fwd_smem(D);
-    case 2: return sb_bwd_smem(D);
-    case 3: return sc_smem(D);
+    case 1: return stats_smem(D);
+    case 2: return cols_smem(D);
+    case 3: return cols_bwd_smem(D);
+    case 4: return ds_smem(D);
+    case 5: return dq_smem(D);
+    case 6: return rows_smem(D);
     default: return sd_smem(D);
   }
 }
 
+// Time chunks of the chunked xm copy: writes Tc (steps a chunk), nTc
+// (chunks), CTcp (columns a chunk row, padded to 16) and Npad (rows).
+void spatial_fused_chunks(int N, int C, int T, int Co, int* out) {
+  const Dims D = make_dims(1, N, 1, C, T, Co, 1, 1, 1, 1.f, 1);
+  out[0] = D.Tc;
+  out[1] = D.nTc;
+  out[2] = D.CTcp;
+  out[3] = D.Npad;
+}
+
 // Forward: y (B, N, Co*T) float32. dmask (B, N, d) of 0/1 or null (no
-// dropout). With bf16 set both passes run on the tensor cores and read the
-// wrapper's bf16 copies, zero-padded to multiples of 16: xm_pad (B, Np,
-// CTp), pw_pad (FTp, dp), wqk_pad (dp, HKp); otherwise those are unused.
-// Returns cudaGetLastError().
-int spatial_fused_forward(const float* tat, const float* xm, const float* dmask,
-                          const float* pw, const float* pb, const float* pos, const float* gs,
-                          const float* bs, const float* wqk, const float* bias,
-                          const float* cheb, const float* theta, const void* xm_pad,
+// dropout). xm_hi (B, nTc, Npad, CTcp) bf16 is the wrapper's chunked copy
+// of xm (spatial_fused_chunks), zero outside; in float32 xm_lo holds the
+// lo terms of the same split, in bf16 it is null. With bf16 set SA runs
+// on the tensor cores and reads the wrapper's zero-padded bf16 copies
+// pw_pad (FTp, dp) and wqk_pad (dp, HKp). Returns cudaGetLastError().
+int spatial_fused_forward(const float* tat, const float* dmask, const float* pw,
+                          const float* pb, const float* pos, const float* gs, const float* bs,
+                          const float* wqk, const float* bias, const float* cheb,
+                          const float* theta, const void* xm_hi, const void* xm_lo,
                           const void* pw_pad, const void* wqk_pad, float* y, float* ws, int B,
                           int N, int FT, int C, int T, int Co, int d, int K, int dk,
                           float keep, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims D = make_dims(B, N, FT, C, T, Co, d, K, dk, keep, bf16);
-  const auto* pw16 = static_cast<const wm::bf16*>(pw_pad);
-  const auto* wqk16 = static_cast<const wm::bf16*>(wqk_pad);
-  cudaError_t err = launch_sa(tat, pw, pw16, pb, pos, gs, bs, wqk, wqk16, dmask, ws, nullptr,
+  if (refused(D)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* xhi = static_cast<const wm::bf16*>(xm_hi);
+  const auto* xlo = static_cast<const wm::bf16*>(xm_lo);
+  float* stats = ws + fwd_stats_at(D);
+  cudaError_t err = launch_sa(tat, pw, static_cast<const wm::bf16*>(pw_pad), pb, pos, gs, bs,
+                              wqk, static_cast<const wm::bf16*>(wqk_pad), dmask, ws, nullptr,
                               nullptr, nullptr, D, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sb_fwd_smem(D);
-  const dim3 grid((N + kCols - 1) / kCols, B);
-  if (bf16) {
-    if ((err = dense::allow_smem(sp_cols_fwd_wmma_kernel, smem)) != cudaSuccess)
-      return static_cast<int>(err);
-    sp_cols_fwd_wmma_kernel<<<grid, kThreads, smem, st>>>(
-        ws, bias, cheb, static_cast<const wm::bf16*>(xm_pad), theta, y, D);
-  } else {
-    if ((err = dense::allow_smem(sp_cols_fwd_kernel, smem)) != cudaSuccess)
-      return static_cast<int>(err);
-    sp_cols_fwd_kernel<<<grid, kThreads, smem, st>>>(ws, bias, cheb, xm, theta, y, D);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) err = launch_stats(ws, bias, stats, D, st);
+  if (err == cudaSuccess)
+    err = launch(sp_cols_fwd_kernel, dim3(D.NJt, D.nTc, B), cols_smem(D), st,
+                 (const float*)ws, (const float*)stats, bias, cheb, xhi, xlo, theta, y, D);
+  return static_cast<int>(err);
 }
 
 // Backward: dtat (B,N,FT), dxm (B,N,C*T); dpw (FT,d), dvec (3,d) = [dpb,
 // dgs, dbs], dpos (N,d), dwqk (d,2Kdk), dbias (K,N,N), dtheta (K,C,Co), all
 // summed over b in a fixed order. pw_t (d,FT) and wqk_t (2Kdk,d) are the
 // transposed weights. relu_pos (B,N,Co*T) holds 1 where the forward's
-// float32 output was > 0, else 0. With bf16 set the SA, SB and SC passes
-// run on the tensor cores and read the forward's bf16 copies xm_pad,
-// pw_pad and wqk_pad; otherwise those are unused. `ws` holds
-// spatial_fused_workspace_floats(..., 1, bf16).
-int spatial_fused_backward(const float* tat, const float* xm, const float* dmask,
-                           const float* pw, const float* pw_t, const float* pb,
-                           const float* pos, const float* gs, const float* bs,
-                           const float* wqk, const float* wqk_t, const float* bias,
-                           const float* cheb, const float* theta, const float* g_out,
-                           const unsigned char* relu_pos, const void* xm_pad,
-                           const void* pw_pad, const void* wqk_pad, float* dtat,
-                           float* dxm, float* dpw, float* dvec, float* dpos, float* dwqk,
-                           float* dbias, float* dtheta, float* ws, int B, int N,
+// float32 output was > 0, else 0. xm_hi, xm_lo, pw_pad and wqk_pad as the
+// forward's. `ws` holds spatial_fused_workspace_floats(..., 1, bf16).
+int spatial_fused_backward(const float* tat, const float* dmask, const float* pw,
+                           const float* pw_t, const float* pb, const float* pos,
+                           const float* gs, const float* bs, const float* wqk,
+                           const float* wqk_t, const float* bias, const float* cheb,
+                           const float* theta, const float* g_out,
+                           const unsigned char* relu_pos, const void* xm_hi,
+                           const void* xm_lo, const void* pw_pad, const void* wqk_pad,
+                           float* dtat, float* dxm, float* dpw, float* dvec, float* dpos,
+                           float* dwqk, float* dbias, float* dtheta, float* ws, int B, int N,
                            int FT, int C, int T, int Co, int d, int K, int dk, float keep,
                            int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims D = make_dims(B, N, FT, C, T, Co, d, K, dk, keep, bf16);
+  if (refused(D)) return static_cast<int>(cudaErrorInvalidValue);
   const BwdSpace s = bwd_space(D);
-  const int BN = B * N, NJt = (N + kCols - 1) / kCols, NIt = (N + kRows - 1) / kRows;
-  const auto* pw16 = static_cast<const wm::bf16*>(pw_pad);
-  const auto* wqk16 = static_cast<const wm::bf16*>(wqk_pad);
-  cudaError_t err = launch_sa(tat, pw, pw16, pb, pos, gs, bs, wqk, wqk16, dmask, ws + s.qk,
+  const int BN = B * N;
+  const auto* xhi = static_cast<const wm::bf16*>(xm_hi);
+  const auto* xlo = static_cast<const wm::bf16*>(xm_lo);
+  wm::bf16* dhi = reinterpret_cast<wm::bf16*>(ws + s.dagg);
+  wm::bf16* dlo = bf16 ? nullptr : dhi + chunked_elems(D, 1);
+  const float* qk = ws + s.qk;
+  const float* stats = ws + s.stats;
+  cudaError_t err = launch_sa(tat, pw, static_cast<const wm::bf16*>(pw_pad), pb, pos, gs, bs,
+                              wqk, static_cast<const wm::bf16*>(wqk_pad), dmask, ws + s.qk,
                               ws + s.semx, ws + s.xhat, ws + s.inv, D, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  // SB and SC: bf16 on the tensor cores, float32 on the CUDA cores
-  size_t smem = sb_bwd_smem(D);
-  wm::bf16* dagg16 = reinterpret_cast<wm::bf16*>(ws + s.dagg);
-  if (bf16) {
-    err = dense::allow_smem(sp_cols_bwd_wmma_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sp_cols_bwd_wmma_kernel<<<dim3(NJt, B), kThreads, smem, st>>>(
-        ws + s.qk, bias, cheb, static_cast<const wm::bf16*>(xm_pad), theta, g_out, relu_pos,
-        dagg16, ws + s.dS, ws + s.dqk, ws + s.part, ws + s.stats, D);
-  } else {
-    err = dense::allow_smem(sp_cols_bwd_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sp_cols_bwd_kernel<<<dim3(NJt, B), kThreads, smem, st>>>(
-        ws + s.qk, bias, cheb, xm, theta, g_out, relu_pos, ws + s.dagg, ws + s.dS, ws + s.dqk,
-        ws + s.part, ws + s.stats, D);
+  if (err == cudaSuccess) err = launch_stats(qk, bias, ws + s.stats, D, st);
+  // the dagg copies' padding (rows past the last tile) stays zero
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(dhi, 0, sizeof(wm::bf16) * chunked_elems(D, 1) * (bf16 ? 1 : 2), st);
+  if (err == cudaSuccess)
+    err = launch(sp_cols_bwd_kernel, dim3(D.NJt, D.nTc, B), cols_bwd_smem(D), st, qk, stats, bias,
+                 cheb, xhi, xlo, theta, g_out, relu_pos, dhi, dlo, ws + s.delta, ws + s.part, D);
+  if (err == cudaSuccess)
+    err = launch(sp_ds_kernel, dim3(D.NJt, K, D.S), ds_smem(D), st, qk, stats, bias, cheb, xhi,
+                 xlo, (const wm::bf16*)dhi, (const wm::bf16*)dlo, (const float*)(ws + s.delta),
+                 dbias, (void*)(ws + s.dS), ws + s.dkpart, D);
+  if (err == cudaSuccess) {
+    const size_t n = (size_t)BN * D.hk;
+    const size_t blocks = (n + kThreads - 1) / kThreads;
+    sp_dk_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), kThreads, 0, st>>>(
+        ws + s.dkpart, ws + s.dqk, D);
+    err = cudaGetLastError();
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  smem = sc_smem(D);
-  if (bf16) {
-    err = dense::allow_smem(sp_rows_bwd_wmma_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sp_rows_bwd_wmma_kernel<<<dim3(NIt, B), kThreads, smem, st>>>(
-        ws + s.qk, bias, cheb, ws + s.stats, dagg16, ws + s.dS, dxm, ws + s.dqk, D);
-  } else {
-    err = dense::allow_smem(sp_rows_bwd_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sp_rows_bwd_kernel<<<dim3(NIt, B), kThreads, smem, st>>>(
-        ws + s.qk, bias, cheb, ws + s.stats, ws + s.dagg, ws + s.dS, dxm, ws + s.dqk, D);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  smem = sd_smem(D);
-  err = dense::allow_smem(sp_embed_bwd_kernel, smem);
+  if (err == cudaSuccess)
+    err = launch(sp_dq_kernel, dim3(D.NIt, K, B), dq_smem(D), st, qk,
+                 (const void*)(ws + s.dS), ws + s.dqk, D);
+  if (err == cudaSuccess)
+    err = launch(sp_rows_bwd_kernel, dim3(D.NIt, D.nTc, B), rows_smem(D), st, qk, stats, bias,
+                 cheb, (const wm::bf16*)dhi, (const wm::bf16*)dlo, dxm, D);
+  if (err == cudaSuccess)
+    err = launch(sp_embed_bwd_kernel, dim3(D.NIt, B), sd_smem(D), st,
+                 (const float*)(ws + s.dqk), wqk_t, pw_t, gs, dmask,
+                 (const float*)(ws + s.xhat), (const float*)(ws + s.inv), ws + s.dse,
+                 ws + s.vec, dtat, D);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sp_embed_bwd_kernel<<<dim3(NIt, B), kThreads, smem, st>>>(
-      ws + s.dqk, wqk_t, pw_t, gs, dmask, ws + s.xhat, ws + s.inv, ws + s.dse, ws + s.vec,
-      dtat, D);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   float* scratch = ws + s.scratch;
   if ((err = dense::atb(tat, ws + s.dse, dpw, scratch, BN, FT, d, bf16, bf16, st)) !=
@@ -1325,10 +1309,8 @@ int spatial_fused_backward(const float* tat, const float* xm, const float* dmask
   if ((err = dense::atb(ws + s.semx, ws + s.dqk, dwqk, scratch, BN, d, D.HK2, 0, bf16, st)) !=
       cudaSuccess)
     return static_cast<int>(err);
-  if ((err = dense::sum_rows(ws + s.dS, dbias, scratch, B, K * N * N, st)) != cudaSuccess)
-    return static_cast<int>(err);
-  if ((err = dense::sum_rows(ws + s.part, dtheta, scratch, B * NJt, K * C * Co, st)) !=
-      cudaSuccess)
+  if ((err = dense::sum_rows(ws + s.part, dtheta, scratch, B * D.NJt * D.nTc, K * C * Co,
+                             st)) != cudaSuccess)
     return static_cast<int>(err);
   if ((err = dense::sum_rows(ws + s.dse, dpos, scratch, B, N * d, st)) != cudaSuccess)
     return static_cast<int>(err);

@@ -35,7 +35,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// out[r*ldo + c] = sum_k a[r*lda + k] * w[k*ldw + c], r < R, c < C.
+// out[r*ldo + c] = sum_k a[r*lda + k] * w[k*ldw + c], r < R, c < C (with
+// kAdd, out[r*ldo + c] += that sum: a product over chunks of k).
 // `a` is in shared memory; `w` is row-major in device memory; `out` may be
 // either. Work item = (chunk of RC rows, column), columns fastest: a warp
 // reads a row of w coalesced and each `a` value is a shared broadcast; w is
@@ -43,7 +44,7 @@ __device__ __forceinline__ float warp_max(float v) {
 // multiples of 4), four k steps share one 16-byte load of each a row and
 // four loads of w are in flight; the sums run over k in the same order on
 // both paths.
-template <int RC>
+template <int RC, bool kAdd = false>
 __device__ __forceinline__ void rows_x_mat(const float* a, int lda, int R, int Kd,
                                            const float* __restrict__ w, int ldw, int C,
                                            float* out, int ldo) {
@@ -85,7 +86,10 @@ __device__ __forceinline__ void rows_x_mat(const float* a, int lda, int R, int K
     }
 #pragma unroll
     for (int r = 0; r < RC; ++r)
-      if (r < nr) out[(size_t)(r0 + r) * ldo + c] = acc[r];
+      if (r < nr) {
+        float* o = out + (size_t)(r0 + r) * ldo + c;
+        *o = kAdd ? *o + acc[r] : acc[r];
+      }
   }
 }
 

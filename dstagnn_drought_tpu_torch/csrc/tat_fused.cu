@@ -3,7 +3,7 @@
 // Replaces the Pallas kernels of dstagnn_drought_tpu/ops/pallas/tat_fused.py:
 // `_tat_fwd_impl` (`_fwd_kernel`) and `_tat_vjp_bwd` (`_bwd_kernel`). Per row
 // r of B*F, with x (BF, T, N), res and scores (BF, H, T, T), wqkv (N, W),
-// W = 2*H*dk + H*dv, wo (H*dv, N), all float32, row-major, contiguous:
+// W = 2*H*dk + H*dv, wo (H*dv, N), row-major, contiguous:
 //
 //   te   = embed ? LN(x + pos)*g0 + b0 : x
 //   qkv  = te . wqkv
@@ -13,43 +13,30 @@
 //   out  = LN(ctx . wo + te)*g1 + b1                (LN over N)
 //
 // The TPU kernel widens every operand to float32 and so does this one; the
-// wrapper rounds out/scores (and dx/dres) to the caller's dtype.
+// caller's dtype (bfloat16 or float32) is that of its inputs, and out and
+// scores (dx and dres) are written in it, or in float32 on request.
 //
 // Bound on an H100: about 2*T*N*W + 4*H*T^2*dk + 2*T*H*dv*N flops a row
 // (1.6 MFLOP at PEMS08, N=170, T=12, H=3, dk=dv=32) against ~0.03 MB a row
-// of activations: float32 operations, not bytes, bound it. The design:
-//   forward: one block a row; the row's te, qkv, scores, context and
-//     out-projection live in shared memory (~35 KB at PEMS08); the weights
-//     stay in device memory (L2-resident, 0.26 MB) and are streamed once a
-//     row per product, coalesced along their columns, with the row's sums
-//     in registers (dense_common.cuh rows_x_mat).
-//   backward: one block a row recomputes the forward, then runs LN1
-//     backward, the out-projection backward, the query-axis softmax
-//     backward, the QKV backward, the residual and (embed) LN0 backward. The
-//     TPU kernel sums the weight gradients in a resident output block across
-//     its sequential grid; CUDA blocks run concurrently, so each row writes
-//     its factors instead (te, g_qkv, ctx, g_ypre and per-row LN vectors),
-//     and dwqkv = te^T g_qkv, dwo = ctx^T g_ypre are contracted over all
-//     B*F*T rows by a split-row product whose partials are summed in a fixed
-//     order (dense_common.cuh). No float atomics: two launches give the same
-//     bits.
-// That float32 design keeps a row in one block, which caps N and T (shared
-// memory), and runs its products on the CUDA cores.
-//
-// bfloat16 (the model's compute dtype) has a design of its own, still
-// float32 in value. The caller casts x, res, the weights and the LN vectors
-// to bf16 first, so qkv = x . wqkv is one bf16 product; every other product
-// has a float32 operand a, split into hi = bf16(a) and lo = bf16(a - hi)
-// (residual <= 2^-18 |a|): two bf16 products where the other operand is
-// bf16 (ctx . wo, g_ypre . wo^T, g_qkv . wqkv^T, te^T . g_qkv), three where
-// neither is (ctx^T . g_ypre). Each runs on the tensor cores (WMMA 16x16x16
-// bf16 fragments, float32 sums). The row is taken apart into passes over
-// the flat M = B*F*T rows, tiles of 64, 32 or 16 rows (the most whose
-// shared memory fits, fewer while M would give fewer tiles than the card
-// has SMs), so any N and T up to the passes' caps fit:
+// of activations: operations, not bytes, bound it. The TPU kernel holds a
+// row in VMEM; a row of a CUDA block would cap N and T by its 227 KB, so
+// the row is taken apart into passes over the flat M = B*F*T rows, one
+// design for both dtypes. Every product runs on the tensor cores (WMMA
+// 16x16x16 bf16 fragments, float32 sums) with each float32 operand a split
+// into hi = bf16(a) and lo = bf16(a - hi) (residual <= 2^-18 |a|), so the
+// function stays float32 in value: in bfloat16 the inputs are bf16-exact
+// and qkv = x . wqkv is one bf16 product, the others two (hi and lo of the
+// float32 intermediate against the bf16 weight: ctx . wo, g_ypre . wo^T,
+// g_qkv . wqkv^T, te^T . g_qkv) or three (ctx^T . g_ypre); in float32 x and
+// the weights are split too (the prep kernel writes the weights' hi and lo
+// copies), and every product is three (hi.hi + hi.lo + lo.hi). The passes,
+// tiles of 64, 32 or 16 rows (the most whose shared memory fits, fewer
+// while M would give fewer tiles than the card has SMs), so any N and T up
+// to the passes' caps fit:
 //   1 tat_qkv_kernel: qkv = te . wqkv over 64-column chunks of te and wqkv
-//     (wqkv's chunk staged by cp.async while te's is converted); embed adds
-//     the LN0 prologue and writes te and its row statistics;
+//     (wqkv's chunk, hi and in float32 lo, staged by cp.async while te's is
+//     converted); embed adds the LN0 prologue and writes te and its row
+//     statistics;
 //   2 tat_attn_fwd_kernel, a block a (row of B*F, head): the raw scores
 //     (an output), the query-axis softmax and ctx, float32 on the CUDA
 //     cores, in chunks of 32 key columns (each key column's softmax is
@@ -83,301 +70,9 @@ namespace {
 using dense::kThreads;
 using dense::kWarps;
 
-struct Dims {
-  int T, N, H, dk, dv, W, hk, hv, embed;
-  float inv_sqrt;
-};
-
-// te (and x0_hat/inv0 when embedding) from row x, in shared memory
-__device__ void embed_rows(const float* __restrict__ xr, const float* __restrict__ pos,
-                           const float* __restrict__ g0, const float* __restrict__ b0,
-                           float* te, float* x0_hat, float* inv0, const Dims& d) {
-  const int TN = d.T * d.N;
-  for (int e = threadIdx.x; e < TN; e += kThreads)
-    te[e] = d.embed ? xr[e] + pos[e] : xr[e];
-  __syncthreads();
-  if (!d.embed) return;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t = warp; t < d.T; t += kWarps) {
-    float* z = te + t * d.N;
-    float mu, inv;
-    dense::ln_stats(z, d.N, mu, inv);
-    for (int n = lane; n < d.N; n += 32) {
-      const float h = (z[n] - mu) * inv;
-      if (x0_hat) x0_hat[t * d.N + n] = h;
-      z[n] = h * g0[n] + b0[n];
-    }
-    if (inv0 && lane == 0) inv0[t] = inv;
-  }
-  __syncthreads();
-}
-
-// qkv, softmax-over-queries attention a (raw scores to `scores` when given),
-// context, and z = ctx . wo + te; x1_hat/inv1 of LN1 in place of z
-__device__ void attention_rows(const float* te, const float* __restrict__ wqkv,
-                               const float* __restrict__ wo, const float* __restrict__ res,
-                               float* qkv, float* a, float* ctx, float* z, float* inv1,
-                               float* __restrict__ scores, const Dims& d) {
-  const int T = d.T, TT = T * T;
-  dense::rows_x_mat<16>(te, d.N, T, d.N, wqkv, d.W, d.W, qkv, d.W);
-  __syncthreads();
-  for (int e = threadIdx.x; e < d.H * TT; e += kThreads) {
-    const int h = e / TT, q = (e / T) % T, k = e % T;
-    const float* qr = qkv + q * d.W + h * d.dk;
-    const float* kr = qkv + k * d.W + d.hk + h * d.dk;
-    float dot = 0.f;
-    for (int c = 0; c < d.dk; ++c) dot = fmaf(qr[c], kr[c], dot);
-    const float s = dot * d.inv_sqrt + res[e];
-    a[e] = s;
-    if (scores) scores[e] = s;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < d.H * T; e += kThreads) {  // column (h, k)
-    float* col = a + (e / T) * TT + e % T;
-    float m = -INFINITY;
-    for (int q = 0; q < T; ++q) m = fmaxf(m, col[q * T]);
-    float sum = 0.f;
-    for (int q = 0; q < T; ++q) {
-      const float v = expf(col[q * T] - m);
-      col[q * T] = v;
-      sum += v;
-    }
-    for (int q = 0; q < T; ++q) col[q * T] = col[q * T] / sum;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < T * d.hv; e += kThreads) {
-    const int q = e / d.hv, hd = e % d.hv, h = hd / d.dv;
-    const float* ar = a + h * TT + q * T;
-    float acc = 0.f;
-    for (int k = 0; k < T; ++k) acc = fmaf(ar[k], qkv[k * d.W + 2 * d.hk + hd], acc);
-    ctx[e] = acc;
-  }
-  __syncthreads();
-  dense::rows_x_mat<16>(ctx, d.hv, T, d.hv, wo, d.N, d.N, z, d.N);
-  __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t = warp; t < T; t += kWarps) {
-    float* zr = z + t * d.N;
-    for (int n = lane; n < d.N; n += 32) zr[n] += te[t * d.N + n];
-    __syncwarp();
-    float mu, inv;
-    dense::ln_stats(zr, d.N, mu, inv);
-    for (int n = lane; n < d.N; n += 32) zr[n] = (zr[n] - mu) * inv;
-    if (lane == 0) inv1[t] = inv;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-tat_fwd_kernel(const float* __restrict__ x, const float* __restrict__ pos,
-               const float* __restrict__ g0, const float* __restrict__ b0,
-               const float* __restrict__ wqkv, const float* __restrict__ wo,
-               const float* __restrict__ g1, const float* __restrict__ b1,
-               const float* __restrict__ res, float* __restrict__ out,
-               float* __restrict__ scores, Dims d) {
-  extern __shared__ __align__(16) float sm[];
-  const size_t r = blockIdx.x;
-  const int TN = d.T * d.N, HTT = d.H * d.T * d.T;
-  float* te = sm;
-  float* z = te + TN;
-  float* qkv = z + TN;
-  float* a = qkv + d.T * d.W;
-  float* ctx = a + HTT;
-  float* inv1 = ctx + d.T * d.hv;
-  embed_rows(x + r * TN, pos, g0, b0, te, nullptr, nullptr, d);
-  attention_rows(te, wqkv, wo, res + r * HTT, qkv, a, ctx, z, inv1, scores + r * HTT, d);
-  float* o = out + r * TN;
-  for (int e = threadIdx.x; e < TN; e += kThreads) {
-    const int n = e % d.N;
-    o[e] = z[e] * g1[n] + b1[n];
-  }
-}
-
-// Per-row backward. Writes dx (row of (BF,T,N)), dres, and the factors
-// te, g_qkv, ctx, g_ypre and vec = [dg1_r, db1_r, dg0_r, db0_r] (4, N).
-__global__ void __launch_bounds__(kThreads)
-tat_bwd_kernel(const float* __restrict__ x, const float* __restrict__ pos,
-               const float* __restrict__ g0, const float* __restrict__ b0,
-               const float* __restrict__ wqkv, const float* __restrict__ wqkv_t,
-               const float* __restrict__ wo, const float* __restrict__ wo_t,
-               const float* __restrict__ g1, const float* __restrict__ res,
-               const float* __restrict__ g_out, const float* __restrict__ g_sc,
-               float* __restrict__ dx, float* __restrict__ dres,
-               float* __restrict__ f_te, float* __restrict__ f_gqkv,
-               float* __restrict__ f_ctx, float* __restrict__ f_gy,
-               float* __restrict__ vec, Dims d) {
-  extern __shared__ __align__(16) float sm[];
-  const size_t r = blockIdx.x;
-  const int T = d.T, N = d.N, TN = T * N, TT = T * T, HTT = d.H * TT;
-  float* te = sm;
-  float* x0_hat = te + TN;
-  float* x1_hat = x0_hat + TN;
-  float* gy = x1_hat + TN;
-  float* gte = gy + TN;
-  float* qkv = gte + TN;
-  float* gqkv = qkv + T * d.W;
-  float* a = gqkv + T * d.W;
-  float* ds = a + HTT;
-  float* ctx = ds + HTT;
-  float* gctx = ctx + T * d.hv;
-  float* inv0 = gctx + T * d.hv;
-  float* inv1 = inv0 + T;
-
-  embed_rows(x + r * TN, pos, g0, b0, te, x0_hat, inv0, d);
-  attention_rows(te, wqkv, wo, res + r * HTT, qkv, a, ctx, x1_hat, inv1, nullptr, d);
-
-  // LN1 backward; dg1/db1 of this row summed over t
-  const float* go = g_out + r * TN;
-  for (int e = threadIdx.x; e < TN; e += kThreads) gy[e] = go[e];
-  __syncthreads();
-  float* v = vec + r * 4 * N;
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float sg = 0.f, sb = 0.f;
-    for (int t = 0; t < T; ++t) {
-      sg = fmaf(gy[t * N + n], x1_hat[t * N + n], sg);
-      sb += gy[t * N + n];
-    }
-    v[n] = sg;
-    v[N + n] = sb;
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < T; t += kWarps)
-    dense::ln_bwd_row(gy + t * N, x1_hat + t * N, inv1[t], g1, N);
-  __syncthreads();
-
-  // out-projection backward: g_ctx = g_ypre . wo^T
-  dense::rows_x_mat<16>(gy, N, T, N, wo_t, d.hv, d.hv, gctx, d.hv);
-  __syncthreads();
-  // g_attn[h][q][k] = g_ctx_h[q] . v_h[k], then the query-axis softmax backward
-  for (int e = threadIdx.x; e < HTT; e += kThreads) {
-    const int h = e / TT, q = (e / T) % T, k = e % T;
-    const float* gr = gctx + q * d.hv + h * d.dv;
-    const float* vr = qkv + k * d.W + 2 * d.hk + h * d.dv;
-    float acc = 0.f;
-    for (int c = 0; c < d.dv; ++c) acc = fmaf(gr[c], vr[c], acc);
-    ds[e] = acc;
-  }
-  __syncthreads();
-  const float* gs = g_sc + r * HTT;
-  float* dr = dres + r * HTT;
-  for (int e = threadIdx.x; e < d.H * T; e += kThreads) {  // column (h, k)
-    const int off = (e / T) * TT + e % T;
-    float dot = 0.f;
-    for (int q = 0; q < T; ++q) dot = fmaf(a[off + q * T], ds[off + q * T], dot);
-    for (int q = 0; q < T; ++q) {
-      const int o = off + q * T;
-      const float val = a[o] * (ds[o] - dot) + gs[o];
-      ds[o] = val;
-      dr[o] = val;
-    }
-  }
-  __syncthreads();
-  // g_q, g_k, g_v in the column order of qkv
-  for (int e = threadIdx.x; e < T * d.W; e += kThreads) {
-    const int t = e / d.W, col = e % d.W;
-    float acc = 0.f;
-    if (col < d.hk) {  // g_q[t] = sum_k ds[h][t][k] k_h[k]
-      const int h = col / d.dk;
-      const float* dsr = ds + h * TT + t * T;
-      for (int k = 0; k < T; ++k) acc = fmaf(dsr[k], qkv[k * d.W + d.hk + col], acc);
-      acc *= d.inv_sqrt;
-    } else if (col < 2 * d.hk) {  // g_k[t] = sum_q ds[h][q][t] q_h[q]
-      const int h = (col - d.hk) / d.dk;
-      const float* dsc = ds + h * TT + t;
-      for (int q = 0; q < T; ++q) acc = fmaf(dsc[q * T], qkv[q * d.W + col - d.hk], acc);
-      acc *= d.inv_sqrt;
-    } else {  // g_v[t] = sum_q a[h][q][t] g_ctx_h[q]
-      const int hd = col - 2 * d.hk, h = hd / d.dv;
-      const float* ac = a + h * TT + t;
-      for (int q = 0; q < T; ++q) acc = fmaf(ac[q * T], gctx[q * d.hv + hd], acc);
-    }
-    gqkv[e] = acc;
-  }
-  __syncthreads();
-  // QKV backward and the residual branch
-  dense::rows_x_mat<16>(gqkv, d.W, T, d.W, wqkv_t, N, N, gte, N);
-  __syncthreads();
-  for (int e = threadIdx.x; e < TN; e += kThreads) gte[e] += gy[e];
-  __syncthreads();
-  if (d.embed) {
-    for (int n = threadIdx.x; n < N; n += kThreads) {
-      float sg = 0.f, sb = 0.f;
-      for (int t = 0; t < T; ++t) {
-        sg = fmaf(gte[t * N + n], x0_hat[t * N + n], sg);
-        sb += gte[t * N + n];
-      }
-      v[2 * N + n] = sg;
-      v[3 * N + n] = sb;
-    }
-    __syncthreads();
-    for (int t = warp; t < T; t += kWarps)
-      dense::ln_bwd_row(gte + t * N, x0_hat + t * N, inv0[t], g0, N);
-    __syncthreads();
-  } else {
-    for (int n = threadIdx.x; n < N; n += kThreads) v[2 * N + n] = v[3 * N + n] = 0.f;
-  }
-  for (int e = threadIdx.x; e < TN; e += kThreads) {
-    dx[r * TN + e] = gte[e];
-    f_te[r * TN + e] = te[e];
-    f_gy[r * TN + e] = gy[e];
-  }
-  for (int e = threadIdx.x; e < T * d.W; e += kThreads) f_gqkv[r * T * d.W + e] = gqkv[e];
-  for (int e = threadIdx.x; e < T * d.hv; e += kThreads) f_ctx[r * T * d.hv + e] = ctx[e];
-}
-
-Dims make_dims(int T, int N, int H, int dk, int dv, int embed) {
-  Dims d;
-  d.T = T;
-  d.N = N;
-  d.H = H;
-  d.dk = dk;
-  d.dv = dv;
-  d.hk = H * dk;
-  d.hv = H * dv;
-  d.W = 2 * d.hk + d.hv;
-  d.embed = embed;
-  d.inv_sqrt = static_cast<float>(1.0 / sqrt(static_cast<double>(dk)));
-  return d;
-}
-
-size_t fwd_smem_bytes(const Dims& d) {
-  return sizeof(float) * ((size_t)2 * d.T * d.N + (size_t)d.T * d.W +
-                          (size_t)d.H * d.T * d.T + (size_t)d.T * d.hv + d.T);
-}
-
-size_t bwd_smem_bytes(const Dims& d) {
-  return sizeof(float) * ((size_t)5 * d.T * d.N + (size_t)2 * d.T * d.W +
-                          (size_t)2 * d.H * d.T * d.T + (size_t)2 * d.T * d.hv + 2 * d.T);
-}
-
-// workspace layout of the backward (floats)
-struct BwdSpace {
-  size_t te, gqkv, ctx, gy, vec, scratch, total;
-};
-
-BwdSpace bwd_space(int BF, const Dims& d) {
-  const size_t M = (size_t)BF * d.T;
-  BwdSpace s;
-  s.te = 0;
-  s.gqkv = s.te + M * d.N;
-  s.ctx = s.gqkv + M * d.W;
-  s.gy = s.ctx + M * d.hv;
-  s.vec = s.gy + M * d.N;
-  s.scratch = s.vec + (size_t)BF * 4 * d.N;
-  size_t scratch = dense::atb_scratch((int)M, d.N, d.W);
-  const size_t s2 = dense::atb_scratch((int)M, d.hv, d.N);
-  const size_t s3 = dense::sum_rows_scratch(BF, 4 * d.N);
-  const size_t s4 = dense::sum_rows_scratch(BF, d.T * d.N);
-  if (s2 > scratch) scratch = s2;
-  if (s3 > scratch) scratch = s3;
-  if (s4 > scratch) scratch = s4;
-  s.total = s.scratch + scratch;
-  return s;
-}
-
 // ---------------------------------------------------------------------------
-// bfloat16: passes over the flat M = B*F*T rows on the tensor cores
+// The passes over the flat M = B*F*T rows on the tensor cores. TIn, the
+// inputs' dtype: bf16 or float (f32 set in D16)
 // ---------------------------------------------------------------------------
 
 using namespace wm;
@@ -392,11 +87,11 @@ constexpr size_t kSmemMax = 232448;    // shared memory a block may have (227 KB
 enum Pass16 { kQkv = 0, kAttnFwd, kOut, kLn1Bwd, kAttnBwd, kGte, kPasses };
 
 struct D16 {
-  int BF, M, T, N, H, dk, dv, W, hk, hv, Np, Wp, hvp, KC, embed;
+  int BF, M, T, N, H, dk, dv, W, hk, hv, Np, Wp, hvp, KC, embed, f32;
   float inv_sqrt;
 };
 
-D16 make_d16(int BF, int T, int N, int H, int dk, int dv, int embed) {
+D16 make_d16(int BF, int T, int N, int H, int dk, int dv, int embed, int f32) {
   D16 d;
   d.BF = BF;
   d.M = BF * T;
@@ -413,13 +108,15 @@ D16 make_d16(int BF, int T, int N, int H, int dk, int dv, int embed) {
   d.hvp = (d.hv + 15) / 16 * 16;
   d.KC = T < kKeyChunk ? T : kKeyChunk;
   d.embed = embed;
+  d.f32 = f32;
   d.inv_sqrt = static_cast<float>(1.0 / sqrt(static_cast<double>(dk)));
   return d;
 }
 
-// output columns of a qkv group: kItems tiles a warp over the row tiles
+// output columns of a qkv group: kItems tiles a warp over the row tiles,
+// half as many in float32 (two staged wqkv chunks, hi and lo)
 __host__ __device__ __forceinline__ int qkv_group(const D16& d, int rows) {
-  const int gw = 16 * (kWarps * kItems / (rows / 16));
+  const int gw = 16 * (kWarps * kItems / (rows / 16)) / (1 + d.f32);
   return d.Wp < gw ? d.Wp : gw;
 }
 
@@ -430,14 +127,17 @@ size_t smem16(int pass, int rows, const D16& d) {
   const size_t R = rows, LZ = d.Np + 4, T = d.T, KC = d.KC, lq = d.dk + 1, lv = d.dv + 1,
                ls = KC + 1;
   switch (pass) {
-    case kQkv:  // B chunk, A chunk hi (and lo), LN0 statistics
-      return 2 * (size_t)kKC * (qkv_group(d, rows) + 8) + 2 * R * kLC * (1 + d.embed) + 8 * R;
+    case kQkv:  // B chunk (hi, and lo in float32), A chunk hi (and lo), LN0 statistics
+      return 2 * (size_t)kKC * (qkv_group(d, rows) + 8) * (1 + d.f32) +
+             2 * R * kLC * (1 + (d.embed | d.f32)) + 8 * R;
     case kAttnFwd:  // q, key and value chunks, score chunk, context sums
       return 4 * (T * lq + KC * lq + KC * lv + T * ls + T * d.dv);
     case kOut:  // z (float32), ctx hi and lo
       return 4 * R * LZ + 4 * R * (d.hvp + 8);
-    case kLn1Bwd: {  // z, then ctx hi/lo or a g_ypre chunk (hi, lo) and a wo chunk; 1/std
-      const size_t a = 4 * R * (d.hvp + 8), c = 4 * R * kLC + 2 * (size_t)d.hvp * kLC;
+    case kLn1Bwd: {  // z, then ctx hi/lo or a g_ypre chunk (hi, lo) and a wo chunk
+                     // (hi, and lo in float32); 1/std
+      const size_t a = 4 * R * (d.hvp + 8),
+                   c = 4 * R * kLC + 2 * (size_t)d.hvp * kLC * (1 + d.f32);
       return 4 * R * LZ + (a > c ? a : c) + 4 * R;
     }
     case kAttnBwd:  // q, g_ctx, g_q sums, key and value chunks, a and ds chunks
@@ -464,7 +164,8 @@ int rows16(int pass, const D16& d) {
 // halved down to 16 while the M rows would give fewer blocks than an
 // H100's SMs, so a small B*F*T still spreads over the card. 16 rows fit
 // wherever more do: every pass's bytes shrink with the rows but qkv's,
-// whose wider column group stays below 2*kKC*(1152 + 8) + 4*16*kLC + 128.
+// whose wider column group stays below 2*kKC*(1152 + 8) + 4*16*kLC + 128
+// (float32: 4*kKC*(576 + 8) + 4*16*kLC + 128).
 constexpr int kSms = 132;
 int launch_rows16(int pass, const D16& d) {
   int rows = rows16(pass, d);
@@ -487,22 +188,24 @@ __device__ __forceinline__ void store_out(void* p, size_t i, float v, int f32) {
     static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
 }
 
-// te[row][n]: the bf16 input itself, or (embed) the float32 LN0 output pass
-// 1 wrote; 0 outside the M rows
-__device__ __forceinline__ float te_at(const bf16* x, const float* te32, int row, int n,
+// te[row][n]: the input itself, or (embed) the float32 LN0 output pass 1
+// wrote; 0 outside the M rows
+template <typename TIn>
+__device__ __forceinline__ float te_at(const TIn* x, const float* te32, int row, int n,
                                        const D16& d) {
   if (row >= d.M) return 0.f;
-  return d.embed ? te32[(size_t)row * d.Np + n] : __bfloat162float(x[(size_t)row * d.N + n]);
+  return d.embed ? te32[(size_t)row * d.Np + n] : to_float(x[(size_t)row * d.N + n]);
 }
 
 // Chunked product into acc: item i of warp w is tile (r, c) = divmod(w +
 // kWarps*i, nct) of a (rows x 16*nct) output; a hi (lo) chunks are (rows,
-// kLC) bf16, b is a staged (kn x 16*nct) chunk, row-major with stride ldb,
-// or (BT) its transpose (16*nct x kn, stride ldb).
+// kLC) bf16, b (blo, its lo terms, or null) is a staged (kn x 16*nct)
+// chunk, row-major with stride ldb, or (BT) its transpose (16*nct x kn,
+// stride ldb): ahi.b + alo.b + ahi.blo.
 template <bool BT>
 __device__ __forceinline__ void chunk_mma(FragC (&acc)[kItems], int items, int nct,
                                           const bf16* ahi, const bf16* alo, const bf16* b,
-                                          int ldb, int kn) {
+                                          const bf16* blo, int ldb, int kn) {
   const int warp = threadIdx.x / 32;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
@@ -516,6 +219,11 @@ __device__ __forceinline__ void chunk_mma(FragC (&acc)[kItems], int items, int n
         wmma::load_matrix_sync(fb, b + c * 16 * ldb + k0, ldb);
         wmma::load_matrix_sync(fa, ahi + r * 16 * kLC + k0, kLC);
         wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        if (blo) {
+          wmma::load_matrix_sync(fb, blo + c * 16 * ldb + k0, ldb);
+          wmma::mma_sync(acc[i], fa, fb, acc[i]);
+          wmma::load_matrix_sync(fb, b + c * 16 * ldb + k0, ldb);
+        }
         if (alo) {
           wmma::load_matrix_sync(fa, alo + r * 16 * kLC + k0, kLC);
           wmma::mma_sync(acc[i], fa, fb, acc[i]);
@@ -525,6 +233,11 @@ __device__ __forceinline__ void chunk_mma(FragC (&acc)[kItems], int items, int n
         wmma::load_matrix_sync(fb, b + k0 * ldb + c * 16, ldb);
         wmma::load_matrix_sync(fa, ahi + r * 16 * kLC + k0, kLC);
         wmma::mma_sync(acc[i], fa, fb, acc[i]);
+        if (blo) {
+          wmma::load_matrix_sync(fb, blo + k0 * ldb + c * 16, ldb);
+          wmma::mma_sync(acc[i], fa, fb, acc[i]);
+          wmma::load_matrix_sync(fb, b + k0 * ldb + c * 16, ldb);
+        }
         if (alo) {
           wmma::load_matrix_sync(fa, alo + r * 16 * kLC + k0, kLC);
           wmma::mma_sync(acc[i], fa, fb, acc[i]);
@@ -535,27 +248,29 @@ __device__ __forceinline__ void chunk_mma(FragC (&acc)[kItems], int items, int n
 }
 
 // Wide product for one warp: the column tiles ct0 and ct0 + 1 (< nct) of
-// every row tile, acc[r][q] += (ahi + alo)[rows r] . w over K (a multiple
-// of 16), with a hi/lo (rows, lda) bf16 in shared memory and w's fragments
+// every row tile, acc[r][q] += (ahi + alo)[rows r] . (w + wlo) over K (a
+// multiple of 16) less the lo.lo term, with a hi/lo (rows, lda) bf16 in
+// shared memory and the fragments of w (and wlo, its lo terms, or null)
 // read from device memory (L2): row-major (K x cols, stride ldw) or (BT)
 // its transpose (cols x K, stride ldw). Each fragment is read once a block.
 template <int RT, bool BT>
 __device__ __forceinline__ void wide_mma(FragC (&acc)[RT][2], const bf16* ahi, const bf16* alo,
-                                         int lda, int K, const bf16* __restrict__ w, int ldw,
-                                         int ct0, int nct) {
+                                         int lda, int K, const bf16* __restrict__ w,
+                                         const bf16* __restrict__ wlo, int ldw, int ct0,
+                                         int nct) {
 #pragma unroll
   for (int r = 0; r < RT; ++r)
 #pragma unroll
     for (int q = 0; q < 2; ++q) wmma::fill_fragment(acc[r][q], 0.f);
   for (int k0 = 0; k0 < K; k0 += 16) {
     using FB = typename std::conditional<BT, FragBt, FragB>::type;
-    FB fb[2];
+    FB fb[2], fbl[2];
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       if (ct0 + q >= nct) continue;
-      const bf16* p = BT ? w + (size_t)(ct0 + q) * 16 * ldw + k0
-                         : w + (size_t)k0 * ldw + (ct0 + q) * 16;
-      wmma::load_matrix_sync(fb[q], p, ldw);
+      const size_t o = BT ? (size_t)(ct0 + q) * 16 * ldw + k0 : (size_t)k0 * ldw + (ct0 + q) * 16;
+      wmma::load_matrix_sync(fb[q], w + o, ldw);
+      if (wlo) wmma::load_matrix_sync(fbl[q], wlo + o, ldw);
     }
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
@@ -567,6 +282,7 @@ __device__ __forceinline__ void wide_mma(FragC (&acc)[RT][2], const bf16* ahi, c
         if (ct0 + q >= nct) continue;
         wmma::mma_sync(acc[r][q], fh, fb[q], acc[r][q]);
         wmma::mma_sync(acc[r][q], fl, fb[q], acc[r][q]);
+        if (wlo) wmma::mma_sync(acc[r][q], fh, fbl[q], acc[r][q]);
       }
     }
   }
@@ -584,36 +300,39 @@ __device__ __forceinline__ void split_rows(const float* __restrict__ src, size_t
   }
 }
 
-// Pass 1: qkv (Mp, Wp) = te . wqkv, float32. te is the bf16 x (one bf16
-// product), or (embed) LN0(x + pos)*g0 + b0 in float32, split (two), which
-// this pass also writes to te32 with its row statistics.
-template <int RT>
+// Pass 1: qkv (Mp, Wp) = te . wqkv, float32. te is x (bf16: one bf16
+// product; float32: split, against wqkv's hi and lo, three), or (embed)
+// LN0(x + pos)*g0 + b0 in float32, split, which this pass also writes to
+// te32 with its row statistics. wqkv_lo is null in bf16.
+template <int RT, typename TIn>
 __global__ void __launch_bounds__(kThreads)
-tat_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ pos,
+tat_qkv_kernel(const TIn* __restrict__ x, const float* __restrict__ pos,
                const float* __restrict__ g0, const float* __restrict__ b0,
-               const bf16* __restrict__ wqkv, float* __restrict__ qkv, float* __restrict__ te32,
-               float* __restrict__ stats0, D16 d) {
+               const bf16* __restrict__ wqkv, const bf16* __restrict__ wqkv_lo,
+               float* __restrict__ qkv, float* __restrict__ te32, float* __restrict__ stats0,
+               D16 d) {
   constexpr int R = RT * 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int GW = qkv_group(d, R), LB = GW + 8;
-  bf16* sb = reinterpret_cast<bf16*>(smem);  // (kKC, LB)
-  bf16* ahi = sb + kKC * LB;                 // (R, kLC)
-  bf16* alo = d.embed ? ahi + R * kLC : nullptr;
-  float* st = reinterpret_cast<float*>(ahi + R * kLC * (1 + d.embed));  // (R, 2)
+  const int GW = qkv_group(d, R), LB = GW + 8, split_a = d.embed | d.f32;
+  bf16* sb = reinterpret_cast<bf16*>(smem);     // (kKC, LB)
+  bf16* sbl = wqkv_lo ? sb + kKC * LB : nullptr;  // (kKC, LB) lo terms
+  bf16* ahi = sb + kKC * LB * (1 + d.f32);      // (R, kLC)
+  bf16* alo = split_a ? ahi + R * kLC : nullptr;
+  float* st = reinterpret_cast<float*>(ahi + R * kLC * (1 + split_a));  // (R, 2)
   const int row0 = blockIdx.x * R, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (d.embed) {
     for (int r = warp; r < R; r += kWarps) {
       const int row = row0 + r;
       float mu = 0.f, inv = 0.f;
       if (row < d.M) {
-        const bf16* xr = x + (size_t)row * d.N;
+        const TIn* xr = x + (size_t)row * d.N;
         const float* pr = pos + (size_t)(row % d.T) * d.N;
         float s1 = 0.f;
-        for (int n = lane; n < d.N; n += 32) s1 += __bfloat162float(xr[n]) + pr[n];
+        for (int n = lane; n < d.N; n += 32) s1 += to_float(xr[n]) + pr[n];
         mu = dense::warp_sum(s1) / d.N;
         float v = 0.f;
         for (int n = lane; n < d.N; n += 32) {
-          const float z = __bfloat162float(xr[n]) + pr[n] - mu;
+          const float z = to_float(xr[n]) + pr[n] - mu;
           v = fmaf(z, z, v);
         }
         inv = rsqrtf(dense::warp_sum(v) / d.N + dense::kEps);
@@ -637,17 +356,17 @@ tat_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ pos,
       const int kn = min(kKC, d.Np - k0);
       __syncthreads();  // the last chunk is consumed (and the statistics are in)
       copy_rows_async(sb, LB, wqkv + (size_t)k0 * d.Wp + g0c, d.Wp, kn, gw);
+      if (sbl) copy_rows_async(sbl, LB, wqkv_lo + (size_t)k0 * d.Wp + g0c, d.Wp, kn, gw);
       for (int e = threadIdx.x; e < R * kn; e += kThreads) {
         const int r = e / kn, c = e % kn, n = k0 + c, row = row0 + r;
         const bool in = row < d.M && n < d.N;
-        if (!d.embed) {
-          ahi[r * kLC + c] = in ? x[(size_t)row * d.N + n] : __float2bfloat16_rn(0.f);
+        float te = in ? to_float(x[(size_t)row * d.N + n]) : 0.f;
+        if (!split_a) {  // bf16 x, used as it is
+          ahi[r * kLC + c] = __float2bfloat16_rn(te);
           continue;
         }
-        float te = 0.f;
-        if (in) {
-          const float h = (__bfloat162float(x[(size_t)row * d.N + n]) +
-                           pos[(size_t)(row % d.T) * d.N + n] - st[2 * r]) * st[2 * r + 1];
+        if (in && d.embed) {
+          const float h = (te + pos[(size_t)(row % d.T) * d.N + n] - st[2 * r]) * st[2 * r + 1];
           te = h * g0[n] + b0[n];
           if (g0c == 0) te32[(size_t)row * d.Np + n] = te;
         }
@@ -655,7 +374,7 @@ tat_qkv_kernel(const bf16* __restrict__ x, const float* __restrict__ pos,
       }
       wait_async();
       __syncthreads();
-      chunk_mma<false>(acc, RT * nct, nct, ahi, alo, sb, LB, kn);
+      chunk_mma<false>(acc, RT * nct, nct, ahi, alo, sb, sbl, LB, kn);
     }
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
@@ -677,8 +396,9 @@ struct AttnTiles {
 // key columns [k0, k0 + kn): their keys and values staged, s = the raw
 // scores (to `scores` when given), then a = the softmax over the query axis
 // of each column, in place (every query of the column is in the chunk)
+template <typename TIn>
 __device__ __forceinline__ void attn_chunk(const float* __restrict__ qkv_r,
-                                           const bf16* __restrict__ res_rh, void* scores,
+                                           const TIn* __restrict__ res_rh, void* scores,
                                            int out_f32, size_t sc_off, int h, int k0, int kn,
                                            const AttnTiles& a, const D16& d) {
   const int T = d.T, nw = kAttnThreads / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -698,7 +418,7 @@ __device__ __forceinline__ void attn_chunk(const float* __restrict__ qkv_r,
     const float* kr = a.kc + kk * a.lq;
     float dot = 0.f;
     for (int c = 0; c < d.dk; ++c) dot = fmaf(qr[c], kr[c], dot);
-    const float s = dot * d.inv_sqrt + __bfloat162float(res_rh[q * T + k0 + kk]);
+    const float s = dot * d.inv_sqrt + to_float(res_rh[q * T + k0 + kk]);
     a.s[q * a.ls + kk] = s;
     if (scores) store_out(scores, sc_off + (size_t)q * T + k0 + kk, s, out_f32);
   }
@@ -727,8 +447,9 @@ __device__ __forceinline__ void load_head(float* dst, int ld, const float* __res
 
 // Pass 2: raw scores (when `scores` is given), the query-axis softmax and
 // ctx (Mp, hvp) float32, on the CUDA cores
+template <typename TIn>
 __global__ void __launch_bounds__(kAttnThreads)
-tat_attn_fwd_kernel(const float* __restrict__ qkv, const bf16* __restrict__ res, void* scores,
+tat_attn_fwd_kernel(const float* __restrict__ qkv, const TIn* __restrict__ res, void* scores,
                     int out_f32, float* __restrict__ ctx, D16 d) {
   extern __shared__ __align__(16) float sm[];
   const int r = blockIdx.x, h = blockIdx.y, T = d.T;
@@ -761,10 +482,13 @@ tat_attn_fwd_kernel(const float* __restrict__ qkv, const bf16* __restrict__ res,
 }
 
 // z (rows, Np + 4) = ctx . wo + te for the block's rows, float32; ctx
-// split into the hi/lo tiles at a16 (2 x rows x (hvp + 8) bf16)
-template <int RT>
+// split into the hi/lo tiles at a16 (2 x rows x (hvp + 8) bf16); wo_lo
+// (wo's lo terms) null in bf16
+template <int RT, typename TIn>
 __device__ __forceinline__ void out_rows(const float* __restrict__ ctx,
-                                         const bf16* __restrict__ wo, const bf16* __restrict__ x,
+                                         const bf16* __restrict__ wo,
+                                         const bf16* __restrict__ wo_lo,
+                                         const TIn* __restrict__ x,
                                          const float* __restrict__ te32, float* zs, bf16* a16,
                                          int row0, const D16& d) {
   constexpr int R = RT * 16;
@@ -775,7 +499,7 @@ __device__ __forceinline__ void out_rows(const float* __restrict__ ctx,
   __syncthreads();
   for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
     FragC acc[RT][2];
-    wide_mma<RT, false>(acc, ahi, alo, LA, d.hvp, wo, d.Np, ct0, NT);
+    wide_mma<RT, false>(acc, ahi, alo, LA, d.hvp, wo, wo_lo, d.Np, ct0, NT);
 #pragma unroll
     for (int r = 0; r < RT; ++r)
 #pragma unroll
@@ -793,10 +517,11 @@ __device__ __forceinline__ void out_rows(const float* __restrict__ ctx,
 }
 
 // Pass 3: out = LN(ctx . wo + te)*g1 + b1, rounded once to bf16 (or float32)
-template <int RT>
+template <int RT, typename TIn>
 __global__ void __launch_bounds__(kThreads)
 tat_out_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
-               const bf16* __restrict__ x, const float* __restrict__ te32,
+               const bf16* __restrict__ wo_lo, const TIn* __restrict__ x,
+               const float* __restrict__ te32,
                const float* __restrict__ g1, const float* __restrict__ b1, void* out,
                int out_f32, D16 d) {
   constexpr int R = RT * 16;
@@ -804,7 +529,7 @@ tat_out_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
   const int LZ = d.Np + 4, row0 = blockIdx.x * R, warp = threadIdx.x / 32,
             lane = threadIdx.x % 32;
   float* zs = reinterpret_cast<float*>(smem);
-  out_rows<RT>(ctx, wo, x, te32, zs, reinterpret_cast<bf16*>(zs + R * LZ), row0, d);
+  out_rows<RT>(ctx, wo, wo_lo, x, te32, zs, reinterpret_cast<bf16*>(zs + R * LZ), row0, d);
   for (int r = warp; r < R; r += kWarps) {
     const int row = row0 + r;
     if (row >= d.M) break;
@@ -818,12 +543,14 @@ tat_out_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
 
 // Pass 4: z again, LN1 backward with g_out -> g_ypre (Mp, Np) float32 and
 // per-block partials of dg1, db1 (2N a block); then g_ctx (Mp, hvp) = g_ypre
-// . wo^T, g_ypre split chunk by chunk, wo's chunks staged by cp.async
-template <int RT>
+// . wo^T, g_ypre split chunk by chunk, wo's chunks (hi, and lo in float32)
+// staged by cp.async
+template <int RT, typename TIn>
 __global__ void __launch_bounds__(kThreads)
 tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
-                   const bf16* __restrict__ x, const float* __restrict__ te32,
-                   const float* __restrict__ g1, const bf16* __restrict__ g_out,
+                   const bf16* __restrict__ wo_lo, const TIn* __restrict__ x,
+                   const float* __restrict__ te32, const float* __restrict__ g1,
+                   const TIn* __restrict__ g_out,
                    float* __restrict__ part, float* __restrict__ gy, float* __restrict__ gctx,
                    D16 d) {
   constexpr int R = RT * 16;
@@ -832,9 +559,10 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
             lane = threadIdx.x % 32;
   float* zs = reinterpret_cast<float*>(smem);
   bf16* u = reinterpret_cast<bf16*>(zs + R * LZ);
-  const size_t ua = 4 * (size_t)R * (d.hvp + 8), uc = 4 * (size_t)R * kLC + 2 * (size_t)d.hvp * kLC;
+  const size_t ua = 4 * (size_t)R * (d.hvp + 8),
+               uc = 4 * (size_t)R * kLC + 2 * (size_t)d.hvp * kLC * (1 + d.f32);
   float* inv1 = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(u) + (ua > uc ? ua : uc));
-  out_rows<RT>(ctx, wo, x, te32, zs, u, row0, d);
+  out_rows<RT>(ctx, wo, wo_lo, x, te32, zs, u, row0, d);
   for (int r = warp; r < R; r += kWarps) {  // x1_hat in place
     float* zr = zs + r * LZ;
     float mu, inv;
@@ -846,7 +574,7 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
   for (int n = threadIdx.x; n < N; n += kThreads) {
     float sg = 0.f, sb = 0.f;
     for (int r = 0; r < R && row0 + r < d.M; ++r) {
-      const float g = __bfloat162float(g_out[(size_t)(row0 + r) * N + n]);
+      const float g = to_float(g_out[(size_t)(row0 + r) * N + n]);
       sg = fmaf(g, zs[r * LZ + n], sg);
       sb += g;
     }
@@ -861,17 +589,17 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
       for (int n = lane; n < N; n += 32) zr[n] = 0.f;
       continue;
     }
-    const bf16* go = g_out + (size_t)row * N;
+    const TIn* go = g_out + (size_t)row * N;
     float m1 = 0.f, m2 = 0.f;
     for (int n = lane; n < N; n += 32) {
-      const float gg = __bfloat162float(go[n]) * g1[n];
+      const float gg = to_float(go[n]) * g1[n];
       m1 += gg;
       m2 = fmaf(gg, zr[n], m2);
     }
     m1 = dense::warp_sum(m1) / N;
     m2 = dense::warp_sum(m2) / N;
     for (int n = lane; n < N; n += 32) {
-      const float gg = __bfloat162float(go[n]) * g1[n];
+      const float gg = to_float(go[n]) * g1[n];
       const float v = inv1[r] * (gg - m1 - zr[n] * m2);
       zr[n] = v;
       gy[(size_t)row * d.Np + n] = v;
@@ -880,7 +608,8 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
   const int nct = d.hvp / 16, items = RT * nct;
   bf16* chi = u;
   bf16* clo = chi + R * kLC;
-  bf16* sb = clo + R * kLC;  // (hvp, kLC): wo[:, k0:k0 + kn]
+  bf16* sb = clo + R * kLC;                          // (hvp, kLC): wo[:, k0:k0 + kn]
+  bf16* sbl = wo_lo ? sb + d.hvp * kLC : nullptr;  // its lo terms
   FragC acc[kItems];
 #pragma unroll
   for (int i = 0; i < kItems; ++i) wmma::fill_fragment(acc[i], 0.f);
@@ -888,13 +617,14 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
     const int kn = min(kKC, d.Np - k0);
     __syncthreads();  // g_ypre is complete, or the last chunk is consumed
     copy_rows_async(sb, kLC, wo + k0, d.Np, d.hvp, kn);
+    if (sbl) copy_rows_async(sbl, kLC, wo_lo + k0, d.Np, d.hvp, kn);
     for (int e = threadIdx.x; e < R * kn; e += kThreads) {
       const int r = e / kn, c = e % kn;
       split(zs[r * LZ + k0 + c], chi[r * kLC + c], clo[r * kLC + c]);
     }
     wait_async();
     __syncthreads();
-    chunk_mma<true>(acc, items, nct, chi, clo, sb, kLC, kn);
+    chunk_mma<true>(acc, items, nct, chi, clo, sb, sbl, kLC, kn);
   }
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
@@ -909,9 +639,10 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
 // Pass 5: the attention backward of one (r, h) on the CUDA cores: s and a
 // recomputed, ds = g_ctx . v^T, the query-axis softmax backward (+ g_sc ->
 // dres), g_q, g_k and g_v into g_qkv (Mp, Wp) float32
+template <typename TIn>
 __global__ void __launch_bounds__(kAttnThreads)
-tat_attn_bwd_kernel(const float* __restrict__ qkv, const bf16* __restrict__ res,
-                    const float* __restrict__ gctx, const bf16* __restrict__ g_sc, void* dres,
+tat_attn_bwd_kernel(const float* __restrict__ qkv, const TIn* __restrict__ res,
+                    const float* __restrict__ gctx, const TIn* __restrict__ g_sc, void* dres,
                     int out_f32, float* __restrict__ gqkv, D16 d) {
   extern __shared__ __align__(16) float sm[];
   const int r = blockIdx.x, h = blockIdx.y, T = d.T, nw = kAttnThreads / 32,
@@ -952,7 +683,7 @@ tat_attn_bwd_kernel(const float* __restrict__ qkv, const bf16* __restrict__ res,
       for (int q = lane; q < T; q += 32) {
         const size_t o = off + (size_t)q * T + k0 + kk;
         const float v = a.s[q * a.ls + kk] * (ds[q * a.ls + kk] - dot) +
-                        __bfloat162float(g_sc[o]);
+                        to_float(g_sc[o]);
         ds[q * a.ls + kk] = v;
         store_out(dres, o, v, out_f32);
       }
@@ -985,10 +716,11 @@ tat_attn_bwd_kernel(const float* __restrict__ qkv, const bf16* __restrict__ res,
 // Pass 6: g_te = g_qkv . wqkv^T + g_ypre -> dx (rounded once); with the
 // embedding, LN0 backward first, per-block partials of dg0, db0 (2N a
 // block) and a float32 copy of dx (dxf) for dpos
-template <int RT>
+template <int RT, typename TIn>
 __global__ void __launch_bounds__(kThreads)
 tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
-               const float* __restrict__ gy, const bf16* __restrict__ x,
+               const bf16* __restrict__ wqkv_lo, const float* __restrict__ gy,
+               const TIn* __restrict__ x,
                const float* __restrict__ pos, const float* __restrict__ stats0,
                const float* __restrict__ g0, void* dx, int out_f32, float* __restrict__ dxf,
                float* __restrict__ part, D16 d) {
@@ -1004,7 +736,7 @@ tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
   float* sw = rest + warp * 256;
   for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
     FragC acc[RT][2];
-    wide_mma<RT, true>(acc, ahi, alo, LA, d.Wp, wqkv, d.Wp, ct0, NT);
+    wide_mma<RT, true>(acc, ahi, alo, LA, d.Wp, wqkv, wqkv_lo, d.Wp, ct0, NT);
 #pragma unroll
     for (int r = 0; r < RT; ++r)
 #pragma unroll
@@ -1035,7 +767,7 @@ tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
   __syncthreads();
   // x0_hat from the row statistics of pass 1
   auto x0_hat = [&](int row, int n) {
-    const float z = __bfloat162float(x[(size_t)row * N + n]) + pos[(size_t)(row % d.T) * N + n];
+    const float z = to_float(x[(size_t)row * N + n]) + pos[(size_t)(row % d.T) * N + n];
     return (z - stats0[2 * row]) * stats0[2 * row + 1];
   };
   for (int n = threadIdx.x; n < N; n += kThreads) {
@@ -1069,39 +801,46 @@ tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
   }
 }
 
-// The passes' operands from the caller's bf16 tensors: wqkv (N, W) and wo
-// (hv, N) zero-padded to (Np, Wp) and (hvp, Np) (the WMMA tiles and the
-// 16-byte cp.async copies need it; nothing is lost), and pos (T, N), g0,
-// b0, g1, b1 widened to float32 into vec = [pos | g0 | b0 | g1 | b1]
+// The passes' operands from the caller's tensors: wqkv (N, W) and wo (hv,
+// N) zero-padded to (Np, Wp) and (hvp, Np) bf16 (the WMMA tiles and the
+// 16-byte cp.async copies need it), with their lo terms in float32 (w16lo,
+// wo16lo; bf16 inputs are exact, nothing is lost), and pos (T, N), g0, b0,
+// g1, b1 as float32 into vec = [pos | g0 | b0 | g1 | b1]
+template <typename TIn>
 __global__ void __launch_bounds__(kThreads)
-tat_prep_kernel(const bf16* __restrict__ wqkv, const bf16* __restrict__ wo,
-                const bf16* __restrict__ pos, const bf16* __restrict__ g0,
-                const bf16* __restrict__ b0, const bf16* __restrict__ g1,
-                const bf16* __restrict__ b1, bf16* __restrict__ w16, bf16* __restrict__ wo16,
-                float* __restrict__ vec, D16 d) {
+tat_prep_kernel(const TIn* __restrict__ wqkv, const TIn* __restrict__ wo,
+                const TIn* __restrict__ pos, const TIn* __restrict__ g0,
+                const TIn* __restrict__ b0, const TIn* __restrict__ g1,
+                const TIn* __restrict__ b1, bf16* __restrict__ w16, bf16* __restrict__ w16lo,
+                bf16* __restrict__ wo16, bf16* __restrict__ wo16lo, float* __restrict__ vec,
+                D16 d) {
   const size_t nw = (size_t)d.Np * d.Wp, no = (size_t)d.hvp * d.Np,
                TN = (size_t)d.T * d.N, nv = TN + 4 * (size_t)d.N;
-  const bf16 zero = __float2bfloat16_rn(0.f);
   for (size_t e = blockIdx.x * (size_t)kThreads + threadIdx.x; e < nw + no + nv;
        e += (size_t)gridDim.x * kThreads) {
-    if (e < nw) {
-      const int r = e / d.Wp, c = e % d.Wp;
-      w16[e] = r < d.N && c < d.W ? wqkv[(size_t)r * d.W + c] : zero;
-    } else if (e < nw + no) {
-      const size_t i = e - nw;
-      const int r = i / d.Np, c = i % d.Np;
-      wo16[i] = r < d.hv && c < d.N ? wo[(size_t)r * d.N + c] : zero;
+    if (e < nw + no) {
+      const bool is_w = e < nw;
+      const size_t i = is_w ? e : e - nw;
+      const int ld = is_w ? d.Wp : d.Np, r = i / ld, c = i % ld;
+      float v = 0.f;
+      if (is_w && r < d.N && c < d.W) v = to_float(wqkv[(size_t)r * d.W + c]);
+      if (!is_w && r < d.hv && c < d.N) v = to_float(wo[(size_t)r * d.N + c]);
+      bf16 hi, lo;
+      split(v, hi, lo);
+      (is_w ? w16 : wo16)[i] = hi;
+      if (d.f32) (is_w ? w16lo : wo16lo)[i] = lo;
     } else {
       const size_t i = e - nw - no;
-      const bf16* src = i < TN ? pos + i : i < TN + d.N ? g0 + (i - TN)
-                      : i < TN + 2 * d.N ? b0 + (i - TN - d.N)
-                      : i < TN + 3 * d.N ? g1 + (i - TN - 2 * d.N) : b1 + (i - TN - 3 * d.N);
-      vec[i] = __bfloat162float(*src);
+      const TIn* src = i < TN ? pos + i : i < TN + d.N ? g0 + (i - TN)
+                     : i < TN + 2 * d.N ? b0 + (i - TN - d.N)
+                     : i < TN + 3 * d.N ? g1 + (i - TN - 2 * d.N) : b1 + (i - TN - 3 * d.N);
+      vec[i] = to_float(*src);
     }
   }
 }
 
-// workspace layout of the bf16 design (floats; every region 32-byte aligned)
+// workspace layout (floats; every region 32-byte aligned): the bf16 weight
+// copies, hi then (float32) lo
 struct Space16 {
   size_t w16, wo16, vec, qkv, ctx, gy, gctx, gqkv, te, stats, part1, part0, dxf, scratch, total;
 };
@@ -1118,8 +857,8 @@ Space16 space16(const D16& d, int backward) {
     o += a8(n);
     return at;
   };
-  s.w16 = take(((size_t)d.Np * d.Wp + 1) / 2);  // bf16
-  s.wo16 = take(((size_t)d.hvp * d.Np + 1) / 2);  // bf16
+  s.w16 = take(((size_t)d.Np * d.Wp + 1) / 2 * (1 + d.f32));  // bf16
+  s.wo16 = take(((size_t)d.hvp * d.Np + 1) / 2 * (1 + d.f32));  // bf16
   s.vec = take((size_t)d.T * d.N + 4 * (size_t)d.N);
   s.qkv = take(Mp * d.Wp);
   s.ctx = take(Mp * d.hvp);
@@ -1159,7 +898,7 @@ cudaError_t launch_rows(Kern k4, Kern k2, Kern k1, int pass, const D16& d, cudaS
   return cudaGetLastError();
 }
 
-#define TAT_ROWS(kernel) kernel<4>, kernel<2>, kernel<1>
+#define TAT_ROWS(kernel, TIn) kernel<4, TIn>, kernel<2, TIn>, kernel<1, TIn>
 
 template <typename Kern, typename... Args>
 cudaError_t launch_attn(Kern kernel, int pass, const D16& d, cudaStream_t st, Args... args) {
@@ -1171,182 +910,178 @@ cudaError_t launch_attn(Kern kernel, int pass, const D16& d, cudaStream_t st, Ar
   return cudaGetLastError();
 }
 
+// the weights' bf16 copies in the workspace: hi, and lo in float32 (null in bf16)
+struct Weights16 {
+  const bf16 *w, *wlo, *wo, *wolo;
+};
+
+Weights16 weights16(float* ws, const Space16& s, const D16& d) {
+  const bf16* w = reinterpret_cast<const bf16*>(ws + s.w16);
+  const bf16* wo = reinterpret_cast<const bf16*>(ws + s.wo16);
+  const size_t nw = (size_t)d.Np * d.Wp, no = (size_t)d.hvp * d.Np;
+  return {w, d.f32 ? w + nw : nullptr, wo, d.f32 ? wo + no : nullptr};
+}
+
 // the prep kernel, then passes 1 and 2 (scores when given): qkv and ctx
 // into the workspace
-cudaError_t prep_qkv_attn16(const bf16* x, const bf16* pos, const bf16* g0, const bf16* b0,
-                            const bf16* wqkv, const bf16* wo, const bf16* g1, const bf16* b1,
-                            const bf16* res, void* scores, int out_f32, float* ws,
+template <typename TIn>
+cudaError_t prep_qkv_attn16(const TIn* x, const TIn* pos, const TIn* g0, const TIn* b0,
+                            const TIn* wqkv, const TIn* wo, const TIn* g1, const TIn* b1,
+                            const TIn* res, void* scores, int out_f32, float* ws,
                             const Space16& s, const D16& d, cudaStream_t st) {
-  bf16* w16 = reinterpret_cast<bf16*>(ws + s.w16);
+  const Weights16 w = weights16(ws, s, d);
   const size_t n = (size_t)d.Np * d.Wp + (size_t)d.hvp * d.Np + (size_t)d.T * d.N + 4 * d.N;
   const size_t need = (n + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(need < 1024 ? need : 1024);
-  tat_prep_kernel<<<blocks, kThreads, 0, st>>>(wqkv, wo, pos, g0, b0, g1, b1, w16,
-                                               reinterpret_cast<bf16*>(ws + s.wo16),
-                                               ws + s.vec, d);
+  tat_prep_kernel<TIn><<<blocks, kThreads, 0, st>>>(
+      wqkv, wo, pos, g0, b0, g1, b1, const_cast<bf16*>(w.w), const_cast<bf16*>(w.wlo),
+      const_cast<bf16*>(w.wo), const_cast<bf16*>(w.wolo), ws + s.vec, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const float* v = ws + s.vec;
   const size_t TN = (size_t)d.T * d.N;
-  err = launch_rows(TAT_ROWS(tat_qkv_kernel), kQkv, d, st, x, v, v + TN, v + TN + d.N,
-                    (const bf16*)w16, ws + s.qkv, ws + s.te, ws + s.stats, d);
+  err = launch_rows(TAT_ROWS(tat_qkv_kernel, TIn), kQkv, d, st, x, v, v + TN, v + TN + d.N,
+                    w.w, w.wlo, ws + s.qkv, ws + s.te, ws + s.stats, d);
   if (err != cudaSuccess) return err;
-  return launch_attn(tat_attn_fwd_kernel, kAttnFwd, d, st, (const float*)(ws + s.qkv), res,
-                     scores, out_f32, ws + s.ctx, d);
+  return launch_attn(tat_attn_fwd_kernel<TIn>, kAttnFwd, d, st, (const float*)(ws + s.qkv),
+                     res, scores, out_f32, ws + s.ctx, d);
+}
+
+// forward (passes 1-3)
+template <typename TIn>
+cudaError_t forward16(const TIn* x, const TIn* pos, const TIn* g0, const TIn* b0,
+                      const TIn* wqkv, const TIn* wo, const TIn* g1, const TIn* b1,
+                      const TIn* res, void* out, void* scores, float* ws, const D16& d,
+                      int out_f32, cudaStream_t st) {
+  const Space16 s = space16(d, 0);
+  cudaError_t err =
+      prep_qkv_attn16(x, pos, g0, b0, wqkv, wo, g1, b1, res, scores, out_f32, ws, s, d, st);
+  if (err != cudaSuccess) return err;
+  const Weights16 w = weights16(ws, s, d);
+  const float* v = ws + s.vec;
+  const size_t TN = (size_t)d.T * d.N;
+  return launch_rows(TAT_ROWS(tat_out_kernel, TIn), kOut, d, st, (const float*)(ws + s.ctx),
+                     w.wo, w.wolo, x, (const float*)(ws + s.te), v + TN + 2 * d.N,
+                     v + TN + 3 * d.N, out, out_f32, d);
+}
+
+// backward (passes 1, 2, 4-7)
+template <typename TIn>
+cudaError_t backward16(const TIn* x, const TIn* pos, const TIn* g0, const TIn* b0,
+                       const TIn* wqkv, const TIn* wo, const TIn* g1, const TIn* b1,
+                       const TIn* res, const TIn* g_out, const TIn* g_sc, void* dx, void* dres,
+                       float* dpos, float* vec4, float* dwqkv, float* dwo, float* ws,
+                       const D16& d, int out_f32, cudaStream_t st) {
+  const Space16 s = space16(d, 1);
+  const int N = d.N;
+  float* scratch = ws + s.scratch;
+  const float* v = ws + s.vec;
+  const size_t TN = (size_t)d.T * N;
+  cudaError_t err =
+      prep_qkv_attn16(x, pos, g0, b0, wqkv, wo, g1, b1, res, nullptr, out_f32, ws, s, d, st);
+  if (err != cudaSuccess) return err;
+  const Weights16 w = weights16(ws, s, d);
+  err = launch_rows(TAT_ROWS(tat_ln1_bwd_kernel, TIn), kLn1Bwd, d, st,
+                    (const float*)(ws + s.ctx), w.wo, w.wolo, x, (const float*)(ws + s.te),
+                    v + TN + 2 * N, g_out, ws + s.part1, ws + s.gy, ws + s.gctx, d);
+  if (err != cudaSuccess) return err;
+  err = launch_attn(tat_attn_bwd_kernel<TIn>, kAttnBwd, d, st, (const float*)(ws + s.qkv), res,
+                    (const float*)(ws + s.gctx), g_sc, dres, out_f32, ws + s.gqkv, d);
+  if (err != cudaSuccess) return err;
+  err = launch_rows(TAT_ROWS(tat_gte_kernel, TIn), kGte, d, st, (const float*)(ws + s.gqkv),
+                    w.w, w.wlo, (const float*)(ws + s.gy), x, v, (const float*)(ws + s.stats),
+                    v + TN, dx, out_f32, ws + s.dxf, ws + s.part0, d);
+  if (err != cudaSuccess) return err;
+  const float* gqkv = ws + s.gqkv;
+  err = d.embed ? atb_wmma(ws + s.te, d.Np, gqkv, d.Wp, dwqkv, scratch, d.M, N, d.W, st)
+                : atb_wmma(x, N, gqkv, d.Wp, dwqkv, scratch, d.M, N, d.W, st);
+  if (err != cudaSuccess) return err;
+  err = atb_wmma(ws + s.ctx, d.hvp, ws + s.gy, d.Np, dwo, scratch, d.M, d.hv, N, st);
+  if (err != cudaSuccess) return err;
+  const int Mp = (d.M + 63) / 64 * 64;
+  err = dense::sum_rows(ws + s.part1, vec4, scratch, Mp / launch_rows16(kLn1Bwd, d), 2 * N, st);
+  if (err != cudaSuccess) return err;
+  if (!d.embed) {
+    err = cudaMemsetAsync(vec4 + 2 * N, 0, sizeof(float) * 2 * N, st);
+    if (err != cudaSuccess) return err;
+    return cudaMemsetAsync(dpos, 0, sizeof(float) * TN, st);
+  }
+  err = dense::sum_rows(ws + s.part0, vec4 + 2 * N, scratch, Mp / launch_rows16(kGte, d), 2 * N,
+                        st);
+  if (err != cudaSuccess) return err;
+  return dense::sum_rows(ws + s.dxf, dpos, scratch, d.BF, d.T * N, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of the backward's workspace.
-size_t tat_fused_workspace_floats(int BF, int T, int N, int H, int dk, int dv) {
-  return bwd_space(BF, make_dims(T, N, H, dk, dv, 1)).total;
+// Floats of the workspace (backward or forward only); f32 set for float32
+// inputs, else bf16.
+size_t tat_fused_workspace_floats(int BF, int T, int N, int H, int dk, int dv, int embed,
+                                  int backward, int f32) {
+  return space16(make_d16(BF, T, N, H, dk, dv, embed, f32), backward).total;
 }
 
-// Forward: out (BF,T,N), scores (BF,H,T,T). Returns cudaGetLastError().
-int tat_fused_forward(const float* x, const float* pos, const float* g0, const float* b0,
-                      const float* wqkv, const float* wo, const float* g1, const float* b1,
-                      const float* res, float* out, float* scores, int BF, int T, int N,
-                      int H, int dk, int dv, int embed, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims d = make_dims(T, N, H, dk, dv, embed);
-  const size_t smem = fwd_smem_bytes(d);
-  cudaError_t err = dense::allow_smem(tat_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tat_fwd_kernel<<<BF, kThreads, smem, st>>>(x, pos, g0, b0, wqkv, wo, g1, b1, res, out,
-                                             scores, d);
-  return static_cast<int>(cudaGetLastError());
+// Shared memory a pass's block requests (0 qkv, 1 attention forward, 2
+// out-projection + LN1, 3 LN1 backward + g_ctx, 4 attention backward, 5
+// g_te), at its most rows (16 where none fit), for float32 (f32 set) or
+// bf16 inputs.
+size_t tat_fused_smem_bytes(int T, int N, int H, int dk, int dv, int embed, int pass,
+                            int f32) {
+  if (pass < 0 || pass >= kPasses) return 0;
+  return smem16_request(pass, make_d16(1, T, N, H, dk, dv, embed, f32));
 }
 
-// Backward: dx (BF,T,N), dres (BF,H,T,T), dpos (T,N) (embed only), vec4
-// (4,N) = [dg1, db1, dg0, db0], dwqkv (N,W), dwo (H*dv,N); every weight
-// gradient summed over all rows in a fixed order. `ws` holds
-// tat_fused_workspace_floats floats.
-int tat_fused_backward(const float* x, const float* pos, const float* g0, const float* b0,
-                       const float* wqkv, const float* wqkv_t, const float* wo,
-                       const float* wo_t, const float* g1, const float* res,
-                       const float* g_out, const float* g_sc, float* dx, float* dres,
-                       float* dpos, float* vec4, float* dwqkv, float* dwo, float* ws,
-                       int BF, int T, int N, int H, int dk, int dv, int embed,
-                       void* stream) {
+// Forward (passes 1-3): every input of one dtype, float32 (f32 set) or
+// bf16: x (BF,T,N), pos (T,N), the LN vectors (N), wqkv (N,W), wo (H*dv,N),
+// res (BF,H,T,T). out and scores are float32 with out_f32, else in the
+// inputs' dtype (rounded once). `ws` holds tat_fused_workspace_floats(...,
+// 0, f32). Returns cudaGetLastError().
+int tat_fused_forward(const void* x, const void* pos, const void* g0, const void* b0,
+                      const void* wqkv, const void* wo, const void* g1, const void* b1,
+                      const void* res, void* out, void* scores, float* ws, int BF, int T, int N,
+                      int H, int dk, int dv, int embed, int f32, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Dims d = make_dims(T, N, H, dk, dv, embed);
-  const BwdSpace s = bwd_space(BF, d);
-  const size_t smem = bwd_smem_bytes(d);
-  cudaError_t err = dense::allow_smem(tat_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tat_bwd_kernel<<<BF, kThreads, smem, st>>>(
-      x, pos, g0, b0, wqkv, wqkv_t, wo, wo_t, g1, res, g_out, g_sc, dx, dres, ws + s.te,
-      ws + s.gqkv, ws + s.ctx, ws + s.gy, ws + s.vec, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int M = BF * T;
-  float* scratch = ws + s.scratch;
-  err = dense::atb(ws + s.te, ws + s.gqkv, dwqkv, scratch, M, N, d.W, 0, 0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = dense::atb(ws + s.ctx, ws + s.gy, dwo, scratch, M, d.hv, N, 0, 0, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = dense::sum_rows(ws + s.vec, vec4, scratch, BF, 4 * N, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (embed) err = dense::sum_rows(dx, dpos, scratch, BF, T * N, st);
+  const D16 d = make_d16(BF, T, N, H, dk, dv, embed, f32);
+  cudaError_t err;
+  if (f32) {
+    auto c = [](const void* p) { return static_cast<const float*>(p); };
+    err = forward16(c(x), c(pos), c(g0), c(b0), c(wqkv), c(wo), c(g1), c(b1), c(res), out,
+                    scores, ws, d, 1, st);
+  } else {
+    auto c = [](const void* p) { return static_cast<const bf16*>(p); };
+    err = forward16(c(x), c(pos), c(g0), c(b0), c(wqkv), c(wo), c(g1), c(b1), c(res), out,
+                    scores, ws, d, out_f32, st);
+  }
   return static_cast<int>(err);
 }
 
-// bf16 design: floats of the workspace (backward or forward only).
-size_t tat_bf16_workspace_floats(int BF, int T, int N, int H, int dk, int dv, int embed,
-                                 int backward) {
-  return space16(make_d16(BF, T, N, H, dk, dv, embed), backward).total;
-}
-
-// Shared memory a kernel's block requests. float32 (bf16_design = 0): kernel 0 the
-// forward, 1 the backward. bf16: kernel is the pass (0 qkv, 1 attention
-// forward, 2 out-projection + LN1, 3 LN1 backward + g_ctx, 4 attention
-// backward, 5 g_te), at its most rows (16 where none fit).
-size_t tat_fused_smem_bytes(int T, int N, int H, int dk, int dv, int embed, int kernel,
-                            int bf16_design) {
-  if (!bf16_design) {
-    const Dims d = make_dims(T, N, H, dk, dv, embed);
-    return kernel ? bwd_smem_bytes(d) : fwd_smem_bytes(d);
-  }
-  if (kernel < 0 || kernel >= kPasses) return 0;
-  return smem16_request(kernel, make_d16(1, T, N, H, dk, dv, embed));
-}
-
-// bf16 forward (passes 1-3): every input bf16, x (BF,T,N), pos (T,N), the
-// LN vectors (N), wqkv (N,W), wo (H*dv,N), res (BF,H,T,T). out and scores
-// are float32 with out_f32, else bf16 (rounded once). `ws` holds
-// tat_bf16_workspace_floats(..., 0).
-int tat_bf16_forward(const bf16* x, const bf16* pos, const bf16* g0, const bf16* b0,
-                     const bf16* wqkv, const bf16* wo, const bf16* g1, const bf16* b1,
-                     const bf16* res, void* out, void* scores, float* ws, int BF, int T, int N,
-                     int H, int dk, int dv, int embed, int out_f32, void* stream) {
+// Backward (passes 1, 2, 4-7): the forward's inputs, g_out and g_sc, all of
+// one dtype (float32 with f32 set, else bf16); dx, dres float32 with
+// out_f32 (always in float32), else bf16; dpos (T,N) (zero without the
+// embedding), vec4 (4,N) = [dg1, db1, dg0, db0], dwqkv (N,W), dwo (H*dv,N)
+// float32, every weight gradient summed over all rows in a fixed order.
+// `ws` holds tat_fused_workspace_floats(..., 1, f32).
+int tat_fused_backward(const void* x, const void* pos, const void* g0, const void* b0,
+                       const void* wqkv, const void* wo, const void* g1, const void* b1,
+                       const void* res, const void* g_out, const void* g_sc, void* dx,
+                       void* dres, float* dpos, float* vec4, float* dwqkv, float* dwo, float* ws,
+                       int BF, int T, int N, int H, int dk, int dv, int embed, int f32,
+                       int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const D16 d = make_d16(BF, T, N, H, dk, dv, embed);
-  const Space16 s = space16(d, 0);
-  cudaError_t err =
-      prep_qkv_attn16(x, pos, g0, b0, wqkv, wo, g1, b1, res, scores, out_f32, ws, s, d, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float* v = ws + s.vec;
-  const size_t TN = (size_t)T * N;
-  err = launch_rows(TAT_ROWS(tat_out_kernel), kOut, d, st, (const float*)(ws + s.ctx),
-                    (const bf16*)(ws + s.wo16), x, (const float*)(ws + s.te), v + TN + 2 * N,
-                    v + TN + 3 * N, out, out_f32, d);
+  const D16 d = make_d16(BF, T, N, H, dk, dv, embed, f32);
+  cudaError_t err;
+  if (f32) {
+    auto c = [](const void* p) { return static_cast<const float*>(p); };
+    err = backward16(c(x), c(pos), c(g0), c(b0), c(wqkv), c(wo), c(g1), c(b1), c(res), c(g_out),
+                     c(g_sc), dx, dres, dpos, vec4, dwqkv, dwo, ws, d, 1, st);
+  } else {
+    auto c = [](const void* p) { return static_cast<const bf16*>(p); };
+    err = backward16(c(x), c(pos), c(g0), c(b0), c(wqkv), c(wo), c(g1), c(b1), c(res), c(g_out),
+                     c(g_sc), dx, dres, dpos, vec4, dwqkv, dwo, ws, d, out_f32, st);
+  }
   return static_cast<int>(err);
-}
-
-// bf16 backward (passes 1, 2, 4-7): the forward's inputs, g_out and g_sc,
-// all bf16; dx, dres float32 with out_f32, else bf16; dpos (T,N) (zero
-// without the embedding), vec4 (4,N) = [dg1, db1, dg0, db0], dwqkv (N,W),
-// dwo (H*dv,N) float32, every weight gradient summed over all rows in a
-// fixed order. `ws` holds tat_bf16_workspace_floats(..., 1).
-int tat_bf16_backward(const bf16* x, const bf16* pos, const bf16* g0, const bf16* b0,
-                      const bf16* wqkv, const bf16* wo, const bf16* g1, const bf16* b1,
-                      const bf16* res, const bf16* g_out, const bf16* g_sc, void* dx, void* dres,
-                      float* dpos, float* vec4, float* dwqkv, float* dwo, float* ws, int BF,
-                      int T, int N, int H, int dk, int dv, int embed, int out_f32,
-                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const D16 d = make_d16(BF, T, N, H, dk, dv, embed);
-  const Space16 s = space16(d, 1);
-  float* scratch = ws + s.scratch;
-  const float* v = ws + s.vec;
-  const size_t TN = (size_t)T * N;
-  const bf16* w16 = reinterpret_cast<const bf16*>(ws + s.w16);
-  const bf16* wo16 = reinterpret_cast<const bf16*>(ws + s.wo16);
-  cudaError_t err =
-      prep_qkv_attn16(x, pos, g0, b0, wqkv, wo, g1, b1, res, nullptr, out_f32, ws, s, d, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_rows(TAT_ROWS(tat_ln1_bwd_kernel), kLn1Bwd, d, st, (const float*)(ws + s.ctx),
-                    wo16, x, (const float*)(ws + s.te), v + TN + 2 * N, g_out, ws + s.part1,
-                    ws + s.gy, ws + s.gctx, d);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_attn(tat_attn_bwd_kernel, kAttnBwd, d, st, (const float*)(ws + s.qkv), res,
-                    (const float*)(ws + s.gctx), g_sc, dres, out_f32, ws + s.gqkv, d);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_rows(TAT_ROWS(tat_gte_kernel), kGte, d, st, (const float*)(ws + s.gqkv), w16,
-                    (const float*)(ws + s.gy), x, v, (const float*)(ws + s.stats), v + TN, dx,
-                    out_f32, ws + s.dxf, ws + s.part0, d);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float* gqkv = ws + s.gqkv;
-  err = d.embed ? atb_wmma(ws + s.te, d.Np, gqkv, d.Wp, dwqkv, scratch, d.M, N, d.W, st)
-                : atb_wmma(x, N, gqkv, d.Wp, dwqkv, scratch, d.M, N, d.W, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = atb_wmma(ws + s.ctx, d.hvp, ws + s.gy, d.Np, dwo, scratch, d.M, d.hv, N, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int Mp = (d.M + 63) / 64 * 64;
-  err = dense::sum_rows(ws + s.part1, vec4, scratch, Mp / launch_rows16(kLn1Bwd, d), 2 * N,
-                        st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!embed) {
-    err = cudaMemsetAsync(vec4 + 2 * N, 0, sizeof(float) * 2 * N, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaMemsetAsync(dpos, 0, sizeof(float) * TN, st));
-  }
-  err = dense::sum_rows(ws + s.part0, vec4 + 2 * N, scratch, Mp / launch_rows16(kGte, d),
-                        2 * N, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(dense::sum_rows(ws + s.dxf, dpos, scratch, BF, T * N, st));
 }
 
 const char* tat_fused_error_string(int err) {

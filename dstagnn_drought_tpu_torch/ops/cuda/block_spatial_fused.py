@@ -14,21 +14,20 @@ Matmul operands are rounded to md where the TPU kernel casts them, sums
 stay float32. The TPU kernel's Kronecker factor kron(Θ_k, I_T) is a device
 of its matrix unit; here Θ mixes per time step and dΘ (K, C, Co) comes back
 directly. The kernels (``csrc/block_spatial_fused.cu``; its header says what
-bounds them and how the work is split) never write the (B, K, N, N) planes
-in the forward; the backward's weight gradients are summed over the batch
-in a fixed order, so two launches give the same bits. The backward reads
-the ReLU mask the forward kernel produced (``y > 0``, kept by
-:class:`SpatialMiddle`), as ``torch.relu``'s backward reads its output. In
-bfloat16 the embedding pass (``sp_embed_wmma_kernel``, both directions),
-the forward's column pass (``sp_cols_fwd_wmma_kernel``) and the backward's
-column and row passes (``sp_cols_bwd_wmma_kernel``,
-``sp_rows_bwd_wmma_kernel``) run their products on the tensor cores, on
-bf16 copies of xm, pw and wqk padded with zeros to multiples of 16; in
-float32 every pass runs on the CUDA cores. :class:`SpatialMiddle` puts
-them together. The wrappers
-take the kernels for CUDA tensors and the plain version
-(:func:`spatial_middle_plain`, gradients from autograd) only for tensors on
-the CPU; ``fwd_launches``/``bwd_launches`` count launches.
+bounds them and how the work is split) stream the source and target axes in
+tiles, as flash attention streams its keys, so no block's shared memory
+grows with N, F·T or C·T (:func:`smem_bytes`); they never write the
+(B, K, N, N) planes in the forward. The backward's weight gradients are
+summed over the batch in a fixed order, so two launches give the same bits.
+The backward reads the ReLU mask the forward kernel produced (``y > 0``,
+kept by :class:`SpatialMiddle`), as ``torch.relu``'s backward reads its
+output. The N²·C·T products run on the tensor cores in both dtypes, on a
+copy of xm laid out by time chunk (:func:`_xm_chunks`): one bf16 product in
+bfloat16, three in float32 (each operand split into bf16 hi + lo, float32
+in value). :class:`SpatialMiddle` puts them together. The wrappers take the
+kernels for CUDA tensors and the plain version (:func:`spatial_middle_plain`,
+gradients from autograd) only for tensors on the CPU;
+``fwd_launches``/``bwd_launches`` count launches.
 """
 from __future__ import annotations
 
@@ -102,11 +101,34 @@ def spatial_middle_plain(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, t
 # CUDA launches
 # ---------------------------------------------------------------------------
 
-KERNELS = ("embed", "cols_fwd", "cols_bwd", "rows_bwd", "embed_bwd")
+# the kernels of csrc/block_spatial_fused.cu, in the order of its
+# spatial_fused_smem_bytes: the embedding pass (both directions), the column
+# statistics (both directions), the forward's column pass, the backward's
+# column pass, its ds column pass, dq and dxm row passes, and SD
+KERNELS = ("embed", "stats", "cols_fwd", "cols_bwd", "ds", "dq", "rows_bwd", "embed_bwd")
+_SRC, _TGT = 64, 64    # sources a column pass, targets a row pass stream a step
+_CHUNK_COLS = 8 * 3 * 16  # the most columns of a time chunk (8 warps x 3 tiles of 16)
+_FC = 128              # tat columns a float32 embedding block takes a step
 
 
 def _pad16(n):
     return (n + 15) // 16 * 16
+
+
+def time_chunks(T, C, Co):
+    """(Tc, nTc): the time chunk of the column and row passes, Tc steps a
+    chunk whose C·Tc and Co·Tc columns fit 384 (at least one step), balanced
+    over nTc chunks. Θ mixes per time step, so the chunks are exact."""
+    most = min(T, max(1, _CHUNK_COLS // max(C, Co, 1)))
+    n = -(-T // most)
+    return -(-T // n), n
+
+
+def chunk_layout(N, C, T, Co):
+    """(Tc, nTc, C·Tc padded to 16, N padded to 64): the chunked copies of xm
+    and dagg, (B, nTc, Npad, CTcp) a k (csrc spatial_fused_chunks)."""
+    Tc, n = time_chunks(T, C, Co)
+    return Tc, n, _pad16(C * Tc), -(-N // _SRC) * _SRC
 
 
 def _embed_rows(FT, d):
@@ -122,42 +144,49 @@ def _embed_wmma_bytes(rows, FT, d):
 def smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype=torch.float32):
     """Shared memory a block of each kernel requests, for the compute dtype
     (the formulas of csrc/block_spatial_fused.cu, keyed as ``KERNELS``).
-    In bfloat16 the tensor-core passes keep their bf16 tiles padded to
-    multiples of 16 (Np, C·Tp, Cp, Cop, dp; rows of 8 more): the embedding
-    pass a 64-column chunk of md(tat) beside x_tat (its rows hold semx
-    after the LayerNorm) and 8 warps' 16x16 staging in float32; the
-    forward's column pass A_k and the theta mix's operands beside its
-    float32 (16·T, Cop + 4) sums; the backward's column pass A_k, dagg and
-    the theta products' operands beside the staging, and its row pass A_k's
-    rows; the rest is float32."""
-    t, hk2, CT, CoT = _TILE, 2 * K * d_k, C * T, Co * T
-    pad4 = lambda n: (n + 3) // 4 * 4
-    out = {"embed": 4 * t * (FT + d),
-           "cols_fwd": 4 * (t * d_k + 2 * N * t + t * CT + t * CoT),
-           "cols_bwd": 4 * (t * d_k + 3 * N * t + 2 * t * CT + t * CoT),
-           "rows_bwd": 4 * (pad4(N * d_k) + N * t + t * CT),
+    None grows with N, F·T or C·T: the tiles (16 rows or columns, 64
+    sources or targets a step), d_k, d and the time chunk's C·Tc and Co·Tc
+    columns (at most 384) set them. The embedding pass holds a (16, 128)
+    chunk of tat and x_tat (16, d) in float32; in bfloat16 x_tat (its rows
+    hold semx after the LayerNorm), a 64-column chunk of md(tat) and 8
+    warps' 16x16 staging (32 rows a block, or 16); the backward's column
+    pass also the aggregation of A's lo terms (16, C·Tc) beside agg."""
+    t, hk2 = _TILE, 2 * K * d_k
+    Tc, _, CTcp, _ = chunk_layout(N, C, T, Co)
+    lq = (d_k + 3) // 4 * 4  # a staged query row; a key row has 4 floats more
+    lk = lq + 4
+    a_tiles = 2 * 2 * _SRC * t  # A's hi and lo bf16 tiles
+    out = {"embed": 4 * t * (_FC + d),
+           "stats": 4 * (t * lk + _SRC * lq + 8 * t * 2),
+           "cols_fwd": 4 * (t * lk + _SRC * lq + 32 + t * CTcp + t * Co * Tc) + a_tiles,
+           "ds": 4 * (t * lk + _SRC * lq + t * d_k + 3 * t + 9 * _SRC * t),
+           "dq": 4 * ((_TGT + t) * d_k + t * _TGT),
+           "rows_bwd": 4 * (t * lq + _TGT * lk + 2 * _TGT + t * CTcp) + a_tiles,
            "embed_bwd": 4 * t * (hk2 + d)}
+    out["cols_bwd"] = out["cols_fwd"]
     if dtype == torch.bfloat16:
-        Np, CTp, Cp, Cop, R = _pad16(N), _pad16(CT), _pad16(C), _pad16(Co), t * T
         out["embed"] = _embed_wmma_bytes(_embed_rows(FT, d), FT, d)
-        out["cols_fwd"] = (4 * (t * d_k + Np * t + t * CTp + R * (Cop + 4))
-                           + 2 * (Np * t + R * (Cp + 8) + Cp * (Cop + 8)))
-        out["cols_bwd"] = (4 * (t * d_k + 2 * Np * t + t * CTp + 8 * 256)
-                           + 2 * (Np * t + t * (CTp + 8) + R * (Cop + 8 + Cp + 8)
-                                  + Cp * (Cop + 8)))
-        out["rows_bwd"] = 4 * (t * CTp + N * d_k) + 2 * Np * t
-    return out
+        out["cols_bwd"] += 4 * t * CTcp  # agg of A's lo terms, δ's operand
+    return {k: out[k] for k in KERNELS}
 
 
 def limit_error(N, FT, C, T, Co, d, K, d_k, dtype):
     """Why the kernels cannot take the spatial middle's shape in ``dtype``
-    on the card, or None: a kernel whose block needs more shared memory than
-    a block may have (:func:`smem_bytes`)."""
+    on the card, or None. N, F·T and C·T set no block's shared memory; what
+    is left: one time step's C or Co columns past the 384 a chunk holds, a
+    d or d_k too wide for the embedding and SD blocks (:func:`smem_bytes`),
+    and the grid's 65535 on K or the number of time chunks (the batch is
+    checked with the tensors)."""
+    if max(C, Co) > _CHUNK_COLS:
+        return (f"one time step's columns (C={C}, Co={Co}) exceed the {_CHUNK_COLS} a time "
+                f"chunk of the column passes holds")
     for kernel, need in smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype).items():
         if need > _SMEM_MAX:
             return (f"the {kernel} kernel needs {need} bytes of shared memory, more than the "
-                    f"{_SMEM_MAX} a block may have (N={N}, F·T={FT}, C·T={C * T}, d={d}, "
-                    f"{dtype}); N is limited by the (N, 16) planes of its target tile")
+                    f"{_SMEM_MAX} a block may have (d={d}, d_k={d_k}, C={C}, Co={Co}, "
+                    f"{dtype}); d and d_k set it")
+    if K > 65535 or time_chunks(T, C, Co)[1] > 65535:
+        return f"grid too large for K={K}, T={T}"
     return None
 
 
@@ -168,6 +197,8 @@ def _load():
         lib.spatial_fused_workspace_floats.restype = ctypes.c_size_t
         lib.spatial_fused_smem_bytes.argtypes = [ctypes.c_int] * 10
         lib.spatial_fused_smem_bytes.restype = ctypes.c_size_t
+        lib.spatial_fused_chunks.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.spatial_fused_chunks.restype = None
         tail = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.spatial_fused_forward.argtypes = [ctypes.c_void_p] * 17 + tail
         lib.spatial_fused_forward.restype = ctypes.c_int
@@ -233,20 +264,37 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def _bf16_operands(xm, pw, wqk, bf16):
-    """The tensor-core passes' bf16 copies of xm (B, N, C·T), pw (F·T, d)
-    and wqk (d, 2·K·d_k), each zero-padded to multiples of 16 in its last
-    two dimensions (the operands are bf16-exact already: nothing is lost);
-    Nones in float32."""
+def _bf16_operands(pw, wqk, bf16):
+    """The bf16 embedding pass's copies of pw (F·T, d) and wqk (d, 2·K·d_k),
+    each zero-padded to multiples of 16 (the operands are bf16-exact
+    already: nothing is lost); Nones in float32."""
     if not bf16:
-        return None, None, None
+        return None, None
     out = []
-    for a in (xm, pw, wqk):
-        p = torch.zeros(a.shape[:-2] + (_pad16(a.shape[-2]), _pad16(a.shape[-1])),
-                        dtype=torch.bfloat16, device=a.device)
-        p[..., :a.shape[-2], :a.shape[-1]] = a
+    for a in (pw, wqk):
+        p = torch.zeros((_pad16(a.shape[0]), _pad16(a.shape[1])), dtype=torch.bfloat16,
+                        device=a.device)
+        p[:a.shape[0], :a.shape[1]] = a
         out.append(p)
     return tuple(out)
+
+
+def _xm_chunks(xm, C, T, Co, bf16):
+    """xm (B, N, C·T) laid out by time chunk for the tensor-core products:
+    (B, nTc, Npad, CTcp) bf16 with element [b, h, i, c·Tc + t] = xm[b, i,
+    c·T + h·Tc + t], zero past N, past the last step and past C·Tc
+    (:func:`chunk_layout`). bfloat16: xm is bf16-exact, one copy (lo None);
+    float32: hi = bf16(xm) and lo = bf16(xm − hi), csrc's wm::split."""
+    B, N, _ = xm.shape
+    Tc, n, CTcp, Npad = chunk_layout(N, C, T, Co)
+    x = xm.float().reshape(B, N, C, T)
+    if n * Tc > T:
+        x = torch.nn.functional.pad(x, (0, n * Tc - T))
+    x = x.reshape(B, N, C, n, Tc).permute(0, 3, 1, 2, 4).reshape(B, n, N, C * Tc)
+    full = torch.zeros((B, n, Npad, CTcp), dtype=torch.float32, device=xm.device)
+    full[:, :, :N, :C * Tc] = x
+    hi = full.bfloat16()
+    return hi, None if bf16 else (full - hi.float()).bfloat16()
 
 
 @debug.kernel("spatial_fwd")
@@ -254,21 +302,25 @@ def spatial_forward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, t
                          K, d_k, keep, bf16):
     """Launch the forward on the current stream: float32 contiguous CUDA
     tensors (``dmask`` None for no dropout) → (B, N, Co·T) float32. With
-    ``bf16`` the embedding and column passes run on the tensor cores."""
+    ``bf16`` the operands are bf16-exact and each tensor-core product is one
+    bf16 product, else three (hi/lo split); the embedding pass runs on the
+    tensor cores in bf16."""
     global fwd_launches
     B, N, FT, C, T, Co, d = _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
                                    thetas, K, d_k, bf16)
     y = torch.empty((B, N, Co * T), dtype=torch.float32, device=tat.device)
     lib = _load()
-    ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 0, 0),
+    ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 0,
+                                                        int(bf16)),
                      dtype=torch.float32, device=tat.device)
-    padded = _bf16_operands(xm, pw, wqk, bf16)
+    chunks = _xm_chunks(xm, C, T, Co, bf16)
+    padded = _bf16_operands(pw, wqk, bf16)
     with torch.cuda.device(tat.device):
         stream = torch.cuda.current_stream(tat.device).cuda_stream
         err = lib.spatial_fused_forward(
-            tat.data_ptr(), xm.data_ptr(), _ptr(dmask), pw.data_ptr(), pb.data_ptr(),
-            pos.data_ptr(), gs.data_ptr(), bs.data_ptr(), wqk.data_ptr(), bias.data_ptr(),
-            cheb.data_ptr(), thetas.data_ptr(), *map(_ptr, padded), y.data_ptr(),
+            tat.data_ptr(), _ptr(dmask), pw.data_ptr(), pb.data_ptr(), pos.data_ptr(),
+            gs.data_ptr(), bs.data_ptr(), wqk.data_ptr(), bias.data_ptr(), cheb.data_ptr(),
+            thetas.data_ptr(), *map(_ptr, chunks), *map(_ptr, padded), y.data_ptr(),
             ws.data_ptr(), B, N, FT, C, T, Co, d, K, d_k, float(keep), int(bf16), stream)
     _raise_on(lib, err, "block_spatial_fused forward")
     fwd_launches += 1
@@ -281,9 +333,8 @@ def spatial_backward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, 
     """Launch the backward on the current stream: (dtat, dxm, dpw, dpb, dpos,
     dgs, dbs, dwqk, dbias, dthetas), all float32; the weight gradients are
     summed over the batch in a fixed order. ``relu_mask`` (B, N, Co·T)
-    torch.bool is where the forward kernel's float32 output was > 0. With
-    ``bf16`` the embedding, column and row passes run on the tensor cores,
-    on the forward's padded bf16 copies."""
+    torch.bool is where the forward kernel's float32 output was > 0.
+    ``bf16`` as the forward's."""
     global bwd_launches
     B, N, FT, C, T, Co, d = _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb,
                                    thetas, K, d_k, bf16, others=(("g_out", g_out),),
@@ -301,18 +352,18 @@ def spatial_backward_cuda(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, 
     lib = _load()
     ws = torch.empty(lib.spatial_fused_workspace_floats(B, N, FT, C, T, Co, d, K, d_k, 1,
                                                         int(bf16)), **f32)
-    padded = _bf16_operands(xm, pw, wqk, bf16)
+    chunks = _xm_chunks(xm, C, T, Co, bf16)
+    padded = _bf16_operands(pw, wqk, bf16)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spatial_fused_backward(
-            tat.data_ptr(), xm.data_ptr(), _ptr(dmask), pw.data_ptr(), pw_t.data_ptr(),
-            pb.data_ptr(), pos.data_ptr(), gs.data_ptr(), bs.data_ptr(), wqk.data_ptr(),
-            wqk_t.data_ptr(), bias.data_ptr(), cheb.data_ptr(), thetas.data_ptr(),
-            g_out.data_ptr(), relu_mask.data_ptr(), *map(_ptr, padded), dtat.data_ptr(),
-            dxm.data_ptr(), dpw.data_ptr(),
-            dvec.data_ptr(), dpos.data_ptr(), dwqk.data_ptr(), dbias.data_ptr(),
-            dth.data_ptr(), ws.data_ptr(), B, N, FT, C, T, Co, d, K, d_k, float(keep),
-            int(bf16), stream)
+            tat.data_ptr(), _ptr(dmask), pw.data_ptr(), pw_t.data_ptr(), pb.data_ptr(),
+            pos.data_ptr(), gs.data_ptr(), bs.data_ptr(), wqk.data_ptr(), wqk_t.data_ptr(),
+            bias.data_ptr(), cheb.data_ptr(), thetas.data_ptr(), g_out.data_ptr(),
+            relu_mask.data_ptr(), *map(_ptr, chunks), *map(_ptr, padded), dtat.data_ptr(),
+            dxm.data_ptr(), dpw.data_ptr(), dvec.data_ptr(), dpos.data_ptr(), dwqk.data_ptr(),
+            dbias.data_ptr(), dth.data_ptr(), ws.data_ptr(), B, N, FT, C, T, Co, d, K, d_k,
+            float(keep), int(bf16), stream)
     _raise_on(lib, err, "block_spatial_fused backward")
     bwd_launches += 1
     dpb, dgs, dbs = dvec

@@ -12,25 +12,21 @@ B·F, with x (B·F, T, N):
 
 everything in float32 whatever the input dtype, as the TPU kernel does; only
 out and the scores (and, backward, dx and dres) are rounded to the caller's
-dtype. The kernels (``csrc/tat_fused.cu``; its header says what bounds them)
-have one design a dtype:
-
-- float32: a forward and a backward kernel, one block a B·F row on the CUDA
-  cores, the backward recomputing the forward; the row lives in one block's
-  shared memory, which caps N and T (:func:`smem_bytes`).
-- bfloat16: passes over the flat B·F·T rows, their products on the tensor
-  cores with each float32 operand split into two bf16 terms (hi + lo), so
-  the function stays float32 in value; the attention itself a block per
-  (row, head) on the CUDA cores, in chunks of key columns
-  (:func:`bf16_passes` gives each pass's rows and shared memory).
+dtype. The kernels (``csrc/tat_fused.cu``; its header says what bounds
+them) are one design for float32 and bfloat16: passes over the flat B·F·T
+rows, their products on the tensor cores with each float32 operand split
+into two bf16 terms (hi + lo; in float32 x and the weights too), so the
+function stays float32 in value; the attention itself a block per (row,
+head) on the CUDA cores, in chunks of key columns (:func:`passes` gives
+each pass's rows and shared memory).
 
 The backward's weight gradients are contracted over all rows by a second
 pass in a fixed order, so two launches give the same bits. :class:`TatFused`
-puts them together and takes the design of the input's dtype; a shape its
-design refuses raises ``ValueError``. The wrappers take the kernels for
-CUDA tensors and the plain version (:func:`tat_fused_plain`, gradients from
-autograd) only for tensors on the CPU; ``fwd_launches``/``bwd_launches``
-count wrapper calls that launched a direction's kernels.
+puts them together; a shape the passes refuse raises ``ValueError``. The
+wrappers take the kernels for CUDA tensors and the plain version
+(:func:`tat_fused_plain`, gradients from autograd) only for tensors on the
+CPU; ``fwd_launches``/``bwd_launches`` count wrapper calls that launched a
+direction's kernels.
 """
 from __future__ import annotations
 
@@ -82,24 +78,16 @@ def tat_fused_plain(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v,
 def _load():
     lib = build.load("tat_fused")
     if lib.tat_fused_forward.argtypes is None:
-        lib.tat_fused_workspace_floats.argtypes = [ctypes.c_int] * 6
+        lib.tat_fused_workspace_floats.argtypes = [ctypes.c_int] * 9
         lib.tat_fused_workspace_floats.restype = ctypes.c_size_t
-        lib.tat_fused_forward.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        lib.tat_fused_forward.restype = ctypes.c_int
-        lib.tat_fused_backward.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        lib.tat_fused_backward.restype = ctypes.c_int
-        lib.tat_bf16_workspace_floats.argtypes = [ctypes.c_int] * 8
-        lib.tat_bf16_workspace_floats.restype = ctypes.c_size_t
         lib.tat_fused_smem_bytes.argtypes = [ctypes.c_int] * 8
         lib.tat_fused_smem_bytes.restype = ctypes.c_size_t
-        lib.tat_bf16_forward.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
+        lib.tat_fused_forward.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
-        lib.tat_bf16_forward.restype = ctypes.c_int
-        lib.tat_bf16_backward.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [
+        lib.tat_fused_forward.restype = ctypes.c_int
+        lib.tat_fused_backward.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
-        lib.tat_bf16_backward.restype = ctypes.c_int
+        lib.tat_fused_backward.restype = ctypes.c_int
         lib.tat_fused_error_string.argtypes = [ctypes.c_int]
         lib.tat_fused_error_string.restype = ctypes.c_char_p
     return lib
@@ -112,22 +100,14 @@ def _raise_on(lib, err, what):
 
 
 def smem_bytes(T, N, H, d_k, d_v, backward, dtype=torch.float32, embed=False):
-    """Shared memory a kernel block of a direction needs. float32: the row's
-    activations (the formulas of csrc/tat_fused.cu). bfloat16: the most any
-    of the direction's passes requests (:func:`bf16_passes`)."""
-    if dtype == torch.bfloat16:
-        passes = bf16_passes(T, N, H, d_k, d_v, embed)
-        return max(passes[p][1] for p in (BWD_PASSES if backward else FWD_PASSES))
-    W = H * (2 * d_k + d_v)
-    if backward:
-        n = 5 * T * N + 2 * T * W + 2 * H * T * T + 2 * T * H * d_v + 2 * T
-    else:
-        n = 2 * T * N + T * W + H * T * T + T * H * d_v + T
-    return 4 * n
+    """Shared memory a kernel block of a direction needs: the most any of
+    the direction's passes requests (:func:`passes`) in ``dtype``."""
+    plan = passes(T, N, H, d_k, d_v, embed, dtype)
+    return max(plan[p][1] for p in (BWD_PASSES if backward else FWD_PASSES))
 
 
-# the bf16 design's passes (csrc/tat_fused.cu's Pass16 order) and the
-# directions that launch them
+# the passes (csrc/tat_fused.cu's Pass16 order) and the directions that
+# launch them
 PASSES = ("qkv", "attn_fwd", "out", "ln1_bwd", "attn_bwd", "gte")
 FWD_PASSES = ("qkv", "attn_fwd", "out")
 BWD_PASSES = ("qkv", "attn_fwd", "ln1_bwd", "attn_bwd", "gte")
@@ -138,47 +118,52 @@ def _pad16(n):
     return (n + 15) // 16 * 16
 
 
-def _pass_bytes(name, rows, T, N, H, d_k, d_v, embed):
-    """Shared memory of one bf16 pass's block at ``rows`` rows (the formulas
-    of csrc/tat_fused.cu ``smem16``)."""
+def _pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32=False):
+    """Shared memory of one pass's block at ``rows`` rows (the formulas of
+    csrc/tat_fused.cu ``smem16``). In float32 (``f32``) the qkv pass stages
+    wqkv's lo chunk beside its hi chunk over half the columns and splits x,
+    and the LN1-backward pass stages wo's lo chunk too."""
     R, Np, Wp, hvp = rows, _pad16(N), _pad16(H * (2 * d_k + d_v)), _pad16(H * d_v)
     KC, LZ, lq, lv = min(T, 32), Np + 4, d_k + 1, d_v + 1
     ls = KC + 1
     if name == "qkv":
-        gw = min(Wp, 16 * (_WARPS * _ITEMS // (R // 16)))
-        return 2 * _KC * (gw + 8) + 2 * R * _LC * (1 + embed) + 8 * R
+        gw = min(Wp, 16 * (_WARPS * _ITEMS // (R // 16)) // (1 + f32))
+        return 2 * _KC * (gw + 8) * (1 + f32) + 2 * R * _LC * (1 + (embed or f32)) + 8 * R
     if name == "attn_fwd":
         return 4 * (T * lq + KC * lq + KC * lv + T * ls + T * d_v)
     if name == "out":
         return 4 * R * LZ + 4 * R * (hvp + 8)
     if name == "ln1_bwd":
-        return 4 * R * LZ + max(4 * R * (hvp + 8), 4 * R * _LC + 2 * hvp * _LC) + 4 * R
+        return (4 * R * LZ + max(4 * R * (hvp + 8), 4 * R * _LC + 2 * hvp * _LC * (1 + f32))
+                + 4 * R)
     if name == "attn_bwd":
         return 4 * (T * lq + T * lv + T * d_k + KC * lq + KC * lv + 2 * T * ls)
     return 4 * R * (Wp + 8) + (4 * R * LZ if embed else 4 * _WARPS * 256)  # gte
 
 
-def bf16_passes(T, N, H, d_k, d_v, embed=False):
-    """{pass: (rows, bytes)} of the bfloat16 design: the most rows of B·F·T
-    a block of each row-tiled pass takes (64, 32 or 16, the most whose
-    shared memory fits; the LN1-backward pass also needs its g_ctx tiles,
-    (rows/16) x ⌈H·d_v/16⌉, to fit 9 a warp) and the bytes it requests
-    there; 0 rows (and the bytes at 16) where none fit. A launch halves the
-    rows, down to 16, while B·F·T would give fewer blocks than an H100's
-    132 SMs; 16 rows fit wherever more do. The attention passes take one
-    (row, head) a block and give rows 1 (0 where they do not fit)."""
+def passes(T, N, H, d_k, d_v, embed=False, dtype=torch.bfloat16):
+    """{pass: (rows, bytes)} of the design for inputs of ``dtype`` (bfloat16
+    or float32): the most rows of B·F·T a block of each row-tiled pass takes
+    (64, 32 or 16, the most whose shared memory fits; the LN1-backward pass
+    also needs its g_ctx tiles, (rows/16) x ⌈H·d_v/16⌉, to fit 9 a warp) and
+    the bytes it requests there; 0 rows (and the bytes at 16) where none
+    fit. A launch halves the rows, down to 16, while B·F·T would give fewer
+    blocks than an H100's 132 SMs; 16 rows fit wherever more do. The
+    attention passes take one (row, head) a block and give rows 1 (0 where
+    they do not fit)."""
+    f32 = dtype != torch.bfloat16
     out = {}
     hv16 = _pad16(H * d_v) // 16
     for name in PASSES:
         if name.startswith("attn"):
-            need = _pass_bytes(name, 1, T, N, H, d_k, d_v, embed)
+            need = _pass_bytes(name, 1, T, N, H, d_k, d_v, embed, f32)
             out[name] = (1 if need <= _SMEM_MAX else 0, need)
             continue
-        out[name] = (0, _pass_bytes(name, 16, T, N, H, d_k, d_v, embed))
+        out[name] = (0, _pass_bytes(name, 16, T, N, H, d_k, d_v, embed, f32))
         for rows in (64, 32, 16):
             if name == "ln1_bwd" and rows // 16 * hv16 > _WARPS * _ITEMS:
                 continue
-            need = _pass_bytes(name, rows, T, N, H, d_k, d_v, embed)
+            need = _pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32)
             if need <= _SMEM_MAX:
                 out[name] = (rows, need)
                 break
@@ -186,31 +171,24 @@ def bf16_passes(T, N, H, d_k, d_v, embed=False):
 
 
 def limit_error(T, N, H, d_k, d_v, dtype, backward, embed=False):
-    """Why the forward or backward kernels of ``dtype``'s design cannot take
-    (T, N) on the card, or None: float32 needs a row's activations in one
-    block (:func:`smem_bytes`), bfloat16 a block of every pass at its fewest
-    rows (:func:`bf16_passes`), within the shared memory a block may have."""
-    if dtype != torch.bfloat16:
-        need = smem_bytes(T, N, H, d_k, d_v, backward=backward)
-        if need > _SMEM_MAX:
-            return (f"a row needs {need} bytes of shared memory, more than the "
-                    f"{_SMEM_MAX} a block may have (T={T}, N={N}, float32)")
-        return None
-    passes = bf16_passes(T, N, H, d_k, d_v, embed)
+    """Why the forward or backward passes cannot take (T, N) for inputs of
+    ``dtype`` on the card, or None: a block of every pass at its fewest rows
+    (:func:`passes`) within the shared memory a block may have."""
+    plan = passes(T, N, H, d_k, d_v, embed, dtype)
+    kind = "bf16" if dtype == torch.bfloat16 else "float32"
     for name in (BWD_PASSES if backward else FWD_PASSES):
-        rows, need = passes[name]
+        rows, need = plan[name]
         if rows == 0:
-            return (f"the bf16 {name} pass needs {need} bytes of shared memory at its "
+            return (f"the {kind} {name} pass needs {need} bytes of shared memory at its "
                     f"fewest rows, more than the {_SMEM_MAX} a block may have (T={T}, "
                     f"N={N}, H={H}, d_k={d_k}, d_v={d_v}, embed={embed})")
     return None
 
 
-def _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, others=(), bf16=False,
-           embed=False):
-    """Refuse what a design's kernels do not take: shapes, the dtype (float32
-    or, with ``bf16``, bfloat16), layout, device, and a shape whose blocks
-    need more shared memory than a block may have."""
+def _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, others=(), embed=False):
+    """Refuse what the passes do not take: shapes, the dtype (float32 or
+    bfloat16, one for every tensor), layout, device, and a shape whose
+    blocks need more shared memory than a block may have."""
     if x.ndim != 3:
         raise ValueError(f"x must be (B·F, T, N), got {tuple(x.shape)}")
     BF, T, N = x.shape
@@ -221,17 +199,19 @@ def _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, others=(), 
     for name, t in named.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} must be {shapes[name]}, got {tuple(t.shape)}")
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    why = limit_error(T, N, n_heads, d_k, d_v, dtype, backward=bool(others), embed=embed)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the tat_fused passes take float32 or bfloat16; x is {x.dtype}")
+    why = limit_error(T, N, n_heads, d_k, d_v, x.dtype, backward=bool(others), embed=embed)
     if why is not None:
         raise ValueError(why)
-    if bf16 and BF * T >= 2 ** 31:
-        raise ValueError(f"too many rows for the bf16 passes: B·F·T = {BF * T}")
-    for name, t in (("x", x), *named.items(), *others):
-        if t.dtype != dtype:
-            kind = ("the bf16 tat_fused passes take bfloat16" if bf16
-                    else "the tat_fused kernels take float32")
-            raise TypeError(f"{kind}; {name} is {t.dtype}")
+    if BF * T >= 2 ** 31:
+        raise ValueError(f"too many rows for the passes: B·F·T = {BF * T}")
+    tensors = (("x", x), *named.items(), *others)
+    for name, t in tensors:
+        if t.dtype != x.dtype:
+            raise TypeError(f"the tat_fused passes take one dtype, x's {x.dtype}; {name} is "
+                            f"{t.dtype}")
+    for name, t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device.type != "cuda" or t.device != x.device:
@@ -239,164 +219,102 @@ def _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, others=(), 
 
 
 @debug.kernel("tat_fwd")
-def tat_forward_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v, embed):
-    """Launch the forward on the current stream: float32 contiguous CUDA
-    tensors → (out (BF, T, N), scores (BF, H, T, T)) float32."""
+def tat_forward_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v, embed,
+                     out_dtype=None):
+    """Launch the forward (passes 1-3) on the current stream: contiguous CUDA
+    tensors, all float32 or all bfloat16 → (out (BF, T, N), scores (BF, H,
+    T, T)) in ``out_dtype`` (x's dtype by default, rounded once, or
+    float32)."""
     global fwd_launches
-    _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v)
-    BF, T, N = x.shape
-    out = torch.empty_like(x)
-    scores = torch.empty_like(res)
-    if BF == 0:
-        return out, scores
-    lib = _load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tat_fused_forward(
-            x.data_ptr(), pos.data_ptr(), g0.data_ptr(), b0.data_ptr(), wqkv.data_ptr(),
-            wo.data_ptr(), g1.data_ptr(), b1.data_ptr(), res.data_ptr(), out.data_ptr(),
-            scores.data_ptr(), BF, T, N, n_heads, d_k, d_v, int(embed), stream)
-    _raise_on(lib, err, "tat_fused forward")
-    fwd_launches += 1
-    return out, scores
-
-
-@debug.kernel("tat_bwd")
-def tat_backward_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, g_out, g_sc, *,
-                      n_heads, d_k, d_v, embed):
-    """Launch the backward on the current stream: (dx, dres, dpos, dg0, db0,
-    dwqkv, dwo, dg1, db1), all float32; the weight gradients are summed over
-    every row in a fixed order."""
-    global bwd_launches
-    _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v,
-           others=(("g_out", g_out), ("g_sc", g_sc)))
-    if tuple(g_out.shape) != tuple(x.shape) or tuple(g_sc.shape) != tuple(res.shape):
-        raise ValueError("g_out and g_sc must have the shapes of out and scores")
-    BF, T, N = x.shape
-    dev = x.device
-    dx = torch.empty_like(x)
-    dres = torch.empty_like(res)
-    dpos = torch.zeros((T, N), dtype=torch.float32, device=dev)
-    vec4 = torch.empty((4, N), dtype=torch.float32, device=dev)
-    dwqkv = torch.empty_like(wqkv)
-    dwo = torch.empty_like(wo)
-    # transposed weights, so the backward's products read them coalesced
-    wqkv_t, wo_t = wqkv.t().contiguous(), wo.t().contiguous()
-    lib = _load()
-    ws = torch.empty(lib.tat_fused_workspace_floats(BF, T, N, n_heads, d_k, d_v),
-                     dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tat_fused_backward(
-            x.data_ptr(), pos.data_ptr(), g0.data_ptr(), b0.data_ptr(), wqkv.data_ptr(),
-            wqkv_t.data_ptr(), wo.data_ptr(), wo_t.data_ptr(), g1.data_ptr(),
-            res.data_ptr(), g_out.data_ptr(), g_sc.data_ptr(), dx.data_ptr(),
-            dres.data_ptr(), dpos.data_ptr(), vec4.data_ptr(), dwqkv.data_ptr(),
-            dwo.data_ptr(), ws.data_ptr(), BF, T, N, n_heads, d_k, d_v, int(embed), stream)
-    _raise_on(lib, err, "tat_fused backward")
-    bwd_launches += 1
-    dg1, db1, dg0, db0 = vec4
-    return dx, dres, dpos, dg0, db0, dwqkv, dwo, dg1, db1
-
-
-@debug.kernel("tat_fwd")
-def tat_forward_bf16_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, *, n_heads, d_k, d_v, embed,
-                          out_dtype=torch.bfloat16):
-    """Launch the bf16 design's forward (passes 1-3) on the current stream:
-    bfloat16 contiguous CUDA tensors → (out (BF, T, N), scores (BF, H, T, T))
-    in ``out_dtype`` (bfloat16, rounded once, or float32)."""
-    global fwd_launches
-    _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, bf16=True, embed=embed)
+    _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, embed=embed)
+    out_dtype = out_dtype or x.dtype
+    f32 = x.dtype == torch.float32
     BF, T, N = x.shape
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     scores = torch.empty(res.shape, dtype=out_dtype, device=x.device)
     if BF == 0:
         return out, scores
     lib = _load()
-    ws = torch.empty(lib.tat_bf16_workspace_floats(BF, T, N, n_heads, d_k, d_v, int(embed), 0),
+    ws = torch.empty(lib.tat_fused_workspace_floats(BF, T, N, n_heads, d_k, d_v, int(embed), 0,
+                                                    int(f32)),
                      dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.tat_bf16_forward(
+        err = lib.tat_fused_forward(
             *(t.data_ptr() for t in (x, pos, g0, b0, wqkv, wo, g1, b1, res, out, scores, ws)),
-            BF, T, N, n_heads, d_k, d_v, int(embed), int(out_dtype == torch.float32), stream)
-    _raise_on(lib, err, "tat_fused bf16 forward")
+            BF, T, N, n_heads, d_k, d_v, int(embed), int(f32),
+            int(out_dtype == torch.float32), stream)
+    _raise_on(lib, err, "tat_fused forward")
     fwd_launches += 1
     return out, scores
 
 
 @debug.kernel("tat_bwd")
-def tat_backward_bf16_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, g_out, g_sc, *, n_heads, d_k,
-                           d_v, embed, out_dtype=torch.bfloat16):
-    """Launch the bf16 design's backward (passes 1, 2, 4-7) on the current
-    stream: (dx, dres) in ``out_dtype``, then (dpos, dg0, db0, dwqkv, dwo,
-    dg1, db1) float32, the weight gradients summed over every row in a fixed
-    order."""
+def tat_backward_cuda(x, pos, g0, b0, wqkv, wo, g1, b1, res, g_out, g_sc, *, n_heads, d_k, d_v,
+                      embed, out_dtype=None):
+    """Launch the backward (passes 1, 2, 4-7) on the current stream: (dx,
+    dres) in ``out_dtype`` (x's dtype by default, or float32), then (dpos,
+    dg0, db0, dwqkv, dwo, dg1, db1) float32, the weight gradients summed
+    over every row in a fixed order."""
     global bwd_launches
     _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v,
-           others=(("g_out", g_out), ("g_sc", g_sc)), bf16=True, embed=embed)
+           others=(("g_out", g_out), ("g_sc", g_sc)), embed=embed)
     if tuple(g_out.shape) != tuple(x.shape) or tuple(g_sc.shape) != tuple(res.shape):
         raise ValueError("g_out and g_sc must have the shapes of out and scores")
+    out_dtype = out_dtype or x.dtype
+    f32 = x.dtype == torch.float32
     BF, T, N = x.shape
     dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32t = dict(dtype=torch.float32, device=dev)
     dx = torch.empty(x.shape, dtype=out_dtype, device=dev)
     dres = torch.empty(res.shape, dtype=out_dtype, device=dev)
     if BF == 0:
-        return (dx, dres, torch.zeros((T, N), **f32), *torch.zeros((2, N), **f32),
-                torch.zeros(wqkv.shape, **f32), torch.zeros(wo.shape, **f32),
-                *torch.zeros((2, N), **f32))
-    dpos, vec4 = torch.empty((T, N), **f32), torch.empty((4, N), **f32)
-    dwqkv, dwo = torch.empty(wqkv.shape, **f32), torch.empty(wo.shape, **f32)
+        return (dx, dres, torch.zeros((T, N), **f32t), *torch.zeros((2, N), **f32t),
+                torch.zeros(wqkv.shape, **f32t), torch.zeros(wo.shape, **f32t),
+                *torch.zeros((2, N), **f32t))
+    dpos, vec4 = torch.empty((T, N), **f32t), torch.empty((4, N), **f32t)
+    dwqkv, dwo = torch.empty(wqkv.shape, **f32t), torch.empty(wo.shape, **f32t)
     lib = _load()
-    ws = torch.empty(lib.tat_bf16_workspace_floats(BF, T, N, n_heads, d_k, d_v, int(embed), 1),
-                     **f32)
+    ws = torch.empty(lib.tat_fused_workspace_floats(BF, T, N, n_heads, d_k, d_v, int(embed), 1,
+                                                    int(f32)), **f32t)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tat_bf16_backward(
+        err = lib.tat_fused_backward(
             *(t.data_ptr() for t in (x, pos, g0, b0, wqkv, wo, g1, b1, res, g_out, g_sc, dx,
                                      dres, dpos, vec4, dwqkv, dwo, ws)),
-            BF, T, N, n_heads, d_k, d_v, int(embed), int(out_dtype == torch.float32), stream)
-    _raise_on(lib, err, "tat_fused bf16 backward")
+            BF, T, N, n_heads, d_k, d_v, int(embed), int(f32),
+            int(out_dtype == torch.float32), stream)
+    _raise_on(lib, err, "tat_fused backward")
     bwd_launches += 1
     dg1, db1, dg0, db0 = vec4
     return dx, dres, dpos, dg0, db0, dwqkv, dwo, dg1, db1
 
 
-def _f32(*ts):
-    return [t.float().contiguous() for t in ts]
-
-
-def _contiguous(*ts):
-    return [t.contiguous() for t in ts]
+def _operands(*ts):
+    """Contiguous operands of one dtype the passes take: bfloat16 as it is,
+    any other dtype widened to float32."""
+    dtype = torch.bfloat16 if ts[0].dtype == torch.bfloat16 else torch.float32
+    return [t.to(dtype).contiguous() for t in ts]
 
 
 class TatFused(torch.autograd.Function):
-    """The forward kernels, with the backward kernels as their gradient: dx,
+    """The forward passes, with the backward passes as their gradient: dx,
     dpos, dg0, db0, dwqkv, dwo, dg1, db1 and dres, each in its input's
-    dtype. bfloat16 inputs go to the bf16 design as they are; any other
-    dtype is widened to float32 for the float32 kernels."""
+    dtype. bfloat16 inputs go to the passes as they are; any other dtype is
+    widened to float32."""
 
     @staticmethod
     def forward(ctx, x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, embed):
         ctx.save_for_backward(x, pos, g0, b0, wqkv, wo, g1, b1, res)
         ctx.dims = dict(n_heads=n_heads, d_k=d_k, d_v=d_v, embed=embed)
-        if x.dtype == torch.bfloat16:
-            return tat_forward_bf16_cuda(*_contiguous(x, pos, g0, b0, wqkv, wo, g1, b1, res),
-                                         **ctx.dims)
-        out, scores = tat_forward_cuda(*_f32(x, pos, g0, b0, wqkv, wo, g1, b1, res),
+        out, scores = tat_forward_cuda(*_operands(x, pos, g0, b0, wqkv, wo, g1, b1, res),
                                        **ctx.dims)
         return out.to(x.dtype), scores.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g_out, g_sc):
         saved = ctx.saved_tensors
-        x = saved[0]
-        if x.dtype == torch.bfloat16:
-            grads = tat_backward_bf16_cuda(*_contiguous(*saved, g_out.bfloat16(),
-                                                        g_sc.bfloat16()), **ctx.dims)
-        else:
-            grads = tat_backward_cuda(*_f32(*saved, g_out, g_sc), **ctx.dims)
+        grads = tat_backward_cuda(*_operands(*saved, g_out, g_sc), **ctx.dims)
         dx, dres, dpos, dg0, db0, dwqkv, dwo, dg1, db1 = grads
         x, pos, g0, b0, wqkv, wo, g1, b1, res = saved
         cast = lambda a, like: a.to(like.dtype)

@@ -229,45 +229,54 @@ def test_kernels_refuse_what_they_do_not_take():
         bsf.spatial_backward_cuda(*args, g, relu_mask[:, :5], **dims)
     with pytest.raises(TypeError, match="relu_mask must be torch.bool"):
         bsf.spatial_backward_cuda(*args, g, relu_mask.float(), **dims)
-    # PEMS08 width fits a block's shared memory; N = 2139 does not
+    # PEMS08 width fits a block's shared memory, and so does N = 2139: the
+    # passes stream the source and target axes in tiles
     assert max(bsf.smem_bytes(170, 384, 32, 12, 32, 512, 3, 32).values()) < 227 * 1024
-    assert bsf.smem_bytes(2139, 576, 4, 144, 32, 64, 2, 32)["cols_bwd"] > 227 * 1024
-    # at PEMS08 widths the float32 backward takes N <= 816 and the bf16 one
-    # (A_k, dagg and the theta operands in bf16 tiles) N <= 944, PEMS07's
-    # N = 883 included
+    assert max(bsf.smem_bytes(2139, 576, 4, 144, 32, 64, 2, 32).values()) < 227 * 1024
+    # at PEMS08 widths both dtypes take N past the old caps (float32 816,
+    # bf16 944), PEMS07's N = 883 included
     widths = (384, 32, 12, 32, 512, 3, 32)
-    for dtype, cap in ((torch.float32, 816), (torch.bfloat16, 944)):
-        assert max(bsf.smem_bytes(cap, *widths, dtype).values()) <= 227 * 1024
-        assert bsf.smem_bytes(cap + 1, *widths, dtype)["cols_bwd"] > 227 * 1024
-    assert max(bsf.smem_bytes(883, *widths, torch.bfloat16).values()) <= 227 * 1024
-    # the gate names the bytes, for the dtype the kernels run in
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (816, 817, 883, 944, 945):
+            assert max(bsf.smem_bytes(n, *widths, dtype).values()) <= 227 * 1024
+    # the gate admits PEMS07 in both dtypes: refused only for the CPU
     big = [torch.zeros(1, 883, 384), torch.zeros(1, 883, 384), None,
            torch.zeros(384, 512), torch.zeros(512), torch.zeros(883, 512), torch.zeros(512),
            torch.zeros(512), torch.zeros(512, 192), torch.zeros(3, 883, 883),
            torch.zeros(3, 883, 883), torch.zeros(3, 32, 32)]
-    need = bsf.smem_bytes(883, *widths)["cols_bwd"]
-    with pytest.raises(ValueError, match=f"cols_bwd kernel needs {need} bytes"):
-        bsf._check(*big, 3, 32, False)
-    with pytest.raises(ValueError, match="CUDA"):  # admitted in bf16: refused only for the CPU
-        bsf._check(*big, 3, 32, True)
+    for bf16 in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            bsf._check(*big, 3, 32, bf16)
+    # what it still refuses: one time step's channels past a chunk's 384
+    # columns, and a d too wide for the embedding block, named with the bytes
+    assert "exceed the 384" in bsf.limit_error(20, 12, 385, 12, 32, 64, 2, 8, torch.float32)
+    need = bsf.smem_bytes(20, 12, 1, 12, 8, 4096, 2, 8)["embed"]
+    assert f"embed kernel needs {need} bytes" in bsf.limit_error(20, 12, 1, 12, 8, 4096, 2, 8,
+                                                                 torch.float32)
 
 
 def test_bf16_forward_gate_keeps_the_backward_cap():
-    """The bf16 embedding and forward column passes (tensor-core layouts)
-    need less shared memory than the backward's column pass at every N up
-    to its cap at PEMS08 widths, so the caps stay float32 N <= 816 and bf16
-    N <= 944 (PEMS07's 883 included), and N = 945 is refused naming
-    cols_bwd. At PEMS08's N = 170 two bf16 column blocks fit an SM (228 KB,
-    1 KB reserved a block)."""
+    """The backward's cap on N is gone with the (N, 16) planes: at PEMS08
+    widths every pass of both directions needs the same bytes at every N
+    from 1 to 4096 in bf16, the forward's column pass no more than the
+    backward's, and N = 945, past the old bf16 cap, is admitted. At PEMS08's
+    N = 170 three bf16 column blocks fit an SM (228 KB, 1 KB reserved a
+    block); the embedding pass keeps its 78,848 bytes."""
     widths = (384, 32, 12, 32, 512, 3, 32)
-    for n in range(1, 945):
+    first = bsf.smem_bytes(1, *widths, torch.bfloat16)
+    for n in range(1, 4097, 7):
         need = bsf.smem_bytes(n, *widths, torch.bfloat16)
-        assert max(need["embed"], need["cols_fwd"]) < need["cols_bwd"], n
+        assert need == first, n
+        assert need["cols_fwd"] <= need["cols_bwd"], n
     for n, dtype in ((816, torch.float32), (883, torch.bfloat16), (944, torch.bfloat16)):
         assert max(bsf.smem_bytes(n, *widths, dtype).values()) <= 227 * 1024, (n, dtype)
     pems08 = bsf.smem_bytes(170, *widths, torch.bfloat16)
-    assert pems08["embed"] == 78_848 and pems08["cols_fwd"] == 89_088
-    assert 2 * (pems08["cols_fwd"] + 1024) <= 228 * 1024
+    # cols: keys (16, 32 + 4), queries (64, 32), stats, agg and out (16,
+    # 384) float32; A's hi and lo tiles (64, 16) bf16
+    assert pems08["embed"] == 78_848
+    assert pems08["cols_fwd"] == (4 * (16 * 36 + 64 * 32 + 32 + 2 * 16 * 384)
+                                  + 2 * 2 * 64 * 16) == 63_872
+    assert 3 * (pems08["cols_fwd"] + 1024) <= 228 * 1024
     # a d at which 32 bf16 embedding rows would not fit takes 16 a block and
     # stays admitted, as float32 admits it
     assert bsf._embed_wmma_bytes(32, 12, 2048) > 227 * 1024
@@ -280,25 +289,61 @@ def test_bf16_forward_gate_keeps_the_backward_cap():
            torch.zeros(512), torch.zeros(n, 512), torch.zeros(512), torch.zeros(512),
            torch.zeros(512, 192), torch.zeros(3, n, n), torch.zeros(3, n, n),
            torch.zeros(3, 32, 32)]
-    need = bsf.smem_bytes(n, *widths, torch.bfloat16)["cols_bwd"]
-    with pytest.raises(ValueError, match=f"cols_bwd kernel needs {need} bytes"):
+    with pytest.raises(ValueError, match="CUDA"):  # admitted: refused only for the CPU
         bsf._check(*big, 3, 32, True)
 
 
 def test_bf16_operands_are_zero_padded_copies():
-    """The tensor-core passes' bf16 copies of xm, pw and wqk: multiples of
-    16 in their last two dimensions, the operand in the corner and zeros
-    elsewhere; none in float32."""
+    """The bf16 embedding pass's copies of pw and wqk: multiples of 16 in
+    both dimensions, the operand in the corner and zeros elsewhere; none in
+    float32. The tensor-core products' copy of xm, by time chunk: (B, nTc,
+    Npad, CTcp) with element [b, h, i, c·Tc + t] = xm[b, i, c·T + h·Tc + t]
+    and zeros past N, past T and past C·Tc; in bf16 one exact copy, in
+    float32 hi + lo within 2^-17 of xm."""
     args = _kernel_args()
-    xm, pw, wqk = (args[i].bfloat16().float() for i in (1, 3, 8))
-    assert bsf._bf16_operands(xm, pw, wqk, False) == (None, None, None)
-    for a, p in zip((xm, pw, wqk), bsf._bf16_operands(xm, pw, wqk, True)):
+    pw, wqk = (args[i].bfloat16().float() for i in (3, 8))
+    assert bsf._bf16_operands(pw, wqk, False) == (None, None)
+    for a, p in zip((pw, wqk), bsf._bf16_operands(pw, wqk, True)):
         assert p.dtype == torch.bfloat16
-        assert p.shape[:-2] == a.shape[:-2]
-        assert all(s % 16 == 0 and s - 16 < t <= s for s, t in zip(p.shape[-2:], a.shape[-2:]))
-        r, c = a.shape[-2:]
-        assert torch.equal(p[..., :r, :c].float(), a)
-        assert not p[..., r:, :].any() and not p[..., :, c:].any()
+        assert all(s % 16 == 0 and s - 16 < t <= s for s, t in zip(p.shape, a.shape))
+        r, c = a.shape
+        assert torch.equal(p[:r, :c].float(), a)
+        assert not p[r:, :].any() and not p[:, c:].any()
+    n, C, T_, Co = 45, 40, 13, 8  # 384 // 40 = 9 steps a chunk: 7 + 6, ragged
+    xm = torch.randn(2, n, C * T_)
+    Tc, nTc, CTcp, Npad = bsf.chunk_layout(n, C, T_, Co)
+    assert (Tc, nTc, CTcp, Npad) == (7, 2, 288, 64)
+    for bf16 in (True, False):
+        x = xm.bfloat16().float() if bf16 else xm
+        hi, lo = bsf._xm_chunks(x, C, T_, Co, bf16)
+        assert hi.shape == (2, nTc, Npad, CTcp) and hi.dtype == torch.bfloat16
+        full = hi.float() + (0 if lo is None else lo.float())
+        assert (lo is None) == bf16
+        x4 = x.reshape(2, n, C, T_)
+        for h in range(nTc):
+            steps = min(Tc, T_ - h * Tc)
+            got = full[:, h, :n, :C * Tc].reshape(2, n, C, Tc)
+            torch.testing.assert_close(got[..., :steps], x4[..., h * Tc:h * Tc + steps],
+                                       atol=0, rtol=0 if bf16 else 2 ** -17)
+            assert not got[..., steps:].any()
+        assert not full[:, :, n:].any() and not full[..., C * Tc:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("widths", [(12, 1, 12, 32, 512, 3, 32), (384, 32, 12, 32, 512, 3, 32),
+                                    (576, 4, 144, 32, 64, 2, 32),
+                                    (4608, 32, 144, 32, 64, 2, 32)],
+                         ids=["pems08_block1", "pems08_blocks2-4", "gambia_block1",
+                              "gambia_block2"])
+def test_smem_bytes_do_not_grow_with_n(widths, dtype):
+    """Every pass's shared memory is the same at N = 170, 883, 2139 and 8192
+    (PEMS08, PEMS07, GAMBIA and beyond), at PEMS08's and GAMBIA's block
+    widths, and fits a block: the tiles, d_k, d and the time chunk set it."""
+    FT, C, T_, Co, d, k, dk = widths
+    need = [bsf.smem_bytes(n, FT, C, T_, Co, d, k, dk, dtype) for n in (170, 883, 2139, 8192)]
+    assert all(x == need[0] for x in need)
+    assert max(need[0].values()) <= 227 * 1024
+    assert bsf.limit_error(8192, FT, C, T_, Co, d, k, dk, dtype) is None
 
 
 def test_cpu_path_counts_no_launch():
@@ -307,6 +352,38 @@ def test_cpu_path_counts_no_launch():
             for t in _kernel_args()]
     bsf.spatial_middle(*args, K=K, d_k=DK, keep=1.0).sum().backward()
     assert (bsf.fwd_launches, bsf.bwd_launches) == before
+
+
+@pytest.mark.parametrize("F,C", [(1, 1), (4, 4)], ids=["F1", "F4"])
+def test_nosplit_controls_miss_the_split_limit(F, C):
+    """chip_smoke.py's split check holds the float32 spatial passes within
+    SPATIAL_SPLIT_TOL of the plain float32 version; its controls, the
+    function with the operands of the N²·C·T products rounded to bf16 in
+    the forward (agg) or in the backward only (dA, dxm; the forward exact,
+    so the ReLU mask is the plain one), must each miss that limit, and with
+    no rounding the control is the plain version. Run on the CPU at the
+    tests' shape."""
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(3)
+    args = _kernel_args(F, C)
+    args[2] = (torch.rand(B, N, D, generator=gen) < 0.8).float()
+    dims = dict(K=K, d_k=DK, keep=0.8)
+    cot = [torch.randn(B, N, CO * T, generator=gen)]
+    diff = chip_smoke.SPATIAL_DIFF
+    outs_p, grads_p = chip_smoke._grad_run(lambda a: bsf.spatial_middle_plain(*a, **dims),
+                                           args, cot, diff)
+    errs = {}
+    for fwd, bwd in ((False, False), (True, False), (False, True)):
+        outs, grads = chip_smoke._grad_run(
+            lambda a: chip_smoke.spatial_nosplit_plain(*a, **dims, fwd=fwd, bwd=bwd),
+            args, cot, diff)
+        errs[fwd, bwd] = (chip_smoke._compare(outs, outs_p)[1],
+                          chip_smoke._compare(grads, grads_p)[1])
+    assert max(errs[False, False]) <= 1e-6
+    assert errs[True, False][0] > chip_smoke.SPATIAL_SPLIT_TOL
+    assert errs[False, True][0] == errs[False, False][0]
+    assert errs[False, True][1] > chip_smoke.SPATIAL_SPLIT_TOL
 
 
 @pytest.mark.cuda
@@ -368,3 +445,176 @@ def test_kernels_match_plain_on_card():
                 assert (bsf.fwd_launches, bsf.bwd_launches) == (before[0] + 1, before[1])
                 torch.testing.assert_close(out.float(), want.detach().float(),
                                            atol=ftol * scale, rtol=ftol)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' split schedule, emulated in torch on the CPU
+# ---------------------------------------------------------------------------
+
+def _split_middle(qk, xm, bias, cheb, thetas, K, d_k, tile, step, Tc, g=None, y=None):
+    """The column and row passes of csrc/block_spatial_fused.cu in float32,
+    in their order and tiles: ``tile`` targets (or sources) a block,
+    ``step`` sources (or targets) streamed a step, Tc time steps a chunk.
+    Forward (``g`` None): stats, then the forward column pass → y. Backward:
+    stats, cols_bwd (agg again, dΘ, dagg, δ_j = dagg_j·agg_j a chunk), ds
+    (dA, ds = att (cheb dA − δ), dbias summed over b in order, dk), dq and
+    the dxm row pass → (dqk, dxm, dbias, dΘ)."""
+    B, N, _ = qk.shape
+    C, Co = thetas.shape[1:]
+    T = xm.shape[-1] // C
+    hk, inv = K * d_k, 1.0 / d_k ** 0.5
+    x4 = xm.reshape(B, N, C, T)
+    chunks = [(t0, min(Tc, T - t0)) for t0 in range(0, T, Tc)]
+    tiles = [(j0, min(j0 + tile, N)) for j0 in range(0, N, tile)]
+    steps = [(i0, min(i0 + step, N)) for i0 in range(0, N, step)]
+    q = lambda b, k, r: qk[b, r[0]:r[1], k * d_k:(k + 1) * d_k]
+    kk = lambda b, k, r: qk[b, r[0]:r[1], hk + k * d_k:hk + (k + 1) * d_k]
+    score = lambda b, k, ri, rj: (q(b, k, ri) @ kk(b, k, rj).T * inv
+                                  + bias[k, ri[0]:ri[1], rj[0]:rj[1]])
+    stats = torch.zeros(B, K, N, 2)
+    for b in range(B):
+        for k in range(K):
+            for rj in tiles:  # running max and sum of exp over the streamed sources
+                m = torch.full((rj[1] - rj[0],), -float("inf"))
+                l = torch.zeros(rj[1] - rj[0])
+                for ri in steps:
+                    s = score(b, k, ri, rj)
+                    mt = torch.maximum(m, s.max(0).values)
+                    l = l * torch.exp(m - mt) + torch.exp(s - mt).sum(0)
+                    m = mt
+                stats[b, k, rj[0]:rj[1]] = torch.stack([m, l], -1)
+
+    def A(b, k, ri, rj):
+        st = stats[b, k, rj[0]:rj[1]]
+        att = torch.exp(score(b, k, ri, rj) - st[:, 0]) / st[:, 1]
+        return cheb[k, ri[0]:ri[1], rj[0]:rj[1]] * att, att
+
+    def aggregate(b, k, rj, t0, tc):
+        agg = torch.zeros(rj[1] - rj[0], C, tc)
+        for ri in steps:
+            agg += torch.einsum("ij,ict->jct", A(b, k, ri, rj)[0],
+                                x4[b, ri[0]:ri[1], :, t0:t0 + tc])
+        return agg
+
+    if g is None:
+        out = torch.zeros(B, N, Co, T)
+        for b in range(B):
+            for rj in tiles:
+                for t0, tc in chunks:
+                    for k in range(K):
+                        out[b, rj[0]:rj[1], :, t0:t0 + tc] += torch.einsum(
+                            "jct,co->jot", aggregate(b, k, rj, t0, tc), thetas[k])
+        return torch.relu(out).reshape(B, N, Co * T)
+    gm = (g * (y > 0)).reshape(B, N, Co, T)
+    dagg = torch.zeros(B, K, N, C, T)
+    delta = torch.zeros(B, K, len(chunks), N)
+    dth = torch.zeros_like(thetas)
+    for b in range(B):
+        for rj in tiles:
+            for h, (t0, tc) in enumerate(chunks):
+                for k in range(K):
+                    agg = aggregate(b, k, rj, t0, tc)
+                    gc = gm[b, rj[0]:rj[1], :, t0:t0 + tc]
+                    dth[k] += torch.einsum("jct,jot->co", agg, gc)
+                    da = torch.einsum("jot,co->jct", gc, thetas[k])
+                    dagg[b, k, rj[0]:rj[1], :, t0:t0 + tc] = da
+                    delta[b, k, h, rj[0]:rj[1]] = (da * agg).sum((1, 2))
+    dbias = torch.zeros_like(bias)
+    dS = torch.zeros(B, K, N, N)
+    dqk = torch.zeros_like(qk)
+    for rj in tiles:
+        for k in range(K):
+            for b in range(B):  # b in order inside the block, as dbias is summed
+                dl = delta[b, k, :, rj[0]:rj[1]].sum(0)
+                dk = torch.zeros(rj[1] - rj[0], d_k)
+                for ri in steps:
+                    _, att = A(b, k, ri, rj)
+                    dA = xm[b, ri[0]:ri[1]] @ dagg[b, k, rj[0]:rj[1]].reshape(-1, C * T).T
+                    ds = att * (cheb[k, ri[0]:ri[1], rj[0]:rj[1]] * dA - dl)
+                    dbias[k, ri[0]:ri[1], rj[0]:rj[1]] += ds
+                    dS[b, k, ri[0]:ri[1], rj[0]:rj[1]] = ds
+                    dk += ds.T @ q(b, k, ri)
+                dqk[b, rj[0]:rj[1], hk + k * d_k:hk + (k + 1) * d_k] = dk * inv
+    dxm = torch.zeros(B, N, C, T)
+    for b in range(B):
+        for ri in tiles:  # the row passes: source tiles, targets streamed
+            for k in range(K):
+                dq = torch.zeros(ri[1] - ri[0], d_k)
+                for rj in steps:
+                    dq += dS[b, k, ri[0]:ri[1], rj[0]:rj[1]] @ kk(b, k, rj)
+                    dxm[b, ri[0]:ri[1]] += torch.einsum("ij,jct->ict", A(b, k, ri, rj)[0],
+                                                        dagg[b, k, rj[0]:rj[1]])
+                dqk[b, ri[0]:ri[1], k * d_k:(k + 1) * d_k] = dq * inv
+    return dqk, dxm.reshape(B, N, C * T), dbias, dth
+
+
+class _SplitMiddle(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qk, xm, bias, cheb, thetas, K, d_k, tile, step, Tc):
+        ctx.dims = (K, d_k, tile, step, Tc)
+        y = _split_middle(qk, xm, bias, cheb, thetas, *ctx.dims)
+        ctx.save_for_backward(qk, xm, bias, cheb, thetas, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        qk, xm, bias, cheb, thetas, y = ctx.saved_tensors
+        dqk, dxm, dbias, dth = _split_middle(qk, xm, bias, cheb, thetas, *ctx.dims, g=g, y=y)
+        return dqk, dxm, dbias, None, dth, None, None, None, None, None
+
+
+def _split_schedule(t, adj, cheb, N_, k, tile, step, Tc):
+    """fused_spatial_middle's arguments through the emulated schedule: the
+    embedding in torch ops (autograd), the middle in _SplitMiddle."""
+    Bx, F, T_, _ = t["tat"].shape
+    C = t["x"].shape[2]
+    pw = t["pre_w"][:, :, 0, :].permute(2, 1, 0).reshape(F * T_, D)
+    z = t["tat"].reshape(Bx, F * T_, N_).transpose(1, 2) @ pw + t["pre_b"] + t["pos"]
+    mu = z.mean(-1, keepdim=True)
+    var = ((z - mu) ** 2).mean(-1, keepdim=True)
+    semx = (z - mu) * torch.rsqrt(var + 1e-5) * t["gs"] + t["bs"]
+    qk = semx @ torch.cat([t["wq"], t["wk"]], dim=1)
+    out = _SplitMiddle.apply(qk, t["x"].reshape(Bx, N_, C * T_), adj[None] * t["masks"], cheb,
+                             t["thetas"], k, DK, tile, step, Tc)
+    return out.reshape(Bx, N_, t["thetas"].shape[-1], T_)
+
+
+def test_split_schedule_matches_plain_and_jax():
+    """The kernels' algorithm on the CPU: N = 45 with 16-wide tiles (ragged
+    tails of 13 on both axes) and a time chunk of 4 that splits T = 6 into
+    4 + 2, the column statistics streamed, δ_j = dagg_j·agg_j a chunk, dbias
+    summed over b in order. Forward and every gradient against the plain
+    version (autograd) and JAX's fused_spatial_middle (Pallas, interpret
+    mode) within 2e-4 / 5e-3 (chip_smoke's TOL and GRAD_TOL)."""
+    n, F, C, k2 = 45, 2, 3, 2
+    rng = np.random.default_rng(12)
+    mk = lambda *s: (rng.normal(size=s) * 0.3).astype(np.float32)
+    a = dict(tat=mk(B, F, T, n), x=mk(B, n, C, T), pre_w=mk(D, T, 1, F), pre_b=mk(D),
+             pos=mk(n, D), gs=np.full(D, 1.05, np.float32), bs=np.full(D, 0.02, np.float32),
+             wq=mk(D, k2 * DK), wk=mk(D, k2 * DK), masks=mk(k2, n, n),
+             thetas=mk(k2, C, CO))
+    adj = (rng.random((n, n)) < 0.3).astype(np.float32)
+    cheb = mk(k2, n, n)
+    cot = rng.normal(size=(B, n, CO, T)).astype(np.float32)
+    runs = {}
+    for name in ("split", "plain"):
+        t = {key: torch.from_numpy(v).requires_grad_(True) for key, v in a.items()}
+        adj_t, cheb_t = torch.from_numpy(adj), torch.from_numpy(cheb)
+        if name == "split":
+            out = _split_schedule(t, adj_t, cheb_t, n, k2, tile=16, step=16, Tc=4)
+        else:
+            out = bsf.fused_spatial_middle(t["tat"], t["x"], **_kw(t, adj_t, cheb_t, k2))
+        out.backward(torch.from_numpy(cot))
+        runs[name] = (out.detach().numpy(), {key: v.grad.numpy() for key, v in t.items()})
+    j_out, j_vjp = jax.vjp(lambda t: jbsf.fused_spatial_middle(
+        t["tat"], t["x"], **_kw(t, jnp.asarray(adj), jnp.asarray(cheb), k2)),
+        {key: jnp.asarray(v) for key, v in a.items()})
+    (j_g,) = j_vjp(jnp.asarray(cot))
+    runs["jax"] = (np.asarray(j_out), {key: np.asarray(v) for key, v in j_g.items()})
+    got_out, got_g = runs.pop("split")
+    assert float(np.abs(got_out).max()) > 0.1  # the ReLU leaves a live output
+    for name, (want_out, want_g) in runs.items():
+        np.testing.assert_allclose(got_out, want_out, atol=2e-4, rtol=2e-4, err_msg=name)
+        for key in ("tat", "x", *PARAMS):
+            np.testing.assert_allclose(got_g[key], want_g[key], atol=5e-3, rtol=5e-3,
+                                       err_msg=f"{name} {key}")

@@ -190,9 +190,8 @@ LAUNCHES = [
     (bell_fused, "bell_forward_plain", "bell_fused"),
     (bell_bwd, "bell_k1_cuda", "bell_k1"), (bell_bwd, "bell_k1_plain", "bell_k1"),
     (bell_bwd, "bell_k2_cuda", "bell_k2"), (bell_bwd, "bell_k2_plain", "bell_k2"),
-    (tat_fused, "tat_forward_cuda", "tat_fwd"), (tat_fused, "tat_forward_bf16_cuda", "tat_fwd"),
-    (tat_fused, "tat_fused_plain", "tat_fwd"), (tat_fused, "tat_backward_cuda", "tat_bwd"),
-    (tat_fused, "tat_backward_bf16_cuda", "tat_bwd"),
+    (tat_fused, "tat_forward_cuda", "tat_fwd"), (tat_fused, "tat_fused_plain", "tat_fwd"),
+    (tat_fused, "tat_backward_cuda", "tat_bwd"),
     (block_spatial_fused, "spatial_forward_cuda", "spatial_fwd"),
     (block_spatial_fused, "spatial_middle_plain", "spatial_fwd"),
     (block_spatial_fused, "spatial_backward_cuda", "spatial_bwd"),

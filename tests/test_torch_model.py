@@ -117,6 +117,30 @@ def test_fused_paths_match_jax(fuse, shape):
     _check_against_jax(shape, **FUSED[fuse])
 
 
+def test_fused_float32_matches_jax_at_a_pems07_like_shape():
+    """fuse_tat and fuse_spatial together in float32 at a small PEMS07-like
+    shape: N = 45 (like PEMS07's 883, a multiple of no 16-wide tile), T =
+    12 → 12, F = 1, K = H = 3 as the DSTAGNN paper's PEMS07 config. The
+    card runs the float32 TAt as row-tiled passes and the spatial middle
+    source- and target-tiled; here both take their plain versions, against
+    JAX's kernels in interpret mode."""
+    rng = np.random.default_rng(11)
+    N, T = 45, 12
+    kw = dict(num_of_vertices=N, len_input=T, num_for_predict=12, num_of_d=1,
+              nb_block=2, in_channels=1, K=3, nb_chev_filter=8, nb_time_filter=8,
+              d_model=24, d_k=8, n_heads=3)
+    A = (rng.random((N, N)) < 0.1).astype(np.float32)
+    A = np.maximum(A, A.T)
+    np.fill_diagonal(A, 0)
+    pa = (rng.random((N, N)) < 0.1).astype(np.float32)
+    x = rng.normal(size=(2, N, 1, T)).astype(np.float32)
+    y = rng.normal(size=(2, N, 12)).astype(np.float32)
+    jspec = JaxSpec(**kw)
+    params, consts = jax_make_model(jax.random.PRNGKey(5), jspec, A, pa)
+    _check_against_jax(None, case=(ModelSpec(**kw), jspec, params, consts, x, y),
+                       fuse_tat=True, fuse_spatial=True)
+
+
 def _gtu_case(T, seed=7):
     """The spec of the JAX tests/test_gtu_fused.py model tests: N=12, F=2,
     C=16, K=2, 2 blocks (C and T=48 pass the fused GTU gate)."""

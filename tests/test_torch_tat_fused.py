@@ -3,9 +3,10 @@ JAX package's Pallas kernel, run in interpret mode on the CPU.
 
 On CPU tensors the wrapper takes the plain PyTorch version; the CUDA kernels
 are held against that version on the card (the ``cuda`` case below, skipped
-here, and chip_smoke.py), and the bf16 design's float32 outputs against the
-float32 kernels' on the same operands. The gate tests check which shapes
-each design admits, and that the bytes follow csrc/tat_fused.cu's formulas.
+here, and chip_smoke.py), and the float32 passes against the plain float32
+version where a no-split control misses it. The gate tests check which shapes
+the passes admit in each dtype, and that the bytes follow
+csrc/tat_fused.cu's formulas.
 Tolerances are the JAX fused-kernel tests' (tests/test_tat_fused.py): forward 1e-4, gradients 2e-3; in bfloat16 one
 bf16 ulp of the output's scale (2^-7 ≈ 8e-3 at |x| < 2, both sides compute
 in float32 and round once).
@@ -131,9 +132,13 @@ def test_kernels_refuse_what_they_do_not_take():
         tat_fused.tat_forward_cuda(*args[:5], args[5][:, :3], *args[6:], **dims)
     with pytest.raises(ValueError, match="CUDA"):
         tat_fused.tat_backward_cuda(*args, args[0], args[8], **dims)
-    # a row's activations must fit one block's shared memory
+    # one dtype for every tensor
+    with pytest.raises(TypeError, match="one dtype"):
+        tat_fused.tat_forward_cuda(*args[:4], args[4].bfloat16(), *args[5:], **dims)
+    # the passes hold a tile of rows, not a row: float32 takes N = 2139 at
+    # T = 48, which a row in one block did not
     assert tat_fused.smem_bytes(12, 170, 3, 32, 32, backward=True) < 227 * 1024
-    assert tat_fused.smem_bytes(48, 2139, 2, 32, 32, backward=False) > 227 * 1024
+    assert tat_fused.smem_bytes(48, 2139, 2, 32, 32, backward=False) <= 227 * 1024
 
 
 def test_cpu_path_counts_no_launch():
@@ -153,49 +158,87 @@ def test_bfloat16_rounds_only_the_outputs():
     assert torch.equal(o, o32.bfloat16()) and torch.equal(s, s32.bfloat16())
 
 
-# (T, N, H, d_k, d_v) that only the bf16 passes admit: PEMS07 at T = 12,
-# GAMBIA's block 2 (bench.py:222-236)
+# (T, N, H, d_k, d_v) that a float32 row in one block could not hold and
+# the passes take: PEMS07 at T = 12, GAMBIA's block 2 (bench.py:222-236)
 PEMS07 = (12, 883, 3, 32, 32)
 GAMBIA = (144, 2139, 2, 32, 32)
 SMEM_MAX = 227 * 1024
 
 
+def _row_bytes(T, N, H, dk, dv, backward):
+    """Shared memory of the float32 design the passes replaced, a B·F row
+    in one block (its activations, float32): the shapes it admitted are the
+    floor of what the float32 passes must admit."""
+    W = H * (2 * dk + dv)
+    if backward:
+        return 4 * (5 * T * N + 2 * T * W + 2 * H * T * T + 2 * T * H * dv + 2 * T)
+    return 4 * (2 * T * N + T * W + H * T * T + T * H * dv + T)
+
+
+SHAPE_GRID = [(T, N, H, dk, dv) for T in (4, 6, 7, 12, 24, 48, 96, 144)
+              for N in (20, 29, 170, 307, 358, 800, 883, 1200, 2139, 2905)
+              for H, dk, dv in ((3, 32, 32), (2, 8, 8), (2, 32, 32), (8, 64, 64))]
+
+
 @pytest.mark.parametrize("embed", [False, True], ids=["no_embed", "embed"])
 def test_bf16_gate_admits_what_float32_admitted_and_more(embed):
     """Every shape (T >= 4, the model's T is 12 and up) whose float32 row
-    fits a block fits the bf16 passes, and so do PEMS07's N = 883 and
-    GAMBIA's T = 144, which float32 refuses."""
+    fitted a block fits the bf16 passes, and so do PEMS07's N = 883 and
+    GAMBIA's T = 144, which that row did not."""
     admitted = 0
-    for T in (4, 6, 7, 12, 24, 48, 96, 144):
-        for N in (20, 29, 170, 307, 358, 800, 883, 1200, 2139, 2905):
-            for H, dk, dv in ((3, 32, 32), (2, 8, 8), (2, 32, 32), (8, 64, 64)):
-                if tat_fused.smem_bytes(T, N, H, dk, dv, backward=True) > SMEM_MAX:
-                    continue
-                admitted += 1
-                passes = tat_fused.bf16_passes(T, N, H, dk, dv, embed)
-                assert all(rows > 0 for rows, _ in passes.values()), (T, N, H, dk, dv, passes)
+    for T, N, H, dk, dv in SHAPE_GRID:
+        if _row_bytes(T, N, H, dk, dv, backward=True) > SMEM_MAX:
+            continue
+        admitted += 1
+        passes = tat_fused.passes(T, N, H, dk, dv, embed)
+        assert all(rows > 0 for rows, _ in passes.values()), (T, N, H, dk, dv, passes)
     assert admitted > 50
     for shape in (PEMS07, GAMBIA):
-        passes = tat_fused.bf16_passes(*shape, embed)
+        passes = tat_fused.passes(*shape, embed)
         assert all(rows > 0 and need <= SMEM_MAX for rows, need in passes.values()), passes
         for backward in (False, True):
             assert tat_fused.smem_bytes(*shape, backward=backward,
                                         dtype=torch.bfloat16, embed=embed) <= SMEM_MAX
 
 
+@pytest.mark.parametrize("embed", [False, True], ids=["no_embed", "embed"])
+def test_float32_gate_admits_every_shape_the_row_design_admitted(embed):
+    """The float32 passes (wqkv's and wo's lo chunks staged beside the hi
+    ones) admit, in both directions, every shape of the grid whose float32
+    row fitted one block (``_row_bytes``, the formula of the design they
+    replaced), and PEMS07 and GAMBIA besides."""
+    admitted = 0
+    for T, N, H, dk, dv in SHAPE_GRID:
+        for backward in (False, True):
+            if _row_bytes(T, N, H, dk, dv, backward) > SMEM_MAX:
+                continue
+            admitted += 1
+            assert tat_fused.limit_error(T, N, H, dk, dv, torch.float32, backward,
+                                         embed) is None, (T, N, H, dk, dv, backward)
+    assert admitted > 100
+    for shape in (PEMS07, GAMBIA):
+        assert _row_bytes(*shape, backward=True) > SMEM_MAX
+        passes = tat_fused.passes(*shape, embed, torch.float32)
+        assert all(rows > 0 and need <= SMEM_MAX for rows, need in passes.values()), passes
+
+
 def test_float32_gate_still_refuses():
-    """float32 keeps its one-block-a-row kernels and their caps: PEMS07's
-    backward and GAMBIA's T = 144 do not fit, and a CUDA call would raise
-    naming the bytes before any launch."""
-    assert tat_fused.smem_bytes(*PEMS07, backward=True) > SMEM_MAX
-    assert tat_fused.smem_bytes(*PEMS07, backward=False) <= SMEM_MAX
-    assert tat_fused.smem_bytes(*GAMBIA, backward=False) > SMEM_MAX
+    """What float32 refused it now admits: the one-block-a-row kernels are
+    gone, and PEMS07's backward and GAMBIA's T = 144, whose rows did not fit
+    a block, fit the passes; a CUDA call on CPU tensors raises for the
+    device, after the gate, not for the bytes."""
+    for shape in (PEMS07, GAMBIA):
+        for backward in (False, True):
+            assert tat_fused.limit_error(*shape, torch.float32, backward) is None
+            assert tat_fused.smem_bytes(*shape, backward=backward) <= SMEM_MAX
+    assert _row_bytes(*PEMS07, backward=True) > SMEM_MAX
+    assert _row_bytes(*GAMBIA, backward=False) > SMEM_MAX
     x = torch.zeros((1, 12, 883))
     args = [x, torch.zeros(12, 883), torch.ones(883), torch.zeros(883),
             torch.zeros(883, 288), torch.zeros(96, 883), torch.ones(883), torch.zeros(883),
             torch.zeros(1, 3, 12, 12)]
     dims = dict(n_heads=3, d_k=32, d_v=32, embed=False)
-    with pytest.raises(ValueError, match=r"needs \d+ bytes of shared memory"):
+    with pytest.raises(ValueError, match="CUDA"):
         tat_fused.tat_backward_cuda(*args, x, args[-1], **dims)
 
 
@@ -210,20 +253,23 @@ def test_bf16_gate_refuses_past_its_caps_naming_the_bytes():
                 mk(1, 3, T, T)]
 
     dims = dict(n_heads=3, d_k=32, d_v=32, embed=False)
-    assert tat_fused.bf16_passes(12, 3328, 3, 32, 32)["ln1_bwd"][0] == 16
-    assert tat_fused.bf16_passes(12, 3329, 3, 32, 32)["ln1_bwd"][0] == 0
-    assert tat_fused.bf16_passes(341, 170, 3, 32, 32)["attn_bwd"][0] == 1
-    assert tat_fused.bf16_passes(342, 170, 3, 32, 32)["attn_bwd"][0] == 0
+    assert tat_fused.passes(12, 3328, 3, 32, 32)["ln1_bwd"][0] == 16
+    assert tat_fused.passes(12, 3329, 3, 32, 32)["ln1_bwd"][0] == 0
+    assert tat_fused.passes(341, 170, 3, 32, 32)["attn_bwd"][0] == 1
+    assert tat_fused.passes(342, 170, 3, 32, 32)["attn_bwd"][0] == 0
     for T, N, which in ((12, 3329, "ln1_bwd"), (342, 170, "attn_bwd")):
         a = args(T, N)
-        need = tat_fused.bf16_passes(T, N, 3, 32, 32)[which][1]
-        with pytest.raises(ValueError, match=f"{which} pass needs {need} bytes"):
-            tat_fused.tat_backward_bf16_cuda(*a, a[0], a[-1], **dims)
+        need = tat_fused.passes(T, N, 3, 32, 32)[which][1]
+        with pytest.raises(ValueError, match=f"bf16 {which} pass needs {need} bytes"):
+            tat_fused.tat_backward_cuda(*a, a[0], a[-1], **dims)
     # the forward's passes admit N = 3329 (the out pass caps N at 3520)
     with pytest.raises(ValueError, match="CUDA"):
-        tat_fused.tat_forward_bf16_cuda(*args(12, 3329), **dims)
-    with pytest.raises(TypeError, match="bfloat16"):
-        tat_fused.tat_forward_bf16_cuda(*args(12, 170, torch.float32), **dims)
+        tat_fused.tat_forward_cuda(*args(12, 3329), **dims)
+    # float32 shares the caps (the LN1-backward pass's wo chunk, hi and lo,
+    # caps N lower) and names its dtype
+    a = args(12, 3329, torch.float32)
+    with pytest.raises(ValueError, match="float32 ln1_bwd pass needs"):
+        tat_fused.tat_backward_cuda(*a, a[0], a[-1], **dims)
 
 
 def test_smem_bytes_follow_the_pass_formulas():
@@ -242,7 +288,7 @@ def test_smem_bytes_follow_the_pass_formulas():
         "attn_bwd": 4 * (2 * T * 33 + T * dk + 2 * KC * 33 + 2 * T * (KC + 1)),
         "gte": 4 * R * (Wp + 8) + 4 * 8 * 256,
     }
-    passes = tat_fused.bf16_passes(T, N, H, dk, dv)
+    passes = tat_fused.passes(T, N, H, dk, dv)
     assert {k: v[1] for k, v in passes.items()} == want
     assert {k: v[0] for k, v in passes.items()} == dict(
         qkv=64, attn_fwd=1, out=64, ln1_bwd=64, attn_bwd=1, gte=64)
@@ -250,9 +296,19 @@ def test_smem_bytes_follow_the_pass_formulas():
         assert tat_fused.smem_bytes(T, N, H, dk, dv, backward, torch.bfloat16) == max(
             want[n] for n in names)
     # the embedding adds the qkv pass's lo chunk; the rows fall as N grows
-    assert tat_fused.bf16_passes(T, N, H, dk, dv, True)["qkv"][1] == want["qkv"] + 2 * R * 72
-    assert tat_fused.bf16_passes(*PEMS07)["out"][0] == 32
-    assert tat_fused.bf16_passes(*GAMBIA)["ln1_bwd"][0] == 16
+    assert tat_fused.passes(T, N, H, dk, dv, True)["qkv"][1] == want["qkv"] + 2 * R * 72
+    assert tat_fused.passes(*PEMS07)["out"][0] == 32
+    assert tat_fused.passes(*GAMBIA)["ln1_bwd"][0] == 16
+    # float32: wqkv's lo chunk beside its hi chunk over half the columns
+    # (144 at 64 rows), x split; wo's lo chunk in the LN1 backward
+    f32 = tat_fused.passes(T, N, H, dk, dv, dtype=torch.float32)
+    assert f32["qkv"] == (64, 2 * 64 * (144 + 8) * 2 + 2 * R * 72 * 2 + 8 * R)
+    assert f32["ln1_bwd"] == (64, 4 * R * LZ + max(4 * R * (hvp + 8),
+                                                   4 * R * 72 + 2 * hvp * 72 * 2) + 4 * R)
+    assert all(f32[k] == passes[k] for k in ("attn_fwd", "out", "attn_bwd", "gte"))
+    for backward, names in ((False, tat_fused.FWD_PASSES), (True, tat_fused.BWD_PASSES)):
+        assert tat_fused.smem_bytes(T, N, H, dk, dv, backward) == max(
+            f32[n][1] for n in names)
 
 
 def test_bf16_cpu_call_takes_the_plain_version():
@@ -273,6 +329,29 @@ def test_bf16_cpu_call_takes_the_plain_version():
 def _scaled_err(got, want):
     """max |Δ| over max(1, max |want|)."""
     return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("embed", [True, False], ids=["embed", "no_embed"])
+def test_nosplit_control_misses_the_split_limit(embed):
+    """chip_smoke.py's split check holds the float32 passes within
+    SPLIT_TOL of the plain float32 version; its control, the function with
+    every product operand rounded to bf16 (``tat_nosplit_plain``), must miss
+    that limit in the outputs and in the gradients, or the check could not
+    tell a design without the lo terms apart. Run on the CPU at the
+    tests' shape."""
+    import chip_smoke
+
+    dims = dict(n_heads=H, d_k=DK, d_v=DV, embed=embed)
+    runs = []
+    for fn in (tat_fused.tat_fused_plain, chip_smoke.tat_nosplit_plain):
+        leaves = [t.requires_grad_(True) for t in _kernel_args()]
+        o, s = fn(*leaves, **dims)
+        _loss(o, s, torch).backward()
+        runs.append(([o.detach(), s.detach()], [t.grad for t in leaves]))
+    (outs_p, grads_p), (outs_c, grads_c) = runs
+    fwd = max(_scaled_err(c, p) for c, p in zip(outs_c, outs_p))
+    bwd = max(_scaled_err(c, p) for c, p in zip(grads_c, grads_p) if p is not None)
+    assert min(fwd, bwd) > chip_smoke.SPLIT_TOL
 
 
 @pytest.mark.cuda
@@ -298,26 +377,24 @@ def test_kernels_match_plain_on_card():
             # without the embedding, pos and LN0 are off the plain path
             want = p.grad if p.grad is not None else torch.zeros_like(p)
             torch.testing.assert_close(k.grad, want, atol=2e-3, rtol=2e-3)
-        # the bf16 design: its float32 outputs against the float32 kernels on
-        # the same bf16-exact operands within 1e-4 of scale (chip_smoke.py's
-        # TAT_SPLIT_TOL, which a design without its lo terms exceeds); the
-        # weight gradients bit for bit over two launches
-        ins = [t.cuda().bfloat16() for t in cpu]
-        g_out = torch.randn(ins[0].shape, device="cuda").bfloat16()
-        g_sc = torch.randn(ins[8].shape, device="cuda").bfloat16()
-        f32 = [t.float() for t in ins]
-        before = (tat_fused.fwd_launches, tat_fused.bwd_launches)
-        got = tat_fused.tat_forward_bf16_cuda(*ins, **dims, out_dtype=torch.float32)
-        want = tat_fused.tat_forward_cuda(*f32, **dims)
-        for a, b in zip(got, want):
-            assert _scaled_err(a, b) <= 1e-4
-        first, again = (tat_fused.tat_backward_bf16_cuda(*ins, g_out, g_sc, **dims,
-                                                          out_dtype=torch.float32)
+        # the split check: the float32 passes (x and the weights split hi/lo)
+        # against the plain float32 version within 1e-4 of scale (chip_smoke's
+        # SPLIT_TOL), where the no-split control (every product operand
+        # rounded to bf16) is not; the weight gradients bit for bit over two
+        # launches
+        import chip_smoke
+
+        ctl = [t.detach().clone().requires_grad_(True) for t in leaves[1]]
+        o_c, s_c = chip_smoke.tat_nosplit_plain(*ctl, **dims)
+        _loss(o_c, s_c, torch).backward()
+        err = lambda pairs: max(_scaled_err(a.detach(), b.detach()) for a, b in pairs)
+        grads = lambda got: [(g.grad, p.grad) for g, p in zip(got, leaves[1])
+                             if p.grad is not None]
+        assert max(err([(o, o_p), (s, s_p)]), err(grads(leaves[0]))) <= chip_smoke.SPLIT_TOL
+        assert min(err([(o_c, o_p), (s_c, s_p)]), err(grads(ctl))) > chip_smoke.SPLIT_TOL
+        ops = tat_fused._operands(*[t.detach() for t in leaves[0]])
+        g_out, g_sc = torch.randn_like(o), torch.randn_like(s)
+        first, again = (tat_fused.tat_backward_cuda(*ops, g_out, g_sc, **dims)
                         for _ in range(2))
-        want = tat_fused.tat_backward_cuda(*f32, g_out.float(), g_sc.float(), **dims)
         torch.cuda.synchronize()
-        assert (tat_fused.fwd_launches, tat_fused.bwd_launches) == (before[0] + 2,
-                                                                     before[1] + 3)
-        for a, c in zip(first, want):
-            assert _scaled_err(a, c) <= 1e-4
         assert all(torch.equal(a, b) for a, b in zip(first[2:], again[2:]))

@@ -306,22 +306,31 @@ def test_trainer_refuses_fuse_gtu_over_the_card_budget(toy_windowed, tmp_path, m
 
 # (knob, dtype, N, widths, refused on the card): PEMS08 width (T = 12, H = 3,
 # d_k = 32, d_model = 512, C = Co = 32) and GAMBIA width (T = 144, F = 4,
-# K = H = 2, d_model = 64). float32 fuse_tat holds a row in one block, past
-# N = 800 at T = 12 (PEMS07's N = 883); the bf16 passes take it. The spatial
-# column passes hold (N, 16) planes, past any dtype's cap at N = 2139.
+# K = H = 2, d_model = 64). The TAt runs as passes over rows in both dtypes
+# and the spatial passes stream N in tiles, so PEMS07's N = 883 and GAMBIA's
+# N = 2139 (and N = 8192) are admitted; what is refused: the TAt passes'
+# own caps (bf16 N > 3328 at T = 12, the LN1-backward pass) and a d_model
+# too wide for the spatial embedding block.
 PEMS08_WIDTH = dict(len_input=12, in_channels=1, nb_block=4, K=3, n_heads=3, d_k=32,
                     d_model=512, nb_chev_filter=32, nb_time_filter=32)
 GAMBIA_WIDTH = dict(len_input=144, in_channels=4, nb_block=2, K=2, n_heads=2, d_k=32,
                     d_model=64, nb_chev_filter=32, nb_time_filter=32)
 FUSED_CARD_CASES = [
-    ("fuse_tat", "float32", 883, PEMS08_WIDTH, True),
+    ("fuse_tat", "float32", 883, PEMS08_WIDTH, False),
     ("fuse_tat", "bfloat16", 883, PEMS08_WIDTH, False),
     ("fuse_tat", "float32", 170, PEMS08_WIDTH, False),
     ("fuse_tat", "bfloat16", 170, PEMS08_WIDTH, False),
     ("fuse_spatial", "float32", 170, PEMS08_WIDTH, False),
     ("fuse_spatial", "bfloat16", 170, PEMS08_WIDTH, False),
-    ("fuse_spatial", "float32", 2139, GAMBIA_WIDTH, True),
-    ("fuse_spatial", "bfloat16", 2139, GAMBIA_WIDTH, True),
+    ("fuse_spatial", "float32", 2139, GAMBIA_WIDTH, False),
+    ("fuse_spatial", "bfloat16", 2139, GAMBIA_WIDTH, False),
+    ("fuse_tat", "float32", 2139, GAMBIA_WIDTH, False),
+    ("fuse_spatial", "float32", 883, PEMS08_WIDTH, False),
+    ("fuse_spatial", "bfloat16", 883, PEMS08_WIDTH, False),
+    ("fuse_spatial", "float32", 8192, PEMS08_WIDTH, False),
+    ("fuse_spatial", "bfloat16", 8192, GAMBIA_WIDTH, False),
+    ("fuse_tat", "bfloat16", 3329, PEMS08_WIDTH, True),
+    ("fuse_spatial", "float32", 170, dict(PEMS08_WIDTH, d_model=4096), True),
 ]
 
 
@@ -364,13 +373,31 @@ def test_fuse_spatial_is_not_checked_on_the_bell_path(toy_windowed):
                                              ("fuse_spatial", 2139, GAMBIA_WIDTH)])
 def test_trainer_refuses_fused_shapes_over_the_card_budget(toy_windowed, tmp_path,
                                                            monkeypatch, knob, N, widths):
-    """The Trainer checks fuse_tat/fuse_spatial after resolving its device,
-    so on a CUDA device a shape over the card's caps raises at construction,
-    before any data is read (the toy data has N = 20 and is never loaded)."""
-    monkeypatch.setattr(loop, "resolve_device", lambda device: torch.device("cuda"))
+    """The shapes the card refused in float32 (fuse_tat at PEMS07's N = 883,
+    fuse_spatial at GAMBIA's N = 2139) now build a Trainer: its card check
+    runs as on a CUDA device (check_fused_shapes with a cuda device, the
+    call the Trainer makes there) and admits them, and the model is built
+    at those widths, here on the CPU (the kernels have no CPU mode). A shape
+    still over the caps raises at construction, before any data is read."""
+    real, seen = loop.check_fused_shapes, []
+    monkeypatch.setattr(loop, "check_fused_shapes", lambda cfg, device, dtype: seen.append(
+        real(cfg, torch.device("cuda"), dtype)))
     cfg = _fused_config(toy_windowed, knob, "float32", N, widths)
-    with pytest.raises(ValueError, match=rf"{knob}=true.* \d+ bytes"):
-        loop.Trainer(cfg, experiments_root=str(tmp_path))
+    rng = np.random.default_rng(0)
+    T, n_pred = cfg.data.len_input, cfg.data.num_for_predict
+    split = lambda: Split(rng.normal(size=(2, N, cfg.training.in_channels, T)).astype(
+        np.float32), rng.normal(size=(2, N, n_pred)).astype(np.float32))
+    data = ArrayDataset(split(), split(), split(), np.zeros(1, np.float32),
+                        np.ones(1, np.float32))
+    adj = (rng.random((N, N)) < 4.0 / N).astype(np.float32)
+    tr = loop.Trainer(cfg, dataset=data, adj_merge=adj, adj_pa=adj,
+                      experiments_root=str(tmp_path), device="cpu")
+    assert seen == [None]
+    assert getattr(tr.cfg.training, knob) and tr.spec.num_of_vertices == N
+    assert tr.spec.d_model == widths["d_model"] and tr._splits["train"][0].shape[1] == N
+    cfg = _fused_config(toy_windowed, "fuse_tat", "bfloat16", 3329, PEMS08_WIDTH)
+    with pytest.raises(ValueError, match=r"fuse_tat=true.* \d+ bytes"):
+        loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
 
 
 # (dtype, mask_format, use_pallas, refused on the card): the BELL forward
