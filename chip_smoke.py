@@ -33,10 +33,13 @@ Phases; any failure exits non-zero:
   2c. the fused dense kernels against their plain versions, forward and
      every gradient, in float32 and bfloat16, at PEMS08 block 1 and blocks
      2-4, the TAt embedding mode, ragged shapes, PEMS07's N = 883, the TAt
-     at GAMBIA's T = 144 and the spatial middle at GAMBIA's blocks 1-2 and
-     a ragged N = 1001: the temporal-attention forward and backward
+     at GAMBIA's T = 144, N = 4096 and 8600 at T = 12 and T = 576 and 1024
+     at N = 170 (the shapes the whole-row passes refused; with and
+     without the embedding), and the spatial middle at GAMBIA's blocks 1-2
+     and a ragged N = 1001: the temporal-attention forward and backward
      (csrc/tat_fused.cu; one design in both dtypes, passes over all B·F·T
-     rows on the tensor cores with the hi/lo split; the float32 rows are
+     rows on the tensor cores with the hi/lo split, N streamed in column
+     chunks and T in query tiles and key chunks; the float32 rows are
      held against the plain float32 version within a limit that a
      no-split control exceeds; the passes' shared-memory bytes equal to the
      kernels' own) and the spatial-middle forward and backward
@@ -48,12 +51,15 @@ Phases; any failure exits non-zero:
      weight gradient equal bit for bit over two
      backward launches, and the spatial gate's shared-memory bytes and time
      chunks equal to the kernels' own;
-  2d. the fused GTU forward and backward (csrc/gtu_fused.cu) against their
-     plain version at the GAMBIA block, the JAX test's two shapes, a ragged
-     one and C = 48 (bf16 only), float32 (CUDA cores) and bfloat16 (tensor
-     cores), dW and db equal bit for bit over two launches, with the
+  2d. the fused GTU forward and backward (csrc/gtu_fused.cu; channel
+     groups, C in chunks, time tiles with a halo) against their plain
+     version at the GAMBIA block, the JAX test's two shapes, a ragged one,
+     C = 48 and 80, and at GAMBIA's B·N = 8556 T = 288 and 576 at C = 32
+     and C = 64 and 128 at T = 144 (the shapes the card refused before PR
+     20), float32 and bfloat16 (both on the tensor cores, float32 split
+     hi/lo), dW and db equal bit for bit over two launches, with the
      conv-only cuDNN call timed beside them; each row names its design, and
-     the gate's shared-memory bytes must equal the kernels' own;
+     the plan's tiling and shared-memory bytes must equal the kernels' own;
   3. the dense main path at full PEMS08 width: the training CLI, two epochs
      on benchmarks/parity_runs/parity_dataset.npz through the kernel, with
      the kernel's launch count read around the run;
@@ -61,11 +67,21 @@ Phases; any failure exits non-zero:
      bfloat16, each TAt/spatial kernel once per block of every forward pass
      (forward) or train step (backward), cheb_sat never; then the fused and
      unfused models on one test batch in float32 from the run's checkpoint;
-  3c. this slice's main path: the CLI with fuse_tat and fuse_spatial at
-     PEMS07 width (N = 883, batch 12, a seeded synthetic dataset and
-     edge-list graph), 2 epochs in float32 and 2 in bfloat16, the launch
-     counts checked as in 3b, and the float32 run's fused and unfused
-     models on one test batch;
+  3c. the CLI with fuse_tat and fuse_spatial at PEMS07 width (N = 883,
+     batch 12, a seeded synthetic dataset and edge-list graph), 2 epochs in
+     float32 and 2 in bfloat16, the launch counts checked as in 3b, and the
+     float32 run's fused and unfused models on one test batch;
+  3d. The large-N path (phase_large_n): the CLI on LargeST California's
+     N = 8600 at PEMS08 widths (seeded synthetic windows, batch 16, a
+     seeded 8-nearest-neighbour graph), BELL tiles of 128 with rcm and
+     fuse_tat, 2 epochs in float32 and 2 in bf16, the TAt and BELL
+     launches checked, the float32 run's model against its unfused (plain
+     TAt) twin on one test batch, then an epoch each for ms/step, epoch
+     peak memory, device ms/step and the busy share;
+  3e. The long-T path (phase_long_t): the CLI at PEMS08 width on two
+     days of five-minute readings (T = 576, batch 8) with fuse_tat,
+     fuse_spatial and fuse_gtu, the same checks and measurements, the
+     float32 model against the model with all three knobs off;
   4. GAMBIA dense (N=2139, F=4, T=144, bfloat16): training steps through
      the Trainer, the kernel at N > 1024 and the multichannel/long-T tail;
   4b. the GTU slice's main path: GAMBIA dense with fuse_gtu = true,
@@ -160,7 +176,9 @@ alternated in one process, a torch.profiler breakdown of
 each, a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE, and the Sinkhorn STAG of
 all 2,286,591 GAMBIA pairs (``measure_stag_full``). The epoch profiles also
-rank the host ops by their inputs' shapes. ``--compare OUT`` builds
+rank the host ops by their inputs' shapes. ``--rows OUT`` builds and
+times only PERF.md rows 8-11 at their main shapes (``measure_rows``; from
+another commit's checkout, as ``--compare``). ``--compare OUT`` builds
 and runs only ``compare_run``: one side of a comparison with another
 commit's checkout (the float32 spatial, TAt, K1, K2 and F kernels' bits,
 cheb_sat at its four main shapes, K1 and F by pass and K2 at GAMBIA blocks
@@ -911,14 +929,29 @@ TAT_SHAPES = [
     # and blocks 2-4 (F=32) at B=64, the embedding mode at block 1, a ragged
     # shape, and two that a float32 row in one block could not hold: PEMS07's
     # N = 883 at blocks 2-4 with its batch of 12, and GAMBIA's block 2 (T =
-    # 144, N = 2139, H = 2, d_k = d_v = 32, B = 4, F = 32; bench.py:222-236)
+    # 144, N = 2139, H = 2, d_k = d_v = 32, B = 4, F = 32; bench.py:222-236);
+    # then the shapes the whole-row passes refused, at PEMS08 widths: N =
+    # 4096 and LargeST California's 8600 at T = 12 (N in column chunks;
+    # blocks 2-4 of the large-N CLI phase, B = 16, and its block 1 with the
+    # embedding), and T = 576 and 1024 at N = 170 (query tiles and key
+    # chunks; blocks 2-4 of the long-T CLI phase, B = 8, its block 1 with
+    # the embedding, and T = 1024 at B = 2)
     ("pems08_block1", 64, 12, 170, 3, 32, 32, False, F32_BF16),
     ("pems08_blocks2-4", 2048, 12, 170, 3, 32, 32, False, F32_BF16),
     ("pems08_block1_embed", 64, 12, 170, 3, 32, 32, True, F32_BF16),
     ("ragged_n29", 5, 7, 29, 2, 8, 8, False, F32_BF16),
     ("pems07_n883", 384, 12, 883, 3, 32, 32, False, F32_BF16),
     ("gambia_t144", 128, 144, 2139, 2, 32, 32, False, F32_BF16),
+    ("n4096_t12", 512, 12, 4096, 3, 32, 32, False, F32_BF16),
+    ("n8600_t12", 512, 12, 8600, 3, 32, 32, False, F32_BF16),
+    ("n8600_t12_embed", 16, 12, 8600, 3, 32, 32, True, F32_BF16),
+    ("t576_n170", 256, 576, 170, 3, 32, 32, False, F32_BF16),
+    ("t576_n170_embed", 8, 576, 170, 3, 32, 32, True, F32_BF16),
+    ("t1024_n170", 64, 1024, 170, 3, 32, 32, False, F32_BF16),
 ]
+# the TAt shapes past the whole-row passes' caps (PERF.md's sub-table)
+TAT_NEW_SHAPES = ("n4096_t12", "n8600_t12", "n8600_t12_embed", "t576_n170",
+                  "t576_n170_embed", "t1024_n170")
 SPATIAL_SHAPES = [
     # (label, B, N, F, T, C, Co, d, K, d_k, dtypes): PEMS08 block 1 and
     # blocks 2-4, a ragged shape (N, F·T, C·T and d multiples of no tile),
@@ -1142,12 +1175,14 @@ def tat_design(dtype) -> str:
 def check_tat_smem():
     """tat_fused's gate (``passes``, ``smem_bytes``) against the bytes each
     pass of csrc/tat_fused.cu requests, in both dtypes, at every TAt shape
-    (with and without the embedding) and at the edges of the passes' caps
-    at PEMS08 widths: N = 3328/3329 (the LN1-backward pass) and T = 341/342
-    (the attention backward)."""
+    (with and without the embedding), at the edges of the caps the passes
+    had before they streamed N and T (N = 3328/3329, T = 341/342 at PEMS08
+    widths) and at the column chunks' edges (N = 1024/1025, one chunk and
+    two)."""
     lib = tat_fused._load()
     shapes = {s[2:7] for s in TAT_SHAPES} | {(12, 3328, 3, 32, 32), (12, 3329, 3, 32, 32),
-                                             (341, 170, 3, 32, 32), (342, 170, 3, 32, 32)}
+                                             (341, 170, 3, 32, 32), (342, 170, 3, 32, 32),
+                                             (12, 1024, 3, 32, 32), (12, 1025, 3, 32, 32)}
     for T, N, H, dk, dv in sorted(shapes):
         for embed in (False, True):
             for dtype in F32_BF16:
@@ -1605,6 +1640,70 @@ def measure_f_passes(iters: int = 10):
     return out
 
 
+# TAt shapes measure_rows times by pass: GAMBIA's T = 144 at N = 8600 (LN1's
+# row in nine column chunks)
+TAT_PASS_SHAPES = {"t144_n8600": (128, 144, 8600, 2, 32, 32, False)}
+
+
+def measure_rows(out: Path, iters: int = 20) -> dict:
+    """PERF.md rows 8-11 by CUDA events, both dtypes: the TAt forward and
+    backward kernels at PEMS08 blocks 2-4 and at GAMBIA's T = 144, the
+    GTU's at the GAMBIA block and at C = 128 (several chunks of C), and
+    the TAt at TAT_PASS_SHAPES by pass (device time, torch.profiler),
+    through interfaces every version of the package has
+    (``tat_forward_cuda``/``tat_backward_cuda``, ``pack`` and
+    ``gtu_forward_cuda``/``gtu_backward_cuda``), so a checkout of another
+    commit is measured with the same function (``--rows OUT`` from that
+    checkout, as ``--compare``; a shape that checkout's wrappers refuse
+    reads "refused"). Writes and returns {row: {dtype: (ms forward, ms
+    backward)}} and {passes: {shape: {dtype: ...}}}."""
+    res = {"package": tat_fused.__file__, "passes": {}}
+
+    def timed_or_refused(fwd, bwd):
+        try:
+            return cuda_ms(fwd, iters), cuda_ms(bwd, iters)
+        except ValueError as e:  # an older checkout's card gate
+            return f"refused: {e}"
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for label in ("pems08_blocks2-4", "gambia_t144"):
+            _, BF, T, N, H, dk, dv, embed, _ = next(s for s in TAT_SHAPES if s[0] == label)
+            dims = dict(n_heads=H, d_k=dk, d_v=dv, embed=embed)
+            ins, cots = tat_inputs(BF, T, N, H, dk, dv, dtype, 1)
+            res.setdefault(f"tat_{label}", {})[name] = timed_or_refused(
+                lambda: tat_fused.tat_forward_cuda(*ins, **dims),
+                lambda: tat_fused.tat_backward_cuda(*ins, *cots, **dims))
+            del ins, cots
+        for label, (BF, T, N, H, dk, dv, embed) in TAT_PASS_SHAPES.items():
+            dims = dict(n_heads=H, d_k=dk, d_v=dv, embed=embed)
+            ins, cots = tat_inputs(BF, T, N, H, dk, dv, dtype, 1)
+            try:
+                res["passes"].setdefault(label, {})[name] = {
+                    "forward": _profile_passes(
+                        lambda: tat_fused.tat_forward_cuda(*ins, **dims), max(2, iters // 4),
+                        TAT_PASSES["forward"])["passes"],
+                    "backward": _profile_passes(
+                        lambda: tat_fused.tat_backward_cuda(*ins, *cots, **dims),
+                        max(2, iters // 4), TAT_PASSES["backward"])["passes"]}
+            except ValueError as e:  # an older checkout's card gate
+                res["passes"].setdefault(label, {})[name] = f"refused: {e}"
+            del ins, cots
+        for label in ("gambia_block", "gambia_c128"):
+            _, B, N2, C, T2, _ = next(s for s in GTU_SHAPES if s[0] == label)
+            ins, cots = gtu_inputs(B, N2, C, T2, dtype, 0)
+            wp, bp = gtu_fused.pack(*ins[1:], dtype)
+            x, g = ins[0], cots[0].contiguous()
+            res.setdefault(f"gtu_{label}", {})[name] = timed_or_refused(
+                lambda: gtu_fused.gtu_forward_cuda(x, wp, bp),
+                lambda: gtu_fused.gtu_backward_cuda(x, g, wp, bp))
+            del ins, cots, wp, bp, x, g
+        torch.cuda.empty_cache()
+    print("rows", json.dumps(res), flush=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+    return res
+
+
 def forward_bits(path: Path) -> dict:
     """The float32 kernels' outputs on seeded operands: the spatial forward
     at every float32 spatial shape, the TAt forward and backward at every
@@ -1696,37 +1795,59 @@ def compare_run(out: Path) -> dict:
 GTU_SHAPES = [
     # (label, B, N, C, T, dtypes): the GAMBIA block (both blocks alike), the
     # JAX test's two shapes, a ragged one (B·N odd, no T_out a multiple of
-    # 16 or of the CUDA-core kernels' 8 time steps a thread), and the largest
-    # C the bf16 tensor-core backward admits at T = 144 (its float32
-    # backward would need 372,288 bytes of shared memory)
+    # 16), C = 48 (channel groups of 16); at GAMBIA's B·N = 8556 the shapes
+    # the untiled kernels refused: one and two days of five-minute
+    # readings (T = 288, 576; time tiles with their halo) and
+    # nb_time_filter = 64 and 128 (channel groups, C in chunks of 64);
+    # and C = 80 (groups of 16, a ragged last chunk) at T = 96
     ("gambia_block", 4, 2139, 32, 144, F32_BF16),
     ("jax_test_n10", 2, 10, 16, 48, F32_BF16),
     ("jax_test_n3", 1, 3, 32, 64, F32_BF16),
     ("ragged_bn21", 3, 7, 16, 80, F32_BF16),
-    ("c48_t144", 4, 512, 48, 144, (torch.bfloat16,)),
+    ("c48_t144", 4, 512, 48, 144, F32_BF16),
+    ("gambia_t288", 4, 2139, 32, 288, F32_BF16),
+    ("gambia_t576", 4, 2139, 32, 576, F32_BF16),
+    ("gambia_c64", 4, 2139, 64, 144, F32_BF16),
+    ("gambia_c128", 4, 2139, 128, 144, F32_BF16),
+    ("c80_t96", 1, 37, 80, 96, F32_BF16),
 ]
+# the GTU shapes past the untiled kernels' caps (PERF.md's sub-table)
+GTU_NEW_SHAPES = ("gambia_t288", "gambia_t576", "gambia_c64", "gambia_c128")
+# the float32 GTU's split check (SPLIT_TOL, gtu_nosplit_plain) at the GAMBIA
+# block (one resident chunk) and at C = 128 (chunks of C streamed)
+GTU_SPLIT_SHAPES = ("gambia_block", "gambia_c128")
 
 
 def gtu_design(dtype) -> str:
-    """The arithmetic of a GTU kernel: bf16 forward and backward on the
-    tensor cores (WMMA), float32 FMAs on the CUDA cores."""
-    return "wmma_bf16" if dtype == torch.bfloat16 else "cuda_core_f32"
+    """The arithmetic of a GTU kernel, one tiled design in both dtypes on
+    the tensor cores (WMMA): bf16 operands as they are, float32 x, taps and
+    dY split hi/lo (three bf16 products each)."""
+    return "wmma_bf16" if dtype == torch.bfloat16 else "wmma_f32_split"
 
 
 def check_gtu_smem():
-    """gtu_fused.smem_bytes (the Python gate) against the bytes each kernel
-    instantiation of csrc/gtu_fused.cu requests, at every GTU shape and at
-    the gate's edges."""
+    """The kernels' own tiling and shared memory at every GTU shape and at
+    every 16 | C up to 512 and 16 | T from 48 to 1024: gtu_fused_smem_bytes
+    of each kernel (kinds 0-3: float32 and bf16, forward and backward)
+    within a block's 227 KiB, and gtu_fused_plan's channel group dividing
+    C, its time tiles covering T and a halo exactly where there are
+    several (several resident chunks in bf16 only)."""
     lib = gtu_fused._load()
-    shapes = {(s[3], s[4]) for s in GTU_SHAPES} | {(32, 224), (32, 240), (48, 208), (64, 48)}
-    kinds = ((0, False, torch.float32), (1, True, torch.float32), (2, True, torch.bfloat16),
-             (3, False, torch.bfloat16))
+    shapes = {(s[3], s[4]) for s in GTU_SHAPES} | {
+        (C, T) for C in range(16, 513, 16) for T in range(48, 1025, 16)}
+    out = (ctypes.c_int * 7)()
     for C, T in sorted(shapes):
-        for kind, backward, dtype in kinds:
-            want = lib.gtu_fused_smem_bytes(C, T, kind)
-            got = gtu_fused.smem_bytes(C, T, backward, dtype)
-            check(got == want, f"gtu smem_bytes({C}, {T}, {backward}, {dtype}) = {got}, "
-                               f"the kernel requests {want}")
+        for kind in range(4):
+            got = lib.gtu_fused_smem_bytes(C, T, kind)
+            check(0 < got <= 227 * 1024, f"gtu kernel {kind} at C={C}, T={T} requests "
+                                         f"{got} bytes of shared memory")
+        for is_bf16 in (0, 1):
+            lib.gtu_fused_plan(1, C, T, is_bf16, out)
+            G, CK, res, TT, ntt, halo = tuple(out)[:6]
+            check(C % G == 0 and C % CK == 0 and TT % 16 == 0 and TT * ntt >= T
+                  and (TT * (ntt - 1) < T) and halo == (16 if ntt > 1 else 0)
+                  and res in (0, 1) and (res == 0 or CK == C or is_bf16),
+                  f"gtu plan at C={C}, T={T}, bf16={is_bf16}: {tuple(out)[:6]}")
 
 
 def gtu_bounds(B, N, C, T, dtype):
@@ -1772,12 +1893,49 @@ def gtu_library(ins):
     return cuda_ms(fwd, iters), cuda_ms(bwd, iters)
 
 
+def gtu_nosplit_plain(x, w3, b3, w5, b5, w7, b7):
+    """The control of the GTU's split check: the plain version in float32
+    as a design without the lo terms computes it, x and the taps rounded to
+    bf16 before the products and, in the backward, dY (the products'
+    cotangent, so dx and dW take its hi term only); the gate and every sum
+    float32. Gradients from autograd."""
+    r = _RoundValue.apply
+    C, T = x.shape[2], x.shape[3]
+    xt = r(x.float()).transpose(2, 3)
+    outs = []
+    for k, w, b in zip(gtu_fused.KS, (w3, w5, w7), (b3, b5, b7)):
+        T_out = T - k + 1
+        wr = r(w.float())
+        y = b.float()
+        for kk in range(k):
+            y = y + xt[:, :, kk:kk + T_out] @ wr[:, :, 0, kk].t()
+        y = _RoundCotangent.apply(y)
+        outs.append(torch.tanh(y[..., :C]) * torch.sigmoid(y[..., C:]))
+    return torch.cat(outs, dim=2)
+
+
+def gtu_split_check(ins, cots, fwd_err, outs_p, grads_p, grads_k) -> dict:
+    """The float32 GTU within SPLIT_TOL of the plain float32 version in the
+    output and every gradient, where :func:`gtu_nosplit_plain` must exceed
+    it in the output, in dx and in each conv's dW."""
+    diff = tuple(range(7))
+    outs_c, grads_c = _grad_run(lambda a: gtu_nosplit_plain(*a), ins, cots, diff)
+    each = lambda gs: [rel_err(g, p)[1] for g, p in zip(gs, grads_p)]
+    kern, ctl = each(grads_k), each(grads_c)
+    out = {"fwd_rel_err": fwd_err, "bwd_rel_err": max(kern), "tol": SPLIT_TOL,
+           "nosplit_fwd_rel_err": _compare(outs_c, outs_p)[1],
+           "nosplit_dx_rel_err": ctl[0], "nosplit_dw_rel_err": [ctl[1], ctl[3], ctl[5]]}
+    out["ok"] = max(fwd_err, max(kern)) <= SPLIT_TOL < min(
+        out["nosplit_fwd_rel_err"], ctl[0], ctl[1], ctl[3], ctl[5])
+    return out
+
+
 def phase_gtu_kernels():
     """The GTU forward and backward against their plain version at every
     GTU shape, float32 and bfloat16: the output and every gradient through
-    GtuCat, dW and db equal bit for bit over two backward launches, and
-    CUDA-event times of the kernels, the plain version and the conv-only
-    library call."""
+    GtuCat, dW and db equal bit for bit over two backward launches, the
+    float32 split check at GTU_SPLIT_SHAPES, and CUDA-event times of the
+    kernels, the plain version and the conv-only library call."""
     check_gtu_smem()
     rows = []
     diff = tuple(range(7))
@@ -1792,6 +1950,8 @@ def phase_gtu_kernels():
             torch.cuda.synchronize()
             fwd_err, bwd_err = _compare(outs_k, outs_p), _compare(grads_k, grads_p)
             per_grad = [rel_err(k, p)[1] for k, p in zip(grads_k, grads_p)]
+            split = (gtu_split_check(ins, cots, fwd_err[1], outs_p, grads_p, grads_k)
+                     if dtype == torch.float32 and label in GTU_SPLIT_SHAPES else None)
             del outs_k, grads_k, outs_p, grads_p
             wp, bp = gtu_fused.pack(*ins[1:], dtype)
             x, g = ins[0], cots[0].contiguous()
@@ -1816,6 +1976,8 @@ def phase_gtu_kernels():
                 if name == "gtu_bwd":
                     row["dw_db_bit_identical"] = identical
                     row["rel_err_each"] = per_grad
+                if split is not None:
+                    row["split_check"] = split
                 row["ms"], row["plain_ms"], row["library_ms"] = times[name]
                 row["library"] = "conv2d (6C, C, 1, 7), conv only, no gate"
                 row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
@@ -1824,6 +1986,8 @@ def phase_gtu_kernels():
                                  f"{row['rel_err']:.3g} > {limit}")
                 check(row.get("dw_db_bit_identical", True),
                       f"GTU dW/db differ between two launches at {label} {dtype}")
+                check(split is None or split["ok"],
+                      f"float32 GTU split check at {label}: {split}")
                 rows.append(row)
             del ins, cots, wp, bp, x, g
             torch.cuda.empty_cache()
@@ -1841,10 +2005,11 @@ PEMS08_TRAINING = dict(nb_block=4, n_heads=3, K=3, d_k=32, d_model=512,
 
 def write_project_conf(root: Path, name: str, data: str, n: int, dataset: str,
                        adj: str, stag: str, strg: str, graph: str,
-                       model_name: str = "dstagnn", **training) -> Path:
+                       model_name: str = "dstagnn", hours: int = 1, **training) -> Path:
     """A reference-format config ``<name>.conf`` for the windowed npz
-    ``<data>_r1_d0_w0_dstagnn.npz`` under ``root``: ``n`` nodes, 12 steps in
-    and out, one feature, the graph files given; the PEMS08 widths
+    ``<data>_r<hours>_d0_w0_dstagnn.npz`` under ``root``: ``n`` nodes,
+    12·``hours`` steps in (the last 12 five-minute readings of each hour), 12 out,
+    one feature, the graph files given; the PEMS08 widths
     (``PEMS08_TRAINING``, 2 epochs, ``use_pallas``, float32) with
     ``training``'s keys over them."""
     keys = {"epochs": 2, "use_pallas": "true", "compute_dtype": "float32",
@@ -1859,14 +2024,14 @@ strg_filename = {strg}
 num_of_vertices = {n}
 points_per_hour = 12
 num_for_predict = 12
-len_input = 12
+len_input = {12 * hours}
 dataset_name = {dataset}
 
 [Training]
 model_name = {model_name}
 in_channels = 1
 graph = {graph}
-num_of_hours = 1
+num_of_hours = {hours}
 num_of_days = 0
 num_of_weeks = 0
 {body}
@@ -1908,8 +2073,8 @@ def run_pems08_cli(root: Path, conf: Path, exp: Path, args=(), epochs: int = 2):
 
     cfg = load_config(conf)
     data, dataset = Path(cfg.data.graph_signal_matrix_filename).stem, cfg.data.dataset_name
-    n = cfg.data.num_of_vertices
-    with np.load(root / f"{data}_r1_d0_w0_dstagnn.npz") as f:
+    n, hours = cfg.data.num_of_vertices, cfg.training.num_of_hours
+    with np.load(root / f"{data}_r{hours}_d0_w0_dstagnn.npz") as f:
         sizes = {s: len(f[f"{s}_x"]) for s in ("train", "val", "test")}
     bs = cfg.training.batch_size
     batches = {s: -(-n // bs) for s, n in sizes.items()}
@@ -1966,20 +2131,40 @@ FUSED_LAUNCHES = dict(per_forward=("tat_fwd", "spatial_fwd"),
                       per_step=("tat_bwd", "spatial_bwd"), never=("cheb_sat",))
 
 
-def run_fused_cli(root: Path, conf: Path, path: str, model_check: bool = True) -> dict:
+def run_fused_cli(root: Path, conf: Path, path: str, model_check: bool = True,
+                  launches: dict = FUSED_LAUNCHES, knobs=("fuse_tat", "fuse_spatial"),
+                  measure: bool = False) -> dict:
     """The training CLI on a fused project (2 epochs), its launch counts
-    checked (``FUSED_LAUNCHES``), the device memory peak over the run, and
-    with ``model_check`` the whole-model check: the run's last checkpoint,
-    one test batch in float32, fused against unfused predictions."""
+    checked (``launches``, per block), the device memory peak over the run,
+    and with ``model_check`` the whole-model check: the run's last
+    checkpoint, one test batch in float32, the model with ``knobs`` on
+    against it with them off. With ``measure``, one more epoch of the
+    checkpoint's trainer for ms/step and its peak memory, and a profiled
+    epoch for device ms/step and the busy share."""
     nb = PEMS08_TRAINING["nb_block"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    run, launches, _, _, run_dir = run_pems08_cli(root, conf, root / f"exp_{path}")
-    out = {"path": path, **run, "launches": launches,
-           "run_peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
-    check_launches(out, **FUSED_LAUNCHES, nb=nb)
-    if model_check:
-        out["model_check"] = fused_model_check(conf, run_dir)
+    t0 = time.perf_counter()
+    run, counts, _, _, run_dir = run_pems08_cli(root, conf, root / f"exp_{path}")
+    out = {"path": path, **run, "launches": counts,
+           "run_peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "cli_seconds": time.perf_counter() - t0}
+    check_launches(out, **launches, nb=nb)
+    if model_check or measure:
+        t0 = time.perf_counter()
+        trainer, last = checkpoint_trainer(conf, run_dir)
+        out["trainer_seconds"] = time.perf_counter() - t0
+        if model_check:
+            out["model_check"] = model_check_of(trainer, last, knobs)
+        if measure:
+            ms, peak = epoch_peak(trainer, 0)
+            prof = profile_epoch(trainer, top=8)
+            out["epoch"] = {"ms_per_step": ms, "epoch_peak_mib": peak,
+                            "device_ms_per_step": prof["device_ms_per_step"],
+                            "busy_share": prof["busy_share"], "steps": prof["steps"],
+                            "top_kernels": prof["top_kernels"]}
+        del trainer
+        torch.cuda.empty_cache()
     print("main_path", json.dumps(out), flush=True)
     return out
 
@@ -1997,30 +2182,39 @@ PEMS07_SIZES = (96, 24, 24)  # windows a split: 8 train steps of 12, 2 val, 2 te
 PEMS07_BATCH = 12       # the reference's PEMS07 batch
 
 
-def write_pems07_project(root: Path, name: str, seed: int = 7, **training) -> Path:
-    """A PEMS07-width project: numpy-seeded windows of a synthetic traffic
-    signal at N = 883 (12 steps in, 12 out, one feature; the inputs
-    normalised, the targets in flow units), a seeded sparse directed
-    edge-list graph (a ring and N/2 random chords, the PEMS loaders'
-    "from,to,cost" CSV) as ``graph = G``'s adjacency, and a seeded 2%
-    STRG. No PEMS07 data is in the repository; the shapes are PEMS07's."""
-    rng = np.random.default_rng(seed)
-    N, T = PEMS07_N, 12
-    L = sum(PEMS07_SIZES) + 2 * T
+def synthetic_windows(root: Path, name: str, rng, N: int, T: int, sizes, hours: int = 1):
+    """Numpy-seeded windows of a synthetic traffic signal at N nodes (a
+    daily-like sine of a random phase per node and noise, five-minute
+    steps), T steps in and 12 out, one feature, the inputs normalised and
+    the targets in flow units, ``sizes`` windows in train, val and test:
+    ``<name>_r<hours>_d0_w0_dstagnn.npz`` under ``root``."""
+    L = sum(sizes) + T + 12
     t = np.arange(L, dtype=np.float64)[:, None]
     sig = (200 + 60 * np.sin(2 * np.pi * t / 48 + rng.uniform(0, 2 * np.pi, N))
            + 10 * rng.normal(size=(L, N)))
-    x = np.stack([sig[i:i + T].T[:, None, :] for i in range(L - 2 * T)]).astype(np.float32)
-    y = np.stack([sig[i + T:i + 2 * T].T for i in range(L - 2 * T)]).astype(np.float32)
-    n_tr, n_va, _ = PEMS07_SIZES
+    n = L - T - 12
+    x = np.stack([sig[i:i + T].T[:, None, :] for i in range(n)]).astype(np.float32)
+    y = np.stack([sig[i + T:i + T + 12].T for i in range(n)]).astype(np.float32)
+    n_tr, n_va, _ = sizes
     mean, std = x[:n_tr].mean(), x[:n_tr].std()
     x = (x - mean) / std
     cut = {"train": slice(0, n_tr), "val": slice(n_tr, n_tr + n_va),
            "test": slice(n_tr + n_va, None)}
-    np.savez(root / f"{name}_r1_d0_w0_dstagnn.npz",
+    np.savez(root / f"{name}_r{hours}_d0_w0_dstagnn.npz",
              **{f"{k}_x": x[c] for k, c in cut.items()},
              **{f"{k}_target": y[c] for k, c in cut.items()},
              mean=np.full((1, 1, 1, 1), mean), std=np.full((1, 1, 1, 1), std))
+
+
+def write_pems07_project(root: Path, name: str, seed: int = 7, **training) -> Path:
+    """A PEMS07-width project: :func:`synthetic_windows` at N = 883 (12
+    steps in, 12 out), a seeded sparse directed edge-list graph (a ring and
+    N/2 random chords, the PEMS loaders' "from,to,cost" CSV) as ``graph =
+    G``'s adjacency, and a seeded 2% STRG. No PEMS07 data is in the
+    repository; the shapes are PEMS07's."""
+    rng = np.random.default_rng(seed)
+    N = PEMS07_N
+    synthetic_windows(root, name, rng, N, 12, PEMS07_SIZES)
     chords = rng.integers(0, N, size=(N // 2, 2))
     edges = [(i, (i + 1) % N) for i in range(N)] + [(a, b) for a, b in chords if a != b]
     (root / f"{name}_adj.csv").write_text(
@@ -2052,6 +2246,102 @@ def phase_pems07_fused(root: Path):
             for dtype, conf in pems07_fused_projects(root).items()}
 
 
+# the large-N and long-T paths: the fused TAt and GTU past the caps
+# the card had before
+LARGE_N = 8600               # LargeST California's sensors (LargeST, NeurIPS 2023)
+LARGE_N_SIZES = (64, 16, 16)  # windows a split: 4 train steps of 16, 1 val, 1 test
+LARGE_N_KEYS = dict(sparse="true", sparse_format="bell", mask_format="tiles", block_size=128,
+                    rcm="true", fuse_tat="true", batch_size=16)
+LARGE_N_LAUNCHES = dict(per_forward=("tat_fwd", "bell_fused"),
+                        per_step=("tat_bwd", "bell_k1", "bell_k2"),
+                        never=("cheb_sat", "spatial_fwd", "spatial_bwd", "gtu_fwd", "gtu_bwd"))
+LONG_T_HOURS = 48            # 48 hours of 12 five-minute steps: T = 576, two days
+LONG_T_SIZES = (32, 8, 8)    # 4 train steps of 8, 1 val, 1 test
+LONG_T_KEYS = dict(fuse_tat="true", fuse_spatial="true", fuse_gtu="true", batch_size=8)
+LONG_T_LAUNCHES = dict(per_forward=("tat_fwd", "spatial_fwd", "gtu_fwd"),
+                       per_step=("tat_bwd", "spatial_bwd", "gtu_bwd"),
+                       never=("cheb_sat", "bell_fused", "bell_k1", "bell_k2"))
+
+
+def knn_adjacency(n: int, k: int = 8, seed: int = 11) -> np.ndarray:
+    """A seeded k-nearest-neighbour graph on n uniform points of the unit
+    square, symmetrised, with self loops (0/1 int8)."""
+    from scipy.spatial import cKDTree
+
+    pts = np.random.default_rng(seed).random((n, 2))
+    _, idx = cKDTree(pts).query(pts, k=k + 1)  # each point's k nearest and itself
+    A = np.zeros((n, n), np.int8)
+    A[np.repeat(np.arange(n), k + 1), idx.ravel()] = 1
+    return np.maximum(A, A.T)
+
+
+def write_dense_csv(path: Path, A: np.ndarray) -> None:
+    """A 0/1 matrix as headerless CSV, written as bytes (np.savetxt takes
+    minutes at N = 8600)."""
+    buf = np.full((A.shape[0], 2 * A.shape[1]), ord(","), np.uint8)
+    buf[:, 0::2] = A.astype(np.uint8) + ord("0")
+    buf[:, -1] = ord("\n")
+    path.write_bytes(buf.tobytes())
+
+
+def write_large_n_project(root: Path, dtype: str) -> Path:
+    """DSTAGNN at PEMS08 widths on N = 8600: :func:`synthetic_windows` (12
+    steps in, batch 16), the seeded 8-nearest-neighbour graph as the
+    adjacency (``graph = G``), STAG and STRG, BELL tiles of 128 with RCM and
+    fuse_tat, in ``dtype``."""
+    name = f"CA{LARGE_N}{dtype[0].upper()}"
+    synthetic_windows(root, name, np.random.default_rng(13), LARGE_N, 12, LARGE_N_SIZES)
+    adj = root / f"knn{LARGE_N}.csv"
+    if not adj.exists():
+        write_dense_csv(adj, knn_adjacency(LARGE_N))
+    return write_project_conf(root, name, name, LARGE_N, "LARGEST_CA", str(adj), str(adj),
+                              str(adj), "G", compute_dtype=dtype, **LARGE_N_KEYS)
+
+
+def phase_large_n(root: Path, measure: bool = False):
+    """The fused TAt past its old N cap through the CLI (the large-N
+    path): :func:`write_large_n_project`, 2 epochs in float32 and 2
+    in bf16, the TAt and BELL launches checked per block, the float32 run's
+    fused and unfused (plain TAt) models on one test batch, and with
+    ``measure`` (``--measure``) an epoch each for ms/step, its peak memory,
+    device ms/step and the busy share (:func:`run_fused_cli`)."""
+    return {dtype: run_fused_cli(root, write_large_n_project(root, dtype),
+                                 f"large_n_cli_{dtype}", model_check=dtype == "float32",
+                                 launches=LARGE_N_LAUNCHES, knobs=("fuse_tat",), measure=measure)
+            for dtype in ("float32", "bfloat16")}
+
+
+def write_long_t_project(root: Path, dtype: str) -> Path:
+    """DSTAGNN at PEMS08 width (N = 170, 4 blocks) on two days of
+    five-minute readings in (T = 576, num_of_hours = 48, 12 out):
+    :func:`synthetic_windows`, batch 8, a seeded 8-nearest-neighbour graph
+    as adjacency, STAG and STRG, with fuse_tat, fuse_spatial and fuse_gtu in
+    ``dtype``."""
+    name = f"LONGT{dtype[0].upper()}"
+    N = 170
+    synthetic_windows(root, name, np.random.default_rng(17), N, 12 * LONG_T_HOURS, LONG_T_SIZES,
+                      hours=LONG_T_HOURS)
+    adj = root / f"knn{N}.csv"
+    if not adj.exists():
+        write_dense_csv(adj, knn_adjacency(N))
+    return write_project_conf(root, name, name, N, "PEMS08_2DAY", str(adj), str(adj), str(adj),
+                              "G", hours=LONG_T_HOURS, compute_dtype=dtype, **LONG_T_KEYS)
+
+
+def phase_long_t(root: Path, measure: bool = False):
+    """The fused TAt and GTU past their old T caps through the CLI (the
+    long-T path): :func:`write_long_t_project`, 2 epochs in
+    float32 and 2 in bf16, the TAt, spatial and GTU launches checked per
+    block, the float32 run's fused model against the unfused one (all three
+    knobs off) on one test batch, and with ``measure`` (``--measure``) an
+    epoch each for ms/step, its peak memory, device ms/step and the busy
+    share (:func:`run_fused_cli`)."""
+    return {dtype: run_fused_cli(root, write_long_t_project(root, dtype), f"long_t_cli_{dtype}",
+                                 model_check=dtype == "float32", launches=LONG_T_LAUNCHES,
+                                 knobs=("fuse_tat", "fuse_spatial", "fuse_gtu"), measure=measure)
+            for dtype in ("float32", "bfloat16")}
+
+
 def checkpoint_trainer(conf: Path, run_dir: Path):
     """A Trainer of ``conf`` on the card with the run's last checkpoint
     loaded, and that checkpoint's path."""
@@ -2065,27 +2355,28 @@ def checkpoint_trainer(conf: Path, run_dir: Path):
     return trainer, last
 
 
-def fused_model_check(conf: Path, run_dir: Path) -> dict:
-    """Float32, full width, the fused run's last checkpoint, one test batch:
-    the fused model's predictions against the unfused (plain) model's,
-    within TOL of the output's scale (the two differ only in summation
-    order)."""
+def model_check_of(trainer, last: Path, knobs) -> dict:
+    """One test batch in float32 through the checkpoint's model with the
+    fused ``knobs`` on (those of the config; fuse_gtu as the Trainer
+    resolved it) and off, within TOL of the output's scale (the two differ
+    only in summation order)."""
     from dstagnn_drought_tpu_torch.training.step import eval_step
 
-    trainer, best = checkpoint_trainer(conf, run_dir)
     x_full, y_full = trainer._splits["test"]
     bs = trainer.cfg.training.batch_size
+    t = trainer.cfg.training
+    on = dict(fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial, fuse_gtu=trainer.fuse_gtu)
     preds = {}
     for fused in (True, False):
+        kw = on if fused else dict(on, **{k: False for k in knobs})
         preds[fused], _ = eval_step(trainer.model, x_full[:bs], y_full[:bs],
-                                    trainer.constants, compute_dtype=torch.float32,
-                                    fuse_tat=fused, fuse_spatial=fused)
+                                    trainer.constants, compute_dtype=torch.float32, **kw)
     torch.cuda.synchronize()
     err, rel = rel_err(preds[True], preds[False])
     check(rel <= TOL and bool(torch.isfinite(preds[True]).all()),
           f"fused vs unfused model at full width: {rel:.3g} of scale > {TOL}")
-    return {"batch": bs, "max_abs_err": err, "rel_err": rel, "tol": TOL,
-            "checkpoint": best.name}
+    return {"batch": bs, "knobs": list(knobs), "max_abs_err": err, "rel_err": rel, "tol": TOL,
+            "checkpoint": last.name}
 
 
 def measure_pems08_epochs(root: Path, rounds: int = 2):
@@ -2757,13 +3048,14 @@ def zoo_model_check(conf: Path, run_dir: Path):
             "checkpoint": last.name, "cpu_seconds": cpu_s}, trainer
 
 
-def phase_zoo(root: Path):
+def phase_zoo(root: Path, measure: bool = False):
     """The model zoo's main path: for each family, the training CLI for 2
     epochs at PEMS08 width (float32, use_pallas left on: the families have
     no kernel, so every launch count must read 0), then the card against the
-    CPU on one test batch, one more epoch for ms/step and epoch peak memory
-    and one profiled epoch for the device-busy share; then one bf16 epoch of
-    each family whose softmaxes run in bf16 (finite losses)."""
+    CPU on one test batch and, with ``measure`` (``--measure``), one more
+    epoch for ms/step and epoch peak memory and one profiled epoch for the
+    device-busy share; then one bf16 epoch of each family whose softmaxes
+    run in bf16 (finite losses)."""
     out = []
     runs = [(name, "float32", 2) for name in ZOO] + [(name, "bfloat16", 1) for name in ZOO_BF16]
     for name, dtype, epochs in runs:
@@ -2781,10 +3073,11 @@ def phase_zoo(root: Path):
                 "run_peak_mib": run_peak, "cli_seconds": time.perf_counter() - t0}
         if epochs == 2:
             line["model_check"], trainer = zoo_model_check(conf, run_dir)
-            line["ms_per_step_epoch3"], line["epoch_peak_mib"] = epoch_peak(trainer, 2)
-            prof = profile_epoch(trainer, top=5)
-            line["profile"] = {k: prof[k] for k in ("busy_share", "device_ms_per_step",
-                                                    "kernel_launches", "top_ops")}
+            if measure:
+                line["ms_per_step_epoch3"], line["epoch_peak_mib"] = epoch_peak(trainer, 2)
+                prof = profile_epoch(trainer, top=5)
+                line["profile"] = {k: prof[k] for k in ("busy_share", "device_ms_per_step",
+                                                        "kernel_launches", "top_ops")}
             del trainer
         line["seconds"] = time.perf_counter() - t0
         print("zoo", json.dumps(line), flush=True)
@@ -3765,12 +4058,14 @@ C_MAJOR_SITES = {"bell_fused": "dstagnn_drought_tpu/ops/pallas/bell_fused.py:812
 
 
 def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused, gtu,
-                 gtu_bell, multi, pems07):
+                 gtu_bell, multi, pems07, large_n, long_t):
     """One record per TPU kernel for the JSON line (13; a c-major variant's
     record repeats its port kernel's, ``kernel_of``): launches from its main
     path, times and bound at the main path's shape (the fused TAt and
     spatial rows: launches from the PEMS07 bf16 run, times at PEMS08
-    blocks 2-4 as before, the PEMS07 shape's beside them)."""
+    blocks 2-4 as before, the PEMS07 shape's beside them; the TAt and GTU
+    rows also carry the large-N and long-T CLI runs' launches and their
+    times at the shapes past the old caps, ``new_shapes``)."""
     main_row = next(r for r in rows if r["shape"] == "pems08_blocks2-4")
     g2 = next(r for r in rows if r["shape"] == "gambia_block2")
     src, site = KERNEL_SITES["cheb_sat"]
@@ -3836,6 +4131,13 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "pems07": {dt: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
                        for dt, r in p07.items()},
         })
+        if name.startswith("tat"):
+            out[-1].update(
+                launches_large_n={dt: run["launches"][name] for dt, run in large_n.items()},
+                launches_long_t={dt: run["launches"][name] for dt, run in long_t.items()},
+                new_shapes=new_shape_times(mine, TAT_NEW_SHAPES))
+        else:
+            out[-1]["launches_long_t"] = {dt: run["launches"][name] for dt, run in long_t.items()}
         out[-1].update(design=main["design"], f32_ms=f32["ms"], f32_design=f32["design"])
     for name in ("gtu_fwd", "gtu_bwd"):
         mine = [r for r in gtu_rows if r["kernel"] == name]
@@ -3851,9 +4153,19 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "library": main["library"], "design": main["design"],
             "shape": "GAMBIA block, bf16: B=4 N=2139 C=32 T=144",
             "launches_bell_tiles": gtu_bell["launches"][name],
+            "launches_long_t": {dt: run["launches"][name] for dt, run in long_t.items()},
             "f32_ms": f32["ms"], "f32_design": f32["design"],
+            "new_shapes": new_shape_times(mine, GTU_NEW_SHAPES),
         })
     return out
+
+
+def new_shape_times(rows, shapes) -> dict:
+    """{shape: {dtype: ms, plain_ms, bound_ms (and library_ms)}} of a
+    kernel's rows at ``shapes``."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    return {label: {r["dtype"]: {k: r[k] for k in keys if k in r}
+                    for r in rows if r["shape"] == label} for label in shapes}
 
 
 def main(argv=None) -> int:
@@ -3865,6 +4177,8 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", type=Path, default=None, metavar="OUT",
                     help="build, then run only compare_run (one side of a comparison of "
                          "two commits) into OUT")
+    ap.add_argument("--rows", type=Path, default=None, metavar="OUT",
+                    help="build, then time only PERF.md rows 8-11 (measure_rows) into OUT")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3875,7 +4189,7 @@ def main(argv=None) -> int:
     card = card_line()
     t_start = time.perf_counter()
 
-    report = build.build(build.SOURCES)
+    report = build.build(("tat_fused", "gtu_fused") if args.rows else build.SOURCES)
     builds = {}
     for name, r in report.items():
         print(f"build {name}: {r['seconds']:.2f} s", flush=True)
@@ -3888,31 +4202,48 @@ def main(argv=None) -> int:
     if args.compare is not None:
         compare_run(args.compare)
         return 0
+    if args.rows is not None:
+        measure_rows(args.rows)
+        return 0
 
-    rows = phase_kernels()
-    bell_rows = phase_bell_kernels()
-    fused_rows = phase_fused_kernels()
+    phase_s = {}
+
+    def timed(fn, *a):
+        """fn(*a), its seconds printed and kept under its name."""
+        t0 = time.perf_counter()
+        r = fn(*a)
+        phase_s[fn.__name__] = time.perf_counter() - t0
+        print(f"{fn.__name__}: {phase_s[fn.__name__]:.1f} s", flush=True)
+        return r
+
+    rows = timed(phase_kernels)
+    bell_rows = timed(phase_bell_kernels)
+    fused_rows = timed(phase_fused_kernels)
     passes = ({"spatial": measure_spatial_passes(), "tat": measure_tat_passes()}
               if args.measure else None)
-    gtu_rows = phase_gtu_kernels()
+    gtu_rows = timed(phase_gtu_kernels)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         root = Path(tmp)
-        pems = phase_pems08(root)
-        fused = phase_pems08_fused(root)
-        pems07 = phase_pems07_fused(root)
+        pems = timed(phase_pems08, root)
+        fused = timed(phase_pems08_fused, root)
+        pems07 = timed(phase_pems07_fused, root)
+        large_n = timed(phase_large_n, root, args.measure)
+        long_t = timed(phase_long_t, root, args.measure)
         measured = measure_pems08_epochs(root) if args.measure else None
-        gambia = phase_gambia(root)
-        gtu = phase_gambia_fuse_gtu(root)
-        tiles = phase_gambia_bell_tiles(root)
-        gtu_bell = phase_gambia_bell_fuse_gtu(root)
-        rcm = phase_gambia_bell_rcm(root)
-        stag = phase_stag(root)
-        ell = phase_gambia_ell(root)
-        zoo = phase_zoo(root)
+        gambia = timed(phase_gambia, root)
+        gtu = timed(phase_gambia_fuse_gtu, root)
+        tiles = timed(phase_gambia_bell_tiles, root)
+        gtu_bell = timed(phase_gambia_bell_fuse_gtu, root)
+        rcm = timed(phase_gambia_bell_rcm, root)
+        stag = timed(phase_stag, root)
+        ell = timed(phase_gambia_ell, root)
+        zoo = timed(phase_zoo, root, args.measure)
         with deterministic_cudnn():
-            knobs = {"remat": phase_remat(root, card), "debug": phase_debug(root, card)}
-        knobs.update(rollback=phase_rollback(root, card), evaluate=phase_evaluate(root, card))
-        multi = phase_multi(root, card)
+            knobs = {"remat": timed(phase_remat, root, card),
+                     "debug": timed(phase_debug, root, card)}
+        knobs.update(rollback=timed(phase_rollback, root, card),
+                     evaluate=timed(phase_evaluate, root, card))
+        multi = timed(phase_multi, root, card)
         if args.measure:
             measured = {"pems08": measured, "passes": passes,
                         "pems08_fused": measure_fused_steps(
@@ -3926,18 +4257,18 @@ def main(argv=None) -> int:
                         "stag_full": measure_stag_full()}
 
     kernels = kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused,
-                           gtu, gtu_bell, multi, pems07)
+                           gtu, gtu_bell, multi, pems07, large_n, long_t)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": card, "builds": builds, "cheb_sat": rows, "bell": bell_rows,
             "fused": fused_rows, "gtu": gtu_rows, "pems08": pems, "pems08_fused": fused,
-            "pems07_fused": pems07,
+            "pems07_fused": pems07, "large_n": large_n, "long_t": long_t,
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
             "gambia_bell_rcm": rcm, "gambia_fuse_gtu": gtu,
             "gambia_bell_tiles_fuse_gtu": gtu_bell, "stag": stag, "gambia_ell": ell,
             "zoo": zoo, "knobs": knobs, "multi": multi, "kernels": kernels,
-            "seconds": time.perf_counter() - t_start,
+            "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start,
         }, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

@@ -21,44 +21,73 @@
 // of activations: operations, not bytes, bound it. The TPU kernel holds a
 // row in VMEM; a row of a CUDA block would cap N and T by its 227 KB, so
 // the row is taken apart into passes over the flat M = B*F*T rows, one
-// design for both dtypes. Every product runs on the tensor cores (WMMA
-// 16x16x16 bf16 fragments, float32 sums) with each float32 operand a split
-// into hi = bf16(a) and lo = bf16(a - hi) (residual <= 2^-18 |a|), so the
-// function stays float32 in value: in bfloat16 the inputs are bf16-exact
-// and qkv = x . wqkv is one bf16 product, the others two (hi and lo of the
-// float32 intermediate against the bf16 weight: ctx . wo, g_ypre . wo^T,
-// g_qkv . wqkv^T, te^T . g_qkv) or three (ctx^T . g_ypre); in float32 x and
-// the weights are split too (the prep kernel writes the weights' hi and lo
-// copies), and every product is three (hi.hi + hi.lo + lo.hi). The passes,
-// tiles of 64, 32 or 16 rows (the most whose shared memory fits, fewer
-// while M would give fewer tiles than the card has SMs), so any N and T up
-// to the passes' caps fit:
+// design for both dtypes, and no block's shared memory grows with N or T.
+// Every product runs on the tensor cores (WMMA 16x16x16 bf16 fragments,
+// float32 sums) with each float32 operand a split into hi = bf16(a) and
+// lo = bf16(a - hi) (residual <= 2^-18 |a|), so the function stays float32
+// in value: in bfloat16 the inputs are bf16-exact and qkv = x . wqkv is one
+// bf16 product, the others two (hi and lo of the float32 intermediate
+// against the bf16 weight: ctx . wo, g_ypre . wo^T, g_qkv . wqkv^T,
+// te^T . g_qkv) or three (ctx^T . g_ypre); in float32 x and the weights are
+// split too (the prep kernel writes the weights' hi and lo copies), and
+// every product is three (hi.hi + hi.lo + lo.hi). The passes, tiles of 64,
+// 32 or 16 rows (the most whose shared memory lets two blocks share an SM,
+// else the most that fit; fewer while M would give fewer tiles than the
+// card has SMs):
 //   1 tat_qkv_kernel: qkv = te . wqkv over 64-column chunks of te and wqkv
 //     (wqkv's chunk, hi and in float32 lo, staged by cp.async while te's is
-//     converted); embed adds the LN0 prologue and writes te and its row
-//     statistics;
-//   2 tat_attn_fwd_kernel, a block a (row of B*F, head): the raw scores
-//     (an output), the query-axis softmax and ctx, float32 on the CUDA
-//     cores, in chunks of 32 key columns (each key column's softmax is
-//     complete in its chunk), so its shared memory grows with T, not T^2;
-//   3 tat_out_kernel: z = ctx . wo + te, LN1 over the tile's N-wide rows,
-//     out (rounded once);
-//   4 tat_ln1_bwd_kernel: z again, LN1 backward with g_out -> g_ypre and
-//     per-tile dg1/db1 partials, then g_ctx = g_ypre . wo^T;
-//   5 tat_attn_bwd_kernel: s and a again, ds = g_ctx . v^T, the query-axis
-//     softmax backward (+ g_sc -> dres), g_q, g_k, g_v into g_qkv;
-//   6 tat_gte_kernel: g_te = g_qkv . wqkv^T + g_ypre -> dx (embed: LN0
-//     backward first, with per-tile dg0/db0 partials);
+//     converted); embed adds the LN0 prologue (row statistics read from x,
+//     not held) and writes te and its row statistics;
+//   2 tat_attn_fwd_kernel, a block a (row of B*F, head), float32 on the
+//     CUDA cores, key columns in chunks of 32 and the query rows in one
+//     tile up to T = 160, else in tiles of 32 (shared memory bounded
+//     whatever T): the softmax runs over the query axis, so a key column
+//     is complete only after every query. With one tile (a route by T,
+//     ONE: the two sweeps below alone read 11% / 8% slower in the forward
+//     / backward at PEMS08 blocks 2-4 on an H100, chip_smoke.py --rows)
+//     each chunk's column softmax completes in the chunk and its share of
+//     ctx is added at once (the column statistics still go to the
+//     workspace for the backward); otherwise first each chunk's column
+//     statistics (max, then the sum of exp, rescaled as the max moves)
+//     over the query tiles, with the raw scores (an output), then ctx a
+//     query tile at a time, the attention rebuilt from the statistics;
+//   3 tat_out_kernel: z = ctx . wo + te and LN1 over N in column chunks of
+//     at most 1024 (the row's width split evenly, 16-aligned): the chunks'
+//     statistics merged (Chan's formula; one chunk is the two-pass mean and
+//     variance), then out a chunk at a time, the last chunk still in shared
+//     memory and the others read back from a float32 scratch in the
+//     workspace (the block's own rows, written as each chunk is formed).
+//     Kept, not recomputed: at T = 144, N = 8600 (nine chunks) the pass
+//     takes 20% (bf16) and 25% (float32) less time on an H100 than with the
+//     recompute (chip_smoke.py --rows); up to N = 1024 the row is one
+//     chunk and neither runs;
+//   4 tat_ln1_bwd_kernel: z chunk by chunk and LN1's statistics, then LN1
+//     backward with g_out: the row sums sum(g*g1) and sum(g*g1*x_hat) and
+//     per-tile dg1/db1 partials a chunk at a time, then g_ypre (Mp, Np)
+//     float32 and g_ctx = g_ypre . wo^T. With more than one chunk the
+//     block's rows of g_ypre's workspace hold z, then x_hat, between the
+//     sweeps (its own rows, read back at once, mostly from L2); with one
+//     they stay in shared memory;
+//   5 tat_attn_bwd_kernel, a block a (row, head) on the CUDA cores, a key
+//     chunk at a time: a and g_a = g_ctx . v^T rebuilt for every query tile
+//     from the forward's column statistics, the column term delta_k =
+//     sum_q a g_a and g_v over all queries; then ds = a (g_a - delta) + g_sc
+//     -> dres, g_k of the chunk and each tile's g_q, summed over the chunks
+//     in place in g_qkv (Mp, Wp) float32 (the block owns those entries: no
+//     atomics, a fixed order);
+//   6 tat_gte_kernel: g_te = g_qkv . wqkv^T + g_ypre -> dx; with the
+//     embedding, LN0 backward: g_te chunk by chunk into the float32 copy of
+//     dx (dxf), the row sums and per-tile dg0/db0 partials, then dx;
 //   7 dwqkv = te^T g_qkv and dwo = ctx^T g_ypre by wm::atb_wmma (split-M
 //     partials, summed by dense::sum_rows in a fixed order: no atomics, the
 //     same bits every launch), and the LN vectors' partials likewise.
 // The forward is passes 1-3; the backward recomputes qkv and ctx (1-2), as
 // the TPU kernel's custom_vjp saves only the inputs. Between passes qkv,
-// ctx, g_ypre, g_ctx and g_qkv live in device memory as float32 (rows
-// padded to 64, widths to 16). Products whose K is long (1 and 4) stage
-// their weight chunks in shared memory; products whose output is N wide (3
-// and 6) hold their split operand whole in shared memory and read each
-// weight fragment once a block from L2.
+// ctx, the attention's column statistics, g_ypre, g_ctx and g_qkv live in
+// device memory as float32 (rows padded to 64, widths to 16). Products whose
+// K is long (1 and 4) stage their weight chunks in shared memory; products
+// whose output is N wide (3 and 6) hold their split operand whole in shared
+// memory and read each weight fragment once a block from L2.
 
 #include <type_traits>
 
@@ -82,12 +111,24 @@ constexpr int kLC = kKC + 8;           // row stride of a chunk (bf16)
 constexpr int kItems = 9;              // accumulator tiles a warp holds (chunked products)
 constexpr int kAttnThreads = 128;      // threads of an attention block
 constexpr int kKeyChunk = 32;          // key columns an attention block takes at a time
+constexpr int kQueryTile = 32;         // query rows of a tile where T is streamed
+constexpr int kOneTile = 160;          // T up to which one query tile holds every query
+constexpr int kMaxChunk = 1024;        // most columns of N a row-tiled pass holds at a time
 constexpr size_t kSmemMax = 232448;    // shared memory a block may have (227 KB)
 
 enum Pass16 { kQkv = 0, kAttnFwd, kOut, kLn1Bwd, kAttnBwd, kGte, kPasses };
 
+// Blocks an SM the register budget is set for: the attention blocks are
+// small and latency-bound, 16 of 128 threads (32 registers) where one tile
+// holds T (ONE: T <= 160), 8 (64 registers) where they stream T's tiles and
+// carry the tile loops' state; pass 3's 64-row tiles fit three an SM (80
+// registers; at PEMS08 blocks 2-4 the 384 tiles then take one wave), pass
+// 4 keeps two (128)
+constexpr int kOutMinBlocks = 3, kLn1MinBlocks = 2;
+constexpr int attn_min_blocks(bool one) { return one ? 16 : 8; }
+
 struct D16 {
-  int BF, M, T, N, H, dk, dv, W, hk, hv, Np, Wp, hvp, KC, embed, f32;
+  int BF, M, T, N, H, dk, dv, W, hk, hv, Np, Wp, hvp, KC, QT, NC, nch, embed, f32;
   float inv_sqrt;
 };
 
@@ -107,6 +148,12 @@ D16 make_d16(int BF, int T, int N, int H, int dk, int dv, int embed, int f32) {
   d.Wp = (d.W + 15) / 16 * 16;
   d.hvp = (d.hv + 15) / 16 * 16;
   d.KC = T < kKeyChunk ? T : kKeyChunk;
+  d.QT = T <= kOneTile ? T : kQueryTile;
+  // the N-wide passes' column chunks: Np split evenly into the fewest of at
+  // most kMaxChunk columns, each 16-aligned (only the last holds padding)
+  const int parts = (d.Np + kMaxChunk - 1) / kMaxChunk;
+  d.NC = ((d.Np + parts - 1) / parts + 15) / 16 * 16;
+  d.nch = (d.Np + d.NC - 1) / d.NC;
   d.embed = embed;
   d.f32 = f32;
   d.inv_sqrt = static_cast<float>(1.0 / sqrt(static_cast<double>(dk)));
@@ -121,42 +168,49 @@ __host__ __device__ __forceinline__ int qkv_group(const D16& d, int rows) {
 }
 
 // Shared memory of a pass's block with `rows` rows (the attention passes
-// do not tile rows). Every region is a multiple of 32 bytes, so each WMMA
-// tile starts aligned.
+// do not tile rows). Every region of a row-tiled pass is a multiple of 32
+// bytes, so each WMMA tile starts aligned. None grows with N or T.
 size_t smem16(int pass, int rows, const D16& d) {
-  const size_t R = rows, LZ = d.Np + 4, T = d.T, KC = d.KC, lq = d.dk + 1, lv = d.dv + 1,
+  const size_t R = rows, LZ = d.NC + 4, QT = d.QT, KC = d.KC, lq = d.dk + 1, lv = d.dv + 1,
                ls = KC + 1;
   switch (pass) {
     case kQkv:  // B chunk (hi, and lo in float32), A chunk hi (and lo), LN0 statistics
       return 2 * (size_t)kKC * (qkv_group(d, rows) + 8) * (1 + d.f32) +
              2 * R * kLC * (1 + (d.embed | d.f32)) + 8 * R;
-    case kAttnFwd:  // q, key and value chunks, score chunk, context sums
-      return 4 * (T * lq + KC * lq + KC * lv + T * ls + T * d.dv);
-    case kOut:  // z (float32), ctx hi and lo
-      return 4 * R * LZ + 4 * R * (d.hvp + 8);
-    case kLn1Bwd: {  // z, then ctx hi/lo or a g_ypre chunk (hi, lo) and a wo chunk
-                     // (hi, and lo in float32); 1/std
+    case kAttnFwd:  // query tile, key and value chunks, score tile, context sums, the
+                    // chunk's column statistics
+      return 4 * (QT * lq + KC * lq + KC * lv + QT * ls + QT * d.dv + 2 * KC);
+    case kOut:  // a z chunk (float32), ctx hi and lo, the rows' statistics
+      return 4 * R * LZ + 4 * R * (d.hvp + 8) + 8 * R;
+    case kLn1Bwd: {  // a z chunk, then ctx hi/lo or a g_ypre chunk (hi, lo) and a wo
+                     // chunk (hi, and lo in float32); the rows' statistics and sums
       const size_t a = 4 * R * (d.hvp + 8),
                    c = 4 * R * kLC + 2 * (size_t)d.hvp * kLC * (1 + d.f32);
-      return 4 * R * LZ + (a > c ? a : c) + 4 * R;
+      return 4 * R * LZ + (a > c ? a : c) + 16 * R;
     }
-    case kAttnBwd:  // q, g_ctx, g_q sums, key and value chunks, a and ds chunks
-      return 4 * (T * lq + T * lv + T * d.dk + KC * lq + KC * lv + 2 * T * ls);
-    case kGte:  // g_qkv hi and lo, then per-warp staging or (embed) the g_te rows
-      return 4 * R * (d.Wp + 8) + (d.embed ? 4 * R * LZ : 4 * (size_t)kWarps * 256);
+    case kAttnBwd:  // query and g_ctx tiles, key and value chunks, a and g_a tiles, the
+                    // chunk's g_k and g_v sums, delta and column statistics
+      return 4 * (QT * lq + QT * lv + KC * lq + KC * lv + 2 * QT * ls + KC * d.dk +
+                  KC * d.dv + 3 * KC);
+    case kGte:  // g_qkv hi and lo, then per-warp staging or (embed) a g_te chunk and
+                // the rows' sums
+      return 4 * R * (d.Wp + 8) + (d.embed ? 4 * R * LZ + 8 * R : 4 * (size_t)kWarps * 256);
   }
   return 0;
 }
 
 // Rows a block of a row-tiled pass takes: 64, 32 or 16, the most whose
-// shared memory fits (the chunked g_ctx product also needs its tiles to fit
-// kItems a warp); 0 where none does. The attention passes return 1.
+// shared memory lets two blocks share an SM, else the most that fit (the
+// chunked g_ctx product also needs its tiles to fit kItems a warp); 0 where
+// none does. The attention passes return 1.
+constexpr size_t kSmemTwo = 115712;  // the most two blocks an SM may each have
 int rows16(int pass, const D16& d) {
   if (pass == kAttnFwd || pass == kAttnBwd) return smem16(pass, 1, d) <= kSmemMax ? 1 : 0;
-  for (int rows = 64; rows >= 16; rows /= 2) {
-    if (pass == kLn1Bwd && (rows / 16) * (d.hvp / 16) > kWarps * kItems) continue;
-    if (smem16(pass, rows, d) <= kSmemMax) return rows;
-  }
+  for (const size_t cap : {kSmemTwo, kSmemMax})
+    for (int rows = 64; rows >= 16; rows /= 2) {
+      if (pass == kLn1Bwd && (rows / 16) * (d.hvp / 16) > kWarps * kItems) continue;
+      if (smem16(pass, rows, d) <= cap) return rows;
+    }
   return 0;
 }
 
@@ -387,119 +441,207 @@ tat_qkv_kernel(const TIn* __restrict__ x, const float* __restrict__ pos,
   }
 }
 
-// attention blocks: one (row r of B*F, head h); key columns in chunks of KC
+// attention blocks: one (row r of B*F, head h), query rows in tiles of QT,
+// key columns in chunks of KC
 struct AttnTiles {
   float *q, *kc, *vc, *s;
   int lq, lv, ls;
 };
 
-// key columns [k0, k0 + kn): their keys and values staged, s = the raw
-// scores (to `scores` when given), then a = the softmax over the query axis
-// of each column, in place (every query of the column is in the chunk)
-template <typename TIn>
-__device__ __forceinline__ void attn_chunk(const float* __restrict__ qkv_r,
-                                           const TIn* __restrict__ res_rh, void* scores,
-                                           int out_f32, size_t sc_off, int h, int k0, int kn,
-                                           const AttnTiles& a, const D16& d) {
-  const int T = d.T, nw = kAttnThreads / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // the last chunk is consumed
-  for (int e = threadIdx.x; e < kn * d.dk; e += kAttnThreads) {
-    const int kk = e / d.dk, c = e % d.dk;
-    a.kc[kk * a.lq + c] = qkv_r[(size_t)(k0 + kk) * d.Wp + d.hk + h * d.dk + c];
-  }
-  for (int e = threadIdx.x; e < kn * d.dv; e += kAttnThreads) {
-    const int kk = e / d.dv, c = e % d.dv;
-    a.vc[kk * a.lv + c] = qkv_r[(size_t)(k0 + kk) * d.Wp + 2 * d.hk + h * d.dv + c];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < T * kn; e += kAttnThreads) {
-    const int q = e / kn, kk = e % kn;
-    const float* qr = a.q + q * a.lq;
-    const float* kr = a.kc + kk * a.lq;
-    float dot = 0.f;
-    for (int c = 0; c < d.dk; ++c) dot = fmaf(qr[c], kr[c], dot);
-    const float s = dot * d.inv_sqrt + to_float(res_rh[q * T + k0 + kk]);
-    a.s[q * a.ls + kk] = s;
-    if (scores) store_out(scores, sc_off + (size_t)q * T + k0 + kk, s, out_f32);
-  }
-  __syncthreads();
-  for (int kk = warp; kk < kn; kk += nw) {
-    float m = -INFINITY;
-    for (int q = lane; q < T; q += 32) m = fmaxf(m, a.s[q * a.ls + kk]);
-    m = dense::warp_max(m);
-    float sum = 0.f;
-    for (int q = lane; q < T; q += 32) {
-      const float v = expf(a.s[q * a.ls + kk] - m);
-      a.s[q * a.ls + kk] = v;
-      sum += v;
-    }
-    sum = dense::warp_sum(sum);
-    for (int q = lane; q < T; q += 32) a.s[q * a.ls + kk] = a.s[q * a.ls + kk] / sum;
-  }
-  __syncthreads();
-}
-
 __device__ __forceinline__ void load_head(float* dst, int ld, const float* __restrict__ src,
-                                          size_t lds, int T, int w) {
-  for (int e = threadIdx.x; e < T * w; e += kAttnThreads)
+                                          size_t lds, int n, int w) {
+  for (int e = threadIdx.x; e < n * w; e += kAttnThreads)
     dst[(e / w) * ld + e % w] = src[(size_t)(e / w) * lds + e % w];
 }
 
-// Pass 2: raw scores (when `scores` is given), the query-axis softmax and
-// ctx (Mp, hvp) float32, on the CUDA cores
+// s = q . k / sqrt(dk) + res for row q of the staged query tile [q0, ...)
+// and key kk of the staged chunk [k0, ...): every pass forms a score by
+// this same sequence, so a recomputed score has the bits of the first
 template <typename TIn>
-__global__ void __launch_bounds__(kAttnThreads)
+__device__ __forceinline__ float score(const AttnTiles& a, const TIn* __restrict__ res_rh, int q0,
+                                       int q, int k0, int kk, const D16& d) {
+  const float* qr = a.q + q * a.lq;
+  const float* kr = a.kc + kk * a.lq;
+  float dot = 0.f;
+  for (int c = 0; c < d.dk; ++c) dot = fmaf(qr[c], kr[c], dot);
+  return dot * d.inv_sqrt + to_float(res_rh[(size_t)(q0 + q) * d.T + k0 + kk]);
+}
+
+// the raw scores of the staged (qn, kn) tile to a.s, also to `scores`
+// (at sc_off) when given
+template <typename TIn>
+__device__ __forceinline__ void score_tile(const AttnTiles& a, const TIn* __restrict__ res_rh,
+                                           void* scores, int out_f32, size_t sc_off, int q0,
+                                           int qn, int k0, int kn, const D16& d) {
+  for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+    const int q = e / kn, kk = e % kn;
+    const float s = score(a, res_rh, q0, q, k0, kk, d);
+    a.s[q * a.ls + kk] = s;
+    if (scores) store_out(scores, sc_off + (size_t)(q0 + q) * d.T + k0 + kk, s, out_f32);
+  }
+}
+
+// a = exp(s - m_k) / l_k of the staged (qn, kn) tile to a.s, the scores
+// formed afresh, with the key columns' statistics cm (max over every query)
+// and cl (sum of exp); with gc (the tile's g_ctx rows), g_a = g_ctx . v^T
+// to ga
+template <typename TIn>
+__device__ __forceinline__ void attn_tile(const AttnTiles& a, const TIn* __restrict__ res_rh,
+                                          const float* cm, const float* cl, const float* gc,
+                                          float* ga, int q0, int qn, int k0, int kn,
+                                          const D16& d) {
+  for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+    const int q = e / kn, kk = e % kn;
+    a.s[q * a.ls + kk] = expf(score(a, res_rh, q0, q, k0, kk, d) - cm[kk]) / cl[kk];
+    if (gc) {
+      const float* gr = gc + q * a.lv;
+      const float* vr = a.vc + kk * a.lv;
+      float acc = 0.f;
+      for (int c = 0; c < d.dv; ++c) acc = fmaf(gr[c], vr[c], acc);
+      ga[q * a.ls + kk] = acc;
+    }
+  }
+}
+
+// Pass 2: the raw scores (when `scores` is given), the query-axis softmax
+// and ctx (Mp, hvp) float32, on the CUDA cores; each key column's max and
+// sum of exp over the queries to stat (BF, H, T, 2)
+template <typename TIn, bool ONE>
+__global__ void __launch_bounds__(kAttnThreads, attn_min_blocks(ONE))
 tat_attn_fwd_kernel(const float* __restrict__ qkv, const TIn* __restrict__ res, void* scores,
-                    int out_f32, float* __restrict__ ctx, D16 d) {
+                    int out_f32, float* __restrict__ ctx, float* __restrict__ stat, D16 d) {
   extern __shared__ __align__(16) float sm[];
-  const int r = blockIdx.x, h = blockIdx.y, T = d.T;
+  const int r = blockIdx.x, h = blockIdx.y, T = d.T, nw = kAttnThreads / 32,
+            warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   AttnTiles a;
   a.lq = d.dk + 1;
   a.lv = d.dv + 1;
   a.ls = d.KC + 1;
   a.q = sm;
-  a.kc = a.q + T * a.lq;
+  a.kc = a.q + d.QT * a.lq;
   a.vc = a.kc + d.KC * a.lq;
   a.s = a.vc + d.KC * a.lv;
-  float* cs = a.s + T * a.ls;  // (T, dv)
+  float* cs = a.s + d.QT * a.ls;  // (QT, dv) context sums
+  float* cm = cs + d.QT * d.dv;   // the chunk's column max
+  float* cl = cm + d.KC;          // and sum of exp
   const float* qkv_r = qkv + (size_t)r * T * d.Wp;
   const size_t off = ((size_t)r * d.H + h) * T * T;
-  load_head(a.q, a.lq, qkv_r + h * d.dk, d.Wp, T, d.dk);
-  for (int e = threadIdx.x; e < T * d.dv; e += kAttnThreads) cs[e] = 0.f;
+  const TIn* res_rh = res + off;
+  float* st = stat + ((size_t)r * d.H + h) * T * 2;
+  float* ctx_r = ctx + (size_t)r * T * d.hvp + h * d.dv;
+  // one query tile holds every query (T <= 160): each key chunk's column
+  // softmax completes in the chunk, and its share of ctx is added at once
+  constexpr bool one = ONE;
+  if (one)
+    for (int e = threadIdx.x; e < T * d.dv; e += kAttnThreads) cs[e] = 0.f;
+  // 1. each key column's max and sum of exp over the query tiles (the sum
+  // rescaled as the max moves), and the raw scores
   for (int k0 = 0; k0 < T; k0 += d.KC) {
     const int kn = min(d.KC, T - k0);
-    attn_chunk(qkv_r, res + off, scores, out_f32, off, h, k0, kn, a, d);
-    for (int e = threadIdx.x; e < T * d.dv; e += kAttnThreads) {
-      const int q = e / d.dv, c = e % d.dv;
-      float acc = cs[e];
-      for (int kk = 0; kk < kn; ++kk) acc = fmaf(a.s[q * a.ls + kk], a.vc[kk * a.lv + c], acc);
-      cs[e] = acc;
+    __syncthreads();  // the last chunk's statistics are out (and its ctx share in)
+    load_head(a.kc, a.lq, qkv_r + (size_t)k0 * d.Wp + d.hk + h * d.dk, d.Wp, kn, d.dk);
+    if (one)
+      load_head(a.vc, a.lv, qkv_r + (size_t)k0 * d.Wp + 2 * d.hk + h * d.dv, d.Wp, kn, d.dv);
+    for (int kk = threadIdx.x; kk < kn; kk += kAttnThreads) {
+      cm[kk] = -INFINITY;
+      cl[kk] = 0.f;
     }
+    for (int q0 = 0; q0 < T; q0 += d.QT) {
+      const int qn = min(d.QT, T - q0);
+      // the last tile's scores were formed before the last barrier
+      if (!one || k0 == 0)
+        load_head(a.q, a.lq, qkv_r + (size_t)q0 * d.Wp + h * d.dk, d.Wp, qn, d.dk);
+      __syncthreads();
+      score_tile(a, res_rh, scores, out_f32, off, q0, qn, k0, kn, d);
+      __syncthreads();
+      for (int kk = warp; kk < kn; kk += nw) {
+        float m = -INFINITY;
+        for (int q = lane; q < qn; q += 32) m = fmaxf(m, a.s[q * a.ls + kk]);
+        m = fmaxf(dense::warp_max(m), cm[kk]);
+        float sum = 0.f;
+        for (int q = lane; q < qn; q += 32) {
+          const float v = expf(a.s[q * a.ls + kk] - m);
+          a.s[q * a.ls + kk] = v;
+          sum += v;
+        }
+        sum = dense::warp_sum(sum);
+        if (one)  // the column is complete in its one tile: a = exp / sum in place
+          for (int q = lane; q < qn; q += 32) a.s[q * a.ls + kk] = a.s[q * a.ls + kk] / sum;
+        if (lane == 0) {
+          cl[kk] = cl[kk] * expf(cm[kk] - m) + sum;
+          cm[kk] = m;
+        }
+      }
+    }
+    __syncthreads();
+    for (int kk = threadIdx.x; kk < kn; kk += kAttnThreads) {
+      st[2 * (k0 + kk)] = cm[kk];
+      st[2 * (k0 + kk) + 1] = cl[kk];
+    }
+    if (one)  // the chunk's share of ctx from the attention in place
+      for (int e = threadIdx.x; e < T * d.dv; e += kAttnThreads) {
+        const int q = e / d.dv, c = e % d.dv;
+        float acc = cs[e];
+        for (int kk = 0; kk < kn; ++kk) acc = fmaf(a.s[q * a.ls + kk], a.vc[kk * a.lv + c], acc);
+        cs[e] = acc;
+      }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < T * d.dv; e += kAttnThreads)
-    ctx[((size_t)r * T + e / d.dv) * d.hvp + h * d.dv + e % d.dv] = cs[e];
+  if (one) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < T * d.dv; e += kAttnThreads)
+      ctx_r[(size_t)(e / d.dv) * d.hvp + e % d.dv] = cs[e];
+    return;
+  }
+  // 2. ctx a query tile at a time, the attention rebuilt from the statistics
+  for (int q0 = 0; q0 < T; q0 += d.QT) {
+    const int qn = min(d.QT, T - q0);
+    __syncthreads();
+    load_head(a.q, a.lq, qkv_r + (size_t)q0 * d.Wp + h * d.dk, d.Wp, qn, d.dk);
+    for (int e = threadIdx.x; e < qn * d.dv; e += kAttnThreads) cs[e] = 0.f;
+    for (int k0 = 0; k0 < T; k0 += d.KC) {
+      const int kn = min(d.KC, T - k0);
+      __syncthreads();  // the last chunk is consumed
+      load_head(a.kc, a.lq, qkv_r + (size_t)k0 * d.Wp + d.hk + h * d.dk, d.Wp, kn, d.dk);
+      load_head(a.vc, a.lv, qkv_r + (size_t)k0 * d.Wp + 2 * d.hk + h * d.dv, d.Wp, kn, d.dv);
+      for (int kk = threadIdx.x; kk < kn; kk += kAttnThreads) {
+        cm[kk] = st[2 * (k0 + kk)];
+        cl[kk] = st[2 * (k0 + kk) + 1];
+      }
+      __syncthreads();
+      attn_tile(a, res_rh, cm, cl, nullptr, nullptr, q0, qn, k0, kn, d);
+      __syncthreads();
+      for (int e = threadIdx.x; e < qn * d.dv; e += kAttnThreads) {
+        const int q = e / d.dv, c = e % d.dv;
+        float acc = cs[e];
+        for (int kk = 0; kk < kn; ++kk) acc = fmaf(a.s[q * a.ls + kk], a.vc[kk * a.lv + c], acc);
+        cs[e] = acc;
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < qn * d.dv; e += kAttnThreads)
+      ctx_r[(size_t)(q0 + e / d.dv) * d.hvp + e % d.dv] = cs[e];
+  }
 }
 
-// z (rows, Np + 4) = ctx . wo + te for the block's rows, float32; ctx
-// split into the hi/lo tiles at a16 (2 x rows x (hvp + 8) bf16); wo_lo
-// (wo's lo terms) null in bf16
+// z (rows, NC + 4) = ctx . wo + te over the columns [c0, c0 + cn) of the
+// block's rows, float32, from ctx split into the hi/lo tiles ahi, alo (rows
+// x (hvp + 8) bf16); wo_lo (wo's lo terms) null in bf16. Columns past N and
+// rows past M come out 0. The same sequence every call: a recomputed chunk
+// has the bits of the first.
 template <int RT, typename TIn>
-__device__ __forceinline__ void out_rows(const float* __restrict__ ctx,
-                                         const bf16* __restrict__ wo,
-                                         const bf16* __restrict__ wo_lo,
-                                         const TIn* __restrict__ x,
-                                         const float* __restrict__ te32, float* zs, bf16* a16,
-                                         int row0, const D16& d) {
+__device__ __forceinline__ void z_chunk(const bf16* ahi, const bf16* alo,
+                                        const bf16* __restrict__ wo,
+                                        const bf16* __restrict__ wo_lo,
+                                        const TIn* __restrict__ x,
+                                        const float* __restrict__ te32, float* zs, int row0,
+                                        int c0, int cn, const D16& d) {
   constexpr int R = RT * 16;
-  const int LA = d.hvp + 8, LZ = d.Np + 4, NT = d.Np / 16, warp = threadIdx.x / 32;
-  bf16* ahi = a16;
-  bf16* alo = a16 + R * LA;
-  split_rows(ctx, d.hvp, row0, d.M, R, d.hvp, d.hv, ahi, alo, LA);
-  __syncthreads();
+  const int LA = d.hvp + 8, LZ = d.NC + 4, NT = cn / 16, warp = threadIdx.x / 32;
+  __syncthreads();  // the last chunk is consumed (and ctx is split)
   for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
     FragC acc[RT][2];
-    wide_mma<RT, false>(acc, ahi, alo, LA, d.hvp, wo, wo_lo, d.Np, ct0, NT);
+    wide_mma<RT, false>(acc, ahi, alo, LA, d.hvp, wo + c0, wo_lo ? wo_lo + c0 : nullptr, d.Np,
+                        ct0, NT);
 #pragma unroll
     for (int r = 0; r < RT; ++r)
 #pragma unroll
@@ -509,44 +651,111 @@ __device__ __forceinline__ void out_rows(const float* __restrict__ ctx,
                                   wmma::mem_row_major);
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < R * d.N; e += kThreads) {
-    const int r = e / d.N, n = e % d.N;
-    zs[r * LZ + n] += te_at(x, te32, row0 + r, n, d);
+  for (int e = threadIdx.x; e < R * cn; e += kThreads) {
+    const int r = e / cn, j = e % cn;
+    if (c0 + j < d.N) zs[r * LZ + j] += te_at(x, te32, row0 + r, c0 + j, d);
   }
   __syncthreads();
 }
 
-// Pass 3: out = LN(ctx . wo + te)*g1 + b1, rounded once to bf16 (or float32)
+// Chan's merge of a row chunk's columns zr[0, cv) into the row's running
+// mean and sum of squared deviations m2 over its first n columns, by one
+// warp; st = {mean, m2} in shared memory (kept out of registers: the wide
+// products beside them need those). One chunk (n = 0) gives the two-pass
+// statistics of dense::ln_stats, bit for bit.
+__device__ __forceinline__ void merge_row(const float* zr, int cv, int n, float* st) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int e = lane; e < cv; e += 32) s += zr[e];
+  const float mc = dense::warp_sum(s) / cv;
+  float v = 0.f;
+  for (int e = lane; e < cv; e += 32) {
+    const float t = zr[e] - mc;
+    v = fmaf(t, t, v);
+  }
+  v = dense::warp_sum(v);
+  float mean = mc, m2 = v;
+  if (n > 0) {
+    const float delta = mc - st[0], nn = static_cast<float>(n + cv);
+    mean = st[0] + delta * (cv / nn);
+    m2 = st[1] + v + delta * delta * (static_cast<float>(n) * cv / nn);
+  }
+  __syncwarp();
+  if (lane == 0) {
+    st[0] = mean;
+    st[1] = m2;
+  }
+  __syncwarp();
+}
+
+// Pass 3: out = LN(ctx . wo + te)*g1 + b1, rounded once to bf16 (or
+// float32), over column chunks of N; with more than one chunk, the block's
+// rows of zbuf (Mp, Np) hold the chunks between the sweeps. Warp w owns rows
+// w + kWarps*i and their statistics (rs, in shared memory).
 template <int RT, typename TIn>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kOutMinBlocks)
 tat_out_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
                const bf16* __restrict__ wo_lo, const TIn* __restrict__ x,
                const float* __restrict__ te32,
                const float* __restrict__ g1, const float* __restrict__ b1, void* out,
-               int out_f32, D16 d) {
+               int out_f32, float* __restrict__ zbuf, D16 d) {
   constexpr int R = RT * 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LZ = d.Np + 4, row0 = blockIdx.x * R, warp = threadIdx.x / 32,
+  const int LZ = d.NC + 4, LA = d.hvp + 8, row0 = blockIdx.x * R, warp = threadIdx.x / 32,
             lane = threadIdx.x % 32;
   float* zs = reinterpret_cast<float*>(smem);
-  out_rows<RT>(ctx, wo, wo_lo, x, te32, zs, reinterpret_cast<bf16*>(zs + R * LZ), row0, d);
-  for (int r = warp; r < R; r += kWarps) {
-    const int row = row0 + r;
-    if (row >= d.M) break;
-    float* zr = zs + r * LZ;
-    float mu, inv;
-    dense::ln_stats(zr, d.N, mu, inv);
-    for (int n = lane; n < d.N; n += 32)
-      store_out(out, (size_t)row * d.N + n, (zr[n] - mu) * inv * g1[n] + b1[n], out_f32);
+  bf16* ahi = reinterpret_cast<bf16*>(zs + R * LZ);
+  bf16* alo = ahi + R * LA;
+  float* rs = reinterpret_cast<float*>(alo + R * LA);  // (R, 2): mean, m2
+  split_rows(ctx, d.hvp, row0, d.M, R, d.hvp, d.hv, ahi, alo, LA);
+  // the chunk [c0, c0 + cn) of the block's rows between zs and zbuf
+  auto move = [&](int c0, int cn, bool to_buf) {
+    for (int e = threadIdx.x; e < R * cn; e += kThreads) {
+      const int r = e / cn, j = e % cn;
+      float* z = zbuf + (size_t)(row0 + r) * d.Np + c0 + j;
+      if (to_buf)
+        *z = zs[r * LZ + j];
+      else
+        zs[r * LZ + j] = *z;
+    }
+  };
+  // steps 0 .. nch-1 form the chunks and merge their statistics (each but
+  // the last kept in zbuf); from the last chunk on each writes out a chunk:
+  // the last as it is formed, the others read back last to first
+  for (int step = 0; step < 2 * d.nch - 1; ++step) {
+    const int c0 = (step < d.nch ? step : 2 * d.nch - 2 - step) * d.NC;
+    const int cn = min(d.NC, d.Np - c0), cv = min(cn, d.N - c0);
+    if (step < d.nch) {
+      z_chunk<RT>(ahi, alo, wo, wo_lo, x, te32, zs, row0, c0, cn, d);
+      for (int r = warp; r < R; r += kWarps) merge_row(zs + r * LZ, cv, c0, rs + 2 * r);
+    } else {
+      __syncthreads();  // the last chunk is written out
+      move(c0, cn, false);
+      __syncthreads();
+    }
+    if (step < d.nch - 1) {
+      move(c0, cn, true);
+      continue;
+    }
+    for (int r = warp; r < R; r += kWarps) {
+      const int row = row0 + r;
+      if (row >= d.M) break;
+      const float* zr = zs + r * LZ;
+      const float mean = rs[2 * r], inv = rsqrtf(rs[2 * r + 1] / d.N + dense::kEps);
+      for (int j = lane; j < cv; j += 32)
+        store_out(out, (size_t)row * d.N + c0 + j,
+                  (zr[j] - mean) * inv * g1[c0 + j] + b1[c0 + j], out_f32);
+    }
   }
 }
 
 // Pass 4: z again, LN1 backward with g_out -> g_ypre (Mp, Np) float32 and
 // per-block partials of dg1, db1 (2N a block); then g_ctx (Mp, hvp) = g_ypre
 // . wo^T, g_ypre split chunk by chunk, wo's chunks (hi, and lo in float32)
-// staged by cp.async
+// staged by cp.async. Column chunks of N as in pass 3; with more than one,
+// the block's own rows of gy hold z, then x_hat, between the sweeps.
 template <int RT, typename TIn>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kLn1MinBlocks)
 tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
                    const bf16* __restrict__ wo_lo, const TIn* __restrict__ x,
                    const float* __restrict__ te32, const float* __restrict__ g1,
@@ -555,56 +764,108 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
                    D16 d) {
   constexpr int R = RT * 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LZ = d.Np + 4, N = d.N, row0 = blockIdx.x * R, warp = threadIdx.x / 32,
-            lane = threadIdx.x % 32;
+  const int LZ = d.NC + 4, LA = d.hvp + 8, N = d.N, row0 = blockIdx.x * R,
+            warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool one = d.nch == 1;  // the row is one chunk: it stays in shared memory
   float* zs = reinterpret_cast<float*>(smem);
   bf16* u = reinterpret_cast<bf16*>(zs + R * LZ);
   const size_t ua = 4 * (size_t)R * (d.hvp + 8),
                uc = 4 * (size_t)R * kLC + 2 * (size_t)d.hvp * kLC * (1 + d.f32);
-  float* inv1 = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(u) + (ua > uc ? ua : uc));
-  out_rows<RT>(ctx, wo, wo_lo, x, te32, zs, u, row0, d);
-  for (int r = warp; r < R; r += kWarps) {  // x1_hat in place
-    float* zr = zs + r * LZ;
-    float mu, inv;
-    dense::ln_stats(zr, N, mu, inv);
-    for (int n = lane; n < N; n += 32) zr[n] = (zr[n] - mu) * inv;
-    if (lane == 0) inv1[r] = inv;
+  // (R, 4): mean, m2, and the sums of g*g1 and g*g1*x_hat
+  float* rs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(u) + (ua > uc ? ua : uc));
+  split_rows(ctx, d.hvp, row0, d.M, R, d.hvp, d.hv, u, u + R * LA, LA);
+  // the chunk [c0, c0 + cn) of the block's rows between zs and gy (rows < Mp)
+  auto move = [&](int c0, int cn, bool to_gy) {
+    for (int e = threadIdx.x; e < R * cn; e += kThreads) {
+      const int r = e / cn, j = e % cn;
+      float* g = gy + (size_t)(row0 + r) * d.Np + c0 + j;
+      if (to_gy)
+        *g = zs[r * LZ + j];
+      else
+        zs[r * LZ + j] = *g;
+    }
+  };
+  // 1. z chunk by chunk and the rows' statistics
+  for (int c0 = 0; c0 < d.Np; c0 += d.NC) {
+    const int cn = min(d.NC, d.Np - c0), cv = min(cn, N - c0);
+    z_chunk<RT>(u, u + R * LA, wo, wo_lo, x, te32, zs, row0, c0, cn, d);
+    for (int r = warp; r < R; r += kWarps) merge_row(zs + r * LZ, cv, c0, rs + 4 * r);
+    if (!one) move(c0, cn, true);
   }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float sg = 0.f, sb = 0.f;
-    for (int r = 0; r < R && row0 + r < d.M; ++r) {
-      const float g = to_float(g_out[(size_t)(row0 + r) * N + n]);
-      sg = fmaf(g, zs[r * LZ + n], sg);
-      sb += g;
+  // 2. x_hat in place, the row sums of g*g1 and g*g1*x_hat, the column partials
+  for (int r = warp; r < R; r += kWarps)
+    if (lane == 0) rs[4 * r + 2] = rs[4 * r + 3] = 0.f;
+  for (int c0 = 0; c0 < d.Np; c0 += d.NC) {
+    const int cn = min(d.NC, d.Np - c0), cv = min(cn, N - c0);
+    if (!one) {
+      __syncthreads();  // the last chunk is consumed
+      move(c0, cn, false);
     }
-    part[(size_t)blockIdx.x * 2 * N + n] = sg;
-    part[(size_t)blockIdx.x * 2 * N + N + n] = sb;
+    __syncthreads();
+    for (int r = warp; r < R; r += kWarps) {
+      const int row = row0 + r;
+      if (row >= d.M) break;
+      float* zr = zs + r * LZ;
+      const float mean = rs[4 * r], inv = rsqrtf(rs[4 * r + 1] / N + dense::kEps);
+      const TIn* go = g_out + (size_t)row * N + c0;
+      float a = 0.f, b = 0.f;
+      for (int j = lane; j < cv; j += 32) {
+        const float xh = (zr[j] - mean) * inv, gg = to_float(go[j]) * g1[c0 + j];
+        zr[j] = xh;
+        a += gg;
+        b = fmaf(gg, xh, b);
+      }
+      a = dense::warp_sum(a);
+      b = dense::warp_sum(b);
+      if (lane == 0) {
+        rs[4 * r + 2] += a;
+        rs[4 * r + 3] += b;
+      }
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < cv; j += kThreads) {
+      float sg = 0.f, sb = 0.f;
+      for (int r = 0; r < R && row0 + r < d.M; ++r) {
+        const float g = to_float(g_out[(size_t)(row0 + r) * N + c0 + j]);
+        sg = fmaf(g, zs[r * LZ + j], sg);
+        sb += g;
+      }
+      part[(size_t)blockIdx.x * 2 * N + c0 + j] = sg;
+      part[(size_t)blockIdx.x * 2 * N + N + c0 + j] = sb;
+    }
+    if (!one) move(c0, cn, true);
   }
-  __syncthreads();
-  for (int r = warp; r < R; r += kWarps) {  // g_ypre in place of x1_hat
-    const int row = row0 + r;
-    float* zr = zs + r * LZ;
-    if (row >= d.M) {
-      for (int n = lane; n < N; n += 32) zr[n] = 0.f;
-      continue;
+  // 3. g_ypre in place of x_hat, to gy
+  for (int c0 = 0; c0 < d.Np; c0 += d.NC) {
+    const int cn = min(d.NC, d.Np - c0), cv = min(cn, N - c0);
+    if (!one) {
+      __syncthreads();
+      move(c0, cn, false);
     }
-    const TIn* go = g_out + (size_t)row * N;
-    float m1 = 0.f, m2 = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      const float gg = to_float(go[n]) * g1[n];
-      m1 += gg;
-      m2 = fmaf(gg, zr[n], m2);
+    __syncthreads();
+    for (int r = warp; r < R; r += kWarps) {
+      const int row = row0 + r;
+      float* zr = zs + r * LZ;
+      if (row >= d.M) {
+        for (int j = lane; j < cn; j += 32) zr[j] = 0.f;
+        continue;
+      }
+      const float inv = rsqrtf(rs[4 * r + 1] / N + dense::kEps), m1v = rs[4 * r + 2] / N,
+                  m2v = rs[4 * r + 3] / N;
+      const TIn* go = g_out + (size_t)row * N + c0;
+      for (int j = lane; j < cv; j += 32) {
+        const float gg = to_float(go[j]) * g1[c0 + j];
+        const float v = inv * (gg - m1v - zr[j] * m2v);
+        zr[j] = v;
+        gy[(size_t)row * d.Np + c0 + j] = v;
+      }
     }
-    m1 = dense::warp_sum(m1) / N;
-    m2 = dense::warp_sum(m2) / N;
-    for (int n = lane; n < N; n += 32) {
-      const float gg = to_float(go[n]) * g1[n];
-      const float v = inv1[r] * (gg - m1 - zr[n] * m2);
-      zr[n] = v;
-      gy[(size_t)row * d.Np + n] = v;
+    if (!one) {
+      __syncthreads();
+      move(c0, cn, true);
     }
   }
+  // 4. g_ctx = g_ypre . wo^T over 64-column chunks of N
   const int nct = d.hvp / 16, items = RT * nct;
   bf16* chi = u;
   bf16* clo = chi + R * kLC;
@@ -620,7 +881,8 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
     if (sbl) copy_rows_async(sbl, kLC, wo_lo + k0, d.Np, d.hvp, kn);
     for (int e = threadIdx.x; e < R * kn; e += kThreads) {
       const int r = e / kn, c = e % kn;
-      split(zs[r * LZ + k0 + c], chi[r * kLC + c], clo[r * kLC + c]);
+      const float v = one ? zs[r * LZ + k0 + c] : gy[(size_t)(row0 + r) * d.Np + k0 + c];
+      split(v, chi[r * kLC + c], clo[r * kLC + c]);
     }
     wait_async();
     __syncthreads();
@@ -636,14 +898,17 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
   }
 }
 
-// Pass 5: the attention backward of one (r, h) on the CUDA cores: s and a
-// recomputed, ds = g_ctx . v^T, the query-axis softmax backward (+ g_sc ->
-// dres), g_q, g_k and g_v into g_qkv (Mp, Wp) float32
-template <typename TIn>
-__global__ void __launch_bounds__(kAttnThreads)
+// Pass 5: the attention backward of one (r, h) on the CUDA cores, a key
+// chunk at a time: for every query tile s and a rebuilt from the forward's
+// column statistics and g_a = g_ctx . v^T, the column term delta_k =
+// sum_q a g_a and g_v; then ds = a (g_a - delta) + g_sc -> dres, g_k of the
+// chunk, and each query tile's g_q added in place in g_qkv (Mp, Wp) float32
+template <typename TIn, bool ONE>
+__global__ void __launch_bounds__(kAttnThreads, attn_min_blocks(ONE))
 tat_attn_bwd_kernel(const float* __restrict__ qkv, const TIn* __restrict__ res,
-                    const float* __restrict__ gctx, const TIn* __restrict__ g_sc, void* dres,
-                    int out_f32, float* __restrict__ gqkv, D16 d) {
+                    const float* __restrict__ gctx, const float* __restrict__ stat,
+                    const TIn* __restrict__ g_sc, void* dres, int out_f32,
+                    float* __restrict__ gqkv, D16 d) {
   extern __shared__ __align__(16) float sm[];
   const int r = blockIdx.x, h = blockIdx.y, T = d.T, nw = kAttnThreads / 32,
             warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -652,70 +917,104 @@ tat_attn_bwd_kernel(const float* __restrict__ qkv, const TIn* __restrict__ res,
   a.lv = d.dv + 1;
   a.ls = d.KC + 1;
   a.q = sm;
-  float* gc = a.q + T * a.lq;  // (T, lv)
-  float* gq = gc + T * a.lv;   // (T, dk)
-  a.kc = gq + T * d.dk;
+  float* gc = a.q + d.QT * a.lq;  // (QT, lv) g_ctx rows
+  a.kc = gc + d.QT * a.lv;
   a.vc = a.kc + d.KC * a.lq;
-  a.s = a.vc + d.KC * a.lv;
-  float* ds = a.s + T * a.ls;
+  a.s = a.vc + d.KC * a.lv;       // (QT, ls): s, then a
+  float* ga = a.s + d.QT * a.ls;  // (QT, ls): g_a, then ds
+  float* gk = ga + d.QT * a.ls;   // (KC, dk) the chunk's g_k sums
+  float* gv = gk + d.KC * d.dk;   // (KC, dv) and g_v sums
+  float* dl = gv + d.KC * d.dv;   // delta of the chunk's columns
+  float* cm = dl + d.KC;
+  float* cl = cm + d.KC;
   const float* qkv_r = qkv + (size_t)r * T * d.Wp;
   float* gqkv_r = gqkv + (size_t)r * T * d.Wp;
   const size_t off = ((size_t)r * d.H + h) * T * T;
-  load_head(a.q, a.lq, qkv_r + h * d.dk, d.Wp, T, d.dk);
-  load_head(gc, a.lv, gctx + (size_t)r * T * d.hvp + h * d.dv, d.hvp, T, d.dv);
-  for (int e = threadIdx.x; e < T * d.dk; e += kAttnThreads) gq[e] = 0.f;
+  const TIn* res_rh = res + off;
+  const float* st = stat + ((size_t)r * d.H + h) * T * 2;
+  constexpr bool one = ONE;  // one query tile: sweep b finds a and g_a in place
+  auto stage = [&](int q0, int qn) {  // the tile's q and g_ctx rows
+    load_head(a.q, a.lq, qkv_r + (size_t)q0 * d.Wp + h * d.dk, d.Wp, qn, d.dk);
+    load_head(gc, a.lv, gctx + ((size_t)r * T + q0) * d.hvp + h * d.dv, d.hvp, qn, d.dv);
+  };
   for (int k0 = 0; k0 < T; k0 += d.KC) {
     const int kn = min(d.KC, T - k0);
-    attn_chunk(qkv_r, res + off, nullptr, out_f32, off, h, k0, kn, a, d);
-    for (int e = threadIdx.x; e < T * kn; e += kAttnThreads) {
-      const int q = e / kn, kk = e % kn;
-      const float* gr = gc + q * a.lv;
-      const float* vr = a.vc + kk * a.lv;
-      float acc = 0.f;
-      for (int c = 0; c < d.dv; ++c) acc = fmaf(gr[c], vr[c], acc);
-      ds[q * a.ls + kk] = acc;
+    __syncthreads();  // the last chunk is consumed
+    load_head(a.kc, a.lq, qkv_r + (size_t)k0 * d.Wp + d.hk + h * d.dk, d.Wp, kn, d.dk);
+    load_head(a.vc, a.lv, qkv_r + (size_t)k0 * d.Wp + 2 * d.hk + h * d.dv, d.Wp, kn, d.dv);
+    for (int kk = threadIdx.x; kk < kn; kk += kAttnThreads) {
+      cm[kk] = st[2 * (k0 + kk)];
+      cl[kk] = st[2 * (k0 + kk) + 1];
+      dl[kk] = 0.f;
     }
-    __syncthreads();
-    for (int kk = warp; kk < kn; kk += nw) {
-      float dot = 0.f;
-      for (int q = lane; q < T; q += 32) dot = fmaf(a.s[q * a.ls + kk], ds[q * a.ls + kk], dot);
-      dot = dense::warp_sum(dot);
-      for (int q = lane; q < T; q += 32) {
-        const size_t o = off + (size_t)q * T + k0 + kk;
-        const float v = a.s[q * a.ls + kk] * (ds[q * a.ls + kk] - dot) +
-                        to_float(g_sc[o]);
-        ds[q * a.ls + kk] = v;
+    for (int e = threadIdx.x; e < kn * d.dk; e += kAttnThreads) gk[e] = 0.f;
+    for (int e = threadIdx.x; e < kn * d.dv; e += kAttnThreads) gv[e] = 0.f;
+    // a. delta and g_v over every query tile
+    for (int q0 = 0; q0 < T; q0 += d.QT) {
+      const int qn = min(d.QT, T - q0);
+      if (q0 > 0) __syncthreads();  // the last tile is consumed
+      if (!one || k0 == 0) stage(q0, qn);  // one tile: staged once
+      __syncthreads();
+      attn_tile(a, res_rh, cm, cl, gc, ga, q0, qn, k0, kn, d);
+      __syncthreads();
+      for (int kk = warp; kk < kn; kk += nw) {
+        float dot = 0.f;
+        for (int q = lane; q < qn; q += 32)
+          dot = fmaf(a.s[q * a.ls + kk], ga[q * a.ls + kk], dot);
+        dot = dense::warp_sum(dot);
+        if (lane == 0) dl[kk] += dot;
+      }
+      for (int e = threadIdx.x; e < kn * d.dv; e += kAttnThreads) {
+        const int kk = e / d.dv, c = e % d.dv;
+        float acc = gv[e];
+        for (int q = 0; q < qn; ++q) acc = fmaf(a.s[q * a.ls + kk], gc[q * a.lv + c], acc);
+        gv[e] = acc;
+      }
+    }
+    // b. ds -> dres, g_k of the chunk, g_q of each query tile
+    for (int q0 = 0; q0 < T; q0 += d.QT) {
+      const int qn = min(d.QT, T - q0);
+      __syncthreads();  // delta is complete / the last tile is consumed
+      if (!one) {
+        stage(q0, qn);
+        __syncthreads();
+        attn_tile(a, res_rh, cm, cl, gc, ga, q0, qn, k0, kn, d);
+        __syncthreads();
+      }
+      for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+        const int q = e / kn, kk = e % kn;
+        const size_t o = off + (size_t)(q0 + q) * T + k0 + kk;
+        const float v = a.s[q * a.ls + kk] * (ga[q * a.ls + kk] - dl[kk]) + to_float(g_sc[o]);
+        ga[q * a.ls + kk] = v;
         store_out(dres, o, v, out_f32);
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < kn * d.dk; e += kAttnThreads) {
+        const int kk = e / d.dk, c = e % d.dk;
+        float acc = gk[e];
+        for (int q = 0; q < qn; ++q) acc = fmaf(ga[q * a.ls + kk], a.q[q * a.lq + c], acc);
+        gk[e] = acc;
+      }
+      for (int e = threadIdx.x; e < qn * d.dk; e += kAttnThreads) {
+        const int q = e / d.dk, c = e % d.dk;
+        float acc = 0.f;
+        for (int kk = 0; kk < kn; ++kk) acc = fmaf(ga[q * a.ls + kk], a.kc[kk * a.lq + c], acc);
+        float* gq = gqkv_r + (size_t)(q0 + q) * d.Wp + h * d.dk + c;
+        *gq = k0 == 0 ? acc * d.inv_sqrt : *gq + acc * d.inv_sqrt;
       }
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < T * d.dk; e += kAttnThreads) {  // g_q sums
-      const int q = e / d.dk, c = e % d.dk;
-      float acc = gq[e];
-      for (int kk = 0; kk < kn; ++kk) acc = fmaf(ds[q * a.ls + kk], a.kc[kk * a.lq + c], acc);
-      gq[e] = acc;
-    }
-    for (int e = threadIdx.x; e < kn * d.dk; e += kAttnThreads) {  // g_k of the chunk
-      const int kk = e / d.dk, c = e % d.dk;
-      float acc = 0.f;
-      for (int q = 0; q < T; ++q) acc = fmaf(ds[q * a.ls + kk], a.q[q * a.lq + c], acc);
-      gqkv_r[(size_t)(k0 + kk) * d.Wp + d.hk + h * d.dk + c] = acc * d.inv_sqrt;
-    }
-    for (int e = threadIdx.x; e < kn * d.dv; e += kAttnThreads) {  // g_v of the chunk
-      const int kk = e / d.dv, c = e % d.dv;
-      float acc = 0.f;
-      for (int q = 0; q < T; ++q) acc = fmaf(a.s[q * a.ls + kk], gc[q * a.lv + c], acc);
-      gqkv_r[(size_t)(k0 + kk) * d.Wp + 2 * d.hk + h * d.dv + c] = acc;
-    }
+    for (int e = threadIdx.x; e < kn * d.dk; e += kAttnThreads)
+      gqkv_r[(size_t)(k0 + e / d.dk) * d.Wp + d.hk + h * d.dk + e % d.dk] = gk[e] * d.inv_sqrt;
+    for (int e = threadIdx.x; e < kn * d.dv; e += kAttnThreads)
+      gqkv_r[(size_t)(k0 + e / d.dv) * d.Wp + 2 * d.hk + h * d.dv + e % d.dv] = gv[e];
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < T * d.dk; e += kAttnThreads)
-    gqkv_r[(size_t)(e / d.dk) * d.Wp + h * d.dk + e % d.dk] = gq[e] * d.inv_sqrt;
 }
 
 // Pass 6: g_te = g_qkv . wqkv^T + g_ypre -> dx (rounded once); with the
-// embedding, LN0 backward first, per-block partials of dg0, db0 (2N a
-// block) and a float32 copy of dx (dxf) for dpos
+// embedding, LN0 backward: g_te chunk by chunk of N into dxf (the float32
+// copy of dx that dpos sums), the row sums and per-block partials of dg0,
+// db0 (2N a block), then dx
 template <int RT, typename TIn>
 __global__ void __launch_bounds__(kThreads)
 tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
@@ -726,77 +1025,107 @@ tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
                float* __restrict__ part, D16 d) {
   constexpr int R = RT * 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LA = d.Wp + 8, LZ = d.Np + 4, NT = d.Np / 16, N = d.N, row0 = blockIdx.x * R,
+  const int LA = d.Wp + 8, LZ = d.NC + 4, NT = d.Np / 16, N = d.N, row0 = blockIdx.x * R,
             warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   bf16* ahi = reinterpret_cast<bf16*>(smem);
   bf16* alo = ahi + R * LA;
-  float* rest = reinterpret_cast<float*>(alo + R * LA);  // staging, or (embed) g_te rows
+  float* rest = reinterpret_cast<float*>(alo + R * LA);  // staging, or (embed) a g_te chunk
   split_rows(gqkv, d.Wp, row0, d.M, R, d.Wp, d.W, ahi, alo, LA);
   __syncthreads();
-  float* sw = rest + warp * 256;
-  for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
-    FragC acc[RT][2];
-    wide_mma<RT, true>(acc, ahi, alo, LA, d.Wp, wqkv, wqkv_lo, d.Wp, ct0, NT);
+  if (!d.embed) {
+    float* sw = rest + warp * 256;
+    for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
+      FragC acc[RT][2];
+      wide_mma<RT, true>(acc, ahi, alo, LA, d.Wp, wqkv, wqkv_lo, d.Wp, ct0, NT);
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
+      for (int r = 0; r < RT; ++r)
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (ct0 + q >= NT) continue;
-        if (d.embed) {
-          wmma::store_matrix_sync(rest + r * 16 * LZ + (ct0 + q) * 16, acc[r][q], LZ,
-                                  wmma::mem_row_major);
-          continue;
+        for (int q = 0; q < 2; ++q) {
+          if (ct0 + q >= NT) continue;
+          wmma::store_matrix_sync(sw, acc[r][q], 16, wmma::mem_row_major);
+          __syncwarp();
+          for (int e = lane; e < 256; e += 32) {
+            const int row = row0 + r * 16 + e / 16, n = (ct0 + q) * 16 + e % 16;
+            if (row < d.M && n < N)
+              store_out(dx, (size_t)row * N + n, sw[e] + gy[(size_t)row * d.Np + n], out_f32);
+          }
+          __syncwarp();
         }
-        wmma::store_matrix_sync(sw, acc[r][q], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int row = row0 + r * 16 + e / 16, n = (ct0 + q) * 16 + e % 16;
-          if (row < d.M && n < N)
-            store_out(dx, (size_t)row * N + n, sw[e] + gy[(size_t)row * d.Np + n], out_f32);
-        }
-        __syncwarp();
-      }
+    }
+    return;
   }
-  if (!d.embed) return;
-  __syncthreads();
   float* zs = rest;
-  for (int e = threadIdx.x; e < R * N; e += kThreads) {
-    const int r = e / N, n = e % N;
-    zs[r * LZ + n] = row0 + r < d.M ? zs[r * LZ + n] + gy[(size_t)(row0 + r) * d.Np + n] : 0.f;
-  }
-  __syncthreads();
+  float* rs = zs + R * LZ;  // (R, 2): the sums of g*g0 and g*g0*x0_hat
   // x0_hat from the row statistics of pass 1
   auto x0_hat = [&](int row, int n) {
     const float z = to_float(x[(size_t)row * N + n]) + pos[(size_t)(row % d.T) * N + n];
     return (z - stats0[2 * row]) * stats0[2 * row + 1];
   };
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float sg = 0.f, sb = 0.f;
-    for (int r = 0; r < R && row0 + r < d.M; ++r) {
-      const float g = zs[r * LZ + n];
-      sg = fmaf(g, x0_hat(row0 + r, n), sg);
-      sb += g;
+  for (int r = warp; r < R; r += kWarps)
+    if (lane == 0) rs[2 * r] = rs[2 * r + 1] = 0.f;
+  for (int c0 = 0; c0 < d.Np; c0 += d.NC) {
+    const int cn = min(d.NC, d.Np - c0), cv = min(cn, N - c0), NTc = cn / 16;
+    __syncthreads();  // the last chunk is consumed
+    for (int ct0 = 2 * warp; ct0 < NTc; ct0 += 2 * kWarps) {
+      FragC acc[RT][2];
+      wide_mma<RT, true>(acc, ahi, alo, LA, d.Wp, wqkv + (size_t)c0 * d.Wp,
+                         wqkv_lo ? wqkv_lo + (size_t)c0 * d.Wp : nullptr, d.Wp, ct0, NTc);
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (ct0 + q < NTc)
+            wmma::store_matrix_sync(zs + r * 16 * LZ + (ct0 + q) * 16, acc[r][q], LZ,
+                                    wmma::mem_row_major);
     }
-    part[(size_t)blockIdx.x * 2 * N + n] = sg;
-    part[(size_t)blockIdx.x * 2 * N + N + n] = sb;
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * cv; e += kThreads) {
+      const int r = e / cv, j = e % cv, row = row0 + r;
+      zs[r * LZ + j] = row < d.M ? zs[r * LZ + j] + gy[(size_t)row * d.Np + c0 + j] : 0.f;
+    }
+    __syncthreads();
+    for (int r = warp; r < R; r += kWarps) {
+      const int row = row0 + r;
+      if (row >= d.M) break;
+      const float* zr = zs + r * LZ;
+      float a = 0.f, b = 0.f;
+      for (int j = lane; j < cv; j += 32) {
+        const float gg = zr[j] * g0[c0 + j];
+        a += gg;
+        b = fmaf(gg, x0_hat(row, c0 + j), b);
+      }
+      a = dense::warp_sum(a);
+      b = dense::warp_sum(b);
+      if (lane == 0) {
+        rs[2 * r] += a;
+        rs[2 * r + 1] += b;
+      }
+    }
+    for (int j = threadIdx.x; j < cv; j += kThreads) {
+      float sg = 0.f, sb = 0.f;
+      for (int r = 0; r < R && row0 + r < d.M; ++r) {
+        const float g = zs[r * LZ + j];
+        sg = fmaf(g, x0_hat(row0 + r, c0 + j), sg);
+        sb += g;
+      }
+      part[(size_t)blockIdx.x * 2 * N + c0 + j] = sg;
+      part[(size_t)blockIdx.x * 2 * N + N + c0 + j] = sb;
+    }
+    for (int e = threadIdx.x; e < R * cv; e += kThreads) {
+      const int r = e / cv, j = e % cv, row = row0 + r;
+      if (row < d.M) dxf[(size_t)row * N + c0 + j] = zs[r * LZ + j];
+    }
   }
+  __syncthreads();  // g_te is in dxf
   for (int r = warp; r < R; r += kWarps) {
     const int row = row0 + r;
     if (row >= d.M) break;
-    const float* zr = zs + r * LZ;
-    float m1 = 0.f, m2 = 0.f;
+    const float inv = stats0[2 * row + 1], m1 = rs[2 * r] / N, m2 = rs[2 * r + 1] / N;
     for (int n = lane; n < N; n += 32) {
-      const float gg = zr[n] * g0[n];
-      m1 += gg;
-      m2 = fmaf(gg, x0_hat(row, n), m2);
-    }
-    m1 = dense::warp_sum(m1) / N;
-    m2 = dense::warp_sum(m2) / N;
-    const float inv = stats0[2 * row + 1];
-    for (int n = lane; n < N; n += 32) {
-      const float v = inv * (zr[n] * g0[n] - m1 - x0_hat(row, n) * m2);
+      float* f = dxf + (size_t)row * N + n;
+      const float v = inv * (*f * g0[n] - m1 - x0_hat(row, n) * m2);
       store_out(dx, (size_t)row * N + n, v, out_f32);
-      dxf[(size_t)row * N + n] = v;
+      *f = v;
     }
   }
 }
@@ -842,7 +1171,8 @@ tat_prep_kernel(const TIn* __restrict__ wqkv, const TIn* __restrict__ wo,
 // workspace layout (floats; every region 32-byte aligned): the bf16 weight
 // copies, hi then (float32) lo
 struct Space16 {
-  size_t w16, wo16, vec, qkv, ctx, gy, gctx, gqkv, te, stats, part1, part0, dxf, scratch, total;
+  size_t w16, wo16, vec, qkv, ctx, stat, gy, gctx, gqkv, te, stats, part1, part0, dxf, scratch,
+      total;
 };
 
 Space16 space16(const D16& d, int backward) {
@@ -862,9 +1192,10 @@ Space16 space16(const D16& d, int backward) {
   s.vec = take((size_t)d.T * d.N + 4 * (size_t)d.N);
   s.qkv = take(Mp * d.Wp);
   s.ctx = take(Mp * d.hvp);
+  s.stat = take((size_t)d.BF * d.H * d.T * 2);  // the attention's column statistics
   s.te = take(d.embed ? Mp * d.Np : 0);
   s.stats = take(d.embed ? 2 * Mp : 0);
-  s.gy = take(backward ? Mp * d.Np : 0);
+  s.gy = take(backward || d.nch > 1 ? Mp * d.Np : 0);  // forward: pass 3's z chunks
   s.gctx = take(backward ? Mp * d.hvp : 0);
   s.gqkv = take(backward ? Mp * d.Wp : 0);
   s.part1 = take(backward ? t4 * 2 * d.N : 0);
@@ -900,9 +1231,13 @@ cudaError_t launch_rows(Kern k4, Kern k2, Kern k1, int pass, const D16& d, cudaS
 
 #define TAT_ROWS(kernel, TIn) kernel<4, TIn>, kernel<2, TIn>, kernel<1, TIn>
 
+// an attention pass: `one` its instantiation for T within one query tile,
+// `tiled` for longer T
 template <typename Kern, typename... Args>
-cudaError_t launch_attn(Kern kernel, int pass, const D16& d, cudaStream_t st, Args... args) {
+cudaError_t launch_attn(Kern one, Kern tiled, int pass, const D16& d, cudaStream_t st,
+                        Args... args) {
   if (rows16(pass, d) == 0) return cudaErrorInvalidValue;
+  const Kern kernel = d.T <= kOneTile ? one : tiled;
   const size_t smem = smem16(pass, 1, d);
   cudaError_t err = dense::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -943,8 +1278,9 @@ cudaError_t prep_qkv_attn16(const TIn* x, const TIn* pos, const TIn* g0, const T
   err = launch_rows(TAT_ROWS(tat_qkv_kernel, TIn), kQkv, d, st, x, v, v + TN, v + TN + d.N,
                     w.w, w.wlo, ws + s.qkv, ws + s.te, ws + s.stats, d);
   if (err != cudaSuccess) return err;
-  return launch_attn(tat_attn_fwd_kernel<TIn>, kAttnFwd, d, st, (const float*)(ws + s.qkv),
-                     res, scores, out_f32, ws + s.ctx, d);
+  return launch_attn(tat_attn_fwd_kernel<TIn, true>, tat_attn_fwd_kernel<TIn, false>, kAttnFwd, d,
+                     st, (const float*)(ws + s.qkv),
+                     res, scores, out_f32, ws + s.ctx, ws + s.stat, d);
 }
 
 // forward (passes 1-3)
@@ -962,7 +1298,7 @@ cudaError_t forward16(const TIn* x, const TIn* pos, const TIn* g0, const TIn* b0
   const size_t TN = (size_t)d.T * d.N;
   return launch_rows(TAT_ROWS(tat_out_kernel, TIn), kOut, d, st, (const float*)(ws + s.ctx),
                      w.wo, w.wolo, x, (const float*)(ws + s.te), v + TN + 2 * d.N,
-                     v + TN + 3 * d.N, out, out_f32, d);
+                     v + TN + 3 * d.N, out, out_f32, ws + s.gy, d);
 }
 
 // backward (passes 1, 2, 4-7)
@@ -985,8 +1321,10 @@ cudaError_t backward16(const TIn* x, const TIn* pos, const TIn* g0, const TIn* b
                     (const float*)(ws + s.ctx), w.wo, w.wolo, x, (const float*)(ws + s.te),
                     v + TN + 2 * N, g_out, ws + s.part1, ws + s.gy, ws + s.gctx, d);
   if (err != cudaSuccess) return err;
-  err = launch_attn(tat_attn_bwd_kernel<TIn>, kAttnBwd, d, st, (const float*)(ws + s.qkv), res,
-                    (const float*)(ws + s.gctx), g_sc, dres, out_f32, ws + s.gqkv, d);
+  err = launch_attn(tat_attn_bwd_kernel<TIn, true>, tat_attn_bwd_kernel<TIn, false>, kAttnBwd, d,
+                    st, (const float*)(ws + s.qkv), res,
+                    (const float*)(ws + s.gctx), (const float*)(ws + s.stat), g_sc, dres,
+                    out_f32, ws + s.gqkv, d);
   if (err != cudaSuccess) return err;
   err = launch_rows(TAT_ROWS(tat_gte_kernel, TIn), kGte, d, st, (const float*)(ws + s.gqkv),
                     w.w, w.wlo, (const float*)(ws + s.gy), x, v, (const float*)(ws + s.stats),

@@ -22,9 +22,12 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("cheb_sat", "bell_fused", "bell_bwd", "tat_fused", "block_spatial_fused",
            "gtu_fused")
+# -split-compile=0: the device code's optimisation runs on every core, which
+# matters for gtu_fused's 60 kernel instantiations (about 50 s against 110 s
+# in one thread on the H100's host)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-split-compile=0",
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -9,13 +9,15 @@ k ∈ (3, 5, 7), stride 1):
 
 x and W in the compute dtype (x's), products and the gate in float32, the
 output rounded once. The kernels (``csrc/gtu_fused.cu``; its header says what
-bounds them) are a forward and a backward that recomputes y: in float32 on
-the CUDA cores, in bfloat16 both on the tensor cores (WMMA bf16 fragments,
-float32 accumulators). The backward's dW and db are summed over every
-(b, n) group in a fixed order, so two launches give the same bits.
-:func:`limit_error` is the kernels' shape gate on the card (shared memory,
-and the C the bfloat16 kernels are instantiated for). :class:`GtuCat` puts
-them together. The wrappers take the kernels for CUDA tensors and the plain
+bounds them) are a forward and a backward that recomputes y, one design for
+both dtypes on the tensor cores (WMMA bf16 fragments, float32 accumulators;
+in float32 x, the taps and dY split into bf16 hi and lo terms): a block
+owns a group of output channel pairs and a tile of time steps, contracts
+over C in chunks and stages x over its tile and the taps' reach, so every
+shape of :func:`supported` runs (the kernels' ``gtu_fused_plan`` gives the
+tiling). The backward's dW and db are summed over every (b, n) group in a
+fixed order, so two launches give the same bits. :class:`GtuCat` puts them
+together. The wrappers take the kernels for CUDA tensors and the plain
 version (:func:`gtu_cat_plain`, gradients from autograd, with the kernel's
 rounding points) only for tensors on the CPU; ``fwd_launches`` and
 ``bwd_launches`` count kernel launches. The fcmy product after the concat stays a plain matmul
@@ -35,9 +37,6 @@ TAPS = sum(KS)
 
 fwd_launches = 0
 bwd_launches = 0
-
-_SMEM_MAX = 227 * 1024
-WMMA_CS = (16, 32, 48)  # the bfloat16 (tensor-core) kernels' instantiations of C
 
 
 def supported(C: int, T: int, time_strides: int) -> bool:
@@ -122,7 +121,7 @@ def gtu_cat_plain(x, w3, b3, w5, b5, w7, b7):
 def _load():
     lib = build.load("gtu_fused")
     if lib.gtu_fused_forward.argtypes is None:
-        lib.gtu_fused_workspace_floats.argtypes = [ctypes.c_int] * 3
+        lib.gtu_fused_workspace_floats.argtypes = [ctypes.c_int] * 4
         lib.gtu_fused_workspace_floats.restype = ctypes.c_size_t
         lib.gtu_fused_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
@@ -134,6 +133,8 @@ def _load():
         lib.gtu_fused_error_string.restype = ctypes.c_char_p
         lib.gtu_fused_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.gtu_fused_smem_bytes.restype = ctypes.c_size_t
+        lib.gtu_fused_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.gtu_fused_plan.restype = None
     return lib
 
 
@@ -143,37 +144,14 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
-def smem_bytes(C, T, backward, dtype):
-    """Shared memory a block of the k = 7 conv requests (the formulas of
-    csrc/gtu_fused.cu). The float32 forward, in float32: its taps (7·2C rows
-    of C + 1) and the group's (C, T) slice. The float32 backward adds the dW
-    accumulator, dY (T rows of 2C + 1) and dx. The bfloat16 kernels hold in
-    bf16 the taps (7·2C rows of C + 8), x time-major (T + 8 rows of C + 16)
-    and a copy of a group's x (C, T), and in float32 their 8 warps' staging
-    (2 KB each) and the bias; the bfloat16 backward adds dY (T + 8 rows of
-    2C + 16), a copy of the group's g (C, T) and 256 db partials."""
-    if dtype == torch.bfloat16:
-        R = T + 8
-        fwd = 2 * (7 * 2 * C * (C + 8) + R * (C + 16) + C * T) + 4 * (8 * 512 + 2 * C)
-        return fwd + 2 * (R * (2 * C + 16) + C * T) + 4 * 256 if backward else fwd
-    w = 7 * 2 * C * (C + 1)
-    if not backward:
-        return 4 * (w + C * T)
-    return 4 * (w + 7 * C * 2 * C + 2 * C + 2 * C * T + T * (2 * C + 1))
-
-
 def limit_error(C, T, dtype, backward):
-    """Why a block of the forward or backward kernel cannot take (C, T) in
-    ``dtype``, or None: more shared memory than a block may have, or, for
-    the bfloat16 kernels, a C they have no instantiation for."""
-    need = smem_bytes(C, T, backward, dtype)
-    which = "backward" if backward else "forward"
-    if need > _SMEM_MAX:
-        return (f"a {which} block needs {need} bytes of shared memory, more than the "
-                f"{_SMEM_MAX} a block may have (C={C}, T={T}, {dtype})")
-    if dtype == torch.bfloat16 and C not in WMMA_CS:
-        return (f"the bfloat16 {which} has a tensor-core instantiation for C in {WMMA_CS} "
-                f"only (C={C})")
+    """Why the kernels cannot take (C, T) on the card, or None: a shape
+    outside :func:`supported` (16 | C, 16 | T, T ≥ 48); the tiles stream C
+    and T, so no shared-memory cap remains."""
+    if not supported(C, T, 1):
+        which = "backward" if backward else "forward"
+        return (f"the {which} kernel takes 16 | C, 16 | T and T ≥ 48 (C={C}, T={T}, "
+                f"{dtype})")
     return None
 
 
@@ -212,7 +190,7 @@ def gtu_forward_cuda(x, wp, bp):
     bfloat16, ``pack``'s operands → (B, N, 3T−12, C) in x's dtype."""
     global fwd_launches
     BN, C, T = _check(x, wp, bp)
-    # the bfloat16 kernel loads x 16 bytes at a time
+    # the kernels load x 16 bytes at a time
     x = x.clone() if x.data_ptr() % 16 else x
     out = torch.empty((*x.shape[:2], out_len(T), C), dtype=x.dtype, device=x.device)
     if BN == 0:
@@ -236,14 +214,14 @@ def gtu_backward_cuda(x, g, wp, bp):
     BN, C, T = _check(x, wp, bp, others=(("g", g),))
     if tuple(g.shape) != (*x.shape[:2], out_len(T), C):
         raise ValueError(f"g must be {(*x.shape[:2], out_len(T), C)}, got {tuple(g.shape)}")
-    # the bfloat16 kernel loads x and g 16 bytes at a time
+    # the kernels load x and g 16 bytes at a time
     x, g = (t.clone() if t.data_ptr() % 16 else t for t in (x, g))
     dx = torch.empty_like(x)
     dwb = torch.zeros(TAPS * 2 * C * C + len(KS) * 2 * C, dtype=torch.float32, device=x.device)
     if BN > 0:
         lib = _load()
-        ws = torch.empty(lib.gtu_fused_workspace_floats(BN, C, T), dtype=torch.float32,
-                         device=x.device)
+        ws = torch.empty(lib.gtu_fused_workspace_floats(BN, C, T, int(x.dtype == torch.bfloat16)),
+                         dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.gtu_fused_backward(x.data_ptr(), g.data_ptr(), wp.data_ptr(),

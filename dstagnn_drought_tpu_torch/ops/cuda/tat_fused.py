@@ -16,9 +16,12 @@ dtype. The kernels (``csrc/tat_fused.cu``; its header says what bounds
 them) are one design for float32 and bfloat16: passes over the flat B·F·T
 rows, their products on the tensor cores with each float32 operand split
 into two bf16 terms (hi + lo; in float32 x and the weights too), so the
-function stays float32 in value; the attention itself a block per (row,
-head) on the CUDA cores, in chunks of key columns (:func:`passes` gives
-each pass's rows and shared memory).
+function stays float32 in value; the N-wide passes take N in column chunks
+of at most 1024 and the attention a block per (row, head) on the CUDA
+cores, key columns in chunks of 32 and the queries in one tile up to T =
+160 (in tiles of 32 beyond), so no block's shared memory grows with N or
+T past those (:func:`passes` gives each pass's rows and
+shared memory).
 
 The backward's weight gradients are contracted over all rows by a second
 pass in a fixed order, so two launches give the same bits. :class:`TatFused`
@@ -42,6 +45,7 @@ bwd_launches = 0
 
 _EPS = 1e-5
 _SMEM_MAX = 227 * 1024
+_SMEM_TWO = 115712  # the most two blocks an SM may each have
 
 
 def _ln_hat(z):
@@ -112,45 +116,67 @@ PASSES = ("qkv", "attn_fwd", "out", "ln1_bwd", "attn_bwd", "gte")
 FWD_PASSES = ("qkv", "attn_fwd", "out")
 BWD_PASSES = ("qkv", "attn_fwd", "ln1_bwd", "attn_bwd", "gte")
 _KC, _LC, _ITEMS, _WARPS = 64, 72, 9, 8  # chunk columns, chunk row stride, tiles a warp
+# attention key chunk; query tile where T is streamed, and the T up to which
+# one tile holds every query; the N-wide passes' most columns a chunk
+_KEYS, _QUERIES, _ONE_TILE, _MAX_CHUNK = 32, 32, 160, 1024
 
 
 def _pad16(n):
     return (n + 15) // 16 * 16
 
 
+def column_chunk(N):
+    """(width, count) of the N-wide passes' column chunks (csrc/tat_fused.cu
+    ``make_d16``): the padded width split evenly into the fewest chunks of at
+    most 1024 columns, each a multiple of 16."""
+    Np = _pad16(N)
+    parts = -(-Np // _MAX_CHUNK)
+    NC = _pad16(-(-Np // parts))
+    return NC, -(-Np // NC)
+
+
 def _pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32=False):
     """Shared memory of one pass's block at ``rows`` rows (the formulas of
-    csrc/tat_fused.cu ``smem16``). In float32 (``f32``) the qkv pass stages
-    wqkv's lo chunk beside its hi chunk over half the columns and splits x,
-    and the LN1-backward pass stages wo's lo chunk too."""
-    R, Np, Wp, hvp = rows, _pad16(N), _pad16(H * (2 * d_k + d_v)), _pad16(H * d_v)
-    KC, LZ, lq, lv = min(T, 32), Np + 4, d_k + 1, d_v + 1
+    csrc/tat_fused.cu ``smem16``): the N-wide passes hold a column chunk of
+    their rows (:func:`column_chunk`), the attention passes a key chunk of
+    32 and a query tile (every query up to T = 160, else 32), so nothing
+    grows with N or T past those; the N-wide
+    passes also keep their rows' statistics and sums. In float32
+    (``f32``) the qkv pass stages wqkv's lo chunk beside its hi chunk over
+    half the columns and splits x, and the LN1-backward pass stages wo's lo
+    chunk too."""
+    R, Wp, hvp = rows, _pad16(H * (2 * d_k + d_v)), _pad16(H * d_v)
+    KC, LZ, lq, lv = min(T, _KEYS), column_chunk(N)[0] + 4, d_k + 1, d_v + 1
+    QT = T if T <= _ONE_TILE else _QUERIES
     ls = KC + 1
     if name == "qkv":
         gw = min(Wp, 16 * (_WARPS * _ITEMS // (R // 16)) // (1 + f32))
         return 2 * _KC * (gw + 8) * (1 + f32) + 2 * R * _LC * (1 + (embed or f32)) + 8 * R
     if name == "attn_fwd":
-        return 4 * (T * lq + KC * lq + KC * lv + T * ls + T * d_v)
+        return 4 * (QT * lq + KC * lq + KC * lv + QT * ls + QT * d_v + 2 * KC)
     if name == "out":
-        return 4 * R * LZ + 4 * R * (hvp + 8)
+        return 4 * R * LZ + 4 * R * (hvp + 8) + 8 * R
     if name == "ln1_bwd":
         return (4 * R * LZ + max(4 * R * (hvp + 8), 4 * R * _LC + 2 * hvp * _LC * (1 + f32))
-                + 4 * R)
+                + 16 * R)
     if name == "attn_bwd":
-        return 4 * (T * lq + T * lv + T * d_k + KC * lq + KC * lv + 2 * T * ls)
-    return 4 * R * (Wp + 8) + (4 * R * LZ if embed else 4 * _WARPS * 256)  # gte
+        return 4 * (QT * lq + QT * lv + KC * lq + KC * lv + 2 * QT * ls + KC * d_k + KC * d_v
+                    + 3 * KC)
+    return 4 * R * (Wp + 8) + (4 * R * LZ + 8 * R if embed else 4 * _WARPS * 256)  # gte
 
 
 def passes(T, N, H, d_k, d_v, embed=False, dtype=torch.bfloat16):
     """{pass: (rows, bytes)} of the design for inputs of ``dtype`` (bfloat16
     or float32): the most rows of B·F·T a block of each row-tiled pass takes
-    (64, 32 or 16, the most whose shared memory fits; the LN1-backward pass
+    (64, 32 or 16, the most whose shared memory lets two blocks share an
+    SM, else the most that fit; the LN1-backward pass
     also needs its g_ctx tiles, (rows/16) x ⌈H·d_v/16⌉, to fit 9 a warp) and
     the bytes it requests there; 0 rows (and the bytes at 16) where none
-    fit. A launch halves the rows, down to 16, while B·F·T would give fewer
-    blocks than an H100's 132 SMs; 16 rows fit wherever more do. The
-    attention passes take one (row, head) a block and give rows 1 (0 where
-    they do not fit)."""
+    fit, which only head widths far past any model's can reach. A launch
+    halves the rows, down to 16, while B·F·T would give fewer blocks than
+    an H100's 132 SMs; 16 rows fit wherever more do. The attention passes
+    take one (row, head) a block and give rows 1 (0 where they do not
+    fit)."""
     f32 = dtype != torch.bfloat16
     out = {}
     hv16 = _pad16(H * d_v) // 16
@@ -160,20 +186,22 @@ def passes(T, N, H, d_k, d_v, embed=False, dtype=torch.bfloat16):
             out[name] = (1 if need <= _SMEM_MAX else 0, need)
             continue
         out[name] = (0, _pass_bytes(name, 16, T, N, H, d_k, d_v, embed, f32))
-        for rows in (64, 32, 16):
-            if name == "ln1_bwd" and rows // 16 * hv16 > _WARPS * _ITEMS:
-                continue
-            need = _pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32)
-            if need <= _SMEM_MAX:
-                out[name] = (rows, need)
+        for cap in (_SMEM_TWO, _SMEM_MAX):
+            fits = [rows for rows in (64, 32, 16)
+                    if not (name == "ln1_bwd" and rows // 16 * hv16 > _WARPS * _ITEMS)
+                    and _pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32) <= cap]
+            if fits:
+                out[name] = (fits[0], _pass_bytes(name, fits[0], T, N, H, d_k, d_v, embed, f32))
                 break
     return out
 
 
 def limit_error(T, N, H, d_k, d_v, dtype, backward, embed=False):
-    """Why the forward or backward passes cannot take (T, N) for inputs of
+    """Why the forward or backward passes cannot take a shape for inputs of
     ``dtype`` on the card, or None: a block of every pass at its fewest rows
-    (:func:`passes`) within the shared memory a block may have."""
+    (:func:`passes`) within the shared memory a block may have. No N or T
+    is refused (the passes stream both); only heads far wider than any
+    model's could be."""
     plan = passes(T, N, H, d_k, d_v, embed, dtype)
     kind = "bf16" if dtype == torch.bfloat16 else "float32"
     for name in (BWD_PASSES if backward else FWD_PASSES):

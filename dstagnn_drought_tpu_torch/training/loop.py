@@ -17,10 +17,11 @@ the model: with ``sparse_format=bell`` the BlockEllGraph
 as in JAX. ``fuse_tat``/``fuse_spatial`` take the steps
 through the fused kernels; ``fuse_gtu`` (``"auto"`` resolves off, as in JAX)
 takes the GTU tail through the fused GTU kernels and raises ``ValueError``
-on shapes their gate rejects (:func:`resolve_fuse_gtu`); on the card a
-``fuse_tat``/``fuse_spatial`` shape the kernels cannot take, or a BELL
-block the bf16 forward kernel cannot take, raises ``ValueError`` when the
-Trainer is built (:func:`check_fused_shapes`).
+on shapes JAX's gate rejects (:func:`resolve_fuse_gtu`); the fused TAt and
+GTU kernels take every shape JAX takes; on the card a ``fuse_spatial``
+shape the kernels cannot take, or a BELL block the bf16 forward kernel
+cannot take, raises ``ValueError`` when the Trainer is built
+(:func:`check_fused_shapes`).
 ``sparse``, ``fuse_tat`` and ``fuse_spatial`` on another family raise
 JAX's ``ValueError`` before any data or graph is read (:func:`check_family`);
 ``use_pallas`` is accepted there and changes nothing, as in JAX.
@@ -81,7 +82,6 @@ from dstagnn_drought_tpu_torch.ops.cuda import (
     bell_fused,
     block_spatial_fused,
     gtu_fused,
-    tat_fused,
 )
 from dstagnn_drought_tpu_torch.ops.graph import cheb_polynomials, scaled_laplacian
 from dstagnn_drought_tpu_torch.ops.sparse import ell_from_adjacency
@@ -149,13 +149,12 @@ def check_family(cfg: Config):
     return family
 
 
-def resolve_fuse_gtu(cfg: Config, device: torch.device, dtype: torch.dtype) -> bool:
+def resolve_fuse_gtu(cfg: Config) -> bool:
     """The ``fuse_gtu`` knob as the JAX trainer resolves it: ``"auto"`` is
     off; ``True`` needs the dstagnn family and a shape the fused GTU kernels
-    take (:func:`~dstagnn_drought_tpu_torch.ops.cuda.gtu_fused.supported`)
-    and, on a CUDA ``device``, one whose blocks fit the card in the compute
-    ``dtype`` (:func:`~dstagnn_drought_tpu_torch.ops.cuda.gtu_fused.limit_error`),
-    else ``ValueError``."""
+    take (:func:`~dstagnn_drought_tpu_torch.ops.cuda.gtu_fused.supported`,
+    JAX's gate; the kernels tile C and T, so it holds on the card in both
+    compute dtypes), else ``ValueError``."""
     t = cfg.training
     if t.fuse_gtu == "auto" or not t.fuse_gtu:
         return False
@@ -168,31 +167,25 @@ def resolve_fuse_gtu(cfg: Config, device: torch.device, dtype: torch.dtype) -> b
             f"nb_time_filter={C}, len_input={T}, "
             f"time_strides={t.time_strides} (needs stride 1, T >= 48 and 16 | T, "
             "16 | C) — unset fuse_gtu or use the default im2col path")
-    if torch.device(device).type == "cuda":
-        for backward in (False, True):
-            why = gtu_fused.limit_error(C, T, dtype, backward)
-            if why is not None:
-                raise ValueError(f"fuse_gtu=true but on the card {why} — unset fuse_gtu "
-                                 "or use the default im2col path")
     return True
 
 
 def check_fused_shapes(cfg: Config, device: torch.device, dtype: torch.dtype) -> None:
     """On a CUDA ``device``, ``ValueError`` naming the knob and the bytes
-    where a block's shape is one the kernels of ``fuse_tat`` or
-    ``fuse_spatial`` cannot take in the compute ``dtype``
-    (:func:`~dstagnn_drought_tpu_torch.ops.cuda.tat_fused.limit_error`,
-    :func:`~dstagnn_drought_tpu_torch.ops.cuda.block_spatial_fused.limit_error`),
+    where a block's shape is one the kernels of ``fuse_spatial`` cannot take
+    in the compute ``dtype``
+    (:func:`~dstagnn_drought_tpu_torch.ops.cuda.block_spatial_fused.limit_error`),
     or one the BELL forward kernel cannot take on the BELL kernel path
     (``sparse_format = bell`` with ``use_pallas`` or ``mask_format =
     tiles``; :func:`~dstagnn_drought_tpu_torch.ops.cuda.bell_fused.limit_error`),
     so a config fails before its data is read, not at its first step. The
+    ``fuse_tat`` passes stream N and T and take every block JAX takes. The
     fused spatial middle runs on the dense path only, as the model runs it;
     the CPU (the plain versions) takes every shape."""
     t = cfg.training
     bell_kernel = (t.sparse and t.sparse_format == "bell"
                    and (t.use_pallas or t.mask_format == "tiles"))
-    if torch.device(device).type != "cuda" or not (t.fuse_tat or t.fuse_spatial
+    if torch.device(device).type != "cuda" or not ((t.fuse_spatial and not t.sparse)
                                                    or bell_kernel):
         return
     N, T = cfg.data.num_of_vertices, cfg.data.len_input
@@ -200,11 +193,6 @@ def check_fused_shapes(cfg: Config, device: torch.device, dtype: torch.dtype) ->
     for i, (F, C) in enumerate(spec.block_specs):
         T_i = T if i == 0 else T // spec.time_strides
         why = []
-        if t.fuse_tat:
-            why += [("fuse_tat=true", "unset fuse_tat",
-                     tat_fused.limit_error(T_i, N, spec.n_heads, spec.d_k, spec.d_v, dtype,
-                                           backward))
-                    for backward in (False, True)]
         if t.fuse_spatial and not t.sparse:
             why.append(("fuse_spatial=true", "unset fuse_spatial",
                         block_spatial_fused.limit_error(
@@ -246,7 +234,7 @@ class Trainer:
         self.device = resolve_device(rank_device(device))
         self.compute_dtype = compute_dtype(cfg.training.compute_dtype)
         self.family = check_family(cfg)
-        self.fuse_gtu = resolve_fuse_gtu(cfg, self.device, self.compute_dtype)
+        self.fuse_gtu = resolve_fuse_gtu(cfg)
         check_fused_shapes(cfg, self.device, self.compute_dtype)
         check_parallel(cfg)
         self.cfg = cfg

@@ -9,14 +9,18 @@ each gradient's scale (both sides sum the same float32 products in another
 order); in bfloat16 1e-2 of the output's scale (about 2.5 bf16 ulps: both
 sides round the output once, the gradients at the same points).
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dstagnn_drought_tpu.ops.pallas.gtu_fused import gtu_fcmy as jax_gtu_fcmy
-from dstagnn_drought_tpu.ops.pallas.gtu_fused import supported as jax_supported
+try:  # the reference; a machine with the card but no JAX runs only the cuda cases
+    import jax
+    import jax.numpy as jnp
+
+    from dstagnn_drought_tpu.ops.pallas.gtu_fused import gtu_fcmy as jax_gtu_fcmy
+    from dstagnn_drought_tpu.ops.pallas.gtu_fused import supported as jax_supported
+except ImportError:
+    jax = jnp = jax_gtu_fcmy = jax_supported = None
 from dstagnn_drought_tpu_torch.ops.cuda import gtu_fused
 
 torch.set_num_threads(1)
@@ -73,8 +77,8 @@ def test_gtu_fcmy_matches_jax(shape):
 
 @pytest.mark.parametrize("shape", [(2, 5, 16, 48), (1, 2, 48, 48)])
 def test_bfloat16_forward_matches_jax(shape):
-    """At C = 16 and at C = 48, the widest instantiation of the bf16
-    tensor-core kernels."""
+    """At C = 16 and at C = 48 (three channel groups of 16 pairs on the
+    card)."""
     a = _arrays(3, *shape)
     j_out, _ = _jax(a, jnp.bfloat16)
     t = [torch.from_numpy(a[n]).bfloat16() for n in NAMES]
@@ -157,49 +161,41 @@ def test_kernels_refuse_what_they_do_not_take():
         gtu_fused.gtu_forward_cuda(x[0], wp, bp)
     with pytest.raises(ValueError, match="T must be"):
         gtu_fused.gtu_forward_cuda(x[..., :6].contiguous(), wp, bp)
-    # the k = 7 block's shared memory: the GAMBIA shape fits; at C = 64 the
-    # float32 forward needs too much, and the bf16 forward has no instantiation
-    for dtype in (torch.float32, torch.bfloat16):
-        assert gtu_fused.smem_bytes(32, 144, True, dtype) < 227 * 1024
-    assert gtu_fused.smem_bytes(64, 144, False, torch.float32) > 227 * 1024
-    assert "C=64" in gtu_fused.limit_error(64, 144, torch.bfloat16, False)
+    # a C outside JAX's gate is refused, naming it
+    assert "C=40" in gtu_fused.limit_error(40, 144, torch.bfloat16, False)
 
 
 @pytest.mark.parametrize("C, T, dtype, backward, fits", [
     (32, 144, torch.float32, True, True), (32, 144, torch.bfloat16, True, True),
-    (48, 144, torch.float32, True, False), (48, 144, torch.bfloat16, True, True),
-    (48, 144, torch.float32, False, True), (32, 240, torch.float32, True, False),
-    (32, 240, torch.bfloat16, True, True), (64, 48, torch.bfloat16, True, False),
-    (48, 608, torch.bfloat16, False, True), (48, 624, torch.bfloat16, False, False),
-    (32, 1120, torch.bfloat16, False, True), (32, 1136, torch.bfloat16, False, False),
-    (16, 2128, torch.bfloat16, False, True), (16, 2144, torch.bfloat16, False, False),
-    (64, 48, torch.bfloat16, False, False), (80, 48, torch.bfloat16, False, False),
+    (48, 144, torch.float32, True, True), (48, 144, torch.bfloat16, True, True),
+    (48, 144, torch.float32, False, True), (32, 240, torch.float32, True, True),
+    (32, 240, torch.bfloat16, True, True), (64, 48, torch.bfloat16, True, True),
+    (48, 608, torch.bfloat16, False, True), (48, 624, torch.bfloat16, False, True),
+    (32, 1120, torch.bfloat16, False, True), (32, 1136, torch.bfloat16, False, True),
+    (16, 2128, torch.bfloat16, False, True), (16, 2144, torch.bfloat16, False, True),
+    (64, 48, torch.bfloat16, False, True), (80, 48, torch.bfloat16, False, True),
+    (40, 144, torch.bfloat16, True, False), (32, 40, torch.float32, False, False),
 ])
 def test_limit_error_is_the_card_gate(C, T, dtype, backward, fits):
-    """limit_error refuses a block over 227 KiB (naming the bytes) or a bf16
-    C without a tensor-core instantiation (naming C); the bf16 tensor-core
-    backward's smaller tiles admit C = 48 at T = 144 and T = 240 at C = 32;
-    the bf16 forward's last T that fits, and the next, at each C it takes."""
+    """limit_error is JAX's gate and nothing more: the shapes that used to
+    exceed a block's 227 KiB or to have no bf16 instantiation (C = 48 in
+    float32, C = 64 and 80, T past 240, 608, 1120, 2128) run (the card's
+    smoke script holds the kernels' own shared memory within 227 KiB); a
+    C or T outside JAX's gate is refused, naming both."""
     why = gtu_fused.limit_error(C, T, dtype, backward)
     assert (why is None) == fits, why
     if why is not None:
-        assert f"C={C}" in why
-        if gtu_fused.smem_bytes(C, T, backward, dtype) > 227 * 1024:
-            assert str(gtu_fused.smem_bytes(C, T, backward, dtype)) in why
+        assert f"C={C}" in why and f"T={T}" in why
 
 
-def test_smem_bytes_at_gambia():
-    """The byte counts of csrc/gtu_fused.cu's fwd_smem, bwd_smem,
-    bwd_wmma_smem and fwd_wmma_smem at C = 32, T = 144 (k = 7)."""
-    assert gtu_fused.smem_bytes(32, 144, False, torch.float32) == 77568
-    assert gtu_fused.smem_bytes(32, 144, True, torch.float32) == 191040
-    # bf16 forward: taps 448 rows of 40, x 152 rows of 48, the copy of x
-    # 32 x 144; f32: staging 8 x 512, bias 64
-    assert gtu_fused.smem_bytes(32, 144, False, torch.bfloat16) == 76288
-    # bf16: taps 448 rows of 40, x 152 rows of 48, dY 152 rows of 80, the
-    # copies of x and g 2 x 32 x 144; f32: staging 8 x 512, bias 64, db
-    # partials 256
-    assert gtu_fused.smem_bytes(32, 144, True, torch.bfloat16) == 110848
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_limit_error_admits_every_supported_shape(dtype):
+    """Every C in {16, 32, 48, 64, 128} at every T in {48, 144, 288, 576,
+    1024} runs in both directions."""
+    for C in (16, 32, 48, 64, 128):
+        for T in (48, 144, 288, 576, 1024):
+            for backward in (False, True):
+                assert gtu_fused.limit_error(C, T, dtype, backward) is None
 
 
 def test_cpu_path_counts_no_launch():
@@ -293,3 +289,34 @@ def test_bf16_tensor_core_forward_on_card(shape):
         assert out.dtype == dtype and out.shape == want.shape
         torch.testing.assert_close(out.float(), want, atol=1e-2 * scale, rtol=0)
     assert gtu_fused.fwd_launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 3, 64, 288), (1, 2, 128, 144), (1, 3, 80, 96),
+                                   (2, 3, 32, 576)])
+def test_tiled_shapes_on_card(shape):
+    """The tiled kernels at shapes the card refused before: channel groups
+    and chunks of C (64, 80, 128), time tiles with their halo (T = 288,
+    576); float32 and bf16 against the plain version (1e-4 and 1e-2 of
+    scale), dW and db bit for bit over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = _arrays(11, *shape)
+    B, N, C, T = shape
+    cot = torch.randn((B, N, gtu_fused.out_len(T), C), generator=torch.Generator().manual_seed(2))
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        ins = [torch.from_numpy(a[n]).to(dtype).cuda() for n in NAMES[:7]]
+        g = cot.to(dtype).cuda()
+        outs = []
+        for fn in (gtu_fused.gtu_cat, gtu_fused.gtu_cat_plain):
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            out = fn(*leaves)
+            outs.append([out] + list(torch.autograd.grad(out, leaves, g)))
+        for k, p in zip(*outs):
+            scale = max(1.0, float(p.float().abs().max()))
+            torch.testing.assert_close(k.float(), p.float(), atol=tol * scale, rtol=0)
+        wp, bp = gtu_fused.pack(*ins[1:], dtype)
+        first, again = (gtu_fused.gtu_backward_cuda(ins[0], g, wp, bp) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(first[1], again[1]) and torch.equal(first[2], again[2])

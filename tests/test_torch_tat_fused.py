@@ -243,10 +243,12 @@ def test_float32_gate_still_refuses():
 
 
 def test_bf16_gate_refuses_past_its_caps_naming_the_bytes():
-    """At PEMS08 widths the LN1-backward pass caps N at 3328 (its float32
-    z rows and the g_ctx chunk at 16 rows) and the attention backward caps
-    T at 341; beyond them a CUDA call raises naming the bytes, and nothing
-    falls back to another design."""
+    """The passes stream N in column chunks and T in query tiles and key
+    chunks, so the old caps at PEMS08 widths (the LN1-backward pass at N =
+    3328, the attention backward at T = 341) and the shapes past them are
+    admitted in both dtypes and directions, each pass's bytes within a
+    block's; a CUDA call on CPU tensors raises for the device, not for the
+    bytes."""
     def args(T, N, dtype=torch.bfloat16):
         mk = lambda *s: torch.zeros(s, dtype=dtype)
         return [mk(1, T, N), mk(T, N), mk(N), mk(N), mk(N, 288), mk(96, N), mk(N), mk(N),
@@ -254,38 +256,63 @@ def test_bf16_gate_refuses_past_its_caps_naming_the_bytes():
 
     dims = dict(n_heads=3, d_k=32, d_v=32, embed=False)
     assert tat_fused.passes(12, 3328, 3, 32, 32)["ln1_bwd"][0] == 16
-    assert tat_fused.passes(12, 3329, 3, 32, 32)["ln1_bwd"][0] == 0
-    assert tat_fused.passes(341, 170, 3, 32, 32)["attn_bwd"][0] == 1
-    assert tat_fused.passes(342, 170, 3, 32, 32)["attn_bwd"][0] == 0
+    assert tat_fused.passes(12, 3329, 3, 32, 32)["ln1_bwd"][0] == 16
+    assert tat_fused.passes(341, 170, 3, 32, 32)["attn_bwd"] == (
+        tat_fused.passes(342, 170, 3, 32, 32)["attn_bwd"])
     for T, N, which in ((12, 3329, "ln1_bwd"), (342, 170, "attn_bwd")):
-        a = args(T, N)
-        need = tat_fused.passes(T, N, 3, 32, 32)[which][1]
-        with pytest.raises(ValueError, match=f"bf16 {which} pass needs {need} bytes"):
-            tat_fused.tat_backward_cuda(*a, a[0], a[-1], **dims)
-    # the forward's passes admit N = 3329 (the out pass caps N at 3520)
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = tat_fused.passes(T, N, 3, 32, 32, dtype=dtype)
+            assert all(rows > 0 and need <= SMEM_MAX for rows, need in plan.values()), plan
+            a = args(T, N, dtype)
+            with pytest.raises(ValueError, match="CUDA"):
+                tat_fused.tat_backward_cuda(*a, a[0], a[-1], **dims)
     with pytest.raises(ValueError, match="CUDA"):
         tat_fused.tat_forward_cuda(*args(12, 3329), **dims)
-    # float32 shares the caps (the LN1-backward pass's wo chunk, hi and lo,
-    # caps N lower) and names its dtype
-    a = args(12, 3329, torch.float32)
-    with pytest.raises(ValueError, match="float32 ln1_bwd pass needs"):
-        tat_fused.tat_backward_cuda(*a, a[0], a[-1], **dims)
+
+
+# (T, N) past the old caps: LargeST California's N = 8600 at T = 12, and
+# two days and about three and a half of five-minute readings at N = 170
+STREAMED = [(12, 8600), (576, 170), (1024, 170)]
+
+
+@pytest.mark.parametrize("T, N", STREAMED)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_gate_admits_every_n_and_t(T, N, dtype):
+    """limit_error is None in both directions, with and without the
+    embedding: N-wide passes hold a column chunk of at most 1024 (N = 8600:
+    nine of 960), the attention passes a key chunk of 32 and, past T = 160,
+    a query tile of 32, so no block's bytes grow with N or T past those."""
+    for embed in (False, True):
+        for backward in (False, True):
+            assert tat_fused.limit_error(T, N, 3, 32, 32, dtype, backward, embed) is None
+        plan = tat_fused.passes(T, N, 3, 32, 32, embed, dtype)
+        small = tat_fused.passes(12, 170, 3, 32, 32, embed, dtype)
+        for name in ("attn_fwd", "attn_bwd"):
+            assert plan[name][1] <= tat_fused.passes(32, 170, 3, 32, 32, embed, dtype)[name][1]
+        for name in ("out", "ln1_bwd", "gte"):
+            assert plan[name][1] <= tat_fused._pass_bytes(name, 64, 12, 1024, 3, 32, 32, embed,
+                                                          dtype == torch.float32)
+        assert plan["qkv"] == small["qkv"]
+    assert tat_fused.column_chunk(8600) == (960, 9)
+    assert tat_fused.column_chunk(170) == (176, 1) and tat_fused.column_chunk(1024) == (1024, 1)
 
 
 def test_smem_bytes_follow_the_pass_formulas():
     """The bf16 gate's bytes are csrc/tat_fused.cu's smem16 formulas at the
-    rows each pass takes (PEMS08 blocks 2-4: N = 170 → Np = 176, W = 288,
-    H·d_v = 96, T = 12 one key chunk), and smem_bytes is the largest pass
-    of a direction."""
+    rows each pass takes (PEMS08 blocks 2-4: N = 170 → Np = 176 one column
+    chunk, W = 288, H·d_v = 96, T = 12 one query tile and one key chunk;
+    every pass's 64-row block lets two share an SM), and smem_bytes is the
+    largest pass of a direction."""
     T, N, H, dk, dv = 12, 170, 3, 32, 32
-    Np, Wp, hvp, LZ, KC = 176, 288, 96, 180, 12
+    Np, Wp, hvp, LZ, KC, QT = 176, 288, 96, 180, 12, 12
     R = 64
     want = {
         "qkv": 2 * 64 * (Wp + 8) + 2 * R * 72 + 8 * R,
-        "attn_fwd": 4 * (T * 33 + KC * 33 + KC * 33 + T * (KC + 1) + T * dv),
-        "out": 4 * R * LZ + 4 * R * (hvp + 8),
-        "ln1_bwd": 4 * R * LZ + max(4 * R * (hvp + 8), 4 * R * 72 + 2 * hvp * 72) + 4 * R,
-        "attn_bwd": 4 * (2 * T * 33 + T * dk + 2 * KC * 33 + 2 * T * (KC + 1)),
+        "attn_fwd": 4 * (QT * 33 + KC * 33 + KC * 33 + QT * (KC + 1) + QT * dv + 2 * KC),
+        "out": 4 * R * LZ + 4 * R * (hvp + 8) + 8 * R,
+        "ln1_bwd": 4 * R * LZ + max(4 * R * (hvp + 8), 4 * R * 72 + 2 * hvp * 72) + 16 * R,
+        "attn_bwd": 4 * (2 * QT * 33 + 2 * KC * 33 + 2 * QT * (KC + 1) + KC * dk + KC * dv
+                         + 3 * KC),
         "gte": 4 * R * (Wp + 8) + 4 * 8 * 256,
     }
     passes = tat_fused.passes(T, N, H, dk, dv)
@@ -295,16 +322,19 @@ def test_smem_bytes_follow_the_pass_formulas():
     for backward, names in ((False, tat_fused.FWD_PASSES), (True, tat_fused.BWD_PASSES)):
         assert tat_fused.smem_bytes(T, N, H, dk, dv, backward, torch.bfloat16) == max(
             want[n] for n in names)
-    # the embedding adds the qkv pass's lo chunk; the rows fall as N grows
+    # the embedding adds the qkv pass's lo chunk; the rows fall as the
+    # column chunk grows (one chunk up to N = 1024; GAMBIA's 2139 in three
+    # of 720), to the most whose block lets two share an SM
     assert tat_fused.passes(T, N, H, dk, dv, True)["qkv"][1] == want["qkv"] + 2 * R * 72
-    assert tat_fused.passes(*PEMS07)["out"][0] == 32
-    assert tat_fused.passes(*GAMBIA)["ln1_bwd"][0] == 16
+    assert tat_fused.passes(*PEMS07)["out"][0] == 16
+    assert tat_fused.column_chunk(2139) == (720, 3)
+    assert tat_fused.passes(*GAMBIA)["ln1_bwd"][0] == 32
     # float32: wqkv's lo chunk beside its hi chunk over half the columns
     # (144 at 64 rows), x split; wo's lo chunk in the LN1 backward
     f32 = tat_fused.passes(T, N, H, dk, dv, dtype=torch.float32)
     assert f32["qkv"] == (64, 2 * 64 * (144 + 8) * 2 + 2 * R * 72 * 2 + 8 * R)
     assert f32["ln1_bwd"] == (64, 4 * R * LZ + max(4 * R * (hvp + 8),
-                                                   4 * R * 72 + 2 * hvp * 72 * 2) + 4 * R)
+                                                   4 * R * 72 + 2 * hvp * 72 * 2) + 16 * R)
     assert all(f32[k] == passes[k] for k in ("attn_fwd", "out", "attn_bwd", "gte"))
     for backward, names in ((False, tat_fused.FWD_PASSES), (True, tat_fused.BWD_PASSES)):
         assert tat_fused.smem_bytes(T, N, H, dk, dv, backward) == max(
@@ -395,6 +425,48 @@ def test_kernels_match_plain_on_card():
         ops = tat_fused._operands(*[t.detach() for t in leaves[0]])
         g_out, g_sc = torch.randn_like(o), torch.randn_like(s)
         first, again = (tat_fused.tat_backward_cuda(*ops, g_out, g_sc, **dims)
+                        for _ in range(2))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first[2:], again[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 40, 45, True), (2, 12, 2100, False), (2, 176, 30, False)],
+                         ids=["t40_n45_embed", "n2100", "t176"])
+def test_streamed_shapes_match_plain_on_card(shape):
+    """The streamed branches on the card: several key chunks in one query
+    tile (T = 40), several query tiles (T = 176), several column chunks of
+    N (N = 2100: three of 704), with the embedding; float32 against the plain version within the
+    split limit, bf16 within 1e-2 of scale, one launch a direction, the
+    weight gradients bit for bit over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BF, T_, N_, embed = shape
+    rng = np.random.default_rng(5)
+    W = 3 * 96
+    mk = lambda *s, scale=1.0: torch.from_numpy((rng.normal(size=s) * scale).astype(np.float32))
+    base = [mk(BF, T_, N_), mk(T_, N_, scale=0.3), 1 + mk(N_, scale=0.1), mk(N_, scale=0.1),
+            mk(N_, W, scale=N_ ** -0.5), mk(96, N_, scale=96 ** -0.5), 1 + mk(N_, scale=0.1),
+            mk(N_, scale=0.1), mk(BF, 3, T_, T_, scale=0.5)]
+    cots = [mk(BF, T_, N_), mk(BF, 3, T_, T_, scale=0.1)]
+    dims = dict(n_heads=3, d_k=32, d_v=32, embed=embed)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        ins = [t.to(dtype).cuda() for t in base]
+        gs = [t.to(dtype).cuda() for t in cots]
+        runs = []
+        for fn in (lambda *a: tat_fused.TatFused.apply(*a, 3, 32, 32, embed),
+                   lambda *a: tat_fused.tat_fused_plain(*a, **dims)):
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            outs = fn(*leaves)
+            grads = torch.autograd.grad(outs, leaves, gs, allow_unused=True)
+            runs.append(([o.float() for o in outs],
+                         [torch.zeros_like(x, dtype=torch.float32) if g is None else g.float()
+                          for g, x in zip(grads, leaves)]))
+        (ok, gk), (op, gp) = runs
+        for got, want in zip(ok + gk, op + gp):
+            assert _scaled_err(got, want) <= tol
+        first, again = (tat_fused.tat_backward_cuda(*tat_fused._operands(*ins), *gs, **dims)
                         for _ in range(2))
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first[2:], again[2:]))

@@ -30,6 +30,7 @@ from dstagnn_drought_tpu_torch.models.dstagnn import (
     params_from_jax,
     permute_nodes,
 )
+from dstagnn_drought_tpu_torch.ops.cuda import gtu_fused, tat_fused
 from dstagnn_drought_tpu_torch.training import loop
 from dstagnn_drought_tpu_torch.training.step import make_optimizer, train_step
 
@@ -268,49 +269,59 @@ def _fuse_gtu_config(toy_windowed, C, T):
     return cfg
 
 
-# (C, T, compute dtype, fits a block on the card): GAMBIA's C = 32, T = 144
-# in both dtypes; C = 48 at T = 144 only on the bf16 tensor-core backward;
-# C = 64 at T = 144 in neither; C = 64 at T = 48 fits the shared memory but
-# has no bf16 backward instantiation
+# (C, T, compute dtype, accepted on the card): GAMBIA's C = 32, T = 144 in
+# both dtypes; C = 48 at T = 144, which the float32 CUDA-core backward
+# refused before the kernels tiled C and T; C = 64 at T = 144 and at T =
+# 48, which had no bf16 instantiation; and the shapes of ROADMAP's
+# refusals: nb_time_filter 64 and 128 with one and two days of five-minute
+# readings (T = 288, 576). Every one is accepted: JAX's gate is the only one.
 FUSE_GTU_CARD_CASES = [
     (32, 144, torch.bfloat16, True), (32, 144, torch.float32, True),
-    (48, 144, torch.bfloat16, True), (48, 144, torch.float32, False),
-    (64, 144, torch.bfloat16, False), (64, 48, torch.bfloat16, False),
+    (48, 144, torch.bfloat16, True), (48, 144, torch.float32, True),
+    (64, 144, torch.bfloat16, True), (64, 48, torch.bfloat16, True),
+    (64, 288, torch.float32, True), (64, 576, torch.bfloat16, True),
+    (128, 288, torch.bfloat16, True), (128, 576, torch.float32, True),
 ]
 
 
 @pytest.mark.parametrize("C, T, dtype, fits", FUSE_GTU_CARD_CASES)
 def test_resolve_fuse_gtu_checks_the_card_budget(toy_windowed, C, T, dtype, fits):
-    """On a CUDA device resolve_fuse_gtu refuses, naming fuse_gtu and the
-    bytes (or the missing instantiation), a shape whose kernel block would
-    not fit; on the CPU (the plain version) it accepts every shape the
-    static gate admits."""
+    """resolve_fuse_gtu keeps JAX's gate only: a shape it admits resolves
+    on, and the kernels' own gate (``gtu_fused.limit_error``) admits it on
+    the card in the compute dtype, both directions; one it refuses raises
+    naming fuse_gtu."""
     cfg = _fuse_gtu_config(toy_windowed, C, T)
-    assert loop.resolve_fuse_gtu(cfg, torch.device("cpu"), dtype) is True
-    if fits:
-        assert loop.resolve_fuse_gtu(cfg, torch.device("cuda"), dtype) is True
-    else:
-        with pytest.raises(ValueError, match=r"fuse_gtu.*(bytes|instantiation|registers)"):
-            loop.resolve_fuse_gtu(cfg, torch.device("cuda"), dtype)
+    assert loop.resolve_fuse_gtu(cfg) is fits
+    for backward in (False, True):
+        assert gtu_fused.limit_error(C, T, dtype, backward) is None
+    cfg = _fuse_gtu_config(toy_windowed, C + 8, T)
+    with pytest.raises(ValueError, match=r"fuse_gtu.*16 \| C"):
+        loop.resolve_fuse_gtu(cfg)
 
 
 def test_trainer_refuses_fuse_gtu_over_the_card_budget(toy_windowed, tmp_path, monkeypatch):
-    """The Trainer resolves its device before fuse_gtu, so on a CUDA device
-    a block over 227 KiB raises at construction, before any data is read."""
+    """The Trainer resolves fuse_gtu before any data is read: on a CUDA
+    device the float32 C = 48, T = 144 that used to exceed a block's 227 KiB
+    passes its gates now, and a shape JAX's gate refuses still raises at
+    construction."""
     monkeypatch.setattr(loop, "resolve_device", lambda device: torch.device("cuda"))
     cfg = _fuse_gtu_config(toy_windowed, 48, 144)
     cfg.training.compute_dtype = "float32"
-    with pytest.raises(ValueError, match=r"fuse_gtu.* \d+ bytes"):
+    assert loop.resolve_fuse_gtu(cfg) is True
+    loop.check_fused_shapes(cfg, torch.device("cuda"), torch.float32)
+    cfg = _fuse_gtu_config(toy_windowed, 40, 144)
+    with pytest.raises(ValueError, match=r"fuse_gtu=true.*nb_time_filter=40"):
         loop.Trainer(cfg, experiments_root=str(tmp_path))
 
 
 # (knob, dtype, N, widths, refused on the card): PEMS08 width (T = 12, H = 3,
 # d_k = 32, d_model = 512, C = Co = 32) and GAMBIA width (T = 144, F = 4,
-# K = H = 2, d_model = 64). The TAt runs as passes over rows in both dtypes
-# and the spatial passes stream N in tiles, so PEMS07's N = 883 and GAMBIA's
-# N = 2139 (and N = 8192) are admitted; what is refused: the TAt passes'
-# own caps (bf16 N > 3328 at T = 12, the LN1-backward pass) and a d_model
-# too wide for the spatial embedding block.
+# K = H = 2, d_model = 64). The TAt passes stream N in column chunks and T
+# in query tiles and key chunks, and the spatial passes stream N in tiles,
+# so PEMS07's N = 883, GAMBIA's N = 2139, N = 3329 (past the bf16 TAt's
+# old cap), LargeST California's N = 8600 and T = 576 and 1024 are
+# admitted; what is refused: a d_model too wide for the spatial embedding
+# block.
 PEMS08_WIDTH = dict(len_input=12, in_channels=1, nb_block=4, K=3, n_heads=3, d_k=32,
                     d_model=512, nb_chev_filter=32, nb_time_filter=32)
 GAMBIA_WIDTH = dict(len_input=144, in_channels=4, nb_block=2, K=2, n_heads=2, d_k=32,
@@ -329,8 +340,14 @@ FUSED_CARD_CASES = [
     ("fuse_spatial", "bfloat16", 883, PEMS08_WIDTH, False),
     ("fuse_spatial", "float32", 8192, PEMS08_WIDTH, False),
     ("fuse_spatial", "bfloat16", 8192, GAMBIA_WIDTH, False),
-    ("fuse_tat", "bfloat16", 3329, PEMS08_WIDTH, True),
+    ("fuse_tat", "bfloat16", 3329, PEMS08_WIDTH, False),
     ("fuse_spatial", "float32", 170, dict(PEMS08_WIDTH, d_model=4096), True),
+    ("fuse_tat", "float32", 8600, PEMS08_WIDTH, False),
+    ("fuse_tat", "bfloat16", 8600, PEMS08_WIDTH, False),
+    ("fuse_tat", "float32", 170, dict(PEMS08_WIDTH, len_input=576), False),
+    ("fuse_tat", "bfloat16", 170, dict(PEMS08_WIDTH, len_input=576), False),
+    ("fuse_tat", "bfloat16", 170, dict(PEMS08_WIDTH, len_input=1024), False),
+    ("fuse_tat", "float32", 170, dict(PEMS08_WIDTH, len_input=1024), False),
 ]
 
 
@@ -349,8 +366,10 @@ def _fused_config(toy_windowed, knob, dtype, N, widths):
 def test_check_fused_shapes_checks_the_card_budget(toy_windowed, knob, dtype, N, widths,
                                                    refused):
     """On a CUDA device check_fused_shapes refuses, naming the knob and the
-    bytes, a block shape the fused TAt or spatial kernels of the compute
-    dtype cannot take; on the CPU (the plain versions) every shape passes."""
+    bytes, a block shape the fused spatial kernels of the compute dtype
+    cannot take, and admits every fused TAt shape (the passes' own gate,
+    ``tat_fused.limit_error``, admits the block in both directions); on the
+    CPU (the plain versions) every shape passes."""
     cfg = _fused_config(toy_windowed, knob, dtype, N, widths)
     dt = getattr(torch, dtype)
     loop.check_fused_shapes(cfg, torch.device("cpu"), dt)
@@ -359,6 +378,35 @@ def test_check_fused_shapes_checks_the_card_budget(toy_windowed, knob, dtype, N,
             loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
     else:
         loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
+    if knob == "fuse_tat":
+        T = cfg.data.len_input
+        for backward in (False, True):
+            assert tat_fused.limit_error(T, N, widths["n_heads"], widths["d_k"],
+                                         widths["d_k"], dt, backward) is None
+
+
+# chip_smoke.py's two CLI paths of the fused TAt and GTU past their old caps:
+# N = 8600 on BELL tiles with fuse_tat, and T = 576 with all three fused knobs
+CLI_PATHS = {
+    "large_n": (8600, PEMS08_WIDTH, dict(fuse_tat=True, sparse=True, sparse_format="bell",
+                                         mask_format="tiles", block_size=128, rcm=True)),
+    "long_t": (170, dict(PEMS08_WIDTH, len_input=576),
+               dict(fuse_tat=True, fuse_spatial=True, fuse_gtu=True)),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", sorted(CLI_PATHS))
+def test_card_gates_accept_the_new_cli_paths(toy_windowed, path, dtype):
+    """Both paths pass the Trainer's gates on a CUDA device name in both
+    compute dtypes: check_fused_shapes refuses nothing and resolve_fuse_gtu
+    turns the fused GTU on where it is set."""
+    N, widths, knobs = CLI_PATHS[path]
+    cfg = _fused_config(toy_windowed, "fuse_tat", dtype, N, widths)
+    for key, value in knobs.items():
+        setattr(cfg.training, key, value)
+    loop.check_fused_shapes(cfg, torch.device("cuda"), getattr(torch, dtype))
+    assert loop.resolve_fuse_gtu(cfg) is bool(knobs.get("fuse_gtu"))
 
 
 def test_fuse_spatial_is_not_checked_on_the_bell_path(toy_windowed):
@@ -377,8 +425,9 @@ def test_trainer_refuses_fused_shapes_over_the_card_budget(toy_windowed, tmp_pat
     fuse_spatial at GAMBIA's N = 2139) now build a Trainer: its card check
     runs as on a CUDA device (check_fused_shapes with a cuda device, the
     call the Trainer makes there) and admits them, and the model is built
-    at those widths, here on the CPU (the kernels have no CPU mode). A shape
-    still over the caps raises at construction, before any data is read."""
+    at those widths, here on the CPU (the kernels have no CPU mode). A
+    spatial shape still over its caps raises at construction, before any
+    data is read."""
     real, seen = loop.check_fused_shapes, []
     monkeypatch.setattr(loop, "check_fused_shapes", lambda cfg, device, dtype: seen.append(
         real(cfg, torch.device("cuda"), dtype)))
@@ -395,8 +444,9 @@ def test_trainer_refuses_fused_shapes_over_the_card_budget(toy_windowed, tmp_pat
     assert seen == [None]
     assert getattr(tr.cfg.training, knob) and tr.spec.num_of_vertices == N
     assert tr.spec.d_model == widths["d_model"] and tr._splits["train"][0].shape[1] == N
-    cfg = _fused_config(toy_windowed, "fuse_tat", "bfloat16", 3329, PEMS08_WIDTH)
-    with pytest.raises(ValueError, match=r"fuse_tat=true.* \d+ bytes"):
+    cfg = _fused_config(toy_windowed, "fuse_spatial", "float32", 170,
+                        dict(PEMS08_WIDTH, d_model=4096))
+    with pytest.raises(ValueError, match=r"fuse_spatial=true.* \d+ bytes"):
         loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
 
 
