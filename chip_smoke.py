@@ -20,16 +20,22 @@ Phases; any failure exits non-zero:
      for bit over two launches, its float32 and bf16-term bounds, and the
      plan's shared-memory and scratch bytes equal to the kernel's own; the BELL forward (F),
      K1 and K2 at the GAMBIA blocks, the 1%-random N=2139 graph (17 slots a
-     tile) and a ragged n=29 graph (BS 8 and 16), in float32 and bfloat16,
-     with K1's dΘ, F's output and K2's dx equal bit for bit over two
-     launches; each row names its design (bf16 on the tensor cores, float32
-     on the CUDA cores) and carries the float32 kernel's time at its shape,
-     the bf16 K1's dΘ is held against the plain float32 dΘ within a limit
-     that a no-split control exceeds, the bf16 F and K2 differ from the
-     plain bf16 output on at most 1% of their outputs where no-split
-     controls differ on more (also at five random graphs whose shapes take
-     the bf16 F's and K2's other paths), and the three plans'
-     shared-memory bytes must equal the kernels' own;
+     tile), a ragged n=29 graph (BS 8 and 16) and the widths past the caps
+     the kernels had before (block 2 at C = Co = 128, C = 128 with Co = 256
+     at H = 3 on the random graph, BS = 256, d_k = 160, Co = 1024), in
+     float32 and bfloat16, with K1's dΘ, F's output and K2's dx equal bit
+     for bit over two launches; each row names its design (one for both
+     dtypes on the tensor cores, float32 split bf16 hi + lo) and its plan
+     and carries the float32 kernel's time at its shape; the float32
+     kernels are held against the plain float32 versions within a limit
+     that a no-split control (every product operand rounded to bf16)
+     exceeds, in F's output, dA, dΘ and dx; the bf16 K1's dΘ is held
+     against the plain float32 dΘ within a limit that a no-split control
+     exceeds, the bf16 F and K2 differ from the plain bf16 output on at
+     most 1% of their outputs where no-split controls differ on more (also
+     at five random graphs whose shapes take the kernels' other paths, in
+     both dtypes), and the three plans' shared-memory bytes must equal the
+     kernels' own in both dtypes, past the old caps too;
   2c. the fused dense kernels against their plain versions, forward and
      every gradient, in float32 and bfloat16, at PEMS08 block 1 and blocks
      2-4, the TAt embedding mode, ragged shapes, PEMS07's N = 883, the TAt
@@ -98,6 +104,14 @@ Phases; any failure exits non-zero:
      the GTU and BELL launch counts checked;
   6. GAMBIA BELL with dense masks and rcm=true, one epoch, its test
      predictions held against an unpermuted model in the original order;
+  6b. the full-width BELL path (``phase_gambia_wide``): the training CLI at
+     the bell_tiles configuration with nb_chev_filter = nb_time_filter =
+     128 (block 2's conv at C = Co = 128), 2 epochs of 3 steps in float32 and 2 in bf16,
+     finite falling losses, a checkpoint, the report and the F/K1/K2 launch
+     counts; the float32 checkpoint's predictions on one test batch against
+     the same weights through the plain BELL forward; an epoch each for
+     ms/step and epoch peak memory and a profiled one for device ms/step
+     and the busy share;
   7. the graph pipeline's STAG construction at GAMBIA's shapes (T=287,
      F=4): the fast PCA variant at N=2139, the Sinkhorn STAG of the first
      128 nodes (8,128 pairs, 200 iterations) through the stag_gen CLI, its
@@ -177,12 +191,14 @@ each, a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE, and the Sinkhorn STAG of
 all 2,286,591 GAMBIA pairs (``measure_stag_full``). The epoch profiles also
 rank the host ops by their inputs' shapes. ``--rows OUT`` builds and
-times only PERF.md rows 8-11 at their main shapes (``measure_rows``; from
-another commit's checkout, as ``--compare``). ``--compare OUT`` builds
+times only PERF.md rows 2-11 at their main shapes (``measure_rows``: F,
+K1 and K2 at GAMBIA blocks 1-2 and the 17-slot random graph by pass with
+their outputs' digests, the TAt and GTU by CUDA events; from another
+commit's checkout, as ``--compare``). ``--compare OUT`` builds
 and runs only ``compare_run``: one side of a comparison with another
 commit's checkout (the float32 spatial, TAt, K1, K2 and F kernels' bits,
-cheb_sat at its four main shapes, K1 and F by pass and K2 at GAMBIA blocks
-1-2, K2 also on the 17-slot random graph, the GAMBIA dense and BELL-tiles
+cheb_sat at its four main shapes, F, K1 and K2 by pass at GAMBIA blocks
+1-2 and on the 17-slot random graph, the GAMBIA dense and BELL-tiles
 bf16 epochs with and without fuse_gtu, with epoch peak memory).
 
 Imports nothing of JAX or of the JAX package.
@@ -258,19 +274,28 @@ def check(cond: bool, message: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {message}")
 
 
+TIMING_BUDGET_MS = 250.0  # timed calls of one cuda_ms, so that a slow shape costs two
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call by CUDA events, after a warm-up."""
-    for _ in range(2):
-        fn()
+    """Mean milliseconds per call by CUDA events, after a warm-up of two
+    calls: ``iters`` calls, or as many (at least 2) as the second warm-up
+    call says fit in TIMING_BUDGET_MS."""
+    fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
+    n = max(2, min(iters, int(TIMING_BUDGET_MS / max(once, 1e-3))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
+    for _ in range(n):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / n
 
 
 def card_line() -> str:
@@ -507,7 +532,18 @@ BELL_SHAPES = [
     ("ragged_n29_bs16", "ragged", 2, 2, 4, 12, 8, 16, 8),
     # one input channel (the PEMS-style first block) at long T, K=3 heads
     ("ragged_n29_c1_t144", "ragged", 2, 3, 1, 144, 32, 16, 8),
+    # the widths past the caps the kernels had before: GAMBIA block 2 at C =
+    # Co = 128 (nb_chev_filter = 128), C = 128 with Co = 256 at H = 3 on the
+    # 17-slot random graph (T cut to 16 so the plain versions fit), block 2
+    # at BS = 256 (A = 23) and at d_k = 160, and Co = 1024 on a ragged graph
+    ("gambia_block2_c128", "grid", 4, 2, 128, 144, 128, 128, 32),
+    ("random1pct_c128_co256_h3", "random", 2, 3, 128, 16, 256, 128, 32),
+    ("gambia_block2_bs256", "grid", 4, 2, 32, 144, 32, 256, 32),
+    ("gambia_block2_dk160", "grid", 4, 2, 32, 144, 32, 128, 160),
+    ("ragged_co1024", "ragged", 2, 2, 4, 12, 1024, 16, 8),
 ]
+BELL_NEW_SHAPES = ("gambia_block2_c128", "random1pct_c128_co256_h3", "gambia_block2_bs256",
+                   "gambia_block2_dk160", "ragged_co1024")
 
 
 def bell_graph(kind: str, BS: int):
@@ -517,24 +553,23 @@ def bell_graph(kind: str, BS: int):
 
 
 def bell_bounds(B, H, A, BS, dk, C, T, Co, Np, dtype):
-    """(bound_ms, bound_by, flops) of F, K1 and K2: operations over the peak
-    of the compute dtype (bf16 tensor cores 989 TFLOP/s, float32 CUDA cores
-    67) against the bytes each function must move over 3.35 TB/s, every
-    operand read or written once: F reads q, k (f32), the bias and cheb
-    tiles (f32), x and Θ and writes out; K1 reads gm, x, w and Θ and writes
-    dA (f32) and dΘ; K2 reads gm, w and Θ and writes dx. The bf16 F and K2
-    count their float32-in-value products as tat_bounds does, each bf16
-    term at 989 TFLOP/s: F's scores (float32 q, k) and Θ mix (float32 agg
-    and Θ) three terms each, its SpMM (bf16 w and x) one; K2's g_agg (bf16
-    gm against Θ split hi + lo) and dx (bf16 w against g_agg split hi + lo)
-    two each."""
+    """(bound_ms, bound_by, flops) of F, K1 and K2: operations over the
+    tensor cores' bf16 peak (989 TFLOP/s; every product of the BELL kernels
+    runs there in both dtypes) against the bytes each function must move
+    over 3.35 TB/s, every operand read or written once: F reads q, k (f32),
+    the bias and cheb tiles (f32), x and Θ and writes out; K1 reads gm, x,
+    w and Θ and writes dA (f32) and dΘ; K2 reads gm, w and Θ and writes dx.
+    A float32-in-value product counts its bf16 terms, as tat_bounds does:
+    F's scores (float32 q, k) and Θ mix (float32 agg and Θ) three each in
+    both dtypes, its SpMM one in bf16; K2's g_agg and dx two each in bf16;
+    K1 one in bf16; in float32 every product three (both operands split
+    hi + lo)."""
     M, xb = C * T, (2 if dtype == torch.bfloat16 else 4)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    terms = 3 if dtype == torch.bfloat16 else 1
-    k2_terms = 2 if dtype == torch.bfloat16 else 1
-    ops = {"bell_fused": (2 * B * H * A * BS * BS * (terms * dk + M)
-                          + terms * 2 * B * Np * H * M * Co),
-           "bell_k1": 4 * B * H * A * BS * BS * M + 4 * B * Np * H * M * Co,
+    f32 = dtype == torch.float32
+    spmm, k1_terms, k2_terms = (3, 3, 3) if f32 else (1, 1, 2)
+    ops = {"bell_fused": (2 * B * H * A * BS * BS * (3 * dk + spmm * M)
+                          + 3 * 2 * B * Np * H * M * Co),
+           "bell_k1": k1_terms * (4 * B * H * A * BS * BS * M + 4 * B * Np * H * M * Co),
            "bell_k2": k2_terms * (2 * B * H * A * BS * BS * M + 2 * B * H * A * BS * M * Co)}
     x_b, g_b, w_b = xb * B * Np * M, xb * B * Np * Co * T, xb * B * A * H * BS * BS
     theta_b = 4 * H * C * Co
@@ -544,7 +579,7 @@ def bell_bounds(B, H, A, BS, dk, C, T, Co, Np, dtype):
               "bell_k2": g_b + w_b + theta_b + x_b}
     out = {}
     for name in ops:
-        t_ops, t_bytes = ops[name] / peak, nbytes[name] / PEAK_HBM_BYTES
+        t_ops, t_bytes = ops[name] / PEAK_BF16_FLOPS, nbytes[name] / PEAK_HBM_BYTES
         out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
                      ops[name])
     return out
@@ -582,79 +617,100 @@ def rel_err(got, want) -> tuple[float, float]:
 
 
 def bell_design(name, dtype) -> str:
-    """The arithmetic of a BELL kernel: in bf16 every one on the tensor
-    cores (WMMA): K1 (k1_dA_wmma_kernel, k1_dtheta_wmma_kernel; Θ and agg
-    split into bf16 hi + lo), F (its SpMM and Θ mix, f_spmm_wmma_kernel;
-    agg and Θ split) and K2 (k2_wmma_kernel; Θ and g_agg split); in float32
-    float32 FMAs on the CUDA cores."""
-    return "wmma_bf16" if dtype == torch.bfloat16 else "cuda_core_f32"
+    """The arithmetic of a BELL kernel: one design for both dtypes, every
+    product on the tensor cores (WMMA): F (weights_kernel, then
+    f_spmm_wmma_kernel<RF, CW, HG, T>), K1 (k1_dA_wmma_kernel,
+    k1_dtheta_wmma_kernel, dense::sum_rows) and K2 (k2_theta_split_kernel,
+    then k2_wmma_kernel); bf16 operands as they are, float32 ones split into
+    bf16 hi + lo (three products where two float32 values meet)."""
+    return "wmma_bf16" if dtype == torch.bfloat16 else "wmma_f32_split"
+
+
+# (BS, C, Co, T, H, d_k) at which the plans' bytes are held against the
+# kernels' own: every BELL shape, the corner shapes, and the edges past the
+# caps the kernels had before (C 65/128/256, Co 129/513/1024, BS 136/160/
+# 256, d_k 128/129/160/512, H 6)
+SMEM_EDGES = [(BS, C, Co, T, H, dk) for BS in (8, 120, 136, 256) for C in (1, 5, 32, 65, 128)
+              for Co in (1, 32, 129, 1024)
+              for T, H, dk in ((7, 3, 8), (144, 2, 32), (16, 6, 160))] + [
+    (128, 32, 32, 144, 2, dk) for dk in (128, 129, 512)]
+
+
+def bell_smem_shapes():
+    return sorted({(s[7], s[4], s[6], s[5], s[3], s[8]) for s in BELL_SHAPES}
+                  | {(s[3], s[6], s[8], s[7], s[5], s[9]) for s in BELL_CORNER_SHAPES}
+                  | set(SMEM_EDGES))
 
 
 def check_f_smem():
-    """bell_fused.f_wmma_smem_bytes and f_bf16_plan (the Python gate)
-    against the bytes the kernel of csrc/bell_fused.cu requests, at every
-    BELL shape and at the caps' edges (C 1/64, Co 1/512, BS 8/120/128, H
-    2/3), for every tile the pass could take; every plan fits a block."""
+    """bell_fused.f_wmma_smem_bytes, f_wmma_stage_bytes and
+    f_weights_smem_bytes (the Python mirrors) against the bytes the kernels
+    of csrc/bell_fused.cu request, in both dtypes, at every BELL shape and
+    past the old caps, for f_plan's own tiles and their neighbours; every
+    plan fits a block."""
     lib = bell_fused._load()
-    shapes = {(s[7], s[4], s[6], s[5], s[3]) for s in BELL_SHAPES} | {
-        (BS, C, Co, T, H) for BS in (8, 48, 120, 128) for C in (1, 4, 5, 32, 64)
-        for Co in (1, 32, 512) for T in (7, 144) for H in (2, 3)}
-    for BS, C, Co, T, H in sorted(shapes):
-        plan = bell_fused.f_bf16_plan(BS, C, Co, T, H)
-        check(plan["smem"] <= 232448, f"F plan at BS={BS} C={C} Co={Co} T={T} H={H}: {plan}")
-        for TN in (16, 32, 64, 128):
-            for NT in (1, 4, plan["nt"]):
-                for HG, KC in bell_fused._F_STAGES:
-                    tiles = (C, H, TN, NT, KC, HG)
-                    got = (bell_fused.f_wmma_smem_bytes(*tiles),
-                           bell_fused.f_wmma_stage_bytes(C, TN, NT, KC, HG))
-                    want = tuple(lib.bell_fused_wmma_smem_bytes(*tiles, what)
-                                 for what in (0, 1))
-                    check(got == want, f"f_wmma_smem_bytes, f_wmma_stage_bytes{tiles} = "
-                                       f"{got}, the kernel requests {want}")
+    for BS, C, Co, T, H, dk in bell_smem_shapes():
+        got = bell_fused.f_weights_smem_bytes(dk)
+        want = lib.bell_fused_wmma_smem_bytes(0, dk, 0, 0, 0, 0, 0, 0, 0, 2)
+        check(got == want and got <= 232448, f"f_weights_smem_bytes({dk}) = {got}, the "
+                                             f"kernel requests {want}")
+        for dtype in F32_BF16:
+            f32, P = int(dtype == torch.float32), bell_bwd._planes(dtype)
+            p = bell_fused.f_plan(BS, C, Co, T, H, dtype)
+            check(p["smem"] <= 232448, f"F plan at BS={BS} C={C} Co={Co} T={T} H={H}: {p}")
+            for tn in {p["tn"], 16}:
+                for kc in {p["kc"], 16}:
+                    for ocb in {p["ocb"], 16}:
+                        tiles = (C, H, tn, p["nt"], kc, p["hg"], p["cc"], ocb)
+                        got = (bell_fused.f_wmma_smem_bytes(P, *tiles),
+                               bell_fused.f_wmma_stage_bytes(P, p["cc"], tn, p["nt"], kc,
+                                                             p["hg"]))
+                        want = tuple(lib.bell_fused_wmma_smem_bytes(f32, *tiles, what)
+                                     for what in (0, 1))
+                        check(got == want, f"F bytes at {tiles} {dtype}: {got}, the kernel "
+                                           f"requests {want}")
 
 
 def check_k2_smem():
-    """bell_bwd.k2_wmma_smem_bytes and k2_bf16_plan (the Python gate)
-    against the bytes the kernel of csrc/bell_bwd.cu requests, at every
-    BELL shape and corner shape and at the caps' edges (C 1/64, Co 1/512,
-    BS 8/120/128; a block stages one head at a time, so H does not enter),
-    for every tile the kernel could take; every plan fits a block."""
+    """bell_bwd.k2_smem_bytes (the Python mirror) against the bytes the
+    kernel of csrc/bell_bwd.cu requests, in both dtypes, at every BELL
+    shape and past the old caps, for k2_plan's tiles and the other tiles
+    the kernel takes; every plan fits a block."""
     lib = bell_bwd._load()
-    shapes = ({(s[7], s[4], s[6], s[5]) for s in BELL_SHAPES}
-              | {(s[3], s[6], s[8], s[7]) for s in BELL_CORNER_SHAPES}
-              | {(BS, C, Co, T) for BS in (8, 48, 120, 128) for C in (1, 4, 5, 32, 64)
-                 for Co in (1, 32, 512) for T in (7, 144)})
-    for BS, C, Co, T in sorted(shapes):
-        plan = bell_bwd.k2_bf16_plan(BS, C, Co, T)
-        check(plan["smem"] <= 232448, f"K2 plan at BS={BS} C={C} Co={Co} T={T}: {plan}")
+    for BS, C, Co, T, _, _ in bell_smem_shapes():
         BSp = bell_bwd._pad16(BS)
-        for nt in sorted({1, 2, plan["nt"]}):
-            for tr in (t for t in (16, 32, 64, 128) if BSp % t == 0):
-                got = bell_bwd.k2_wmma_smem_bytes(BS, C, Co, nt, tr)
-                want = lib.bell_bwd_k2_wmma_smem_bytes(BS, C, Co, nt, tr)
-                check(got == want, f"k2_wmma_smem_bytes(BS={BS}, C={C}, Co={Co}, nt={nt}, "
-                                   f"tr={tr}) = {got}, the kernel requests {want}")
+        for dtype in F32_BF16:
+            f32, P = int(dtype == torch.float32), bell_bwd._planes(dtype)
+            p = bell_bwd.k2_plan(BS, C, Co, T, dtype)
+            check(p["smem"] <= 232448, f"K2 plan at BS={BS} C={C} Co={Co} T={T}: {p}")
+            for nt in sorted({1, p["nt"]}):
+                for tr in (t for t in (16, 32, 64, 128) if BSp % t == 0):
+                    for occ in sorted({p["occ"], 16}):
+                        got = bell_bwd.k2_smem_bytes(P, BS, C, Co, nt, tr, occ)
+                        want = lib.bell_bwd_k2_wmma_smem_bytes(f32, BS, C, Co, nt, tr, occ)
+                        check(got == want, f"k2_smem_bytes({P}, BS={BS}, C={C}, Co={Co}, "
+                                           f"nt={nt}, tr={tr}, occ={occ}) = {got}, the kernel "
+                                           f"requests {want}")
 
 
 def check_k1_smem():
-    """bell_bwd.k1_wmma_smem_bytes and k1_bf16_plan (the Python gate)
-    against the bytes the kernels of csrc/bell_bwd.cu request, at every
-    BELL shape and at the caps' edges (C 1/64, Co 1/128, BS 8/120/128),
-    for every tile either pass could take; every plan fits a block."""
+    """bell_bwd.k1_smem_bytes (the Python mirror) against the bytes the
+    kernels of csrc/bell_bwd.cu request, in both dtypes, at every BELL
+    shape and past the old caps, for k1_plan's tiles of both passes and
+    their neighbours; every plan fits a block."""
     lib = bell_bwd._load()
-    shapes = {(s[7], s[4], s[6], s[5]) for s in BELL_SHAPES} | {
-        (BS, C, Co, 144) for BS in (8, 48, 120, 128) for C in (1, 4, 5, 32, 64)
-        for Co in (1, 32, 128)}
-    for BS, C, Co, T in sorted(shapes):
-        plan = bell_bwd.k1_bf16_plan(BS, C, Co, T)
-        check(max(plan["smem"]) <= 232448, f"K1 plan at BS={BS} C={C} Co={Co}: {plan}")
-        for tile in (16, 32, 48, 64, 128):
-            for pass_ in (0, 1):
-                got = bell_bwd.k1_wmma_smem_bytes(BS, C, Co, tile, pass_)
-                want = lib.bell_bwd_k1_wmma_smem_bytes(BS, C, Co, tile, pass_)
-                check(got == want, f"k1_wmma_smem_bytes(BS={BS}, C={C}, Co={Co}, {tile}, "
-                                   f"pass {pass_}) = {got}, the kernel requests {want}")
+    for BS, C, Co, T, _, _ in bell_smem_shapes():
+        for dtype in F32_BF16:
+            f32, P = int(dtype == torch.float32), bell_bwd._planes(dtype)
+            p = bell_bwd.k1_plan(BS, C, Co, T, dtype)
+            check(max(p["smem"]) <= 232448, f"K1 plan at BS={BS} C={C} Co={Co}: {p}")
+            tiles = [(0, (p["tn"], p["rs"], p["cc"], p["occ"])), (0, (16, p["rs"], 16, 16)),
+                     (1, (p["tc"], p["ks"], p["ocb"], p["wo"])), (1, (16, 16, 16, 1))]
+            for pass_, t in tiles:
+                got = bell_bwd.k1_smem_bytes(P, BS, C, Co, t, pass_)
+                want = lib.bell_bwd_k1_wmma_smem_bytes(f32, BS, C, Co, *t, pass_)
+                check(got == want, f"k1_smem_bytes({P}, BS={BS}, C={C}, Co={Co}, {t}, pass "
+                                   f"{pass_}) = {got}, the kernel requests {want}")
 
 
 # the bf16 K1's dΘ against the plain version's float32 dΘ on the same
@@ -769,54 +825,126 @@ BELL_CORNER_SHAPES = [
 
 
 def corner_rows():
-    """The bf16 F and K2 against their plain versions at BELL_CORNER_SHAPES:
-    within 1e-2 of scale, the split check's share, the same bits over two
-    launches."""
+    """F, K1 and K2 against their plain versions at BELL_CORNER_SHAPES in
+    both dtypes: within BELL_TOL of scale, the split checks (bf16 F and K2:
+    the share of outputs that differ; float32: f32_split_check), the same
+    bits over two launches."""
     rows = []
     for seed, (label, n, density, BS, B, H, C, T, Co, dk) in enumerate(BELL_CORNER_SHAPES):
         bell = block_ell_from_adjacency(random_adjacency(n, density, 10 + seed),
                                         block_size=BS).to("cuda")
         t = bell.tensors
-        z = bell_inputs(bell, B, H, C, T, Co, dk, torch.bfloat16, 500 + seed)
-        f_args = (t["tile_start"], t["tile_count"], t["active_src"],
-                  z["q"], z["k"], z["bias"], z["cheb"], z["x"], z["thetas"])
-        k2_args = (t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
-                   z["thetas"], z["gm"], z["w"])
-        runs = {"bell_fused": (bell_fused.bell_forward_cuda, bell_fused.bell_forward_plain,
-                               f_args, bell_fused.f_bf16_plan(BS, C, Co, T, H)),
-                "bell_k2": (bell_bwd.bell_k2_cuda, bell_bwd.bell_k2_plain, k2_args,
-                            bell_bwd.k2_bf16_plan(BS, C, Co, T))}
-        for name, (kern, plain, args, plan) in runs.items():
-            out_k = kern(*args)
-            same = bool(torch.equal(out_k, kern(*args)))
-            out_p = plain(*args)
-            err, rel = rel_err(out_k, out_p)
-            split = ({"kernel": bf16_diff(out_k, out_p),
-                      "nosplit": bf16_diff(f_nosplit_plain(*args), out_p)}
-                     if name == "bell_fused" else k2_split_check(args, out_k, out_p))
-            row = {"kernel": f"{name}_corner", "shape": label, "dtype": "bfloat16", "B": B,
-                   "H": H, "N": n, "BS": BS, "A": bell.num_active, "S": bell.max_blocks,
-                   "C": C, "T": T, "Co": Co, "d_k": dk, "plan": plan, "max_abs_err": err,
-                   "rel_err": rel, "tol": BELL_TOL[torch.bfloat16], "out_bit_identical": same,
-                   "split_check": split}
-            row["ok"] = (rel <= row["tol"] and same
-                         and split["kernel"]["share"] <= F_SPLIT_SHARE)
-            print("bell", json.dumps(row), flush=True)
-            check(row["ok"], f"the bf16 {name} at {label}: {row}")
-            rows.append(row)
-            del out_k, out_p
-        del z
+        for dtype in F32_BF16:
+            z = bell_inputs(bell, B, H, C, T, Co, dk, dtype, 500 + seed)
+            f_args = (t["tile_start"], t["tile_count"], t["active_src"],
+                      z["q"], z["k"], z["bias"], z["cheb"], z["x"], z["thetas"])
+            k1_args = (t["active_src"], t["active_tgt"], t["tile_start"], t["tile_count"],
+                       z["thetas"], z["gm"], z["x"], z["w"])
+            k2_args = (t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
+                       z["thetas"], z["gm"], z["w"])
+            k1_plain = lambda *a: bell_bwd.bell_k1_plain(*a[:2], *a[4:])
+            runs = {"bell_fused": (bell_fused.bell_forward_cuda, bell_fused.bell_forward_plain,
+                                   f_args, bell_fused.f_plan(BS, C, Co, T, H, dtype)),
+                    "bell_k1": (bell_bwd.bell_k1_cuda, k1_plain, k1_args,
+                                bell_bwd.k1_plan(BS, C, Co, T, dtype)),
+                    "bell_k2": (bell_bwd.bell_k2_cuda, bell_bwd.bell_k2_plain, k2_args,
+                                bell_bwd.k2_plan(BS, C, Co, T, dtype))}
+            got, want = {}, {}
+            for name, (kern, plain, args, plan) in runs.items():
+                out_k, again = kern(*args), kern(*args)
+                out_p = plain(*args)
+                if name == "bell_k1":
+                    (got["dA"], got["dtheta"]), (want["dA"], want["dtheta"]) = out_k, out_p
+                    same = bool(torch.equal(out_k[1], again[1]))
+                    errs = [rel_err(g, w) for g, w in zip(out_k, out_p)]
+                    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+                else:
+                    key = "out" if name == "bell_fused" else "dx"
+                    got[key], want[key] = out_k, out_p
+                    same = bool(torch.equal(out_k, again))
+                    err, rel = rel_err(out_k, out_p)
+                row = {"kernel": f"{name}_corner", "shape": label,
+                       "dtype": str(dtype).split(".")[-1], "B": B, "H": H, "N": n, "BS": BS,
+                       "A": bell.num_active, "S": bell.max_blocks, "C": C, "T": T, "Co": Co,
+                       "d_k": dk, "plan": plan, "max_abs_err": err, "rel_err": rel,
+                       "tol": BELL_TOL[dtype], "bit_identical": same}
+                if dtype == torch.bfloat16 and name == "bell_fused":
+                    row["split_check"] = {"kernel": bf16_diff(out_k, out_p),
+                                          "nosplit": bf16_diff(f_nosplit_plain(*args), out_p)}
+                elif dtype == torch.bfloat16 and name == "bell_k2":
+                    row["split_check"] = k2_split_check(args, out_k, out_p)
+                row["ok"] = (rel <= row["tol"] and same and (
+                    "split_check" not in row
+                    or row["split_check"]["kernel"]["share"] <= F_SPLIT_SHARE))
+                print("bell", json.dumps(row), flush=True)
+                check(row["ok"], f"the {dtype} {name} at {label}: {row}")
+                rows.append(row)
+            if dtype == torch.float32:
+                split = f32_split_check(f_args, k1_args, k2_args, got, want)
+                print("bell", json.dumps({"kernel": "f32_split_corner", "shape": label,
+                                          "split_check": split}), flush=True)
+                check(split["ok"], f"the float32 kernels' split check at {label}: {split}")
+            del z, got, want
     return rows
+
+
+def _bf16r(t):
+    """t rounded to bf16, in float32."""
+    return t.bfloat16().float()
+
+
+def f32_nosplit_forward(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
+    """The control of the float32 F's split check: the forward as
+    bell_forward_plain computes it in float32, with every product operand
+    rounded to bf16 (w and x before the SpMM, agg and Θ before the mix)."""
+    B, Np, M = x.shape
+    H, C, Co = thetas.shape
+    T = M // C
+    NJ, BS = tile_start.shape[0], bias_t.shape[-1]
+    a_tgt, active_src = bell_fused._tgt_of(tile_start, tile_count), active_src.long()
+    _, _, att = bell_fused.active_softmax(q, k, bias_t, active_src, a_tgt, NJ)
+    w = _bf16r(cheb_t[None] * att)
+    x_src = _bf16r(x).reshape(B, -1, BS, M)[:, active_src]
+    agg = torch.zeros((B, NJ, H, BS, M), dtype=torch.float32, device=x.device)
+    agg.index_add_(1, a_tgt, torch.einsum("bahst,basm->bahtm", w, x_src))
+    out = torch.einsum("bjhvct,hco->bjvot", _bf16r(agg).reshape(B, NJ, H, BS, C, T),
+                       _bf16r(thetas))
+    return torch.relu(out).reshape(B, NJ * BS, Co * T)
+
+
+def f32_split_check(f_args, k1_args, k2_args, got, want) -> dict:
+    """The float32 kernels (split hi + lo on the tensor cores) against the
+    plain float32 versions, as max |Δ| over max |plain|, in F's output, dA,
+    dΘ and dx: each within SPLIT_TOL, where a no-split control (every
+    product operand rounded to bf16: f32_nosplit_forward, and the plain K1
+    and K2 on bf16-rounded x, w, gm and Θ) is not."""
+    th, gm, x, w = k1_args[4], k1_args[5], k1_args[6], k1_args[7]
+    c_dA, c_dth = bell_bwd.bell_k1_plain(*k1_args[:2], _bf16r(th), _bf16r(gm), _bf16r(x),
+                                         _bf16r(w))
+    c_dx = bell_bwd.bell_k2_plain(*k2_args[:4], _bf16r(th), _bf16r(gm), _bf16r(w))
+    control = {"out": f32_nosplit_forward(*f_args), "dA": c_dA, "dtheta": c_dth, "dx": c_dx}
+    out = {}
+    for name, ctl in control.items():
+        out[name] = {"kernel": rel_err(got[name], want[name])[1],
+                     "nosplit": rel_err(ctl, want[name])[1]}
+    out["tol"] = SPLIT_TOL
+    out["ok"] = all(v["kernel"] <= SPLIT_TOL < v["nosplit"] for k, v in out.items()
+                    if k != "tol")
+    return out
 
 
 def phase_bell_kernels():
     """F, K1 and K2 against their plain versions at every BELL shape, in f32
-    and bf16, with CUDA-event times; dΘ of two K1 launches, F's output and
-    K2's dx of two launches must be equal bit for bit; the bf16 K1's dΘ
-    within K1_SPLIT_TOL of the plain float32 dΘ, which a no-split control
-    misses; the bf16 F and K2 differ from the plain bf16 output on at most
-    F_SPLIT_SHARE of their outputs, where no-split controls differ on more,
-    also at BELL_CORNER_SHAPES. Each row names its design and carries the
+    and bf16, with CUDA-event times: the GAMBIA blocks, the random and
+    ragged graphs, and the widths past the old caps (BELL_NEW_SHAPES); dΘ
+    of two K1 launches, F's output and K2's dx of two launches must be
+    equal bit for bit; the float32 kernels within SPLIT_TOL of the plain
+    float32 versions in the output, dA, dΘ and dx, where a no-split control
+    is not (f32_split_check); the bf16 K1's dΘ within K1_SPLIT_TOL of the
+    plain float32 dΘ, which a no-split control misses; the bf16 F and K2
+    differ from the plain bf16 output on at most F_SPLIT_SHARE of their
+    outputs, where no-split controls differ on more, also at
+    BELL_CORNER_SHAPES. Each row names its design and plan and carries the
     float32 kernel's time at its shape."""
     check_k1_smem()
     check_k2_smem()
@@ -826,6 +954,7 @@ def phase_bell_kernels():
         bell = bell_graph(kind, BS)
         t = bell.tensors
         A, Np = bell.num_active, bell.padded_nodes
+        big = C * T * B * A * BS > 2e9 or C * Co >= 128 * 128
         for dtype in (torch.float32, torch.bfloat16):
             tol = BELL_TOL[dtype]
             z = bell_inputs(bell, B, H, C, T, Co, dk, dtype, seed)
@@ -848,7 +977,7 @@ def phase_bell_kernels():
             errs = {"bell_fused": [rel_err(out_k, out_p)],
                     "bell_k1": [rel_err(dA_k, dA_p), rel_err(dth_k, dth_p)],
                     "bell_k2": [rel_err(dx_k, dx_p)]}
-            split = f_split = k2_split = None
+            split = f_split = k2_split = f32_split = None
             if dtype == torch.bfloat16:
                 k2_split = k2_split_check(k2_args, dx_k, dx_p)
                 ctl = f_nosplit_plain(*f_args)
@@ -863,21 +992,32 @@ def phase_bell_kernels():
                          "tol": K1_SPLIT_TOL}
                 split["ok"] = split["dtheta_rel_err"] <= K1_SPLIT_TOL < split["nosplit_rel_err"]
                 del ctl
+            else:
+                f32_split = f32_split_check(
+                    f_args, k1_args, k2_args,
+                    {"out": out_k, "dA": dA_k, "dtheta": dth_k, "dx": dx_k},
+                    {"out": out_p, "dA": dA_p, "dtheta": dth_p, "dx": dx_p})
             del out_p, dA_p, dth_p, dx_p
             bounds = bell_bounds(B, H, A, BS, dk, C, T, Co, Np, dtype)
-            iters = 5 if Np > 1024 else 20
+            iters = 3 if big else 5 if Np > 1024 else 20
             fns = {"bell_fused": (lambda: bell_fused.bell_forward_cuda(*f_args),
                                   lambda: bell_fused.bell_forward_plain(*f_args)),
                    "bell_k1": (lambda: bell_bwd.bell_k1_cuda(*k1_args),
                                lambda: bell_bwd.bell_k1_plain(*k1_args[:2], *k1_args[4:])),
                    "bell_k2": (lambda: bell_bwd.bell_k2_cuda(*k2_args),
                                lambda: bell_bwd.bell_k2_plain(*k2_args))}
+            plans = {"bell_fused": bell_fused.f_plan(BS, C, Co, T, H, dtype),
+                     "bell_k1": bell_bwd.k1_plan(BS, C, Co, T, dtype),
+                     "bell_k2": bell_bwd.k2_plan(BS, C, Co, T, dtype)}
+            plans["bell_k1"]["time_groups"] = bell_bwd.k1_time_groups(
+                B, bell.num_tiles, BS, H, C, Co, T)
             for name, (kern, plain) in fns.items():
                 row = {"kernel": name, "shape": label, "dtype": str(dtype).split(".")[-1],
                        "B": B, "H": H, "N": bell.n_nodes, "BS": BS, "A": A,
                        "S": bell.max_blocks, "C": C, "T": T, "Co": Co, "d_k": dk,
                        "max_abs_err": max(e[0] for e in errs[name]),
-                       "rel_err": max(e[1] for e in errs[name]), "tol": tol}
+                       "rel_err": max(e[1] for e in errs[name]), "tol": tol,
+                       "plan": plans[name]}
                 row["ok"] = row["rel_err"] <= tol
                 if name == "bell_k1":
                     row["dtheta_bit_identical"] = bool(torch.equal(dth_k, dth_again))
@@ -891,8 +1031,10 @@ def phase_bell_kernels():
                     row["dx_bit_identical"] = bool(torch.equal(dx_k, dx_again))
                     if k2_split is not None:
                         row["split_check"] = k2_split
+                if f32_split is not None:
+                    row["split_check"] = f32_split
                 row["ms"] = cuda_ms(kern, iters)
-                row["plain_ms"] = cuda_ms(plain, max(2, iters // 4))
+                row["plain_ms"] = cuda_ms(plain, max(1, iters // 4))
                 row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
                 row["design"] = bell_design(name, dtype)
                 f32 = [r for r in rows if r["kernel"] == name and r["shape"] == label
@@ -907,6 +1049,8 @@ def phase_bell_kernels():
                       f"the bf16 F's split check at {label}: {f_split}")
                 check(name != "bell_k2" or k2_split is None or k2_split["ok"],
                       f"the bf16 K2's split check at {label}: {k2_split}")
+                check(f32_split is None or f32_split["ok"],
+                      f"the float32 kernels' split check at {label}: {f32_split}")
                 check(row.get("dx_bit_identical", True),
                       f"K2's dx differs between two launches at {label} {dtype}")
                 check(row.get("out_bit_identical", True),
@@ -1548,95 +1692,73 @@ def measure_tat_passes(iters: int = 10, shape: str = "pems08_blocks2-4"):
     return out
 
 
-# kernel-name fragments of each K1 pass: the float32 CUDA-core kernels and
-# the bf16 tensor-core kernels of a pass share one
+# kernel-name fragments of each K1 pass (an older checkout's float32
+# CUDA-core kernels share them): dA, dΘ, and the fixed-order reduce of the
+# dΘ partials
 K1_PASSES = (("dA", ("k1_dA",)), ("dtheta", ("k1_dtheta",)),
              ("reduce", ("k1_reduce", "colsum_kernel")))
-K1_PASS_SHAPES = ("gambia_block1", "gambia_block2")
-
-
-def measure_k1_passes(iters: int = 10):
-    """K1 (rows 4-5) by pass at GAMBIA blocks 1 and 2 in each dtype,
-    through ``bell_bwd.bell_k1_cuda`` (an interface every version of the
-    package has, so a checkout of another commit can be measured with the
-    same function): the dA pass, the dΘ pass, the fixed-order reduce of the
-    dΘ partials, and "other" (the wrapper's allocations and casts)."""
-    out = {"iters": iters}
-    for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
-        if label not in K1_PASS_SHAPES:
-            continue
-        bell = bell_graph(kind, BS)
-        t = bell.tensors
-        for dtype in F32_BF16:
-            z = bell_inputs(bell, B, H, C, T, Co, dk, dtype, seed)
-            args = (t["active_src"], t["active_tgt"], t["tile_start"], t["tile_count"],
-                    z["thetas"], z["gm"], z["x"], z["w"])
-            out[f"{label}_{str(dtype).split('.')[-1]}"] = _profile_passes(
-                lambda: bell_bwd.bell_k1_cuda(*args), iters, K1_PASSES)
-            del z, args
-            torch.cuda.empty_cache()
-    print("measure", json.dumps({"path": "k1_passes", **out}), flush=True)
-    return out
-
-
-# kernel-name fragments of K2's passes: Θ's split (the bf16 design) and the
-# dx pass (the float32 CUDA-core kernel, the bf16 tensor-core kernel)
+# kernel-name fragments of K2's passes: Θ's split and the dx pass (the
+# tensor-core kernel; k2_kernel names an older checkout's float32 one)
 K2_PASSES = (("theta_split", ("k2_theta_split",)), ("dx", ("k2_kernel", "k2_wmma_kernel")))
-K2_SHAPES = ("gambia_block1", "gambia_block2", "random1pct_n2139")
-
-
-def measure_k2(iters: int = 10):
-    """K2 (rows 6-7) at GAMBIA blocks 1 and 2 and on the 17-slot random
-    graph in each dtype, through ``bell_bwd.bell_k2_cuda`` (an interface
-    every version of the package has, so a checkout of another commit can
-    be measured with the same function): CUDA-event ms a call, and device
-    ms by pass (torch.profiler; "other" is the wrapper's allocations)."""
-    out = {"iters": iters}
-    for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
-        if label not in K2_SHAPES:
-            continue
-        bell = bell_graph(kind, BS)
-        t = bell.tensors
-        for dtype in F32_BF16:
-            z = bell_inputs(bell, B, H, C, T, Co, dk, dtype, seed)
-            args = (t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
-                    z["thetas"], z["gm"], z["w"])
-            run = lambda: bell_bwd.bell_k2_cuda(*args)
-            out[f"{label}_{str(dtype).split('.')[-1]}"] = {
-                "ms": cuda_ms(run, iters), **_profile_passes(run, iters, K2_PASSES)}
-            del z, args
-            torch.cuda.empty_cache()
-    print("measure", json.dumps({"path": "k2", **out}), flush=True)
-    return out
-
-
-# kernel-name fragments of each F pass: the weights pass (both dtypes), and
-# the SpMM with its Θ mix (the float32 CUDA-core kernel, the bf16
-# tensor-core kernel)
+# kernel-name fragments of each F pass: the weights pass and the SpMM with
+# its Θ mix (the tensor-core kernel, or an older checkout's CUDA-core one)
 F_PASSES = (("weights", ("weights_kernel",)), ("spmm", ("spmm",)))
+# PERF.md rows 2-7's shapes: GAMBIA blocks 1 and 2 and the 17-slot random graph
+BELL_ROW_SHAPES = ("gambia_block1", "gambia_block2", "random1pct_n2139")
 
 
-def measure_f_passes(iters: int = 10):
-    """F (rows 2-3) by pass at GAMBIA blocks 1 and 2 in each dtype, through
-    ``bell_fused.bell_forward_cuda`` (an interface every version of the
-    package has, so a checkout of another commit can be measured with the
-    same function): the weights pass, the SpMM/mix pass, and "other" (the
-    wrapper's allocations)."""
+def seeded_w(t: dict, shape, seed: int, dtype) -> torch.Tensor:
+    """Attention weights from the generator alone, zero on inactive slots:
+    active_softmax sums with index_add_, whose float atomics may change the
+    last bits from run to run, so outputs compared by their bits take these."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pattern = t["active_pattern"][None, :, None]
+    return (torch.rand(shape, generator=g, device="cuda") * pattern).to(dtype).contiguous()
+
+
+def _digest(ys) -> list:
+    """sha256 of each output's bytes (a tensor or a tuple of them; bf16
+    widened to float32, exactly)."""
+    return [hashlib.sha256(y.detach().float().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for y in (ys if isinstance(ys, (tuple, list)) else (ys,))]
+
+
+def measure_bell(kernel: str, iters: int = 10) -> dict:
+    """F (rows 2-3: the weights and SpMM/mix passes), K1 (rows 4-5: dA, dΘ
+    and the fixed-order reduce of the dΘ partials) or K2 (rows 6-7: Θ's
+    split and dx) at BELL_ROW_SHAPES in each dtype through its wrapper
+    (``bell_forward_cuda``, ``bell_k1_cuda``, ``bell_k2_cuda``: interfaces
+    every version of the package has, so a checkout of another commit is
+    measured with the same function): three CUDA-event timings of ``iters``
+    calls, device ms by pass (torch.profiler; "other" is the wrapper's
+    allocations and casts) and the sha256 of its outputs (w from
+    :func:`seeded_w`), with which two commits' bits are compared."""
     out = {"iters": iters}
     for seed, (label, kind, B, H, C, T, Co, BS, dk) in enumerate(BELL_SHAPES):
-        if label not in K1_PASS_SHAPES:
+        if label not in BELL_ROW_SHAPES:
             continue
         bell = bell_graph(kind, BS)
         t = bell.tensors
         for dtype in F32_BF16:
             z = bell_inputs(bell, B, H, C, T, Co, dk, dtype, seed)
-            args = (t["tile_start"], t["tile_count"], t["active_src"], z["q"], z["k"],
-                    z["bias"], z["cheb"], z["x"], z["thetas"])
-            out[f"{label}_{str(dtype).split('.')[-1]}"] = _profile_passes(
-                lambda: bell_fused.bell_forward_cuda(*args), iters, F_PASSES)
-            del z, args
+            w = seeded_w(t, z["w"].shape, 400 + seed, dtype)
+            run, passes = {
+                "F": (lambda: bell_fused.bell_forward_cuda(
+                    t["tile_start"], t["tile_count"], t["active_src"], z["q"], z["k"],
+                    z["bias"], z["cheb"], z["x"], z["thetas"]), F_PASSES),
+                "K1": (lambda: bell_bwd.bell_k1_cuda(
+                    t["active_src"], t["active_tgt"], t["tile_start"], t["tile_count"],
+                    z["thetas"], z["gm"], z["x"], w), K1_PASSES),
+                "K2": (lambda: bell_bwd.bell_k2_cuda(
+                    t["src_start"], t["src_count"], t["src_order"], t["active_tgt"],
+                    z["thetas"], z["gm"], w), K2_PASSES)}[kernel]
+            out[f"{label}_{str(dtype).split('.')[-1]}"] = {
+                "ms": [cuda_ms(run, iters) for _ in range(3)],
+                **_profile_passes(run, iters, passes), "bits": _digest(run())}
+            del z, w, run
             torch.cuda.empty_cache()
-    print("measure", json.dumps({"path": "f_passes", **out}), flush=True)
+    path = {"F": "f_passes", "K1": "k1_passes", "K2": "k2"}[kernel]
+    print("measure", json.dumps({"path": path, **out}), flush=True)
     return out
 
 
@@ -1646,7 +1768,9 @@ TAT_PASS_SHAPES = {"t144_n8600": (128, 144, 8600, 2, 32, 32, False)}
 
 
 def measure_rows(out: Path, iters: int = 20) -> dict:
-    """PERF.md rows 8-11 by CUDA events, both dtypes: the TAt forward and
+    """PERF.md rows 2-11, both dtypes: F, K1 and K2 at BELL_ROW_SHAPES
+    (:func:`measure_bell`: CUDA events, device time by pass, output
+    digests); by CUDA events the TAt forward and
     backward kernels at PEMS08 blocks 2-4 and at GAMBIA's T = 144, the
     GTU's at the GAMBIA block and at C = 128 (several chunks of C), and
     the TAt at TAT_PASS_SHAPES by pass (device time, torch.profiler),
@@ -1655,9 +1779,11 @@ def measure_rows(out: Path, iters: int = 20) -> dict:
     ``gtu_forward_cuda``/``gtu_backward_cuda``), so a checkout of another
     commit is measured with the same function (``--rows OUT`` from that
     checkout, as ``--compare``; a shape that checkout's wrappers refuse
-    reads "refused"). Writes and returns {row: {dtype: (ms forward, ms
-    backward)}} and {passes: {shape: {dtype: ...}}}."""
-    res = {"package": tat_fused.__file__, "passes": {}}
+    reads "refused"). Writes and returns {"bell": {F, K1, K2: {shape_dtype:
+    ...}}}, {row: {dtype: (ms forward, ms backward)}} and {passes: {shape:
+    {dtype: ...}}}."""
+    res = {"package": tat_fused.__file__, "card": card_line(), "passes": {},
+           "bell": {k: measure_bell(k, iters) for k in ("F", "K1", "K2")}}
 
     def timed_or_refused(fwd, bwd):
         try:
@@ -1733,11 +1859,7 @@ def forward_bits(path: Path) -> dict:
         bell = bell_graph(kind, BS)
         t = bell.tensors
         z = bell_inputs(bell, B, H, C, T, Co, dk, torch.float32, 300 + seed)
-        # w from the generator alone: active_softmax sums with index_add_,
-        # whose float atomics may change the last bits from run to run
-        g = torch.Generator(device="cuda").manual_seed(400 + seed)
-        pattern = t["active_pattern"][None, :, None]
-        w = (torch.rand(z["w"].shape, generator=g, device="cuda") * pattern).contiguous()
+        w = seeded_w(t, z["w"].shape, 400 + seed, torch.float32)
         k1 = bell_bwd.bell_k1_cuda(t["active_src"], t["active_tgt"], t["tile_start"],
                                    t["tile_count"], z["thetas"], z["gm"], z["x"], w)
         outs[f"k1_{label}"] = list(k1)
@@ -1748,10 +1870,7 @@ def forward_bits(path: Path) -> dict:
             t["tile_start"], t["tile_count"], t["active_src"], z["q"], z["k"], z["bias"],
             z["cheb"], z["x"], z["thetas"])
         del z, w, k1
-    # sha256 of every output's bytes, a list per label
-    digest = lambda y: hashlib.sha256(y.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
-    outs = {label: [digest(y) for y in (ys if isinstance(ys, list) else [ys])]
-            for label, ys in outs.items()}
+    outs = {label: _digest(ys) for label, ys in outs.items()}
     if not path.exists():
         path.write_text(json.dumps(outs))
         result = {"saved": str(path)}
@@ -1767,8 +1886,8 @@ def forward_bits(path: Path) -> dict:
 def compare_run(out: Path) -> dict:
     """One side of a comparison of two commits in one chip call: the float32
     kernels' bits (against the first side's, saved beside ``out``), cheb_sat
-    at its four main shapes, K1 and F by pass at GAMBIA blocks 1-2, K2 there
-    and on the 17-slot random graph, and the GAMBIA dense (use_pallas) and
+    at its four main shapes, F, K1 and K2 by pass at GAMBIA blocks 1-2 and
+    on the 17-slot random graph, and the GAMBIA dense (use_pallas) and
     BELL-tiles bf16 epochs with and without fuse_gtu (ms/step, device time,
     epoch peak memory, the profile's ops by input shape), written to
     ``out``. Run it from a checkout of each commit in turns (parent, change,
@@ -1778,8 +1897,8 @@ def compare_run(out: Path) -> dict:
     out.parent.mkdir(parents=True, exist_ok=True)
     result = {"card": card_line(), "forward_bits": forward_bits(out.parent / "forward_bits.json"),
               "cheb_sat": measure_cheb_sat(),
-              "k1_passes": measure_k1_passes(), "f_passes": measure_f_passes(),
-              "k2": measure_k2()}
+              "k1_passes": measure_bell("K1"), "f_passes": measure_bell("F"),
+              "k2": measure_bell("K2")}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         result["gambia_dense"] = measure_gambia_fuse_gtu(Path(tmp), rounds=3, paths=("dense",))
         result["gambia_bell_tiles"] = measure_gambia_fuse_gtu(Path(tmp), rounds=3,
@@ -2249,7 +2368,7 @@ def phase_pems07_fused(root: Path):
 # the large-N and long-T paths: the fused TAt and GTU past the caps
 # the card had before
 LARGE_N = 8600               # LargeST California's sensors (LargeST, NeurIPS 2023)
-LARGE_N_SIZES = (64, 16, 16)  # windows a split: 4 train steps of 16, 1 val, 1 test
+LARGE_N_SIZES = (32, 16, 16)  # windows a split: 2 train steps of 16, 1 val, 1 test
 LARGE_N_KEYS = dict(sparse="true", sparse_format="bell", mask_format="tiles", block_size=128,
                     rcm="true", fuse_tat="true", batch_size=16)
 LARGE_N_LAUNCHES = dict(per_forward=("tat_fwd", "bell_fused"),
@@ -2730,6 +2849,124 @@ def phase_gambia_bell_rcm(root: Path):
     return out
 
 
+# the full-width BELL path: bench.py's GAMBIA BELL-tiles configuration with
+# nb_chev_filter = 128 (and the GTU's nb_time_filter with it: the GTU takes
+# the conv's channels), so block 2's conv has C = Co = 128 (M = C·T = 18,432)
+WIDE_CHEV = 128
+
+
+def write_gambia_project(root: Path, name: str, dtype: str, **training) -> Path:
+    """gambia_data's windows (N = 2139, F = 4, T = 144 → 12) as a
+    reference-format project for the training CLI: the windowed npz, the
+    grid graph as a dense adjacency (graph = G) and STAG CSV, the STRG CSV,
+    and the GAMBIA configuration of bench.py:222-236 (gambia_config's keys,
+    2 epochs) in ``dtype`` with ``training``'s keys over it."""
+    ds, A, pa = gambia_data()
+    data = root / "GAMBIA_r12_d0_w0_dstagnn.npz"
+    if not data.exists():
+        np.savez(data, **{f"{s}_x": getattr(ds, s).x for s in ("train", "val", "test")},
+                 **{f"{s}_target": getattr(ds, s).target for s in ("train", "val", "test")},
+                 mean=ds.mean, std=ds.std)
+        write_dense_csv(root / "gambia_adj.csv", A)
+        write_dense_csv(root / "gambia_strg.csv", pa)
+    t = gambia_config(A.shape[0]).training
+    keys = {k: getattr(t, k) for k in (
+        "in_channels", "nb_block", "n_heads", "K", "d_k", "d_model", "nb_chev_filter",
+        "nb_time_filter", "batch_size", "learning_rate")}
+    keys.update(epochs=2, use_pallas="true", compute_dtype=dtype, **training)
+    body = "\n".join(f"{k} = {str(v).lower() if isinstance(v, bool) else v}"
+                     for k, v in keys.items())
+    conf = root / f"{name}.conf"
+    conf.write_text(f"""[Data]
+adj_filename = {root}/gambia_adj.csv
+graph_signal_matrix_filename = {root}/GAMBIA.npz
+stag_filename = {root}/gambia_adj.csv
+strg_filename = {root}/gambia_strg.csv
+num_of_vertices = {A.shape[0]}
+points_per_hour = 12
+num_for_predict = {GAMBIA_T_PRED}
+len_input = {GAMBIA_T_IN}
+dataset_name = GAMBIA_SYN
+
+[Training]
+model_name = dstagnn
+graph = G
+num_of_hours = 12
+num_of_days = 0
+num_of_weeks = 0
+{body}
+""")
+    return conf
+
+
+def bell_plain_check(trainer, last: Path) -> dict:
+    """One test batch in float32 through the checkpoint's model with the
+    BELL forward kernel and with its plain version in its place (the same
+    weights), within TOL of the output's scale; the kernel launched once a
+    block and the plain pass launching none."""
+    from dstagnn_drought_tpu_torch.training.step import eval_step
+
+    x_full, y_full = trainer._splits["test"]
+    bs, nb = trainer.cfg.training.batch_size, trainer.cfg.training.nb_block
+    kernel, preds, counts = bell_fused.bell_forward, {}, {}
+    for plain in (False, True):
+        if plain:
+            bell_fused.bell_forward = bell_fused.bell_forward_plain
+        before = bell_fused.launches
+        try:
+            preds[plain], _ = eval_step(trainer.model, x_full[:bs], y_full[:bs],
+                                        trainer.constants, compute_dtype=torch.float32)
+        finally:
+            bell_fused.bell_forward = kernel
+        torch.cuda.synchronize()
+        counts[plain] = bell_fused.launches - before
+    err, rel = rel_err(preds[False], preds[True])
+    check(counts == {False: nb, True: 0}, f"BELL forward launches in the model check: {counts}")
+    check(rel <= TOL and bool(torch.isfinite(preds[False]).all()),
+          f"BELL kernels vs their plain versions at full width: {rel:.3g} of scale > {TOL}")
+    return {"batch": bs, "max_abs_err": err, "rel_err": rel, "tol": TOL,
+            "checkpoint": last.name, "launches": counts[False]}
+
+
+def phase_gambia_wide(root: Path):
+    """This slice's full-width path: the training CLI at bench.py's GAMBIA
+    BELL-tiles configuration with nb_chev_filter = nb_time_filter = 128
+    (block 2's conv at C = Co = 128), 2 epochs of 3 steps in float32 and 2 in bf16: finite,
+    falling losses, a checkpoint and the report (run_pems08_cli), F once a
+    block of every forward pass and K1, K2 once a block of every train step;
+    the float32 run's last checkpoint on one test batch against the same
+    weights through the plain versions (bell_plain_check); then one epoch
+    of each run's checkpoint for ms/step and its peak memory, and a
+    profiled one for device ms/step and the busy share."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        conf = write_gambia_project(root, f"GAMBIA_WIDE_{dtype}", dtype,
+                                    nb_chev_filter=WIDE_CHEV, nb_time_filter=WIDE_CHEV,
+                                    **BELL_TILES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run, counts, _, _, run_dir = run_pems08_cli(root, conf, root / f"exp_wide_{dtype}")
+        res = {"path": f"gambia_bell_tiles_c{WIDE_CHEV}_cli_{dtype}", **run, "launches": counts,
+               "run_peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+               "cli_seconds": time.perf_counter() - t0}
+        check_launches(res, **BELL_LAUNCHES, never=("cheb_sat", "gtu_fwd", "gtu_bwd"))
+        trainer, last = checkpoint_trainer(conf, run_dir)
+        if dtype == "float32":
+            res["plain_check"] = bell_plain_check(trainer, last)
+        ms, peak = epoch_peak(trainer, 0)
+        prof = profile_epoch(trainer, top=8)
+        res["epoch"] = {"ms_per_step": ms, "epoch_peak_mib": peak,
+                        "device_ms_per_step": prof["device_ms_per_step"],
+                        "busy_share": prof["busy_share"], "steps": prof["steps"],
+                        "top_kernels": prof["top_kernels"]}
+        del trainer
+        torch.cuda.empty_cache()
+        print("main_path", json.dumps(res), flush=True)
+        out[dtype] = res
+    return out
+
+
 def measure_gambia_bell(root: Path, rounds: int = 2):
     """GAMBIA train-step time of the BELL tiles path against the dense path
     with the cheb_sat kernel and with the plain aggregation (bench.py's
@@ -2764,7 +3001,7 @@ def measure_gambia_bell(root: Path, rounds: int = 2):
 
 STAG_T = 287          # GAMBIA's monthly steps (benchmarks/gambia_bench.py:7-9)
 STAG_NODES = 128      # the Sinkhorn run's nodes: 8,128 pairs, two blocks of 4096
-STAG_SUBSET = 16      # the nodes whose Sinkhorn result the CPU run checks
+STAG_SUBSET = 8       # the nodes whose Sinkhorn result the CPU run checks (28 pairs)
 # card against the port's own CPU run of the same float32 ops, relative to
 # the largest distance: the log-sum-exp reductions and exp run in another
 # order and implementation over 200 iterations; the float32 result itself
@@ -2806,8 +3043,8 @@ def phase_stag(root: Path):
     """STAG construction on the card at GAMBIA's shapes (T=287, F=4): the
     fast PCA variant at full N=2139; the Sinkhorn STAG (200 iterations,
     blocks of 4096 pairs) of the first 128 nodes through the stag_gen CLI,
-    its CSVs read back by the port's loaders; its first 16 nodes held
-    against the port's own CPU run."""
+    its CSVs read back by the port's loaders; its first STAG_SUBSET nodes
+    held against the port's own CPU run."""
     sig, coords = synth_drought()
     N = sig.shape[1]
     torch.cuda.synchronize()
@@ -2837,15 +3074,15 @@ def phase_stag(root: Path):
     check(np.array_equal(load_strg_adjacency(r_path), (R > 0).astype(np.float64)),
           "strg CSV read back differs")
 
-    sub16 = sig[:, :STAG_SUBSET]
+    sub_n = sig[:, :STAG_SUBSET]
     kw = dict(num_iters=200, block_size=STAG_SUBSET * (STAG_SUBSET - 1) // 2)
-    card16 = sta_matrix(sub16, device="cuda", **kw)
+    card_n = sta_matrix(sub_n, device="cuda", **kw)
     t0 = time.perf_counter()
-    cpu16 = sta_matrix(sub16, device="cpu", **kw)
+    cpu_n = sta_matrix(sub_n, device="cpu", **kw)
     cpu_s = time.perf_counter() - t0
-    scale = float(np.abs(cpu16).max())
-    err = float(np.abs(card16 - cpu16).max()) / scale
-    in_blocks = float(np.abs(card16 - sta[:STAG_SUBSET, :STAG_SUBSET]).max()) / scale
+    scale = float(np.abs(cpu_n).max())
+    err = float(np.abs(card_n - cpu_n).max()) / scale
+    in_blocks = float(np.abs(card_n - sta[:STAG_SUBSET, :STAG_SUBSET]).max()) / scale
     out = {"path": "stag", "device": torch.cuda.get_device_name(0), "T": STAG_T,
            "F": sig.shape[2], "fast_N": N, "fast_seconds": fast_s,
            "fast_nonzero_pairs": int((np.triu(fast, 1) > 0).sum()),
@@ -3021,19 +3258,21 @@ def phase_gambia_ell(root: Path):
 
 ZOO = ("astgcn", "mstgcn", "stgcn", "transformer")
 ZOO_BF16 = ("astgcn", "transformer")  # the families whose softmaxes run in bf16
+ZOO_CHECK_WINDOWS = 16  # test windows of the card-vs-CPU check (the CPU side takes its time)
 
 
 def zoo_model_check(conf: Path, run_dir: Path):
-    """Float32, full width, the run's last checkpoint, one test batch: the
-    card's predictions against the same weights on the CPU, within TOL of
-    the output's scale (TF32 off). Returns (the check, the Trainer with
-    those weights on the card)."""
+    """Float32, full width, the run's last checkpoint, the first
+    ZOO_CHECK_WINDOWS windows of one test batch: the card's predictions
+    against the same weights on the CPU, within TOL of the output's scale
+    (TF32 off). Returns (the check, the Trainer with those weights on the
+    card)."""
     import copy
 
     from dstagnn_drought_tpu_torch.training.step import eval_step
 
     trainer, last = checkpoint_trainer(conf, run_dir)
-    bs = trainer.cfg.training.batch_size
+    bs = min(trainer.cfg.training.batch_size, ZOO_CHECK_WINDOWS)
     x, y = (s[:bs] for s in trainer._splits["test"])
     pred, _ = eval_step(trainer.model, x, y, trainer.constants)
     torch.cuda.synchronize()
@@ -3616,11 +3855,11 @@ def first_step_grads(tr):
 
 
 def multi_run(root: Path, run: tuple, single: bool = False) -> tuple[dict, dict]:
-    """One epoch of 3 steps and one eval of ``run`` (on one process when
-    ``single``), the launch counts set to 0 just before and read just after
-    each, then a second epoch timed. Returns (record, whole tensors): the
-    per-step losses, val predictions, a digest of every parameter this rank
-    holds whole, the launches and ms/step; the final weights, the first
+    """One timed epoch of 3 steps and one eval of ``run`` (on one process
+    when ``single``), the launch counts set to 0 just before and read just
+    after each. Returns (record, whole tensors): the per-step losses, val
+    predictions, a digest of every parameter this rank holds whole, the
+    launches and the first epoch's ms/step; the final weights, the first
     step's gradients (gathered whole from the slices) and, on a data mesh,
     the rank's own first-step gradients before the data-group sum, float32
     numpy."""
@@ -3629,8 +3868,10 @@ def multi_run(root: Path, run: tuple, single: bool = False) -> tuple[dict, dict]
           else multi_trainer(root, *run))
     grads, own, undo = first_step_grads(tr)
     reset_launches()
+    t0 = time.perf_counter()
     tr.train_epoch(0)
     torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / tr.last_epoch_steps * 1e3
     train_launches, losses = read_launches(), list(tr.last_losses)
     undo()
     if tr.layout is not None:  # collective over the data row
@@ -3645,11 +3886,6 @@ def multi_run(root: Path, run: tuple, single: bool = False) -> tuple[dict, dict]
     digests = {n: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
                for n, p in tr.model.named_parameters()
                if tr.layout is None or not tr.layout.sliced(n)}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tr.train_epoch(1)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / tr.last_epoch_steps * 1e3
     record = {"losses": losses, "val_loss": val_loss, "pred": pred, "digests": digests,
               "train_launches": train_launches, "eval_launches": eval_launches,
               "ms_per_step": ms, "steps": tr.last_epoch_steps,
@@ -4058,14 +4294,15 @@ C_MAJOR_SITES = {"bell_fused": "dstagnn_drought_tpu/ops/pallas/bell_fused.py:812
 
 
 def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused, gtu,
-                 gtu_bell, multi, pems07, large_n, long_t):
+                 gtu_bell, multi, pems07, large_n, long_t, wide):
     """One record per TPU kernel for the JSON line (13; a c-major variant's
     record repeats its port kernel's, ``kernel_of``): launches from its main
     path, times and bound at the main path's shape (the fused TAt and
     spatial rows: launches from the PEMS07 bf16 run, times at PEMS08
     blocks 2-4 as before, the PEMS07 shape's beside them; the TAt and GTU
     rows also carry the large-N and long-T CLI runs' launches and their
-    times at the shapes past the old caps, ``new_shapes``)."""
+    times at the shapes past the old caps, ``new_shapes``; the BELL rows
+    the full-width CLI runs' launches and their times at BELL_NEW_SHAPES)."""
     main_row = next(r for r in rows if r["shape"] == "pems08_blocks2-4")
     g2 = next(r for r in rows if r["shape"] == "gambia_block2")
     src, site = KERNEL_SITES["cheb_sat"]
@@ -4094,6 +4331,9 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "bound_by": main["bound_by"], "library_ms": None,
             "shape": "GAMBIA block 2, bf16: B=4 H=2 N=2139 BS=128 A=49 C=32 T=144 Co=32",
             "design": main["design"], "f32_ms": main["f32_ms"],
+            "f32_design": bell_design(name, torch.float32),
+            "launches_wide": {dt: run["launches"][name] for dt, run in wide.items()},
+            "new_shapes": new_shape_times(mine, BELL_NEW_SHAPES),
         })
     out += [dict(line, name=f"{line['name']}_c", replaces=C_MAJOR_SITES[line["name"]],
                  kernel_of=line["name"]) for line in out if line["name"] in C_MAJOR_SITES]
@@ -4178,7 +4418,7 @@ def main(argv=None) -> int:
                     help="build, then run only compare_run (one side of a comparison of "
                          "two commits) into OUT")
     ap.add_argument("--rows", type=Path, default=None, metavar="OUT",
-                    help="build, then time only PERF.md rows 8-11 (measure_rows) into OUT")
+                    help="build, then time only PERF.md rows 2-11 (measure_rows) into OUT")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4189,7 +4429,8 @@ def main(argv=None) -> int:
     card = card_line()
     t_start = time.perf_counter()
 
-    report = build.build(("tat_fused", "gtu_fused") if args.rows else build.SOURCES)
+    report = build.build(("bell_fused", "bell_bwd", "tat_fused", "gtu_fused") if args.rows
+                         else build.SOURCES)
     builds = {}
     for name, r in report.items():
         print(f"build {name}: {r['seconds']:.2f} s", flush=True)
@@ -4235,6 +4476,7 @@ def main(argv=None) -> int:
         tiles = timed(phase_gambia_bell_tiles, root)
         gtu_bell = timed(phase_gambia_bell_fuse_gtu, root)
         rcm = timed(phase_gambia_bell_rcm, root)
+        wide = timed(phase_gambia_wide, root)
         stag = timed(phase_stag, root)
         ell = timed(phase_gambia_ell, root)
         zoo = timed(phase_zoo, root, args.measure)
@@ -4257,7 +4499,7 @@ def main(argv=None) -> int:
                         "stag_full": measure_stag_full()}
 
     kernels = kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused,
-                           gtu, gtu_bell, multi, pems07, large_n, long_t)
+                           gtu, gtu_bell, multi, pems07, large_n, long_t, wide)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
@@ -4265,7 +4507,7 @@ def main(argv=None) -> int:
             "fused": fused_rows, "gtu": gtu_rows, "pems08": pems, "pems08_fused": fused,
             "pems07_fused": pems07, "large_n": large_n, "long_t": long_t,
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
-            "gambia_bell_rcm": rcm, "gambia_fuse_gtu": gtu,
+            "gambia_bell_rcm": rcm, "gambia_wide": wide, "gambia_fuse_gtu": gtu,
             "gambia_bell_tiles_fuse_gtu": gtu_bell, "stag": stag, "gambia_ell": ell,
             "zoo": zoo, "knobs": knobs, "multi": multi, "kernels": kernels,
             "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start,

@@ -9,7 +9,8 @@
 //   out[j]   = relu(sum_h (sum_u w_u^T X[s_u]) Theta_h)
 // q, k (B, Np, H, dk), bias and cheb tiles (A, H, BS, BS), Theta (H, C, Co)
 // are float; x (B, Np, C*T), out (B, Np, Co*T) and the scratch w
-// (B, A, H, BS, BS) are in the compute dtype (float or bf16). BS <= 128.
+// (B, A, H, BS, BS) are in the compute dtype (float or bf16). Any C, Co,
+// block size and d_k.
 //
 // Replaces the Pallas kernels of dstagnn_drought_tpu/ops/pallas/
 // bell_fused.py: `bell_fused_forward` (`_make_kernel_single`,
@@ -22,42 +23,38 @@
 // the bytes of x, the output and the tiles. At the main path's GAMBIA shape
 // (block 2: B=4, H=2, A=49, BS=128, dk=32, M=C*T=4608, Co=32) that is ~65 GFLOP
 // over ~0.1 GB: bound by operations (about 0.07 ms at the bf16 tensor-core
-// peak, 1 ms at the float32 CUDA-core peak). Two passes:
+// peak). Two passes:
 //   pass 1 (weights_kernel, both dtypes): one block per (32 target columns,
 //     j, h, b) computes each target column's max and sum of exp over every
 //     slot (online, even and odd source rows apart, merged at the end),
 //     then recomputes the scores and writes w = T_k (.) exp(s - max) / sum
 //     in the compute dtype into the scratch (the softmax needs the whole
 //     neighbourhood before any weight is final); scores in float32 on the
-//     CUDA cores, as the TPU kernel takes q and k in float32;
-//   pass 2, float32 (spmm_kernel): one block per (time chunk, j, b) covers
-//     TT time steps with every channel (C*TT <= 64), so the Theta mix closes
-//     in the block: per head, 128 targets x C*TT features are summed over
-//     all slots' source rows (32-row chunks of w and x staged in shared
-//     memory, 8 x 4 float sums per thread, float32 FMAs on the CUDA cores)
-//     and kept in shared memory; the epilogue mixes the heads by Theta into
-//     Co*TT outputs per target and writes the ReLU'd result once;
-//   pass 2, bf16 (f_spmm_wmma_kernel): the same function on the tensor
-//     cores (WMMA, bf16 products, float32 sums), one block per (NT chunks
-//     of 8 steps, TN target columns, j, b), every channel of its steps, so
-//     the Theta mix closes in the block. agg = w^T . x over every slot's
-//     source rows, KC rows a stage in two cp.async stages (w read as
-//     a column-major A, no transpose; x by 16-byte row segments of 8
-//     steps), two heads sharing each stage's x rows; agg leaves the
-//     accumulators split into bf16 hi + lo ([h*C + c][t*S + step] in shared
-//     memory, every head kept), and the mix out = agg . Theta contracts over
-//     (h, c) in three bf16 products (hi.hi + hi.lo + lo.hi) against Theta,
-//     split in the same way into the freed stages: float32 in value, as the
-//     TPU kernel mixes a float32 agg by a float32 Theta, agg never rounded
-//     to bf16 first. The epilogue applies the ReLU, rounds to bf16 once and
-//     stores 8 steps a (target, output channel) as 16 bytes. What holds it
-//     at the GAMBIA blocks is the staging: x's 16-byte row segments (one per
-//     32-byte L2 sector) are read again for each TN-column tile, one block
-//     an SM (its every-head agg is ~130 KB), and the cp.async issue does not
-//     overlap the warps' own products.
+//     CUDA cores, as the TPU kernel takes q and k in float32, over d_k in
+//     chunks of kDC staged columns (one chain of FMAs a score, in order, so
+//     the chunks do not change its bits);
+//   pass 2 (f_spmm_wmma_kernel, both dtypes, on the tensor cores): one block
+//     per (NT chunks of 8 steps S, TN target columns, OCB output columns, j,
+//     b). It takes the channels in chunks of CC and the heads in groups of
+//     HG (JAX's c-major M-tiles, the Theta mix summed across them): for each
+//     (channel chunk, head group), agg = w^T . x over every slot's source
+//     rows, KC rows a stage in two stages (cp.async for bf16; w read as a
+//     column-major A, no transpose; x by 16-byte row segments of 8 steps),
+//     the HG heads sharing each stage's x rows; agg leaves the accumulators
+//     split into bf16 hi + lo ([hh*CC + c][t*S + step] in shared memory), and
+//     out += agg . Theta[group, chunk, :] contracts over (hh, c) in three
+//     bf16 products (hi.hi + hi.lo + lo.hi) against Theta, split in the same
+//     way into the freed stages: float32 in value, as the TPU kernel mixes a
+//     float32 agg by a float32 Theta. Where the block takes more than one
+//     (chunk, group), out's float32 sums wait in shared memory between them;
+//     the last applies the ReLU, rounds once and stores 8 steps a (target,
+//     output channel). Float32 x and w are split into hi + lo where staged,
+//     and the SpMM is three products too. Where the output columns do not
+//     fit one block's sums, they are tiled across blocks (OCB), each output
+//     tile written once, by the block that owns it.
 // The (B, H, Np, C*T) aggregation never reaches device memory. Ragged edges
-// (BS < 128, T not a multiple of the chunk) are masked in the kernels; no
-// block sums across another, so two launches give the same bits.
+// are masked in the kernels; no block sums across another, so two launches
+// give the same bits.
 
 #include "bell_common.cuh"
 
@@ -67,6 +64,7 @@ using namespace bell;
 
 constexpr int kQRows = 32;  // source rows of q staged per chunk
 constexpr int kWCols = 32;  // target columns a weights block (a lane a column)
+constexpr int kDC = 128;    // d_k columns of q and k staged at a time
 
 // One online (max, sum of exp) pair over a target column's scores in order.
 __device__ __forceinline__ void online_update(float s, float& m, float& l) {
@@ -78,15 +76,22 @@ __device__ __forceinline__ void online_update(float s, float& m, float& l) {
   }
 }
 
+__host__ __device__ inline size_t weights_smem_bytes(int dk) {
+  const int dc = dk < kDC ? dk : kDC;
+  return sizeof(float) * (kQRows * dc + kQRows * (kWCols + 1) + 4 * kWCols +
+                          (dk == 32 ? 0 : kWCols * (dc | 1)));
+}
+
 // The weights pass: one block per (kWCols target columns, j, h, b), 8
 // warps, lane = column. For each chunk of kQRows source rows of each slot,
 // warp w scores rows w + 8i of the lane's column (its k row in registers
-// where DK > 0, q rows read as float4; else both from shared memory). Pass
-// 0 puts the scores in shared memory and warp 0 (even rows) and warp 1 (odd
-// rows) fold them in row order into online (max, sum) pairs, merged into
-// the column's max and 1/sum at the end (even rows first); pass 1 recomputes
-// the scores and writes w. The order of each column's sums is fixed: the
-// float32 forward's bits depend on it.
+// where DK > 0, q rows read as float4; else both from shared memory, over d_k
+// in chunks of kDC columns, k's chunk restaged with q's where there is more
+// than one). Pass 0 puts the scores in shared memory and warp 0 (even rows)
+// and warp 1 (odd rows) fold them in row order into online (max, sum) pairs,
+// merged into the column's max and 1/sum at the end (even rows first); pass
+// 1 recomputes the scores and writes w. The order of each column's sums is
+// fixed: the float32 forward's bits depend on it.
 template <typename T, int DK>
 __global__ void __launch_bounds__(kThreads)
 weights_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_count,
@@ -102,24 +107,29 @@ weights_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_
   const size_t Np = (size_t)NJ * BS;
   const int col = c0 + lane;  // target column of this lane
   const bool live = col < BS;
-  const int ldk = dk | 1;     // odd stride: column reads hit distinct banks
+  const int dc = DK > 0 ? DK : min(dk, kDC), n_dc = (dk + dc - 1) / dc;
+  const int ldk = dc | 1;     // odd stride: column reads hit distinct banks
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                      // [kQRows][dk]
-  float* s_s = q_s + kQRows * dk;         // [kQRows][kLdS32] scores (pass 0)
+  float* q_s = smem;                      // [kQRows][dc]
+  float* s_s = q_s + kQRows * dc;         // [kQRows][kLdS32] scores (pass 0)
   float* stat = s_s + kQRows * kLdS32;    // [4][kWCols]: m, l of both parities
   float* k_s = stat + 4 * kWCols;         // [kWCols][ldk] (DK == 0)
   float kr[DK > 0 ? DK : 1];
+  auto stage_k = [&](int d0, int dn) {
+    for (int e = threadIdx.x; e < kWCols * dn; e += kThreads) {
+      const int t = e / dn, d = e % dn;
+      if (c0 + t < BS)
+        k_s[t * ldk + d] = k[((b * Np + (size_t)j * BS + c0 + t) * H + h) * dk + d0 + d];
+    }
+  };
   if (DK > 0) {
     if (live)
       for (int d = 0; d < DK; ++d) kr[d] = k[((b * Np + (size_t)j * BS + col) * H + h) * DK + d];
-  } else {
-    for (int e = threadIdx.x; e < kWCols * dk; e += kThreads) {
-      const int t = e / dk, d = e % dk;
-      if (c0 + t < BS) k_s[t * ldk + d] = k[((b * Np + (size_t)j * BS + c0 + t) * H + h) * dk + d];
-    }
+  } else if (n_dc == 1) {
+    stage_k(0, dk);
   }
-  auto score = [&](int r) {
-    float s = 0.f;
+  // s += q row r . k column over the staged chunk of dn columns
+  auto score = [&](int r, int dn, float s) {
     if (DK > 0) {
       const float4* q4 = reinterpret_cast<const float4*>(q_s + r * DK);
 #pragma unroll
@@ -131,7 +141,7 @@ weights_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_
         s = fmaf(v.w, kr[4 * d4 + 3], s);
       }
     } else {
-      for (int d = 0; d < dk; ++d) s = fmaf(q_s[r * dk + d], k_s[lane * ldk + d], s);
+      for (int d = 0; d < dn; ++d) s = fmaf(q_s[r * dn + d], k_s[lane * ldk + d], s);
     }
     return s;
   };
@@ -146,19 +156,8 @@ weights_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_
       T* w_t = w + (((size_t)b * A + a) * H + h) * BS * BS;
       for (int r0 = 0; r0 < BS; r0 += kQRows) {
         const int nr = min(kQRows, BS - r0);
-        __syncthreads();  // the last chunk's q rows and scores consumed
-        for (int e = threadIdx.x; e < nr * dk; e += kThreads) {
-          const int r = e / dk, d = e % dk;
-          q_s[e] = q[((src_row0 + r0 + r) * H + h) * dk + d];
-        }
-        __syncthreads();
-        if (live) {
-          float s[kQRows / kWarps];
-#pragma unroll
-          for (int i = 0; i < kQRows / kWarps; ++i) {
-            const int r = warp + kWarps * i;
-            s[i] = r < nr ? score(r) : 0.f;
-          }
+        // the scores s[i] of rows warp + 8i: out to the scores (pass 0) or w
+        auto emit = [&](const float (&s)[kQRows / kWarps]) {
 #pragma unroll
           for (int i = 0; i < kQRows / kWarps; ++i) {
             const int r = warp + kWarps * i;
@@ -170,6 +169,45 @@ weights_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_
             else
               w_t[o] = from_f<T>(cheb[tile + o] * (expf(v - mx) * inv));
           }
+        };
+        auto stage_q = [&](int d0, int dn) {
+          for (int e = threadIdx.x; e < nr * dn; e += kThreads) {
+            const int r = e / dn, d = e % dn;
+            q_s[e] = q[((src_row0 + r0 + r) * H + h) * dk + d0 + d];
+          }
+        };
+        if constexpr (DK > 0) {
+          __syncthreads();  // the last chunk's q rows and scores consumed
+          stage_q(0, DK);
+          __syncthreads();
+          if (live) {
+            float s[kQRows / kWarps];
+#pragma unroll
+            for (int i = 0; i < kQRows / kWarps; ++i) {
+              const int r = warp + kWarps * i;
+              s[i] = r < nr ? score(r, DK, 0.f) : 0.f;
+            }
+            emit(s);
+          }
+        } else {
+          float s[kQRows / kWarps];
+#pragma unroll
+          for (int i = 0; i < kQRows / kWarps; ++i) s[i] = 0.f;
+          for (int d0 = 0; d0 < dk; d0 += dc) {
+            const int dn = min(dc, dk - d0);
+            __syncthreads();  // the last chunk's q rows (k columns) and scores consumed
+            stage_q(d0, dn);
+            if (n_dc > 1) stage_k(d0, dn);
+            __syncthreads();
+            if (live) {
+#pragma unroll
+              for (int i = 0; i < kQRows / kWarps; ++i) {
+                const int r = warp + kWarps * i;
+                if (r < nr) s[i] = score(r, dn, s[i]);
+              }
+            }
+          }
+          if (live) emit(s);
         }
         if (pass == 0) {
           __syncthreads();
@@ -198,84 +236,11 @@ weights_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-spmm_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_count,
-            const int* __restrict__ active_src, const T* __restrict__ w,
-            const T* __restrict__ x, const float* __restrict__ thetas,
-            T* __restrict__ out, int A, int H, int NJ, int BS, int C, int T_len,
-            int Co, int TT) {
-  const int t0 = blockIdx.x * TT;
-  const int j = blockIdx.y, b = blockIdx.z;
-  const size_t Np = (size_t)NJ * BS;
-  const size_t M = (size_t)C * T_len, MO = (size_t)Co * T_len;
-  const int W = C * TT, WO = Co * TT;
-  constexpr int kLdAgg = kCols + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;                      // [kK][kRows]: source row x target
-  float* x_s = w_s + kK * kRows;          // [kK][kCols]: source row x feature
-  float* th_s = x_s + kK * kCols;         // [H][C][Co]
-  float* agg_s = th_s + H * C * Co;       // [H][kRows][kLdAgg]: target x feature
-  for (int e = threadIdx.x; e < H * C * Co; e += kThreads) th_s[e] = thetas[e];
-  const int start = tile_start[j], count = tile_count[j];
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[8][4];
-  for (int h = 0; h < H; ++h) {
-    zero(acc);
-    for (int u = 0; u < count; ++u) {
-      const int a = start + u;
-      const size_t src_row0 = b * Np + (size_t)active_src[a] * BS;
-      const T* w_t = w + (((size_t)b * A + a) * H + h) * BS * BS;
-      for (int r0 = 0; r0 < BS; r0 += kK) {
-        __syncthreads();
-        for (int e = threadIdx.x; e < kK * kRows; e += kThreads) {
-          const int kk = e / kRows, t = e % kRows;
-          w_s[e] = (r0 + kk < BS && t < BS) ? to_f(w_t[(size_t)(r0 + kk) * BS + t]) : 0.f;
-        }
-        for (int e = threadIdx.x; e < kK * kCols; e += kThreads) {
-          const int kk = e / kCols, mc = e % kCols;
-          const int c = mc / TT, tt = mc % TT;
-          float v = 0.f;
-          if (mc < W && t0 + tt < T_len && r0 + kk < BS)
-            v = to_f(x[(src_row0 + r0 + kk) * M + (size_t)c * T_len + t0 + tt]);
-          x_s[e] = v;
-        }
-        __syncthreads();
-        tile_fma(acc, w_s, kRows, x_s, kCols, min(kK, BS - r0));
-      }
-    }
-    // head h's aggregation stays in shared memory for the epilogue
-    float* agg_h = agg_s + h * kRows * kLdAgg;
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) agg_h[(ty * 8 + r) * kLdAgg + tx * 4 + c] = acc[r][c];
-  }
-  __syncthreads();
-  // epilogue: out = relu(sum_h agg_h Theta_h), each element written once
-  for (int e = threadIdx.x; e < kRows * WO; e += kThreads) {
-    const int t = e / WO, rem = e % WO;
-    const int o = rem / TT, tt = rem % TT;
-    if (t >= BS || t0 + tt >= T_len) continue;
-    float s = 0.f;
-    for (int h = 0; h < H; ++h) {
-      const float* agg_t = agg_s + (h * kRows + t) * kLdAgg + tt;
-      const float* th = th_s + h * C * Co + o;
-      float mix = 0.f;
-      for (int c = 0; c < C; ++c) mix = fmaf(agg_t[c * TT], th[c * Co], mix);
-      s += mix;
-    }
-    out[(b * Np + (size_t)j * BS + t) * MO + (size_t)o * T_len + t0 + tt] =
-        from_f<T>(fmaxf(s, 0.f));
-  }
-}
-
-template <typename T>
 cudaError_t launch_weights(const int* tile_start, const int* tile_count, const int* active_src,
                            const float* q, const float* k, const float* bias,
                            const float* cheb, void* w, int B, int A, int H, int NJ, int BS,
                            int dk, float scale, cudaStream_t st) {
-  const size_t smem1 = sizeof(float) * (kQRows * dk + kQRows * (kWCols + 1) + 4 * kWCols +
-                                         (dk == 32 ? 0 : kWCols * (dk | 1)));
+  const size_t smem1 = weights_smem_bytes(dk);
   auto kernel = dk == 32 ? weights_kernel<T, 32> : weights_kernel<T, 0>;
   cudaError_t err = allow_smem(kernel, smem1);
   if (err != cudaSuccess) return err;
@@ -285,89 +250,87 @@ cudaError_t launch_weights(const int* tile_start, const int* tile_count, const i
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch(const int* tile_start, const int* tile_count, const int* active_src,
-           const float* q, const float* k, const float* bias, const float* cheb, void* w,
-           const void* x, const float* thetas, void* out, int B, int A, int H, int NJ,
-           int BS, int dk, int C, int T_len, int Co, int TT, float scale,
-           cudaStream_t st) {
-  cudaError_t err = launch_weights<T>(tile_start, tile_count, active_src, q, k, bias, cheb, w,
-                                      B, A, H, NJ, BS, dk, scale, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem2 =
-      sizeof(float) * (kK * kRows + kK * kCols + H * C * Co + H * kRows * (kCols + 1));
-  err = allow_smem(spmm_kernel<T>, smem2);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  spmm_kernel<T><<<dim3((T_len + TT - 1) / TT, NJ, B), kThreads, smem2, st>>>(
-      tile_start, tile_count, active_src, static_cast<const T*>(w),
-      static_cast<const T*>(x), thetas, static_cast<T*>(out), A, H, NJ, BS, C, T_len, Co,
-      TT);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
-// bf16 pass 2 on the tensor cores (WMMA, 16x16x16 bf16 products, float32 sums)
+// pass 2 on the tensor cores (WMMA, 16x16x16 bf16 products, float32 sums)
 // ---------------------------------------------------------------------------
 
 constexpr int kFStages = 2;  // SpMM stages: one loads while the other is multiplied
 
-// Shared memory of f_spmm_wmma_kernel at TN target columns, NT chunks of kTT
-// steps, KC source rows and HG heads a stage (bytes): the warps' staging, the
-// stage region (two stages of HG w tiles [KC][TN + 8] and x [KC][pad16(C*S)
-// + 8]; after the slot loop, Θ's hi and lo in output-column chunks), and
-// agg's hi and lo for every head [pad16(H*C)][TN*S + 8] (bf16).
-
-__host__ __device__ inline size_t f_wmma_stage_bytes(int C, int TN, int NT, int KC, int HG) {
-  return 2 * (size_t)kFStages * KC * (HG * (TN + 8) + pad16(C * NT * kTT) + 8);
+// Shared memory of f_spmm_wmma_kernel (bytes) at TN target columns, NT chunks
+// of kTT steps, KC source rows and HG heads a stage, CC channels a chunk and
+// OCB output columns, P planes a staged operand (2: float32, split): the
+// warps' staging; the stage region (two stages of P planes of HG w tiles
+// [KC][TN + 8] and x [KC][pad16(CC*S) + 8]; in the mix, Θ's hi and lo in
+// output-column chunks); agg's hi and lo for the HG heads of a chunk
+// [pad16(HG*CC)][TN*S + 8] (bf16); and, where the block takes more than one
+// (channel chunk, head group), the float32 sums of its output tile.
+__host__ __device__ inline size_t f_wmma_stage_bytes(int P, int CC, int TN, int NT, int KC,
+                                                     int HG) {
+  return 2 * (size_t)kFStages * P * KC * (HG * (TN + 8) + pad16(CC * NT * kTT) + 8);
 }
 
-__host__ __device__ inline size_t f_wmma_smem_bytes(int C, int H, int TN, int NT, int KC,
-                                                    int HG) {
-  return 4 * (size_t)kWarps * kStage + f_wmma_stage_bytes(C, TN, NT, KC, HG) +
-         4 * (size_t)pad16(H * C) * (TN * NT * kTT + 8);
+__host__ __device__ inline size_t f_wmma_smem_bytes(int P, int C, int H, int TN, int NT, int KC,
+                                                    int HG, int CC, int OCB) {
+  const bool multi = cdiv(C, CC) * cdiv(H, HG) > 1;
+  return 4 * (size_t)kWarps * kStage + f_wmma_stage_bytes(P, CC, TN, NT, KC, HG) +
+         4 * (size_t)pad16(HG * CC) * (TN * NT * kTT + 8) +
+         (multi ? 4 * (size_t)TN * NT * kTT * OCB : 0);
 }
 
 // out[b, j*BS + tc + t][o*T + t0 + step] for TN = 16*RF target columns, S =
-// NT*kTT steps from t0, every output channel: one block per (chunk group g,
-// column tile, j, b), blockIdx.x = column tile * G + g, 8 warps.
-//   agg (TN targets x W = C*S columns (c, step)) of each head = sum over
+// NT*kTT steps from t0 and the OCB output columns from o_lo: one block per
+// (j, output block, column tile, chunk group), 8 warps.
+//   For each channel chunk c0 .. c0 + CC and head group h0 .. h0 + HG:
+//   agg (TN targets x W = CC*S columns (c, step)) of each head = sum over
 //     j's slots and their source rows of w_s^T . x_s: w_s [k][t] (column-
 //     major A), x_s [k][c*S + step] (row-major B), both read as fragments
 //     by ldmatrix (wm::load_*_shared). A stage holds KC source rows of x and
 //     of the w tiles of HG heads, which share it; the next stage loads
-//     (cp.async) while the tensor cores run on this one.
+//     (cp.async for bf16) while the tensor cores run on this one.
 //     Warp w holds, for each of the HG heads, every row tile and the column
 //     tiles w*CW .. w*CW + CW - 1 (past the last, the last again, not kept).
-//   agg -> bf16 hi + lo into agg_h/agg_l [h*C + c][t*S + step].
-//   After every head: Θ (H*C, Co) float is split into bf16 hi + lo in the
-//     stage region, OC output columns at a time, and out tile (TN*S rows
-//     (t, step) x Co) = agg . Θ over (h, c) in three products a depth step,
-//     warp w taking row tiles w + 8i; the epilogue applies the ReLU and
-//     writes 8 steps a (target, output channel) as one 16-byte store.
-template <int RF, int CW, int HG>
+//   agg -> bf16 hi + lo into agg_h/agg_l [hh*CC + c][t*S + step] (heads past
+//     H and channels past C are zeros: their accumulators and x columns are).
+//   Θ[group, chunk, block's columns] (float) is split into bf16 hi + lo in
+//     the stage region, OC output columns at a time, and the out tile (TN*S
+//     rows (t, step) x OC) += agg . Θ over (hh, c) in three products a depth
+//     step, warp w taking row tiles w + 8i: the sums start at zero at the
+//     first (chunk, group), wait in out_s between, and at the last the
+//     epilogue applies the ReLU and writes 8 steps a (target, output
+//     channel) as one 16-byte store (two for float32).
+// The stage region's padding (target columns past BS, x columns past W) is
+// zero at the first (chunk, group) and may hold the mix's Θ afterwards: it
+// reaches only agg rows and columns that no output reads.
+template <int RF, int CW, int HG, typename TIn>
 __global__ void __launch_bounds__(kThreads, 1)
 f_spmm_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict__ tile_count,
-                   const int* __restrict__ active_src, const wm::bf16* __restrict__ w,
-                   const wm::bf16* __restrict__ x, const float* __restrict__ thetas,
-                   wm::bf16* __restrict__ out, int A, int H, int NJ, int BS, int C, int T_len,
-                   int Co, int NT, int KC, int vec, int vec_w) {
+                   const int* __restrict__ active_src, const TIn* __restrict__ w,
+                   const TIn* __restrict__ x, const float* __restrict__ thetas,
+                   TIn* __restrict__ out, int A, int H, int NJ, int BS, int C, int T_len,
+                   int Co, int NT, int KC, int CC, int OCB, int vec, int vec_w) {
   namespace wmma = nvcuda::wmma;
   using wm::bf16;
+  constexpr bool F32 = sizeof(TIn) == 4;
+  constexpr int P = Planes<TIn>::n;
   constexpr int TN = RF * 16;
-  const int S = NT * kTT, W = C * S, Wp = pad16(W), CF = Wp / 16;
-  const int HC = H * C, HCp = pad16(HC), Cop = pad16(Co);
+  const int S = NT * kTT, W = CC * S, Wp = pad16(W), CF = Wp / 16;
+  const int HC = HG * CC, HCp = pad16(HC), Cop = pad16(Co);
   const int ldw = TN + 8, ldx = Wp + 8, ldT = TN * S + 8;
-  const int stage_len = KC * (HG * ldw + ldx);
-  const int G = (T_len + S - 1) / S;
-  const int t0 = (blockIdx.x % G) * S, tc = (blockIdx.x / G) * TN;
-  const int j = blockIdx.y, b = blockIdx.z;
+  const int plane = KC * (HG * ldw + ldx), stage_len = P * plane;
+  const int G = cdiv(T_len, S), n_ct = cdiv(BS, TN), n_ob = cdiv(Cop, OCB);
+  const int per_j = n_ob * n_ct * G;
+  const int j = blockIdx.x / per_j, rem = blockIdx.x % per_j, b = blockIdx.z;
+  const int ob = rem / (n_ct * G), t0 = (rem % G) * S, tc = (rem / G % n_ct) * TN;
+  const int o_lo = ob * OCB, o_n = min(OCB, Cop - o_lo), OFB = o_n / 16;
   const int n_tgt = min(TN, BS - tc);
+  const int n_cc = cdiv(C, CC), n_hg = cdiv(H, HG), n_mix = n_cc * n_hg;
   const size_t Np = (size_t)NJ * BS, M = (size_t)C * T_len, MO = (size_t)Co * T_len;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* scratch = reinterpret_cast<float*>(smem_raw);               // [warp][16][kLdS]
   bf16* stage = reinterpret_cast<bf16*>(scratch + kWarps * kStage);  // [2][stage_len]
   bf16* agg_h = stage + (size_t)kFStages * stage_len;                // [HCp][ldT]
   bf16* agg_l = agg_h + (size_t)HCp * ldT;
+  float* out_s = reinterpret_cast<float*>(agg_l + (size_t)HCp * ldT);  // [frag][256]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* sw = scratch + warp * kStage;
   // zero the stages (columns past n_tgt and W stay zero) and agg's padding rows
@@ -380,17 +343,17 @@ f_spmm_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict__ t
   const int start = tile_start[j], count = tile_count[j];
   const int KS = (BS + KC - 1) / KC, n_steps = count * KS;
   // each thread's copies: w segment e (row e / per, 8 columns e % per) and x
-  // segment e (row k, channel c, chunk n: e = (k * C + c) * NT + n), e =
+  // segment e (row k, channel c, chunk n: e = (k * CC + c) * NT + n), e =
   // threadIdx.x + kThreads * i, walked without division
-  const int per = max(n_tgt / 8, 1), segs = C * NT;
+  const int per = max(n_tgt / 8, 1), segs = CC * NT;
   const int wk0 = threadIdx.x / per, wc0 = threadIdx.x % per;
   const int wdk = kThreads / per, wdc = kThreads % per;
   const int xk0 = threadIdx.x / segs, xc0 = threadIdx.x % segs / NT, xn0 = threadIdx.x % NT;
   const int xdk = kThreads / segs, xdc = kThreads % segs / NT, xdn = kThreads % segs % NT;
-  // stage i of the heads h0 .. h0 + HG - 1: slot i / KS, source rows
-  // (i % KS) * KC .. + KC (past BS written as zeros) into buffer i % 2,
-  // committed as one group (empty past the last stage)
-  auto stage_step = [&](int i, int h0) {
+  // stage i of the heads h0 .. h0 + HG - 1 and channels c0 .. c0 + cn - 1:
+  // slot i / KS, source rows (i % KS) * KC .. + KC (past BS written as zeros)
+  // into buffer i % 2, committed as one group (empty past the last stage)
+  auto stage_step = [&](int i, int h0, int c0, int cn) {
     if (i < n_steps) {
       const int u = i / KS, r0 = (i % KS) * KC, nk = min(KC, BS - r0), a = start + u;
       bf16* w_s = stage + (size_t)(i % kFStages) * stage_len;
@@ -399,7 +362,7 @@ f_spmm_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict__ t
       for (int hh = 0; hh < HG; ++hh) {
         if (h0 + hh >= H) break;
         bf16* w_d = w_s + hh * KC * ldw;
-        const bf16* w_t = w + ((((size_t)b * A + a) * H + h0 + hh) * BS + r0) * BS + tc;
+        const TIn* w_t = w + ((((size_t)b * A + a) * H + h0 + hh) * BS + r0) * BS + tc;
         if (vec_w) {
           for (int k = wk0, c8 = wc0; k < KC; k += wdk, c8 += wdc) {
             if (c8 >= per) {
@@ -408,34 +371,35 @@ f_spmm_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict__ t
               if (k >= KC) break;
             }
             if (k < nk)
-              cp_async16(w_d + k * ldw + 8 * c8, w_t + (size_t)k * BS + 8 * c8);
+              seg8(w_d + k * ldw + 8 * c8, plane, w_t + (size_t)k * BS + 8 * c8, kTT, true);
             else
-              zero16(w_d + k * ldw + 8 * c8);
+              zero8(w_d + k * ldw + 8 * c8, plane, F32);
           }
         } else {
           for (int e = threadIdx.x; e < KC * n_tgt; e += kThreads) {
             const int k = e / n_tgt, t = e % n_tgt;
-            w_d[k * ldw + t] = k < nk ? w_t[(size_t)k * BS + t] : __float2bfloat16_rn(0.f);
+            put(w_d + k * ldw + t, plane, k < nk ? w_t[(size_t)k * BS + t] : zero_of<TIn>());
           }
         }
       }
-      const bf16* x_r = x + (b * Np + (size_t)active_src[a] * BS + r0) * M + t0;
+      const TIn* x_r = x + (b * Np + (size_t)active_src[a] * BS + r0) * M +
+                       (size_t)c0 * T_len + t0;
       for (int k = xk0, c = xc0, n = xn0; k < KC; k += xdk, c += xdc, n += xdn) {
         if (n >= NT) {
           n -= NT;
           ++c;
         }
-        if (c >= C) {
-          c -= C;
+        if (c >= CC) {
+          c -= CC;
           ++k;
           if (k >= KC) break;
         }
         const int ts = t0 + n * kTT;
         bf16* d = x_s + k * ldx + c * S + n * kTT;
-        if (k < nk && ts < T_len)
-          stage_segment(d, x_r + (size_t)k * M + (size_t)c * T_len + n * kTT, ts, T_len, vec);
+        if (k < nk && c < cn && ts < T_len)
+          seg8(d, plane, x_r + (size_t)k * M + (size_t)c * T_len + n * kTT, T_len - ts, vec);
         else
-          zero16(d);
+          zero8(d, plane, F32);
       }
     }
     commit_async();
@@ -443,8 +407,14 @@ f_spmm_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict__ t
   int cols[CW];  // first x_s column of each column tile (clamped past the last)
 #pragma unroll
   for (int c = 0; c < CW; ++c) cols[c] = min(warp * CW + c, CF - 1) * 16;
+  // the mix's sub-chunks of output columns: Θ split into the stage region
+  // [2][HCp][OC + 8], OC output columns at a time (a multiple of 16)
+  const int OC = min(o_n, ((int)(kFStages * stage_len / (2 * HCp)) - 8) / 16 * 16);
+  const int ldo = OC + 8, RFo = TN * S / 16, KD = HCp / 16;
   __syncthreads();  // zeroed before the first stage
-  for (int h0 = 0; h0 < H; h0 += HG) {
+  for (int mi = 0; mi < n_mix; ++mi) {
+    const int c0 = mi / n_hg * CC, h0 = mi % n_hg * HG, cn = min(CC, C - c0);
+    const bool first = mi == 0, last = mi == n_mix - 1;
     wm::FragC acc[HG][RF][CW];
 #pragma unroll
     for (int hh = 0; hh < HG; ++hh)
@@ -452,40 +422,43 @@ f_spmm_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict__ t
       for (int r = 0; r < RF; ++r)
 #pragma unroll
         for (int c = 0; c < CW; ++c) wmma::fill_fragment(acc[hh][r][c], 0.f);
-    stage_step(0, h0);
+    stage_step(0, h0, c0, cn);
     for (int i = 0; i < n_steps; ++i) {
-      stage_step(i + 1, h0);
+      stage_step(i + 1, h0, c0, cn);
       wait_async_group<1>();
       __syncthreads();  // stage i in place
       const bf16* w_s = stage + (size_t)(i % kFStages) * stage_len;
       const bf16* x_s = w_s + HG * KC * ldw;
       for (int k = 0; k < KC; k += 16) {
-        wm::FragB fb[CW];
+        wm::FragB fb[CW], fbl[CW];
 #pragma unroll
-        for (int c = 0; c < CW; ++c) wm::load_b_row_shared(fb[c], x_s + k * ldx + cols[c], ldx);
+        for (int c = 0; c < CW; ++c) {
+          wm::load_b_row_shared(fb[c], x_s + k * ldx + cols[c], ldx);
+          if constexpr (F32) wm::load_b_row_shared(fbl[c], x_s + plane + k * ldx + cols[c], ldx);
+        }
 #pragma unroll
         for (int hh = 0; hh < HG; ++hh) {
           if (h0 + hh >= H) break;
-          wm::FragAt fa[RF];
+          wm::FragAt fa[RF], fal[RF];
 #pragma unroll
-          for (int r = 0; r < RF; ++r)
+          for (int r = 0; r < RF; ++r) {
             wm::load_a_col_shared(fa[r], w_s + (hh * KC + k) * ldw + r * 16, ldw);
+            if constexpr (F32)
+              wm::load_a_col_shared(fal[r], w_s + plane + (hh * KC + k) * ldw + r * 16, ldw);
+          }
 #pragma unroll
           for (int r = 0; r < RF; ++r)
 #pragma unroll
-            for (int c = 0; c < CW; ++c)
-              wmma::mma_sync(acc[hh][r][c], fa[r], fb[c], acc[hh][r][c]);
+            for (int c = 0; c < CW; ++c) mma3<F32>(acc[hh][r][c], fa[r], fal[r], fb[c], fbl[c]);
         }
       }
       __syncthreads();  // stage i consumed
     }
     wait_async_group<0>();  // the empty group past the last stage
-    // each head's agg -> bf16 hi + lo, [h*C + c][t*S + step]; lane: target
+    // each head's agg -> bf16 hi + lo, [hh*CC + c][t*S + step]; lane: target
     // row lane % 16, one channel's 8 steps (columns (lane / 16) * 8 ..)
 #pragma unroll
     for (int hh = 0; hh < HG; ++hh) {
-      const int h = h0 + hh;
-      if (h >= H) break;
 #pragma unroll
       for (int c = 0; c < CW; ++c) {
         const int cf = warp * CW + c;
@@ -496,136 +469,145 @@ f_spmm_wmma_kernel(const int* __restrict__ tile_start, const int* __restrict__ t
           __syncwarp();
           const int tl = lane % 16, col = cf * 16 + (lane / 16) * kTT;
           if (col < W) {
-            float v[kTT], lo[kTT];
-            *reinterpret_cast<float4*>(v) =
-                *reinterpret_cast<const float4*>(sw + tl * kLdS + (lane / 16) * kTT);
-            *reinterpret_cast<float4*>(v + 4) =
-                *reinterpret_cast<const float4*>(sw + tl * kLdS + (lane / 16) * kTT + 4);
-#pragma unroll
-            for (int tt = 0; tt < kTT; ++tt)
-              lo[tt] = v[tt] - __bfloat162float(__float2bfloat16_rn(v[tt]));
-            const size_t o = (size_t)(h * C + col / S) * ldT + (r * 16 + tl) * S + col % S;
-            *reinterpret_cast<uint4*>(agg_h + o) = wm::pack8(v);
-            *reinterpret_cast<uint4*>(agg_l + o) = wm::pack8(lo);
+            const size_t o = (size_t)(hh * CC + col / S) * ldT + (r * 16 + tl) * S + col % S;
+            split8(sw + tl * kLdS + (lane / 16) * kTT, agg_h + o, agg_l + o);
           }
           __syncwarp();
         }
       }
     }
-  }
-  // out = relu(agg . Θ) over depth (h, c): Θ split into the stage region
-  // [2][HCp][OC + 8], OC output columns at a time (a multiple of 16), two
-  // output-column tiles of a row tile a warp at a time
-  const int OC = min(Cop, ((int)(kFStages * stage_len / (2 * HCp)) - 8) / 16 * 16);
-  const int ldo = OC + 8, RFo = TN * S / 16, KD = HCp / 16;
-  bf16* th_h = stage;
-  bf16* th_l = stage + (size_t)HCp * ldo;
-  for (int o0 = 0; o0 < Cop; o0 += OC) {
-    const int on = min(OC, Cop - o0), OF = on / 16;
-    __syncthreads();  // every head's agg in place; the last chunk's Θ consumed
-    for (int e0 = threadIdx.x; e0 < HCp * on; e0 += 8 * kThreads) {
-      float v[8];  // eight loads in flight at a time
+    // out (+)= agg . Θ over depth (hh, c), two output-column tiles of a row
+    // tile a warp at a time
+    bf16* th_h = stage;
+    bf16* th_l = stage + (size_t)HCp * ldo;
+    for (int o0 = 0; o0 < o_n; o0 += OC) {
+      const int on = min(OC, o_n - o0), OF = on / 16;
+      __syncthreads();  // agg in place; the stages or the last chunk's Θ consumed
+      for (int e0 = threadIdx.x; e0 < HCp * on; e0 += 8 * kThreads) {
+        float v[8];  // eight loads in flight at a time
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int e = e0 + i * kThreads, r = e / on, o = e % on;
-        v[i] = e < HCp * on && r < HC && o0 + o < Co ? thetas[(size_t)r * Co + o0 + o] : 0.f;
-      }
+        for (int i = 0; i < 8; ++i) {
+          const int e = e0 + i * kThreads, r = e / on, o = o_lo + o0 + e % on;
+          const int hh = r / CC, c = r % CC;
+          v[i] = e < HCp * on && r < HC && h0 + hh < H && c < cn && o < Co
+                     ? thetas[((size_t)(h0 + hh) * C + c0 + c) * Co + o]
+                     : 0.f;
+        }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int e = e0 + i * kThreads, r = e / on, o = e % on;
-        if (e < HCp * on) wm::split(v[i], th_h[r * ldo + o], th_l[r * ldo + o]);
+        for (int i = 0; i < 8; ++i) {
+          const int e = e0 + i * kThreads, r = e / on, o = e % on;
+          if (e < HCp * on) wm::split(v[i], th_h[r * ldo + o], th_l[r * ldo + o]);
+        }
       }
-    }
-    __syncthreads();
-    for (int rf = warp; rf < RFo; rf += kWarps) {
-      for (int of0 = 0; of0 < OF; of0 += 2) {
-        const int ocol[2] = {of0 * 16, min(of0 + 1, OF - 1) * 16};
-        wm::FragC o[2];
-        wmma::fill_fragment(o[0], 0.f);
-        wmma::fill_fragment(o[1], 0.f);
-        for (int kd = 0; kd < KD; ++kd) {
-          wm::FragAt ah, al;
-          wm::load_a_col_shared(ah, agg_h + (size_t)kd * 16 * ldT + rf * 16, ldT);
-          wm::load_a_col_shared(al, agg_l + (size_t)kd * 16 * ldT + rf * 16, ldT);
+      __syncthreads();
+      for (int rf = warp; rf < RFo; rf += kWarps) {
+        for (int of0 = 0; of0 < OF; of0 += 2) {
+          const int ocol[2] = {of0 * 16, min(of0 + 1, OF - 1) * 16};
+          wm::FragC o[2];
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
-            wm::FragB bh, bl;
-            wm::load_b_row_shared(bh, th_h + kd * 16 * ldo + ocol[q], ldo);
-            wm::load_b_row_shared(bl, th_l + kd * 16 * ldo + ocol[q], ldo);
-            wmma::mma_sync(o[q], ah, bh, o[q]);
-            wmma::mma_sync(o[q], ah, bl, o[q]);
-            wmma::mma_sync(o[q], al, bh, o[q]);
+            if (first)
+              wmma::fill_fragment(o[q], 0.f);
+            else
+              wmma::load_matrix_sync(o[q], out_s + ((size_t)rf * OFB + (o0 + ocol[q]) / 16) * 256,
+                                     16, wmma::mem_row_major);
           }
-        }
-        // epilogue: lane: output channel lane % 16, 8 steps of one target
+          for (int kd = 0; kd < KD; ++kd) {
+            wm::FragAt ah, al;
+            wm::load_a_col_shared(ah, agg_h + (size_t)kd * 16 * ldT + rf * 16, ldT);
+            wm::load_a_col_shared(al, agg_l + (size_t)kd * 16 * ldT + rf * 16, ldT);
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          if (of0 + q >= OF) break;
-          wm::store_c_shared(sw, o[q], kLdS, true);  // sw[o'][row']
-          __syncwarp();
-          const int oc = o0 + ocol[q] + lane % 16, row = rf * 16 + (lane / 16) * kTT;
-          const int t = row / S, ts = t0 + row % S;
-          if (oc < Co && t < n_tgt && ts < T_len) {
-            float v[kTT];
-            *reinterpret_cast<float4*>(v) =
-                *reinterpret_cast<const float4*>(sw + (lane % 16) * kLdS + (lane / 16) * kTT);
-            *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(
-                sw + (lane % 16) * kLdS + (lane / 16) * kTT + 4);
-#pragma unroll
-            for (int tt = 0; tt < kTT; ++tt) v[tt] = fmaxf(v[tt], 0.f);
-            bf16* d = out + (b * Np + (size_t)j * BS + tc + t) * MO + (size_t)oc * T_len + ts;
-            if (vec) {
-              *reinterpret_cast<uint4*>(d) = wm::pack8(v);
-            } else {
-#pragma unroll
-              for (int tt = 0; tt < kTT; ++tt)
-                if (ts + tt < T_len) d[tt] = __float2bfloat16_rn(v[tt]);
+            for (int q = 0; q < 2; ++q) {
+              wm::FragB bh, bl;
+              wm::load_b_row_shared(bh, th_h + kd * 16 * ldo + ocol[q], ldo);
+              wm::load_b_row_shared(bl, th_l + kd * 16 * ldo + ocol[q], ldo);
+              mma3<true>(o[q], ah, al, bh, bl);
             }
           }
-          __syncwarp();
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (of0 + q >= OF) break;
+            if (!last) {
+              wmma::store_matrix_sync(out_s + ((size_t)rf * OFB + (o0 + ocol[q]) / 16) * 256,
+                                      o[q], 16, wmma::mem_row_major);
+              continue;
+            }
+            // epilogue: lane: output channel lane % 16, 8 steps of one target
+            wm::store_c_shared(sw, o[q], kLdS, true);  // sw[o'][row']
+            __syncwarp();
+            const int oc = o_lo + o0 + ocol[q] + lane % 16, row = rf * 16 + (lane / 16) * kTT;
+            const int t = row / S, ts = t0 + row % S;
+            if (oc < Co && t < n_tgt && ts < T_len) {
+              float v[kTT];
+              *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(
+                  sw + (lane % 16) * kLdS + (lane / 16) * kTT);
+              *reinterpret_cast<float4*>(v + 4) = *reinterpret_cast<const float4*>(
+                  sw + (lane % 16) * kLdS + (lane / 16) * kTT + 4);
+#pragma unroll
+              for (int tt = 0; tt < kTT; ++tt) v[tt] = fmaxf(v[tt], 0.f);
+              store8(out + (b * Np + (size_t)j * BS + tc + t) * MO + (size_t)oc * T_len + ts, v,
+                     T_len - ts, vec);
+            }
+            __syncwarp();
+          }
         }
       }
     }
+    __syncthreads();  // Θ and agg consumed before the next (chunk, group) stages
   }
 }
 
-template <int RF, int CW, int HG>
+template <int RF, int CW, int HG, typename TIn>
 cudaError_t launch_f_spmm(dim3 grid, size_t smem, cudaStream_t st, const int* tile_start,
-                          const int* tile_count, const int* active_src, const wm::bf16* w,
-                          const wm::bf16* x, const float* thetas, wm::bf16* out, int A, int H,
-                          int NJ, int BS, int C, int T_len, int Co, int NT, int KC, int vec,
-                          int vec_w) {
-  cudaError_t err = allow_smem(f_spmm_wmma_kernel<RF, CW, HG>, smem);
+                          const int* tile_count, const int* active_src, const void* w,
+                          const void* x, const float* thetas, void* out, int A, int H, int NJ,
+                          int BS, int C, int T_len, int Co, int NT, int KC, int CC, int OCB,
+                          int vec, int vec_w) {
+  cudaError_t err = allow_smem(f_spmm_wmma_kernel<RF, CW, HG, TIn>, smem);
   if (err != cudaSuccess) return err;
-  f_spmm_wmma_kernel<RF, CW, HG><<<grid, kThreads, smem, st>>>(
-      tile_start, tile_count, active_src, w, x, thetas, out, A, H, NJ, BS, C, T_len, Co, NT,
-      KC, vec, vec_w);
+  f_spmm_wmma_kernel<RF, CW, HG, TIn><<<grid, kThreads, smem, st>>>(
+      tile_start, tile_count, active_src, static_cast<const TIn*>(w),
+      static_cast<const TIn*>(x), thetas, static_cast<TIn*>(out), A, H, NJ, BS, C, T_len, Co,
+      NT, KC, CC, OCB, vec, vec_w);
   return cudaGetLastError();
 }
 
-int launch_wmma(const int* tile_start, const int* tile_count, const int* active_src,
-                const float* q, const float* k, const float* bias, const float* cheb,
-                wm::bf16* w, const wm::bf16* x, const float* thetas, wm::bf16* out, int B,
-                int A, int H, int NJ, int BS, int dk, int C, int T_len, int Co, int TN, int NT,
-                int KC, int HG, int vec, int vec_w, float scale, cudaStream_t st) {
-  cudaError_t err = launch_weights<wm::bf16>(tile_start, tile_count, active_src, q, k, bias,
-                                             cheb, w, B, A, H, NJ, BS, dk, scale, st);
+int launch(int f32, const int* tile_start, const int* tile_count, const int* active_src,
+           const float* q, const float* k, const float* bias, const float* cheb, void* w,
+           const void* x, const float* thetas, void* out, int B, int A, int H, int NJ, int BS,
+           int dk, int C, int T_len, int Co, int TN, int NT, int KC, int HG, int CC, int OCB,
+           int vec, int vec_w, float scale, cudaStream_t st) {
+  cudaError_t err =
+      f32 ? launch_weights<float>(tile_start, tile_count, active_src, q, k, bias, cheb, w, B,
+                                  A, H, NJ, BS, dk, scale, st)
+          : launch_weights<wm::bf16>(tile_start, tile_count, active_src, q, k, bias, cheb, w, B,
+                                     A, H, NJ, BS, dk, scale, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int RF = TN / 16, CF = pad16(C * NT * kTT) / 16, CW = CF <= 8 ? 1 : CF <= 16 ? 2 : 4;
-  const dim3 grid(((BS + TN - 1) / TN) * ((T_len + NT * kTT - 1) / (NT * kTT)), NJ, B);
-  const size_t smem = f_wmma_smem_bytes(C, H, TN, NT, KC, HG);
-  if (f_wmma_stage_bytes(C, TN, NT, KC, HG) < 4 * (size_t)pad16(H * C) * (16 + 8))
+  const int P = f32 ? 2 : 1, RF = TN / 16, CF = pad16(CC * NT * kTT) / 16;
+  const int CW = CF <= 8 ? 1 : CF <= 16 ? 2 : 4;
+  const dim3 grid(NJ * cdiv(pad16(Co), OCB) * cdiv(BS, TN) * cdiv(T_len, NT * kTT), 1, B);
+  const size_t smem = f_wmma_smem_bytes(P, C, H, TN, NT, KC, HG, CC, OCB);
+  if (f_wmma_stage_bytes(P, CC, TN, NT, KC, HG) < 4 * (size_t)pad16(HG * CC) * (16 + 8))
     return static_cast<int>(cudaErrorInvalidValue);
-#define F_SPMM(R, W_, G_)                                                                  \
+#define F_SPMM(T_, R, W_, G_)                                                              \
   if (RF == R && CW == W_ && HG == G_)                                                     \
-    return static_cast<int>(launch_f_spmm<R, W_, G_>(grid, smem, st, tile_start,           \
-                                                     tile_count, active_src, w, x, thetas, \
-                                                     out, A, H, NJ, BS, C, T_len, Co, NT,  \
-                                                     KC, vec, vec_w));
-  F_SPMM(1, 1, 1) F_SPMM(1, 2, 1) F_SPMM(1, 4, 1) F_SPMM(2, 1, 1) F_SPMM(2, 2, 1)
-  F_SPMM(2, 4, 1) F_SPMM(4, 1, 1) F_SPMM(4, 2, 1) F_SPMM(8, 1, 1)
-  F_SPMM(1, 1, 2) F_SPMM(1, 2, 2) F_SPMM(1, 4, 2) F_SPMM(2, 1, 2) F_SPMM(2, 2, 2)
-  F_SPMM(2, 4, 2) F_SPMM(4, 1, 2) F_SPMM(4, 2, 2) F_SPMM(8, 1, 2)
+    return static_cast<int>(launch_f_spmm<R, W_, G_, T_>(                                  \
+        grid, smem, st, tile_start, tile_count, active_src, w, x, thetas, out, A, H, NJ, BS, \
+        C, T_len, Co, NT, KC, CC, OCB, vec, vec_w));
+  if (f32) {  // two heads a stage only where RF * CW * 2 <= 8 (the split's fragments)
+    F_SPMM(float, 1, 1, 1) F_SPMM(float, 1, 2, 1) F_SPMM(float, 1, 4, 1)
+    F_SPMM(float, 2, 1, 1) F_SPMM(float, 2, 2, 1) F_SPMM(float, 2, 4, 1)
+    F_SPMM(float, 4, 1, 1) F_SPMM(float, 4, 2, 1) F_SPMM(float, 8, 1, 1)
+    F_SPMM(float, 1, 1, 2) F_SPMM(float, 1, 2, 2) F_SPMM(float, 1, 4, 2)
+    F_SPMM(float, 2, 1, 2) F_SPMM(float, 2, 2, 2) F_SPMM(float, 4, 1, 2)
+  } else {
+    F_SPMM(wm::bf16, 1, 1, 1) F_SPMM(wm::bf16, 1, 2, 1) F_SPMM(wm::bf16, 1, 4, 1)
+    F_SPMM(wm::bf16, 2, 1, 1) F_SPMM(wm::bf16, 2, 2, 1) F_SPMM(wm::bf16, 2, 4, 1)
+    F_SPMM(wm::bf16, 4, 1, 1) F_SPMM(wm::bf16, 4, 2, 1) F_SPMM(wm::bf16, 8, 1, 1)
+    F_SPMM(wm::bf16, 1, 1, 2) F_SPMM(wm::bf16, 1, 2, 2) F_SPMM(wm::bf16, 1, 4, 2)
+    F_SPMM(wm::bf16, 2, 1, 2) F_SPMM(wm::bf16, 2, 2, 2) F_SPMM(wm::bf16, 2, 4, 2)
+    F_SPMM(wm::bf16, 4, 1, 2) F_SPMM(wm::bf16, 4, 2, 2) F_SPMM(wm::bf16, 8, 1, 2)
+  }
 #undef F_SPMM
   return static_cast<int>(cudaErrorInvalidValue);  // a tile the plan never gives
 }
@@ -634,42 +616,35 @@ int launch_wmma(const int* tile_start, const int* tile_count, const int* active_
 
 extern "C" {
 
-// The float32 forward on `stream`: both passes, w (B, A, H, BS, BS) float
-// scratch. Returns cudaGetLastError() after the launches (0 = success).
+// The forward on `stream` (f32: float32 x, w, out; else bf16): the weights
+// pass, then the tensor-core SpMM/mix pass at TN target columns (16, 32, 64
+// or 128), NT chunks of 8 steps, KC (16 or 32) source rows and HG (1 or 2)
+// heads a stage, CC channels a chunk and OCB output columns a
+// block (a multiple of 16), tiles that bell_fused.f_plan gives; w (B, A, H,
+// BS, BS) is scratch in x's dtype; vec: T % 8 == 0 and x, out 16-byte
+// aligned (row segments, 16-byte output stores), vec_w: BS % 8 == 0 and w
+// 16-byte aligned. Returns cudaGetLastError() after the launches (0 =
+// success).
 int bell_fused_forward(const int* tile_start, const int* tile_count, const int* active_src,
                        const float* q, const float* k, const float* bias, const float* cheb,
                        void* w, const void* x, const float* thetas, void* out, int B, int A,
-                       int H, int NJ, int BS, int dk, int C, int T_len, int Co, int TT,
-                       float scale, void* stream) {
-  return launch<float>(tile_start, tile_count, active_src, q, k, bias, cheb, w, x, thetas,
-                       out, B, A, H, NJ, BS, dk, C, T_len, Co, TT, scale,
-                       static_cast<cudaStream_t>(stream));
+                       int H, int NJ, int BS, int dk, int C, int T_len, int Co, int f32, int TN,
+                       int NT, int KC, int HG, int CC, int OCB, int vec, int vec_w, float scale,
+                       void* stream) {
+  return launch(f32, tile_start, tile_count, active_src, q, k, bias, cheb, w, x, thetas, out, B,
+                A, H, NJ, BS, dk, C, T_len, Co, TN, NT, KC, HG, CC, OCB, vec, vec_w, scale,
+                static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 forward on `stream`: the weights pass, then the tensor-core
-// SpMM/mix pass at TN target columns (16, 32, 64 or 128), NT chunks of 8
-// steps, KC (16 or 32) source rows and HG (1 or 2) heads a stage, tiles
-// that bell_fused.f_bf16_plan gives; vec: T % 8 == 0
-// and x 16-byte aligned (cp.async row segments, 16-byte output stores),
-// vec_w: BS % 8 == 0 and w 16-byte aligned. Returns cudaGetLastError()
-// after the launches.
-int bell_fused_forward_wmma(const int* tile_start, const int* tile_count,
-                            const int* active_src, const float* q, const float* k,
-                            const float* bias, const float* cheb, void* w, const void* x,
-                            const float* thetas, void* out, int B, int A, int H, int NJ,
-                            int BS, int dk, int C, int T_len, int Co, int TN, int NT, int KC,
-                            int HG, int vec, int vec_w, float scale, void* stream) {
-  return launch_wmma(tile_start, tile_count, active_src, q, k, bias, cheb,
-                     static_cast<wm::bf16*>(w), static_cast<const wm::bf16*>(x), thetas,
-                     static_cast<wm::bf16*>(out), B, A, H, NJ, BS, dk, C, T_len, Co, TN, NT,
-                     KC, HG, vec, vec_w, scale, static_cast<cudaStream_t>(stream));
-}
-
-// Shared memory a block of the bf16 SpMM/mix pass requests, in bytes
-// (what = 0), and the bytes of its stage region (what = 1).
-size_t bell_fused_wmma_smem_bytes(int C, int H, int TN, int NT, int KC, int HG, int what) {
-  return what == 0 ? f_wmma_smem_bytes(C, H, TN, NT, KC, HG)
-                   : f_wmma_stage_bytes(C, TN, NT, KC, HG);
+// Shared memory a block of the SpMM/mix pass requests, in bytes (what = 0),
+// the bytes of its stage region (what = 1), and of a weights-pass block at
+// d_k = C (what = 2).
+size_t bell_fused_wmma_smem_bytes(int f32, int C, int H, int TN, int NT, int KC, int HG, int CC,
+                                  int OCB, int what) {
+  const int P = f32 ? 2 : 1;
+  return what == 0   ? f_wmma_smem_bytes(P, C, H, TN, NT, KC, HG, CC, OCB)
+         : what == 1 ? f_wmma_stage_bytes(P, CC, TN, NT, KC, HG)
+                     : weights_smem_bytes(C);
 }
 
 const char* bell_fused_error_string(int err) {

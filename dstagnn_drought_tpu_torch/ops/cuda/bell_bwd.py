@@ -14,21 +14,24 @@ g_agg_h = gm · Θ_hᵀ (per target row, (Co → C) at every time step):
     K2:  dx[i]     = Σ_{a: src(a)=i} Σ_h w[b,a,h] · g_agg_h[tgt(a)]
 
 ``round`` is the cast to x's dtype that the TPU kernel applies before its
-dA product; K2 keeps g_agg in float32 as the TPU kernel does. The kernels
-(``csrc/bell_bwd.cu``; its header says what bounds them) recompute g_agg
-from gm and Θ in shared memory, so the (B, H, Np, C·T) tensor never
-reaches device memory; dΘ is summed from per-block partials by a second
-pass in a fixed order (no atomics: two runs give the same bits); K2 walks
-the source-sorted list so every block owns its dx tile (no scatter).
+dA product, once, after the whole sum over Co; K2 keeps g_agg in float32 as
+the TPU kernel does. The kernels (``csrc/bell_bwd.cu``; its header says
+what bounds them) recompute g_agg from gm and Θ in shared memory, so the
+(B, H, Np, C·T) tensor never reaches device memory; dΘ is summed from
+per-block partials by a second pass in a fixed order (no atomics: two runs
+give the same bits); K2 walks the source-sorted list so every block owns
+its dx tile (no scatter).
 
-K1 and K2 have two designs each, one a dtype: bf16 (the BELL-tiles main
-path) runs on the tensor cores (WMMA) in chunks of 8 time steps, Θ, agg
-and g_agg split into bf16 hi + lo where they meet a float32 sum, so dΘ,
-g_agg and K2's dx stay float32 in value (:func:`k1_bf16_plan` and
-:func:`k2_bf16_plan` size their tiles); float32 keeps the CUDA-core
-kernels and their :func:`time_chunk` plan. On a CUDA tensor the wrappers
-launch the design of the dtype or raise; the plain versions serve CPU
-tensors only. ``k1_launches``/``k2_launches`` count launches.
+One design for both dtypes, every product on the tensor cores (WMMA) in
+chunks of 8 time steps: bf16 operands as they are, float32 ones split into
+bf16 hi + lo (three products where two float32 values meet), Θ, agg and
+g_agg split where they meet a float32 sum, so dΘ, g_agg and K2's dx stay
+float32 in value. Channels, output channels and rows come in chunks
+(:func:`k1_plan` and :func:`k2_plan` size them), so every C, Co and block
+size runs; :func:`shape_error` says what the kernels refuse (only the
+dtype, CUDA's grid limits and an int32 guard). On a CUDA
+tensor the wrappers launch the kernels or raise; the plain versions serve
+CPU tensors only. ``k1_launches``/``k2_launches`` count launches.
 """
 from __future__ import annotations
 
@@ -42,127 +45,205 @@ from dstagnn_drought_tpu_torch.ops.cuda import build
 k1_launches = 0
 k2_launches = 0
 
-# a kernel block covers a chunk of time steps with every channel of each
-# step: at most 64 input columns (C·TT) in a tile of sums, and at most 512
-# staged cotangent columns (Co·TT; 128 in K1's dA pass, which stages 64 rows)
-_W_MAX, _WO_MAX, _BS_MAX = 64, 512, 128
-
-
-def time_chunk(C: int, Co: int, T: int, staged: int = _WO_MAX) -> int:
-    """Time steps per kernel block: C·TT ≤ 64, Co·TT ≤ ``staged``, TT ≤ T."""
-    if C > _W_MAX or Co > staged:
-        raise ValueError(f"the BELL kernels take C <= {_W_MAX} and Co <= {staged}, "
-                         f"got C={C}, Co={Co}")
-    return max(1, min(_W_MAX // C, staged // Co, T))
-
-
-# the bf16 K1 on the tensor cores (csrc/bell_bwd.cu k1_dA_wmma_kernel,
-# k1_dtheta_wmma_kernel): chunks of 8 time steps (one 16-byte bf16 row
-# segment), tiles padded to 16, each warp's 16x16 float32 staging at a row
-# stride of 20; a block may have 232,448 bytes, two blocks an SM 115,712
-# each (228 KiB an SM, 1 KiB of it reserved a block)
+# chunks of 8 time steps (one 16-byte bf16 row segment), tiles padded to
+# 16, each warp's 16x16 float32 staging at a row stride of 20; a block may
+# have 232,448 bytes, two blocks an SM 115,712 each (228 KiB an SM, 1 KiB of
+# it reserved a block)
 _TT16, _WARPS, _STAGE = 8, 8, 16 * 20
 _SMEM_MAX, _SMEM_TWO = 232448, 115712
+_SCRATCH = 4 * _WARPS * _STAGE
+# CUDA's limit on a grid's y and z, and the largest int the kernels index with
+_GRID_YZ, _INT_MAX = 65535, 2**31 - 1
+# the float32 bytes that the dΘ partials may take before time groups fold
+# into one block (k1_time_groups)
+_PARTIAL_BUDGET = 16 * 2**20
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _pad16(n):
     return (n + 15) // 16 * 16
 
 
-def _k1_wmma_cc(C):
-    """Channels an m-tile of the bf16 dΘ pass takes: a power of two ≤ 16."""
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _planes(dtype):
+    """Planes a staged operand takes: float32 two (bf16 hi and lo), bf16 one."""
+    return 2 if dtype == torch.float32 else 1
+
+
+def _chunks(n, sizes=(512, 256, 128, 64, 32, 16)):
+    """n itself, then the chunk sizes below it."""
+    return [n] + [s for s in sizes if s < n]
+
+
+def shape_error(B, H, C, Co, dtype):
+    """Why the BELL kernels (the forward, K1 and K2) cannot take this shape
+    on the card, or None: the compute dtype, CUDA's grid limits on B, H and
+    B·H (grid y and z) and the int32 index of a (H, C, Co) dΘ row. The
+    block size, d_k and T come in chunks and are refused by none of them.
+    Every wrapper raises it at launch, and the Trainer's gate
+    (``bell_fused.limit_error``) is this function."""
+    who = "the BELL kernels"
+    if dtype not in _DTYPES:
+        return f"{who} take float32 or bfloat16, got {dtype}"
+    if max(B, H, B * H) > _GRID_YZ:
+        return f"{who}: grid too large for B={B}, H={H} (B·H <= {_GRID_YZ})"
+    if H * _pad16(C) * _pad16(Co) * 16 > _INT_MAX:
+        return f"{who}: H·C·Co = {H}·{C}·{Co} is past the kernels' int32 indices"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# K1's plan (csrc/bell_bwd.cu k1_dA_wmma_kernel, k1_dtheta_wmma_kernel)
+# ---------------------------------------------------------------------------
+
+def k1_dtheta_cc(C):
+    """Channels an m-tile of the dΘ pass takes: a power of two ≤ 16."""
     cc = 16
     while cc > C:
         cc //= 2
     return cc
 
 
-def k1_wmma_smem_bytes(BS, C, Co, tile, pass_):
-    """Shared memory a block of the bf16 K1's dA pass (``pass_`` 0, ``tile``
-    target columns) or dΘ pass (1, ``tile`` target rows a contraction
-    chunk) requests (the formulas of csrc/bell_bwd.cu)."""
-    BSp, Cop = _pad16(BS), _pad16(Co)
-    scratch = 4 * _WARPS * _STAGE
+def k1_smem_bytes(P, BS, C, Co, tiles, pass_):
+    """Shared memory a block of K1's dA pass (``pass_`` 0, ``tiles`` = (TN
+    target columns, RS source rows, CC channels, OCC output channels)) or
+    dΘ pass (1, (TC target rows a contraction chunk, KS source rows a
+    stage, OCB output columns, WO o-lanes)) requests at P planes a staged
+    operand (the formulas of csrc/bell_bwd.cu)."""
     if pass_ == 0:
-        ldx, ldg, ldt = _pad16(C * _TT16) + 8, tile * _TT16 + 8, Cop + 8
-        return scratch + 2 * ((BSp + tile) * ldx + Cop * ldg + 2 * _pad16(C) * ldt)
-    ldw, ldm, ld = BSp + 8, _pad16(_k1_wmma_cc(C) * _TT16) + 8, tile * _TT16 + 8
-    region = max(2 * BSp * (ldw + ldm), 4 * _WARPS * 16 * Cop, scratch)
-    return region + 2 * (2 * 16 * ld + Cop * ld)
+        tn, rs, cc, occ = tiles
+        ldx, ldg, occp = _pad16(cc * _TT16) + 8, tn * _TT16 + 8, _pad16(occ)
+        xr = max(P * rs * ldx, 2 * tn * _TT16 * _pad16(cc) if _cdiv(Co, occ) > 1 else 0)
+        return _SCRATCH + 2 * (xr + P * tn * ldx + P * occp * ldg + 2 * _pad16(cc) * (occp + 8))
+    tc, ks, ocb, wo = tiles
+    ldw, ldm = min(_pad16(BS), 128) + 8, _pad16(k1_dtheta_cc(C) * _TT16) + 8
+    region = max(2 * P * ks * (ldw + ldm), 4 * (_WARPS // wo) * 16 * ocb, _SCRATCH)
+    ld = tc * _TT16 + 8
+    return region + 2 * (2 * 16 * ld + P * ocb * ld)
 
 
-def k1_bf16_plan(BS, C, Co, T):
-    """The bf16 K1's launch plan: {"tn": target columns a dA block (the most
-    of 128, 64, 32, 16, at most pad16(BS), whose shared memory fits), "tc":
-    target rows a dΘ contraction chunk (the most multiple of 16 dividing
-    pad16(BS) with which two blocks share an SM, else the most that fits),
-    "cc": channels a dΘ m-tile, "groups": dΘ partials per (batch, head,
-    target tile) (one per chunk of 8 steps, every channel), "smem": (dA
-    bytes, dΘ bytes)}. Raises ValueError outside the kernels' caps (C ≤ 64,
-    Co ≤ 128, BS ≤ 128, those of the float32 kernels), where every shape
-    fits."""
-    if C > _W_MAX or Co > 128 or BS > _BS_MAX:
-        raise ValueError(f"the BELL K1 kernels take C <= {_W_MAX}, Co <= 128 and "
-                         f"block_size <= {_BS_MAX}, got C={C}, Co={Co}, BS={BS}")
+def _k1_dA_tiles(BS, C, Co, P):
+    """(TN, RS, CC, OCC) of the dA pass: of the tiles that fit a block, the
+    least staging (x once per TN-column tile, gm once per time chunk where
+    one chunk holds Co, else once per channel chunk), then the most target
+    columns, channels and output channels."""
     BSp = _pad16(BS)
-    tn = next(t for t in (128, 64, 32, 16)
-              if t <= BSp and k1_wmma_smem_bytes(BS, C, Co, t, 0) <= _SMEM_MAX)
-    tcs = [t for t in range(BSp, 15, -16) if BSp % t == 0]
-    tc = next((t for t in tcs if k1_wmma_smem_bytes(BS, C, Co, t, 1) <= _SMEM_TWO),
-              next(t for t in tcs if k1_wmma_smem_bytes(BS, C, Co, t, 1) <= _SMEM_MAX))
-    return {"tn": tn, "tc": tc, "cc": _k1_wmma_cc(C), "groups": -(-T // _TT16),
-            "smem": (k1_wmma_smem_bytes(BS, C, Co, tn, 0),
-                     k1_wmma_smem_bytes(BS, C, Co, tc, 1))}
+    rs, best = min(BSp, 128), None
+    for occ in _chunks(Co):
+        for tn in (t for t in (128, 64, 32, 16) if t <= BSp):
+            for cc in [C] + [c for c in (64, 32, 16) if c < C]:
+                if k1_smem_bytes(P, BS, C, Co, (tn, rs, cc, occ), 0) > _SMEM_MAX:
+                    continue
+                n_cc = _cdiv(C, cc) if _cdiv(Co, occ) > 1 else 1
+                key = (_cdiv(BSp, tn) * C + n_cc * Co, -tn, -cc, -occ)
+                if best is None or key < best[0]:
+                    best = (key, (tn, rs, cc, occ))
+    return best[1]
 
 
-# the bf16 K2 on the tensor cores (csrc/bell_bwd.cu k2_wmma_kernel): a block
-# per (group of min(C, 16) channels x nt chunks of 8 steps, source tile,
-# batch) with a dx tile of pad16(BS) rows x pad16(nt·CG·8) ≤ 128 columns;
-# a step stages tr target rows of gm (every head), w_h's tr columns and
-# Θ_h's split (rows of 16 channels at a stride of 24); nt and tr are powers
-# of two
+def _k1_dtheta_tiles(BS, C, Co, P):
+    """(TC, KS, OCB, WO) of the dΘ pass: the most output columns a block (at
+    most 512: agg is summed again for every output block), two bf16 blocks
+    an SM where a tile allows it, the most source rows a stage, then the
+    most target rows a contraction chunk dividing the target-row tile; WO
+    o-lanes so that a warp holds at most 4 partial fragments."""
+    BSp = _pad16(BS)
+    trr = min(BSp, 128)
+    tcs = [t for t in range(trr, 15, -16) if trr % t == 0]
+    limits = (_SMEM_TWO, _SMEM_MAX) if P == 1 else (_SMEM_MAX,)
+    for ocb in _chunks(min(_pad16(Co), 512)):
+        of = ocb // 16
+        wo = next(w for w in (1, 2, 4, 8) if _cdiv(of, w) <= 4)
+        for limit in limits:
+            for ks in (k for k in (128, 64, 32, 16) if k <= trr):
+                for tc in tcs:
+                    if k1_smem_bytes(P, BS, C, Co, (tc, ks, ocb, wo), 1) <= limit:
+                        return tc, ks, ocb, wo
+    raise AssertionError(f"no dΘ tile at BS={BS}, C={C}, Co={Co}")  # 16-row tiles always fit
+
+
+def k1_plan(BS, C, Co, T, dtype):
+    """K1's launch plan: {"tn", "rs", "cc", "occ": the dA pass's target
+    columns, source rows, channels and output channels a block or chunk;
+    "tc", "ks", "ocb", "wo": the dΘ pass's target rows a contraction chunk,
+    source rows a stage, output columns a block and o-lanes; "smem": (dA
+    bytes, dΘ bytes)}. Every shape has one."""
+    P = _planes(dtype)
+    tn, rs, cc, occ = _k1_dA_tiles(BS, C, Co, P)
+    tc, ks, ocb, wo = _k1_dtheta_tiles(BS, C, Co, P)
+    return {"tn": tn, "rs": rs, "cc": cc, "occ": occ, "tc": tc, "ks": ks, "ocb": ocb, "wo": wo,
+            "smem": (k1_smem_bytes(P, BS, C, Co, (tn, rs, cc, occ), 0),
+                     k1_smem_bytes(P, BS, C, Co, (tc, ks, ocb, wo), 1))}
+
+
+def k1_time_groups(B, NJ, BS, H, C, Co, T):
+    """(G, TG): the dΘ pass's time groups and chunks of 8 steps a group.
+    Each group writes one float32 partial of H·C·Co per (batch, target
+    tile, target-row tile); groups fold as many chunks as keep the
+    partials within 16 MiB (or one group)."""
+    T8 = _cdiv(T, _TT16)
+    unit = 4 * B * NJ * _cdiv(_pad16(BS), 128) * H * C * Co
+    g = max(1, min(T8, _PARTIAL_BUDGET // max(unit, 1)))
+    tg = _cdiv(T8, g)
+    return _cdiv(T8, tg), tg
+
+
+# ---------------------------------------------------------------------------
+# K2's plan (csrc/bell_bwd.cu k2_wmma_kernel): a block per (group of min(C,
+# 16) channels x nt chunks of 8 steps, <= 128 source rows, source tile,
+# batch) with a dx tile of at most 128 rows x pad16(nt·CG·8) ≤ 128 columns;
+# a step stages tr target rows of gm (every head where one chunk holds Co),
+# w_h's tr columns and Θ_h's split (rows of 16 channels at a stride of 24)
+# for occ output channels; nt and tr are powers of two
+# ---------------------------------------------------------------------------
+
 _K2_LDT = 24
 
 
 def _k2_cg(C):
-    """Channels a bf16 K2 block takes."""
+    """Channels a K2 block takes."""
     return min(C, 16)
 
 
-def k2_wmma_smem_bytes(BS, C, Co, nt, tr):
-    """Shared memory a block of the bf16 K2 requests at nt chunks of 8
-    steps and tr target rows a step (the formula of csrc/bell_bwd.cu): the
-    warps' staging, the step's stage (gm rows, w columns, Θ's hi and lo),
-    and g's hi and lo."""
-    Cop = _pad16(Co)
-    return 4 * _WARPS * _STAGE + 2 * (
-        Cop * (nt * tr * _TT16 + 8) + _pad16(BS) * (tr + 8) + 2 * Cop * _K2_LDT
-        + 2 * tr * (_pad16(nt * _k2_cg(C) * _TT16) + 8))
+def k2_smem_bytes(P, BS, C, Co, nt, tr, occ):
+    """Shared memory a K2 block requests at nt chunks of 8 steps, tr target
+    rows a step and occ output channels a chunk, P planes a staged operand
+    (the formula of csrc/bell_bwd.cu): the warps' staging, the step's stage
+    (gm rows, w columns, Θ's hi and lo), g's hi and lo, and g's float32
+    sums where Co takes more than one chunk."""
+    occp, rs = _pad16(occ), min(_pad16(BS), 128)
+    multi = _cdiv(_pad16(Co), occp) > 1
+    return _SCRATCH + 2 * (
+        P * occp * (nt * tr * _TT16 + 8) + P * rs * (tr + 8) + 2 * occp * _K2_LDT
+        + 2 * tr * (_pad16(nt * _k2_cg(C) * _TT16) + 8)) + (
+        4 * nt * tr * _TT16 * 16 if multi else 0)
 
 
-def k2_bf16_plan(BS, C, Co, T):
-    """The bf16 K2's launch plan: {"nt": chunks of 8 steps a block (the most
-    power of two whose columns of min(C, 16) channels fit 128, at most the
-    steps), "tr": target rows a step (the most power of two dividing
-    pad16(BS) with which two blocks share an SM, else the most that fits;
-    fewer chunks where none fits), "groups": (channel groups, time groups)
-    of the grid, "smem": bytes}. Raises ValueError exactly where the
-    float32 K2 refuses (C ≤ 64, Co ≤ 512, BS ≤ 128); every shape inside
-    fits (16 target rows of one chunk at Co = 512 take 213,504 bytes)."""
-    time_chunk(C, Co, T)
-    if BS > _BS_MAX:
-        raise ValueError(f"the BELL kernels take block_size <= {_BS_MAX}, got {BS}")
-    BSp, T8, CG = _pad16(BS), -(-T // _TT16), _k2_cg(C)
+def k2_plan(BS, C, Co, T, dtype):
+    """K2's launch plan: {"occ": output channels a chunk (all of Co where
+    they fit), "nt": chunks of 8 steps a block (the most power of two whose
+    columns of min(C, 16) channels fit 128, at most the steps), "tr":
+    target rows a step (the most power of two dividing pad16(BS) with which
+    two bf16 blocks share an SM, else the most that fits; fewer chunks where
+    none fits), "groups": (channel groups, time groups) of the grid,
+    "smem": bytes}. Every shape has one: 16 target rows of one chunk of 16
+    output channels fit at any C and BS."""
+    P, BSp, T8, CG = _planes(dtype), _pad16(BS), _cdiv(T, _TT16), _k2_cg(C)
     nts = [2 ** k for k in reversed(range(min(16 // CG, T8).bit_length()))]
     trs = [t for t in (128, 64, 32, 16) if BSp % t == 0]
-    for nt in nts:
-        for limit in (_SMEM_TWO, _SMEM_MAX):
-            for tr in trs:
-                smem = k2_wmma_smem_bytes(BS, C, Co, nt, tr)
-                if smem <= limit:
-                    return {"nt": nt, "tr": tr, "groups": (-(-C // CG), -(-T8 // nt)),
-                            "smem": smem}
-    raise ValueError(f"the bf16 BELL K2 does not fit a block at BS={BS}, C={C}, Co={Co}")
+    limits = (_SMEM_TWO, _SMEM_MAX) if P == 1 else (_SMEM_MAX,)
+    for occ in _chunks(_pad16(Co)):
+        for nt in nts:
+            for limit in limits:
+                for tr in trs:
+                    smem = k2_smem_bytes(P, BS, C, Co, nt, tr, occ)
+                    if smem <= limit:
+                        return {"occ": occ, "nt": nt, "tr": tr,
+                                "groups": (_cdiv(C, CG), _cdiv(T8, nt)), "smem": smem}
+    raise AssertionError(f"no K2 tile at BS={BS}, C={C}, Co={Co}")  # 16 x 16 always fits
 
 
 def _g_agg(gm, thetas, T):
@@ -213,15 +294,10 @@ def bell_k2_plain(src_start, src_count, src_order, active_tgt, thetas, gm, w):
 # CUDA launches
 # ---------------------------------------------------------------------------
 
-_DTYPES = (torch.float32, torch.bfloat16)
-
-
 def _check(thetas, gm, w, indices, others=()):
     if w.ndim != 5 or w.shape[3] != w.shape[4]:
         raise ValueError(f"w must be (B, A, H, BS, BS), got {tuple(w.shape)}")
     B, A, H, BS, _ = w.shape
-    if BS > _BS_MAX:
-        raise ValueError(f"the BELL kernels take block_size <= {_BS_MAX}, got {BS}")
     if thetas.ndim != 3 or thetas.shape[0] != H or thetas.dtype != torch.float32:
         raise ValueError(f"thetas must be float32 (H={H}, C, Co), got "
                          f"{thetas.dtype} {tuple(thetas.shape)}")
@@ -238,26 +314,23 @@ def _check(thetas, gm, w, indices, others=()):
     for name, t in indices:
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if B * H > 65535:
-        raise ValueError(f"grid too large for B·H={B * H}")
+
+
+def _grid_x(n, who):
+    if n > _INT_MAX:
+        raise ValueError(f"{who}: grid too large ({n} blocks)")
 
 
 def _load():
     lib = build.load("bell_bwd")
     if lib.bell_bwd_k1.argtypes is None:
-        lib.bell_bwd_k1.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        lib.bell_bwd_k1.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
         lib.bell_bwd_k1.restype = ctypes.c_int
-        lib.bell_bwd_k1_wmma.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
-                                         + [ctypes.c_void_p])
-        lib.bell_bwd_k1_wmma.restype = ctypes.c_int
-        lib.bell_bwd_k1_wmma_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.bell_bwd_k1_wmma_smem_bytes.argtypes = [ctypes.c_int] * 9
         lib.bell_bwd_k1_wmma_smem_bytes.restype = ctypes.c_size_t
-        lib.bell_bwd_k2.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        lib.bell_bwd_k2.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
         lib.bell_bwd_k2.restype = ctypes.c_int
-        lib.bell_bwd_k2_wmma.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
-                                         + [ctypes.c_void_p])
-        lib.bell_bwd_k2_wmma.restype = ctypes.c_int
-        lib.bell_bwd_k2_wmma_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.bell_bwd_k2_wmma_smem_bytes.argtypes = [ctypes.c_int] * 7
         lib.bell_bwd_k2_wmma_smem_bytes.restype = ctypes.c_size_t
         lib.bell_bwd_error_string.argtypes = [ctypes.c_int]
         lib.bell_bwd_error_string.restype = ctypes.c_char_p
@@ -270,17 +343,13 @@ def _raise_on(lib, err, what):
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
-def k1_groups(T: int, TT: int) -> int:
-    """dΘ partials per (batch, head, target tile): time chunks are split into
-    groups of at most 4, one block each."""
-    chunks = -(-T // TT)
-    return -(-chunks // 4)
+def _aligned(*ts):
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 @debug.kernel("bell_k1")
 def bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, w):
-    """Launch K1 on the current stream: (dA f32, dΘ f32); bf16 operands take
-    the tensor-core kernels, float32 the CUDA-core kernels."""
+    """Launch K1 on the current stream: (dA f32, dΘ f32), in either dtype."""
     global k1_launches
     _check(thetas, gm, w, (("active_src", active_src), ("active_tgt", active_tgt),
                            ("tile_start", tile_start), ("tile_count", tile_count)),
@@ -294,34 +363,31 @@ def bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, 
     T = M // C
     if gm.shape[2] != Co * T:
         raise ValueError(f"gm has {gm.shape[2]} features, expected Co·T={Co * T}")
+    why = shape_error(B, H, C, Co, x.dtype)
+    if why is not None:
+        raise ValueError(why)
     NJ = tile_start.shape[0]
-    bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        plan = k1_bf16_plan(BS, C, Co, T)
-        G = plan["groups"]
-    else:
-        TTa, TTc = time_chunk(C, Co, T, staged=128), time_chunk(C, Co, T)
-        G = k1_groups(T, TTc)
+    p = k1_plan(BS, C, Co, T, x.dtype)
+    G, TG = k1_time_groups(B, NJ, BS, H, C, Co, T)
+    n_tr = _cdiv(_pad16(BS), 128)
+    _grid_x(A * _cdiv(BS, p["tn"]) * _cdiv(BS, p["rs"]), "the BELL K1 dA pass")
+    _grid_x(NJ * _cdiv(C, k1_dtheta_cc(C)) * _cdiv(_pad16(Co), p["ocb"]) * n_tr * G,
+            "the BELL K1 dΘ pass")
     dev = w.device
     dA = torch.empty((B, A, H, BS, BS), dtype=torch.float32, device=dev)
-    # the dΘ partials (bf16: then the fixed-order row sums' groups of 64)
-    S = B * NJ * G
-    partial = torch.empty(((S + (-(-S // 64) if bf16 else 0)) * H, C * Co),
-                          dtype=torch.float32, device=dev)
+    # the dΘ partials, then the fixed-order row sums' groups of 64
+    S = B * NJ * n_tr * G
+    partial = torch.empty(((S + _cdiv(S, 64)) * H, C * Co), dtype=torch.float32, device=dev)
     dth = torch.empty((H, C, Co), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in (active_src, active_tgt, tile_start, tile_count, thetas,
                                    gm, x, w, dA, partial, dth)]
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if bf16:
-            aligned = lambda *ts: all(t.data_ptr() % 16 == 0 for t in ts)
-            err = lib.bell_bwd_k1_wmma(
-                *ptrs, B, A, H, NJ, BS, C, T, Co, plan["tn"], plan["tc"],
-                int(T % _TT16 == 0 and aligned(gm, x)), int(BS % 8 == 0 and aligned(w)),
-                stream)
-        else:
-            err = lib.bell_bwd_k1(*ptrs, B, A, H, NJ, BS, C, T, Co, TTa, TTc, G, stream)
+        err = lib.bell_bwd_k1(
+            *ptrs, B, A, H, NJ, BS, C, T, Co, int(x.dtype == torch.float32), p["tn"], p["rs"],
+            p["cc"], p["occ"], p["tc"], p["ks"], p["ocb"], p["wo"], G, TG,
+            int(T % _TT16 == 0 and _aligned(gm, x)), int(BS % 8 == 0 and _aligned(w)), stream)
     _raise_on(lib, err, "bell_bwd K1")
     k1_launches += 1
     return dA, dth
@@ -329,34 +395,32 @@ def bell_k1_cuda(active_src, active_tgt, tile_start, tile_count, thetas, gm, x, 
 
 @debug.kernel("bell_k2")
 def bell_k2_cuda(src_start, src_count, src_order, active_tgt, thetas, gm, w):
-    """Launch K2 on the current stream: dx (B, NI·BS, C·T) in gm's dtype;
-    bf16 operands take the tensor-core kernel, float32 the CUDA-core one."""
+    """Launch K2 on the current stream: dx (B, NI·BS, C·T) in gm's dtype."""
     global k2_launches
     _check(thetas, gm, w, (("src_start", src_start), ("src_count", src_count),
                            ("src_order", src_order), ("active_tgt", active_tgt)))
     B, A, H, BS, _ = w.shape
     _, C, Co = thetas.shape
     T = gm.shape[-1] // Co
+    why = shape_error(B, H, C, Co, gm.dtype)
+    if why is not None:
+        raise ValueError(why)
     NI, NJ = src_start.shape[0], gm.shape[1] // BS
+    p = k2_plan(BS, C, Co, T, gm.dtype)
+    n_cg, n_tg = p["groups"]
+    _grid_x(NI * n_tg * _cdiv(_pad16(BS), 128) * n_cg, "the BELL K2 kernel")
     dev = w.device
     dx = torch.empty((B, NI * BS, C * T), dtype=gm.dtype, device=dev)
-    idx = [t.data_ptr() for t in (src_start, src_count, src_order, active_tgt, thetas)]
+    split = torch.empty(H * n_cg * 2 * _pad16(Co) * 16, dtype=torch.bfloat16, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if gm.dtype == torch.bfloat16:
-            plan = k2_bf16_plan(BS, C, Co, T)
-            split = torch.empty(H * plan["groups"][0] * 2 * _pad16(Co) * 16,
-                                dtype=torch.bfloat16, device=dev)
-            aligned = lambda *ts: all(t.data_ptr() % 16 == 0 for t in ts)
-            err = lib.bell_bwd_k2_wmma(
-                *idx, split.data_ptr(), gm.data_ptr(), w.data_ptr(), dx.data_ptr(), B, A, H,
-                NI, NJ, BS, C, T, Co, plan["nt"], plan["tr"],
-                int(T % _TT16 == 0 and aligned(gm, dx)), int(BS % 8 == 0 and aligned(w)),
-                stream)
-        else:
-            err = lib.bell_bwd_k2(*idx, gm.data_ptr(), w.data_ptr(), dx.data_ptr(), B, A, H,
-                                  NI, NJ, BS, C, T, Co, time_chunk(C, Co, T), stream)
+        err = lib.bell_bwd_k2(
+            *(t.data_ptr() for t in (src_start, src_count, src_order, active_tgt, thetas, split,
+                                     gm, w, dx)),
+            B, A, H, NI, NJ, BS, C, T, Co, int(gm.dtype == torch.float32), p["nt"], p["tr"],
+            p["occ"], int(T % _TT16 == 0 and _aligned(gm, dx)),
+            int(BS % 8 == 0 and _aligned(w)), stream)
     _raise_on(lib, err, "bell_bwd K2")
     k2_launches += 1
     return dx

@@ -15,14 +15,16 @@ q, k (B, Np, H, d_k), bias and cheb tiles (A, H, BS, BS) and Θ (H, C, Co)
 are float32; x (B, Np, C·T) and the output (B, Np, Co·T) are in the compute
 dtype. The kernel (``csrc/bell_fused.cu``; its header says what bounds it)
 keeps the (B, H, Np, C·T) aggregation out of device memory: the Θ mix and
-the ReLU run in its epilogue. It has two designs, one a dtype: bf16 x (the
-BELL-tiles main path) runs the SpMM and the Θ mix on the tensor cores
-(WMMA) in chunks of 8 time steps, agg and Θ split into bf16 hi + lo where
-they meet, so the mix stays float32 in value (:func:`f_bf16_plan` sizes
-its tiles); float32 x keeps the CUDA-core kernels. On a CUDA tensor
-:func:`bell_forward` launches the design of the dtype or raises;
-:func:`bell_forward_plain` serves CPU tensors only. ``launches`` counts
-kernel launches.
+the ReLU run in its epilogue. One design for both dtypes: the SpMM and the
+Θ mix on the tensor cores (WMMA) in chunks of 8 time steps, channels in
+chunks whose mixes add up in float32 (JAX's c-major M-tiles), output
+columns tiled across blocks where one block's sums cannot hold them, agg
+and Θ split into bf16 hi + lo where they meet (and float32 x and w where
+staged), so the mix stays float32 in value (:func:`f_plan` sizes its
+tiles); the weights pass takes d_k in chunks. :func:`limit_error` is the
+one gate of the three BELL kernels. On a CUDA tensor :func:`bell_forward`
+launches the kernel or raises; :func:`bell_forward_plain` serves CPU
+tensors only. ``launches`` counts kernel launches.
 
 The backward (:func:`_backward`) is the active-list organisation of the
 JAX package's ``_bwd_tiles_active``: the softmax is recomputed with tensor
@@ -97,86 +99,101 @@ def bell_forward_plain(tile_start, tile_count, active_src, q, k, bias_t, cheb_t,
 # CUDA launch
 # ---------------------------------------------------------------------------
 
-# the bf16 SpMM/mix pass on the tensor cores (csrc/bell_fused.cu
-# f_spmm_wmma_kernel) shares the bf16 K1's chunks of 8 time steps, 8 warps
+# the SpMM/mix pass on the tensor cores (csrc/bell_fused.cu
+# f_spmm_wmma_kernel) shares the backward's chunks of 8 time steps, 8 warps
 # and their 16x16 float32 staging (bell_bwd): TN = 16·RF target columns a
 # block, warp tiles of RF x CW fragments (RF·CW ≤ 8, CW ≤ 4) for each of the
-# HG heads that share a stage, two stages
-_TT16, _WARPS, _STAGE = bell_bwd._TT16, bell_bwd._WARPS, bell_bwd._STAGE
-_SMEM_MAX, _pad16 = bell_bwd._SMEM_MAX, bell_bwd._pad16
+# HG heads that share a stage (HG·RF·CW ≤ 16, 8 in float32: its split
+# operands' fragments), two stages
+_TT16, _SMEM_MAX, _pad16 = bell_bwd._TT16, bell_bwd._SMEM_MAX, bell_bwd._pad16
+_cdiv, _SCRATCH = bell_bwd._cdiv, bell_bwd._SCRATCH
 # (heads a stage, source rows a stage), in the plan's order
 _F_STAGES = ((2, 32), (1, 32), (2, 16), (1, 16))
+_QROWS, _WCOLS, _DC = 32, 32, 128  # the weights pass: q rows, target columns, d_k columns
 
 
-def f_wmma_stage_bytes(C, TN, NT, KC, HG):
-    """The stage region of a bf16 SpMM/mix block: two stages of KC source
-    rows of x and of HG heads' w tiles (bf16, rows padded by 8), which then
-    hold Θ's hi and lo for the mix (csrc/bell_fused.cu)."""
-    return 2 * 2 * KC * (HG * (TN + 8) + _pad16(C * NT * _TT16) + 8)
+def f_wmma_stage_bytes(P, CC, TN, NT, KC, HG):
+    """The stage region of a SpMM/mix block: two stages of P planes of KC
+    source rows of x (CC channels) and of HG heads' w tiles (bf16, rows
+    padded by 8), which then hold Θ's hi and lo for the mix
+    (csrc/bell_fused.cu)."""
+    return 2 * 2 * P * KC * (HG * (TN + 8) + _pad16(CC * NT * _TT16) + 8)
 
 
-def f_wmma_smem_bytes(C, H, TN, NT, KC, HG):
-    """Shared memory a block of the bf16 SpMM/mix pass requests at TN target
-    columns, NT chunks of 8 steps, KC source rows and HG heads a stage (the
+def f_wmma_smem_bytes(P, C, H, TN, NT, KC, HG, CC, OCB):
+    """Shared memory a block of the SpMM/mix pass requests at TN target
+    columns, NT chunks of 8 steps, KC source rows and HG heads a stage, CC
+    channels a chunk and OCB output columns, P planes a staged operand (the
     formula of csrc/bell_fused.cu): the warps' staging, the stage region,
-    and agg's bf16 hi and lo for every head."""
-    return (4 * _WARPS * _STAGE + f_wmma_stage_bytes(C, TN, NT, KC, HG)
-            + 4 * _pad16(H * C) * (TN * NT * _TT16 + 8))
+    agg's bf16 hi and lo for the HG heads of a chunk, and, where the block
+    takes more than one (chunk, head group), its output tile's float32 sums."""
+    multi = _cdiv(C, CC) * _cdiv(H, HG) > 1
+    return (_SCRATCH + f_wmma_stage_bytes(P, CC, TN, NT, KC, HG)
+            + 4 * _pad16(HG * CC) * (TN * NT * _TT16 + 8)
+            + (4 * TN * NT * _TT16 * OCB if multi else 0))
 
 
-def _f_cw(C, NT):
-    """Column tiles a warp holds: the block's pad16(C·8·NT) columns over 8 warps."""
-    CF = _pad16(C * NT * _TT16) // 16
+def f_weights_smem_bytes(dk):
+    """Shared memory a block of the weights pass requests at d_k (staged in
+    chunks of at most 128 columns)."""
+    dc = min(dk, _DC)
+    return 4 * (_QROWS * dc + _QROWS * (_WCOLS + 1) + 4 * _WCOLS
+                + (0 if dk == 32 else _WCOLS * (dc | 1)))
+
+
+def _f_cw(CC, NT):
+    """Column tiles a warp holds: the block's pad16(CC·8·NT) columns over 8 warps."""
+    CF = _pad16(CC * NT * _TT16) // 16
     return 1 if CF <= 8 else 2 if CF <= 16 else 4
 
 
-def f_bf16_plan(BS, C, Co, T, H):
-    """The bf16 forward's launch plan: {"tn": target columns a block (the
-    most of 128, 64, 32, 16, at most pad16(BS), whose warp tiles and shared
-    memory fit), "nt": chunks of 8 steps a block (the fewest whose C·8·nt
-    columns fill the eight warps, evened out over T), "hg", "kc": the heads
-    and source rows a stage (the first of _F_STAGES that fits, whose stage
-    region holds Θ's split for 16 output columns; two heads share a stage
-    where H ≥ 2 and the warp tiles allow), "smem": bytes}. Raises ValueError outside the float32 kernels' caps (C ≤
-    64, Co ≤ 512, BS ≤ 128), and where every head's aggregation does not fit
-    a block even at 16 target columns (H·C beyond about 340: among the
-    shapes the float32 kernels take, only H = 6 with C ≥ 57)."""
-    if C > bell_bwd._W_MAX or Co > bell_bwd._WO_MAX or BS > bell_bwd._BS_MAX:
-        raise ValueError(f"the BELL kernels take C <= {bell_bwd._W_MAX}, Co <= "
-                         f"{bell_bwd._WO_MAX} and block_size <= {bell_bwd._BS_MAX}, got "
-                         f"C={C}, Co={Co}, BS={BS}")
-    BSp, T8 = _pad16(BS), -(-T // _TT16)
-    nt = min(-(-16 // C), T8)
-    nt = -(-T8 // -(-T8 // nt))
-    cw = _f_cw(C, nt)
-    for tn in (128, 64, 32, 16):
-        rf = tn // 16
-        if tn > BSp or rf * cw > 8:
-            continue
-        for hg, kc in _F_STAGES:
-            if ((hg == 2 and (H < 2 or rf * cw * hg > 16)) or kc > BSp
-                    or f_wmma_stage_bytes(C, tn, nt, kc, hg) < 4 * _pad16(H * C) * 24):
-                continue
-            smem = f_wmma_smem_bytes(C, H, tn, nt, kc, hg)
-            if smem <= _SMEM_MAX:
-                return {"tn": tn, "nt": nt, "hg": hg, "kc": kc, "smem": smem}
-    raise ValueError(
-        f"the bf16 BELL forward keeps every head's aggregation in shared memory: "
-        f"H·C = {H}·{C} needs {f_wmma_smem_bytes(C, H, 16, nt, 16, 1)} bytes a block "
-        f"at 16 target columns, over {_SMEM_MAX}")
+def f_plan(BS, C, Co, T, H, dtype):
+    """The forward's launch plan: {"cc": channels a chunk (C itself up to
+    64, else 64, 32 or 16), "nt": chunks of 8 steps a block (the fewest
+    whose CC·8·nt columns fill the eight warps, evened out over T, or
+    fewer), "tn": target columns a block (16 to 128, at most pad16(BS)),
+    "hg", "kc": the heads and source rows a stage (_F_STAGES; two heads
+    where the warp tiles allow: 16 fragments a warp, 8 in float32), "ocb": output columns a
+    block, "smem": bytes}. Of the tiles that fit a block (and whose stage
+    region holds Θ's split for 16 output columns), the one with the fewest
+    output blocks (each sums agg again), then the fewest (chunk, head
+    group) steps, the nt of the rule above, the most target columns, and
+    the first of _F_STAGES. Every shape has one."""
+    P = bell_bwd._planes(dtype)
+    BSp, T8, Cop = _pad16(BS), _cdiv(T, _TT16), _pad16(Co)
+    best = None
+    for cc in ([C] if C <= 64 else []) + [c for c in (64, 32, 16) if c < C]:
+        nt0 = min(_cdiv(16, cc), T8)
+        nt0 = _cdiv(T8, _cdiv(T8, nt0))
+        for nt in sorted({nt0, max(1, nt0 // 2), 1}, reverse=True):
+            cw = _f_cw(cc, nt)
+            for tn in (128, 64, 32, 16):
+                rf = tn // 16
+                if tn > BSp or rf * cw > 8:
+                    continue
+                for si, (hg, kc) in enumerate(_F_STAGES):
+                    if ((hg == 2 and (H < 2 or rf * cw * hg > 16 // P)) or kc > BSp
+                            or f_wmma_stage_bytes(P, cc, tn, nt, kc, hg)
+                            < 4 * _pad16(hg * cc) * 24):
+                        continue
+                    steps = _cdiv(C, cc) * _cdiv(H, hg)
+                    for ocb in bell_bwd._chunks(Cop) if steps > 1 else (Cop,):
+                        smem = f_wmma_smem_bytes(P, C, H, tn, nt, kc, hg, cc, ocb)
+                        if smem > _SMEM_MAX:
+                            continue
+                        key = (_cdiv(Cop, ocb), steps, nt0 - nt, -tn, si)
+                        if best is None or key < best[0]:
+                            best = (key, {"cc": cc, "nt": nt, "tn": tn, "hg": hg, "kc": kc,
+                                          "ocb": ocb, "smem": smem})
+                        break
+    if best is None:
+        raise AssertionError(f"no forward tile at BS={BS}, C={C}, Co={Co}, H={H}")
+    return best[1]
 
 
-def limit_error(BS, C, Co, T, H, dtype):
-    """Why the card's forward cannot take this BELL block in ``dtype``, or
-    None: the bf16 plan's refusals (float32 takes its kernels' caps at
-    launch)."""
-    if dtype != torch.bfloat16:
-        return None
-    try:
-        f_bf16_plan(BS, C, Co, T, H)
-    except ValueError as e:
-        return str(e)
-    return None
+# the BELL gate: why the card cannot run the BELL conv's kernels (the
+# forward, K1, K2) at a shape, the one shape function they all raise at launch
+limit_error = bell_bwd.shape_error
 
 
 def _check(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
@@ -188,9 +205,9 @@ def _check(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
         raise ValueError(f"bias and cheb tiles must be (A, H={H}, BS, BS), got "
                          f"{tuple(bias_t.shape)}, {tuple(cheb_t.shape)}")
     A, _, BS, _ = bias_t.shape
-    if BS > 128 or dk > 128 or Np % BS:
-        raise ValueError(f"the BELL kernel takes block_size <= 128 dividing Np "
-                         f"and d_k <= 128, got BS={BS}, Np={Np}, d_k={dk}")
+    if Np % BS:
+        raise ValueError(f"the BELL kernel takes a block_size dividing Np, got BS={BS}, "
+                         f"Np={Np}")
     if thetas.ndim != 3 or thetas.shape[0] != H:
         raise ValueError(f"thetas must be (H={H}, C, Co), got {tuple(thetas.shape)}")
     C = thetas.shape[1]
@@ -213,21 +230,19 @@ def _check(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
             raise ValueError(f"the BELL kernel runs on CUDA tensors; {name} is on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"grid too large for B={B}, H={H}")
+    why = bell_bwd.shape_error(B, H, C, thetas.shape[2], x.dtype)
+    if why is not None:
+        raise ValueError(why)
 
 
 def _load():
     lib = build.load("bell_fused")
     fn = lib.bell_fused_forward
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 18
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.bell_fused_forward_wmma.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 15
-                                                + [ctypes.c_float, ctypes.c_void_p])
-        lib.bell_fused_forward_wmma.restype = ctypes.c_int
-        lib.bell_fused_wmma_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.bell_fused_wmma_smem_bytes.argtypes = [ctypes.c_int] * 10
         lib.bell_fused_wmma_smem_bytes.restype = ctypes.c_size_t
         lib.bell_fused_error_string.argtypes = [ctypes.c_int]
         lib.bell_fused_error_string.restype = ctypes.c_char_p
@@ -236,8 +251,7 @@ def _load():
 
 @debug.kernel("bell_fused")
 def bell_forward_cuda(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas):
-    """Launch the fused forward on the current stream: bf16 x takes the
-    tensor-core design, float32 x the CUDA-core kernels."""
+    """Launch the fused forward on the current stream, in either dtype."""
     global launches
     _check(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, x, thetas)
     B, Np, H, dk = q.shape
@@ -245,11 +259,11 @@ def bell_forward_cuda(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, 
     _, C, Co = thetas.shape
     T = x.shape[2] // C
     NJ = tile_start.shape[0]
-    bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        plan = f_bf16_plan(BS, C, Co, T, H)
-    else:
-        TT = bell_bwd.time_chunk(C, Co, T)
+    plan = f_plan(BS, C, Co, T, H, x.dtype)
+    blocks = (NJ * _cdiv(_pad16(Co), plan["ocb"]) * _cdiv(BS, plan["tn"])
+              * _cdiv(T, plan["nt"] * _TT16))
+    if max(blocks, NJ * _cdiv(BS, _WCOLS)) > bell_bwd._INT_MAX:
+        raise ValueError(f"the BELL forward: grid too large ({blocks} blocks)")
     out = torch.empty((B, Np, Co * T), dtype=x.dtype, device=x.device)
     w = torch.empty((B, A, H, BS, BS), dtype=x.dtype, device=x.device)  # scratch
     ptrs = [t.data_ptr() for t in (tile_start, tile_count, active_src, q, k, bias_t, cheb_t,
@@ -257,16 +271,11 @@ def bell_forward_cuda(tile_start, tile_count, active_src, q, k, bias_t, cheb_t, 
     lib = _load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if bf16:
-            err = lib.bell_fused_forward_wmma(
-                *ptrs, out.data_ptr(), B, A, H, NJ, BS, dk, C, T, Co,
-                plan["tn"], plan["nt"], plan["kc"], plan["hg"],
-                int(T % _TT16 == 0 and x.data_ptr() % 16 == 0), int(BS % 8 == 0),
-                1.0 / math.sqrt(dk), stream)
-        else:
-            err = lib.bell_fused_forward(
-                *ptrs, out.data_ptr(), B, A, H, NJ, BS, dk, C, T, Co, TT,
-                1.0 / math.sqrt(dk), stream)
+        err = lib.bell_fused_forward(
+            *ptrs, out.data_ptr(), B, A, H, NJ, BS, dk, C, T, Co,
+            int(x.dtype == torch.float32), plan["tn"], plan["nt"], plan["kc"], plan["hg"],
+            plan["cc"], plan["ocb"], int(T % _TT16 == 0 and bell_bwd._aligned(x, out)),
+            int(BS % 8 == 0 and bell_bwd._aligned(w)), 1.0 / math.sqrt(dk), stream)
     if err != 0:
         msg = lib.bell_fused_error_string(err).decode()
         raise RuntimeError(f"bell_fused kernel launch failed: {msg} ({err})")

@@ -175,10 +175,12 @@ def check_fused_shapes(cfg: Config, device: torch.device, dtype: torch.dtype) ->
     where a block's shape is one the kernels of ``fuse_spatial`` cannot take
     in the compute ``dtype``
     (:func:`~dstagnn_drought_tpu_torch.ops.cuda.block_spatial_fused.limit_error`),
-    or one the BELL forward kernel cannot take on the BELL kernel path
-    (``sparse_format = bell`` with ``use_pallas`` or ``mask_format =
-    tiles``; :func:`~dstagnn_drought_tpu_torch.ops.cuda.bell_fused.limit_error`),
-    so a config fails before its data is read, not at its first step. The
+    or one the BELL kernels (forward, K1, K2) cannot take on the BELL kernel
+    path (``sparse_format = bell`` with ``use_pallas`` or ``mask_format =
+    tiles``; :func:`~dstagnn_drought_tpu_torch.ops.cuda.bell_fused.limit_error`,
+    the shape function their wrappers raise at launch: CUDA's grid limits
+    and an int32 guard), so a config fails before its data is read, not at
+    its first step. The
     ``fuse_tat`` passes stream N and T and take every block JAX takes. The
     fused spatial middle runs on the dense path only, as the model runs it;
     the CPU (the plain versions) takes every shape."""
@@ -199,9 +201,9 @@ def check_fused_shapes(cfg: Config, device: torch.device, dtype: torch.dtype) ->
                             N, F * T_i, C, T_i, spec.nb_chev_filter, spec.d_model, spec.K,
                             spec.d_k, dtype)))
         if bell_kernel:
-            why.append(("sparse_format=bell", "use float32 or the plain BELL path",
-                        bell_fused.limit_error(t.block_size, C, spec.nb_chev_filter, T_i,
-                                               spec.K, dtype)))
+            why.append(("sparse_format=bell", "use the plain BELL path",
+                        bell_fused.limit_error(t.batch_size, spec.K, C, spec.nb_chev_filter,
+                                               dtype)))
         for knob, remedy, msg in why:
             if msg is not None:
                 raise ValueError(f"{knob} but on the card block {i + 1}: {msg} — {remedy}")

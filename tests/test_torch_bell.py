@@ -29,10 +29,16 @@ CASES = {
     # T·C = 1152 > 1024 (the TPU's fused-backward gate, not carried over)
     "tc1152_n20": dict(n=20, BS=8, p=0.3, C=8, T=144, Co=4, K=2, dk=4),
 }
+# the widths past the caps the card's kernels had: C = 128, Co = 256 and
+# d_k = 160; a block size of 160 (two tiles of a 170-node graph)
+WIDE_CASES = {
+    "c128_co256_dk160": dict(n=20, BS=8, p=0.3, C=128, T=8, Co=256, K=2, dk=160),
+    "bs160_n170": dict(n=170, BS=160, p=0.02, C=4, T=8, Co=4, K=2, dk=8),
+}
 
 
 def _case(name, seed=0, B=2, dm=12):
-    c = dict(CASES[name])
+    c = dict({**CASES, **WIDE_CASES}[name])
     n, K, dk, C, T = c["n"], c["K"], c["dk"], c["C"], c["T"]
     rng = np.random.default_rng(seed)
     A = (rng.random((n, n)) < c["p"]).astype(np.float32)
@@ -112,6 +118,21 @@ def test_conv_matches_pallas_interpret(name, path):
     j_out, j_grads, masks = _jax_conv(c, path)
     out, grads = _port_conv(c, path, masks)
     assert out.shape == (2, c["n"], c["Co"], c["T"])
+    np.testing.assert_allclose(out, j_out, atol=2e-4, rtol=2e-4)
+    for g, jg, nm in zip(grads, j_grads, ("x", "emb", "thetas", "wq", "wk", "masks")):
+        np.testing.assert_allclose(g, jg, atol=5e-3, rtol=5e-3, err_msg=nm)
+
+
+@pytest.mark.parametrize("name", list(WIDE_CASES))
+def test_wide_conv_matches_pallas_interpret(name):
+    """The port's plain BELL conv (the function the card's kernels compute at
+    every width) against JAX's ``bell_cheb_conv_tiles`` in interpret mode
+    at widths the kernels refused before: forward within 2e-4, every
+    gradient within 5e-3."""
+    c = _case(name, B=1)
+    j_out, j_grads, masks = _jax_conv(c, "tiles")
+    out, grads = _port_conv(c, "tiles", masks)
+    assert out.shape == (1, c["n"], c["Co"], c["T"])
     np.testing.assert_allclose(out, j_out, atol=2e-4, rtol=2e-4)
     for g, jg, nm in zip(grads, j_grads, ("x", "emb", "thetas", "wq", "wk", "masks")):
         np.testing.assert_allclose(g, jg, atol=5e-3, rtol=5e-3, err_msg=nm)
@@ -197,44 +218,64 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         bell_bwd.bell_k2_cuda(t["src_start"], t["src_count"], t["src_order"],
                               t["active_tgt"], *k_args[4:6], k_args[7])
-    with pytest.raises(ValueError, match="C <= 64"):
-        bell_bwd.time_chunk(65, 32, 12)
-    # chunks never outgrow the staged shared-memory tiles or the sequence
-    assert bell_bwd.time_chunk(1, 32, 144) == 16 and bell_bwd.time_chunk(1, 32, 12) == 12
-    assert bell_bwd.time_chunk(4, 32, 144, staged=128) == 4
+    # what the kernels refuse by shape alone: the dtype and CUDA's grid
+    # limits; every width passes
+    for dtype in (torch.float32, torch.bfloat16):
+        assert bell_fused.limit_error(4, 2, 256, 1024, dtype) is None
+        assert "grid too large" in bell_fused.limit_error(40000, 2, 32, 32, dtype)
+    assert "float32 or bfloat16" in bell_bwd.shape_error(1, 2, 4, 3, torch.float16)
 
 
 # (BS, C, Co, T): the GAMBIA blocks 1-2, chip_smoke.py's other BELL shapes
-# (ragged BS 8 and 16 at T = 12, one channel at T = 144), and the caps' edge
+# (ragged BS 8 and 16 at T = 12, one channel at T = 144), the old caps' edge,
+# and past it: C = Co = 128 (GAMBIA block 2 at nb_chev_filter = 128), Co =
+# 1024, BS = 256
 K1_BF16_SHAPES = [(128, 4, 32, 144), (128, 32, 32, 144), (8, 4, 8, 12), (16, 4, 8, 12),
-                  (16, 1, 32, 144), (128, 64, 128, 144), (120, 5, 3, 7)]
+                  (16, 1, 32, 144), (128, 64, 128, 144), (120, 5, 3, 7),
+                  (128, 128, 128, 144), (16, 4, 1024, 12), (256, 32, 32, 144)]
+PLAN_DTYPES = (torch.bfloat16, torch.float32)
 
 
+@pytest.mark.parametrize("dtype", PLAN_DTYPES)
 @pytest.mark.parametrize("BS, C, Co, T", K1_BF16_SHAPES)
-def test_k1_bf16_plan_fits_every_shape(BS, C, Co, T):
-    """The bf16 K1's plan fits a block's 232,448 bytes in both passes, its
-    tiles are ones the kernels take (dA: a power of two of at most
-    pad16(BS) target columns; dΘ: a multiple of 16 dividing pad16(BS)),
-    and it gives the same partials (one per chunk of 8 steps) every call."""
-    plan = bell_bwd.k1_bf16_plan(BS, C, Co, T)
-    BSp = -(-BS // 16) * 16
+def test_k1_bf16_plan_fits_every_shape(BS, C, Co, T, dtype):
+    """K1's plan fits a block's 232,448 bytes in both passes in either
+    dtype, its tiles are ones the kernels take (dA: powers of two of at
+    most 128 target columns and source rows, chunks of channels and output
+    channels no wider than C and Co; dΘ: a multiple of 16 dividing the
+    target-row tile, at most 4 partial fragments a warp), and it is the same
+    on every call."""
+    plan = bell_bwd.k1_plan(BS, C, Co, T, dtype)
+    BSp, P = -(-BS // 16) * 16, bell_bwd._planes(dtype)
+    trr = min(BSp, 128)
     assert max(plan["smem"]) <= 232448
-    assert plan["tn"] in (16, 32, 64, 128) and plan["tn"] <= BSp
-    assert plan["tc"] % 16 == 0 and BSp % plan["tc"] == 0
-    assert plan["smem"] == (bell_bwd.k1_wmma_smem_bytes(BS, C, Co, plan["tn"], 0),
-                            bell_bwd.k1_wmma_smem_bytes(BS, C, Co, plan["tc"], 1))
-    assert plan["groups"] == -(-T // 8)
-    assert bell_bwd.k1_bf16_plan(BS, C, Co, T) == plan
-    # the GAMBIA blocks: one dA block a (slot, head, batch), two dΘ blocks an SM
-    if BS == 128 and Co == 32:
-        assert plan["tn"] == 128 and plan["smem"][1] <= 115712
+    assert plan["tn"] in (16, 32, 64, 128) and plan["tn"] <= BSp and plan["rs"] == trr
+    assert plan["cc"] <= C and plan["occ"] <= Co
+    assert plan["tc"] % 16 == 0 and trr % plan["tc"] == 0 and plan["ks"] <= trr
+    assert -(-plan["ocb"] // 16) <= 4 * plan["wo"] and plan["ocb"] <= max(512, -(-Co // 16) * 16)
+    assert plan["smem"] == (
+        bell_bwd.k1_smem_bytes(P, BS, C, Co, (plan["tn"], plan["rs"], plan["cc"], plan["occ"]), 0),
+        bell_bwd.k1_smem_bytes(P, BS, C, Co, (plan["tc"], plan["ks"], plan["ocb"], plan["wo"]), 1))
+    assert bell_bwd.k1_plan(BS, C, Co, T, dtype) == plan
+    # the GAMBIA blocks in bf16: one dA block a (slot, head, batch), every
+    # channel and output channel at once, two dΘ blocks an SM
+    if BS == 128 and Co == 32 and dtype == torch.bfloat16:
+        assert (plan["tn"], plan["cc"], plan["occ"]) == (128, C, Co)
+        assert plan["smem"][1] <= 115712
 
 
 def test_k1_bf16_plan_refuses_what_the_float32_kernels_refuse():
-    with pytest.raises(ValueError, match="C <= 64"):
-        bell_bwd.k1_bf16_plan(128, 65, 32, 144)
-    with pytest.raises(ValueError, match="Co <= 128"):
-        bell_bwd.k1_bf16_plan(128, 32, 129, 144)
+    """The widths K1 refused (C > 64, Co > 128, BS > 128) have plans now,
+    in both dtypes, and K1's shape function admits them; its dΘ partials
+    fold time groups so that they stay within 16 MiB where one group
+    allows it (C = Co = 128 at GAMBIA block 2: one group, 8.9 MB)."""
+    for dtype in PLAN_DTYPES:
+        for BS, C, Co in ((128, 65, 32), (128, 32, 129), (136, 32, 32), (256, 128, 512)):
+            assert max(bell_bwd.k1_plan(BS, C, Co, 144, dtype)["smem"]) <= 232448
+            assert bell_bwd.shape_error(4, 2, C, Co, dtype) is None
+    assert bell_bwd.k1_time_groups(4, 17, 128, 2, 32, 32, 144) == (18, 1)
+    G, TG = bell_bwd.k1_time_groups(4, 17, 128, 2, 128, 128, 144)
+    assert (G, TG) == (1, 18) and 4 * 4 * 17 * 2 * 128 * 128 * G < 16 * 2**20
 
 
 # K1_BF16_SHAPES, the caps' edges of the float32 K2 (C 1/64, Co 1/512, BS
@@ -245,47 +286,48 @@ K2_BF16_SHAPES = K1_BF16_SHAPES + [
     (120, 64, 512, 16), (64, 56, 5, 16), (48, 5, 3, 7), (20, 4, 8, 16), (32, 32, 16, 24)]
 
 
+@pytest.mark.parametrize("dtype", PLAN_DTYPES)
 @pytest.mark.parametrize("BS, C, Co, T", K2_BF16_SHAPES)
-def test_k2_bf16_plan_fits_every_shape(BS, C, Co, T):
-    """The bf16 K2's plan fits a block's 232,448 bytes, equals
-    k2_wmma_smem_bytes for its own tiles, takes tiles the kernel has (nt
-    and tr powers of two, tr ≥ 16 dividing pad16(BS), at most 128 dx
-    columns a block), covers every channel and step with no empty group,
-    and is the same on every call."""
-    plan = bell_bwd.k2_bf16_plan(BS, C, Co, T)
+def test_k2_bf16_plan_fits_every_shape(BS, C, Co, T, dtype):
+    """K2's plan fits a block's 232,448 bytes in either dtype, equals
+    k2_smem_bytes for its own tiles, takes tiles the kernel has (nt and tr
+    powers of two, tr ≥ 16 dividing pad16(BS), at most 128 dx columns a
+    block, output channels in chunks of 16 or all of them), covers every
+    channel and step with no empty group, and is the same on every call."""
+    plan = bell_bwd.k2_plan(BS, C, Co, T, dtype)
     BSp, T8, CG = -(-BS // 16) * 16, -(-T // 8), min(C, 16)
-    nt, tr = plan["nt"], plan["tr"]
+    nt, tr, occ = plan["nt"], plan["tr"], plan["occ"]
     assert plan["smem"] <= 232448
-    assert plan["smem"] == bell_bwd.k2_wmma_smem_bytes(BS, C, Co, nt, tr)
+    assert plan["smem"] == bell_bwd.k2_smem_bytes(bell_bwd._planes(dtype), BS, C, Co, nt, tr,
+                                                  occ)
     assert tr in (16, 32, 64, 128) and BSp % tr == 0
     assert nt & (nt - 1) == 0 and -(-nt * CG * 8 // 16) * 16 <= 128
+    assert occ % 16 == 0 and occ <= -(-Co // 16) * 16
     n_cg, n_tg = plan["groups"]
     assert n_cg * CG >= C > (n_cg - 1) * CG
     assert n_tg * nt >= T8 > (n_tg - 1) * nt
-    assert bell_bwd.k2_bf16_plan(BS, C, Co, T) == plan
-    # the GAMBIA blocks: two blocks an SM; block 2 in channel halves
-    if BS == 128 and Co == 32 and T == 144:
+    assert bell_bwd.k2_plan(BS, C, Co, T, dtype) == plan
+    # the GAMBIA blocks in bf16: two blocks an SM; block 2 in channel halves
+    if BS == 128 and Co == 32 and T == 144 and dtype == torch.bfloat16:
         assert plan["smem"] <= 115712
         if C == 32:
             assert (nt, plan["groups"]) == (1, (2, 18))
 
 
 def test_k2_bf16_plan_refuses_exactly_what_the_float32_k2_refuses():
-    """The float32 K2's caps (C ≤ 64, Co ≤ 512 from time_chunk, BS ≤ 128),
-    with its messages, and no shape inside them: one chunk of 16 target
-    rows fits at the largest (Co = 512)."""
-    for args, msg in (((128, 65, 32, 144), "C <= 64"), ((128, 32, 513, 144), "Co <= 512"),
-                      ((136, 32, 32, 144), "block_size <= 128")):
-        with pytest.raises(ValueError, match=msg):
-            bell_bwd.k2_bf16_plan(*args)
-    with pytest.raises(ValueError, match="Co <= 512"):
-        bell_bwd.time_chunk(32, 513, 144)
-    for BS in (8, 16, 120, 128):
-        for C in (1, 64):
-            for Co in (1, 512):
-                for T in (1, 7, 144):
-                    assert bell_bwd.k2_bf16_plan(BS, C, Co, T)["smem"] <= 232448
-    assert bell_bwd.k2_bf16_plan(128, 64, 512, 144)["tr"] == 16
+    """K2 refused C > 64, Co > 512 and BS > 128; it takes them now in both
+    dtypes (Co past what one chunk holds in chunks of output channels), and
+    its shape function refuses only the dtype and the grid."""
+    for dtype in PLAN_DTYPES:
+        for BS in (8, 16, 120, 128, 136, 256):
+            for C in (1, 64, 65, 256):
+                for Co in (1, 512, 513, 2048):
+                    for T in (1, 7, 144):
+                        assert bell_bwd.k2_plan(BS, C, Co, T, dtype)["smem"] <= 232448
+                        assert bell_bwd.shape_error(4, 2, C, Co, dtype) is None
+        assert bell_bwd.k2_plan(128, 64, 512, 144, dtype)["tr"] == 16
+        assert bell_bwd.k2_plan(128, 64, 2048, 144, dtype)["occ"] < 2048
+    assert "grid too large" in bell_bwd.shape_error(65536, 1, 4, 3, torch.bfloat16)
 
 
 @pytest.mark.parametrize("shape", [dict(), dict(BS=16, H=3, C=1, T=128, Co=2, n=40)])
@@ -322,44 +364,44 @@ F_BF16_SHAPES = [(*shape, H) for shape in K1_BF16_SHAPES for H in (2, 3)] + [
     (128, 32, 512, 144, 2), (128, 64, 32, 144, 2), (128, 64, 512, 144, 3), (8, 64, 512, 12, 2)]
 
 
+@pytest.mark.parametrize("dtype", PLAN_DTYPES)
 @pytest.mark.parametrize("BS, C, Co, T, H", F_BF16_SHAPES)
-def test_f_bf16_plan_fits_every_shape(BS, C, Co, T, H):
-    """The bf16 forward's plan fits a block's 232,448 bytes, equals
-    f_wmma_smem_bytes for its own tiles, takes tiles the kernel has (TN a
-    power of two of at most pad16(BS); warp tiles of at most 8 fragments a
-    head, 16 for the heads of a stage), covers every step, and is the same
-    on every call."""
-    plan = bell_fused.f_bf16_plan(BS, C, Co, T, H)
-    BSp = -(-BS // 16) * 16
+def test_f_bf16_plan_fits_every_shape(BS, C, Co, T, H, dtype):
+    """The forward's plan fits a block's 232,448 bytes in either dtype,
+    equals f_wmma_smem_bytes for its own tiles, takes tiles the kernel has
+    (TN a power of two of at most pad16(BS); warp tiles of at most 8
+    fragments a head, 16 for the heads of a stage, 8 in float32; a stage
+    region that holds Θ's split for 16 output columns),
+    covers every step, and is the same on every call."""
+    plan = bell_fused.f_plan(BS, C, Co, T, H, dtype)
+    BSp, P = -(-BS // 16) * 16, bell_bwd._planes(dtype)
+    cc, nt = plan["cc"], plan["nt"]
     assert plan["smem"] <= 232448
-    assert plan["smem"] == bell_fused.f_wmma_smem_bytes(C, H, plan["tn"], plan["nt"],
-                                                        plan["kc"], plan["hg"])
+    assert plan["smem"] == bell_fused.f_wmma_smem_bytes(P, C, H, plan["tn"], nt, plan["kc"],
+                                                        plan["hg"], cc, plan["ocb"])
+    assert (bell_fused.f_wmma_stage_bytes(P, cc, plan["tn"], nt, plan["kc"], plan["hg"])
+            >= 4 * (-(-plan["hg"] * cc // 16) * 16) * 24)
     assert plan["tn"] in (16, 32, 64, 128) and plan["tn"] <= BSp
     assert plan["kc"] in (16, 32) and plan["hg"] in (1, 2)
-    frags = plan["tn"] // 16 * bell_fused._f_cw(C, plan["nt"])
-    assert frags <= 8 and frags * plan["hg"] <= 16 and plan["hg"] <= H
-    assert 1 <= plan["nt"] <= -(-T // 8)
-    assert bell_fused.f_bf16_plan(BS, C, Co, T, H) == plan
-    if (BS, C, Co, T, H) == (128, 32, 32, 144, 2):  # GAMBIA block 2: one 8-step chunk
-        assert (plan["nt"], plan["tn"], plan["hg"]) == (1, 64, 2)
+    frags = plan["tn"] // 16 * bell_fused._f_cw(cc, nt)
+    assert frags <= 8 and frags * plan["hg"] <= 16 // P and plan["hg"] <= H
+    assert 1 <= nt <= -(-T // 8) and cc <= min(C, 64) and plan["ocb"] % 16 == 0
+    assert bell_fused.f_plan(BS, C, Co, T, H, dtype) == plan
+    if (BS, C, Co, T, H, dtype) == (128, 32, 32, 144, 2, torch.bfloat16):
+        # GAMBIA block 2: one 8-step chunk, every channel and head at once
+        assert (nt, plan["tn"], plan["hg"], cc, plan["ocb"]) == (1, 64, 2, 32, 32)
 
 
 def test_f_bf16_plan_refuses_what_the_float32_kernels_refuse():
-    """Exactly the float32 kernels' caps (C ≤ 64, Co ≤ 512, BS ≤ 128), and,
-    by name, the one corner that does not fit: every head's aggregation at
-    H = 6 and C = 64 (which the float32 kernels take only at Co ≤ 5)."""
-    for args in ((128, 65, 32, 144, 2), (128, 32, 513, 144, 2), (136, 32, 32, 144, 2)):
-        with pytest.raises(ValueError, match=r"C <= 64, Co <= 512 and block_size <= 128"):
-            bell_fused.f_bf16_plan(*args)
-        if args[2] > 512 or args[1] > 64:
-            with pytest.raises(ValueError, match="C <= 64"):
-                bell_bwd.time_chunk(args[1], args[2], args[3])
-    bell_fused.f_bf16_plan(128, 64, 512, 144, 2)
-    with pytest.raises(ValueError, match=r"every head's aggregation.*H·C = 6·64"):
-        bell_fused.f_bf16_plan(128, 64, 5, 144, 6)
-    assert "H·C = 6·64" in bell_fused.limit_error(128, 64, 5, 144, 6, torch.bfloat16)
-    assert bell_fused.limit_error(128, 64, 5, 144, 6, torch.float32) is None
-    assert bell_fused.limit_error(128, 32, 32, 144, 2, torch.bfloat16) is None
+    """The widths the forward refused (C > 64, Co > 512, BS > 128, d_k >
+    128, and every head's aggregation past H·C ≈ 340: H = 6 at C = 64) have
+    plans now in both dtypes, and the gate admits them."""
+    for dtype in PLAN_DTYPES:
+        for BS, C, Co, H in ((128, 65, 32, 2), (128, 32, 513, 2), (136, 32, 32, 2),
+                             (128, 64, 5, 6), (256, 128, 1024, 3)):
+            assert bell_fused.f_plan(BS, C, Co, 144, H, dtype)["smem"] <= 232448
+            assert bell_fused.limit_error(4, H, C, Co, dtype) is None
+    assert bell_fused.f_weights_smem_bytes(512) == bell_fused.f_weights_smem_bytes(128)
 
 
 @pytest.mark.parametrize("name", ["ragged_n29", "tc1152_n20"])

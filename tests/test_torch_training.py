@@ -454,17 +454,22 @@ def test_trainer_refuses_fused_shapes_over_the_card_budget(toy_windowed, tmp_pat
 # kernel's one corner, K = H = 6 heads over in_channels = 64 (block 1),
 # which the bf16 design cannot hold in a block and float32 takes; the
 # plain BELL path (dense masks, no use_pallas) runs no kernel
+# the block the bf16 forward refused before its channels came in chunks (H·C
+# = 6·64), and a batch past CUDA's grid limit on B·H (refused on the paths
+# that run the kernels)
 BELL_CORNER = dict(in_channels=64, K=6, nb_chev_filter=4, nb_time_filter=4)
 BELL_CARD_CASES = [("bfloat16", "tiles", False, True), ("bfloat16", "dense", True, True),
-                   ("bfloat16", "dense", False, False), ("float32", "tiles", False, False)]
+                   ("bfloat16", "dense", False, False), ("float32", "tiles", False, True)]
 
 
 @pytest.mark.parametrize("dtype, mask_format, use_pallas, refused", BELL_CARD_CASES)
 def test_check_fused_shapes_checks_the_bell_kernel(toy_windowed, dtype, mask_format,
                                                    use_pallas, refused):
-    """On a CUDA device check_fused_shapes refuses, naming the BELL path and
-    the bytes, a block the bf16 BELL forward kernel cannot take, on the
-    paths that run it; on the CPU every shape passes."""
+    """On a CUDA device check_fused_shapes admits the H·C = 6·64 block the
+    bf16 forward refused before, in both dtypes, and refuses, naming the
+    BELL path and the limit, a batch whose B·H passes CUDA's grid limit, on
+    the paths that run the kernels (``refused``); on the CPU every shape
+    passes."""
     cfg = load_config(toy_windowed / "TOY.conf")
     t = cfg.training
     t.sparse, t.sparse_format, t.mask_format, t.use_pallas = True, "bell", mask_format, use_pallas
@@ -473,12 +478,27 @@ def test_check_fused_shapes_checks_the_bell_kernel(toy_windowed, dtype, mask_for
         setattr(t, key, value)
     dt = getattr(torch, dtype)
     loop.check_fused_shapes(cfg, torch.device("cpu"), dt)
+    loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
+    t.batch_size = 20000
+    loop.check_fused_shapes(cfg, torch.device("cpu"), dt)
     if refused:
-        with pytest.raises(ValueError, match=r"sparse_format=bell.* block 1: .*H·C = 6·64 "
-                                             r"needs \d+ bytes"):
+        with pytest.raises(ValueError, match=r"sparse_format=bell.* block 1: .*grid too large "
+                                             r"for B=20000, H=6"):
             loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
     else:
         loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_check_fused_shapes_admits_the_bell_widths(toy_windowed, dtype):
+    """The BELL kernel path at widths the card refused before: 128
+    channels, d_k = 160 and block_size 160 pass the gate on a CUDA device."""
+    cfg = load_config(toy_windowed / "TOY.conf")
+    t = cfg.training
+    t.sparse, t.sparse_format, t.mask_format, t.use_pallas = True, "bell", "tiles", True
+    t.nb_chev_filter = t.nb_time_filter = 128
+    t.d_k, t.block_size, t.compute_dtype = 160, 160, dtype
+    loop.check_fused_shapes(cfg, torch.device("cuda"), getattr(torch, dtype))
 
 
 def test_cli_refuses_flags_outside_the_slice(toy_windowed, tmp_path, monkeypatch):
@@ -572,18 +592,22 @@ def test_rcm_predictions_come_back_in_original_order(toy_windowed, tmp_path):
     assert loss_rcm == pytest.approx(loss_plain, rel=1e-4)
 
 
-def test_three_step_bell_tiles_trajectory_matches_jax():
+@pytest.mark.parametrize("widths", [dict(nb_chev_filter=8, nb_time_filter=8, d_k=8),
+                                    dict(nb_chev_filter=128, nb_time_filter=128, d_k=160)],
+                         ids=["narrow", "c128_dk160"])
+def test_three_step_bell_tiles_trajectory_matches_jax(widths):
     """Tile-resident BELL, same weights and batches, dropout 0: per-step
     SmoothL1 + Adam losses agree with the JAX trainer step (its kernels in
-    interpret mode) to rtol 2e-3 / atol 2e-4."""
+    interpret mode) to rtol 2e-3 / atol 2e-4; also at 128 channels and d_k =
+    160, widths the card's BELL kernels refused before."""
     from dstagnn_drought_tpu.ops.block_sparse import block_ell_from_adjacency as jax_bell
     from dstagnn_drought_tpu_torch.ops.block_sparse import block_ell_from_adjacency
 
     rng = np.random.default_rng(11)
     N, T, P, lr, bs = 12, 12, 4, 1e-3, 4
     kw = dict(num_of_vertices=N, len_input=T, num_for_predict=P, num_of_d=1,
-              nb_block=2, in_channels=1, K=2, nb_chev_filter=8, nb_time_filter=8,
-              d_model=16, d_k=8, n_heads=2, dropout_rate=0.0)
+              nb_block=2, in_channels=1, K=2, d_model=16, n_heads=2, dropout_rate=0.0,
+              **widths)
     A = (rng.random((N, N)) < 0.25).astype(np.float32)
     A = np.maximum(A, A.T)
     np.fill_diagonal(A, 0)
