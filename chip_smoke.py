@@ -131,9 +131,10 @@ Phases; any failure exits non-zero:
      per run;
   10. remat (``phase_remat``): GAMBIA dense at full width (bf16,
      use_pallas, fuse_gtu) and PEMS08 width fused (fuse_tat, fuse_spatial,
-     bf16), each eager and with remat from one seed: the epoch losses within
-     1e-6 (bit equality printed), the forward kernels launched twice per
-     block of every train step under remat (the recompute) and once eager,
+     bf16), each without and with remat from one seed, both graphed: the
+     epoch losses within 1e-6 (bit equality printed), the forward kernels
+     launched twice per block of every train step under remat (the
+     recompute, inside the graph) and once without,
      the backward kernels once, each side's ms/step and epoch peak memory;
   11. debug mode (``phase_debug``, PEMS08 width, float32, use_pallas): three
      checked steps with losses equal to the eager steps' bit for bit, then
@@ -173,9 +174,32 @@ Phases; any failure exits non-zero:
      of 4 ranks sharing one H100 (no multi-GPU figure); then the training
      CLI with --distributed at world size 1 under NCCL, its predictions
      equal bit for bit to the run without it;
-  15. a JSON line with every kernel's numbers (with F, K1 and K2 on rank
+  15. the whole-epoch runners as CUDA graphs (``phase_graphed``): GAMBIA
+     dense (use_pallas, fuse_gtu), GAMBIA BELL tiles (fuse_gtu) and PEMS08
+     width fused (fuse_tat, fuse_spatial), each in float32 and bf16, two
+     epochs and a val pass through the eager loop and then through the
+     graphs from the same weights and seed: per-step losses, weights and
+     val predictions the same bits (or within the spread of a second eager
+     run), the launches the graphs ran (``launches_run``: each capture's
+     launches once a replay, from ``graph_stats``) equal the eager run's
+     and the expected counts, one train graph replayed for every step but
+     the warm-up and one val graph for every batch but the first; in bf16
+     the two alternated over two rounds for wall ms/step, and a profiled
+     epoch of each whose traces name the same csrc kernels the same number
+     of times; a resume that must capture again
+     (its losses against an eager trainer loading the same checkpoint); the
+     eager losses with and without capturable Adam; what a capture says of
+     a constant copied from the host (the pattern ops/ no longer has);
+  16. a JSON line with every kernel's numbers (with F, K1 and K2 on rank
      0's tile list at graph = 4 as records of their own), then the device
      line.
+
+Every single-rank Trainer of these phases trains and evaluates through
+CUDA graphs; the launch checks count a graph's captured launches once per
+replay (``launches_run``), the wrappers' counters count the warm-up step and
+the capture. Phase 12's rollback must capture a new train graph, whose
+losses equal an eager trainer's resumed from the same checkpoint at the
+halved lr. Mesh runs (phase 14) and debug mode (phase 11) stay eager.
 
 ``--measure`` adds the spatial and TAt forward and backward by pass
 (profiles at PEMS08 blocks 2-4 in both dtypes; the TAt's plain version's
@@ -207,9 +231,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -272,6 +298,54 @@ def read_launches() -> dict:
 def check(cond: bool, message: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {message}")
+
+
+class trainers_made:
+    """Inside the block, every Trainer built (the CLIs build their own) is
+    appended to the list the block yields, for its ``graph_stats``."""
+
+    def __enter__(self) -> list:
+        self.made, self.init = [], Trainer.__init__
+
+        def init(tr, *a, **k):
+            self.init(tr, *a, **k)
+            self.made.append(tr)
+
+        Trainer.__init__ = init
+        return self.made
+
+    def __exit__(self, *exc):
+        Trainer.__init__ = self.init
+
+
+def graph_summary(trainer) -> list:
+    """The trainer's CUDA graphs: kind, replays, capture ms and the
+    launches each replay runs (nonzero counters only)."""
+    return [{"graph": r["graph"], "replays": r["replays"], "capture_ms": r["capture_ms"],
+             "per_replay": {k: n for k, n in r["captured"].items() if n}}
+            for r in trainer.graph_stats]
+
+
+def graph_snapshot(trainers) -> dict:
+    """The trainers' graph records as they stand: {id: [records]}."""
+    return {id(tr): [dict(r) for r in tr.graph_stats] for tr in trainers}
+
+
+def launches_run(counts: dict, trainers, before: dict | None = None) -> dict:
+    """The kernel launches that ran on the card since the counters were
+    set to 0 (``counts``, read now): a wrapper counts each eager call and
+    each capture, which runs nothing, and a CUDA graph of ``trainers``
+    (their ``graph_stats``) runs its captured launches at every replay.
+    ``before`` is :func:`graph_snapshot` at the reset (none: the trainers
+    were built after it)."""
+    out = dict(counts)
+    for tr in trainers:
+        old = (before or {}).get(id(tr), [])
+        for i, r in enumerate(tr.graph_stats):
+            runs = r["replays"] - (old[i]["replays"] if i < len(old) else 1)
+            for k, n in r["captured"].items():
+                out[k] += n * runs
+    return out
 
 
 TIMING_BUDGET_MS = 250.0  # timed calls of one cuda_ms, so that a slow shape costs two
@@ -2186,7 +2260,7 @@ def run_pems08_cli(root: Path, conf: Path, exp: Path, args=(), epochs: int = 2):
     batch read from ``conf``), with every launch count set to 0 just before
     and read just after. Checks finite (and, over 2 epochs, falling)
     losses, a checkpoint, the test dump and the report. Returns (summary,
-    launches, forward passes, train steps, run dir)."""
+    launches, forward passes, the CLI's trainer, run dir)."""
     from dstagnn_drought_tpu_torch.cli import train as train_cli
     from dstagnn_drought_tpu_torch.config import load_config
 
@@ -2201,10 +2275,11 @@ def run_pems08_cli(root: Path, conf: Path, exp: Path, args=(), epochs: int = 2):
     steps = epochs * batches["train"]
 
     reset_launches()
-    result = train_cli.main(["--config", str(conf), "--epochs", str(epochs),
-                             "--experiments-root", str(exp), *args])
+    with trainers_made() as made:
+        result = train_cli.main(["--config", str(conf), "--epochs", str(epochs),
+                                 "--experiments-root", str(exp), *args])
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = launches_run(read_launches(), made)
 
     run_dir = next(exp.glob(f"{dataset}/*"))
     events = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
@@ -2228,8 +2303,8 @@ def run_pems08_cli(root: Path, conf: Path, exp: Path, args=(), epochs: int = 2):
            "val_losses": [e["val_loss"] for e in ep], "test_overall": overall,
            "forward_passes": forwards, "train_steps": steps,
            f"ms_per_step_epoch{epochs}": ep[-1]["train_seconds"] / ep[-1]["steps"] * 1e3,
-           "steps_per_epoch": ep[-1]["steps"]}
-    return out, launches, forwards, steps, run_dir
+           "steps_per_epoch": ep[-1]["steps"], "graphs": graph_summary(made[0])}
+    return out, launches, forwards, made[0], run_dir
 
 
 def phase_pems08(root: Path):
@@ -2264,14 +2339,14 @@ def run_fused_cli(root: Path, conf: Path, path: str, model_check: bool = True,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    run, counts, _, _, run_dir = run_pems08_cli(root, conf, root / f"exp_{path}")
+    run, counts, _, trainer, run_dir = run_pems08_cli(root, conf, root / f"exp_{path}")
     out = {"path": path, **run, "launches": counts,
            "run_peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
            "cli_seconds": time.perf_counter() - t0}
     check_launches(out, **launches, nb=nb)
     if model_check or measure:
         t0 = time.perf_counter()
-        trainer, last = checkpoint_trainer(conf, run_dir)
+        trainer, last = checkpoint_trainer(trainer, run_dir)
         out["trainer_seconds"] = time.perf_counter() - t0
         if model_check:
             out["model_check"] = model_check_of(trainer, last, knobs)
@@ -2461,16 +2536,14 @@ def phase_long_t(root: Path, measure: bool = False):
             for dtype in ("float32", "bfloat16")}
 
 
-def checkpoint_trainer(conf: Path, run_dir: Path):
-    """A Trainer of ``conf`` on the card with the run's last checkpoint
-    loaded, and that checkpoint's path."""
-    from dstagnn_drought_tpu_torch.config import load_config
+def checkpoint_trainer(trainer, run_dir: Path):
+    """The CLI's ``trainer`` with the run's last checkpoint's weights
+    loaded (into its parameters, so its graphs stay), and that
+    checkpoint's path."""
     from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
 
-    trainer = Trainer(load_config(conf), experiments_root=str(run_dir / "check"),
-                      device="cuda")
     last = sorted(run_dir.glob("epoch_*.pt"))[-1]
-    trainer.model.load_state_dict(ckpt.restore_checkpoint(str(last), trainer.device)["model"])
+    trainer.load_model_state(ckpt.restore_checkpoint(str(last), trainer.device)["model"])
     return trainer, last
 
 
@@ -2525,23 +2598,27 @@ def measure_pems08_epochs(root: Path, rounds: int = 2):
     return out
 
 
-def profile_epoch(trainer, top: int = 12):
-    """torch.profiler over one training epoch (input shapes recorded):
-    device time by kernel name, by host op and by host op and input shapes,
-    the device-busy share of the wall time, and the launch count."""
+def profile_epoch(trainer, top: int = 12, eager: bool = False, shapes: bool = True):
+    """torch.profiler over one training epoch (the eager loop with
+    ``eager``; input shapes recorded with ``shapes``): device time by
+    kernel name, by host op and by host op and input shapes, the
+    device-busy share of the wall time, the launch count and the csrc
+    kernels' launches by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+                 record_shapes=shapes) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.train_epoch(1000)
+        (trainer.train_epoch_eager if eager else trainer.train_epoch)(1000)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = lambda e: e.self_device_time_total / 1e3
     events = prof.key_averages()
-    # device-side kernel records, and the host ops that launched them
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device-side kernel records (not the device spans of record_function
+    # regions, such as Optimizer.step's), and the host ops that launched them
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     ops = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CPU and dev(e) > 0]
     busy_ms = sum(dev(e) for e in kernels)
@@ -2550,14 +2627,47 @@ def profile_epoch(trainer, top: int = 12):
     # the host ops again, apart by their inputs' shapes: which product a
     # kernel of the ranking belongs to
     shaped = [e for e in prof.key_averages(group_by_input_shape=True)
-              if e.device_type == torch.autograd.DeviceType.CPU and dev(e) > 0]
+              if e.device_type == torch.autograd.DeviceType.CPU and dev(e) > 0] if shapes else []
     by_shape = [{"name": e.key[:60], "shapes": str(e.input_shapes)[:160], "count": e.count,
                  "device_ms": dev(e)} for e in sorted(shaped, key=dev, reverse=True)[:top]]
     return {"steps": trainer.last_epoch_steps, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
             "device_ms_per_step": busy_ms / trainer.last_epoch_steps,
             "kernel_launches": sum(e.count for e in kernels),
+            # the device spans of record_function regions, which earlier
+            # versions of this function summed into the busy time
+            "annotation_ms": sum(dev(e) for e in events
+                                 if getattr(e, "is_user_annotation", False)),
+            "csrc_kernels": csrc_kernel_counts(kernels),
             "top_ops": rank(ops), "top_ops_by_shape": by_shape, "top_kernels": rank(kernels)}
+
+
+def csrc_kernels() -> dict:
+    """{__global__ function name: its csrc file} of every hand-written kernel."""
+    out = {}
+    for f in sorted((REPO / "dstagnn_drought_tpu_torch" / "csrc").glob("*.cu*")):
+        text = f.read_text()
+        for m in re.finditer(r"__global__\s+void\s+", text):
+            i = m.end()
+            if text.startswith("__launch_bounds__", i):  # skip its (nested) parentheses
+                depth, i = 0, text.index("(", i)
+                while True:
+                    depth += {"(": 1, ")": -1}.get(text[i], 0)
+                    i += 1
+                    if depth == 0:
+                        break
+            out[re.match(r"\s*(\w+)", text[i:]).group(1)] = f.name
+    return out
+
+
+def csrc_kernel_counts(kernels) -> dict:
+    """{csrc kernel name: launches} of a profile's device kernel records."""
+    names, out = csrc_kernels(), {}
+    for e in kernels:
+        mine = [w for w in re.findall(r"\w+_kernel\b", e.key) if w in names]
+        if mine:
+            out[mine[0]] = out.get(mine[0], 0) + e.count
+    return out
 
 
 FUSED_VARIANTS = {"unfused_plain": dict(use_pallas=False, fuse_tat=False, fuse_spatial=False),
@@ -2674,9 +2784,9 @@ def gambia_data(seed: int = 0, n_train: int = 12, n_eval: int = 4):
 
 
 def gambia_config(N: int, use_pallas: bool = True, **keys) -> Config:
-    """The GAMBIA configuration of bench.py:222-236; ``keys`` adds training
-    keys: the BELL keys (sparse, sparse_format, mask_format, rcm,
-    block_size), fuse_gtu."""
+    """The GAMBIA configuration of bench.py:222-236 (bf16); ``keys`` adds
+    or replaces training keys: the BELL keys (sparse, sparse_format,
+    mask_format, rcm, block_size), fuse_gtu, compute_dtype."""
     return Config(
         data=DataConfig(num_of_vertices=N, len_input=GAMBIA_T_IN,
                         num_for_predict=GAMBIA_T_PRED, dataset_name="GAMBIA_SYN",
@@ -2684,8 +2794,7 @@ def gambia_config(N: int, use_pallas: bool = True, **keys) -> Config:
         training=TrainingConfig(
             in_channels=GAMBIA_F, nb_block=2, n_heads=2, K=2, d_k=32, d_model=64,
             nb_chev_filter=32, nb_time_filter=32, batch_size=4, learning_rate=1e-4,
-            num_of_hours=12, compute_dtype="bfloat16", use_pallas=use_pallas,
-            **keys,
+            num_of_hours=12, use_pallas=use_pallas, **{"compute_dtype": "bfloat16", **keys},
         ),
     ).validate()
 
@@ -2696,7 +2805,7 @@ def phase_gambia(root: Path):
     cfg = gambia_config(N)
     trainer = Trainer(cfg, dataset=ds, adj_merge=A, adj_pa=pa,
                       experiments_root=str(root / "gambia"), device="cuda")
-    cheb_sat.launches = 0
+    reset_launches()
     loss0 = trainer.train_epoch(0)
     steps = trainer.last_epoch_steps
     torch.cuda.synchronize()
@@ -2704,14 +2813,15 @@ def phase_gambia(root: Path):
     loss1 = trainer.train_epoch(1)
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) / trainer.last_epoch_steps * 1e3
-    launches = cheb_sat.launches
+    launches = launches_run(read_launches(), [trainer])["cheb_sat"]
     check(steps == 3, f"expected 3 GAMBIA steps per epoch, got {steps}")
     check(math.isfinite(loss0) and math.isfinite(loss1), f"GAMBIA losses {loss0}, {loss1}")
     check(launches == 2 * steps * cfg.training.nb_block,
           f"GAMBIA cheb_sat launches {launches} != {2 * steps} steps x 2 blocks")
     out = {"path": "gambia_dense_bf16", "device": torch.cuda.get_device_name(0),
            "N": N, "train_losses": [loss0, loss1],
-           "launches": launches, "steps": 2 * steps, "ms_per_step_epoch2": ms_step}
+           "launches": launches, "steps": 2 * steps, "ms_per_step_epoch2": ms_step,
+           "graphs": graph_summary(trainer)}
     print("main_path", json.dumps(out), flush=True)
     return out
 
@@ -2764,7 +2874,7 @@ def run_gambia(root: Path, name: str, epochs: int, adj=None, **keys):
     reset_launches()
     result = trainer.run(epochs)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = launches_run(read_launches(), [trainer])
     forwards = epochs * (batches["train"] + batches["val"]) + batches["test"]
     steps = epochs * batches["train"]
     events = [json.loads(line) for line in
@@ -2782,7 +2892,8 @@ def run_gambia(root: Path, name: str, epochs: int, adj=None, **keys):
            "val_losses": [e["val_loss"] for e in ep], "test_loss": result["test_loss"],
            "test_overall": result["report"]["overall"], "launches": launches,
            "forward_passes": forwards, "train_steps": steps,
-           "ms_per_step_last_epoch": ep[-1]["train_seconds"] / ep[-1]["steps"] * 1e3}
+           "ms_per_step_last_epoch": ep[-1]["train_seconds"] / ep[-1]["steps"] * 1e3,
+           "graphs": graph_summary(trainer)}
     if "bell" in trainer.constants:
         out["active_tiles"] = trainer.constants["bell"].num_active
         out["slots"] = trainer.constants["bell"].max_blocks
@@ -2946,12 +3057,13 @@ def phase_gambia_wide(root: Path):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        run, counts, _, _, run_dir = run_pems08_cli(root, conf, root / f"exp_wide_{dtype}")
+        run, counts, _, trainer, run_dir = run_pems08_cli(root, conf,
+                                                          root / f"exp_wide_{dtype}")
         res = {"path": f"gambia_bell_tiles_c{WIDE_CHEV}_cli_{dtype}", **run, "launches": counts,
                "run_peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
                "cli_seconds": time.perf_counter() - t0}
         check_launches(res, **BELL_LAUNCHES, never=("cheb_sat", "gtu_fwd", "gtu_bwd"))
-        trainer, last = checkpoint_trainer(conf, run_dir)
+        trainer, last = checkpoint_trainer(trainer, run_dir)
         if dtype == "float32":
             res["plain_check"] = bell_plain_check(trainer, last)
         ms, peak = epoch_peak(trainer, 0)
@@ -3205,15 +3317,29 @@ def ell_blocks(calls: list, nb: int = 2) -> list:
     return out
 
 
+def pool_free_mib(trainer) -> float:
+    """MiB that the trainer's CUDA graph pool holds free between replays:
+    the replays' activations and temporaries, which a replay writes without
+    allocating (the allocator's peak does not see them)."""
+    if not trainer.graph_stats:
+        return 0.0
+    pool = tuple(trainer.runners()[0].pool)
+    return sum(b["size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool
+               for b in seg["blocks"] if b["state"] == "inactive") / 2 ** 20
+
+
 def epoch_peak(trainer, epoch: int) -> tuple[float, float]:
-    """(ms/step, peak MiB above what was allocated before) of one epoch."""
+    """(ms/step, peak MiB above what was allocated before) of one epoch;
+    for a graphed trainer whose graphs were captured before the epoch, the
+    peak adds the free bytes of its graph pool (:func:`pool_free_mib`)."""
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer.train_epoch(epoch)
     ms = (time.perf_counter() - t0) / trainer.last_epoch_steps * 1e3
-    return ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 20 + pool_free_mib(trainer)
 
 
 def phase_gambia_ell(root: Path):
@@ -3261,8 +3387,8 @@ ZOO_BF16 = ("astgcn", "transformer")  # the families whose softmaxes run in bf16
 ZOO_CHECK_WINDOWS = 16  # test windows of the card-vs-CPU check (the CPU side takes its time)
 
 
-def zoo_model_check(conf: Path, run_dir: Path):
-    """Float32, full width, the run's last checkpoint, the first
+def zoo_model_check(trainer, run_dir: Path):
+    """The CLI's ``trainer``: float32, full width, the run's last checkpoint, the first
     ZOO_CHECK_WINDOWS windows of one test batch: the card's predictions
     against the same weights on the CPU, within TOL of the output's scale
     (TF32 off). Returns (the check, the Trainer with those weights on the
@@ -3271,7 +3397,7 @@ def zoo_model_check(conf: Path, run_dir: Path):
 
     from dstagnn_drought_tpu_torch.training.step import eval_step
 
-    trainer, last = checkpoint_trainer(conf, run_dir)
+    trainer, last = checkpoint_trainer(trainer, run_dir)
     bs = min(trainer.cfg.training.batch_size, ZOO_CHECK_WINDOWS)
     x, y = (s[:bs] for s in trainer._splits["test"])
     pred, _ = eval_step(trainer.model, x, y, trainer.constants)
@@ -3304,20 +3430,20 @@ def phase_zoo(root: Path, measure: bool = False):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         args = ["--bfloat16"] if dtype == "bfloat16" else []
-        run, launches, _, _, run_dir = run_pems08_cli(
+        run, launches, _, trainer, run_dir = run_pems08_cli(
             root, conf, root / f"exp_zoo_{name}_{dtype}", args, epochs=epochs)
         run_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
         check(all(v == 0 for v in launches.values()), f"{name}: kernels launched {launches}")
         line = {"family": name, "dtype": dtype, **run, "launches": launches,
                 "run_peak_mib": run_peak, "cli_seconds": time.perf_counter() - t0}
         if epochs == 2:
-            line["model_check"], trainer = zoo_model_check(conf, run_dir)
+            line["model_check"], trainer = zoo_model_check(trainer, run_dir)
             if measure:
                 line["ms_per_step_epoch3"], line["epoch_peak_mib"] = epoch_peak(trainer, 2)
                 prof = profile_epoch(trainer, top=5)
                 line["profile"] = {k: prof[k] for k in ("busy_share", "device_ms_per_step",
                                                         "kernel_launches", "top_ops")}
-            del trainer
+        del trainer
         line["seconds"] = time.perf_counter() - t0
         print("zoo", json.dumps(line), flush=True)
         out.append(line)
@@ -3457,14 +3583,17 @@ def pems08_subset(n_train: int, n_eval: int) -> ArrayDataset:
 
 def remat_pair(make, label: str, nb: int, forward_kernels, backward_kernels) -> dict:
     """One train epoch then one validation pass of the Trainer ``make(remat)``
-    builds, eager then remat, each from the same seed: the epoch losses
-    within REMAT_LOSS_RTOL, the forward kernels launched once per block of
-    every train step and eval forward eager and twice per train step under
-    remat (the recompute in the backward), the backward kernels once per
-    block of every train step on both sides; the weights and the dropout
-    generator's state after the epoch equal to eager's bit for bit (a
-    recompute that drew new masks would move only the gradients); then each
-    side's ms/step and peak memory over a second epoch (``epoch_peak``)."""
+    builds, without then with remat, each from the same seed and both
+    through the graphed epoch (the recompute's dropout replayed inside the
+    graph by ``RematReplay``): the epoch losses within REMAT_LOSS_RTOL, the
+    forward kernels launched once per block of every train step and eval
+    forward without remat and twice per train step with it (the recompute
+    in the backward), the backward kernels once per block of every train
+    step on both sides (``launches_run``); the weights and the dropout
+    generator's state after the epoch equal bit for bit (a recompute that
+    drew new masks would move only the gradients); then each side's
+    ms/step and peak memory over a second epoch (``epoch_peak``: the graph
+    pool's free bytes are the step's activations)."""
     side, after = {}, {}
     for remat in (False, True):
         trainer = make(remat)
@@ -3476,7 +3605,7 @@ def remat_pair(make, label: str, nb: int, forward_kernels, backward_kernels) -> 
                         trainer.generator.get_state())
         trainer.evaluate("val")
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = launches_run(read_launches(), [trainer])
         steps = trainer.last_epoch_steps
         ms, peak = epoch_peak(trainer, 1)  # warm: time and peak of the next epoch
         for k in forward_kernels:
@@ -3639,7 +3768,12 @@ def phase_rollback(root: Path, card: str):
     after which the model, the Adam state and the generator equal the
     checkpoint's and every param group's lr is halved; the retried epoch and
     the test loss are finite; F launched once per block of every forward,
-    K1 and K2 once per block of every train step actually run."""
+    K1 and K2 once per block of every train step actually run (the graphs'
+    replays counted through ``graph_stats``). The rollback replaces Adam's
+    state, the generator's and the lr, so the retried epoch captures a new
+    train graph, and its per-step losses equal those of an eager trainer
+    that loads epoch 0's checkpoint and halves the lr (bit for bit, or
+    within the spread of two such eager runs)."""
     from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
 
     ds, A, pa = gambia_data()
@@ -3648,14 +3782,16 @@ def phase_rollback(root: Path, card: str):
                       experiments_root=str(root / "rollback"), device="cuda")
     lr0 = trainer.cfg.training.learning_rate
     train_epoch, rollback = trainer.train_epoch, trainer._rollback_to_last_good
-    seen = {"epochs": [], "checks": None}
+    seen = {"epochs": [], "checks": None, "losses": []}
 
     def flaky_epoch(epoch):
         seen["epochs"].append(epoch)
         if epoch == 1 and seen["epochs"].count(1) == 1:
             with torch.no_grad():
                 trainer.model.final_fc.weight[0, 0] = float("nan")
-        return train_epoch(epoch)
+        loss = train_epoch(epoch)
+        seen["losses"].append(list(trainer.last_losses))
+        return loss
 
     def checked_rollback(epoch):
         rollback(epoch)
@@ -3669,9 +3805,9 @@ def phase_rollback(root: Path, card: str):
                    for p in saved for k in saved[p])
         gen = torch.equal(trainer.generator.get_state(), state["generator"].cpu())
         lrs = [g["lr"] for g in trainer.optimizer.param_groups]
+        latest = ckpt.latest_checkpoint(trainer.run_dir)
         seen["checks"] = {"model_equal": model, "adam_equal": adam, "generator_equal": gen,
-                          "lr": lrs, "checkpoint": Path(ckpt.latest_checkpoint(
-                              trainer.run_dir)).name}
+                          "lr": lrs, "checkpoint": Path(latest).name, "checkpoint_path": latest}
 
     trainer.train_epoch, trainer._rollback_to_last_good = flaky_epoch, checked_rollback
     bs = trainer.cfg.training.batch_size
@@ -3679,7 +3815,7 @@ def phase_rollback(root: Path, card: str):
     reset_launches()
     result = trainer.run(2)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = launches_run(read_launches(), [trainer])
     c = seen["checks"]
     check(trainer._rollbacks == 1 and c is not None, f"rollbacks {trainer._rollbacks}")
     check(seen["epochs"] == [0, 1, 1], f"epochs run {seen['epochs']}")
@@ -3696,7 +3832,23 @@ def phase_rollback(root: Path, card: str):
               (Path(trainer.run_dir) / "metrics.jsonl").read_text().splitlines()]
     rb = [e for e in events if e["event"] == "rollback"]
     check(len(rb) == 1 and rb[0]["lr"] == lr0 / 2, f"rollback events {rb}")
+    trains = [r for r in trainer.graph_stats if r["graph"] == "train"]
+    check(len(trains) == 2, f"rollback: {len(trains)} train graphs, expected a new capture "
+                            f"after the rollback ({graph_summary(trainer)})")
+    def eager_resumed():  # Adam's load_state_dict keeps the tensors it is given: a state each
+        ref = Trainer(gambia_config(A.shape[0], **BELL_TILES), dataset=ds, adj_merge=A,
+                      adj_pa=pa, experiments_root=str(root / "rollback_eager"), device="cuda")
+        ref._load(ckpt.restore_checkpoint(c["checkpoint_path"], trainer.device))
+        for g in ref.optimizer.param_groups:
+            g["lr"] = lr0 / 2
+        ref.train_epoch_eager(1)
+        return list(ref.last_losses)
+
+    retried = seen["losses"][1]
+    held = held_losses("rollback: the retried epoch", retried, eager_resumed)
+    c.pop("checkpoint_path")
     out = {"path": "gambia_bell_tiles_rollback_bf16", "card": card, **c,
+           "retried_losses": retried, "retried_vs_eager": held, "graphs": graph_summary(trainer),
            "train_losses": [e["train_loss"] for e in events if e["event"] == "epoch"],
            "test_loss": result["test_loss"], "launches": {k: launches[k] for k in
                                                          ("bell_fused", "bell_k1", "bell_k2")},
@@ -3732,12 +3884,13 @@ def phase_evaluate(root: Path, card: str):
     bs, nb = PEMS08_TRAINING["batch_size"], PEMS08_TRAINING["nb_block"]
     reset_launches()
     t0 = time.perf_counter()
-    evaluate.main(["--config", str(conf), "--experiments-root", str(exp), "--use-pallas",
-                   "--export-attention", "--attention-sample", "24",
-                   "--checkpoint", str(ckpt_path)])
+    with trainers_made() as made:
+        evaluate.main(["--config", str(conf), "--experiments-root", str(exp), "--use-pallas",
+                       "--export-attention", "--attention-sample", "24",
+                       "--checkpoint", str(ckpt_path)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = read_launches()["cheb_sat"]
+    launches = launches_run(read_launches(), made)["cheb_sat"]
     forwards = -(-len(want) // bs)
     check(launches == forwards * nb,
           f"evaluate: cheb_sat launches {launches} != {forwards} forwards x {nb}")
@@ -3783,6 +3936,276 @@ def phase_evaluate(root: Path, card: str):
 
 
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 15: the whole-epoch runners as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the configurations whose graphed epochs replay every kernel (forward
+# kernels, backward kernels), PERF.md section 6's table
+GRAPHED = {
+    "gambia_dense_fuse_gtu": (("cheb_sat", "gtu_fwd"), ("gtu_bwd",)),
+    "gambia_bell_tiles_fuse_gtu": (("bell_fused", "gtu_fwd"), ("bell_k1", "bell_k2", "gtu_bwd")),
+    "pems08_fused": (("tat_fwd", "spatial_fwd"), ("tat_bwd", "spatial_bwd")),
+}
+# the csrc file of each counter's kernels
+COUNTER_SOURCE = {"cheb_sat": "cheb_sat.cu", "bell_fused": "bell_fused.cu",
+                  "bell_k1": "bell_bwd.cu", "bell_k2": "bell_bwd.cu", "tat_fwd": "tat_fused.cu",
+                  "tat_bwd": "tat_fused.cu", "spatial_fwd": "block_spatial_fused.cu",
+                  "spatial_bwd": "block_spatial_fused.cu", "gtu_fwd": "gtu_fused.cu",
+                  "gtu_bwd": "gtu_fused.cu"}
+
+
+def graphed_makers(root: Path) -> dict:
+    """{configuration: make(dtype, name) → a Trainer on the card}: GAMBIA
+    dense with use_pallas and fuse_gtu, GAMBIA BELL tiles with fuse_gtu
+    (dropout 0.05, 3 steps an epoch, 1 val batch), PEMS08 width with
+    fuse_tat and fuse_spatial (3 steps of 64 windows, 1 val batch)."""
+    from dstagnn_drought_tpu_torch.config import load_config
+
+    ds, A, pa = gambia_data()
+    conf = write_pems08_project(root, "SYNTH08G", **FUSED_KEYS)
+    bs = PEMS08_TRAINING["batch_size"]
+    sub = pems08_subset(3 * bs, bs)
+
+    def gambia(**keys):
+        return lambda dtype, name: Trainer(
+            gambia_config(A.shape[0], compute_dtype=dtype, **keys), dataset=ds, adj_merge=A,
+            adj_pa=pa, experiments_root=str(root / name), device="cuda")
+
+    def pems(dtype, name):
+        cfg = load_config(conf)
+        cfg.training.compute_dtype = dtype
+        return Trainer(cfg, dataset=sub, experiments_root=str(root / name), device="cuda")
+
+    return {"gambia_dense_fuse_gtu": gambia(fuse_gtu=True),
+            "gambia_bell_tiles_fuse_gtu": gambia(fuse_gtu=True, **BELL_TILES),
+            "pems08_fused": pems}
+
+
+def graphed_run(make, name: str, graphed: bool):
+    """A new trainer's two epochs and validation pass, eager
+    (``train_epoch_eager``, ``evaluate_eager``) or graphed: (trainer,
+    record of the per-step losses, final weights, val predictions and
+    loss, the launches that ran, ms/step of each epoch and the peak device
+    memory from before the trainer was built)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = make(name)
+    reset_launches()
+    losses, ms = [], []
+    for e in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (tr.train_epoch if graphed else tr.train_epoch_eager)(e)
+        ms.append((time.perf_counter() - t0) / tr.last_epoch_steps * 1e3)
+        losses += tr.last_losses
+    pred, val_loss = (tr.evaluate if graphed else tr.evaluate_eager)("val")
+    torch.cuda.synchronize()
+    return tr, {"losses": losses, "pred": pred, "val_loss": val_loss,
+                "weights": {k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+                "launches": launches_run(read_launches(), [tr]), "ms_per_step": ms,
+                "run_peak_mib": (torch.cuda.max_memory_allocated() - base) / 2 ** 20}
+
+
+def run_diff(a: dict, b: dict) -> dict:
+    """The largest |Δ| between two runs' per-step losses, weights and val
+    predictions (0 everywhere: the same bits)."""
+    return {"losses": max(abs(x - y) for x, y in zip(a["losses"], b["losses"])),
+            "weights": max(float((a["weights"][k].float() - b["weights"][k].float()).abs().max())
+                           for k in a["weights"]),
+            "pred": float(np.abs(a["pred"] - b["pred"]).max())}
+
+
+def held_to_eager(label: str, got: dict, eager: dict, make, name: str) -> dict:
+    """``got`` against the eager run ``eager``: the same bits, or, where a
+    second eager run (``make``) already differs from the first (atomics in
+    a plain op), within that spread. Returns the differences."""
+    diff = run_diff(got, eager)
+    out = {"diff": diff, "bit_equal": not any(diff.values())}
+    if not out["bit_equal"]:
+        tr, again = graphed_run(make, name, False)
+        del tr
+        spread = run_diff(again, eager)
+        out["eager_spread"] = spread
+        check(all(diff[k] <= spread[k] for k in diff),
+              f"{label}: graphed vs eager {diff} outside the eager spread {spread}")
+    return out
+
+
+def graphed_pair(make, label: str, dtype: str, kernels, nb: int, measure: bool) -> dict:
+    """One configuration in one dtype: two epochs and a val pass eager,
+    then graphed, from the same weights and generator seed (``held_to_eager``);
+    the launches the graphs ran (``launches_run``) equal the eager run's,
+    each forward kernel once per block of every step and val batch, each
+    backward kernel once per block of every step; the train graph captured
+    once and replayed for every step but the warm-up, the val graph for
+    every batch but its warm-up. With ``measure``: the two alternated over
+    two rounds (eager, graphed, graphed, eager) for wall ms/step, then a
+    profiled epoch of each: device ms/step, the busy share, and the csrc
+    kernels' launches by name, equal in the two."""
+    fwd, bwd = kernels
+    t0 = time.perf_counter()
+    mk = lambda name: make(dtype, name)
+    eager_tr, eager = graphed_run(mk, f"{label}_{dtype}_eager", False)
+    graph_tr, graph = graphed_run(mk, f"{label}_{dtype}_graphed", True)
+    steps = graph_tr.last_epoch_steps
+    val_batches = -(-len(graph_tr.dataset.val) // graph_tr.cfg.training.batch_size)
+    want = {k: nb * (2 * steps + val_batches) if k in fwd else nb * 2 * steps if k in bwd else 0
+            for k in eager["launches"]}
+    check(eager["launches"] == want, f"{label} {dtype}: eager launches {eager['launches']} "
+                                     f"!= {want}")
+    check(graph["launches"] == want, f"{label} {dtype}: graphed launches (graph_stats) "
+                                     f"{graph['launches']} != {want}")
+    records = {r["graph"]: r for r in graph_tr.graph_stats}
+    check(len(graph_tr.graph_stats) == 2 and records["train"]["replays"] == 2 * steps - 1
+          and records["eval"]["replays"] == val_batches - 1,
+          f"{label} {dtype}: graph records {graph_summary(graph_tr)}")
+    per_step = {k: nb if k in fwd + bwd else 0 for k in want}
+    check(records["train"]["captured"] == per_step,
+          f"{label} {dtype}: the train graph captured {records['train']['captured']}")
+    out = {"path": label, "dtype": dtype, "steps_per_epoch": steps,
+           "held": held_to_eager(f"{label} {dtype}", graph, eager, mk, f"{label}_{dtype}_eager2"),
+           "launches": graph["launches"], "graphs": graph_summary(graph_tr),
+           "eager_ms_per_step": eager["ms_per_step"], "graphed_ms_per_step": graph["ms_per_step"],
+           "eager_run_peak_mib": eager["run_peak_mib"],
+           "graphed_run_peak_mib": graph["run_peak_mib"],
+           "graph_pool_free_mib": pool_free_mib(graph_tr)}
+    if measure:
+        times = {False: [], True: []}
+        for graphed in (False, True, True, False):
+            tr = graph_tr if graphed else eager_tr
+            epoch = 2 + len(times[graphed])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (tr.train_epoch if graphed else tr.train_epoch_eager)(epoch)
+            times[graphed].append((time.perf_counter() - t0) / tr.last_epoch_steps * 1e3)
+        prof = {g: profile_epoch(graph_tr if g else eager_tr, top=6, eager=not g, shapes=False)
+                for g in (False, True)}
+        names = prof[False]["csrc_kernels"]
+        check(prof[True]["csrc_kernels"] == names,
+              f"{label} {dtype}: the graphed epoch's trace {prof[True]['csrc_kernels']} != "
+              f"the eager epoch's {names}")
+        seen = {csrc_kernels()[n] for n in names}
+        for k in fwd + bwd:
+            check(COUNTER_SOURCE[k] in seen, f"{label} {dtype}: no {COUNTER_SOURCE[k]} kernel "
+                                             f"in the graphed epoch's trace")
+        out.update(rounds={"eager": times[False], "graphed": times[True]},
+                   profile={("graphed" if g else "eager"): {
+                       k: prof[g][k] for k in ("device_ms_per_step", "busy_share", "wall_ms",
+                                               "steps", "kernel_launches", "annotation_ms",
+                                               "csrc_kernels", "top_kernels")} for g in prof},
+                   trace_sources=sorted(seen))
+    del eager_tr, graph_tr
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def resume_recaptures(make, label: str) -> dict:
+    """A trainer that captured its graphs (``run(1)``: epoch 0 and its
+    checkpoint, the val and test graphs) resumes from that checkpoint, which
+    replaces Adam's state and the generator's: its next graphed epoch (a
+    new capture) gives the per-step losses of an eager trainer that loads
+    the same checkpoint, bit for bit (or within the eager spread)."""
+    from dstagnn_drought_tpu_torch.training import checkpoint as ckpt
+
+    tr = make(f"{label}_resume")
+    tr.run(1)
+    captured = len(tr.graph_stats)
+    check(tr.resume() and tr.epoch == 1, f"{label}: resume found no checkpoint")
+    tr.train_epoch(1)
+
+    def eager_resumed():
+        eager = make(f"{label}_resume_eager")
+        eager._load(ckpt.restore_checkpoint(ckpt.latest_checkpoint(tr.run_dir), tr.device))
+        eager.train_epoch_eager(1)
+        return list(eager.last_losses)
+
+    trains = [r for r in tr.graph_stats if r["graph"] == "train"]
+    check(len(trains) == 2 and len(tr.graph_stats) > captured,
+          f"{label}: no new capture after resume ({graph_summary(tr)})")
+    return {"path": label, "losses": tr.last_losses, "train_captures": len(trains),
+            **held_losses(f"{label} resumed", tr.last_losses, eager_resumed)}
+
+
+def held_losses(label: str, got: list, eager) -> dict:
+    """Per-step losses ``got`` against those of ``eager()`` (an eager
+    run): the same bits, or within the spread of a second eager run."""
+    want = eager()
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    out = {"eager_losses": want, "max_abs_diff": diff, "bit_equal": diff == 0}
+    if diff:
+        again = eager()
+        out["eager_spread"] = max(abs(a - b) for a, b in zip(again, want))
+        check(diff <= out["eager_spread"], f"{label}: graphed losses {got} vs eager {want} "
+                                           f"(|d| {diff:.3g}, {out})")
+    return out
+
+
+def phase_graphed(root: Path, card: str, measure_dtype: str = "bfloat16") -> dict:
+    """The whole-epoch runners as CUDA graphs on the card, at the three
+    configurations whose kernels cover every TPU kernel's port
+    (``GRAPHED``), float32 and bf16 (``graphed_pair``; measured in
+    ``measure_dtype``); then a resume that must capture again
+    (``resume_recaptures``, GAMBIA dense bf16)."""
+    makers = graphed_makers(root)
+    out = {"card": card, "pairs": []}
+    for label, make in makers.items():
+        nb = PEMS08_TRAINING["nb_block"] if label.startswith("pems08") else 2
+        for dtype in ("float32", "bfloat16"):
+            line = graphed_pair(make, label, dtype, GRAPHED[label], nb, dtype == measure_dtype)
+            line["card"] = card
+            print("graphed", json.dumps(line), flush=True)
+            out["pairs"].append(line)
+    dense = lambda n: makers["gambia_dense_fuse_gtu"]("bfloat16", n)
+    for key, fn in (("resume", resume_recaptures), ("capturable", capturable_moves)):
+        t0 = time.perf_counter()
+        out[key] = fn(dense, "gambia_dense_fuse_gtu_bf16")
+        out[key]["seconds"] = time.perf_counter() - t0
+        print(f"graphed_{key}", json.dumps(out[key]), flush=True)
+    out["host_constant"] = host_constant_capture()
+    print("graphed_host_constant", json.dumps(out["host_constant"]), flush=True)
+    return out
+
+
+def host_constant_capture() -> str:
+    """What a CUDA-graph capture says of a constant made on the card from a
+    Python scalar (a copy from pageable host memory), the pattern ``ops/``
+    replaced by device fills for the graphed epochs."""
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            torch.tensor(2.0, device="cuda").sqrt()
+    except RuntimeError as exc:
+        return f"refused: {exc}"
+    finally:
+        del graph
+    return "captured"
+
+
+def capturable_moves(make, label: str) -> dict:
+    """Two eager epochs with the card's capturable Adam (its step counts
+    and bias corrections on the card) against the same with Adam as it was
+    before the graphs (not capturable), from the same weights and seed:
+    whether the per-step losses move, and by how much."""
+    from dstagnn_drought_tpu_torch.training.step import make_optimizer
+
+    losses = {}
+    for capturable in (True, False):
+        tr = make(f"{label}_capturable_{capturable}")
+        if not capturable:
+            tr.optimizer = make_optimizer(tr.model.parameters(), tr.cfg.training.learning_rate)
+        losses[capturable] = []
+        for e in range(2):
+            tr.train_epoch_eager(e)
+            losses[capturable] += tr.last_losses
+        del tr
+    diff = max(abs(a - b) for a, b in zip(losses[True], losses[False]))
+    return {"path": label, "capturable": losses[True], "not_capturable": losses[False],
+            "max_abs_diff": diff, "bit_equal": diff == 0}
+
 
 # ---------------------------------------------------------------------------
 # phase 14: multi-device training, P ranks sharing the one card
@@ -3872,15 +4295,16 @@ def multi_run(root: Path, run: tuple, single: bool = False) -> tuple[dict, dict]
     tr.train_epoch(0)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / tr.last_epoch_steps * 1e3
-    train_launches, losses = read_launches(), list(tr.last_losses)
+    train_launches, losses = launches_run(read_launches(), [tr]), list(tr.last_losses)
     undo()
     if tr.layout is not None:  # collective over the data row
         grads = tr.layout.whole_state(grads)
         own = tr.layout.whole_state(own) if own else own
+    before = graph_snapshot([tr])
     reset_launches()
     pred, val_loss = tr.evaluate("val")
     torch.cuda.synchronize()
-    eval_launches = read_launches()
+    eval_launches = launches_run(read_launches(), [tr], before)
     numpy = lambda d: {k: v.float().cpu().numpy() for k, v in d.items()}
     state = {"weights": numpy(tr.model_state()), "grads": numpy(grads), "own": numpy(own)}
     digests = {n: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
@@ -4215,6 +4639,8 @@ def phase_multi(root: Path, card: str) -> dict:
         for run in MULTI_RUNS:
             singles[run[0]] = multi_run(root, run, single=True)
         floors = {run[0]: data_split_floor(root, run) for run in MULTI_RUNS if run[2] > 1}
+    gc.collect()  # the single-rank trainers' graph pools, before the ranks share the card
+    torch.cuda.empty_cache()
     ranks = spawn(multi_rank, MULTI_P, str(root), timeout=600, init_dir=str(root))
     plans = multi_plans()
     out = {"card": card, "ranks": MULTI_P, "label": f"{MULTI_P} ranks sharing one H100",
@@ -4294,7 +4720,7 @@ C_MAJOR_SITES = {"bell_fused": "dstagnn_drought_tpu/ops/pallas/bell_fused.py:812
 
 
 def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused, gtu,
-                 gtu_bell, multi, pems07, large_n, long_t, wide):
+                 gtu_bell, multi, pems07, large_n, long_t, wide, graphed):
     """One record per TPU kernel for the JSON line (13; a c-major variant's
     record repeats its port kernel's, ``kernel_of``): launches from its main
     path, times and bound at the main path's shape (the fused TAt and
@@ -4397,6 +4823,11 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "f32_ms": f32["ms"], "f32_design": f32["design"],
             "new_shapes": new_shape_times(mine, GTU_NEW_SHAPES),
         })
+    # the launches replayed inside phase 15's CUDA graphs, by configuration
+    for line in out:
+        k = line.get("kernel_of", line["name"])
+        line["launches_graphed"] = {f"{p['path']}_{p['dtype']}": p["launches"][k]
+                                    for p in graphed["pairs"] if p["launches"][k]}
     return out
 
 
@@ -4450,11 +4881,16 @@ def main(argv=None) -> int:
     phase_s = {}
 
     def timed(fn, *a):
-        """fn(*a), its seconds printed and kept under its name."""
+        """fn(*a), its seconds printed and kept under its name; then the
+        phase's trainers collected (a cycle can hold one, and with it its
+        CUDA graphs' memory pool) and the cached blocks released."""
         t0 = time.perf_counter()
         r = fn(*a)
         phase_s[fn.__name__] = time.perf_counter() - t0
-        print(f"{fn.__name__}: {phase_s[fn.__name__]:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{fn.__name__}: {phase_s[fn.__name__]:.1f} s (reserved after: "
+              f"{torch.cuda.memory_reserved() / 2 ** 20:.0f} MiB)", flush=True)
         return r
 
     rows = timed(phase_kernels)
@@ -4485,6 +4921,8 @@ def main(argv=None) -> int:
                      "debug": timed(phase_debug, root, card)}
         knobs.update(rollback=timed(phase_rollback, root, card),
                      evaluate=timed(phase_evaluate, root, card))
+        with deterministic_cudnn():  # so that two eager runs give the same bits
+            graphed = timed(phase_graphed, root, card)
         multi = timed(phase_multi, root, card)
         if args.measure:
             measured = {"pems08": measured, "passes": passes,
@@ -4499,7 +4937,7 @@ def main(argv=None) -> int:
                         "stag_full": measure_stag_full()}
 
     kernels = kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused,
-                           gtu, gtu_bell, multi, pems07, large_n, long_t, wide)
+                           gtu, gtu_bell, multi, pems07, large_n, long_t, wide, graphed)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
@@ -4509,7 +4947,7 @@ def main(argv=None) -> int:
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
             "gambia_bell_rcm": rcm, "gambia_wide": wide, "gambia_fuse_gtu": gtu,
             "gambia_bell_tiles_fuse_gtu": gtu_bell, "stag": stag, "gambia_ell": ell,
-            "zoo": zoo, "knobs": knobs, "multi": multi, "kernels": kernels,
+            "zoo": zoo, "knobs": knobs, "graphed": graphed, "multi": multi, "kernels": kernels,
             "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start,
         }, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -430,32 +430,76 @@ class STBlock(nn.Module):
         return y.permute(0, 2, 3, 1), re_at, STAt  # (B, N, C, T)
 
 
-def checkpoint_block(block: STBlock, x, res_att, *, generator=None, **kw):
+class RematReplay:
+    """The dropout replay of remat's recompute inside a CUDA graph.
+
+    Outside a capture :func:`checkpoint_block` rewinds the generator by its
+    host state (``get_state``/``set_state``), which a capture refuses: there
+    the state advances on the card at each replay. Inside one, block ``i``'s
+    recompute draws from ``generators[i]``, a generator of its own that the
+    runner registers with the graph (``generators``) and sets before every
+    replay (:meth:`arm`) to where block ``i``'s forward draws from: the
+    step's start plus ``starts[i]``, the offset at which the block's forward
+    began, read in an eager step of the same shapes (the runner's warm-up;
+    made right before it, this object takes the step's start from the
+    generator)."""
+
+    def __init__(self, generator: torch.Generator, n_blocks: int):
+        self.generator = generator
+        self.origin = generator.get_offset()
+        self.starts = [None] * n_blocks
+        self.generators = [generator.clone_state() for _ in range(n_blocks)]
+
+    def arm(self) -> None:
+        """Before a replay: each block's generator at its forward's start."""
+        base = self.generator.get_offset()
+        for g, start in zip(self.generators, self.starts):
+            g.set_offset(base + start)
+
+
+def checkpoint_block(block: STBlock, x, res_att, *, generator=None, replay=None, **kw):
     """``block(x, res_att, ...)`` under ``torch.utils.checkpoint`` (JAX:
     ``jax.checkpoint`` of the block): its activations are recomputed in the
-    backward instead of kept. ``checkpoint`` restores only the global
-    generators, and dropout draws from ``generator``; so the recompute starts
-    from the state the forward started from, and draws the forward's masks,
-    and the state the forward left is put back after it, so the stream after
-    a step does not depend on remat."""
+    backward instead of kept. Dropout draws from ``generator``, never from
+    the global generators (``checkpoint`` leaves those alone); so the
+    recompute starts from the state the forward started from, and draws the
+    forward's masks, and the state the forward left is put back after it, so
+    the stream after a step does not depend on remat. ``replay`` (a
+    :class:`RematReplay` and this block's index) records the block's start
+    in an eager step and, under CUDA-graph capture, gives the recompute its
+    generator; a capture without it raises."""
     if generator is None:
         return checkpoint(functools.partial(block, generator=generator, **kw), x, res_att,
-                          use_reentrant=False)
-    start = generator.get_state()
+                          use_reentrant=False, preserve_rng_state=False)
+    capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+    if capturing:
+        if replay is None:
+            raise RuntimeError("remat with dropout inside a CUDA graph needs a RematReplay")
+        main, again = generator.graphsafe_get_state(), replay[0].generators[replay[1]]
+    else:
+        start = generator.get_state()
+        if replay is not None:
+            replay[0].starts[replay[1]] = generator.get_offset() - replay[0].origin
     runs = []
 
     def run(x, res_att):
         if not runs:
             runs.append(True)
             return block(x, res_att, generator=generator, **kw)
-        after = generator.get_state()  # the recompute, during the backward
+        if capturing:  # the recompute, during the backward
+            generator.graphsafe_set_state(again)
+            try:
+                return block(x, res_att, generator=generator, **kw)
+            finally:
+                generator.graphsafe_set_state(main)
+        after = generator.get_state()
         generator.set_state(start)
         try:
             return block(x, res_att, generator=generator, **kw)
         finally:
             generator.set_state(after)
 
-    return checkpoint(run, x, res_att, use_reentrant=False)
+    return checkpoint(run, x, res_att, use_reentrant=False, preserve_rng_state=False)
 
 
 class DSTAGNN(nn.Module):
@@ -486,7 +530,7 @@ class DSTAGNN(nn.Module):
                 compute_dtype: torch.dtype = torch.float32,
                 use_pallas: bool = False, bell=None, bell_tiles=None, ell=None,
                 fuse_tat: bool = False, fuse_spatial: bool = False,
-                fuse_gtu: bool = False, remat: bool = False,
+                fuse_gtu: bool = False, remat: bool | RematReplay = False,
                 return_attention: bool = False, halo=None, tp=None):
         if bell is not None and ell is not None:
             raise ValueError("give the BELL graph (bell) or the ELL graph (ell), not both")
@@ -500,10 +544,11 @@ class DSTAGNN(nn.Module):
                   fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
                   halo=halo, tp=tp)
         outs, maps = [], []
-        for block in self.BlockList:
+        for i, block in enumerate(self.BlockList):
             if remat and torch.is_grad_enabled():
+                replay = {"replay": (remat, i)} if isinstance(remat, RematReplay) else {}
                 x, res_att, stat = checkpoint_block(block, x, res_att, generator=generator,
-                                                    **kw)
+                                                    **replay, **kw)
             else:
                 x, res_att, stat = block(x, res_att, generator=generator, **kw)
             outs.append(x)

@@ -20,8 +20,9 @@ from dstagnn_drought_tpu_torch.ops.nn import layer_norm
 
 
 def _sqrt(d: int, like: torch.Tensor) -> torch.Tensor:
-    # sqrt(d) in the activation dtype, like jnp.sqrt(jnp.asarray(d, dtype))
-    return torch.tensor(float(d), dtype=like.dtype, device=like.device).sqrt()
+    # sqrt(d) in the activation dtype, like jnp.sqrt(jnp.asarray(d, dtype));
+    # filled on the device (a host copy is refused under CUDA-graph capture)
+    return torch.full((), float(d), dtype=like.dtype, device=like.device).sqrt()
 
 
 def temporal_attention(

@@ -279,7 +279,7 @@ def block_sparse_spatial_attention_scores(
     k = pad_node_axis(k, bell, 1).reshape(B, NJ, BS, n_heads, d_k)
     q_blocks = q[:, bell.tensors["block_idx"]]  # (B, NJ, S, BS, H, d_k)
     scores = torch.einsum("bjsahd,bjchd->bhjsac", q_blocks, k)
-    return scores / torch.tensor(float(d_k), dtype=x.dtype, device=x.device).sqrt()
+    return scores / torch.full((), float(d_k), dtype=x.dtype, device=x.device).sqrt()
 
 
 def block_sparse_cheb_conv_with_sat(
@@ -302,7 +302,7 @@ def block_sparse_cheb_conv_with_sat(
     BS, NJ, S = bell.block_size, bell.num_tiles, bell.max_blocks
     valid = bell.tensors["pattern"] & bell.tensors["block_mask"][:, :, None, None]
     s = block_scores + bias_blocks[None]
-    s = torch.where(valid[None, None], s, torch.tensor(_NEG, dtype=s.dtype, device=s.device))
+    s = torch.where(valid[None, None], s, _NEG)
     K = s.shape[1]
     s2 = s.permute(0, 1, 2, 5, 3, 4).reshape(B, K, NJ, BS, S * BS)
     att = torch.softmax(s2, dim=-1).reshape(B, K, NJ, BS, S, BS)

@@ -405,8 +405,7 @@ def bell_cheb_conv_with_sat_pallas(
     # the planes cut to the active tiles (autograd scatters the bias
     # gradient back), the edge pattern folded in: −1e30 off-pattern
     bias_t = _plane_tiles(pad2((adj_pa[None] * masks).float()), bell)
-    bias_t = torch.where(pattern[:, None], bias_t,
-                         torch.tensor(_NEG, dtype=torch.float32, device=x.device))
+    bias_t = torch.where(pattern[:, None], bias_t, _NEG)
     cheb_t = _plane_tiles(pad2(cheb_polys.float()), bell)
     xm = pad_node_axis(x.reshape(B, N, C * T), bell, 1).contiguous()
     out = BellTilesOut.apply(q, k, bias_t.contiguous(), cheb_t, xm,
@@ -440,8 +439,7 @@ def bell_cheb_conv_tiles(
     q, k = _qk(emb, wq, wk, bell, n_heads, d_k)
     # bias = adj_pa ⊙ mask on the pattern, −1e30 elsewhere; the where also
     # zeroes the off-pattern mask gradients
-    bias_t = torch.where(pattern_tiles[:, None], (pa_tiles[:, None] * mask_tiles).float(),
-                         torch.tensor(_NEG, dtype=torch.float32, device=x.device))
+    bias_t = torch.where(pattern_tiles[:, None], (pa_tiles[:, None] * mask_tiles).float(), _NEG)
     xm = pad_node_axis(x.reshape(B, N, C * T), bell, 1).contiguous()
     out = BellTilesOut.apply(q, k, bias_t.contiguous(), cheb_tiles.float().contiguous(),
                              xm, thetas.float().contiguous(), bell, pattern_tiles)

@@ -202,7 +202,7 @@ def sparse_cheb_conv_with_sat(
     B, N, C, T = x.shape
     mask = ell.tensors["mask"]
     s = edge_scores + bias_edges[None]
-    s = torch.where(mask[None, None], s, torch.tensor(_NEG, dtype=s.dtype, device=s.device))
+    s = torch.where(mask[None, None], s, _NEG)
     att = torch.softmax(s, dim=-1)  # over source edges e
     A = cheb_edges[None] * att * mask[None, None]
     xm = x.reshape(B, N, C * T)
@@ -229,7 +229,7 @@ def dense_reference_masked(
     B, N, C, T = x.shape
     pattern = (adj_pattern != 0) | torch.eye(N, dtype=torch.bool, device=x.device)
     s = scores + bias[None]
-    s = torch.where(pattern[None, None], s, torch.tensor(_NEG, dtype=s.dtype, device=s.device))
+    s = torch.where(pattern[None, None], s, _NEG)
     att = torch.softmax(s, dim=2)
     A = cheb_polys[None] * att * pattern[None, None]
     xm = x.reshape(B, N, C * T)

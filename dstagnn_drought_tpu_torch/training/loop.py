@@ -25,6 +25,15 @@ cannot take, raises ``ValueError`` when the Trainer is built
 ``sparse``, ``fuse_tat`` and ``fuse_spatial`` on another family raise
 JAX's ``ValueError`` before any data or graph is read (:func:`check_family`);
 ``use_pallas`` is accepted there and changes nothing, as in JAX.
+A single-rank run outside debug mode trains and evaluates through the
+whole-epoch runners (JAX's ``make_epoch_runner``/``make_eval_runner``,
+:mod:`~dstagnn_drought_tpu_torch.training.step`): on the card every epoch
+and every evaluation replays CUDA graphs (their records in
+``graph_stats``), captured again after anything that replaces the state
+they hold (:meth:`Trainer.invalidate_graphs`); on the CPU the runners run
+the same steps eagerly. :meth:`Trainer.train_epoch_eager` and
+:meth:`Trainer.evaluate_eager` are the step-by-step loop: debug mode and
+mesh runs take it (gloo's collectives cannot be captured).
 ``debug`` runs each batch through the checked step (NaN/inf and batch
 indices, :func:`~dstagnn_drought_tpu_torch.training.step.make_checked_train_step`);
 ``nan_policy = rollback`` restores the latest checkpoint, halves the
@@ -106,6 +115,8 @@ from dstagnn_drought_tpu_torch.training.metrics import horizon_report
 from dstagnn_drought_tpu_torch.training.step import (
     eval_step,
     make_checked_train_step,
+    make_epoch_runner,
+    make_eval_runner,
     make_optimizer,
     train_step,
 )
@@ -281,7 +292,7 @@ class Trainer:
             self.constants["bell"] = bell.to(self.device)
         if ell is not None:
             self.constants["ell"] = self.constants.get("ell", ell).to(self.device)
-        self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate)
+        self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate, self.device)
         # the ranks of a data row draw the same dropout bits
         d = self.mesh.d if self.mesh is not None else 0
         self.generator = torch.Generator(device=self.device).manual_seed(t.seed + 1000003 * d)
@@ -295,6 +306,12 @@ class Trainer:
         self.checked_step = make_checked_train_step(**self._step_kw) if t.debug else None
         self._lr_scale = 1.0
         self._rollbacks = 0
+        # the whole-epoch runners (single rank, not debug; CUDA graphs on the
+        # card), made at first use and again after invalidate_graphs(); one
+        # record a CUDA graph
+        self.use_runners = self.mesh is None and not t.debug
+        self.graph_stats: list[dict] = []
+        self._runners = None
 
         self.run_dir = ckpt.run_dir(
             experiments_root, cfg.data.dataset_name, t.model_name,
@@ -411,7 +428,12 @@ class Trainer:
             opt = state["optimizer"]
             if self.layout is not None:
                 opt = self.layout.local_optimizer(opt, self._param_names())
+            # this optimizer's capturable (the card's Adam), wherever it was saved
+            capturable = self.optimizer.defaults["capturable"]
+            opt = dict(opt, param_groups=[dict(g, capturable=capturable)
+                                          for g in opt["param_groups"]])
             self.optimizer.load_state_dict(opt)
+        self.invalidate_graphs()
         generators = state.get("generators")
         if generators is not None and self.mesh is not None:
             self.generator.set_state(generators[self.mesh.d].cpu())
@@ -444,14 +466,64 @@ class Trainer:
         return True
 
     # ------------------------------------------------------------------
-    def train_epoch(self, epoch: int) -> float:
+    def invalidate_graphs(self) -> None:
+        """Capture the CUDA graphs again at their next use: after anything
+        that replaces a tensor they hold (Adam's state, the generator's
+        state) or a number baked into them (the lr). Loading weights into
+        the parameters (``_load(optimizer=False)``) copies in place and
+        keeps them."""
+        self._runners = None
+
+    def runners(self):
+        """(epoch runner, eval runner) of this single-rank run, sharing one
+        CUDA graph memory pool on the card; made here at first use, and
+        again where the compute dtype, the optimizer, the generator or a
+        constant was replaced since (their graphs hold the old ones)."""
         t = self.cfg.training
-        x_full, y_full = self._splits["train"]
+        key = (self.compute_dtype, id(self.optimizer), id(self.generator),
+               [(k, id(v)) for k, v in self.constants.items()])
+        if self._runners is None or self._runners[2] != key:
+            pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+            self._runners = (
+                make_epoch_runner(self.model, self.optimizer, self.constants,
+                                  generator=self.generator, pool=pool, stats=self.graph_stats,
+                                  step_fn=train_step, **self._step_kw),
+                make_eval_runner(self.model, self.constants, pool=pool, stats=self.graph_stats,
+                                 step_fn=eval_step, compute_dtype=self.compute_dtype,
+                                 use_pallas=t.use_pallas, fuse_tat=t.fuse_tat,
+                                 fuse_spatial=t.fuse_spatial, fuse_gtu=self.fuse_gtu,
+                                 model_kw=self._model_kw),
+                key)
+        return self._runners[:2]
+
+    def _train_plan(self, epoch: int):
+        """The epoch's (nb, B) batch plan (numpy) and its loss weights on the
+        device: zero on the padded tail."""
+        t = self.cfg.training
         idx, n_valid = self.dataset.batch_indices(
             "train", t.batch_size, shuffle=True, seed=t.seed * 100003 + epoch
         )
         weights = (np.arange(idx.size) < n_valid).astype(np.float32).reshape(idx.shape)
-        weights = torch.from_numpy(weights).to(self.device)
+        return idx, torch.from_numpy(weights).to(self.device)
+
+    def train_epoch(self, epoch: int) -> float:
+        """One training epoch, its mean loss: through the epoch runner (CUDA
+        graphs on the card) on a single rank outside debug mode, else
+        :meth:`train_epoch_eager`."""
+        if not self.use_runners:
+            return self.train_epoch_eager(epoch)
+        idx, weights = self._train_plan(epoch)
+        x_full, y_full = self._splits["train"]
+        idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+        losses = self.runners()[0](x_full, y_full, idx, weights, weights.sum(dim=1))
+        return self._epoch_loss(epoch, losses)
+
+    def train_epoch_eager(self, epoch: int) -> float:
+        """The epoch step by step from the host: debug mode and mesh runs,
+        and the loop a graphed epoch is held to."""
+        t = self.cfg.training
+        x_full, y_full = self._splits["train"]
+        idx, weights = self._train_plan(epoch)
         # this data rank's rows of every batch; the loss is divided by the
         # global batch's weight sum
         rows = batch_sharding(self.mesh, t.batch_size) if self.mesh is not None else slice(None)
@@ -474,8 +546,14 @@ class Trainer:
                     self.constants, weights=weights[b, rows], weight_total=totals[b],
                     generator=self.generator, **self._step_kw,
                 ))
+        return self._epoch_loss(epoch, torch.stack(losses))
+
+    def _epoch_loss(self, epoch: int, losses: torch.Tensor) -> float:
+        """The epoch's per-step losses (every data rank's share summed)
+        read once, kept in ``last_losses``; their mean. A NaN raises
+        ``FloatingPointError`` outside debug mode."""
         self.last_epoch_steps = len(losses)
-        losses = comm.all_reduce(torch.stack(losses), self._data_group)
+        losses = comm.all_reduce(losses, self._data_group)
         self.last_losses = losses.tolist()  # the epoch's per-step losses
         mean_loss = float(losses.mean())
         if self.checked_step is not None:
@@ -488,26 +566,40 @@ class Trainer:
         return mean_loss
 
     def evaluate(self, split: str) -> tuple[np.ndarray, float]:
-        """Predictions (true length, float32 numpy) and mean loss of a split."""
+        """Predictions (true length, float32 numpy) and mean loss of a split:
+        through the eval runner (a CUDA graph on the card) on a single rank
+        outside debug mode, else :meth:`evaluate_eager`."""
+        return self._evaluate(split, self.runners()[1] if self.use_runners else None)
+
+    def evaluate_eager(self, split: str) -> tuple[np.ndarray, float]:
+        """:meth:`evaluate` batch by batch from the host."""
+        return self._evaluate(split, None)
+
+    def _evaluate(self, split: str, runner) -> tuple[np.ndarray, float]:
         t = self.cfg.training
         x_full, y_full = self._splits[split]
         idx, n_valid = self.dataset.batch_indices(split, t.batch_size, shuffle=False)
         idx = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-        rows = batch_sharding(self.mesh, t.batch_size) if self.mesh is not None else slice(None)
-        preds, losses = [], []
-        for b in range(idx.shape[0]):
-            ib = idx[b, rows]
-            pred, per_sample = eval_step(
-                self.model, x_full[ib], y_full[ib], self.constants,
-                compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
-                fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
-                fuse_gtu=self.fuse_gtu, model_kw=self._model_kw,
-            )
-            preds.append(pred)
-            losses.append(per_sample)
+        if runner is not None:
+            pred, per_sample = runner(x_full, y_full, idx)
+        else:
+            rows = (batch_sharding(self.mesh, t.batch_size) if self.mesh is not None
+                    else slice(None))
+            preds, losses = [], []
+            for b in range(idx.shape[0]):
+                ib = idx[b, rows]
+                p, l = eval_step(
+                    self.model, x_full[ib], y_full[ib], self.constants,
+                    compute_dtype=self.compute_dtype, use_pallas=t.use_pallas,
+                    fuse_tat=t.fuse_tat, fuse_spatial=t.fuse_spatial,
+                    fuse_gtu=self.fuse_gtu, model_kw=self._model_kw,
+                )
+                preds.append(p)
+                losses.append(l)
+            pred, per_sample = torch.stack(preds), torch.stack(losses)
         # every data rank's rows, batch by batch, before the tail is cut
-        pred = comm.all_gather(torch.stack(preds), 1, self._data_group)
-        per_sample = comm.all_gather(torch.stack(losses), 1, self._data_group)
+        pred = comm.all_gather(pred, 1, self._data_group)
+        per_sample = comm.all_gather(per_sample, 1, self._data_group)
         pred = pred.reshape(-1, *pred.shape[2:]).cpu().numpy()[:n_valid]
         per_sample = per_sample.reshape(-1).cpu().numpy()[:n_valid]
         if self._inv_perm is not None:
@@ -548,11 +640,13 @@ class Trainer:
         self._rollbacks += 1
         self._lr_scale *= 0.5
         if state["optimizer"] is None:
-            self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate)
+            self.optimizer = make_optimizer(self.model.parameters(), t.learning_rate,
+                                            self.device)
         # load_state_dict brings back the saved lr: the halved one goes in after it
         lr = t.learning_rate * self._lr_scale
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+        self.invalidate_graphs()  # the graphs hold the old lr (and maybe optimizer)
         self.logger.log("rollback", epoch=epoch, checkpoint=latest, lr=lr,
                         rollbacks=self._rollbacks)
 

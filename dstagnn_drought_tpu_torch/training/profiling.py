@@ -4,7 +4,9 @@
 * ``trace(logdir)`` — a ``torch.profiler`` region over CPU and, where a
   card is present, CUDA activities; on exit it writes a Chrome trace
   (``trace.json``, viewable in Perfetto or chrome://tracing) into
-  ``logdir``.
+  ``logdir``. The kernels of a CUDA graph's replays (the Trainer's
+  graphed epochs) appear in it by name, one record a launch, as eager
+  launches do; a replay has no host ops of its own.
 * ``annotate`` — a named region in the trace (``record_function``).
 * ``StepTimer`` — wall-clock step timing whose ``fence(x)`` synchronises
   x's device only at interval edges, with JAX's ``drop_first``.
