@@ -42,7 +42,10 @@ Phases; any failure exits non-zero:
      at GAMBIA's T = 144, N = 4096 and 8600 at T = 12 and T = 576 and 1024
      at N = 170 (the shapes the whole-row passes refused; with and
      without the embedding), and the spatial middle at GAMBIA's blocks 1-2
-     and a ragged N = 1001: the temporal-attention forward and backward
+     and a ragged N = 1001; both at the head and channel widths past the
+     old caps (TAT_WIDE_SHAPES, SPATIAL_WIDE_SHAPES: phase 3f's blocks, d_k
+     = d_v = 256 and 512 at T = 48, H·d_v = 4096, the SAt's d_k = 512): the
+     temporal-attention forward and backward
      (csrc/tat_fused.cu; one design in both dtypes, passes over all B·F·T
      rows on the tensor cores with the hi/lo split, N streamed in column
      chunks and T in query tiles and key chunks; the float32 rows are
@@ -88,6 +91,11 @@ Phases; any failure exits non-zero:
      days of five-minute readings (T = 576, batch 8) with fuse_tat,
      fuse_spatial and fuse_gtu, the same checks and measurements, the
      float32 model against the model with all three knobs off;
+  3f. the wide path (phase_wide_fused): the CLI with fuse_tat and
+     fuse_spatial at the GAMBIA configuration with 8 heads of d_k = d_v =
+     128 and at PEMS08 width with C = Co = 512, d_model = 4096 and 8 heads
+     of 128, 2 epochs each in float32 and bf16, the launches checked per
+     block and the float32 runs' fused models against the unfused ones;
   4. GAMBIA dense (N=2139, F=4, T=144, bfloat16): training steps through
      the Trainer, the kernel at N > 1024 and the multichannel/long-T tail;
   4b. the GTU slice's main path: GAMBIA dense with fuse_gtu = true,
@@ -215,9 +223,10 @@ each, a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE, and the Sinkhorn STAG of
 all 2,286,591 GAMBIA pairs (``measure_stag_full``). The epoch profiles also
 rank the host ops by their inputs' shapes. ``--rows OUT`` builds and
-times only PERF.md rows 2-11 at their main shapes (``measure_rows``: F,
+times only PERF.md rows 2-13 at their main shapes (``measure_rows``: F,
 K1 and K2 at GAMBIA blocks 1-2 and the 17-slot random graph by pass with
-their outputs' digests, the TAt and GTU by CUDA events; from another
+their outputs' digests, the TAt, spatial middle and GTU by CUDA events,
+the TAt's and spatial middle's outputs' digests; from another
 commit's checkout, as ``--compare``). ``--compare OUT`` builds
 and runs only ``compare_run``: one side of a comparison with another
 commit's checkout (the float32 spatial, TAt, K1, K2 and F kernels' bits,
@@ -1167,6 +1176,24 @@ TAT_SHAPES = [
     ("t576_n170_embed", 8, 576, 170, 3, 32, 32, True, F32_BF16),
     ("t1024_n170", 64, 1024, 170, 3, 32, 32, False, F32_BF16),
 ]
+# the head widths the passes take since they chunk the heads: the blocks of
+# the wide_heads CLI project (GAMBIA, N = 2139, batch 4, F = 4 then 32, T =
+# 144 then 12, 8 heads of d_k = d_v = 128; block 1 also with the
+# embedding, whose g_te pass then splits g_qkv; time_strides 1, so block 2
+# is at T = 144 too) and of the wide_channels project (PEMS08 width, N =
+# 170, T = 12, batch 8, F = 1 then 512, 8 heads of 128), d_k = d_v = 256 at T = 48 (the attention backward streamed), 512
+# at T = 48 (both attention passes on the chunked route) and H·d_v = 4096
+# (8 heads of 512: the out, LN1-backward and g_te passes split)
+TAT_WIDE_SHAPES = [
+    ("wide_heads_block1", 16, 144, 2139, 8, 128, 128, False, F32_BF16),
+    ("wide_heads_block1_embed", 16, 144, 2139, 8, 128, 128, True, F32_BF16),
+    ("wide_heads_block2", 128, 144, 2139, 8, 128, 128, False, F32_BF16),
+    ("wide_channels_block1", 8, 12, 170, 8, 128, 128, False, F32_BF16),
+    ("wide_channels_blocks2-4", 4096, 12, 170, 8, 128, 128, False, F32_BF16),
+    ("dk256_t48", 64, 48, 170, 2, 256, 256, False, F32_BF16),
+    ("dk512_t48", 32, 48, 170, 2, 512, 512, False, F32_BF16),
+    ("hv4096_t12", 64, 12, 170, 8, 512, 512, False, F32_BF16),
+]
 # the TAt shapes past the whole-row passes' caps (PERF.md's sub-table)
 TAT_NEW_SHAPES = ("n4096_t12", "n8600_t12", "n8600_t12_embed", "t576_n170",
                   "t576_n170_embed", "t1024_n170")
@@ -1187,6 +1214,19 @@ SPATIAL_SHAPES = [
     ("gambia_block2", 4, 2139, 32, 144, 32, 32, 64, 2, 32, F32_BF16),
     ("wide_d2048", 2, 20, 1, 12, 1, 8, 2048, 2, 8, F32_BF16),
 ]
+# the widths the kernels take since they chunk C, Co, d and the SAt's d_k:
+# the blocks of the wide_heads CLI project (GAMBIA at d_k = 128) and of the
+# wide_channels project (PEMS08 width with C = Co = 512 and d = 4096: C and
+# Co in chunks of 256, the embedding passes in chunks of d; batch 8), and
+# d_k = 512 at PEMS08 blocks 2-4 (the score passes take d_k in chunks of 128)
+SPATIAL_WIDE_SHAPES = [
+    ("wide_heads_block1", 4, 2139, 4, 144, 4, 32, 64, 2, 128, F32_BF16),
+    ("wide_heads_block2", 4, 2139, 32, 144, 32, 32, 64, 2, 128, F32_BF16),
+    ("wide_channels_block1", 8, 170, 1, 12, 1, 512, 4096, 3, 128, F32_BF16),
+    ("wide_channels_blocks2-4", 8, 170, 512, 12, 512, 512, 4096, 3, 128, F32_BF16),
+    ("sat_dk512", 8, 170, 32, 12, 32, 32, 512, 3, 512, F32_BF16),
+]
+
 SPATIAL_KEEP = 0.95  # the model's dropout rate 0.05: the main path's mask
 SPATIAL_DIFF = (0, 1, 3, 4, 5, 6, 7, 8, 9, 11)  # not the mask, not the Chebyshev planes
 FUSED_TOL = {torch.float32: (TOL, GRAD_TOL),
@@ -1363,15 +1403,22 @@ def check_spatial_smem():
     spatial shape and at PEMS08 and GAMBIA widths from N = 816 to 8192
     (the old N caps' edges 816/817 and 944/945 among them)."""
     lib = block_spatial_fused._load()
-    shapes = {s[2:10] for s in SPATIAL_SHAPES} | {
+    shapes = {s[2:10] for s in SPATIAL_SHAPES + SPATIAL_WIDE_SHAPES} | {
         (N, 32, 12, 32, 32, 512, 3, 32) for N in (816, 817, 944, 945, 8192)} | {
-        (N, 32, 144, 32, 32, 64, 2, 32) for N in (883, 8192)}
-    out = (ctypes.c_int * 4)()
+        (N, 32, 144, 32, 32, 64, 2, 32) for N in (883, 8192)} | {
+        # the edges of the chunks: C and Co at 384/385 and 768/769, d where
+        # SA and SD split, d_k where the score passes chunk it
+        (170, F, 12, F, Co, 512, 3, 32) for F in (384, 385, 769) for Co in (32, 384, 385)} | {
+        (170, 32, 12, 32, 32, d, 3, dk) for d in (3500, 3504, 3505, 4096) for dk in (32, 256)} | {
+        (170, 32, 12, 32, 32, 512, 3, dk) for dk in (500, 511, 512, 1024, 1030)}
+    out = (ctypes.c_int * 6)()
     for N, F, T, C, Co, d, K, dk in sorted(shapes):
         lib.spatial_fused_chunks(N, C, T, Co, out)
-        check(tuple(out) == block_spatial_fused.chunk_layout(N, C, T, Co),
-              f"spatial chunk_layout at N={N} C={C} T={T} Co={Co} = "
-              f"{block_spatial_fused.chunk_layout(N, C, T, Co)}, the kernels' {tuple(out)}")
+        want = (*block_spatial_fused.chunk_layout(N, C, T, Co),
+                block_spatial_fused.channel_chunks(C)[0], block_spatial_fused.channel_chunks(Co)[0])
+        check(tuple(out) == want,
+              f"spatial chunk_layout at N={N} C={C} T={T} Co={Co} = {want}, the kernels' "
+              f"{tuple(out)}")
         for dtype in F32_BF16:
             got = block_spatial_fused.smem_bytes(N, F * T, C, T, Co, d, K, dk, dtype)
             for i, kernel in enumerate(block_spatial_fused.KERNELS):
@@ -1398,9 +1445,15 @@ def check_tat_smem():
     widths) and at the column chunks' edges (N = 1024/1025, one chunk and
     two)."""
     lib = tat_fused._load()
-    shapes = {s[2:7] for s in TAT_SHAPES} | {(12, 3328, 3, 32, 32), (12, 3329, 3, 32, 32),
+    shapes = {s[2:7] for s in TAT_SHAPES + TAT_WIDE_SHAPES} | {(12, 3328, 3, 32, 32), (12, 3329, 3, 32, 32),
                                              (341, 170, 3, 32, 32), (342, 170, 3, 32, 32),
-                                             (12, 1024, 3, 32, 32), (12, 1025, 3, 32, 32)}
+                                             (12, 1024, 3, 32, 32), (12, 1025, 3, 32, 32)} | {
+        # the routes' and splits' edges: the one-tile and streamed attention
+        # at T = 144/160/161 and d_k from 96 to 1000, H·d_v past 9 tiles a
+        # warp, the split passes at H·d_v and W past a block
+        (T, N, H, dk, dv) for T in (48, 144, 160, 161) for N in (170, 2139)
+        for H, dk, dv in ((8, 128, 128), (2, 256, 256), (1, 300, 96), (2, 1000, 1000),
+                          (37, 32, 32), (8, 512, 512))}
     for T, N, H, dk, dv in sorted(shapes):
         for embed in (False, True):
             for dtype in F32_BF16:
@@ -1553,8 +1606,8 @@ def phase_fused_kernels():
     check_tat_smem()
     rows = []
     tat_diff = tuple(range(9))
-    shapes = [(seed, s, True) for seed, s in enumerate(TAT_SHAPES)] + [
-        (4 + seed, s, False) for seed, s in enumerate(SPATIAL_SHAPES)]
+    shapes = [(seed, s, True) for seed, s in enumerate(TAT_SHAPES + TAT_WIDE_SHAPES)] + [
+        (4 + seed, s, False) for seed, s in enumerate(SPATIAL_SHAPES + SPATIAL_WIDE_SHAPES)]
     for seed, shape, is_tat in shapes:
         label = shape[0]
         for dtype in shape[-1]:
@@ -1657,12 +1710,13 @@ def phase_fused_kernels():
 # kernel-name fragments of each pass: the float32 and the bf16 kernel of a
 # pass share one
 SPATIAL_PASSES = {
-    "forward": (("sa", ("sp_embed_kernel", "sp_embed_wmma")), ("stats", ("sp_colstats",)),
-                ("cols", ("sp_cols_fwd",))),
-    "backward": (("sa", ("sp_embed_kernel", "sp_embed_wmma")), ("stats", ("sp_colstats",)),
+    "forward": (("sa", ("sp_embed_kernel", "sp_embed_wmma", "sp_embed_chunk")),
+                ("stats", ("sp_colstats",)), ("cols", ("sp_cols_fwd",))),
+    "backward": (("sa", ("sp_embed_kernel", "sp_embed_wmma", "sp_embed_chunk")),
+                 ("stats", ("sp_colstats",)),
                  ("cols", ("sp_cols_bwd",)), ("ds", ("sp_ds_kernel", "sp_dk_sum")),
                  ("dq", ("sp_dq_kernel",)), ("rows", ("sp_rows_bwd",)),
-                 ("embed_bwd", ("sp_embed_bwd_kernel",)),
+                 ("embed_bwd", ("sp_embed_bwd_kernel", "sp_embed_bwd_chunk")),
                  ("atb", ("atb_partial_kernel",)), ("colsum", ("colsum_kernel",))),
 }
 
@@ -1697,7 +1751,7 @@ def measure_spatial_passes(iters: int = 10, shape: str = "pems08_blocks2-4"):
     through torch.autograd.grad; "colsum" is the fixed-order row sums
     (dΘ, dpos, dpb, dgs, dbs and atb's partials)."""
     _, B, N, F, T, C, Co, d, K, dk, dtypes = next(
-        s for s in SPATIAL_SHAPES if s[0] == shape)
+        s for s in SPATIAL_SHAPES + SPATIAL_WIDE_SHAPES if s[0] == shape)
     out = {"shape": shape, "iters": iters}
     for dtype in dtypes:
         ins, cots = spatial_inputs(B, N, F, T, C, Co, d, K, dk, dtype, 0)
@@ -1720,10 +1774,13 @@ def measure_spatial_passes(iters: int = 10, shape: str = "pems08_blocks2-4"):
 # and the weight-gradient products and row sums
 TAT_PASSES = {
     "forward": (("prep", ("tat_prep_kernel",)), ("qkv", ("tat_qkv_kernel",)),
-                ("attn", ("tat_attn_fwd_kernel",)), ("out_ln1", ("tat_out_kernel",))),
+                ("attn", ("tat_attn_fwd_kernel", "tat_attn_fwd_chunk")),
+                ("out_ln1", ("tat_out_kernel",))),
     "backward": (("prep", ("tat_prep_kernel",)), ("qkv", ("tat_qkv_kernel",)),
-                 ("attn", ("tat_attn_fwd_kernel",)), ("ln1_bwd", ("tat_ln1_bwd_kernel",)),
-                 ("attn_bwd", ("tat_attn_bwd_kernel",)), ("g_te", ("tat_gte_kernel",)),
+                 ("attn", ("tat_attn_fwd_kernel", "tat_attn_fwd_chunk")),
+                 ("ln1_bwd", ("tat_ln1_bwd_kernel",)),
+                 ("attn_bwd", ("tat_attn_bwd_kernel", "tat_attn_bwd_chunk")),
+                 ("g_te", ("tat_gte_kernel",)),
                  ("atb", ("atb_partial_kernel", "atb_wmma_partial_kernel")),
                  ("colsum", ("colsum_kernel",))),
 }
@@ -1737,7 +1794,8 @@ def measure_tat_passes(iters: int = 10, shape: str = "pems08_blocks2-4"):
     the forward as a training step calls it, the backward through
     torch.autograd.grad; "atb" is the weight-gradient products, "colsum"
     the fixed-order row sums."""
-    _, BF, T, N, H, dk, dv, embed, _ = next(s for s in TAT_SHAPES if s[0] == shape)
+    _, BF, T, N, H, dk, dv, embed, _ = next(s for s in TAT_SHAPES + TAT_WIDE_SHAPES
+                                            if s[0] == shape)
     out = {"shape": shape, "iters": iters}
     for dtype in F32_BF16:
         ins, cots = tat_inputs(BF, T, N, H, dk, dv, dtype, 0)
@@ -1842,11 +1900,13 @@ TAT_PASS_SHAPES = {"t144_n8600": (128, 144, 8600, 2, 32, 32, False)}
 
 
 def measure_rows(out: Path, iters: int = 20) -> dict:
-    """PERF.md rows 2-11, both dtypes: F, K1 and K2 at BELL_ROW_SHAPES
+    """PERF.md rows 2-13, both dtypes: F, K1 and K2 at BELL_ROW_SHAPES
     (:func:`measure_bell`: CUDA events, device time by pass, output
     digests); by CUDA events the TAt forward and
-    backward kernels at PEMS08 blocks 2-4 and at GAMBIA's T = 144, the
-    GTU's at the GAMBIA block and at C = 128 (several chunks of C), and
+    backward kernels at PEMS08 blocks 2-4 and at GAMBIA's T = 144 and the
+    spatial middle's at PEMS08 blocks 2-4 (with their outputs' digests,
+    ``digests``), the GTU's at the GAMBIA block and at C = 128 (several
+    chunks of C), and
     the TAt at TAT_PASS_SHAPES by pass (device time, torch.profiler),
     through interfaces every version of the package has
     (``tat_forward_cuda``/``tat_backward_cuda``, ``pack`` and
@@ -1873,6 +1933,9 @@ def measure_rows(out: Path, iters: int = 20) -> dict:
             res.setdefault(f"tat_{label}", {})[name] = timed_or_refused(
                 lambda: tat_fused.tat_forward_cuda(*ins, **dims),
                 lambda: tat_fused.tat_backward_cuda(*ins, *cots, **dims))
+            res.setdefault("digests", {})[f"tat_{label}_{name}"] = _digest(
+                [*tat_fused.tat_forward_cuda(*ins, **dims),
+                 *tat_fused.tat_backward_cuda(*ins, *cots, **dims)])
             del ins, cots
         for label, (BF, T, N, H, dk, dv, embed) in TAT_PASS_SHAPES.items():
             dims = dict(n_heads=H, d_k=dk, d_v=dv, embed=embed)
@@ -1888,6 +1951,18 @@ def measure_rows(out: Path, iters: int = 20) -> dict:
             except ValueError as e:  # an older checkout's card gate
                 res["passes"].setdefault(label, {})[name] = f"refused: {e}"
             del ins, cots
+        _, B, N, F, T, C, Co, d, K, dk, _ = next(s for s in SPATIAL_SHAPES
+                                                if s[0] == "pems08_blocks2-4")
+        ins, cots = spatial_inputs(B, N, F, T, C, Co, d, K, dk, dtype, 1)
+        ops = block_spatial_fused._kernel_operands(*ins)
+        kd = dict(K=K, d_k=dk, keep=SPATIAL_KEEP, bf16=dtype == torch.bfloat16)
+        y = block_spatial_fused.spatial_forward_cuda(*ops, **kd)
+        mask, g32 = y > 0, cots[0].float().contiguous()
+        res.setdefault("spatial_pems08_blocks2-4", {})[name] = timed_or_refused(
+            lambda: block_spatial_fused.spatial_forward_cuda(*ops, **kd),
+            lambda: block_spatial_fused.spatial_backward_cuda(*ops, g32, mask, **kd))
+        res.setdefault("digests", {})[f"spatial_pems08_blocks2-4_{name}"] = _digest([y])
+        del ins, cots, ops, y, mask, g32
         for label in ("gambia_block", "gambia_c128"):
             _, B, N2, C, T2, _ = next(s for s in GTU_SHAPES if s[0] == label)
             ins, cots = gtu_inputs(B, N2, C, T2, dtype, 0)
@@ -2327,15 +2402,14 @@ FUSED_LAUNCHES = dict(per_forward=("tat_fwd", "spatial_fwd"),
 
 def run_fused_cli(root: Path, conf: Path, path: str, model_check: bool = True,
                   launches: dict = FUSED_LAUNCHES, knobs=("fuse_tat", "fuse_spatial"),
-                  measure: bool = False) -> dict:
+                  measure: bool = False, nb: int = PEMS08_TRAINING["nb_block"]) -> dict:
     """The training CLI on a fused project (2 epochs), its launch counts
-    checked (``launches``, per block), the device memory peak over the run,
+    checked (``launches``, per block of its ``nb``), the device memory peak over the run,
     and with ``model_check`` the whole-model check: the run's last
     checkpoint, one test batch in float32, the model with ``knobs`` on
     against it with them off. With ``measure``, one more epoch of the
     checkpoint's trainer for ms/step and its peak memory, and a profiled
     epoch for device ms/step and the busy share."""
-    nb = PEMS08_TRAINING["nb_block"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2534,6 +2608,52 @@ def phase_long_t(root: Path, measure: bool = False):
                                  model_check=dtype == "float32", launches=LONG_T_LAUNCHES,
                                  knobs=("fuse_tat", "fuse_spatial", "fuse_gtu"), measure=measure)
             for dtype in ("float32", "bfloat16")}
+
+
+# this slice's main paths: the fused TAt and spatial middle at head and
+# channel widths the card refused before the kernels chunked them
+WIDE_HEADS_KEYS = dict(n_heads=8, d_k=128, d_v=128, fuse_tat="true", fuse_spatial="true")
+WIDE_CHANNELS_SIZES = (16, 8, 8)  # windows a split: 2 train steps of 8, 1 val, 1 test
+WIDE_CHANNELS_KEYS = dict(d_model=4096, nb_chev_filter=512, nb_time_filter=512, n_heads=8,
+                          d_k=128, d_v=128, batch_size=8, fuse_tat="true", fuse_spatial="true")
+
+
+def write_wide_channels_project(root: Path, dtype: str) -> Path:
+    """DSTAGNN at PEMS08 width (N = 170, T = 12, 4 blocks, K = 3) with
+    nb_chev_filter = nb_time_filter = 512 (the GTU takes the conv's
+    channels, so blocks 2-4 have C = Co = 512), d_model = 4096 and 8 heads
+    of d_k = d_v = 128 (the SAt's d_k too), batch 8: :func:`synthetic_windows`
+    and a seeded 8-nearest-neighbour graph as adjacency, STAG and STRG, with
+    fuse_tat and fuse_spatial in ``dtype``."""
+    name, N = f"WIDEC{dtype[0].upper()}", 170
+    synthetic_windows(root, name, np.random.default_rng(19), N, 12, WIDE_CHANNELS_SIZES)
+    adj = root / f"knn{N}.csv"
+    if not adj.exists():
+        write_dense_csv(adj, knn_adjacency(N))
+    return write_project_conf(root, name, name, N, "PEMS08_WIDE", str(adj), str(adj), str(adj),
+                              "G", compute_dtype=dtype, **WIDE_CHANNELS_KEYS)
+
+
+def phase_wide_fused(root: Path):
+    """The fused TAt and spatial middle past their old head and channel
+    caps through the CLI: the wide_heads project (bench.py's GAMBIA
+    configuration, :func:`write_gambia_project`, N = 2139, T = 144, 4
+    features, batch 4, with 8 heads of d_k = d_v = 128) and the
+    wide_channels one (:func:`write_wide_channels_project`), 2 epochs each
+    in float32 and in bf16, with fuse_tat and fuse_spatial: the TAt and
+    spatial launches checked per block, finite falling losses, and the
+    float32 runs' fused model against the unfused one on one test batch
+    (:func:`run_fused_cli`). Either project made the parent's Trainer or
+    its first step raise."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        heads = write_gambia_project(root, f"WIDE_HEADS_{dtype}", dtype, **WIDE_HEADS_KEYS)
+        out[f"wide_heads_{dtype}"] = run_fused_cli(root, heads, f"wide_heads_cli_{dtype}",
+                                                   model_check=dtype == "float32", nb=2)
+        out[f"wide_channels_{dtype}"] = run_fused_cli(
+            root, write_wide_channels_project(root, dtype), f"wide_channels_cli_{dtype}",
+            model_check=dtype == "float32")
+    return out
 
 
 def checkpoint_trainer(trainer, run_dir: Path):
@@ -4720,12 +4840,14 @@ C_MAJOR_SITES = {"bell_fused": "dstagnn_drought_tpu/ops/pallas/bell_fused.py:812
 
 
 def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused, gtu,
-                 gtu_bell, multi, pems07, large_n, long_t, wide, graphed):
+                 gtu_bell, multi, pems07, large_n, long_t, wide, graphed, wide_fused):
     """One record per TPU kernel for the JSON line (13; a c-major variant's
     record repeats its port kernel's, ``kernel_of``): launches from its main
     path, times and bound at the main path's shape (the fused TAt and
     spatial rows: launches from the PEMS07 bf16 run, times at PEMS08
-    blocks 2-4 as before, the PEMS07 shape's beside them; the TAt and GTU
+    blocks 2-4 as before, the PEMS07 shape's beside them, and the wide
+    CLI runs' launches with their times at TAT_WIDE_SHAPES and
+    SPATIAL_WIDE_SHAPES, ``wide_shapes``; the TAt and GTU
     rows also carry the large-N and long-T CLI runs' launches and their
     times at the shapes past the old caps, ``new_shapes``; the BELL rows
     the full-width CLI runs' launches and their times at BELL_NEW_SHAPES)."""
@@ -4796,6 +4918,9 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "launches_pems08": fused["launches"][name],
             "pems07": {dt: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
                        for dt, r in p07.items()},
+            "launches_wide": {run: out_["launches"][name] for run, out_ in wide_fused.items()},
+            "wide_shapes": new_shape_times(mine, [s[0] for s in (
+                TAT_WIDE_SHAPES if name.startswith("tat") else SPATIAL_WIDE_SHAPES)]),
         })
         if name.startswith("tat"):
             out[-1].update(
@@ -4849,7 +4974,7 @@ def main(argv=None) -> int:
                     help="build, then run only compare_run (one side of a comparison of "
                          "two commits) into OUT")
     ap.add_argument("--rows", type=Path, default=None, metavar="OUT",
-                    help="build, then time only PERF.md rows 2-11 (measure_rows) into OUT")
+                    help="build, then time only PERF.md rows 2-13 (measure_rows) into OUT")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4860,8 +4985,8 @@ def main(argv=None) -> int:
     card = card_line()
     t_start = time.perf_counter()
 
-    report = build.build(("bell_fused", "bell_bwd", "tat_fused", "gtu_fused") if args.rows
-                         else build.SOURCES)
+    report = build.build(("bell_fused", "bell_bwd", "tat_fused", "block_spatial_fused",
+                          "gtu_fused") if args.rows else build.SOURCES)
     builds = {}
     for name, r in report.items():
         print(f"build {name}: {r['seconds']:.2f} s", flush=True)
@@ -4906,6 +5031,7 @@ def main(argv=None) -> int:
         pems07 = timed(phase_pems07_fused, root)
         large_n = timed(phase_large_n, root, args.measure)
         long_t = timed(phase_long_t, root, args.measure)
+        wide_fused = timed(phase_wide_fused, root)
         measured = measure_pems08_epochs(root) if args.measure else None
         gambia = timed(phase_gambia, root)
         gtu = timed(phase_gambia_fuse_gtu, root)
@@ -4937,13 +5063,15 @@ def main(argv=None) -> int:
                         "stag_full": measure_stag_full()}
 
     kernels = kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fused,
-                           gtu, gtu_bell, multi, pems07, large_n, long_t, wide, graphed)
+                           gtu, gtu_bell, multi, pems07, large_n, long_t, wide, graphed,
+                           wide_fused)
     if args.json is not None:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({
             "card": card, "builds": builds, "cheb_sat": rows, "bell": bell_rows,
             "fused": fused_rows, "gtu": gtu_rows, "pems08": pems, "pems08_fused": fused,
             "pems07_fused": pems07, "large_n": large_n, "long_t": long_t,
+            "wide_fused": wide_fused,
             "measure": measured, "gambia": gambia, "gambia_bell_tiles": tiles,
             "gambia_bell_rcm": rcm, "gambia_wide": wide, "gambia_fuse_gtu": gtu,
             "gambia_bell_tiles_fuse_gtu": gtu_bell, "stag": stag, "gambia_ell": ell,

@@ -1,6 +1,7 @@
 // Shared pieces of the dense fused kernels (tat_fused.cu,
 // block_spatial_fused.cu): row products against a weight matrix in device
-// memory, warp LayerNorm statistics, and the two deterministic reductions
+// memory, warp LayerNorm statistics (whole rows, or chunks merged by Chan's
+// formula), and the two deterministic reductions
 // that replace the TPU kernels' weight-gradient accumulation across a
 // sequential grid.
 //
@@ -105,6 +106,36 @@ __device__ __forceinline__ void ln_stats(const float* z, int L, float& mu, float
     v = fmaf(d, d, v);
   }
   inv = rsqrtf(warp_sum(v) / L + kEps);
+}
+
+// Chan's merge of a row chunk's columns zr[0, cv) into the row's running
+// mean and sum of squared deviations m2 over its first n columns, by one
+// warp; st = {mean, m2} in shared memory (kept out of registers: the wide
+// products beside them need those). One chunk (n = 0) gives the two-pass
+// statistics of ln_stats, bit for bit.
+__device__ __forceinline__ void merge_row(const float* zr, int cv, int n, float* st) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int e = lane; e < cv; e += 32) s += zr[e];
+  const float mc = warp_sum(s) / cv;
+  float v = 0.f;
+  for (int e = lane; e < cv; e += 32) {
+    const float t = zr[e] - mc;
+    v = fmaf(t, t, v);
+  }
+  v = warp_sum(v);
+  float mean = mc, m2 = v;
+  if (n > 0) {
+    const float delta = mc - st[0], nn = static_cast<float>(n + cv);
+    mean = st[0] + delta * (cv / nn);
+    m2 = st[1] + v + delta * delta * (static_cast<float>(n) * cv / nn);
+  }
+  __syncwarp();
+  if (lane == 0) {
+    st[0] = mean;
+    st[1] = m2;
+  }
+  __syncwarp();
 }
 
 // LayerNorm backward by one warp, in place on g[0..L):

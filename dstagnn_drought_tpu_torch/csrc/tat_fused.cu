@@ -21,7 +21,9 @@
 // of activations: operations, not bytes, bound it. The TPU kernel holds a
 // row in VMEM; a row of a CUDA block would cap N and T by its 227 KB, so
 // the row is taken apart into passes over the flat M = B*F*T rows, one
-// design for both dtypes, and no block's shared memory grows with N or T.
+// design for both dtypes, and no block's shared memory grows with N, T or
+// the head widths (the heads in chunks where they do not fit whole; a
+// shape that fits the whole layout runs it unchanged).
 // Every product runs on the tensor cores (WMMA 16x16x16 bf16 fragments,
 // float32 sums) with each float32 operand a split into hi = bf16(a) and
 // lo = bf16(a - hi) (residual <= 2^-18 |a|), so the function stays float32
@@ -40,8 +42,11 @@
 //     not held) and writes te and its row statistics;
 //   2 tat_attn_fwd_kernel, a block a (row of B*F, head), float32 on the
 //     CUDA cores, key columns in chunks of 32 and the query rows in one
-//     tile up to T = 160, else in tiles of 32 (shared memory bounded
-//     whatever T): the softmax runs over the query axis, so a key column
+//     tile up to T = 160 where it fits, else in tiles of 32 (shared memory
+//     bounded whatever T; a route by shape, make_d16; past what the whole
+//     head fits, tat_attn_fwd_chunk_kernel stages d_k and d_v 64 columns at
+//     a time, each score's chain run on through its chunks and ctx's sums
+//     kept in device memory): the softmax runs over the query axis, so a key column
 //     is complete only after every query. With one tile (a route by T,
 //     ONE: the two sweeps below alone read 11% / 8% slower in the forward
 //     / backward at PEMS08 blocks 2-4 on an H100, chip_smoke.py --rows)
@@ -51,7 +56,10 @@
 //     statistics (max, then the sum of exp, rescaled as the max moves)
 //     over the query tiles, with the raw scores (an output), then ctx a
 //     query tile at a time, the attention rebuilt from the statistics;
-//   3 tat_out_kernel: z = ctx . wo + te and LN1 over N in column chunks of
+//   3 tat_out_kernel: z = ctx . wo + te (split where ctx's rows do not fit
+//     whole: ctx split 256 columns at a time, each product continuing the
+//     last one's sums stored in the z chunk, the bits of one product) and
+//     LN1 over N in column chunks of
 //     at most 1024 (the row's width split evenly, 16-aligned): the chunks'
 //     statistics merged (Chan's formula; one chunk is the two-pass mean and
 //     variance), then out a chunk at a time, the last chunk still in shared
@@ -64,18 +72,24 @@
 //   4 tat_ln1_bwd_kernel: z chunk by chunk and LN1's statistics, then LN1
 //     backward with g_out: the row sums sum(g*g1) and sum(g*g1*x_hat) and
 //     per-tile dg1/db1 partials a chunk at a time, then g_ypre (Mp, Np)
-//     float32 and g_ctx = g_ypre . wo^T. With more than one chunk the
+//     float32 and g_ctx = g_ypre . wo^T (split: z as pass 3 and g_ctx in
+//     column groups of at most 512 whose tiles fit 9 a warp). With more
+//     than one chunk the
 //     block's rows of g_ypre's workspace hold z, then x_hat, between the
 //     sweeps (its own rows, read back at once, mostly from L2); with one
 //     they stay in shared memory;
-//   5 tat_attn_bwd_kernel, a block a (row, head) on the CUDA cores, a key
+//   5 tat_attn_bwd_kernel (tat_attn_bwd_chunk_kernel past the whole head:
+//     q, k, v and g_ctx staged 64 columns at a time, g_k and g_v summed in
+//     place in g_qkv), a block a (row, head) on the CUDA cores, a key
 //     chunk at a time: a and g_a = g_ctx . v^T rebuilt for every query tile
 //     from the forward's column statistics, the column term delta_k =
 //     sum_q a g_a and g_v over all queries; then ds = a (g_a - delta) + g_sc
 //     -> dres, g_k of the chunk and each tile's g_q, summed over the chunks
 //     in place in g_qkv (Mp, Wp) float32 (the block owns those entries: no
 //     atomics, a fixed order);
-//   6 tat_gte_kernel: g_te = g_qkv . wqkv^T + g_ypre -> dx; with the
+//   6 tat_gte_kernel: g_te = g_qkv . wqkv^T + g_ypre -> dx (split where
+//     g_qkv's rows do not fit whole: chunk by chunk of N, g_qkv 256 columns
+//     at a time as pass 3 takes ctx); with the
 //     embedding, LN0 backward: g_te chunk by chunk into the float32 copy of
 //     dx (dxf), the row sums and per-tile dg0/db0 partials, then dx;
 //   7 dwqkv = te^T g_qkv and dwo = ctx^T g_ypre by wm::atb_wmma (split-M
@@ -114,6 +128,10 @@ constexpr int kKeyChunk = 32;          // key columns an attention block takes a
 constexpr int kQueryTile = 32;         // query rows of a tile where T is streamed
 constexpr int kOneTile = 160;          // T up to which one query tile holds every query
 constexpr int kMaxChunk = 1024;        // most columns of N a row-tiled pass holds at a time
+constexpr int kHeadChunk = 64;         // d_k or d_v columns the chunked attention stages a time
+constexpr int kHvChunk = 256;          // ctx columns a split z product stages at a time
+constexpr int kWChunk = 256;           // g_qkv columns a split g_te product stages at a time
+constexpr int kGroupMax = 512;         // most g_ctx columns a split LN1 backward holds in its sums
 constexpr size_t kSmemMax = 232448;    // shared memory a block may have (227 KB)
 
 enum Pass16 { kQkv = 0, kAttnFwd, kOut, kLn1Bwd, kAttnBwd, kGte, kPasses };
@@ -127,10 +145,24 @@ enum Pass16 { kQkv = 0, kAttnFwd, kOut, kLn1Bwd, kAttnBwd, kGte, kPasses };
 constexpr int kOutMinBlocks = 3, kLn1MinBlocks = 2;
 constexpr int attn_min_blocks(bool one) { return one ? 16 : 8; }
 
+// Attention routes: every query in one tile (T <= kOneTile), the queries in
+// tiles of kQueryTile with the whole head staged, or those tiles with d_k
+// and d_v staged kHeadChunk columns at a time; each pass takes the first
+// that fits a block. The N-wide passes 3, 4 and 6 hold their K operand
+// (ctx, g_qkv) whole, or (split) in chunks of kHvChunk / kWChunk columns
+// where the whole one does not fit at 16 rows; split, pass 4 also takes
+// g_ctx in column groups.
+enum AttnRoute { kRouteOne = 0, kRouteStream, kRouteChunk };
+
 struct D16 {
   int BF, M, T, N, H, dk, dv, W, hk, hv, Np, Wp, hvp, KC, QT, NC, nch, embed, f32;
+  int route_fwd, route_bwd, split_out, split_ln1, split_gte;
   float inv_sqrt;
 };
+
+size_t smem16(int pass, int rows, const D16& d);
+int rows16(int pass, const D16& d);
+size_t attn_smem(int pass, int route, const D16& d);
 
 D16 make_d16(int BF, int T, int N, int H, int dk, int dv, int embed, int f32) {
   D16 d;
@@ -148,7 +180,7 @@ D16 make_d16(int BF, int T, int N, int H, int dk, int dv, int embed, int f32) {
   d.Wp = (d.W + 15) / 16 * 16;
   d.hvp = (d.hv + 15) / 16 * 16;
   d.KC = T < kKeyChunk ? T : kKeyChunk;
-  d.QT = T <= kOneTile ? T : kQueryTile;
+  d.QT = 0;  // set per attention pass (attn_d16)
   // the N-wide passes' column chunks: Np split evenly into the fewest of at
   // most kMaxChunk columns, each 16-aligned (only the last holds padding)
   const int parts = (d.Np + kMaxChunk - 1) / kMaxChunk;
@@ -157,7 +189,29 @@ D16 make_d16(int BF, int T, int N, int H, int dk, int dv, int embed, int f32) {
   d.embed = embed;
   d.f32 = f32;
   d.inv_sqrt = static_cast<float>(1.0 / sqrt(static_cast<double>(dk)));
+  // each attention pass's route: the first that fits a block
+  for (const int pass : {(int)kAttnFwd, (int)kAttnBwd}) {
+    int route = kRouteChunk;
+    if (T <= kOneTile && attn_smem(pass, kRouteOne, d) <= kSmemMax)
+      route = kRouteOne;
+    else if (attn_smem(pass, kRouteStream, d) <= kSmemMax)
+      route = kRouteStream;
+    (pass == kAttnFwd ? d.route_fwd : d.route_bwd) = route;
+  }
+  // the N-wide passes split their K operand where it does not fit whole
+  d.split_out = d.split_ln1 = d.split_gte = 0;
+  d.split_out = rows16(kOut, d) == 0;
+  d.split_ln1 = rows16(kLn1Bwd, d) == 0;
+  d.split_gte = rows16(kGte, d) == 0;
   return d;
+}
+
+// a copy of d for an attention pass: its route's query tile
+D16 attn_d16(int pass, const D16& d) {
+  D16 a = d;
+  const int route = pass == kAttnFwd ? d.route_fwd : d.route_bwd;
+  a.QT = route == kRouteOne ? d.T : (d.T < kQueryTile ? d.T : kQueryTile);
+  return a;
 }
 
 // output columns of a qkv group: kItems tiles a warp over the row tiles,
@@ -167,48 +221,85 @@ __host__ __device__ __forceinline__ int qkv_group(const D16& d, int rows) {
   return d.Wp < gw ? d.Wp : gw;
 }
 
-// Shared memory of a pass's block with `rows` rows (the attention passes
-// do not tile rows). Every region of a row-tiled pass is a multiple of 32
-// bytes, so each WMMA tile starts aligned. None grows with N or T.
+// the columns a split pass stages of its K operand: ctx's in passes 3-4,
+// g_qkv's in pass 6 (the whole width where the pass is not split)
+__host__ __device__ __forceinline__ int hv_chunk(const D16& d, int split) {
+  return split && d.hvp > kHvChunk ? kHvChunk : d.hvp;
+}
+__host__ __device__ __forceinline__ int w_chunk(const D16& d) {
+  return d.split_gte && d.Wp > kWChunk ? kWChunk : d.Wp;
+}
+// g_ctx columns pass 4 sums at a time: all of them, or (split) a group whose
+// tiles fit kItems a warp and whose wo chunks fit beside the z chunk
+__host__ __device__ __forceinline__ int ln1_group(const D16& d, int rows) {
+  if (!d.split_ln1) return d.hvp;
+  int g = 16 * (kWarps * kItems / (rows / 16));
+  if (g > kGroupMax) g = kGroupMax;
+  return d.hvp < g ? d.hvp : g;
+}
+
+// Shared memory of an attention pass on a route: the query tile (every
+// query on the one-tile route), key and value chunks, score tiles, and the
+// head's columns (kHeadChunk of d_k and d_v at a time on the chunked route,
+// whose ctx, g_k and g_v sums stay in device memory)
+size_t attn_smem(int pass, int route, const D16& d) {
+  const size_t QT = route == kRouteOne ? d.T : (d.T < kQueryTile ? d.T : kQueryTile),
+               KC = d.KC, ls = KC + 1;
+  const bool chunk = route == kRouteChunk;
+  const size_t ck = chunk && d.dk > kHeadChunk ? kHeadChunk : d.dk,
+               cv = chunk && d.dv > kHeadChunk ? kHeadChunk : d.dv, lq = ck + 1, lv = cv + 1;
+  if (pass == kAttnFwd)  // query tile, key and value chunks, score tile, context sums, the
+                         // chunk's column statistics
+    return 4 * (QT * lq + KC * lq + KC * lv + QT * ls + (chunk ? 0 : QT * d.dv) + 2 * KC);
+  // query and g_ctx tiles, key and value chunks, a and g_a tiles, the chunk's g_k and g_v
+  // sums, delta and column statistics
+  return 4 * (QT * lq + QT * lv + KC * lq + KC * lv + 2 * QT * ls +
+              (chunk ? 0 : KC * d.dk + KC * d.dv) + 3 * KC);
+}
+
+// Shared memory of a pass's block with `rows` rows (an attention pass: its
+// route's bytes). Every region of a row-tiled pass is a multiple of 32
+// bytes, so each WMMA tile starts aligned. None grows with N or T, nor
+// (split or chunked) with the head widths.
 size_t smem16(int pass, int rows, const D16& d) {
-  const size_t R = rows, LZ = d.NC + 4, QT = d.QT, KC = d.KC, lq = d.dk + 1, lv = d.dv + 1,
-               ls = KC + 1;
+  const size_t R = rows, LZ = d.NC + 4;
   switch (pass) {
     case kQkv:  // B chunk (hi, and lo in float32), A chunk hi (and lo), LN0 statistics
       return 2 * (size_t)kKC * (qkv_group(d, rows) + 8) * (1 + d.f32) +
              2 * R * kLC * (1 + (d.embed | d.f32)) + 8 * R;
-    case kAttnFwd:  // query tile, key and value chunks, score tile, context sums, the
-                    // chunk's column statistics
-      return 4 * (QT * lq + KC * lq + KC * lv + QT * ls + QT * d.dv + 2 * KC);
-    case kOut:  // a z chunk (float32), ctx hi and lo, the rows' statistics
-      return 4 * R * LZ + 4 * R * (d.hvp + 8) + 8 * R;
+    case kAttnFwd:
+      return attn_smem(pass, d.route_fwd, d);
+    case kOut:  // a z chunk (float32), ctx hi and lo (a chunk where split), the rows' statistics
+      return 4 * R * LZ + 4 * R * (hv_chunk(d, d.split_out) + 8) + 8 * R;
     case kLn1Bwd: {  // a z chunk, then ctx hi/lo or a g_ypre chunk (hi, lo) and a wo
-                     // chunk (hi, and lo in float32); the rows' statistics and sums
-      const size_t a = 4 * R * (d.hvp + 8),
-                   c = 4 * R * kLC + 2 * (size_t)d.hvp * kLC * (1 + d.f32);
+                     // chunk of a g_ctx group (hi, and lo in float32); the rows'
+                     // statistics and sums
+      const size_t a = 4 * R * (hv_chunk(d, d.split_ln1) + 8),
+                   c = 4 * R * kLC + 2 * (size_t)ln1_group(d, rows) * kLC * (1 + d.f32);
       return 4 * R * LZ + (a > c ? a : c) + 16 * R;
     }
-    case kAttnBwd:  // query and g_ctx tiles, key and value chunks, a and g_a tiles, the
-                    // chunk's g_k and g_v sums, delta and column statistics
-      return 4 * (QT * lq + QT * lv + KC * lq + KC * lv + 2 * QT * ls + KC * d.dk +
-                  KC * d.dv + 3 * KC);
-    case kGte:  // g_qkv hi and lo, then per-warp staging or (embed) a g_te chunk and
-                // the rows' sums
-      return 4 * R * (d.Wp + 8) + (d.embed ? 4 * R * LZ + 8 * R : 4 * (size_t)kWarps * 256);
+    case kAttnBwd:
+      return attn_smem(pass, d.route_bwd, d);
+    case kGte:  // g_qkv hi and lo (a chunk where split), then per-warp staging or (embed
+                // or split) a g_te chunk and the rows' sums
+      return 4 * R * (w_chunk(d) + 8) +
+             (d.embed || d.split_gte ? 4 * R * LZ + 8 * R : 4 * (size_t)kWarps * 256);
   }
   return 0;
 }
 
 // Rows a block of a row-tiled pass takes: 64, 32 or 16, the most whose
 // shared memory lets two blocks share an SM, else the most that fit (the
-// chunked g_ctx product also needs its tiles to fit kItems a warp); 0 where
-// none does. The attention passes return 1.
+// unsplit g_ctx product also needs its tiles to fit kItems a warp); 0 where
+// none does, which a split pass never reaches. The attention passes return
+// 1 (the chunked route fits at every head width).
 constexpr size_t kSmemTwo = 115712;  // the most two blocks an SM may each have
 int rows16(int pass, const D16& d) {
   if (pass == kAttnFwd || pass == kAttnBwd) return smem16(pass, 1, d) <= kSmemMax ? 1 : 0;
   for (const size_t cap : {kSmemTwo, kSmemMax})
     for (int rows = 64; rows >= 16; rows /= 2) {
-      if (pass == kLn1Bwd && (rows / 16) * (d.hvp / 16) > kWarps * kItems) continue;
+      if (pass == kLn1Bwd && !d.split_ln1 && (rows / 16) * (d.hvp / 16) > kWarps * kItems)
+        continue;
       if (smem16(pass, rows, d) <= cap) return rows;
     }
   return 0;
@@ -302,20 +393,29 @@ __device__ __forceinline__ void chunk_mma(FragC (&acc)[kItems], int items, int n
 }
 
 // Wide product for one warp: the column tiles ct0 and ct0 + 1 (< nct) of
-// every row tile, acc[r][q] += (ahi + alo)[rows r] . (w + wlo) over K (a
-// multiple of 16) less the lo.lo term, with a hi/lo (rows, lda) bf16 in
+// every row tile, acc[r][q] = init + (ahi + alo)[rows r] . (w + wlo) over K
+// (a multiple of 16) less the lo.lo term, with a hi/lo (rows, lda) bf16 in
 // shared memory and the fragments of w (and wlo, its lo terms, or null)
 // read from device memory (L2): row-major (K x cols, stride ldw) or (BT)
 // its transpose (cols x K, stride ldw). Each fragment is read once a block.
+// init (float32, row stride ldi, the tiles' own places) is null for 0: a
+// product split over K chunks, each continuing the last one's sums stored
+// there, has the bits of one product over all of K.
 template <int RT, bool BT>
 __device__ __forceinline__ void wide_mma(FragC (&acc)[RT][2], const bf16* ahi, const bf16* alo,
                                          int lda, int K, const bf16* __restrict__ w,
                                          const bf16* __restrict__ wlo, int ldw, int ct0,
-                                         int nct) {
+                                         int nct, const float* init = nullptr, int ldi = 0) {
 #pragma unroll
   for (int r = 0; r < RT; ++r)
 #pragma unroll
-    for (int q = 0; q < 2; ++q) wmma::fill_fragment(acc[r][q], 0.f);
+    for (int q = 0; q < 2; ++q) {
+      if (init && ct0 + q < nct)
+        wmma::load_matrix_sync(acc[r][q], init + r * 16 * ldi + (ct0 + q) * 16, ldi,
+                               wmma::mem_row_major);
+      else
+        wmma::fill_fragment(acc[r][q], 0.f);
+    }
   for (int k0 = 0; k0 < K; k0 += 16) {
     using FB = typename std::conditional<BT, FragBt, FragB>::type;
     FB fb[2], fbl[2];
@@ -623,32 +723,171 @@ tat_attn_fwd_kernel(const float* __restrict__ qkv, const TIn* __restrict__ res, 
   }
 }
 
+// The chunked route, for heads too wide for the others: d_k and d_v staged
+// kHeadChunk columns at a time. The raw scores of the (qn, kn) tile to a.s:
+// each score's FMA chain over d_k runs on chunk by chunk through a.s (the
+// same thread owns an element in every chunk), then / sqrt(dk) + res.
+template <typename TIn>
+__device__ __forceinline__ void chunk_score_tile(const AttnTiles& a,
+                                                 const float* __restrict__ qkv_r, int h,
+                                                 const TIn* __restrict__ res_rh, int q0, int qn,
+                                                 int k0, int kn, const D16& d) {
+  for (int c0 = 0; c0 < d.dk; c0 += kHeadChunk) {
+    const int cw = min(kHeadChunk, d.dk - c0);
+    __syncthreads();  // the tiles' last users are done
+    load_head(a.q, a.lq, qkv_r + (size_t)q0 * d.Wp + h * d.dk + c0, d.Wp, qn, cw);
+    load_head(a.kc, a.lq, qkv_r + (size_t)k0 * d.Wp + d.hk + h * d.dk + c0, d.Wp, kn, cw);
+    __syncthreads();
+    for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+      const int q = e / kn, kk = e % kn;
+      const float* qr = a.q + q * a.lq;
+      const float* kr = a.kc + kk * a.lq;
+      float dot = c0 == 0 ? 0.f : a.s[q * a.ls + kk];
+      for (int c = 0; c < cw; ++c) dot = fmaf(qr[c], kr[c], dot);
+      a.s[q * a.ls + kk] = dot;
+    }
+  }
+  for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+    const int q = e / kn, kk = e % kn;
+    a.s[q * a.ls + kk] =
+        a.s[q * a.ls + kk] * d.inv_sqrt + to_float(res_rh[(size_t)(q0 + q) * d.T + k0 + kk]);
+  }
+}
+
+// Pass 2 on the chunked route: the raw scores and each key column's
+// statistics over the query tiles, then ctx a query tile at a time, the
+// attention rebuilt from the statistics and ctx's sums kept in device
+// memory (the block's own entries), v a d_v chunk at a time
+template <typename TIn>
+__global__ void __launch_bounds__(kAttnThreads, attn_min_blocks(false))
+tat_attn_fwd_chunk_kernel(const float* __restrict__ qkv, const TIn* __restrict__ res,
+                          void* scores, int out_f32, float* __restrict__ ctx,
+                          float* __restrict__ stat, D16 d) {
+  extern __shared__ __align__(16) float sm[];
+  const int r = blockIdx.x, h = blockIdx.y, T = d.T, nw = kAttnThreads / 32,
+            warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int CV = min(d.dv, kHeadChunk);
+  AttnTiles a;
+  a.lq = min(d.dk, kHeadChunk) + 1;
+  a.lv = CV + 1;
+  a.ls = d.KC + 1;
+  a.q = sm;
+  a.kc = a.q + d.QT * a.lq;
+  a.vc = a.kc + d.KC * a.lq;
+  a.s = a.vc + d.KC * a.lv;
+  float* cm = a.s + d.QT * a.ls;  // the chunk's column max
+  float* cl = cm + d.KC;          // and sum of exp
+  const float* qkv_r = qkv + (size_t)r * T * d.Wp;
+  const size_t off = ((size_t)r * d.H + h) * T * T;
+  const TIn* res_rh = res + off;
+  float* st = stat + ((size_t)r * d.H + h) * T * 2;
+  float* ctx_r = ctx + (size_t)r * T * d.hvp + h * d.dv;
+  // 1. each key column's max and sum of exp over the query tiles, and the raw scores
+  for (int k0 = 0; k0 < T; k0 += d.KC) {
+    const int kn = min(d.KC, T - k0);
+    __syncthreads();  // the last chunk's statistics are out
+    for (int kk = threadIdx.x; kk < kn; kk += kAttnThreads) {
+      cm[kk] = -INFINITY;
+      cl[kk] = 0.f;
+    }
+    for (int q0 = 0; q0 < T; q0 += d.QT) {
+      const int qn = min(d.QT, T - q0);
+      chunk_score_tile(a, qkv_r, h, res_rh, q0, qn, k0, kn, d);
+      if (scores)
+        for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+          const int q = e / kn, kk = e % kn;
+          store_out(scores, off + (size_t)(q0 + q) * T + k0 + kk, a.s[q * a.ls + kk], out_f32);
+        }
+      __syncthreads();
+      for (int kk = warp; kk < kn; kk += nw) {
+        float m = -INFINITY;
+        for (int q = lane; q < qn; q += 32) m = fmaxf(m, a.s[q * a.ls + kk]);
+        m = fmaxf(dense::warp_max(m), cm[kk]);
+        float sum = 0.f;
+        for (int q = lane; q < qn; q += 32) sum += expf(a.s[q * a.ls + kk] - m);
+        sum = dense::warp_sum(sum);
+        if (lane == 0) {
+          cl[kk] = cl[kk] * expf(cm[kk] - m) + sum;
+          cm[kk] = m;
+        }
+      }
+    }
+    __syncthreads();
+    for (int kk = threadIdx.x; kk < kn; kk += kAttnThreads) {
+      st[2 * (k0 + kk)] = cm[kk];
+      st[2 * (k0 + kk) + 1] = cl[kk];
+    }
+  }
+  // 2. ctx a query tile at a time
+  for (int q0 = 0; q0 < T; q0 += d.QT) {
+    const int qn = min(d.QT, T - q0);
+    for (int k0 = 0; k0 < T; k0 += d.KC) {
+      const int kn = min(d.KC, T - k0);
+      __syncthreads();  // the last chunk is consumed (and the statistics are out)
+      for (int kk = threadIdx.x; kk < kn; kk += kAttnThreads) {
+        cm[kk] = st[2 * (k0 + kk)];
+        cl[kk] = st[2 * (k0 + kk) + 1];
+      }
+      chunk_score_tile(a, qkv_r, h, res_rh, q0, qn, k0, kn, d);
+      for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+        const int q = e / kn, kk = e % kn;
+        a.s[q * a.ls + kk] = expf(a.s[q * a.ls + kk] - cm[kk]) / cl[kk];
+      }
+      for (int c0 = 0; c0 < d.dv; c0 += CV) {
+        const int cw = min(CV, d.dv - c0);
+        __syncthreads();  // the attention is complete, or the last v chunk is consumed
+        load_head(a.vc, a.lv, qkv_r + (size_t)k0 * d.Wp + 2 * d.hk + h * d.dv + c0, d.Wp, kn,
+                  cw);
+        __syncthreads();
+        for (int e = threadIdx.x; e < qn * cw; e += kAttnThreads) {
+          const int q = e / cw, c = e % cw;
+          float* o = ctx_r + (size_t)(q0 + q) * d.hvp + c0 + c;
+          float acc = k0 == 0 ? 0.f : *o;
+          for (int kk = 0; kk < kn; ++kk) acc = fmaf(a.s[q * a.ls + kk], a.vc[kk * a.lv + c], acc);
+          *o = acc;
+        }
+      }
+    }
+  }
+}
+
 // z (rows, NC + 4) = ctx . wo + te over the columns [c0, c0 + cn) of the
 // block's rows, float32, from ctx split into the hi/lo tiles ahi, alo (rows
-// x (hvp + 8) bf16); wo_lo (wo's lo terms) null in bf16. Columns past N and
-// rows past M come out 0. The same sequence every call: a recomputed chunk
-// has the bits of the first.
-template <int RT, typename TIn>
-__device__ __forceinline__ void z_chunk(const bf16* ahi, const bf16* alo,
-                                        const bf16* __restrict__ wo,
+// x (HC + 8) bf16): all of ctx, split once by the caller (HC = hvp), or
+// (SPLIT) HC columns of ctx at a time split here from ctx, each chunk's
+// product continuing the sums in zs; wo_lo (wo's lo terms) null in bf16.
+// Columns past N and rows past M come out 0. The same sequence every call:
+// a recomputed chunk has the bits of the first.
+template <int RT, bool SPLIT, typename TIn>
+__device__ __forceinline__ void z_chunk(bf16* ahi, bf16* alo, const float* __restrict__ ctx,
+                                        int HC, const bf16* __restrict__ wo,
                                         const bf16* __restrict__ wo_lo,
                                         const TIn* __restrict__ x,
                                         const float* __restrict__ te32, float* zs, int row0,
                                         int c0, int cn, const D16& d) {
   constexpr int R = RT * 16;
-  const int LA = d.hvp + 8, LZ = d.NC + 4, NT = cn / 16, warp = threadIdx.x / 32;
-  __syncthreads();  // the last chunk is consumed (and ctx is split)
-  for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
-    FragC acc[RT][2];
-    wide_mma<RT, false>(acc, ahi, alo, LA, d.hvp, wo + c0, wo_lo ? wo_lo + c0 : nullptr, d.Np,
-                        ct0, NT);
+  const int LA = HC + 8, LZ = d.NC + 4, NT = cn / 16, warp = threadIdx.x / 32;
+  const int nh = SPLIT ? (d.hvp + HC - 1) / HC : 1;  // ctx's chunks (one: the caller's split)
+  for (int hi = 0; hi < nh; ++hi) {
+    const int h0 = hi * HC, hn = SPLIT ? min(HC, d.hvp - h0) : d.hvp;
+    __syncthreads();  // the last chunk is consumed (and ctx is split)
+    if (SPLIT) {
+      split_rows(ctx + h0, d.hvp, row0, d.M, R, hn, min(hn, d.hv - h0), ahi, alo, LA);
+      __syncthreads();
+    }
+    const size_t wo0 = (size_t)h0 * d.Np + c0;
+    for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
+      FragC acc[RT][2];
+      wide_mma<RT, false>(acc, ahi, alo, LA, hn, wo + wo0, wo_lo ? wo_lo + wo0 : nullptr, d.Np,
+                          ct0, NT, SPLIT && h0 > 0 ? zs : nullptr, LZ);
 #pragma unroll
-    for (int r = 0; r < RT; ++r)
+      for (int r = 0; r < RT; ++r)
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
-        if (ct0 + q < NT)
-          wmma::store_matrix_sync(zs + r * 16 * LZ + (ct0 + q) * 16, acc[r][q], LZ,
-                                  wmma::mem_row_major);
+        for (int q = 0; q < 2; ++q)
+          if (ct0 + q < NT)
+            wmma::store_matrix_sync(zs + r * 16 * LZ + (ct0 + q) * 16, acc[r][q], LZ,
+                                    wmma::mem_row_major);
+    }
   }
   __syncthreads();
   for (int e = threadIdx.x; e < R * cn; e += kThreads) {
@@ -658,41 +897,11 @@ __device__ __forceinline__ void z_chunk(const bf16* ahi, const bf16* alo,
   __syncthreads();
 }
 
-// Chan's merge of a row chunk's columns zr[0, cv) into the row's running
-// mean and sum of squared deviations m2 over its first n columns, by one
-// warp; st = {mean, m2} in shared memory (kept out of registers: the wide
-// products beside them need those). One chunk (n = 0) gives the two-pass
-// statistics of dense::ln_stats, bit for bit.
-__device__ __forceinline__ void merge_row(const float* zr, int cv, int n, float* st) {
-  const int lane = threadIdx.x % 32;
-  float s = 0.f;
-  for (int e = lane; e < cv; e += 32) s += zr[e];
-  const float mc = dense::warp_sum(s) / cv;
-  float v = 0.f;
-  for (int e = lane; e < cv; e += 32) {
-    const float t = zr[e] - mc;
-    v = fmaf(t, t, v);
-  }
-  v = dense::warp_sum(v);
-  float mean = mc, m2 = v;
-  if (n > 0) {
-    const float delta = mc - st[0], nn = static_cast<float>(n + cv);
-    mean = st[0] + delta * (cv / nn);
-    m2 = st[1] + v + delta * delta * (static_cast<float>(n) * cv / nn);
-  }
-  __syncwarp();
-  if (lane == 0) {
-    st[0] = mean;
-    st[1] = m2;
-  }
-  __syncwarp();
-}
-
 // Pass 3: out = LN(ctx . wo + te)*g1 + b1, rounded once to bf16 (or
 // float32), over column chunks of N; with more than one chunk, the block's
 // rows of zbuf (Mp, Np) hold the chunks between the sweeps. Warp w owns rows
 // w + kWarps*i and their statistics (rs, in shared memory).
-template <int RT, typename TIn>
+template <int RT, typename TIn, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, kOutMinBlocks)
 tat_out_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
                const bf16* __restrict__ wo_lo, const TIn* __restrict__ x,
@@ -701,13 +910,14 @@ tat_out_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
                int out_f32, float* __restrict__ zbuf, D16 d) {
   constexpr int R = RT * 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LZ = d.NC + 4, LA = d.hvp + 8, row0 = blockIdx.x * R, warp = threadIdx.x / 32,
-            lane = threadIdx.x % 32;
+  const int HC = hv_chunk(d, SPLIT), LZ = d.NC + 4, LA = HC + 8, row0 = blockIdx.x * R,
+            warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* zs = reinterpret_cast<float*>(smem);
   bf16* ahi = reinterpret_cast<bf16*>(zs + R * LZ);
   bf16* alo = ahi + R * LA;
   float* rs = reinterpret_cast<float*>(alo + R * LA);  // (R, 2): mean, m2
-  split_rows(ctx, d.hvp, row0, d.M, R, d.hvp, d.hv, ahi, alo, LA);
+  // ctx split once where it is held whole, else a chunk at a time in z_chunk
+  if (!SPLIT) split_rows(ctx, d.hvp, row0, d.M, R, d.hvp, d.hv, ahi, alo, LA);
   // the chunk [c0, c0 + cn) of the block's rows between zs and zbuf
   auto move = [&](int c0, int cn, bool to_buf) {
     for (int e = threadIdx.x; e < R * cn; e += kThreads) {
@@ -726,8 +936,8 @@ tat_out_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
     const int c0 = (step < d.nch ? step : 2 * d.nch - 2 - step) * d.NC;
     const int cn = min(d.NC, d.Np - c0), cv = min(cn, d.N - c0);
     if (step < d.nch) {
-      z_chunk<RT>(ahi, alo, wo, wo_lo, x, te32, zs, row0, c0, cn, d);
-      for (int r = warp; r < R; r += kWarps) merge_row(zs + r * LZ, cv, c0, rs + 2 * r);
+      z_chunk<RT, SPLIT>(ahi, alo, ctx, HC, wo, wo_lo, x, te32, zs, row0, c0, cn, d);
+      for (int r = warp; r < R; r += kWarps) dense::merge_row(zs + r * LZ, cv, c0, rs + 2 * r);
     } else {
       __syncthreads();  // the last chunk is written out
       move(c0, cn, false);
@@ -754,7 +964,7 @@ tat_out_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
 // . wo^T, g_ypre split chunk by chunk, wo's chunks (hi, and lo in float32)
 // staged by cp.async. Column chunks of N as in pass 3; with more than one,
 // the block's own rows of gy hold z, then x_hat, between the sweeps.
-template <int RT, typename TIn>
+template <int RT, typename TIn, bool SPLIT>
 __global__ void __launch_bounds__(kThreads, kLn1MinBlocks)
 tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
                    const bf16* __restrict__ wo_lo, const TIn* __restrict__ x,
@@ -764,16 +974,17 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
                    D16 d) {
   constexpr int R = RT * 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LZ = d.NC + 4, LA = d.hvp + 8, N = d.N, row0 = blockIdx.x * R,
-            warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int HC = hv_chunk(d, SPLIT), GC = SPLIT ? ln1_group(d, R) : d.hvp, LZ = d.NC + 4,
+            LA = HC + 8, N = d.N, row0 = blockIdx.x * R, warp = threadIdx.x / 32,
+            lane = threadIdx.x % 32;
   const bool one = d.nch == 1;  // the row is one chunk: it stays in shared memory
   float* zs = reinterpret_cast<float*>(smem);
   bf16* u = reinterpret_cast<bf16*>(zs + R * LZ);
-  const size_t ua = 4 * (size_t)R * (d.hvp + 8),
-               uc = 4 * (size_t)R * kLC + 2 * (size_t)d.hvp * kLC * (1 + d.f32);
+  const size_t ua = 4 * (size_t)R * LA,
+               uc = 4 * (size_t)R * kLC + 2 * (size_t)GC * kLC * (1 + d.f32);
   // (R, 4): mean, m2, and the sums of g*g1 and g*g1*x_hat
   float* rs = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(u) + (ua > uc ? ua : uc));
-  split_rows(ctx, d.hvp, row0, d.M, R, d.hvp, d.hv, u, u + R * LA, LA);
+  if (!SPLIT) split_rows(ctx, d.hvp, row0, d.M, R, d.hvp, d.hv, u, u + R * LA, LA);
   // the chunk [c0, c0 + cn) of the block's rows between zs and gy (rows < Mp)
   auto move = [&](int c0, int cn, bool to_gy) {
     for (int e = threadIdx.x; e < R * cn; e += kThreads) {
@@ -788,8 +999,8 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
   // 1. z chunk by chunk and the rows' statistics
   for (int c0 = 0; c0 < d.Np; c0 += d.NC) {
     const int cn = min(d.NC, d.Np - c0), cv = min(cn, N - c0);
-    z_chunk<RT>(u, u + R * LA, wo, wo_lo, x, te32, zs, row0, c0, cn, d);
-    for (int r = warp; r < R; r += kWarps) merge_row(zs + r * LZ, cv, c0, rs + 4 * r);
+    z_chunk<RT, SPLIT>(u, u + R * LA, ctx, HC, wo, wo_lo, x, te32, zs, row0, c0, cn, d);
+    for (int r = warp; r < R; r += kWarps) dense::merge_row(zs + r * LZ, cv, c0, rs + 4 * r);
     if (!one) move(c0, cn, true);
   }
   // 2. x_hat in place, the row sums of g*g1 and g*g1*x_hat, the column partials
@@ -865,36 +1076,41 @@ tat_ln1_bwd_kernel(const float* __restrict__ ctx, const bf16* __restrict__ wo,
       move(c0, cn, true);
     }
   }
-  // 4. g_ctx = g_ypre . wo^T over 64-column chunks of N
-  const int nct = d.hvp / 16, items = RT * nct;
+  // 4. g_ctx = g_ypre . wo^T over 64-column chunks of N, a group of GC of
+  // its columns at a time (all of them where the pass is not split)
   bf16* chi = u;
   bf16* clo = chi + R * kLC;
-  bf16* sb = clo + R * kLC;                          // (hvp, kLC): wo[:, k0:k0 + kn]
-  bf16* sbl = wo_lo ? sb + d.hvp * kLC : nullptr;  // its lo terms
-  FragC acc[kItems];
+  bf16* sb = clo + R * kLC;                      // (GC, kLC): wo[g0:g0 + gn, k0:k0 + kn]
+  bf16* sbl = wo_lo ? sb + GC * kLC : nullptr;  // its lo terms
+  const int ng = SPLIT ? (d.hvp + GC - 1) / GC : 1;
+  for (int gi = 0; gi < ng; ++gi) {
+    const int g0 = gi * GC, gn = SPLIT ? min(GC, d.hvp - g0) : d.hvp, nct = gn / 16,
+              items = RT * nct;
+    FragC acc[kItems];
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) wmma::fill_fragment(acc[i], 0.f);
-  for (int k0 = 0; k0 < d.Np; k0 += kKC) {
-    const int kn = min(kKC, d.Np - k0);
-    __syncthreads();  // g_ypre is complete, or the last chunk is consumed
-    copy_rows_async(sb, kLC, wo + k0, d.Np, d.hvp, kn);
-    if (sbl) copy_rows_async(sbl, kLC, wo_lo + k0, d.Np, d.hvp, kn);
-    for (int e = threadIdx.x; e < R * kn; e += kThreads) {
-      const int r = e / kn, c = e % kn;
-      const float v = one ? zs[r * LZ + k0 + c] : gy[(size_t)(row0 + r) * d.Np + k0 + c];
-      split(v, chi[r * kLC + c], clo[r * kLC + c]);
+    for (int i = 0; i < kItems; ++i) wmma::fill_fragment(acc[i], 0.f);
+    for (int k0 = 0; k0 < d.Np; k0 += kKC) {
+      const int kn = min(kKC, d.Np - k0);
+      __syncthreads();  // g_ypre is complete, or the last chunk is consumed
+      copy_rows_async(sb, kLC, wo + (size_t)g0 * d.Np + k0, d.Np, gn, kn);
+      if (sbl) copy_rows_async(sbl, kLC, wo_lo + (size_t)g0 * d.Np + k0, d.Np, gn, kn);
+      for (int e = threadIdx.x; e < R * kn; e += kThreads) {
+        const int r = e / kn, c = e % kn;
+        const float v = one ? zs[r * LZ + k0 + c] : gy[(size_t)(row0 + r) * d.Np + k0 + c];
+        split(v, chi[r * kLC + c], clo[r * kLC + c]);
+      }
+      wait_async();
+      __syncthreads();
+      chunk_mma<true>(acc, items, nct, chi, clo, sb, sbl, kLC, kn);
     }
-    wait_async();
-    __syncthreads();
-    chunk_mma<true>(acc, items, nct, chi, clo, sb, sbl, kLC, kn);
-  }
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int item = warp + kWarps * i;
-    if (item >= items) break;
-    const int r = item / nct, c = item % nct;
-    wmma::store_matrix_sync(gctx + (size_t)(row0 + r * 16) * d.hvp + c * 16, acc[i], d.hvp,
-                            wmma::mem_row_major);
+    for (int i = 0; i < kItems; ++i) {
+      const int item = warp + kWarps * i;
+      if (item >= items) break;
+      const int r = item / nct, c = item % nct;
+      wmma::store_matrix_sync(gctx + (size_t)(row0 + r * 16) * d.hvp + g0 + c * 16, acc[i],
+                              d.hvp, wmma::mem_row_major);
+    }
   }
 }
 
@@ -1011,11 +1227,146 @@ tat_attn_bwd_kernel(const float* __restrict__ qkv, const TIn* __restrict__ res,
   }
 }
 
+// g_a of the (qn, kn) tile = g_ctx . v^T into ga, g_ctx and v staged a d_v
+// chunk at a time (each element's chain run on through ga); with gv, also
+// g_v += a^T g_ctx for the chunk's keys in place in g_qkv (the block's own
+// entries, from 0 at the first query tile)
+__device__ __forceinline__ void chunk_g_a(const AttnTiles& a, float* gc, float* ga,
+                                          const float* __restrict__ qkv_r,
+                                          const float* __restrict__ gctx_r, float* gqkv_r, int h,
+                                          int q0, int qn, int k0, int kn, bool gv, const D16& d) {
+  const int CV = min(d.dv, kHeadChunk);
+  for (int c0 = 0; c0 < d.dv; c0 += CV) {
+    const int cw = min(CV, d.dv - c0);
+    __syncthreads();  // a is complete, or the last chunk is consumed
+    load_head(gc, a.lv, gctx_r + (size_t)q0 * d.hvp + h * d.dv + c0, d.hvp, qn, cw);
+    load_head(a.vc, a.lv, qkv_r + (size_t)k0 * d.Wp + 2 * d.hk + h * d.dv + c0, d.Wp, kn, cw);
+    __syncthreads();
+    for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+      const int q = e / kn, kk = e % kn;
+      float acc = c0 == 0 ? 0.f : ga[q * a.ls + kk];
+      for (int c = 0; c < cw; ++c) acc = fmaf(gc[q * a.lv + c], a.vc[kk * a.lv + c], acc);
+      ga[q * a.ls + kk] = acc;
+    }
+    if (!gv) continue;
+    for (int e = threadIdx.x; e < kn * cw; e += kAttnThreads) {
+      const int kk = e / cw, c = e % cw;
+      float* o = gqkv_r + (size_t)(k0 + kk) * d.Wp + 2 * d.hk + h * d.dv + c0 + c;
+      float acc = q0 == 0 ? 0.f : *o;
+      for (int q = 0; q < qn; ++q) acc = fmaf(a.s[q * a.ls + kk], gc[q * a.lv + c], acc);
+      *o = acc;
+    }
+  }
+}
+
+// Pass 5 on the chunked route: as tat_attn_bwd_kernel, a key chunk at a
+// time, with q, k, v and g_ctx staged a head chunk at a time and the
+// chunk's g_k and g_v sums kept in place in g_qkv (the block's own entries)
+template <typename TIn>
+__global__ void __launch_bounds__(kAttnThreads, attn_min_blocks(false))
+tat_attn_bwd_chunk_kernel(const float* __restrict__ qkv, const TIn* __restrict__ res,
+                          const float* __restrict__ gctx, const float* __restrict__ stat,
+                          const TIn* __restrict__ g_sc, void* dres, int out_f32,
+                          float* __restrict__ gqkv, D16 d) {
+  extern __shared__ __align__(16) float sm[];
+  const int r = blockIdx.x, h = blockIdx.y, T = d.T, nw = kAttnThreads / 32,
+            warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int CK = min(d.dk, kHeadChunk);
+  AttnTiles a;
+  a.lq = CK + 1;
+  a.lv = min(d.dv, kHeadChunk) + 1;
+  a.ls = d.KC + 1;
+  a.q = sm;
+  float* gc = a.q + d.QT * a.lq;  // (QT, lv) a chunk of the g_ctx rows
+  a.kc = gc + d.QT * a.lv;
+  a.vc = a.kc + d.KC * a.lq;
+  a.s = a.vc + d.KC * a.lv;       // (QT, ls): s, then a
+  float* ga = a.s + d.QT * a.ls;  // (QT, ls): g_a, then ds
+  float* dl = ga + d.QT * a.ls;   // delta of the chunk's columns
+  float* cm = dl + d.KC;
+  float* cl = cm + d.KC;
+  const float* qkv_r = qkv + (size_t)r * T * d.Wp;
+  const float* gctx_r = gctx + (size_t)r * T * d.hvp;
+  float* gqkv_r = gqkv + (size_t)r * T * d.Wp;
+  const size_t off = ((size_t)r * d.H + h) * T * T;
+  const TIn* res_rh = res + off;
+  const float* st = stat + ((size_t)r * d.H + h) * T * 2;
+  // a of the tile from the forward's column statistics
+  auto attention = [&](int q0, int qn, int k0, int kn) {
+    chunk_score_tile(a, qkv_r, h, res_rh, q0, qn, k0, kn, d);
+    for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+      const int q = e / kn, kk = e % kn;
+      a.s[q * a.ls + kk] = expf(a.s[q * a.ls + kk] - cm[kk]) / cl[kk];
+    }
+  };
+  for (int k0 = 0; k0 < T; k0 += d.KC) {
+    const int kn = min(d.KC, T - k0);
+    __syncthreads();  // the last chunk is consumed
+    for (int kk = threadIdx.x; kk < kn; kk += kAttnThreads) {
+      cm[kk] = st[2 * (k0 + kk)];
+      cl[kk] = st[2 * (k0 + kk) + 1];
+      dl[kk] = 0.f;
+    }
+    // a. delta and g_v over every query tile
+    for (int q0 = 0; q0 < T; q0 += d.QT) {
+      const int qn = min(d.QT, T - q0);
+      attention(q0, qn, k0, kn);
+      chunk_g_a(a, gc, ga, qkv_r, gctx_r, gqkv_r, h, q0, qn, k0, kn, true, d);
+      __syncthreads();
+      for (int kk = warp; kk < kn; kk += nw) {
+        float dot = 0.f;
+        for (int q = lane; q < qn; q += 32)
+          dot = fmaf(a.s[q * a.ls + kk], ga[q * a.ls + kk], dot);
+        dot = dense::warp_sum(dot);
+        if (lane == 0) dl[kk] += dot;
+      }
+    }
+    // b. ds -> dres, g_k of the chunk, g_q of each query tile
+    for (int q0 = 0; q0 < T; q0 += d.QT) {
+      const int qn = min(d.QT, T - q0);
+      attention(q0, qn, k0, kn);
+      chunk_g_a(a, gc, ga, qkv_r, gctx_r, gqkv_r, h, q0, qn, k0, kn, false, d);
+      for (int e = threadIdx.x; e < qn * kn; e += kAttnThreads) {
+        const int q = e / kn, kk = e % kn;
+        const size_t o = off + (size_t)(q0 + q) * T + k0 + kk;
+        const float v = a.s[q * a.ls + kk] * (ga[q * a.ls + kk] - dl[kk]) + to_float(g_sc[o]);
+        ga[q * a.ls + kk] = v;
+        store_out(dres, o, v, out_f32);
+      }
+      for (int c0 = 0; c0 < d.dk; c0 += CK) {
+        const int cw = min(CK, d.dk - c0);
+        __syncthreads();  // ds is complete, or the last chunk is consumed
+        load_head(a.q, a.lq, qkv_r + (size_t)q0 * d.Wp + h * d.dk + c0, d.Wp, qn, cw);
+        load_head(a.kc, a.lq, qkv_r + (size_t)k0 * d.Wp + d.hk + h * d.dk + c0, d.Wp, kn, cw);
+        __syncthreads();
+        for (int e = threadIdx.x; e < kn * cw; e += kAttnThreads) {
+          const int kk = e / cw, c = e % cw;
+          float* o = gqkv_r + (size_t)(k0 + kk) * d.Wp + d.hk + h * d.dk + c0 + c;
+          float acc = q0 == 0 ? 0.f : *o;
+          for (int q = 0; q < qn; ++q) acc = fmaf(ga[q * a.ls + kk], a.q[q * a.lq + c], acc);
+          *o = acc;
+        }
+        for (int e = threadIdx.x; e < qn * cw; e += kAttnThreads) {
+          const int q = e / cw, c = e % cw;
+          float acc = 0.f;
+          for (int kk = 0; kk < kn; ++kk) acc = fmaf(ga[q * a.ls + kk], a.kc[kk * a.lq + c], acc);
+          float* gq = gqkv_r + (size_t)(q0 + q) * d.Wp + h * d.dk + c0 + c;
+          *gq = k0 == 0 ? acc * d.inv_sqrt : *gq + acc * d.inv_sqrt;
+        }
+      }
+    }
+    __syncthreads();  // the chunk's g_k sums are complete
+    for (int e = threadIdx.x; e < kn * d.dk; e += kAttnThreads)
+      gqkv_r[(size_t)(k0 + e / d.dk) * d.Wp + d.hk + h * d.dk + e % d.dk] *= d.inv_sqrt;
+  }
+}
+
 // Pass 6: g_te = g_qkv . wqkv^T + g_ypre -> dx (rounded once); with the
 // embedding, LN0 backward: g_te chunk by chunk of N into dxf (the float32
 // copy of dx that dpos sums), the row sums and per-block partials of dg0,
-// db0 (2N a block), then dx
-template <int RT, typename TIn>
+// db0 (2N a block), then dx. Split (g_qkv too wide to hold whole), g_te
+// runs chunk by chunk of N in both cases, g_qkv's columns a chunk at a time.
+template <int RT, typename TIn, bool SPLIT>
 __global__ void __launch_bounds__(kThreads)
 tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
                const bf16* __restrict__ wqkv_lo, const float* __restrict__ gy,
@@ -1025,14 +1376,16 @@ tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
                float* __restrict__ part, D16 d) {
   constexpr int R = RT * 16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LA = d.Wp + 8, LZ = d.NC + 4, NT = d.Np / 16, N = d.N, row0 = blockIdx.x * R,
-            warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int WC = SPLIT ? w_chunk(d) : d.Wp, LA = WC + 8, LZ = d.NC + 4, NT = d.Np / 16,
+            N = d.N, row0 = blockIdx.x * R, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   bf16* ahi = reinterpret_cast<bf16*>(smem);
   bf16* alo = ahi + R * LA;
-  float* rest = reinterpret_cast<float*>(alo + R * LA);  // staging, or (embed) a g_te chunk
-  split_rows(gqkv, d.Wp, row0, d.M, R, d.Wp, d.W, ahi, alo, LA);
-  __syncthreads();
-  if (!d.embed) {
+  float* rest = reinterpret_cast<float*>(alo + R * LA);  // staging, or a g_te chunk
+  if (!SPLIT) {
+    split_rows(gqkv, d.Wp, row0, d.M, R, d.Wp, d.W, ahi, alo, LA);
+    __syncthreads();
+  }
+  if (!d.embed && !SPLIT) {
     float* sw = rest + warp * 256;
     for (int ct0 = 2 * warp; ct0 < NT; ct0 += 2 * kWarps) {
       FragC acc[RT][2];
@@ -1054,6 +1407,8 @@ tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
     }
     return;
   }
+  // g_te a column chunk of N at a time into zs: (split) WC columns of g_qkv
+  // at a time split here, each product continuing the sums in zs
   float* zs = rest;
   float* rs = zs + R * LZ;  // (R, 2): the sums of g*g0 and g*g0*x0_hat
   // x0_hat from the row statistics of pass 1
@@ -1065,23 +1420,40 @@ tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
     if (lane == 0) rs[2 * r] = rs[2 * r + 1] = 0.f;
   for (int c0 = 0; c0 < d.Np; c0 += d.NC) {
     const int cn = min(d.NC, d.Np - c0), cv = min(cn, N - c0), NTc = cn / 16;
-    __syncthreads();  // the last chunk is consumed
-    for (int ct0 = 2 * warp; ct0 < NTc; ct0 += 2 * kWarps) {
-      FragC acc[RT][2];
-      wide_mma<RT, true>(acc, ahi, alo, LA, d.Wp, wqkv + (size_t)c0 * d.Wp,
-                         wqkv_lo ? wqkv_lo + (size_t)c0 * d.Wp : nullptr, d.Wp, ct0, NTc);
+    const int nw = SPLIT ? (d.Wp + WC - 1) / WC : 1;
+    for (int wi = 0; wi < nw; ++wi) {
+      const int w0 = wi * WC, wn = SPLIT ? min(WC, d.Wp - w0) : d.Wp;
+      __syncthreads();  // the last chunk is consumed
+      if (SPLIT) {
+        split_rows(gqkv + w0, d.Wp, row0, d.M, R, wn, min(wn, d.W - w0), ahi, alo, LA);
+        __syncthreads();
+      }
+      const size_t wo0 = (size_t)c0 * d.Wp + w0;
+      for (int ct0 = 2 * warp; ct0 < NTc; ct0 += 2 * kWarps) {
+        FragC acc[RT][2];
+        wide_mma<RT, true>(acc, ahi, alo, LA, wn, wqkv + wo0, wqkv_lo ? wqkv_lo + wo0 : nullptr,
+                           d.Wp, ct0, NTc, SPLIT && w0 > 0 ? zs : nullptr, LZ);
 #pragma unroll
-      for (int r = 0; r < RT; ++r)
+        for (int r = 0; r < RT; ++r)
 #pragma unroll
-        for (int q = 0; q < 2; ++q)
-          if (ct0 + q < NTc)
-            wmma::store_matrix_sync(zs + r * 16 * LZ + (ct0 + q) * 16, acc[r][q], LZ,
-                                    wmma::mem_row_major);
+          for (int q = 0; q < 2; ++q)
+            if (ct0 + q < NTc)
+              wmma::store_matrix_sync(zs + r * 16 * LZ + (ct0 + q) * 16, acc[r][q], LZ,
+                                      wmma::mem_row_major);
+      }
     }
     __syncthreads();
     for (int e = threadIdx.x; e < R * cv; e += kThreads) {
       const int r = e / cv, j = e % cv, row = row0 + r;
       zs[r * LZ + j] = row < d.M ? zs[r * LZ + j] + gy[(size_t)row * d.Np + c0 + j] : 0.f;
+    }
+    if (!d.embed) {  // split g_te without the embedding: dx from the chunk
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * cv; e += kThreads) {
+        const int r = e / cv, j = e % cv, row = row0 + r;
+        if (row < d.M) store_out(dx, (size_t)row * N + c0 + j, zs[r * LZ + j], out_f32);
+      }
+      continue;
     }
     __syncthreads();
     for (int r = warp; r < R; r += kWarps) {
@@ -1116,6 +1488,7 @@ tat_gte_kernel(const float* __restrict__ gqkv, const bf16* __restrict__ wqkv,
       if (row < d.M) dxf[(size_t)row * N + c0 + j] = zs[r * LZ + j];
     }
   }
+  if (!d.embed) return;
   __syncthreads();  // g_te is in dxf
   for (int r = warp; r < R; r += kWarps) {
     const int row = row0 + r;
@@ -1229,19 +1602,32 @@ cudaError_t launch_rows(Kern k4, Kern k2, Kern k1, int pass, const D16& d, cudaS
   return cudaGetLastError();
 }
 
-#define TAT_ROWS(kernel, TIn) kernel<4, TIn>, kernel<2, TIn>, kernel<1, TIn>
-
-// an attention pass: `one` its instantiation for T within one query tile,
-// `tiled` for longer T
+// a split-capable pass: its whole-width (SPLIT false) and split
+// instantiations, each for 64, 32 and 16 rows
 template <typename Kern, typename... Args>
-cudaError_t launch_attn(Kern one, Kern tiled, int pass, const D16& d, cudaStream_t st,
-                        Args... args) {
+cudaError_t launch_rows(int split, Kern w4, Kern w2, Kern w1, Kern s4, Kern s2, Kern s1, int pass,
+                        const D16& d, cudaStream_t st, Args... args) {
+  return split ? launch_rows(s4, s2, s1, pass, d, st, args...)
+               : launch_rows(w4, w2, w1, pass, d, st, args...);
+}
+
+#define TAT_SPLIT_ROWS(kernel, TIn) TAT_ROWS(kernel, TIn, false), TAT_ROWS(kernel, TIn, true)
+#define TAT_ROWS(kernel, ...) \
+  kernel<4, __VA_ARGS__>, kernel<2, __VA_ARGS__>, kernel<1, __VA_ARGS__>
+
+// an attention pass on its route (make_d16): `one`, `stream` and `chunk`
+// its instantiations for the one-tile, streamed and chunked routes, each
+// launched with the pass's copy of d (attn_d16) after args
+template <typename Kern, typename... Args>
+cudaError_t launch_attn(Kern one, Kern stream, Kern chunk, int pass, const D16& d,
+                        cudaStream_t st, Args... args) {
   if (rows16(pass, d) == 0) return cudaErrorInvalidValue;
-  const Kern kernel = d.T <= kOneTile ? one : tiled;
+  const int route = pass == kAttnFwd ? d.route_fwd : d.route_bwd;
+  const Kern kernel = route == kRouteOne ? one : route == kRouteStream ? stream : chunk;
   const size_t smem = smem16(pass, 1, d);
   cudaError_t err = dense::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(d.BF, d.H), kAttnThreads, smem, st>>>(args...);
+  kernel<<<dim3(d.BF, d.H), kAttnThreads, smem, st>>>(args..., attn_d16(pass, d));
   return cudaGetLastError();
 }
 
@@ -1278,9 +1664,9 @@ cudaError_t prep_qkv_attn16(const TIn* x, const TIn* pos, const TIn* g0, const T
   err = launch_rows(TAT_ROWS(tat_qkv_kernel, TIn), kQkv, d, st, x, v, v + TN, v + TN + d.N,
                     w.w, w.wlo, ws + s.qkv, ws + s.te, ws + s.stats, d);
   if (err != cudaSuccess) return err;
-  return launch_attn(tat_attn_fwd_kernel<TIn, true>, tat_attn_fwd_kernel<TIn, false>, kAttnFwd, d,
-                     st, (const float*)(ws + s.qkv),
-                     res, scores, out_f32, ws + s.ctx, ws + s.stat, d);
+  return launch_attn(tat_attn_fwd_kernel<TIn, true>, tat_attn_fwd_kernel<TIn, false>,
+                     tat_attn_fwd_chunk_kernel<TIn>, kAttnFwd, d, st, (const float*)(ws + s.qkv),
+                     res, scores, out_f32, ws + s.ctx, ws + s.stat);
 }
 
 // forward (passes 1-3)
@@ -1296,7 +1682,8 @@ cudaError_t forward16(const TIn* x, const TIn* pos, const TIn* g0, const TIn* b0
   const Weights16 w = weights16(ws, s, d);
   const float* v = ws + s.vec;
   const size_t TN = (size_t)d.T * d.N;
-  return launch_rows(TAT_ROWS(tat_out_kernel, TIn), kOut, d, st, (const float*)(ws + s.ctx),
+  return launch_rows(d.split_out, TAT_SPLIT_ROWS(tat_out_kernel, TIn), kOut, d, st,
+                     (const float*)(ws + s.ctx),
                      w.wo, w.wolo, x, (const float*)(ws + s.te), v + TN + 2 * d.N,
                      v + TN + 3 * d.N, out, out_f32, ws + s.gy, d);
 }
@@ -1317,16 +1704,17 @@ cudaError_t backward16(const TIn* x, const TIn* pos, const TIn* g0, const TIn* b
       prep_qkv_attn16(x, pos, g0, b0, wqkv, wo, g1, b1, res, nullptr, out_f32, ws, s, d, st);
   if (err != cudaSuccess) return err;
   const Weights16 w = weights16(ws, s, d);
-  err = launch_rows(TAT_ROWS(tat_ln1_bwd_kernel, TIn), kLn1Bwd, d, st,
+  err = launch_rows(d.split_ln1, TAT_SPLIT_ROWS(tat_ln1_bwd_kernel, TIn), kLn1Bwd, d, st,
                     (const float*)(ws + s.ctx), w.wo, w.wolo, x, (const float*)(ws + s.te),
                     v + TN + 2 * N, g_out, ws + s.part1, ws + s.gy, ws + s.gctx, d);
   if (err != cudaSuccess) return err;
-  err = launch_attn(tat_attn_bwd_kernel<TIn, true>, tat_attn_bwd_kernel<TIn, false>, kAttnBwd, d,
-                    st, (const float*)(ws + s.qkv), res,
-                    (const float*)(ws + s.gctx), (const float*)(ws + s.stat), g_sc, dres,
-                    out_f32, ws + s.gqkv, d);
+  err = launch_attn(tat_attn_bwd_kernel<TIn, true>, tat_attn_bwd_kernel<TIn, false>,
+                    tat_attn_bwd_chunk_kernel<TIn>, kAttnBwd, d, st, (const float*)(ws + s.qkv),
+                    res, (const float*)(ws + s.gctx), (const float*)(ws + s.stat), g_sc, dres,
+                    out_f32, ws + s.gqkv);
   if (err != cudaSuccess) return err;
-  err = launch_rows(TAT_ROWS(tat_gte_kernel, TIn), kGte, d, st, (const float*)(ws + s.gqkv),
+  err = launch_rows(d.split_gte, TAT_SPLIT_ROWS(tat_gte_kernel, TIn), kGte, d, st,
+                    (const float*)(ws + s.gqkv),
                     w.w, w.wlo, (const float*)(ws + s.gy), x, v, (const float*)(ws + s.stats),
                     v + TN, dx, out_f32, ws + s.dxf, ws + s.part0, d);
   if (err != cudaSuccess) return err;

@@ -15,8 +15,11 @@ stay float32. The TPU kernel's Kronecker factor kron(Θ_k, I_T) is a device
 of its matrix unit; here Θ mixes per time step and dΘ (K, C, Co) comes back
 directly. The kernels (``csrc/block_spatial_fused.cu``; its header says what
 bounds them and how the work is split) stream the source and target axes in
-tiles, as flash attention streams its keys, so no block's shared memory
-grows with N, F·T or C·T (:func:`smem_bytes`); they never write the
+tiles, as flash attention streams its keys, and take C, Co, d and the
+SAt's d_k in chunks where a block cannot hold them whole, so no block's
+shared memory grows with N, F·T, C·T or those widths (:func:`plan`,
+:func:`smem_bytes`; :func:`limit_error` refuses only CUDA's grid and an
+int32 guard); they never write the
 (B, K, N, N) planes in the forward. The backward's weight gradients are
 summed over the batch in a fixed order, so two launches give the same bits.
 The backward reads the ReLU mask the forward kernel produced (``y > 0``,
@@ -107,28 +110,44 @@ def spatial_middle_plain(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, t
 # column pass, its ds column pass, dq and dxm row passes, and SD
 KERNELS = ("embed", "stats", "cols_fwd", "cols_bwd", "ds", "dq", "rows_bwd", "embed_bwd")
 _SRC, _TGT = 64, 64    # sources a column pass, targets a row pass stream a step
-_CHUNK_COLS = 8 * 3 * 16  # the most columns of a time chunk (8 warps x 3 tiles of 16)
+_CHUNK_COLS = 8 * 3 * 16  # the most columns of a chunk (8 warps x 3 tiles of 16)
 _FC = 128              # tat columns a float32 embedding block takes a step
+# d_k columns the score passes stage a time where d_k is chunked; d columns
+# a split SA or SD block holds at a time, 2·K·d_k columns a split SD stages
+_DKC, _DC, _HC = 128, 1024, 512
+_INT32 = 2 ** 31
 
 
 def _pad16(n):
     return (n + 15) // 16 * 16
 
 
+def channel_chunks(C):
+    """(Cc, nCc): C channels in the fewest chunks of at most 384 (C itself
+    up to 384), balanced (csrc ``channel_chunks``; Co likewise)."""
+    n = max(1, -(-C // _CHUNK_COLS))
+    return -(-C // n), n
+
+
 def time_chunks(T, C, Co):
     """(Tc, nTc): the time chunk of the column and row passes, Tc steps a
-    chunk whose C·Tc and Co·Tc columns fit 384 (at least one step), balanced
-    over nTc chunks. Θ mixes per time step, so the chunks are exact."""
-    most = min(T, max(1, _CHUNK_COLS // max(C, Co, 1)))
+    chunk whose Cc·Tc and Coc·Tc columns fit 384 (at least one step; Cc,
+    Coc the channel chunks), balanced over nTc chunks. Θ mixes per time
+    step, so the chunks are exact."""
+    w = max(channel_chunks(C)[0], channel_chunks(Co)[0], 1)
+    most = min(T, max(1, _CHUNK_COLS // w))
     n = -(-T // most)
     return -(-T // n), n
 
 
 def chunk_layout(N, C, T, Co):
-    """(Tc, nTc, C·Tc padded to 16, N padded to 64): the chunked copies of xm
-    and dagg, (B, nTc, Npad, CTcp) a k (csrc spatial_fused_chunks)."""
-    Tc, n = time_chunks(T, C, Co)
-    return Tc, n, _pad16(C * Tc), -(-N // _SRC) * _SRC
+    """(Tc, nCh, Cc·Tc padded to 16, N padded to 64): the chunked copies of
+    xm and dagg, (B, nCh, Npad, CTcp) a k, nCh = nTc·nCc chunks, chunk h
+    the time chunk h // nCc and the channel chunk h % nCc (csrc
+    spatial_fused_chunks). Up to C = 384 nCh = nTc."""
+    Tc, nT = time_chunks(T, C, Co)
+    Cc, nC = channel_chunks(C)
+    return Tc, nT * nC, _pad16(Cc * Tc), -(-N // _SRC) * _SRC
 
 
 def _embed_rows(FT, d):
@@ -141,52 +160,85 @@ def _embed_wmma_bytes(rows, FT, d):
     return 4 * (rows * (_pad16(d) + 4) + 8 * 256) + 2 * rows * (64 + 8)
 
 
-def smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype=torch.float32):
-    """Shared memory a block of each kernel requests, for the compute dtype
-    (the formulas of csrc/block_spatial_fused.cu, keyed as ``KERNELS``).
-    None grows with N, F·T or C·T: the tiles (16 rows or columns, 64
-    sources or targets a step), d_k, d and the time chunk's C·Tc and Co·Tc
-    columns (at most 384) set them. The embedding pass holds a (16, 128)
-    chunk of tat and x_tat (16, d) in float32; in bfloat16 x_tat (its rows
-    hold semx after the LayerNorm), a 64-column chunk of md(tat) and 8
-    warps' 16x16 staging (32 rows a block, or 16); the backward's column
-    pass also the aggregation of A's lo terms (16, C·Tc) beside agg."""
-    t, hk2 = _TILE, 2 * K * d_k
+def _bytes(N, FT, C, T, Co, d, K, dkc, d_k, bf16, sa_split, sd_split):
+    """Every kernel's bytes at a plan (csrc's *_smem formulas)."""
+    t, hk2 = 16, 2 * K * d_k
     Tc, _, CTcp, _ = chunk_layout(N, C, T, Co)
-    lq = (d_k + 3) // 4 * 4  # a staged query row; a key row has 4 floats more
+    CoTc = channel_chunks(Co)[0] * Tc
+    nCoc = channel_chunks(Co)[1]
+    lq = (dkc + 3) // 4 * 4  # a staged query row; a key row has 4 floats more
     lk = lq + 4
     a_tiles = 2 * 2 * _SRC * t  # A's hi and lo bf16 tiles
-    out = {"embed": 4 * t * (_FC + d),
-           "stats": 4 * (t * lk + _SRC * lq + 8 * t * 2),
-           "cols_fwd": 4 * (t * lk + _SRC * lq + 32 + t * CTcp + t * Co * Tc) + a_tiles,
-           "ds": 4 * (t * lk + _SRC * lq + t * d_k + 3 * t + 9 * _SRC * t),
-           "dq": 4 * ((_TGT + t) * d_k + t * _TGT),
-           "rows_bwd": 4 * (t * lq + _TGT * lk + 2 * _TGT + t * CTcp) + a_tiles,
-           "embed_bwd": 4 * t * (hk2 + d)}
-    out["cols_bwd"] = out["cols_fwd"]
-    if dtype == torch.bfloat16:
+    DC, HC = min(d, _DC), min(hk2, _HC)
+    out = {"stats": 4 * (t * lk + _SRC * lq + 8 * t * 2),
+           "cols_fwd": 4 * (t * lk + _SRC * lq + 32 + t * CTcp + t * CoTc) + a_tiles,
+           "ds": 4 * (t * lk + _SRC * lq + (0 if dkc < d_k else t * d_k) + 3 * t + 9 * _SRC * t),
+           "dq": 4 * ((_TGT + t) * dkc + t * _TGT),
+           "rows_bwd": 4 * (t * lq + _TGT * lk + 2 * _TGT + t * CTcp) + a_tiles}
+    out["cols_bwd"] = out["cols_fwd"] + 4 * t * CTcp * (bf16 + (nCoc > 1))
+    if sa_split:
+        out["embed"] = 4 * (t * (_FC + DC) + 2 * t)
+    elif bf16:
         out["embed"] = _embed_wmma_bytes(_embed_rows(FT, d), FT, d)
-        out["cols_bwd"] += 4 * t * CTcp  # agg of A's lo terms, δ's operand
-    return {k: out[k] for k in KERNELS}
+    else:
+        out["embed"] = 4 * t * (_FC + d)
+    out["embed_bwd"] = 4 * (t * (HC + DC) + 2 * t) if sd_split else 4 * t * (hk2 + d)
+    return out
 
 
-def limit_error(N, FT, C, T, Co, d, K, d_k, dtype):
+def plan(N, FT, C, T, Co, d, K, d_k, dtype=torch.float32):
+    """The kernels' plan for the compute dtype (csrc ``make_dims``): dkc, the
+    d_k columns the score passes stage at a time (d_k where every one of
+    them fits with all of it, else 128); ``sa_split`` and ``sd_split``, the
+    embedding passes taking d in chunks of 1024 (SD also 2·K·d_k in chunks
+    of 512) where a block cannot hold their whole rows; and ``bytes``, each
+    kernel's shared memory (keyed as ``KERNELS``)."""
+    bf16 = dtype == torch.bfloat16
+    scores = ("stats", "cols_fwd", "cols_bwd", "ds", "dq", "rows_bwd")
+    for dkc in (d_k, min(d_k, _DKC)):
+        need = _bytes(N, FT, C, T, Co, d, K, dkc, d_k, bf16, False, False)
+        if all(need[k] <= _SMEM_MAX for k in scores):
+            break
+    sa_split = need["embed"] > _SMEM_MAX
+    sd_split = need["embed_bwd"] > _SMEM_MAX
+    need = _bytes(N, FT, C, T, Co, d, K, dkc, d_k, bf16, sa_split, sd_split)
+    return dict(dkc=dkc, sa_split=sa_split, sd_split=sd_split,
+                bytes={k: need[k] for k in KERNELS})
+
+
+def smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype=torch.float32):
+    """Shared memory a block of each kernel requests, for the compute dtype
+    (the formulas of csrc/block_spatial_fused.cu at :func:`plan`'s choices,
+    keyed as ``KERNELS``). None grows with N, F·T or C·T, nor past their
+    chunks with C, Co, d or d_k: the tiles (16 rows or columns, 64 sources
+    or targets a step), the staged d_k columns, d (1024 where SA or SD is
+    split) and a chunk's Cc·Tc and Coc·Tc columns (at most 384) set them.
+    The embedding pass holds a (16, 128) chunk of tat and x_tat (16, d) in
+    float32; in bfloat16 x_tat (its rows hold semx after the LayerNorm), a
+    64-column chunk of md(tat) and 8 warps' 16x16 staging (32 rows a block,
+    or 16); split, (16, 1024) of x_tat in both dtypes. The backward's column
+    pass also holds the aggregation of A's lo terms (16, Cc·Tc) beside agg
+    in bf16, and dagg's sums (16, Cc·Tc) where Co is chunked."""
+    return plan(N, FT, C, T, Co, d, K, d_k, dtype)["bytes"]
+
+
+def limit_error(N, FT, C, T, Co, d, K, d_k, dtype, B=1):
     """Why the kernels cannot take the spatial middle's shape in ``dtype``
-    on the card, or None. N, F·T and C·T set no block's shared memory; what
-    is left: one time step's C or Co columns past the 384 a chunk holds, a
-    d or d_k too wide for the embedding and SD blocks (:func:`smem_bytes`),
-    and the grid's 65535 on K or the number of time chunks (the batch is
-    checked with the tensors)."""
-    if max(C, Co) > _CHUNK_COLS:
-        return (f"one time step's columns (C={C}, Co={Co}) exceed the {_CHUNK_COLS} a time "
-                f"chunk of the column passes holds")
-    for kernel, need in smem_bytes(N, FT, C, T, Co, d, K, d_k, dtype).items():
-        if need > _SMEM_MAX:
-            return (f"the {kernel} kernel needs {need} bytes of shared memory, more than the "
-                    f"{_SMEM_MAX} a block may have (d={d}, d_k={d_k}, C={C}, Co={Co}, "
-                    f"{dtype}); d and d_k set it")
-    if K > 65535 or time_chunks(T, C, Co)[1] > 65535:
-        return f"grid too large for K={K}, T={T}"
+    on the card, or None. Every width fits a block (C and Co in chunks of at
+    most 384 columns, d_k in chunks of 128, d in chunks of 1024: :func:`plan`),
+    so what is left is CUDA's grid (the batch, K and the column and row
+    passes' chunks at most 65,535) and an int32 guard: B·N times each row
+    width (F·T, C·T, Co·T, d, 2·K·d_k) and K·C·Co below 2^31. ``dtype``
+    changes the plan, never the answer."""
+    Tc, nT = time_chunks(T, C, Co)
+    nC, nCo = channel_chunks(C)[1], channel_chunks(Co)[1]
+    if max(B, K, nT * nC, nT * nCo) > 65535:
+        return (f"grid too large for B={B}, K={K}, T={T}, C={C}, Co={Co} (the batch, K and "
+                f"{nT * max(nC, nCo)} chunks at most 65535)")
+    width = max(FT, C * T, Co * T, d, 2 * K * d_k)
+    for what, n in (("B·N·(widest row)", B * N * width), ("K·C·Co", K * C * Co)):
+        if n >= _INT32:
+            return f"{what} = {n} is past the int32 indices of the block_spatial_fused kernels"
     return None
 
 
@@ -197,7 +249,7 @@ def _load():
         lib.spatial_fused_workspace_floats.restype = ctypes.c_size_t
         lib.spatial_fused_smem_bytes.argtypes = [ctypes.c_int] * 10
         lib.spatial_fused_smem_bytes.restype = ctypes.c_size_t
-        lib.spatial_fused_chunks.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.spatial_fused_chunks.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]  # 6 ints out
         lib.spatial_fused_chunks.restype = None
         tail = [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.spatial_fused_forward.argtypes = [ctypes.c_void_p] * 17 + tail
@@ -246,7 +298,7 @@ def _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, K, d_k,
             raise TypeError(f"relu_mask must be torch.bool (the forward's y > 0), got "
                             f"{relu_mask.dtype}")
         tensors += (("relu_mask", relu_mask),)
-    why = limit_error(N, FT, C, T, Co, d, K, d_k, torch.bfloat16 if bf16 else torch.float32)
+    why = limit_error(N, FT, C, T, Co, d, K, d_k, torch.bfloat16 if bf16 else torch.float32, B)
     if why is not None:
         raise ValueError(why)
     for name, t in tensors:
@@ -255,8 +307,6 @@ def _check(tat, xm, dmask, pw, pb, pos, gs, bs, wqk, bias, cheb, thetas, K, d_k,
         if t.device.type != "cuda" or t.device != tat.device:
             raise ValueError(f"the block_spatial_fused kernels run on CUDA tensors; "
                              f"{name} is on {t.device}")
-    if B > 65535:
-        raise ValueError(f"grid too large for B={B}")
     return B, N, FT, C, T, Co, d
 
 
@@ -280,19 +330,21 @@ def _bf16_operands(pw, wqk, bf16):
 
 
 def _xm_chunks(xm, C, T, Co, bf16):
-    """xm (B, N, C·T) laid out by time chunk for the tensor-core products:
-    (B, nTc, Npad, CTcp) bf16 with element [b, h, i, c·Tc + t] = xm[b, i,
-    c·T + h·Tc + t], zero past N, past the last step and past C·Tc
-    (:func:`chunk_layout`). bfloat16: xm is bf16-exact, one copy (lo None);
-    float32: hi = bf16(xm) and lo = bf16(xm − hi), csrc's wm::split."""
+    """xm (B, N, C·T) laid out by chunk for the tensor-core products: (B,
+    nCh, Npad, CTcp) bf16 with element [b, h·nCc + g, i, c·Tc + t] = xm[b,
+    i, (g·Cc + c)·T + h·Tc + t] (time chunk h, channel chunk g), zero past
+    N, past the last step or channel and past Cc·Tc (:func:`chunk_layout`).
+    bfloat16: xm is bf16-exact, one copy (lo None); float32: hi = bf16(xm)
+    and lo = bf16(xm − hi), csrc's wm::split."""
     B, N, _ = xm.shape
-    Tc, n, CTcp, Npad = chunk_layout(N, C, T, Co)
+    Tc, nCh, CTcp, Npad = chunk_layout(N, C, T, Co)
+    Cc, nC = channel_chunks(C)
+    n = nCh // nC
     x = xm.float().reshape(B, N, C, T)
-    if n * Tc > T:
-        x = torch.nn.functional.pad(x, (0, n * Tc - T))
-    x = x.reshape(B, N, C, n, Tc).permute(0, 3, 1, 2, 4).reshape(B, n, N, C * Tc)
-    full = torch.zeros((B, n, Npad, CTcp), dtype=torch.float32, device=xm.device)
-    full[:, :, :N, :C * Tc] = x
+    x = torch.nn.functional.pad(x, (0, n * Tc - T, 0, nC * Cc - C))
+    x = x.reshape(B, N, nC, Cc, n, Tc).permute(0, 4, 2, 1, 3, 5).reshape(B, nCh, N, Cc * Tc)
+    full = torch.zeros((B, nCh, Npad, CTcp), dtype=torch.float32, device=xm.device)
+    full[:, :, :N, :Cc * Tc] = x
     hi = full.bfloat16()
     return hi, None if bf16 else (full - hi.float()).bfloat16()
 

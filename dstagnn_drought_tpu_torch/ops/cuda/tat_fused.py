@@ -17,11 +17,15 @@ them) are one design for float32 and bfloat16: passes over the flat B·F·T
 rows, their products on the tensor cores with each float32 operand split
 into two bf16 terms (hi + lo; in float32 x and the weights too), so the
 function stays float32 in value; the N-wide passes take N in column chunks
-of at most 1024 and the attention a block per (row, head) on the CUDA
-cores, key columns in chunks of 32 and the queries in one tile up to T =
-160 (in tiles of 32 beyond), so no block's shared memory grows with N or
-T past those (:func:`passes` gives each pass's rows and
-shared memory).
+of at most 1024, and where a head width would not fit their block, their
+K operand (ctx, g_qkv) in chunks of 256 columns and g_ctx in column
+groups; the attention runs a block per (row, head) on the CUDA cores, key
+columns in chunks of 32 and the queries in one tile up to T = 160 where
+that fits, else in tiles of 32, with d_k and d_v staged 64 columns at a
+time where the whole head does not fit. So no block's shared memory grows
+with N, T or the head widths, and every shape JAX's kernel takes runs
+(:func:`plan` gives each pass's rows, route and shared memory;
+:func:`limit_error` refuses only CUDA's grid and an int32 guard).
 
 The backward's weight gradients are contracted over all rows by a second
 pass in a fixed order, so two launches give the same bits. :class:`TatFused`
@@ -119,6 +123,10 @@ _KC, _LC, _ITEMS, _WARPS = 64, 72, 9, 8  # chunk columns, chunk row stride, tile
 # attention key chunk; query tile where T is streamed, and the T up to which
 # one tile holds every query; the N-wide passes' most columns a chunk
 _KEYS, _QUERIES, _ONE_TILE, _MAX_CHUNK = 32, 32, 160, 1024
+# the chunked attention route's head columns a stage; a split pass's ctx and
+# g_qkv columns a stage, and its most g_ctx columns a group
+_HEAD_CHUNK, _HV_CHUNK, _W_CHUNK, _GROUP_MAX = 64, 256, 256, 512
+_INT32 = 2 ** 31
 
 
 def _pad16(n):
@@ -135,81 +143,138 @@ def column_chunk(N):
     return NC, -(-Np // NC)
 
 
-def _pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32=False):
+def _attn_bytes(name, route, T, d_k, d_v):
+    """Shared memory of an attention pass's block on a route (csrc
+    ``attn_smem``): a query tile (every query on ``one``, else 32), key and
+    value chunks of 32, score tiles, and the head's columns, whole or (on
+    ``chunk``) 64 of d_k and d_v at a time with ctx's, g_k's and g_v's sums
+    in device memory."""
+    QT = T if route == "one" else min(T, _QUERIES)
+    KC = min(T, _KEYS)
+    ls, chunk = KC + 1, route == "chunk"
+    lq = (min(d_k, _HEAD_CHUNK) if chunk else d_k) + 1
+    lv = (min(d_v, _HEAD_CHUNK) if chunk else d_v) + 1
+    if name == "attn_fwd":
+        return 4 * (QT * lq + KC * lq + KC * lv + QT * ls + (0 if chunk else QT * d_v) + 2 * KC)
+    return 4 * (QT * lq + QT * lv + KC * lq + KC * lv + 2 * QT * ls
+                + (0 if chunk else KC * d_k + KC * d_v) + 3 * KC)
+
+
+def attn_route(name, T, d_k, d_v):
+    """The route an attention pass takes (csrc ``make_d16``): ``one`` (every
+    query in one tile, up to T = 160), ``stream`` (query tiles of 32, the
+    whole head staged) or ``chunk`` (those tiles with d_k and d_v staged 64
+    columns at a time), the first whose block fits."""
+    if T <= _ONE_TILE and _attn_bytes(name, "one", T, d_k, d_v) <= _SMEM_MAX:
+        return "one"
+    if _attn_bytes(name, "stream", T, d_k, d_v) <= _SMEM_MAX:
+        return "stream"
+    return "chunk"
+
+
+def _ln1_group(hvp, rows, split):
+    """g_ctx columns the LN1-backward pass sums at a time: all of them, or
+    (split) a group whose tiles fit 9 a warp, at most 512."""
+    if not split:
+        return hvp
+    return min(hvp, _GROUP_MAX, 16 * (_WARPS * _ITEMS // (rows // 16)))
+
+
+def _pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32=False, split=False):
     """Shared memory of one pass's block at ``rows`` rows (the formulas of
     csrc/tat_fused.cu ``smem16``): the N-wide passes hold a column chunk of
-    their rows (:func:`column_chunk`), the attention passes a key chunk of
-    32 and a query tile (every query up to T = 160, else 32), so nothing
-    grows with N or T past those; the N-wide
-    passes also keep their rows' statistics and sums. In float32
-    (``f32``) the qkv pass stages wqkv's lo chunk beside its hi chunk over
-    half the columns and splits x, and the LN1-backward pass stages wo's lo
-    chunk too."""
+    their rows (:func:`column_chunk`) and their K operand (ctx in out and
+    ln1_bwd, g_qkv in gte) whole, or with ``split`` 256 columns of it at a
+    time (ln1_bwd then also takes g_ctx in column groups); the attention
+    passes take the route :func:`attn_route` picks, so nothing grows with N,
+    T or (split, chunked) the head widths; the N-wide passes also keep their
+    rows' statistics and sums. In float32 (``f32``) the qkv pass stages
+    wqkv's lo chunk beside its hi chunk over half the columns and splits x,
+    and the LN1-backward pass stages wo's lo chunk too."""
     R, Wp, hvp = rows, _pad16(H * (2 * d_k + d_v)), _pad16(H * d_v)
-    KC, LZ, lq, lv = min(T, _KEYS), column_chunk(N)[0] + 4, d_k + 1, d_v + 1
-    QT = T if T <= _ONE_TILE else _QUERIES
-    ls = KC + 1
+    LZ = column_chunk(N)[0] + 4
     if name == "qkv":
         gw = min(Wp, 16 * (_WARPS * _ITEMS // (R // 16)) // (1 + f32))
         return 2 * _KC * (gw + 8) * (1 + f32) + 2 * R * _LC * (1 + (embed or f32)) + 8 * R
-    if name == "attn_fwd":
-        return 4 * (QT * lq + KC * lq + KC * lv + QT * ls + QT * d_v + 2 * KC)
+    if name.startswith("attn"):
+        return _attn_bytes(name, attn_route(name, T, d_k, d_v), T, d_k, d_v)
+    hc = min(hvp, _HV_CHUNK) if split else hvp
     if name == "out":
-        return 4 * R * LZ + 4 * R * (hvp + 8) + 8 * R
+        return 4 * R * LZ + 4 * R * (hc + 8) + 8 * R
     if name == "ln1_bwd":
-        return (4 * R * LZ + max(4 * R * (hvp + 8), 4 * R * _LC + 2 * hvp * _LC * (1 + f32))
-                + 16 * R)
-    if name == "attn_bwd":
-        return 4 * (QT * lq + QT * lv + KC * lq + KC * lv + 2 * QT * ls + KC * d_k + KC * d_v
-                    + 3 * KC)
-    return 4 * R * (Wp + 8) + (4 * R * LZ + 8 * R if embed else 4 * _WARPS * 256)  # gte
+        gc = _ln1_group(hvp, R, split)
+        return 4 * R * LZ + max(4 * R * (hc + 8), 4 * R * _LC + 2 * gc * _LC * (1 + f32)) + 16 * R
+    wc = min(Wp, _W_CHUNK) if split else Wp  # gte
+    return 4 * R * (wc + 8) + (4 * R * LZ + 8 * R if embed or split else 4 * _WARPS * 256)
 
 
-def passes(T, N, H, d_k, d_v, embed=False, dtype=torch.bfloat16):
-    """{pass: (rows, bytes)} of the design for inputs of ``dtype`` (bfloat16
-    or float32): the most rows of B·F·T a block of each row-tiled pass takes
-    (64, 32 or 16, the most whose shared memory lets two blocks share an
-    SM, else the most that fit; the LN1-backward pass
-    also needs its g_ctx tiles, (rows/16) x ⌈H·d_v/16⌉, to fit 9 a warp) and
-    the bytes it requests there; 0 rows (and the bytes at 16) where none
-    fit, which only head widths far past any model's can reach. A launch
-    halves the rows, down to 16, while B·F·T would give fewer blocks than
-    an H100's 132 SMs; 16 rows fit wherever more do. The attention passes
-    take one (row, head) a block and give rows 1 (0 where they do not
-    fit)."""
+def _rows(name, T, N, H, d_k, d_v, embed, f32, split):
+    """The most rows (64, 32, 16) of a row-tiled pass whose block lets two
+    share an SM, else the most that fit, 0 where none does; unsplit, the
+    LN1-backward pass also needs its g_ctx tiles, (rows/16) x ⌈H·d_v/16⌉,
+    to fit 9 a warp."""
+    hv16 = _pad16(H * d_v) // 16
+    for cap in (_SMEM_TWO, _SMEM_MAX):
+        for rows in (64, 32, 16):
+            if name == "ln1_bwd" and not split and rows // 16 * hv16 > _WARPS * _ITEMS:
+                continue
+            if _pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32, split) <= cap:
+                return rows
+    return 0
+
+
+def plan(T, N, H, d_k, d_v, embed=False, dtype=torch.bfloat16):
+    """{pass: dict(rows, bytes, how)} of the design for inputs of ``dtype``
+    (bfloat16 or float32), csrc ``make_d16``'s choices: an attention pass's
+    route (``how`` = ``one``, ``stream`` or ``chunk``, :func:`attn_route`;
+    rows 1, a block per (row, head)); a row-tiled pass's rows (64, 32 or 16,
+    the most whose shared memory lets two blocks share an SM, else the most
+    that fit) with its K operand whole (``how`` = ``whole``) where some rows
+    fit, else ``split``. Every shape has a plan within a block's shared
+    memory; where a shape fits the old design, the plan is that design's. A
+    launch halves the rows, down to 16, while B·F·T would give fewer blocks
+    than an H100's 132 SMs; 16 rows fit wherever more do."""
     f32 = dtype != torch.bfloat16
     out = {}
-    hv16 = _pad16(H * d_v) // 16
     for name in PASSES:
         if name.startswith("attn"):
-            need = _pass_bytes(name, 1, T, N, H, d_k, d_v, embed, f32)
-            out[name] = (1 if need <= _SMEM_MAX else 0, need)
+            route = attn_route(name, T, d_k, d_v)
+            out[name] = dict(rows=1, bytes=_attn_bytes(name, route, T, d_k, d_v), how=route)
             continue
-        out[name] = (0, _pass_bytes(name, 16, T, N, H, d_k, d_v, embed, f32))
-        for cap in (_SMEM_TWO, _SMEM_MAX):
-            fits = [rows for rows in (64, 32, 16)
-                    if not (name == "ln1_bwd" and rows // 16 * hv16 > _WARPS * _ITEMS)
-                    and _pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32) <= cap]
-            if fits:
-                out[name] = (fits[0], _pass_bytes(name, fits[0], T, N, H, d_k, d_v, embed, f32))
-                break
+        split = False
+        rows = _rows(name, T, N, H, d_k, d_v, embed, f32, split)
+        if rows == 0:
+            split = True
+            rows = _rows(name, T, N, H, d_k, d_v, embed, f32, split)
+        out[name] = dict(rows=rows, how="split" if split else "whole",
+                         bytes=_pass_bytes(name, rows, T, N, H, d_k, d_v, embed, f32, split))
     return out
 
 
-def limit_error(T, N, H, d_k, d_v, dtype, backward, embed=False):
+def passes(T, N, H, d_k, d_v, embed=False, dtype=torch.bfloat16):
+    """{pass: (rows, bytes)} of :func:`plan`: the most rows of B·F·T a block
+    of each row-tiled pass takes and the bytes it requests there (the
+    attention passes take one (row, head) a block and give rows 1)."""
+    return {k: (v["rows"], v["bytes"]) for k, v in plan(T, N, H, d_k, d_v, embed, dtype).items()}
+
+
+def limit_error(T, N, H, d_k, d_v, dtype, backward, embed=False, BF=1):
     """Why the forward or backward passes cannot take a shape for inputs of
-    ``dtype`` on the card, or None: a block of every pass at its fewest rows
-    (:func:`passes`) within the shared memory a block may have. No N or T
-    is refused (the passes stream both); only heads far wider than any
-    model's could be."""
-    plan = passes(T, N, H, d_k, d_v, embed, dtype)
-    kind = "bf16" if dtype == torch.bfloat16 else "float32"
-    for name in (BWD_PASSES if backward else FWD_PASSES):
-        rows, need = plan[name]
-        if rows == 0:
-            return (f"the {kind} {name} pass needs {need} bytes of shared memory at its "
-                    f"fewest rows, more than the {_SMEM_MAX} a block may have (T={T}, "
-                    f"N={N}, H={H}, d_k={d_k}, d_v={d_v}, embed={embed})")
+    ``dtype`` on the card, or None. The passes take every N and T (column
+    chunks, query tiles and key chunks) and every head width (the chunked
+    attention route, the split N-wide passes), so what is left is CUDA's
+    grid (H ≤ 65,535 heads on the attention grid's y, ⌈N/64⌉ and ⌈H·d_v/64⌉
+    ≤ 65,535 on the weight gradients') and an int32 guard: B·F·T rows, T·N,
+    N·W and H·d_v·N each below 2^31, W = H·(2·d_k + d_v). ``backward``,
+    ``embed`` and ``dtype`` change the plan (:func:`plan`), never the
+    answer."""
+    W = H * (2 * d_k + d_v)
+    if H > 65535 or -(-N // 64) > 65535 or -(-(H * d_v) // 64) > 65535:
+        return (f"grid too large for the tat_fused passes: H={H}, N={N}, H·d_v={H * d_v} "
+                f"(at most 65535 heads and 65535 64-column tiles)")
+    for what, n in (("B·F·T", BF * T), ("T·N", T * N), ("N·W", N * W), ("H·d_v·N", H * d_v * N)):
+        if n >= _INT32:
+            return f"{what} = {n} is past the int32 indices of the tat_fused passes"
     return None
 
 
@@ -229,11 +294,10 @@ def _check(x, pos, g0, b0, wqkv, wo, g1, b1, res, n_heads, d_k, d_v, others=(), 
             raise ValueError(f"{name} must be {shapes[name]}, got {tuple(t.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the tat_fused passes take float32 or bfloat16; x is {x.dtype}")
-    why = limit_error(T, N, n_heads, d_k, d_v, x.dtype, backward=bool(others), embed=embed)
+    why = limit_error(T, N, n_heads, d_k, d_v, x.dtype, backward=bool(others), embed=embed,
+                      BF=BF)
     if why is not None:
         raise ValueError(why)
-    if BF * T >= 2 ** 31:
-        raise ValueError(f"too many rows for the passes: B·F·T = {BF * T}")
     tensors = (("x", x), *named.items(), *others)
     for name, t in tensors:
         if t.dtype != x.dtype:

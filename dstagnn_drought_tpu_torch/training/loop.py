@@ -18,10 +18,10 @@ as in JAX. ``fuse_tat``/``fuse_spatial`` take the steps
 through the fused kernels; ``fuse_gtu`` (``"auto"`` resolves off, as in JAX)
 takes the GTU tail through the fused GTU kernels and raises ``ValueError``
 on shapes JAX's gate rejects (:func:`resolve_fuse_gtu`); the fused TAt and
-GTU kernels take every shape JAX takes; on the card a ``fuse_spatial``
-shape the kernels cannot take, or a BELL block the bf16 forward kernel
-cannot take, raises ``ValueError`` when the Trainer is built
-(:func:`check_fused_shapes`).
+GTU kernels take every shape JAX takes; on the card a ``fuse_tat``,
+``fuse_spatial`` or BELL block past CUDA's grid or int32 limits (the
+kernels take every width JAX's do) raises ``ValueError`` when the Trainer
+is built (:func:`check_fused_shapes`).
 ``sparse``, ``fuse_tat`` and ``fuse_spatial`` on another family raise
 JAX's ``ValueError`` before any data or graph is read (:func:`check_family`);
 ``use_pallas`` is accepted there and changes nothing, as in JAX.
@@ -91,6 +91,7 @@ from dstagnn_drought_tpu_torch.ops.cuda import (
     bell_fused,
     block_spatial_fused,
     gtu_fused,
+    tat_fused,
 )
 from dstagnn_drought_tpu_torch.ops.graph import cheb_polynomials, scaled_laplacian
 from dstagnn_drought_tpu_torch.ops.sparse import ell_from_adjacency
@@ -182,35 +183,44 @@ def resolve_fuse_gtu(cfg: Config) -> bool:
 
 
 def check_fused_shapes(cfg: Config, device: torch.device, dtype: torch.dtype) -> None:
-    """On a CUDA ``device``, ``ValueError`` naming the knob and the bytes
-    where a block's shape is one the kernels of ``fuse_spatial`` cannot take
-    in the compute ``dtype``
+    """On a CUDA ``device``, ``ValueError`` naming the knob where a block's
+    shape is one the kernels its knobs launch cannot take in the compute
+    ``dtype``, so a config fails before its data is read, not at its first
+    step: the fused TAt of ``fuse_tat``
+    (:func:`~dstagnn_drought_tpu_torch.ops.cuda.tat_fused.limit_error`,
+    both directions, the model's call without the embedding, as JAX's
+    model makes it), the fused spatial middle of ``fuse_spatial`` on the
+    dense path, where the model runs it
     (:func:`~dstagnn_drought_tpu_torch.ops.cuda.block_spatial_fused.limit_error`),
-    or one the BELL kernels (forward, K1, K2) cannot take on the BELL kernel
-    path (``sparse_format = bell`` with ``use_pallas`` or ``mask_format =
-    tiles``; :func:`~dstagnn_drought_tpu_torch.ops.cuda.bell_fused.limit_error`,
-    the shape function their wrappers raise at launch: CUDA's grid limits
-    and an int32 guard), so a config fails before its data is read, not at
-    its first step. The
-    ``fuse_tat`` passes stream N and T and take every block JAX takes. The
-    fused spatial middle runs on the dense path only, as the model runs it;
-    the CPU (the plain versions) takes every shape."""
+    and the BELL kernels (forward, K1, K2) on the BELL kernel path
+    (``sparse_format = bell`` with ``use_pallas`` or ``mask_format =
+    tiles``; :func:`~dstagnn_drought_tpu_torch.ops.cuda.bell_fused.limit_error`).
+    Each is the shape function the kernel's wrapper raises at launch, at the
+    block's batch, so this admits a config exactly when every launch admits
+    its blocks; all three take every width JAX's kernels take and refuse
+    only CUDA's grid limits and an int32 index guard. The CPU (the plain
+    versions) takes every shape."""
     t = cfg.training
     bell_kernel = (t.sparse and t.sparse_format == "bell"
                    and (t.use_pallas or t.mask_format == "tiles"))
-    if torch.device(device).type != "cuda" or not ((t.fuse_spatial and not t.sparse)
-                                                   or bell_kernel):
+    spatial = t.fuse_spatial and not t.sparse
+    if torch.device(device).type != "cuda" or not (t.fuse_tat or spatial or bell_kernel):
         return
-    N, T = cfg.data.num_of_vertices, cfg.data.len_input
+    N, T, B = cfg.data.num_of_vertices, cfg.data.len_input, t.batch_size
     spec = ModelSpec.from_config(cfg)
     for i, (F, C) in enumerate(spec.block_specs):
         T_i = T if i == 0 else T // spec.time_strides
         why = []
-        if t.fuse_spatial and not t.sparse:
+        if t.fuse_tat:
+            why += [("fuse_tat=true", "unset fuse_tat",
+                     tat_fused.limit_error(T_i, N, spec.n_heads, spec.d_k, spec.d_v, dtype,
+                                           backward, embed=False, BF=B * F))
+                    for backward in (False, True)]
+        if spatial:
             why.append(("fuse_spatial=true", "unset fuse_spatial",
                         block_spatial_fused.limit_error(
                             N, F * T_i, C, T_i, spec.nb_chev_filter, spec.d_model, spec.K,
-                            spec.d_k, dtype)))
+                            spec.d_k, dtype, B)))
         if bell_kernel:
             why.append(("sparse_format=bell", "use the plain BELL path",
                         bell_fused.limit_error(t.batch_size, spec.K, C, spec.nb_chev_filter,

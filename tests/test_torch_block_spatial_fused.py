@@ -247,12 +247,15 @@ def test_kernels_refuse_what_they_do_not_take():
     for bf16 in (False, True):
         with pytest.raises(ValueError, match="CUDA"):
             bsf._check(*big, 3, 32, bf16)
-    # what it still refuses: one time step's channels past a chunk's 384
-    # columns, and a d too wide for the embedding block, named with the bytes
-    assert "exceed the 384" in bsf.limit_error(20, 12, 385, 12, 32, 64, 2, 8, torch.float32)
-    need = bsf.smem_bytes(20, 12, 1, 12, 8, 4096, 2, 8)["embed"]
-    assert f"embed kernel needs {need} bytes" in bsf.limit_error(20, 12, 1, 12, 8, 4096, 2, 8,
-                                                                 torch.float32)
+    # what it refused before the kernels took C, Co and d in chunks (one
+    # time step's channels past a chunk's 384 columns, a d too wide for the
+    # embedding block) it admits, within a block's bytes; what it still
+    # refuses is CUDA's grid, named
+    for shape in ((20, 12, 385, 12, 32, 64, 2, 8), (20, 12, 1, 12, 8, 4096, 2, 8)):
+        assert bsf.limit_error(*shape, torch.float32) is None
+        assert max(bsf.smem_bytes(*shape).values()) <= 227 * 1024
+    assert "grid too large" in bsf.limit_error(20, 12, 1, 12, 8, 64, 2, 8, torch.float32,
+                                               B=65536)
 
 
 def test_bf16_forward_gate_keeps_the_backward_cap():

@@ -320,8 +320,8 @@ def test_trainer_refuses_fuse_gtu_over_the_card_budget(toy_windowed, tmp_path, m
 # in query tiles and key chunks, and the spatial passes stream N in tiles,
 # so PEMS07's N = 883, GAMBIA's N = 2139, N = 3329 (past the bf16 TAt's
 # old cap), LargeST California's N = 8600 and T = 576 and 1024 are
-# admitted; what is refused: a d_model too wide for the spatial embedding
-# block.
+# admitted; so is a d_model of 4096, which the spatial embedding passes take
+# in chunks of d (the kernels refuse only CUDA's grid and int32 limits).
 PEMS08_WIDTH = dict(len_input=12, in_channels=1, nb_block=4, K=3, n_heads=3, d_k=32,
                     d_model=512, nb_chev_filter=32, nb_time_filter=32)
 GAMBIA_WIDTH = dict(len_input=144, in_channels=4, nb_block=2, K=2, n_heads=2, d_k=32,
@@ -341,7 +341,7 @@ FUSED_CARD_CASES = [
     ("fuse_spatial", "float32", 8192, PEMS08_WIDTH, False),
     ("fuse_spatial", "bfloat16", 8192, GAMBIA_WIDTH, False),
     ("fuse_tat", "bfloat16", 3329, PEMS08_WIDTH, False),
-    ("fuse_spatial", "float32", 170, dict(PEMS08_WIDTH, d_model=4096), True),
+    ("fuse_spatial", "float32", 170, dict(PEMS08_WIDTH, d_model=4096), False),
     ("fuse_tat", "float32", 8600, PEMS08_WIDTH, False),
     ("fuse_tat", "bfloat16", 8600, PEMS08_WIDTH, False),
     ("fuse_tat", "float32", 170, dict(PEMS08_WIDTH, len_input=576), False),
@@ -365,16 +365,16 @@ def _fused_config(toy_windowed, knob, dtype, N, widths):
 @pytest.mark.parametrize("knob, dtype, N, widths, refused", FUSED_CARD_CASES)
 def test_check_fused_shapes_checks_the_card_budget(toy_windowed, knob, dtype, N, widths,
                                                    refused):
-    """On a CUDA device check_fused_shapes refuses, naming the knob and the
-    bytes, a block shape the fused spatial kernels of the compute dtype
-    cannot take, and admits every fused TAt shape (the passes' own gate,
-    ``tat_fused.limit_error``, admits the block in both directions); on the
-    CPU (the plain versions) every shape passes."""
+    """On a CUDA device check_fused_shapes refuses, naming the knob, a block
+    shape the fused kernels of the compute dtype cannot take, and admits
+    every case here (the fused TAt's own gate, ``tat_fused.limit_error``,
+    admits the block in both directions); on the CPU (the plain versions)
+    every shape passes."""
     cfg = _fused_config(toy_windowed, knob, dtype, N, widths)
     dt = getattr(torch, dtype)
     loop.check_fused_shapes(cfg, torch.device("cpu"), dt)
     if refused:
-        with pytest.raises(ValueError, match=rf"{knob}=true.* \d+ bytes"):
+        with pytest.raises(ValueError, match=rf"{knob}=true"):
             loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
     else:
         loop.check_fused_shapes(cfg, torch.device("cuda"), dt)
@@ -426,8 +426,11 @@ def test_trainer_refuses_fused_shapes_over_the_card_budget(toy_windowed, tmp_pat
     runs as on a CUDA device (check_fused_shapes with a cuda device, the
     call the Trainer makes there) and admits them, and the model is built
     at those widths, here on the CPU (the kernels have no CPU mode). A
-    spatial shape still over its caps raises at construction, before any
-    data is read."""
+    block past CUDA's grid or int32 limits, the one thing the fused
+    kernels still refuse, raises at construction, before any data is read:
+    fuse_spatial at a batch past the grid's 65,535, and fuse_tat (which the
+    card check did not look at before) at a batch whose B·F·T rows pass
+    int32."""
     real, seen = loop.check_fused_shapes, []
     monkeypatch.setattr(loop, "check_fused_shapes", lambda cfg, device, dtype: seen.append(
         real(cfg, torch.device("cuda"), dtype)))
@@ -446,7 +449,12 @@ def test_trainer_refuses_fused_shapes_over_the_card_budget(toy_windowed, tmp_pat
     assert tr.spec.d_model == widths["d_model"] and tr._splits["train"][0].shape[1] == N
     cfg = _fused_config(toy_windowed, "fuse_spatial", "float32", 170,
                         dict(PEMS08_WIDTH, d_model=4096))
-    with pytest.raises(ValueError, match=r"fuse_spatial=true.* \d+ bytes"):
+    cfg.training.batch_size = 65536
+    with pytest.raises(ValueError, match=r"fuse_spatial=true.*grid too large"):
+        loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
+    cfg = _fused_config(toy_windowed, "fuse_tat", "float32", 170, PEMS08_WIDTH)
+    cfg.training.batch_size = 2 ** 31 // 12 + 1
+    with pytest.raises(ValueError, match=r"fuse_tat=true.*int32"):
         loop.Trainer(cfg, experiments_root=str(tmp_path), device="cpu")
 
 
