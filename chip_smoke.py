@@ -194,7 +194,8 @@ Phases; any failure exits non-zero:
      the warm-up and one val graph for every batch but the first; in bf16
      the two alternated over two rounds for wall ms/step, and a profiled
      epoch of each whose traces name the same csrc kernels the same number
-     of times; a resume that must capture again
+     of times (a pair that differs is profiled once more, and the second
+     pair must agree); a resume that must capture again
      (its losses against an eager trainer loading the same checkpoint); the
      eager losses with and without capturable Adam; what a capture says of
      a constant copied from the host (the pattern ops/ no longer has);
@@ -4164,7 +4165,8 @@ def graphed_pair(make, label: str, dtype: str, kernels, nb: int, measure: bool) 
     every batch but its warm-up. With ``measure``: the two alternated over
     two rounds (eager, graphed, graphed, eager) for wall ms/step, then a
     profiled epoch of each: device ms/step, the busy share, and the csrc
-    kernels' launches by name, equal in the two."""
+    kernels' launches by name, equal in the two (a pair that differs is
+    profiled once more and kept in ``trace_misreads``)."""
     fwd, bwd = kernels
     t0 = time.perf_counter()
     mk = lambda name: make(dtype, name)
@@ -4201,12 +4203,21 @@ def graphed_pair(make, label: str, dtype: str, kernels, nb: int, measure: bool) 
             t0 = time.perf_counter()
             (tr.train_epoch if graphed else tr.train_epoch_eager)(epoch)
             times[graphed].append((time.perf_counter() - t0) / tr.last_epoch_steps * 1e3)
-        prof = {g: profile_epoch(graph_tr if g else eager_tr, top=6, eager=not g, shapes=False)
-                for g in (False, True)}
-        names = prof[False]["csrc_kernels"]
+        # the profiler can lose a few device records (seen once on the H100:
+        # the three cheb_sat kernels of one replay, while the launch counters
+        # were exact): a pair of traces that disagree is read once more, and
+        # the second pair must agree
+        misread = []
+        for _ in range(2):
+            prof = {g: profile_epoch(graph_tr if g else eager_tr, top=6, eager=not g,
+                                     shapes=False) for g in (False, True)}
+            names = prof[False]["csrc_kernels"]
+            if prof[True]["csrc_kernels"] == names:
+                break
+            misread.append({"eager": names, "graphed": prof[True]["csrc_kernels"]})
         check(prof[True]["csrc_kernels"] == names,
               f"{label} {dtype}: the graphed epoch's trace {prof[True]['csrc_kernels']} != "
-              f"the eager epoch's {names}")
+              f"the eager epoch's {names} (and in the read before: {misread[:1]})")
         seen = {csrc_kernels()[n] for n in names}
         for k in fwd + bwd:
             check(COUNTER_SOURCE[k] in seen, f"{label} {dtype}: no {COUNTER_SOURCE[k]} kernel "
@@ -4216,7 +4227,7 @@ def graphed_pair(make, label: str, dtype: str, kernels, nb: int, measure: bool) 
                        k: prof[g][k] for k in ("device_ms_per_step", "busy_share", "wall_ms",
                                                "steps", "kernel_launches", "annotation_ms",
                                                "csrc_kernels", "top_kernels")} for g in prof},
-                   trace_sources=sorted(seen))
+                   trace_sources=sorted(seen), trace_misreads=misread)
     del eager_tr, graph_tr
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
