@@ -166,16 +166,21 @@ Phases; any failure exits non-zero:
      ranks share the card over gloo (NCCL refuses two ranks on one card;
      gloo takes every collective the port issues on CUDA tensors, nothing is
      staged through host memory) and train GAMBIA BELL tiles at full width,
-     one epoch of 3 steps and one eval each: graph = 4 with the overlapped
-     halo in float32 and in bf16, (data, graph) = (2, 2) without it in
-     float32; each held against the single-rank run of the same weights in
+     the node axis sharded over 'graph' after the TAt (each rank its Np/P
+     node rows), one eager epoch of 3 steps and one eval each: graph = 4
+     with the overlapped halo in float32, in bf16 and in bf16 with
+     fuse_gtu and fuse_tat, (data, graph) = (2, 2) without it in float32;
+     each held against the eager single-rank run of the same weights in
      this call (per-step losses, the first step's gradients gathered whole
-     at each tensor's own scale, final weights, val predictions; at (2, 2)
-     each rank's gradient before the data-group sum must fail that gate),
+     at each tensor's own scale, final weights, val predictions; each
+     rank's gradient before the graph- or data-group sum must fail that
+     gate), each rank's epoch activation peak (at most 0.6 of the single
+     run's at graph = 4 without the fused kernels, recorded with them),
      the parameters every rank holds whole bit-identical across ranks, each
      rank's F once per block of every forward pass and K1/K2 once per block
-     of every step (twice with the overlap's two sublists); rank 0's F, K1
-     and K2 against their plain versions at its shard shapes (both dtypes),
+     of every step (twice with the overlap's two sublists), the GTU and TAt
+     kernels so in the fused run; rank 0's F, K1 and K2 against their plain
+     versions at its shard shapes and the GTU at its node rows (both dtypes),
      a sublist's pad entries exactly 0 (F rows zero, K1's dΘ and K2's dx
      unchanged bit for bit without them) and the plan's inert tiles finite
      and zero; the targeted exchange's volume at graph = 2 and 4; ms/step
@@ -200,8 +205,8 @@ Phases; any failure exits non-zero:
      eager losses with and without capturable Adam; what a capture says of
      a constant copied from the host (the pattern ops/ no longer has);
   16. a JSON line with every kernel's numbers (with F, K1 and K2 on rank
-     0's tile list at graph = 4 as records of their own), then the device
-     line.
+     0's tile list at graph = 4, and the GTU on its node rows, as records
+     of their own), then the device line.
 
 Every single-rank Trainer of these phases trains and evaluates through
 CUDA graphs; the launch checks count a graph's captured launches once per
@@ -2201,65 +2206,72 @@ def gtu_split_check(ins, cots, fwd_err, outs_p, grads_p, grads_k) -> dict:
 
 def phase_gtu_kernels():
     """The GTU forward and backward against their plain version at every
-    GTU shape, float32 and bfloat16: the output and every gradient through
-    GtuCat, dW and db equal bit for bit over two backward launches, the
-    float32 split check at GTU_SPLIT_SHAPES, and CUDA-event times of the
-    kernels, the plain version and the conv-only library call."""
+    GTU shape, float32 and bfloat16 (:func:`gtu_rows`)."""
     check_gtu_smem()
     rows = []
-    diff = tuple(range(7))
     for seed, (label, B, N, C, T, dtypes) in enumerate(GTU_SHAPES):
         for dtype in dtypes:
-            tol, gtol = FUSED_TOL[dtype]
-            ins, cots = gtu_inputs(B, N, C, T, dtype, seed)
-            kern = lambda a: gtu_fused.GtuCat.apply(*a)
-            plain = lambda a: gtu_fused.gtu_cat_plain(*a)
-            outs_k, grads_k = _grad_run(kern, ins, cots, diff)
-            outs_p, grads_p = _grad_run(plain, ins, cots, diff)
-            torch.cuda.synchronize()
-            fwd_err, bwd_err = _compare(outs_k, outs_p), _compare(grads_k, grads_p)
-            per_grad = [rel_err(k, p)[1] for k, p in zip(grads_k, grads_p)]
-            split = (gtu_split_check(ins, cots, fwd_err[1], outs_p, grads_p, grads_k)
-                     if dtype == torch.float32 and label in GTU_SPLIT_SHAPES else None)
-            del outs_k, grads_k, outs_p, grads_p
-            wp, bp = gtu_fused.pack(*ins[1:], dtype)
-            x, g = ins[0], cots[0].contiguous()
-            first, again = (gtu_fused.gtu_backward_cuda(x, g, wp, bp) for _ in range(2))
-            torch.cuda.synchronize()
-            identical = all(torch.equal(a, b) for a, b in zip(first[1:], again[1:]))
-            del first, again
-            iters = 10 if x.numel() > 1e6 else 20
-            lib_fwd, lib_bwd = gtu_library(ins)
-            times = {"gtu_fwd": (cuda_ms(lambda: gtu_fused.gtu_forward_cuda(x, wp, bp), iters),
-                                 cuda_ms(lambda: plain(ins), max(2, iters // 2)), lib_fwd),
-                     "gtu_bwd": (cuda_ms(lambda: gtu_fused.gtu_backward_cuda(x, g, wp, bp),
-                                         iters),
-                                 _time_backward(plain, ins, cots, diff, max(2, iters // 2)),
-                                 lib_bwd)}
-            bounds = gtu_bounds(B, N, C, T, dtype)
-            for name, err, limit in (("gtu_fwd", fwd_err, tol), ("gtu_bwd", bwd_err, gtol)):
-                row = {"kernel": name, "shape": label, "dtype": str(dtype).split(".")[-1],
-                       "design": gtu_design(dtype),
-                       "B": B, "N": N, "C": C, "T": T, "max_abs_err": err[0],
-                       "rel_err": err[1], "tol": limit, "ok": err[1] <= limit}
-                if name == "gtu_bwd":
-                    row["dw_db_bit_identical"] = identical
-                    row["rel_err_each"] = per_grad
-                if split is not None:
-                    row["split_check"] = split
-                row["ms"], row["plain_ms"], row["library_ms"] = times[name]
-                row["library"] = "conv2d (6C, C, 1, 7), conv only, no gate"
-                row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
-                print("gtu", json.dumps(row), flush=True)
-                check(row["ok"], f"{name} vs plain at {label} {dtype}: "
-                                 f"{row['rel_err']:.3g} > {limit}")
-                check(row.get("dw_db_bit_identical", True),
-                      f"GTU dW/db differ between two launches at {label} {dtype}")
-                check(split is None or split["ok"],
-                      f"float32 GTU split check at {label}: {split}")
-                rows.append(row)
-            del ins, cots, wp, bp, x, g
+            rows += gtu_rows(label, B, N, C, T, dtype, seed)
             torch.cuda.empty_cache()
+    return rows
+
+
+def gtu_rows(label: str, B: int, N: int, C: int, T: int, dtype, seed: int) -> list:
+    """The GTU forward and backward against their plain version at one
+    shape: the output and every gradient through GtuCat, dW and db equal
+    bit for bit over two backward launches, the float32 split check at
+    GTU_SPLIT_SHAPES, and CUDA-event times of the kernels, the plain version
+    and the conv-only library call; its two rows (forward, backward)."""
+    rows = []
+    diff = tuple(range(7))
+    tol, gtol = FUSED_TOL[dtype]
+    ins, cots = gtu_inputs(B, N, C, T, dtype, seed)
+    kern = lambda a: gtu_fused.GtuCat.apply(*a)
+    plain = lambda a: gtu_fused.gtu_cat_plain(*a)
+    outs_k, grads_k = _grad_run(kern, ins, cots, diff)
+    outs_p, grads_p = _grad_run(plain, ins, cots, diff)
+    torch.cuda.synchronize()
+    fwd_err, bwd_err = _compare(outs_k, outs_p), _compare(grads_k, grads_p)
+    per_grad = [rel_err(k, p)[1] for k, p in zip(grads_k, grads_p)]
+    split = (gtu_split_check(ins, cots, fwd_err[1], outs_p, grads_p, grads_k)
+             if dtype == torch.float32 and label in GTU_SPLIT_SHAPES else None)
+    del outs_k, grads_k, outs_p, grads_p
+    wp, bp = gtu_fused.pack(*ins[1:], dtype)
+    x, g = ins[0], cots[0].contiguous()
+    first, again = (gtu_fused.gtu_backward_cuda(x, g, wp, bp) for _ in range(2))
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for a, b in zip(first[1:], again[1:]))
+    del first, again
+    iters = 10 if x.numel() > 1e6 else 20
+    lib_fwd, lib_bwd = gtu_library(ins)
+    times = {"gtu_fwd": (cuda_ms(lambda: gtu_fused.gtu_forward_cuda(x, wp, bp), iters),
+                         cuda_ms(lambda: plain(ins), max(2, iters // 2)), lib_fwd),
+             "gtu_bwd": (cuda_ms(lambda: gtu_fused.gtu_backward_cuda(x, g, wp, bp),
+                                 iters),
+                         _time_backward(plain, ins, cots, diff, max(2, iters // 2)),
+                         lib_bwd)}
+    bounds = gtu_bounds(B, N, C, T, dtype)
+    for name, err, limit in (("gtu_fwd", fwd_err, tol), ("gtu_bwd", bwd_err, gtol)):
+        row = {"kernel": name, "shape": label, "dtype": str(dtype).split(".")[-1],
+               "design": gtu_design(dtype),
+               "B": B, "N": N, "C": C, "T": T, "max_abs_err": err[0],
+               "rel_err": err[1], "tol": limit, "ok": err[1] <= limit}
+        if name == "gtu_bwd":
+            row["dw_db_bit_identical"] = identical
+            row["rel_err_each"] = per_grad
+        if split is not None:
+            row["split_check"] = split
+        row["ms"], row["plain_ms"], row["library_ms"] = times[name]
+        row["library"] = "conv2d (6C, C, 1, 7), conv only, no gate"
+        row["bound_ms"], row["bound_by"], row["flops"] = bounds[name]
+        print("gtu", json.dumps(row), flush=True)
+        check(row["ok"], f"{name} vs plain at {label} {dtype}: "
+                         f"{row['rel_err']:.3g} > {limit}")
+        check(row.get("dw_db_bit_identical", True),
+              f"GTU dW/db differ between two launches at {label} {dtype}")
+        check(split is None or split["ok"],
+              f"float32 GTU split check at {label}: {split}")
+        rows.append(row)
     return rows
 
 
@@ -4343,15 +4355,21 @@ def capturable_moves(make, label: str) -> dict:
 # ---------------------------------------------------------------------------
 
 MULTI_P = 4
-# (label, compute dtype, data_axis, graph_axis, halo_overlap, dropout): the
-# GAMBIA BELL-tiles configuration with P ranks on the card; dropout stays on
-# where every rank is data rank 0 (whose draws are the single-rank run's)
-# and is off at data_axis = 2, whose data rank 1 draws its own
+# (label, compute dtype, data_axis, graph_axis, halo_overlap, dropout,
+# fuse_gtu and fuse_tat): the GAMBIA BELL-tiles configuration with P ranks
+# on the card; dropout stays on where every rank is data rank 0 (whose
+# draws are the single-rank run's) and is off at data_axis = 2, whose data
+# rank 1 draws its own
 MULTI_RUNS = (
-    ("graph4_overlap_f32", "float32", 1, 4, True, 0.05),
-    ("graph4_overlap_bf16", "bfloat16", 1, 4, True, 0.05),
-    ("data2_graph2_f32", "float32", 2, 2, False, 0.0),
+    ("graph4_overlap_f32", "float32", 1, 4, True, 0.05, False),
+    ("graph4_overlap_bf16", "bfloat16", 1, 4, True, 0.05, False),
+    ("data2_graph2_f32", "float32", 2, 2, False, 0.0, False),
+    ("graph4_overlap_bf16_fused", "bfloat16", 1, 4, True, 0.05, True),
 )
+# a rank's epoch activation peak at most this share of the eager single-rank
+# run's in these runs (the node axis sharded after the TAt)
+MULTI_PEAK_SHARE = 0.6
+MULTI_PEAK_GATED = ("graph4_overlap_f32", "graph4_overlap_bf16")
 # (per-step losses rtol; the first step's gradients as max |Δ| over max
 # |single| of each tensor, and the final weights and val predictions as
 # max |Δ| over max(1, max |single|)) against the single-rank run of the
@@ -4363,12 +4381,13 @@ MULTI_SHAPE = (4, 2, 32, GAMBIA_T_IN, 32, 32)
 
 
 def multi_trainer(root: Path, label: str, dtype: str, data_axis: int, graph_axis: int,
-                  overlap: bool, dropout: float) -> Trainer:
+                  overlap: bool, dropout: float, fused: bool) -> Trainer:
     ds, A, pa = gambia_data()
     cfg = gambia_config(A.shape[0], **BELL_TILES)
     t = cfg.training
     t.compute_dtype, t.dropout, t.halo_overlap = dtype, dropout, overlap
     t.data_axis, t.graph_axis = data_axis, graph_axis
+    t.fuse_gtu = t.fuse_tat = fused
     return Trainer(cfg, dataset=ds, adj_merge=A, adj_pa=pa,
                    experiments_root=str(root / label), device="cuda")
 
@@ -4376,10 +4395,11 @@ def multi_trainer(root: Path, label: str, dtype: str, data_axis: int, graph_axis
 def first_step_grads(tr):
     """Hook the trainer's first step. Returns (grads, own, undo): ``grads``
     fills with every parameter's gradient as Adam takes it (after the
-    data-group sum), ``own`` on a data mesh with this rank's gradient
-    before that sum (the control a missing sum would leave); ``undo``
-    removes the hooks. train_step looks ``comm.reduce_gradients`` up at
-    each call."""
+    graph- and data-group sums), ``own``, where the step sums over a group,
+    with this rank's gradient before the first sum (the control a missing
+    sum would leave: at graph = 4 the node-row parameters' graph sum);
+    ``undo`` removes the hooks. train_step looks ``comm.reduce_gradients``
+    up at each call."""
     from dstagnn_drought_tpu_torch.parallel import comm
 
     names = {id(p): n for n, p in tr.model.named_parameters()}
@@ -4409,23 +4429,30 @@ def first_step_grads(tr):
 
 
 def multi_run(root: Path, run: tuple, single: bool = False) -> tuple[dict, dict]:
-    """One timed epoch of 3 steps and one eval of ``run`` (on one process
-    when ``single``), the launch counts set to 0 just before and read just
-    after each. Returns (record, whole tensors): the per-step losses, val
-    predictions, a digest of every parameter this rank holds whole, the
-    launches and the first epoch's ms/step; the final weights, the first
-    step's gradients (gathered whole from the slices) and, on a data mesh,
-    the rank's own first-step gradients before the data-group sum, float32
-    numpy."""
+    """One timed eager epoch of 3 steps (``train_epoch_eager``, also on one
+    process when ``single``) and one eval of ``run``, the launch counts set
+    to 0 just before and read just after each. Returns (record, whole
+    tensors): the per-step losses, val predictions, a digest of every
+    parameter this rank holds whole, the launches, the epoch's ms/step and
+    its activation peak (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``, less what was allocated before the epoch:
+    this process's, so a rank's own); the final weights, the first step's
+    gradients (gathered whole from the slices) and, where the step sums
+    over a group, the rank's own first-step gradients before the first sum,
+    float32 numpy."""
     label, dtype = run[:2]
     tr = (multi_trainer(root, f"{label}_single", dtype, 1, 1, *run[4:]) if single
           else multi_trainer(root, *run))
     grads, own, undo = first_step_grads(tr)
     reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr.train_epoch(0)
+    tr.train_epoch_eager(0)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / tr.last_epoch_steps * 1e3
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
     train_launches, losses = launches_run(read_launches(), [tr]), list(tr.last_losses)
     undo()
     if tr.layout is not None:  # collective over the data row
@@ -4443,7 +4470,8 @@ def multi_run(root: Path, run: tuple, single: bool = False) -> tuple[dict, dict]
                if tr.layout is None or not tr.layout.sliced(n)}
     record = {"losses": losses, "val_loss": val_loss, "pred": pred, "digests": digests,
               "train_launches": train_launches, "eval_launches": eval_launches,
-              "ms_per_step": ms, "steps": tr.last_epoch_steps,
+              "ms_per_step": ms, "steps": tr.last_epoch_steps, "peak_mib": peak_mib,
+              "node_rows": None if tr.rows is None else tr.rows.nloc,
               "backend": None if tr.mesh is None else tr.mesh.backend}
     return record, state
 
@@ -4580,8 +4608,9 @@ def multi_plans() -> dict:
 
 def multi_rank(rank: int, root: str) -> dict:
     """One rank of phase_multi: every run of MULTI_RUNS on its mesh; rank 0
-    then checks and times F, K1 and K2 at its shard shapes and the pad
-    entries, alone on the card."""
+    then checks and times F, K1 and K2 at its shard shapes, the GTU forward
+    and backward on its node rows (B·Np/P rows of the fused tail) and the
+    pad entries, alone on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -4599,6 +4628,11 @@ def multi_rank(rank: int, root: str) -> dict:
         pattern = torch.from_numpy(plan.pattern_act[0][:n]).cuda()
         out["kernels"] = [row for dtype in (torch.float32, torch.bfloat16)
                           for row in shard_kernels(tiles, pattern, dtype, seed=10)[0]]
+        B, _, C = MULTI_SHAPE[:3]
+        out["gtu_kernels"] = [row for dtype in (torch.float32, torch.bfloat16)
+                              for row in gtu_rows(f"rank0_graph{MULTI_P}", B,
+                                                  plan.padded_nodes // MULTI_P, C, GAMBIA_T_IN,
+                                                  dtype, seed=20)]
         out["pad"] = check_pad_entries(plan, bp.build_overlap_lists(plan))
     return out
 
@@ -4675,8 +4709,8 @@ def multi_compare(label: str, dtype: str, got: dict, state: dict, ref: dict,
     control = None
     if state["own"]:
         control, c_worst = grad_err(state["own"], ref_state["grads"], plan)
-        check(control > wtol, f"{label}: the control (no data-group sum) passes the gradient "
-              f"gate: {control} of scale ({c_worst}) <= {wtol}")
+        check(control > wtol, f"{label}: the control (no graph- or data-group sum) passes the "
+              f"gradient gate: {control} of scale ({c_worst}) <= {wtol}")
     weight_err = 0.0
     for k, v in ref_state["weights"].items():
         if k.endswith("cheb_conv_SAt.mask_tiles"):
@@ -4687,26 +4721,31 @@ def multi_compare(label: str, dtype: str, got: dict, state: dict, ref: dict,
     pred_err = rel_err(torch.from_numpy(got["pred"]), torch.from_numpy(ref["pred"]))[1]
     check(pred_err <= wtol, f"{label}: val predictions {pred_err} of scale (limit {wtol})")
     return {"loss_rel_err": loss_err, "grad_err_of_scale": g_err, "grad_worst": g_worst,
-            "grad_err_vs_split_sum": vs_split, "control_no_data_sum_err_of_scale": control,
+            "grad_err_vs_split_sum": vs_split, "control_no_sum_err_of_scale": control,
             "weight_err_of_scale": weight_err, "pred_err_of_scale": pred_err}
 
 
-def multi_launches(label: str, overlap: bool, records: list) -> dict:
+def multi_launches(label: str, overlap: bool, fused: bool, records: list) -> dict:
     """Each rank's F once per block of every forward pass and K1/K2 once per
     block of every train step, twice each with the overlapped sublists;
-    cheb_sat and the GTU kernels never."""
+    with ``fused`` the GTU and the TAt kernels once per block of every
+    forward and of every train step's backward, else never; cheb_sat
+    never. Returns rank 0's launches of the run by kernel."""
     per = 2 if overlap else 1
+    on = 1 if fused else 0
     for rank, rec in enumerate(records):
         tr, ev = rec["train_launches"], rec["eval_launches"]
         want = {"bell_fused": (3 * 2 * per, 1 * 2 * per), "bell_k1": (3 * 2 * per, 0),
-                "bell_k2": (3 * 2 * per, 0), "cheb_sat": (0, 0), "gtu_fwd": (0, 0),
-                "gtu_bwd": (0, 0)}
+                "bell_k2": (3 * 2 * per, 0), "cheb_sat": (0, 0),
+                "gtu_fwd": (3 * 2 * on, 1 * 2 * on), "gtu_bwd": (3 * 2 * on, 0),
+                "tat_fwd": (3 * 2 * on, 1 * 2 * on), "tat_bwd": (3 * 2 * on, 0)}
         for k, (t_want, e_want) in want.items():
             check(tr[k] == t_want and ev[k] == e_want,
                   f"{label} rank {rank}: {k} launches {tr[k]} (train), {ev[k]} (eval); "
                   f"expected {t_want}, {e_want}")
     return {k: records[0]["train_launches"][k] + records[0]["eval_launches"][k]
-            for k in ("bell_fused", "bell_k1", "bell_k2")}
+            for k in ("bell_fused", "bell_k1", "bell_k2", "gtu_fwd", "gtu_bwd", "tat_fwd",
+                      "tat_bwd")}
 
 
 def multi_cli_nccl(root: Path) -> dict:
@@ -4749,17 +4788,21 @@ def multi_cli_nccl(root: Path) -> dict:
 def phase_multi(root: Path, card: str) -> dict:
     """Multi-device training (the parallel package) with P = 4 ranks sharing
     the one H100 over gloo (the backend rule: NCCL refuses two ranks on one
-    card): GAMBIA BELL tiles at graph = 4 with the overlapped halo in
-    float32 and in bf16, and at (data, graph) = (2, 2) without it, each
-    held against the single-rank run of the same weights in this call
-    (per-step losses, the first step's whole gradients, final weights and
-    val predictions; at (2, 2) a control, each rank's gradient before the
-    data-group sum, must fail the gradient gate), with the
-    parameters every rank holds whole bit-identical across ranks and each
-    rank's launches counted; rank 0's F, K1 and K2 against their plain
-    versions at its shard shapes, the pad entries exactly 0; each plan's
-    exchange volume; then the CLI with --distributed at world size 1 under
-    NCCL. ms/step are of P ranks sharing one card: no multi-GPU figure."""
+    card): GAMBIA BELL tiles, its node axis sharded over 'graph' after the
+    TAt, at graph = 4 with the overlapped halo in float32 and in bf16 (and
+    in bf16 with fuse_gtu and fuse_tat), and at (data, graph) = (2, 2)
+    without it, each held against the eager single-rank run of the same
+    weights in this call (per-step losses, the first step's whole
+    gradients, final weights and val predictions; a control, each rank's
+    gradient before the graph- or data-group sum, must fail the gradient
+    gate), with the parameters every rank holds whole bit-identical across
+    ranks and each rank's launches counted; each rank's epoch activation
+    peak against the single run's (at most MULTI_PEAK_SHARE of it in
+    MULTI_PEAK_GATED); rank 0's F, K1 and K2 against their plain versions at
+    its shard shapes, and the GTU at its node rows, the pad entries exactly
+    0; each plan's exchange volume; then the CLI with --distributed at
+    world size 1 under NCCL. ms/step are of P ranks sharing one card: no
+    multi-GPU figure."""
     from dstagnn_drought_tpu_torch.parallel import bell_partition as bp
     from dstagnn_drought_tpu_torch.parallel import comm
     from dstagnn_drought_tpu_torch.parallel.launch import spawn
@@ -4780,7 +4823,7 @@ def phase_multi(root: Path, card: str) -> dict:
                                "gloo_on_cuda_tensors": out["gloo_cuda_collectives"],
                                "staged_through_host": []}), flush=True)
     kernel_launches = {}
-    for label, dtype, D, G, overlap, dropout in MULTI_RUNS:
+    for label, dtype, D, G, overlap, dropout, fused in MULTI_RUNS:
         records = [r[label] for r in ranks]
         for name, digest in records[0]["digests"].items():
             check(all(r["digests"][name] == digest for r in records),
@@ -4789,17 +4832,28 @@ def phase_multi(root: Path, card: str) -> dict:
         floor, split = floors.get(label, (None, None))
         cmp = multi_compare(label, dtype, records[0], records[0]["state"], ref, ref_state,
                             plans[G], split)
-        launches = multi_launches(label, overlap, records)
+        launches = multi_launches(label, overlap, fused, records)
         if label == "graph4_overlap_bf16":
-            kernel_launches = launches
+            kernel_launches.update({k: launches[k] for k in ("bell_fused", "bell_k1", "bell_k2")})
+        if fused:
+            kernel_launches.update({k: launches[k] for k in ("gtu_fwd", "gtu_bwd")})
+        peaks = [r["peak_mib"] for r in records]
+        share = max(peaks) / ref["peak_mib"]
+        check(label not in MULTI_PEAK_GATED or share <= MULTI_PEAK_SHARE,
+              f"{label}: a rank's activation peak {max(peaks):.1f} MiB is {share:.3f} of the "
+              f"single-rank run's {ref['peak_mib']:.1f} (limit {MULTI_PEAK_SHARE})")
+        check(all(r["node_rows"] == plans[G].padded_nodes // G for r in records),
+              f"{label}: ranks hold {[r['node_rows'] for r in records]} node rows")
         out["runs"][label] = {
             "dtype": dtype, "data_axis": D, "graph_axis": G, "halo_overlap": overlap,
-            "dropout": dropout, "backend": records[0]["backend"], **cmp,
+            "dropout": dropout, "fuse_gtu_tat": fused, "backend": records[0]["backend"], **cmp,
             "data_split_floor": floor,
             "losses": records[0]["losses"], "single_losses": ref["losses"],
             "launches_rank0": launches, "replicated_bit_identical": True,
             "ms_per_step_rank0": records[0]["ms_per_step"],
             "ms_per_step_single": ref["ms_per_step"],
+            "peak_mib_ranks": peaks, "peak_mib_single": ref["peak_mib"],
+            "peak_share_of_single": share, "node_rows": records[0]["node_rows"],
             "ms_label": f"{MULTI_P} ranks sharing one H100 ({card})"}
         print("multi", json.dumps({"run": label, **out["runs"][label]}), flush=True)
     for G, plan in plans.items():
@@ -4809,9 +4863,10 @@ def phase_multi(root: Path, card: str) -> dict:
                                      "local_tiles_A": list(ov.n_localA)}
         print("multi", json.dumps({"exchange": G, **out[f"exchange_graph{G}"]}), flush=True)
     out["kernels"] = ranks[0]["kernels"]
+    out["gtu_kernels"] = ranks[0]["gtu_kernels"]
     out["kernel_launches"] = kernel_launches
     out["pad"] = ranks[0]["pad"]
-    for row in out["kernels"]:
+    for row in out["kernels"] + out["gtu_kernels"]:
         print("multi", json.dumps({"shard_kernel": row}), flush=True)
     print("multi", json.dumps({"pad": out["pad"]}), flush=True)
     out["cli_distributed"] = multi_cli_nccl(root)
@@ -4910,6 +4965,21 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
             "f32_ms": next(r for r in mine if r["dtype"] == "float32")["ms"],
             "shape": f"GAMBIA block 2 on rank 0 of graph = 4, bf16: B=4 H=2 BS=128 "
                      f"A={main['A']} R={main['R']} C=32 T=144 Co=32",
+        })
+    # the GTU on rank 0's node rows at graph = 4 (phase_multi's fused run)
+    for name in ("gtu_fwd", "gtu_bwd"):
+        mine = [r for r in multi["gtu_kernels"] if r["kernel"] == name]
+        main = next(r for r in mine if r["dtype"] == "bfloat16")
+        src, site = KERNEL_SITES[name]
+        out.append({
+            "name": f"{name}@rank0_graph4", "kernel_of": name, "route": "cuda", "source": src,
+            "replaces": site, "launches": multi["kernel_launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "library": main["library"], "design": main["design"],
+            "f32_ms": next(r for r in mine if r["dtype"] == "float32")["ms"],
+            "shape": f"rank 0's node rows at graph = 4, bf16: B=4 N={main['N']} C=32 T=144",
         })
     for name in ("tat_fwd", "tat_bwd", "spatial_fwd", "spatial_bwd"):
         mine = [r for r in fused_rows if r["kernel"] == name]

@@ -32,8 +32,14 @@ where their shape gate holds, whatever ``pinned_out`` is. On a mesh the
 forward's ``halo`` (JAX's: ``(mesh, plan)`` or ``(mesh, plan, overlap
 lists)``) takes the spatial conv through the node-partitioned convs of
 ``parallel/`` (the block's ``mask_tiles`` then this rank's (A_loc, K, BS,
-BS) slice), and ``tp`` (``parallel.sharding.TensorParallel``) the TAt
-through this rank's weight slices.
+BS) slice), ``rows`` (``parallel.sharding.NodeRows``) keeps the node axis
+sharded over 'graph': x, every block output and the prediction hold this
+rank's rows; the TAt gathers its input whole, and it and the pre-conv run
+whole on every rank (the pre-conv's contraction over T·F rounds otherwise
+at another row count); everything after them (EmbedS, the conv, the GTU
+tail, the residual, the LayerNorm, the head) runs on the rank's rows; ``tp``
+(``parallel.sharding.TensorParallel``) takes the TAt through this rank's
+weight slices.
 bfloat16 compute casts parameters and inputs at the top of the
 forward, as the JAX ``apply`` does; no autocast.
 """
@@ -219,13 +225,12 @@ class STBlock(nn.Module):
                                        stride=(1, spec.time_strides))
         self.ln = nn.LayerNorm(C)
 
-    def forward(self, x, res_att, *, adj_pa, cheb_polys, deterministic,
-                generator, use_pallas, bell=None, bell_tiles=None, ell=None,
-                fuse_tat=False, fuse_spatial=False, fuse_gtu=False, halo=None, tp=None):
+    def temporal(self, x, res_att, *, fuse_tat=False, tp=None):
+        """EmbedT and the TAt on the whole node axis: x (B, N, F, T) →
+        (TATout (B, F, T, N), the scores for the next block)."""
         spec = self.spec
-        dt = x.dtype
-        c = lambda t: t.to(dt)  # parameters in the compute dtype
-        B, N, F, T = x.shape
+        c = lambda t: t.to(x.dtype)
+        F = x.shape[2]
         if F == 1:
             # EmbedT: (B,F,T,N) + the positional table, LayerNorm over N
             te = x.permute(0, 2, 3, 1) + c(self.EmbedT.pos_embed.weight)[None, None]
@@ -248,13 +253,40 @@ class STBlock(nn.Module):
         else:
             W = ((lambda name: getattr(self.TAt, name).weight) if tp is None
                  else functools.partial(tp.whole, self.TAt))
-        TATout, re_at = tat(
+        return tat(
             TEmx, res_att,
             wq=c(W("W_Q")).t(), wk=c(W("W_K")).t(), wv=c(W("W_V")).t(), wo=c(W("fc")).t(),
             ln_scale=c(self.TAt.layer_norm.weight),
             ln_bias=c(self.TAt.layer_norm.bias),
             n_heads=spec.n_heads, d_k=spec.d_k, d_v=spec.d_v, **extra,
         )
+
+    def pre_project(self, TATout):
+        """The pre-conv, a per-node linear map over (T, F): TATout (B, F, T,
+        N) → (B, N, d_model)."""
+        c = lambda t: t.to(TATout.dtype)
+        return (torch.einsum("bftn,dtf->bnd", TATout, c(self.pre_conv.weight)[:, :, 0, :])
+                + c(self.pre_conv.bias))
+
+    def forward(self, x, res_att, *, adj_pa, cheb_polys, deterministic,
+                generator, use_pallas, bell=None, bell_tiles=None, ell=None,
+                fuse_tat=False, fuse_spatial=False, fuse_gtu=False, halo=None, tp=None,
+                rows=None):
+        spec = self.spec
+        dt = x.dtype
+        c = lambda t: t.to(dt)  # parameters in the compute dtype
+        F = x.shape[2]
+        drop = functools.partial(_dropout, rate=spec.dropout_rate, generator=generator,
+                                 deterministic=deterministic, rows=rows)
+        if rows is None:
+            TATout, re_at = self.temporal(x, res_att, fuse_tat=fuse_tat, tp=tp)
+            pos_s = c(self.EmbedS.pos_embed.weight)
+        else:
+            # node rows: the pad rows inert (they carry bias terms after a
+            # block); the TAt on x gathered whole
+            x = rows.zero_pads(x, 1)
+            TATout, re_at = self.temporal(rows.whole(x, 1), res_att, fuse_tat=fuse_tat, tp=tp)
+            pos_s = rows.cut(c(self.EmbedS.pos_embed.weight), 0)
 
         wq, wk = c(self.SAt.W_Q.weight).t(), c(self.SAt.W_K.weight).t()
         thetas = torch.stack([c(t) for t in self.cheb_conv_SAt.Theta])
@@ -274,13 +306,18 @@ class STBlock(nn.Module):
                 d_k=spec.d_k, dropout_rate=0.0 if deterministic else spec.dropout_rate,
                 generator=generator)
         else:
-            # pre_conv: a per-node linear map over (T, F)
-            x_tat = (torch.einsum("bftn,dtf->bnd", TATout,
-                                  c(self.pre_conv.weight)[:, :, 0, :])
-                     + c(self.pre_conv.bias))
-            se = x_tat + c(self.EmbedS.pos_embed.weight)[None]
-            SEmx = layer_norm(se, c(self.EmbedS.norm.weight), c(self.EmbedS.norm.bias))
-            SEmx = dropout(SEmx, spec.dropout_rate, generator, deterministic)
+            x_tat = self.pre_project(TATout)
+            if rows is not None:
+                # whole on every rank, then this rank's rows (backward:
+                # all-gather): its contraction over T·F rounds otherwise at
+                # another row count, and the rounding flips ReLU kinks of
+                # the conv downstream against one device
+                x_tat = rows.take(x_tat, 1)
+            se = x_tat + pos_s[None]
+            SEmx = drop(layer_norm(se, c(self.EmbedS.norm.weight), c(self.EmbedS.norm.bias)),
+                        dim=1)
+            if rows is not None:
+                SEmx = rows.zero_pads(SEmx, 1)  # inert sources of the conv
 
         # pinned_out: the spatial output comes out of a kernel (JAX:
         # a pallas_call), which switches the tail below
@@ -386,7 +423,7 @@ class STBlock(nn.Module):
                 )  # (B, N, 3T-12, C)
                 time_conv = (torch.einsum("bnmc,tm->bnct", cat, c(fcmy.weight))
                              + c(fcmy.bias))  # (B, N, C, T)
-            time_conv = dropout(time_conv, spec.dropout_rate, generator, deterministic)
+            time_conv = drop(time_conv, dim=1)
             if F == 1:
                 time_conv_output = torch.relu(time_conv)
             else:
@@ -411,7 +448,7 @@ class STBlock(nn.Module):
             dim=-1,
         )  # (B, C, N, 3T-12)
         time_conv = time_conv @ c(fcmy.weight).t() + c(fcmy.bias)
-        time_conv = dropout(time_conv, spec.dropout_rate, generator, deterministic)
+        time_conv = drop(time_conv, dim=2)
         if F == 1:
             time_conv_output = torch.relu(time_conv)
         else:
@@ -428,6 +465,19 @@ class STBlock(nn.Module):
         y = torch.relu(x_residual + time_conv_output)  # (B, C, N, T)
         y = layer_norm(y.permute(0, 3, 2, 1), c(self.ln.weight), c(self.ln.bias))
         return y.permute(0, 2, 3, 1), re_at, STAt  # (B, N, C, T)
+
+
+def _dropout(t, *, rate, generator, deterministic, rows, dim):
+    """:func:`~dstagnn_drought_tpu_torch.ops.nn.dropout` of ``t``, whose node
+    axis is ``dim``; on a rank's node rows (``rows``) the mask is drawn at
+    the whole node count, as one device draws it, and the rank's rows kept,
+    so the graph ranks keep the single-device bits."""
+    if rows is None:
+        return dropout(t, rate, generator, deterministic)
+    shape = list(t.shape)
+    shape[dim] = rows.n
+    return dropout(t, rate, generator, deterministic,
+                   whole=(shape, functools.partial(rows.cut, dim=dim)))
 
 
 class RematReplay:
@@ -531,9 +581,11 @@ class DSTAGNN(nn.Module):
                 use_pallas: bool = False, bell=None, bell_tiles=None, ell=None,
                 fuse_tat: bool = False, fuse_spatial: bool = False,
                 fuse_gtu: bool = False, remat: bool | RematReplay = False,
-                return_attention: bool = False, halo=None, tp=None):
+                return_attention: bool = False, halo=None, tp=None, rows=None):
         if bell is not None and ell is not None:
             raise ValueError("give the BELL graph (bell) or the ELL graph (ell), not both")
+        if rows is not None and halo is None:
+            raise ValueError("node rows (rows) need a node-partitioned conv (halo)")
         x = x.to(compute_dtype)
         adj_pa = adj_pa.to(compute_dtype)
         cheb_polys = cheb_polys.to(compute_dtype)
@@ -542,7 +594,7 @@ class DSTAGNN(nn.Module):
         kw = dict(adj_pa=adj_pa, cheb_polys=cheb_polys, deterministic=deterministic,
                   use_pallas=use_pallas, bell=bell, bell_tiles=bell_tiles, ell=ell,
                   fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
-                  halo=halo, tp=tp)
+                  halo=halo, tp=tp, rows=rows)
         outs, maps = [], []
         for i, block in enumerate(self.BlockList):
             if remat and torch.is_grad_enabled():

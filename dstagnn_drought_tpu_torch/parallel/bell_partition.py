@@ -36,9 +36,12 @@ gradient; a tile whose scores are all masked to −1e30 gives a uniform
 softmax, not a NaN.
 
 The plans are numpy, built on the host, equal to JAX's field by field.
-Activations enter and leave whole (:mod:`~dstagnn_drought_tpu_torch.parallel.comm`):
-each conv takes the rank's node rows on entry and all-gathers its output;
-Θ, wq and wk are whole and their gradients are summed over the data row.
+Each conv takes and returns this rank's node rows (JAX's ``out_specs =
+node_sh``): emb, x and the output hold rows ``[g·Np/P, (g+1)·Np/P)`` of the
+node axis padded to the plan's grid, the padding rows of emb and x zero.
+The constant planes enter whole and the conv takes the rank's part of them
+(:mod:`~dstagnn_drought_tpu_torch.parallel.comm`); Θ, wq and wk are whole
+and their gradients are summed over the group.
 The port's kernels have one c-major feature layout, so JAX's t/c choice of
 the tile path (``layout``, ``_tiles_use_c_layout``) has no counterpart: both
 of JAX's layouts compute the function the port computes.
@@ -674,13 +677,13 @@ def partitioned_bell_conv(
     n_heads: int,
     d_k: int,
 ) -> torch.Tensor:
-    """Dense-mask partitioned BELL conv: emb (B, N, d_model) and x (B, N,
-    C, T) whole → (B, N, Co, T) whole. The node axes are padded to the
-    plan's block grid, the edge pattern is folded into the bias plane
-    (−1e30 off-pattern), the rank takes its node rows and its target
-    columns of the (K, Np, Np) planes, all-gathers every rank's q and x
-    rows, and runs F on its tiles (global source ids)."""
-    B, N, C, T = x.shape
+    """Dense-mask partitioned BELL conv: emb (B, Np/P, d_model) and x (B,
+    Np/P, C, T), this rank's rows → (B, Np/P, Co, T), its rows. The planes
+    are padded to the plan's block grid, the edge pattern is folded into
+    the bias plane (−1e30 off-pattern), the rank takes its target columns
+    of the (K, Np, Np) planes, all-gathers every rank's q and x rows, and
+    runs F on its tiles (global source ids)."""
+    B, nloc, C, T = x.shape
     Co = thetas.shape[-1]
     BS, P_, g, grp = plan.block_size, plan.num_shards, mesh.g, mesh.graph_group
     NJ_loc = plan.tiles_per_shard
@@ -703,13 +706,12 @@ def partitioned_bell_conv(
     bias_p = pad_nodes(pad_nodes((adj_pa[None] * masks).to(f32), 1, Np), 2, Np)
     biasm_p = torch.where(adj_bool[None], bias_p, torch.tensor(_NEG, dtype=f32, device=dev))
     cheb_p = pad_nodes(pad_nodes(cheb_polys.to(f32), 1, Np), 2, Np)
-    emb_l = comm.enter(pad_nodes(emb, 1, Np), 1, grp)
-    x_l = comm.enter(pad_nodes(x.reshape(B, N, C * T), 1, Np), 1, grp)
+    x_l = x.reshape(B, nloc, C * T)
     biasm_l = comm.enter(biasm_p, 2, grp)    # this rank's target columns
     cheb_l = comm.enter(cheb_p, 2, grp)
     thetas, wq, wk = (comm.copy_to(w, grp) for w in (thetas, wq, wk))
-    q_loc = (emb_l @ wq).to(f32)
-    k_loc = (emb_l @ wk).to(f32)
+    q_loc = (emb @ wq).to(f32)
+    k_loc = (emb @ wk).to(f32)
     q_all = comm.gather_rows(q_loc, 1, grp)
     x_all = comm.gather_rows(x_l, 1, grp)
     K = biasm_l.shape[0]
@@ -720,7 +722,7 @@ def partitioned_bell_conv(
 
     out = _tiles_out(tiles, q_all, k_loc, tiles_of(biasm_l), tiles_of(cheb_l), x_all, thetas,
                      pattern_t, BS, n_heads, d_k)
-    return comm.leave(out, 1, grp)[:, :N].reshape(B, N, Co, T).to(x.dtype)
+    return out.reshape(B, nloc, Co, T).to(x.dtype)
 
 
 def _exchange_send(v: torch.Tensor, send_idx: torch.Tensor, NJ_loc: int, BS: int):
@@ -755,15 +757,12 @@ def _bias_tiles(pattern_act, pa_tiles, mask):
                        torch.tensor(_NEG, dtype=torch.float32, device=mask.device))
 
 
-def _enter_tiles(mesh, emb, x, wq, wk, thetas, plan):
-    """The rank's rows of emb and x (node axes padded to the plan's grid),
-    its q and k (float32) and the whole weights inside the region."""
-    B, N, C, T = x.shape
-    Np, grp = plan.padded_nodes, mesh.graph_group
-    emb_l = comm.enter(pad_nodes(emb, 1, Np), 1, grp)
-    x_l = comm.enter(pad_nodes(x.reshape(B, N, C * T), 1, Np), 1, grp)
-    thetas, wq, wk = (comm.copy_to(w, grp) for w in (thetas, wq, wk))
-    return x_l, (emb_l @ wq).float(), (emb_l @ wk).float(), thetas
+def _tile_operands(mesh, emb, x, wq, wk, thetas):
+    """The rank's x rows as the kernels read them (B, Np/P, C·T), its q
+    and k (float32) and the whole weights inside the region."""
+    B, nloc, C, T = x.shape
+    thetas, wq, wk = (comm.copy_to(w, mesh.graph_group) for w in (thetas, wq, wk))
+    return x.reshape(B, nloc, C * T), (emb @ wq).float(), (emb @ wk).float(), thetas
 
 
 def partitioned_bell_tiles_conv(
@@ -780,12 +779,13 @@ def partitioned_bell_tiles_conv(
     d_k: int,
 ) -> torch.Tensor:
     """Tile-resident partitioned BELL conv with the targeted block halo:
-    emb (B, N, d_model), x (B, N, C, T) whole, ``mask_tiles`` this rank's
-    (A_loc, K, BS, BS) slice → (B, N, Co, T) whole. The rank projects its
-    own rows to q and k, one all-to-all per operand fills its compact
-    source table, and F runs on its tile list (K1 and K2 in the backward,
-    whose dx routes back through the reverse all-to-all)."""
-    B, N, C, T = x.shape
+    emb (B, Np/P, d_model) and x (B, Np/P, C, T), this rank's rows, and
+    ``mask_tiles`` its (A_loc, K, BS, BS) slice → (B, Np/P, Co, T), its
+    rows. The rank projects its rows to q and k, one all-to-all per operand
+    fills its compact source table, and F runs on its tile list (K1 and K2
+    in the backward, whose dx routes back through the reverse
+    all-to-all)."""
+    B, nloc, C, T = x.shape
     Co = thetas.shape[-1]
     BS, g, grp = plan.block_size, mesh.g, mesh.graph_group
     NJ_loc, dev = plan.tiles_per_shard, x.device
@@ -798,7 +798,7 @@ def partitioned_bell_tiles_conv(
 
     tiles, cs = _cached((id(plan), g, str(dev)), plan, build)
     n = tiles.num_active
-    x_l, q_loc, k_loc, thetas = _enter_tiles(mesh, emb, x, wq, wk, thetas, plan)
+    x_l, q_loc, k_loc, thetas = _tile_operands(mesh, emb, x, wq, wk, thetas)
     x_c = _compact(comm.exchange(_exchange_send(x_l, cs["send_idx"], NJ_loc, BS), grp),
                    cs["recv_map"])
     q_c = _compact(comm.exchange(_exchange_send(q_loc, cs["send_idx"], NJ_loc, BS), grp),
@@ -807,7 +807,7 @@ def partitioned_bell_tiles_conv(
     bias_t = _bias_tiles(pattern, cs["pa_tiles"][:n], mask_tiles[:n])
     out = _tiles_out(tiles, q_c, k_loc, bias_t, cs["cheb_tiles"][:n], x_c, thetas, pattern,
                      BS, n_heads, d_k)
-    return comm.leave(out, 1, grp)[:, :N].reshape(B, N, Co, T).to(x.dtype)
+    return out.reshape(B, nloc, Co, T).to(x.dtype)
 
 
 def partitioned_bell_tiles_conv_overlap(
@@ -828,7 +828,7 @@ def partitioned_bell_tiles_conv_overlap(
     all-to-alls are started, F runs sublist A on the rank's own rows, then
     the exchange is waited on and F runs sublist B on the compact table.
     Two F launches a forward, two K1 and two K2 a backward."""
-    B, N, C, T = x.shape
+    B, nloc, C, T = x.shape
     Co = thetas.shape[-1]
     BS, g, grp = plan.block_size, mesh.g, mesh.graph_group
     NJ_loc, dev = plan.tiles_per_shard, x.device
@@ -848,7 +848,7 @@ def partitioned_bell_tiles_conv_overlap(
                 torch.from_numpy(ov.inv_pos[g].astype(np.int64)).to(dev))
 
     cs, sideA, sideB, inv_pos = _cached((id(plan), id(ov), g, str(dev)), (plan, ov), build)
-    x_l, q_loc, k_loc, thetas = _enter_tiles(mesh, emb, x, wq, wk, thetas, plan)
+    x_l, q_loc, k_loc, thetas = _tile_operands(mesh, emb, x, wq, wk, thetas)
     send_x = _exchange_send(x_l, cs["send_idx"], NJ_loc, BS)
     send_q = _exchange_send(q_loc, cs["send_idx"], NJ_loc, BS)
     pend_x, pend_q = comm.exchange_start(send_x, grp), comm.exchange_start(send_q, grp)
@@ -870,5 +870,4 @@ def partitioned_bell_tiles_conv_overlap(
     out_b = run(sideB, q_c, x_c)
     Mo = out_a.shape[-1]
     cat = torch.cat([out_a.reshape(B, -1, BS, Mo), out_b.reshape(B, -1, BS, Mo)], dim=1)
-    out = cat[:, inv_pos].reshape(B, NJ_loc * BS, Mo)
-    return comm.leave(out, 1, grp)[:, :N].reshape(B, N, Co, T).to(x.dtype)
+    return cat[:, inv_pos].reshape(B, nloc, Co, T).to(x.dtype)

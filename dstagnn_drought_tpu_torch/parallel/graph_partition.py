@@ -16,10 +16,12 @@ strategies, as in JAX:
   ahead into the ``[own rows ‖ halo slots]`` buffer, so the aggregation is
   local code.
 
-Both take whole activations (the same on every rank of the data row), take
-the rank's rows on entry and all-gather the output on the way out
-(:mod:`~dstagnn_drought_tpu_torch.parallel.comm`), so the exchange in
-between moves what JAX's ``shard_map`` moves. There is no kernel on this
+The targeted-halo conv, the one the Trainer wires, takes and returns this
+rank's node rows (JAX's ``out_specs = node_sharded2``); the full-gather
+conv takes whole activations (the same on every rank of the data row),
+takes the rank's rows on entry and all-gathers its output on the way out
+(:mod:`~dstagnn_drought_tpu_torch.parallel.comm`). The exchanges move what
+JAX's ``shard_map`` moves. There is no kernel on this
 path: JAX has none for ELL, and the aggregation is the tensor ops of
 ``ops/sparse.py``'s gather branch. The plans are numpy, equal to JAX's
 field by field.
@@ -173,19 +175,16 @@ def halo_partitioned_sparse_conv(
     n_heads: int,
     d_k: int,
 ) -> torch.Tensor:
-    """The ELL conv with the targeted halo: emb (B, N, d_model), x (B, N,
-    C, T) and the edge planes (K, N_e, E) whole → (B, N, Co, T) whole. Node
-    counts that do not divide the 'graph' axis are zero-padded up to the
-    plan's ``nloc·P`` (the plan of a :func:`shard_ell`-padded graph, whose
-    padding targets aggregate nothing) and the output is cut back to N.
-    The payload a rank sends is (B, P, H, K·d_k + C·T)."""
-    B, n, C, T = x.shape
-    nloc, P_ = plan.nloc, plan.num_shards
-    n_pad = nloc * P_
+    """The ELL conv with the targeted halo: emb (B, nloc, d_model) and x
+    (B, nloc, C, T), this rank's rows of the node axis padded to the plan's
+    ``nloc·P`` (the plan of a :func:`shard_ell`-padded graph, whose padding
+    targets aggregate nothing), and the edge planes (K, N_e, E) whole →
+    (B, nloc, Co, T), this rank's rows. The payload a rank sends is (B, P,
+    H, K·d_k + C·T)."""
+    B, nloc, C, T = x.shape
+    n_pad = plan.nloc * plan.num_shards
     grp, r = mesh.graph_group, mesh.g
     hq = n_heads * d_k
-    emb_l = comm.enter(pad_nodes(emb, 1, n_pad), 1, grp)
-    x_l = comm.enter(pad_nodes(x, 1, n_pad), 1, grp)
     cheb_l = comm.enter(pad_nodes(cheb_edges, 1, n_pad), 1, grp)
     bias_l = comm.enter(pad_nodes(bias_edges, 1, n_pad), 1, grp)
     thetas, wq, wk = (comm.copy_to(w, grp) for w in (thetas, wq, wk))
@@ -194,17 +193,16 @@ def halo_partitioned_sparse_conv(
     msk = torch.from_numpy(plan.mask[r]).to(dev)
     send_idx = torch.from_numpy(plan.send_idx[r].astype(np.int64)).to(dev)
     # 1) the payload: [Q-projection of my rows ‖ my features]
-    q_own = (emb_l @ wq).to(x.dtype)
-    payload = torch.cat([q_own, x_l.reshape(B, nloc, C * T)], dim=-1)
+    q_own = (emb @ wq).to(x.dtype)
+    payload = torch.cat([q_own, x.reshape(B, nloc, C * T)], dim=-1)
     send = payload[:, send_idx].transpose(0, 1)             # (P, B, H, D)
     # 2) the halo: one all-to-all delivers each receiver its boundary rows
     recv = comm.exchange(send.contiguous(), grp).transpose(0, 1)
     # 3) [own ‖ halo] buffer, the per-edge sources
-    k_loc = (emb_l @ wk).reshape(B, nloc, n_heads, d_k)
+    k_loc = (emb @ wk).reshape(B, nloc, n_heads, d_k)
     buf = torch.cat([payload, recv.reshape(B, -1, payload.shape[-1])], dim=1)
     q_src = buf[:, lidx, :hq].reshape(B, nloc, -1, n_heads, d_k)
-    out = _aggregate(q_src, k_loc, bias_l, cheb_l, msk, buf[:, lidx, hq:], thetas, d_k, C, T)
-    return comm.leave(out, 1, grp)[:, :n]
+    return _aggregate(q_src, k_loc, bias_l, cheb_l, msk, buf[:, lidx, hq:], thetas, d_k, C, T)
 
 
 def partitioned_sparse_conv(

@@ -6,11 +6,13 @@ arrays with ``NamedSharding``s and lets GSPMD derive the program; here the
 placements are the slices a rank holds:
 
   * :func:`batch_sharding` — the rows ``[d·B/D, (d+1)·B/D)`` of each global
-    batch that data rank d takes (JAX: ``P('data', ...)``); every other
-    tensor is whole on every rank (JAX's ``replicated``), and JAX's
-    ``constrain_batch`` has no counterpart: a rank holds its batch rows and
-    the whole node axis from the start, and the partitioned convs take
-    their node rows themselves;
+    batch that data rank d takes (JAX: ``P('data', ...)``);
+  * :class:`NodeRows` — on the partitioned spatial paths, the node rows
+    ``[g·Np/P, (g+1)·Np/P)`` of the padded node axis that graph rank g holds
+    from the batch to the loss, the TAt and the pre-conv excepted (JAX:
+    ``constrain_batch``'s ``P('data', 'graph')``), and the parameters used
+    on those rows only, whose gradients are summed over 'graph'; every
+    other tensor is whole on every rank (JAX's ``replicated``);
   * :func:`tat_tp_shardings` — with ``tp``, the axis each TAt weight is
     split on over 'graph' (wq/wk/wv on their output H·d axis, wo on its
     input H·d axis), with JAX's logged fallback to the whole weight where
@@ -34,6 +36,7 @@ import torch
 from dstagnn_drought_tpu_torch.ops.attention import _sqrt
 from dstagnn_drought_tpu_torch.ops.nn import layer_norm
 from dstagnn_drought_tpu_torch.parallel import comm
+from dstagnn_drought_tpu_torch.parallel.graph_partition import pad_nodes
 
 logger = logging.getLogger(__name__)
 
@@ -52,6 +55,59 @@ def batch_sharding(mesh, batch_size: int) -> slice:
         raise ValueError(f"batch_size={batch_size} must divide over data_axis={mesh.data}")
     rows = batch_size // mesh.data
     return slice(mesh.d * rows, (mesh.d + 1) * rows)
+
+
+# the modules computed whole on every graph rank (EmbedT, the TAt, the
+# pre-conv) or whose gradients the partitioned conv's collectives make whole
+# (SAt's W_Q and W_K and the Chebyshev conv: Θ by copy_to, the dense masks
+# by enter, the mask_tiles a slice); every other parameter is used on a
+# rank's rows only
+_WHOLE_GRAD = re.compile(r"(^|\.)(EmbedT|TAt|pre_conv|SAt|cheb_conv_SAt)\.")
+
+
+class NodeRows:
+    """Graph rank g's rows ``[g·Np/P, (g+1)·Np/P)`` of the node axis padded
+    from N to ``n_pad`` (the partitioned plan's Np, which splits evenly over
+    'graph'); rows at N and past are padding. The batch, the block
+    activations after the pre-conv, the predictions and the loss live on
+    these rows; the TAt and the pre-conv run whole."""
+
+    def __init__(self, mesh, n: int, n_pad: int):
+        self.group, self.n, self.n_pad = mesh.graph_group, n, n_pad
+        self.nloc = n_pad // mesh.graph
+        self.lo = mesh.g * self.nloc
+        self.held = max(0, min(self.nloc, n - self.lo))  # true rows this rank holds
+
+    def cut(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's rows of a whole tensor, zero where they are padding
+        (no collective)."""
+        return pad_nodes(t.narrow(dim, min(self.lo, self.n), self.held), dim, self.nloc)
+
+    def take(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's rows of a tensor whole and alike on every rank of the
+        group (backward: all-gather)."""
+        return comm.enter(pad_nodes(t, dim, self.n_pad), dim, self.group)
+
+    def whole(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole tensor (N rows) from every rank's rows (backward: this
+        rank's rows)."""
+        return comm.leave(t, dim, self.group).narrow(dim, 0, self.n)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """:meth:`whole` without autograd (predictions)."""
+        return comm.all_gather(t, dim, self.group).narrow(dim, 0, self.n)
+
+    def zero_pads(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t`` with its padding rows set to zero (they carry bias terms
+        after a block; the partitioned convs take them as inert sources)."""
+        if self.held == self.nloc:
+            return t
+        return pad_nodes(t.narrow(dim, 0, self.held), dim, self.nloc)
+
+    def summed(self, model: torch.nn.Module) -> list:
+        """The parameters used on this rank's rows only: each rank's
+        gradient is its rows' share, summed over 'graph' once."""
+        return [p for name, p in model.named_parameters() if not _WHOLE_GRAD.search(name)]
 
 
 def tat_tp_shardings(named_params: dict, mesh) -> dict[str, int | None]:

@@ -48,11 +48,17 @@ rank) every rank builds the same batch plan and takes its data rank's rows
 of each batch (``batch_size`` must divide over ``data_axis``); gradients
 are summed over the data group so the update is the single-device one;
 eval predictions are gathered in the data group before the padded tail is
-cut. Over 'graph', activations stay whole and the same on every rank of a
-data row, and the spatial conv is partitioned where JAX partitions it:
+cut. Over 'graph' the spatial conv is partitioned where JAX partitions it:
 tile-resident BELL with the targeted block halo (``halo_overlap``: the
 overlapped sublists), dense-mask BELL with the all-gather plan, ELL with
-``halo = "targeted"``. Under ``tp`` the TAt weights are sliced over 'graph'
+``halo = "targeted"``; there the node axis is sharded over 'graph' from
+the batch to the loss, as JAX shards it whenever ``graph_axis > 1``
+(:class:`~dstagnn_drought_tpu_torch.parallel.sharding.NodeRows`): each rank
+holds its node rows of the splits and of every activation but those of the
+TAt and the pre-conv, which run whole; the losses are summed over 'graph'
+and the predictions gathered there. Elsewhere (the dense path) activations
+stay whole and the same on every rank of a data row. Under ``tp`` the TAt
+weights are sliced over 'graph'
 (:mod:`~dstagnn_drought_tpu_torch.parallel.sharding`), and the per-device
 parameter bytes (``tp_report``) are logged once as the ``tp`` event. The dropout
 generator is seeded from the data coordinate only, so the ranks of a data
@@ -104,6 +110,7 @@ from dstagnn_drought_tpu_torch.parallel.bell_partition import (
 from dstagnn_drought_tpu_torch.parallel.graph_partition import build_halo_plan, shard_ell
 from dstagnn_drought_tpu_torch.parallel.mesh import make_mesh, rank_device
 from dstagnn_drought_tpu_torch.parallel.sharding import (
+    NodeRows,
     ParamLayout,
     TensorParallel,
     batch_sharding,
@@ -341,23 +348,27 @@ class Trainer:
         self.last_epoch_steps = 0
         self.last_losses: list[float] = []
 
-        # device-resident splits; a batch is a gather by an index vector
+        # device-resident splits (on node rows, this rank's rows); a batch
+        # is a gather by an index vector
         self._splits = {}
         for name in ("train", "val", "test"):
             x, y = getattr(dataset, name).x, getattr(dataset, name).target
             if self._perm is not None:
                 x, y = x[:, self._perm], y[:, self._perm]
-            self._splits[name] = (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
-                                  torch.from_numpy(np.ascontiguousarray(y)).to(self.device))
+            x, y = (torch.from_numpy(np.ascontiguousarray(a)) for a in (x, y))
+            if self.rows is not None:
+                x, y = self.rows.cut(x, 1), self.rows.cut(y, 1)
+            self._splits[name] = (x.to(self.device), y.to(self.device))
 
     # ------------------------------------------------------------------
     def _partition(self, adj_merge, adj_pa, bell, ell) -> dict:
         """JAX's multi-device wiring on this rank's mesh: the plans of the
-        partitioned spatial conv and the TAt placement under ``tp``; the
-        model's sliced parameters (``self.layout``) are replaced by this
-        rank's slices. Returns the forward's ``halo``/``tp`` keywords."""
+        partitioned spatial conv, the node rows it shards (``self.rows``)
+        and the TAt placement under ``tp``; the model's sliced parameters
+        (``self.layout``) are replaced by this rank's slices. Returns the
+        forward's ``halo``/``rows``/``tp`` keywords."""
         t, mesh = self.cfg.training, self.mesh
-        self.layout = self.tp_report = None
+        self.layout = self.tp_report = self.rows = None
         if mesh is None:
             return {}
         kw, tp_axes, plan = {}, {}, None
@@ -380,12 +391,17 @@ class Trainer:
             else:
                 # dense masks: one all-gather of the source rows
                 kw["halo"] = (mesh, build_bell_shard_plan(bell, mesh.graph))
+            n_pad = kw["halo"][1].padded_nodes
         elif (t.sparse and t.halo == "targeted" and mesh.graph > 1
               and t.sparse_format == "ell"):
             # targeted boundary-row halo; N padded to a multiple of the axis
             ell = shard_ell(ell, mesh.graph)
             self.constants["ell"] = ell
             kw["halo"] = (mesh, build_halo_plan(ell, mesh.graph))
+            n_pad = ell.num_nodes
+        if "halo" in kw:
+            # the node axis sharded over 'graph' after the pre-conv
+            self.rows = kw["rows"] = NodeRows(mesh, self.spec.num_of_vertices, n_pad)
         self.layout = ParamLayout(mesh, tp_axes, tiles=plan is not None)
         whole = {k: v.detach() for k, v in self.model.state_dict().items()}
         for k, v in whole.items():
@@ -559,10 +575,12 @@ class Trainer:
         return self._epoch_loss(epoch, torch.stack(losses))
 
     def _epoch_loss(self, epoch: int, losses: torch.Tensor) -> float:
-        """The epoch's per-step losses (every data rank's share summed)
-        read once, kept in ``last_losses``; their mean. A NaN raises
+        """The epoch's per-step losses (every graph and data rank's share
+        summed) read once, kept in ``last_losses``; their mean. A NaN raises
         ``FloatingPointError`` outside debug mode."""
         self.last_epoch_steps = len(losses)
+        if self.rows is not None:
+            losses = comm.all_reduce(losses, self.rows.group)
         losses = comm.all_reduce(losses, self._data_group)
         self.last_losses = losses.tolist()  # the epoch's per-step losses
         mean_loss = float(losses.mean())
@@ -607,6 +625,9 @@ class Trainer:
                 preds.append(p)
                 losses.append(l)
             pred, per_sample = torch.stack(preds), torch.stack(losses)
+        if self.rows is not None:  # every graph rank's node rows and loss shares
+            pred = self.rows.gather(pred, 2)
+            per_sample = comm.all_reduce(per_sample, self.rows.group)
         # every data rank's rows, batch by batch, before the tail is cut
         pred = comm.all_gather(pred, 1, self._data_group)
         per_sample = comm.all_gather(per_sample, 1, self._data_group)

@@ -15,12 +15,17 @@ when set: DSTAGNN alone takes it, as in JAX).
 
 On a mesh (:mod:`~dstagnn_drought_tpu_torch.parallel`) a step takes this
 rank's rows of the global batch; ``model_kw`` carries the partitioned
-paths' keywords (``halo``, ``tp``) to the forward, the rows' weighted
-loss is divided by the global batch's weight sum (``weight_total``), so the
-data ranks' losses add up to the single-device loss, and with a
-``data_group`` the gradients are summed over the group before
-Adam (:func:`~dstagnn_drought_tpu_torch.parallel.comm.reduce_gradients`):
-the update is the single-device step's, on every rank alike.
+paths' keywords (``halo``, ``tp``, ``rows``) to the forward, the rows'
+weighted loss is divided by the global batch's weight sum
+(``weight_total``), so the data ranks' losses add up to the single-device
+loss, and with a ``data_group`` the gradients are summed over the group
+before Adam (:func:`~dstagnn_drought_tpu_torch.parallel.comm.reduce_gradients`):
+the update is the single-device step's, on every rank alike. With ``rows``
+(:class:`~dstagnn_drought_tpu_torch.parallel.sharding.NodeRows`) the batch,
+the prediction and the loss hold this graph rank's node rows: the loss is
+the rank's share (its true rows over the whole node count), and the
+gradients of the parameters used on the rows only are summed over 'graph'
+first.
 
 :func:`make_epoch_runner` and :func:`make_eval_runner` are JAX's
 whole-epoch programs (a ``lax.scan`` of the step over the batch plan): on
@@ -105,8 +110,12 @@ def train_step(
         fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
         **({"remat": remat} if remat else {}), **(model_kw or {}),
     )
-    loss = smooth_l1_loss(pred, y, sample_weights=weights, weight_total=weight_total)
+    rows = (model_kw or {}).get("rows")
+    loss = smooth_l1_loss(pred, y, sample_weights=weights, weight_total=weight_total,
+                          node_rows=_node_rows(rows))
     loss.backward()
+    if rows is not None:
+        comm.reduce_gradients(rows.summed(model), rows.group)
     comm.reduce_gradients(model.parameters(), data_group)
     optimizer.step()
     return loss.detach()
@@ -151,7 +160,9 @@ def eval_step(
     fuse_gtu: bool = False,
     model_kw: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Deterministic forward → (pred float32, per-sample SmoothL1 (B,))."""
+    """Deterministic forward → (pred float32, per-sample SmoothL1 (B,)); on
+    node rows (``model_kw``'s ``rows``) this rank's rows of the prediction
+    and its shares of the losses."""
     pred = model(
         x, adj_pa=constants["adj_pa"], cheb_polys=constants["cheb_polys"],
         deterministic=True, compute_dtype=compute_dtype, use_pallas=use_pallas,
@@ -160,7 +171,12 @@ def eval_step(
         fuse_tat=fuse_tat, fuse_spatial=fuse_spatial, fuse_gtu=fuse_gtu,
         **(model_kw or {}),
     )
-    return pred, per_sample_smooth_l1(pred, y)
+    return pred, per_sample_smooth_l1(pred, y, node_rows=_node_rows((model_kw or {}).get("rows")))
+
+
+def _node_rows(rows):
+    """The loss's ``node_rows`` of a NodeRows (None: the whole node axis)."""
+    return None if rows is None else (rows.held, rows.n)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@ virtual CPU devices (Pallas in interpret mode) and against the port's
 single-rank conv, on the same numpy-seeded inputs: the ELL all-gather and
 targeted-halo convs, the dense-mask BELL conv, and the tile-resident BELL
 conv and its overlapped variant (one run each, held against JAX's t- and
-c-layout: the port's kernels have one layout). The gathered
+c-layout: the port's kernels have one layout). The targeted-halo and BELL
+convs take and return a rank's node rows (Np/P of them), as the model
+hands them over: the test cuts whole inputs to the rank's rows and
+gathers the output with ``comm.enter``/``comm.leave`` itself. The gathered
 output, the gradients of x, emb, Θ, wq, wk and the masks; in bf16 against
 the single-rank conv within 1e-2 of scale. At N = 29 the
 BELL plans need no inert pad tiles; at N = 37 (5 tiles: 6 over 2 ranks, 8
@@ -33,6 +36,7 @@ from dstagnn_drought_tpu_torch.ops.cuda.bell_fused import (
     bell_cheb_conv_with_sat_pallas,
 )
 from dstagnn_drought_tpu_torch.parallel import bell_partition as bp
+from dstagnn_drought_tpu_torch.parallel import comm
 from dstagnn_drought_tpu_torch.parallel import graph_partition as gp
 from dstagnn_drought_tpu_torch.parallel.launch import spawn
 from dstagnn_drought_tpu_torch.parallel.mesh import make_mesh
@@ -107,24 +111,33 @@ def _port_case(case, d, mesh, ell, bell, plan, dtype=torch.float32):
           dict(x=x, emb=emb, thetas=d["thetas"], wq=d["wq"], wk=d["wk"], masks=masks).items()}
     kw = dict(thetas=ts["thetas"], wq=ts["wq"], wk=ts["wk"], n_heads=K, d_k=D_K)
     pa, cheb = (torch.tensor(d[k], dtype=dtype) for k in ("pa", "cheb"))  # as the model
+    bell_plan = bp.build_bell_shard_plan(bell, P)
+    n_rows = {"gather": n_pad, "halo": n_pad, "bell": bell_plan.padded_nodes}.get(
+        case, plan.padded_nodes)
+    # the rank's node rows of the whole inputs (backward: all-gather)
+    emb_l, x_l = (comm.enter(gp.pad_nodes(ts[k], 1, n_rows), 1, mesh.graph_group)
+                  for k in ("emb", "x"))
     if case in ("gather", "halo"):
         edges = dict(cheb_edges=psp.gather_edge_values(cheb, ell),
                      bias_edges=psp.gather_edge_values(pa[None] * ts["masks"], ell))
         if case == "gather":
-            out = gp.partitioned_sparse_conv(mesh, ts["emb"], ts["x"], ell, **edges, **kw)[:, :N]
+            out = gp.partitioned_sparse_conv(mesh, ts["emb"], ts["x"], ell, **edges, **kw)
         else:
-            out = gp.halo_partitioned_sparse_conv(mesh, ts["emb"], ts["x"],
-                                                  gp.build_halo_plan(ell, P), **edges, **kw)
+            out = gp.halo_partitioned_sparse_conv(mesh, emb_l, x_l, gp.build_halo_plan(ell, P),
+                                                  **edges, **kw)
     elif case == "bell":
-        out = bp.partitioned_bell_conv(mesh, ts["emb"], ts["x"], bp.build_bell_shard_plan(bell, P),
-                                       adj_pa=pa, masks=ts["masks"], cheb_polys=cheb, **kw)
+        out = bp.partitioned_bell_conv(mesh, emb_l, x_l, bell_plan, adj_pa=pa, masks=ts["masks"],
+                                       cheb_polys=cheb, **kw)
     elif case == "overlap":
         out = bp.partitioned_bell_tiles_conv_overlap(
-            mesh, ts["emb"], ts["x"], plan, bp.build_overlap_lists(plan),
-            mask_tiles=ts["masks"], **kw)
+            mesh, emb_l, x_l, plan, bp.build_overlap_lists(plan), mask_tiles=ts["masks"], **kw)
     else:
-        out = bp.partitioned_bell_tiles_conv(mesh, ts["emb"], ts["x"], plan,
-                                             mask_tiles=ts["masks"], **kw)
+        out = bp.partitioned_bell_tiles_conv(mesh, emb_l, x_l, plan, mask_tiles=ts["masks"],
+                                             **kw)
+    if case != "gather":  # local rows in, local rows out
+        assert out.shape[1] == n_rows // P == x_l.shape[1]
+        out = comm.leave(out, 1, mesh.graph_group)
+    out = out[:, :N]
     (out.float() * torch.tensor(d["cot"])).sum().backward()
     grads = {k: t.grad.float().numpy()[:, :N] if k in ("x", "emb") else t.grad.float().numpy()
              for k, t in ts.items()}

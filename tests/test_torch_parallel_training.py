@@ -3,8 +3,14 @@ trainer on the same mesh shape (its virtual CPU devices) and against the
 port's single-rank run, from the same weights (JAX's initial parameters,
 carried by ``params_from_jax``) and the same batches, dropout 0: 5-step
 trajectories at (data, graph) = (2, 1), (1, 2) and (2, 2) on the dense, the
-ELL targeted-halo and the BELL-tiles paths, and (1, 2) with ``tp``. The
-parameters every rank holds whole stay bit-identical across ranks. Then a
+ELL targeted-halo and the BELL-tiles paths (with ``fuse_gtu`` too), and
+(1, 2) with ``tp``. The parameters every rank holds whole stay
+bit-identical across ranks, and the first step's gradients equal the
+single-rank ones where a control without the graph (or data) sum does not.
+On the partitioned paths every block output, conv output and prediction
+of a rank holds its Np/P node rows, and what autograd saves outside the
+whole-node TAt and pre-conv and the spatial conv (whose halo brings other
+ranks' rows) is the single-rank run's share of those rows. Then a
 checkpoint saved by rank 0 and resumed at (1, 2), a checkpoint read by
 JAX's ``import_torch_state_dict``, and the CLI under two gloo ranks started
 through the environment ``torchrun`` sets.
@@ -32,7 +38,9 @@ from dstagnn_drought_tpu_torch.parallel.launch import spawn
 from dstagnn_drought_tpu_torch.training.loop import Trainer
 
 N, F, T, PRED, BS = 30, 1, 12, 6, 8  # 4 BELL tiles: no inert tile at graph 2
+FUSE_T = 48  # the fused GTU's gate: T >= 48 and 16 | T (and 16 | C)
 STEPS, LOSS_RTOL, WEIGHT_TOL = 5, 2e-3, 5e-3
+GRAD_TOL = 5e-3  # the first step's gradients, of each tensor's own scale
 BASE = dict(in_channels=F, nb_block=2, n_heads=2, K=2, d_k=8, d_model=16, nb_chev_filter=8,
             nb_time_filter=8, batch_size=4, epochs=STEPS, learning_rate=3e-3, dropout=0.0)
 TILES = dict(sparse=True, sparse_format="bell", block_size=BS, mask_format="tiles")
@@ -50,22 +58,32 @@ RUNS = {  # name: (world size, [Training] keys)
     # and the debug mode's checked steps
     "dense_g2_tp_fused": (2, dict(graph_axis=2, tp=True, fuse_tat=True)),
     "tiles_g2_knobs": (2, dict(graph_axis=2, rcm=True, remat=True, debug=True, **TILES)),
+    # the fused GTU on each rank's node rows (T = FUSE_T, C = 16)
+    "tiles_g2_fuse_gtu": (2, dict(graph_axis=2, fuse_gtu=True, nb_chev_filter=16,
+                                  nb_time_filter=16, **TILES)),
 }
 # JAX's BELL-tiles and fused trainers run their Pallas kernels in interpret
 # mode, a minute a run here: the tiles train at (2, 2) on JAX's side, and
 # these runs are held to the port's single-rank run (the partitioned conv
 # to JAX's in test_torch_parallel_conv.py)
-NO_JAX = ("tiles_g2", "dense_g2_tp_fused", "tiles_g2_knobs")
+NO_JAX = ("tiles_g2", "dense_g2_tp_fused", "tiles_g2_knobs", "tiles_g2_fuse_gtu")
+# the runs whose node axis is sharded over 'graph' (the partitioned convs)
+ROWS = [name for name, (_, keys) in RUNS.items()
+        if keys.get("graph_axis", 1) > 1 and keys.get("sparse")]
 
 
-def _data():
+def _len(keys) -> int:
+    return FUSE_T if keys.get("fuse_gtu") else T
+
+
+def _data(t=T):
     rng = np.random.default_rng(5)
     A = (rng.random((N, N)) < 0.2).astype(np.float32)
     A = np.maximum(A, A.T)
     np.fill_diagonal(A, 0)
     pa = ((rng.random((N, N)) < 0.5) & ((A + np.eye(N)) > 0)).astype(np.float32)
     np.fill_diagonal(pa, 1)
-    x = rng.normal(size=(12, N, F, T)).astype(np.float32)
+    x = rng.normal(size=(12, N, F, t)).astype(np.float32)
     y = np.repeat(x[:, :, -1, :].mean(axis=2, keepdims=True), PRED, axis=2).astype(np.float32)
     return A, pa, x, y
 
@@ -78,13 +96,13 @@ def _dataset(split_cls, dataset_cls, x, y):
 
 def _config(config_cls, data_cls, training_cls, **keys):
     return config_cls(
-        data=data_cls(num_of_vertices=N, len_input=T, num_for_predict=PRED,
+        data=data_cls(num_of_vertices=N, len_input=_len(keys), num_for_predict=PRED,
                       dataset_name="PTOY"),
         training=training_cls(**{**BASE, **keys})).validate()
 
 
 def _trainer(root, init=None, **keys) -> Trainer:
-    A, pa, x, y = _data()
+    A, pa, x, y = _data(_len(keys))
     tr = Trainer(_config(Config, DataConfig, TrainingConfig, **keys),
                  dataset=_dataset(Split, ArrayDataset, x, y), adj_merge=A, adj_pa=pa,
                  experiments_root=str(root), device="cpu")
@@ -99,11 +117,119 @@ def _digests(tr) -> dict:
             if tr.layout is None or not tr.layout.sliced(n)}
 
 
+# the spatial convs of models.dstagnn (the partitioned ones return node rows)
+PARTITIONED = ("partitioned_bell_conv", "partitioned_bell_tiles_conv",
+               "partitioned_bell_tiles_conv_overlap", "halo_partitioned_sparse_conv")
+SINGLE_CONVS = ("bell_cheb_conv_tiles", "sparse_spatial_attention_scores",
+                "sparse_cheb_conv_with_sat")
+
+
+class _Probe:
+    """Over the first epoch (one step): the node-axis length of every block
+    output, partitioned conv output and prediction (``shapes``), the bytes
+    autograd saves by region (``saved``: ``temporal``, EmbedT, the TAt and
+    the pre-conv, ``STBlock.temporal`` and ``STBlock.pre_project``, whole on
+    every graph rank; ``conv``, the spatial conv; ``rest``; a tensor
+    saved twice counts twice, parameters do not count) and, in order, the
+    bytes of each tensor saved there (``each``), and the step's
+    gradients as Adam takes them (``grads``) and, where the step sums them
+    over a group, before the first sum (``own``, the control)."""
+
+    def __init__(self, tr):
+        from dstagnn_drought_tpu_torch.models import dstagnn
+        from dstagnn_drought_tpu_torch.parallel import comm
+
+        self.tr, self.dstagnn, self.comm = tr, dstagnn, comm
+        self.shapes, self.saved, self.grads, self.own = [], dict.fromkeys(
+            ("temporal", "conv", "rest"), 0), {}, {}
+        self.each = {k: [] for k in self.saved}
+        self.region = "rest"
+        self.params = {p.untyped_storage().data_ptr() for p in tr.model.parameters()}
+
+    def _in(self, region, fn, shape=False):
+        def run(*a, **k):
+            outer, self.region = self.region, region
+            try:
+                out = fn(*a, **k)
+            finally:
+                self.region = outer
+            if shape:
+                self.shapes.append(("conv", out.shape[1]))
+            return out
+        return run
+
+    def _pack(self, t):
+        if t.untyped_storage().data_ptr() not in self.params:
+            n = t.numel() * t.element_size()
+            self.saved[self.region] += n
+            self.each[self.region].append(n)
+        return t
+
+    def _grads(self):
+        return {n: p.grad.detach().clone() for n, p in self.tr.model.named_parameters()
+                if p.grad is not None}
+
+    def __enter__(self):
+        d, model = self.dstagnn, self.tr.model
+        self.undo = [(d.STBlock, n, getattr(d.STBlock, n)) for n in ("temporal", "pre_project")]
+        self.undo += [(self.comm, "reduce_gradients", self.comm.reduce_gradients)]
+        self.undo += [(d, n, getattr(d, n)) for n in PARTITIONED + SINGLE_CONVS]
+        for n in ("temporal", "pre_project"):
+            setattr(d.STBlock, n, self._in("temporal", getattr(d.STBlock, n)))
+        for n in PARTITIONED + SINGLE_CONVS:
+            setattr(d, n, self._in("conv", getattr(d, n), n in PARTITIONED))
+        reduce = self.comm.reduce_gradients
+
+        def reduce_first(params, group):
+            if group is not None and not self.own:
+                self.own.update(self._grads())
+            return reduce(params, group)
+
+        self.comm.reduce_gradients = reduce_first
+        step = self.tr.optimizer.step
+
+        def step_first(*a, **k):
+            self.grads.update(self._grads())
+            return step(*a, **k)
+
+        self.tr.optimizer.step = step_first
+        shape = lambda what: lambda m, a, out: self.shapes.append(
+            (what, (out[0] if isinstance(out, tuple) else out).shape[1]))
+        self.hooks = [b.register_forward_hook(shape("block")) for b in model.BlockList]
+        self.hooks.append(model.register_forward_hook(shape("prediction")))
+        self.saving = torch.autograd.graph.saved_tensors_hooks(self._pack, lambda t: t)
+        self.saving.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.saving.__exit__(*exc)
+        for h in self.hooks:
+            h.remove()
+        del self.tr.optimizer.step
+        for owner, name, value in self.undo:
+            setattr(owner, name, value)
+
+    def record(self) -> dict:
+        """The probe's findings, the gradients gathered whole (collective)."""
+        tr = self.tr
+        whole = (lambda g: g) if tr.layout is None else tr.layout.whole_state
+        numpy = lambda d: {k: v.numpy() for k, v in whole(d).items()}
+        rows = tr.rows
+        return dict(shapes=self.shapes, saved=self.saved, each=self.each,
+                    grads=numpy(self.grads),
+                    own=numpy(self.own) if self.own else {},
+                    nloc=None if rows is None else rows.nloc)
+
+
 def _trajectory(root, init, keys):
-    """(losses, whole final weights, digests of the parameters held whole)."""
+    """(losses, whole final weights, digests of the parameters held whole,
+    the first epoch's probe record)."""
     tr = _trainer(root, init, **keys)
-    losses = [tr.train_epoch(e) for e in range(STEPS)]
-    return losses, {k: v.numpy() for k, v in tr.model_state().items()}, _digests(tr)
+    with _Probe(tr) as probe:
+        losses = [tr.train_epoch(0)]
+    losses += [tr.train_epoch(e) for e in range(1, STEPS)]
+    return (losses, {k: v.numpy() for k, v in tr.model_state().items()}, _digests(tr),
+            probe.record())
 
 
 def _resume_and_checkpoint(root):
@@ -157,7 +283,7 @@ def _jax_trainer(name, keys, root):
 
     from dstagnn_drought_tpu.training.loop import Trainer as JTrainer
 
-    A, pa, x, y = _data()
+    A, pa, x, y = _data(_len(keys))
     # the overlapped sublists compute the same function as one tile list;
     # JAX's side runs the one list, whose interpret-mode kernels cost half
     cfg = _config(JConfig, JData, JTraining, **dict(keys, halo_overlap=False))
@@ -226,7 +352,7 @@ def runs(tmp_path_factory):
                 (n for n in RUNS if n not in NO_JAX), key=lambda n: "tiles" not in n)))
         single = {name: _trajectory(root / "single" / name, _unpartitioned(inits[name], keys),
                                     {k: v for k, v in keys.items()
-                                     if k not in ("data_axis", "graph_axis", "tp")})[:2]
+                                     if k not in ("data_axis", "graph_axis", "tp")})
                   for name, (_, keys) in RUNS.items()}
     finally:
         thread.join()
@@ -244,8 +370,8 @@ def _weights_close(got, want, what):
 
 @pytest.mark.parametrize("name", list(RUNS))
 def test_trajectory_matches_jax_and_single_rank(runs, name):
-    jax_run, (s_losses, s_final), ranks = runs[0][name]
-    losses, final, digests = ranks[0]
+    jax_run, (s_losses, s_final, _, _), ranks = runs[0][name]
+    losses, final, digests, _ = ranks[0]
     assert abs(losses[0] - losses[-1]) > 1e-4  # the trajectory moves
     np.testing.assert_allclose(losses, s_losses, rtol=LOSS_RTOL)
     if name not in NO_JAX:
@@ -255,8 +381,81 @@ def test_trajectory_matches_jax_and_single_rank(runs, name):
     if "tiles" in name:  # the single-rank model holds the tiles unpartitioned
         final = {k: v for k, v in final.items() if not k.endswith("mask_tiles")}
     _weights_close(final, {k: v for k, v in s_final.items() if k in final}, "vs single rank")
-    for r, (_, _, other) in enumerate(ranks[1:], 1):  # replicated: bit-identical
+    for r, (_, _, other, _) in enumerate(ranks[1:], 1):  # replicated: bit-identical
         assert other == digests, f"rank {r} holds other bits"
+
+
+def _grad_err(got, want) -> tuple[float, str]:
+    """The largest max |Δ| over max |want| of one tensor, and its name."""
+    worst = (0.0, "")
+    for k, v in want.items():
+        err, scale = float(np.abs(got[k] - v).max()), float(np.abs(v).max())
+        worst = max(worst, (err / scale if scale else (0.0 if err == 0 else np.inf), k))
+    return worst
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_first_step_gradients_and_the_unsummed_control(runs, name):
+    """Every rank's first-step gradients, gathered whole, equal the
+    single-rank run's, each tensor at its own scale; where the step sums
+    gradients over a group (the node-row parameters over 'graph', every
+    parameter over 'data'), the gradients before the first sum (the
+    control: no graph sum at (1, 2)) miss that gate."""
+    _, (_, _, _, single), ranks = runs[0][name]
+    keys = RUNS[name][1]
+    for rank in ranks:
+        probe = rank[3]
+        err, worst = _grad_err(_unpartitioned(probe["grads"], keys), single["grads"])
+        assert err <= GRAD_TOL, f"{worst}: {err} of its scale"
+    own = ranks[0][3]["own"]
+    assert bool(own) == (name in ROWS or keys.get("data_axis", 1) > 1)
+    if own:
+        control, worst = _grad_err(_unpartitioned(own, keys), single["grads"])
+        assert control > GRAD_TOL, f"the control passes: {worst} {control}"
+
+
+@pytest.mark.parametrize("name", ROWS)
+def test_partitioned_runs_hold_node_rows(runs, name):
+    """On the partitioned paths every block output, conv output and
+    prediction of every rank has the rank's Np/P node rows (the single-rank
+    run has N), and each block runs its conv once a forward (and once more
+    in remat's recompute)."""
+    _, (_, _, _, single), ranks = runs[0][name]
+    nb = BASE["nb_block"]
+    convs = nb * (2 if RUNS[name][1].get("remat") else 1)
+    for probe in (r[3] for r in ranks):
+        kinds = [k for k, _ in probe["shapes"]]
+        assert kinds.count("block") == nb and kinds.count("conv") == convs
+        assert kinds.count("prediction") == 1
+        assert {n for _, n in probe["shapes"]} == {probe["nloc"]}, probe["shapes"]
+    assert {n for _, n in single["shapes"]} == {N}
+
+
+@pytest.mark.parametrize("name", [n for n in ROWS if not RUNS[n][1].get("remat")])
+def test_saved_activations_split_over_graph(runs, name):
+    """What autograd saves in a rank's first forward against the
+    single-rank run's, tensor by tensor in order: in EmbedT, the TAt and the
+    pre-conv (whole on every graph rank) each tensor as the single run saves it, or
+    its data rank's batch share; outside them and the spatial conv, each
+    tensor the rank's share of the node rows (Np/P of N, and of the batch)
+    or, with no node axis (a weight's copy, the per-sample loss terms), as
+    the single run saves it (or its batch share), the rows' share more than
+    half of the bytes. The conv's part is counted apart: its exchange
+    brings other ranks' source rows (at this N a rank's compact table can
+    hold every block)."""
+    _, (_, _, _, single), ranks = runs[0][name]
+    D = RUNS[name][1].get("data_axis", 1)
+    for probe in (r[3] for r in ranks):
+        share = (probe["nloc"], N * D)  # (numerator, denominator)
+        for region, kinds in (("temporal", ((1, 1), (1, D))),
+                              ("rest", ((1, 1), (1, D), share))):
+            mine, whole = probe["each"][region], single["each"][region]
+            assert len(mine) == len(whole), region
+            assert all(any(m * den == w * num for num, den in kinds)
+                       for m, w in zip(mine, whole)), region
+        rows = sum(m for m, w in zip(probe["each"]["rest"], single["each"]["rest"])
+                   if m * share[1] == w * share[0] and m * D != w)
+        assert 2 * rows > probe["saved"]["rest"], (rows, probe["saved"])
 
 
 def test_checkpoint_resume_equals_straight_run(runs):
