@@ -165,21 +165,27 @@ Phases; any failure exits non-zero:
   14. multi-device training (``phase_multi``, the parallel package): 4
      ranks share the card over gloo (NCCL refuses two ranks on one card;
      gloo takes every collective the port issues on CUDA tensors, nothing is
-     staged through host memory) and train GAMBIA BELL tiles at full width,
-     the node axis sharded over 'graph' after the TAt (each rank its Np/P
-     node rows), one eager epoch of 3 steps and one eval each: graph = 4
+     staged through host memory) and train GAMBIA BELL tiles and GAMBIA
+     dense at full width, the node axis sharded over 'graph' from the batch
+     to the loss (each rank its Np/P node rows; EmbedT, the TAt and the
+     pre-conv, and the dense spatial middle, whole inside node-row regions
+     that keep their inputs' rows and run again in the backward), one
+     eager epoch of 3 steps and one eval each: BELL tiles at graph = 4
      with the overlapped halo in float32, in bf16 and in bf16 with
-     fuse_gtu and fuse_tat, (data, graph) = (2, 2) without it in float32;
-     each held against the eager single-rank run of the same weights in
-     this call (per-step losses, the first step's gradients gathered whole
-     at each tensor's own scale, final weights, val predictions; each
-     rank's gradient before the graph- or data-group sum must fail that
-     gate), each rank's epoch activation peak (at most 0.6 of the single
-     run's at graph = 4 without the fused kernels, recorded with them),
-     the parameters every rank holds whole bit-identical across ranks, each
+     fuse_gtu and fuse_tat, (data, graph) = (2, 2) without it in float32,
+     dense (use_pallas, dropout 0.05) at graph = 4 in float32; each held
+     against the eager single-rank run of the same weights in this call
+     (per-step losses, the first step's gradients gathered whole at each
+     tensor's own scale, final weights, val predictions; each rank's
+     gradient before the graph- or data-group sum must fail that gate),
+     each rank's epoch activation peak (at most 0.4 of the single run's in
+     every BELL-tiles run at graph = 4, 0.5 in the dense one), the
+     parameters every rank holds whole bit-identical across ranks, each
      rank's F once per block of every forward pass and K1/K2 once per block
-     of every step (twice with the overlap's two sublists), the GTU and TAt
-     kernels so in the fused run; rank 0's F, K1 and K2 against their plain
+     of every step (twice with the overlap's two sublists), the GTU kernels
+     so and the TAt's forward once more in the backward in the fused run,
+     cheb_sat once per block of every forward pass and of every step's
+     backward in the dense run; rank 0's F, K1 and K2 against their plain
      versions at its shard shapes and the GTU at its node rows (both dtypes),
      a sublist's pad entries exactly 0 (F rows zero, K1's dΘ and K2's dx
      unchanged bit for bit without them) and the plan's inert tiles finite
@@ -228,7 +234,14 @@ alternated in one process, a torch.profiler breakdown of
 each, a 25-epoch PEMS08 accuracy run of both dense paths checked
 against the reference model's recorded test MAE, and the Sinkhorn STAG of
 all 2,286,591 GAMBIA pairs (``measure_stag_full``). The epoch profiles also
-rank the host ops by their inputs' shapes. ``--rows OUT`` builds and
+rank the host ops by their inputs' shapes. Callable alone, outside the run:
+``measure_multi`` (phase 14's runs without their gates: peak shares,
+ms/step, gradient errors; copied into an older checkout, it measures that
+one too, so two commits alternate in one call) and
+``measure_graph_split_floor`` (the float32 single run with the TAt's
+projections summed as 4 rank chunks of N, against itself unsplit) and
+``measure_gloo_gather`` (the all-gather of x's rows a region makes, timed
+alone on the 4 ranks). ``--rows OUT`` builds and
 times only PERF.md rows 2-13 at their main shapes (``measure_rows``: F,
 K1 and K2 at GAMBIA blocks 1-2 and the 17-slot random graph by pass with
 their outputs' digests, the TAt, spatial middle and GTU by CUDA events,
@@ -4356,20 +4369,26 @@ def capturable_moves(make, label: str) -> dict:
 
 MULTI_P = 4
 # (label, compute dtype, data_axis, graph_axis, halo_overlap, dropout,
-# fuse_gtu and fuse_tat): the GAMBIA BELL-tiles configuration with P ranks
-# on the card; dropout stays on where every rank is data rank 0 (whose
-# draws are the single-rank run's) and is off at data_axis = 2, whose data
-# rank 1 draws its own
+# fuse_gtu and fuse_tat, dense): the GAMBIA BELL-tiles configuration, or
+# with dense the GAMBIA dense one (use_pallas: cheb_sat), with P ranks on
+# the card; dropout stays on where every rank is data rank 0 (whose draws
+# are the single-rank run's) and is off at data_axis = 2, whose data rank 1
+# draws its own
 MULTI_RUNS = (
-    ("graph4_overlap_f32", "float32", 1, 4, True, 0.05, False),
-    ("graph4_overlap_bf16", "bfloat16", 1, 4, True, 0.05, False),
-    ("data2_graph2_f32", "float32", 2, 2, False, 0.0, False),
-    ("graph4_overlap_bf16_fused", "bfloat16", 1, 4, True, 0.05, True),
+    ("graph4_overlap_f32", "float32", 1, 4, True, 0.05, False, False),
+    ("graph4_overlap_bf16", "bfloat16", 1, 4, True, 0.05, False, False),
+    ("data2_graph2_f32", "float32", 2, 2, False, 0.0, False, False),
+    ("graph4_overlap_bf16_fused", "bfloat16", 1, 4, True, 0.05, True, False),
+    ("dense_graph4_f32", "float32", 1, 4, False, 0.05, False, True),
 )
 # a rank's epoch activation peak at most this share of the eager single-rank
-# run's in these runs (the node axis sharded after the TAt)
-MULTI_PEAK_SHARE = 0.6
-MULTI_PEAK_GATED = ("graph4_overlap_f32", "graph4_overlap_bf16")
+# run's (the node axis sharded from the batch to the loss, the node-row
+# regions keeping their inputs' rows): every BELL-tiles run at graph = 4,
+# and the dense one at its own limit (block 2's whole conv, scores and
+# cheb_sat's float32 backward live for a moment in its recompute)
+MULTI_PEAK_SHARE = 0.4
+MULTI_PEAK_GATED = ("graph4_overlap_f32", "graph4_overlap_bf16", "graph4_overlap_bf16_fused")
+MULTI_DENSE_PEAK_SHARE = 0.5
 # (per-step losses rtol; the first step's gradients as max |Δ| over max
 # |single| of each tensor, and the final weights and val predictions as
 # max |Δ| over max(1, max |single|)) against the single-rank run of the
@@ -4381,9 +4400,9 @@ MULTI_SHAPE = (4, 2, 32, GAMBIA_T_IN, 32, 32)
 
 
 def multi_trainer(root: Path, label: str, dtype: str, data_axis: int, graph_axis: int,
-                  overlap: bool, dropout: float, fused: bool) -> Trainer:
+                  overlap: bool, dropout: float, fused: bool, dense: bool) -> Trainer:
     ds, A, pa = gambia_data()
-    cfg = gambia_config(A.shape[0], **BELL_TILES)
+    cfg = gambia_config(A.shape[0], **({} if dense else BELL_TILES))
     t = cfg.training
     t.compute_dtype, t.dropout, t.halo_overlap = dtype, dropout, overlap
     t.data_axis, t.graph_axis = data_axis, graph_axis
@@ -4606,11 +4625,11 @@ def multi_plans() -> dict:
     return {G: bp.build_bell_tile_shard_plan(bell, G, pa, polys) for G in (2, MULTI_P)}
 
 
-def multi_rank(rank: int, root: str) -> dict:
-    """One rank of phase_multi: every run of MULTI_RUNS on its mesh; rank 0
-    then checks and times F, K1 and K2 at its shard shapes, the GTU forward
-    and backward on its node rows (B·Np/P rows of the fused tail) and the
-    pad entries, alone on the card."""
+def multi_rank(rank: int, root: str, kernels: bool = True) -> dict:
+    """One rank of phase_multi: every run of MULTI_RUNS on its mesh; with
+    ``kernels`` rank 0 then checks and times F, K1 and K2 at its shard
+    shapes, the GTU forward and backward on its node rows (B·Np/P rows of
+    the fused tail) and the pad entries, alone on the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -4618,7 +4637,7 @@ def multi_rank(rank: int, root: str) -> dict:
     for run in MULTI_RUNS:
         record, state = multi_run(Path(root), run)
         out[run[0]] = dict(record, state=state if rank == 0 else None)
-    if rank == 0:
+    if rank == 0 and kernels:
         from dstagnn_drought_tpu_torch.parallel import bell_partition as bp
 
         plan = multi_plans()[MULTI_P]
@@ -4685,6 +4704,70 @@ def data_split_floor(root: Path, run: tuple) -> tuple[tuple[float, str], dict]:
     return grad_err(split, whole, None), split
 
 
+def measure_graph_split_floor(parts: int = MULTI_P) -> dict:
+    """The graph-split floor: the float32 single-rank run of
+    ``graph4_overlap_f32`` with only the TAt's three projections (x @ [wq
+    wk wv], a contraction over N) summed as the ``parts`` rank chunks of the
+    padded node axis in rank order, as a row-parallel TAt would sum its
+    partial products, against the unchanged run from the same weights and
+    generator: the first-step gradients at each tensor's own scale
+    (grad_err), and the unchanged run against itself. A measurement, not a
+    gate: what splitting the TAt's contraction over 'graph' alone moves,
+    beside phase 14's 5e-3 gradient gate. Builds the BELL kernels it runs;
+    callable alone (``python -c "import chip_smoke as c;
+    c.measure_graph_split_floor()"``)."""
+    from dstagnn_drought_tpu_torch.models import dstagnn
+    from dstagnn_drought_tpu_torch.ops.attention import _sqrt
+    from dstagnn_drought_tpu_torch.ops.cuda import build
+    from dstagnn_drought_tpu_torch.ops.nn import layer_norm
+
+    build.build(("bell_fused", "bell_bwd"))
+    run = next(r for r in MULTI_RUNS if r[0] == "graph4_overlap_f32")
+    nloc = multi_plans()[parts].padded_nodes // parts
+    plain = dstagnn.temporal_attention
+
+    def split_tat(x, res_att, *, wq, wk, wv, wo, ln_scale, ln_bias, n_heads, d_k, d_v):
+        """ops.attention.temporal_attention with its projection summed by
+        rank chunks of N."""
+        B, F, T, N = x.shape
+        w = torch.cat([wq, wk, wv], dim=1)
+        chunks = [slice(lo, min(lo + nloc, N)) for lo in range(0, N, nloc)]
+        qkv = x[..., chunks[0]] @ w[chunks[0]]
+        for c in chunks[1:]:  # rank order
+            qkv = qkv + x[..., c] @ w[c]
+        hk = n_heads * d_k
+        q = qkv[..., :hk].reshape(B, F, T, n_heads, d_k)
+        k = qkv[..., hk:2 * hk].reshape(B, F, T, n_heads, d_k)
+        v = qkv[..., 2 * hk:].reshape(B, F, T, n_heads, d_v)
+        scores = torch.einsum("bfqhd,bfkhd->bfhqk", q, k) / _sqrt(d_k, x) + res_att
+        attn = torch.softmax(scores, dim=3)
+        context = torch.einsum("bfhqk,bfkhd->bfqhd", attn, v).reshape(B, F, T, n_heads * d_v)
+        return layer_norm(context @ wo + x, ln_scale, ln_bias), scores
+
+    def first_grads(root, label, tat):
+        dstagnn.temporal_attention = tat
+        try:
+            tr = multi_trainer(root, label, "float32", 1, 1, *run[4:])
+            grads, _, undo = first_step_grads(tr)
+            tr.train_epoch_eager(0)
+            undo()
+            return {k: v.float().cpu().numpy() for k, v in grads.items()}
+        finally:
+            dstagnn.temporal_attention = plain
+
+    with tempfile.TemporaryDirectory(prefix="split_floor_") as tmp, deterministic_cudnn():
+        root = Path(tmp)
+        base = first_grads(root, "base", plain)
+        again = first_grads(root, "again", plain)
+        split = first_grads(root, "split", split_tat)
+    out = {"measure": "graph_split_floor", "card": card_line(), "run": run[0],
+           "parts": parts, "node_rows_a_part": nloc,
+           "split_vs_single": grad_err(split, base, None),
+           "single_vs_itself": grad_err(again, base, None)}
+    print("measure", json.dumps(out), flush=True)
+    return out
+
+
 def multi_compare(label: str, dtype: str, got: dict, state: dict, ref: dict,
                   ref_state: dict, plan, split: dict | None = None) -> dict:
     """One run against the single-rank run of the same weights: per-step
@@ -4725,27 +4808,33 @@ def multi_compare(label: str, dtype: str, got: dict, state: dict, ref: dict,
             "weight_err_of_scale": weight_err, "pred_err_of_scale": pred_err}
 
 
-def multi_launches(label: str, overlap: bool, fused: bool, records: list) -> dict:
-    """Each rank's F once per block of every forward pass and K1/K2 once per
+def multi_launches(label: str, overlap: bool, fused: bool, dense: bool,
+                   records: list) -> dict:
+    """Each rank's launches in 3 train steps and one eval batch of 2 blocks.
+    BELL tiles: F once per block of every forward pass and K1/K2 once per
     block of every train step, twice each with the overlapped sublists;
-    with ``fused`` the GTU and the TAt kernels once per block of every
-    forward and of every train step's backward, else never; cheb_sat
-    never. Returns rank 0's launches of the run by kernel."""
-    per = 2 if overlap else 1
+    cheb_sat never. Dense: cheb_sat once per block of every forward pass
+    and again in every train step's backward, where the spatial middle's
+    node-row region runs again; no BELL kernel. With ``fused`` the GTU
+    kernels once per block of every forward and of every train step's
+    backward, the TAt's forward once more in every train step's backward
+    (the recompute of EmbedT to the pre-conv's region), else never. Returns
+    rank 0's launches of the run by kernel."""
+    per = 0 if dense else (2 if overlap else 1)
     on = 1 if fused else 0
     for rank, rec in enumerate(records):
         tr, ev = rec["train_launches"], rec["eval_launches"]
         want = {"bell_fused": (3 * 2 * per, 1 * 2 * per), "bell_k1": (3 * 2 * per, 0),
-                "bell_k2": (3 * 2 * per, 0), "cheb_sat": (0, 0),
+                "bell_k2": (3 * 2 * per, 0), "cheb_sat": (3 * 2 * 2 * dense, 1 * 2 * dense),
                 "gtu_fwd": (3 * 2 * on, 1 * 2 * on), "gtu_bwd": (3 * 2 * on, 0),
-                "tat_fwd": (3 * 2 * on, 1 * 2 * on), "tat_bwd": (3 * 2 * on, 0)}
+                "tat_fwd": (3 * 2 * 2 * on, 1 * 2 * on), "tat_bwd": (3 * 2 * on, 0)}
         for k, (t_want, e_want) in want.items():
             check(tr[k] == t_want and ev[k] == e_want,
                   f"{label} rank {rank}: {k} launches {tr[k]} (train), {ev[k]} (eval); "
                   f"expected {t_want}, {e_want}")
     return {k: records[0]["train_launches"][k] + records[0]["eval_launches"][k]
-            for k in ("bell_fused", "bell_k1", "bell_k2", "gtu_fwd", "gtu_bwd", "tat_fwd",
-                      "tat_bwd")}
+            for k in ("bell_fused", "bell_k1", "bell_k2", "cheb_sat", "gtu_fwd", "gtu_bwd",
+                      "tat_fwd", "tat_bwd")}
 
 
 def multi_cli_nccl(root: Path) -> dict:
@@ -4785,29 +4874,13 @@ def multi_cli_nccl(root: Path) -> dict:
     return {"backend": backend, "predictions_bit_equal": True}
 
 
-def phase_multi(root: Path, card: str) -> dict:
-    """Multi-device training (the parallel package) with P = 4 ranks sharing
-    the one H100 over gloo (the backend rule: NCCL refuses two ranks on one
-    card): GAMBIA BELL tiles, its node axis sharded over 'graph' after the
-    TAt, at graph = 4 with the overlapped halo in float32 and in bf16 (and
-    in bf16 with fuse_gtu and fuse_tat), and at (data, graph) = (2, 2)
-    without it, each held against the eager single-rank run of the same
-    weights in this call (per-step losses, the first step's whole
-    gradients, final weights and val predictions; a control, each rank's
-    gradient before the graph- or data-group sum, must fail the gradient
-    gate), with the parameters every rank holds whole bit-identical across
-    ranks and each rank's launches counted; each rank's epoch activation
-    peak against the single run's (at most MULTI_PEAK_SHARE of it in
-    MULTI_PEAK_GATED); rank 0's F, K1 and K2 against their plain versions at
-    its shard shapes, and the GTU at its node rows, the pad entries exactly
-    0; each plan's exchange volume; then the CLI with --distributed at
-    world size 1 under NCCL. ms/step are of P ranks sharing one card: no
-    multi-GPU figure."""
-    from dstagnn_drought_tpu_torch.parallel import bell_partition as bp
-    from dstagnn_drought_tpu_torch.parallel import comm
+def multi_records(root: Path, kernels: bool = True) -> tuple[dict, dict, list]:
+    """Every run of MULTI_RUNS on one process (the eager single-rank
+    references) and on P ranks sharing the card, and the data meshes'
+    split floors: (singles {label: multi_run's (record, state)}, floors
+    {label: data_split_floor}, every rank's multi_rank record)."""
     from dstagnn_drought_tpu_torch.parallel.launch import spawn
 
-    t0 = time.perf_counter()
     singles = {}
     with deterministic_cudnn():
         for run in MULTI_RUNS:
@@ -4815,7 +4888,116 @@ def phase_multi(root: Path, card: str) -> dict:
         floors = {run[0]: data_split_floor(root, run) for run in MULTI_RUNS if run[2] > 1}
     gc.collect()  # the single-rank trainers' graph pools, before the ranks share the card
     torch.cuda.empty_cache()
-    ranks = spawn(multi_rank, MULTI_P, str(root), timeout=600, init_dir=str(root))
+    ranks = spawn(multi_rank, MULTI_P, str(root), kernels, timeout=600, init_dir=str(root))
+    return singles, floors, ranks
+
+
+def measure_multi() -> dict:
+    """Phase 14's runs without its gates or rank 0's kernel checks: each
+    run's rank activation peaks against the single run's, rank 0's and the
+    single run's ms/step, the float32 first-step gradient error at each
+    tensor's own scale. It goes through interfaces the package has had
+    since node rows came in, so it also measures an older checkout (copy
+    this file into it and run it from there, ``python -c "import chip_smoke
+    as c; c.measure_multi()"``); runs parent and change in turns in one
+    call to compare them. Builds the kernels the runs launch."""
+    from dstagnn_drought_tpu_torch.ops.cuda import build
+
+    build.build(("cheb_sat", "bell_fused", "bell_bwd", "tat_fused", "gtu_fused"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory(prefix="measure_multi_") as tmp:
+        singles, _, ranks = multi_records(Path(tmp), kernels=False)
+    out = {"card": card_line(), "label": f"{MULTI_P} ranks sharing one H100", "runs": {}}
+    plans = multi_plans()
+    for run in MULTI_RUNS:
+        label = run[0]
+        records, (ref, ref_state) = [r[label] for r in ranks], singles[label]
+        peaks = [r["peak_mib"] for r in records]
+        out["runs"][label] = {
+            "peak_mib_ranks": peaks, "peak_mib_single": ref["peak_mib"],
+            "peak_share_of_single": max(peaks) / ref["peak_mib"],
+            "ms_per_step_rank0": records[0]["ms_per_step"],
+            "ms_per_step_single": ref["ms_per_step"], "node_rows": records[0]["node_rows"],
+            "grad_err_of_scale": grad_err(records[0]["state"]["grads"], ref_state["grads"],
+                                          plans[run[3]])}
+    print("measure", json.dumps(out), flush=True)
+    return out
+
+
+def gather_rank(rank: int, shapes: dict, iters: int = 5) -> dict:
+    """One rank of measure_gloo_gather: {label: ms of one all-gather (the
+    port's ``comm.all_gather`` over the world, gloo) of a CUDA tensor of
+    that (shape, dtype), the rank's rows, the calls fenced by
+    ``torch.cuda.synchronize`` after two warm-up calls}."""
+    import torch.distributed as dist
+
+    from dstagnn_drought_tpu_torch.parallel import comm
+
+    out = {}
+    for label, (shape, dtype) in shapes.items():
+        t = torch.randn(shape, device="cuda").to(getattr(torch, dtype))
+        for _ in range(2):
+            comm.all_gather(t, 1, dist.group.WORLD)
+        torch.cuda.synchronize()
+        comm.all_reduce(torch.zeros(1, device="cuda"), dist.group.WORLD)  # start together
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            comm.all_gather(t, 1, dist.group.WORLD)
+        torch.cuda.synchronize()
+        out[label] = (time.perf_counter() - t0) / iters * 1e3
+    return out
+
+
+def measure_gloo_gather() -> dict:
+    """The all-gather a node-row region makes of x's rows, timed alone: P
+    ranks sharing the card over gloo, each gathering its rows of GAMBIA
+    block 2's x (B, N/P, C, T) along the node axis (BELL tiles' 640 rows
+    in float32 and bf16, the dense path's 535 in float32) and block 1's
+    (F = 4). Rank 0's ms a gather; callable alone."""
+    from dstagnn_drought_tpu_torch.parallel.launch import spawn
+
+    B, C, T = 4, 32, GAMBIA_T_IN
+    shapes = {"block2_x_rows640_f32": ((B, 640, C, T), "float32"),
+              "block2_x_rows640_bf16": ((B, 640, C, T), "bfloat16"),
+              "block2_x_rows535_f32": ((B, 535, C, T), "float32"),
+              "block1_x_rows640_f32": ((B, 640, GAMBIA_F, T), "float32")}
+    with tempfile.TemporaryDirectory(prefix="gloo_gather_") as tmp:
+        ranks = spawn(gather_rank, MULTI_P, shapes, timeout=300, init_dir=tmp)
+    out = {"card": card_line(), "label": f"{MULTI_P} ranks sharing one H100, gloo",
+           "whole_mb": {k: math.prod(s) * MULTI_P * (4 if d == "float32" else 2) / 1e6
+                        for k, (s, d) in shapes.items()},
+           "ms_rank0": ranks[0], "ms_ranks_max": {k: max(r[k] for r in ranks) for k in shapes}}
+    print("measure", json.dumps(out), flush=True)
+    return out
+
+
+def phase_multi(root: Path, card: str) -> dict:
+    """Multi-device training (the parallel package) with P = 4 ranks sharing
+    the one H100 over gloo (the backend rule: NCCL refuses two ranks on one
+    card): GAMBIA BELL tiles, its node axis sharded over 'graph' from the
+    batch to the loss, at graph = 4 with the overlapped halo in float32 and
+    in bf16 (and in bf16 with fuse_gtu and fuse_tat), and at (data, graph) =
+    (2, 2) without it, and GAMBIA dense (use_pallas, its spatial middle in a
+    node-row region through cheb_sat) at graph = 4 in float32, each held
+    against the eager single-rank run of the same
+    weights in this call (per-step losses, the first step's whole
+    gradients, final weights and val predictions; a control, each rank's
+    gradient before the graph- or data-group sum, must fail the gradient
+    gate), with the parameters every rank holds whole bit-identical across
+    ranks and each rank's launches counted; each rank's epoch activation
+    peak against the single run's (at most MULTI_PEAK_SHARE of it in
+    MULTI_PEAK_GATED, MULTI_DENSE_PEAK_SHARE in the dense run); rank 0's F,
+    K1 and K2 against their plain versions at
+    its shard shapes, and the GTU at its node rows, the pad entries exactly
+    0; each plan's exchange volume; then the CLI with --distributed at
+    world size 1 under NCCL. ms/step are of P ranks sharing one card: no
+    multi-GPU figure."""
+    from dstagnn_drought_tpu_torch.parallel import bell_partition as bp
+    from dstagnn_drought_tpu_torch.parallel import comm
+
+    t0 = time.perf_counter()
+    singles, floors, ranks = multi_records(root)
     plans = multi_plans()
     out = {"card": card, "ranks": MULTI_P, "label": f"{MULTI_P} ranks sharing one H100",
            "gloo_cuda_collectives": list(comm.GLOO_CUDA), "runs": {}}
@@ -4823,7 +5005,8 @@ def phase_multi(root: Path, card: str) -> dict:
                                "gloo_on_cuda_tensors": out["gloo_cuda_collectives"],
                                "staged_through_host": []}), flush=True)
     kernel_launches = {}
-    for label, dtype, D, G, overlap, dropout, fused in MULTI_RUNS:
+    n = gambia_data()[1].shape[0]
+    for label, dtype, D, G, overlap, dropout, fused, dense in MULTI_RUNS:
         records = [r[label] for r in ranks]
         for name, digest in records[0]["digests"].items():
             check(all(r["digests"][name] == digest for r in records),
@@ -4832,21 +5015,27 @@ def phase_multi(root: Path, card: str) -> dict:
         floor, split = floors.get(label, (None, None))
         cmp = multi_compare(label, dtype, records[0], records[0]["state"], ref, ref_state,
                             plans[G], split)
-        launches = multi_launches(label, overlap, fused, records)
+        launches = multi_launches(label, overlap, fused, dense, records)
         if label == "graph4_overlap_bf16":
             kernel_launches.update({k: launches[k] for k in ("bell_fused", "bell_k1", "bell_k2")})
         if fused:
             kernel_launches.update({k: launches[k] for k in ("gtu_fwd", "gtu_bwd")})
+        if dense:
+            kernel_launches["cheb_sat"] = launches["cheb_sat"]
         peaks = [r["peak_mib"] for r in records]
         share = max(peaks) / ref["peak_mib"]
-        check(label not in MULTI_PEAK_GATED or share <= MULTI_PEAK_SHARE,
+        limit = (MULTI_DENSE_PEAK_SHARE if dense
+                 else MULTI_PEAK_SHARE if label in MULTI_PEAK_GATED else None)
+        check(limit is None or share <= limit,
               f"{label}: a rank's activation peak {max(peaks):.1f} MiB is {share:.3f} of the "
-              f"single-rank run's {ref['peak_mib']:.1f} (limit {MULTI_PEAK_SHARE})")
-        check(all(r["node_rows"] == plans[G].padded_nodes // G for r in records),
-              f"{label}: ranks hold {[r['node_rows'] for r in records]} node rows")
+              f"single-rank run's {ref['peak_mib']:.1f} (limit {limit})")
+        nloc = -(-n // G) if dense else plans[G].padded_nodes // G
+        check(all(r["node_rows"] == nloc for r in records),
+              f"{label}: ranks hold {[r['node_rows'] for r in records]} node rows, not {nloc}")
         out["runs"][label] = {
             "dtype": dtype, "data_axis": D, "graph_axis": G, "halo_overlap": overlap,
-            "dropout": dropout, "fuse_gtu_tat": fused, "backend": records[0]["backend"], **cmp,
+            "dropout": dropout, "fuse_gtu_tat": fused, "dense": dense,
+            "backend": records[0]["backend"], "peak_limit": limit, **cmp,
             "data_split_floor": floor,
             "losses": records[0]["losses"], "single_losses": ref["losses"],
             "launches_rank0": launches, "replicated_bit_identical": True,
@@ -4930,6 +5119,7 @@ def kernel_lines(rows, bell_rows, fused_rows, gtu_rows, pems, gambia, tiles, fus
         "shape": "B=64 K=3 N=170 M=384 (PEMS08 blocks 2-4), x float32",
         "design": main_row["design"], "f32_bound_ms": main_row["f32_bound_ms"],
         "launches_gambia": gambia["launches"],
+        "launches_dense_graph4_rank0": multi["kernel_launches"]["cheb_sat"],
         "gambia_block2": {k: g2[k] for k in ("x_dtype", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "f32_bound_ms")},
     }]

@@ -33,11 +33,18 @@ forward's ``halo`` (JAX's: ``(mesh, plan)`` or ``(mesh, plan, overlap
 lists)``) takes the spatial conv through the node-partitioned convs of
 ``parallel/`` (the block's ``mask_tiles`` then this rank's (A_loc, K, BS,
 BS) slice), ``rows`` (``parallel.sharding.NodeRows``) keeps the node axis
-sharded over 'graph': x, every block output and the prediction hold this
-rank's rows; the TAt gathers its input whole, and it and the pre-conv run
-whole on every rank (the pre-conv's contraction over T·F rounds otherwise
-at another row count); everything after them (EmbedS, the conv, the GTU
-tail, the residual, the LayerNorm, the head) runs on the rank's rows; ``tp``
+sharded over 'graph' on those paths and on the dense path: x, every block
+output and the prediction hold this rank's rows. What needs the whole node
+axis runs whole, as one device runs it, inside a node-row region
+(``NodeRows.region``: its inputs gathered, its node-axis outputs cut to the
+rank's rows, only the rows of its inputs kept for the backward, where it
+runs again): EmbedT, the TAt and the pre-conv (:meth:`STBlock.front`; a
+split of their contractions over N or T·F rounds otherwise); on the dense
+path also the SAt scores and the Chebyshev conv (:meth:`STBlock.dense_conv`)
+or, with ``fuse_spatial``, the TAt and the fused spatial middle in one
+region (:meth:`STBlock.fused_middle`). Everything between and after the
+regions (EmbedS, dropout, the partitioned conv, the GTU tail, the residual,
+the LayerNorm, the head) runs on the rank's rows; ``tp``
 (``parallel.sharding.TensorParallel``) takes the TAt through this rank's
 weight slices.
 bfloat16 compute casts parameters and inputs at the top of the
@@ -98,6 +105,7 @@ from dstagnn_drought_tpu_torch.parallel.bell_partition import (
     partitioned_bell_tiles_conv_overlap,
 )
 from dstagnn_drought_tpu_torch.parallel.graph_partition import halo_partitioned_sparse_conv
+from dstagnn_drought_tpu_torch.parallel.sharding import recomputed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,6 +276,42 @@ class STBlock(nn.Module):
         return (torch.einsum("bftn,dtf->bnd", TATout, c(self.pre_conv.weight)[:, :, 0, :])
                 + c(self.pre_conv.bias))
 
+    def front(self, x, res_att, *, fuse_tat=False, tp=None):
+        """EmbedT, the TAt and the pre-conv on the whole node axis: x (B, N,
+        F, T) → (x_tat (B, N, d_model), the scores for the next block)."""
+        TATout, re_at = self.temporal(x, res_att, fuse_tat=fuse_tat, tp=tp)
+        return self.pre_project(TATout), re_at
+
+    def fused_middle(self, x, res_att, *, fuse_tat, tp, adj_pa, cheb_polys, deterministic,
+                     generator):
+        """EmbedT and the TAt, then the dense spatial middle in one kernel
+        pair (pre_conv → EmbedS → dropout → SAt → Chebyshev conv; ahead of
+        use_pallas, as in JAX), on the whole node axis: x (B, N, F, T) →
+        (spatial_gcn (B, N, C, T), the scores for the next block)."""
+        spec = self.spec
+        c = lambda t: t.to(x.dtype)
+        TATout, re_at = self.temporal(x, res_att, fuse_tat=fuse_tat, tp=tp)
+        cheb = self.cheb_conv_SAt
+        spatial_gcn = fused_spatial_middle(
+            TATout, x, pre_w=c(self.pre_conv.weight), pre_b=c(self.pre_conv.bias),
+            pos=c(self.EmbedS.pos_embed.weight), ln_scale=c(self.EmbedS.norm.weight),
+            ln_bias=c(self.EmbedS.norm.bias), wq=c(self.SAt.W_Q.weight).t(),
+            wk=c(self.SAt.W_K.weight).t(), adj_pa=adj_pa,
+            masks=torch.stack([c(m) for m in cheb.mask]), cheb_polys=cheb_polys,
+            thetas=torch.stack([c(t) for t in cheb.Theta]), K=spec.K, d_k=spec.d_k,
+            dropout_rate=0.0 if deterministic else spec.dropout_rate, generator=generator)
+        return spatial_gcn, re_at
+
+    def dense_conv(self, SEmx, x, *, wq, wk, adj_pa, cheb_polys, masks, thetas, use_pallas):
+        """The dense spatial attention scores of SEmx (B, N, d_model) and the
+        attention-modulated Chebyshev conv of x (B, N, F, T) on the whole
+        node axis (through the cheb_sat kernel under ``use_pallas``) →
+        (spatial_gcn (B, N, C, T), the raw (B, K, N, N) scores)."""
+        spec = self.spec
+        STAt = spatial_attention_scores(SEmx, wq=wq, wk=wk, n_heads=spec.K, d_k=spec.d_k)
+        conv = cheb_conv_with_sat_pallas if use_pallas else cheb_conv_with_sat
+        return conv(x, STAt, adj_pa, cheb_polys=cheb_polys, masks=masks, thetas=thetas), STAt
+
     def forward(self, x, res_att, *, adj_pa, cheb_polys, deterministic,
                 generator, use_pallas, bell=None, bell_tiles=None, ell=None,
                 fuse_tat=False, fuse_spatial=False, fuse_gtu=False, halo=None, tp=None,
@@ -278,46 +322,36 @@ class STBlock(nn.Module):
         F = x.shape[2]
         drop = functools.partial(_dropout, rate=spec.dropout_rate, generator=generator,
                                  deterministic=deterministic, rows=rows)
-        if rows is None:
-            TATout, re_at = self.temporal(x, res_att, fuse_tat=fuse_tat, tp=tp)
-            pos_s = c(self.EmbedS.pos_embed.weight)
+        if rows is not None:
+            x = rows.zero_pads(x, 1)  # pad rows inert (they carry bias terms after a block)
+        # fn on the whole node axis: on node rows, inside a region that takes
+        # and returns the rank's rows on node axis 1 and the scores whole
+        whole = functools.partial(_whole, rows=rows, outs=(1, None))
+        # dense only, as in JAX
+        fused_spatial = fuse_spatial and bell is None and ell is None
+        if fused_spatial:
+            middle = functools.partial(
+                self.fused_middle, fuse_tat=fuse_tat, tp=tp, adj_pa=adj_pa,
+                cheb_polys=cheb_polys, deterministic=deterministic, generator=generator)
+            spatial_gcn, re_at = whole(middle, (x, res_att), (1, None), generator=generator)
         else:
-            # node rows: the pad rows inert (they carry bias terms after a
-            # block); the TAt on x gathered whole
-            x = rows.zero_pads(x, 1)
-            TATout, re_at = self.temporal(rows.whole(x, 1), res_att, fuse_tat=fuse_tat, tp=tp)
-            pos_s = rows.cut(c(self.EmbedS.pos_embed.weight), 0)
+            # the pre-conv whole too: its contraction over T·F rounds
+            # otherwise at another row count, and the rounding flips ReLU
+            # kinks of the conv downstream against one device
+            front = functools.partial(self.front, fuse_tat=fuse_tat, tp=tp)
+            x_tat, re_at = whole(front, (x, res_att), (1, None))
+            pos_s = c(self.EmbedS.pos_embed.weight)
+            se = x_tat + (pos_s if rows is None else rows.cut(pos_s, 0))[None]
+            SEmx = drop(layer_norm(se, c(self.EmbedS.norm.weight), c(self.EmbedS.norm.bias)),
+                        dim=1)
+            if rows is not None:
+                SEmx = rows.zero_pads(SEmx, 1)  # inert sources of the conv
 
         wq, wk = c(self.SAt.W_Q.weight).t(), c(self.SAt.W_K.weight).t()
         thetas = torch.stack([c(t) for t in self.cheb_conv_SAt.Theta])
         cheb = self.cheb_conv_SAt
         masks = (torch.stack([c(m) for m in cheb.mask])
                  if hasattr(cheb, "mask") else None)
-        # dense only, as in JAX
-        fused_spatial = fuse_spatial and bell is None and ell is None
-        if fused_spatial:
-            # pre_conv → EmbedS → dropout → SAt → Chebyshev conv in one
-            # kernel pair; ahead of use_pallas, as in JAX
-            spatial_gcn = fused_spatial_middle(
-                TATout, x, pre_w=c(self.pre_conv.weight), pre_b=c(self.pre_conv.bias),
-                pos=c(self.EmbedS.pos_embed.weight), ln_scale=c(self.EmbedS.norm.weight),
-                ln_bias=c(self.EmbedS.norm.bias), wq=wq, wk=wk, adj_pa=adj_pa,
-                masks=masks, cheb_polys=cheb_polys, thetas=thetas, K=spec.K,
-                d_k=spec.d_k, dropout_rate=0.0 if deterministic else spec.dropout_rate,
-                generator=generator)
-        else:
-            x_tat = self.pre_project(TATout)
-            if rows is not None:
-                # whole on every rank, then this rank's rows (backward:
-                # all-gather): its contraction over T·F rounds otherwise at
-                # another row count, and the rounding flips ReLU kinks of
-                # the conv downstream against one device
-                x_tat = rows.take(x_tat, 1)
-            se = x_tat + pos_s[None]
-            SEmx = drop(layer_norm(se, c(self.EmbedS.norm.weight), c(self.EmbedS.norm.bias)),
-                        dim=1)
-            if rows is not None:
-                SEmx = rows.zero_pads(SEmx, 1)  # inert sources of the conv
 
         # pinned_out: the spatial output comes out of a kernel (JAX:
         # a pallas_call), which switches the tail below
@@ -364,11 +398,10 @@ class STBlock(nn.Module):
                 bias_edges=gather_edge_values(adj_pa[None] * masks, ell), thetas=thetas)
         elif bell is None:
             pinned_out = use_pallas
-            STAt = spatial_attention_scores(SEmx, wq=wq, wk=wk, n_heads=spec.K,
-                                            d_k=spec.d_k)
-            conv = cheb_conv_with_sat_pallas if use_pallas else cheb_conv_with_sat
-            spatial_gcn = conv(x, STAt, adj_pa, cheb_polys=cheb_polys, masks=masks,
-                               thetas=thetas)  # (B, N, C, T)
+            conv = functools.partial(self.dense_conv, wq=wq, wk=wk, adj_pa=adj_pa,
+                                     cheb_polys=cheb_polys, masks=masks, thetas=thetas,
+                                     use_pallas=use_pallas)
+            spatial_gcn, STAt = whole(conv, (SEmx, x), (1, 1))  # (B, N, C, T)
         elif masks is None:
             # tile-resident masks: always the tiles kernel
             if bell_tiles is None:
@@ -467,6 +500,15 @@ class STBlock(nn.Module):
         return y.permute(0, 2, 3, 1), re_at, STAt  # (B, N, C, T)
 
 
+def _whole(fn, args, dims, *, rows, outs, generator=None):
+    """``fn(*args)``, a function of whole node axes; on node rows
+    (``rows``) inside a region of ``rows`` (``NodeRows.region``: ``dims``
+    and ``outs`` the node axes of ``args`` and of ``fn``'s outputs)."""
+    if rows is None:
+        return fn(*args)
+    return rows.region(fn, args, dims, outs, generator=generator)
+
+
 def _dropout(t, *, rate, generator, deterministic, rows, dim):
     """:func:`~dstagnn_drought_tpu_torch.ops.nn.dropout` of ``t``, whose node
     axis is ``dim``; on a rank's node rows (``rows``) the mask is drawn at
@@ -518,36 +560,25 @@ def checkpoint_block(block: STBlock, x, res_att, *, generator=None, replay=None,
     :class:`RematReplay` and this block's index) records the block's start
     in an eager step and, under CUDA-graph capture, gives the recompute its
     generator; a capture without it raises."""
-    if generator is None:
-        return checkpoint(functools.partial(block, generator=generator, **kw), x, res_att,
-                          use_reentrant=False, preserve_rng_state=False)
-    capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
-    if capturing:
-        if replay is None:
-            raise RuntimeError("remat with dropout inside a CUDA graph needs a RematReplay")
-        main, again = generator.graphsafe_get_state(), replay[0].generators[replay[1]]
-    else:
-        start = generator.get_state()
-        if replay is not None:
+    fn = functools.partial(block, generator=generator, **kw)
+    if generator is None or not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+        if generator is not None and replay is not None:
             replay[0].starts[replay[1]] = generator.get_offset() - replay[0].origin
+        return recomputed(fn, x, res_att, generator=generator)
+    if replay is None:
+        raise RuntimeError("remat with dropout inside a CUDA graph needs a RematReplay")
+    main, again = generator.graphsafe_get_state(), replay[0].generators[replay[1]]
     runs = []
 
     def run(x, res_att):
         if not runs:
             runs.append(True)
-            return block(x, res_att, generator=generator, **kw)
-        if capturing:  # the recompute, during the backward
-            generator.graphsafe_set_state(again)
-            try:
-                return block(x, res_att, generator=generator, **kw)
-            finally:
-                generator.graphsafe_set_state(main)
-        after = generator.get_state()
-        generator.set_state(start)
+            return fn(x, res_att)
+        generator.graphsafe_set_state(again)  # the recompute, during the backward
         try:
-            return block(x, res_att, generator=generator, **kw)
+            return fn(x, res_att)
         finally:
-            generator.set_state(after)
+            generator.graphsafe_set_state(main)
 
     return checkpoint(run, x, res_att, use_reentrant=False, preserve_rng_state=False)
 
@@ -584,8 +615,9 @@ class DSTAGNN(nn.Module):
                 return_attention: bool = False, halo=None, tp=None, rows=None):
         if bell is not None and ell is not None:
             raise ValueError("give the BELL graph (bell) or the ELL graph (ell), not both")
-        if rows is not None and halo is None:
-            raise ValueError("node rows (rows) need a node-partitioned conv (halo)")
+        if rows is not None and halo is None and (bell is not None or ell is not None):
+            raise ValueError("node rows (rows) on the BELL or ELL path need a "
+                             "node-partitioned conv (halo)")
         x = x.to(compute_dtype)
         adj_pa = adj_pa.to(compute_dtype)
         cheb_polys = cheb_polys.to(compute_dtype)

@@ -7,12 +7,14 @@ placements are the slices a rank holds:
 
   * :func:`batch_sharding` — the rows ``[d·B/D, (d+1)·B/D)`` of each global
     batch that data rank d takes (JAX: ``P('data', ...)``);
-  * :class:`NodeRows` — on the partitioned spatial paths, the node rows
-    ``[g·Np/P, (g+1)·Np/P)`` of the padded node axis that graph rank g holds
-    from the batch to the loss, the TAt and the pre-conv excepted (JAX:
-    ``constrain_batch``'s ``P('data', 'graph')``), and the parameters used
-    on those rows only, whose gradients are summed over 'graph'; every
-    other tensor is whole on every rank (JAX's ``replicated``);
+  * :class:`NodeRows` — on the partitioned spatial paths and the dense
+    path, the node rows ``[g·Np/P, (g+1)·Np/P)`` of the padded node axis
+    that graph rank g holds from the batch to the loss (JAX:
+    ``constrain_batch``'s ``P('data', 'graph')``); what needs the whole
+    node axis runs whole inside a region (:meth:`NodeRows.region`), which
+    keeps only the rows of its inputs for the backward; the parameters used
+    on the rows only have their gradients summed over 'graph'; every other
+    tensor is whole on every rank (JAX's ``replicated``);
   * :func:`tat_tp_shardings` — with ``tp``, the axis each TAt weight is
     split on over 'graph' (wq/wk/wv on their output H·d axis, wo on its
     input H·d axis), with JAX's logged fallback to the whole weight where
@@ -32,6 +34,7 @@ import logging
 import re
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dstagnn_drought_tpu_torch.ops.attention import _sqrt
 from dstagnn_drought_tpu_torch.ops.nn import layer_norm
@@ -57,26 +60,56 @@ def batch_sharding(mesh, batch_size: int) -> slice:
     return slice(mesh.d * rows, (mesh.d + 1) * rows)
 
 
-# the modules computed whole on every graph rank (EmbedT, the TAt, the
-# pre-conv) or whose gradients the partitioned conv's collectives make whole
-# (SAt's W_Q and W_K and the Chebyshev conv: Θ by copy_to, the dense masks
-# by enter, the mask_tiles a slice); every other parameter is used on a
-# rank's rows only
-_WHOLE_GRAD = re.compile(r"(^|\.)(EmbedT|TAt|pre_conv|SAt|cheb_conv_SAt)\.")
+def recomputed(fn, *args, generator=None):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant, the
+    global RNG states left alone): only ``args`` are kept for the backward,
+    which runs ``fn`` again. Where ``fn`` draws dropout from ``generator``
+    (never from the global generators), the recompute starts from the state
+    the forward started from, and so draws the forward's masks, and the
+    state the forward left is put back after it."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    start, runs = generator.get_state(), []
+
+    def run(*a):
+        if not runs:
+            runs.append(True)
+            return fn(*a)
+        after = generator.get_state()  # the recompute, during the backward
+        generator.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+# the modules computed whole on every graph rank, inside a region (EmbedT,
+# the TAt, the pre-conv; on the dense path the SAt and the Chebyshev conv)
+# or whose gradients the partitioned conv's collectives make whole (SAt's
+# W_Q and W_K and the Chebyshev conv: Θ by copy_to, the dense masks by
+# enter, the mask_tiles a slice); every other parameter is used on a rank's
+# rows only
+_WHOLE_GRAD = ("EmbedT", "TAt", "pre_conv", "SAt", "cheb_conv_SAt")
 
 
 class NodeRows:
     """Graph rank g's rows ``[g·Np/P, (g+1)·Np/P)`` of the node axis padded
-    from N to ``n_pad`` (the partitioned plan's Np, which splits evenly over
-    'graph'); rows at N and past are padding. The batch, the block
-    activations after the pre-conv, the predictions and the loss live on
-    these rows; the TAt and the pre-conv run whole."""
+    from N to ``n_pad`` (the partitioned plan's Np, or N padded to a
+    multiple of P on the dense path); rows at N and past are padding. The
+    batch, every activation between the regions, the predictions and the
+    loss live on these rows; EmbedT, the TAt and the pre-conv (and on the
+    dense path the spatial middle) run whole inside :meth:`region`.
+    ``whole`` names modules besides ``_WHOLE_GRAD`` that run whole (EmbedS
+    inside the fused spatial middle's region)."""
 
-    def __init__(self, mesh, n: int, n_pad: int):
+    def __init__(self, mesh, n: int, n_pad: int, whole: tuple = ()):
         self.group, self.n, self.n_pad = mesh.graph_group, n, n_pad
         self.nloc = n_pad // mesh.graph
         self.lo = mesh.g * self.nloc
         self.held = max(0, min(self.nloc, n - self.lo))  # true rows this rank holds
+        self._whole_grad = re.compile(r"(^|\.)(%s)\." % "|".join(_WHOLE_GRAD + tuple(whole)))
 
     def cut(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's rows of a whole tensor, zero where they are padding
@@ -97,6 +130,24 @@ class NodeRows:
         """:meth:`whole` without autograd (predictions)."""
         return comm.all_gather(t, dim, self.group).narrow(dim, 0, self.n)
 
+    def region(self, fn, args: tuple, dims: tuple, outs: tuple, generator=None) -> tuple:
+        """A node-row region: ``fn`` of whole tensors, computed whole as one
+        device computes it, on this rank's rows. Each of ``args`` whose
+        ``dims`` entry is an axis holds this rank's rows on that node axis
+        and is gathered whole (:meth:`whole`); one whose entry is None is
+        passed as it is. Of ``fn``'s outputs, each whose ``outs`` entry is
+        an axis comes back as this rank's rows on it (:meth:`take`); one
+        whose entry is None comes back whole. Only ``args`` are kept for the
+        backward: the region runs again there (:func:`recomputed`, its
+        gathers again, in the same order on every rank of the group, and its
+        dropout, drawn from ``generator``, replayed), so the whole tensors
+        inside live for a moment, not until the backward. The gradients of
+        the weights used inside come out whole and alike on every rank."""
+        def run(*ts):
+            out = fn(*(t if d is None else self.whole(t, d) for t, d in zip(ts, dims)))
+            return tuple(o if d is None else self.take(o, d) for o, d in zip(out, outs))
+        return recomputed(run, *args, generator=generator)
+
     def zero_pads(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """``t`` with its padding rows set to zero (they carry bias terms
         after a block; the partitioned convs take them as inert sources)."""
@@ -107,7 +158,7 @@ class NodeRows:
     def summed(self, model: torch.nn.Module) -> list:
         """The parameters used on this rank's rows only: each rank's
         gradient is its rows' share, summed over 'graph' once."""
-        return [p for name, p in model.named_parameters() if not _WHOLE_GRAD.search(name)]
+        return [p for name, p in model.named_parameters() if not self._whole_grad.search(name)]
 
 
 def tat_tp_shardings(named_params: dict, mesh) -> dict[str, int | None]:

@@ -51,13 +51,17 @@ eval predictions are gathered in the data group before the padded tail is
 cut. Over 'graph' the spatial conv is partitioned where JAX partitions it:
 tile-resident BELL with the targeted block halo (``halo_overlap``: the
 overlapped sublists), dense-mask BELL with the all-gather plan, ELL with
-``halo = "targeted"``; there the node axis is sharded over 'graph' from
-the batch to the loss, as JAX shards it whenever ``graph_axis > 1``
-(:class:`~dstagnn_drought_tpu_torch.parallel.sharding.NodeRows`): each rank
-holds its node rows of the splits and of every activation but those of the
-TAt and the pre-conv, which run whole; the losses are summed over 'graph'
-and the predictions gathered there. Elsewhere (the dense path) activations
-stay whole and the same on every rank of a data row. Under ``tp`` the TAt
+``halo = "targeted"``. There and on DSTAGNN's dense path the node axis is
+sharded over 'graph' from the batch to the loss, as JAX shards it whenever
+``graph_axis > 1``
+(:class:`~dstagnn_drought_tpu_torch.parallel.sharding.NodeRows`; on the
+dense path N padded to a multiple of the axis): each rank holds its node
+rows of the splits and of every activation; what needs the whole node axis
+(EmbedT, the TAt and the pre-conv; the dense spatial middle) runs whole
+inside node-row regions that keep only their inputs' rows and run again
+in the backward; the losses are summed over 'graph' and the predictions
+gathered there. ELL without the targeted halo keeps its activations whole
+and the same on every rank of a data row. Under ``tp`` the TAt
 weights are sliced over 'graph'
 (:mod:`~dstagnn_drought_tpu_torch.parallel.sharding`), and the per-device
 parameter bytes (``tp_report``) are logged once as the ``tp`` event. The dropout
@@ -363,8 +367,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def _partition(self, adj_merge, adj_pa, bell, ell) -> dict:
         """JAX's multi-device wiring on this rank's mesh: the plans of the
-        partitioned spatial conv, the node rows it shards (``self.rows``)
-        and the TAt placement under ``tp``; the model's sliced parameters
+        partitioned spatial conv, the node rows that it or DSTAGNN's dense
+        path shards (``self.rows``) and the TAt placement under ``tp``; the model's sliced parameters
         (``self.layout``) are replaced by this rank's slices. Returns the
         forward's ``halo``/``rows``/``tp`` keywords."""
         t, mesh = self.cfg.training, self.mesh
@@ -399,9 +403,17 @@ class Trainer:
             self.constants["ell"] = ell
             kw["halo"] = (mesh, build_halo_plan(ell, mesh.graph))
             n_pad = ell.num_nodes
-        if "halo" in kw:
-            # the node axis sharded over 'graph' after the pre-conv
-            self.rows = kw["rows"] = NodeRows(mesh, self.spec.num_of_vertices, n_pad)
+        dense = (not t.sparse and mesh.graph > 1
+                 and (t.model_name or "dstagnn").lower() == "dstagnn")
+        if dense:
+            # N padded to a multiple of the axis; with fuse_spatial EmbedS
+            # runs whole, inside the spatial middle's region
+            n_pad = -(-self.spec.num_of_vertices // mesh.graph) * mesh.graph
+        if "halo" in kw or dense:
+            # the node axis sharded over 'graph' from the batch to the loss
+            self.rows = kw["rows"] = NodeRows(
+                mesh, self.spec.num_of_vertices, n_pad,
+                whole=("EmbedS",) if dense and t.fuse_spatial else ())
         self.layout = ParamLayout(mesh, tp_axes, tiles=plan is not None)
         whole = {k: v.detach() for k, v in self.model.state_dict().items()}
         for k, v in whole.items():

@@ -4,21 +4,24 @@ port's single-rank run, from the same weights (JAX's initial parameters,
 carried by ``params_from_jax``) and the same batches, dropout 0: 5-step
 trajectories at (data, graph) = (2, 1), (1, 2) and (2, 2) on the dense, the
 ELL targeted-halo and the BELL-tiles paths (with ``fuse_gtu`` too), and
-(1, 2) with ``tp``. The parameters every rank holds whole stay
-bit-identical across ranks, and the first step's gradients equal the
-single-rank ones where a control without the graph (or data) sum does not.
-On the partitioned paths every block output, conv output and prediction
-of a rank holds its Np/P node rows, and what autograd saves outside the
-whole-node TAt and pre-conv and the spatial conv (whose halo brings other
-ranks' rows) is the single-rank run's share of those rows. Then a
-checkpoint saved by rank 0 and resumed at (1, 2), a checkpoint read by
-JAX's ``import_torch_state_dict``, and the CLI under two gloo ranks started
-through the environment ``torchrun`` sets.
+(1, 2) with ``tp`` and with ``fuse_spatial`` and dropout. The parameters
+every rank holds whole stay bit-identical across ranks, and the first
+step's gradients equal the single-rank ones where a control without the
+graph (or data) sum does not. At graph > 1 every block output, conv output
+and prediction of a rank holds its Np/P node rows; the node-row regions
+(EmbedT, the TAt and the pre-conv; the dense spatial middle) keep only the
+rows of their inputs, and what autograd saves outside them and the
+partitioned conv (whose halo brings other ranks' rows) is the single-rank
+run's share of those rows; a region's forward gives the rows of the whole
+computation bit for bit. Then a checkpoint saved by rank 0 and resumed at
+(1, 2), a checkpoint read by JAX's ``import_torch_state_dict``, and the CLI
+under two gloo ranks started through the environment ``torchrun`` sets.
 
 One module-scoped spawn a world size serves the trajectories (the ranks
 import this file, which imports JAX only inside the tests); the ranks train
 while JAX's runs compile and train, four at a time. JAX's BELL-tiles side runs one tile list a shard where
 the port runs the overlapped sublists: the same function."""
+import functools
 import hashlib
 import json
 import os
@@ -61,15 +64,18 @@ RUNS = {  # name: (world size, [Training] keys)
     # the fused GTU on each rank's node rows (T = FUSE_T, C = 16)
     "tiles_g2_fuse_gtu": (2, dict(graph_axis=2, fuse_gtu=True, nb_chev_filter=16,
                                   nb_time_filter=16, **TILES)),
+    # the TAt and the fused spatial middle in one region, its dropout
+    # replayed in the backward's recompute
+    "dense_g2_fuse_spatial": (2, dict(graph_axis=2, fuse_spatial=True, dropout=0.05)),
 }
 # JAX's BELL-tiles and fused trainers run their Pallas kernels in interpret
 # mode, a minute a run here: the tiles train at (2, 2) on JAX's side, and
 # these runs are held to the port's single-rank run (the partitioned conv
 # to JAX's in test_torch_parallel_conv.py)
-NO_JAX = ("tiles_g2", "dense_g2_tp_fused", "tiles_g2_knobs", "tiles_g2_fuse_gtu")
-# the runs whose node axis is sharded over 'graph' (the partitioned convs)
-ROWS = [name for name, (_, keys) in RUNS.items()
-        if keys.get("graph_axis", 1) > 1 and keys.get("sparse")]
+NO_JAX = ("tiles_g2", "dense_g2_tp_fused", "tiles_g2_knobs", "tiles_g2_fuse_gtu",
+          "dense_g2_fuse_spatial")
+# the runs whose node axis is sharded over 'graph'
+ROWS = [name for name, (_, keys) in RUNS.items() if keys.get("graph_axis", 1) > 1]
 
 
 def _len(keys) -> int:
@@ -126,14 +132,18 @@ SINGLE_CONVS = ("bell_cheb_conv_tiles", "sparse_spatial_attention_scores",
 
 class _Probe:
     """Over the first epoch (one step): the node-axis length of every block
-    output, partitioned conv output and prediction (``shapes``), the bytes
-    autograd saves by region (``saved``: ``temporal``, EmbedT, the TAt and
-    the pre-conv, ``STBlock.temporal`` and ``STBlock.pre_project``, whole on
-    every graph rank; ``conv``, the spatial conv; ``rest``; a tensor
-    saved twice counts twice, parameters do not count) and, in order, the
-    bytes of each tensor saved there (``each``), and the step's
-    gradients as Adam takes them (``grads``) and, where the step sums them
-    over a group, before the first sum (``own``, the control)."""
+    output, partitioned conv output, node-row region output and prediction
+    (``shapes``), the bytes autograd saves by part (``saved``: ``temporal``,
+    EmbedT, the TAt and the pre-conv, ``STBlock.temporal`` and
+    ``STBlock.pre_project``; ``conv``, the spatial conv, with the dense
+    ``STBlock.dense_conv`` and ``STBlock.fused_middle``; ``region``, what a
+    node-row region (``NodeRows.region``) keeps; ``rest``; a tensor saved
+    twice counts twice, parameters do not count) and, in order, the bytes of
+    each tensor saved there (``each``), the bytes of the tensors a region's
+    computation (``STBlock.front``, ``dense_conv``, ``fused_middle``) is
+    given (``inputs``), and the step's gradients as Adam takes them
+    (``grads``) and, where the step sums them over a group, before the
+    first sum (``own``, the control)."""
 
     def __init__(self, tr):
         from dstagnn_drought_tpu_torch.models import dstagnn
@@ -141,20 +151,25 @@ class _Probe:
 
         self.tr, self.dstagnn, self.comm = tr, dstagnn, comm
         self.shapes, self.saved, self.grads, self.own = [], dict.fromkeys(
-            ("temporal", "conv", "rest"), 0), {}, {}
+            ("temporal", "conv", "region", "rest"), 0), {}, {}
         self.each = {k: [] for k in self.saved}
+        self.inputs = []
         self.region = "rest"
         self.params = {p.untyped_storage().data_ptr() for p in tr.model.parameters()}
 
-    def _in(self, region, fn, shape=False):
+    def _in(self, region, fn, shape=None, inputs=False):
         def run(*a, **k):
-            outer, self.region = self.region, region
+            if inputs:  # the tensors after self
+                self.inputs += [t.numel() * t.element_size() for t in a[1:]]
+            outer = self.region
+            self.region = region or outer
             try:
                 out = fn(*a, **k)
             finally:
                 self.region = outer
-            if shape:
-                self.shapes.append(("conv", out.shape[1]))
+            if shape is not None:
+                self.shapes.append((shape, out[0].shape[1] if shape == "region"
+                                    else out.shape[1]))
             return out
         return run
 
@@ -170,14 +185,21 @@ class _Probe:
                 if p.grad is not None}
 
     def __enter__(self):
+        from dstagnn_drought_tpu_torch.parallel.sharding import NodeRows
+
         d, model = self.dstagnn, self.tr.model
-        self.undo = [(d.STBlock, n, getattr(d.STBlock, n)) for n in ("temporal", "pre_project")]
+        methods = {"temporal": "temporal", "pre_project": "temporal", "front": None,
+                   "dense_conv": "conv", "fused_middle": "conv"}
+        self.undo = [(d.STBlock, n, getattr(d.STBlock, n)) for n in methods]
+        self.undo += [(NodeRows, "region", NodeRows.region)]
         self.undo += [(self.comm, "reduce_gradients", self.comm.reduce_gradients)]
         self.undo += [(d, n, getattr(d, n)) for n in PARTITIONED + SINGLE_CONVS]
-        for n in ("temporal", "pre_project"):
-            setattr(d.STBlock, n, self._in("temporal", getattr(d.STBlock, n)))
+        for n, region in methods.items():
+            fn = getattr(d.STBlock, n)
+            setattr(d.STBlock, n, self._in(region, fn, inputs=region != "temporal"))
+        NodeRows.region = self._in("region", NodeRows.region, "region")
         for n in PARTITIONED + SINGLE_CONVS:
-            setattr(d, n, self._in("conv", getattr(d, n), n in PARTITIONED))
+            setattr(d, n, self._in("conv", getattr(d, n), "conv" if n in PARTITIONED else None))
         reduce = self.comm.reduce_gradients
 
         def reduce_first(params, group):
@@ -215,7 +237,7 @@ class _Probe:
         whole = (lambda g: g) if tr.layout is None else tr.layout.whole_state
         numpy = lambda d: {k: v.numpy() for k, v in whole(d).items()}
         rows = tr.rows
-        return dict(shapes=self.shapes, saved=self.saved, each=self.each,
+        return dict(shapes=self.shapes, saved=self.saved, each=self.each, inputs=self.inputs,
                     grads=numpy(self.grads),
                     own=numpy(self.own) if self.own else {},
                     nloc=None if rows is None else rows.nloc)
@@ -254,9 +276,73 @@ def _resume_and_checkpoint(root):
     return out
 
 
+# the TAt placements of the region bits: (fuse_tat, tp)
+REGION_CASES = {"plain": (False, False), "tp": (False, True), "tp_fused": (True, True)}
+
+
+def _region_bits() -> dict:
+    """On this rank of (1, 2), N padded to 32 (two pad rows on rank 1): each
+    block's EmbedT, TAt and pre-conv (``STBlock.front``) inside a node-row
+    region against the same function on the whole input outside it (the
+    single run's arithmetic), for each of REGION_CASES ('tp': head-parallel
+    slices; 'tp_fused': the slices gathered whole for the fused TAt, its
+    plain version here). {case: {"rows", "scores", "grads"}}: the region's
+    output rows, its whole scores, and the gradients of this rank's input
+    rows and of every weight under a cotangent on this rank's rows, each
+    equal bit for bit."""
+    from dstagnn_drought_tpu_torch.models.dstagnn import make_model
+    from dstagnn_drought_tpu_torch.parallel.mesh import make_mesh
+    from dstagnn_drought_tpu_torch.parallel.sharding import (
+        NodeRows,
+        ParamLayout,
+        TensorParallel,
+        tat_tp_shardings,
+    )
+
+    A, pa, x, _ = _data()
+    mesh = make_mesh(1, 2)
+    rows = NodeRows(mesh, N, 32)
+    spec = ModelSpec.from_config(_config(Config, DataConfig, TrainingConfig))
+    g = torch.Generator().manual_seed(3)
+    C = spec.nb_time_filter
+    inputs = (torch.from_numpy(x[:4]), torch.randn(4, N, C, T, generator=g))
+    cot = lambda shape: torch.randn(shape, generator=torch.Generator().manual_seed(4))
+    out = {}
+    for case, (fuse_tat, use_tp) in REGION_CASES.items():
+        model, _ = make_model(spec, A, pa, seed=1, device="cpu")
+        tp = None
+        if use_tp:
+            axes = tat_tp_shardings(dict(model.named_parameters()), mesh)
+            ParamLayout(mesh, axes).shard_(model, dict(model.state_dict()))
+            tp = TensorParallel(mesh, axes, spec.n_heads)
+        res = torch.zeros(())
+        same = dict(rows=True, scores=True, grads=True)
+        for block, xin in zip(model.BlockList, inputs):
+            front = functools.partial(block.front, fuse_tat=fuse_tat, tp=tp)
+            x_rows = rows.cut(xin, 1).requires_grad_()
+            got, got_s = rows.region(front, (x_rows, res), (1, None), (1, None))
+            dy = cot(got.shape)  # this rank's rows of the whole cotangent
+            dy = rows.zero_pads(dy, 1)
+            got_g = torch.autograd.grad(got, [x_rows, *block.parameters()], dy,
+                                        allow_unused=True)
+            x_whole = xin.clone().requires_grad_()
+            want, want_s = front(x_whole, res)
+            dy_whole = rows.gather(dy, 1)
+            want_g = torch.autograd.grad(want, [x_whole, *block.parameters()], dy_whole,
+                                         allow_unused=True)
+            want_g = (rows.cut(want_g[0], 1), *want_g[1:])
+            same["rows"] &= torch.equal(got, rows.cut(want, 1))
+            same["scores"] &= torch.equal(got_s, want_s)
+            same["grads"] &= all((a is None and b is None) or torch.equal(a, b)
+                                 for a, b in zip(got_g, want_g))
+            res = want_s.detach()
+        out[case] = same
+    return out
+
+
 def train_rank(rank, inits, root):
     """One gloo rank: every trajectory of its world size, then (world 2) the
-    checkpoint cases."""
+    checkpoint cases and the region bits."""
     from pathlib import Path
 
     world = torch.distributed.get_world_size()
@@ -266,6 +352,7 @@ def train_rank(rank, inits, root):
             out[name] = _trajectory(Path(root) / name, inits[name], keys)
     if world == 2:
         out["checkpoint"] = _resume_and_checkpoint(Path(root) / "ckpt")
+        out["region_bits"] = _region_bits()
     return out
 
 
@@ -359,7 +446,7 @@ def runs(tmp_path_factory):
     assert set(ranks) == {2, 4}, "a spawn failed (its error is above)"
     out = {name: (jax_side.get(name), single[name], [r[name] for r in ranks[w]])
            for name, (w, _) in RUNS.items()}
-    return out, ranks[2][0]["checkpoint"], root / "jax"
+    return out, ranks[2][0]["checkpoint"], root / "jax", [r["region_bits"] for r in ranks[2]]
 
 
 def _weights_close(got, want, what):
@@ -416,17 +503,23 @@ def test_first_step_gradients_and_the_unsummed_control(runs, name):
 
 @pytest.mark.parametrize("name", ROWS)
 def test_partitioned_runs_hold_node_rows(runs, name):
-    """On the partitioned paths every block output, conv output and
-    prediction of every rank has the rank's Np/P node rows (the single-rank
-    run has N), and each block runs its conv once a forward (and once more
-    in remat's recompute)."""
+    """At graph > 1 every block output, partitioned conv output, node-row
+    region output and prediction of every rank has the rank's Np/P node rows
+    (the single-rank run has N). Each block runs its partitioned conv once a
+    forward, and its regions, EmbedT to the pre-conv and, on the dense path,
+    the spatial middle (one region with ``fuse_spatial``), once a forward;
+    each once more in remat's recompute."""
     _, (_, _, _, single), ranks = runs[0][name]
+    keys = RUNS[name][1]
     nb = BASE["nb_block"]
-    convs = nb * (2 if RUNS[name][1].get("remat") else 1)
+    again = 2 if keys.get("remat") else 1
+    dense = not keys.get("sparse")
+    convs = 0 if dense else nb * again
+    regions = nb * again * (2 if dense and not keys.get("fuse_spatial") else 1)
     for probe in (r[3] for r in ranks):
         kinds = [k for k, _ in probe["shapes"]]
         assert kinds.count("block") == nb and kinds.count("conv") == convs
-        assert kinds.count("prediction") == 1
+        assert kinds.count("region") == regions and kinds.count("prediction") == 1
         assert {n for _, n in probe["shapes"]} == {probe["nloc"]}, probe["shapes"]
     assert {n for _, n in single["shapes"]} == {N}
 
@@ -434,28 +527,52 @@ def test_partitioned_runs_hold_node_rows(runs, name):
 @pytest.mark.parametrize("name", [n for n in ROWS if not RUNS[n][1].get("remat")])
 def test_saved_activations_split_over_graph(runs, name):
     """What autograd saves in a rank's first forward against the
-    single-rank run's, tensor by tensor in order: in EmbedT, the TAt and the
-    pre-conv (whole on every graph rank) each tensor as the single run saves it, or
-    its data rank's batch share; outside them and the spatial conv, each
-    tensor the rank's share of the node rows (Np/P of N, and of the batch)
-    or, with no node axis (a weight's copy, the per-sample loss terms), as
-    the single run saves it (or its batch share), the rows' share more than
-    half of the bytes. The conv's part is counted apart: its exchange
+    single-rank run's, tensor by tensor in order. The node-row regions
+    (EmbedT, the TAt and the pre-conv; on the dense path the spatial middle)
+    keep only their inputs: each the rank's share of the tensor the single
+    run gives the same computation (Np/P of N, and of the batch) or, with no
+    node axis (the scores; a rank's heads under ``tp``), as the single run
+    gives it or its batch share; nothing is saved inside them, where the
+    single run keeps its whole activations. Outside them and the partitioned
+    conv, each tensor the rank's share of the node rows or, with no node
+    axis (a weight's copy, the per-sample loss terms), as the single run
+    saves it (or its batch share), the rows' share more than half of the
+    bytes. The partitioned conv's part is counted apart: its exchange
     brings other ranks' source rows (at this N a rank's compact table can
     hold every block)."""
     _, (_, _, _, single), ranks = runs[0][name]
     D = RUNS[name][1].get("data_axis", 1)
+    dense = not RUNS[name][1].get("sparse")
     for probe in (r[3] for r in ranks):
         share = (probe["nloc"], N * D)  # (numerator, denominator)
-        for region, kinds in (("temporal", ((1, 1), (1, D))),
-                              ("rest", ((1, 1), (1, D), share))):
-            mine, whole = probe["each"][region], single["each"][region]
-            assert len(mine) == len(whole), region
+        assert probe["each"]["temporal"] == [] and single["each"]["temporal"]
+        if dense:
+            assert probe["each"]["conv"] == [] and single["each"]["conv"]
+        for mine, whole, kinds in ((probe["each"]["region"], single["inputs"],
+                                    ((1, 1), (1, D), share)),
+                                   (probe["each"]["rest"], single["each"]["rest"],
+                                    ((1, 1), (1, D), share))):
+            assert len(mine) == len(whole)
             assert all(any(m * den == w * num for num, den in kinds)
-                       for m, w in zip(mine, whole)), region
+                       for m, w in zip(mine, whole)), (mine, whole)
+        # every region keeps the rank's rows of a node-axis input
+        assert sum(m * share[1] == w * share[0] and m * D != w
+                   for m, w in zip(probe["each"]["region"], single["inputs"])) >= (
+            len(single["inputs"]) // 2)
         rows = sum(m for m, w in zip(probe["each"]["rest"], single["each"]["rest"])
                    if m * share[1] == w * share[0] and m * D != w)
         assert 2 * rows > probe["saved"]["rest"], (rows, probe["saved"])
+
+
+@pytest.mark.parametrize("case", list(REGION_CASES))
+def test_region_rows_equal_the_whole_computation_bit_for_bit(runs, case):
+    """The design's premise, on both ranks: a node-row region computes what
+    one device computes. EmbedT, the TAt and the pre-conv inside the region,
+    on the rank's rows, give the rows of the same function on the whole
+    input bit for bit, its scores whole and equal, and, through the
+    recompute in the backward, the same input-row and weight gradients."""
+    for rank, bits in enumerate(runs[3]):
+        assert bits[case] == dict(rows=True, scores=True, grads=True), (rank, bits[case])
 
 
 def test_checkpoint_resume_equals_straight_run(runs):
@@ -560,8 +677,8 @@ def cli_rank(rank, conf, exp, port, flags):
 def test_cli_graph_axis_under_two_gloo_ranks(tmp_path):
     """``--graph-axis 2`` (and ``--distributed``) under two ranks started
     through RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT: gloo on the CPU, rank 0
-    alone writes, and the dense model, whole on both ranks, predicts what
-    the single-process CLI predicts."""
+    alone writes, and the dense model, on each rank's node rows, predicts
+    what the single-process CLI predicts."""
     conf = str(_project(tmp_path))
     single = train_cli.main(["--config", conf, "--experiments-root", str(tmp_path / "one"),
                              "--device", "cpu"])
